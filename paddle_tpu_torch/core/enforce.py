@@ -1,0 +1,55 @@
+"""Structured error checking (the ``PADDLE_ENFORCE*`` family).
+
+The port's own copy of the error types and ``enforce*`` helpers of
+``paddle_tpu.core.enforce``, so the two packages raise the same kinds of
+error for the same misuse.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NoReturn
+
+__all__ = [
+    "EnforceNotMet",
+    "InvalidArgumentError",
+    "PreconditionNotMetError",
+    "UnavailableError",
+    "enforce",
+    "enforce_eq",
+    "enforce_le",
+]
+
+
+class EnforceNotMet(RuntimeError):
+    """Base error for all enforce failures (``platform::EnforceNotMet``)."""
+
+
+class InvalidArgumentError(EnforceNotMet, ValueError):
+    pass
+
+
+class PreconditionNotMetError(EnforceNotMet):
+    pass
+
+
+class UnavailableError(EnforceNotMet):
+    pass
+
+
+def _fail(err_cls: type, msg: str) -> NoReturn:
+    raise err_cls(msg)
+
+
+def enforce(cond: Any, msg: str = "", err_cls: type = PreconditionNotMetError) -> None:
+    if not cond:
+        _fail(err_cls, msg or "enforce failed")
+
+
+def enforce_eq(a: Any, b: Any, msg: str = "") -> None:
+    if a != b:
+        _fail(InvalidArgumentError, f"expected {a!r} == {b!r}. {msg}")
+
+
+def enforce_le(a: Any, b: Any, msg: str = "") -> None:
+    if not a <= b:
+        _fail(InvalidArgumentError, f"expected {a!r} <= {b!r}. {msg}")

@@ -1,0 +1,108 @@
+// Static bucketized cuckoo hash build: uint64 feasign -> int32 row.
+//
+// The TPU-build counterpart of the reference's GPU-resident hashtable
+// (paddle/fluid/framework/fleet/heter_ps/hashtable.h:50, vendored cuDF
+// concurrent_unordered_map): the reference looks feasigns up on-device
+// inside the train loop (HashTable::get kernels, hashtable_inl.h) so the
+// host never touches per-batch keys. Here the table is built ON HOST once
+// per pass (this file; the HeterComm build_ps bulk-insert analogue) into
+// flat arrays the Python layer uploads to HBM, and the per-batch probe
+// runs inside the compiled step (ps/device_hash.py) as two fixed bucket
+// gathers — bounded, branch-free, XLA-friendly.
+//
+// Layout: nbuckets (power of two) buckets x 4 slots, SoA (hi, lo, row);
+// empty slots have row == -1. Two hash functions pick candidate buckets;
+// insertion uses random-walk eviction. Load factor <= 0.5 by
+// construction (python chooses nbuckets), so builds virtually never fail;
+// on failure the caller retries with a fresh seed.
+//
+// This is paddle_tpu_torch's own copy of paddle_tpu/csrc/cuckoo.cc: the
+// two packages build separately and must agree bit-for-bit on the table
+// layout. The 32-bit mixer below must match _mix32 in
+// paddle_tpu_torch/ps/device_hash.py, which recomputes these hashes on
+// the device in int64 arithmetic masked to 32 bits.
+//
+// Lock hierarchy: NONE — the build is single-threaded per call and owns
+// its output buffers; there are no mutexes in this translation unit.
+
+#include <cstdint>
+#include <cstring>
+#include <random>
+#include <vector>
+
+namespace {
+
+constexpr int kSlots = 4;
+constexpr int kMaxKicks = 512;
+
+inline uint32_t mix32(uint32_t hi, uint32_t lo, uint32_t seed) {
+  uint32_t h = seed;
+  h ^= hi;
+  h *= 0x85ebca6bu;
+  h ^= h >> 13;
+  h ^= lo;
+  h *= 0xc2b2ae35u;
+  h ^= h >> 16;
+  return h;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Build the table. Returns 0 on success, or the number of keys that could
+// not be placed (caller retries with a different seed). Buffers:
+//   out_hi, out_lo: nbuckets*4 uint32;  out_row: nbuckets*4 int32.
+int64_t cuckoo_build(const uint64_t* keys, const int32_t* rows, int64_t n,
+                     int64_t nbuckets, uint32_t seed, uint32_t* out_hi,
+                     uint32_t* out_lo, int32_t* out_row) {
+  const uint64_t mask = static_cast<uint64_t>(nbuckets) - 1;
+  std::memset(out_hi, 0, sizeof(uint32_t) * nbuckets * kSlots);
+  std::memset(out_lo, 0, sizeof(uint32_t) * nbuckets * kSlots);
+  std::memset(out_row, 0xff, sizeof(int32_t) * nbuckets * kSlots);  // -1
+
+  std::mt19937 rng(seed ^ 0x9e3779b9u);
+  int64_t failures = 0;
+
+  for (int64_t i = 0; i < n; ++i) {
+    uint32_t hi = static_cast<uint32_t>(keys[i] >> 32);
+    uint32_t lo = static_cast<uint32_t>(keys[i]);
+    int32_t row = rows[i];
+    bool placed = false;
+    for (int kick = 0; kick < kMaxKicks && !placed; ++kick) {
+      uint64_t b1 = mix32(hi, lo, seed) & mask;
+      uint64_t b2 = mix32(hi, lo, seed ^ 0x7feb352du) & mask;
+      for (uint64_t b : {b1, b2}) {
+        for (int s = 0; s < kSlots; ++s) {
+          int64_t idx = static_cast<int64_t>(b) * kSlots + s;
+          if (out_row[idx] < 0) {
+            out_hi[idx] = hi;
+            out_lo[idx] = lo;
+            out_row[idx] = row;
+            placed = true;
+            break;
+          }
+        }
+        if (placed) break;
+      }
+      if (!placed) {
+        // evict a random slot from a random candidate bucket
+        uint64_t b = (rng() & 1) ? b1 : b2;
+        int s = static_cast<int>(rng() % kSlots);
+        int64_t idx = static_cast<int64_t>(b) * kSlots + s;
+        uint32_t ehi = out_hi[idx], elo = out_lo[idx];
+        int32_t erow = out_row[idx];
+        out_hi[idx] = hi;
+        out_lo[idx] = lo;
+        out_row[idx] = row;
+        hi = ehi;
+        lo = elo;
+        row = erow;
+      }
+    }
+    if (!placed) ++failures;
+  }
+  return failures;
+}
+
+}  // extern "C"

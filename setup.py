@@ -56,9 +56,11 @@ setup(
                  "parameter-server sparse training (CTR), hybrid "
                  "dp/tp/pp/cp/ep parallelism, compiled train steps over "
                  "JAX/XLA/Pallas with a C++ host runtime"),
-    packages=find_packages(include=["paddle_tpu", "paddle_tpu.*"]),
+    packages=find_packages(include=["paddle_tpu", "paddle_tpu.*",
+                                   "paddle_tpu_torch", "paddle_tpu_torch.*"]),
     package_data={"paddle_tpu": ["csrc/*.cc", "csrc/*.h", "csrc/Makefile",
-                                 "csrc/*.so"]},
+                                 "csrc/*.so"],
+                  "paddle_tpu_torch": ["csrc/*.cc", "ops/csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],
     cmdclass={"build_py": BuildPy, "build_native": BuildNative},
