@@ -6,9 +6,10 @@ importing jax) and return the port's tensors, so both packages can
 compute the same step from the same start.
 
 Layouts: the JAX ``Linear`` weight is ``[in, out]`` (paddle convention),
-torch's ``[out, in]``, so 2-D parameters are transposed. Cache and map
-state keep the JAX layout (see ``ps.embedding_cache``); the map's uint32
-hi/lo/seed widen to int64 (``ps.device_hash``).
+torch's ``[out, in]``, so 2-D parameters are transposed. Cache and tier
+state keep the JAX layout (see ``ps.embedding_cache``); the static map's
+uint32 hi/lo/seed widen to int64, the dynamic map's stay 32-bit patterns
+in int32 tensors (``ps.device_hash``).
 """
 
 from __future__ import annotations
@@ -18,20 +19,23 @@ from typing import Dict, Mapping, Union
 import numpy as np
 import torch
 
-from .ps.device_hash import map_state_to_device
+from .ps.device_hash import dynamic_map_state_to_device, map_state_to_device
 
 __all__ = ["adam_state_from_jax", "cache_state_from_jax",
-           "deepfm_params_from_jax", "map_state_from_jax"]
+           "deepfm_params_from_jax", "dynamic_map_state_from_jax",
+           "map_state_from_jax"]
 
 Device = Union[str, torch.device]
 
 
-def deepfm_params_from_jax(named_params: Mapping[str, np.ndarray],
+def deepfm_params_from_jax(named_params: Mapping,
                            device: Device = "cpu") -> Dict[str, torch.Tensor]:
-    """JAX ``named_parameters()`` → the port's params dict (a DeepFM
-    ``state_dict``): same names, 2-D weights transposed to [out, in]."""
+    """JAX ``named_parameters()`` — or a trainer's ``{"params": ...,
+    "buffers": {}}`` tree (the stream trainer's ``params``) → the port's
+    params dict (a DeepFM ``state_dict``): same names, 2-D weights
+    transposed to [out, in]."""
     out = {}
-    for k, v in named_params.items():
+    for k, v in named_params.get("params", named_params).items():
         a = np.asarray(v, np.float32)
         out[k] = torch.from_numpy(np.array(a.T if a.ndim == 2 else a, order="C")).to(device)
     return out
@@ -42,18 +46,16 @@ def adam_state_from_jax(opt_state: Mapping, device: Device = "cpu") -> dict:
     each slot tree {"params": {...}, "buffers": {}}) → the port's
     ``optimizer.Adam`` state ({"step", "m", "v"})."""
     slots = opt_state["slots"]
-
-    def tree(t):
-        return deepfm_params_from_jax(t.get("params", t), device)
-
     return {"step": torch.tensor(int(np.asarray(opt_state["step"])),
                                  dtype=torch.int64, device=device),
-            "m": tree(slots["m"]), "v": tree(slots["v"])}
+            "m": deepfm_params_from_jax(slots["m"], device),
+            "v": deepfm_params_from_jax(slots["v"], device)}
 
 
 def cache_state_from_jax(state: Mapping[str, np.ndarray],
                          device: Device) -> Dict[str, torch.Tensor]:
-    """Cache columns (show, click, embed_w, ...) → f32 tensors on ``device``."""
+    """Cache or hot-tier columns (show, click, embed_w, embed_state,
+    embedx_w, embedx_state, has_embedx) → f32 tensors on ``device``."""
     return {k: torch.from_numpy(np.array(v, np.float32)).to(device)
             for k, v in state.items()}
 
@@ -61,3 +63,13 @@ def cache_state_from_jax(state: Mapping[str, np.ndarray],
 def map_state_from_jax(state: Mapping, device: Device) -> Dict[str, torch.Tensor]:
     """A ``DeviceKeyMap.state`` (hi, lo, row, seed) → the port's map."""
     return map_state_to_device(state, torch.device(device))
+
+
+def dynamic_map_state_from_jax(arrays: Mapping, device: Device) -> Dict[str, torch.Tensor]:
+    """A ``DynamicDeviceKeyMap``'s arrays (uint32 ``hi``/``lo`` and int32
+    ``row`` [nbuckets, slots], uint32 ``seed``) → the port's map state
+    (int32 bit patterns), ready for ``dynamic_map_lookup`` and
+    ``hot_probe_gather``."""
+    return dynamic_map_state_to_device(np.asarray(arrays["hi"]), np.asarray(arrays["lo"]),
+                                       np.asarray(arrays["row"]), np.asarray(arrays["seed"]),
+                                       torch.device(device))

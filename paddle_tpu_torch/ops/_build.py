@@ -22,7 +22,8 @@ import shutil
 import subprocess
 from typing import Callable, List, Sequence
 
-__all__ = ["BUILD_DIR", "BuildError", "build_shared_library", "find_nvcc"]
+__all__ = ["BUILD_DIR", "BuildError", "build_cuda_library", "build_shared_library",
+           "find_nvcc"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -76,3 +77,20 @@ def build_shared_library(name: str, sources: Sequence[str],
                              f"{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)
     return out
+
+
+def build_cuda_library(name: str, cu: str, headers: Sequence[str] = ()) -> str:
+    """Compile one ``.cu`` source into a shared library with a plain C
+    interface for ``sm_90a``; ``headers`` it includes join the digest.
+
+    ``--fmad=false`` with nvcc's IEEE division and square root (never
+    fast-math): every f32 operation rounds separately, the rounding
+    contract the rule math shares with the JAX package and the host
+    tables."""
+
+    def command(out: str) -> List[str]:
+        return [find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                "-std=c++17", "-O3", "--fmad=false", "-shared", "-Xcompiler",
+                "-fPIC", "-o", out, cu]
+
+    return build_shared_library(name, (cu, *headers), command)

@@ -1,0 +1,319 @@
+"""Kernels of the persistent hot tier: plain PyTorch versions and CUDA.
+
+Port of ``paddle_tpu.ops.hot_kernels``. Two kernels carry the hot tier's
+step, and a third entry of the same source makes the pass cache's merge
+deterministic:
+
+- :func:`hot_probe_gather` — the bucketized linear probe of the dynamic
+  key map (``ps.device_hash.DynamicDeviceKeyMap``) fused with the gather
+  of ``embed_w ++ embedx_w``: keys → (rows [n] int32, −1 = missing;
+  pulled [n, 1+dim], zeros when missing). Its plain version is
+  ``dynamic_map_lookup`` + the sentinel-safe gather.
+- :func:`hot_scatter_apply` — the push: the merge_grad dedup (rows
+  sorted stably, duplicates summed in occurrence order) and the per-row
+  CTR rule applied to the tier state IN PLACE (the JAX package returns
+  fresh arrays). Rows < 0 or ≥ C drop.
+- :func:`merge_sparse_grads` — the dedup alone, in the layout of
+  ``jnp.unique(size=n, fill_value=C)`` + ``segment_sum``: ``uniq`` [n]
+  sorted and padded with ``capacity``, sums [n].
+
+On a CUDA tensor each wrapper launches its hand-written kernel
+(``ops/csrc/hot_kernels.cu``, nvcc ``sm_90a``, built at first use; the
+rule is ``ops/csrc/ctr_rule.cuh``, shared with ``ctr_sparse_rows``) and
+counts one in ``<fn>.launches``; on a CPU tensor it runs the plain
+version. There is no fallback between the two.
+
+Summation order is part of the contract: the JAX package sums
+duplicates with ``segment_sum`` in occurrence order from 0.0. The plain
+merge does the same with ``index_add_`` on the CPU; the kernels walk a
+stable sort of the rows, which visits each row's entries in occurrence
+order, so the card's sums are bit-equal to the CPU's and reproducible
+from run to run (CUDA ``index_add_`` would sum with atomics in no fixed
+order).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..core.enforce import InvalidArgumentError, enforce
+from ..ps.device_hash import dynamic_map_lookup
+from ._build import build_cuda_library
+from .sparse_optimizer import _RULE_IDS, fused_row_update, rule_state_dim
+
+__all__ = ["hot_probe_gather", "hot_probe_gather_plain", "hot_scatter_apply",
+           "hot_scatter_apply_plain", "load_hot_kernels", "merge_sparse_grads",
+           "merge_sparse_grads_plain"]
+
+_COLUMNS = ("show", "click", "embed_w", "embed_state", "embedx_w",
+            "embedx_state", "has_embedx")
+_F32 = torch.float32
+
+# -- plain versions ------------------------------------------------------
+
+
+def merge_sparse_grads_plain(rows: torch.Tensor, grads: torch.Tensor,
+                             shows: torch.Tensor, clicks: torch.Tensor,
+                             capacity: int):
+    """The plain merge: ``torch.unique`` + ``index_add_`` into zeros. On
+    the CPU ``index_add_`` sums in occurrence order, bit-equal to the JAX
+    package's ``segment_sum``; on CUDA it sums with atomics (timing
+    yardstick only — the card's merge is the kernel)."""
+    n = rows.shape[0]
+    u, inv = torch.unique(rows, sorted=True, return_inverse=True)
+    uniq = torch.full((n,), capacity, dtype=rows.dtype, device=rows.device)
+    uniq[: u.shape[0]] = u
+    show_sum = torch.zeros(n, dtype=shows.dtype, device=shows.device).index_add_(0, inv, shows)
+    click_sum = torch.zeros(n, dtype=clicks.dtype, device=clicks.device).index_add_(0, inv, clicks)
+    g = torch.zeros((n, grads.shape[1]), dtype=grads.dtype,
+                    device=grads.device).index_add_(0, inv, grads)
+    return uniq, show_sum, click_sum, g
+
+
+def hot_probe_gather_plain(map_state: Dict[str, torch.Tensor], keys_hi: torch.Tensor,
+                           keys_lo: torch.Tensor, tier_state: Dict[str, torch.Tensor],
+                           *, probe_buckets: int, banks: int = 1):
+    """``dynamic_map_lookup`` + the sentinel-safe gather: (rows [n]
+    int32, −1 = missing; pulled [n, 1+dim], zeros for a missing key)."""
+    rows = dynamic_map_lookup(map_state, keys_hi, keys_lo, probe_buckets, banks)
+    C = tier_state["embed_w"].shape[0]
+    safe = rows.clamp(0, C - 1).to(torch.int64)
+    pulled = torch.cat([tier_state["embed_w"][safe], tier_state["embedx_w"][safe]], dim=1)
+    pulled = torch.where((rows >= 0)[:, None], pulled,
+                         torch.zeros((), dtype=pulled.dtype, device=pulled.device))
+    return rows, pulled
+
+
+def _rule_kwargs(cfg) -> dict:
+    sgd = cfg.sgd
+    return dict(embed_rule=cfg.embed_rule, embedx_rule=cfg.embedx_rule,
+                lr=sgd.learning_rate, initial_g2sum=sgd.initial_g2sum,
+                wmin=sgd.weight_bounds[0], wmax=sgd.weight_bounds[1],
+                beta1=sgd.beta1, beta2=sgd.beta2, eps=sgd.ada_epsilon,
+                nonclk_coeff=cfg.nonclk_coeff, click_coeff=cfg.click_coeff,
+                embedx_threshold=cfg.embedx_threshold,
+                create_applies_grad=cfg.create_applies_grad)
+
+
+def hot_scatter_apply_plain(state: Dict[str, torch.Tensor], rows: torch.Tensor,
+                            grads: torch.Tensor, shows: torch.Tensor,
+                            clicks: torch.Tensor, cfg) -> Dict[str, torch.Tensor]:
+    """The plain push: merge (``merge_sparse_grads_plain``), gather the
+    touched rows, ``fused_row_update``, write them back in place. Rows
+    < 0 or ≥ C drop. Returns ``state``."""
+    C = state["embed_w"].shape[0]
+    dim = state["embedx_w"].shape[1]
+    uniq, show_sum, click_sum, g = merge_sparse_grads_plain(rows, grads, shows, clicks, C)
+    valid = (uniq >= 0) & (uniq < C)
+    idx = uniq[valid].to(torch.int64)
+    new = fused_row_update(*(state[k][idx] for k in _COLUMNS), show_sum[valid],
+                           click_sum[valid], g[valid, :1], g[valid, 1:], dim=dim,
+                           **_rule_kwargs(cfg))
+    for k, v in zip(_COLUMNS, new):
+        if state[k].numel():  # zero-width state (naive rule) has nothing to write
+            state[k][idx] = v
+    return state
+
+
+# -- the CUDA kernels -----------------------------------------------------
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_LOCK = threading.Lock()
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def load_hot_kernels() -> ctypes.CDLL:
+    """Build (first use) and load ``hot_kernels.cu``; raises on failure."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(build_cuda_library(
+                "hot_kernels", os.path.join(_CSRC, "hot_kernels.cu"),
+                (os.path.join(_CSRC, "ctr_rule.cuh"),)))
+            p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+            lib.hot_probe_gather_launch.restype = i32
+            lib.hot_probe_gather_launch.argtypes = (
+                [p] * 10 + [i64, i64, i32, i32, i32, i64, i32, p])
+            lib.hot_scatter_apply_launch.restype = i32
+            lib.hot_scatter_apply_launch.argtypes = (
+                [p] * 12 + [i64, i64] + [i32] * 6 + [f32] * 10 + [p])
+            lib.segment_merge_launch.restype = i32
+            lib.segment_merge_launch.argtypes = [p] * 10 + [i64, i32, p]
+            lib.hot_kernels_max_dim.restype = i32
+            lib.hot_kernels_max_dim.argtypes = []
+            _LIB = lib
+        return _LIB
+
+
+def _ptr(t: torch.Tensor) -> Optional[int]:
+    # a zero-width state column has no storage; the kernel never reads it
+    return t.data_ptr() if t.numel() else None
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check(name: str, tensors, dtype, device) -> None:
+    for t in tensors:
+        enforce(t.dtype == dtype, f"{name}: expected {dtype}, got {t.dtype}",
+                InvalidArgumentError)
+        enforce(t.device == device, f"{name}: all tensors must be on one device",
+                InvalidArgumentError)
+        enforce(t.is_contiguous(), f"{name}: inputs must be contiguous",
+                InvalidArgumentError)
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _sort_rows(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable sort of the rows (the library step in front of the walk):
+    each row's entries stay in occurrence order. No host sync."""
+    srows, perm = torch.sort(rows.to(torch.int64), stable=True)
+    return srows.contiguous(), perm.contiguous()
+
+
+def merge_sparse_grads(rows: torch.Tensor, grads: torch.Tensor, shows: torch.Tensor,
+                       clicks: torch.Tensor, capacity: int):
+    """merge_grad (the cub sort+reduce step, heter_comm_inl.h:388):
+    ``uniq`` [n] sorted distinct rows padded with ``capacity``, and the
+    show/click/grad sums [n] in occurrence order from 0.0. CPU tensors run
+    :func:`merge_sparse_grads_plain`; CUDA tensors sort and launch the
+    merge kernel (no host sync; bit-equal to the CPU for the same inputs)."""
+    n = rows.shape[0]
+    dev = rows.device
+    if dev.type == "cpu":
+        return merge_sparse_grads_plain(rows, grads, shows, clicks, capacity)
+    enforce(dev.type == "cuda", f"merge_sparse_grads: no kernel for device {dev}",
+            InvalidArgumentError)
+    width = grads.shape[1]
+    enforce(tuple(grads.shape) == (n, width) and tuple(shows.shape) == (n,)
+            and tuple(clicks.shape) == (n,),
+            "merge_sparse_grads: rows [n], grads [n, w], shows [n], clicks [n]",
+            InvalidArgumentError)
+    _check("merge_sparse_grads", (grads, shows, clicks), _F32, dev)
+    lib = load_hot_kernels()
+    enforce(width <= 1 + lib.hot_kernels_max_dim(),
+            f"merge_sparse_grads: grad width {width} above the kernel's "
+            f"{1 + lib.hot_kernels_max_dim()}", InvalidArgumentError)
+    srows, perm = _sort_rows(rows)
+    starts = torch.ones(n, dtype=torch.int64, device=dev)
+    if n > 1:
+        starts[1:] = (srows[1:] != srows[:-1]).to(torch.int64)
+    seg = torch.cumsum(starts, 0) - 1
+    uniq = torch.full((n,), capacity, dtype=torch.int64, device=dev)
+    show_sum = torch.zeros(n, dtype=_F32, device=dev)
+    click_sum = torch.zeros(n, dtype=_F32, device=dev)
+    g = torch.zeros((n, width), dtype=_F32, device=dev)
+    if n:
+        _raise_on(lib.segment_merge_launch(
+            srows.data_ptr(), perm.data_ptr(), seg.data_ptr(), shows.data_ptr(),
+            clicks.data_ptr(), grads.data_ptr(), uniq.data_ptr(),
+            show_sum.data_ptr(), click_sum.data_ptr(), g.data_ptr(), n, width,
+            _stream(rows)), "segment_merge")
+        merge_sparse_grads.launches += 1
+    return uniq.to(rows.dtype), show_sum, click_sum, g
+
+
+def hot_probe_gather(map_state: Dict[str, torch.Tensor], keys_hi: torch.Tensor,
+                     keys_lo: torch.Tensor, tier_state: Dict[str, torch.Tensor],
+                     *, probe_buckets: int, banks: int = 1):
+    """Fused probe+gather: keys → (rows [n] int32, −1 = missing; pulled
+    [n, 1+dim] f32, zeros for a missing key). ``map_state`` holds
+    ``hi``/``lo``/``row`` int32 [nbuckets, slots] and the 0-dim int32
+    ``seed`` (uint32 bit patterns); on CUDA the keys are int32 [n] bit
+    patterns too. Bit-identical to :func:`hot_probe_gather_plain`."""
+    dev = keys_lo.device
+    if dev.type == "cpu":
+        return hot_probe_gather_plain(map_state, keys_hi, keys_lo, tier_state,
+                                      probe_buckets=probe_buckets, banks=banks)
+    enforce(dev.type == "cuda", f"hot_probe_gather: no kernel for device {dev}",
+            InvalidArgumentError)
+    n = keys_lo.shape[0]
+    nbuckets, bslots = map_state["row"].shape
+    ew, xw = tier_state["embed_w"], tier_state["embedx_w"]
+    C, dim = xw.shape
+    enforce(banks >= 1 and (banks & (banks - 1)) == 0 and nbuckets % banks == 0
+            and ((nbuckets // banks) & (nbuckets // banks - 1)) == 0,
+            f"hot_probe_gather: banks {banks} must be a power of two dividing "
+            f"the power-of-two bucket count {nbuckets}", InvalidArgumentError)
+    enforce(tuple(keys_hi.shape) == (n,) and tuple(ew.shape) == (C, 1),
+            "hot_probe_gather: keys_hi/keys_lo [n], embed_w [C, 1]",
+            InvalidArgumentError)
+    _check("hot_probe_gather", (keys_hi, keys_lo, map_state["hi"], map_state["lo"],
+                                map_state["row"], map_state["seed"]), torch.int32, dev)
+    _check("hot_probe_gather", (ew, xw), _F32, dev)
+    rows = torch.empty(n, dtype=torch.int32, device=dev)
+    pulled = torch.empty((n, 1 + dim), dtype=_F32, device=dev)
+    if n:
+        _raise_on(load_hot_kernels().hot_probe_gather_launch(
+            map_state["hi"].data_ptr(), map_state["lo"].data_ptr(),
+            map_state["row"].data_ptr(), map_state["seed"].data_ptr(),
+            keys_hi.data_ptr(), keys_lo.data_ptr(), ew.data_ptr(), xw.data_ptr(),
+            rows.data_ptr(), pulled.data_ptr(), n, nbuckets, bslots,
+            int(probe_buckets), int(banks), C, dim, _stream(keys_lo)),
+            "hot_probe_gather")
+        hot_probe_gather.launches += 1
+    return rows, pulled
+
+
+def hot_scatter_apply(state: Dict[str, torch.Tensor], rows: torch.Tensor,
+                      grads: torch.Tensor, shows: torch.Tensor, clicks: torch.Tensor,
+                      cfg) -> Dict[str, torch.Tensor]:
+    """Fused push, in place: merge the batch's rows (stable sort,
+    occurrence-order sums) and apply the per-row CTR rule of ``cfg`` (a
+    ``CacheConfig``) to each touched row of ``state``; rows < 0 or ≥ C
+    drop. Returns ``state``. Bit-identical to
+    :func:`hot_scatter_apply_plain` and to ``cache_push_sparse``."""
+    dev = rows.device
+    C = state["embed_w"].shape[0]
+    dim = state["embedx_w"].shape[1]
+    es = rule_state_dim(cfg.embed_rule, 1)
+    xs = rule_state_dim(cfg.embedx_rule, dim)
+    enforce(state["embed_state"].shape[1] == es and state["embedx_state"].shape[1] == xs,
+            f"optimizer-state width mismatch: embed_state "
+            f"{tuple(state['embed_state'].shape)} vs {es}, embedx_state "
+            f"{tuple(state['embedx_state'].shape)} vs {xs}")
+    if dev.type == "cpu":
+        return hot_scatter_apply_plain(state, rows, grads, shows, clicks, cfg)
+    enforce(dev.type == "cuda", f"hot_scatter_apply: no kernel for device {dev}",
+            InvalidArgumentError)
+    n = rows.shape[0]
+    enforce(tuple(grads.shape) == (n, 1 + dim) and tuple(shows.shape) == (n,)
+            and tuple(clicks.shape) == (n,),
+            "hot_scatter_apply: rows [n], grads [n, 1+dim], shows [n], clicks [n]",
+            InvalidArgumentError)
+    lib = load_hot_kernels()
+    enforce(dim <= lib.hot_kernels_max_dim(),
+            f"hot_scatter_apply: embedx dim {dim} above the kernel's "
+            f"{lib.hot_kernels_max_dim()}", InvalidArgumentError)
+    _check("hot_scatter_apply", (grads, shows, clicks, *(state[k] for k in _COLUMNS)),
+           _F32, dev)
+    if n:
+        kw = _rule_kwargs(cfg)
+        srows, perm = _sort_rows(rows)
+        _raise_on(lib.hot_scatter_apply_launch(
+            srows.data_ptr(), perm.data_ptr(), shows.data_ptr(), clicks.data_ptr(),
+            grads.data_ptr(), *(_ptr(state[k]) for k in _COLUMNS), n, C, dim, es, xs,
+            _RULE_IDS[kw["embed_rule"]], _RULE_IDS[kw["embedx_rule"]],
+            int(bool(kw["create_applies_grad"])),
+            *[ctypes.c_float(kw[k]) for k in (
+                "lr", "initial_g2sum", "wmin", "wmax", "beta1", "beta2", "eps",
+                "nonclk_coeff", "click_coeff", "embedx_threshold")],
+            _stream(rows)), "hot_scatter_apply")
+        hot_scatter_apply.launches += 1
+    return state
+
+
+#: kernel launches since import (or since a caller reset them to 0)
+merge_sparse_grads.launches = 0
+hot_probe_gather.launches = 0
+hot_scatter_apply.launches = 0

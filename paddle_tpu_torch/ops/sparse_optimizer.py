@@ -8,7 +8,8 @@ embedx rule step — for the naive, adagrad, std_adagrad and adam rules.
 
 On a CUDA tensor it launches the hand-written kernel
 ``ops/csrc/ctr_sparse_rows.cu`` (one thread per row, the reference's
-``optimizer.cuh.h`` shape), built at first use with ``nvcc`` for
+``optimizer.cuh.h`` shape; the rule itself is ``ops/csrc/ctr_rule.cuh``,
+shared with the hot tier's scatter-apply), built at first use with ``nvcc`` for
 ``sm_90a``; on a CPU tensor it runs ``fused_row_update``, the plain
 PyTorch version beside it. There is no fallback between the two.
 
@@ -33,7 +34,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.enforce import InvalidArgumentError, enforce
-from ._build import build_shared_library, find_nvcc
+from ._build import build_cuda_library
 
 __all__ = ["ctr_sparse_rows", "fused_row_update", "rule_init_state",
            "rule_state_dim", "rule_update"]
@@ -157,18 +158,9 @@ def fused_row_update(show, click, ew, estate, xw, xstate, has, dshow, dclick,
 
 # -- the CUDA kernel ------------------------------------------------------
 
-_CU = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                   "ctr_sparse_rows.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _KLOCK = threading.Lock()
 _KLIB: Optional[ctypes.CDLL] = None
-
-
-def _nvcc_command(out: str):
-    # --fmad=false + IEEE div/sqrt (nvcc's defaults; never fast-math):
-    # every f32 op rounds separately, the rounding contract above
-    return [find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-            "-std=c++17", "-O3", "--fmad=false", "-shared", "-Xcompiler",
-            "-fPIC", "-o", out, _CU]
 
 
 def load_kernel() -> ctypes.CDLL:
@@ -176,8 +168,9 @@ def load_kernel() -> ctypes.CDLL:
     global _KLIB
     with _KLOCK:
         if _KLIB is None:
-            lib = ctypes.CDLL(build_shared_library("ctr_sparse_rows", (_CU,),
-                                                   _nvcc_command))
+            lib = ctypes.CDLL(build_cuda_library(
+                "ctr_sparse_rows", os.path.join(_CSRC, "ctr_sparse_rows.cu"),
+                (os.path.join(_CSRC, "ctr_rule.cuh"),)))
             fn = lib.ctr_sparse_rows_launch
             fn.restype = ctypes.c_int
             fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int64]

@@ -3,9 +3,12 @@
 Port of ``paddle_tpu.ps.embedding_cache``: the pass's working set lives
 on the card as dense SoA columns (values + per-row optimizer state),
 pulled by a gather and pushed by the merge_grad-shaped sparse update —
-dedup the batch's rows, gather the touched rows, run the per-row CTR
-rule (``ops.sparse_optimizer.ctr_sparse_rows``: the CUDA kernel on the
-card), scatter them back. ``end_pass`` flushes the rows to the host
+dedup the batch's rows (``merge_sparse_grads``, from
+``ops.hot_kernels``: on the card a stable sort and a merge kernel, so
+duplicates sum in occurrence order, bit-equal to the CPU and the JAX
+package and reproducible from run to run), gather the touched rows, run
+the per-row CTR rule (``ops.sparse_optimizer.ctr_sparse_rows``: the CUDA
+kernel on the card), scatter them back. ``end_pass`` flushes the rows to the host
 table.
 
 Cache state is a dict of columns, the JAX package's layout:
@@ -27,6 +30,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.enforce import enforce, enforce_le
+from ..ops.hot_kernels import merge_sparse_grads
 from ..ops.sparse_optimizer import ctr_sparse_rows, fused_row_update
 from .device_hash import DeviceKeyMap
 from .native import FeasignIndex, dedup_u64
@@ -79,30 +83,6 @@ def cache_pull(state: Dict[str, torch.Tensor], rows: torch.Tensor) -> torch.Tens
     pulled = torch.cat([state["embed_w"][safe], state["embedx_w"][safe]], dim=1)
     return torch.where((rows < C)[:, None], pulled, torch.zeros((), dtype=pulled.dtype,
                                                                 device=pulled.device))
-
-
-def merge_sparse_grads(rows: torch.Tensor, grads: torch.Tensor, shows: torch.Tensor,
-                       clicks: torch.Tensor, capacity: int):
-    """merge_grad: in-batch dedup (the cub sort+reduce step,
-    heter_comm_inl.h:388). Mirrors ``jnp.unique(size=n, fill_value=C)``:
-    ``uniq`` [n] is the sorted set of distinct rows padded with the
-    sentinel ``capacity``, and the sums are [n]-long segment sums.
-
-    On the CPU, ``index_add_`` sums duplicates in occurrence order, the
-    order of the JAX package's segment_sum, so the result is bit-equal.
-    On CUDA it sums with atomics in no fixed order: a row hit k times
-    can differ from the CPU sum by a few ulp of its largest addend
-    (relative ~k·2^-24). A deterministic sort-and-reduce merge belongs
-    to the fused scatter-apply kernel of a later slice."""
-    n = rows.shape[0]
-    u, inv = torch.unique(rows, sorted=True, return_inverse=True)
-    uniq = torch.full((n,), capacity, dtype=rows.dtype, device=rows.device)
-    uniq[: u.shape[0]] = u
-    show_sum = torch.zeros(n, dtype=shows.dtype, device=shows.device).index_add_(0, inv, shows)
-    click_sum = torch.zeros(n, dtype=clicks.dtype, device=clicks.device).index_add_(0, inv, clicks)
-    g = torch.zeros((n, grads.shape[1]), dtype=grads.dtype,
-                    device=grads.device).index_add_(0, inv, grads)
-    return uniq, show_sum, click_sum, g
 
 
 def _scatter_rows(col: torch.Tensor, uniq: torch.Tensor, vals: torch.Tensor,

@@ -1,8 +1,9 @@
 """ctypes bindings for the port's host library (``csrc/``).
 
-``sparse_index.cc`` (the feasign index and the parallel pass dedup) and
-``cuckoo.cc`` (the per-pass device key map build) are the port's own
-copies of the JAX package's sources. They build at first use with
+``sparse_index.cc`` (the feasign index and the parallel pass dedup),
+``cuckoo.cc`` (the per-pass device key map build) and ``slot_parser.cc``
+(the MultiSlot text parser of the dataset) are the port's own copies of
+the JAX package's sources. They build at first use with
 ``g++ -O3 -ffp-contract=off -std=c++17 -fPIC -shared`` into the
 gitignored build directory (``ops/_build.py``). There is no Python
 fallback: ``dedup_u64``'s order fixes the cache row ids of a pass, and a
@@ -20,11 +21,12 @@ import numpy as np
 
 from ..ops._build import build_shared_library
 
-__all__ = ["FeasignIndex", "cuckoo_build", "dedup_u64", "load_native"]
+__all__ = ["FeasignIndex", "SlotParser", "cuckoo_build", "dedup_u64", "load_native"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "csrc")
-_SOURCES = tuple(os.path.join(_CSRC, f) for f in ("sparse_index.cc", "cuckoo.cc"))
+_SOURCES = tuple(os.path.join(_CSRC, f)
+                 for f in ("sparse_index.cc", "cuckoo.cc", "slot_parser.cc"))
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -73,6 +75,23 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.cuckoo_build.restype = ctypes.c_int64
     lib.cuckoo_build.argtypes = [u64p, i32p, ctypes.c_int64, ctypes.c_int64,
                                  ctypes.c_uint32, u32p, u32p, i32p]
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.slotp_create.restype = ctypes.c_void_p
+    lib.slotp_create.argtypes = [ctypes.c_int, u8p, u8p]
+    lib.slotp_destroy.restype = None
+    lib.slotp_destroy.argtypes = [ctypes.c_void_p]
+    lib.slotp_parse.restype = ctypes.c_int64
+    lib.slotp_parse.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64]
+    lib.slotp_lines.restype = ctypes.c_int64
+    lib.slotp_lines.argtypes = [ctypes.c_void_p]
+    lib.slotp_errors.restype = ctypes.c_int64
+    lib.slotp_errors.argtypes = [ctypes.c_void_p]
+    lib.slotp_slot_value_count.restype = ctypes.c_int64
+    lib.slotp_slot_value_count.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.slotp_slot_fetch.restype = None
+    lib.slotp_slot_fetch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, i32p]
+    lib.slotp_reset.restype = None
+    lib.slotp_reset.argtypes = [ctypes.c_void_p]
 
 
 def _u64(a: np.ndarray):
@@ -163,3 +182,53 @@ class FeasignIndex:
         rows = np.empty(n, np.int32)
         self._lib.psidx_items(self._h, _u64(keys), _i32(rows))
         return keys, rows
+
+
+class SlotParser:
+    """Batched MultiSlot text parser (``csrc/slot_parser.cc``).
+
+    ``slots``: list of (name, is_float, used). :meth:`parse` consumes a
+    text block; :meth:`fetch` returns {slot_name: (values, lengths)} CSR
+    pairs for the used slots and resets for the next block."""
+
+    def __init__(self, slots) -> None:
+        self.slots = [(str(n), bool(f), bool(u)) for n, f, u in slots]
+        self._lib = load_native()
+        is_float = np.asarray([f for _, f, _ in self.slots], np.uint8)
+        used = np.asarray([u for _, _, u in self.slots], np.uint8)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        self._h = self._lib.slotp_create(len(self.slots), is_float.ctypes.data_as(u8p),
+                                         used.ctypes.data_as(u8p))
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.slotp_destroy(self._h)
+            self._h = None
+
+    def parse(self, text) -> int:
+        """Parse a text block; returns the number of lines parsed OK."""
+        data = text.encode() if isinstance(text, str) else bytes(text)
+        return int(self._lib.slotp_parse(self._h, data, len(data)))
+
+    @property
+    def errors(self) -> int:
+        return int(self._lib.slotp_errors(self._h))
+
+    @property
+    def lines(self) -> int:
+        return int(self._lib.slotp_lines(self._h))
+
+    def fetch(self):
+        out = {}
+        n_lines = self.lines
+        for s, (name, is_float, used) in enumerate(self.slots):
+            if not used:
+                continue
+            count = int(self._lib.slotp_slot_value_count(self._h, s))
+            values = np.empty(count, np.float32 if is_float else np.uint64)
+            lengths = np.empty(n_lines, np.int32)
+            self._lib.slotp_slot_fetch(self._h, s, values.ctypes.data_as(ctypes.c_void_p),
+                                       _i32(lengths))
+            out[name] = (values, lengths)
+        self._lib.slotp_reset(self._h)
+        return out

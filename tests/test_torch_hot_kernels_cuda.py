@@ -1,0 +1,101 @@
+"""The hot-tier CUDA kernels against their plain versions, on a card.
+
+Every test here is ``cuda``-marked and skips without a CUDA device; the
+file imports neither jax nor ``paddle_tpu``, so it runs on a machine
+without them (``pytest --noconftest -m cuda``). Tolerance: bitwise — the
+plain versions are the oracle, and the kernels sum duplicates in the
+same occurrence order from 0.0 and apply the same f32-sealed rule. The
+plain push and merge run on the CPU copy of the inputs (the plain merge
+on the card would sum with atomics).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.ops import hot_kernels as hk
+from paddle_tpu_torch.ops.sparse_optimizer import rule_state_dim
+from paddle_tpu_torch.ps.device_hash import DynamicDeviceKeyMap, split_keys
+from paddle_tpu_torch.ps.embedding_cache import CacheConfig
+
+RULES = ["naive", "adagrad", "std_adagrad", "adam"]
+C, DIM = 1024, 8
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+
+
+def _state(rng, es, xs, adam):
+    f = np.float32
+    st = {"show": np.abs(rng.normal(size=C)).astype(f),
+          "click": np.abs(rng.normal(size=C)).astype(f),
+          "embed_w": rng.normal(size=(C, 1)).astype(f),
+          "embed_state": np.abs(rng.normal(size=(C, es))).astype(f),
+          "embedx_w": rng.normal(size=(C, DIM)).astype(f),
+          "embedx_state": np.abs(rng.normal(size=(C, xs))).astype(f),
+          "has_embedx": (rng.random(C) > 0.5).astype(f)}
+    if adam:  # beta-power columns in (0, 1) like real rows
+        st["embed_state"][:, 2:] = 0.9
+        st["embedx_state"][:, 2 * DIM:] = 0.9
+    return {k: torch.from_numpy(v) for k, v in st.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("banks", [1, 4])
+def test_probe_gather_kernel_matches_plain(banks):
+    _cuda()
+    rng = np.random.default_rng(1)
+    keys = np.unique(rng.integers(1, 2**63, 900).astype(np.uint64))[:600]
+    m = DynamicDeviceKeyMap(C, device="cpu", banks=banks)
+    rows, nxt = np.zeros(len(keys), np.int32), [0] * banks
+    for i, b in enumerate(m.bank_of(keys)):  # a key's row in its bank's block
+        rows[i] = b * (C // banks) + nxt[b]
+        nxt[b] += 1
+    m.insert(keys, rows)
+    hi, lo = split_keys(np.concatenate([keys, rng.integers(1, 2**63, 300).astype(np.uint64)]))
+    th, tl = torch.from_numpy(hi.view(np.int32)), torch.from_numpy(lo.view(np.int32))
+    state = _state(rng, 1, 1, False)
+    ms = m.device_state()
+    want = hk.hot_probe_gather(ms, th, tl, state, probe_buckets=2, banks=banks)
+    before = hk.hot_probe_gather.launches
+    got = hk.hot_probe_gather({k: v.cuda() for k, v in ms.items()}, th.cuda(), tl.cuda(),
+                              {k: v.cuda() for k, v in state.items()},
+                              probe_buckets=2, banks=banks)
+    torch.cuda.synchronize()
+    assert hk.hot_probe_gather.launches == before + 1
+    assert (want[0][:len(keys)].numpy() == rows).all()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", RULES)
+def test_scatter_apply_and_merge_kernels_match_plain(rule):
+    _cuda()
+    rng = np.random.default_rng(3)
+    n = 4001
+    es, xs = rule_state_dim(rule, 1), rule_state_dim(rule, DIM)
+    rows = np.concatenate([rng.integers(0, C, n - 1200), np.full(1000, 7),  # a heavy row
+                           np.full(100, C), -rng.integers(1, 5, 100)])
+    rng.shuffle(rows)
+    args = [torch.from_numpy(a) for a in (
+        rows.astype(np.int32), rng.normal(size=(n, 1 + DIM)).astype(np.float32),
+        rng.integers(1, 3, n).astype(np.float32), (rng.random(n) > 0.6).astype(np.float32))]
+    cfg = CacheConfig(capacity=C, embedx_dim=DIM, embed_rule=rule, embedx_rule=rule,
+                      embedx_threshold=1.5)
+    state = _state(rng, es, xs, rule == "adam")
+    want = hk.hot_scatter_apply({k: v.clone() for k, v in state.items()}, *args, cfg)
+    before = hk.hot_scatter_apply.launches
+    got = hk.hot_scatter_apply({k: v.cuda() for k, v in state.items()},
+                               *[a.cuda() for a in args], cfg)
+    torch.cuda.synchronize()
+    assert hk.hot_scatter_apply.launches == before + 1
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+    rows64 = [args[0].to(torch.int64), *args[1:]]
+    mw = hk.merge_sparse_grads(*rows64, C)
+    mg = hk.merge_sparse_grads(*[a.cuda() for a in rows64], C)
+    for g, w in zip(mg, mw):
+        assert torch.equal(g.cpu(), w)

@@ -7,7 +7,8 @@
   caller passes ``device="cpu"`` — nothing carries on silently on the
   CPU.
 - A CUDA-only check (skipped without a card) that the kernel wrapper
-  launches and counts on a CUDA tensor.
+  launches and counts on a CUDA tensor (the hot-tier kernels have theirs
+  in ``tests/test_torch_hot_kernels.py``).
 """
 
 import ast
@@ -86,6 +87,41 @@ def test_cache_without_device_raises_without_gpu():
         with pytest.raises(UnavailableError):
             HbmEmbeddingCache(table)
         HbmEmbeddingCache(table, device="cpu")
+    finally:
+        table.close()
+
+
+def test_hot_tier_entry_points_without_device_raise_without_gpu():
+    _no_gpu()
+    from paddle_tpu_torch.core.enforce import UnavailableError
+    from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.ps.device_hash import DynamicDeviceKeyMap
+    from paddle_tpu_torch.ps.embedding_cache import CacheConfig
+    from paddle_tpu_torch.ps.hot_tier import (HotEmbeddingTier, HotTierConfig,
+                                              make_hot_ctr_train_step)
+    from paddle_tpu_torch.ps.ps_trainer import CtrStreamTrainer
+    from paddle_tpu_torch.ps.table import MemorySparseTable, TableConfig
+
+    with pytest.raises(UnavailableError, match="device='cpu'"):
+        DynamicDeviceKeyMap(64)
+    DynamicDeviceKeyMap(64, device="cpu")
+    table = MemorySparseTable(TableConfig(shard_num=2))
+    try:
+        with pytest.raises(UnavailableError):
+            HotEmbeddingTier(table, HotTierConfig(capacity=64))
+        HotEmbeddingTier(table, HotTierConfig(capacity=64), device="cpu")
+        names = dict(sparse_slots=["a", "b"], dense_slots=["d"], label_slot="y")
+        with pytest.raises(UnavailableError):
+            CtrStreamTrainer(DeepFM(CtrConfig(2, 1, 8, (8,))), Adam(), table, **names)
+        with pytest.raises(UnavailableError):
+            CtrStreamTrainer(DeepFM(CtrConfig(2, 1, 8, (8,))), Adam(), table,
+                             hot_tier=HotTierConfig(capacity=64), **names)
+        CtrStreamTrainer(DeepFM(CtrConfig(2, 1, 8, (8,))), Adam(), table,
+                         hot_tier=HotTierConfig(capacity=64), device="cpu", **names)
+        with pytest.raises(UnavailableError):
+            make_hot_ctr_train_step(DeepFM(CtrConfig(2, 1, 8, (8,))), Adam(),
+                                    CacheConfig(capacity=64), np.arange(2))
     finally:
         table.close()
 
