@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA device, ``g++`` and ``nvcc``; builds the host library and
-the two CUDA kernel libraries from the checkout at first use, in
+the three CUDA kernel libraries from the checkout at first use, in
 parallel (into ``paddle_tpu_torch/_build/``). Exits non-zero, with no
 result line, when there is no CUDA device, when the package is missing,
 or when any phase fails. Phases:
@@ -37,11 +37,26 @@ or when any phase fails. Phases:
    weights, and the key hash bit-equal on both; the small hot-tier
    harness (eviction churn) on the card: tier ≡ no tier and
    ``"auto"`` ≡ ``"unfused"`` bitwise, and card vs CPU within tolerance;
-6. the ``kernels`` JSON line, then the card line, then the result line.
+6. the flash-attention kernels (B5 forward, B6 dQ, B7 dK/dV) against
+   their plain versions at ERNIE's shape [8, 512, 16, 64] f32, both
+   precisions, causal or not, a ring-style call (q_offset 256, half-length
+   K/V) and an unaligned length (500, also against ``local_attention``);
+   out, lse and the gradients of a numpy-seeded dO and dlse; kernel, plain
+   and ``scaled_dot_product_attention`` (bf16) times beside the bound;
+7. ERNIE path at full width: ``Trainer(Ernie(cfg), Adam(1e-4), lm_loss)``
+   (vocab 32,768, hidden 1024, 16 heads, ffn 4096, 8 layers, batch 8 ×
+   seq 512) on one numpy-seeded batch, 2 warm-up and 10 timed steps: loss
+   finite and falling, 8 launches of each flash kernel per step,
+   tokens/s, ms/step and peak memory;
+8. ERNIE card vs CPU: a small ERNIE (2 layers, hidden 64, 4 heads, seq
+   64, batch 2), causal and not, 3 steps from the same weights with the
+   kernels on the card and their plain versions on the CPU;
+9. the ``kernels`` JSON line, then the card line, then the result line.
 
-``--profile DIR`` also runs two more pass-path slabs and two more warm
-hot-path batches under torch.profiler (after the launch counts are read)
-and prints where each step's time goes; chrome traces go to DIR.
+``--profile DIR`` also runs two more pass-path slabs, two more warm
+hot-path batches and two more ERNIE steps under torch.profiler (after the
+launch counts are read) and prints where each step's time goes; chrome
+traces go to DIR.
 """
 
 import concurrent.futures
@@ -83,8 +98,9 @@ def card_line():
 
 
 def build_all():
-    """Build the host library and the two kernel libraries, in parallel
+    """Build the host library and the three kernel libraries, in parallel
     (one compiler process each); seconds each."""
+    from paddle_tpu_torch.ops.flash_attention import load_flash_kernels
     from paddle_tpu_torch.ops.hot_kernels import load_hot_kernels
     from paddle_tpu_torch.ops.sparse_optimizer import load_kernel
     from paddle_tpu_torch.ps.native import load_native
@@ -94,29 +110,35 @@ def build_all():
         fn()
         return time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(3) as ex:
-        futs = [ex.submit(timed, f) for f in (load_native, load_kernel, load_hot_kernels)]
+    loaders = (load_native, load_kernel, load_hot_kernels, load_flash_kernels)
+    with concurrent.futures.ThreadPoolExecutor(len(loaders)) as ex:
+        futs = [ex.submit(timed, f) for f in loaders]
         return [f.result() for f in futs]
+
+
+def _wrappers():
+    """Every kernel wrapper that counts its launches, by name."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import hot_kernels as hk
+    from paddle_tpu_torch.ops.sparse_optimizer import ctr_sparse_rows
+
+    return {"ctr_sparse_rows": ctr_sparse_rows,
+            "merge_sparse_grads": hk.merge_sparse_grads,
+            "hot_probe_gather": hk.hot_probe_gather,
+            "hot_scatter_apply": hk.hot_scatter_apply,
+            "flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
 
 
 def reset_launches():
     """Every kernel wrapper's launch count to 0."""
-    from paddle_tpu_torch.ops import hot_kernels as hk
-    from paddle_tpu_torch.ops.sparse_optimizer import ctr_sparse_rows
-
-    for fn in (ctr_sparse_rows, hk.merge_sparse_grads, hk.hot_probe_gather,
-               hk.hot_scatter_apply):
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def read_launches():
-    from paddle_tpu_torch.ops import hot_kernels as hk
-    from paddle_tpu_torch.ops.sparse_optimizer import ctr_sparse_rows
-
-    return {"ctr_sparse_rows": ctr_sparse_rows.launches,
-            "merge_sparse_grads": hk.merge_sparse_grads.launches,
-            "hot_probe_gather": hk.hot_probe_gather.launches,
-            "hot_scatter_apply": hk.hot_scatter_apply.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 # -- phase 2: the kernel against its plain version ---------------------------
@@ -911,6 +933,264 @@ def phase_parity(dev):
         f"(rtol 1e-5), cache and params within rtol 1e-4 atol 1e-6")
 
 
+# -- phase 6: the flash-attention kernels against their plain versions --------
+
+BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor cores, NVIDIA data sheet
+FA_SHAPE = (8, 512, 16, 64)     # ERNIE's attention: batch, seq, heads, head dim
+# Absolute tolerances, with their reasons. "highest": f32 operands on both
+# sides; the kernel sums in its own order and runs an online softmax over
+# 32-key tiles. "default": both sides round Q, K, V, dO, P and dS to bf16
+# and sum exact products in f32, but the kernel rounds P against its
+# running maximum over 64-key tiles where the plain version uses the row's
+# maximum, and where the two f32 sums put a value of P or dS on either
+# side of a bf16 rounding boundary its term moves by one bf16 step (2^-8
+# of itself or more): a handful of such flips per output, largest in the
+# gradients, whose dS terms are large; lse is never rounded.
+FA_TOL = {"highest": {"out": 1e-5, "lse": 1e-5, "grad": 1e-5},
+          "default": {"out": 5e-3, "lse": 1e-4, "grad": 1e-2}}
+FA_EXACT_TOL = {"highest": 1e-5, "default": 2e-2}  # against local_attention (f32)
+
+
+def fa_cases():
+    """(B, Lq, Lk, H, D, causal, q_offset, k_offset), each under both
+    precisions: ERNIE's call, its causal form, a ring step (queries of
+    the second half against the first half's keys), a ring step whose
+    leading rows see no key, and an unaligned length."""
+    B, L, H, D = FA_SHAPE
+    return [(B, L, L, H, D, False, 0, 0), (B, L, L, H, D, True, 0, 0),
+            (B, L, L // 2, H, D, True, L // 2, 0), (B, L, L // 2, H, D, True, 0, L // 4),
+            (B, 500, 500, H, D, False, 0, 0)]
+
+
+def fa_bounds(B, L, H, D, itemsize=4):
+    """{kernel: (bytes, bf16 ops)} of a non-causal call: each input read
+    once, each output written once (f32 [B, L, H, D] tensors, f32 lse and
+    delta); 2·D operations per (query, key) pair and product (B5: S, PV;
+    B6: S, dP, dQ; B7: S, dP, dV, dK)."""
+    x, row, pairs = B * L * H * D * itemsize, B * L * H * 4, B * H * L * L
+    return {"fwd": (4 * x + row, pairs * 2 * D * 2),
+            "dq": (5 * x + 2 * row, pairs * 2 * D * 3),
+            "dkv": (6 * x + 2 * row, pairs * 2 * D * 4)}
+
+
+def phase_flash_kernels(dev):
+    """B5–B7 against their plain versions on the card, on the same inputs;
+    the times of ERNIE's call (non-causal, "default", f32) for the
+    kernels line."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel.ring_attention import local_attention
+
+    rng = np.random.default_rng(40)
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for case in fa_cases():
+        B, Lq, Lk, H, D, causal, qo, ko = case
+        f = np.float32
+        q, k, v, do = (torch.from_numpy(rng.normal(size=(B, n, H, D)).astype(f)).to(dev)
+                       for n in (Lq, Lk, Lk, Lq))
+        dlse = torch.from_numpy(rng.normal(size=(B, Lq, H)).astype(f)).to(dev)
+        for prec in ("default", "highest"):
+            kw = dict(causal=causal, q_offset=qo, k_offset=ko, precision=prec)
+            out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            # the lse cotangent folds into delta, as the autograd Function does
+            delta = ((do * out).sum(-1) - dlse).contiguous()
+            dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+            torch.cuda.synchronize()
+            w_out, w_lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+            w_dq = fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+            w_dk, w_dv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
+            errs = {"out": max_abs(out, w_out), "lse": max_abs(lse, w_lse),
+                    "dq": max_abs(dq, w_dq), "dk": max_abs(dk, w_dk), "dv": max_abs(dv, w_dv)}
+            tol = FA_TOL[prec]
+            finite = all(bool(torch.isfinite(t).all()) for t in (out, lse, dq, dk, dv))
+            ok = finite and all(e <= tol.get(n, tol["grad"]) for n, e in errs.items())
+            line = (f"kernel flash_attention {prec} B={B} Lq={Lq} Lk={Lk} H={H} D={D} "
+                    f"causal={causal} q_offset={qo} k_offset={ko}: max_abs {errs} "
+                    f"(stated bounds {tol})")
+            if not causal:
+                exact = max_abs(out, local_attention(q, k, v))
+                ok = ok and exact <= FA_EXACT_TOL[prec]
+                line += f"; vs local_attention {exact} (stated bound {FA_EXACT_TOL[prec]})"
+            log(line)
+            if not ok:
+                raise AssertionError(f"flash attention kernels disagree: {case} {prec}")
+            for name, keys in (("fwd", ("out", "lse")), ("dq", ("dq",)), ("dkv", ("dk", "dv"))):
+                worst[name] = max(worst[name], *(errs[n] for n in keys))
+            del out, lse, dq, dk, dv, w_out, w_lse, w_dq, w_dk, w_dv
+
+    # times at ERNIE's call: f32 [8, 512, 16, 64], non-causal, "default"
+    B, L, H, D = FA_SHAPE
+    q, k, v, do = (torch.from_numpy(rng.normal(size=FA_SHAPE).astype(np.float32)).to(dev)
+                   for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    delta = (do * out).sum(-1).contiguous()
+    bw = (q, k, v, do, lse, delta)
+    runs = {"fwd": (lambda: fa.flash_attention_fwd(q, k, v),
+                    lambda: fa.flash_attention_fwd_plain(q, k, v)),
+            "dq": (lambda: fa.flash_attention_bwd_dq(*bw),
+                   lambda: fa.flash_attention_bwd_dq_plain(*bw)),
+            "dkv": (lambda: fa.flash_attention_bwd_dkv(*bw),
+                    lambda: fa.flash_attention_bwd_dkv_plain(*bw))}
+    # the yardstick: PyTorch's fused attention on the same q, k, v in bf16
+    # ([B, H, L, D]); forward for B5, its backward (dQ, dK, dV at once) for
+    # B6 and B7
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (t.permute(0, 2, 1, 3).to(torch.bfloat16).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    gs = do.permute(0, 2, 1, 3).to(torch.bfloat16).contiguous()
+    so = sdpa(qs, ks, vs)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            sdpa(qs, ks, vs)
+
+    lib_fwd, _ = time_cuda(sdpa_fwd)
+    lib_bwd, _ = time_cuda(lambda: torch.autograd.grad(so, (qs, ks, vs), gs, retain_graph=True))
+    bounds = fa_bounds(B, L, H, D)
+    result = {}
+    for name, (kern, plain_fn) in runs.items():
+        ms_k, call_k = time_cuda(kern)
+        ms_p, _ = time_cuda(plain_fn)
+        nbytes, nops = bounds[name]
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / BF16_OPS_PER_S * 1e3
+        lib = lib_fwd if name == "fwd" else lib_bwd
+        log(f"kernel flash_attention_{name} at {list(FA_SHAPE)} f32 default: device {ms_k} ms, "
+            f"plain {ms_p} ms, bound {max(bytes_ms, ops_ms)} ms ({nbytes} B, {nops} bf16 ops), "
+            f"scaled_dot_product_attention bf16 {'forward' if name == 'fwd' else 'backward'} "
+            f"{lib} ms; per call from an idle card {call_k} ms")
+        result[name] = {"max_abs_err": worst[name], "ms": ms_k, "plain_ms": ms_p,
+                        "bound_ms": max(bytes_ms, ops_ms),
+                        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                        "library_ms": lib}
+    return result
+
+
+# -- phase 7: ERNIE training at full width -------------------------------------
+
+ERNIE_CFG = dict(vocab_size=32768, hidden_size=1024, num_heads=16, ffn_size=4096,
+                 num_layers=8, max_seq_len=512)
+ERNIE_BATCH, ERNIE_SEQ, ERNIE_WARM, ERNIE_STEPS = 8, 512, 2, 10
+
+
+def lm_loss(out, labels):
+    """Mean token cross entropy over the vocabulary (the JAX smoke's)."""
+    from paddle_tpu_torch.nn import functional as F
+
+    return F.cross_entropy(out.reshape(-1, out.shape[-1]), labels.reshape(-1))
+
+
+def phase_ernie(dev, card, profile_dir=None):
+    """``Trainer(Ernie(cfg), Adam(1e-4), lm_loss)`` on one numpy-seeded
+    batch, repeated: 2 warm-up and 10 timed steps."""
+    from paddle_tpu_torch.executor import Trainer
+    from paddle_tpu_torch.models.ernie import Ernie, ErnieConfig
+    from paddle_tpu_torch.optimizer import Adam
+
+    cfg = ErnieConfig(**ERNIE_CFG)
+    t0 = time.perf_counter()
+    model = Ernie(cfg, generator=torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    trainer = Trainer(model, Adam(1e-4), lm_loss, seed=0, device=dev)
+    rng = np.random.default_rng(30)
+    shape = (ERNIE_BATCH, ERNIE_SEQ)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+    torch.cuda.synchronize()
+    log(f"ernie: {n_params} parameters, built and moved to the card in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses = []
+    for i in range(ERNIE_WARM + ERNIE_STEPS):
+        if i == ERNIE_WARM:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(trainer.train_step(ids, labels))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_launches()
+    steps = ERNIE_WARM + ERNIE_STEPS
+    losses = torch.stack(losses).cpu().numpy()
+    tokens = ERNIE_BATCH * ERNIE_SEQ
+    stats = {"ms_per_step": 1e3 * dt / ERNIE_STEPS, "tokens_per_s": tokens * ERNIE_STEPS / dt,
+             "peak_bytes": torch.cuda.max_memory_allocated()}
+    log(f"ernie: {steps} steps, launches {counts}, losses {losses.tolist()}")
+    log(f"ernie: {stats['tokens_per_s']:.1f} tokens/s, {stats['ms_per_step']:.3f} ms/step "
+        f"(batch {ERNIE_BATCH} x seq {ERNIE_SEQ}, {ERNIE_STEPS} timed steps, {dt:.4f} s), peak "
+        f"memory {stats['peak_bytes']} B on {card}")
+    assert np.isfinite(losses).all(), "non-finite loss"
+    assert losses[-1] < losses[0], "loss did not fall"
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert counts[name] == steps * cfg.num_layers, \
+            f"{name}: {counts[name]} launches in {steps} steps of {cfg.num_layers} layers"
+    if profile_dir is not None:
+        def run():
+            for _ in range(2):
+                trainer.train_step(ids, labels)
+        profile_window(run, 2, profile_dir, "ernie")
+    return counts, stats
+
+
+# -- phase 8: a small ERNIE on the card and on the CPU ---------------------------
+
+def small_ernie_run(device, weights, causal, impl, batches):
+    """3 Trainer steps of a small ERNIE: (losses, final params on the CPU)."""
+    from paddle_tpu_torch.executor import Trainer
+    from paddle_tpu_torch.models.ernie import Ernie, ErnieConfig
+    from paddle_tpu_torch.optimizer import Adam
+
+    cfg = ErnieConfig(vocab_size=1024, hidden_size=64, num_heads=4, ffn_size=128,
+                      num_layers=2, max_seq_len=64, causal=causal, attn_impl=impl)
+    model = Ernie(cfg)
+    model.load_state_dict(weights)
+    tr = Trainer(model, Adam(1e-3), lm_loss, device=device)
+    losses = [tr.train_step(ids, labels) for ids, labels in batches]
+    return (np.asarray([float(x) for x in losses]),
+            {k: v.cpu() for k, v in tr.state["params"].items()})
+
+
+def phase_ernie_parity(dev):
+    """The same 3 steps from the same weights: ``attn_impl="auto"`` on the
+    card (the kernels) against ``"flash"`` on the CPU (their plain
+    versions). Tolerances: losses rtol 1e-4 (cuBLAS vs CPU matmul order,
+    the kernels' summation order, a bf16 rounding flip of P or dS).
+    Adam divides by sqrt(v), so an element whose gradient is near zero
+    moves by up to lr whatever the sign of its rounding noise: parameters
+    are compared by the update they received, ||Δcard − Δcpu|| / ||Δcpu||
+    ≤ 5e-2 per tensor, leaving out the key bias (a constant added to
+    every key of a row leaves its softmax unchanged, so that bias has a
+    true gradient of 0 and moves on rounding noise alone)."""
+    from paddle_tpu_torch.models.ernie import Ernie, ErnieConfig
+
+    rng = np.random.default_rng(50)
+    batches = [tuple(torch.from_numpy(rng.integers(0, 1024, (2, 64))) for _ in range(2))
+               for _ in range(3)]
+    for causal in (False, True):
+        weights = Ernie(ErnieConfig(vocab_size=1024, hidden_size=64, num_heads=4, ffn_size=128,
+                                    num_layers=2, max_seq_len=64),
+                        generator=torch.Generator().manual_seed(5)).state_dict()
+        reset_launches()
+        gl, gp = small_ernie_run(dev, weights, causal, "auto",
+                                 [(i.to(dev), y.to(dev)) for i, y in batches])
+        counts = read_launches()
+        assert all(counts[f"flash_attention_{n}"] == 6 for n in ("fwd", "bwd_dq", "bwd_dkv")), \
+            f"card run: flash launches {counts} != 3 steps x 2 layers"
+        cl, cp = small_ernie_run(torch.device("cpu"), weights, causal, "flash", batches)
+        np.testing.assert_allclose(gl, cl, rtol=1e-4)
+        worst = 0.0
+        for k, w0 in weights.items():
+            dg, dc = gp[k] - w0, cp[k] - w0
+            if k.endswith("attn.qkv_b"):  # head-major [H, 3, D]: drop the key bias
+                dg, dc = dg.reshape(4, 3, 16)[:, [0, 2]], dc.reshape(4, 3, 16)[:, [0, 2]]
+            rel = float((dg - dc).norm() / dc.norm())
+            worst = max(worst, rel)
+            assert rel <= 5e-2, f"ernie parity causal={causal}: {k} update differs by {rel}"
+        log(f"ernie parity causal={causal}: card (kernels) vs CPU (plain), 3 steps, losses "
+            f"{gl.tolist()} vs {cl.tolist()} (rtol 1e-4); worst relative update difference "
+            f"{worst} (stated bound 5e-2)")
+
+
 def main(argv):
     profile_dir = None
     if argv[:1] == ["--profile"] and len(argv) == 2:
@@ -931,9 +1211,10 @@ def main(argv):
     card = card_line()
     log(f"device: {name} | nvidia-smi: {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    host_s, kern_s, hot_s = build_all()
+    host_s, kern_s, hot_s, flash_s = build_all()
     log(f"build: host library {host_s:.2f} s, ctr_sparse_rows {kern_s:.2f} s, "
-        f"hot_kernels {hot_s:.2f} s (g++ and two nvcc in parallel)")
+        f"hot_kernels {hot_s:.2f} s, flash_attention {flash_s:.2f} s (g++ and three nvcc "
+        f"in parallel)")
 
     k = phase_kernel(dev)
     log(f"kernel ctr_sparse_rows adagrad/adagrad n={BATCH * SLOTS}: device {k['ms']} ms, "
@@ -946,23 +1227,34 @@ def main(argv):
     hot_counts, _ = phase_hot_path(dev, card, profile_dir)
     phase_parity(dev)
     phase_hot_parity(dev)
+    fa = phase_flash_kernels(dev)
+    ernie_counts, _ = phase_ernie(dev, card, profile_dir)
+    phase_ernie_parity(dev)
 
     def entry(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": None}
+                "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
 
     hot_src = "paddle_tpu_torch/ops/csrc/hot_kernels.cu"
-    # library_ms is null for all three: no single PyTorch call computes the
-    # fused CTR rule, the probe+gather, or the merge+rule+scatter
+    fa_src = "paddle_tpu_torch/ops/csrc/flash_attention.cu"
+    fa_ref = "paddle_tpu/ops/flash_attention.py"
+    # library_ms is null for the first three: no single PyTorch call
+    # computes the fused CTR rule, the probe+gather, or the merge+rule+scatter
     kernels = [
         entry("ctr_sparse_rows", "paddle_tpu_torch/ops/csrc/ctr_sparse_rows.cu",
               "paddle_tpu/ops/sparse_optimizer.py:203", pass_counts["ctr_sparse_rows"], k),
         entry("hot_probe_gather", hot_src, "paddle_tpu/ops/hot_kernels.py:116",
               hot_counts["hot_probe_gather"], b2),
         entry("hot_scatter_apply", hot_src, "paddle_tpu/ops/hot_kernels.py:278",
-              hot_counts["hot_scatter_apply"], b4)]
+              hot_counts["hot_scatter_apply"], b4),
+        entry("flash_attention_fwd", fa_src, f"{fa_ref}:127",
+              ernie_counts["flash_attention_fwd"], fa["fwd"]),
+        entry("flash_attention_bwd_dq", fa_src, f"{fa_ref}:176",
+              ernie_counts["flash_attention_bwd_dq"], fa["dq"]),
+        entry("flash_attention_bwd_dkv", fa_src, f"{fa_ref}:221",
+              ernie_counts["flash_attention_bwd_dkv"], fa["dkv"])]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -6,7 +6,9 @@ importing jax) and return the port's tensors, so both packages can
 compute the same step from the same start.
 
 Layouts: the JAX ``Linear`` weight is ``[in, out]`` (paddle convention),
-torch's ``[out, in]``, so 2-D parameters are transposed. Cache and tier
+torch's ``[out, in]``, so DeepFM's 2-D parameters are transposed; ERNIE
+keeps the JAX layout (``x @ w``), so its parameters and Adam slots carry
+over name for name with no transpose. Cache and tier
 state keep the JAX layout (see ``ps.embedding_cache``); the static map's
 uint32 hi/lo/seed widen to int64, the dynamic map's stay 32-bit patterns
 in int32 tensors (``ps.device_hash``).
@@ -14,7 +16,7 @@ in int32 tensors (``ps.device_hash``).
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Union
+from typing import Callable, Dict, Mapping, Union
 
 import numpy as np
 import torch
@@ -23,7 +25,7 @@ from .ps.device_hash import dynamic_map_state_to_device, map_state_to_device
 
 __all__ = ["adam_state_from_jax", "cache_state_from_jax",
            "deepfm_params_from_jax", "dynamic_map_state_from_jax",
-           "map_state_from_jax"]
+           "ernie_params_from_jax", "map_state_from_jax"]
 
 Device = Union[str, torch.device]
 
@@ -41,15 +43,29 @@ def deepfm_params_from_jax(named_params: Mapping,
     return out
 
 
-def adam_state_from_jax(opt_state: Mapping, device: Device = "cpu") -> dict:
+def ernie_params_from_jax(named_params: Mapping,
+                          device: Device = "cpu") -> Dict[str, torch.Tensor]:
+    """JAX ``named_parameters()`` — or a trainer's ``{"params": ...,
+    "buffers": {}}`` state — of an ``Ernie`` → the port's params dict:
+    the same names and shapes, f32, no transpose."""
+    return {k: torch.from_numpy(np.array(v, np.float32)).to(device)
+            for k, v in named_params.get("params", named_params).items()}
+
+
+def adam_state_from_jax(opt_state: Mapping, device: Device = "cpu",
+                        params_from_jax: Callable[..., Dict[str, torch.Tensor]]
+                        = deepfm_params_from_jax) -> dict:
     """JAX ``Adam.init``/``update`` state ({"step", "slots": {"m", "v"}},
-    each slot tree {"params": {...}, "buffers": {}}) → the port's
-    ``optimizer.Adam`` state ({"step", "m", "v"})."""
+    each slot a tree like the params) → the port's ``optimizer.Adam``
+    state ({"step", "m", "v"}). The slots convert like the model's
+    params: ``params_from_jax`` is that model's converter (DeepFM's by
+    default, which transposes; pass :func:`ernie_params_from_jax` for
+    ERNIE)."""
     slots = opt_state["slots"]
     return {"step": torch.tensor(int(np.asarray(opt_state["step"])),
                                  dtype=torch.int64, device=device),
-            "m": deepfm_params_from_jax(slots["m"], device),
-            "v": deepfm_params_from_jax(slots["v"], device)}
+            "m": params_from_jax(slots["m"], device),
+            "v": params_from_jax(slots["v"], device)}
 
 
 def cache_state_from_jax(state: Mapping[str, np.ndarray],

@@ -1,5 +1,6 @@
-"""Neural-network pieces of the port (layers are ``torch.nn``'s own)."""
+"""Neural-network pieces of the port (other layers are ``torch.nn``'s own)."""
 
 from . import functional
+from .layers import Dropout, LayerNorm
 
-__all__ = ["functional"]
+__all__ = ["Dropout", "LayerNorm", "functional"]

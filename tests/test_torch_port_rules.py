@@ -8,7 +8,8 @@
   CPU.
 - A CUDA-only check (skipped without a card) that the kernel wrapper
   launches and counts on a CUDA tensor (the hot-tier kernels have theirs
-  in ``tests/test_torch_hot_kernels.py``).
+  in ``tests/test_torch_hot_kernels_cuda.py``, the flash-attention ones in
+  ``tests/test_torch_flash_attention_cuda.py``).
 """
 
 import ast
@@ -124,6 +125,55 @@ def test_hot_tier_entry_points_without_device_raise_without_gpu():
                                     CacheConfig(capacity=64), np.arange(2))
     finally:
         table.close()
+
+
+def test_trainer_without_device_raises_without_gpu():
+    _no_gpu()
+    from paddle_tpu_torch.core.enforce import UnavailableError
+    from paddle_tpu_torch.executor import Trainer
+    from paddle_tpu_torch.models.ernie import Ernie, ErnieConfig
+    from paddle_tpu_torch.optimizer import Adam
+
+    model = Ernie(ErnieConfig(vocab_size=32, hidden_size=16, num_heads=2, ffn_size=32,
+                              num_layers=1, max_seq_len=8))
+    with pytest.raises(UnavailableError, match="device='cpu'"):
+        Trainer(model, Adam(), lambda out, y: out.sum())
+    Trainer(model, Adam(), lambda out, y: out.sum(), device="cpu")
+
+
+def test_flash_attention_on_cuda_builds_its_kernel_or_raises():
+    """A CUDA tensor goes to the kernel, never to the plain version: with
+    no card the tensor cannot exist; without nvcc the kernel library does
+    not build and the wrapper's loader raises (no fallback)."""
+    _no_gpu()
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops._build import BuildError, find_nvcc
+
+    with pytest.raises((AssertionError, RuntimeError)):
+        torch.zeros(1, 8, 2, 8, device="cuda")
+    try:
+        find_nvcc()
+    except BuildError:
+        with pytest.raises(BuildError, match="nvcc"):
+            fa.load_flash_kernels()
+
+
+def test_ernie_auto_attention_on_cpu_is_the_einsum_path():
+    """``attn_impl="auto"`` on a CPU tensor runs ``local_attention`` (the
+    JAX rule, with the card in the TPU's place): the same logits as
+    ``"einsum"`` and no flash launch."""
+    from paddle_tpu_torch.models.ernie import Ernie, ErnieConfig
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    kw = dict(vocab_size=32, hidden_size=16, num_heads=2, ffn_size=32, num_layers=1,
+              max_seq_len=8)
+    auto = Ernie(ErnieConfig(**kw), generator=torch.Generator().manual_seed(0))
+    einsum = Ernie(ErnieConfig(**kw, attn_impl="einsum"))
+    einsum.load_state_dict(auto.state_dict())
+    ids = torch.randint(0, 32, (2, 8), generator=torch.Generator().manual_seed(1))
+    before = fa.flash_attention_fwd.launches
+    assert torch.equal(auto(ids), einsum(ids))
+    assert fa.flash_attention_fwd.launches == before
 
 
 @pytest.mark.cuda
