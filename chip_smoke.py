@@ -13,8 +13,9 @@ or when any phase fails. Phases:
 2. kernels vs plain at the main paths' shapes (n = 4096·26 = 106,496,
    dim 8), bitwise, with kernel and plain times (CUDA events, L2 flushed
    before each launch) beside the HBM byte bound:
-   ``ctr_sparse_rows`` over the rule matrix; ``hot_probe_gather`` over a
-   2^19-row tier with banks 1 and 4, resident and absent keys;
+   ``ctr_sparse_rows`` over the rule matrix; ``hot_probe_gather`` and
+   ``hot_probe`` over a 2^19-row tier with banks 1, 4 and 8, resident and
+   absent keys (``hot_probe`` also at one shard's n = 26,624);
    ``hot_scatter_apply`` over the rule matrix × ``create_applies_grad``
    with duplicates, sentinels and negative rows (its plain version runs
    on the CPU copy of the inputs); the pass cache's merge on the card
@@ -32,11 +33,18 @@ or when any phase fails. Phases:
    one ``hot_scatter_apply`` launch per step, a warm second epoch with no
    cold fetch and no miss and a lower loss, warm samples/s and the host
    ms per step in ``ensure()`` + ``device_state()`` against the step's
-   own; then the flush back to the host table;
+   own; then the flush back to the host table; then the same two epochs
+   with the tier row-sharded over a mesh of 4 shards on the card
+   (``HotTierConfig(mesh=make_mesh({"ps": 4}))``, one bank per shard,
+   alltoall routing): four ``hot_probe`` and four ``hot_scatter_apply``
+   launches per step, routing overflow 0;
 5. card vs CPU: the small pass run on ``cuda`` and ``cpu`` from the same
    weights, and the key hash bit-equal on both; the small hot-tier
    harness (eviction churn) on the card: tier ≡ no tier and
    ``"auto"`` ≡ ``"unfused"`` bitwise, and card vs CPU within tolerance;
+   the same for the 4-shard tier, which also stays within atol 1e-6 of
+   the single-card tier; the sharded pass step from keys, routed ≡
+   gathered bitwise;
 6. the flash-attention kernels (B5 forward, B6 dQ, B7 dK/dV) against
    their plain versions at ERNIE's shape [8, 512, 16, 64] f32, both
    precisions, causal or not, a ring-style call (q_offset 256, half-length
@@ -54,7 +62,7 @@ or when any phase fails. Phases:
 9. the ``kernels`` JSON line, then the card line, then the result line.
 
 ``--profile DIR`` also runs two more pass-path slabs, two more warm
-hot-path batches and two more ERNIE steps under torch.profiler (after the
+batches of each hot path and two more ERNIE steps under torch.profiler (after the
 launch counts are read) and prints where each step's time goes; chrome
 traces go to DIR.
 """
@@ -124,6 +132,7 @@ def _wrappers():
 
     return {"ctr_sparse_rows": ctr_sparse_rows,
             "merge_sparse_grads": hk.merge_sparse_grads,
+            "hot_probe": hk.hot_probe,
             "hot_probe_gather": hk.hot_probe_gather,
             "hot_scatter_apply": hk.hot_scatter_apply,
             "flash_attention_fwd": fa.flash_attention_fwd,
@@ -280,6 +289,8 @@ def phase_kernel(dev):
 # -- phase 2b: the hot-tier kernels against their plain versions ------------
 
 HOT_CAP = 1 << 19       # tier rows of the hot path
+SHARDS = 4              # mesh shards of the sharded hot path (banks = shards)
+SHARD_N = BATCH * SLOTS // SHARDS  # keys one shard probes per step
 COLUMNS = ("show", "click", "embed_w", "embed_state", "embedx_w", "embedx_state",
            "has_embedx")
 
@@ -316,12 +327,16 @@ def max_abs(a, b):
 
 
 def phase_hot_probe(dev):
-    """``hot_probe_gather`` at the hot path's shape: 106,496 probes (one
-    batch's keys: ~80 % resident with repeats, ~20 % absent) into a
-    2^19-row tier holding 100,000 keys, banks 1 and 4. Bitwise against
-    the plain version on the card; the time of the banks=1 layout (the
-    trainer's) goes into the kernels line."""
-    from paddle_tpu_torch.ops.hot_kernels import hot_probe_gather, hot_probe_gather_plain
+    """``hot_probe_gather`` (B2) and ``hot_probe`` (B3) at the hot paths'
+    shapes: 106,496 probes (one batch's keys: ~80 % resident with
+    repeats, ~20 % absent) into a 2^19-row tier holding 100,000 keys,
+    banks 1, 4 and 8; B3 also on the first 26,624 (one shard's slice of
+    the batch at K = 4). Bitwise against the plain versions on the card
+    and the host mirror. Returns (B2 at banks 1, the single-card
+    trainer's layout; B3 at banks 4 and n = 26,624, the sharded
+    trainer's) for the kernels line."""
+    from paddle_tpu_torch.ops.hot_kernels import (hot_probe, hot_probe_gather,
+                                                  hot_probe_gather_plain)
     from paddle_tpu_torch.ps.device_hash import dynamic_map_lookup, split_keys
 
     n = BATCH * SLOTS
@@ -336,8 +351,8 @@ def phase_hot_probe(dev):
     th = torch.from_numpy(hi.view(np.int32)).to(dev)
     tl = torch.from_numpy(lo.view(np.int32)).to(dev)
     tier = tier_columns(rng, "adagrad", "adagrad", dev)
-    out = {}
-    for banks in (1, 4):
+    out, b3 = {}, None
+    for banks in (1, 4, 8):
         t0 = time.perf_counter()
         m, _ = banked_map(HOT_CAP, banks, resident, dev)
         ms = m.device_state()
@@ -345,6 +360,7 @@ def phase_hot_probe(dev):
         kw = dict(probe_buckets=m.probe_buckets, banks=banks)
         got = hot_probe_gather(ms, th, tl, tier, **kw)
         torch.cuda.synchronize()
+        rows_b2 = got[0]
         want = hot_probe_gather_plain(ms, th, tl, tier, **kw)
         bitwise = all(bitwise_equal(g, w) for g, w in zip(got, want))
         host_ok = np.array_equal(got[0].cpu().numpy(), m.lookup_host(probe))
@@ -369,7 +385,34 @@ def phase_hot_probe(dev):
             f"from an idle card {call_k} ms, plain {call_p} ms")
         out[banks] = {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
                       "bound_by": "bytes", "bytes": nbytes}
-    return out
+
+        # B3, the probe alone, on the whole batch and on one shard's slice
+        for n3 in (n, SHARD_N):
+            h3, l3 = th[:n3], tl[:n3]
+            got = hot_probe(ms, h3, l3, **kw)
+            torch.cuda.synchronize()
+            want = dynamic_map_lookup(ms, h3, l3, m.probe_buckets, banks)
+            ok = bitwise_equal(got, want) and bitwise_equal(got, rows_b2[:n3]) and \
+                np.array_equal(got.cpu().numpy(), m.lookup_host(probe[:n3]))
+            found3 = int((got >= 0).sum())
+            # the key, each probed bucket's hi/lo/row sector, the row out
+            buckets3 = n3 + int((~first[:n3]).sum())
+            nbytes3 = n3 * 8 + buckets3 * 3 * 32 + n3 * 4
+            ms_k, call_k = time_cuda(lambda: hot_probe(ms, h3, l3, **kw))
+            ms_p, call_p = time_cuda(lambda: dynamic_map_lookup(ms, h3, l3, m.probe_buckets,
+                                                                banks))
+            bound = nbytes3 / HBM_BYTES_PER_S * 1e3
+            log(f"kernel hot_probe banks={banks}: n={n3} found={found3} absent={n3 - found3} "
+                f"bitwise vs plain, host mirror and hot_probe_gather={ok} (stated bound: "
+                f"bitwise); device {ms_k} ms, plain {ms_p} ms, bound {bound} ms (bytes: "
+                f"{nbytes3} B, {buckets3} buckets probed); per call from an idle card {call_k} "
+                f"ms, plain {call_p} ms")
+            if not ok:
+                raise AssertionError(f"hot_probe disagrees (banks={banks}, n={n3})")
+            if banks == SHARDS and n3 == SHARD_N:
+                b3 = {"max_abs_err": 0.0, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
+                      "bound_by": "bytes", "bytes": nbytes3}
+    return out[1], b3
 
 
 def hot_push_inputs(rng, n, C, dev):
@@ -682,9 +725,27 @@ def slot_names(n_slots, n_dense):
                 dense_slots=[f"d{i}" for i in range(n_dense)], label_slot="label")
 
 
-def phase_hot_path(dev, card, profile_dir=None):
+def hot_dataset():
+    """The hot paths' data: ``HOT_LINES`` MultiSlot lines, ``HOT_IDS`` ids
+    per slot, made from a seed and parsed once for both hot paths."""
+    rng = np.random.default_rng(20)
+    t0 = time.perf_counter()
+    lines = ctr_lines(rng, HOT_LINES, HOT_IDS, SLOTS, DENSE)
+    ds = ctr_dataset(lines, SLOTS, DENSE)
+    log(f"hot path: {ds.num_records} MultiSlot lines made and parsed in "
+        f"{time.perf_counter() - t0:.2f} s (host); {SLOTS} x {HOT_IDS} ids")
+    return ds
+
+
+def phase_hot_path(dev, card, ds, profile_dir=None, shards=1):
     """DeepFM at the Criteo width trained by ``CtrStreamTrainer`` over the
-    persistent hot tier: two epochs of 16 batches of 4096."""
+    persistent hot tier: two epochs of 16 batches of 4096. ``shards`` > 1
+    row-shards the tier over a mesh of that many shards on the card (one
+    bank per shard; "auto" routing, alltoall from 4 shards): the batch
+    splits into ``shards`` slices, each probed by ``hot_probe`` and pushed
+    by ``hot_scatter_apply`` on its owner's block, so both launch
+    ``shards`` times per step. Returns (launch counts, warm samples/s)."""
+    from paddle_tpu_torch.core.mesh import make_mesh
     from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
     from paddle_tpu_torch.optimizer import Adam
     from paddle_tpu_torch.ps.accessor import AccessorConfig
@@ -692,35 +753,37 @@ def phase_hot_path(dev, card, profile_dir=None):
     from paddle_tpu_torch.ps.ps_trainer import CtrStreamTrainer
     from paddle_tpu_torch.ps.table import MemorySparseTable, TableConfig
 
-    rng = np.random.default_rng(20)
-    t0 = time.perf_counter()
-    lines = ctr_lines(rng, HOT_LINES, HOT_IDS, SLOTS, DENSE)
-    ds = ctr_dataset(lines, SLOTS, DENSE)
-    del lines
-    log(f"hot path: {ds.num_records} MultiSlot lines made and parsed in "
-        f"{time.perf_counter() - t0:.2f} s (host); {SLOTS} x {HOT_IDS} ids")
+    name = "hot path" if shards == 1 else f"sharded hot path ({shards} shards)"
     table = MemorySparseTable(TableConfig(
         shard_num=16, accessor_config=AccessorConfig(embedx_dim=DIM, embedx_threshold=0.0)))
     try:
         model = DeepFM(CtrConfig(SLOTS, DENSE, DIM, (400, 400, 400)),
                        generator=torch.Generator().manual_seed(0))
+        mesh = make_mesh({"ps": shards}, device=dev) if shards > 1 else None
         trainer = CtrStreamTrainer(model, Adam(learning_rate=1e-3), table,
-                                   hot_tier=HotTierConfig(capacity=HOT_CAP), device=dev,
-                                   **slot_names(SLOTS, DENSE))
+                                   hot_tier=HotTierConfig(capacity=HOT_CAP, mesh=mesh),
+                                   device=dev, **slot_names(SLOTS, DENSE))
         tier = trainer.hot_tier
         host_s = {"ensure": 0.0, "device_state": 0.0, "step": 0.0}
+        overflow = []
 
-        def timed(name, fn):
+        def timed(key, fn):
             def wrapped(*a, **k):
                 t = time.perf_counter()
                 out = fn(*a, **k)
-                host_s[name] += time.perf_counter() - t
+                host_s[key] += time.perf_counter() - t
                 return out
             return wrapped
 
+        def step_with_overflow(*a):
+            out = hot_step(*a)
+            overflow.extend(out[4:])  # device scalars; read after the run
+            return out
+
+        hot_step = trainer._hot_step
         tier.ensure = timed("ensure", tier.ensure)
         tier.device_map.device_state = timed("device_state", tier.device_map.device_state)
-        trainer._hot_step = timed("step", trainer._hot_step)
+        trainer._hot_step = timed("step", step_with_overflow)
 
         torch.cuda.synchronize()
         reset_launches()
@@ -734,30 +797,39 @@ def phase_hot_path(dev, card, profile_dir=None):
             delta = {k: st[k] - before[k] for k in ("hits", "misses", "cold_fetches",
                                                      "evictions", "writebacks")}
             steps = int(r["steps"])
-            log(f"hot path epoch {epoch}: {steps} steps, mean loss {r['loss']:.6f}, "
-                f"{r['samples_per_sec']:.1f} samples/s, tier {delta}, occupancy "
-                f"{st['occupancy']}, map rebuilds {st['map_rebuilds']}; host ms/step: "
-                f"ensure {1e3 * host_s['ensure'] / steps:.3f}, device_state "
+            log(f"{name} epoch {epoch}: {steps} steps, mean loss {r['loss']:.6f}, "
+                f"{r['samples_per_sec']:.1f} samples/s "
+                f"({1e3 * BATCH / r['samples_per_sec']:.3f} ms/step), tier {delta}, occupancy "
+                f"{st['occupancy']}, shards {st['shards']}, banks {st['banks']}, map rebuilds "
+                f"{st['map_rebuilds']}; host ms/step: ensure "
+                f"{1e3 * host_s['ensure'] / steps:.3f}, device_state "
                 f"{1e3 * host_s['device_state'] / steps:.3f}, step issue "
                 f"{1e3 * host_s['step'] / steps:.3f} on {card}")
             results.append((r, delta))
         counts = read_launches()
         steps = sum(int(r["steps"]) for r, _ in results)
-        log(f"hot path: {steps} steps, launches {counts}")
+        n_overflow = int(sum(int(o) for o in overflow))
+        log(f"{name}: {steps} steps, launches {counts}"
+            + (f", routing overflow {n_overflow}" if shards > 1 else ""))
         (first, _), (warm, warm_delta) = results
         assert all(np.isfinite(r["loss"]) for r, _ in results), "non-finite loss"
         assert warm["loss"] < first["loss"], "warm epoch loss did not fall"
-        assert counts["hot_probe_gather"] == steps and counts["hot_scatter_apply"] == steps, \
-            f"hot kernel launches {counts} != steps {steps}"
+        probe = "hot_probe_gather" if shards == 1 else "hot_probe"
+        assert counts[probe] == shards * steps and \
+            counts["hot_scatter_apply"] == shards * steps, \
+            f"hot kernel launches {counts} != {shards} x {steps} steps"
+        assert n_overflow == 0, f"routing overflow {n_overflow}"
         assert warm_delta["cold_fetches"] == 0 and warm_delta["misses"] == 0, \
             f"warm epoch left the tier: {warm_delta}"
-        log(f"hot path: warm epoch {warm['samples_per_sec']:.1f} samples/s "
-            f"(batch {BATCH}, {int(warm['steps'])} steps) on {card}")
+        log(f"{name}: warm epoch {warm['samples_per_sec']:.1f} samples/s, "
+            f"{1e3 * BATCH / warm['samples_per_sec']:.3f} ms/step (batch {BATCH}, "
+            f"{int(warm['steps'])} steps) on {card}")
 
         if profile_dir is not None:
             n_batches = HOT_LINES // BATCH
             profile_window(lambda: trainer.train_from_dataset(
-                ds, batch_size=BATCH, start_batch=n_batches - 2), 2, profile_dir, "hot")
+                ds, batch_size=BATCH, start_batch=n_batches - 2), 2, profile_dir,
+                "hot" if shards == 1 else "sharded_hot")
 
         # flush: the touched rows read back changed from the cold table
         # (no eviction happened, so the table holds the at-admit rows)
@@ -771,7 +843,7 @@ def phase_hot_path(dev, card, profile_dir=None):
         changed = (after != before).any(axis=1)
         assert found.all() and changed.all(), \
             f"flush: {int((~changed).sum())} of {len(sample)} touched rows unchanged"
-        log(f"hot flush: {n_flushed} dirty rows written back; {len(sample)} touched keys "
+        log(f"{name} flush: {n_flushed} dirty rows written back; {len(sample)} touched keys "
             f"read back changed (show {before[:, 3].mean():.3f} -> {after[:, 3].mean():.3f})")
         return counts, float(warm["samples_per_sec"])
     finally:
@@ -780,11 +852,13 @@ def phase_hot_path(dev, card, profile_dir=None):
 
 # -- phase 5: the same small runs on the card and on the CPU ------------------
 
-def small_hot_run(device, weights, lines, hot, kernels="auto"):
+def small_hot_run(device, weights, lines, hot, kernels="auto", capacity=224, shards=1,
+                  batch=64):
     """The hot-tier harness (3 slots, 2 dense, dim 8, DNN (8,), batch 64,
-    256 records, ids from 400 per slot) with eviction churn at capacity
-    224 (``hot``) or without the tier: (loss, params, opt state, sorted
-    table rows)."""
+    256 records, ids from 400 per slot: eviction churn at capacity 224)
+    with the tier (``hot``; row-sharded over ``shards`` when > 1) or
+    without: (loss, params, opt state, sorted table rows, tier stats)."""
+    from paddle_tpu_torch.core.mesh import make_mesh
     from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
     from paddle_tpu_torch.optimizer import Adam
     from paddle_tpu_torch.ps.hot_tier import HotTierConfig
@@ -794,20 +868,21 @@ def small_hot_run(device, weights, lines, hot, kernels="auto"):
     table = MemorySparseTable(TableConfig(shard_num=4))
     try:
         opt = Adam(1e-2)
+        mesh = make_mesh({"ps": shards}, device=device) if shards > 1 else None
         tr = CtrStreamTrainer(DeepFM(CtrConfig(3, 2, 8, (8,))), opt, table,
-                              hot_tier=HotTierConfig(capacity=224, kernels=kernels)
+                              hot_tier=HotTierConfig(capacity=capacity, kernels=kernels,
+                                                     mesh=mesh)
                               if hot else None, device=device, **slot_names(3, 2))
         tr.params = {k: v.to(device) for k, v in weights.items()}
         tr.opt_state = opt.init(tr.params)
-        r = tr.train_from_dataset(ctr_dataset(lines, 3, 2), batch_size=64)
+        r = tr.train_from_dataset(ctr_dataset(lines, 3, 2), batch_size=batch)
         if hot:
-            assert r["hot_tier"]["evictions"] > 0, "no eviction churn"
             tr.hot_tier.flush()
         keys, rows = table.snapshot_items()
         cpu = lambda d: {k: v.cpu() for k, v in d.items()}
         opt_state = {"step": tr.opt_state["step"].cpu(), "m": cpu(tr.opt_state["m"]),
                      "v": cpu(tr.opt_state["v"])}
-        return r["loss"], cpu(tr.params), opt_state, rows[np.argsort(keys)]
+        return r["loss"], cpu(tr.params), opt_state, rows[np.argsort(keys)], r.get("hot_tier")
     finally:
         table.close()
 
@@ -815,8 +890,8 @@ def small_hot_run(device, weights, lines, hot, kernels="auto"):
 def assert_hot_runs_bitwise(a, b, what):
     """loss, dense params, Adam state and table rows mod delta_score (save
     column 2, which folds per flush instead of per push)."""
-    la, pa, oa, ra = a
-    lb, pb, ob, rb = b
+    la, pa, oa, ra, _ = a
+    lb, pb, ob, rb, _ = b
     keep = [c for c in range(ra.shape[1]) if c != 2]
     ok = (la == lb and all(torch.equal(pa[k], pb[k]) for k in pa)
           and torch.equal(oa["step"], ob["step"])
@@ -839,6 +914,7 @@ def phase_hot_parity(dev):
     tier = small_hot_run(dev, weights, lines, hot=True)
     counts = read_launches()
     assert counts["hot_probe_gather"] == 4 and counts["hot_scatter_apply"] == 4, counts
+    assert tier[4]["evictions"] > 0, "no eviction churn"
     plain = small_hot_run(dev, weights, lines, hot=False)
     assert_hot_runs_bitwise(tier, plain, "card, tier (capacity 224) vs no tier")
     reset_launches()
@@ -848,16 +924,120 @@ def phase_hot_parity(dev):
         and counts["merge_sparse_grads"] == 4, counts
     assert_hot_runs_bitwise(tier, unfused, 'card, kernels "auto" vs "unfused"')
     cpu = small_hot_run(torch.device("cpu"), weights, lines, hot=True)
-    # tolerances: cuBLAS vs CPU BLAS matmul order in the dense tower and
-    # its gradients (the pushed embedding gradients); the sparse rule math
-    # is bitwise on both
-    np.testing.assert_allclose(tier[0], cpu[0], rtol=1e-5)
+    assert_card_close_to_cpu(tier, cpu, "hot parity")
+
+
+def assert_card_close_to_cpu(card, cpu, what):
+    """Tolerances: cuBLAS vs CPU BLAS matmul order in the dense tower and
+    its gradients (the pushed embedding gradients); the sparse rule math
+    is bitwise on both."""
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-5)
     for k in cpu[1]:
-        np.testing.assert_allclose(tier[1][k].numpy(), cpu[1][k].numpy(), rtol=1e-4,
+        np.testing.assert_allclose(card[1][k].numpy(), cpu[1][k].numpy(), rtol=1e-4,
                                    atol=1e-6, err_msg=k)
-    np.testing.assert_allclose(tier[3], cpu[3], rtol=1e-4, atol=1e-5)
-    log(f"hot parity: card vs CPU, loss {tier[0]!r} vs {cpu[0]!r} (rtol 1e-5), params "
+    np.testing.assert_allclose(card[3], cpu[3], rtol=1e-4, atol=1e-5)
+    log(f"{what}: card vs CPU, loss {card[0]!r} vs {cpu[0]!r} (rtol 1e-5), params "
         f"within rtol 1e-4 atol 1e-6, table rows within rtol 1e-4 atol 1e-5")
+
+
+# -- phase 5c: the sharded paths at small size ---------------------------------
+
+def small_sharded_pass_run(dev, weights, routing):
+    """3 steps of the sharded pass step from keys (5 slots, 3 dense, dim
+    4, DNN (8,), batch 32, ``SHARDS`` shards, ``pre_dedup=False``) over a
+    200-key pool: (losses, params, cache state) on the CPU."""
+    from paddle_tpu_torch.core.mesh import make_mesh
+    from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.ps.accessor import AccessorConfig
+    from paddle_tpu_torch.ps.embedding_cache import CacheConfig, HbmEmbeddingCache
+    from paddle_tpu_torch.ps.sharded_cache import (check_route_overflow,
+                                                   make_sharded_ctr_train_step_from_keys)
+    from paddle_tpu_torch.ps.table import MemorySparseTable, TableConfig
+
+    S, B = 5, 32
+    rng = np.random.default_rng(60)
+    pool = rng.integers(0, 1 << 20, size=(200, S)).astype(np.uint64)
+    pool += np.arange(S, dtype=np.uint64) << np.uint64(32)
+    table = MemorySparseTable(TableConfig(shard_num=4,
+                                          accessor_config=AccessorConfig(embedx_dim=4)))
+    try:
+        mesh = make_mesh({"ps": SHARDS}, device=dev)
+        cfg = CacheConfig(capacity=1 << 12, embedx_dim=4, embedx_threshold=0.0)
+        cache = HbmEmbeddingCache(table, cfg, device=dev, device_map=True, mesh=mesh)
+        cache.begin_pass(pool.reshape(-1))
+        opt = Adam(1e-3)
+        step = make_sharded_ctr_train_step_from_keys(
+            DeepFM(CtrConfig(S, 3, 4, (8,))), opt, cfg, mesh, np.arange(S), routing=routing,
+            pre_dedup=False)
+        params = {k: v.to(dev) for k, v in weights.items()}
+        opt_state = opt.init(params)
+        losses = []
+        for _ in range(3):
+            keys = pool[rng.integers(0, 200, B)]
+            lo = torch.from_numpy((keys & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32))
+            params, opt_state, state, loss, ov = step(
+                params, opt_state, cache.state, cache.device_map.state, lo.to(dev),
+                torch.from_numpy(rng.normal(size=(B, 3)).astype(np.float32)).to(dev),
+                torch.from_numpy((rng.random(B) < 0.4).astype(np.int32)).to(dev))
+            check_route_overflow(ov)
+            losses.append(float(loss))
+        return (losses, {k: v.cpu() for k, v in params.items()},
+                {k: v.cpu() for k, v in cache.state.items()})
+    finally:
+        table.close()
+
+
+def phase_sharded_parity(dev):
+    """The sharded paths at small size on the card: the sharded tier
+    (``SHARDS`` shards, capacity 512: eviction churn) ``"auto"`` ≡
+    ``"unfused"`` bitwise and card vs CPU within phase 5's tolerances;
+    the sharded tier against the single-card tier within atol 1e-6 (the
+    bound the JAX package holds its own to: the rank-averaged dense
+    grads associate the batch mean differently); the sharded pass step
+    from keys, routed ≡ gathered bitwise at ``pre_dedup=False``."""
+    from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
+
+    rng = np.random.default_rng(0)
+    lines = ctr_lines(rng, 256, 400, 3, 2)
+    weights = {k: v.detach() for k, v in
+               DeepFM(CtrConfig(3, 2, 8, (8,)),
+                      generator=torch.Generator().manual_seed(2)).named_parameters()}
+    kw = dict(capacity=512, shards=SHARDS)
+    reset_launches()
+    auto = small_hot_run(dev, weights, lines, hot=True, **kw)
+    counts = read_launches()
+    assert counts["hot_probe"] == 4 * SHARDS and counts["hot_scatter_apply"] == 4 * SHARDS, \
+        counts
+    assert auto[4]["evictions"] > 0 and auto[4]["shards"] == SHARDS, auto[4]
+    reset_launches()
+    unfused = small_hot_run(dev, weights, lines, hot=True, kernels="unfused", **kw)
+    counts = read_launches()
+    assert counts["hot_probe"] == 0 and counts["ctr_sparse_rows"] == 4 * SHARDS, counts
+    assert_hot_runs_bitwise(auto, unfused, f'card, {SHARDS} shards, kernels "auto" vs "unfused"')
+    cpu = small_hot_run(torch.device("cpu"), weights, lines, hot=True, **kw)
+    assert_card_close_to_cpu(auto, cpu, f"sharded parity ({SHARDS} shards)")
+
+    lines = ctr_lines(rng, 512, 60, 3, 2)
+    single = small_hot_run(dev, weights, lines, hot=True, capacity=512, batch=128)
+    sharded = small_hot_run(dev, weights, lines, hot=True, batch=128, **kw)
+    diffs = [abs(single[0] - sharded[0]),
+             max(float((single[1][k] - sharded[1][k]).abs().max()) for k in single[1]),
+             float(np.abs(single[3] - sharded[3]).max())]
+    log(f"sharded parity: card, {SHARDS} shards vs one card: |loss| {diffs[0]}, params max "
+        f"abs {diffs[1]}, table rows max abs {diffs[2]} (stated bound: atol 1e-6)")
+    assert max(diffs) <= 1e-6, diffs
+
+    pw = {k: v.detach() for k, v in
+          DeepFM(CtrConfig(5, 3, 4, (8,)),
+                 generator=torch.Generator().manual_seed(3)).named_parameters()}
+    routed = small_sharded_pass_run(dev, pw, "alltoall")
+    gathered = small_sharded_pass_run(dev, pw, "allgather")
+    same = routed[0] == gathered[0] and all(
+        torch.equal(a[k], b[k]) for a, b in zip(routed[1:], gathered[1:]) for k in a)
+    log(f"sharded parity: card, pass step from keys, {SHARDS} shards, routed vs gathered "
+        f"(pre_dedup=False): bitwise={same}, losses {routed[0]}")
+    assert same, "sharded pass step: routed and gathered differ"
 
 
 # -- phase 5b: the pass path's small run on the card and on the CPU --------------------
@@ -1221,12 +1401,16 @@ def main(argv):
         f"plain {k['plain_ms']} ms, bound {k['bound_ms']} ms; per call from an idle "
         f"card (host issue included) {k['call_ms']} ms, plain {k['plain_call_ms']} ms "
         f"({k['bound_by']}: {k['bytes']} B, {k['ops']} f32 ops) on {card}")
-    b2 = phase_hot_probe(dev)[1]
+    b2, b3 = phase_hot_probe(dev)
     b4 = phase_hot_scatter(dev)
     pass_counts = phase_main_path(dev, card, profile_dir)
-    hot_counts, _ = phase_hot_path(dev, card, profile_dir)
+    ds = hot_dataset()
+    hot_counts, _ = phase_hot_path(dev, card, ds, profile_dir)
+    sharded_counts, _ = phase_hot_path(dev, card, ds, profile_dir, shards=SHARDS)
+    del ds
     phase_parity(dev)
     phase_hot_parity(dev)
+    phase_sharded_parity(dev)
     fa = phase_flash_kernels(dev)
     ernie_counts, _ = phase_ernie(dev, card, profile_dir)
     phase_ernie_parity(dev)
@@ -1240,13 +1424,16 @@ def main(argv):
     hot_src = "paddle_tpu_torch/ops/csrc/hot_kernels.cu"
     fa_src = "paddle_tpu_torch/ops/csrc/flash_attention.cu"
     fa_ref = "paddle_tpu/ops/flash_attention.py"
-    # library_ms is null for the first three: no single PyTorch call
-    # computes the fused CTR rule, the probe+gather, or the merge+rule+scatter
+    # library_ms is null for the first four: no single PyTorch call
+    # computes the fused CTR rule, the probe (with or without the gather),
+    # or the merge+rule+scatter
     kernels = [
         entry("ctr_sparse_rows", "paddle_tpu_torch/ops/csrc/ctr_sparse_rows.cu",
               "paddle_tpu/ops/sparse_optimizer.py:203", pass_counts["ctr_sparse_rows"], k),
         entry("hot_probe_gather", hot_src, "paddle_tpu/ops/hot_kernels.py:116",
               hot_counts["hot_probe_gather"], b2),
+        entry("hot_probe", hot_src, "paddle_tpu/ops/hot_kernels.py:212",
+              sharded_counts["hot_probe"], b3),
         entry("hot_scatter_apply", hot_src, "paddle_tpu/ops/hot_kernels.py:278",
               hot_counts["hot_scatter_apply"], b4),
         entry("flash_attention_fwd", fa_src, f"{fa_ref}:127",

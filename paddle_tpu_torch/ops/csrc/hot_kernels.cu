@@ -1,5 +1,6 @@
-// hot_kernels: the persistent hot tier's probe+gather and scatter+apply
-// on Hopper (sm_90a), plus the deterministic merge of the pass cache.
+// hot_kernels: the persistent hot tier's probe, probe+gather and
+// scatter+apply on Hopper (sm_90a), plus the deterministic merge of the
+// pass cache.
 //
 // Replaces the Pallas kernels of paddle_tpu/ops/hot_kernels.py:
 //
@@ -16,6 +17,14 @@
 //   buckets x three arrays, the row, and the outputs) - about 8.8 us for
 //   106,496 keys at 3.35 TB/s. A thread reads 8 slots of one bucket
 //   from one 32-B sector per array, so the probe is sector-efficient.
+//
+// - hot_probe: the same probe without the gather (rows only), the local
+//   half of the sharded tier's step: each shard resolves its batch slice
+//   against the replicated map and the rows, not the values, cross to the
+//   owner shard. One thread per key through the same probe function as
+//   hot_probe_gather (probe_row), so the two cannot drift apart. Integer
+//   work only: bitwise equal to dynamic_map_lookup. Bound: HBM bytes, the
+//   key, the probed bucket sectors and the row out (~108 B per key).
 //
 // - hot_scatter_apply (merge_sparse_grads + kern): the push. The caller
 //   sorts the rows stably (torch.sort, the library step that stands where
@@ -64,19 +73,15 @@ __device__ __forceinline__ uint32_t mix32(uint32_t hi, uint32_t lo,
   return h;
 }
 
-__global__ void hot_probe_gather_kernel(
+// The probe of one key: its bank's region (a fixed-seed hash, as the host
+// mirror's bank_of), then probe_buckets buckets of that region from the
+// seeded start, wrapping inside the region. Inside a bucket the MAX row
+// among matching slots with row >= 0 wins; the FIRST bucket with a hit
+// wins. -1 = missing.
+__device__ __forceinline__ int32_t probe_row(
     const int32_t* __restrict__ map_hi, const int32_t* __restrict__ map_lo,
-    const int32_t* __restrict__ map_row, const int32_t* __restrict__ seed_p,
-    const int32_t* __restrict__ keys_hi, const int32_t* __restrict__ keys_lo,
-    const float* __restrict__ embed_w, const float* __restrict__ embedx_w,
-    int32_t* __restrict__ o_rows, float* __restrict__ o_pull, int64_t n,
-    int64_t nbuckets, int bslots, int probe_buckets, int banks, int64_t C,
-    int dim) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const uint32_t hi = static_cast<uint32_t>(keys_hi[i]);
-  const uint32_t lo = static_cast<uint32_t>(keys_lo[i]);
-  const uint32_t seed = static_cast<uint32_t>(*seed_p);
+    const int32_t* __restrict__ map_row, uint32_t seed, uint32_t hi,
+    uint32_t lo, int64_t nbuckets, int bslots, int probe_buckets, int banks) {
   const uint32_t nbpb = static_cast<uint32_t>(nbuckets / banks);  // pow2
   const uint32_t local_mask = nbpb - 1u;
   uint32_t base = 0u;
@@ -97,6 +102,23 @@ __global__ void hot_probe_gather_kernel(
     }
     found = hit;
   }
+  return found;
+}
+
+__global__ void hot_probe_gather_kernel(
+    const int32_t* __restrict__ map_hi, const int32_t* __restrict__ map_lo,
+    const int32_t* __restrict__ map_row, const int32_t* __restrict__ seed_p,
+    const int32_t* __restrict__ keys_hi, const int32_t* __restrict__ keys_lo,
+    const float* __restrict__ embed_w, const float* __restrict__ embedx_w,
+    int32_t* __restrict__ o_rows, float* __restrict__ o_pull, int64_t n,
+    int64_t nbuckets, int bslots, int probe_buckets, int banks, int64_t C,
+    int dim) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int32_t found = probe_row(
+      map_hi, map_lo, map_row, static_cast<uint32_t>(*seed_p),
+      static_cast<uint32_t>(keys_hi[i]), static_cast<uint32_t>(keys_lo[i]),
+      nbuckets, bslots, probe_buckets, banks);
   o_rows[i] = found;
 
   float* out = o_pull + i * (1 + dim);
@@ -108,6 +130,20 @@ __global__ void hot_probe_gather_kernel(
   } else {
     for (int d = 0; d <= dim; ++d) out[d] = 0.0f;
   }
+}
+
+__global__ void hot_probe_kernel(
+    const int32_t* __restrict__ map_hi, const int32_t* __restrict__ map_lo,
+    const int32_t* __restrict__ map_row, const int32_t* __restrict__ seed_p,
+    const int32_t* __restrict__ keys_hi, const int32_t* __restrict__ keys_lo,
+    int32_t* __restrict__ o_rows, int64_t n, int64_t nbuckets, int bslots,
+    int probe_buckets, int banks) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  o_rows[i] = probe_row(
+      map_hi, map_lo, map_row, static_cast<uint32_t>(*seed_p),
+      static_cast<uint32_t>(keys_hi[i]), static_cast<uint32_t>(keys_lo[i]),
+      nbuckets, bslots, probe_buckets, banks);
 }
 
 __device__ __forceinline__ bool segment_start(const int64_t* srows, int64_t i) {
@@ -190,6 +226,19 @@ extern "C" int hot_probe_gather_launch(
                             static_cast<cudaStream_t>(stream)>>>(
       map_hi, map_lo, map_row, seed, keys_hi, keys_lo, embed_w, embedx_w,
       o_rows, o_pull, n, nbuckets, bslots, probe_buckets, banks, C, dim);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int hot_probe_launch(
+    const int32_t* map_hi, const int32_t* map_lo, const int32_t* map_row,
+    const int32_t* seed, const int32_t* keys_hi, const int32_t* keys_lo,
+    int32_t* o_rows, int64_t n, int64_t nbuckets, int bslots,
+    int probe_buckets, int banks, void* stream) {
+  if (n <= 0) return 0;
+  hot_probe_kernel<<<blocks_for(n), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      map_hi, map_lo, map_row, seed, keys_hi, keys_lo, o_rows, n, nbuckets,
+      bslots, probe_buckets, banks);
   return static_cast<int>(cudaGetLastError());
 }
 

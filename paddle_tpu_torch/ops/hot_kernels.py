@@ -1,14 +1,18 @@
 """Kernels of the persistent hot tier: plain PyTorch versions and CUDA.
 
 Port of ``paddle_tpu.ops.hot_kernels``. Two kernels carry the hot tier's
-step, and a third entry of the same source makes the pass cache's merge
-deterministic:
+step on one card, a third the sharded tier's probe, and a fourth entry of
+the same source makes the pass cache's merge deterministic:
 
 - :func:`hot_probe_gather` — the bucketized linear probe of the dynamic
   key map (``ps.device_hash.DynamicDeviceKeyMap``) fused with the gather
   of ``embed_w ++ embedx_w``: keys → (rows [n] int32, −1 = missing;
   pulled [n, 1+dim], zeros when missing). Its plain version is
   ``dynamic_map_lookup`` + the sentinel-safe gather.
+- :func:`hot_probe` — the same probe without the gather: rows [n] int32,
+  −1 = missing. The local half of the sharded tier's step
+  (``ps.hot_tier.make_sharded_hot_train_step``); its plain version is
+  ``dynamic_map_lookup``.
 - :func:`hot_scatter_apply` — the push: the merge_grad dedup (rows
   sorted stably, duplicates summed in occurrence order) and the per-row
   CTR rule applied to the tier state IN PLACE (the JAX package returns
@@ -46,9 +50,9 @@ from ..ps.device_hash import dynamic_map_lookup
 from ._build import build_cuda_library
 from .sparse_optimizer import _RULE_IDS, fused_row_update, rule_state_dim
 
-__all__ = ["hot_probe_gather", "hot_probe_gather_plain", "hot_scatter_apply",
+__all__ = ["hot_probe", "hot_probe_gather", "hot_probe_gather_plain", "hot_scatter_apply",
            "hot_scatter_apply_plain", "load_hot_kernels", "merge_sparse_grads",
-           "merge_sparse_grads_plain"]
+           "merge_sparse_grads_plain", "sort_segments"]
 
 _COLUMNS = ("show", "click", "embed_w", "embed_state", "embedx_w",
             "embedx_state", "has_embedx")
@@ -139,6 +143,8 @@ def load_hot_kernels() -> ctypes.CDLL:
             lib.hot_probe_gather_launch.restype = i32
             lib.hot_probe_gather_launch.argtypes = (
                 [p] * 10 + [i64, i64, i32, i32, i32, i64, i32, p])
+            lib.hot_probe_launch.restype = i32
+            lib.hot_probe_launch.argtypes = [p] * 7 + [i64, i64, i32, i32, i32, p]
             lib.hot_scatter_apply_launch.restype = i32
             lib.hot_scatter_apply_launch.argtypes = (
                 [p] * 12 + [i64, i64] + [i32] * 6 + [f32] * 10 + [p])
@@ -181,6 +187,16 @@ def _sort_rows(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return srows.contiguous(), perm.contiguous()
 
 
+def sort_segments(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(sorted rows, their stable permutation, segment id of each sorted
+    position): the static-shape form of ``unique`` — an adjacent
+    difference and a cumsum, no host sync on the card."""
+    srows, perm = _sort_rows(rows)
+    starts = torch.ones(srows.shape[0], dtype=torch.int64, device=srows.device)
+    starts[1:] = (srows[1:] != srows[:-1]).to(torch.int64)
+    return srows, perm, torch.cumsum(starts, 0) - 1
+
+
 def merge_sparse_grads(rows: torch.Tensor, grads: torch.Tensor, shows: torch.Tensor,
                        clicks: torch.Tensor, capacity: int):
     """merge_grad (the cub sort+reduce step, heter_comm_inl.h:388):
@@ -204,11 +220,7 @@ def merge_sparse_grads(rows: torch.Tensor, grads: torch.Tensor, shows: torch.Ten
     enforce(width <= 1 + lib.hot_kernels_max_dim(),
             f"merge_sparse_grads: grad width {width} above the kernel's "
             f"{1 + lib.hot_kernels_max_dim()}", InvalidArgumentError)
-    srows, perm = _sort_rows(rows)
-    starts = torch.ones(n, dtype=torch.int64, device=dev)
-    if n > 1:
-        starts[1:] = (srows[1:] != srows[:-1]).to(torch.int64)
-    seg = torch.cumsum(starts, 0) - 1
+    srows, perm, seg = sort_segments(rows)
     uniq = torch.full((n,), capacity, dtype=torch.int64, device=dev)
     show_sum = torch.zeros(n, dtype=_F32, device=dev)
     click_sum = torch.zeros(n, dtype=_F32, device=dev)
@@ -221,6 +233,49 @@ def merge_sparse_grads(rows: torch.Tensor, grads: torch.Tensor, shows: torch.Ten
             _stream(rows)), "segment_merge")
         merge_sparse_grads.launches += 1
     return uniq.to(rows.dtype), show_sum, click_sum, g
+
+
+def _check_map(name: str, map_state: Dict[str, torch.Tensor], keys_hi: torch.Tensor,
+               keys_lo: torch.Tensor, banks: int) -> None:
+    """The probe kernels' inputs: int32 map arrays and keys on one device,
+    a power-of-two bank count dividing the power-of-two bucket count."""
+    nbuckets = map_state["row"].shape[0]
+    enforce(banks >= 1 and (banks & (banks - 1)) == 0 and nbuckets % banks == 0
+            and ((nbuckets // banks) & (nbuckets // banks - 1)) == 0,
+            f"{name}: banks {banks} must be a power of two dividing "
+            f"the power-of-two bucket count {nbuckets}", InvalidArgumentError)
+    enforce(tuple(keys_hi.shape) == tuple(keys_lo.shape) and keys_lo.dim() == 1,
+            f"{name}: keys_hi/keys_lo [n]", InvalidArgumentError)
+    _check(name, (keys_hi, keys_lo, map_state["hi"], map_state["lo"], map_state["row"],
+                  map_state["seed"]), torch.int32, keys_lo.device)
+
+
+def _map_ptrs(map_state: Dict[str, torch.Tensor]):
+    return tuple(map_state[k].data_ptr() for k in ("hi", "lo", "row", "seed"))
+
+
+def hot_probe(map_state: Dict[str, torch.Tensor], keys_hi: torch.Tensor,
+              keys_lo: torch.Tensor, *, probe_buckets: int, banks: int = 1) -> torch.Tensor:
+    """Probe only: keys → rows [n] int32, −1 = missing (the sharded tier's
+    local half). ``map_state`` and the keys as for
+    :func:`hot_probe_gather`. CPU tensors run ``dynamic_map_lookup``;
+    CUDA tensors launch the kernel, bit-identical to it."""
+    dev = keys_lo.device
+    if dev.type == "cpu":
+        return dynamic_map_lookup(map_state, keys_hi, keys_lo, probe_buckets, banks)
+    enforce(dev.type == "cuda", f"hot_probe: no kernel for device {dev}",
+            InvalidArgumentError)
+    _check_map("hot_probe", map_state, keys_hi, keys_lo, banks)
+    n = keys_lo.shape[0]
+    nbuckets, bslots = map_state["row"].shape
+    rows = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        _raise_on(load_hot_kernels().hot_probe_launch(
+            *_map_ptrs(map_state), keys_hi.data_ptr(), keys_lo.data_ptr(),
+            rows.data_ptr(), n, nbuckets, bslots, int(probe_buckets), int(banks),
+            _stream(keys_lo)), "hot_probe")
+        hot_probe.launches += 1
+    return rows
 
 
 def hot_probe_gather(map_state: Dict[str, torch.Tensor], keys_hi: torch.Tensor,
@@ -237,28 +292,20 @@ def hot_probe_gather(map_state: Dict[str, torch.Tensor], keys_hi: torch.Tensor,
                                       probe_buckets=probe_buckets, banks=banks)
     enforce(dev.type == "cuda", f"hot_probe_gather: no kernel for device {dev}",
             InvalidArgumentError)
+    _check_map("hot_probe_gather", map_state, keys_hi, keys_lo, banks)
     n = keys_lo.shape[0]
     nbuckets, bslots = map_state["row"].shape
     ew, xw = tier_state["embed_w"], tier_state["embedx_w"]
     C, dim = xw.shape
-    enforce(banks >= 1 and (banks & (banks - 1)) == 0 and nbuckets % banks == 0
-            and ((nbuckets // banks) & (nbuckets // banks - 1)) == 0,
-            f"hot_probe_gather: banks {banks} must be a power of two dividing "
-            f"the power-of-two bucket count {nbuckets}", InvalidArgumentError)
-    enforce(tuple(keys_hi.shape) == (n,) and tuple(ew.shape) == (C, 1),
-            "hot_probe_gather: keys_hi/keys_lo [n], embed_w [C, 1]",
+    enforce(tuple(ew.shape) == (C, 1), "hot_probe_gather: embed_w [C, 1]",
             InvalidArgumentError)
-    _check("hot_probe_gather", (keys_hi, keys_lo, map_state["hi"], map_state["lo"],
-                                map_state["row"], map_state["seed"]), torch.int32, dev)
     _check("hot_probe_gather", (ew, xw), _F32, dev)
     rows = torch.empty(n, dtype=torch.int32, device=dev)
     pulled = torch.empty((n, 1 + dim), dtype=_F32, device=dev)
     if n:
         _raise_on(load_hot_kernels().hot_probe_gather_launch(
-            map_state["hi"].data_ptr(), map_state["lo"].data_ptr(),
-            map_state["row"].data_ptr(), map_state["seed"].data_ptr(),
-            keys_hi.data_ptr(), keys_lo.data_ptr(), ew.data_ptr(), xw.data_ptr(),
-            rows.data_ptr(), pulled.data_ptr(), n, nbuckets, bslots,
+            *_map_ptrs(map_state), keys_hi.data_ptr(), keys_lo.data_ptr(), ew.data_ptr(),
+            xw.data_ptr(), rows.data_ptr(), pulled.data_ptr(), n, nbuckets, bslots,
             int(probe_buckets), int(banks), C, dim, _stream(keys_lo)),
             "hot_probe_gather")
         hot_probe_gather.launches += 1
@@ -315,5 +362,6 @@ def hot_scatter_apply(state: Dict[str, torch.Tensor], rows: torch.Tensor,
 
 #: kernel launches since import (or since a caller reset them to 0)
 merge_sparse_grads.launches = 0
+hot_probe.launches = 0
 hot_probe_gather.launches = 0
 hot_scatter_apply.launches = 0

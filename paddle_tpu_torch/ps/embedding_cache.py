@@ -11,6 +11,14 @@ the per-row CTR rule (``ops.sparse_optimizer.ctr_sparse_rows``: the CUDA
 kernel on the card), scatter them back. ``end_pass`` flushes the rows to the host
 table.
 
+With ``mesh=`` (a ``core.mesh`` of K shards) the working set is
+row-sharded over the mesh axis for ``ps.sharded_cache``'s steps: shard k
+owns the row block ``[k·C/K, (k+1)·C/K)`` of the same columns, the pass's
+dense row ids are spread round-robin over the blocks
+(``shard_spread_rows``), ``lookup`` returns those GLOBAL spread ids, and
+the per-pass key map is one map every shard probes (the JAX package's
+replicated map).
+
 Cache state is a dict of columns, the JAX package's layout:
 ``show [C]``, ``click [C]``, ``embed_w [C,1]``, ``embed_state [C,es]``,
 ``embedx_w [C,dim]``, ``embedx_state [C,xs]``, ``has_embedx [C]``
@@ -30,6 +38,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.enforce import enforce, enforce_le
+from ..core.mesh import Mesh, mesh_axis_size
 from ..ops.hot_kernels import merge_sparse_grads
 from ..ops.sparse_optimizer import ctr_sparse_rows, fused_row_update
 from .device_hash import DeviceKeyMap
@@ -194,12 +203,14 @@ class HbmEmbeddingCache:
         cache.end_pass()                         # flush back to host table
 
     ``device`` defaults to ``"cuda"`` and raises without a GPU unless the
-    caller passes ``device="cpu"``.
+    caller passes ``device="cpu"``; ``mesh`` (row-sharded working set,
+    see the module docstring) must live on the same device.
     """
 
     def __init__(self, table: MemorySparseTable, config: Optional[CacheConfig] = None,
                  device: Optional[Union[str, torch.device]] = None,
-                 device_map: bool = False) -> None:
+                 device_map: bool = False, mesh: Optional[Mesh] = None,
+                 axis: str = "ps") -> None:
         self.device = resolve_device(device)
         self.table = table
         acc_cfg = table.accessor.config
@@ -223,6 +234,13 @@ class HbmEmbeddingCache:
             enforce(getattr(self.config.sgd, f) == getattr(acc_cfg.sgd, f),
                     f"cache sgd.{f} ({getattr(self.config.sgd, f)}) must match "
                     f"table accessor sgd.{f} ({getattr(acc_cfg.sgd, f)})")
+        self._n_shards = 1
+        if mesh is not None:
+            self._n_shards = mesh_axis_size(mesh, axis)
+            enforce(mesh.device.type == self.device.type,
+                    f"the mesh lives on {mesh.device}, the cache on {self.device}")
+            enforce(self.config.capacity % self._n_shards == 0,
+                    "cache capacity must divide evenly over the shard axis")
         self._index: Optional[FeasignIndex] = None
         self.state: Optional[Dict[str, torch.Tensor]] = None
         self._pass_keys: Optional[np.ndarray] = None
@@ -230,6 +248,14 @@ class HbmEmbeddingCache:
         #: per-pass on-device key→row map, set by begin_pass when
         #: device_map=True
         self.device_map: Optional[DeviceKeyMap] = None
+
+    def _spread(self, rows: np.ndarray) -> np.ndarray:
+        """Dense index rows → shard-balanced block-partition positions."""
+        if self._n_shards == 1:
+            return rows
+        from .sharded_cache import shard_spread_rows  # it imports this module
+
+        return shard_spread_rows(rows, self.config.capacity, self._n_shards)
 
     # -- pass lifecycle ---------------------------------------------------
 
@@ -241,6 +267,7 @@ class HbmEmbeddingCache:
                    "pass working set exceeds cache capacity")
         index = FeasignIndex(len(uniq) * 2)
         rows, _ = index.lookup_or_insert(uniq)
+        rows = self._spread(rows)
         prepared = {"uniq": uniq, "index": index, "rows": rows, "map_host": None}
         if self._device_map_enabled:
             prepared["map_host"] = DeviceKeyMap.build_host(uniq, rows)
@@ -292,7 +319,7 @@ class HbmEmbeddingCache:
         enforce(self._index is not None, "begin_pass first")
         rows = self._index.lookup(np.ascontiguousarray(keys, np.uint64))
         enforce(bool((rows >= 0).all()), "batch contains keys outside the pass working set")
-        return rows
+        return self._spread(rows)
 
     def end_pass(self) -> None:
         """EndPass / dump_to_cpu: write the working set back into the host
@@ -301,7 +328,7 @@ class HbmEmbeddingCache:
             return
         host = {k: v.cpu().numpy() for k, v in self.state.items()}
         keys = self._pass_keys
-        rows = self._index.lookup(keys)
+        rows = self._spread(self._index.lookup(keys))
         acc = self.table.accessor
         es = acc.embed_rule.state_dim
         xs = acc.embedx_rule.state_dim

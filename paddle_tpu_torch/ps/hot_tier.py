@@ -21,7 +21,16 @@ WHOLE training run:
 - **eviction** — LFU/LRU victims write their dirty rows back with the
   ``end_pass`` flush-back semantics (export-modify-import: delta_score
   fold, unseen reset, lazy-embedx splice);
-- **flush** — :meth:`HotEmbeddingTier.flush` writes every dirty row back.
+- **flush** — :meth:`HotEmbeddingTier.flush` writes every dirty row back;
+- **sharding** — with ``HotTierConfig.mesh`` (a ``core.mesh`` of K
+  shards) the state is row-sharded: shard k owns the row block
+  ``[k·C/K, (k+1)·C/K)``, and with one bank per shard (the default) a
+  key's bank block IS its owner shard's block, so the host control plane
+  (``ensure()``, eviction, write-back) stays global and unchanged. The
+  step (:func:`make_sharded_hot_train_step`) probes each shard's batch
+  slice against the one key map (``ops.hot_kernels.hot_probe``) and
+  routes the rows to their owners through ``ps.sharded_cache``; the owner
+  applies the push to its block in place (``hot_scatter_apply``).
 
 Bit-parity contract (as in the JAX package): the device rule math is
 bit-identical to the host table's, so training with the tier reproduces
@@ -35,9 +44,7 @@ package returned fresh arrays; admission needs no power-of-two padding
 (there is no compiled shape to reuse). Counters are a plain dict. The
 tier is single-threaded: the trainer's step loop owns it.
 
-Not ported here: the mesh-sharded tier (``make_sharded_hot_train_step``
-and its ``hot_probe`` kernel) — ``HotTierConfig.mesh`` raises — and the
-communicator-backed prefetch.
+Not ported here: the communicator-backed prefetch.
 """
 
 from __future__ import annotations
@@ -52,12 +59,15 @@ from torch.func import functional_call
 
 from ..core.device import resolve_device
 from ..core.enforce import UnavailableError, enforce
+from ..core.mesh import Mesh, mesh_axis_size
 from ..nn import functional as F
-from ..ops.hot_kernels import hot_probe_gather, hot_scatter_apply
+from ..ops.hot_kernels import hot_probe, hot_probe_gather, hot_scatter_apply
 from .device_hash import DynamicDeviceKeyMap, dynamic_map_lookup
 from .embedding_cache import CacheConfig, cache_pull, cache_push
+from .sharded_cache import _make_sharded_step, _keyed_rows
 
-__all__ = ["HotEmbeddingTier", "HotTierConfig", "make_hot_ctr_train_step"]
+__all__ = ["HotEmbeddingTier", "HotTierConfig", "make_hot_ctr_train_step",
+           "make_sharded_hot_train_step"]
 
 _KERNELS = ("auto", "unfused")
 _COUNTERS = ("hits", "misses", "evictions", "writebacks", "cold_fetches",
@@ -78,8 +88,14 @@ class HotTierConfig:
     #: extra victims evicted per shortfall, PER BANK (0 = exactly the
     #: shortfall)
     evict_batch: int = 0
-    #: a mesh row-shards the tier (the multi-card slice); must be None
-    mesh: Any = None
+    #: a ``core.mesh`` row-shards the tier over its ``axis`` (None = one
+    #: shard); the capacity must divide over the shards
+    mesh: Optional[Mesh] = None
+    axis: str = "ps"
+    #: the sharded step's routing (``ps.sharded_cache.select_routing``)
+    #: and its bucket slack
+    routing: Any = "auto"
+    cap_factor: float = 2.0
     #: miss semantics: True (training) creates missing rows in the cold
     #: store; False fetches without creating (absent keys admit as zero
     #: rows — the read-only serving contract)
@@ -91,8 +107,9 @@ class HotTierConfig:
     #: their plain versions on the CPU) — the JAX package's "pallas";
     #: "unfused": dynamic_map_lookup + cache_pull + cache_push — its "jnp"
     kernels: str = "auto"
-    #: bucket/row banks (power of two): a key's row lives in its bank's
-    #: contiguous row block. None = 1
+    #: bucket/row banks (power of two, a multiple of the shard count): a
+    #: key's row lives in its bank's contiguous row block, which never
+    #: crosses a shard boundary. None = one bank per shard
     banks: Optional[int] = None
     #: multi-tenant slot caps: tenant id → max resident rows; a tenant
     #: past its cap evicts its OWN rows. None = single-tenant tier
@@ -119,11 +136,6 @@ class HotEmbeddingTier:
         for attr in ("export_full", "import_full", "accessor"):
             enforce(hasattr(table, attr), f"cold store lacks .{attr} — not a full-row Table")
         self.config = config or HotTierConfig()
-        enforce(self.config.mesh is None,
-                "HotTierConfig.mesh: the mesh-sharded hot tier "
-                "(make_sharded_hot_train_step and its hot_probe kernel) is not "
-                "ported yet; it comes with the multi-card slice (ROADMAP A9)",
-                UnavailableError)
         enforce(self.config.policy in ("lfu", "lru"),
                 f"unknown eviction policy {self.config.policy!r}")
         enforce(self.config.kernels in _KERNELS,
@@ -142,10 +154,20 @@ class HotEmbeddingTier:
                 "cache_config.capacity must equal HotTierConfig.capacity")
 
         C = self.config.capacity
-        self._banks = self.config.banks if self.config.banks is not None else 1
+        self._n_shards = 1
+        if self.config.mesh is not None:
+            self._n_shards = mesh_axis_size(self.config.mesh, self.config.axis)
+            enforce(self.config.mesh.device.type == self.device.type,
+                    f"the mesh lives on {self.config.mesh.device}, the tier on {self.device}")
+            enforce(C % self._n_shards == 0,
+                    "hot-tier capacity must divide evenly over the mesh axis")
+        self._banks = self.config.banks if self.config.banks is not None else self._n_shards
         enforce(self._banks >= 1 and (self._banks & (self._banks - 1)) == 0,
                 f"banks must be a power of two, got {self._banks}")
         enforce(C % self._banks == 0, "hot-tier capacity must divide evenly over the banks")
+        enforce(self._banks % self._n_shards == 0,
+                f"banks ({self._banks}) must be a multiple of the mesh shard count "
+                f"({self._n_shards})")
 
         ec = table.accessor
         self._es = ec.embed_rule.state_dim
@@ -487,7 +509,7 @@ class HotEmbeddingTier:
             "capacity": self.config.capacity,
             "dirty": int((self._valid & self._dirty).sum()),
             "map_rebuilds": self.device_map.rebuilds,
-            "shards": 1,
+            "shards": self._n_shards,
             "banks": self._banks,
             "kernels": self.config.kernels,
         }
@@ -566,3 +588,34 @@ def make_hot_ctr_train_step(model: nn.Module, optimizer, cache_cfg: CacheConfig,
         return new_params, new_opt, tier_state, loss.detach()
 
     return step
+
+
+def make_sharded_hot_train_step(model: nn.Module, optimizer, cache_cfg: CacheConfig,
+                                mesh: Mesh, slot_ids: Sequence[int], axis: str = "ps",
+                                routing="auto", cap_factor: float = 2.0,
+                                pre_dedup: bool = True, probe_buckets: int = 2,
+                                banks: int = 1, kernels: str = "auto"):
+    """The sharded hot-tier step over ``mesh``'s K shards: each shard
+    probes its slice of the batch against the one key map
+    (``hot_probe`` for ``kernels="auto"``, ``dynamic_map_lookup`` for
+    ``"unfused"``), the rows ride the routed or gathered exchange of
+    ``ps.sharded_cache``, and the OWNER shard applies the push to its
+    row block (``hot_scatter_apply`` / ``cache_push``). ``banks`` must be
+    a multiple of K (the tier's own layout: a key's row lies in its owner
+    shard's block). ``probe_buckets`` and ``banks`` are the map's.
+
+    step(params, opt_state, tier_state, map_state, keys_lo [B,S] int32,
+         dense_x [B,D], labels [B])
+      → (params, opt_state, tier_state, loss, overflow)
+
+    B must split into K equal slices. ``tier_state`` is updated in place
+    and returned; ``overflow`` is an int32 device scalar
+    (``ps.sharded_cache.check_route_overflow``)."""
+    enforce(kernels in _KERNELS, f"kernels must be one of {_KERNELS}, got {kernels!r}")
+    slot_hi = torch.as_tensor(np.asarray(slot_ids, np.int32), device=mesh.device)
+    probe = hot_probe if kernels == "auto" else (
+        lambda ms, hi, lo, **kw: dynamic_map_lookup(ms, hi, lo, **kw))
+    lookup = lambda ms, hi, lo: probe(ms, hi, lo, probe_buckets=probe_buckets, banks=banks)
+    return _make_sharded_step(model, optimizer, cache_cfg, mesh, axis, routing, cap_factor,
+                              pre_dedup, _keyed_rows(lookup, slot_hi),
+                              hot_scatter_apply if kernels == "auto" else None)

@@ -16,7 +16,11 @@ hogwild_worker.cc:212). Two loops:
   (``ps.hot_tier.make_hot_ctr_train_step``). Misses fill from the cold
   table, evictions write dirty rows back. The loss stays a device scalar
   until the end of the pass, so the host's work on the next batch
-  overlaps the step in front of it.
+  overlaps the step in front of it. With ``HotTierConfig.mesh`` the tier
+  is row-sharded over K shards and the step is
+  ``ps.hot_tier.make_sharded_hot_train_step``: the batch splits into K
+  equal slices, the routing overflow accumulates as a device scalar and
+  is checked once, at the end of the pass.
 
 Slot-tagged keys: feasign = slot index << 32 | id (the column position
 tags the key, as in FleetWrapper::PullSparseToTensorSync).
@@ -41,7 +45,8 @@ from ..core.device import resolve_device
 from ..core.enforce import UnavailableError, enforce
 from ..data.prefetcher import DevicePrefetcher, host_tensors, to_device
 from .hot_tier import (HotEmbeddingTier, HotTierConfig, make_hot_ctr_train_step,
-                       stream_loss_fn)
+                       make_sharded_hot_train_step, stream_loss_fn)
+from .sharded_cache import check_route_overflow
 from .table import MemorySparseTable
 
 __all__ = ["CtrStreamTrainer"]
@@ -141,12 +146,18 @@ class CtrStreamTrainer:
             enforce(hot_tier.cache_config.embedx_dim == self._dim,
                     "hot tier embedx_dim must match the trainer's")
             self.hot_tier = hot_tier
-            dm = hot_tier.device_map
-            self._hot_step = make_hot_ctr_train_step(
-                model, optimizer, hot_tier.cache_config,
-                slot_ids=np.arange(len(self.sparse_slots)),
-                probe_buckets=dm.probe_buckets, banks=dm.banks,
-                kernels=hot_tier.config.kernels, device=self.device)
+            dm, tc = hot_tier.device_map, hot_tier.config
+            slot_ids = np.arange(len(self.sparse_slots))
+            if tc.mesh is not None:
+                self._hot_step = make_sharded_hot_train_step(
+                    model, optimizer, hot_tier.cache_config, tc.mesh, slot_ids=slot_ids,
+                    axis=tc.axis, routing=tc.routing, cap_factor=tc.cap_factor,
+                    probe_buckets=dm.probe_buckets, banks=dm.banks, kernels=tc.kernels)
+            else:
+                self._hot_step = make_hot_ctr_train_step(
+                    model, optimizer, hot_tier.cache_config, slot_ids=slot_ids,
+                    probe_buckets=dm.probe_buckets, banks=dm.banks, kernels=tc.kernels,
+                    device=self.device)
 
     # -- the stream loops -------------------------------------------------
 
@@ -209,6 +220,7 @@ class CtrStreamTrainer:
         # deferred loss sync: device scalars, drained at the end with the
         # same per-item float() accumulation as a per-step sync
         losses: list = []
+        overflow = None  # device scalar accumulator (sharded routing)
 
         def _packed_batches():
             for batch in dataset.batch_iter(batch_size, **kw):
@@ -220,6 +232,7 @@ class CtrStreamTrainer:
                        int(labels.shape[0]))
 
         def _run(flat, lo32_h, dense_h, labels_h, n_real):
+            nonlocal overflow
             # the host tensors stay referenced until the step that reads
             # their device copies has been enqueued (a pinned buffer freed
             # under a non_blocking copy would be silent corruption)
@@ -227,9 +240,11 @@ class CtrStreamTrainer:
                 lo32, dense, labels = to_device((lo32_h, dense_h, labels_h), dev)
                 tier.ensure(flat)
                 map_state = tier.device_map.device_state()
-                self.params, self.opt_state, tier.state, loss = self._hot_step(
-                    self.params, self.opt_state, tier.state, map_state, lo32, dense,
-                    labels)
+                out = self._hot_step(self.params, self.opt_state, tier.state, map_state,
+                                     lo32, dense, labels)
+                self.params, self.opt_state, tier.state, loss = out[:4]
+                if len(out) == 5:
+                    overflow = out[4] if overflow is None else overflow + out[4]
             losses.append(loss)  # device scalar — no sync here
             if len(losses) >= 4096:
                 # bounded retention: these steps finished long ago
@@ -251,6 +266,8 @@ class CtrStreamTrainer:
         # accumulation association of a per-step sync)
         for item in losses:
             stats.loss_sum += float(item)
+        if overflow is not None:
+            check_route_overflow(overflow)
         dt = time.perf_counter() - t0
         return {"loss": stats.mean_loss, "steps": float(stats.steps),
                 "samples": float(stats.samples),

@@ -71,6 +71,38 @@ def test_probe_gather_kernel_matches_plain(banks):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("banks", [1, 4, 8])
+def test_probe_kernel_matches_plain(banks):
+    """B3 (probe only) against ``dynamic_map_lookup``, bitwise, and
+    against B2's rows: the two kernels share one probe function."""
+    _cuda()
+    rng = np.random.default_rng(2)
+    keys = np.unique(rng.integers(1, 2**63, 900).astype(np.uint64))[:600]
+    m = DynamicDeviceKeyMap(C, device="cpu", banks=banks)
+    rows, nxt = np.zeros(len(keys), np.int32), [0] * banks
+    for i, b in enumerate(m.bank_of(keys)):
+        rows[i] = b * (C // banks) + nxt[b]
+        nxt[b] += 1
+    m.insert(keys, rows)
+    m.remove(keys[::7])
+    hi, lo = split_keys(np.concatenate([keys, rng.integers(1, 2**63, 301).astype(np.uint64)]))
+    th, tl = torch.from_numpy(hi.view(np.int32)), torch.from_numpy(lo.view(np.int32))
+    ms = m.device_state()
+    want = hk.hot_probe(ms, th, tl, probe_buckets=2, banks=banks)
+    cms = {k: v.cuda() for k, v in ms.items()}
+    before = hk.hot_probe.launches
+    got = hk.hot_probe(cms, th.cuda(), tl.cuda(), probe_buckets=2, banks=banks)
+    torch.cuda.synchronize()
+    assert hk.hot_probe.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert (want[::7][:len(keys[::7])] == -1).all() and (want >= 0).sum() > 400
+    fused, _ = hk.hot_probe_gather(cms, th.cuda(), tl.cuda(),
+                                   {k: v.cuda() for k, v in _state(rng, 1, 1, False).items()},
+                                   probe_buckets=2, banks=banks)
+    assert torch.equal(fused, got)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rule", RULES)
 def test_scatter_apply_and_merge_kernels_match_plain(rule):
     _cuda()

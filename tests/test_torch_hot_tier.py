@@ -276,10 +276,13 @@ def test_flush_drop_resume_exact():
 
 
 def test_mesh_and_communicator_raise():
+    """A mesh is accepted (the sharded tier; its tests are in
+    ``test_torch_sharded_hot_tier.py``); a communicator still raises."""
     from paddle_tpu_torch.core.enforce import UnavailableError
+    from paddle_tpu_torch.core.mesh import make_mesh
 
-    with pytest.raises(UnavailableError, match="A9"):
-        _trainer(_table(), HotTierConfig(capacity=256, mesh=object()))
+    t = _trainer(_table(), HotTierConfig(capacity=256, mesh=make_mesh({"ps": 2}, device="cpu")))
+    assert t.hot_tier.stats()["shards"] == 2
     model = DeepFM(CtrConfig(S, D, DIM, (8,)))
     with pytest.raises(UnavailableError, match="A8"):
         CtrStreamTrainer(model, Adam(), _table(), communicator=object(), device="cpu",

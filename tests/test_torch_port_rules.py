@@ -127,6 +127,39 @@ def test_hot_tier_entry_points_without_device_raise_without_gpu():
         table.close()
 
 
+def test_mesh_without_device_raises_without_gpu():
+    """A mesh defaults to the card too; the sharded tier and trainer take
+    their device from the caller and must match the mesh's."""
+    _no_gpu()
+    from paddle_tpu_torch.core.enforce import EnforceNotMet, UnavailableError
+    from paddle_tpu_torch.core.mesh import make_mesh
+    from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.ps.hot_tier import HotEmbeddingTier, HotTierConfig
+    from paddle_tpu_torch.ps.ps_trainer import CtrStreamTrainer
+    from paddle_tpu_torch.ps.table import MemorySparseTable, TableConfig
+
+    with pytest.raises(UnavailableError, match="device='cpu'"):
+        make_mesh({"ps": 2})
+    cfg = HotTierConfig(capacity=64, mesh=make_mesh({"ps": 2}, device="cpu"))
+    table = MemorySparseTable(TableConfig(shard_num=2))
+    try:
+        with pytest.raises(UnavailableError):
+            HotEmbeddingTier(table, cfg)
+        assert HotEmbeddingTier(table, cfg, device="cpu").stats()["shards"] == 2
+        names = dict(sparse_slots=["a", "b"], dense_slots=["d"], label_slot="y")
+        with pytest.raises(UnavailableError):
+            CtrStreamTrainer(DeepFM(CtrConfig(2, 1, 8, (8,))), Adam(), table, hot_tier=cfg,
+                             **names)
+        CtrStreamTrainer(DeepFM(CtrConfig(2, 1, 8, (8,))), Adam(), table, hot_tier=cfg,
+                         device="cpu", **names)
+        with pytest.raises(EnforceNotMet, match="mesh lives on"):
+            HotEmbeddingTier(table, HotTierConfig(capacity=64, mesh=make_mesh(
+                {"ps": 2}, device="meta")), device="cpu")
+    finally:
+        table.close()
+
+
 def test_trainer_without_device_raises_without_gpu():
     _no_gpu()
     from paddle_tpu_torch.core.enforce import UnavailableError
