@@ -49,8 +49,10 @@ or when any phase fails. Phases:
    their plain versions at ERNIE's shape [8, 512, 16, 64] f32, both
    precisions, causal or not, a ring-style call (q_offset 256, half-length
    K/V) and an unaligned length (500, also against ``local_attention``);
-   out, lse and the gradients of a numpy-seeded dO and dlse; kernel, plain
-   and ``scaled_dot_product_attention`` (bf16) times beside the bound;
+   out, lse and the gradients of a numpy-seeded dO and dlse; B6 and B7 run
+   twice at ERNIE's call and give the same bits; kernel, plain and
+   ``scaled_dot_product_attention`` (bf16) times beside the bound, and
+   B6 + B7 against SDPA's backward with each one's share of its bound;
 7. ERNIE path at full width: ``Trainer(Ernie(cfg), Adam(1e-4), lm_loss)``
    (vocab 32,768, hidden 1024, 16 heads, ffn 4096, 8 layers, batch 8 ×
    seq 512) on one numpy-seeded batch, 2 warm-up and 10 timed steps: loss
@@ -1205,6 +1207,16 @@ def phase_flash_kernels(dev):
     out, lse = fa.flash_attention_fwd(q, k, v)
     delta = (do * out).sum(-1).contiguous()
     bw = (q, k, v, do, lse, delta)
+    # each output row of B6 and B7 is written by one block, without atomics:
+    # two runs give the same bits
+    first = (fa.flash_attention_bwd_dq(*bw), *fa.flash_attention_bwd_dkv(*bw))
+    second = (fa.flash_attention_bwd_dq(*bw), *fa.flash_attention_bwd_dkv(*bw))
+    torch.cuda.synchronize()
+    same = [bitwise_equal(a, b) for a, b in zip(first, second)]
+    log(f"kernel flash_attention_bwd_dq/bwd_dkv at {list(FA_SHAPE)}: two runs bitwise equal "
+        f"(dQ, dK, dV) {same}")
+    assert all(same), "flash attention backward kernels are not deterministic"
+    del first, second
     runs = {"fwd": (lambda: fa.flash_attention_fwd(q, k, v),
                     lambda: fa.flash_attention_fwd_plain(q, k, v)),
             "dq": (lambda: fa.flash_attention_bwd_dq(*bw),
@@ -1242,6 +1254,11 @@ def phase_flash_kernels(dev):
                         "bound_ms": max(bytes_ms, ops_ms),
                         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                         "library_ms": lib}
+    pair = result["dq"]["ms"] + result["dkv"]["ms"]
+    log(f"kernel flash_attention backward pair at {list(FA_SHAPE)}: B6 + B7 {pair} ms against "
+        f"scaled_dot_product_attention's bf16 backward {lib_bwd} ms (ratio {pair / lib_bwd}); "
+        f"share of bound B6 {result['dq']['bound_ms'] / result['dq']['ms']}, "
+        f"B7 {result['dkv']['bound_ms'] / result['dkv']['ms']}")
     return result
 
 

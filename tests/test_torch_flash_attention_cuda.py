@@ -20,9 +20,17 @@ import torch
 
 from paddle_tpu_torch.ops import flash_attention as fa
 
-# (B, Lq, Lk, H, D, causal, q_offset, k_offset)
+# (B, Lq, Lk, H, D, causal, q_offset, k_offset). The last five are the
+# edges of the backward kernels' ring (128 owned rows, 32-row stages, 3
+# stages): fewer key tiles than stages; a ragged last tile at ERNIE's
+# width; a causal ring step whose skipped tiles fall mid-sequence (B7's
+# key blocks start at different query tiles, B6 stops early); D = 128
+# (the 16-n-tile variant) over ragged rows; a single partial tile.
 SHAPES = [(2, 200, 200, 3, 64, False, 0, 0), (1, 130, 70, 2, 16, True, 64, 0),
-          (1, 96, 128, 2, 8, True, 0, 40), (1, 64, 64, 1, 128, False, 0, 0)]
+          (1, 96, 128, 2, 8, True, 0, 40), (1, 64, 64, 1, 128, False, 0, 0),
+          (1, 64, 40, 2, 64, False, 0, 0), (1, 500, 500, 16, 64, False, 0, 0),
+          (1, 256, 256, 2, 64, True, 0, 96), (2, 300, 260, 2, 128, True, 40, 0),
+          (1, 20, 20, 2, 32, False, 0, 0)]
 
 
 @pytest.fixture(autouse=True)
@@ -104,3 +112,48 @@ def test_bf16_inputs_and_autograd():
     assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches,
             fa.flash_attention_bwd_dkv.launches) == tuple(b + 1 for b in before)
     assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.cuda
+def test_bf16_backward_at_a_ragged_length():
+    """bf16 inputs through the backward kernels' ring (16-byte copies of
+    eight bf16, a ragged last tile) against the plain versions on the same
+    bf16 inputs. Tolerance: the f32 bound of the "default" path (2e-2)
+    plus one bf16 step of the output (relative 2^-7), since both sides
+    round their f32 results to bf16."""
+    rng = np.random.default_rng(2)
+    B, L, H, D = 2, 300, 3, 64
+    mk = lambda n: torch.from_numpy(  # noqa: E731
+        rng.normal(size=(B, n, H, D)).astype(np.float32)).cuda().to(torch.bfloat16)
+    q, k, v, do = mk(L), mk(L - 37), mk(L - 37), mk(L)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    delta = (do.float() * out.float()).sum(-1).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    w_dq = fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta)
+    w_dk, w_dv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta)
+    for got, want in ((dq, w_dq), (dk, w_dk), (dv, w_dv)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_backward_kernels_are_deterministic(causal):
+    """Each output row of B6 and B7 is written by one block, with no
+    atomics: two runs on the same inputs give the same bits."""
+    rng = np.random.default_rng(3)
+    B, L, H, D = 2, 512, 4, 64
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(B, L, H, D)).astype(np.float32)).cuda()
+                   for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    delta = (do * out).sum(-1).contiguous()
+    args = (q, k, v, do, lse, delta)
+    first = (fa.flash_attention_bwd_dq(*args, causal=causal),
+             *fa.flash_attention_bwd_dkv(*args, causal=causal))
+    second = (fa.flash_attention_bwd_dq(*args, causal=causal),
+              *fa.flash_attention_bwd_dkv(*args, causal=causal))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
