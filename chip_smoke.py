@@ -49,10 +49,11 @@ or when any phase fails. Phases:
    their plain versions at ERNIE's shape [8, 512, 16, 64] f32, both
    precisions, causal or not, a ring-style call (q_offset 256, half-length
    K/V) and an unaligned length (500, also against ``local_attention``);
-   out, lse and the gradients of a numpy-seeded dO and dlse; B6 and B7 run
-   twice at ERNIE's call and give the same bits; kernel, plain and
-   ``scaled_dot_product_attention`` (bf16) times beside the bound, and
-   B6 + B7 against SDPA's backward with each one's share of its bound;
+   out, lse and the gradients of a numpy-seeded dO and dlse; B5, B6 and
+   B7 run twice at ERNIE's call and give the same bits; kernel, plain and
+   ``scaled_dot_product_attention`` (bf16) times beside the bound, B5
+   against SDPA's forward and B6 + B7 against its backward, each with its
+   share of its bound;
 7. ERNIE path at full width: ``Trainer(Ernie(cfg), Adam(1e-4), lm_loss)``
    (vocab 32,768, hidden 1024, 16 heads, ffn 4096, 8 layers, batch 8 ×
    seq 512) on one numpy-seeded batch, 2 warm-up and 10 timed steps: loss
@@ -680,6 +681,12 @@ def profile_window(run, n_steps, out_dir, name):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"profile {name} kernel: {e.self_device_time_total / 1e3 / n_steps:.4f} "
             f"ms/step x{e.count / n_steps:g}/step {e.key[:80]}")
+    # the port's own kernels, wherever they rank (the flash kernels are
+    # "<fwd|bwd_dq|bwd_dkv>_mma_kernel<T, NT>")
+    for e in kernels:
+        if "_mma_kernel" in e.key:
+            log(f"profile {name} port kernel: {e.self_device_time_total / 1e3 / n_steps:.4f} "
+                f"ms/step x{e.count / n_steps:g}/step {e.key[:80]}")
     ops = sorted((e for e in evs if e.device_type == DeviceType.CPU
                   and e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
     for e in ops[:12]:
@@ -1122,12 +1129,17 @@ FA_SHAPE = (8, 512, 16, 64)     # ERNIE's attention: batch, seq, heads, head dim
 # Absolute tolerances, with their reasons. "highest": f32 operands on both
 # sides; the kernel sums in its own order and runs an online softmax over
 # 32-key tiles. "default": both sides round Q, K, V, dO, P and dS to bf16
-# and sum exact products in f32, but the kernel rounds P against its
-# running maximum over 64-key tiles where the plain version uses the row's
-# maximum, and where the two f32 sums put a value of P or dS on either
-# side of a bf16 rounding boundary its term moves by one bf16 step (2^-8
-# of itself or more): a handful of such flips per output, largest in the
-# gradients, whose dS terms are large; lse is never rounded.
+# and sum exact products in f32, but the forward kernel rounds P against
+# its running maximum over 64-key steps (two 32-row ring tiles; O and l
+# take the f32 correction when the maximum grows) where the plain version
+# uses the row's maximum, so past the first step the two round different
+# values of each P to bf16, each within 2^-9 of itself, and the errors of
+# a row's terms add up like a random walk; and where the two f32 sums put
+# a value of P or dS on either side of a bf16 rounding boundary its term
+# moves by one bf16 step (2^-8 of itself or more): a handful of such flips
+# per output, largest in the gradients, whose dS terms are large. lse is
+# never rounded: it differs by the f32 sums' order and exp2 of an FMA for
+# exp.
 FA_TOL = {"highest": {"out": 1e-5, "lse": 1e-5, "grad": 1e-5},
           "default": {"out": 5e-3, "lse": 1e-4, "grad": 1e-2}}
 FA_EXACT_TOL = {"highest": 1e-5, "default": 2e-2}  # against local_attention (f32)
@@ -1207,15 +1219,17 @@ def phase_flash_kernels(dev):
     out, lse = fa.flash_attention_fwd(q, k, v)
     delta = (do * out).sum(-1).contiguous()
     bw = (q, k, v, do, lse, delta)
-    # each output row of B6 and B7 is written by one block, without atomics:
-    # two runs give the same bits
-    first = (fa.flash_attention_bwd_dq(*bw), *fa.flash_attention_bwd_dkv(*bw))
-    second = (fa.flash_attention_bwd_dq(*bw), *fa.flash_attention_bwd_dkv(*bw))
+    # each output row of B5, B6 and B7 is written by one block, without
+    # atomics: two runs give the same bits
+    first = (*fa.flash_attention_fwd(q, k, v), fa.flash_attention_bwd_dq(*bw),
+             *fa.flash_attention_bwd_dkv(*bw))
+    second = (*fa.flash_attention_fwd(q, k, v), fa.flash_attention_bwd_dq(*bw),
+              *fa.flash_attention_bwd_dkv(*bw))
     torch.cuda.synchronize()
     same = [bitwise_equal(a, b) for a, b in zip(first, second)]
-    log(f"kernel flash_attention_bwd_dq/bwd_dkv at {list(FA_SHAPE)}: two runs bitwise equal "
-        f"(dQ, dK, dV) {same}")
-    assert all(same), "flash attention backward kernels are not deterministic"
+    log(f"kernel flash_attention_fwd/bwd_dq/bwd_dkv at {list(FA_SHAPE)}: two runs bitwise "
+        f"equal (out, lse, dQ, dK, dV) {same}")
+    assert all(same), "flash attention kernels are not deterministic"
     del first, second
     runs = {"fwd": (lambda: fa.flash_attention_fwd(q, k, v),
                     lambda: fa.flash_attention_fwd_plain(q, k, v)),
@@ -1254,6 +1268,10 @@ def phase_flash_kernels(dev):
                         "bound_ms": max(bytes_ms, ops_ms),
                         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                         "library_ms": lib}
+    fwd = result["fwd"]
+    log(f"kernel flash_attention forward at {list(FA_SHAPE)}: B5 {fwd['ms']} ms against "
+        f"scaled_dot_product_attention's bf16 forward {lib_fwd} ms (ratio {fwd['ms'] / lib_fwd}); "
+        f"share of bound {fwd['bound_ms'] / fwd['ms']}")
     pair = result["dq"]["ms"] + result["dkv"]["ms"]
     log(f"kernel flash_attention backward pair at {list(FA_SHAPE)}: B6 + B7 {pair} ms against "
         f"scaled_dot_product_attention's bf16 backward {lib_bwd} ms (ratio {pair / lib_bwd}); "

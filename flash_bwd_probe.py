@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Where the time of the backward flash kernels (B6 dQ, B7 dK/dV) goes.
+"""Where the time of the flash kernels (B5 forward, B6 dQ, B7 dK/dV) goes.
 
     python3 flash_bwd_probe.py
 
 Needs one CUDA device and ``nvcc``. Builds variants of
 ``paddle_tpu_torch/ops/csrc/flash_attention.cu`` (into
-``paddle_tpu_torch/_build/``) and times B6 and B7 of each at ERNIE's call
-(f32 [8, 512, 16, 64], non-causal, "default") with ``chip_smoke``'s
+``paddle_tpu_torch/_build/``) and times B5, B6 and B7 of each at ERNIE's
+call (f32 [8, 512, 16, 64], non-causal, "default") with ``chip_smoke``'s
 protocol (CUDA events, L2 flushed, median of 25), in two interleaved
 rounds:
 
@@ -18,8 +18,9 @@ rounds:
   skipped (the products run on stale tiles; the outputs are wrong).
 
 Prints one JSON line per variant and round (with the variant's max
-absolute error against the plain versions), then the card's name and
-power limit. Exits non-zero without a CUDA device.
+absolute errors against the plain versions: ``fwd_err`` for B5's out,
+``max_abs_err`` for B6 and B7), then the card's name and power limit.
+Exits non-zero without a CUDA device.
 """
 
 import concurrent.futures
@@ -46,9 +47,9 @@ def variants(src):
         return out
 
     no_products = sub(src, r"\n(\s+)(wgmma_n(?:32_rs|32_ss|d_rs_t<NT>))\(",
-                      r"\n\1if (H < 0) \2(", 7)
-    no_refill = sub(src, r"if \((j \+ kStages < n)\) issue\(", rf"if ({NEVER}\1) issue(", 2)
-    no_refill = sub(no_refill, r"if \((j \+ 1 < n)\) convert\(", rf"if ({NEVER}\1) convert(", 2)
+                      r"\n\1if (H < 0) \2(", 9)
+    no_refill = sub(src, r"if \((j \+ kStages < n)\) issue\(", rf"if ({NEVER}\1) issue(", 3)
+    no_refill = sub(no_refill, r"if \((j \+ 1 < n)\) convert\(", rf"if ({NEVER}\1) convert(", 4)
     return {"as_built": src,
             "stages3": sub(src, r"constexpr int kStages = 2;", "constexpr int kStages = 3;", 1),
             "no_products": no_products,
@@ -70,6 +71,8 @@ def build(name, text):
     lib = ctypes.CDLL(build_shared_library(f"flash_probe_{name}", (cu,), command))
     p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tail = [i32] * 10 + [f32, p]
+    lib.flash_fwd_launch.restype = i32
+    lib.flash_fwd_launch.argtypes = [p] * 5 + tail
     lib.flash_bwd_dq_launch.restype = i32
     lib.flash_bwd_dq_launch.argtypes = [p] * 7 + tail
     lib.flash_bwd_dkv_launch.restype = i32
@@ -95,16 +98,20 @@ def main():
     out, lse = fa.flash_attention_fwd(q, k, v)
     delta = (do * out).sum(-1).contiguous()
     bw = (q, k, v, do, lse, delta)
+    want_out = fa.flash_attention_fwd_plain(q, k, v)[0]
     want = (fa.flash_attention_bwd_dq_plain(*bw), *fa.flash_attention_bwd_dkv_plain(*bw))
     built = fa._LIB
     try:
         for rnd in range(2):
             for name, lib in libs.items():
                 fa._LIB = lib
+                got_out = fa.flash_attention_fwd(q, k, v)[0]
                 got = (fa.flash_attention_bwd_dq(*bw), *fa.flash_attention_bwd_dkv(*bw))
                 torch.cuda.synchronize()
                 err = max(float((a - b).abs().max()) for a, b in zip(got, want))
                 print(json.dumps({"variant": name, "round": rnd,
+                                  "fwd_ms": cs.time_cuda(lambda: fa.flash_attention_fwd(q, k, v))[0],
+                                  "fwd_err": float((got_out - want_out).abs().max()),
                                   "dq_ms": cs.time_cuda(lambda: fa.flash_attention_bwd_dq(*bw))[0],
                                   "dkv_ms": cs.time_cuda(lambda: fa.flash_attention_bwd_dkv(*bw))[0],
                                   "max_abs_err": err}), flush=True)

@@ -40,61 +40,75 @@
 // all three are bound by bytes. exp and the masks are a few percent of
 // the work.
 //
-// B5 (64 rows a block, 4 warps) stages its 64-row tiles row-major as bf16
-// with plain loads (four 16-byte loads in flight per thread), synchronises
-// before each tile's products, and multiplies with mma.sync.m16n8k16 on
-// ldmatrix fragments (.trans for the products that need a tile
-// transposed); shared rows are padded by 8 bf16 against bank conflicts.
-//
-// B6 and B7 are built around Hopper's asynchronous copies and warpgroup
-// products:
+// The three "default" kernels are built around Hopper's asynchronous
+// copies and warpgroup products, on one skeleton:
 // - A ring of kStages = 2 stages in shared memory, filled with 16-byte
 //   cp.async.cg copies (4-byte cp.async.ca for B7's lse and delta rows)
 //   and commit/wait groups. While tile j's products run, tile j + 1
 //   (landed) is converted and tile j + 2's copies are in flight; a stage
 //   is refilled as soon as its tile has been converted. (3 stages measured
-//   2-3 % slower on the H100.) The ragged last tile reads zeros past the
-//   sequence (cp.async's src-size 0 fill). Under a causal mask the ring
-//   walks only the contiguous run of tiles the mask keeps (B6 stops at
-//   the last key tile any of its rows sees, B7 starts at the first query
-//   tile that sees any of its keys): a skipped tile is never copied, and
-//   every group is waited on before the block exits. Only the tiles that
-//   cross a warp's causal diagonal or the keys' end apply the masks.
+//   2-3 % slower for B6 and B7 on the H100, and 37 % slower for B5, whose
+//   larger stages then leave room for one block an SM.) The ragged last
+//   tile reads zeros past the sequence (cp.async's src-size 0 fill). Under
+//   a causal mask the ring walks only the contiguous run of tiles the mask
+//   keeps (B5 and B6 stop at the last key tile any of their rows sees, B7
+//   starts at the first query tile that sees any of its keys): a skipped
+//   tile is never copied, and every group is waited on before the block
+//   exits. Only the tiles that cross a warp's causal diagonal or the keys'
+//   end apply the masks. B5 takes two ring tiles (64 keys) a step, so its
+//   stages and buffers hold 64 rows: its online softmax rounds P against
+//   a maximum over 64 keys, and at L <= 64 against the row's maximum, as
+//   the plain version does (32-key steps moved the small ERNIE's
+//   card-vs-CPU updates past their bound).
 // - The ring holds tiles as they landed (f32 in ERNIE, bf16 through the
 //   same template T), rows padded by 16 bytes. One cooperative pass per
 //   tile writes the bf16 tile that the tensor cores read, with the same
 //   __float2bfloat16_rn, into one of two buffers: tile j + 1 is converted
 //   while tile j's first products run, so each tile costs one
-//   __syncthreads. The resident operands (Q and dO for B6, K and V for B7)
-//   are converted once, at the prologue, while the ring's first copies
-//   are in flight.
-// - Products are wgmma (sm_90a), one warpgroup per 64 owned rows: S and
-//   dP (m64n32k16 over a 32-row tile) and then dQ, or dV and dK
-//   (m64n{64,128}k16, the tile read transposed), all from one blocked
-//   copy of each tile in shared memory, read by the tensor cores once per
-//   warpgroup (mma.sync reads every B fragment once per 16-row warp,
-//   through ldmatrix and the register file). B6 keeps its warp's Q and dO
-//   A fragments in registers; B7 reads K and V from shared memory (its dK
-//   and dV accumulators take 64 of its 128 registers). S and dP come back
-//   in FA-2's fragment layout, and P and dS are the register A operand of
-//   the next products. The products of tile j are waited for within step
-//   j: keeping them in flight into step j + 1 (a third buffer) made ptxas
-//   serialise the wgmma for want of registers, and was slower.
+//   __syncthreads. The resident operands (Q for B5, Q and dO for B6, K and
+//   V for B7) are converted once, at the prologue, while the ring's first
+//   copies are in flight.
+// - Products are wgmma (sm_90a), one warpgroup per 64 owned rows: S (and
+//   dP) over a 32-row tile (m64n32k16), then O += P V (B5), dQ (B6), or dV
+//   and dK (B7) (m64n{64,128}k16, the tile read transposed), all from one
+//   blocked copy of each tile in shared memory, read by the tensor cores
+//   once per warpgroup (mma.sync would read every B fragment once per
+//   16-row warp, through ldmatrix and the register file). B5 and B6 keep
+//   their warp's Q (and dO) A fragments in registers; B7 reads K and V
+//   from shared memory (its dK and dV accumulators take 64 of its 128
+//   registers). S and dP come back in FA-2's fragment layout, and P and dS
+//   are the register A operand of the next products. In B6 and B7 the
+//   last product of tile j (dQ, or dV and dK) runs on while the next step
+//   waits for its copies and is waited for before that step's barrier,
+//   which then frees its buffer; keeping it in flight past the barrier (a
+//   third buffer) made ptxas serialise the wgmma for want of registers,
+//   and was slower. B5 waits for both its products within the step,
+//   converting the next step's K while S runs and its V while P V runs:
+//   with P V in flight into the next step, the rescaling of O made ptxas
+//   serialise B5's wgmma (C7515), and it was slower.
 // - Blocks own kBRows = 128 rows (two warpgroups) and stream kBTile = 32
-//   rows a stage. 128 owned rows halve the L2 re-reads of the streamed
-//   side against 64 (each block re-reads the whole other side: 4 times
-//   per (batch, head) at L = 512); 32-row stages keep S and dP at 16
-//   registers each. Shared memory at D = 64, f32: 88,064 bytes (B6) and
-//   84,992 (B7) a block, so two blocks (16 warps) share an SM with a
-//   16 KB stage of each in flight behind the products (Little's law at
+//   rows a stage. Each block re-reads the whole other side of its (batch,
+//   head) from L2, in f32 in ERNIE: 128 owned rows halve those re-reads
+//   against 64 (at ERNIE's call B5 runs 512 blocks that read 134 MB of K
+//   and V from L2, where the 1,024 blocks of 64 rows read 268 MB; the HBM
+//   bound counts 67 MB), and 32-row stages keep S and dP at 16 registers
+//   each. Shared memory at D = 64, f32: 102,400 bytes (B5, which stages Q
+//   in its bf16 buffers before their first use), 88,064 (B6) and 84,992
+//   (B7) a block, so two blocks (16 warps) share an SM with a 16 KB stage
+//   (32 KB for B5) of each in flight behind the products (Little's law at
 //   3.35 TB/s and ~1 us asks for ~25 KB an SM). The head width is a
 //   compile-time 64 (or 128, zeros past D). __launch_bounds__(256, 2)
-//   holds registers to 128 a thread: ptxas (-Xptxas -v) gives B6 and B7
-//   126-128 registers with no spill and no serialised wgmma; the D = 128
-//   variants hold one block an SM at 214-236.
+//   holds registers to 128 a thread: ptxas (-Xptxas -v) gives B5 128 and
+//   B6 and B7 126-128 registers with no spill and no serialised wgmma; the
+//   D = 128 variants hold one block an SM at 190-216 (B5) and 214-236.
 // - exp is ex2.approx of an FMA on log2(e)-prescaled operands (one
-//   MUFU.EX2 a score); a row past the end or one that saw no key carries
-//   lse = +inf, so its P is 0 without a mask.
+//   MUFU.EX2 a score). In B6 and B7 a row past the end or one that saw no
+//   key carries lse = +inf, so its P is 0 without a mask. B5's online
+//   softmax runs in log2 units: s2 = S * scale * log2(e), a running
+//   maximum m2, P = ex2(s2 - m2) and the correction ex2(m2_old - m2_new)
+//   of O and l. A masked score is -inf and the maximum starts at the
+//   finite NEG, so a row that has seen no key keeps P = 0 and never forms
+//   inf - inf; lse is written in natural units, m * scale + log(l).
 //
 // Each entry returns cudaGetLastError(); the Python wrapper raises if it
 // is not 0. The kernels launch on the caller's stream and allocate
@@ -111,17 +125,14 @@ using bf16 = __nv_bfloat16;
 
 constexpr float kNeg = -1e30f;   // the JAX package's NEG
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kRows = 64;        // rows a block owns (B5, f32 path)
-constexpr int kTile = 64;        // rows streamed per step (B5)
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;          // bf16 padding of a shared row
+constexpr int kRows = 64;        // rows a block owns (f32 path)
+constexpr int kPad = 8;          // bf16 padding of a resident row-major row
 constexpr int kTileF = 32;       // rows streamed per step (f32 path)
-constexpr int kBRows = 128;      // rows a backward block owns (B6, B7)
+constexpr int kBRows = 128;      // rows a block owns (B5, B6, B7)
 constexpr int kBThreads = kBRows / 16 * 32;  // one warp per 16 rows
-constexpr int kBTile = 32;       // rows a ring stage holds (B6, B7)
+constexpr int kBTile = 32;       // rows a ring stage holds
 constexpr int kStages = 2;       // ring depth
-constexpr int kBBlocks = 2;      // blocks an SM holds (B6, B7 at D <= 64)
+constexpr int kBBlocks = 2;      // blocks an SM holds (at D <= 64)
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
@@ -172,7 +183,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // zeros. Each of the block's kN threads moves four elements at a time and
 // issues kBatch loads before it stores any, so the copy pays the memory
 // latency once per kBatch loads instead of once per element.
-template <int kN = kThreads, int kBatch = 4, int kBlock = 0, typename T>
+template <int kN, int kBatch, int kBlock = 0, typename T>
 __device__ void stage_bf16(const T* __restrict__ src, Seq s, int r0, int n, int D, int Dp,
                            bf16* dst, int ld) {
   const int per_row = Dp >> 2, total = n * per_row;
@@ -316,95 +327,12 @@ __device__ __forceinline__ void zero_smem(void* p, int n) {
     reinterpret_cast<uint4*>(p)[i] = make_uint4(0u, 0u, 0u, 0u);
 }
 
-// c += a * b, m16n8k16, bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// ---------------------------------------------------------------------------
+// B5, B6 and B7: helpers
+// ---------------------------------------------------------------------------
 
-// A fragment: the 16x16 block at (r0, k0) of a row-major [rows][ld] array.
-// ldmatrix .x4: lanes 0-15 address rows r0..r0+15 at column k0, lanes
-// 16-31 the same rows at k0 + 8 (the four 8x8 quarters in a0..a3 order).
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* x, int ld, int r0, int k0,
-                                       int lane) {
-  const bf16* p = x + (r0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8;
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// B fragment (k 16 x n 8) of B[k][n] = y[n][k], y row-major [n][ld], at
-// (k0, n0): lanes 0-7 address rows n0..n0+7 at k0, lanes 8-15 at k0 + 8
-__device__ __forceinline__ void load_b(uint32_t b[2], const bf16* y, int ld, int n0, int k0,
-                                       int lane) {
-  const bf16* p = y + (n0 + (lane & 7)) * ld + k0 + ((lane >> 3) & 1) * 8;
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b[0]), "=r"(b[1])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// B fragment (k 16 x n 8) of B[k][n] = z[k][n], z row-major [k][ld], at
-// (k0, n0): ldmatrix .trans over rows k0..k0+15, so no transposed copy of
-// z is ever staged
-__device__ __forceinline__ void load_b_trans(uint32_t b[2], const bf16* z, int ld, int k0,
-                                             int n0, int lane) {
-  const bf16* p = z + (k0 + (lane & 15)) * ld + n0;
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b[0]), "=r"(b[1])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// s[8][4] = X[16 rows at r0] . Y[64 rows]^T over Dp columns: both operands
-// row-major in shared memory (the rows of Y are the n index)
-__device__ __forceinline__ void mma_xyt(float s[8][4], const bf16* x, const bf16* y, int ld,
-                                        int r0, int Dp, int lane) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-  for (int k0 = 0; k0 < Dp; k0 += 16) {
-    uint32_t a[4];
-    load_a(a, x, ld, r0, k0, lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint32_t b[2];
-      load_b(b, y, ld, j * 8, k0, lane);
-      mma_bf16(s[j], a, b);
-    }
-  }
-}
-
-// acc[n][4] += bf16(p)[16 x 64] . Z[64 x Dp], Z row-major ([64][ld]) in
-// shared memory; p is the accumulator fragment of mma_xyt. NT is the
-// accumulator's compile-time width in n-tiles of 8 (8 for D <= 64, 16 for
-// D <= 128), nt = Dp / 8 the width in use
-template <int NT>
-__device__ __forceinline__ void mma_pz(float acc[NT][4], const float p[8][4], const bf16* z,
-                                       int ld, int nt, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    a[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    a[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    a[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      if (n < nt) {
-        uint32_t b[2];
-        load_b_trans(b, z, ld, kk * 16, n * 8, lane);
-        mma_bf16(acc[n], a, b);
-      }
-    }
-  }
-}
-
+// the maximum and the sum over the four lanes (t = 0..3) that hold one
+// row of an accumulator fragment
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -414,125 +342,6 @@ __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
-
-// store the accumulator fragment rows (r0 + g, r0 + g + 8) x Dp of one
-// (batch, head), times `mul`, divided by `div[2]`
-template <typename T, int NT>
-__device__ __forceinline__ void store_frag(T* __restrict__ dst, Seq s, int r0, int D, int nt,
-                                           const float acc[NT][4], float mul,
-                                           const float div[2], int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + g + 8 * r;
-    if (row >= s.len) continue;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      if (n >= nt) continue;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = n * 8 + 2 * t + e;
-        if (d < D) dst[s.base + row * s.stride + d] = from_f32<T>(acc[n][2 * r + e] * mul / div[r]);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// B5, forward, tensor cores
-// ---------------------------------------------------------------------------
-
-template <typename T, int NT>
-__global__ void __launch_bounds__(kThreads)
-fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               T* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk, int D, int Dp,
-               float scale, int causal, int q_off, int k_off) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = Dp + kPad;
-  bf16* q_s = reinterpret_cast<bf16*>(smem);  // [kRows][ld]
-  bf16* k_s = q_s + kRows * ld;               // [kTile][ld]
-  bf16* v_s = k_s + kTile * ld;               // [kTile][ld]
-  const int bh = blockIdx.y, q0 = blockIdx.x * kRows;
-  const Seq sq = seq_of(bh, H, Lq, D), sk = seq_of(bh, H, Lk, D);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int wr = warp * 16, nt = Dp / 8;
-  const int pos[2] = {q_off + q0 + wr + g, q_off + q0 + wr + g + 8};
-
-  stage_bf16(q, sq, q0, kRows, D, Dp, q_s, ld);
-
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};  // l: this thread's columns only
-
-  for (int c0 = 0; c0 < Lk; c0 += kTile) {
-    // causal tile skip: this and every later tile lies in the future
-    if (causal && q_off + q0 + kRows - 1 < k_off + c0) break;
-    __syncthreads();
-    stage_bf16(k, sk, c0, kTile, D, Dp, k_s, ld);
-    stage_bf16(v, sk, c0, kTile, D, Dp, v_s, ld);
-    __syncthreads();
-
-    float s[8][4];
-    mma_xyt(s, q_s, k_s, ld, wr, Dp, lane);
-    float mx[2] = {kNeg, kNeg};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, c = c0 + j * 8 + 2 * t + (e & 1);
-        const bool ok = c < Lk && (!causal || k_off + c <= pos[r]);
-        s[j][e] = ok ? s[j][e] * scale : kNeg;
-        mx[r] = fmaxf(mx[r], s[j][e]);
-      }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      corr[r] = expf(m[r] - m_new);  // m = NEG -> 0
-      m[r] = m_new;
-      l[r] *= corr[r];
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, c = c0 + j * 8 + 2 * t + (e & 1);
-        const bool ok = c < Lk && (!causal || k_off + c <= pos[r]);
-        s[j][e] = ok ? expf(s[j][e] - m[r]) : 0.f;
-        l[r] += s[j][e];
-      }
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
-    mma_pz<NT>(acc, s, v_s, ld, nt, lane);
-  }
-
-  float ltot[2], lsum[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    ltot[r] = quad_sum(l[r]);
-    lsum[r] = fmaxf(ltot[r], 1e-30f);
-  }
-  store_frag<T, NT>(out, sq, q0 + wr, D, nt, acc, 1.f, lsum, lane);
-  if (t == 0) {
-    const int b = bh / H, h = bh - b * H;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + wr + g + 8 * r;
-      if (row < Lq)
-        lse[(static_cast<int64_t>(b) * Lq + row) * H + h] =
-            ltot[r] > 0.f ? m[r] + logf(lsum[r]) : kNeg;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// B6 and B7: helpers
-// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void ldsm_x4(uint32_t r[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -586,7 +395,7 @@ __device__ __forceinline__ void store_pairs(T* __restrict__ dst, Seq s, int r0, 
 }
 
 // ---------------------------------------------------------------------------
-// B6 and B7: warpgroup products (wgmma) on core-matrix-blocked bf16 tiles
+// B5, B6 and B7: warpgroup products (wgmma) on core-matrix-blocked bf16 tiles
 // ---------------------------------------------------------------------------
 //
 // A tile of R rows x kDp columns sits in shared memory as 8x8 core
@@ -596,8 +405,8 @@ __device__ __forceinline__ void store_pairs(T* __restrict__ dst, Seq s, int r0, 
 // - K-major (k = d: S = Q K^T, dP = dO V^T, their transposes in B7): LBO
 //   = 128 bytes between column groups, SBO = kDp / 8 * 128 between row
 //   groups, a 16-column step 256 bytes further;
-// - MN-major (k = row, n = d, read transposed: dQ = dS K, dV = P^T dO,
-//   dK = dS^T Q): LBO = kDp / 8 * 128 between row groups, SBO = 128
+// - MN-major (k = row, n = d, read transposed: O = P V, dQ = dS K,
+//   dV = P^T dO, dK = dS^T Q): LBO = kDp / 8 * 128 between row groups, SBO = 128
 //   between column groups, a 16-row step two row groups further.
 // (Both measured against a host product on the H100 before use.) A
 // register A operand of a warpgroup's 64 rows is, per warp, mma.sync's
@@ -675,6 +484,200 @@ __device__ __forceinline__ void wgmma_nd_rs_t<16>(float (&d)[64], const uint32_t
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// B5, forward, wgmma, fed by the cp.async ring
+// ---------------------------------------------------------------------------
+
+// B5's online softmax takes kFKeys = 64 keys a step, two ring tiles: P
+// rounds to bf16 against the running maximum over 64 keys, so at L <= 64
+// it rounds against the row's maximum as the plain version does.
+constexpr int kFKeys = 2 * kBTile;
+
+// Shared memory of B5 (bytes): two blocked bf16 K/V buffers of a step (Q
+// is staged there as row-major bf16 at the prologue and read once into
+// registers), the ring of kStages K/V stages of a step as they landed
+// (rows padded by 16 bytes).
+template <int NT>
+constexpr size_t fwd_smem(int itemsize) {
+  return static_cast<size_t>(4 * kFKeys) * NT * 8 * 2 +
+         static_cast<size_t>(kStages) * 2 * kFKeys * (NT * 8 * itemsize + 16);
+}
+
+template <typename T, int NT>
+__global__ void __launch_bounds__(kBThreads, NT <= 8 ? kBBlocks : 1)
+fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               T* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk, int D,
+               float scale, int causal, int q_off, int k_off) {
+  constexpr int kDp = NT * 8, kLd = kDp + kPad;
+  constexpr int kRs = kDp + 16 / sizeof(T);  // ring row stride (elements)
+  constexpr int kTb = kBTile * kDp * 2;      // bytes of a blocked bf16 ring tile
+  constexpr int kG = kDp / 8 * 128;          // bytes between its 8-row groups
+  static_assert(kBRows * kLd <= 4 * kFKeys * kDp, "Q fits the blocked buffers");
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* kv_b = reinterpret_cast<bf16*>(smem);  // [2 buffers][K, V] blocked, kFKeys rows each
+  bf16* q_s = kv_b;                            // [kBRows][kLd] at the prologue only
+  T* ring = reinterpret_cast<T*>(kv_b + 4 * kFKeys * kDp);  // [kStages][K, V][kFKeys][kRs]
+  constexpr int kStage = 2 * kFKeys * kRs;
+  const int bh = blockIdx.y, q0 = blockIdx.x * kBRows;
+  const Seq sq = seq_of(bh, H, Lq, D), sk = seq_of(bh, H, Lk, D);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wr = warp * 16;  // this warp's rows: 16 of its warpgroup's 64
+  const int pos[2] = {q_off + q0 + wr + g, q_off + q0 + wr + g + 8};
+
+  // steps 0..n-1 of kFKeys keys: all of them, or under the causal mask up
+  // to the last one that any row of this block sees
+  int n = (Lk + kFKeys - 1) / kFKeys;
+  if (causal) {
+    const int last = q_off + q0 + kBRows - 1 - k_off;  // the last key position seen
+    n = last < 0 ? 0 : min(n, last / kFKeys + 1);
+  }
+  auto issue = [&](int j) {  // the keys of step j into stage j % kStages
+    T* dst = ring + (j % kStages) * kStage;
+#pragma unroll
+    for (int x = 0; x < 4; ++x)  // K, then V, each in two tiles of kBTile rows
+      ring_rows<kDp, kRs>(x < 2 ? k : v, sk, j * kFKeys + (x & 1) * kBTile, D,
+                          dst + x * kBTile * kRs);
+  };
+  auto convert = [&](int j, int x) {  // K (x = 0) or V (1) of landed step j into buffer j & 1
+    const T* src = ring + (j % kStages) * kStage + x * kFKeys * kRs;
+    bf16* dst = kv_b + ((j & 1) * 2 + x) * kFKeys * kDp;
+    ring_to_blocked<kDp, kRs>(src, D, dst);
+    ring_to_blocked<kDp, kRs>(src + kBTile * kRs, D, dst + kBTile * kDp);
+    fence_async_smem();
+  };
+
+  // prologue: the first kStages steps in flight (one group each, empty past
+  // n); meanwhile Q with plain loads into the blocked buffers, read into
+  // registers before they are cleared and take step 0
+#pragma unroll
+  for (int j = 0; j < kStages; ++j) {
+    if (j < n) issue(j);
+    cp_async_commit();
+  }
+  stage_bf16<kBThreads, 8>(q, sq, q0, kBRows, D, kDp, q_s, kLd);
+  __syncthreads();
+  // this warp's A fragments of Q (the register A operand of S)
+  uint32_t qf[kDp / 16][4];
+  {
+    const uint32_t qa = smem_addr(q_s + wr * kLd + lane_a<kLd>(lane));
+#pragma unroll
+    for (int ks = 0; ks < kDp / 16; ++ks) ldsm_x4(qf[ks], qa + ks * 32);
+  }
+  __syncthreads();
+  zero_smem(kv_b, 4 * kFKeys * kDp * 2);  // the bf16 tiles' columns D..kDp stay 0
+  const float scale2 = scale * kLog2e;
+  const uint32_t kv0 = smem_addr(kv_b);
+  cp_async_wait<kStages - 1>();  // step 0 (this thread's copies)
+  __syncthreads();
+  if (n > 0) {
+    convert(0, 0);
+    convert(0, 1);
+  }
+
+  float acc[NT * 4];  // O of this warp's 16 rows: NT n-tiles of mma.sync's C layout
+#pragma unroll
+  for (int i = 0; i < NT * 4; ++i) acc[i] = 0.f;
+  // per row (g, g + 8): the running maximum of the raw scores, the same
+  // times scale * log2(e), and this thread's part of the running sum
+  float m[2] = {kNeg, kNeg}, m2[2] = {kNeg * scale2, kNeg * scale2}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n; ++j) {
+    cp_async_wait<kStages - 2>();  // step j + 1 (this thread's copies)
+    // step j's bf16 buffer and step j + 1's stage are complete; every warp
+    // is done with stage j (converted) and with buffer (j + 1) & 1 (step
+    // j - 1's products, waited for within step j - 1)
+    __syncthreads();
+    if (j + kStages < n) issue(j + kStages);
+    cp_async_commit();
+
+    const uint32_t kb = kv0 + (j & 1) * 4 * kTb, vb = kb + 2 * kTb;
+    float s[2][kBTile / 2];  // S of the step's two ring tiles, kBTile / 8 n-tiles each
+    wg_fence();
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int ks = 0; ks < kDp / 16; ++ks)
+        wgmma_n32_rs(s[h], qf[ks], mdesc(kb + h * kTb + ks * 256, 128, kG), ks > 0);
+    wg_commit();
+    if (j + 1 < n) convert(j + 1, 0);  // K, on the CUDA cores while S runs
+    wg_wait();
+    fence_regs(s[0]);
+    fence_regs(s[1]);
+    const int c0 = j * kFKeys;
+    // a step past the keys' end, or one that crosses this warp's causal
+    // diagonal, masks by position (-inf); every other step keeps all keys
+    if (c0 + kFKeys > Lk || (causal && k_off + c0 + kFKeys - 1 > q_off + q0 + wr)) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < kBTile / 2; ++i) {
+          const int r = (i >> 1) & 1, c = c0 + h * kBTile + (i >> 2) * 8 + 2 * t + (i & 1);
+          if (!(c < Lk && (!causal || k_off + c <= pos[r]))) s[h][i] = __uint_as_float(0xff800000u);
+        }
+    }
+    float mx[2] = {kNeg, kNeg};
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < kBTile / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[h][i]);
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[r] = fmaxf(m[r], quad_max(mx[r]));
+      const float m2_new = m[r] * scale2;
+      corr[r] = ex2(m2[r] - m2_new);  // 1 while the row has seen no key
+      m2[r] = m2_new;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < kBTile / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        s[h][i] = ex2(__fmaf_rn(s[h][i], scale2, -m2[r]));  // P; 0 for a masked key
+        l[r] += s[h][i];
+      }
+#pragma unroll
+    for (int i = 0; i < NT * 4; ++i) acc[i] *= corr[(i >> 1) & 1];
+    uint32_t a[kFKeys / 16][4];  // P as the A operand, 16 keys a product
+#pragma unroll
+    for (int kk = 0; kk < kFKeys / 16; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const float* p = s[kk >> 1] + 8 * (kk & 1) + 2 * x;
+        a[kk][x] = pack_bf16(p[0], p[1]);
+      }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kFKeys / 16; ++kk)
+      wgmma_nd_rs_t<NT>(acc, a[kk], mdesc(vb + kk * 2 * kG, kG, 128));
+    wg_commit();
+    if (j + 1 < n) convert(j + 1, 1);  // V, while P V runs
+    wg_wait();
+    fence_regs(acc);
+  }
+  cp_async_wait<0>();
+  float ltot[2], lsum[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    ltot[r] = quad_sum(l[r]);
+    lsum[r] = fmaxf(ltot[r], 1e-30f);
+  }
+#pragma unroll
+  for (int i = 0; i < NT * 4; ++i) acc[i] /= lsum[(i >> 1) & 1];
+  store_pairs<T, NT>(out, sq, q0 + wr, D, acc, 1.f, lane);
+  if (t == 0) {
+    const int b = bh / H, h = bh - b * H;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + wr + g + 8 * r;
+      if (row < Lq)
+        lse[(static_cast<int64_t>(b) * Lq + row) * H + h] =
+            ltot[r] > 0.f ? m[r] * scale + logf(lsum[r]) : kNeg;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1180,7 +1183,6 @@ bwd_dkv_f32_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 struct Shape {
   int B, H, Lq, Lk, D, causal, q_off, k_off, highest;
   int Dp() const { return (D + 15) / 16 * 16; }
-  int ld() const { return Dp() + kPad; }
   dim3 grid(int rows, int per = kRows) const { return dim3((rows + per - 1) / per, B * H); }
 };
 
@@ -1203,16 +1205,17 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* out, float* l
   auto* tk = static_cast<const T*>(k);
   auto* tv = static_cast<const T*>(v);
   auto* to = static_cast<T*>(out);
-  const dim3 grid = s.grid(s.Lq);
   if (s.highest) {
+    const dim3 grid = s.grid(s.Lq);
     const size_t smem = (2 * kRows * (s.D + 1) + 2 * kTileF * s.D) * sizeof(float);
     return launch(fwd_f32_kernel<T>, grid, kRows, smem, st, tq, tk, tv, to, lse, s.H, s.Lq, s.Lk,
                   s.D, scale, s.causal, s.q_off, s.k_off);
   }
-  const size_t smem = (kRows + 2 * kTile) * s.ld() * sizeof(bf16);
-  auto kernel = s.Dp() <= 64 ? fwd_mma_kernel<T, 8> : fwd_mma_kernel<T, 16>;
-  return launch(kernel, grid, kThreads, smem, st, tq, tk, tv, to, lse, s.H, s.Lq, s.Lk, s.D,
-                s.Dp(), scale, s.causal, s.q_off, s.k_off);
+  const bool wide = s.Dp() > 64;
+  const size_t smem = wide ? fwd_smem<16>(sizeof(T)) : fwd_smem<8>(sizeof(T));
+  auto kernel = wide ? fwd_mma_kernel<T, 16> : fwd_mma_kernel<T, 8>;
+  return launch(kernel, s.grid(s.Lq, kBRows), kBThreads, smem, st, tq, tk, tv, to, lse, s.H,
+                s.Lq, s.Lk, s.D, scale, s.causal, s.q_off, s.k_off);
 }
 
 template <typename T>

@@ -24,20 +24,24 @@ the f32 product. A masked score is ``NEG``; a row with no key left has
 lse ``NEG`` and output 0. The plain versions compute the whole score
 matrix with the same roundings (the JAX kernels at L ≤ 512 run one key
 block, so the plain forward is the JAX forward's order of operations);
-the forward kernel runs an online softmax over 64-key tiles, so P rounds
-to bf16 against a running maximum and the two differ by bf16 rounding of
-P. The backward kernels recompute P from lse (as ``exp2`` of an FMA on
-log2(e)-prescaled operands) and differ from the plain versions only in
-the order of their f32 sums.
+the forward kernel runs an online softmax in 64-key steps (in log2
+units: ``exp2`` of an FMA on log2(e)-prescaled scores), so past the first
+step P rounds to bf16 against a running maximum and the two differ by
+bf16 rounding of P (at L ≤ 64, one step, they round alike). The backward
+kernels recompute P from lse (the same ``exp2`` of an FMA) and differ
+from the plain versions only in the order of their f32 sums.
 
-The backward kernels are built for Hopper: each block owns 128 rows
-(query rows for B6, key rows for B7, one warpgroup per 64) and streams
-the other side through a two-stage ring of 32-row tiles filled by
-``cp.async``; each landed tile is converted to bf16 once, into the
-core-matrix layout that the warpgroup products (``wgmma``) read, while
-the previous tile's products run (the source note in
-``flash_attention.cu`` has the budget). Each output row is written by one
-block, with no atomics, so two runs give the same bits.
+The three kernels are built for Hopper on one skeleton: each block owns
+128 rows (query rows for B5 and B6, key rows for B7, one warpgroup per
+64) and streams the other side through a two-stage ring of 32-row tiles
+filled by ``cp.async``; each landed tile is converted to bf16 once, into
+the core-matrix layout that the warpgroup products (``wgmma``) read,
+while the previous tile's products run. The resident side (Q for B5, Q
+and dO for B6) sits in registers as the products' A operand, and P and
+dS go from the score accumulators into the next product without
+touching shared memory (the source note in ``flash_attention.cu`` has
+the budget). Each output row is written by one block, with no atomics,
+so two runs give the same bits.
 
 Keys are masked by their true length. The JAX package pads K and V to
 its block (``_run_padded``) and masks by the padded length, so its

@@ -9,9 +9,9 @@ Tolerances: "highest" 2e-5 absolute (the same f32 formulas, another
 summation order and the kernel's 32-key online softmax); "default" 2e-2
 absolute on out and the gradients, 1e-4 on lse: both round the operands
 to bf16 and sum products exactly in f32, but the kernel rounds P to bf16
-against its running maximum over 64-key tiles where the plain version
-rounds it against the row's maximum, and a rounding flip of P or dS
-moves its term by 2^-8 of itself.
+against its running maximum over 64-key steps (two 32-row ring tiles)
+where the plain version rounds it against the row's maximum, and a
+rounding flip of P or dS moves its term by 2^-8 of itself.
 """
 
 import numpy as np
@@ -20,17 +20,25 @@ import torch
 
 from paddle_tpu_torch.ops import flash_attention as fa
 
-# (B, Lq, Lk, H, D, causal, q_offset, k_offset). The last five are the
-# edges of the backward kernels' ring (128 owned rows, 32-row stages, 3
-# stages): fewer key tiles than stages; a ragged last tile at ERNIE's
-# width; a causal ring step whose skipped tiles fall mid-sequence (B7's
-# key blocks start at different query tiles, B6 stops early); D = 128
-# (the 16-n-tile variant) over ragged rows; a single partial tile.
+# (B, Lq, Lk, H, D, causal, q_offset, k_offset). From the fifth on, the
+# edges of the kernels' ring (128 owned rows, 32-row stages, 2 stages):
+# fewer key tiles than stages; a ragged last tile at ERNIE's width; a
+# causal ring step whose skipped tiles fall mid-sequence (B7's key blocks
+# start at different query tiles, B5 and B6 stop early); D = 128 (the
+# 16-n-tile variant) over ragged rows; a single partial tile. The last
+# four are B5's: a single partial key tile under two query blocks, the
+# second ragged; a ragged last tile at D = 64 under the causal mask, so
+# the diagonal and the keys' end cut the same tile; D = 128 over ragged
+# rows and a ragged last key tile; a causal ring step whose leading rows
+# see no key (block 0 walks no tile, and the first 72 rows of block 1 see
+# nothing while its last 56 do: lse NEG and output 0, never NaN).
 SHAPES = [(2, 200, 200, 3, 64, False, 0, 0), (1, 130, 70, 2, 16, True, 64, 0),
           (1, 96, 128, 2, 8, True, 0, 40), (1, 64, 64, 1, 128, False, 0, 0),
           (1, 64, 40, 2, 64, False, 0, 0), (1, 500, 500, 16, 64, False, 0, 0),
           (1, 256, 256, 2, 64, True, 0, 96), (2, 300, 260, 2, 128, True, 40, 0),
-          (1, 20, 20, 2, 32, False, 0, 0)]
+          (1, 20, 20, 2, 32, False, 0, 0), (1, 200, 17, 2, 64, False, 0, 0),
+          (2, 333, 333, 3, 64, True, 0, 0), (1, 136, 100, 2, 128, False, 0, 0),
+          (1, 256, 128, 2, 64, True, 0, 200)]
 
 
 @pytest.fixture(autouse=True)
@@ -60,6 +68,7 @@ def test_kernels_match_plain_and_count(shape, precision):
     assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches,
             fa.flash_attention_bwd_dkv.launches) == tuple(c + 1 for c in counts)
     w_out, w_lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(lse).all())
     torch.testing.assert_close(out, w_out, rtol=0, atol=tol)
     torch.testing.assert_close(lse, w_lse, rtol=0, atol=2e-5 if precision == "highest" else 1e-4)
     # the backward kernels against the plain backward on the same lse/delta
@@ -139,9 +148,10 @@ def test_bf16_backward_at_a_ragged_length():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fwd", "bwd_dq", "bwd_dkv"])
 @pytest.mark.parametrize("causal", [False, True])
-def test_backward_kernels_are_deterministic(causal):
-    """Each output row of B6 and B7 is written by one block, with no
+def test_backward_kernels_are_deterministic(causal, kernel):
+    """Each output row of B5, B6 and B7 is written by one block, with no
     atomics: two runs on the same inputs give the same bits."""
     rng = np.random.default_rng(3)
     B, L, H, D = 2, 512, 4, 64
@@ -149,11 +159,10 @@ def test_backward_kernels_are_deterministic(causal):
                    for _ in range(4))
     out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     delta = (do * out).sum(-1).contiguous()
-    args = (q, k, v, do, lse, delta)
-    first = (fa.flash_attention_bwd_dq(*args, causal=causal),
-             *fa.flash_attention_bwd_dkv(*args, causal=causal))
-    second = (fa.flash_attention_bwd_dq(*args, causal=causal),
-              *fa.flash_attention_bwd_dkv(*args, causal=causal))
+    run = {"fwd": lambda: fa.flash_attention_fwd(q, k, v, causal=causal),
+           "bwd_dq": lambda: (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal),),
+           "bwd_dkv": lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=causal)}
+    first, second = run[kernel](), run[kernel]()
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)

@@ -25,7 +25,7 @@ def test_probe_variants_apply_to_the_kernel_source():
     assert list(out) == ["as_built", "stages3", "no_products", "no_refill"]
     assert out["as_built"] == src
     assert len({*out.values()}) == 4
-    assert out["no_products"].count("if (H < 0) wgmma_") == 7
+    assert out["no_products"].count("if (H < 0) wgmma_") == 9
 
 
 def test_probe_refuses_a_source_it_does_not_match():
