@@ -19,7 +19,11 @@ or when any phase fails. Phases:
    ``hot_scatter_apply`` over the rule matrix × ``create_applies_grad``
    with duplicates, sentinels and negative rows (its plain version runs
    on the CPU copy of the inputs); the pass cache's merge on the card
-   against the merge on the CPU;
+   against the merge on the CPU; the radix sort in front of both against
+   ``torch.sort(stable=True)``, bitwise in both modes, at the hot path's
+   batch, one shard's owner push and the heavy-hitter batch, timed beside
+   it; B4's, the merge's and the sort's device kernels per call (torch
+   profiler); B4 on the heavy-hitter batch at several block thresholds;
 3. pass path at full width: DeepFM (26 slots, 13 dense, dim 8, DNN
    400³) GPUPS pass training over a 16-shard host table and a 2^21-row
    device cache, batch 4096, slab 8, 6 slabs (1 warm-up): losses finite
@@ -138,6 +142,7 @@ def _wrappers():
             "hot_probe": hk.hot_probe,
             "hot_probe_gather": hk.hot_probe_gather,
             "hot_scatter_apply": hk.hot_scatter_apply,
+            "sort_rows": hk._sort_rows,
             "flash_attention_fwd": fa.flash_attention_fwd,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
@@ -223,6 +228,24 @@ def time_cuda(fn, reps=25):
     dev = [one(True) for _ in range(reps + 3)][3:]
     call = [one(False) for _ in range(reps + 3)][3:]
     return float(np.median(dev)), float(np.median(call))
+
+
+def host_issue_ms(fn, calls=32, reps=5):
+    """Host ms to issue one call of ``fn`` while the card is busy (a ~40
+    ms spin runs ahead of the calls, so no launch waits for the card):
+    what a call costs a step whose host sets the pace. Median of ``reps``
+    rounds of ``calls`` calls."""
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(80_000_000)  # cycles: ~40 ms at 1.98 GHz
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter() - t0) / calls * 1e3)
+        torch.cuda.synchronize()
+    return float(np.median(out))
 
 
 def kernel_bytes(n, dim, es, xs):
@@ -454,9 +477,10 @@ def phase_hot_scatter(dev):
     into a 2^19-row tier) over the rule matrix × ``create_applies_grad``,
     bitwise against its plain version run on the CPU copy of the same
     inputs (the plain merge on the card would sum with atomics); then the
-    pass cache's merge, card against CPU, bitwise; then times on the hot
-    path's own batch (returned for the kernels line) and on the
-    heavy-hitter batch."""
+    pass cache's merge, card against CPU, bitwise; then the radix sort
+    against ``torch.sort`` at three shapes; then times on the hot path's
+    own batch (returned for the kernels line: B4 and its sort), on one
+    shard's owner push and on the heavy-hitter batch."""
     from paddle_tpu_torch.ops import hot_kernels as hk
 
     n = BATCH * SLOTS
@@ -499,15 +523,152 @@ def phase_hot_scatter(dev):
     if not (same and repro):
         raise AssertionError("merge_sparse_grads on the card differs from the CPU")
 
-    # times at the hot path's configuration (adagrad/adagrad, cag), on
-    # the main path's own batch (26 slots x 4096 draws from 10,000 ids per
-    # slot: short segments) and on the heavy-hitter batch above
-    out = None
-    for what, batch in (("hot-path batch", hot_path_push(rng, dev)), ("heavy-hitter batch", args)):
-        r = time_scatter(batch, what)
-        out = out or r
+    # the radix sort against torch.sort, and the times, on the hot path's
+    # own batch (26 slots x 4096 draws from 10,000 ids per slot: short
+    # segments), one shard's owner push and the heavy-hitter batch above
+    hot = hot_path_push(rng, dev)
+    owner = owner_push_rows(rng, dev)
+    sort_err = {what: check_sort(rows, bound, what)
+                for what, rows, bound in (("hot-path batch", hot[0], HOT_CAP),
+                                          ("owner push", owner, SHARD_CAP),
+                                          ("heavy-hitter batch", args[0], HOT_CAP))}
+    out = time_scatter(hot, "hot-path batch")
+    sort_line = time_sort(hot[0], HOT_CAP, "hot-path batch")
+    sort_line["max_abs_err"] = sort_err["hot-path batch"]
+    time_sort(owner, SHARD_CAP, "owner push")
+    time_scatter(args, "heavy-hitter batch")
+    time_sort(args[0], HOT_CAP, "heavy-hitter batch")
     out["max_abs_err"] = max_err
-    return out
+    return out, sort_line
+
+
+SHARD_CAP = HOT_CAP // SHARDS   # rows of one shard of the sharded tier
+
+
+def owner_push_rows(rng, dev):
+    """What one owner's B4 gets on the sharded hot path at K = 4: the K
+    routed buckets of cap = 13,312 slots (route_bucket_capacity(26,624,
+    4, 2.0)), each holding a sending rank's deduped rows of this shard
+    (~6,300 of a batch slice's ~25,300 distinct keys: sorted, shard-local)
+    padded with the dropped sentinel, int64 as the routed push passes
+    them."""
+    cap = 2 * SHARD_N // SHARDS
+    held = cap * 6300 // 13312
+    rows = np.full((SHARDS, cap), SHARD_CAP, np.int64)
+    for b in range(SHARDS):
+        rows[b, :held] = np.sort(rng.choice(SHARD_CAP, held, replace=False))
+    return torch.from_numpy(rows.reshape(-1)).to(dev)
+
+
+def sort_passes(bound):
+    """Digit passes of the radix sort: bounded mode below ``bound``, full
+    mode for None."""
+    from paddle_tpu_torch.ops import hot_kernels as hk
+
+    return hk.load_hot_kernels().radix_sort_passes(int(bound is None), bound or 0)
+
+
+def check_sort(rows, bound, what):
+    """The radix sort bitwise against ``torch.sort(stable=True)``: full
+    mode on the rows, bounded mode on the rows mapped to ``bound``, int32
+    and int64 outputs. Returns the largest |difference| of a sorted row or
+    a permutation entry over all four."""
+    from paddle_tpu_torch.ops import hot_kernels as hk
+
+    worst = 0
+    for mode in ("full", "bounded"):
+        b = None if mode == "full" else bound
+        keys = rows if b is None else torch.where((rows >= 0) & (rows < b), rows, b)
+        want_rows, want_perm = torch.sort(keys, stable=True)
+        ok, err = True, 0
+        for index_dtype in (torch.int32, torch.int64):
+            srows, perm = hk._sort_rows(rows, b, index_dtype)
+            ok &= torch.equal(srows.to(torch.int64), want_rows.to(torch.int64)) and \
+                torch.equal(perm.to(torch.int64), want_perm)
+            err = max(err, int((srows.to(torch.int64) - want_rows.to(torch.int64)).abs().max()),
+                      int((perm.to(torch.int64) - want_perm).abs().max()))
+        worst = max(worst, err)
+        log(f"kernel sort_rows {mode} mode ({sort_passes(b)} passes), {what}: "
+            f"n={rows.numel()} {rows.dtype} rows, equal to torch.sort(stable=True) bitwise "
+            f"(sorted rows and permutation): {ok}, max_abs={err}")
+        if not ok:
+            raise AssertionError(f"the radix sort differs from torch.sort ({mode}, {what})")
+    return float(worst)
+
+
+def device_kernels(fn):
+    """(device kernels, memsets) one call of ``fn`` issues, and the
+    kernels' names: torch.profiler over one call after a warm-up call.
+    A profiler window leaves every later launch of the process slower, so
+    only :func:`phase_kernel_counts`, after the timed phases, calls it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)]
+    memsets = [x for x in names if x.startswith("Memset")]
+    kernels = [x for x in names if not x.startswith(("Memset", "Memcpy"))]
+    short = {x.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+             .split("<")[0] for x in kernels}
+    return len(kernels), len(memsets), sorted(short)
+
+
+def phase_kernel_counts(dev):
+    """Device kernels per call of B4, the merge and the radix sort (beside
+    ``torch.sort``), on the hot path's batch and one shard's owner push:
+    phase 2's counts, taken last because they open profiler windows."""
+    from paddle_tpu_torch.ops import hot_kernels as hk
+
+    rng = np.random.default_rng(11)
+    rows, grads, shows, clicks = hot_path_push(rng, dev)
+    cfg = hot_cfg("adagrad", "adagrad", True)
+    tier = tier_columns(np.random.default_rng(12), "adagrad", "adagrad", dev)
+    k4, m4, names4 = device_kernels(lambda: hk.hot_scatter_apply(tier, rows, grads, shows,
+                                                                 clicks, cfg))
+    rows64 = rows.to(torch.int64)
+    km, mm, namesm = device_kernels(lambda: hk.merge_sparse_grads(rows64, grads, shows,
+                                                                  clicks, HOT_CAP))
+    log(f"kernel hot_scatter_apply adagrad/adagrad, hot-path batch: device kernels per call "
+        f"{k4} (+{m4} memsets) {names4}; merge_sparse_grads {km} (+{mm}) {namesm}")
+    for what, r, bound in (("hot-path batch", rows, HOT_CAP),
+                           ("owner push", owner_push_rows(rng, dev), SHARD_CAP)):
+        kb, mb, names = device_kernels(lambda: hk._sort_rows(r, bound))
+        kf, mf, _ = device_kernels(lambda: hk._sort_rows(r))
+        kl, ml, _ = device_kernels(lambda: torch.sort(r, stable=True))
+        log(f"kernel sort_rows, {what}: n={r.numel()} {r.dtype}: device kernels per call: "
+            f"bounded {kb} (+{mb} memsets) {names}, full {kf} (+{mf}), torch.sort {kl} "
+            f"(+{ml})")
+
+
+def time_sort(rows, bound, what):
+    """Device times of the radix sort (bounded, as B4 runs it, and full,
+    as the merge does) beside ``torch.sort(stable=True)`` on the same rows
+    and its plain version (mapping + torch.sort). Returns
+    the kernels-line numbers of the bounded sort (its error from
+    :func:`check_sort`)."""
+    from paddle_tpu_torch.ops import hot_kernels as hk
+
+    n = rows.numel()
+    ms_b, call_b = time_cuda(lambda: hk._sort_rows(rows, bound))
+    ms_f, _ = time_cuda(lambda: hk._sort_rows(rows))
+    ms_lib, call_lib = time_cuda(lambda: torch.sort(rows, stable=True))
+    ms_lib64, _ = time_cuda(lambda: torch.sort(rows.to(torch.int64), stable=True))
+    ms_plain, _ = time_cuda(lambda: hk._sort_rows_plain(rows, bound))
+    nbytes = n * (rows.element_size() + 4 + 4)  # rows in; sorted rows and positions out
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"kernel sort_rows, {what}: n={n} {rows.dtype}: bounded ({sort_passes(bound)} "
+        f"passes) device {ms_b} ms, full (4 passes) {ms_f} ms; torch.sort(stable=True) on "
+        f"the same rows {ms_lib} ms ({ms_lib / ms_b:.2f}x the bounded sort, "
+        f"{ms_lib / ms_f:.2f}x the full one), on the rows as int64 (cast included) "
+        f"{ms_lib64} ms; plain (mapping + torch.sort) {ms_plain} ms; bound {bound_ms} ms "
+        f"({nbytes} B); per call from an idle card {call_b} ms, torch.sort {call_lib} ms")
+    return {"ms": ms_b, "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": ms_lib}
 
 
 def hot_path_push(rng, dev):
@@ -523,7 +684,7 @@ def hot_path_push(rng, dev):
 
 def time_scatter(args, what):
     """Device times of ``hot_scatter_apply`` (and the merge) on ``args``
-    beside the byte bound of what these rows need."""
+    beside the byte bound of what these rows need; host issue per call."""
     from paddle_tpu_torch.ops import hot_kernels as hk
 
     n = args[0].shape[0]
@@ -535,20 +696,24 @@ def time_scatter(args, what):
     tier = tier_columns(np.random.default_rng(12), "adagrad", "adagrad", args[0].device)
     ms_k, call_k = time_cuda(lambda: hk.hot_scatter_apply(tier, *args, cfg))
     ms_p, call_p = time_cuda(lambda: hk.hot_scatter_apply_plain(tier, *args, cfg))
-    sort_ms, _ = time_cuda(lambda: torch.sort(rows64, stable=True))
+    sort_ms, _ = time_cuda(lambda: hk._sort_rows(args[0], HOT_CAP))
     merge_ms, _ = time_cuda(lambda: hk.merge_sparse_grads(rows64, *args[1:], HOT_CAP))
     merge_plain_ms, _ = time_cuda(lambda: hk.merge_sparse_grads_plain(
         rows64, *args[1:], HOT_CAP))
+    host_k = host_issue_ms(lambda: hk.hot_scatter_apply(tier, *args, cfg))
+    host_m = host_issue_ms(lambda: hk.merge_sparse_grads(rows64, *args[1:], HOT_CAP))
     row_floats = 1 + 1 + 1 + 1 + DIM + 1 + 1  # the seven adagrad columns
     nbytes = n * (4 + 4 + 4 + 4 * (1 + DIM) + 8) + u * row_floats * 4 * 2
     nops = kernel_ops(u, DIM, "adagrad", "adagrad") + n * (3 + DIM)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = nops / FP32_OPS_PER_S * 1e3
     log(f"kernel hot_scatter_apply adagrad/adagrad, {what}: n={n} u={u} "
-        f"longest_segment={longest}: device {ms_k} ms (the stable torch.sort inside it: "
+        f"longest_segment={longest}: device {ms_k} ms (the radix sort inside it: "
         f"{sort_ms} ms), plain {ms_p} ms, bound {max(bytes_ms, ops_ms)} ms ({nbytes} B, "
         f"{nops} f32 ops); per call from an idle card {call_k} ms, plain {call_p} ms; "
-        f"merge_sparse_grads {merge_ms} ms, plain (unique + index_add_) {merge_plain_ms} ms")
+        f"merge_sparse_grads {merge_ms} ms, plain (unique + index_add_) {merge_plain_ms} ms; "
+        f"host issue per call with the card busy: "
+        f"hot_scatter_apply {host_k} ms, merge_sparse_grads {host_m} ms")
     return {"ms": ms_k, "plain_ms": ms_p, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
@@ -682,13 +847,18 @@ def profile_window(run, n_steps, out_dir, name):
         log(f"profile {name} kernel: {e.self_device_time_total / 1e3 / n_steps:.4f} "
             f"ms/step x{e.count / n_steps:g}/step {e.key[:80]}")
     # the port's own kernels, wherever they rank (the flash kernels are
-    # "<fwd|bwd_dq|bwd_dkv>_mma_kernel<T, NT>")
+    # "<fwd|bwd_dq|bwd_dkv>_mma_kernel<T, NT>"; hot_kernels.cu's probes,
+    # radix sort and segment walk)
     for e in kernels:
-        if "_mma_kernel" in e.key:
+        if any(m in e.key for m in ("_mma_kernel", "hot_probe", "radix_", "segment_walk",
+                                    "ctr_sparse_rows")):
             log(f"profile {name} port kernel: {e.self_device_time_total / 1e3 / n_steps:.4f} "
                 f"ms/step x{e.count / n_steps:g}/step {e.key[:80]}")
     ops = sorted((e for e in evs if e.device_type == DeviceType.CPU
                   and e.self_device_time_total > 0), key=lambda e: -e.self_device_time_total)
+    sorts = [e for e in ops if e.key == "aten::sort"]
+    log(f"profile {name}: aten::sort {sum(e.count for e in sorts) / n_steps:g}/step, "
+        f"{sum(e.self_device_time_total for e in sorts) / 1e3 / n_steps:.4f} ms/step")
     for e in ops[:12]:
         log(f"profile {name} device by op: {e.self_device_time_total / 1e3 / n_steps:.4f} "
             f"ms/step x{e.count / n_steps:g}/step {e.key[:80]}")
@@ -827,6 +997,11 @@ def phase_hot_path(dev, card, ds, profile_dir=None, shards=1):
         assert counts[probe] == shards * steps and \
             counts["hot_scatter_apply"] == shards * steps, \
             f"hot kernel launches {counts} != {shards} x {steps} steps"
+        # B4 sorts its rows; sharded, each rank also sorts for its dedup and
+        # its pre-merge
+        sorts = steps if shards == 1 else 3 * shards * steps
+        assert counts["sort_rows"] == sorts, f"sort launches {counts} != {sorts}"
+        log(f"{name}: {counts['sort_rows'] / steps:g} radix sorts per step")
         assert n_overflow == 0, f"routing overflow {n_overflow}"
         assert warm_delta["cold_fetches"] == 0 and warm_delta["misses"] == 0, \
             f"warm epoch left the tier: {warm_delta}"
@@ -1437,7 +1612,7 @@ def main(argv):
         f"card (host issue included) {k['call_ms']} ms, plain {k['plain_call_ms']} ms "
         f"({k['bound_by']}: {k['bytes']} B, {k['ops']} f32 ops) on {card}")
     b2, b3 = phase_hot_probe(dev)
-    b4 = phase_hot_scatter(dev)
+    b4, b4_sort = phase_hot_scatter(dev)
     pass_counts = phase_main_path(dev, card, profile_dir)
     ds = hot_dataset()
     hot_counts, _ = phase_hot_path(dev, card, ds, profile_dir)
@@ -1449,6 +1624,7 @@ def main(argv):
     fa = phase_flash_kernels(dev)
     ernie_counts, _ = phase_ernie(dev, card, profile_dir)
     phase_ernie_parity(dev)
+    phase_kernel_counts(dev)
 
     def entry(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1461,7 +1637,8 @@ def main(argv):
     fa_ref = "paddle_tpu/ops/flash_attention.py"
     # library_ms is null for the first four: no single PyTorch call
     # computes the fused CTR rule, the probe (with or without the gather),
-    # or the merge+rule+scatter
+    # or the merge+rule+scatter. The sort (B4's first part, the jnp.unique
+    # in front of the Pallas call) has torch.sort as its library call.
     kernels = [
         entry("ctr_sparse_rows", "paddle_tpu_torch/ops/csrc/ctr_sparse_rows.cu",
               "paddle_tpu/ops/sparse_optimizer.py:203", pass_counts["ctr_sparse_rows"], k),
@@ -1471,6 +1648,8 @@ def main(argv):
               sharded_counts["hot_probe"], b3),
         entry("hot_scatter_apply", hot_src, "paddle_tpu/ops/hot_kernels.py:278",
               hot_counts["hot_scatter_apply"], b4),
+        entry("sort_rows", hot_src, "paddle_tpu/ops/hot_kernels.py:278",
+              hot_counts["sort_rows"], b4_sort),
         entry("flash_attention_fwd", fa_src, f"{fa_ref}:127",
               ernie_counts["flash_attention_fwd"], fa["fwd"]),
         entry("flash_attention_bwd_dq", fa_src, f"{fa_ref}:176",

@@ -59,12 +59,17 @@ __device__ __forceinline__ float clip(float x, const Hyper& h) {
 // One rule step on one row: w/g of width d, state of the rule's width.
 // `state` is read from st_in and written to st_out (the two may differ:
 // a freshly created embedx row starts from the rule's init state).
-__device__ __forceinline__ void rule_update(int rule, int d, const float* w,
+// D >= 0 fixes the width at compile time (d is then ignored): the loops
+// unroll, so a caller's g array indexed only here stays in registers.
+template <int D = -1>
+__device__ __forceinline__ void rule_update(int rule, int d_rt, const float* w,
                                             const float* g, float scale,
                                             const float* st_in, float* w_out,
                                             float* st_out, const Hyper& h) {
+  const int d = D >= 0 ? D : d_rt;
   switch (rule) {
     case kNaive:
+#pragma unroll
       for (int i = 0; i < d; ++i)
         w_out[i] = clip(__fsub_rn(w[i], m32(h.lr, g[i])), h);
       break;
@@ -73,6 +78,7 @@ __device__ __forceinline__ void rule_update(int rule, int d, const float* w,
       const float ratio = __fsqrt_rn(
           __fdiv_rn(h.initial_g2sum, __fadd_rn(h.initial_g2sum, st)));
       float add = 0.0f;
+#pragma unroll
       for (int i = 0; i < d; ++i) {
         const float sg = __fdiv_rn(g[i], scale);
         w_out[i] = clip(__fsub_rn(w[i], m32(m32(h.lr, sg), ratio)), h);
@@ -82,6 +88,7 @@ __device__ __forceinline__ void rule_update(int rule, int d, const float* w,
       break;
     }
     case kStdAdagrad:  // per-dim g2sum
+#pragma unroll
       for (int i = 0; i < d; ++i) {
         const float st = st_in[i];
         const float sg = __fdiv_rn(g[i], scale);
@@ -95,6 +102,7 @@ __device__ __forceinline__ void rule_update(int rule, int d, const float* w,
       const float b1p = st_in[2 * d], b2p = st_in[2 * d + 1];
       const float omb1 = __fsub_rn(1.0f, h.beta1);
       const float omb2 = __fsub_rn(1.0f, h.beta2);
+#pragma unroll
       for (int i = 0; i < d; ++i) {
         const float m2 = __fadd_rn(m32(h.beta1, st_in[i]), m32(omb1, g[i]));
         const float v2 =
@@ -117,7 +125,10 @@ __device__ __forceinline__ void rule_update(int rule, int d, const float* w,
 // The whole per-row update. Inputs: the row's seven state columns
 // (show, click, ew[1], estate[es], xw[dim], xstate[xs], has) and its
 // merged deltas (ds, dc, ge[1], gx[dim]); outputs: the seven columns.
-// Zero-width state columns (naive rule) may be null.
+// Zero-width state columns (naive rule) may be null. DIM >= 0 fixes the
+// embedx width at compile time (p.dim must equal it), so that a caller's
+// sum buffer gx stays in registers.
+template <int DIM = -1>
 __device__ __forceinline__ void ctr_row_update(
     float show, float click, const float* ew, const float* estate,
     const float* xw, const float* xstate, float has, float ds, float dc,
@@ -125,6 +136,7 @@ __device__ __forceinline__ void ctr_row_update(
     float* o_ew, float* o_es, float* o_xw, float* o_xs, float* o_has,
     const RowParams& p) {
   const Hyper& h = p.h;
+  const int dim = DIM >= 0 ? DIM : p.dim;
   const float show_new = __fadd_rn(show, ds);
   const float click_new = __fadd_rn(click, dc);
   const float scale = max_nan(ds, 1e-10f);
@@ -132,7 +144,7 @@ __device__ __forceinline__ void ctr_row_update(
   *o_click = click_new;
 
   // embed (1-d) block: always applied
-  rule_update(p.embed_rule, 1, ew, ge, scale, estate, o_ew, o_es, h);
+  rule_update<1>(p.embed_rule, 1, ew, ge, scale, estate, o_ew, o_es, h);
 
   // lazy embedx creation on the show/click score over the new totals
   const float score =
@@ -149,15 +161,15 @@ __device__ __forceinline__ void ctr_row_update(
   if (create) {
     for (int i = 0; i < p.xs; ++i) o_xs[i] = 0.0f;
     if (p.embedx_rule == kAdam) {
-      o_xs[2 * p.dim] = h.beta1;
-      o_xs[2 * p.dim + 1] = h.beta2;
+      o_xs[2 * dim] = h.beta1;
+      o_xs[2 * dim + 1] = h.beta2;
     }
     x_in = o_xs;
   }
   if (apply) {
-    rule_update(p.embedx_rule, p.dim, xw, gx, scale, x_in, o_xw, o_xs, h);
+    rule_update<DIM>(p.embedx_rule, dim, xw, gx, scale, x_in, o_xw, o_xs, h);
   } else {
-    for (int i = 0; i < p.dim; ++i) o_xw[i] = xw[i];
+    for (int i = 0; i < dim; ++i) o_xw[i] = xw[i];
     if (!create)
       for (int i = 0; i < p.xs; ++i) o_xs[i] = x_in[i];
   }

@@ -20,6 +20,10 @@ the same source makes the pass cache's merge deterministic:
 - :func:`merge_sparse_grads` — the dedup alone, in the layout of
   ``jnp.unique(size=n, fill_value=C)`` + ``segment_sum``: ``uniq`` [n]
   sorted and padded with ``capacity``, sums [n].
+- :func:`_sort_rows` — the stable sort in front of both (and of
+  :func:`sort_segments`, the sharded dedup's): on the card a hand-written
+  LSD radix sort on the rows' own bits, bounded (``bit_length(bound)``
+  bits) or full (32 bits); on the CPU ``torch.sort(stable=True)``.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``ops/csrc/hot_kernels.cu``, nvcc ``sm_90a``, built at first use; the
@@ -79,6 +83,17 @@ def merge_sparse_grads_plain(rows: torch.Tensor, grads: torch.Tensor,
     return uniq, show_sum, click_sum, g
 
 
+def _sort_rows_plain(rows: torch.Tensor, bound: Optional[int] = None,
+                     index_dtype: torch.dtype = torch.int32):
+    """The sort's plain version (and its oracle): ``torch.sort(stable=True)``
+    of the rows, after mapping every row outside [0, ``bound``) to
+    ``bound`` when a bound is given."""
+    if bound is not None:
+        rows = torch.where((rows >= 0) & (rows < bound), rows, bound)
+    srows, perm = torch.sort(rows, stable=True)
+    return srows.to(index_dtype), perm.to(index_dtype)
+
+
 def hot_probe_gather_plain(map_state: Dict[str, torch.Tensor], keys_hi: torch.Tensor,
                            keys_lo: torch.Tensor, tier_state: Dict[str, torch.Tensor],
                            *, probe_buckets: int, banks: int = 1):
@@ -136,24 +151,37 @@ def load_hot_kernels() -> ctypes.CDLL:
     global _LIB
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(build_cuda_library(
+            _LIB = bind_hot_kernels(ctypes.CDLL(build_cuda_library(
                 "hot_kernels", os.path.join(_CSRC, "hot_kernels.cu"),
-                (os.path.join(_CSRC, "ctr_rule.cuh"),)))
-            p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-            lib.hot_probe_gather_launch.restype = i32
-            lib.hot_probe_gather_launch.argtypes = (
-                [p] * 10 + [i64, i64, i32, i32, i32, i64, i32, p])
-            lib.hot_probe_launch.restype = i32
-            lib.hot_probe_launch.argtypes = [p] * 7 + [i64, i64, i32, i32, i32, p]
-            lib.hot_scatter_apply_launch.restype = i32
-            lib.hot_scatter_apply_launch.argtypes = (
-                [p] * 12 + [i64, i64] + [i32] * 6 + [f32] * 10 + [p])
-            lib.segment_merge_launch.restype = i32
-            lib.segment_merge_launch.argtypes = [p] * 10 + [i64, i32, p]
-            lib.hot_kernels_max_dim.restype = i32
-            lib.hot_kernels_max_dim.argtypes = []
-            _LIB = lib
+                (os.path.join(_CSRC, "ctr_rule.cuh"),))))
         return _LIB
+
+
+def bind_hot_kernels(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a built ``hot_kernels.cu`` (or of a
+    variant of it); returns ``lib``."""
+    p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    lib.hot_probe_gather_launch.restype = i32
+    lib.hot_probe_gather_launch.argtypes = (
+        [p] * 10 + [i64, i64, i32, i32, i32, i64, i32, p])
+    lib.hot_probe_launch.restype = i32
+    lib.hot_probe_launch.argtypes = [p] * 7 + [i64, i64, i32, i32, i32, p]
+    lib.radix_sort_launch.restype = i32
+    lib.radix_sort_launch.argtypes = [p, i32, i64, i32, i64, p, p, i32, p, p]
+    lib.radix_sort_passes.restype = i32
+    lib.radix_sort_passes.argtypes = [i32, i64]
+    lib.radix_sort_work_words.restype = i64
+    lib.radix_sort_work_words.argtypes = [i64, i32, i64]
+    lib.segment_merge_work_words.restype = i64
+    lib.segment_merge_work_words.argtypes = [i64]
+    lib.hot_scatter_apply_launch.restype = i32
+    lib.hot_scatter_apply_launch.argtypes = (
+        [p] * 12 + [i64, i64] + [i32] * 6 + [f32] * 10 + [p])
+    lib.segment_merge_launch.restype = i32
+    lib.segment_merge_launch.argtypes = [p] * 7 + [i32, i64] + [p] * 3 + [i64, i32, p]
+    lib.hot_kernels_max_dim.restype = i32
+    lib.hot_kernels_max_dim.argtypes = []
+    return lib
 
 
 def _ptr(t: torch.Tensor) -> Optional[int]:
@@ -180,21 +208,73 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def _sort_rows(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stable sort of the rows (the library step in front of the walk):
-    each row's entries stay in occurrence order. No host sync."""
-    srows, perm = torch.sort(rows.to(torch.int64), stable=True)
-    return srows.contiguous(), perm.contiguous()
+def _sort_rows(rows: torch.Tensor, bound: Optional[int] = None,
+               index_dtype: torch.dtype = torch.int32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable sort of the rows [n] (int32 or int64): (sorted rows, their
+    positions), both ``index_dtype``. Each row's entries stay in
+    occurrence order. No host sync.
+
+    ``bound``: bounded mode — every row outside [0, ``bound``) becomes
+    ``bound`` (callers drop those rows, or pass rows already in
+    [0, ``bound``]), and the key has ``bit_length(bound)`` bits. Without
+    it, full mode: rows are row ids and must lie in int32's range (an
+    int64 row outside it is cut to its low 32 bits on the card).
+
+    A CPU tensor runs :func:`_sort_rows_plain`. A CUDA tensor launches
+    the radix sort (``radix_sort_launch``: a count kernel and one scatter
+    kernel per 8-bit digit, ``radix_sort_passes`` of them) and counts one
+    in ``_sort_rows.launches``; its output is bit-identical to the plain
+    version's."""
+    dev = rows.device
+    if dev.type == "cpu":
+        return _sort_rows_plain(rows, bound, index_dtype)
+    enforce(dev.type == "cuda", f"_sort_rows: no kernel for device {dev}",
+            InvalidArgumentError)
+    return _radix_sort(rows, bound, index_dtype)
 
 
-def sort_segments(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _radix_sort(rows, bound, index_dtype):
+    n = rows.shape[0]
+    enforce(rows.dim() == 1 and rows.dtype in (torch.int32, torch.int64)
+            and rows.is_contiguous(), "_sort_rows: rows must be a contiguous int32 or "
+            "int64 vector", InvalidArgumentError)
+    enforce(index_dtype in (torch.int32, torch.int64),
+            f"_sort_rows: index_dtype {index_dtype} is not int32 or int64",
+            InvalidArgumentError)
+    enforce(bound is None or 0 <= bound < 2**31, f"_sort_rows: bound {bound} outside "
+            "[0, 2^31)", InvalidArgumentError)
+    srows = torch.empty(n, dtype=index_dtype, device=rows.device)
+    perm = torch.empty(n, dtype=index_dtype, device=rows.device)
+    if n:
+        lib = load_hot_kernels()
+        full, b = int(bound is None), 0 if bound is None else int(bound)
+        words = lib.radix_sort_work_words(n, full, b)
+        enforce(words >= 0, f"_sort_rows: {n} rows is too many", InvalidArgumentError)
+        work = torch.empty(words, dtype=torch.int32, device=rows.device)
+        _raise_on(lib.radix_sort_launch(
+            rows.data_ptr(), int(rows.dtype == torch.int64), n, full, b, srows.data_ptr(),
+            perm.data_ptr(), int(index_dtype == torch.int64), work.data_ptr(), _stream(rows)),
+            "radix_sort")
+        _sort_rows.launches += 1
+    return srows, perm
+
+
+def _segment_ids(srows: torch.Tensor) -> torch.Tensor:
+    """Segment ordinal of each sorted position: an adjacent difference and
+    a cumsum (no host sync)."""
+    starts = torch.ones_like(srows)
+    starts[1:] = (srows[1:] != srows[:-1]).to(srows.dtype)
+    return torch.cumsum(starts, 0, dtype=srows.dtype) - 1
+
+
+def sort_segments(rows: torch.Tensor, bound: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(sorted rows, their stable permutation, segment id of each sorted
-    position): the static-shape form of ``unique`` — an adjacent
-    difference and a cumsum, no host sync on the card."""
-    srows, perm = _sort_rows(rows)
-    starts = torch.ones(srows.shape[0], dtype=torch.int64, device=srows.device)
-    starts[1:] = (srows[1:] != srows[:-1]).to(torch.int64)
-    return srows, perm, torch.cumsum(starts, 0) - 1
+    position), all int64: the static-shape form of ``unique``. ``bound``
+    as for :func:`_sort_rows` (the sharded dedup passes its sentinel: its
+    rows lie in [0, sentinel])."""
+    srows, perm = _sort_rows(rows, bound, torch.int64)
+    return srows, perm, _segment_ids(srows)
 
 
 def merge_sparse_grads(rows: torch.Tensor, grads: torch.Tensor, shows: torch.Tensor,
@@ -202,8 +282,9 @@ def merge_sparse_grads(rows: torch.Tensor, grads: torch.Tensor, shows: torch.Ten
     """merge_grad (the cub sort+reduce step, heter_comm_inl.h:388):
     ``uniq`` [n] sorted distinct rows padded with ``capacity``, and the
     show/click/grad sums [n] in occurrence order from 0.0. CPU tensors run
-    :func:`merge_sparse_grads_plain`; CUDA tensors sort and launch the
-    merge kernel (no host sync; bit-equal to the CPU for the same inputs)."""
+    :func:`merge_sparse_grads_plain`; CUDA tensors sort (full mode: rows
+    are row ids in int32's range) and launch the merge walk (no host
+    sync; bit-equal to the CPU for the same inputs)."""
     n = rows.shape[0]
     dev = rows.device
     if dev.type == "cpu":
@@ -217,22 +298,33 @@ def merge_sparse_grads(rows: torch.Tensor, grads: torch.Tensor, shows: torch.Ten
             InvalidArgumentError)
     _check("merge_sparse_grads", (grads, shows, clicks), _F32, dev)
     lib = load_hot_kernels()
-    enforce(width <= 1 + lib.hot_kernels_max_dim(),
-            f"merge_sparse_grads: grad width {width} above the kernel's "
-            f"{1 + lib.hot_kernels_max_dim()}", InvalidArgumentError)
-    srows, perm, seg = sort_segments(rows)
-    uniq = torch.full((n,), capacity, dtype=torch.int64, device=dev)
-    show_sum = torch.zeros(n, dtype=_F32, device=dev)
-    click_sum = torch.zeros(n, dtype=_F32, device=dev)
-    g = torch.zeros((n, width), dtype=_F32, device=dev)
+    enforce(1 <= width <= 1 + lib.hot_kernels_max_dim(),
+            f"merge_sparse_grads: grad width {width} outside the kernel's "
+            f"[1, {1 + lib.hot_kernels_max_dim()}]", InvalidArgumentError)
+    enforce(rows.dtype == torch.int64 or capacity < 2**31, f"merge_sparse_grads: "
+            f"capacity {capacity} does not fit int32 rows", InvalidArgumentError)
+    return _merge(lib, rows, grads, shows, clicks, capacity)
+
+
+def _merge(lib, rows, grads, shows, clicks, capacity):
+    n, width = grads.shape
+    dev = rows.device
+    uniq = torch.empty(n, dtype=rows.dtype, device=dev)
+    show_sum = torch.empty(n, dtype=_F32, device=dev)
+    click_sum = torch.empty(n, dtype=_F32, device=dev)
+    g = torch.empty((n, width), dtype=_F32, device=dev)
     if n:
+        srows, perm = _radix_sort(rows, None, torch.int32)
+        tile_starts = torch.empty(lib.segment_merge_work_words(n), dtype=torch.int32,
+                                  device=dev)
         _raise_on(lib.segment_merge_launch(
-            srows.data_ptr(), perm.data_ptr(), seg.data_ptr(), shows.data_ptr(),
-            clicks.data_ptr(), grads.data_ptr(), uniq.data_ptr(),
-            show_sum.data_ptr(), click_sum.data_ptr(), g.data_ptr(), n, width,
-            _stream(rows)), "segment_merge")
+            srows.data_ptr(), perm.data_ptr(), shows.data_ptr(), clicks.data_ptr(),
+            grads.data_ptr(), tile_starts.data_ptr(), uniq.data_ptr(),
+            int(uniq.dtype == torch.int64), capacity, show_sum.data_ptr(),
+            click_sum.data_ptr(), g.data_ptr(), n, width, _stream(rows)),
+            "segment_merge")
         merge_sparse_grads.launches += 1
-    return uniq.to(rows.dtype), show_sum, click_sum, g
+    return uniq, show_sum, click_sum, g
 
 
 def _check_map(name: str, map_state: Dict[str, torch.Tensor], keys_hi: torch.Tensor,
@@ -344,20 +436,29 @@ def hot_scatter_apply(state: Dict[str, torch.Tensor], rows: torch.Tensor,
             f"{lib.hot_kernels_max_dim()}", InvalidArgumentError)
     _check("hot_scatter_apply", (grads, shows, clicks, *(state[k] for k in _COLUMNS)),
            _F32, dev)
-    if n:
-        kw = _rule_kwargs(cfg)
-        srows, perm = _sort_rows(rows)
-        _raise_on(lib.hot_scatter_apply_launch(
-            srows.data_ptr(), perm.data_ptr(), shows.data_ptr(), clicks.data_ptr(),
-            grads.data_ptr(), *(_ptr(state[k]) for k in _COLUMNS), n, C, dim, es, xs,
-            _RULE_IDS[kw["embed_rule"]], _RULE_IDS[kw["embedx_rule"]],
-            int(bool(kw["create_applies_grad"])),
-            *[ctypes.c_float(kw[k]) for k in (
-                "lr", "initial_g2sum", "wmin", "wmax", "beta1", "beta2", "eps",
-                "nonclk_coeff", "click_coeff", "embedx_threshold")],
-            _stream(rows)), "hot_scatter_apply")
-        hot_scatter_apply.launches += 1
+    _scatter_apply(lib, state, rows, grads, shows, clicks, cfg)
     return state
+
+
+def _scatter_apply(lib, state, rows, grads, shows, clicks, cfg) -> None:
+    n = rows.shape[0]
+    if not n:
+        return
+    C = state["embed_w"].shape[0]
+    dim = state["embedx_w"].shape[1]
+    kw = _rule_kwargs(cfg)
+    srows, perm = _radix_sort(rows, C, torch.int32)
+    _raise_on(lib.hot_scatter_apply_launch(
+        srows.data_ptr(), perm.data_ptr(), shows.data_ptr(), clicks.data_ptr(),
+        grads.data_ptr(), *(_ptr(state[k]) for k in _COLUMNS), n, C, dim,
+        state["embed_state"].shape[1], state["embedx_state"].shape[1],
+        _RULE_IDS[kw["embed_rule"]], _RULE_IDS[kw["embedx_rule"]],
+        int(bool(kw["create_applies_grad"])),
+        *[ctypes.c_float(kw[k]) for k in (
+            "lr", "initial_g2sum", "wmin", "wmax", "beta1", "beta2", "eps",
+            "nonclk_coeff", "click_coeff", "embedx_threshold")],
+        _stream(rows)), "hot_scatter_apply")
+    hot_scatter_apply.launches += 1
 
 
 #: kernel launches since import (or since a caller reset them to 0)
@@ -365,3 +466,4 @@ merge_sparse_grads.launches = 0
 hot_probe.launches = 0
 hot_probe_gather.launches = 0
 hot_scatter_apply.launches = 0
+_sort_rows.launches = 0

@@ -155,7 +155,7 @@ def routed_dedup(rows: torch.Tensor, sentinel: int) -> Tuple[torch.Tensor, torch
     Compute once per step when pull and push see the same rows.
     Canonicalizes internally (idempotent)."""
     rows = _canonical_rows(rows, sentinel)
-    srows, perm, seg = sort_segments(rows)
+    srows, perm, seg = sort_segments(rows, sentinel)
     uniq = torch.full_like(rows, sentinel).scatter_(0, seg, srows)
     inv = torch.empty_like(seg).scatter_(0, perm, seg)
     return uniq, inv

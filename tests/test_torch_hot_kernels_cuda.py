@@ -131,3 +131,107 @@ def test_scatter_apply_and_merge_kernels_match_plain(rule):
     mg = hk.merge_sparse_grads(*[a.cuda() for a in rows64], C)
     for g, w in zip(mg, mw):
         assert torch.equal(g.cpu(), w)
+
+
+def _sort_rows_np(kind, n, rng):
+    """Row batches for the sort: the hot path's, one shard's owner push
+    (most of it the sentinel), the heavy-hitter batch's mix, all equal."""
+    if kind == "hot":
+        return rng.integers(0, 260_000, n)
+    if kind == "owner":
+        r = np.full(n, 131_072)
+        for b in range(4):  # four routed buckets, each sorted rows then padding
+            r[b * (n // 4):b * (n // 4) + n // 10] = np.sort(rng.integers(0, 131_072, n // 10))
+        return r
+    if kind == "heavy":
+        r = rng.integers(0, 1 << 19, n)
+        u = rng.random(n)
+        r[u < 0.1] = rng.integers(0, 32, int((u < 0.1).sum()))
+        r[u < 0.02] = 7
+        r[u > 0.99] = 1 << 19
+        r[u > 0.995] = -1 - rng.integers(0, 4, int((u > 0.995).sum()))
+        return r
+    return np.full(n, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,n", [("heavy", 0), ("heavy", 1), ("heavy", 255), ("heavy", 4097),
+                                    ("heavy", 10001), ("owner", 53_248), ("hot", 106_496),
+                                    ("heavy", 106_496), ("equal", 9000)])
+def test_radix_sort_is_torch_sort(kind, n):
+    """The radix sort is bit-identical to ``torch.sort(stable=True)``:
+    full mode on the rows, bounded mode on the rows mapped to the bound
+    (every row outside [0, bound) made the bound), int32 and int64 rows
+    and outputs."""
+    _cuda()
+    r = _sort_rows_np(kind, n, np.random.default_rng(n))
+    for bound in (None, 1 << 19, 131_072):
+        for dtype in (torch.int32, torch.int64):
+            rows = torch.from_numpy(r).to(dtype).cuda()
+            keys = rows if bound is None else torch.where((rows >= 0) & (rows < bound), rows, bound)
+            want_rows, want_perm = torch.sort(keys, stable=True)
+            for index_dtype in (torch.int32, torch.int64):
+                before = hk._sort_rows.launches
+                srows, perm = hk._sort_rows(rows, bound, index_dtype)
+                torch.cuda.synchronize()
+                assert hk._sort_rows.launches == before + (n > 0)
+                assert torch.equal(srows.to(torch.int64), want_rows.to(torch.int64)), (bound, dtype)
+                assert torch.equal(perm.to(torch.int64), want_perm), (bound, dtype)
+
+
+@pytest.mark.cuda
+def test_radix_sort_raises_instead_of_falling_back():
+    _cuda()
+    with pytest.raises(Exception, match="int32 or int64"):
+        hk._sort_rows(torch.zeros(8, dtype=torch.float32, device="cuda"))
+    with pytest.raises(Exception, match="bound"):
+        hk._sort_rows(torch.zeros(8, dtype=torch.int32, device="cuda"), 2**31)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [8, 5])
+@pytest.mark.parametrize("rule", RULES)
+def test_walk_paths_match_plain(rule, dim):
+    """B4 and the merge bitwise against their plain versions on the CPU,
+    through every path of the walk: short segments (one thread), a
+    segment crossing a tile edge, warp-long ones (32 to 255 entries), one
+    past the block threshold (2,351 entries), dropped rows; dim 8 (the
+    fixed-width instance) and 5 (the run-time width)."""
+    _cuda()
+    rng = np.random.default_rng(5 + dim)
+    es, xs = rule_state_dim(rule, 1), rule_state_dim(rule, dim)
+    parts = [rng.integers(0, C, 6000), np.full(2351, 7), np.full(40, 9), np.full(100, 11),
+             np.full(31, 12), np.full(300, C), -rng.integers(1, 5, 100)]
+    rows = np.concatenate(parts)
+    rng.shuffle(rows)
+    n = len(rows)
+    grads = (rng.normal(size=(n, 1 + dim)) * 10.0 ** rng.integers(-3, 4, (n, 1))).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (
+        rows.astype(np.int32), grads, rng.integers(1, 3, n).astype(np.float32),
+        (rng.random(n) > 0.6).astype(np.float32))]
+    cfg = CacheConfig(capacity=C, embedx_dim=dim, embed_rule=rule, embedx_rule=rule,
+                      embedx_threshold=1.5)
+    f = np.float32
+    state = {"show": np.abs(rng.normal(size=C)).astype(f),
+             "click": np.abs(rng.normal(size=C)).astype(f),
+             "embed_w": rng.normal(size=(C, 1)).astype(f),
+             "embed_state": np.abs(rng.normal(size=(C, es))).astype(f),
+             "embedx_w": rng.normal(size=(C, dim)).astype(f),
+             "embedx_state": np.abs(rng.normal(size=(C, xs))).astype(f),
+             "has_embedx": (rng.random(C) > 0.5).astype(f)}
+    if rule == "adam":
+        state["embed_state"][:, 2:] = 0.9
+        state["embedx_state"][:, 2 * dim:] = 0.9
+    state = {k: torch.from_numpy(v) for k, v in state.items()}
+    want = hk.hot_scatter_apply({k: v.clone() for k, v in state.items()}, *args, cfg)
+    for rows_dtype in (torch.int32, torch.int64):
+        got = hk.hot_scatter_apply({k: v.cuda() for k, v in state.items()},
+                                   args[0].to(rows_dtype).cuda(), *[a.cuda() for a in args[1:]],
+                                   cfg)
+        for k in want:
+            assert torch.equal(got[k].cpu(), want[k]), (k, rows_dtype)
+        merged = [args[0].to(rows_dtype), *args[1:]]
+        mw = hk.merge_sparse_grads(*merged, C)
+        mg = hk.merge_sparse_grads(*[a.cuda() for a in merged], C)
+        for g, w in zip(mg, mw):
+            assert torch.equal(g.cpu(), w)

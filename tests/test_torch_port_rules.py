@@ -1,6 +1,6 @@
 """Rules of the port that the code itself must keep.
 
-- ``paddle_tpu_torch`` and ``chip_smoke.py`` import neither jax/jaxlib
+- ``paddle_tpu_torch``, ``chip_smoke.py`` and the probes import neither jax/jaxlib
   nor anything of ``paddle_tpu`` (checked on the syntax tree, so a lazy
   import inside a function counts too).
 - Entry points default to CUDA: without a GPU they raise unless the
@@ -20,7 +20,8 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "flash_bwd_probe.py", ROOT / "hot_scatter_probe.py"]
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 
