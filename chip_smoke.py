@@ -352,18 +352,12 @@ def max_abs(a, b):
     return float((a.float() - b.float()).abs().nan_to_num(0.0).max()) if a.numel() else 0.0
 
 
-def phase_hot_probe(dev):
-    """``hot_probe_gather`` (B2) and ``hot_probe`` (B3) at the hot paths'
-    shapes: 106,496 probes (one batch's keys: ~80 % resident with
-    repeats, ~20 % absent) into a 2^19-row tier holding 100,000 keys,
-    banks 1, 4 and 8; B3 also on the first 26,624 (one shard's slice of
-    the batch at K = 4). Bitwise against the plain versions on the card
-    and the host mirror. Returns (B2 at banks 1, the single-card
-    trainer's layout; B3 at banks 4 and n = 26,624, the sharded
-    trainer's) for the kernels line."""
-    from paddle_tpu_torch.ops.hot_kernels import (hot_probe, hot_probe_gather,
-                                                  hot_probe_gather_plain)
-    from paddle_tpu_torch.ps.device_hash import dynamic_map_lookup, split_keys
+def probe_batch(dev):
+    """Phase 2's probe inputs: 100,000 resident keys; one batch's 106,496
+    probe keys (~80 % resident with repeats, ~20 % absent), on the card as
+    int32 hi/lo bit patterns; a 2^19-row tier. (resident, probe, hi, lo,
+    tier)."""
+    from paddle_tpu_torch.ps.device_hash import split_keys
 
     n = BATCH * SLOTS
     rng = np.random.default_rng(10)
@@ -376,7 +370,24 @@ def phase_hot_probe(dev):
     hi, lo = split_keys(probe)
     th = torch.from_numpy(hi.view(np.int32)).to(dev)
     tl = torch.from_numpy(lo.view(np.int32)).to(dev)
-    tier = tier_columns(rng, "adagrad", "adagrad", dev)
+    return resident, probe, th, tl, tier_columns(rng, "adagrad", "adagrad", dev)
+
+
+def phase_hot_probe(dev):
+    """``hot_probe_gather`` (B2) and ``hot_probe`` (B3) at the hot paths'
+    shapes: 106,496 probes (one batch's keys: ~80 % resident with
+    repeats, ~20 % absent) into a 2^19-row tier holding 100,000 keys,
+    banks 1, 4 and 8; B3 also on the first 26,624 (one shard's slice of
+    the batch at K = 4). Bitwise against the plain versions on the card
+    and the host mirror. Returns (B2 at banks 1, the single-card
+    trainer's layout; B3 at banks 4 and n = 26,624, the sharded
+    trainer's) for the kernels line."""
+    from paddle_tpu_torch.ops.hot_kernels import (hot_probe, hot_probe_gather,
+                                                  hot_probe_gather_plain)
+    from paddle_tpu_torch.ps.device_hash import dynamic_map_lookup
+
+    n = BATCH * SLOTS
+    resident, probe, th, tl, tier = probe_batch(dev)
     out, b3 = {}, None
     for banks in (1, 4, 8):
         t0 = time.perf_counter()

@@ -8,23 +8,31 @@
 //   the dynamic key map fused with the gather of embed_w ++ embedx_w.
 //   The TPU grid is key-block x bank and merges the bank results by
 //   revisiting the output block in grid order. Hopper has no sequential
-//   grid, and needs none: one thread per key computes its own bank and
-//   probe window (the dynamic_probe_buckets hash in native uint32
-//   arithmetic) and probes only that bank's region, which is the same
-//   answer. Tie rules as in the reference: inside a bucket the MAX row
-//   among matching slots with row >= 0; the FIRST bucket with a hit wins.
-//   Bound: HBM bytes, random 32-B sectors (~276 B per key: the key, two
-//   buckets x three arrays, the row, and the outputs) - about 8.8 us for
-//   106,496 keys at 3.35 TB/s. A thread reads 8 slots of one bucket
-//   from one 32-B sector per array, so the probe is sector-efficient.
+//   grid, and needs none: each key computes its own bank and probe window
+//   (the dynamic_probe_buckets hash in native uint32 arithmetic) and
+//   probes only that bank's region, which is the same answer. Tie rules as
+//   in the reference: inside a bucket the MAX row among matching slots
+//   with row >= 0; the FIRST bucket with a hit wins. A group of 8 lanes
+//   probes 4 keys (probe_group below): one slot of each array a lane, the
+//   bucket sectors of all 4 keys loaded at once, the ties settled by warp
+//   shuffles, the second bucket only for a key still missing; then the
+//   group gathers each row's 1 + dim floats side by side and writes them
+//   as consecutive floats. Bound: HBM bytes (~190 B a key:
+//   the key, the probed buckets' sectors of three arrays, the row and the
+//   outputs) - about 6.1 us for 106,496 keys at 3.35 TB/s, above a launch
+//   and the three dependent round trips (key, buckets, row). What it moves
+//   is random 32-B sectors: each bucket and each row is one.
 //
 // - hot_probe: the same probe without the gather (rows only), the local
 //   half of the sharded tier's step: each shard resolves its batch slice
 //   against the replicated map and the rows, not the values, cross to the
-//   owner shard. One thread per key through the same probe function as
-//   hot_probe_gather (probe_row), so the two cannot drift apart. Integer
-//   work only: bitwise equal to dynamic_map_lookup. Bound: HBM bytes, the
-//   key, the probed bucket sectors and the row out (~108 B per key).
+//   owner shard. The same probe function as hot_probe_gather, so the two
+//   cannot drift apart. Integer work only: bitwise equal to
+//   dynamic_map_lookup. At one shard's 26,624 keys its byte bound (~1 us:
+//   the key, the probed bucket sectors and the row out, ~127 B a key) is
+//   below a launch, so what bounds it is a launch plus two dependent
+//   random round trips (the key, then its bucket's sectors) and a third
+//   for the warps that hold a key missing from its first bucket.
 //
 // - hot_scatter_apply (merge_sparse_grads + kern): the push, in two
 //   parts. (1) A stable LSD radix sort of the rows (radix_sort_launch;
@@ -70,7 +78,7 @@ using ctr_rule::RowParams;
 constexpr uint32_t kBankSeed = 0x243F6A88u;
 // widest embedx a merging thread keeps in its local sum buffer
 constexpr int kMaxDim = 128;
-constexpr int kThreads = 256;
+constexpr uint32_t kFull = 0xFFFFFFFFu;
 
 __device__ __forceinline__ uint32_t mix32(uint32_t hi, uint32_t lo,
                                           uint32_t seed) {
@@ -83,39 +91,134 @@ __device__ __forceinline__ uint32_t mix32(uint32_t hi, uint32_t lo,
   return h;
 }
 
-// The probe of one key: its bank's region (a fixed-seed hash, as the host
-// mirror's bank_of), then probe_buckets buckets of that region from the
-// seeded start, wrapping inside the region. Inside a bucket the MAX row
-// among matching slots with row >= 0 wins; the FIRST bucket with a hit
-// wins. -1 = missing.
-__device__ __forceinline__ int32_t probe_row(
-    const int32_t* __restrict__ map_hi, const int32_t* __restrict__ map_lo,
-    const int32_t* __restrict__ map_row, uint32_t seed, uint32_t hi,
-    uint32_t lo, int64_t nbuckets, int bslots, int probe_buckets, int banks) {
-  const uint32_t nbpb = static_cast<uint32_t>(nbuckets / banks);  // pow2
-  const uint32_t local_mask = nbpb - 1u;
-  uint32_t base = 0u;
-  if (banks > 1)
-    base = (mix32(hi, lo, kBankSeed) & static_cast<uint32_t>(banks - 1)) * nbpb;
-  const uint32_t b0 = mix32(hi, lo, seed) & local_mask;
+// -- the probe: B3 (rows) and B2 (rows and the gather) -----------------------
+//
+// A group of kProbeGroup lanes of one warp probes kProbeKeys keys. Lane j
+// of the group takes slots j, j + kProbeGroup, ... of a probed bucket
+// (any bucket_slots works; as built one slot a lane) and loads row, hi and
+// lo of its slots of every key's bucket at once, before any compare and
+// whatever they hold: a key found in its first bucket waits for two
+// dependent round trips (the key, then its bucket's sectors). A warp's
+// load instruction reads whole 32-B bucket sectors of 32 / kProbeGroup
+// keys. Warp shuffles then take each bucket's MAX matching row with row
+// >= 0; the next bucket is loaded only for the keys still missing (the
+// FIRST bucket with a hit wins), and not at all once every key of the
+// warp has one. Each bucket addresses its own sector (the window wraps
+// inside the bank's region). Every lane of the warp reaches every
+// shuffle: a key past the last one is the last key, and nothing of it is
+// written. hot_scatter_probe.py times the choices: kProbeAhead = 2 (both
+// buckets of every key loaded before any compare: fewer round trips for
+// the missing keys, more sectors for the found ones), 4 or 16 lanes a
+// key, 1, 2 or 8 keys a group, 1024-thread blocks.
 
-  int32_t found = -1;
-  for (int t = 0; t < probe_buckets && found < 0; ++t) {
-    const int64_t b = static_cast<int64_t>(base + ((b0 + t) & local_mask));
-    const int64_t s0 = b * bslots;
-    int32_t hit = -1;
-    for (int l = 0; l < bslots; ++l) {
-      const int32_t r = map_row[s0 + l];
-      if (r >= 0 && static_cast<uint32_t>(map_hi[s0 + l]) == hi &&
-          static_cast<uint32_t>(map_lo[s0 + l]) == lo)
-        hit = r > hit ? r : hit;
-    }
-    found = hit;
+constexpr int kProbeGroup = 8;    // lanes a key (= the map's bucket_slots as built)
+constexpr int kProbeKeys = 4;     // keys a group probes at once
+constexpr int kProbeAhead = 1;    // buckets whose slots are loaded before a compare
+constexpr int kProbeThreads = 256;
+
+static_assert(32 % kProbeGroup == 0, "a group lies inside one warp");
+static_assert(kProbeKeys <= kProbeGroup, "lane k of a group writes key k's row");
+
+// The better of two rows of one bucket: the larger; -1 = no hit.
+__device__ __forceinline__ int32_t better_row(int32_t a, int32_t b) { return a > b ? a : b; }
+
+// The group's keys: key k is i0 + k (the last key past the end).
+struct ProbeKeys {
+  int64_t i0;
+  int j;  // the lane's place in its group
+  uint32_t hi[kProbeKeys], lo[kProbeKeys];
+};
+
+__device__ __forceinline__ ProbeKeys probe_keys(const int32_t* __restrict__ keys_hi,
+                                                const int32_t* __restrict__ keys_lo,
+                                                int64_t n) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  ProbeKeys q;
+  q.i0 = t / kProbeGroup * kProbeKeys;
+  q.j = static_cast<int>(t % kProbeGroup);
+#pragma unroll
+  for (int k = 0; k < kProbeKeys; ++k) {
+    const int64_t i = q.i0 + k < n ? q.i0 + k : n - 1;
+    q.hi[k] = static_cast<uint32_t>(keys_hi[i]);
+    q.lo[k] = static_cast<uint32_t>(keys_lo[i]);
   }
-  return found;
+  return q;
 }
 
-__global__ void hot_probe_gather_kernel(
+// The probe of the group's keys: each key's bank region (a fixed-seed
+// hash, as the host mirror's bank_of), then probe_buckets buckets of that
+// region from the seeded start, wrapping inside the region. Every lane of
+// the group gets the same rows in found (-1 = missing). Every lane of the
+// warp calls it.
+__device__ __forceinline__ void probe_group(
+    const int32_t* __restrict__ map_hi, const int32_t* __restrict__ map_lo,
+    const int32_t* __restrict__ map_row, uint32_t seed, const ProbeKeys& q,
+    int64_t nbuckets, int bslots, int probe_buckets, int banks, int32_t (&found)[kProbeKeys]) {
+  const uint32_t nbpb = static_cast<uint32_t>(nbuckets / banks);  // pow2
+  const uint32_t local_mask = nbpb - 1u;
+  uint32_t base[kProbeKeys], b0[kProbeKeys];
+#pragma unroll
+  for (int k = 0; k < kProbeKeys; ++k) {
+    base[k] = banks > 1 ? (mix32(q.hi[k], q.lo[k], kBankSeed) &
+                           static_cast<uint32_t>(banks - 1)) * nbpb
+                        : 0u;
+    b0[k] = mix32(q.hi[k], q.lo[k], seed) & local_mask;
+    found[k] = -1;
+  }
+  for (int t0 = 0; t0 < probe_buckets; t0 += kProbeAhead) {
+    int32_t hit[kProbeKeys][kProbeAhead];
+#pragma unroll
+    for (int k = 0; k < kProbeKeys; ++k)
+#pragma unroll
+      for (int u = 0; u < kProbeAhead; ++u) hit[k][u] = -1;
+    for (int s = q.j; s - q.j < bslots; s += kProbeGroup) {  // the same trips in every lane
+      int32_t r[kProbeKeys][kProbeAhead];
+      uint32_t h[kProbeKeys][kProbeAhead], l[kProbeKeys][kProbeAhead];
+#pragma unroll
+      for (int k = 0; k < kProbeKeys; ++k) {
+#pragma unroll
+        for (int u = 0; u < kProbeAhead; ++u) {
+          const bool live = found[k] < 0 && t0 + u < probe_buckets && s < bslots;
+          const int64_t at =
+              static_cast<int64_t>(base[k] + ((b0[k] + t0 + u) & local_mask)) * bslots + s;
+          r[k][u] = live ? map_row[at] : -1;
+          h[k][u] = live ? static_cast<uint32_t>(map_hi[at]) : 0u;
+          l[k][u] = live ? static_cast<uint32_t>(map_lo[at]) : 0u;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kProbeKeys; ++k)
+#pragma unroll
+        for (int u = 0; u < kProbeAhead; ++u)
+          if (r[k][u] >= 0 && h[k][u] == q.hi[k] && l[k][u] == q.lo[k])
+            hit[k][u] = better_row(hit[k][u], r[k][u]);
+    }
+    bool missing = false;
+#pragma unroll
+    for (int k = 0; k < kProbeKeys; ++k) {
+#pragma unroll
+      for (int u = 0; u < kProbeAhead; ++u) {
+#pragma unroll
+        for (int off = kProbeGroup / 2; off > 0; off >>= 1)
+          hit[k][u] = better_row(hit[k][u], __shfl_xor_sync(kFull, hit[k][u], off));
+        if (found[k] < 0) found[k] = hit[k][u];  // the first bucket with a hit wins
+      }
+      missing = missing || found[k] < 0;
+    }
+    if (__ballot_sync(kFull, missing) == 0u) break;  // every key of the warp is resolved
+  }
+}
+
+// Lane k of the group writes key k's row.
+__device__ __forceinline__ void write_rows(const ProbeKeys& q, const int32_t (&found)[kProbeKeys],
+                                           int64_t n, int32_t* __restrict__ o_rows) {
+  int32_t mine = found[0];
+#pragma unroll
+  for (int k = 1; k < kProbeKeys; ++k) mine = q.j == k ? found[k] : mine;
+  if (q.j < kProbeKeys && q.i0 + q.j < n) o_rows[q.i0 + q.j] = mine;
+}
+
+__global__ void __launch_bounds__(kProbeThreads) hot_probe_gather_kernel(
     const int32_t* __restrict__ map_hi, const int32_t* __restrict__ map_lo,
     const int32_t* __restrict__ map_row, const int32_t* __restrict__ seed_p,
     const int32_t* __restrict__ keys_hi, const int32_t* __restrict__ keys_lo,
@@ -123,37 +226,53 @@ __global__ void hot_probe_gather_kernel(
     int32_t* __restrict__ o_rows, float* __restrict__ o_pull, int64_t n,
     int64_t nbuckets, int bslots, int probe_buckets, int banks, int64_t C,
     int dim) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int32_t found = probe_row(
-      map_hi, map_lo, map_row, static_cast<uint32_t>(*seed_p),
-      static_cast<uint32_t>(keys_hi[i]), static_cast<uint32_t>(keys_lo[i]),
-      nbuckets, bslots, probe_buckets, banks);
-  o_rows[i] = found;
+  const ProbeKeys q = probe_keys(keys_hi, keys_lo, n);
+  int32_t found[kProbeKeys];
+  probe_group(map_hi, map_lo, map_row, static_cast<uint32_t>(*seed_p), q, nbuckets, bslots,
+              probe_buckets, banks, found);
+  write_rows(q, found, n, o_rows);
 
-  float* out = o_pull + i * (1 + dim);
-  if (found >= 0) {
-    const int64_t r = found < C ? found : C - 1;
-    out[0] = embed_w[r];
-    const float* x = embedx_w + r * dim;
-    for (int d = 0; d < dim; ++d) out[1 + d] = x[d];
-  } else {
-    for (int d = 0; d <= dim; ++d) out[d] = 0.0f;
+  // each key's 1 + dim values, the group's lanes side by side: lane 0 the
+  // embed_w, lane j embedx_w elements j, j + kProbeGroup, ...; every key's
+  // loads before the stores; a warp's output rows are one contiguous run
+  int64_t r[kProbeKeys];
+#pragma unroll
+  for (int k = 0; k < kProbeKeys; ++k) r[k] = found[k] < C ? found[k] : C - 1;
+  for (int d0 = 0; d0 == 0 || d0 < dim; d0 += kProbeGroup) {
+    const int d = d0 + q.j;
+    float e[kProbeKeys], x[kProbeKeys];
+#pragma unroll
+    for (int k = 0; k < kProbeKeys; ++k) {
+      e[k] = d0 == 0 && q.j == 0 && found[k] >= 0 ? embed_w[r[k]] : 0.0f;
+      x[k] = d < dim && found[k] >= 0 ? embedx_w[r[k] * dim + d] : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < kProbeKeys; ++k) {
+      if (q.i0 + k >= n) continue;
+      float* out = o_pull + (q.i0 + k) * (1 + dim);
+      if (d0 == 0 && q.j == 0) out[0] = e[k];
+      if (d < dim) out[1 + d] = x[k];
+    }
   }
 }
 
-__global__ void hot_probe_kernel(
+__global__ void __launch_bounds__(kProbeThreads) hot_probe_kernel(
     const int32_t* __restrict__ map_hi, const int32_t* __restrict__ map_lo,
     const int32_t* __restrict__ map_row, const int32_t* __restrict__ seed_p,
     const int32_t* __restrict__ keys_hi, const int32_t* __restrict__ keys_lo,
     int32_t* __restrict__ o_rows, int64_t n, int64_t nbuckets, int bslots,
     int probe_buckets, int banks) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  o_rows[i] = probe_row(
-      map_hi, map_lo, map_row, static_cast<uint32_t>(*seed_p),
-      static_cast<uint32_t>(keys_hi[i]), static_cast<uint32_t>(keys_lo[i]),
-      nbuckets, bslots, probe_buckets, banks);
+  const ProbeKeys q = probe_keys(keys_hi, keys_lo, n);
+  int32_t found[kProbeKeys];
+  probe_group(map_hi, map_lo, map_row, static_cast<uint32_t>(*seed_p), q, nbuckets, bslots,
+              probe_buckets, banks, found);
+  write_rows(q, found, n, o_rows);
+}
+
+// Blocks of kProbeThreads for n keys.
+unsigned probe_blocks(int64_t n) {
+  const int64_t groups = (n + kProbeKeys - 1) / kProbeKeys;
+  return static_cast<unsigned>((groups * kProbeGroup + kProbeThreads - 1) / kProbeThreads);
 }
 
 // -- the stable radix sort of the rows ---------------------------------------
@@ -183,7 +302,6 @@ constexpr int kSortWarps = kSortThreads / 32;
 constexpr int kSortKeysPerThread = kSortTile / kSortThreads;
 constexpr int kRadixBits = 8;
 constexpr int kRadixBins = 1 << kRadixBits;
-constexpr uint32_t kFull = 0xFFFFFFFFu;
 
 static_assert(kSortWarps * kRadixBins >= 2 * kSortTile,
               "the warp counts are reused as the tile's key and value buffers");
@@ -817,10 +935,6 @@ __global__ void __launch_bounds__(kWalkThreads) segment_walk_kernel(WalkArgs a) 
                                 s_long_o[q], s_stage, tid);
 }
 
-unsigned blocks_for(int64_t n) {
-  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
-}
-
 // A launch that may overlap the kernel before it on the stream (see
 // pdl_acquire).
 template <typename... Params, typename... Args>
@@ -858,7 +972,7 @@ extern "C" int hot_probe_gather_launch(
     float* o_pull, int64_t n, int64_t nbuckets, int bslots,
     int probe_buckets, int banks, int64_t C, int dim, void* stream) {
   if (n <= 0) return 0;
-  hot_probe_gather_kernel<<<blocks_for(n), kThreads, 0,
+  hot_probe_gather_kernel<<<probe_blocks(n), kProbeThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       map_hi, map_lo, map_row, seed, keys_hi, keys_lo, embed_w, embedx_w,
       o_rows, o_pull, n, nbuckets, bslots, probe_buckets, banks, C, dim);
@@ -871,7 +985,7 @@ extern "C" int hot_probe_launch(
     int32_t* o_rows, int64_t n, int64_t nbuckets, int bslots,
     int probe_buckets, int banks, void* stream) {
   if (n <= 0) return 0;
-  hot_probe_kernel<<<blocks_for(n), kThreads, 0,
+  hot_probe_kernel<<<probe_blocks(n), kProbeThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       map_hi, map_lo, map_row, seed, keys_hi, keys_lo, o_rows, n, nbuckets,
       bslots, probe_buckets, banks);

@@ -358,11 +358,15 @@ def hot_probe(map_state: Dict[str, torch.Tensor], keys_hi: torch.Tensor,
     enforce(dev.type == "cuda", f"hot_probe: no kernel for device {dev}",
             InvalidArgumentError)
     _check_map("hot_probe", map_state, keys_hi, keys_lo, banks)
+    return _probe(load_hot_kernels(), map_state, keys_hi, keys_lo, probe_buckets, banks)
+
+
+def _probe(lib, map_state, keys_hi, keys_lo, probe_buckets, banks):
     n = keys_lo.shape[0]
     nbuckets, bslots = map_state["row"].shape
-    rows = torch.empty(n, dtype=torch.int32, device=dev)
+    rows = torch.empty(n, dtype=torch.int32, device=keys_lo.device)
     if n:
-        _raise_on(load_hot_kernels().hot_probe_launch(
+        _raise_on(lib.hot_probe_launch(
             *_map_ptrs(map_state), keys_hi.data_ptr(), keys_lo.data_ptr(),
             rows.data_ptr(), n, nbuckets, bslots, int(probe_buckets), int(banks),
             _stream(keys_lo)), "hot_probe")
@@ -385,17 +389,23 @@ def hot_probe_gather(map_state: Dict[str, torch.Tensor], keys_hi: torch.Tensor,
     enforce(dev.type == "cuda", f"hot_probe_gather: no kernel for device {dev}",
             InvalidArgumentError)
     _check_map("hot_probe_gather", map_state, keys_hi, keys_lo, banks)
+    ew, xw = tier_state["embed_w"], tier_state["embedx_w"]
+    enforce(tuple(ew.shape) == (xw.shape[0], 1), "hot_probe_gather: embed_w [C, 1]",
+            InvalidArgumentError)
+    _check("hot_probe_gather", (ew, xw), _F32, dev)
+    return _probe_gather(load_hot_kernels(), map_state, keys_hi, keys_lo, tier_state,
+                         probe_buckets, banks)
+
+
+def _probe_gather(lib, map_state, keys_hi, keys_lo, tier_state, probe_buckets, banks):
     n = keys_lo.shape[0]
     nbuckets, bslots = map_state["row"].shape
     ew, xw = tier_state["embed_w"], tier_state["embedx_w"]
     C, dim = xw.shape
-    enforce(tuple(ew.shape) == (C, 1), "hot_probe_gather: embed_w [C, 1]",
-            InvalidArgumentError)
-    _check("hot_probe_gather", (ew, xw), _F32, dev)
-    rows = torch.empty(n, dtype=torch.int32, device=dev)
-    pulled = torch.empty((n, 1 + dim), dtype=_F32, device=dev)
+    rows = torch.empty(n, dtype=torch.int32, device=keys_lo.device)
+    pulled = torch.empty((n, 1 + dim), dtype=_F32, device=keys_lo.device)
     if n:
-        _raise_on(load_hot_kernels().hot_probe_gather_launch(
+        _raise_on(lib.hot_probe_gather_launch(
             *_map_ptrs(map_state), keys_hi.data_ptr(), keys_lo.data_ptr(), ew.data_ptr(),
             xw.data_ptr(), rows.data_ptr(), pulled.data_ptr(), n, nbuckets, bslots,
             int(probe_buckets), int(banks), C, dim, _stream(keys_lo)),

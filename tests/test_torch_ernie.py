@@ -21,7 +21,9 @@ versions. Tolerances, each with its reason:
   5e-3 (einsum) / 5e-2 (flash), with the key bias left out — adding a
   constant to every key of a row leaves its softmax unchanged, so that
   bias has a true gradient of 0 and trains on rounding noise alone in
-  both packages.
+  both packages. The Adam slots leave it out the same way (rtol 2e-3);
+  instead its slots must be noise in both: below 1e-6 of the tensor's
+  largest |slot| value.
 """
 
 import jax
@@ -213,8 +215,18 @@ def test_trainer_three_steps_match_jax_trainer(impl, causal):
     if impl == "einsum":
         for slot in ("m", "v"):
             for k in w0:
-                np.testing.assert_allclose(st[slot][k].numpy(), tt.opt_state[slot][k].numpy(),
+                ref, got = st[slot][k].numpy(), tt.opt_state[slot][k].numpy()
+                np.testing.assert_allclose(_key_bias_dropped(k, ref, SMALL),
+                                           _key_bias_dropped(k, got, SMALL),
                                            rtol=2e-3, atol=1e-9, err_msg=f"{slot} {k}")
+                if k.endswith("attn.qkv_b"):
+                    # the key bias's gradient is 0 in exact arithmetic
+                    # (softmax ignores a constant added to a query row's
+                    # scores): its slots are rounding noise in both packages
+                    H = SMALL["num_heads"]
+                    for a in (ref, got):
+                        key = a.reshape(H, 3, -1)[:, 1, :]
+                        assert np.abs(key).max() <= 1e-6 * np.abs(a).max(), f"{slot} {k}"
 
 
 def test_out_of_slice_options_raise():

@@ -17,6 +17,7 @@ from paddle_tpu_torch.ops import hot_kernels as hk
 from paddle_tpu_torch.ops.sparse_optimizer import rule_state_dim
 from paddle_tpu_torch.ps.device_hash import DynamicDeviceKeyMap, split_keys
 from paddle_tpu_torch.ps.embedding_cache import CacheConfig
+from test_torch_hot_kernels_emulated import PROBE_GROUP, tie_wrap_map, tier
 
 RULES = ["naive", "adagrad", "std_adagrad", "adam"]
 C, DIM = 1024, 8
@@ -100,6 +101,27 @@ def test_probe_kernel_matches_plain(banks):
                                    {k: v.cuda() for k, v in _state(rng, 1, 1, False).items()},
                                    probe_buckets=2, banks=banks)
     assert torch.equal(fused, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [8, PROBE_GROUP + 5])
+@pytest.mark.parametrize("bslots,banks", [(4, 1), (8, 1), (4, 4), (8, 4)])
+def test_probes_on_the_tie_wrap_map(bslots, banks, dim):
+    """B3 and B2 on the hand-built map of the emulated tests (ties inside
+    and across buckets, freed slots, wrapped windows, a clamped row; 1001
+    keys), bitwise against their plain versions on the CPU."""
+    _cuda()
+    ms, kh, kl, want = tie_wrap_map(bslots + banks, bslots, banks)
+    state = tier(128, dim)
+    plain = hk.hot_probe_gather(ms, kh, kl, state, probe_buckets=2, banks=banks)
+    cms = {k: v.cuda() for k, v in ms.items()}
+    rows = hk.hot_probe(cms, kh.cuda(), kl.cuda(), probe_buckets=2, banks=banks)
+    got = hk.hot_probe_gather(cms, kh.cuda(), kl.cuda(), {k: v.cuda() for k, v in state.items()},
+                              probe_buckets=2, banks=banks)
+    torch.cuda.synchronize()
+    assert (rows.cpu().numpy() == want).all()
+    assert torch.equal(rows.cpu(), plain[0]) and torch.equal(got[0].cpu(), plain[0])
+    assert torch.equal(got[1].cpu().view(torch.int32), plain[1].view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -1,12 +1,14 @@
-"""``hot_kernels.cu`` run on the CPU: the radix sort, B4's segment walk
-and the merge, from the kernel source itself, bitwise against their plain
-versions.
+"""``hot_kernels.cu`` run on the CPU: the probes B3 and B2, the radix sort,
+B4's segment walk and the merge, from the kernel source itself, bitwise
+against their plain versions.
 
 The source is compiled with ``g++`` against a small SIMT emulator (below):
 one block at a time, each thread a ``ucontext`` fiber, ``__syncthreads``
 and the warp intrinsics (``__ballot_sync``, ``__match_any_sync``,
-``__shfl*_sync``, ``__syncwarp``, ``__syncthreads_count``) as rendezvous
-points where every lane's value is exchanged. Float adds are IEEE f32 as
+``__shfl*_sync`` including ``__shfl_xor_sync``, ``__syncwarp``,
+``__syncthreads_count``) as rendezvous points where every lane's value is
+exchanged; a warp whose lanes reach different intrinsics, or whose lanes
+exit before one, aborts. Float adds are IEEE f32 as
 on the card (``-ffp-contract=off``). It catches what a model of the
 design cannot: wrong ranks, halos, searches and barriers in the source.
 It says nothing about speed, and nothing about what only nvcc or the card
@@ -83,7 +85,7 @@ inline float __fsqrt_rn(float a) { return std::sqrt(a); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs(x); }
 namespace emu {
-enum Op { kBallot, kMatch, kShfl, kShflUp, kShflDown, kSyncWarp };
+enum Op { kBallot, kMatch, kShfl, kShflUp, kShflDown, kShflXor, kSyncWarp };
 uint64_t warp_op(Op op, uint64_t v, int arg);
 void syncthreads();
 int syncthreads_count(int p);
@@ -110,6 +112,10 @@ inline int __syncthreads_count(int p) { return emu::syncthreads_count(p); }
 template <class T> T __shfl_down_sync(unsigned, T v, int d) {
   uint64_t u = 0; std::memcpy(&u, &v, sizeof(T));
   u = emu::warp_op(emu::kShflDown, u, d); T r; std::memcpy(&r, &u, sizeof(T)); return r;
+}
+template <class T> T __shfl_xor_sync(unsigned, T v, int m) {
+  uint64_t u = 0; std::memcpy(&u, &v, sizeof(T));
+  u = emu::warp_op(emu::kShflXor, u, m); T r; std::memcpy(&r, &u, sizeof(T)); return r;
 }
 inline void __syncwarp() { emu::warp_op(emu::kSyncWarp, 0, 0); }
 inline unsigned atomicAdd(unsigned* p, unsigned v) { unsigned o = *p; *p += v; return o; }
@@ -168,6 +174,7 @@ static void resolve_warp(int w0, int nth) {
       case kShfl: { int s = f.arg & 31; r = F[w0 + (s < lanes ? s : l)].v; break; }
       case kShflUp: r = (l >= f.arg) ? F[w0 + l - f.arg].v : f.v; break;
       case kShflDown: r = (l + f.arg < lanes) ? F[w0 + l + f.arg].v : f.v; break;
+      case kShflXor: r = ((l ^ f.arg) < lanes) ? F[w0 + (l ^ f.arg)].v : f.v; break;
       case kSyncWarp: break;
     }
     f.res = r;
@@ -234,20 +241,26 @@ def emulated_source(cu: str) -> str:
     return out
 
 
-@pytest.fixture(scope="module")
-def emu_lib(tmp_path_factory, monkeypatch_module):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the emulated kernels")
-    d = tmp_path_factory.mktemp("hot_kernels_emu")
+def build_emulated(d, cu_text):
+    """Compile ``cu_text`` (a version of ``hot_kernels.cu``) with the
+    emulator in directory ``d``; returns the library's path."""
     (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
     (d / "emu.cc").write_text(EMU_CC)
     (d / "ctr_rule.cuh").write_text((CSRC / "ctr_rule.cuh").read_text())
-    (d / "hk.cc").write_text(emulated_source((CSRC / "hot_kernels.cu").read_text()))
+    (d / "hk.cc").write_text(emulated_source(cu_text))
     so = d / "libhk_emu.so"
-    subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-                    "-Wno-unknown-pragmas", f"-I{d}", "-o", str(so), str(d / "hk.cc"),
+    subprocess.run([shutil.which("g++"), "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC",
+                    "-shared", "-Wno-unknown-pragmas", f"-I{d}", "-o", str(so), str(d / "hk.cc"),
                     str(d / "emu.cc")], check=True, capture_output=True)
+    return so
+
+
+@pytest.fixture(scope="module")
+def emu_lib(tmp_path_factory, monkeypatch_module):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the emulated kernels")
+    so = build_emulated(tmp_path_factory.mktemp("hot_kernels_emu"),
+                        (CSRC / "hot_kernels.cu").read_text())
     # the wrappers' launch code, pointed at the emulated library: CPU
     # pointers, no stream
     monkeypatch_module.setattr(hk, "build_cuda_library", lambda *a, **k: str(so))
@@ -350,20 +363,11 @@ def test_emulator_catches_an_unstable_rank(emu_lib, tmp_path):
     """The emulator is not vacuous: the sort with the in-warp rank of
     equal digits reversed inside each round (still a permutation, no
     longer stable) differs from torch.sort."""
-    src = emulated_source((CSRC / "hot_kernels.cu").read_text())
+    src = (CSRC / "hot_kernels.cu").read_text()
     bad = src.replace("+ __popc(peers & lanemask_lt());",
                       "+ (__popc(peers) - 1 - __popc(peers & lanemask_lt()));")
     assert bad != src
-    (tmp_path / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
-    (tmp_path / "ctr_rule.cuh").write_text((CSRC / "ctr_rule.cuh").read_text())
-    (tmp_path / "emu.cc").write_text(EMU_CC)
-    (tmp_path / "bad.cc").write_text(bad)
-    so = tmp_path / "libbad.so"
-    subprocess.run([shutil.which("g++"), "-std=c++17", "-O1", "-fPIC", "-shared",
-                    "-Wno-unknown-pragmas", f"-I{tmp_path}", "-o", str(so),
-                    str(tmp_path / "bad.cc"), str(tmp_path / "emu.cc")],
-                   check=True, capture_output=True)
-    lib = hk.bind_hot_kernels(ctypes.CDLL(str(so)))
+    lib = hk.bind_hot_kernels(ctypes.CDLL(str(build_emulated(tmp_path, bad))))
     n = 5000
     rows = torch.from_numpy(np.random.default_rng(1).integers(0, 50, n).astype(np.int32))
     out = torch.empty(n, dtype=torch.int32)
@@ -376,3 +380,183 @@ def test_emulator_catches_an_unstable_rank(emu_lib, tmp_path):
     want_rows, want_perm = torch.sort(rows, stable=True)
     assert not torch.equal(out, want_rows)
     assert not torch.equal(perm.to(torch.int64), want_perm)
+
+
+# -- the probes: B3 (hot_probe) and B2 (hot_probe_gather) ----------------------
+
+PROBE_GROUP = _cu_const("kProbeGroup")  # lanes a key
+
+
+def tie_wrap_map(seed, bslots, banks, nbpb=32, C=128):
+    """A dynamic map built by hand, slot by slot, with what the probe's tie
+    rules must settle, and probe keys for it: (map_state, keys_hi,
+    keys_lo, want), the keys int32 bit patterns, ``want`` the rows the
+    rules give each key.
+
+    Cases, several keys each: a key in two slots of its first bucket and
+    in its second (the first bucket's larger row wins); a key only in its
+    second bucket, twice; a key whose first-bucket slots match but are
+    freed (row -1 or -2), found in its second; a key whose hi matches
+    and lo does not; keys whose window starts at the region's last bucket
+    and wraps to its first, found in either; a row >= C (the gather
+    clamps it). The rest of the slots hold other keys, freed slots and
+    empties; absent keys are probed too, and keys repeat."""
+    from paddle_tpu_torch.ps.device_hash import dynamic_map_state_to_device, dynamic_probe_buckets
+
+    rng = np.random.default_rng(seed)
+    nb = nbpb * banks
+    map_seed = 0x9E3779B9
+    hi = rng.integers(0, 2**32, (nb, bslots), dtype=np.uint64).astype(np.uint32)
+    lo = rng.integers(0, 2**32, (nb, bslots), dtype=np.uint64).astype(np.uint32)
+    row = np.full((nb, bslots), -1, np.int32)
+    used = np.zeros((nb, bslots), bool)
+
+    def windows(h, l):
+        bs = dynamic_probe_buckets(nb, torch.tensor([int(h)]), torch.tensor([int(l)]), map_seed,
+                                   2, banks)
+        return [int(b[0]) for b in bs]
+
+    def free_slots(b, k):
+        s = np.flatnonzero(~used[b])
+        return None if len(s) < k else rng.permutation(s)[:k]
+
+    want = {}
+
+    def place(entries, result, wrap=False):
+        """entries: (window step, row, lo matches) triples of one new key."""
+        for _ in range(1000):
+            h, l = (int(x) for x in rng.integers(0, 2**32, 2, dtype=np.uint64))
+            ws = windows(h, l)
+            if wrap != (ws[1] % nbpb == 0):
+                continue
+            need = {t: sum(e[0] == t for e in entries) for t in (0, 1)}
+            slots = {t: free_slots(ws[t], need[t]) for t in (0, 1)}
+            if any(v is None for v in slots.values()) or (ws[0] == ws[1]):
+                continue
+            k = {0: 0, 1: 0}
+            for t, r, lo_ok in entries:
+                s = slots[t][k[t]]
+                k[t] += 1
+                used[ws[t], s] = True
+                hi[ws[t], s], lo[ws[t], s] = h, l if lo_ok else l ^ 1
+                row[ws[t], s] = r
+            want[(h, l)] = result
+            return
+        raise AssertionError("no room for a case")
+
+    r = iter(rng.permutation(C - 8) + 4)
+    for _ in range(2):  # first: the wrapped windows share the region's ends
+        a = next(r)
+        place([(1, a, True)], a, wrap=True)
+        a, b = next(r), next(r)
+        place([(0, a, True), (1, b, True)], a, wrap=True)
+    for _ in range(4):
+        a, b, c = next(r), next(r), next(r)
+        place([(0, a, True), (0, b, True), (1, c, True)], max(a, b))
+        a, b = next(r), next(r)
+        place([(1, a, True), (1, b, True)], max(a, b))
+        a, b = next(r), next(r)
+        place([(0, -2, True), (0, -1, True), (1, a, True), (0, b, False)], a)
+        place([(0, next(r), False)], -1)
+    place([(0, C + 5, True)], C + 5)
+    # the other slots: other keys' entries, freed slots and empties
+    rest = ~used
+    u = rng.random((nb, bslots))
+    row[rest & (u < 0.4)] = rng.integers(0, C, int((rest & (u < 0.4)).sum()))
+    row[rest & (u >= 0.4) & (u < 0.6)] = -2
+    keys = list(want) + [tuple(int(x) for x in rng.integers(0, 2**32, 2, dtype=np.uint64))
+                         for _ in range(20)]
+    probe = [keys[i] for i in rng.integers(0, len(keys), 1001)]  # not a multiple of a block
+    ph = np.array([k[0] for k in probe], np.uint32)
+    pl = np.array([k[1] for k in probe], np.uint32)
+    ms = dynamic_map_state_to_device(hi, lo, row, map_seed, "cpu")
+    as_i32 = lambda a: torch.from_numpy(a.view(np.int32).copy())
+    return ms, as_i32(ph), as_i32(pl), np.array([want.get(k, -1) for k in probe], np.int32)
+
+
+def tier(C, dim, seed=0):
+    rng = np.random.default_rng(seed)
+    return {"embed_w": torch.from_numpy(rng.normal(size=(C, 1)).astype(np.float32)),
+            "embedx_w": torch.from_numpy(rng.normal(size=(C, dim)).astype(np.float32))}
+
+
+@pytest.mark.parametrize("bslots", [4, 8])
+@pytest.mark.parametrize("banks", [1, 4])
+def test_tie_wrap_map_holds_its_cases(bslots, banks):
+    """The hand-built map is what it says: the plain probe gives each key
+    the row its case sets."""
+    from paddle_tpu_torch.ps.device_hash import dynamic_map_lookup
+
+    ms, kh, kl, want = tie_wrap_map(bslots + banks, bslots, banks)
+    assert (dynamic_map_lookup(ms, kh, kl, 2, banks).numpy() == want).all()
+    assert (want >= 128).any() and (want == -1).any()
+
+
+@pytest.mark.parametrize("dim", [8, PROBE_GROUP + 5])
+@pytest.mark.parametrize("bslots", [4, 8])
+@pytest.mark.parametrize("banks", [1, 4])
+def test_emulated_probes_on_the_tie_wrap_map(emu_lib, banks, bslots, dim):
+    """B3 and B2 from the source, bitwise against ``dynamic_map_lookup``
+    and ``hot_probe_gather_plain`` on the hand-built map: ties inside a
+    bucket and across buckets, freed slots, wrapped windows, a clamped
+    row; 1001 keys (not a multiple of a block's keys); a row width above
+    the group (dim 13: the gather loops)."""
+    ms, kh, kl, want = tie_wrap_map(bslots + banks, bslots, banks)
+    state = tier(128, dim)
+    before = (hk.hot_probe.launches, hk.hot_probe_gather.launches)
+    rows = hk._probe(emu_lib, ms, kh, kl, 2, banks)
+    got = hk._probe_gather(emu_lib, ms, kh, kl, state, 2, banks)
+    assert (hk.hot_probe.launches, hk.hot_probe_gather.launches) == (before[0] + 1,
+                                                                     before[1] + 1)
+    assert (rows.numpy() == want).all()
+    plain = hk.hot_probe_gather_plain(ms, kh, kl, state, probe_buckets=2, banks=banks)
+    assert torch.equal(got[0], rows) and torch.equal(got[0], plain[0])
+    assert torch.equal(got[1].view(torch.int32), plain[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 31, 777])
+@pytest.mark.parametrize("bslots,banks", [(8, 1), (4, 4), (8, 4)])
+def test_emulated_probes_on_a_churned_map(emu_lib, n, bslots, banks):
+    """B3 and B2 on a ``DynamicDeviceKeyMap`` after inserts and removes
+    (tombstones), against the plain versions and the host mirror."""
+    from paddle_tpu_torch.ps.device_hash import DynamicDeviceKeyMap, split_keys
+
+    rng = np.random.default_rng(n + bslots + banks)
+    keys = np.unique(rng.integers(1, 2**63, 400, dtype=np.uint64))[:300]
+    m = DynamicDeviceKeyMap(512, device="cpu", bucket_slots=bslots, banks=banks)
+    m.insert(keys, rng.permutation(512)[:300].astype(np.int32))
+    m.remove(keys[::5])
+    probe = np.concatenate([keys, rng.integers(1, 2**63, 60, dtype=np.uint64)])[
+        rng.integers(0, 360, n)]
+    h, l = split_keys(probe)
+    kh, kl = torch.from_numpy(h.view(np.int32)), torch.from_numpy(l.view(np.int32))
+    ms = m.device_state()
+    state = tier(512, 8, seed=n)
+    rows = hk._probe(emu_lib, ms, kh, kl, m.probe_buckets, banks)
+    got = hk._probe_gather(emu_lib, ms, kh, kl, state, m.probe_buckets, banks)
+    plain = hk.hot_probe_gather_plain(ms, kh, kl, state, probe_buckets=m.probe_buckets,
+                                      banks=banks)
+    assert (rows.numpy() == m.lookup_host(probe)).all()
+    assert torch.equal(rows, plain[0]) and torch.equal(got[0], plain[0])
+    assert torch.equal(got[1].view(torch.int32), plain[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("edits", [
+    # the second bucket is probed and its hit wins over the first's
+    (("const bool live = found[k] < 0 && ", "const bool live = "),
+     ("if (found[k] < 0) found[k] = hit[k][u];", "if (hit[k][u] >= 0) found[k] = hit[k][u];")),
+    # the smallest matching row of a bucket wins
+    (("{ return a > b ? a : b; }", "{ return a < 0 ? b : b < 0 ? a : a < b ? a : b; }"),)],
+    ids=["second_bucket_wins", "min_row"])
+def test_emulator_catches_a_wrong_tie_rule(emu_lib, tmp_path, edits):
+    """The probe tests are not vacuous: the source with a tie rule broken
+    disagrees with the plain probe on the hand-built map."""
+    src = (CSRC / "hot_kernels.cu").read_text()
+    for old, new in edits:
+        assert src.count(old) == 1
+        src = src.replace(old, new)
+    lib = hk.bind_hot_kernels(ctypes.CDLL(str(build_emulated(tmp_path, src))))
+    ms, kh, kl, want = tie_wrap_map(9, 8, 4)
+    assert not (hk._probe(lib, ms, kh, kl, 2, 4).numpy() == want).all()
+    rows, _ = hk._probe_gather(lib, ms, kh, kl, tier(128, 8), 2, 4)
+    assert not (rows.numpy() == want).all()
