@@ -13,7 +13,11 @@ or when any phase fails. Phases:
 2. kernels vs plain at the main paths' shapes (n = 4096·26 = 106,496,
    dim 8), bitwise, with kernel and plain times (CUDA events, L2 flushed
    before each launch) beside the HBM byte bound:
-   ``ctr_sparse_rows`` over the rule matrix; ``hot_probe_gather`` and
+   ``ctr_sparse_rows`` over the rule matrix in both forms (in place by
+   index, with padding and negative rows, int32 and int64 rows; rows in
+   and out, the same kernel on copies of the rows), each with a short last
+   tile, and the in-place form's time on a pass-path push, checked there
+   too, beside the layout's sector floor; ``hot_probe_gather`` and
    ``hot_probe`` over a 2^19-row tier with banks 1, 4 and 8, resident and
    absent keys (``hot_probe`` also at one shard's n = 26,624);
    ``hot_scatter_apply`` over the rule matrix × ``create_applies_grad``
@@ -23,12 +27,14 @@ or when any phase fails. Phases:
    ``torch.sort(stable=True)``, bitwise in both modes, at the hot path's
    batch, one shard's owner push and the heavy-hitter batch, timed beside
    it; B4's, the merge's and the sort's device kernels per call (torch
-   profiler); B4 on the heavy-hitter batch at several block thresholds;
+   profiler), and the pass push's (a CUDA graph's nodes: the merge's
+   kernels and one more); B4 on the heavy-hitter batch at several block
+   thresholds;
 3. pass path at full width: DeepFM (26 slots, 13 dense, dim 8, DNN
    400³) GPUPS pass training over a 16-shard host table and a 2^21-row
    device cache, batch 4096, slab 8, 6 slabs (1 warm-up): losses finite
-   and falling, one ``ctr_sparse_rows`` launch and one merge launch per
-   step, samples/s; then a predict batch through ``serving_pull`` and
+   and falling, one ``ctr_sparse_rows`` launch (its in-place form) and one
+   merge launch per step, samples/s; then a predict batch through ``serving_pull`` and
    the flush back to the host table;
 4. hot path at full width: the same DeepFM trained by
    ``CtrStreamTrainer(hot_tier=HotTierConfig(capacity=2^19))`` over a
@@ -75,6 +81,7 @@ traces go to DIR.
 """
 
 import concurrent.futures
+import ctypes
 import json
 import shutil
 import subprocess
@@ -266,50 +273,195 @@ def kernel_ops(n, dim, embed_rule, embedx_rule):
     return n * (14 + per_rule[embed_rule](1) + per_rule[embedx_rule](dim))
 
 
+def at_inputs(rng, C, n, dim, embed_rule, embedx_rule, dev, uniq_dtype=torch.int64):
+    """The in-place form's inputs, harder than the merge's: a cache of C
+    rows (``rows_inputs``) and n entries, distinct rows in random order
+    with the merge's padding (C) on n // 10 of them and 3 negative rows,
+    every entry with nonzero deltas (a sentinel that were applied would
+    show). (state, uniq, show_sum, click_sum, g [n, 1+dim])."""
+    n_pad, n_neg = n // 10, 3
+    live = rng.choice(C, n - n_pad - n_neg, replace=False)
+    uniq = np.concatenate([live, np.full(n_pad, C), -rng.integers(1, 9, n_neg)])
+    rng.shuffle(uniq)
+    state, _ = rows_inputs(rng, C, dim, embed_rule, embedx_rule, dev)
+    _, (ds, dc, ge, gx) = rows_inputs(rng, n, dim, embed_rule, embedx_rule, dev)
+    return (state, torch.from_numpy(uniq).to(uniq_dtype).to(dev), ds + 1.0, dc,
+            torch.cat([ge, gx], 1))
+
+
+def pass_push(rng, dev):
+    """One pass-path step's push (phase 3's shapes): for each of the 26
+    slots 4096 ids drawn from the slot's 40,330, each id on its own row of
+    the 2^21-row cache; shows 1, clicks ~30 %. (rows int64, grads, shows,
+    clicks)."""
+    per_slot = PASS_KEYS // SLOTS + 1
+    ids = rng.integers(0, per_slot, (BATCH, SLOTS)) + np.arange(SLOTS) * per_slot
+    n = BATCH * SLOTS
+    f = np.float32
+    arrays = (ids.reshape(-1).astype(np.int64), rng.normal(size=(n, 1 + DIM)).astype(f),
+              np.ones(n, f), (rng.random(n) < 0.3).astype(f))
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+def at_bytes(n, u, dim, es, xs, uniq_bytes):
+    """Bytes the in-place form must move: the n entries' row id and deltas
+    read once, the u touched rows' seven columns read once and written
+    once."""
+    row = 1 + 1 + 1 + es + dim + xs + 1
+    return n * (uniq_bytes + 4 * (3 + dim)) + u * row * 4 * 2
+
+
+def at_sectors(n, u, dim, es, xs, uniq_bytes):
+    """The layout's floor in bytes: the entries' streams as above, but
+    each touched row's columns as the 32-byte sectors they occupy (a
+    column array each), read and written."""
+    sectors = sum(-(-w * 4 // 32) for w in (1, 1, 1, es, dim, xs, 1) if w)
+    return n * (uniq_bytes + 4 * (3 + dim)) + u * sectors * 32 * 2
+
+
+def bitwise_cols(got, want):
+    return all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got, want) if g.numel())
+
+
 def phase_kernel(dev):
-    from paddle_tpu_torch.ops.sparse_optimizer import ctr_sparse_rows, rule_state_dim
+    """B1 in both forms. Rows in, rows out (``ctr_sparse_rows``: the
+    kernel on copies of the rows) bitwise against ``fused_row_update``
+    over the rule matrix × ``create_applies_grad`` at n = 106,496 + 37 (a
+    short last tile); in place by index (``ctr_sparse_rows_at``) bitwise
+    against its plain version (gather, rule, scatter) over the same
+    matrix, n = 106,496 + 37 entries into a 2^19-row cache with padding
+    and negative rows, int64 and int32 rows. Then at the main path's
+    configuration (adagrad/adagrad, dim 8): the out-of-place form at n =
+    106,496 (the call, and the kernel alone on rows 0 .. n-1), and the
+    in-place form on a pass-path step's merged push into the 2^21-row
+    cache, checked bitwise on those inputs before it is timed. Returns
+    the kernels-line numbers of the in-place form (the main path's
+    launch) and the out-of-place numbers."""
+    from paddle_tpu_torch.ops import hot_kernels as hk
+    from paddle_tpu_torch.ops import sparse_optimizer as so
 
     n = BATCH * SLOTS
     rng = np.random.default_rng(0)
-    max_abs = 0.0
-    for embed_rule, embedx_rule in RULE_PAIRS:
+    worst = 0.0
+    for i, (embed_rule, embedx_rule) in enumerate(RULE_PAIRS):
         for cag in (True, False):
-            cols, deltas = rows_inputs(rng, n, DIM, embed_rule, embedx_rule, dev)
-            got = ctr_sparse_rows(cols, *deltas, embed_rule=embed_rule,
-                                  embedx_rule=embedx_rule, create_applies_grad=cag,
-                                  **HYPER)
+            kw = dict(embed_rule=embed_rule, embedx_rule=embedx_rule, create_applies_grad=cag,
+                      **HYPER)
+            cols, deltas = rows_inputs(rng, n + 37, DIM, embed_rule, embedx_rule, dev)
+            got = so.ctr_sparse_rows(cols, *deltas, **kw)
             torch.cuda.synchronize()
             want = plain(cols, deltas, embed_rule, embedx_rule, cag)
             created = int(((want[6] > 0) & (cols[6] == 0)).sum())
             diffs = [(float((g - w).abs().nan_to_num(0.0).max()) if g.numel() else 0.0,
                       ulp_diff(g, w)) for g, w in zip(got, want)]
-            bitwise = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
-                          for g, w in zip(got, want) if g.numel())
+            ok = bitwise_cols(got, want)
             mabs = max(d[0] for d in diffs)
-            max_abs = max(max_abs, mabs)
+            worst = max(worst, mabs)
             log(f"kernel ctr_sparse_rows {embed_rule}/{embedx_rule} "
-                f"create_applies_grad={cag}: n={n} created={created} "
-                f"bitwise={bitwise} max_abs={mabs} max_ulp={max(d[1] for d in diffs)} "
+                f"create_applies_grad={cag}: n={n + 37} created={created} "
+                f"bitwise={ok} max_abs={mabs} max_ulp={max(d[1] for d in diffs)} "
                 f"(stated bound: bitwise, 0 ulp)")
-            if not bitwise:
+            if not ok:
                 raise AssertionError(f"kernel disagrees with plain for "
                                      f"{embed_rule}/{embedx_rule} cag={cag}")
 
+            uniq_dtype = (torch.int64, torch.int32)[(2 * i + cag) % 2]
+            state, uniq, ds, dc, g = at_inputs(rng, HOT_CAP, n + 37, DIM, embed_rule,
+                                               embedx_rule, dev, uniq_dtype)
+            got = tuple(c.clone() for c in state)
+            so.ctr_sparse_rows_at(got, uniq, ds, dc, g, capacity=HOT_CAP, **kw)
+            torch.cuda.synchronize()
+            want = so.ctr_sparse_rows_at_plain(tuple(c.clone() for c in state), uniq, ds, dc, g,
+                                               capacity=HOT_CAP, **kw)
+            ok = bitwise_cols(got, want)
+            mabs = max(max_abs(a, b) for a, b in zip(got, want))
+            worst = max(worst, mabs)
+            live = int(((uniq >= 0) & (uniq < HOT_CAP)).sum())
+            created = int(((want[6] > 0) & (state[6] == 0)).sum())
+            log(f"kernel ctr_sparse_rows_at {embed_rule}/{embedx_rule} "
+                f"create_applies_grad={cag}: n={n + 37} {uniq.dtype} entries ({live} live, "
+                f"{n + 37 - live} padding or negative) into {HOT_CAP} rows, created={created} "
+                f"bitwise={ok} max_abs={mabs} (stated bound: bitwise, plain on the card)")
+            if not ok:
+                raise AssertionError(f"in-place kernel disagrees with plain for "
+                                     f"{embed_rule}/{embedx_rule} cag={cag}")
+
     # times at the main path's configuration (adagrad/adagrad, dim 8)
-    cols, deltas = rows_inputs(np.random.default_rng(1), n, DIM, "adagrad", "adagrad", dev)
+    es, xs = so.rule_state_dim("adagrad", 1), so.rule_state_dim("adagrad", DIM)
     kw = dict(embed_rule="adagrad", embedx_rule="adagrad", **HYPER)
-    ms, call_ms = time_cuda(lambda: ctr_sparse_rows(cols, *deltas, **kw))
+    cols, deltas = rows_inputs(np.random.default_rng(1), n, DIM, "adagrad", "adagrad", dev)
+    ms, call_ms = time_cuda(lambda: so.ctr_sparse_rows(cols, *deltas, **kw))
+    # the kernel alone, as the call launches it: rows 0 .. n-1 of copies
+    seq = tuple(c.clone() for c in cols)
+    seq_args = (torch.arange(n, dtype=torch.int32, device=dev), deltas[0], deltas[1],
+                torch.cat(deltas[2:], 1))
+    kernel_ms, _ = time_cuda(lambda: so.ctr_sparse_rows_at(seq, *seq_args, capacity=n, **kw))
     plain_ms, plain_call_ms = time_cuda(lambda: plain(cols, deltas, "adagrad", "adagrad", True))
-    es, xs = rule_state_dim("adagrad", 1), rule_state_dim("adagrad", DIM)
     nbytes = kernel_bytes(n, DIM, es, xs)
     nops = kernel_ops(n, DIM, "adagrad", "adagrad")
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = nops / FP32_OPS_PER_S * 1e3
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            "call_ms": call_ms, "plain_call_ms": plain_call_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes, "ops": nops}
+    out_of_place = {"max_abs_err": worst, "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                    "call_ms": call_ms, "plain_call_ms": plain_call_ms, "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                    "bytes": nbytes, "ops": nops}
+
+    # the in-place form on one pass-path step's merged push (2^21-row cache)
+    rng = np.random.default_rng(2)
+    state, _ = rows_inputs(rng, CAPACITY, DIM, "adagrad", "adagrad", dev)
+    rows, grads, shows, clicks = pass_push(rng, dev)
+    uniq, ds, dc, g = hk.merge_sparse_grads(rows, grads, shows, clicks, CAPACITY)
+    u = int((uniq < CAPACITY).sum())
+    got = tuple(c.clone() for c in state)
+    so.ctr_sparse_rows_at(got, uniq, ds, dc, g, capacity=CAPACITY, **kw)
+    torch.cuda.synchronize()
+    want = so.ctr_sparse_rows_at_plain(tuple(c.clone() for c in state), uniq, ds, dc, g,
+                                       capacity=CAPACITY, **kw)
+    push_ok = bitwise_cols(got, want)
+    push_abs = max(max_abs(a, b) for a, b in zip(got, want))
+    worst = max(worst, push_abs)
+    del got, want
+    if not push_ok:
+        raise AssertionError(f"in-place kernel disagrees with plain on the pass-path push "
+                             f"(max_abs {push_abs})")
+    at = lambda: so.ctr_sparse_rows_at(state, uniq, ds, dc, g, capacity=CAPACITY, **kw)
+    at_ms, at_call_ms = time_cuda(at)
+    at_plain_ms, at_plain_call_ms = time_cuda(lambda: so.ctr_sparse_rows_at_plain(
+        state, uniq, ds, dc, g, capacity=CAPACITY, **kw))
+    host_at = host_issue_ms(at)
+    ub = uniq.element_size()
+    at_nbytes = at_bytes(n, u, DIM, es, xs, ub)
+    sector_bytes = at_sectors(n, u, DIM, es, xs, ub)
+    at_ops = kernel_ops(u, DIM, "adagrad", "adagrad")
+    at_bytes_ms = at_nbytes / HBM_BYTES_PER_S * 1e3
+    at_ops_ms = at_ops / FP32_OPS_PER_S * 1e3
+    sector_ms = sector_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"kernel ctr_sparse_rows_at adagrad/adagrad, pass-path push: n={n} entries, u={u} "
+        f"touched rows of {CAPACITY}, {uniq.dtype}: bitwise={push_ok} max_abs={push_abs}; "
+        f"device {at_ms} ms; plain {at_plain_ms} ms; bound {max(at_bytes_ms, at_ops_ms)} ms "
+        f"({at_nbytes} B, {at_ops} f32 ops), the layout's sector floor {sector_ms} ms "
+        f"({sector_bytes} B: 7 columns a row as 32-byte sectors, read and written); per call "
+        f"from an idle card {at_call_ms} ms, plain {at_plain_call_ms} ms; host issue per call "
+        f"with the card busy: {host_at} ms")
+    # the pass push launches the merge's kernels and B1, nothing else: no
+    # gather, copy or scatter between the merge and the end of the push
+    from paddle_tpu_torch.ps.embedding_cache import cache_push_sparse
+
+    pstate = dict(zip(COLUMNS, state))
+    pcfg = hot_cfg("adagrad", "adagrad", True)
+    kp = graph_kernels(lambda: cache_push_sparse(pstate, rows, grads, shows, clicks, pcfg))
+    km = graph_kernels(lambda: hk.merge_sparse_grads(rows, grads, shows, clicks, CAPACITY))
+    ka = graph_kernels(at)
+    log(f"pass push (cache_push_sparse), pass-path batch: (kernels, memsets, copies) per "
+        f"call {kp}; its merge alone {km}; ctr_sparse_rows_at alone {ka} (CUDA graph nodes)")
+    if kp != (km[0] + 1, km[1], km[2]) or ka != (1, 0, 0):
+        raise AssertionError(f"the pass push launches more than the merge and B1: {kp}")
+    in_place = {"max_abs_err": worst, "ms": at_ms, "plain_ms": at_plain_ms,
+                "bound_ms": max(at_bytes_ms, at_ops_ms),
+                "bound_by": "bytes" if at_bytes_ms >= at_ops_ms else "operations",
+                "sector_ms": sector_ms}
+    return in_place, out_of_place
 
 
 # -- phase 2b: the hot-tier kernels against their plain versions ------------
@@ -629,6 +781,34 @@ def device_kernels(fn):
     return len(kernels), len(memsets), sorted(short)
 
 
+def graph_kernels(fn):
+    """(kernel, memset, memcpy) nodes of one call of ``fn`` captured in a
+    CUDA graph, after a warm-up call: every launch the call issues,
+    counted by the driver (a profiler capture can lose device events).
+    Capture only records, so the call changes nothing."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    types = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        types.append(t.value)
+    del graph
+    # CUgraphNodeType: 0 kernel, 1 memcpy, 2 memset
+    return types.count(0), types.count(2), types.count(1)
+
+
 def phase_kernel_counts(dev):
     """Device kernels per call of B4, the merge and the radix sort (beside
     ``torch.sort``), on the hot path's batch and one shard's owner push:
@@ -859,10 +1039,10 @@ def profile_window(run, n_steps, out_dir, name):
             f"ms/step x{e.count / n_steps:g}/step {e.key[:80]}")
     # the port's own kernels, wherever they rank (the flash kernels are
     # "<fwd|bwd_dq|bwd_dkv>_mma_kernel<T, NT>"; hot_kernels.cu's probes,
-    # radix sort and segment walk)
+    # radix sort and segment walk; B1's "ctr_rows_at_kernel")
     for e in kernels:
         if any(m in e.key for m in ("_mma_kernel", "hot_probe", "radix_", "segment_walk",
-                                    "ctr_sparse_rows")):
+                                    "ctr_rows")):
             log(f"profile {name} port kernel: {e.self_device_time_total / 1e3 / n_steps:.4f} "
                 f"ms/step x{e.count / n_steps:g}/step {e.key[:80]}")
     ops = sorted((e for e in evs if e.device_type == DeviceType.CPU
@@ -1617,8 +1797,9 @@ def main(argv):
         f"hot_kernels {hot_s:.2f} s, flash_attention {flash_s:.2f} s (g++ and three nvcc "
         f"in parallel)")
 
-    k = phase_kernel(dev)
-    log(f"kernel ctr_sparse_rows adagrad/adagrad n={BATCH * SLOTS}: device {k['ms']} ms, "
+    b1, k = phase_kernel(dev)
+    log(f"kernel ctr_sparse_rows adagrad/adagrad n={BATCH * SLOTS}: device {k['ms']} ms "
+        f"(the kernel alone {k['kernel_ms']} ms, the rest copies of the rows), "
         f"plain {k['plain_ms']} ms, bound {k['bound_ms']} ms; per call from an idle "
         f"card (host issue included) {k['call_ms']} ms, plain {k['plain_call_ms']} ms "
         f"({k['bound_by']}: {k['bytes']} B, {k['ops']} f32 ops) on {card}")
@@ -1650,9 +1831,11 @@ def main(argv):
     # computes the fused CTR rule, the probe (with or without the gather),
     # or the merge+rule+scatter. The sort (B4's first part, the jnp.unique
     # in front of the Pallas call) has torch.sort as its library call.
+    # B1's numbers are its in-place form's on the pass push, the call the
+    # pass path makes (both forms count in ctr_sparse_rows.launches).
     kernels = [
         entry("ctr_sparse_rows", "paddle_tpu_torch/ops/csrc/ctr_sparse_rows.cu",
-              "paddle_tpu/ops/sparse_optimizer.py:203", pass_counts["ctr_sparse_rows"], k),
+              "paddle_tpu/ops/sparse_optimizer.py:203", pass_counts["ctr_sparse_rows"], b1),
         entry("hot_probe_gather", hot_src, "paddle_tpu/ops/hot_kernels.py:116",
               hot_counts["hot_probe_gather"], b2),
         entry("hot_probe", hot_src, "paddle_tpu/ops/hot_kernels.py:212",

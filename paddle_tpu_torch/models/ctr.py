@@ -7,7 +7,7 @@ the JAX package), probes the pass's on-device key map
 forward and backward (gradients for the dense parameters and for the
 pulled embeddings through ``torch.autograd.grad``), applies dense Adam,
 and pushes the CTR sparse update (``cache_push`` → the
-``ctr_sparse_rows`` CUDA kernel on the card).
+``ctr_sparse_rows_at`` CUDA kernel on the card).
 
 Steps are functional like the JAX package's: ``params`` is a dict of
 tensors keyed by ``named_parameters()`` names, optimizer state a dict

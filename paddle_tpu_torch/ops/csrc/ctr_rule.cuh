@@ -18,7 +18,8 @@
 //
 // In place: ctr_row_update reads every input of a column before it
 // writes that column, so the output pointers may alias the inputs (the
-// hot tier's scatter-apply updates its rows in place).
+// hot tier's scatter-apply and ctr_sparse_rows_at update their rows in
+// place).
 
 #pragma once
 
@@ -54,6 +55,11 @@ __device__ __forceinline__ float min_nan(float a, float b) {
 
 __device__ __forceinline__ float clip(float x, const Hyper& h) {
   return min_nan(max_nan(x, h.wmin), h.wmax);
+}
+
+// Optimizer-state floats a row of width d (sparse_sgd_rule slot dims).
+__host__ __device__ constexpr int state_dim(int rule, int d) {
+  return rule == kAdagrad ? 1 : rule == kStdAdagrad ? d : rule == kAdam ? 2 * d + 2 : 0;
 }
 
 // One rule step on one row: w/g of width d, state of the rule's width.
@@ -127,8 +133,10 @@ __device__ __forceinline__ void rule_update(int rule, int d_rt, const float* w,
 // merged deltas (ds, dc, ge[1], gx[dim]); outputs: the seven columns.
 // Zero-width state columns (naive rule) may be null. DIM >= 0 fixes the
 // embedx width at compile time (p.dim must equal it), so that a caller's
-// sum buffer gx stays in registers.
-template <int DIM = -1>
+// sum buffer gx stays in registers; XRULE >= 0 with it fixes the embedx
+// rule (p.embedx_rule and p.xs must agree), so that every loop over the
+// row unrolls and a caller's row arrays stay in registers too.
+template <int DIM = -1, int XRULE = -1>
 __device__ __forceinline__ void ctr_row_update(
     float show, float click, const float* ew, const float* estate,
     const float* xw, const float* xstate, float has, float ds, float dc,
@@ -137,6 +145,9 @@ __device__ __forceinline__ void ctr_row_update(
     const RowParams& p) {
   const Hyper& h = p.h;
   const int dim = DIM >= 0 ? DIM : p.dim;
+  constexpr bool kFixed = DIM >= 0 && XRULE >= 0;
+  const int xrule = kFixed ? XRULE : p.embedx_rule;
+  const int xs = kFixed ? state_dim(XRULE, DIM) : p.xs;
   const float show_new = __fadd_rn(show, ds);
   const float click_new = __fadd_rn(click, dc);
   const float scale = max_nan(ds, 1e-10f);
@@ -156,22 +167,50 @@ __device__ __forceinline__ void ctr_row_update(
   *o_has = create ? 1.0f : has;
 
   // a created row starts from the rule's init state (zeros; Adam's beta
-  // powers at beta1/beta2), written first so the rule reads it back
+  // powers at beta1/beta2). Compile-time widths: the state the rule reads
+  // is selected element by element into registers (a pointer chosen
+  // between two arrays would send both to local memory).
+  if constexpr (kFixed) {
+    constexpr int kXs = state_dim(XRULE, DIM);
+    float st[kXs > 0 ? kXs : 1];
+#pragma unroll
+    for (int i = 0; i < kXs; ++i) {
+      const float init = XRULE == kAdam && i == 2 * DIM     ? h.beta1
+                         : XRULE == kAdam && i == 2 * DIM + 1 ? h.beta2
+                                                              : 0.0f;
+      st[i] = create ? init : xstate[i];
+    }
+    if (apply) {
+      rule_update<DIM>(XRULE, DIM, xw, gx, scale, st, o_xw, o_xs, h);
+    } else {
+#pragma unroll
+      for (int i = 0; i < DIM; ++i) o_xw[i] = xw[i];
+#pragma unroll
+      for (int i = 0; i < kXs; ++i) o_xs[i] = st[i];
+    }
+    return;
+  }
+  // run-time widths: the init state is written first so the rule reads it
+  // back
   const float* x_in = xstate;
   if (create) {
-    for (int i = 0; i < p.xs; ++i) o_xs[i] = 0.0f;
-    if (p.embedx_rule == kAdam) {
+#pragma unroll
+    for (int i = 0; i < xs; ++i) o_xs[i] = 0.0f;
+    if (xrule == kAdam) {
       o_xs[2 * dim] = h.beta1;
       o_xs[2 * dim + 1] = h.beta2;
     }
     x_in = o_xs;
   }
   if (apply) {
-    rule_update<DIM>(p.embedx_rule, dim, xw, gx, scale, x_in, o_xw, o_xs, h);
+    rule_update<DIM>(xrule, dim, xw, gx, scale, x_in, o_xw, o_xs, h);
   } else {
+#pragma unroll
     for (int i = 0; i < dim; ++i) o_xw[i] = xw[i];
-    if (!create)
-      for (int i = 0; i < p.xs; ++i) o_xs[i] = x_in[i];
+    if (!create) {
+#pragma unroll
+      for (int i = 0; i < xs; ++i) o_xs[i] = x_in[i];
+    }
   }
 }
 

@@ -6,10 +6,12 @@ pulled by a gather and pushed by the merge_grad-shaped sparse update —
 dedup the batch's rows (``merge_sparse_grads``, from
 ``ops.hot_kernels``: on the card a stable sort and a merge kernel, so
 duplicates sum in occurrence order, bit-equal to the CPU and the JAX
-package and reproducible from run to run), gather the touched rows, run
-the per-row CTR rule (``ops.sparse_optimizer.ctr_sparse_rows``: the CUDA
-kernel on the card), scatter them back. ``end_pass`` flushes the rows to the host
-table.
+package and reproducible from run to run), then apply the per-row CTR
+rule to the touched rows in place
+(``ops.sparse_optimizer.ctr_sparse_rows_at``: on the card one kernel
+that reads and writes the rows by index; the JAX package gathers them,
+runs its kernel and scatters them back). ``end_pass`` flushes the rows to
+the host table.
 
 With ``mesh=`` (a ``core.mesh`` of K shards) the working set is
 row-sharded over the mesh axis for ``ps.sharded_cache``'s steps: shard k
@@ -24,8 +26,8 @@ Cache state is a dict of columns, the JAX package's layout:
 ``embedx_w [C,dim]``, ``embedx_state [C,xs]``, ``has_embedx [C]``
 (float32), where es/xs are the rules' state widths. Unlike the JAX
 package, which returns fresh arrays, the port updates these tensors IN
-PLACE (``index_copy_``) and returns the same dict: the working set is
-the largest allocation of a pass and is never copied per step.
+PLACE and returns the same dict: the working set is the largest
+allocation of a pass and is never copied per step.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from ..core.device import resolve_device
 from ..core.enforce import enforce, enforce_le
 from ..core.mesh import Mesh, mesh_axis_size
 from ..ops.hot_kernels import merge_sparse_grads
-from ..ops.sparse_optimizer import ctr_sparse_rows, fused_row_update
+from ..ops.sparse_optimizer import ctr_sparse_rows_at, fused_row_update
 from .device_hash import DeviceKeyMap
 from .native import FeasignIndex, dedup_u64
 from .sgd_rule import SGDRuleConfig
@@ -94,22 +96,6 @@ def cache_pull(state: Dict[str, torch.Tensor], rows: torch.Tensor) -> torch.Tens
                                                                 device=pulled.device))
 
 
-def _scatter_rows(col: torch.Tensor, uniq: torch.Tensor, vals: torch.Tensor,
-                  capacity: int) -> None:
-    """``col[uniq] = vals`` in place, dropping sentinel entries (uniq ≥ C)
-    without a host sync: each sentinel entry is redirected to write the
-    same value that entry 0 writes to row uniq[0] (or, when every entry
-    is a sentinel, row 0's own value back to row 0), so every duplicate
-    index carries one value and the result does not depend on order."""
-    valid = uniq < capacity
-    first_valid = valid[0]
-    tgt0 = torch.where(first_valid, uniq[0], torch.zeros_like(uniq[0]))
-    val0 = torch.where(first_valid, vals[0], col[0])
-    idx = torch.where(valid, uniq, tgt0)
-    mask = valid.reshape((-1,) + (1,) * (vals.dim() - 1))
-    col.index_copy_(0, idx, torch.where(mask, vals, val0))
-
-
 def cache_push_sparse(
     state: Dict[str, torch.Tensor],
     rows: torch.Tensor,     # [n] cache rows (may repeat; ≥ C = dropped)
@@ -118,25 +104,23 @@ def cache_push_sparse(
     clicks: torch.Tensor,   # [n]
     cfg: CacheConfig,
 ) -> Dict[str, torch.Tensor]:
-    """The merge_grad-shaped push: dedup the batch's rows, gather the
-    touched rows, apply the per-row CTR rule through ``ctr_sparse_rows``
-    and scatter the rows back in place. Returns ``state``."""
+    """The merge_grad-shaped push: dedup the batch's rows
+    (``merge_sparse_grads``), then apply the per-row CTR rule to each
+    touched row in place (``ctr_sparse_rows_at``, which reads and writes
+    the rows ``uniq`` itself and skips the merge's padding). On the card
+    that is the merge's kernels and one more launch; on the CPU the plain
+    gather, rule and scatter. Returns ``state``."""
     C = state["embed_w"].shape[0]
     sgd = cfg.sgd
     uniq, show_sum, click_sum, g = merge_sparse_grads(rows, grads, shows, clicks, C)
-    srows = torch.where(uniq < C, uniq, torch.zeros_like(uniq))  # safe gather index
-    gathered = tuple(state[k][srows] for k in _COLUMNS)
-    new_rows = ctr_sparse_rows(
-        gathered, show_sum, click_sum, g[:, :1].contiguous(), g[:, 1:].contiguous(),
+    ctr_sparse_rows_at(
+        tuple(state[k] for k in _COLUMNS), uniq, show_sum, click_sum, g, capacity=C,
         embed_rule=cfg.embed_rule, embedx_rule=cfg.embedx_rule,
         lr=sgd.learning_rate, initial_g2sum=sgd.initial_g2sum,
         weight_bounds=tuple(sgd.weight_bounds), beta1=sgd.beta1, beta2=sgd.beta2,
         eps=sgd.ada_epsilon, nonclk_coeff=cfg.nonclk_coeff,
         click_coeff=cfg.click_coeff, embedx_threshold=cfg.embedx_threshold,
         create_applies_grad=cfg.create_applies_grad)
-    for k, vals in zip(_COLUMNS, new_rows):
-        if state[k].numel():  # zero-width state (naive rule) has nothing to write
-            _scatter_rows(state[k], uniq, vals, C)
     return state
 
 

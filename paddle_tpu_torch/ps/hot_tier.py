@@ -14,7 +14,7 @@ WHOLE training run:
   (``ops.hot_kernels.hot_probe_gather``) and the merge+rule+scatter ONE
   more (``hot_scatter_apply``); ``kernels="unfused"`` runs the reference
   formulation (``dynamic_map_lookup`` + ``cache_pull`` + ``cache_push``,
-  which on the card runs the merge kernel and ``ctr_sparse_rows``). The
+  which on the card runs the merge kernel and ``ctr_sparse_rows_at``). The
   two are bit-identical and the launch counters show which one ran;
 - **miss path** — cold ids fill from the cold table through the full-row
   exporter (``export_full(create=True)`` — values AND optimizer state);

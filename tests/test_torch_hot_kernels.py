@@ -174,9 +174,9 @@ def test_merge_plain_matches_jax_merge(dtype):
 
 def test_scatter_apply_plain_equals_cache_push_sparse():
     """Inside the port: the fused push's plain version and the unfused
-    ``cache_push_sparse`` (merge → gather → ``ctr_sparse_rows`` →
-    scatter) give the same state, bitwise (valid rows only — the unfused
-    path never sees negative rows)."""
+    ``cache_push_sparse`` (merge → ``ctr_sparse_rows_at``: on the CPU
+    gather → rule → scatter) give the same state, bitwise (valid rows
+    only — the unfused path never sees negative rows)."""
     from paddle_tpu_torch.ps.embedding_cache import cache_push_sparse
 
     rng = np.random.default_rng(7)

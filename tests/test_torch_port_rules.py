@@ -21,7 +21,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "flash_bwd_probe.py", ROOT / "hot_scatter_probe.py"]
+    ROOT / "chip_smoke.py", ROOT / "ctr_rows_probe.py", ROOT / "flash_bwd_probe.py",
+    ROOT / "hot_scatter_probe.py"]
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 
