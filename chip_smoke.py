@@ -32,10 +32,12 @@ or when any phase fails. Phases:
    thresholds;
 3. pass path at full width: DeepFM (26 slots, 13 dense, dim 8, DNN
    400³) GPUPS pass training over a 16-shard host table and a 2^21-row
-   device cache, batch 4096, slab 8, 6 slabs (1 warm-up): losses finite
-   and falling, one ``ctr_sparse_rows`` launch (its in-place form) and one
-   merge launch per step, samples/s; then a predict batch through ``serving_pull`` and
-   the flush back to the host table;
+   device cache, batch 4096, slab 8, 6 slabs (1 warm-up), in f32 and then
+   with ``amp=True`` (bench.py's default: the tower's products in bf16),
+   each from fresh dense weights on the same slabs: losses finite and
+   falling, one ``ctr_sparse_rows`` launch (its in-place form) and one
+   merge launch per step, samples/s of both legs; then a predict batch
+   through ``serving_pull`` and the flush back to the host table;
 4. hot path at full width: the same DeepFM trained by
    ``CtrStreamTrainer(hot_tier=HotTierConfig(capacity=2^19))`` over a
    16-shard host table, two epochs of an ``InMemoryDataset`` of 65,536
@@ -72,7 +74,20 @@ or when any phase fails. Phases:
 8. ERNIE card vs CPU: a small ERNIE (2 layers, hidden 64, 4 heads, seq
    64, batch 2), causal and not, 3 steps from the same weights with the
    kernels on the card and their plain versions on the CPU;
-9. the ``kernels`` JSON line, then the card line, then the result line.
+9. ResNet-50 at full width (25.6 M parameters, 1000 classes):
+   ``Trainer(resnet50(), Momentum(0.1, 0.9, weight_decay=1e-4),
+   CrossEntropyLoss(), amp=...)`` on a numpy-seeded batch of 128 × 3 ×
+   224 × 224, amp False, "O1" and "O2", 2 warm-up and 10 timed steps
+   each: losses finite, every BatchNorm buffer moved, O2's bf16 params
+   equal to their f32 masters cast down; ms/step, images/s, peak memory
+   (and, at the end, device kernels per step);
+10. LeNet through ``hapi.Model`` on the synthetic MNIST (2048 train and
+   2048 test images), batch 64, 2 epochs, ``amp_configs`` O0 and O1: fit
+   time, loss falling, test accuracy at least 0.8 of what the data allows
+   (its classes share three patch positions: at most ~0.32);
+11. vision card vs CPU: a ResNet of one bottleneck a stage (64×64, batch
+   8) and LeNet, 3 ``Trainer`` steps in f32 and O1 from the same weights;
+12. the ``kernels`` JSON line, then the card line, then the result line.
 
 ``--profile DIR`` also runs two more pass-path slabs, two more warm
 batches of each hot path and two more ERNIE steps under torch.profiler (after the
@@ -934,12 +949,6 @@ def phase_main_path(dev, card, profile_dir=None):
         log(f"pass path: begin_pass {pool.size} keys -> {n_uniq} uniques in "
             f"{time.perf_counter() - t0:.2f} s (host)")
 
-        model = DeepFM(cfg, generator=torch.Generator().manual_seed(0))
-        opt = Adam(learning_rate=1e-3)
-        params = {k: v.detach().to(dev) for k, v in model.named_parameters()}
-        opt_state = opt.init(params)
-        step = make_ctr_train_step_slab(model, opt, cache.config, np.arange(SLOTS),
-                                        BATCH, DENSE, SLAB, device=dev)
         n_slabs, warm = N_SLABS, 1
         slabs = [torch.from_numpy(np.stack(make_random_packs(rng, pool, BATCH, DENSE, SLAB))).to(dev)
                  for _ in range(n_slabs)]
@@ -948,33 +957,50 @@ def phase_main_path(dev, card, profile_dir=None):
                    .reshape(BATCH, SLOTS) + (np.arange(SLOTS, dtype=np.uint64) << np.uint64(32)))
         sample = np.unique(touched.reshape(-1))[:512]
         before, _ = table.export_full(sample)
-        torch.cuda.synchronize()
-
-        reset_launches()
-        losses = []
         state, map_state = cache.state, cache.device_map.state
-        for i, packed in enumerate(slabs):
-            if i == warm:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-            params, opt_state, state, slab_losses = step(params, opt_state, state,
-                                                         map_state, packed)
-            losses.append(slab_losses)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = read_launches()
-        launches = counts["ctr_sparse_rows"]
-        steps = n_slabs * SLAB
-        losses = torch.stack(losses).cpu().numpy()
-        sps = BATCH * SLAB * (n_slabs - warm) / dt
-        log(f"pass path: {steps} steps, launches {counts}, "
-            f"slab mean losses={[round(float(x), 5) for x in losses.mean(axis=1)]}")
-        log(f"pass path: {sps:.1f} samples/s (batch {BATCH}, slab {SLAB}, "
-            f"{n_slabs - warm} timed slabs, {dt:.4f} s) on {card}")
-        assert np.isfinite(losses).all(), "non-finite loss"
-        assert losses[-1].mean() < losses[0].mean(), "loss did not fall"
-        assert launches == steps, f"kernel launches {launches} != steps {steps}"
-        assert counts["merge_sparse_grads"] == steps, f"merge launches {counts}"
+
+        def leg(amp):
+            """The f32 (bench.py's BENCH_AMP=0) or the amp leg (its default):
+            fresh dense weights, the same slabs, on the pass's cache."""
+            nonlocal state
+            model = DeepFM(cfg, generator=torch.Generator().manual_seed(0))
+            opt = Adam(learning_rate=1e-3)
+            params = {k: v.detach().to(dev) for k, v in model.named_parameters()}
+            opt_state = opt.init(params)
+            step = make_ctr_train_step_slab(model, opt, cache.config, np.arange(SLOTS),
+                                            BATCH, DENSE, SLAB, device=dev, amp=amp)
+            torch.cuda.synchronize()
+            reset_launches()
+            losses = []
+            for i, packed in enumerate(slabs):
+                if i == warm:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                params, opt_state, state, slab_losses = step(params, opt_state, state,
+                                                             map_state, packed)
+                losses.append(slab_losses)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = read_launches()
+            steps = n_slabs * SLAB
+            losses = torch.stack(losses).cpu().numpy()
+            sps = BATCH * SLAB * (n_slabs - warm) / dt
+            name = "amp (bf16 tower)" if amp else "f32"
+            log(f"pass path {name}: {steps} steps, launches {counts}, "
+                f"slab mean losses={[round(float(x), 5) for x in losses.mean(axis=1)]}")
+            log(f"pass path {name}: {sps:.1f} samples/s (batch {BATCH}, slab {SLAB}, "
+                f"{n_slabs - warm} timed slabs, {dt:.4f} s) on {card}")
+            assert np.isfinite(losses).all(), f"{name}: non-finite loss"
+            assert losses[-1].mean() < losses[0].mean(), f"{name}: loss did not fall"
+            assert counts["ctr_sparse_rows"] == steps, \
+                f"{name}: kernel launches {counts['ctr_sparse_rows']} != steps {steps}"
+            assert counts["merge_sparse_grads"] == steps, f"{name}: merge launches {counts}"
+            return model, step, params, opt_state, counts, sps
+
+        model, step, params, opt_state, counts, sps32 = leg(False)
+        _, amp_step, amp_params, amp_opt_state, _, sps_amp = leg(True)
+        log(f"pass path: amp {sps_amp:.1f} vs f32 {sps32:.1f} samples/s in one process "
+            f"({sps_amp / sps32:.3f}x) on {card}")
         if profile_dir is not None:
             def run():
                 nonlocal params, opt_state, state
@@ -982,6 +1008,13 @@ def phase_main_path(dev, card, profile_dir=None):
                     params, opt_state, state, _ = step(params, opt_state, state,
                                                        map_state, packed)
             profile_window(run, 2 * SLAB, profile_dir, "pass")
+
+            def run_amp():
+                nonlocal amp_params, amp_opt_state, state
+                for packed in slabs[1:3]:
+                    amp_params, amp_opt_state, state, _ = amp_step(
+                        amp_params, amp_opt_state, state, map_state, packed)
+            profile_window(run_amp, 2 * SLAB, profile_dir, "pass_amp")
 
         # predict: serving_pull + forward -> sigmoid, one batch
         pk = slabs[-1][0]
@@ -1772,6 +1805,266 @@ def phase_ernie_parity(dev):
             f"{worst} (stated bound 5e-2)")
 
 
+# -- phase 9: ResNet-50 at full width, f32, O1 and O2 ---------------------------
+
+RESNET_BATCH, RESNET_WARM, RESNET_STEPS = 128, 2, 10
+
+
+def phase_resnet(dev, card):
+    """``Trainer(resnet50(), Momentum(0.1, 0.9, weight_decay=1e-4),
+    CrossEntropyLoss(), amp=...)`` on one numpy-seeded batch of 128
+    [3, 224, 224] images, repeated, for amp False, "O1" and "O2": 2
+    warm-up and 10 timed steps each. Returns the trainers and the batch
+    for the kernel counts, which come last."""
+    from paddle_tpu_torch.executor import Trainer
+    from paddle_tpu_torch.models.resnet import resnet50
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+
+    rng = np.random.default_rng(90)
+    x = torch.from_numpy(rng.normal(size=(RESNET_BATCH, 3, 224, 224)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 1000, RESNET_BATCH)).to(dev)
+    weights = resnet50(generator=torch.Generator().manual_seed(9)).state_dict()
+    trainers, stats = {}, {}
+    for amp in (False, "O1", "O2"):
+        model = resnet50()
+        model.load_state_dict(weights)
+        tr = Trainer(model, Momentum(0.1, 0.9, weight_decay=1e-4), CrossEntropyLoss(),
+                     amp=amp, device=dev)
+        buf0 = {k: v.clone() for k, v in tr.state["buffers"].items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        for i in range(RESNET_WARM + RESNET_STEPS):
+            if i == RESNET_WARM:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            losses.append(tr.train_step(x, y))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        losses = torch.stack(losses).float().cpu().numpy()
+        name = "f32" if amp is False else amp
+        st = {"ms_per_step": 1e3 * dt / RESNET_STEPS,
+              "images_per_s": RESNET_BATCH * RESNET_STEPS / dt,
+              "peak_bytes": torch.cuda.max_memory_allocated()}
+        log(f"resnet50 {name}: losses {[round(float(v), 4) for v in losses]}")
+        log(f"resnet50 {name}: {st['images_per_s']:.1f} images/s, {st['ms_per_step']:.3f} "
+            f"ms/step (batch {RESNET_BATCH} x 3x224x224, {RESNET_STEPS} timed steps, "
+            f"{dt:.4f} s), peak memory {st['peak_bytes']} B on {card}")
+        assert np.isfinite(losses).all(), f"resnet50 {name}: non-finite loss"
+        moved = sum(not torch.equal(v, buf0[k]) for k, v in tr.state["buffers"].items())
+        assert moved == len(buf0), f"resnet50 {name}: {len(buf0) - moved} BN buffers unmoved"
+        if amp == "O2":
+            for k, p in tr.state["params"].items():
+                assert p.dtype == torch.bfloat16 and torch.equal(
+                    p, tr.opt_state["master"][k].to(torch.bfloat16)), \
+                    f"resnet50 O2: {k} is not its master cast to bf16"
+        trainers[name], stats[name] = tr, st
+    log(f"resnet50: images/s f32 {stats['f32']['images_per_s']:.1f}, O1 "
+        f"{stats['O1']['images_per_s']:.1f} ({stats['O1']['images_per_s'] / stats['f32']['images_per_s']:.2f}x), "
+        f"O2 {stats['O2']['images_per_s']:.1f} "
+        f"({stats['O2']['images_per_s'] / stats['f32']['images_per_s']:.2f}x) on {card}")
+    return trainers, (x, y)
+
+
+def phase_resnet_kernel_counts(trainers, batch, profile_dir=None):
+    """Device kernels one ResNet-50 Trainer step issues in each mode
+    (torch.profiler over one step, after the timed phases); with
+    ``--profile``, a breakdown of 2 steps of each mode."""
+    for name, tr in trainers.items():
+        k, m, _ = device_kernels(lambda: tr.train_step(*batch))
+        log(f"resnet50 {name}: {k} device kernels (+{m} memsets) per Trainer step")
+        if profile_dir is not None:
+            profile_window(lambda: [tr.train_step(*batch) for _ in range(2)], 2, profile_dir,
+                           f"resnet50_{name}")
+
+
+# -- phase 10: LeNet through hapi.Model on the synthetic MNIST -------------------
+
+def mnist_ceiling(labels):
+    """The best accuracy any model can reach on the synthetic MNIST: its
+    classes light a patch at (7k mod 21, 7k mod 21), so k, k+3, k+6 and
+    k+9 share a patch, and only the commonest label of each group can be
+    told. (JAX package's ``data/vision.py``, which the port keeps.)"""
+    groups = {}
+    for k in range(10):
+        groups.setdefault((7 * k) % 21, []).append(k)
+    return sum(max(int((labels == k).sum()) for k in ks) for ks in groups.values()) / len(labels)
+
+
+def phase_lenet(dev, card):
+    """``hapi.Model(LeNet()).prepare(Adam(1e-3), CrossEntropyLoss(),
+    [Accuracy()], amp_configs=...)`` on ``MNIST(mode="train")`` (2048
+    synthetic images), batch 64, 2 epochs, then ``evaluate`` on
+    ``mode="test"``, for O0 and O1."""
+    from paddle_tpu_torch.data.loader import DataLoader
+    from paddle_tpu_torch.data.vision import MNIST
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.metrics import Accuracy
+    from paddle_tpu_torch.models.lenet import LeNet
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Adam
+
+    train, test = MNIST(mode="train"), MNIST(mode="test")
+    ceiling = mnist_ceiling(test.labels)
+    for level in ("O0", "O1"):
+        m = Model(LeNet(generator=torch.Generator().manual_seed(0)), device=dev)
+        m.prepare(Adam(1e-3), CrossEntropyLoss(), [Accuracy()], amp_configs=level)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = m.fit(DataLoader(train, 64, shuffle=True, seed=0), epochs=2, verbose=0)
+        fit_s = time.perf_counter() - t0
+        ev = m.evaluate(DataLoader(test, 64))
+        log(f"lenet {level}: fit {len(train)} images x 2 epochs (batch 64) in {fit_s:.3f} s "
+            f"({2 * len(train) / fit_s:.1f} images/s, a host sync per batch), epoch losses "
+            f"{[round(v, 4) for v in hist['loss']]}, test accuracy {ev['accuracy']:.4f} "
+            f"(the data allows at most {ceiling:.4f}; chance 0.1), eval loss "
+            f"{ev['eval_loss']:.4f} on {card}")
+        assert np.isfinite(hist["loss"]).all() and hist["loss"][-1] < hist["loss"][0], \
+            f"lenet {level}: loss did not fall"
+        assert ev["accuracy"] >= 0.8 * ceiling, \
+            f"lenet {level}: accuracy {ev['accuracy']} below 0.8 of the data's {ceiling}"
+
+
+# -- phase 11: a small ResNet and LeNet on the card and on the CPU ---------------
+
+def small_vision_run(device, kind, weights, amp, batches):
+    """``Trainer`` steps, one a batch: after each step, (the losses so far,
+    params and buffers on the CPU)."""
+    from paddle_tpu_torch.executor import Trainer
+    from paddle_tpu_torch.models.lenet import LeNet
+    from paddle_tpu_torch.models.resnet import BottleneckBlock, ResNet
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+
+    model = LeNet() if kind == "lenet" else ResNet(BottleneckBlock, [1, 1, 1, 1], 10)
+    model.load_state_dict(weights)
+    tr = Trainer(model, Momentum(0.01, 0.9, weight_decay=1e-4), F.cross_entropy, amp=amp,
+                 device=device)
+    losses, snaps = [], []
+    for x, y in batches:
+        losses.append(float(tr.train_step(x.to(device), y.to(device))))
+        snaps.append((np.asarray(losses), {k: v.float().cpu() for k, v in
+                                           {**tr.state["params"], **tr.state["buffers"]}.items()}))
+    return snaps
+
+
+# (loss, update, running-stat) bounds by model, amp level and steps. The
+# update bound holds ||Δcard − Δcpu|| / ||Δcpu|| over all parameters
+# together (the worst tensor's is logged); the stat bound each running
+# stat's largest difference over its largest value. Readings on an H100
+# 80GB HBM3 (700 W) by `vision_parity_probe.py`, seeds 70-72 at batch 8
+# (70 is this phase's; the card's O1 runs repeat bit for bit), after 1 /
+# 3 steps. LeNet has no BatchNorm: f32 differs by summation order (1e-7
+# in the losses, up to 5.2e-6 in the updates). The small ResNet's
+# training gradient is ill-conditioned at its initialization (BatchNorm
+# on batch statistics: f32 and f64 gradients differ by 2.7e-4 in train
+# mode, 2.2e-7 in eval mode), so every rounding difference grows: f32
+# card vs CPU reads up to 1.1e-3 / 5.1e-2 in the updates, two CPU conv
+# algorithms (oneDNN on and off) up to 1.2e-3 / 4.6e-2; batch 32 does
+# not help. In O1 the card's bf16 conv rounds each output once more
+# (ROADMAP Queue C), a difference about as large as amp's own: card vs
+# CPU reads 0.30-0.32 / 0.44-0.45 in the ResNet's updates where O1 and
+# f32 on the CPU differ by 0.26 / 0.40-0.41, and LeNet 5.8e-3-2.3e-2
+# where O1 and f32 differ by 1.9e-2-2.5e-2. So the O1 bounds here catch
+# gross faults only; the amp linear and conv are held element by element
+# (within one bf16 step) by tests/test_torch_amp_cuda.py. The ResNet's
+# O1 loss after 3 steps reads 1.0e-2 and 1.07e-2 on seeds 71 and 72, at
+# and over its bound: the bounds are set on seed 70.
+VISION_PARITY = {
+    ("resnet", False, 1): (1e-6, 5e-3, 1e-5), ("resnet", False, 3): (2e-3, 2e-1, 5e-3),
+    ("resnet", "O1", 1): (1e-2, 0.75, 5e-2), ("resnet", "O1", 3): (1e-2, 0.75, 1e-1),
+    ("lenet", False, 1): (1e-6, 1e-4, 0.0), ("lenet", False, 3): (1e-6, 1e-4, 0.0),
+    ("lenet", "O1", 1): (1e-5, 5e-2, 0.0), ("lenet", "O1", 3): (1e-3, 5e-2, 0.0)}
+# ||g_card − g_cpu|| / ||g_cpu|| of the small ResNet's gradient with
+# BatchNorm in eval mode (one loss, no step), by amp level: well
+# conditioned, so f32 is held tightly (readings 3.6e-7-4.8e-7; two CPU
+# conv algorithms 2.5e-7-3.7e-7; TF32 rounds operands to 10 bits, 2^-11
+# relative); O1 reads 2.0e-2-3.7e-2, as large as O1 against f32 on the
+# CPU (2.5e-2-3.3e-2).
+VISION_EVAL_GRAD = {False: 5e-6, "O1": 0.1}
+
+
+def eval_mode_grad(device, weights, batch, amp):
+    """The small ResNet's loss gradient over all parameters, BatchNorm on
+    its running stats (eval mode), flattened on the CPU."""
+    from paddle_tpu_torch.amp import step_ctx
+    from paddle_tpu_torch.models.resnet import BottleneckBlock, ResNet
+    from paddle_tpu_torch.nn import functional as F
+
+    model = ResNet(BottleneckBlock, [1, 1, 1, 1], 10)
+    model.load_state_dict(weights)
+    model.to(device).eval()
+    x, y = batch
+    with step_ctx(amp == "O1"):
+        loss = F.cross_entropy(model(x.to(device)), y.to(device))
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return torch.cat([g.flatten().double().cpu() for g in grads])
+
+
+def parity_metrics(weights, gl, gs, cl, cs):
+    """(largest relative loss difference, ||Δcard − Δcpu|| / ||Δcpu|| over
+    all parameters, the same for the worst tensor, the largest running-
+    stat difference over that stat's largest value)."""
+    worst_tensor, worst_stat, num, den = 0.0, 0.0, 0.0, 0.0
+    for k, w0 in weights.items():
+        if k.endswith(("_mean", "_variance")):
+            worst_stat = max(worst_stat, float((gs[k] - cs[k]).abs().max() / cs[k].abs().max()))
+            continue
+        dg, dc = gs[k] - w0, cs[k] - w0
+        worst_tensor = max(worst_tensor, float((dg - dc).norm() / dc.norm()))
+        num, den = num + float((dg - dc).norm()) ** 2, den + float(dc.norm()) ** 2
+    return float(np.abs(gl / cl - 1).max()), (num / den) ** 0.5, worst_tensor, worst_stat
+
+
+def vision_parity_inputs(kind, batch, seed=70, weight_seed=7):
+    """(weights, 3 batches) from numpy and torch seeds: the ResNet of one
+    bottleneck a stage at 64x64, LeNet at 28x28."""
+    from paddle_tpu_torch.models.lenet import LeNet
+    from paddle_tpu_torch.models.resnet import BottleneckBlock, ResNet
+
+    shape = (batch, 3, 64, 64) if kind == "resnet" else (batch, 1, 28, 28)
+    rng = np.random.default_rng(seed)
+    batches = [(torch.from_numpy(rng.normal(size=shape).astype(np.float32)),
+                torch.from_numpy(rng.integers(0, 10, batch))) for _ in range(3)]
+    g = torch.Generator().manual_seed(weight_seed)
+    model = LeNet(generator=g) if kind == "lenet" else \
+        ResNet(BottleneckBlock, [1, 1, 1, 1], 10, generator=g)
+    return model.state_dict(), batches
+
+
+def phase_vision_parity(dev):
+    """The same 3 steps from the same weights on the card and on the CPU,
+    read after 1 step and after 3, in f32 and O1 (bounds:
+    ``VISION_PARITY``): the ResNet of one bottleneck a stage at 64x64 and
+    LeNet at 28x28, batch 8 each; and the ResNet's eval-mode gradient
+    (``VISION_EVAL_GRAD``)."""
+    for kind in ("resnet", "lenet"):
+        weights, batches = vision_parity_inputs(kind, 8)
+        for amp in (False, "O1"):
+            card = small_vision_run(dev, kind, weights, amp, batches)
+            cpu = small_vision_run(torch.device("cpu"), kind, weights, amp, batches)
+            for steps in (1, 3):
+                (gl, gs), (cl, cs) = card[steps - 1], cpu[steps - 1]
+                got = parity_metrics(weights, gl, gs, cl, cs)
+                bounds = VISION_PARITY[(kind, amp, steps)]
+                log(f"vision parity {kind} amp={amp} {steps} step(s): card vs CPU, losses "
+                    f"{gl.tolist()} vs {cl.tolist()}; loss {got[0]} (bound {bounds[0]}), "
+                    f"updates {got[1]} over all params (bound {bounds[1]}), {got[2]} in the "
+                    f"worst tensor, running stats {got[3]} (bound {bounds[2]})")
+                for what, v, b in zip(("losses", "updates", "running stats"),
+                                      (got[0], got[1], got[3]), bounds):
+                    assert v <= b, f"{kind} {amp} {steps} step(s): {what} differ by {v}"
+            if kind == "resnet":
+                gc = eval_mode_grad(dev, weights, batches[0], amp)
+                gh = eval_mode_grad(torch.device("cpu"), weights, batches[0], amp)
+                rel = float((gc - gh).norm() / gh.norm())
+                log(f"vision parity resnet amp={amp}: eval-mode gradient, card vs CPU, "
+                    f"{rel} of its norm (bound {VISION_EVAL_GRAD[amp]})")
+                assert rel <= VISION_EVAL_GRAD[amp], \
+                    f"resnet {amp}: eval-mode gradients differ by {rel}"
+
+
 def main(argv):
     profile_dir = None
     if argv[:1] == ["--profile"] and len(argv) == 2:
@@ -1787,7 +2080,7 @@ def main(argv):
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # full-f32 matmuls for parity
-    torch.backends.cudnn.allow_tf32 = False
+    # (cuDNN's TF32 is left as it is: the port's conv2d pins it off itself)
     name = torch.cuda.get_device_name(0)
     card = card_line()
     log(f"device: {name} | nvidia-smi: {card} | torch {torch.__version__} "
@@ -1816,7 +2109,12 @@ def main(argv):
     fa = phase_flash_kernels(dev)
     ernie_counts, _ = phase_ernie(dev, card, profile_dir)
     phase_ernie_parity(dev)
+    resnets, resnet_batch = phase_resnet(dev, card)
+    phase_lenet(dev, card)
+    phase_vision_parity(dev)
     phase_kernel_counts(dev)
+    phase_resnet_kernel_counts(resnets, resnet_batch, profile_dir)
+    del resnets, resnet_batch
 
     def entry(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -6,7 +6,8 @@ importing jax) and return the port's tensors, so both packages can
 compute the same step from the same start.
 
 Layouts: the JAX ``Linear`` weight is ``[in, out]`` (paddle convention),
-torch's ``[out, in]``, so DeepFM's 2-D parameters are transposed; ERNIE
+the port's ``[out, in]`` (torch's), so DeepFM's and the vision models' 2-D
+parameters are transposed, and conv weights (OIHW in both) are not; ERNIE
 keeps the JAX layout (``x @ w``), so its parameters and Adam slots carry
 over name for name with no transpose. Cache and tier
 state keep the JAX layout (see ``ps.embedding_cache``); the static map's
@@ -21,11 +22,13 @@ from typing import Callable, Dict, Mapping, Union
 import numpy as np
 import torch
 
+from .optimizer import Adam, MasterWeights
 from .ps.device_hash import dynamic_map_state_to_device, map_state_to_device
 
 __all__ = ["adam_state_from_jax", "cache_state_from_jax",
            "deepfm_params_from_jax", "dynamic_map_state_from_jax",
-           "ernie_params_from_jax", "map_state_from_jax"]
+           "ernie_params_from_jax", "map_state_from_jax", "opt_state_from_jax",
+           "vision_params_from_jax"]
 
 Device = Union[str, torch.device]
 
@@ -57,15 +60,45 @@ def adam_state_from_jax(opt_state: Mapping, device: Device = "cpu",
                         = deepfm_params_from_jax) -> dict:
     """JAX ``Adam.init``/``update`` state ({"step", "slots": {"m", "v"}},
     each slot a tree like the params) → the port's ``optimizer.Adam``
-    state ({"step", "m", "v"}). The slots convert like the model's
-    params: ``params_from_jax`` is that model's converter (DeepFM's by
-    default, which transposes; pass :func:`ernie_params_from_jax` for
-    ERNIE)."""
-    slots = opt_state["slots"]
-    return {"step": torch.tensor(int(np.asarray(opt_state["step"])),
-                                 dtype=torch.int64, device=device),
-            "m": params_from_jax(slots["m"], device),
-            "v": params_from_jax(slots["v"], device)}
+    state ({"step", "m", "v"}): :func:`opt_state_from_jax` with DeepFM's
+    converter by default (pass :func:`ernie_params_from_jax` for ERNIE)."""
+    return opt_state_from_jax(opt_state, Adam(), device, params_from_jax)
+
+
+def vision_params_from_jax(state: Mapping, device: Device = "cpu") -> Dict[str, torch.Tensor]:
+    """A JAX vision model's ``{"params": ..., "buffers": ...}`` state (or a
+    flat ``state_dict()``) → the port model's ``state_dict``, for
+    ``load_state_dict``: the same names (BatchNorm's ``_mean`` and
+    ``_variance`` included), f32, conv weights OIHW as they are and the
+    ``Linear`` weights (the only 2-D tensors of the vision models)
+    transposed to ``[out, in]``."""
+    flat = {**state["params"], **state.get("buffers", {})} if "params" in state else state
+    return deepfm_params_from_jax(flat, device)
+
+
+def opt_state_from_jax(opt_state: Mapping, optimizer, device: Device = "cpu",
+                       params_from_jax: Callable[..., Dict[str, torch.Tensor]]
+                       = vision_params_from_jax) -> dict:
+    """The JAX state ({"step", "slots"}) of the optimizer that the port's
+    ``optimizer`` mirrors (any of the port's optimizers, or
+    ``MasterWeights`` around one) → the port's state: ``"step"`` and the
+    slots under the port's names (the JAX slot names, or the optimizer's
+    ``jax_tree_slot`` where the JAX slots are one bare tree), each tree
+    converted like the model's params (``params_from_jax``)."""
+    def slots(s, opt):
+        if isinstance(opt, MasterWeights):
+            return {"master": params_from_jax(s["master"], device),
+                    "inner": slots(s["inner"], opt.inner)}
+        if s is None:
+            return {}
+        name = getattr(opt, "jax_tree_slot", None)
+        if name is not None:
+            return {name: params_from_jax(s, device)}
+        return {k: params_from_jax(v, device) for k, v in s.items()}
+
+    return {"step": torch.tensor(int(np.asarray(opt_state["step"])), dtype=torch.int64,
+                                 device=device),
+            **slots(opt_state["slots"], optimizer)}
 
 
 def cache_state_from_jax(state: Mapping[str, np.ndarray],

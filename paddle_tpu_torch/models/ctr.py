@@ -32,7 +32,9 @@ from torch.func import functional_call
 
 from ..core.device import resolve_device
 from ..core.enforce import InvalidArgumentError, enforce, enforce_eq
+from ..amp import step_ctx
 from ..nn import functional as F
+from ..nn.layers import Linear
 from ..ps.device_hash import device_hash_lookup
 from ..ps.embedding_cache import CacheConfig, cache_pull, cache_push
 
@@ -51,14 +53,6 @@ class CtrConfig:
     dnn_hidden: Tuple[int, ...] = (400, 400, 400)
 
 
-def _init_linear(lin: nn.Linear, generator: Optional[torch.Generator]) -> None:
-    """The JAX package's default: weight ~ U(±1/sqrt(fan_in)), bias 0."""
-    bound = 1.0 / np.sqrt(max(lin.in_features, 1))
-    with torch.no_grad():
-        lin.weight.uniform_(-bound, bound, generator=generator)
-        lin.bias.zero_()
-
-
 class _DNN(nn.Module):
     """ReLU MLP tower; ``out_dim=1`` squeezes to a logit."""
 
@@ -68,9 +62,7 @@ class _DNN(nn.Module):
         dims = (in_dim,) + tuple(hidden) + (out_dim,)
         self.out_dim = out_dim
         self.layers = nn.ModuleList(
-            [nn.Linear(dims[i], dims[i + 1]) for i in range(len(dims) - 1)])
-        for lin in self.layers:
-            _init_linear(lin, generator)
+            [Linear(dims[i], dims[i + 1], generator=generator) for i in range(len(dims) - 1)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i, lin in enumerate(self.layers):
@@ -86,13 +78,14 @@ class DeepFM(nn.Module):
     forward(emb, dense_x): ``emb`` is the pulled [B, S, 1+dim] block
     (embed_w ++ embedx_w per slot); the embedding table itself lives in
     the PS cache. Weights are drawn from ``generator`` (default: torch's
-    global generator); parameter names match the JAX package's."""
+    global generator); parameter names match the JAX package's. The tower
+    and ``dense_lin`` are the port's ``Linear`` (weights ``[out, in]``),
+    so they consult ``amp``."""
 
     def __init__(self, cfg: CtrConfig, generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
         self.cfg = cfg
-        self.dense_lin = nn.Linear(cfg.num_dense, 1)
-        _init_linear(self.dense_lin, generator)
+        self.dense_lin = Linear(cfg.num_dense, 1, generator=generator)
         self.dnn = _DNN(cfg.num_sparse_slots * cfg.embedx_dim + cfg.num_dense,
                         cfg.dnn_hidden, generator=generator)
 
@@ -269,14 +262,17 @@ def _slot_hi(slot_ids, B: int, dev: torch.device) -> torch.Tensor:
 def make_ctr_train_step_packed(model: nn.Module, optimizer, cache_cfg: CacheConfig,
                                slot_ids, batch_size: int, num_dense: int,
                                with_weights: bool = False,
-                               device: Device = None) -> Callable:
+                               device: Device = None, amp: bool = False) -> Callable:
     """The key-fed GPUPS step over a SINGLE packed wire buffer
     (``pack_ctr_batch``); keys are slot-tagged (hi half = column slot).
 
     step(params, opt_state, cache_state, map_state, packed_u8)
       → (params, opt_state, cache_state, loss)
 
-    ``device`` defaults to ``"cuda"`` (raises without a GPU)."""
+    ``device`` defaults to ``"cuda"`` (raises without a GPU). ``amp``: the
+    step runs under ``amp.step_ctx``, so the dense tower's products are
+    bf16 with f32 accumulation and the push receives the bf16-rounded
+    embedding gradient of the tower's first layer."""
     dev = resolve_device(device)
     S = len(slot_ids)
     B, D = int(batch_size), int(num_dense)
@@ -289,8 +285,9 @@ def make_ctr_train_step_packed(model: nn.Module, optimizer, cache_cfg: CacheConf
         lo, dense_x, labels, weights = _unpack_ctr(
             packed, B, S, D, o_dense, o_label, o_weight, with_weights)
         rows = _lookup_rows(cache_state, map_state, hi, lo)
-        return _ctr_step_body(model, optimizer, cache_cfg, params, opt_state,
-                              cache_state, rows, B, S, dense_x, labels, weights)
+        with step_ctx(amp):
+            return _ctr_step_body(model, optimizer, cache_cfg, params, opt_state,
+                                  cache_state, rows, B, S, dense_x, labels, weights)
 
     return step
 
@@ -298,17 +295,17 @@ def make_ctr_train_step_packed(model: nn.Module, optimizer, cache_cfg: CacheConf
 def make_ctr_train_step_slab(model: nn.Module, optimizer, cache_cfg: CacheConfig,
                              slot_ids, batch_size: int, num_dense: int, slab: int,
                              with_weights: bool = False,
-                             device: Device = None) -> Callable:
+                             device: Device = None, amp: bool = False) -> Callable:
     """``slab`` packed steps per call over a device-resident
     [slab, total] stack of packed buffers — the same per-step math as
-    the packed step, run as a Python loop.
+    the packed step (``amp`` included), run as a Python loop.
 
     step(params, opt_state, cache_state, map_state, packed_slab[slab, ·])
       → (params, opt_state, cache_state, losses [slab])"""
     slab = int(slab)
     enforce(slab >= 1, "slab >= 1")
     one = make_ctr_train_step_packed(model, optimizer, cache_cfg, slot_ids,
-                                     batch_size, num_dense, with_weights, device)
+                                     batch_size, num_dense, with_weights, device, amp)
     total = _packed_layout(int(batch_size), len(slot_ids), int(num_dense),
                            with_weights)[3]
 

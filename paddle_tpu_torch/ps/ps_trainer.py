@@ -41,6 +41,7 @@ from typing import Any, Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..amp import step_ctx
 from ..core.device import resolve_device
 from ..core.enforce import UnavailableError, enforce
 from ..data.prefetcher import DevicePrefetcher, host_tensors, to_device
@@ -87,7 +88,13 @@ class CtrStreamTrainer:
     ``model`` is a port model (``models.ctr.DeepFM``); ``params`` is the
     dict of its parameters on ``device`` and ``opt_state`` the
     ``optimizer``'s state. ``device`` defaults to ``"cuda"`` and raises
-    without a GPU unless the caller passes ``device="cpu"``."""
+    without a GPU unless the caller passes ``device="cpu"``.
+
+    ``amp=True`` runs every step under ``amp.step_ctx``: the dense tower's
+    products in bf16 with f32 accumulation, as ``CtrPassTrainer(amp=True)``
+    runs its steps. The JAX package's stream trainer has no ``amp``
+    argument; its steps compute the same when first called inside
+    ``amp.auto_cast``."""
 
     def __init__(
         self,
@@ -102,6 +109,7 @@ class CtrStreamTrainer:
         hot_tier=None,       # HotEmbeddingTier | HotTierConfig | None
         placement=None,
         device: Optional[Union[str, torch.device]] = None,
+        amp: bool = False,
     ) -> None:
         enforce(communicator is None,
                 "CtrStreamTrainer: the communicator, PS client and RPC transport "
@@ -117,6 +125,7 @@ class CtrStreamTrainer:
         self.sparse_slots = list(sparse_slots)
         self.dense_slots = list(dense_slots)
         self.label_slot = label_slot
+        self.amp = bool(amp)
         self._dim = int(embedx_dim) if embedx_dim is not None else \
             table.accessor.config.embedx_dim
         self._pull_width = 1 + self._dim
@@ -187,9 +196,10 @@ class CtrStreamTrainer:
                                                 create=True)
                 emb = pulled[:, -self._pull_width:].reshape(keys.shape[0], S,
                                                             self._pull_width)
-                self.params, self.opt_state, loss, emb_grad = self._step(
-                    self.params, self.opt_state, torch.from_numpy(emb).to(dev),
-                    torch.from_numpy(dense).to(dev), torch.from_numpy(labels).to(dev))
+                with step_ctx(self.amp):
+                    self.params, self.opt_state, loss, emb_grad = self._step(
+                        self.params, self.opt_state, torch.from_numpy(emb).to(dev),
+                        torch.from_numpy(dense).to(dev), torch.from_numpy(labels).to(dev))
                 g = emb_grad.reshape(-1, self._pull_width).cpu().numpy()
                 push = np.empty((len(flat), 4 + self._dim), np.float32)
                 push[:, 0] = slot_ids[:len(flat)]
@@ -240,8 +250,9 @@ class CtrStreamTrainer:
                 lo32, dense, labels = to_device((lo32_h, dense_h, labels_h), dev)
                 tier.ensure(flat)
                 map_state = tier.device_map.device_state()
-                out = self._hot_step(self.params, self.opt_state, tier.state, map_state,
-                                     lo32, dense, labels)
+                with step_ctx(self.amp):
+                    out = self._hot_step(self.params, self.opt_state, tier.state, map_state,
+                                         lo32, dense, labels)
                 self.params, self.opt_state, tier.state, loss = out[:4]
                 if len(out) == 5:
                     overflow = out[4] if overflow is None else overflow + out[4]

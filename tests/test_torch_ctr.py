@@ -269,3 +269,60 @@ def test_trained_pass_flushes_like_jax():
     got, found = p.ttable.export_full(keys)
     assert found.all()
     np.testing.assert_allclose(got, want, **STATE_TOL)
+
+
+def _amp_gap(tp, jp, tst, jst):
+    """Largest |port - JAX| over the dense params and the cache columns,
+    each relative to that tensor's largest |JAX value|."""
+    worst = {}
+    for k, v in jp["params"].items():
+        v = np.asarray(v)
+        v = v.T if v.ndim == 2 else v
+        worst[k] = float(np.abs(tp[k].numpy() - v).max() / max(np.abs(v).max(), 1e-30))
+    for k, v in jst.items():
+        v = np.asarray(v)
+        worst[k] = float(np.abs(tst[k].numpy() - v).max() / max(np.abs(v).max(), 1e-30))
+    return worst
+
+
+@pytest.mark.parametrize("slab", [1, 3])
+def test_amp_packed_and_slab_steps_match_jax_amp(slab):
+    """``amp=True`` (bench.py's default) against the JAX step with
+    ``amp=True``, 3 steps: losses rtol 1e-4; each dense param and each of
+    the cache's seven columns after the push within 1e-2 of that
+    tensor's largest value (measured 4e-3: the port rounds the tower's
+    cotangent to bf16, so the embedding gradient that the push receives
+    differs by that rounding, ROADMAP Queue C); show, click and
+    has_embedx exact. The port's f32 step gives other params (amp took
+    effect)."""
+    p = Pair()
+    kw = dict(slot_ids=np.arange(S), batch_size=B, num_dense=D)
+    if slab == 1:
+        jstep = jctr.make_ctr_train_step_packed(p.jmodel, p.jopt, p.jccfg, donate=False,
+                                                amp=True, **kw)
+        tstep = tctr.make_ctr_train_step_packed(p.tmodel, p.topt, p.tccfg, device="cpu",
+                                                amp=True, **kw)
+    else:
+        jstep = jctr.make_ctr_train_step_slab(p.jmodel, p.jopt, p.jccfg, slab=slab,
+                                              donate=False, amp=True, **kw)
+        tstep = tctr.make_ctr_train_step_slab(p.tmodel, p.topt, p.tccfg, slab=slab,
+                                              device="cpu", amp=True, **kw)
+    packs = p.packs(3, seed=12)
+    feeds = [np.stack(packs)] if slab > 1 else packs
+    jp, js, jst = p.jparams, p.jopt_state, p.jcache.state
+    tp, ts, tst = p.tparams, p.topt_state, p.tcache.state
+    for pk in feeds:
+        jp, js, jst, jl = jstep(jp, js, jst, p.jcache.device_map.state, jnp.asarray(pk))
+        tp, ts, tst, tl = tstep(tp, ts, tst, p.tcache.device_map.state, torch.from_numpy(pk))
+    np.testing.assert_allclose(np.asarray(tl), np.asarray(jl), rtol=1e-4)
+    gap = _amp_gap(tp, jp, tst, jst)
+    assert max(gap.values()) <= 1e-2, gap
+    assert gap["show"] == gap["click"] == gap["has_embedx"] == 0.0
+    one = {}
+    for amp in (False, True):
+        q = Pair()
+        step = tctr.make_ctr_train_step_packed(q.tmodel, q.topt, q.tccfg, device="cpu",
+                                               amp=amp, **kw)
+        one[amp] = step(q.tparams, q.topt_state, q.tcache.state, q.tcache.device_map.state,
+                        torch.from_numpy(packs[0]))[0]
+    assert not torch.equal(one[False]["dnn.layers.0.weight"], one[True]["dnn.layers.0.weight"])

@@ -239,8 +239,9 @@ def test_out_of_slice_options_raise():
     with pytest.raises(InvalidArgumentError, match="not ported"):
         ernie.partition_spec("head.w", None, None)
     model = ernie.Ernie(ernie.ErnieConfig(**SMALL))
+    # amp is ported: True/"O1"/"O2" are accepted, an unknown level raises
     with pytest.raises(InvalidArgumentError, match="amp"):
-        Trainer(model, Adam(), lambda o, y: o.sum(), amp=True, device="cpu")
+        Trainer(model, Adam(), lambda o, y: o.sum(), amp="O3", device="cpu")
     tr = Trainer(model, Adam(), lambda o, y: o.sum(), device="cpu")
     with pytest.raises(InvalidArgumentError, match="data_feed"):
         tr.train_from_dataset(None)

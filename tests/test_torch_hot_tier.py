@@ -287,3 +287,59 @@ def test_mesh_and_communicator_raise():
     with pytest.raises(UnavailableError, match="A8"):
         CtrStreamTrainer(model, Adam(), _table(), communicator=object(), device="cpu",
                          **_NAMES)
+
+
+@pytest.mark.parametrize("hot", [False, True], ids=["local_table", "hot_tier"])
+def test_amp_trainer_matches_jax_under_auto_cast(hot):
+    """``CtrStreamTrainer(amp=True)`` against the JAX stream trainer whose
+    jitted steps are first called inside ``amp.auto_cast()`` (the JAX
+    trainer takes no ``amp``; its steps follow a call-site context), two
+    epochs from the same weights. Tolerances: losses rtol 1e-3; dense
+    params and the table's rows within 1e-2 of each tensor's (column's)
+    largest value: the port rounds the tower's cotangent to bf16
+    (ROADMAP Queue C)."""
+    from paddle_tpu import amp as jamp
+
+    lines = _lines(seed=4)
+    jtable = JaxTable(JaxTableConfig(shard_num=4, backend="python"))
+    pt.seed(0)
+    j = JaxTrainer(JaxDeepFM(JaxCtrConfig(num_sparse_slots=S, num_dense=D, embedx_dim=DIM,
+                                          dnn_hidden=(8,))),
+                   jax_optimizer.Adam(1e-2), jtable, embedx_dim=DIM,
+                   hot_tier=JaxHotTierConfig(capacity=256) if hot else None, **_NAMES)
+    ttable = _table()
+    model = DeepFM(CtrConfig(S, D, DIM, (8,)))
+    t = CtrStreamTrainer(model, Adam(1e-2), ttable, embedx_dim=DIM,
+                         hot_tier=HotTierConfig(capacity=256) if hot else None,
+                         device="cpu", amp=True, **_NAMES)
+    t.params = deepfm_params_from_jax(jax.tree_util.tree_map(np.asarray, j.params))
+    t.opt_state = adam_state_from_jax(jax.tree_util.tree_map(np.asarray, j.opt_state))
+    t0 = {k: v.clone() for k, v in t.params.items()}
+    jds = _dataset(JaxDataset, JaxSlotDesc, lines)
+    tds = _dataset(InMemoryDataset, SlotDesc, lines)
+    for _ in range(2):
+        with jamp.auto_cast():
+            jr = j.train_from_dataset(jds, batch_size=BATCH)
+        tr = t.train_from_dataset(tds, batch_size=BATCH)
+        np.testing.assert_allclose(tr["loss"], jr["loss"], rtol=1e-3)
+    if hot:
+        j.hot_tier.flush()
+        t.hot_tier.flush()
+    want = deepfm_params_from_jax(jax.tree_util.tree_map(np.asarray, j.params))
+    for k, w in want.items():
+        assert float((t.params[k] - w).abs().max()) <= 1e-2 * float(w.abs().max()), k
+    jk, jv = jtable.snapshot_items()
+    jv = jv[np.argsort(jk)]
+    tk, tv = _rows(ttable)
+    np.testing.assert_array_equal(tk, np.sort(jk))
+    scale = np.maximum(np.abs(jv).max(axis=0), 1e-30)
+    assert (np.abs(tv - jv).max(axis=0) <= 1e-2 * scale).all()
+    # amp took effect: from the same start, one epoch in f32 ends elsewhere
+    ends = {}
+    for amp in (False, True):
+        r = CtrStreamTrainer(DeepFM(CtrConfig(S, D, DIM, (8,))), Adam(1e-2), _table(),
+                             embedx_dim=DIM, device="cpu", amp=amp, **_NAMES)
+        r.params = {k: v.clone() for k, v in t0.items()}
+        r.train_from_dataset(tds, batch_size=BATCH)
+        ends[amp] = r.params["dnn.layers.0.weight"]
+    assert not torch.equal(ends[False], ends[True])

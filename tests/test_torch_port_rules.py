@@ -22,7 +22,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "ctr_rows_probe.py", ROOT / "flash_bwd_probe.py",
-    ROOT / "hot_scatter_probe.py"]
+    ROOT / "hot_scatter_probe.py", ROOT / "vision_parity_probe.py"]
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 
@@ -236,3 +236,32 @@ def test_kernel_launches_and_counts_on_cuda():
     assert tso.ctr_sparse_rows.launches == before + 1
     for w, o in zip(want, got):
         torch.testing.assert_close(o.cpu(), w, rtol=0, atol=0)
+
+
+def test_vision_entry_points_without_device_raise_without_gpu():
+    _no_gpu()
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.core.enforce import UnavailableError
+    from paddle_tpu_torch.executor import Trainer
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.models.lenet import LeNet
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+
+    with pytest.raises(UnavailableError, match="device='cpu'"):
+        Model(LeNet())
+    with pytest.raises(UnavailableError):
+        Trainer(LeNet(), Momentum(0.1), F.cross_entropy, amp="O2")
+    with pytest.raises(UnavailableError, match="device='cpu'"):
+        GradScaler().init()
+    assert GradScaler().init("cpu").loss_scale.device.type == "cpu"
+    Model(LeNet(), device="cpu").prepare(Momentum(0.1), F.cross_entropy, amp_configs="O1")
+
+
+def test_amp_is_not_torch_autocast():
+    """The port's amp casts only linear and conv2d, as the JAX package's
+    does; PyTorch's autocast (every matmul, softmax, reductions) is used
+    nowhere in the port."""
+    for path in PORT_FILES:
+        src = path.read_text()
+        assert "torch.autocast" not in src and "torch.cuda.amp" not in src, path
