@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA device, ``g++`` and ``nvcc``; builds the host library and
-the three CUDA kernel libraries from the checkout at first use, in
-parallel (into ``paddle_tpu_torch/_build/``). Exits non-zero, with no
+Needs one CUDA device, ``g++`` (and zlib) and ``nvcc``; builds the host
+library, the SSD tier's library and the three CUDA kernel libraries from
+the checkout at first use, in parallel (into
+``paddle_tpu_torch/_build/``). Exits non-zero, with no
 result line, when there is no CUDA device, when the package is missing,
 or when any phase fails. Phases:
 
@@ -86,8 +87,21 @@ or when any phase fails. Phases:
    time, loss falling, test accuracy at least 0.8 of what the data allows
    (its classes share three patch positions: at most ~0.32);
 11. vision card vs CPU: a ResNet of one bottleneck a stage (64×64, batch
-   8) and LeNet, 3 ``Trainer`` steps in f32 and O1 from the same weights;
-12. the ``kernels`` JSON line, then the card line, then the result line.
+   8) and LeNet, 3 ``Trainer`` steps in f32 and O1 from the same weights
+   (in O1 the CPU side rounds each conv output to bf16 as cuDNN does on
+   the card: ``amp.card_conv_rounding``);
+12. Wide&Deep daily at full width (BASELINE.md config 4, as
+   ``tools/widedeep_daily.py`` runs it): ``WideDeep`` (8 slots, 4 dense,
+   dim 8, DNN 128²) trained by ``CtrPassTrainer`` over a 16-shard
+   ``SsdSparseTable`` holding 5,000,000 cold rows, three days of 50,000
+   records, batch 512, the next day's pass built in the background; one
+   ``ctr_sparse_rows`` launch and one merge a step, B1 bitwise against its
+   plain version on one real push of the path, losses falling, each
+   day's final-model AUC against the bar 0.80, base save, shrink and
+   spill (hot + cold = size); then card vs CPU at a small size and a
+   trainer save/load round trip on the card (a Wide&Deep step's device
+   kernels are counted at the end, with the other profiler windows);
+13. the ``kernels`` JSON line, then the card line, then the result line.
 
 ``--profile DIR`` also runs two more pass-path slabs, two more warm
 batches of each hot path and two more ERNIE steps under torch.profiler (after the
@@ -98,6 +112,7 @@ traces go to DIR.
 import concurrent.futures
 import ctypes
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -135,19 +150,20 @@ def card_line():
 
 
 def build_all():
-    """Build the host library and the three kernel libraries, in parallel
-    (one compiler process each); seconds each."""
+    """Build the host library, the SSD tier's library (g++ with zlib) and
+    the three kernel libraries, in parallel (one compiler process each);
+    seconds each."""
     from paddle_tpu_torch.ops.flash_attention import load_flash_kernels
     from paddle_tpu_torch.ops.hot_kernels import load_hot_kernels
     from paddle_tpu_torch.ops.sparse_optimizer import load_kernel
-    from paddle_tpu_torch.ps.native import load_native
+    from paddle_tpu_torch.ps.native import load_native, load_ssd
 
     def timed(fn):
         t0 = time.perf_counter()
         fn()
         return time.perf_counter() - t0
 
-    loaders = (load_native, load_kernel, load_hot_kernels, load_flash_kernels)
+    loaders = (load_native, load_ssd, load_kernel, load_hot_kernels, load_flash_kernels)
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as ex:
         futs = [ex.submit(timed, f) for f in loaders]
         return [f.result() for f in futs]
@@ -1952,37 +1968,41 @@ def small_vision_run(device, kind, weights, amp, batches):
 # (loss, update, running-stat) bounds by model, amp level and steps. The
 # update bound holds ||Δcard − Δcpu|| / ||Δcpu|| over all parameters
 # together (the worst tensor's is logged); the stat bound each running
-# stat's largest difference over its largest value. Readings on an H100
-# 80GB HBM3 (700 W) by `vision_parity_probe.py`, seeds 70-72 at batch 8
-# (70 is this phase's; the card's O1 runs repeat bit for bit), after 1 /
-# 3 steps. LeNet has no BatchNorm: f32 differs by summation order (1e-7
-# in the losses, up to 5.2e-6 in the updates). The small ResNet's
-# training gradient is ill-conditioned at its initialization (BatchNorm
-# on batch statistics: f32 and f64 gradients differ by 2.7e-4 in train
-# mode, 2.2e-7 in eval mode), so every rounding difference grows: f32
-# card vs CPU reads up to 1.1e-3 / 5.1e-2 in the updates, two CPU conv
-# algorithms (oneDNN on and off) up to 1.2e-3 / 4.6e-2; batch 32 does
-# not help. In O1 the card's bf16 conv rounds each output once more
-# (ROADMAP Queue C), a difference about as large as amp's own: card vs
-# CPU reads 0.30-0.32 / 0.44-0.45 in the ResNet's updates where O1 and
-# f32 on the CPU differ by 0.26 / 0.40-0.41, and LeNet 5.8e-3-2.3e-2
-# where O1 and f32 differ by 1.9e-2-2.5e-2. So the O1 bounds here catch
-# gross faults only; the amp linear and conv are held element by element
-# (within one bf16 step) by tests/test_torch_amp_cuda.py. The ResNet's
-# O1 loss after 3 steps reads 1.0e-2 and 1.07e-2 on seeds 71 and 72, at
-# and over its bound: the bounds are set on seed 70.
+# stat's largest difference over its largest value. In O1 the CPU side
+# rounds each conv output to bf16 as cuDNN does on the card
+# (``cpu_oracle``). Readings on an H100 80GB HBM3 (700 W) by
+# `vision_parity_probe.py`, seeds 70-72 at batch 8 (70 is this phase's;
+# the card's runs repeat bit for bit), after 1 / 3 steps. LeNet has no
+# BatchNorm: f32 differs by summation order (1e-7 in the losses, up to
+# 5.2e-6 in the updates); O1 against the oracle reads 1.0e-7 in the
+# losses and 1.0e-5-1.2e-4 / 1.0e-5-8.3e-5 in the updates, where O1 and
+# f32 differ by 1.9e-2-2.5e-2 (and card vs the plain CPU by 5.8e-3-
+# 2.3e-2): the bounds see an amp conv fault. The small ResNet's training
+# gradient is ill-conditioned at its initialization (BatchNorm on batch
+# statistics: f32 and f64 gradients differ by 2.7e-4 in train mode,
+# 2.2e-7 in eval mode), so every rounding difference grows: f32 card vs
+# CPU reads up to 1.1e-3 / 5.1e-2 in the updates, two CPU conv algorithms
+# (oneDNN on and off) up to 1.2e-3 / 4.6e-2; batch 32 does not help. In
+# O1 card vs oracle reads losses 4.4e-4-5.6e-4 / 1.8e-3-8.3e-3, updates
+# 0.159-0.193 / 0.336-0.357 and running stats 2.5e-3-4.2e-3 / 2.2e-2-
+# 2.9e-2, where O1 and f32 on the CPU differ by 0.263 / 0.40-0.41 in the
+# updates and 6.5e-3-6.9e-3 / 2.7e-2 in the stats: after one step the
+# bounds lie between the two, after three they catch gross faults only,
+# and the eval-mode gradient below holds the ResNet's amp convs. Bounds
+# are about 1.3-2x the largest reading of the three seeds.
 VISION_PARITY = {
     ("resnet", False, 1): (1e-6, 5e-3, 1e-5), ("resnet", False, 3): (2e-3, 2e-1, 5e-3),
-    ("resnet", "O1", 1): (1e-2, 0.75, 5e-2), ("resnet", "O1", 3): (1e-2, 0.75, 1e-1),
+    ("resnet", "O1", 1): (1e-3, 0.25, 6e-3), ("resnet", "O1", 3): (1e-2, 0.45, 5e-2),
     ("lenet", False, 1): (1e-6, 1e-4, 0.0), ("lenet", False, 3): (1e-6, 1e-4, 0.0),
-    ("lenet", "O1", 1): (1e-5, 5e-2, 0.0), ("lenet", "O1", 3): (1e-3, 5e-2, 0.0)}
+    ("lenet", "O1", 1): (1e-6, 5e-4, 0.0), ("lenet", "O1", 3): (1e-6, 5e-4, 0.0)}
 # ||g_card − g_cpu|| / ||g_cpu|| of the small ResNet's gradient with
 # BatchNorm in eval mode (one loss, no step), by amp level: well
 # conditioned, so f32 is held tightly (readings 3.6e-7-4.8e-7; two CPU
 # conv algorithms 2.5e-7-3.7e-7; TF32 rounds operands to 10 bits, 2^-11
-# relative); O1 reads 2.0e-2-3.7e-2, as large as O1 against f32 on the
-# CPU (2.5e-2-3.3e-2).
-VISION_EVAL_GRAD = {False: 5e-6, "O1": 0.1}
+# relative); O1 against the oracle reads 5.8e-3-7.0e-3, where O1 and f32
+# on the CPU differ by 2.5e-2-3.3e-2 (and the card and the plain CPU by
+# 2.0e-2-3.7e-2).
+VISION_EVAL_GRAD = {False: 5e-6, "O1": 1.5e-2}
 
 
 def eval_mode_grad(device, weights, batch, amp):
@@ -2033,8 +2053,19 @@ def vision_parity_inputs(kind, batch, seed=70, weight_seed=7):
     return model.state_dict(), batches
 
 
+def cpu_oracle(amp):
+    """The CPU side of a card-vs-CPU amp comparison: O1 convs rounded to
+    bf16 as cuDNN rounds them on the card (``amp.card_conv_rounding``)."""
+    import contextlib
+
+    from paddle_tpu_torch.amp import card_conv_rounding
+
+    return card_conv_rounding() if amp else contextlib.nullcontext()
+
+
 def phase_vision_parity(dev):
-    """The same 3 steps from the same weights on the card and on the CPU,
+    """The same 3 steps from the same weights on the card and on the CPU
+    (in O1 the CPU rounds each conv output to bf16, ``cpu_oracle``),
     read after 1 step and after 3, in f32 and O1 (bounds:
     ``VISION_PARITY``): the ResNet of one bottleneck a stage at 64x64 and
     LeNet at 28x28, batch 8 each; and the ResNet's eval-mode gradient
@@ -2043,7 +2074,8 @@ def phase_vision_parity(dev):
         weights, batches = vision_parity_inputs(kind, 8)
         for amp in (False, "O1"):
             card = small_vision_run(dev, kind, weights, amp, batches)
-            cpu = small_vision_run(torch.device("cpu"), kind, weights, amp, batches)
+            with cpu_oracle(amp):
+                cpu = small_vision_run(torch.device("cpu"), kind, weights, amp, batches)
             for steps in (1, 3):
                 (gl, gs), (cl, cs) = card[steps - 1], cpu[steps - 1]
                 got = parity_metrics(weights, gl, gs, cl, cs)
@@ -2057,12 +2089,380 @@ def phase_vision_parity(dev):
                     assert v <= b, f"{kind} {amp} {steps} step(s): {what} differ by {v}"
             if kind == "resnet":
                 gc = eval_mode_grad(dev, weights, batches[0], amp)
-                gh = eval_mode_grad(torch.device("cpu"), weights, batches[0], amp)
+                with cpu_oracle(amp):
+                    gh = eval_mode_grad(torch.device("cpu"), weights, batches[0], amp)
                 rel = float((gc - gh).norm() / gh.norm())
                 log(f"vision parity resnet amp={amp}: eval-mode gradient, card vs CPU, "
                     f"{rel} of its norm (bound {VISION_EVAL_GRAD[amp]})")
                 assert rel <= VISION_EVAL_GRAD[amp], \
                     f"resnet {amp}: eval-mode gradients differ by {rel}"
+
+
+# -- phase 12: the Wide&Deep daily loop at full width ---------------------------
+
+# tools/widedeep_daily.py's configuration (BASELINE.md config 4), uncut:
+# 8 sparse slots, 4 dense, dim 8, DNN 128^2, batch 512, a 2^18-row cache,
+# a 16-shard SSD table, Adam(1e-3); 5,000,000 cold rows loaded 1,000,000 at
+# a time (show 10), 3 days of 50,000 records with ids from a pool of
+# 20,000, a 500,000-row spill budget.
+WD_SLOTS, WD_DENSE, WD_DIM, WD_HIDDEN = 8, 4, 8, (128, 128)
+WD_BATCH, WD_CAP, WD_SHARDS = 512, 1 << 18, 16
+WD_POP, WD_CHUNK, WD_DAYS, WD_RECORDS, WD_POOL, WD_HOT = \
+    5_000_000, 1_000_000, 3, 50_000, 20_000, 500_000
+WD_AUC_BAR = 0.80   # the JAX package read 0.821, 0.825, 0.839 on the CPU (WIDEDEEP.json)
+# card vs CPU, the small leg: a population of 20,000, 2 days of 2,048
+# records (ids from a pool of 2,000), batch 256, the same weights. cuBLAS
+# and the CPU BLAS sum the tower's products in other orders; the sparse
+# and Adam math is the same on both. Bounds set from the readings of two
+# runs on an H100 80GB HBM3 (700 W), tests/test_torch_ctr.py's f32
+# tolerances (losses rtol 1e-5, state rtol 1e-4 / atol 1e-6) the start:
+# per-day losses 8.2e-8 apart (bound 1e-6); every param and every pass
+# key's row within atol 1e-6 alone (rtol needed: 0; bound rtol 1e-5).
+WD_SMALL = dict(pop=20_000, days=2, records=2_048, pool=2_000, batch=256)
+WD_PARITY = dict(loss_rtol=1e-6, rtol=1e-5, atol=1e-6)
+
+
+def wd_day_lines(rng, n, pool):
+    """``tools/widedeep_daily.py``'s ``_day_lines``: ids drawn from ``pool``
+    (repeats), a label from ids divisible by 7, the first dense feature
+    and noise."""
+    ids = rng.choice(pool, size=(n, WD_SLOTS))
+    dense = rng.normal(size=(n, WD_DENSE))
+    label = ((ids % 7 == 0).sum(axis=1) + dense[:, 0]
+             + rng.normal(scale=0.5, size=n) > 1.0).astype(int)
+    id_s = np.char.add("1 ", ids.astype(str))
+    dense_s = np.char.add("1 ", np.char.mod("%.4f", dense))
+    lab_s = np.char.add("1 ", label.astype(str))
+    return [" ".join(row) for row in np.concatenate(
+        [id_s, dense_s, lab_s[:, None]], axis=1).tolist()]
+
+
+def wd_days(n_days, records, pool_size):
+    """The days' datasets: seeds 1000 + day for the lines, ``day`` for
+    the shuffle, as the JAX tool makes them."""
+    from paddle_tpu_torch.data.dataset import InMemoryDataset, SlotDesc
+
+    slots = ([SlotDesc(f"s{i}") for i in range(WD_SLOTS)]
+             + [SlotDesc(f"d{i}", is_float=True) for i in range(WD_DENSE)]
+             + [SlotDesc("label", is_float=True)])
+    pool = np.arange(1, pool_size, dtype=np.uint64)
+    days = []
+    for day in range(n_days):
+        ds = InMemoryDataset(slots, seed=day)
+        ds.load_from_lines(wd_day_lines(np.random.default_rng(1000 + day), records, pool))
+        ds.local_shuffle()
+        days.append(ds)
+    return days
+
+
+def wd_table(path, pop):
+    """A 16-shard SSD table with ``pop`` cold rows (show 10, so the daily
+    shrink's decay does not delete them); seconds to load them."""
+    from paddle_tpu_torch.ps.accessor import AccessorConfig
+    from paddle_tpu_torch.ps.table import SsdSparseTable, TableConfig
+
+    table = SsdSparseTable(path, TableConfig(shard_num=WD_SHARDS, accessor_config=AccessorConfig(
+        embedx_dim=WD_DIM, embedx_threshold=0.0)))
+    t0 = time.perf_counter()
+    for lo in range(0, pop, WD_CHUNK):
+        n = min(WD_CHUNK, pop - lo)
+        vals = np.zeros((n, table.full_dim), np.float32)
+        vals[:, 3] = 10.0
+        table.load_cold(np.arange(lo + 1, lo + 1 + n, dtype=np.uint64), vals)
+    return table, time.perf_counter() - t0
+
+
+def wd_trainer(device, table, weights):
+    from paddle_tpu_torch.models.ctr import CtrConfig, WideDeep
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.ps.embedding_cache import CacheConfig
+    from paddle_tpu_torch.ps.ps_trainer import CtrPassTrainer
+
+    tr = CtrPassTrainer(WideDeep(CtrConfig(WD_SLOTS, WD_DENSE, WD_DIM, WD_HIDDEN)),
+                        Adam(1e-3), table,
+                        CacheConfig(capacity=WD_CAP, embedx_dim=WD_DIM, embedx_threshold=0.0),
+                        device=device, **slot_names(WD_SLOTS, WD_DENSE))
+    tr.params = {k: v.to(device) for k, v in weights.items()}
+    tr.opt_state = tr.optimizer.init(tr.params)
+    return tr
+
+
+def wd_weights():
+    from paddle_tpu_torch.models.ctr import CtrConfig, WideDeep
+
+    model = WideDeep(CtrConfig(WD_SLOTS, WD_DENSE, WD_DIM, WD_HIDDEN),
+                     generator=torch.Generator().manual_seed(0))
+    return {k: v.detach() for k, v in model.named_parameters()}
+
+
+def timed_cache(cache):
+    """Wrap the pass cache's prepare/activate/end_pass to log seconds per
+    call (prepare runs on the trainer's background thread)."""
+    spans = {"prepare": [], "activate": [], "flush": []}
+
+    def wrap(fn, name):
+        def run(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            spans[name].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    cache.prepare_pass = wrap(cache.prepare_pass, "prepare")
+    cache.activate_pass = wrap(cache.activate_pass, "activate")
+    cache.end_pass = wrap(cache.end_pass, "flush")
+    return spans
+
+
+def capture_first_push():
+    """Wrap ``ctr_sparse_rows_at`` as the pass cache calls it to keep a copy
+    of the inputs of the first call (one real merged push); returns the
+    dict that fills, and the function that restores the wrapper."""
+    from paddle_tpu_torch.ps import embedding_cache as ec
+
+    orig, got = ec.ctr_sparse_rows_at, {}
+
+    def capture(state, uniq, show_sum, click_sum, g, **kw):
+        if not got:
+            got.update(state=tuple(c.clone() for c in state), args=(
+                uniq.clone(), show_sum.clone(), click_sum.clone(), g.clone()), kw=kw)
+        return orig(state, uniq, show_sum, click_sum, g, **kw)
+
+    ec.ctr_sparse_rows_at = capture
+
+    def restore():
+        ec.ctr_sparse_rows_at = orig
+    return got, restore
+
+
+def wd_b1_check(push):
+    """B1 in place on one real Wide&Deep push, bitwise against its plain
+    version, then timed beside it and its byte bound."""
+    from paddle_tpu_torch.ops import sparse_optimizer as so
+
+    state, (uniq, ds, dc, g), kw = push["state"], push["args"], push["kw"]
+    C, n = kw["capacity"], int(uniq.numel())
+    got = tuple(c.clone() for c in state)
+    so.ctr_sparse_rows_at(got, uniq, ds, dc, g, **kw)
+    torch.cuda.synchronize()
+    want = so.ctr_sparse_rows_at_plain(tuple(c.clone() for c in state), uniq, ds, dc, g, **kw)
+    ok = bitwise_cols(got, want)
+    err = max(max_abs(a, b) for a, b in zip(got, want))
+    if not ok:
+        raise AssertionError(f"B1 disagrees with plain on the Wide&Deep push (max_abs {err})")
+    work = tuple(c.clone() for c in state)
+    ms, _ = time_cuda(lambda: so.ctr_sparse_rows_at(work, uniq, ds, dc, g, **kw))
+    plain_ms, _ = time_cuda(lambda: so.ctr_sparse_rows_at_plain(work, uniq, ds, dc, g, **kw))
+    u = int(((uniq >= 0) & (uniq < C)).sum())
+    es, xs = so.rule_state_dim(kw["embed_rule"], 1), so.rule_state_dim(kw["embedx_rule"], WD_DIM)
+    nbytes = at_bytes(n, u, WD_DIM, es, xs, uniq.element_size())
+    nops = kernel_ops(u, WD_DIM, kw["embed_rule"], kw["embedx_rule"])
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
+    log(f"kernel ctr_sparse_rows_at {kw['embed_rule']}/{kw['embedx_rule']}, Wide&Deep push: "
+        f"n={n} entries, u={u} touched rows of {C}, {uniq.dtype}: bitwise={ok} max_abs={err}; "
+        f"device {ms} ms, plain {plain_ms} ms, bound {max(bytes_ms, ops_ms)} ms ({nbytes} B, "
+        f"{nops} f32 ops)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_widedeep(dev, card):
+    """BASELINE.md config 4 as ``tools/widedeep_daily.py`` runs it, through
+    the port: a 5,000,000-row cold population on the SSD tier, three days
+    of pass training (``CtrPassTrainer.train_passes``, the next day's build
+    overlapped), each day's final-model AUC, a base save, shrink, spill.
+    Checks: losses finite and falling; one B1 launch and one merge a step;
+    B1 bitwise on one real push; hot + cold rows = ``size()``. Then the
+    small card-vs-CPU leg and a save/load round trip on the card."""
+    import shutil
+    import tempfile
+
+    base = tempfile.mkdtemp(prefix="wd_daily_")
+    try:
+        table, load_s = wd_table(os.path.join(base, "tbl"), WD_POP)
+        try:
+            log(f"widedeep: {WD_POP} cold rows loaded in {load_s:.2f} s "
+                f"({WD_POP // WD_CHUNK} chunks of {WD_CHUNK}; host)")
+            t0 = time.perf_counter()
+            days = wd_days(WD_DAYS, WD_RECORDS, WD_POOL)
+            log(f"widedeep: {WD_DAYS} days of {WD_RECORDS} records made and parsed in "
+                f"{time.perf_counter() - t0:.2f} s (host)")
+            tr = wd_trainer(dev, table, wd_weights())
+            spans = timed_cache(tr.cache)
+            push, restore = capture_first_push()
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            try:
+                results = tr.train_passes(days, batch_size=WD_BATCH, drop_last=False)
+            finally:
+                restore()
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            counts = read_launches()
+            steps = sum(int(r["steps"]) for r in results)
+            want_steps = WD_DAYS * -(-WD_RECORDS // WD_BATCH)
+            losses = [r["loss"] for r in results]
+            for d, r in enumerate(results):
+                log(f"widedeep day {d + 1}: loss {r['loss']!r}, {int(r['steps'])} steps, "
+                    f"{r['samples_per_sec']:.1f} samples/s; prepare "
+                    f"{spans['prepare'][d]:.3f} s (host, {'background' if d else 'in line'}), "
+                    f"activate {spans['activate'][d]:.3f} s, flush {spans['flush'][d]:.3f} s "
+                    f"on {card}")
+            log(f"widedeep: {steps} steps in {train_s:.3f} s, launches {counts}")
+            assert np.isfinite(losses).all(), f"widedeep: non-finite loss {losses}"
+            assert losses[-1] < losses[0], f"widedeep: loss did not fall {losses}"
+            assert steps == want_steps, f"widedeep: {steps} steps, want {want_steps}"
+            assert counts["ctr_sparse_rows"] == steps, \
+                f"widedeep: B1 launches {counts['ctr_sparse_rows']} != steps {steps}"
+            assert counts["merge_sparse_grads"] == steps, f"widedeep: merge launches {counts}"
+            b1 = wd_b1_check(push)
+            del push
+            # the host's share of a step: one day's batches sliced and
+            # packed as the trainer's prefetcher thread does, no step
+            t0 = time.perf_counter()
+            n_b = sum(1 for _ in days[0].batch_iter(WD_BATCH, drop_last=False))
+            t1 = time.perf_counter()
+            for b in days[0].batch_iter(WD_BATCH, drop_last=False):
+                tr._pack(b)
+            t2 = time.perf_counter()
+            step_ms = [1e3 * WD_RECORDS / r["samples_per_sec"] / r["steps"] for r in results]
+            log(f"widedeep host: dataset batch slicing {1e3 * (t1 - t0) / n_b:.3f} ms a batch "
+                f"of {WD_BATCH}, slicing + packing {1e3 * (t2 - t1) / n_b:.3f} ms (one thread, "
+                f"no step); a training step {[round(x, 3) for x in step_ms]} ms by day")
+
+            for d, ds in enumerate(days):
+                auc = tr.evaluate(ds, batch_size=WD_BATCH)["auc"]
+                log(f"widedeep day {d + 1}: final-model AUC {auc!r} (bar {WD_AUC_BAR}: "
+                    f"{'met' if auc >= WD_AUC_BAR else 'MISSED'})")
+            t0 = time.perf_counter()
+            n_base = table.save(os.path.join(base, "ckpt_base"), mode=2)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            erased = table.shrink()
+            shrink_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            spilled = table.spill(WD_HOT)
+            spill_s = time.perf_counter() - t0
+            st = table.stats()
+            log(f"widedeep: base save {n_base} rows ({save_s:.2f} s), shrink erased {erased} "
+                f"({shrink_s:.2f} s), spill moved {spilled} ({spill_s:.2f} s); tiers hot "
+                f"{st['hot_rows']} + cold {st['cold_rows']} = size {table.size()}, disk "
+                f"{st['disk_bytes']} B")
+            assert st["hot_rows"] + st["cold_rows"] == table.size(), f"widedeep: tiers {st}"
+            assert st["hot_rows"] <= WD_HOT, f"widedeep: spill left {st['hot_rows']} hot rows"
+        finally:
+            table.close()
+        wd_parity(dev, base)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return counts, b1
+
+
+def wd_small_run(device, weights, path):
+    """The small leg on ``device``: (per-day losses, params on the CPU, the
+    pass keys' exported rows, the trainer)."""
+    from paddle_tpu_torch.ps.ps_trainer import _slot_tagged_keys
+
+    small = WD_SMALL
+    table, _ = wd_table(path, small["pop"])
+    tr = wd_trainer(device, table, weights)
+    days = wd_days(small["days"], small["records"], small["pool"])
+    res = tr.train_passes(days, batch_size=small["batch"], drop_last=False)
+    keys = np.unique(np.concatenate([
+        _slot_tagged_keys(b, tr.sparse_slots).reshape(-1)
+        for ds in days for b in ds.batch_iter(8192, drop_last=False)]))
+    rows, found = table.export_full(keys)
+    assert found.all()
+    return np.asarray([r["loss"] for r in res]), \
+        {k: v.cpu().numpy() for k, v in tr.params.items()}, rows, tr
+
+
+def wd_parity(dev, base):
+    """Card vs CPU at the small size (bounds ``WD_PARITY``), then ``save`` →
+    a fresh trainer on a fresh table → ``load`` on the card: the dense
+    params bit for bit, and the table digest of the saved rows as the text
+    format renders them."""
+    from paddle_tpu_torch.ps.table import row_digest
+
+    weights = wd_weights()
+    gl, gp, grows, gtr = wd_small_run(dev, weights, os.path.join(base, "card"))
+    try:
+        cl, cp, crows, ctr = wd_small_run(torch.device("cpu"), weights, os.path.join(base, "cpu"))
+        ctr.table.close()
+        def need_rtol(got, want):  # the least rtol that passes at the bound's atol
+            with np.errstate(divide="ignore", invalid="ignore"):
+                return max(0.0, float(np.nanmax((np.abs(got - want) - WD_PARITY["atol"])
+                                                / np.abs(want))))
+
+        loss_gap = float(np.abs(gl / cl - 1).max())
+        param_gap = max(need_rtol(gp[k], cp[k]) for k in cp)
+        row_gap = need_rtol(grows, crows)
+        log(f"widedeep parity: card vs CPU, {WD_SMALL}: losses {gl.tolist()} vs {cl.tolist()} "
+            f"(largest relative gap {loss_gap}); at atol {WD_PARITY['atol']} params need rtol "
+            f"{param_gap}, the pass keys' rows ({len(crows)}) rtol {row_gap} (bounds "
+            f"{WD_PARITY})")
+        np.testing.assert_allclose(gl, cl, rtol=WD_PARITY["loss_rtol"])
+        for k in cp:
+            np.testing.assert_allclose(gp[k], cp[k], rtol=WD_PARITY["rtol"],
+                                       atol=WD_PARITY["atol"], err_msg=k)
+        np.testing.assert_allclose(grows, crows, rtol=WD_PARITY["rtol"], atol=WD_PARITY["atol"])
+
+        gtr.save(os.path.join(base, "saved"))
+        keys, rows = gtr.table.snapshot_items(0)
+        acc = gtr.table.accessor
+        text = np.stack([acc.parse_row(acc.format_row(k, r).split(), rows.shape[1])[1]
+                         for k, r in zip(keys, rows)])
+        fresh_table, _ = wd_table(os.path.join(base, "fresh"), 0)
+        try:
+            fresh = wd_trainer(dev, fresh_table, wd_weights())
+            fresh.load(os.path.join(base, "saved"))
+            same = all(torch.equal(fresh.params[k], gtr.params[k]) for k in gtr.params)
+            same_opt = all(torch.equal(fresh.opt_state[s][k], gtr.opt_state[s][k])
+                           for s in ("m", "v") for k in gtr.params)
+            want, got = row_digest(keys, text), fresh_table.digest()
+            log(f"widedeep save/load on the card: dense params bit for bit {same}, Adam state "
+                f"{same_opt}, step {int(fresh.opt_state['step'])}; table digest {got} == "
+                f"{want} (the {len(keys)} saved rows as text renders them): {got == want}")
+            assert same and same_opt and got == want, "widedeep: save/load round trip differs"
+            assert int(fresh.opt_state["step"]) == int(gtr.opt_state["step"])
+        finally:
+            fresh_table.close()
+    finally:
+        gtr.table.close()
+
+
+def wd_kernel_counts(dev):
+    """Device kernels of one Wide&Deep training step (the packed step the
+    trainer runs, at phase 12's widths and batch, on a one-batch pass over
+    a RAM table), counted by torch.profiler: taken last, with the other
+    profiler windows."""
+    from paddle_tpu_torch.models.ctr import pack_ctr_batch
+    from paddle_tpu_torch.ps.accessor import AccessorConfig
+    from paddle_tpu_torch.ps.ps_trainer import _pad_tail
+    from paddle_tpu_torch.ps.table import MemorySparseTable, TableConfig
+
+    table = MemorySparseTable(TableConfig(shard_num=WD_SHARDS, accessor_config=AccessorConfig(
+        embedx_dim=WD_DIM, embedx_threshold=0.0)))
+    try:
+        tr = wd_trainer(dev, table, wd_weights())
+        ds = wd_days(1, WD_BATCH, WD_POOL)[0]
+        tr.cache.begin_pass(tr._tagged_pass_keys(ds))
+        lo32, dense, labels, weights = _pad_tail(*tr._pack(next(ds.batch_iter(WD_BATCH))),
+                                                 WD_BATCH)
+        packed = torch.from_numpy(pack_ctr_batch(lo32, dense, labels, weights=weights)).to(dev)
+        step = tr._packed_step(WD_BATCH)
+
+        def run():
+            tr.params, tr.opt_state, tr.cache.state, _ = step(
+                tr.params, tr.opt_state, tr.cache.state, tr.cache.device_map.state, packed)
+
+        k, m, names = device_kernels(run)
+        log(f"widedeep step: {k} device kernels (+{m} memsets) a step (batch {WD_BATCH}); "
+            f"the port's: {[x for x in names if 'ctr_rows' in x or 'radix' in x or 'segment' in x]}")
+    finally:
+        table.close()
 
 
 def main(argv):
@@ -2085,10 +2485,10 @@ def main(argv):
     card = card_line()
     log(f"device: {name} | nvidia-smi: {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    host_s, kern_s, hot_s, flash_s = build_all()
-    log(f"build: host library {host_s:.2f} s, ctr_sparse_rows {kern_s:.2f} s, "
-        f"hot_kernels {hot_s:.2f} s, flash_attention {flash_s:.2f} s (g++ and three nvcc "
-        f"in parallel)")
+    host_s, ssd_s, kern_s, hot_s, flash_s = build_all()
+    log(f"build: host library {host_s:.2f} s, SSD tier (zlib) {ssd_s:.2f} s, ctr_sparse_rows "
+        f"{kern_s:.2f} s, hot_kernels {hot_s:.2f} s, flash_attention {flash_s:.2f} s (two g++ "
+        f"and three nvcc in parallel)")
 
     b1, k = phase_kernel(dev)
     log(f"kernel ctr_sparse_rows adagrad/adagrad n={BATCH * SLOTS}: device {k['ms']} ms "
@@ -2112,7 +2512,9 @@ def main(argv):
     resnets, resnet_batch = phase_resnet(dev, card)
     phase_lenet(dev, card)
     phase_vision_parity(dev)
+    wd_counts, wd_b1 = phase_widedeep(dev, card)
     phase_kernel_counts(dev)
+    wd_kernel_counts(dev)
     phase_resnet_kernel_counts(resnets, resnet_batch, profile_dir)
     del resnets, resnet_batch
 
@@ -2125,15 +2527,22 @@ def main(argv):
     hot_src = "paddle_tpu_torch/ops/csrc/hot_kernels.cu"
     fa_src = "paddle_tpu_torch/ops/csrc/flash_attention.cu"
     fa_ref = "paddle_tpu/ops/flash_attention.py"
-    # library_ms is null for the first four: no single PyTorch call
+    # library_ms is null for B1, the probes and B4: no single PyTorch call
     # computes the fused CTR rule, the probe (with or without the gather),
     # or the merge+rule+scatter. The sort (B4's first part, the jnp.unique
     # in front of the Pallas call) has torch.sort as its library call.
     # B1's numbers are its in-place form's on the pass push, the call the
-    # pass path makes (both forms count in ctr_sparse_rows.launches).
+    # pass path makes (both forms count in ctr_sparse_rows.launches), and
+    # on a Wide&Deep push in its second entry.
+    b1_src = "paddle_tpu_torch/ops/csrc/ctr_sparse_rows.cu"
+    b1_ref = "paddle_tpu/ops/sparse_optimizer.py:203"
     kernels = [
-        entry("ctr_sparse_rows", "paddle_tpu_torch/ops/csrc/ctr_sparse_rows.cu",
-              "paddle_tpu/ops/sparse_optimizer.py:203", pass_counts["ctr_sparse_rows"], b1),
+        dict(entry("ctr_sparse_rows", b1_src, b1_ref, pass_counts["ctr_sparse_rows"], b1),
+             path="pass (DeepFM)"),
+        # B1 again as the Wide&Deep daily loop launches it (phase 12): its
+        # launches there, its numbers on one of that path's pushes
+        dict(entry("ctr_sparse_rows", b1_src, b1_ref, wd_counts["ctr_sparse_rows"], wd_b1),
+             path="widedeep daily"),
         entry("hot_probe_gather", hot_src, "paddle_tpu/ops/hot_kernels.py:116",
               hot_counts["hot_probe_gather"], b2),
         entry("hot_probe", hot_src, "paddle_tpu/ops/hot_kernels.py:212",

@@ -14,6 +14,13 @@ f32) does not exist here. :func:`step_ctx` is kept because the step
 factories use it: disabled, it is a true no-op that leaves an enclosing
 ``auto_cast`` in force.
 
+On the card the amp convolution is cuDNN's bf16 convolution, whose
+output is rounded to bf16 once more before it is widened to f32 (no bf16
+convolution of cuDNN gives an f32 result); the CPU path returns the f32
+sums, as the JAX package does. :func:`card_conv_rounding` makes the CPU
+path round its output as the card does: the CPU oracle that card-vs-CPU
+checks of amp convolutions compare against.
+
 Dynamic loss scaling (:class:`GradScaler`) keeps its state in 0-dim
 device tensors and updates it without a host sync, step for step as
 ``update_loss_scaling_op`` does: grow the scale by ``incr_ratio`` after
@@ -34,7 +41,8 @@ from .core.device import resolve_device
 from .core.enforce import InvalidArgumentError, enforce
 
 __all__ = ["GradScaler", "LossScaleState", "all_finite", "amp_dtype", "amp_enabled",
-           "amp_guard", "auto_cast", "cast_model_inputs", "step_ctx"]
+           "amp_guard", "auto_cast", "card_conv_rounding", "cast_model_inputs",
+           "conv_output_rounded", "step_ctx"]
 
 _FLOAT_DTYPES = (torch.float32, torch.float64, torch.bfloat16, torch.float16)
 
@@ -43,6 +51,7 @@ class _AmpState(threading.local):
     def __init__(self) -> None:
         self.enabled = False
         self.dtype = torch.bfloat16
+        self.round_conv = False
 
 
 _amp_state = _AmpState()
@@ -72,6 +81,26 @@ def auto_cast(enable: bool = True, dtype: str = "bfloat16"):
 
 # the static-graph spelling in the reference
 amp_guard = auto_cast
+
+
+def conv_output_rounded() -> bool:
+    """True inside :func:`card_conv_rounding`."""
+    return _amp_state.round_conv
+
+
+@contextlib.contextmanager
+def card_conv_rounding():
+    """Within the context, an amp ``conv2d`` on the CPU rounds its f32
+    output to the amp dtype and widens it back, as cuDNN's amp convolution
+    on the card does (the backward is unchanged, as on the card). A check
+    oracle, not a training mode: the JAX package does not round. Per
+    thread; the previous state comes back on exit."""
+    prev = _amp_state.round_conv
+    _amp_state.round_conv = True
+    try:
+        yield
+    finally:
+        _amp_state.round_conv = prev
 
 
 def step_ctx(enable: bool, dtype: str = "bfloat16"):

@@ -12,6 +12,7 @@ from typing import Any, NoReturn
 __all__ = [
     "EnforceNotMet",
     "InvalidArgumentError",
+    "NotFoundError",
     "PreconditionNotMetError",
     "UnavailableError",
     "enforce",
@@ -25,6 +26,10 @@ class EnforceNotMet(RuntimeError):
 
 
 class InvalidArgumentError(EnforceNotMet, ValueError):
+    pass
+
+
+class NotFoundError(EnforceNotMet, KeyError):
     pass
 
 

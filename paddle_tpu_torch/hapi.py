@@ -7,9 +7,9 @@ amp handling), evaluating with ``executor.make_eval_step``. Batches are
 numpy arrays or tensors; they move to ``device``, which defaults to the
 card (``"cuda"``, raising without one unless ``device="cpu"``).
 
-Not in this slice: ``save``/``load``, which need ``io/checkpoint.py``
-(and ``save(training=False)`` also ``io/inference.py``, ROADMAP A13),
-raise.
+Not ported yet: ``save``/``load`` raise. They need only their glue over
+``io/checkpoint.py`` (ROADMAP Queue A item 5); ``save(training=False)``
+also needs ``io/inference.py``.
 """
 
 from __future__ import annotations
@@ -179,10 +179,10 @@ class Model:
     # -- save/load --------------------------------------------------------
 
     def save(self, path: str, training: bool = True, example_inputs=None) -> None:
-        raise InvalidArgumentError("Model.save needs io/checkpoint.py (and, with "
-                                   "training=False, io/inference.py; ROADMAP A13), which "
-                                   "is not ported yet")
+        raise InvalidArgumentError("Model.save is not ported yet: its glue over "
+                                   "io/checkpoint.py (and, with training=False, "
+                                   "io/inference.py; ROADMAP Queue A item 5)")
 
     def load(self, path: str) -> None:
-        raise InvalidArgumentError("Model.load needs io/checkpoint.py (ROADMAP A13), which "
-                                   "is not ported yet")
+        raise InvalidArgumentError("Model.load is not ported yet: its glue over "
+                                   "io/checkpoint.py (ROADMAP Queue A item 5)")

@@ -1,12 +1,13 @@
-"""DeepFM on the sparse PS path: the GPUPS pass-training step.
+"""DeepFM and Wide&Deep on the sparse PS path: the GPUPS pass-training step.
 
-Port of the DeepFM part of ``paddle_tpu.models.ctr``. One step unpacks
+Port of the DeepFM and WideDeep part of ``paddle_tpu.models.ctr`` (DCN
+and xDeepFM are not ported: ROADMAP Queue A). One step unpacks
 one packed wire buffer (the ``pack_ctr_batch`` layout, byte-identical to
 the JAX package), probes the pass's on-device key map
-(``ps.device_hash``), pulls the rows from the device cache, runs DeepFM
-forward and backward (gradients for the dense parameters and for the
-pulled embeddings through ``torch.autograd.grad``), applies dense Adam,
-and pushes the CTR sparse update (``cache_push`` → the
+(``ps.device_hash``), pulls the rows from the device cache, runs the
+model forward and backward (gradients for the dense parameters and for
+the pulled embeddings through ``torch.autograd.grad``), applies the
+dense optimizer, and pushes the CTR sparse update (``cache_push`` → the
 ``ctr_sparse_rows_at`` CUDA kernel on the card).
 
 Steps are functional like the JAX package's: ``params`` is a dict of
@@ -17,7 +18,9 @@ The slab step is a Python loop over its packed buffers (CUDA graphs are
 later work).
 
 Semantics kept for parity: show=1 per example-slot, click=label, the
-first-order weight is embed_w and the FM/deep embedding is embedx_w.
+first-order (wide) weight is embed_w (``emb[..., 0]``) and the FM/deep
+embedding is embedx_w (``emb[..., 1:]``); the steps take any model with
+``forward(emb [B, S, 1+dim], dense_x [B, D]) -> logits [B]``.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from ..nn.layers import Linear
 from ..ps.device_hash import device_hash_lookup
 from ..ps.embedding_cache import CacheConfig, cache_pull, cache_push
 
-__all__ = ["CtrConfig", "DeepFM", "make_ctr_train_step",
+__all__ = ["CtrConfig", "DeepFM", "WideDeep", "make_ctr_train_step",
            "make_ctr_train_step_packed", "make_ctr_train_step_slab",
            "make_random_packs", "pack_ctr_batch", "serving_pull"]
 
@@ -101,6 +104,30 @@ class DeepFM(nn.Module):
             [v.reshape(v.shape[0], cfg.num_sparse_slots * cfg.embedx_dim), dense_x],
             dim=-1)
         return first + second + self.dnn(deep_in) + self.dense_lin(dense_x)[..., 0]
+
+
+class WideDeep(nn.Module):
+    """Wide (first-order sparse weights + a dense linear) & Deep (the DNN
+    over the slot embeddings and the dense features), PaddleRec's
+    wide_deep. forward(emb, dense_x) as :class:`DeepFM`; weights from
+    ``generator``, parameter names the JAX package's (``wide``,
+    ``dnn.layers.i``)."""
+
+    def __init__(self, cfg: CtrConfig, generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.wide = Linear(cfg.num_dense, 1, generator=generator)
+        self.dnn = _DNN(cfg.num_sparse_slots * cfg.embedx_dim + cfg.num_dense,
+                        cfg.dnn_hidden, generator=generator)
+
+    def forward(self, emb: torch.Tensor, dense_x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        wide = emb[..., 0].sum(dim=-1) + self.wide(dense_x)[..., 0]
+        v = emb[..., 1:]
+        deep_in = torch.cat(
+            [v.reshape(v.shape[0], cfg.num_sparse_slots * cfg.embedx_dim), dense_x],
+            dim=-1)
+        return wide + self.dnn(deep_in)
 
 
 def _weighted_mean(per: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:

@@ -241,7 +241,8 @@ class _Conv2d(torch.autograd.Function):
     (amp): the operands rounded to ``dt``; the forward sums in f32 and
     returns f32 (on the card cuDNN's ``dt`` convolution, whose output is
     rounded to ``dt`` once more: no ``dt`` convolution of cuDNN gives an
-    f32 result); the backward follows :class:`_AmpLinear`'s rule."""
+    f32 result; on the CPU too inside ``amp.card_conv_rounding``); the
+    backward follows :class:`_AmpLinear`'s rule."""
 
     @staticmethod
     def forward(ctx, x, w, stride, padding, dilation, groups, dt):
@@ -257,6 +258,8 @@ class _Conv2d(torch.autograd.Function):
             else:
                 y = torch.nn.functional.conv2d(x.to(torch.float32), w.to(torch.float32),
                                                None, **conv)
+                if amp.conv_output_rounded():  # the card's rounding (amp.card_conv_rounding)
+                    y = y.to(dt).to(torch.float32)
         ctx.save_for_backward(x, w)
         ctx.conv, ctx.dt = conv, dt
         ctx.dtypes = (x_dtype, w_dtype) if dt is not None else (x.dtype, w.dtype)

@@ -8,6 +8,14 @@ the JAX package's sources. They build at first use with
 gitignored build directory (``ops/_build.py``). There is no Python
 fallback: ``dedup_u64``'s order fixes the cache row ids of a pass, and a
 different dedup would give different rows.
+
+The SSD tier (``ssd_table.cc`` over ``sparse_table.h``, the port's copies
+too) builds the same way into a second library, linked with zlib
+(``-lz``), so the host library's build does not need zlib and a machine
+without it fails only the paths that open an SSD table. Only what the
+pass trainer's daily loop calls is bound (:class:`SsdTableEngine`); the
+engine's admission sketch, IO budget, background compaction and
+streaming file save/load are not (ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -21,14 +29,17 @@ import numpy as np
 
 from ..ops._build import build_shared_library
 
-__all__ = ["FeasignIndex", "SlotParser", "cuckoo_build", "dedup_u64", "load_native"]
+__all__ = ["FeasignIndex", "SST_STAT_FIELDS", "SlotParser", "SsdTableEngine", "cuckoo_build",
+           "dedup_u64", "load_native", "load_ssd", "table_native_params"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "csrc")
 _SOURCES = tuple(os.path.join(_CSRC, f)
                  for f in ("sparse_index.cc", "cuckoo.cc", "slot_parser.cc"))
+_SSD_SOURCES = tuple(os.path.join(_CSRC, f) for f in ("ssd_table.cc", "sparse_table.h"))
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
+_SSD_LIB: Optional[ctypes.CDLL] = None
 
 
 def _gxx_command(out: str):
@@ -36,6 +47,12 @@ def _gxx_command(out: str):
     # so the library runs on whatever host the checkout lands on
     return ["g++", "-O3", "-ffp-contract=off", "-std=c++17", "-fPIC",
             "-shared", "-o", out, *_SOURCES, "-lpthread"]
+
+
+def _gxx_ssd_command(out: str):
+    # the header joins the build's digest (_SSD_SOURCES), not the argv
+    return ["g++", "-O3", "-ffp-contract=off", "-std=c++17", "-fPIC",
+            "-shared", "-o", out, _SSD_SOURCES[0], "-lpthread", "-lz"]
 
 
 def load_native() -> ctypes.CDLL:
@@ -48,6 +65,19 @@ def load_native() -> ctypes.CDLL:
             _configure(lib)
             _LIB = lib
         return _LIB
+
+
+def load_ssd() -> ctypes.CDLL:
+    """Build (first use) and load the SSD tier's library; raises on
+    failure (a missing zlib included)."""
+    global _SSD_LIB
+    with _LOCK:
+        if _SSD_LIB is None:
+            lib = ctypes.CDLL(build_shared_library("paddle_tpu_torch_ssd", _SSD_SOURCES,
+                                                   _gxx_ssd_command))
+            _configure_sst(lib)
+            _SSD_LIB = lib
+        return _SSD_LIB
 
 
 def _configure(lib: ctypes.CDLL) -> None:
@@ -70,6 +100,8 @@ def _configure(lib: ctypes.CDLL) -> None:
                                            ctypes.c_int64, i32p]
     lib.psidx_items.restype = None
     lib.psidx_items.argtypes = [ctypes.c_void_p, u64p, i32p]
+    lib.psidx_erase.restype = None
+    lib.psidx_erase.argtypes = [ctypes.c_void_p, u64p, ctypes.c_int64]
     lib.ps_dedup_u64.restype = ctypes.c_int64
     lib.ps_dedup_u64.argtypes = [u64p, ctypes.c_int64, u64p, ctypes.c_int32]
     lib.cuckoo_build.restype = ctypes.c_int64
@@ -104,6 +136,10 @@ def _i32(a: np.ndarray):
 
 def _u32(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32))
+
+
+def _f32(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
 
 
 def cuckoo_build(keys: np.ndarray, rows: np.ndarray, nbuckets: int,
@@ -175,6 +211,11 @@ class FeasignIndex:
                                                      len(keys), _i32(rows)))
         return rows, n_new
 
+    def erase(self, keys: np.ndarray) -> None:
+        """Drop ``keys``; their rows go to the index's free list."""
+        keys = np.ascontiguousarray(keys, np.uint64)
+        self._lib.psidx_erase(self._h, _u64(keys), len(keys))
+
     def items(self) -> Tuple[np.ndarray, np.ndarray]:
         """(keys, rows) of all live entries."""
         n = len(self)
@@ -232,3 +273,203 @@ class SlotParser:
             out[name] = (values, lengths)
         self._lib.slotp_reset(self._h)
         return out
+
+
+# -- the SSD tier (csrc/ssd_table.cc) ------------------------------------------
+
+_RULE_IDS = {"naive": 0, "adagrad": 1, "std_adagrad": 2, "adam": 3}
+_ACCESSOR_IDS = {"ctr": 0}
+
+# sst_create2 flag bit 0: value columns stored fp16 on disk
+SST_FLAG_VALUE_F16 = 1
+
+# sst_stats2's field layout, the csrc SstStatField enum in order
+SST_STAT_FIELDS = ("hot_rows", "cold_rows", "disk_bytes", "index_bytes", "sketch_bytes",
+                   "admit_checks", "admit_rejects", "admit_admitted", "bg_compactions",
+                   "bg_backlog", "io_serve_bytes", "io_bg_bytes", "io_bg_wait_ms",
+                   "open_block_bytes")
+
+
+def table_native_params(shard_num: int, accessor: str, acc_cfg,
+                        seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(iparams i32[6], fparams f32[17]) for the native table ABI, the
+    layout ``pstpu::parse_table_config`` (``csrc/sparse_table.h``) reads.
+    ``acc_cfg`` is an ``AccessorConfig``."""
+    sgd = acc_cfg.sgd
+    ip = np.asarray(
+        [shard_num, _ACCESSOR_IDS[accessor], acc_cfg.embedx_dim,
+         _RULE_IDS[acc_cfg.embed_sgd_rule], _RULE_IDS[acc_cfg.embedx_sgd_rule],
+         seed], np.int32)
+    fp = np.asarray(
+        [acc_cfg.nonclk_coeff, acc_cfg.click_coeff, acc_cfg.base_threshold,
+         acc_cfg.delta_threshold, acc_cfg.delta_keep_days,
+         acc_cfg.show_click_decay_rate, acc_cfg.delete_threshold,
+         acc_cfg.delete_after_unseen_days, acc_cfg.embedx_threshold,
+         sgd.learning_rate, sgd.initial_g2sum, sgd.initial_range,
+         sgd.weight_bounds[0], sgd.weight_bounds[1],
+         sgd.beta1, sgd.beta2, sgd.ada_epsilon], np.float32)
+    return ip, fp
+
+
+def _configure_sst(lib: ctypes.CDLL) -> None:
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    h = ctypes.c_void_p
+    lib.sst_create2.restype = ctypes.c_void_p
+    lib.sst_create2.argtypes = [i32p, f32p, ctypes.c_char_p, ctypes.c_int32]
+    lib.sst_destroy.restype = None
+    lib.sst_destroy.argtypes = [h]
+    for fn in ("sst_pull_dim", "sst_push_dim", "sst_full_dim"):
+        getattr(lib, fn).restype = ctypes.c_int32
+        getattr(lib, fn).argtypes = [h]
+    lib.sst_size.restype = ctypes.c_int64
+    lib.sst_size.argtypes = [h]
+    lib.sst_stats2.restype = ctypes.c_int32
+    lib.sst_stats2.argtypes = [h, i64p, ctypes.c_int32]
+    lib.sst_shard_sizes.restype = None
+    lib.sst_shard_sizes.argtypes = [h, i64p]
+    lib.sst_pull.restype = None
+    lib.sst_pull.argtypes = [h, u64p, i32p, ctypes.c_int64, ctypes.c_int32, f32p]
+    lib.sst_push.restype = None
+    lib.sst_push.argtypes = [h, u64p, f32p, ctypes.c_int64]
+    lib.sst_export.restype = None
+    lib.sst_export.argtypes = [h, u64p, i32p, ctypes.c_int64, ctypes.c_int32, f32p, u8p]
+    lib.sst_insert_full.restype = None
+    lib.sst_insert_full.argtypes = [h, u64p, f32p, ctypes.c_int64]
+    lib.sst_load_cold.restype = ctypes.c_int64
+    lib.sst_load_cold.argtypes = [h, u64p, f32p, ctypes.c_int64]
+    lib.sst_spill.restype = ctypes.c_int64
+    lib.sst_spill.argtypes = [h, ctypes.c_int64]
+    lib.sst_shrink.restype = ctypes.c_int64
+    lib.sst_shrink.argtypes = [h]
+    lib.sst_compact.restype = ctypes.c_int64
+    lib.sst_compact.argtypes = [h]
+    lib.sst_save_begin.restype = ctypes.c_int64
+    lib.sst_save_begin.argtypes = [h, ctypes.c_int32]
+    lib.sst_save_fetch.restype = None
+    lib.sst_save_fetch.argtypes = [h, u64p, f32p]
+    lib.sst_flush.restype = None
+    lib.sst_flush.argtypes = [h]
+    lib.sst_digest.restype = ctypes.c_uint64
+    lib.sst_digest.argtypes = [h]
+
+
+class SsdTableEngine:
+    """ctypes handle over the two-tier C++ table (``csrc/ssd_table.cc``):
+    a RAM hot tier plus per-shard append-only log files, promote on
+    access, explicit spill of the coldest rows, shrink and save over both
+    tiers, crash recovery by log replay. Native only: there is no Python
+    version of the disk tier."""
+
+    def __init__(self, shard_num: int, accessor: str, acc_cfg, seed: int, path: str,
+                 value_f16: bool = False) -> None:
+        self._lib = load_ssd()
+        iparams, fparams = table_native_params(shard_num, accessor, acc_cfg, seed)
+        self._h = self._lib.sst_create2(_i32(iparams), _f32(fparams), str(path).encode(),
+                                        SST_FLAG_VALUE_F16 if value_f16 else 0)
+        if not self._h:
+            raise OSError(f"ssd table open failed at {path!r}")
+        self._save_lock = threading.Lock()
+        self.pull_dim = int(self._lib.sst_pull_dim(self._h))
+        self.push_dim = int(self._lib.sst_push_dim(self._h))
+        self.full_dim = int(self._lib.sst_full_dim(self._h))
+
+    def __del__(self):
+        self.close()
+
+    def close(self) -> None:
+        """Flush and release the engine (idempotent)."""
+        if getattr(self, "_h", None):
+            self._lib.sst_destroy(self._h)
+            self._h = None
+
+    def size(self) -> int:
+        return int(self._lib.sst_size(self._h))
+
+    def stats(self) -> dict:
+        """The engine's stat vector by ``SST_STAT_FIELDS`` name (hot and
+        cold rows, disk bytes including log garbage, ...)."""
+        out = np.zeros(len(SST_STAT_FIELDS), np.int64)
+        n = int(self._lib.sst_stats2(self._h, out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                                     len(SST_STAT_FIELDS)))
+        return {name: int(out[i]) for i, name in enumerate(SST_STAT_FIELDS) if i < n}
+
+    def shard_sizes(self, shard_num: int) -> np.ndarray:
+        out = np.empty(shard_num, np.int64)
+        self._lib.sst_shard_sizes(self._h, out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+        return out
+
+    def pull(self, keys: np.ndarray, slots, create: bool) -> np.ndarray:
+        keys = np.ascontiguousarray(keys, np.uint64)
+        out = np.empty((len(keys), self.pull_dim), np.float32)
+        slots_arr = np.ascontiguousarray(slots, np.int32) if slots is not None else None
+        self._lib.sst_pull(self._h, _u64(keys),
+                           _i32(slots_arr) if slots_arr is not None else None,
+                           len(keys), 1 if create else 0, _f32(out))
+        return out
+
+    def push(self, keys: np.ndarray, push_values: np.ndarray) -> None:
+        keys = np.ascontiguousarray(keys, np.uint64)
+        push_values = np.ascontiguousarray(push_values, np.float32)
+        self._lib.sst_push(self._h, _u64(keys), _f32(push_values), len(keys))
+
+    def export_full(self, keys: np.ndarray, create: bool = False,
+                    slots=None) -> Tuple[np.ndarray, np.ndarray]:
+        keys = np.ascontiguousarray(keys, np.uint64)
+        values = np.empty((len(keys), self.full_dim), np.float32)
+        found = np.empty(len(keys), np.uint8)
+        slots_arr = np.ascontiguousarray(slots, np.int32) if slots is not None else None
+        self._lib.sst_export(self._h, _u64(keys),
+                             _i32(slots_arr) if slots_arr is not None else None,
+                             len(keys), 1 if create else 0, _f32(values),
+                             found.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+        return values, found.astype(bool)
+
+    def insert_full(self, keys: np.ndarray, values: np.ndarray) -> None:
+        keys = np.ascontiguousarray(keys, np.uint64)
+        values = np.ascontiguousarray(values, np.float32)
+        self._lib.sst_insert_full(self._h, _u64(keys), _f32(values), len(keys))
+
+    def load_cold(self, keys: np.ndarray, values: np.ndarray) -> None:
+        """Bulk-load full rows straight into the disk tier. Raises on a
+        short load (the engine truncates the partial slice, so the log
+        stays replay-consistent)."""
+        keys = np.ascontiguousarray(keys, np.uint64)
+        values = np.ascontiguousarray(values, np.float32)
+        loaded = int(self._lib.sst_load_cold(self._h, _u64(keys), _f32(values), len(keys)))
+        if loaded != len(keys):
+            raise OSError(f"load_cold wrote only {loaded}/{len(keys)} rows "
+                          "(disk full or IO error; partial slice truncated)")
+
+    def spill(self, budget: int) -> int:
+        """Move the coldest hot rows to disk until at most ``budget`` stay
+        hot; returns the rows moved."""
+        return int(self._lib.sst_spill(self._h, ctypes.c_int64(budget)))
+
+    def shrink(self) -> int:
+        return int(self._lib.sst_shrink(self._h))
+
+    def compact(self) -> int:
+        """Rewrite the logs to their live records; returns disk bytes after."""
+        return int(self._lib.sst_compact(self._h))
+
+    def flush(self) -> None:
+        self._lib.sst_flush(self._h)
+
+    def digest(self) -> int:
+        """Order-independent content digest over both tiers, equal to a
+        RAM table's for the same logical rows."""
+        return int(self._lib.sst_digest(self._h))
+
+    def save_items(self, mode: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(keys, full rows) of both tiers after the accessor's save
+        filter for ``mode``; the engine applies update_stat_after_save."""
+        with self._save_lock:
+            n = int(self._lib.sst_save_begin(self._h, mode))
+            keys = np.empty(n, np.uint64)
+            values = np.empty((n, self.full_dim), np.float32)
+            self._lib.sst_save_fetch(self._h, _u64(keys), _f32(values))
+        return keys, values

@@ -1,28 +1,70 @@
-"""The host sparse table that backs a training pass.
+"""The host sparse tables that back a training pass.
 
-The port's own copy of ``MemorySparseTable`` with the Python-shard
-backend of ``paddle_tpu.ps.table`` (the native sparse engine and the SSD
-tier wait for later slices): N local shards, feasign-routed
-(``shard = key % shard_num``), insert-on-miss pull, push through the CTR
-accessor, and the full-row export/import the pass cache builds from and
-flushes back to. Columnar numpy blocks per shard; the key→row map of
-each shard is the native ``FeasignIndex``.
+The port's own copy of ``MemorySparseTable`` and ``SsdSparseTable`` from
+``paddle_tpu.ps.table``:
+
+- ``MemorySparseTable``, with the Python-shard backend (the native RAM
+  engine is not ported): N local shards, feasign-routed
+  (``shard = key % shard_num``), insert-on-miss pull, push through the
+  CTR accessor, and the full-row export/import the pass cache builds from
+  and flushes back to. Columnar numpy blocks per shard; the key→row map
+  of each shard is the native ``FeasignIndex``.
+- ``SsdSparseTable``, the two-tier table over the native SSD engine
+  (``ps.native.SsdTableEngine``): a RAM hot tier plus per-shard disk
+  logs, the same table API, and ``spill``/``compact``/``load_cold``.
+
+Both save and load per-shard text files in the accessor's format, byte
+for byte the JAX package's (``part-NNNNN.shard[.gz]`` and a
+``meta.json``), through an optional named converter (``"gzip"``), with
+the save modes 0 (all), 1 (delta), 2 (base) and 3 (batch model). A load
+re-routes rows by the loading table's own ``shard_num``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gzip
+import json
+import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from .accessor import AccessorConfig, CtrCommonAccessor, FeatureBlock
-from .native import FeasignIndex
+from ..core.enforce import InvalidArgumentError, enforce, enforce_eq
+from .accessor import AccessorConfig, CtrCommonAccessor, FeatureBlock, accessor_class, make_accessor
+from .native import FeasignIndex, SsdTableEngine
 
-__all__ = ["MemorySparseTable", "TableConfig", "merge_duplicate_keys",
-           "row_digest"]
+__all__ = ["MemorySparseTable", "SsdSparseTable", "TableConfig", "converter_entry",
+           "make_sparse_table", "merge_duplicate_keys", "register_converter", "row_digest"]
+
+_SAVE_MODE_ALL = 0
+
+# -- save/load converters -------------------------------------------------------
+# A converter is (file suffix, open for writing, open for reading) over
+# text streams, the reference's accessor DataConverter role; "gzip" is
+# built in, and its files are the JAX package's.
+
+_CONVERTERS: Dict[str, Tuple[str, object, object]] = {}
+
+
+def register_converter(name: str, suffix: str, open_write, open_read) -> None:
+    """Register a named shard-file converter. ``open_write(path)`` /
+    ``open_read(path)`` return text-mode file objects."""
+    _CONVERTERS[name] = (suffix, open_write, open_read)
+
+
+register_converter("gzip", ".gz", lambda p: gzip.open(p, "wt"), lambda p: gzip.open(p, "rt"))
+
+
+def converter_entry(name: Optional[str]):
+    """(suffix, open_write, open_read) for ``name``; plain text when None."""
+    if name is None:
+        return "", (lambda p: open(p, "w")), (lambda p: open(p))
+    enforce(name in _CONVERTERS,
+            f"unknown save converter {name!r} (registered: {sorted(_CONVERTERS)})")
+    return _CONVERTERS[name]
 
 
 def row_digest(keys: np.ndarray, values: np.ndarray) -> int:
@@ -55,12 +97,22 @@ def merge_duplicate_keys(keys: np.ndarray, values: np.ndarray) -> Tuple[np.ndarr
 
 @dataclasses.dataclass
 class TableConfig:
-    """Mirrors TableParameter (ps.proto:121) for the Python-shard table
-    with the CTR accessor (the other accessors wait for later slices)."""
+    """Mirrors TableParameter (ps.proto:121) for the port's tables: the CTR
+    accessor, Python shards in RAM or the two-tier SSD engine."""
 
     shard_num: int = 16
     accessor_config: Optional[AccessorConfig] = None
     seed: int = 0
+    table_id: int = 0
+    accessor: str = "ctr"
+    # "memory" = MemorySparseTable; "ssd" = SsdSparseTable (needs ssd_path)
+    storage: str = "memory"
+    ssd_path: Optional[str] = None
+    # the SSD tier's value columns (embed_w, embedx_w) on disk: "fp32",
+    # or "fp16" with f32 optimizer state; every read widens to f32
+    ssd_value_dtype: str = "fp32"
+    # named shard-file converter of save/load ("gzip" built in)
+    converter: Optional[str] = None
 
 
 class _SparseShard:
@@ -126,26 +178,57 @@ class _SparseShard:
             self._create_new(rows, push_values[:, 0].astype(np.int32))
             self.accessor.update(self.block, rows, push_values, self.rng)
 
-    def export(self, keys: np.ndarray, full_dim: int) -> Tuple[np.ndarray, np.ndarray]:
-        """Full-layout rows of ``keys`` (zeros where absent) and found."""
+    def shrink(self) -> int:
+        """The accessor's daily shrink over every live row; erases the
+        rows it drops. Returns their count."""
+        with self.lock:
+            keys, rows = self.index.items()
+            if len(rows) == 0:
+                return 0
+            keep = self.accessor.shrink(self.block, rows)
+            self.index.erase(keys[~keep])
+            self.initialized[rows[~keep]] = False
+            return int((~keep).sum())
+
+    def save_items(self, mode: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(keys, rows) that pass the save filter of ``mode``, after the
+        accessor's update_stat_after_save on them."""
+        with self.lock:
+            keys, rows = self.index.items()
+            if len(rows) == 0:
+                return keys, rows
+            keep = self.accessor.save_filter(self.block, rows, mode)
+            self.accessor.update_stat_after_save(self.block, rows[keep], mode)
+            return keys[keep], rows[keep]
+
+    def full_rows(self, rows: np.ndarray) -> np.ndarray:
+        """Full-layout rows of the block's ``rows`` (the caller holds the
+        lock or owns the rows, as the save path does after
+        :meth:`save_items`)."""
+        b = self.block
         es = self.accessor.embed_rule.state_dim
         xd = self.accessor.config.embedx_dim
+        out = np.zeros((len(rows), 7 + es + xd + self.accessor.embedx_rule.state_dim),
+                       np.float32)
+        out[:, 0] = b.slot[rows]
+        out[:, 1] = b.unseen_days[rows]
+        out[:, 2] = b.delta_score[rows]
+        out[:, 3] = b.show[rows]
+        out[:, 4] = b.click[rows]
+        out[:, 5] = b.embed_w[rows, 0]
+        out[:, 6:6 + es] = b.embed_state[rows]
+        out[:, 6 + es] = b.has_embedx[rows].astype(np.float32)
+        out[:, 7 + es:7 + es + xd] = b.embedx_w[rows]
+        out[:, 7 + es + xd:] = b.embedx_state[rows]
+        return out
+
+    def export(self, keys: np.ndarray, full_dim: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Full-layout rows of ``keys`` (zeros where absent) and found."""
         with self.lock:
             rows = self.index.lookup(keys)
             ok = rows >= 0
             out = np.zeros((len(keys), full_dim), np.float32)
-            r = rows[ok]
-            b = self.block
-            out[ok, 0] = b.slot[r]
-            out[ok, 1] = b.unseen_days[r]
-            out[ok, 2] = b.delta_score[r]
-            out[ok, 3] = b.show[r]
-            out[ok, 4] = b.click[r]
-            out[ok, 5] = b.embed_w[r, 0]
-            out[np.ix_(ok, range(6, 6 + es))] = b.embed_state[r]
-            out[ok, 6 + es] = b.has_embedx[r].astype(np.float32)
-            out[np.ix_(ok, range(7 + es, 7 + es + xd))] = b.embedx_w[r]
-            out[np.ix_(ok, range(7 + es + xd, full_dim))] = b.embedx_state[r]
+            out[ok] = self.full_rows(rows[ok])
             return out, ok
 
     def import_rows(self, keys: np.ndarray, values: np.ndarray) -> None:
@@ -173,7 +256,7 @@ class MemorySparseTable:
 
     def __init__(self, config: Optional[TableConfig] = None) -> None:
         self.config = config or TableConfig()
-        self.accessor = CtrCommonAccessor(self.config.accessor_config)
+        self.accessor = make_accessor(self.config.accessor, self.config.accessor_config)
         self._shards = [_SparseShard(self.accessor, self.config.seed + i)
                         for i in range(self.config.shard_num)]
         self._pool = ThreadPoolExecutor(max_workers=min(self.config.shard_num, 8))
@@ -248,13 +331,193 @@ class MemorySparseTable:
     def size(self) -> int:
         return sum(len(sh.index) for sh in self._shards)
 
-    def snapshot_items(self) -> Tuple[np.ndarray, np.ndarray]:
-        """(keys [n] u64, full rows [n, full_dim]) of every live feature."""
-        keys = [sh.index.items()[0] for sh in self._shards]
-        keys = np.concatenate(keys) if keys else np.zeros(0, np.uint64)
-        values, _ = self.export_full(keys)
+    def shard_sizes(self) -> np.ndarray:
+        return np.asarray([len(sh.index) for sh in self._shards], np.int64)
+
+    def shrink(self) -> int:
+        """The daily shrink (decay, age, delete); returns the rows erased."""
+        return sum(sh.shrink() for sh in self._shards)
+
+    def flush(self) -> None:
+        """Writes are synchronous: nothing to flush."""
+
+    def snapshot_items(self, mode: int = _SAVE_MODE_ALL) -> Tuple[np.ndarray, np.ndarray]:
+        """(keys [n] u64, full rows [n, full_dim]) of the live features
+        that pass the save filter of ``mode`` (0: all), after the
+        accessor's update_stat_after_save: what :meth:`save` writes, in
+        binary."""
+        per = [(sh.save_items(mode), sh) for sh in self._shards]
+        keys = np.concatenate([k for (k, _), _ in per]) if per else np.zeros(0, np.uint64)
+        values = (np.concatenate([sh.full_rows(r) for (_, r), sh in per]) if per
+                  else np.zeros((0, self.full_dim), np.float32))
         return keys, values
 
     def digest(self) -> int:
         """Order-independent content digest of every live row."""
-        return row_digest(*self.snapshot_items())
+        return row_digest(*self.snapshot_items(_SAVE_MODE_ALL))
+
+    # -- save/load: per-shard text files in the accessor's format -----------
+
+    def save(self, dirname: str, mode: int = _SAVE_MODE_ALL,
+             converter: Optional[str] = None) -> int:
+        """Write ``part-NNNNN.shard[suffix]`` per shard (rows routed by
+        ``key % shard_num``, one line each in the accessor's text format)
+        and ``meta.json``; ``converter`` defaults to ``config.converter``.
+        Returns the rows written."""
+        os.makedirs(dirname, exist_ok=True)
+        conv = converter if converter is not None else self.config.converter
+        suffix, open_w, _ = converter_entry(conv)
+        keys, values = self.snapshot_items(mode)
+        shard_of = (keys % np.uint64(self.config.shard_num)).astype(np.int64)
+        order = np.argsort(shard_of, kind="stable")
+        bounds = np.searchsorted(shard_of[order], np.arange(self.config.shard_num + 1))
+        fmt = self.accessor.format_row
+        for i in range(self.config.shard_num):
+            with open_w(os.path.join(dirname, f"part-{i:05d}.shard{suffix}")) as f:
+                for j in order[bounds[i]:bounds[i + 1]]:
+                    f.write(fmt(keys[j], values[j]) + "\n")
+        self._write_meta(dirname, mode, conv)
+        return len(keys)
+
+    def _write_meta(self, dirname: str, mode: int, converter: Optional[str] = None) -> None:
+        with open(os.path.join(dirname, "meta.json"), "w") as f:
+            json.dump({"shard_num": self.config.shard_num,
+                       "embedx_dim": self.accessor.config.embedx_dim,
+                       "accessor": self.config.accessor, "mode": mode,
+                       "converter": converter}, f)
+
+    def load(self, dirname: str) -> int:
+        """Load the rows of a :meth:`save` directory (either package's);
+        returns their count."""
+        with open(os.path.join(dirname, "meta.json")) as f:
+            meta = json.load(f)
+        enforce_eq(meta["embedx_dim"], self.accessor.config.embedx_dim, "embedx_dim mismatch")
+        enforce(accessor_class(meta.get("accessor", "ctr")).parse_row
+                is type(self.accessor).parse_row,
+                f"checkpoint written by accessor {meta.get('accessor')!r} cannot load into "
+                f"{self.config.accessor!r}")
+        suffix, _, open_r = converter_entry(meta.get("converter"))
+        parse = self.accessor.parse_row
+        total = 0
+        for i in range(meta["shard_num"]):
+            path = os.path.join(dirname, f"part-{i:05d}.shard{suffix}")
+            if not os.path.exists(path):
+                continue
+            keys, rows = [], []
+            with open_r(path) as f:
+                for line in f:
+                    parts = line.split()
+                    if parts:
+                        k, row = parse(parts, self.full_dim)
+                        keys.append(k)
+                        rows.append(row)
+            if keys:
+                self._load_rows(np.asarray(keys, np.uint64), np.stack(rows))
+                total += len(keys)
+        return total
+
+    def _load_rows(self, keys: np.ndarray, values: np.ndarray) -> None:
+        """Where a load puts its rows (the SSD table: its disk tier)."""
+        self.import_full(keys, values)
+
+
+class SsdSparseTable(MemorySparseTable):
+    """Two-tier sparse table: a RAM hot tier plus per-shard disk logs, on
+    the native SSD engine (``ps.native.SsdTableEngine``). Reads promote
+    a cold row into RAM, :meth:`spill` moves the coldest rows back to
+    disk, shrink and save cover both tiers, and reopening a path replays
+    its logs. The same table API as :class:`MemorySparseTable`, so the
+    pass cache and the trainers work over it unchanged; a load goes to
+    the disk tier."""
+
+    def __init__(self, path: str, config: Optional[TableConfig] = None) -> None:
+        self.config = config or TableConfig()
+        self.path = str(path)
+        self.accessor = make_accessor(self.config.accessor, self.config.accessor_config)
+        enforce(self.config.ssd_value_dtype in ("fp32", "fp16"),
+                f"TableConfig.ssd_value_dtype must be 'fp32' or 'fp16', "
+                f"got {self.config.ssd_value_dtype!r}", InvalidArgumentError)
+        self._engine = SsdTableEngine(self.config.shard_num, self.config.accessor,
+                                      self.accessor.config, self.config.seed, self.path,
+                                      value_f16=self.config.ssd_value_dtype == "fp16")
+
+    def close(self) -> None:
+        """Flush the logs and release the engine."""
+        self._engine.close()
+
+    def pull_sparse(self, keys: np.ndarray, slots: Optional[np.ndarray] = None,
+                    create: bool = True) -> np.ndarray:
+        return self._engine.pull(keys, slots, create)
+
+    def push_sparse(self, keys: np.ndarray, push_values: np.ndarray) -> None:
+        self._engine.push(*merge_duplicate_keys(np.ascontiguousarray(keys, np.uint64),
+                                                push_values))
+
+    @property
+    def full_dim(self) -> int:
+        return self._engine.full_dim
+
+    def export_full(self, keys: np.ndarray, create: bool = False,
+                    slots: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
+        return self._engine.export_full(keys, create=create, slots=slots)
+
+    def import_full(self, keys: np.ndarray, values: np.ndarray) -> None:
+        self._engine.insert_full(keys, values)
+
+    def size(self) -> int:
+        return self._engine.size()
+
+    def shard_sizes(self) -> np.ndarray:
+        return self._engine.shard_sizes(self.config.shard_num)
+
+    def shrink(self) -> int:
+        return self._engine.shrink()
+
+    def flush(self) -> None:
+        self._engine.flush()
+
+    def snapshot_items(self, mode: int = _SAVE_MODE_ALL) -> Tuple[np.ndarray, np.ndarray]:
+        return self._engine.save_items(mode)
+
+    def digest(self) -> int:
+        """Content digest over both tiers (the RAM table's for the same
+        logical rows)."""
+        return self._engine.digest()
+
+    def spill(self, hot_budget: int) -> int:
+        """Move the coldest rows (most unseen days, then lowest score) to
+        disk until at most ``hot_budget`` stay in RAM; returns the rows
+        moved."""
+        return self._engine.spill(int(hot_budget))
+
+    def compact(self) -> int:
+        """Rewrite the logs to their live records; returns disk bytes."""
+        return self._engine.compact()
+
+    def stats(self) -> Dict[str, float]:
+        """Tier counts and disk use (``ps.native.SST_STAT_FIELDS``) and
+        the cold index's bytes per row."""
+        out: Dict[str, float] = dict(self._engine.stats())
+        out["index_bytes_per_row"] = (out["index_bytes"] / out["cold_rows"]
+                                      if out["cold_rows"] else 0.0)
+        return out
+
+    def load_cold(self, keys: np.ndarray, values: np.ndarray) -> None:
+        """Bulk-load full rows into the disk tier (a population at scale:
+        training promotes the rows it touches)."""
+        self._engine.load_cold(keys, values)
+
+    def _load_rows(self, keys: np.ndarray, values: np.ndarray) -> None:
+        self._engine.load_cold(keys, values)
+
+
+def make_sparse_table(config: TableConfig) -> MemorySparseTable:
+    """``config.storage`` picks MemorySparseTable ("memory") or
+    SsdSparseTable ("ssd", at ``config.ssd_path``)."""
+    if config.storage == "memory":
+        return MemorySparseTable(config)
+    if config.storage == "ssd":
+        enforce(config.ssd_path is not None, "TableConfig.storage='ssd' requires ssd_path",
+                InvalidArgumentError)
+        return SsdSparseTable(config.ssd_path, config)
+    raise InvalidArgumentError(f"unknown table storage {config.storage!r}; have memory|ssd")

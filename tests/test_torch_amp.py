@@ -17,6 +17,7 @@ Tolerances:
   differentiated (jax 0.9.0 raises in its transpose rule).
 """
 
+import contextlib
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -237,6 +238,34 @@ def test_amp_conv2d_forward_and_backward_match_jax(case):
     ty.backward(torch.from_numpy(g))
     np.testing.assert_array_equal(tx.grad.numpy(), _bf(odx))
     np.testing.assert_array_equal(tw.grad.numpy(), _bf(odw))
+
+
+@pytest.mark.parametrize("case", CONV_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_card_conv_rounding_rounds_the_cpu_amp_conv_output(case):
+    """The card's oracle on the CPU (``amp.card_conv_rounding``): the amp
+    conv's output rounded to bf16 once more, exactly the bf16 rounding of
+    the JAX package's f32 output (the bias is added after, in f32), and
+    the same input gradients as without it; an f32 conv is untouched."""
+    _, _, _, _, _, _, s, p, gr = case
+    x, wt, b = _conv_inputs(case)
+    with jamp.auto_cast():
+        jy = jF.conv2d(jnp.asarray(x), jnp.asarray(wt), None, s, p, 1, gr)
+    g = np.random.default_rng(2).normal(size=jy.shape).astype(np.float32)
+    out = {}
+    for oracle in (False, True):
+        tx, tw = torch.from_numpy(x).requires_grad_(), torch.from_numpy(wt).requires_grad_()
+        with tamp.auto_cast(), (tamp.card_conv_rounding() if oracle else contextlib.nullcontext()):
+            ty = tF.conv2d(tx, tw, None, s, p, 1, gr)
+            f32 = tF.conv2d(torch.from_numpy(x).double(), torch.from_numpy(wt).double(),
+                            None, s, p, 1, gr)
+        ty.backward(torch.from_numpy(g))
+        out[oracle] = (ty.detach(), tx.grad, tw.grad, f32)
+    assert not tamp.conv_output_rounded()
+    y_round, dx, dw, f64 = out[True]
+    assert y_round.dtype == torch.float32 and torch.equal(y_round, y_round.bfloat16().float())
+    np.testing.assert_array_equal(y_round.numpy(), _bf(np.asarray(jy)))
+    assert torch.equal(dx, out[False][1]) and torch.equal(dw, out[False][2])
+    assert torch.equal(f64, out[False][3])  # an f64 (not amp) conv is not rounded
 
 
 @pytest.mark.parametrize("case", CONV_CASES, ids=lambda c: "-".join(map(str, c)))

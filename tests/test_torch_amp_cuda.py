@@ -105,6 +105,31 @@ def test_conv2d_on_card_matches_cpu(mode, api):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 64, 28, 28, 128, 3, 2, 1), (8, 3, 64, 64, 64, 7, 2, 3),
+                                   (8, 256, 16, 16, 64, 1, 1, 0)],
+                         ids=["3x3", "7x7-stem", "1x1"])
+def test_amp_conv_on_card_matches_the_cpu_rounding_oracle(shape):
+    """The card's amp conv against the CPU inside ``amp.card_conv_rounding``
+    (its output rounded to bf16 as cuDNN rounds it): both bf16-valued and
+    at most one bf16 step apart (2^-7 of the value: the f32 sums differ in
+    order, so a value near a rounding boundary can round either way), and
+    equal in at least 99 % of the elements. Without the oracle the CPU
+    output is f32 (the gap phase 11 of chip_smoke.py cannot see past)."""
+    n, c, h, w, o, k, s, p = shape
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(n, c, h, w)).astype(np.float32)
+    wt = (rng.normal(size=(o, c, k, k)) * (2.0 / (c * k * k)) ** 0.5).astype(np.float32)
+    with amp.auto_cast():
+        gy = F.conv2d(torch.from_numpy(x).cuda(), torch.from_numpy(wt).cuda(), None, s, p).cpu()
+        cy = F.conv2d(torch.from_numpy(x), torch.from_numpy(wt), None, s, p)
+        with amp.card_conv_rounding():
+            oy = F.conv2d(torch.from_numpy(x), torch.from_numpy(wt), None, s, p)
+    assert _is_bf16(gy) and _is_bf16(oy) and not _is_bf16(cy)
+    torch.testing.assert_close(gy, oy, rtol=2 ** -7, atol=1e-6 * float(oy.abs().max()))
+    assert float((gy == oy).float().mean()) >= 0.99
+
+
+@pytest.mark.cuda
 def test_grad_scaler_on_card_by_default_matches_cpu():
     """``init()`` with no device puts the state on the card; scale,
     unscale, all_finite and the grow/shrink sequence stay there and give

@@ -1,6 +1,6 @@
 """paddle_tpu_torch's DeepFM GPUPS step against the JAX package, on the CPU.
 
-Both packages start from the same weights (``deepfm_params_from_jax``,
+Both packages start from the same weights (``ctr_params_from_jax``,
 ``adam_state_from_jax``), the same host tables (Python shards, same
 seeds) and the same packed wire buffers. Tolerances:
 
@@ -26,13 +26,17 @@ from paddle_tpu.ps import embedding_cache as jec
 from paddle_tpu.ps.accessor import AccessorConfig as JaxAccessorConfig
 from paddle_tpu.ps.table import MemorySparseTable as JaxTable
 from paddle_tpu.ps.table import TableConfig as JaxTableConfig
-from paddle_tpu_torch.convert import adam_state_from_jax, deepfm_params_from_jax
+from paddle_tpu_torch.convert import adam_state_from_jax, ctr_params_from_jax
 from paddle_tpu_torch.models import ctr as tctr
 from paddle_tpu_torch.nn import functional as tF
 from paddle_tpu_torch.optimizer import Adam
 from paddle_tpu_torch.ps import embedding_cache as tec
 from paddle_tpu_torch.ps.accessor import AccessorConfig
 from paddle_tpu_torch.ps.table import MemorySparseTable, TableConfig
+from test_torch_jax_native import jax_native  # noqa: F401  (the fixture)
+
+# the JAX side's pass build needs its native dedup order and key map
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 S, D, B, DIM = 3, 4, 48, 4
 HIDDEN = (16, 16)
@@ -68,7 +72,7 @@ class Pair:
         self.tcache.begin_pass(self.pool.reshape(-1))
         self.tmodel = tctr.DeepFM(tctr.CtrConfig(S, D, DIM, HIDDEN))
         self.topt = Adam(learning_rate=1e-2)
-        self.tparams = deepfm_params_from_jax(
+        self.tparams = ctr_params_from_jax(
             {k: np.asarray(v) for k, v in self.jparams["params"].items()})
         self.topt_state = adam_state_from_jax(self.jopt_state)
 
@@ -173,7 +177,7 @@ def test_adam_update_matches_jax():
     tp, ts = p.tparams, p.topt_state
     for _ in range(3):
         jp, js = p.jopt.update(jgrads, js, jp)
-        tp, ts = p.topt.update(deepfm_params_from_jax(
+        tp, ts = p.topt.update(ctr_params_from_jax(
             {k: np.asarray(v) for k, v in jgrads["params"].items()}), ts, tp)
     assert int(ts["step"]) == int(js["step"]) == 3
     for k, v in jp["params"].items():

@@ -19,6 +19,10 @@ from paddle_tpu.ps.device_hash import _mix32_np
 from paddle_tpu_torch.convert import map_state_from_jax
 from paddle_tpu_torch.ps.device_hash import (DeviceKeyMap, _mix32, device_hash_lookup,
                                              split_keys)
+from test_torch_jax_native import jax_native  # noqa: F401  (the fixture)
+
+# the JAX DeviceKeyMap needs the native cuckoo_build
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 
 def _hash_cases(rng):

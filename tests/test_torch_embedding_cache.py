@@ -25,6 +25,10 @@ from paddle_tpu_torch.ps import embedding_cache as tec
 from paddle_tpu_torch.ps.accessor import AccessorConfig
 from paddle_tpu_torch.ps.sgd_rule import SGDRuleConfig
 from paddle_tpu_torch.ps.table import MemorySparseTable, TableConfig
+from test_torch_jax_native import jax_native  # noqa: F401  (the fixture)
+
+# the JAX side's pass build needs its native dedup order and key map
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 RULES = ["naive", "adagrad", "std_adagrad", "adam"]
 COLS = ("show", "click", "embed_w", "embed_state", "embedx_w", "embedx_state",

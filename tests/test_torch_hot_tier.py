@@ -36,7 +36,7 @@ from paddle_tpu.ps.hot_tier import HotTierConfig as JaxHotTierConfig
 from paddle_tpu.ps.ps_trainer import CtrStreamTrainer as JaxTrainer
 from paddle_tpu.ps.table import MemorySparseTable as JaxTable
 from paddle_tpu.ps.table import TableConfig as JaxTableConfig
-from paddle_tpu_torch.convert import adam_state_from_jax, deepfm_params_from_jax
+from paddle_tpu_torch.convert import adam_state_from_jax, ctr_params_from_jax
 from paddle_tpu_torch.data.dataset import InMemoryDataset, SlotDesc
 from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
 from paddle_tpu_torch.optimizer import Adam
@@ -182,7 +182,7 @@ def test_slice_matches_jax_trainer():
                    hot_tier=JaxHotTierConfig(capacity=256), **_NAMES)
     ttable = _table()
     t = _trainer(ttable, HotTierConfig(capacity=256))
-    t.params = deepfm_params_from_jax(jax.tree_util.tree_map(np.asarray, j.params))
+    t.params = ctr_params_from_jax(jax.tree_util.tree_map(np.asarray, j.params))
     t.opt_state = adam_state_from_jax(jax.tree_util.tree_map(np.asarray, j.opt_state))
     jds = _dataset(JaxDataset, JaxSlotDesc, lines)
     tds = _dataset(InMemoryDataset, SlotDesc, lines)
@@ -195,7 +195,7 @@ def test_slice_matches_jax_trainer():
             assert tr["hot_tier"][key] == jr["hot_tier"][key], key
     j.hot_tier.flush()
     t.hot_tier.flush()
-    want = deepfm_params_from_jax(jax.tree_util.tree_map(np.asarray, j.params))
+    want = ctr_params_from_jax(jax.tree_util.tree_map(np.asarray, j.params))
     for k, w in want.items():
         np.testing.assert_allclose(t.params[k].numpy(), w.numpy(), err_msg=k, **PARAM_TOL)
     jk, jv = jtable.snapshot_items()
@@ -312,7 +312,7 @@ def test_amp_trainer_matches_jax_under_auto_cast(hot):
     t = CtrStreamTrainer(model, Adam(1e-2), ttable, embedx_dim=DIM,
                          hot_tier=HotTierConfig(capacity=256) if hot else None,
                          device="cpu", amp=True, **_NAMES)
-    t.params = deepfm_params_from_jax(jax.tree_util.tree_map(np.asarray, j.params))
+    t.params = ctr_params_from_jax(jax.tree_util.tree_map(np.asarray, j.params))
     t.opt_state = adam_state_from_jax(jax.tree_util.tree_map(np.asarray, j.opt_state))
     t0 = {k: v.clone() for k, v in t.params.items()}
     jds = _dataset(JaxDataset, JaxSlotDesc, lines)
@@ -325,7 +325,7 @@ def test_amp_trainer_matches_jax_under_auto_cast(hot):
     if hot:
         j.hot_tier.flush()
         t.hot_tier.flush()
-    want = deepfm_params_from_jax(jax.tree_util.tree_map(np.asarray, j.params))
+    want = ctr_params_from_jax(jax.tree_util.tree_map(np.asarray, j.params))
     for k, w in want.items():
         assert float((t.params[k] - w).abs().max()) <= 1e-2 * float(w.abs().max()), k
     jk, jv = jtable.snapshot_items()

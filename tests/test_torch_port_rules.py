@@ -258,6 +258,36 @@ def test_vision_entry_points_without_device_raise_without_gpu():
     Model(LeNet(), device="cpu").prepare(Momentum(0.1), F.cross_entropy, amp_configs="O1")
 
 
+def test_pass_trainer_entry_points_without_device_raise_without_gpu(tmp_path):
+    """``CtrPassTrainer`` over either table, and ``load_checkpoint``, run on
+    the card unless the caller asks for the CPU."""
+    _no_gpu()
+    from paddle_tpu_torch.core.enforce import UnavailableError
+    from paddle_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+    from paddle_tpu_torch.models.ctr import CtrConfig, WideDeep
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.ps.accessor import AccessorConfig
+    from paddle_tpu_torch.ps.embedding_cache import CacheConfig
+    from paddle_tpu_torch.ps.ps_trainer import CtrPassTrainer
+    from paddle_tpu_torch.ps.table import MemorySparseTable, SsdSparseTable, TableConfig
+
+    cfg = TableConfig(shard_num=2, accessor_config=AccessorConfig(embedx_dim=4))
+    names = dict(sparse_slots=["a", "b"], dense_slots=["d"], label_slot="y")
+    for table in (MemorySparseTable(cfg), SsdSparseTable(str(tmp_path / "ssd"), cfg)):
+        try:
+            args = (WideDeep(CtrConfig(2, 1, 4, (8,))), Adam(), table,
+                    CacheConfig(capacity=64, embedx_dim=4))
+            with pytest.raises(UnavailableError, match="device='cpu'"):
+                CtrPassTrainer(*args, **names)
+            assert CtrPassTrainer(*args, device="cpu", **names).params["wide.weight"].is_cpu
+        finally:
+            table.close()
+    save_checkpoint(str(tmp_path / "ck"), {"w": torch.ones(2)})
+    with pytest.raises(UnavailableError, match="device='cpu'"):
+        load_checkpoint(str(tmp_path / "ck"))
+    assert load_checkpoint(str(tmp_path / "ck"), device="cpu")["model"]["w"].is_cpu
+
+
 def test_amp_is_not_torch_autocast():
     """The port's amp casts only linear and conv2d, as the JAX package's
     does; PyTorch's autocast (every matmul, softmax, reductions) is used

@@ -44,7 +44,7 @@ from paddle_tpu.ps import sharded_cache as jsc
 from paddle_tpu.ps.accessor import AccessorConfig as JaxAccessorConfig
 from paddle_tpu.ps.table import MemorySparseTable as JaxTable
 from paddle_tpu.ps.table import TableConfig as JaxTableConfig
-from paddle_tpu_torch.convert import adam_state_from_jax, deepfm_params_from_jax
+from paddle_tpu_torch.convert import adam_state_from_jax, ctr_params_from_jax
 from paddle_tpu_torch.core.enforce import EnforceNotMet, UnavailableError
 from paddle_tpu_torch.core.mesh import make_mesh
 from paddle_tpu_torch.models import ctr as tctr
@@ -54,6 +54,10 @@ from paddle_tpu_torch.ps import embedding_cache as tec
 from paddle_tpu_torch.ps import sharded_cache as tsc
 from paddle_tpu_torch.ps.accessor import AccessorConfig
 from paddle_tpu_torch.ps.table import MemorySparseTable, TableConfig
+from test_torch_jax_native import jax_native  # noqa: F401  (the fixture)
+
+# the JAX side's pass build needs its native dedup order and key map
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 LOSS_RTOL = 1e-5
 STATE_TOL = dict(rtol=1e-4, atol=1e-6)
@@ -339,7 +343,7 @@ def test_sharded_step_from_keys_matches_jax(routing):
     jopt = jax_optimizer.Adam(learning_rate=1e-3)
     jp = {"params": dict(jmodel.named_parameters()), "buffers": {}}
     js = jopt.init(jp)
-    tparams = deepfm_params_from_jax({k: np.asarray(v) for k, v in jp["params"].items()})
+    tparams = ctr_params_from_jax({k: np.asarray(v) for k, v in jp["params"].items()})
     topt = adam_state_from_jax(js)
     jstep = jsc.make_sharded_ctr_train_step_from_keys(
         jmodel, jopt, jcfg, mesh, slot_ids=np.arange(S), axis="ps", donate=False,
@@ -354,7 +358,7 @@ def test_sharded_step_from_keys_matches_jax(routing):
         jl.append(float(loss))
     tl, tp, tstate = _port_run(routing, tparams, topt, keys_fed=True)
     np.testing.assert_allclose(tl, jl, rtol=LOSS_RTOL)
-    want = deepfm_params_from_jax({k: np.asarray(v) for k, v in jp["params"].items()})
+    want = ctr_params_from_jax({k: np.asarray(v) for k, v in jp["params"].items()})
     for k, w in want.items():
         np.testing.assert_allclose(tp[k].numpy(), w.numpy(), err_msg=k, **STATE_TOL)
     for k, v in jcache.state.items():

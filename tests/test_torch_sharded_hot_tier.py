@@ -38,7 +38,7 @@ from paddle_tpu.ps.hot_tier import HotTierConfig as JaxHotTierConfig
 from paddle_tpu.ps.ps_trainer import CtrStreamTrainer as JaxTrainer
 from paddle_tpu.ps.table import MemorySparseTable as JaxTable
 from paddle_tpu.ps.table import TableConfig as JaxTableConfig
-from paddle_tpu_torch.convert import (adam_state_from_jax, deepfm_params_from_jax,
+from paddle_tpu_torch.convert import (adam_state_from_jax, ctr_params_from_jax,
                                       dynamic_map_state_from_jax)
 from paddle_tpu_torch.core.enforce import EnforceNotMet
 from paddle_tpu_torch.core.mesh import make_mesh
@@ -96,7 +96,7 @@ def test_sharded_trainer_matches_jax():
                                              kernels="pallas"), **_NAMES)
     ttable = _table()
     t = _trainer(ttable, HotTierConfig(capacity=512, mesh=_mesh(8)))
-    t.params = deepfm_params_from_jax(jax.tree_util.tree_map(np.asarray, j.params))
+    t.params = ctr_params_from_jax(jax.tree_util.tree_map(np.asarray, j.params))
     t.opt_state = adam_state_from_jax(jax.tree_util.tree_map(np.asarray, j.opt_state))
     jds = _dataset(JaxDataset, JaxSlotDesc, lines)
     tds = _dataset(InMemoryDataset, SlotDesc, lines)
@@ -113,7 +113,7 @@ def test_sharded_trainer_matches_jax():
     assert (hk.hot_probe.launches, hk.hot_scatter_apply.launches) == before  # CPU: plain
     j.hot_tier.flush()
     t.hot_tier.flush()
-    want = deepfm_params_from_jax(jax.tree_util.tree_map(np.asarray, j.params))
+    want = ctr_params_from_jax(jax.tree_util.tree_map(np.asarray, j.params))
     for k, w in want.items():
         np.testing.assert_allclose(t.params[k].numpy(), w.numpy(), err_msg=k, **PARAM_TOL)
     jk, jv = jtable.snapshot_items()

@@ -13,10 +13,13 @@ CPU with oneDNN off (another conv algorithm). It prints
 ``chip_smoke.parity_metrics`` (loss, update over all params, worst
 tensor's update, running stats) after 1 step and after 3 for:
 
-- ``card_vs_cpu``: what ``chip_smoke`` bounds;
+- ``card_vs_cpu``: what ``chip_smoke`` bounds in f32;
 - ``card_vs_card``: the card's own run-to-run spread;
 - ``cpu_vs_cpu``: oneDNN off against on, a reference spread with no
   card and no extra rounding in it;
+- ``card_vs_oracle`` (O1): the card against the CPU run inside
+  ``amp.card_conv_rounding``, whose convs round their output to bf16 as
+  cuDNN does: what ``chip_smoke`` bounds in O1;
 - ``o1_vs_f32_cpu``: O1 against f32 on the CPU, what amp itself changes.
 
 The same comparisons are made of the ResNet's ``chip_smoke.eval_mode_grad``,
@@ -99,17 +102,26 @@ def main(argv):
                 with torch.backends.mkldnn.flags(enabled=False):
                     host2 = cs.small_vision_run(cpu, kind, weights, amp, batches)
                 host_runs[amp] = host
-                for what, a, b in (("card_vs_cpu", card, host), ("card_vs_card", card2, card),
-                                   ("cpu_vs_cpu", host2, host)):
+                pairs = [("card_vs_cpu", card, host), ("card_vs_card", card2, card),
+                         ("cpu_vs_cpu", host2, host)]
+                if amp:
+                    with cs.cpu_oracle(amp):
+                        oracle = cs.small_vision_run(cpu, kind, weights, amp, batches)
+                    pairs.append(("card_vs_oracle", card, oracle))
+                for what, a, b in pairs:
                     emit_steps(kind, batch, seed, name, what, weights, a, b)
                 if kind != "resnet":
                     continue
                 g = [cs.eval_mode_grad(d, weights, batches[0], amp) for d in (dev, dev, cpu)]
                 with torch.backends.mkldnn.flags(enabled=False):
                     g.append(cs.eval_mode_grad(cpu, weights, batches[0], amp))
+                with cs.cpu_oracle(amp):
+                    g.append(cs.eval_mode_grad(cpu, weights, batches[0], amp))
                 host_grads[amp] = g[2]
                 for what, a, b in (("card_vs_cpu", 0, 2), ("card_vs_card", 1, 0),
-                                   ("cpu_vs_cpu", 3, 2)):
+                                   ("cpu_vs_cpu", 3, 2), ("card_vs_oracle", 0, 4)):
+                    if what == "card_vs_oracle" and not amp:
+                        continue
                     emit(kind=kind, batch=batch, seed=seed, amp=name, what=what,
                          eval_grad=rel(g[a], g[b]))
             # what amp itself changes: O1 against f32, both on the CPU
