@@ -95,13 +95,16 @@ or when any phase fails. Phases:
    dim 8, DNN 128²) trained by ``CtrPassTrainer`` over a 16-shard
    ``SsdSparseTable`` holding 5,000,000 cold rows, three days of 50,000
    records, batch 512, the next day's pass built in the background; one
-   ``ctr_sparse_rows`` launch and one merge a step, B1 bitwise against its
-   plain version on one real push of the path, losses falling, each
+   ``ctr_sparse_rows`` launch and one merge a step, the merge (card vs
+   CPU) and B1 (against its plain version) bitwise on one real push of
+   the path, losses falling, each
    day's final-model AUC against the bar 0.80, base save, shrink and
    spill (hot + cold = size); then card vs CPU at a small size and a
    trainer save/load round trip on the card (a Wide&Deep step's device
    kernels are counted at the end, with the other profiler windows);
-13. the ``kernels`` JSON line, then the card line, then the result line.
+13. the ``kernels`` JSON line (B1 twice: ``ctr_sparse_rows`` on the pass
+   path, ``ctr_sparse_rows@widedeep`` on phase 12's), then the card line,
+   then the result line.
 
 ``--profile DIR`` also runs two more pass-path slabs, two more warm
 batches of each hot path and two more ERNIE steps under torch.profiler (after the
@@ -2215,24 +2218,55 @@ def timed_cache(cache):
 
 
 def capture_first_push():
-    """Wrap ``ctr_sparse_rows_at`` as the pass cache calls it to keep a copy
-    of the inputs of the first call (one real merged push); returns the
-    dict that fills, and the function that restores the wrapper."""
+    """Wrap ``merge_sparse_grads`` and ``ctr_sparse_rows_at`` as the pass
+    cache calls them to keep a copy of the inputs of the first call of each
+    (one real push: the merge's n entries, then B1 on its merged rows);
+    returns the dict that fills ("merge", and "state"/"args"/"kw" for B1),
+    and the function that restores both."""
     from paddle_tpu_torch.ps import embedding_cache as ec
 
-    orig, got = ec.ctr_sparse_rows_at, {}
+    orig, orig_merge, got = ec.ctr_sparse_rows_at, ec.merge_sparse_grads, {}
 
     def capture(state, uniq, show_sum, click_sum, g, **kw):
-        if not got:
+        if "state" not in got:
             got.update(state=tuple(c.clone() for c in state), args=(
                 uniq.clone(), show_sum.clone(), click_sum.clone(), g.clone()), kw=kw)
         return orig(state, uniq, show_sum, click_sum, g, **kw)
 
+    def capture_merge(rows, grads, shows, clicks, capacity):
+        if "merge" not in got:
+            got["merge"] = (rows.clone(), grads.clone(), shows.clone(), clicks.clone(),
+                            capacity)
+        return orig_merge(rows, grads, shows, clicks, capacity)
+
     ec.ctr_sparse_rows_at = capture
+    ec.merge_sparse_grads = capture_merge
 
     def restore():
         ec.ctr_sparse_rows_at = orig
+        ec.merge_sparse_grads = orig_merge
     return got, restore
+
+
+def wd_merge_check(push):
+    """The merge (radix sort + segment walk) on one real Wide&Deep push:
+    card == CPU (``merge_sparse_grads_plain``) bitwise, and reproducible on
+    the card."""
+    from paddle_tpu_torch.ops import hot_kernels as hk
+
+    rows, grads, shows, clicks, C = push["merge"]
+    got = hk.merge_sparse_grads(rows, grads, shows, clicks, C)
+    again = hk.merge_sparse_grads(rows, grads, shows, clicks, C)
+    torch.cuda.synchronize()
+    want = hk.merge_sparse_grads_plain(rows.cpu(), grads.cpu(), shows.cpu(), clicks.cpu(), C)
+    same = all(bitwise_equal(g.cpu(), w) for g, w in zip(got, want))
+    repro = all(bitwise_equal(g, h) for g, h in zip(got, again))
+    u = int((want[0] < C).sum())
+    log(f"merge_sparse_grads, Wide&Deep push: n={int(rows.numel())} entries, width "
+        f"{int(grads.shape[1])}, u={u} distinct rows of {C}: card == CPU bitwise {same}, "
+        f"card run twice bitwise {repro}")
+    if not (same and repro):
+        raise AssertionError("merge_sparse_grads differs from the CPU on the Wide&Deep push")
 
 
 def wd_b1_check(push):
@@ -2273,8 +2307,9 @@ def phase_widedeep(dev, card):
     of pass training (``CtrPassTrainer.train_passes``, the next day's build
     overlapped), each day's final-model AUC, a base save, shrink, spill.
     Checks: losses finite and falling; one B1 launch and one merge a step;
-    B1 bitwise on one real push; hot + cold rows = ``size()``. Then the
-    small card-vs-CPU leg and a save/load round trip on the card."""
+    the merge and B1 bitwise on one real push; hot + cold rows =
+    ``size()``. Then the small card-vs-CPU leg and a save/load round trip
+    on the card."""
     import shutil
     import tempfile
 
@@ -2317,6 +2352,7 @@ def phase_widedeep(dev, card):
             assert counts["ctr_sparse_rows"] == steps, \
                 f"widedeep: B1 launches {counts['ctr_sparse_rows']} != steps {steps}"
             assert counts["merge_sparse_grads"] == steps, f"widedeep: merge launches {counts}"
+            wd_merge_check(push)
             b1 = wd_b1_check(push)
             del push
             # the host's share of a step: one day's batches sliced and
@@ -2533,16 +2569,14 @@ def main(argv):
     # in front of the Pallas call) has torch.sort as its library call.
     # B1's numbers are its in-place form's on the pass push, the call the
     # pass path makes (both forms count in ctr_sparse_rows.launches), and
-    # on a Wide&Deep push in its second entry.
+    # on a Wide&Deep push in ctr_sparse_rows@widedeep.
     b1_src = "paddle_tpu_torch/ops/csrc/ctr_sparse_rows.cu"
     b1_ref = "paddle_tpu/ops/sparse_optimizer.py:203"
     kernels = [
-        dict(entry("ctr_sparse_rows", b1_src, b1_ref, pass_counts["ctr_sparse_rows"], b1),
-             path="pass (DeepFM)"),
+        entry("ctr_sparse_rows", b1_src, b1_ref, pass_counts["ctr_sparse_rows"], b1),
         # B1 again as the Wide&Deep daily loop launches it (phase 12): its
         # launches there, its numbers on one of that path's pushes
-        dict(entry("ctr_sparse_rows", b1_src, b1_ref, wd_counts["ctr_sparse_rows"], wd_b1),
-             path="widedeep daily"),
+        entry("ctr_sparse_rows@widedeep", b1_src, b1_ref, wd_counts["ctr_sparse_rows"], wd_b1),
         entry("hot_probe_gather", hot_src, "paddle_tpu/ops/hot_kernels.py:116",
               hot_counts["hot_probe_gather"], b2),
         entry("hot_probe", hot_src, "paddle_tpu/ops/hot_kernels.py:212",

@@ -38,6 +38,7 @@ _SOURCES = tuple(os.path.join(_CSRC, f)
                  for f in ("sparse_index.cc", "cuckoo.cc", "slot_parser.cc"))
 _SSD_SOURCES = tuple(os.path.join(_CSRC, f) for f in ("ssd_table.cc", "sparse_table.h"))
 _LOCK = threading.Lock()
+_SSD_LOCK = threading.Lock()  # its own, so the two builds run side by side
 _LIB: Optional[ctypes.CDLL] = None
 _SSD_LIB: Optional[ctypes.CDLL] = None
 
@@ -71,7 +72,7 @@ def load_ssd() -> ctypes.CDLL:
     """Build (first use) and load the SSD tier's library; raises on
     failure (a missing zlib included)."""
     global _SSD_LIB
-    with _LOCK:
+    with _SSD_LOCK:
         if _SSD_LIB is None:
             lib = ctypes.CDLL(build_shared_library("paddle_tpu_torch_ssd", _SSD_SOURCES,
                                                    _gxx_ssd_command))

@@ -103,7 +103,6 @@ class TableConfig:
     shard_num: int = 16
     accessor_config: Optional[AccessorConfig] = None
     seed: int = 0
-    table_id: int = 0
     accessor: str = "ctr"
     # "memory" = MemorySparseTable; "ssd" = SsdSparseTable (needs ssd_path)
     storage: str = "memory"

@@ -272,10 +272,12 @@ def test_trainer_checkpoints_cross_load(tmp_path):
         t2 = port_trainer(str(tmp_path / "t2"), *start)
         j2 = jax_trainer(str(tmp_path / "j2"))
         j3 = jax_trainer(str(tmp_path / "j3"))
+        t3 = port_trainer(str(tmp_path / "t3"), *start)
         try:
             t2.load(str(tmp_path / "jsave"))
             j2.load(str(tmp_path / "tsave"))
             j3.load(str(tmp_path / "jsave"))
+            t3.load(str(tmp_path / "tsave"))
             for k, v in jtr.params["params"].items():
                 v = np.asarray(v)
                 assert np.array_equal(t2.params[k].numpy(), v.T if v.ndim == 2 else v), k
@@ -285,13 +287,18 @@ def test_trainer_checkpoints_cross_load(tmp_path):
                     jm = np.asarray(jtr.opt_state["slots"][slot]["params"][k])
                     assert np.array_equal(t2.opt_state[slot][k].numpy(),
                                           jm.T if jm.ndim == 2 else jm), (slot, k)
+                    jm = np.asarray(j2.opt_state["slots"][slot]["params"][k])
+                    assert np.array_equal(jm.T if jm.ndim == 2 else jm,
+                                          tr.opt_state[slot][k].numpy()), (slot, k)
             assert int(t2.opt_state["step"]) == int(jtr.opt_state["step"])
             assert int(np.asarray(j2.opt_state["step"])) == int(tr.opt_state["step"])
             keys = _pass_keys(port_days()[:1])
             assert np.array_equal(t2.table.export_full(keys)[0], j3.table.export_full(keys)[0])
             assert t2.table.digest() == j3.table.digest()
+            assert np.array_equal(j2.table.export_full(keys)[0], t3.table.export_full(keys)[0])
+            assert j2.table.digest() == t3.table.digest()
         finally:
-            for t in (t2.table, j2.table, j3.table):
+            for t in (t2.table, j2.table, j3.table, t3.table):
                 t.close()
     finally:
         tr.table.close()
