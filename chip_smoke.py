@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Needs one CUDA device, ``g++`` (and zlib) and ``nvcc``; builds the host
-library, the SSD tier's library and the three CUDA kernel libraries from
-the checkout at first use, in parallel (into
-``paddle_tpu_torch/_build/``). Exits non-zero, with no
+library, the SSD tier's library (which holds the PS service too) and the
+three CUDA kernel libraries from the checkout at first use, in parallel
+(into ``paddle_tpu_torch/_build/``). Phase 13 starts PS servers on
+127.0.0.1 (ephemeral ports) and closes them. Exits non-zero, with no
 result line, when there is no CUDA device, when the package is missing,
 or when any phase fails. Phases:
 
@@ -102,9 +103,23 @@ or when any phase fails. Phases:
    spill (hot + cold = size); then card vs CPU at a small size and a
    trainer save/load round trip on the card (a Wide&Deep step's device
    kernels are counted at the end, with the other profiler windows);
-13. the ``kernels`` JSON line (B1 twice: ``ctr_sparse_rows`` on the pass
-   path, ``ctr_sparse_rows@widedeep`` on phase 12's), then the card line,
-   then the result line.
+13. the the_one_ps rung (BASELINE.md config 3, as
+   ``tools/sparse_hot_bench.py`` runs it): phase 4's DeepFM and data
+   trained by ``CtrStreamTrainer(communicator=HalfAsyncCommunicator(
+   RpcPsClient(...)), table_id=0)`` against two in-process
+   ``NativePsServer``s on 127.0.0.1 (a 16-shard table), two epochs,
+   RPC-only (no table kernel; wire pull/push and step ms a step, client ops
+   a step) and over ``HotTierConfig(capacity=2^19)`` on fresh servers (one
+   B2 and one B4 a step; a warm epoch with no miss, no cold fetch and no
+   table RPC); losses falling; after the flush the servers hold the data's
+   distinct keys; B2 and B4 bitwise against their plain versions on one
+   real batch of the tier leg and timed there; then, small (3 slots, 400
+   ids, capacity 224, ``SyncCommunicator``), tier over RPC ≡ RPC-only over
+   RPC bitwise on the card, and card vs CPU;
+14. the ``kernels`` JSON line (B1 twice: ``ctr_sparse_rows`` on the pass
+   path, ``ctr_sparse_rows@widedeep`` on phase 12's; B2 and B4 twice:
+   ``hot_probe_gather``/``hot_scatter_apply`` on the hot path,
+   ``...@rpc`` on phase 13's), then the card line, then the result line.
 
 ``--profile DIR`` also runs two more pass-path slabs, two more warm
 batches of each hot path and two more ERNIE steps under torch.profiler (after the
@@ -559,6 +574,19 @@ def probe_batch(dev):
     return resident, probe, th, tl, tier_columns(rng, "adagrad", "adagrad", dev)
 
 
+def probe_gather_bytes(ms, th, tl, found, banks):
+    """(bytes B2 must move on these keys, buckets probed): the key; each
+    probed bucket's hi/lo/row sector (32 B each; a resident key usually
+    stops at its first bucket); the matched row (embed_w 4 B + embedx_w
+    32 B); the outputs."""
+    from paddle_tpu_torch.ps.device_hash import dynamic_map_lookup
+
+    n = int(th.numel())
+    first = dynamic_map_lookup(ms, th, tl, 1, banks) >= 0
+    buckets = n + int((~first).sum())
+    return n * 8 + buckets * 3 * 32 + found * 4 * (1 + DIM) + n * 4 * (2 + DIM), buckets
+
+
 def phase_hot_probe(dev):
     """``hot_probe_gather`` (B2) and ``hot_probe`` (B3) at the hot paths'
     shapes: 106,496 probes (one batch's keys: ~80 % resident with
@@ -594,12 +622,8 @@ def phase_hot_probe(dev):
             f"max_abs={err} (stated bound: bitwise) map build {build_s:.2f} s (host)")
         if not (bitwise and host_ok):
             raise AssertionError(f"hot_probe_gather disagrees (banks={banks})")
-        # bytes the data needs: the key; each probed bucket's hi/lo/row
-        # sector (32 B each; a resident key usually stops at its first
-        # bucket); the matched row (embed_w 4 B + embedx_w 32 B); outputs
         first = dynamic_map_lookup(ms, th, tl, 1, banks) >= 0
-        buckets = n + int((~first).sum())
-        nbytes = n * 8 + buckets * 3 * 32 + found * 4 * (1 + DIM) + n * 4 * (2 + DIM)
+        nbytes, buckets = probe_gather_bytes(ms, th, tl, found, banks)
         ms_k, call_k = time_cuda(lambda: hot_probe_gather(ms, th, tl, tier, **kw))
         ms_p, call_p = time_cuda(lambda: hot_probe_gather_plain(ms, th, tl, tier, **kw))
         bound = nbytes / HBM_BYTES_PER_S * 1e3
@@ -907,6 +931,20 @@ def hot_path_push(rng, dev):
     return [torch.from_numpy(a).to(dev) for a in arrays]
 
 
+def scatter_bound(n, u, cfg):
+    """(bytes, f32 ops, bytes ms, ops ms) of B4 on n entries touching u
+    rows under ``cfg``'s rules: each entry's row, perm, show, click and
+    gradient and the sort's 8 B; each touched row's seven columns read and
+    written."""
+    from paddle_tpu_torch.ops.sparse_optimizer import rule_state_dim
+
+    es, xs = rule_state_dim(cfg.embed_rule, 1), rule_state_dim(cfg.embedx_rule, DIM)
+    row_floats = 4 + es + DIM + xs  # show, click, embed_w, has_embedx + the rest
+    nbytes = n * (4 + 4 + 4 + 4 * (1 + DIM) + 8) + u * row_floats * 4 * 2
+    nops = kernel_ops(u, DIM, cfg.embed_rule, cfg.embedx_rule) + n * (3 + DIM)
+    return nbytes, nops, nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
+
+
 def time_scatter(args, what):
     """Device times of ``hot_scatter_apply`` (and the merge) on ``args``
     beside the byte bound of what these rows need; host issue per call."""
@@ -927,11 +965,7 @@ def time_scatter(args, what):
         rows64, *args[1:], HOT_CAP))
     host_k = host_issue_ms(lambda: hk.hot_scatter_apply(tier, *args, cfg))
     host_m = host_issue_ms(lambda: hk.merge_sparse_grads(rows64, *args[1:], HOT_CAP))
-    row_floats = 1 + 1 + 1 + 1 + DIM + 1 + 1  # the seven adagrad columns
-    nbytes = n * (4 + 4 + 4 + 4 * (1 + DIM) + 8) + u * row_floats * 4 * 2
-    nops = kernel_ops(u, DIM, "adagrad", "adagrad") + n * (3 + DIM)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = nops / FP32_OPS_PER_S * 1e3
+    nbytes, nops, bytes_ms, ops_ms = scatter_bound(n, u, cfg)
     log(f"kernel hot_scatter_apply adagrad/adagrad, {what}: n={n} u={u} "
         f"longest_segment={longest}: device {ms_k} ms (the radix sort inside it: "
         f"{sort_ms} ms), plain {ms_p} ms, bound {max(bytes_ms, ops_ms)} ms ({nbytes} B, "
@@ -2501,6 +2535,330 @@ def wd_kernel_counts(dev):
         table.close()
 
 
+# -- phase 13: the the_one_ps rung ---------------------------------------------
+
+# BASELINE.md config 3 in the_one_ps mode, as tools/sparse_hot_bench.py runs
+# it: two in-process NativePsServers on 127.0.0.1 behind an RpcPsClient, a
+# HalfAsyncCommunicator (pull-ahead 1) and CtrStreamTrainer, RPC-only and
+# over the hot tier, at the hot path's width and on its data (phase 4): a
+# 16-shard CTR table, DeepFM 26 slots x dim 8, DNN 400^3, batch 4096, two
+# epochs of 16 batches.
+RPC_SERVERS, RPC_TABLE_SHARDS = 2, 16
+
+
+def rpc_cluster(shard_num=RPC_TABLE_SHARDS, acc=None):
+    """Fresh servers and a client with sparse table 0 on them: (servers,
+    client). ``acc`` defaults to the hot path's accessor."""
+    from paddle_tpu_torch.ps.accessor import AccessorConfig
+    from paddle_tpu_torch.ps.rpc import NativePsServer, RpcPsClient
+    from paddle_tpu_torch.ps.table import TableConfig
+
+    servers = [NativePsServer(n_trainers=1) for _ in range(RPC_SERVERS)]
+    client = None
+    try:
+        client = RpcPsClient([f"127.0.0.1:{s.port}" for s in servers])
+        client.create_sparse_table(0, TableConfig(
+            table_id=0, shard_num=shard_num,
+            accessor_config=acc or AccessorConfig(embedx_dim=DIM, embedx_threshold=0.0)))
+    except BaseException:
+        close_cluster(servers, client)
+        raise
+    return servers, client
+
+
+def close_cluster(servers, client):
+    """The client first: a connection to a stopped server waits out its
+    deadline."""
+    if client is not None:
+        client.close()
+    for s in servers:
+        s.close()
+
+
+def capture_hot_step():
+    """Wrap ``hot_probe_gather`` and ``hot_scatter_apply`` as the hot step
+    calls them: once armed (``got["armed"] = True``), the next call of each
+    keeps a copy of its inputs (the tier state before the push). Returns
+    the dict that fills ("b2", "b4") and the function that restores both."""
+    from paddle_tpu_torch.ps import hot_tier as ht
+
+    b2, b4, got = ht.hot_probe_gather, ht.hot_scatter_apply, {"armed": False}
+    clone = lambda d: {k: v.clone() for k, v in d.items()}
+
+    def probe(map_state, hi, lo, tier_state, **kw):
+        if got["armed"] and "b2" not in got:
+            got["b2"] = (clone(map_state), hi.clone(), lo.clone(), clone(tier_state), kw)
+        return b2(map_state, hi, lo, tier_state, **kw)
+
+    def push(state, rows, grads, shows, clicks, cfg):
+        if got["armed"] and "b4" not in got:
+            got["b4"] = (clone(state), rows.clone(), grads.clone(), shows.clone(),
+                         clicks.clone(), cfg)
+        return b4(state, rows, grads, shows, clicks, cfg)
+
+    ht.hot_probe_gather, ht.hot_scatter_apply = probe, push
+
+    def restore():
+        ht.hot_probe_gather, ht.hot_scatter_apply = b2, b4
+    return got, restore
+
+
+def dataset_keys(ds):
+    """Every distinct slot-tagged feasign of ``ds``."""
+    from paddle_tpu_torch.ps.ps_trainer import _slot_tagged_keys
+
+    names = slot_names(SLOTS, DENSE)["sparse_slots"]
+    return np.unique(np.concatenate([_slot_tagged_keys(b, names).reshape(-1)
+                                     for b in ds.batch_iter(8192, drop_last=False)]))
+
+
+def phase_rpc_leg(dev, card, ds, hot):
+    """One leg of the rung on fresh servers: ``CtrStreamTrainer(
+    communicator=HalfAsyncCommunicator(client), table_id=0)``, RPC-only
+    (every batch pulls and pushes its 106,496 keys over the wire) or over
+    ``HotTierConfig(capacity=2^19)`` (the cold epoch fills the tier through
+    ``RemoteSparseTable.export_full(create=True)`` on the pull workers; one
+    B2 and one B4 a step). Checks losses finite and falling, the launches,
+    and after the flush the servers' rows = the data's distinct keys (and,
+    over the tier, its occupancy); over the tier, a warm epoch with no miss,
+    no cold fetch and no table RPC. Returns (launch counts, warm samples/s,
+    the captured batch or None)."""
+    import threading
+
+    from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.ps.communicator import HalfAsyncCommunicator
+    from paddle_tpu_torch.ps.hot_tier import HotTierConfig
+    from paddle_tpu_torch.ps.ps_trainer import CtrStreamTrainer
+
+    name = "the_one_ps, hot tier" if hot else "the_one_ps, RPC-only"
+    servers, client = rpc_cluster()
+    comm = HalfAsyncCommunicator(client)
+    got, restore = capture_hot_step() if hot else ({}, lambda: None)
+    try:
+        comm.start()
+        model = DeepFM(CtrConfig(SLOTS, DENSE, DIM, (400, 400, 400)),
+                       generator=torch.Generator().manual_seed(0))
+        trainer = CtrStreamTrainer(model, Adam(learning_rate=1e-3), None, communicator=comm,
+                                   table_id=0, embedx_dim=DIM,
+                                   hot_tier=HotTierConfig(capacity=HOT_CAP) if hot else None,
+                                   device=dev, **slot_names(SLOTS, DENSE))
+        assert trainer.pull_ahead == 1, trainer.pull_ahead
+        keys = ("ensure", "device_state", "step") if hot else ("wire pull", "wire push",
+                                                                "step")
+        host_s, mu = dict.fromkeys(keys, 0.0), threading.Lock()
+
+        def timed(key, fn):
+            def wrapped(*a, **k):
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                with mu:  # the wire calls run on the pull workers and the push thread
+                    host_s[key] += time.perf_counter() - t
+                return out
+            return wrapped
+
+        tier = trainer.hot_tier
+        if hot:
+            tier.ensure = timed("ensure", tier.ensure)
+            tier.device_map.device_state = timed("device_state", tier.device_map.device_state)
+            trainer._hot_step = timed("step", trainer._hot_step)
+        else:
+            client.pull_sparse = timed("wire pull", client.pull_sparse)
+            client.push_sparse = timed("wire push", client.push_sparse)
+            trainer._step = timed("step", trainer._step)
+
+        torch.cuda.synchronize()
+        reset_launches()
+        results = []
+        for epoch in range(HOT_EPOCHS):
+            before = dict(tier.stats()) if hot else {}
+            for k in host_s:
+                host_s[k] = 0.0
+            client.reset_op_counts()
+            got["armed"] = epoch == HOT_EPOCHS - 1  # one batch of the warm epoch
+            t0 = time.perf_counter()
+            r = trainer.train_from_dataset(ds, batch_size=BATCH)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ops = client.reset_op_counts()
+            steps = int(r["steps"])
+            delta = {k: r["hot_tier"][k] - before[k] for k in (
+                "hits", "misses", "cold_fetches", "evictions", "writebacks")} if hot else {}
+            log(f"{name} epoch {epoch}: {steps} steps, mean loss {r['loss']:.6f}, "
+                f"{steps * BATCH / wall:.1f} samples/s ({1e3 * wall / steps:.3f} ms/step, "
+                f"the closing barrier included); host ms/step: "
+                + ", ".join(f"{k} {1e3 * v / steps:.3f}" for k, v in host_s.items())
+                + f"; client ops/step {({k: v / steps for k, v in sorted(ops.items())})}"
+                + (f"; tier {delta}, occupancy {r['hot_tier']['occupancy']}" if hot else "")
+                + f" on {card}")
+            results.append((r, delta, ops, wall))
+        counts = read_launches()
+        steps = sum(int(r["steps"]) for r, *_ in results)
+        log(f"{name}: {steps} steps, launches {counts}")
+        (first, _, ops0, _), (warm, warm_delta, warm_ops, warm_wall) = results
+        assert all(np.isfinite(r["loss"]) for r, *_ in results), f"{name}: non-finite loss"
+        assert warm["loss"] < first["loss"], f"{name}: warm epoch loss did not fall"
+        if hot:
+            assert counts["hot_probe_gather"] == steps and counts["hot_scatter_apply"] == steps, \
+                f"{name}: B2/B4 launches {counts} != {steps} steps"
+            assert warm_delta["misses"] == 0 and warm_delta["cold_fetches"] == 0, \
+                f"{name}: warm epoch left the tier: {warm_delta}"
+            assert warm_ops == {}, f"{name}: warm epoch made table RPCs: {warm_ops}"
+            assert ops0.get("export_full", 0) > 0, f"{name}: cold epoch fetched nothing {ops0}"
+        else:
+            assert sum(counts.values()) == 0, f"{name}: a table kernel launched: {counts}"
+            n_b = int(first["steps"])
+            assert ops0["pull_sparse"] == n_b and 1 <= ops0["push_sparse"] <= n_b, ops0
+        warm_sps = float(warm["samples"]) / warm_wall
+
+        want = len(dataset_keys(ds))
+        n_flushed = tier.flush() if hot else 0
+        comm.barrier()
+        size = client.size(0)
+        occupancy = tier.stats()["occupancy"] if hot else want
+        log(f"{name}: flush wrote {n_flushed} rows back; the servers hold {size} rows, the "
+            f"data has {want} distinct keys" + (f", the tier {occupancy}" if hot else ""))
+        assert size == want == occupancy, f"{name}: rows {size}, keys {want}, tier {occupancy}"
+        log(f"{name}: warm epoch {warm_sps:.1f} samples/s on {card}")
+        comm.stop()
+        return counts, warm_sps, (got if hot else None)
+    finally:
+        restore()
+        close_cluster(servers, client)
+
+
+def rpc_b2_check(b2):
+    """B2 on the captured batch, bitwise against its plain version, then
+    timed beside it and its byte bound."""
+    from paddle_tpu_torch.ops.hot_kernels import hot_probe_gather, hot_probe_gather_plain
+
+    ms, th, tl, tier, kw = b2
+    got = hot_probe_gather(ms, th, tl, tier, **kw)
+    torch.cuda.synchronize()
+    want = hot_probe_gather_plain(ms, th, tl, tier, **kw)
+    ok = all(bitwise_equal(g, w) for g, w in zip(got, want))
+    err = max_abs(got[1], want[1])
+    n, found = int(th.numel()), int((got[0] >= 0).sum())
+    if not ok:
+        raise AssertionError(f"B2 disagrees with plain on the the_one_ps batch (max_abs {err})")
+    nbytes, buckets = probe_gather_bytes(ms, th, tl, found, kw["banks"])
+    ms_k, call_k = time_cuda(lambda: hot_probe_gather(ms, th, tl, tier, **kw))
+    ms_p, call_p = time_cuda(lambda: hot_probe_gather_plain(ms, th, tl, tier, **kw))
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"kernel hot_probe_gather, the_one_ps batch: n={n} found={found} bitwise={ok} "
+        f"max_abs={err}; device {ms_k} ms, plain {ms_p} ms, bound {bound} ms (bytes: {nbytes} "
+        f"B, {buckets} buckets probed); per call from an idle card {call_k} ms, plain "
+        f"{call_p} ms")
+    return {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
+            "bound_by": "bytes"}
+
+
+def rpc_b4_check(b4):
+    """B4 on the captured batch, bitwise against its plain version on the
+    CPU copy, then timed beside the plain version on the card and the
+    bound."""
+    from paddle_tpu_torch.ops import hot_kernels as hk
+
+    state, rows, grads, shows, clicks, cfg = b4
+    got = hk.hot_scatter_apply({k: v.clone() for k, v in state.items()}, rows, grads, shows,
+                               clicks, cfg)
+    torch.cuda.synchronize()
+    want = hk.hot_scatter_apply({k: v.cpu() for k, v in state.items()}, rows.cpu(),
+                                grads.cpu(), shows.cpu(), clicks.cpu(), cfg)
+    ok = all(bitwise_equal(got[k].cpu(), want[k]) for k in COLUMNS)
+    err = max(max_abs(got[k].cpu(), want[k]) for k in COLUMNS)
+    if not ok:
+        raise AssertionError(f"B4 disagrees with plain on the the_one_ps batch (max_abs {err})")
+    n, C = int(rows.numel()), int(state["embed_w"].shape[0])
+    u = int(torch.unique(rows[(rows >= 0) & (rows < C)]).numel())
+    nbytes, nops, bytes_ms, ops_ms = scatter_bound(n, u, cfg)
+    work = {k: v.clone() for k, v in state.items()}
+    ms_k, call_k = time_cuda(lambda: hk.hot_scatter_apply(work, rows, grads, shows, clicks,
+                                                           cfg))
+    ms_p, call_p = time_cuda(lambda: hk.hot_scatter_apply_plain(work, rows, grads, shows,
+                                                                clicks, cfg))
+    log(f"kernel hot_scatter_apply {cfg.embed_rule}/{cfg.embedx_rule}, the_one_ps batch: n={n} "
+        f"u={u}: bitwise={ok} max_abs={err}; device {ms_k} ms, plain {ms_p} ms, bound "
+        f"{max(bytes_ms, ops_ms)} ms ({nbytes} B, {nops} f32 ops); per call from an idle card "
+        f"{call_k} ms, plain {call_p} ms")
+    return {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def small_rpc_run(device, weights, lines, hot):
+    """The small hot-tier harness (phase 5's: 3 slots, 400 ids a slot,
+    capacity 224 for eviction churn, batch 64) through a SyncCommunicator
+    over fresh servers (a 4-shard table, rows created with
+    ``initial_range=0``), with the tier (``hot``) or RPC-only: (loss,
+    params, opt state, sorted server rows, tier stats)."""
+    from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.ps.accessor import AccessorConfig
+    from paddle_tpu_torch.ps.communicator import SyncCommunicator
+    from paddle_tpu_torch.ps.hot_tier import HotTierConfig
+    from paddle_tpu_torch.ps.ps_trainer import CtrStreamTrainer
+    from paddle_tpu_torch.ps.sgd_rule import SGDRuleConfig
+
+    servers, client = rpc_cluster(4, AccessorConfig(sgd=SGDRuleConfig(initial_range=0.0)))
+    try:
+        comm = SyncCommunicator(client)
+        comm.start()
+        opt = Adam(1e-2)
+        tr = CtrStreamTrainer(DeepFM(CtrConfig(3, 2, 8, (8,))), opt, None, communicator=comm,
+                              table_id=0, embedx_dim=8,
+                              hot_tier=HotTierConfig(capacity=224) if hot else None,
+                              device=device, **slot_names(3, 2))
+        tr.params = {k: v.to(device) for k, v in weights.items()}
+        tr.opt_state = opt.init(tr.params)
+        r = tr.train_from_dataset(ctr_dataset(lines, 3, 2), batch_size=64)
+        if hot:
+            tr.hot_tier.flush()
+        comm.stop()
+        keys, rows = client.snapshot_items(0)
+        cpu = lambda d: {k: v.cpu() for k, v in d.items()}
+        opt_state = {"step": tr.opt_state["step"].cpu(), "m": cpu(tr.opt_state["m"]),
+                     "v": cpu(tr.opt_state["v"])}
+        return r["loss"], cpu(tr.params), opt_state, rows[np.argsort(keys)], r.get("hot_tier")
+    finally:
+        close_cluster(servers, client)
+
+
+def phase_rpc_parity(dev):
+    """Tier over RPC ≡ RPC-only over RPC, bitwise on the card (JAX's
+    contract, tests/test_hot_tier.py), and card vs CPU within phase 5's
+    bounds."""
+    from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
+
+    lines = ctr_lines(np.random.default_rng(0), 256, 400, 3, 2)
+    weights = {k: v.detach() for k, v in
+               DeepFM(CtrConfig(3, 2, 8, (8,)),
+                      generator=torch.Generator().manual_seed(2)).named_parameters()}
+    reset_launches()
+    tier = small_rpc_run(dev, weights, lines, hot=True)
+    counts = read_launches()
+    assert counts["hot_probe_gather"] == 4 and counts["hot_scatter_apply"] == 4, counts
+    assert tier[4]["evictions"] > 0 and tier[4]["writebacks"] > 0, "no eviction churn"
+    assert_hot_runs_bitwise(tier, small_rpc_run(dev, weights, lines, hot=False),
+                            "card, tier over RPC (capacity 224) vs RPC-only over RPC")
+    assert_card_close_to_cpu(tier, small_rpc_run(torch.device("cpu"), weights, lines, True),
+                             "the_one_ps parity")
+
+
+def phase_rpc(dev, card, ds):
+    """Phase 13: the RPC-only leg, the tier leg (B2 and B4 on one of its
+    real batches), the small card parity. Returns (the tier leg's launch
+    counts, B2's numbers, B4's numbers)."""
+    t0 = time.perf_counter()
+    phase_rpc_leg(dev, card, ds, hot=False)
+    counts, _, got = phase_rpc_leg(dev, card, ds, hot=True)
+    b2, b4 = rpc_b2_check(got["b2"]), rpc_b4_check(got["b4"])
+    del got
+    phase_rpc_parity(dev)
+    log(f"the_one_ps rung (phase 13): {time.perf_counter() - t0:.1f} s")
+    return counts, b2, b4
+
+
 def main(argv):
     profile_dir = None
     if argv[:1] == ["--profile"] and len(argv) == 2:
@@ -2522,9 +2880,9 @@ def main(argv):
     log(f"device: {name} | nvidia-smi: {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     host_s, ssd_s, kern_s, hot_s, flash_s = build_all()
-    log(f"build: host library {host_s:.2f} s, SSD tier (zlib) {ssd_s:.2f} s, ctr_sparse_rows "
-        f"{kern_s:.2f} s, hot_kernels {hot_s:.2f} s, flash_attention {flash_s:.2f} s (two g++ "
-        f"and three nvcc in parallel)")
+    log(f"build: host library {host_s:.2f} s, SSD tier + PS service (zlib) {ssd_s:.2f} s, "
+        f"ctr_sparse_rows {kern_s:.2f} s, hot_kernels {hot_s:.2f} s, flash_attention "
+        f"{flash_s:.2f} s (two g++ and three nvcc in parallel)")
 
     b1, k = phase_kernel(dev)
     log(f"kernel ctr_sparse_rows adagrad/adagrad n={BATCH * SLOTS}: device {k['ms']} ms "
@@ -2538,7 +2896,6 @@ def main(argv):
     ds = hot_dataset()
     hot_counts, _ = phase_hot_path(dev, card, ds, profile_dir)
     sharded_counts, _ = phase_hot_path(dev, card, ds, profile_dir, shards=SHARDS)
-    del ds
     phase_parity(dev)
     phase_hot_parity(dev)
     phase_sharded_parity(dev)
@@ -2549,6 +2906,8 @@ def main(argv):
     phase_lenet(dev, card)
     phase_vision_parity(dev)
     wd_counts, wd_b1 = phase_widedeep(dev, card)
+    rpc_counts, rpc_b2, rpc_b4 = phase_rpc(dev, card, ds)
+    del ds
     phase_kernel_counts(dev)
     wd_kernel_counts(dev)
     phase_resnet_kernel_counts(resnets, resnet_batch, profile_dir)
@@ -2590,7 +2949,13 @@ def main(argv):
         entry("flash_attention_bwd_dq", fa_src, f"{fa_ref}:176",
               ernie_counts["flash_attention_bwd_dq"], fa["dq"]),
         entry("flash_attention_bwd_dkv", fa_src, f"{fa_ref}:221",
-              ernie_counts["flash_attention_bwd_dkv"], fa["dkv"])]
+              ernie_counts["flash_attention_bwd_dkv"], fa["dkv"]),
+        # B2 and B4 again as the the_one_ps rung's tier leg launches them
+        # (phase 13): its launches there, their numbers on one of its batches
+        entry("hot_probe_gather@rpc", hot_src, "paddle_tpu/ops/hot_kernels.py:116",
+              rpc_counts["hot_probe_gather"], rpc_b2),
+        entry("hot_scatter_apply@rpc", hot_src, "paddle_tpu/ops/hot_kernels.py:278",
+              rpc_counts["hot_scatter_apply"], rpc_b4)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

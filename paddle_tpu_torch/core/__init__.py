@@ -1,1 +1,1 @@
-"""Core helpers: error types and device resolution."""
+"""Core helpers: error types, device resolution, meshes and flags."""

@@ -14,6 +14,7 @@ __all__ = [
     "InvalidArgumentError",
     "NotFoundError",
     "PreconditionNotMetError",
+    "PsTransportError",
     "UnavailableError",
     "enforce",
     "enforce_eq",
@@ -35,6 +36,13 @@ class NotFoundError(EnforceNotMet, KeyError):
 
 class PreconditionNotMetError(EnforceNotMet):
     pass
+
+
+class PsTransportError(PreconditionNotMetError):
+    """A PS connection died (reset, refused or past its deadline): the
+    framed stream is undefined and the server may be gone. Distinct from
+    a server's rejection of a request (``PreconditionNotMetError``,
+    ``NotFoundError``), which leaves the connection usable."""
 
 
 class UnavailableError(EnforceNotMet):

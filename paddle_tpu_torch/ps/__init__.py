@@ -1,1 +1,1 @@
-"""Parameter-server layer of the port: host table, device cache, key map."""
+"""Parameter-server layer of the port: host tables, device cache and key map, the PS client, its RPC transport and the communicator."""

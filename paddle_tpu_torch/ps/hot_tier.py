@@ -38,18 +38,25 @@ the tier-less trainer's dense params and table rows EXACTLY, through
 eviction churn, except ``delta_score`` (save column 2), which folds per
 flush instead of per push.
 
+The cold store may be a local table or a ``ps.rpc.RemoteSparseTable``
+(sparse rows on PS servers): the tier reads only ``export_full``,
+``import_full`` and ``accessor``. :meth:`HotEmbeddingTier.prefetch` with a
+communicator runs the cold fetch on the communicator's pull workers, so it
+overlaps the steps in front of the batch.
+
 PyTorch idiom: the tier state and the map's device arrays are updated IN
 PLACE (``index_copy_`` / ``index_put_`` and the kernels) where the JAX
 package returned fresh arrays; admission needs no power-of-two padding
 (there is no compiled shape to reuse). Counters are a plain dict. The
-tier is single-threaded: the trainer's step loop owns it.
-
-Not ported here: the communicator-backed prefetch.
+tier's state and control plane are single-threaded: the trainer's step
+loop owns them (a prefetch only reads the host mirror on that thread and
+fetches elsewhere).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from concurrent.futures import Future
 from typing import Any, Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
@@ -58,7 +65,7 @@ from torch import nn
 from torch.func import functional_call
 
 from ..core.device import resolve_device
-from ..core.enforce import UnavailableError, enforce
+from ..core.enforce import enforce
 from ..core.mesh import Mesh, mesh_axis_size
 from ..nn import functional as F
 from ..ops.hot_kernels import hot_probe, hot_probe_gather, hot_scatter_apply
@@ -187,7 +194,7 @@ class HotEmbeddingTier:
         self._freq = np.zeros(C, np.int64)
         self._tick = np.zeros(C, np.int64)
         self._clock = 0
-        self._prefetched: Dict[int, tuple] = {}  # token → (missing keys, rows)
+        self._prefetched: Dict[int, Future] = {}  # token → future of (missing keys, rows)
         self.counters: Dict[str, int] = dict.fromkeys(_COUNTERS, 0)
         self._reset_resident_set()
 
@@ -234,21 +241,30 @@ class HotEmbeddingTier:
     # -- miss prefetch ----------------------------------------------------
 
     def prefetch(self, keys: np.ndarray, communicator=None) -> None:
-        """Fetch the cold rows of ``keys``'s non-resident ids now, so a
-        later :meth:`ensure` of the same batch takes them without a
-        fetch of its own. Fetch only — no tier mutation. The
-        communicator-backed (overlapped) form is not ported yet."""
-        enforce(communicator is None,
-                "HotEmbeddingTier.prefetch: the communicator-backed prefetch "
-                "is not ported yet (ROADMAP A8)", UnavailableError)
+        """Issue the cold fetch of ``keys``'s non-resident ids now — on the
+        communicator's pull workers (``communicator.fetch_async``), or in
+        line without one — so a later :meth:`ensure` of the same batch
+        takes the rows without a fetch of its own. Fetch only, no tier
+        mutation, so it runs ahead of the steps. Creation order stays
+        deterministic only without overlapping prefetches (the sync trainer
+        issues none)."""
         keys = np.ascontiguousarray(keys, np.uint64)
         missing, slots = self._missing_of(keys)
         if len(missing) == 0:
             return
-        values, _ = self.table.export_full(missing, create=self.config.create_on_miss,
-                                           slots=slots)
+
+        def fetch():
+            values, _ = self.table.export_full(missing, create=self.config.create_on_miss,
+                                               slots=slots)
+            return missing, values
+
+        if communicator is not None:
+            fut = communicator.fetch_async(fetch)
+        else:
+            fut = Future()
+            fut.set_result(fetch())
         self.counters["cold_fetches"] += 1
-        self._prefetched[self._batch_token(keys)] = (missing, values)
+        self._prefetched[self._batch_token(keys)] = fut
 
     @staticmethod
     def _batch_token(keys: np.ndarray) -> int:
@@ -293,7 +309,7 @@ class HotEmbeddingTier:
             if pre is not None:
                 # the resident set may have moved since the prefetch; only
                 # still-missing keys take the fetched rows
-                missing, values = pre
+                missing, values = pre.result()
                 still = self.device_map.lookup_host(missing) < 0
                 self._admit(missing[still], values[still], keys)
                 rows = self.device_map.lookup_host(keys)

@@ -16,6 +16,13 @@ without it fails only the paths that open an SSD table. Only what the
 pass trainer's daily loop calls is bound (:class:`SsdTableEngine`); the
 engine's admission sketch, IO budget, background compaction and
 streaming file save/load are not (ROADMAP Queue A).
+
+The PS service (``ps_service.cc`` with ``graph_store.h``, the port's
+copies of the TCP server and client of ``ps.rpc``) calls the SSD
+engine's ``sst_*`` and zlib, so it builds into the same second library,
+and :func:`load_ssd` loads both. Only the server lifecycle, the
+connection and the scatter-gather call (``psc_callv``) are bound. The replication, serving, fault and
+tenancy symbols are in the library but not bound (ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -36,7 +43,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
                      "csrc")
 _SOURCES = tuple(os.path.join(_CSRC, f)
                  for f in ("sparse_index.cc", "cuckoo.cc", "slot_parser.cc"))
-_SSD_SOURCES = tuple(os.path.join(_CSRC, f) for f in ("ssd_table.cc", "sparse_table.h"))
+_SSD_SOURCES = tuple(os.path.join(_CSRC, f) for f in ("ssd_table.cc", "ps_service.cc",
+                                                      "sparse_table.h", "graph_store.h"))
 _LOCK = threading.Lock()
 _SSD_LOCK = threading.Lock()  # its own, so the two builds run side by side
 _LIB: Optional[ctypes.CDLL] = None
@@ -51,9 +59,9 @@ def _gxx_command(out: str):
 
 
 def _gxx_ssd_command(out: str):
-    # the header joins the build's digest (_SSD_SOURCES), not the argv
+    # the headers join the build's digest (_SSD_SOURCES), not the argv
     return ["g++", "-O3", "-ffp-contract=off", "-std=c++17", "-fPIC",
-            "-shared", "-o", out, _SSD_SOURCES[0], "-lpthread", "-lz"]
+            "-shared", "-o", out, *_SSD_SOURCES[:2], "-lpthread", "-lz"]
 
 
 def load_native() -> ctypes.CDLL:
@@ -69,14 +77,15 @@ def load_native() -> ctypes.CDLL:
 
 
 def load_ssd() -> ctypes.CDLL:
-    """Build (first use) and load the SSD tier's library; raises on
-    failure (a missing zlib included)."""
+    """Build (first use) and load the SSD tier's library, which holds the
+    PS service too; raises on failure (a missing zlib included)."""
     global _SSD_LIB
     with _SSD_LOCK:
         if _SSD_LIB is None:
             lib = ctypes.CDLL(build_shared_library("paddle_tpu_torch_ssd", _SSD_SOURCES,
                                                    _gxx_ssd_command))
             _configure_sst(lib)
+            _configure_rpc(lib)
             _SSD_LIB = lib
         return _SSD_LIB
 
@@ -310,6 +319,37 @@ def table_native_params(shard_num: int, accessor: str, acc_cfg,
          sgd.weight_bounds[0], sgd.weight_bounds[1],
          sgd.beta1, sgd.beta2, sgd.ada_epsilon], np.float32)
     return ip, fp
+
+
+def _configure_rpc(lib: ctypes.CDLL) -> None:
+    """The PS service's server lifecycle, connection and scatter-gather
+    call (``psc_callv`` sends the 44-byte request header with a zero trace
+    context)."""
+    h = ctypes.c_void_p
+    lib.pss_create.restype = ctypes.c_void_p
+    lib.pss_create.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
+    lib.pss_port.restype = ctypes.c_int
+    lib.pss_port.argtypes = [h]
+    lib.pss_stopped.restype = ctypes.c_int
+    lib.pss_stopped.argtypes = [h]
+    lib.pss_stop.restype = None
+    lib.pss_stop.argtypes = [h]
+    lib.pss_destroy.restype = None
+    lib.pss_destroy.argtypes = [h]
+    lib.psc_connect2.restype = ctypes.c_void_p
+    lib.psc_connect2.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.psc_close.restype = None
+    lib.psc_close.argtypes = [h]
+    lib.psc_callv.restype = ctypes.c_int64
+    lib.psc_callv.argtypes = [h, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64,
+                              ctypes.c_int32, ctypes.c_int32, ctypes.POINTER(ctypes.c_void_p),
+                              ctypes.POINTER(ctypes.c_uint64), ctypes.c_int32]
+    lib.psc_resp_len.restype = ctypes.c_uint64
+    lib.psc_resp_len.argtypes = [h]
+    lib.psc_resp_ptr.restype = ctypes.c_void_p
+    lib.psc_resp_ptr.argtypes = [h]
+    lib.psc_resp_copy.restype = None
+    lib.psc_resp_copy.argtypes = [h, ctypes.c_void_p]
 
 
 def _configure_sst(lib: ctypes.CDLL) -> None:

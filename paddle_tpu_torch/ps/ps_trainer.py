@@ -16,17 +16,24 @@ Port of ``CtrPassTrainer`` and ``CtrStreamTrainer`` from
 - **CtrStreamTrainer** (the reference's non-GPUPS CTR worker loop,
   ``HogwildWorker::TrainFiles``, hogwild_worker.cc:212), two loops:
 
-  - **local table** — per batch: pull the rows from the host
-    ``MemorySparseTable`` (insert-on-miss), run the dense forward/backward
-    and Adam on the card, bring the embedding gradients back and push them
-    into the host table. It is the oracle of the hot tier's parity
+  - **RPC-only / local table** — per batch: pull the rows (insert-on-miss)
+    from the host table, or with ``communicator=`` through its PS client
+    (``ps.rpc.RpcPsClient`` against ``NativePsServer``s: the_one_ps mode),
+    run the dense forward/backward and Adam on the card, bring the
+    embedding gradients back and push them into the table or queue them on
+    the communicator. With an Async/HalfAsync communicator batch N+k's
+    pull is issued while batch N trains (``pull_ahead``, default
+    ``FLAGS_communicator_pull_ahead``); the loop ends with the
+    communicator's ``barrier()``. It is the oracle of the hot tier's parity
     contract.
   - **hot tier** (``hot_tier=HotTierConfig(...)``) — the host ``ensure()``s
     residency per batch (a warm batch is pure mirror lookups), then ONE
     step on the card probes the dynamic key map, pulls, runs fwd/bwd and
     Adam, and applies the sparse CTR push in place
     (``ps.hot_tier.make_hot_ctr_train_step``). Misses fill from the cold
-    table, evictions write dirty rows back. The loss stays a device scalar
+    table — with a communicator, the PS table (``ps.rpc.RemoteSparseTable``),
+    batch N+k's misses fetched on its pull workers — and evictions write
+    dirty rows back: a warm batch makes no PS call. The loss stays a device scalar
     until the end of the pass, so the host's work on the next batch
     overlaps the step in front of it. With ``HotTierConfig.mesh`` the tier
     is row-sharded over K shards and the step is
@@ -37,10 +44,9 @@ Port of ``CtrPassTrainer`` and ``CtrStreamTrainer`` from
 Slot-tagged keys: feasign = slot index << 32 | id (the column position
 tags the key, as in FleetWrapper::PullSparseToTensorSync).
 
-Not ported yet (ROADMAP Queue A): the communicator / PS client / RPC
-transport and its pull-ahead (``communicator=`` raises), measured
-placement (``placement=`` raises), the job-checkpoint surface
-(``train_state``, ``restore_train_state``, ``on_reshard``, cursors), the
+Not ported yet (ROADMAP Queue A): measured placement (``placement=``
+raises), the job-checkpoint surface (``train_state``,
+``restore_train_state``, ``on_reshard``, checkpoint cursors), the
 step-time histogram and the flight recorder hook;
 ``CtrPassTrainer.save_inference_model`` (raises: ``io/inference.py``)
 and the pass-end ``check_nan_inf`` guard (a flag that defaults to off in
@@ -52,6 +58,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterable, Optional, Sequence, Tuple, Union
 
@@ -63,6 +70,7 @@ from ..amp import step_ctx
 from ..convert import ctr_params_from_jax, ctr_params_to_jax, opt_state_from_jax, opt_state_to_jax
 from ..core.device import resolve_device
 from ..core.enforce import UnavailableError, enforce
+from ..core.flags import flag
 from ..data.prefetcher import DevicePrefetcher, host_tensors, to_device
 from ..io.checkpoint import load_checkpoint, save_checkpoint
 from ..metrics.auc import AUC
@@ -71,6 +79,8 @@ from ..models.ctr import make_ctr_train_step_packed, make_ctr_train_step_slab, p
 from .embedding_cache import CacheConfig, HbmEmbeddingCache
 from .hot_tier import (HotEmbeddingTier, HotTierConfig, make_hot_ctr_train_step,
                        make_sharded_hot_train_step, stream_loss_fn)
+from .communicator import SyncCommunicator
+from .rpc import RemoteSparseTable
 from .sharded_cache import check_route_overflow
 from .table import MemorySparseTable
 
@@ -382,13 +392,24 @@ class CtrPassTrainer:
 
 
 class CtrStreamTrainer:
-    """Streaming CTR trainer over a local host table, optionally through
-    the persistent hot tier (see the module docstring).
+    """Streaming CTR trainer over a local host table or, with
+    ``communicator``, a PS table, optionally through the persistent hot
+    tier (see the module docstring).
 
     ``model`` is a port CTR model (``models.ctr.DeepFM``); ``params`` is the
     dict of its parameters on ``device`` and ``opt_state`` the
     ``optimizer``'s state. ``device`` defaults to ``"cuda"`` and raises
     without a GPU unless the caller passes ``device="cpu"``.
+
+    With a ``communicator`` (``ps.communicator``), pulls go through its
+    client and pushes through its queue under ``table_id``; ``table`` is
+    then unused and may be None (pass ``embedx_dim``). ``pull_ahead`` is
+    the pull prefetch depth: 0 for a ``SyncCommunicator`` and for a local
+    table (exact pull-after-push order per batch), else the argument or
+    ``FLAGS_communicator_pull_ahead``. A ``HotTierConfig`` over a
+    communicator takes the client's table as its cold store
+    (``LocalPsClient._sparse(table_id)``, or a ``RemoteSparseTable`` over
+    an ``RpcPsClient``).
 
     ``amp=True`` runs every step under ``amp.step_ctx``: the dense tower's
     products in bf16 with f32 accumulation. The JAX package's stream
@@ -404,29 +425,39 @@ class CtrStreamTrainer:
         dense_slots: Sequence[str],
         label_slot: str,
         communicator=None,
+        table_id: int = 0,
         embedx_dim: Optional[int] = None,
+        pull_ahead: Optional[int] = None,
         hot_tier=None,       # HotEmbeddingTier | HotTierConfig | None
         placement=None,
         device: Optional[Union[str, torch.device]] = None,
         amp: bool = False,
     ) -> None:
-        enforce(communicator is None,
-                "CtrStreamTrainer: the communicator, PS client and RPC transport "
-                "are not ported yet (ROADMAP A8); pass a local table", UnavailableError)
         enforce(placement is None,
-                "CtrStreamTrainer: measured placement is not ported yet (it follows the "
-                "rest of ROADMAP A8; distributed/placement.py is A14)",
-                UnavailableError)
-        enforce(table is not None, "need a local table")
+                "CtrStreamTrainer: measured placement is not ported yet "
+                "(distributed/placement.py, ROADMAP Queue A)", UnavailableError)
+        enforce(table is not None or communicator is not None,
+                "need a local table or a communicator-wrapped client")
         self.device = resolve_device(device)
         self.model = model
         self.table = table
         self.sparse_slots = list(sparse_slots)
         self.dense_slots = list(dense_slots)
         self.label_slot = label_slot
+        self.communicator = communicator
+        self.table_id = int(table_id)
+        if communicator is None or isinstance(communicator, SyncCommunicator):
+            self.pull_ahead = 0
+        elif pull_ahead is None:
+            self.pull_ahead = max(0, int(flag("communicator_pull_ahead")))
+        else:
+            self.pull_ahead = max(0, int(pull_ahead))
         self.amp = bool(amp)
-        self._dim = int(embedx_dim) if embedx_dim is not None else \
-            table.accessor.config.embedx_dim
+        if embedx_dim is not None:
+            self._dim = int(embedx_dim)
+        else:
+            enforce(table is not None, "pass embedx_dim when no local table is given")
+            self._dim = table.accessor.config.embedx_dim
         self._pull_width = 1 + self._dim
 
         self.params = {k: v.detach().to(self.device) for k, v in model.named_parameters()}
@@ -448,7 +479,15 @@ class CtrStreamTrainer:
         self._hot_step = None
         if hot_tier is not None:
             if isinstance(hot_tier, HotTierConfig):
-                hot_tier = HotEmbeddingTier(table, hot_tier, device=self.device)
+                cold = table
+                if cold is None:
+                    cli = communicator.client
+                    if hasattr(cli, "_sparse"):  # LocalPsClient
+                        cold = cli._sparse(self.table_id)
+                    else:  # RpcPsClient: the full-row view over the wire
+                        cold = RemoteSparseTable(cli, self.table_id,
+                                                 cli.sparse_config(self.table_id))
+                hot_tier = HotEmbeddingTier(cold, hot_tier, device=self.device)
             enforce(hot_tier.device == self.device,
                     f"hot tier lives on {hot_tier.device}, the trainer on {self.device}")
             enforce(hot_tier.cache_config.embedx_dim == self._dim,
@@ -474,7 +513,8 @@ class CtrStreamTrainer:
         """One pass over ``dataset`` (an ``InMemoryDataset``) from batch
         ``start_batch``. Returns {loss (mean over steps), steps, samples,
         samples_per_sec} and, with a hot tier, its ``stats()`` under
-        ``hot_tier``."""
+        ``hot_tier``. With a communicator the pass ends with its
+        ``barrier()``, which raises a failure of its push thread."""
         kw = dict(drop_last=drop_last, start_batch=start_batch)
         stats = _PassStats()
         self.batches_done = int(start_batch)
@@ -484,15 +524,31 @@ class CtrStreamTrainer:
         S = len(self.sparse_slots)
         slot_ids = np.tile(np.arange(S, dtype=np.int32), batch_size)
         dev = self.device
-        t0 = time.perf_counter()
-        for batch in dataset.batch_iter(batch_size, **kw):
+        depth = self.pull_ahead
+        comm = self.communicator
+
+        def _prep(batch):
+            keys = _slot_tagged_keys(batch, self.sparse_slots)
+            flat = keys.reshape(-1)
+            dense, labels = _dense_and_labels(batch, self.dense_slots, self.label_slot,
+                                              keys.shape[0])
+            # pull-ahead: batch N+depth's pull is issued now, so it overlaps
+            # the steps in front of it
+            fut = (comm.pull_sparse_async(self.table_id, flat, create=True,
+                                          slots=slot_ids[:len(flat)])
+                   if depth > 0 else None)
+            return keys, flat, dense, labels, fut
+
+        def _run(keys, flat, dense, labels, fut):
             with torch.profiler.record_function("ctr_stream_step"):
-                keys = _slot_tagged_keys(batch, self.sparse_slots)
-                flat = keys.reshape(-1)
-                dense, labels = _dense_and_labels(batch, self.dense_slots,
-                                                  self.label_slot, keys.shape[0])
-                pulled = self.table.pull_sparse(flat, slots=slot_ids[:len(flat)],
-                                                create=True)
+                if fut is not None:
+                    pulled = fut.result()
+                elif comm is not None:
+                    pulled = comm.client.pull_sparse(self.table_id, flat, create=True,
+                                                     slots=slot_ids[:len(flat)])
+                else:
+                    pulled = self.table.pull_sparse(flat, slots=slot_ids[:len(flat)],
+                                                    create=True)
                 emb = pulled[:, -self._pull_width:].reshape(keys.shape[0], S,
                                                             self._pull_width)
                 with step_ctx(self.amp):
@@ -505,12 +561,32 @@ class CtrStreamTrainer:
                 push[:, 1] = 1.0                        # show
                 push[:, 2] = np.repeat(labels, S)       # click
                 push[:, 3:] = g
-                self.table.push_sparse(flat, push)
+                if comm is not None:
+                    comm.send_sparse(self.table_id, flat, push)
+                else:
+                    self.table.push_sparse(flat, push)
                 stats.steps += 1
                 stats.samples += int(labels.shape[0])
                 stats.loss_sum += float(loss)
                 self.batches_done += 1
+
+        t0 = time.perf_counter()
+        window: deque = deque()  # batches whose pull is issued (or due)
+        try:
+            for batch in dataset.batch_iter(batch_size, **kw):
+                window.append(_prep(batch))
+                if len(window) > depth:
+                    _run(*window.popleft())
+            while window:
+                _run(*window.popleft())
+        finally:
+            # no prefetched pull may outlive the pass (its worker would race
+            # the caller's recovery)
+            if depth > 0:
+                comm._drain_pulls()
         dt = time.perf_counter() - t0
+        if comm is not None:
+            comm.barrier()
         return {"loss": stats.mean_loss, "steps": float(stats.steps),
                 "samples": float(stats.samples),
                 "samples_per_sec": stats.samples / max(dt, 1e-9)}
@@ -522,10 +598,13 @@ class CtrStreamTrainer:
         CTR push. Batch packing (column slicing, key tagging, pinning)
         runs on the prefetcher thread; tier mutations stay on this
         thread (the host mirror is not thread-safe, and creation order is
-        part of the parity contract)."""
+        part of the parity contract). With pull-ahead, batch N+depth's
+        cold fetch is issued on the communicator's pull workers before
+        batch N's step."""
         tier = self.hot_tier
         dev = self.device
         pin = dev.type == "cuda"
+        depth = self.pull_ahead
         # deferred loss sync: device scalars, drained at the end with the
         # same per-item float() accumulation as a per-step sync
         losses: list = []
@@ -566,12 +645,23 @@ class CtrStreamTrainer:
             self.batches_done += 1
 
         t0 = time.perf_counter()
-        pf = DevicePrefetcher(_packed_batches(), depth=2)
+        window: deque = deque()
+        pf = DevicePrefetcher(_packed_batches(), depth=max(depth, 2))
         try:
             for item in pf:
-                _run(*item)
+                if depth > 0:
+                    # batch N+depth's cold fetch now; a warm batch fetches
+                    # nothing
+                    tier.prefetch(item[0], self.communicator)
+                window.append(item)
+                if len(window) > depth:
+                    _run(*window.popleft())
+            while window:
+                _run(*window.popleft())
         finally:
             pf.close()
+            if depth > 0:
+                self.communicator._drain_pulls()
         # ONE host sync for the pass (per-item float() keeps the
         # accumulation association of a per-step sync)
         for item in losses:
@@ -579,6 +669,8 @@ class CtrStreamTrainer:
         if overflow is not None:
             check_route_overflow(overflow)
         dt = time.perf_counter() - t0
+        if self.communicator is not None:
+            self.communicator.barrier()
         return {"loss": stats.mean_loss, "steps": float(stats.steps),
                 "samples": float(stats.samples),
                 "samples_per_sec": stats.samples / max(dt, 1e-9),

@@ -1,0 +1,842 @@
+"""TCP parameter-server transport: the_one_ps's servers and client.
+
+The port's own copy of ``paddle_tpu.ps.rpc`` over its own copy of the
+native service (``csrc/ps_service.cc``, built into the SSD tier's
+library, loaded by ``ps.native.load_ssd``). The wire is the JAX package's: a
+44-byte request header (the trace-context field always zero), the same
+command ids and status codes, so a client of either package talks to the
+servers of either.
+
+- :class:`NativePsServer` hosts the C++ service in this process (accept
+  loop and handler threads live in C++); ``port=0`` binds an ephemeral
+  port.
+- :class:`RpcPsClient` is the :class:`~paddle_tpu_torch.ps.client.PSClient`
+  over N servers: sparse keys route by ``key % num_servers``, one request
+  per server per call, fanned out concurrently (``FLAGS_ps_rpc_parallel``)
+  and joined; duplicate keys merge client-side before a push; dense
+  tables split into contiguous slices per server; the barrier lives on
+  server 0. Each connection has per-call deadlines
+  (``FLAGS_pserver_timeout_ms``, longer for table-scale commands) and
+  retries a dead connection ``FLAGS_pserver_max_retry`` times with
+  doubling backoff, reconnecting each time; then it raises
+  :class:`~paddle_tpu_torch.core.enforce.PsTransportError`. Nothing falls
+  back to a local table.
+- :class:`RemoteSparseTable` is the table-shaped view over one sparse
+  table on the servers (the hot tier's cold store).
+
+Not ported (ROADMAP Queue A): the fp16 and int8 wires and the int8
+error-feedback store (``TableConfig`` refuses them); failover (the
+router, circuit breaker, ``_shard_op`` replay, ``_swap_conn``,
+``refresh_routing``, the ``WrongShard`` bounce and reroute,
+``digest_routed``/``digest_at``/``retain``/``ownership``/``server_epoch``/
+``repl_state``/``dense_snapshot``/``dense_restore``) and the server's
+replication, epoch, read-only, dense-version and fault controls;
+tenancy; the serve QoS class; the obs wire accounting. ``op_counts`` is a
+plain counter under a lock.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import threading
+import time
+from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+
+from ..core.enforce import NotFoundError, PsTransportError, enforce
+from ..core.flags import define_flag, flag
+from .accessor import AccessorConfig, make_accessor
+from .client import PSClient
+from .native import load_ssd, table_native_params
+from .table import TableConfig, converter_entry, merge_duplicate_keys
+
+__all__ = ["NativePsServer", "RemoteSparseTable", "RpcPsClient"]
+
+define_flag("pserver_connect_timeout_ms", 10000,
+            "PS client TCP connect deadline (0 = blocking)")
+define_flag("pserver_timeout_ms", 30000,
+            "PS client per-call IO deadline (0 = block forever)")
+define_flag("pserver_max_retry", 3,
+            "attempts per PS call across reconnects before failing")
+define_flag("pserver_retry_backoff_ms", 100,
+            "base backoff between PS call retries (doubles per attempt)")
+define_flag("pserver_long_call_timeout_ms", 600000,
+            "deadline for table-scale commands (save/load/export/shrink/compact/ssd-create)")
+define_flag("pserver_barrier_timeout_ms", 1800000,
+            "barrier wait bound: peers may be minutes behind, a dead server still surfaces")
+define_flag("ps_rpc_parallel", True,
+            "fan multi-server PS calls out concurrently (one in-flight call per "
+            "connection); False runs the servers one after another")
+
+# command ids (ps_service.cc Cmd)
+_CREATE_SPARSE = 1
+_CREATE_DENSE = 2
+_PULL_SPARSE = 3
+_PUSH_SPARSE = 4
+_PULL_DENSE = 5
+_PUSH_DENSE = 6
+_SET_DENSE = 7
+_SIZE = 8
+_SHRINK = 9
+_INSERT_FULL = 12
+_EXPORT = 13
+_BARRIER = 14
+_STOP = 15
+_GLOBAL_STEP = 17
+_CREATE_GEO = 18
+_PUSH_GEO = 19
+_PULL_GEO = 20
+_SAVE_ALL = 21
+_SPILL = 22
+_STATS = 23
+_COMPACT = 24
+_LOAD_COLD = 34
+_SAVE_FILE = 35
+_LOAD_FILE = 36
+_DIGEST = 40
+
+_ERR_NO_TABLE = -2  # ps_service.cc kErrNoTable
+_ERR_RESET, _ERR_DEADLINE = -1000, -1001  # PsConn transport failures
+
+_DENSE_OPT_IDS = {"sgd": 0, "adam": 1, "sum": 2}
+_SAVE_FORMATS = {None: (0, ""), "gzip": (1, ".gz"), "raw": (2, ".bin")}
+
+
+def _long_ms() -> int:
+    """Deadline of a command whose run time grows with the table."""
+    return int(flag("pserver_long_call_timeout_ms"))
+
+
+class NativePsServer:
+    """In-process native PS server (the accept loop and one handler thread
+    per connection live in C++). ``host`` is the IPv4 address it listens
+    on: loopback by default, ``"0.0.0.0"`` for every interface (the
+    service has no authentication, and its save and SSD-table commands
+    write to paths the caller names). ``port=0`` binds an ephemeral port
+    (read ``.port``); ``n_trainers`` is how many arrivals release the
+    barrier."""
+
+    def __init__(self, port: int = 0, n_trainers: int = 1, host: str = "127.0.0.1") -> None:
+        self._lib = load_ssd()
+        self._h = self._lib.pss_create(host.encode(), int(port), int(n_trainers))
+        enforce(self._h is not None, f"failed to bind PS server {host}:{port}")
+        self.port = int(self._lib.pss_port(self._h))
+
+    def stop(self) -> None:
+        """Stop serving (the handle stays until :meth:`close`)."""
+        if self._h:
+            self._lib.pss_stop(self._h)
+
+    @property
+    def stopped(self) -> bool:
+        return self._h is None or bool(self._lib.pss_stopped(self._h))
+
+    def close(self) -> None:
+        """Stop and release the server (idempotent)."""
+        if getattr(self, "_h", None):
+            self._lib.pss_destroy(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class _ServerConn:
+    """One TCP connection (C++ ``PsConn``) with connect and per-call IO
+    deadlines, bounded retry with doubling backoff, and reconnect after a
+    transport failure (the framed stream is undefined then, so the socket
+    is rebuilt, never reused). A retry replays the command: at-least-once,
+    as brpc's channel retry; ``retries=0`` opts a call out (barrier,
+    shrink, spill, server-side save/load)."""
+
+    def __init__(self, lib: ctypes.CDLL, host: str, port: int) -> None:
+        self._lib = lib
+        self._host, self._port = host, port
+        self.endpoint = f"{host}:{port}"
+        self._h = None
+        # one caller owns connect/call/close at a time: a reconnect frees
+        # the C++ PsConn another thread could be calling through
+        self._mu = threading.RLock()
+        self._connect()
+
+    def _connect(self) -> None:
+        self._h = self._lib.psc_connect2(self._host.encode(), self._port,
+                                         int(flag("pserver_connect_timeout_ms")),
+                                         int(flag("pserver_timeout_ms")))
+        if not self._h:
+            raise PsTransportError(
+                f"cannot connect to PS server {self.endpoint} "
+                f"(connect timeout {flag('pserver_connect_timeout_ms')} ms)")
+
+    def close(self) -> None:
+        with self._mu:
+            if self._h:
+                self._lib.psc_close(self._h)
+                self._h = None
+
+    def __del__(self):
+        self.close()
+
+    def _call_once(self, cmd, table_id, n, aux, ptrs, lens, nparts, timeout_ms, view):
+        status = int(self._lib.psc_callv(self._h, cmd, table_id, n, aux, nparts, ptrs, lens,
+                                         -1 if timeout_ms is None else timeout_ms))
+        if status <= _ERR_RESET:
+            self.close()
+            kind = "timed out" if status == _ERR_DEADLINE else "reset/refused"
+            raise PsTransportError(f"PS transport to {self.endpoint} {kind} (cmd {cmd})")
+        rlen = int(self._lib.psc_resp_len(self._h))
+        if not rlen:
+            return status, b""
+        if view:
+            # the calling thread's native response buffer, valid until its
+            # next call: callers scatter it into their outputs at once
+            ptr = self._lib.psc_resp_ptr(self._h)
+            return status, np.ctypeslib.as_array(
+                ctypes.cast(ptr, ctypes.POINTER(ctypes.c_uint8)), shape=(rlen,))
+        resp = ctypes.create_string_buffer(rlen)
+        self._lib.psc_resp_copy(self._h, resp)
+        return status, resp.raw
+
+    def call(self, cmd: int, table_id: int = 0, n: int = 0, aux: int = 0,
+             payload: Union[bytes, np.ndarray, Sequence[np.ndarray], None] = None,
+             retries: Optional[int] = None, timeout_ms: Optional[int] = None,
+             view: bool = False):
+        """(status, response). ``payload``: bytes, one array or a sequence
+        of C-contiguous arrays, sent scatter-gather (the arrays themselves
+        are the frame). ``retries``: attempts beyond the first (default
+        ``FLAGS_pserver_max_retry - 1``). ``timeout_ms``: this call's
+        deadline (None: the connection's, 0: none). ``view``: the response
+        as a uint8 view of this thread's native buffer, valid until the
+        thread's next call."""
+        if payload is None:
+            parts: Tuple = ()
+        elif isinstance(payload, (bytes, bytearray, np.ndarray)):
+            parts = (payload,)
+        else:
+            parts = tuple(payload)
+        nparts = len(parts)
+        ptrs = (ctypes.c_void_p * max(nparts, 1))()
+        lens = (ctypes.c_uint64 * max(nparts, 1))()
+        keep = []  # bytes parts stay alive through every attempt
+        for i, part in enumerate(parts):
+            if isinstance(part, np.ndarray):
+                enforce(part.flags["C_CONTIGUOUS"],
+                        "scatter-gather payload parts must be C-contiguous")
+                ptrs[i] = part.ctypes.data
+                lens[i] = part.nbytes
+            else:
+                b = bytes(part)
+                keep.append(b)
+                ptrs[i] = ctypes.cast(ctypes.c_char_p(b), ctypes.c_void_p)
+                lens[i] = len(b)
+        if retries is None:
+            retries = max(0, int(flag("pserver_max_retry")) - 1)
+        backoff = int(flag("pserver_retry_backoff_ms")) / 1000.0
+        last: Optional[Exception] = None
+        for attempt in range(retries + 1):
+            try:
+                with self._mu:
+                    if self._h is None:
+                        self._connect()
+                    return self._call_once(cmd, table_id, n, aux, ptrs, lens, nparts,
+                                           timeout_ms, view)
+            except PsTransportError as e:
+                last = e
+                if attempt < retries:
+                    time.sleep(backoff * (2 ** attempt))
+        raise PsTransportError(f"PS server {self.endpoint} unreachable after "
+                               f"{retries + 1} attempt(s): {last}")
+
+    def check(self, cmd: int, table_id: int = 0, n: int = 0, aux: int = 0, payload=None,
+              **kw):
+        """:meth:`call`, raising on an error status."""
+        status, resp = self.call(cmd, table_id, n, aux, payload, **kw)
+        if status == _ERR_NO_TABLE:
+            raise NotFoundError(f"table {table_id} not created on server {self.endpoint}")
+        enforce(status >= 0, f"PS command {cmd} on {self.endpoint} failed with status {status}")
+        return status, resp
+
+
+def _sparse_config_payload(cfg: TableConfig) -> bytes:
+    ip, fp = table_native_params(cfg.shard_num, cfg.accessor,
+                                 cfg.accessor_config or AccessorConfig(), cfg.seed)
+    return ip.tobytes() + fp.tobytes()
+
+
+class RpcPsClient(PSClient):
+    """:class:`~paddle_tpu_torch.ps.client.PSClient` over N TCP servers
+    (see the module docstring). ``endpoints`` are ``"host:port"``."""
+
+    def __init__(self, endpoints: Sequence[str]) -> None:
+        self._lib = load_ssd()
+        self._sparse_dims: Dict[int, Tuple[int, int, int]] = {}  # pull, push, full
+        self._sparse_cfgs: Dict[int, TableConfig] = {}
+        self._dense_dims: Dict[int, int] = {}
+        self._geo_dims: Dict[int, int] = {}
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._pool_mu = threading.Lock()
+        self._count_mu = threading.Lock()
+        self._ops: Counter = Counter()
+        self._conns: List[_ServerConn] = []
+        try:
+            for ep in endpoints:
+                host, port = ep.rsplit(":", 1)
+                self._conns.append(_ServerConn(self._lib, host, int(port)))
+        except BaseException:
+            self.close()
+            raise
+
+    # -- op counts ----------------------------------------------------------
+
+    def _op_count(self, op: str) -> None:
+        with self._count_mu:
+            self._ops[op] += 1
+
+    @property
+    def op_counts(self) -> Counter:
+        """Client ops since the last :meth:`reset_op_counts`, one per call
+        whatever its fan-out (zero entries left out)."""
+        with self._count_mu:
+            return Counter(self._ops)
+
+    def reset_op_counts(self) -> Dict[str, int]:
+        """The counts since the last reset, then zero."""
+        with self._count_mu:
+            out, self._ops = dict(self._ops), Counter()
+        return out
+
+    @property
+    def num_servers(self) -> int:
+        return len(self._conns)
+
+    def close(self) -> None:
+        """Shut the fan-out pool and every connection (close the client
+        before its servers: a connection to a stopped server waits out its
+        deadline)."""
+        with self._pool_mu:
+            pool, self._pool = self._pool, None
+        if pool is not None:
+            pool.shutdown(wait=True)
+        for c in self._conns:
+            c.close()
+
+    # -- fan-out ------------------------------------------------------------
+
+    def _fanout(self, tasks: List):
+        """Run one zero-arg task per server; results in task order.
+        Concurrent under ``FLAGS_ps_rpc_parallel`` (the serial loop keeps
+        server order); every task ends before this returns or raises, and
+        the first error propagates."""
+        if len(tasks) <= 1 or not flag("ps_rpc_parallel"):
+            return [t() for t in tasks]
+        with self._pool_mu:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(max_workers=len(self._conns),
+                                                thread_name_prefix="ps-rpc")
+            futs = [self._pool.submit(t) for t in tasks]
+        results, first_err = [], None
+        for f in futs:
+            try:
+                results.append(f.result())
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                first_err = first_err or e
+                results.append(None)
+        if first_err is not None:
+            raise first_err
+        return results
+
+    def _each_server(self, fn):
+        """``fn(conn)`` on every server, fanned out; results by server."""
+        return self._fanout([lambda c=c: fn(c) for c in self._conns])
+
+    def _route(self, keys: np.ndarray) -> np.ndarray:
+        return (keys % np.uint64(self.num_servers)).astype(np.int64)
+
+    def _shard_sel(self, keys: np.ndarray):
+        """(server, sel) for the servers that own some of ``keys``; sel is
+        None when one server owns them all (no gather copy)."""
+        sv = self._route(keys)
+        out = []
+        for s in range(self.num_servers):
+            sel = np.flatnonzero(sv == s)
+            if len(sel) == len(sv):
+                out.append((s, None))
+            elif len(sel):
+                out.append((s, sel))
+        return out
+
+    def _keyed(self, keys: np.ndarray, one) -> None:
+        """``one(conn, sel)`` for each server owning some of ``keys``."""
+        self._fanout([lambda s=s, sel=sel: one(self._conns[s], sel)
+                      for s, sel in self._shard_sel(keys)])
+
+    def _dims(self, table_id: int) -> Tuple[int, int, int]:
+        try:
+            return self._sparse_dims[table_id]
+        except KeyError:
+            raise NotFoundError(f"sparse table {table_id} not created via this client") \
+                from None
+
+    # -- table lifecycle ----------------------------------------------------
+
+    def create_sparse_table(self, table_id: int, config: Optional[TableConfig] = None) -> None:
+        """Create ``table_id`` on every server (RAM, or the SSD tier at
+        ``config.ssd_path/table<id>/server<s>``); a table that exists
+        already stays as it is."""
+        cfg = config or TableConfig(table_id=table_id)
+        enforce(cfg.ssd_value_dtype in ("fp32", "fp16"),
+                f"TableConfig.ssd_value_dtype must be 'fp32' or 'fp16', got "
+                f"{cfg.ssd_value_dtype!r}")
+        if cfg.storage == "ssd":
+            enforce(cfg.ssd_path is not None, "TableConfig.storage='ssd' requires ssd_path")
+        base = _sparse_config_payload(cfg)
+
+        def mk(s, c):
+            payload = base
+            if cfg.storage == "ssd":
+                # low byte 1 = ssd; bit 8 = fp16 value columns on disk
+                storage = 1 | (0x100 if cfg.ssd_value_dtype == "fp16" else 0)
+                path = f"{cfg.ssd_path}/table{table_id}/server{s}".encode()
+                payload = (base + np.asarray([storage], np.int32).tobytes()
+                           + np.asarray([len(path)], np.uint32).tobytes() + path)
+            _, resp = c.check(_CREATE_SPARSE, table_id, payload=payload,
+                              timeout_ms=_long_ms())
+            d = np.frombuffer(resp, np.int32)
+            return int(d[0]), int(d[1]), int(d[2])
+
+        dims = self._fanout([lambda s=s, c=c: mk(s, c) for s, c in enumerate(self._conns)])
+        enforce(len(set(dims)) == 1, f"servers disagree on table {table_id} dims: {dims}")
+        self._sparse_cfgs[table_id] = cfg
+        self._sparse_dims[table_id] = dims[0]
+
+    def sparse_config(self, table_id: int) -> TableConfig:
+        """The config this client created ``table_id`` with."""
+        cfg = self._sparse_cfgs.get(table_id)
+        enforce(cfg is not None, f"sparse table {table_id} not created via this client")
+        return cfg
+
+    def create_dense_table(self, table_id: int, dim: int, optimizer: str = "adam",
+                           lr: float = 0.001) -> None:
+        enforce(optimizer in _DENSE_OPT_IDS, f"unknown dense optimizer {optimizer!r}")
+        for s, c in enumerate(self._conns):
+            payload = (np.asarray([len(self._dense_slice(dim, s)), _DENSE_OPT_IDS[optimizer]],
+                                  np.int32).tobytes()
+                       + np.asarray([lr], np.float32).tobytes())
+            c.check(_CREATE_DENSE, table_id, payload=payload)
+        self._dense_dims[table_id] = dim
+
+    def create_geo_table(self, table_id: int, dim: int) -> None:
+        payload = np.asarray([dim], np.int32).tobytes()
+        for c in self._conns:
+            c.check(_CREATE_GEO, table_id, payload=payload)
+        self._geo_dims[table_id] = dim
+
+    def _dense_slice(self, dim: int, server: int) -> range:
+        per = (dim + self.num_servers - 1) // self.num_servers
+        lo = min(per * server, dim)
+        return range(lo, min(lo + per, dim))
+
+    # -- sparse -------------------------------------------------------------
+
+    def pull_sparse(self, table_id, keys, create=True, slots=None):
+        """[n, pull_dim] values of ``keys`` (insert-on-miss with
+        ``create``; ``slots`` tags created rows)."""
+        self._op_count("pull_sparse")
+        keys = np.ascontiguousarray(keys, np.uint64)
+        pull_dim = self._dims(table_id)[0]
+        out = np.zeros((len(keys), pull_dim), np.float32)
+        slots_arr = (np.ascontiguousarray(slots, np.int32) if slots is not None
+                     else np.zeros(len(keys), np.int32))
+
+        def one(c, sel):
+            kp = keys if sel is None else keys[sel]
+            sp = slots_arr if sel is None else slots_arr[sel]
+            _, resp = c.check(_PULL_SPARSE, table_id, n=len(kp), aux=1 if create else 0,
+                              payload=(kp, sp), view=True)
+            vals = resp.view(np.float32).reshape(len(kp), pull_dim)
+            if sel is None:
+                out[:] = vals
+            else:
+                out[sel] = vals
+
+        self._keyed(keys, one)
+        return out
+
+    def push_sparse(self, table_id, keys, values):
+        """Push [n, push_dim] rows (slot, show, click, gradients); duplicate
+        keys merge client-side first."""
+        self._op_count("push_sparse")
+        keys, values = merge_duplicate_keys(np.ascontiguousarray(keys, np.uint64),
+                                            np.ascontiguousarray(values, np.float32))
+
+        def one(c, sel):
+            kp = keys if sel is None else keys[sel]
+            vp = values if sel is None else values[sel]
+            c.check(_PUSH_SPARSE, table_id, n=len(kp), payload=(kp, vp))
+
+        self._keyed(keys, one)
+
+    def export_full(self, table_id, keys, create=False, slots=None):
+        """(values [n, full_dim], found [n]): full rows, optimizer state
+        included; with ``create`` missing rows are inserted in the same
+        visit."""
+        self._op_count("export_full")
+        keys = np.ascontiguousarray(keys, np.uint64)
+        full_dim = self._dims(table_id)[2]
+        out = np.zeros((len(keys), full_dim), np.float32)
+        found = np.zeros(len(keys), bool)
+        slots_arr = (np.ascontiguousarray(slots, np.int32) if slots is not None
+                     else np.zeros(len(keys), np.int32))
+
+        def one(c, sel):
+            kp = keys if sel is None else keys[sel]
+            parts = (kp, slots_arr if sel is None else slots_arr[sel]) if create else (kp,)
+            _, resp = c.check(_EXPORT, table_id, n=len(kp), aux=1 if create else 0,
+                              payload=parts, timeout_ms=_long_ms(), view=True)
+            nb = len(kp) * full_dim * 4
+            vals = resp[:nb].view(np.float32).reshape(len(kp), full_dim)
+            if sel is None:
+                out[:], found[:] = vals, resp[nb:] != 0
+            else:
+                out[sel], found[sel] = vals, resp[nb:] != 0
+
+        self._keyed(keys, one)
+        return out, found
+
+    def import_full(self, table_id, keys, values):
+        """Overwrite full rows (insert-on-miss)."""
+        self._op_count("import_full")
+        keys = np.ascontiguousarray(keys, np.uint64)
+        values = np.ascontiguousarray(values, np.float32)
+
+        def one(c, sel):
+            kp = keys if sel is None else keys[sel]
+            vp = values if sel is None else values[sel]
+            c.check(_INSERT_FULL, table_id, n=len(kp), payload=(kp, vp), timeout_ms=_long_ms())
+
+        self._keyed(keys, one)
+
+    def load_cold(self, table_id, keys, values, chunk: int = 1 << 21) -> int:
+        """Bulk-load full rows (SSD tables: into the disk tier; RAM tables
+        insert). Each server's slice goes in chunks of ``chunk`` rows, the
+        servers in parallel. Returns the rows loaded."""
+        keys = np.ascontiguousarray(keys, np.uint64)
+        values = np.ascontiguousarray(values, np.float32)
+        full_dim = self._dims(table_id)[2]
+        enforce(values.shape == (len(keys), full_dim),
+                f"load_cold values shape {values.shape} != ({len(keys)}, {full_dim})")
+        sv = self._route(keys)
+
+        def one(s):
+            sel, done = np.flatnonzero(sv == s), 0
+            for lo in range(0, len(sel), chunk):
+                part = sel[lo:lo + chunk]
+                cnt, _ = self._conns[s].check(_LOAD_COLD, table_id, n=len(part),
+                                              payload=(keys[part], values[part]),
+                                              timeout_ms=_long_ms())
+                done += int(cnt)
+            return done
+
+        return sum(self._fanout([lambda s=s: one(s) for s in range(self.num_servers)]))
+
+    # -- dense and geo ------------------------------------------------------
+
+    def pull_dense(self, table_id):
+        self._op_count("pull_dense")
+        try:
+            dim = self._dense_dims[table_id]
+        except KeyError:
+            raise NotFoundError(f"dense table {table_id} not created via this client") \
+                from None
+        out = np.zeros(dim, np.float32)
+
+        def one(c, sl):
+            _, resp = c.check(_PULL_DENSE, table_id, view=True)
+            out[sl.start:sl.stop] = resp.view(np.float32)
+
+        self._fanout([lambda c=c, sl=self._dense_slice(dim, s): one(c, sl)
+                      for s, c in enumerate(self._conns) if len(self._dense_slice(dim, s))])
+        return out
+
+    def _dense_send(self, cmd: int, table_id: int, values: np.ndarray) -> None:
+        values = np.ascontiguousarray(values, np.float32)
+        dim = self._dense_dims[table_id]
+        self._fanout([lambda c=c, sl=self._dense_slice(dim, s):
+                      c.check(cmd, table_id, payload=values[sl.start:sl.stop])
+                      for s, c in enumerate(self._conns) if len(self._dense_slice(dim, s))])
+
+    def push_dense(self, table_id, grad):
+        self._op_count("push_dense")
+        self._dense_send(_PUSH_DENSE, table_id, grad)
+
+    def set_dense(self, table_id, values):
+        self._dense_send(_SET_DENSE, table_id, values)
+
+    def push_geo(self, table_id, keys, deltas):
+        self._op_count("push_geo")
+        keys = np.ascontiguousarray(keys, np.uint64)
+        deltas = np.ascontiguousarray(deltas, np.float32)
+
+        def one(c, sel):
+            kp = keys if sel is None else keys[sel]
+            dp = deltas if sel is None else deltas[sel]
+            c.check(_PUSH_GEO, table_id, n=len(kp), payload=(kp, dp))
+
+        self._keyed(keys, one)
+
+    def pull_geo(self, table_id):
+        """(keys, mean deltas) drained from every server."""
+        self._op_count("pull_geo")
+        dim = self._geo_dims[table_id]
+
+        def one(c):
+            cnt, resp = c.check(_PULL_GEO, table_id, view=True)
+            if not cnt:
+                return None
+            return (resp[:cnt * 8].view(np.uint64).copy(),
+                    resp[cnt * 8:].view(np.float32).reshape(cnt, dim).copy())
+
+        got = [g for g in self._each_server(one) if g]
+        if not got:
+            return np.zeros(0, np.uint64), np.zeros((0, dim), np.float32)
+        return np.concatenate([k for k, _ in got]), np.concatenate([d for _, d in got])
+
+    # -- coordination -------------------------------------------------------
+
+    def barrier(self):
+        """All-trainer barrier on server 0: a long but finite deadline, no
+        retry (a replay could arrive twice)."""
+        self._conns[0].check(_BARRIER, retries=0,
+                             timeout_ms=int(flag("pserver_barrier_timeout_ms")))
+
+    def global_step(self, increment: int = 1) -> int:
+        self._op_count("global_step")
+        status, _ = self._conns[0].check(_GLOBAL_STEP, n=increment)
+        return status
+
+    def stop_servers(self) -> None:
+        """Ask every server to stop (a server already gone counts as
+        stopped)."""
+        for c in self._conns:
+            try:
+                c.call(_STOP, retries=0)
+            except PsTransportError:
+                pass
+
+    # -- table-scale commands ----------------------------------------------
+
+    def size(self, table_id) -> int:
+        return sum(self._each_server(lambda c: c.check(_SIZE, table_id)[0]))
+
+    def shrink(self, table_id) -> int:
+        return sum(self._each_server(lambda c: c.check(_SHRINK, table_id,
+                                                       timeout_ms=_long_ms(), retries=0)[0]))
+
+    def spill(self, table_id: int, hot_budget: int) -> int:
+        """Each server spills to at most ``hot_budget`` hot rows; returns
+        the rows spilled."""
+        return sum(self._each_server(lambda c: int(c.check(
+            _SPILL, table_id, n=int(hot_budget), timeout_ms=_long_ms(), retries=0)[0])))
+
+    def compact(self, table_id: int) -> int:
+        return sum(self._each_server(lambda c: int(c.check(
+            _COMPACT, table_id, timeout_ms=_long_ms())[0])))
+
+    def table_stats(self, table_id: int) -> Dict[str, int]:
+        def one(c):
+            s3 = np.frombuffer(c.check(_STATS, table_id)[1], np.int64)
+            return int(s3[0]), int(s3[1]), int(s3[2])
+
+        stats = self._each_server(one)
+        return {"hot_rows": sum(s[0] for s in stats), "cold_rows": sum(s[1] for s in stats),
+                "disk_bytes": sum(s[2] for s in stats)}
+
+    def digest(self, table_id: int) -> List[int]:
+        """Per-server order-independent content digests."""
+        return self._each_server(lambda c: int(np.frombuffer(
+            c.check(_DIGEST, table_id)[1], np.uint64)[0]))
+
+    # -- save/load ----------------------------------------------------------
+
+    def _save_all_items(self, c: _ServerConn, table_id: int, mode: int):
+        full_dim = self._dims(table_id)[2]
+        cnt, resp = c.check(_SAVE_ALL, table_id, aux=mode, timeout_ms=_long_ms(), retries=0)
+        keys = np.frombuffer(resp[:cnt * 8], np.uint64)
+        values = np.frombuffer(resp[cnt * 8:], np.float32).reshape(cnt, full_dim)
+        return keys, values
+
+    def snapshot_items(self, table_id, mode: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+        """(keys [n] u64, full rows [n, full_dim]) of every server's rows
+        that pass the save filter of ``mode`` (after the accessor's
+        update_stat_after_save), exported in one command a server."""
+        parts = self._each_server(lambda c: self._save_all_items(c, table_id, mode))
+        return (np.concatenate([k for k, _ in parts]),
+                np.concatenate([v for _, v in parts]))
+
+    def _meta(self, table_id: int, mode: int, converter=None) -> dict:
+        cfg = self._sparse_cfgs[table_id]
+        return {"shard_num": self.num_servers,
+                "embedx_dim": (cfg.accessor_config or AccessorConfig()).embedx_dim,
+                "accessor": cfg.accessor, "mode": mode, "converter": converter}
+
+    def save(self, table_id, dirname, mode=0):
+        """One text file per server in the accessor's format
+        (``part-NNNNN.shard``) and ``meta.json``: the files of
+        ``MemorySparseTable.save``, so checkpoints cross between the local
+        and the RPC tables (and the packages). Returns the rows written."""
+        os.makedirs(dirname, exist_ok=True)
+        cfg = self._sparse_cfgs[table_id]
+        acc = make_accessor(cfg.accessor, cfg.accessor_config)
+        total = 0
+        for s, c in enumerate(self._conns):
+            keys, values = self._save_all_items(c, table_id, mode)
+            with open(os.path.join(dirname, f"part-{s:05d}.shard"), "w") as f:
+                for j in range(len(keys)):
+                    f.write(acc.format_row(keys[j], values[j]) + "\n")
+            total += len(keys)
+        with open(os.path.join(dirname, "meta.json"), "w") as f:
+            json.dump(self._meta(table_id, mode), f)
+        return total
+
+    def load(self, table_id, dirname):
+        """Load a :meth:`save` (or ``MemorySparseTable.save``) directory,
+        re-routing rows by this client's server count. Returns the rows."""
+        with open(os.path.join(dirname, "meta.json")) as f:
+            meta = json.load(f)
+        cfg = self._sparse_cfgs[table_id]
+        acc = make_accessor(cfg.accessor, cfg.accessor_config)
+        full_dim = self._dims(table_id)[2]
+        enforce(meta["embedx_dim"] == acc.config.embedx_dim,
+                f"embedx_dim mismatch: file {meta['embedx_dim']} != table "
+                f"{acc.config.embedx_dim}")
+        suffix, _, open_r = converter_entry(meta.get("converter"))
+        total = 0
+        for s in range(meta["shard_num"]):
+            path = os.path.join(dirname, f"part-{s:05d}.shard{suffix}")
+            if not os.path.exists(path):
+                continue
+            keys, rows = [], []
+            with open_r(path) as f:
+                for line in f:
+                    parts = line.split()
+                    if parts:
+                        k, row = acc.parse_row(parts, full_dim)
+                        keys.append(k)
+                        rows.append(row)
+            if keys:
+                self.import_full(table_id, np.asarray(keys, np.uint64), np.stack(rows))
+                total += len(keys)
+        return total
+
+    def save_local(self, table_id, dirname, mode: int = 0,
+                   converter: Optional[str] = None) -> int:
+        """Server-side save: each server streams its rows straight to
+        ``dirname/part-NNNNN.shard[.gz|.bin]`` (the servers must reach
+        ``dirname``); nothing crosses the wire. Converters: None (text),
+        "gzip", "raw" (fixed binary records). Returns the rows saved."""
+        enforce(converter in _SAVE_FORMATS,
+                f"server-side save supports converter None|'gzip'|'raw', got {converter!r}")
+        fmt, suffix = _SAVE_FORMATS[converter]
+        os.makedirs(dirname, exist_ok=True)
+        total = sum(self._fanout([
+            lambda c=c, path=os.path.join(dirname, f"part-{s:05d}.shard{suffix}"): int(
+                c.check(_SAVE_FILE, table_id, aux=int(mode) | (fmt << 8),
+                        payload=path.encode(), timeout_ms=0, retries=0)[0])
+            for s, c in enumerate(self._conns)]))
+        with open(os.path.join(dirname, "meta.json"), "w") as f:
+            json.dump(self._meta(table_id, mode, converter), f)
+        return total
+
+    def load_local(self, table_id, dirname) -> int:
+        """Server-side load of a :meth:`save_local` directory; needs the
+        server count it was saved with (use :meth:`load` to re-route)."""
+        with open(os.path.join(dirname, "meta.json")) as f:
+            meta = json.load(f)
+        enforce(meta["shard_num"] == self.num_servers,
+                f"save_local checkpoint has {meta['shard_num']} shards but "
+                f"{self.num_servers} servers are up; use load() to re-route client-side")
+        conv = meta.get("converter")
+        enforce(conv in _SAVE_FORMATS, f"unknown save_local converter {conv!r}")
+        fmt, suffix = _SAVE_FORMATS[conv]
+        tasks = []
+        for s, c in enumerate(self._conns):
+            path = os.path.join(dirname, f"part-{s:05d}.shard{suffix}")
+            if os.path.exists(path):
+                tasks.append(lambda c=c, path=path: int(c.check(
+                    _LOAD_FILE, table_id, aux=fmt << 8, payload=path.encode(), timeout_ms=0,
+                    retries=0)[0]))
+        return sum(self._fanout(tasks))
+
+
+class RemoteSparseTable:
+    """Table-shaped view over sparse table ``table_id`` on the servers of
+    ``client``: the accessor metadata and the pull/push/full-row surface
+    the hot tier and the stream trainer consume. Build it after
+    ``client.create_sparse_table(table_id, config)`` with the same
+    config."""
+
+    def __init__(self, client: RpcPsClient, table_id: int, config: TableConfig) -> None:
+        self._client = client
+        self._table_id = int(table_id)
+        self.config = config
+        self.accessor = make_accessor(config.accessor, config.accessor_config)
+
+    def pull_sparse(self, keys, slots=None, create=True):
+        return self._client.pull_sparse(self._table_id, keys, create=create, slots=slots)
+
+    def push_sparse(self, keys, push_values):
+        self._client.push_sparse(self._table_id, keys, push_values)
+
+    def export_full(self, keys, create=False, slots=None):
+        return self._client.export_full(self._table_id, keys, create=create, slots=slots)
+
+    def import_full(self, keys, values):
+        self._client.import_full(self._table_id, keys, values)
+
+    def size(self) -> int:
+        return self._client.size(self._table_id)
+
+    def shrink(self) -> int:
+        return self._client.shrink(self._table_id)
+
+    def save(self, dirname: str, mode: int = 0) -> int:
+        return self._client.save(self._table_id, dirname, mode=mode)
+
+    def load(self, dirname: str) -> int:
+        return self._client.load(self._table_id, dirname)
+
+    def load_cold(self, keys, values) -> int:
+        return self._client.load_cold(self._table_id, keys, values)
+
+    def save_local(self, dirname: str, mode: int = 0, converter: Optional[str] = None) -> int:
+        return self._client.save_local(self._table_id, dirname, mode=mode, converter=converter)
+
+    def load_local(self, dirname: str) -> int:
+        return self._client.load_local(self._table_id, dirname)
+
+    def snapshot_items(self, mode: int = 0):
+        return self._client.snapshot_items(self._table_id, mode=mode)
+
+    def spill(self, hot_budget: int) -> int:
+        return self._client.spill(self._table_id, hot_budget)
+
+    def stats(self) -> Dict[str, int]:
+        return self._client.table_stats(self._table_id)
+
+    def digest(self) -> List[int]:
+        return self._client.digest(self._table_id)
+
+    @property
+    def full_dim(self) -> int:
+        return self._client._dims(self._table_id)[2]

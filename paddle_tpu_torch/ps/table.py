@@ -12,6 +12,10 @@ The port's own copy of ``MemorySparseTable`` and ``SsdSparseTable`` from
 - ``SsdSparseTable``, the two-tier table over the native SSD engine
   (``ps.native.SsdTableEngine``): a RAM hot tier plus per-shard disk
   logs, the same table API, and ``spill``/``compact``/``load_cold``.
+- ``MemoryDenseTable`` (server-side SGD/Adam/sum over a dense block),
+  ``MemorySparseGeoTable`` (GEO delta accumulation), ``BarrierTable`` and
+  ``GlobalStepTable``: the in-process tables behind ``ps.client``'s
+  ``LocalPsClient``.
 
 Both save and load per-shard text files in the accessor's format, byte
 for byte the JAX package's (``part-NNNNN.shard[.gz]`` and a
@@ -32,11 +36,12 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from ..core.enforce import InvalidArgumentError, enforce, enforce_eq
+from ..core.enforce import InvalidArgumentError, UnavailableError, enforce, enforce_eq
 from .accessor import AccessorConfig, CtrCommonAccessor, FeatureBlock, accessor_class, make_accessor
 from .native import FeasignIndex, SsdTableEngine
 
-__all__ = ["MemorySparseTable", "SsdSparseTable", "TableConfig", "converter_entry",
+__all__ = ["BarrierTable", "GlobalStepTable", "MemoryDenseTable", "MemorySparseGeoTable",
+           "MemorySparseTable", "SsdSparseTable", "TableConfig", "converter_entry",
            "make_sparse_table", "merge_duplicate_keys", "register_converter", "row_digest"]
 
 _SAVE_MODE_ALL = 0
@@ -98,8 +103,12 @@ def merge_duplicate_keys(keys: np.ndarray, values: np.ndarray) -> Tuple[np.ndarr
 @dataclasses.dataclass
 class TableConfig:
     """Mirrors TableParameter (ps.proto:121) for the port's tables: the CTR
-    accessor, Python shards in RAM or the two-tier SSD engine."""
+    accessor, Python shards in RAM or the two-tier SSD engine. The RPC
+    wire (``ps.rpc``) carries fp32 values only: the fp16 and int8 wires
+    are not ported (ROADMAP Queue A), and asking for one raises."""
 
+    #: the table's id on a PS client (``ps.client``, ``ps.rpc``)
+    table_id: int = 0
     shard_num: int = 16
     accessor_config: Optional[AccessorConfig] = None
     seed: int = 0
@@ -112,6 +121,17 @@ class TableConfig:
     ssd_value_dtype: str = "fp32"
     # named shard-file converter of save/load ("gzip" built in)
     converter: Optional[str] = None
+    # value encodings on the RPC wire (local tables ignore them)
+    pull_wire_dtype: str = "fp32"
+    push_wire_dtype: str = "fp32"
+
+    def __post_init__(self) -> None:
+        for name in ("pull_wire_dtype", "push_wire_dtype"):
+            value = getattr(self, name)
+            enforce(value == "fp32",
+                    f"TableConfig.{name}={value!r}: the port's RPC wire carries fp32 only "
+                    "(the fp16/int8 wires are not ported yet, ROADMAP Queue A)",
+                    UnavailableError)
 
 
 class _SparseShard:
@@ -520,3 +540,113 @@ def make_sparse_table(config: TableConfig) -> MemorySparseTable:
                 InvalidArgumentError)
         return SsdSparseTable(config.ssd_path, config)
     raise InvalidArgumentError(f"unknown table storage {config.storage!r}; have memory|ssd")
+
+
+class MemoryDenseTable:
+    """A dense block with a server-side optimizer (memory_dense_table.cc:
+    "sgd", "adam", or "sum" for a raw accumulator)."""
+
+    def __init__(self, dim: int, optimizer: str = "adam", lr: float = 0.001) -> None:
+        enforce(optimizer in ("sgd", "adam", "sum"),
+                f"unknown dense optimizer {optimizer!r}", InvalidArgumentError)
+        self.dim = dim
+        self.values = np.zeros(dim, np.float32)
+        self.optimizer = optimizer
+        self.lr = lr
+        if optimizer == "adam":
+            self.m = np.zeros(dim, np.float32)
+            self.v = np.zeros(dim, np.float32)
+            self.beta1, self.beta2, self.eps = 0.9, 0.999, 1e-8
+            self.t = 0
+        self.lock = threading.Lock()
+
+    def pull_dense(self) -> np.ndarray:
+        return self.values.copy()
+
+    def push_dense(self, grad: np.ndarray) -> None:
+        with self.lock:
+            if self.optimizer == "sgd":
+                self.values -= self.lr * grad
+            elif self.optimizer == "sum":
+                self.values += grad
+            else:
+                self.t += 1
+                self.m = self.beta1 * self.m + (1 - self.beta1) * grad
+                self.v = self.beta2 * self.v + (1 - self.beta2) * grad * grad
+                m_hat = self.m / (1 - self.beta1 ** self.t)
+                v_hat = self.v / (1 - self.beta2 ** self.t)
+                self.values -= self.lr * m_hat / (np.sqrt(v_hat) + self.eps)
+
+    def set_values(self, values: np.ndarray) -> None:
+        with self.lock:
+            self.values[:] = values
+
+
+class MemorySparseGeoTable:
+    """GEO-SGD delta table (memory_sparse_geo_table + geo_recorder): sums
+    per-key deltas and their count; :meth:`pull_geo` drains the means."""
+
+    def __init__(self, embedding_dim: int) -> None:
+        self.dim = embedding_dim
+        self._index = FeasignIndex(256)
+        self._delta = np.zeros((0, embedding_dim), np.float32)
+        self._count = np.zeros(0, np.int32)
+        self.lock = threading.Lock()
+
+    def push_delta(self, keys: np.ndarray, delta: np.ndarray) -> None:
+        with self.lock:
+            rows, _ = self._index.lookup_or_insert(np.ascontiguousarray(keys, np.uint64))
+            cap = self._index.row_capacity
+            if cap > len(self._delta):
+                grow = max(256, cap)
+                nd = np.zeros((grow, self.dim), np.float32)
+                nc = np.zeros(grow, np.int32)
+                nd[:len(self._delta)] = self._delta
+                nc[:len(self._count)] = self._count
+                self._delta, self._count = nd, nc
+            np.add.at(self._delta, rows, delta)
+            np.add.at(self._count, rows, 1)
+
+    def pull_geo(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(keys, mean deltas) of every key pushed since the last drain."""
+        with self.lock:
+            keys, rows = self._index.items()
+            if len(keys) == 0:
+                return keys, np.zeros((0, self.dim), np.float32)
+            deltas = self._delta[rows] / np.maximum(self._count[rows], 1)[:, None]
+            self._index.erase(keys)
+            self._delta[rows] = 0
+            self._count[rows] = 0
+            return keys, deltas
+
+
+class BarrierTable:
+    """All-trainer barrier (barrier_table.cc:76), in process."""
+
+    def __init__(self, trainer_num: int) -> None:
+        self.trainer_num = trainer_num
+        self._barrier = threading.Barrier(trainer_num)
+
+    def barrier(self, timeout: Optional[float] = None) -> None:
+        self._barrier.wait(timeout=timeout)
+
+
+class GlobalStepTable:
+    """The global-step accumulator (tensor_table.h:257), with an optional
+    callback on the accumulated step (the server-side LR decay hook)."""
+
+    def __init__(self, decay_fn=None) -> None:
+        self._step = 0
+        self._decay_fn = decay_fn
+        self.lock = threading.Lock()
+
+    def push_step(self, n: int = 1) -> int:
+        with self.lock:
+            self._step += int(n)
+            if self._decay_fn is not None:
+                self._decay_fn(self._step)
+            return self._step
+
+    @property
+    def step(self) -> int:
+        return self._step

@@ -277,16 +277,16 @@ def test_flush_drop_resume_exact():
 
 def test_mesh_and_communicator_raise():
     """A mesh is accepted (the sharded tier; its tests are in
-    ``test_torch_sharded_hot_tier.py``); a communicator still raises."""
+    ``test_torch_sharded_hot_tier.py``); measured placement still raises.
+    (The communicator is ported: ``test_torch_stream_rpc.py``.)"""
     from paddle_tpu_torch.core.enforce import UnavailableError
     from paddle_tpu_torch.core.mesh import make_mesh
 
     t = _trainer(_table(), HotTierConfig(capacity=256, mesh=make_mesh({"ps": 2}, device="cpu")))
     assert t.hot_tier.stats()["shards"] == 2
     model = DeepFM(CtrConfig(S, D, DIM, (8,)))
-    with pytest.raises(UnavailableError, match="A8"):
-        CtrStreamTrainer(model, Adam(), _table(), communicator=object(), device="cpu",
-                         **_NAMES)
+    with pytest.raises(UnavailableError, match="placement"):
+        CtrStreamTrainer(model, Adam(), _table(), placement=object(), device="cpu", **_NAMES)
 
 
 @pytest.mark.parametrize("hot", [False, True], ids=["local_table", "hot_tier"])

@@ -129,6 +129,43 @@ def test_hot_tier_entry_points_without_device_raise_without_gpu():
         table.close()
 
 
+def test_stream_trainer_over_a_communicator_without_device_raises_without_gpu():
+    """The the_one_ps rung: ``CtrStreamTrainer(communicator=...)`` (RPC-only
+    and over the hot tier) and the tier over a ``RemoteSparseTable`` run on
+    the card unless the caller asks for the CPU; the servers, the client
+    and the communicator are host objects."""
+    _no_gpu()
+    from paddle_tpu_torch.core.enforce import UnavailableError
+    from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.ps.communicator import HalfAsyncCommunicator, SyncCommunicator
+    from paddle_tpu_torch.ps.hot_tier import HotEmbeddingTier, HotTierConfig
+    from paddle_tpu_torch.ps.ps_trainer import CtrStreamTrainer
+    from paddle_tpu_torch.ps.rpc import NativePsServer, RemoteSparseTable, RpcPsClient
+    from paddle_tpu_torch.ps.table import TableConfig
+
+    server = NativePsServer()
+    client = RpcPsClient([f"127.0.0.1:{server.port}"])
+    try:
+        cfg = TableConfig(table_id=0, shard_num=2)
+        client.create_sparse_table(0, cfg)
+        names = dict(sparse_slots=["a", "b"], dense_slots=["d"], label_slot="y")
+        for comm in (SyncCommunicator(client), HalfAsyncCommunicator(client)):
+            for hot in (None, HotTierConfig(capacity=64)):
+                args = (DeepFM(CtrConfig(2, 1, 8, (8,))), Adam(), None)
+                kw = dict(communicator=comm, embedx_dim=8, hot_tier=hot, **names)
+                with pytest.raises(UnavailableError, match="device='cpu'"):
+                    CtrStreamTrainer(*args, **kw)
+                CtrStreamTrainer(*args, device="cpu", **kw)
+        remote = RemoteSparseTable(client, 0, cfg)
+        with pytest.raises(UnavailableError):
+            HotEmbeddingTier(remote, HotTierConfig(capacity=64))
+        HotEmbeddingTier(remote, HotTierConfig(capacity=64), device="cpu")
+    finally:
+        client.close()
+        server.close()
+
+
 def test_mesh_without_device_raises_without_gpu():
     """A mesh defaults to the card too; the sharded tier and trainer take
     their device from the caller and must match the mesh's."""
