@@ -7,7 +7,9 @@ Needs one CUDA device, ``g++`` (and zlib) and ``nvcc``; builds the host
 library, the SSD tier's library (which holds the PS service too) and the
 three CUDA kernel libraries from the checkout at first use, in parallel
 (into ``paddle_tpu_torch/_build/``). Phase 13 starts PS servers on
-127.0.0.1 (ephemeral ports) and closes them. Exits non-zero, with no
+127.0.0.1 (ephemeral ports) and closes them; phase 14 starts the job's
+server and trainer processes (ports on 127.0.0.1 it checks are free)
+and waits for them, or ends them. Exits non-zero, with no
 result line, when there is no CUDA device, when the package is missing,
 or when any phase fails. Phases:
 
@@ -116,8 +118,29 @@ or when any phase fails. Phases:
    real batch of the tier leg and timed there; then, small (3 slots, 400
    ids, capacity 224, ``SyncCommunicator``), tier over RPC ≡ RPC-only over
    RPC bitwise on the card, and card vs CPU;
-14. the ``kernels`` JSON line (B1 twice: ``ctr_sparse_rows`` on the pass
-   path, ``ctr_sparse_rows@widedeep`` on phase 12's; B2 and B4 twice:
+14. the PaddleRec job (BASELINE.md config 3 as a PaddleRec job runs it):
+   131,072 of phase 4's MultiSlot lines in 8 part files; the job's
+   processes are this script in ``--ps-job CONFIG.json`` mode, started by
+   ``distributed.launch.launch_local`` (2 server processes; the role env
+   wires them through ``fleet``; the config dict goes through
+   ``ps.config.load_ps_config``: DeepFM at phase 4's width, Adam).
+   Leg A, ``sync_mode: async``, 2 trainers: each loads its
+   ``fleet.util.get_file_shard`` through the native feed (4 threads),
+   ``global_shuffle(util=fleet.util)``, trains ``CtrStreamTrainer`` over
+   ``fleet.communicator`` for 2 epochs at batch 4096, ``stop_worker``,
+   the closing barrier; trainer 0 saves the tables and stops the servers.
+   Checks: exit codes 0, records conserved by the shuffle (counts, each
+   within 2 % of half, an order-free digest of the files), losses falling,
+   no table kernel, the saved rows = the data's distinct keys, also loaded
+   into a fresh local ``Fleet``. Leg B, ``sync_mode: gpubox``, 1 trainer:
+   one ``CtrPassTrainer`` pass over ``RemoteSparseTable`` (32 steps, 32
+   B1 launches, B1 bitwise on its first real push inside the trainer
+   process, losses falling, the servers' rows = the data's keys). Leg C:
+   ``Trainer.train_from_dataset`` over a ``QueueDataset`` of the files (a
+   2-layer MLP over the dense slots, 1 epoch on the card);
+15. the ``kernels`` JSON line (B1 three times: ``ctr_sparse_rows`` on the
+   pass path, ``ctr_sparse_rows@widedeep`` on phase 12's,
+   ``ctr_sparse_rows@gpubox_rpc`` on phase 14's leg B; B2 and B4 twice:
    ``hot_probe_gather``/``hot_scatter_apply`` on the hot path,
    ``...@rpc`` on phase 13's), then the card line, then the result line.
 
@@ -2303,9 +2326,9 @@ def wd_merge_check(push):
         raise AssertionError("merge_sparse_grads differs from the CPU on the Wide&Deep push")
 
 
-def wd_b1_check(push):
-    """B1 in place on one real Wide&Deep push, bitwise against its plain
-    version, then timed beside it and its byte bound."""
+def wd_b1_check(push, dim=WD_DIM, what="Wide&Deep push"):
+    """B1 in place on one real push (``dim`` wide) of a pass path, bitwise
+    against its plain version, then timed beside it and its byte bound."""
     from paddle_tpu_torch.ops import sparse_optimizer as so
 
     state, (uniq, ds, dc, g), kw = push["state"], push["args"], push["kw"]
@@ -2317,16 +2340,16 @@ def wd_b1_check(push):
     ok = bitwise_cols(got, want)
     err = max(max_abs(a, b) for a, b in zip(got, want))
     if not ok:
-        raise AssertionError(f"B1 disagrees with plain on the Wide&Deep push (max_abs {err})")
+        raise AssertionError(f"B1 disagrees with plain on the {what} (max_abs {err})")
     work = tuple(c.clone() for c in state)
     ms, _ = time_cuda(lambda: so.ctr_sparse_rows_at(work, uniq, ds, dc, g, **kw))
     plain_ms, _ = time_cuda(lambda: so.ctr_sparse_rows_at_plain(work, uniq, ds, dc, g, **kw))
     u = int(((uniq >= 0) & (uniq < C)).sum())
-    es, xs = so.rule_state_dim(kw["embed_rule"], 1), so.rule_state_dim(kw["embedx_rule"], WD_DIM)
-    nbytes = at_bytes(n, u, WD_DIM, es, xs, uniq.element_size())
-    nops = kernel_ops(u, WD_DIM, kw["embed_rule"], kw["embedx_rule"])
+    es, xs = so.rule_state_dim(kw["embed_rule"], 1), so.rule_state_dim(kw["embedx_rule"], dim)
+    nbytes = at_bytes(n, u, dim, es, xs, uniq.element_size())
+    nops = kernel_ops(u, dim, kw["embed_rule"], kw["embedx_rule"])
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
-    log(f"kernel ctr_sparse_rows_at {kw['embed_rule']}/{kw['embedx_rule']}, Wide&Deep push: "
+    log(f"kernel ctr_sparse_rows_at {kw['embed_rule']}/{kw['embedx_rule']}, {what}: "
         f"n={n} entries, u={u} touched rows of {C}, {uniq.dtype}: bitwise={ok} max_abs={err}; "
         f"device {ms} ms, plain {plain_ms} ms, bound {max(bytes_ms, ops_ms)} ms ({nbytes} B, "
         f"{nops} f32 ops)")
@@ -2859,12 +2882,451 @@ def phase_rpc(dev, card, ds):
     return counts, b2, b4
 
 
+# -- phase 14: the PaddleRec job ------------------------------------------------
+
+# BASELINE.md config 3 as a PaddleRec job runs it: `distributed.launch`
+# starts PS server and trainer processes of this very script
+# (``--ps-job CONFIG.json``), ``fleet`` wires them from the role env,
+# ``ps/config.py`` turns the job's config dict into the model, optimizer,
+# table and strategy, and the data comes from MultiSlot part files through
+# the native feed. Phase 4's generator and width (26 slots of 10,000 ids,
+# 13 dense, DeepFM dim 8, DNN 400^3, batch 4096); 131,072 lines in 8 files.
+PSJOB_LINES, PSJOB_FILES, PSJOB_SERVERS, PSJOB_EPOCHS = 131_072, 8, 2, 2
+PSJOB_BATCH = BATCH
+PSJOB_TIMEOUT = 300          # seconds a leg's processes may take
+PSJOB_BALANCE = 0.02         # a trainer's share after the shuffle: half, within 2 %
+PSJOB_SCRIPT = os.path.abspath(__file__)  # what the job's processes run
+_READING = "PS_JOB_READING "
+
+
+def ps_job_config(mode, seed=14):
+    """The job's config in PaddleRec's ``hyper_parameters``/``runner``
+    schema, with ``mode`` its ``runner.sync_mode`` and the model's weight
+    seed drawn from a numpy generator."""
+    return {"hyper_parameters": {"optimizer": {"class": "Adam", "learning_rate": 1e-3},
+                                 "sparse_inputs_slots": SLOTS + 1,
+                                 "sparse_feature_number": HOT_IDS,
+                                 "sparse_feature_dim": DIM + 1, "dense_input_dim": DENSE,
+                                 "fc_sizes": [400, 400, 400]},
+            "runner": {"sync_mode": mode, "thread_num": 16},
+            "seed": int(np.random.default_rng(seed).integers(1 << 31))}
+
+
+def ps_job_dataset(seed=0):
+    from paddle_tpu_torch.data.dataset import InMemoryDataset, SlotDesc
+
+    return InMemoryDataset([SlotDesc(f"s{i}") for i in range(SLOTS)]
+                           + [SlotDesc(f"d{i}", is_float=True) for i in range(DENSE)]
+                           + [SlotDesc("label", is_float=True)], seed=seed)
+
+
+def record_digest(ds):
+    """Order-free digest of every record of ``ds`` (one value a slot): the
+    sum mod 2^64 of a per-record hash, so the digests of a partition add
+    up to the whole's."""
+    total = 0
+    for batch in ds.batch_iter(1 << 16, drop_last=False):
+        h = None
+        for name in sorted(batch):
+            v, lens = batch[name]
+            col = v[:, 0].view(np.uint32).astype(np.uint64) if v.dtype == np.float32 else v[:, 0]
+            h = np.zeros(len(lens), np.uint64) if h is None else h
+            h = (h ^ col) * np.uint64(0x9E3779B97F4A7C15) + lens.astype(np.uint64)
+            h ^= h >> np.uint64(29)
+        total = (total + int(h.sum(dtype=np.uint64))) % (1 << 64)
+    return total
+
+
+def write_part_files(base):
+    """Phase 4's MultiSlot lines, ``PSJOB_LINES`` of them, in
+    ``PSJOB_FILES`` part files under ``base``; returns the paths."""
+    lines = ctr_lines(np.random.default_rng(21), PSJOB_LINES, HOT_IDS, SLOTS, DENSE)
+    per = PSJOB_LINES // PSJOB_FILES
+    paths = []
+    for f in range(PSJOB_FILES):
+        path = os.path.join(base, f"part-{f:05d}")
+        with open(path, "w") as fh:
+            fh.write("\n".join(lines[f * per:(f + 1) * per]) + "\n")
+        paths.append(path)
+    return paths
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def ps_job_async(fleet, job, spec, dev):
+    """Leg A's trainer: its file shard through the native feed (4 reader
+    threads), the global shuffle through ``fleet.util``, ``CtrStreamTrainer``
+    over ``fleet.communicator`` (RPC-only), then ``stop_worker`` and the
+    closing barrier; trainer 0 then saves the tables and stops the servers."""
+    from paddle_tpu_torch.models.ctr import DeepFM
+    from paddle_tpu_torch.ps.ps_trainer import CtrStreamTrainer
+
+    rank = fleet.worker_index()
+    ds = ps_job_dataset(seed=rank)
+    ds.set_filelist(fleet.util.get_file_shard(spec["files"]))
+    t0 = time.perf_counter()
+    loaded = ds.load_into_memory(num_threads=4)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds.global_shuffle(util=fleet.util)
+    shuffle_s = time.perf_counter() - t0
+    model = DeepFM(job.make_model_config(), generator=torch.Generator().manual_seed(spec["seed"]))
+    trainer = CtrStreamTrainer(model, job.make_optimizer(), None,
+                               communicator=fleet.communicator, table_id=0,
+                               embedx_dim=job.table.accessor_config.embedx_dim, device=dev,
+                               **slot_names(SLOTS, DENSE))
+    _sync(dev)
+    reset_launches()
+    epochs = []
+    for _ in range(spec["epochs"]):
+        fleet.client.reset_op_counts()
+        t0 = time.perf_counter()
+        # every record, the short tail batch too: the saved tables must
+        # hold every key of the data
+        r = trainer.train_from_dataset(ds, batch_size=spec["batch"], drop_last=False)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        ops = fleet.client.reset_op_counts()
+        steps = int(r["steps"])
+        epochs.append({"loss": r["loss"], "steps": steps, "s": wall,
+                       "samples_per_s": r["samples"] / wall,
+                       "ops_per_step": {k: v / steps for k, v in sorted(ops.items())}})
+    launches = read_launches()
+    fleet.stop_worker()
+    fleet.client.barrier()  # the closing barrier: every trainer's pushes have landed
+    saved, save_s = None, None
+    if rank == 0:
+        t0 = time.perf_counter()
+        saved = fleet.save_persistables(spec["save_dir"])
+        save_s = time.perf_counter() - t0
+        fleet.client.stop_servers()
+    fleet.client.close()
+    return {"rank": rank, "loaded": loaded, "records": ds.num_records,
+            "digest": str(record_digest(ds)), "load_s": load_s, "shuffle_s": shuffle_s,
+            "epochs": epochs, "launches": launches, "saved": saved, "save_s": save_s}
+
+
+def ps_job_gpubox(fleet, job, spec, dev):
+    """Leg B's trainer: every file through the native feed, one pass of
+    ``CtrPassTrainer`` over ``RemoteSparseTable(fleet.client, 0, ...)``
+    (the pass build's ``export_full`` and the flush's ``import_full`` cross
+    the wire), per-step losses, B1 bitwise on the pass's first real push;
+    then the servers' size and the stop."""
+    from paddle_tpu_torch.models.ctr import DeepFM
+    from paddle_tpu_torch.ps.embedding_cache import CacheConfig
+    from paddle_tpu_torch.ps.ps_trainer import CtrPassTrainer
+    from paddle_tpu_torch.ps.rpc import RemoteSparseTable
+
+    ds = ps_job_dataset()
+    ds.set_filelist(spec["files"])
+    t0 = time.perf_counter()
+    loaded = ds.load_into_memory(num_threads=4)
+    load_s = time.perf_counter() - t0
+    acc = job.table.accessor_config
+    model = DeepFM(job.make_model_config(), generator=torch.Generator().manual_seed(spec["seed"]))
+    tr = CtrPassTrainer(model, job.make_optimizer(), RemoteSparseTable(fleet.client, 0, job.table),
+                        CacheConfig(capacity=spec["cache_capacity"], embedx_dim=acc.embedx_dim,
+                                    embedx_threshold=acc.embedx_threshold),
+                        device=dev, **slot_names(SLOTS, DENSE))
+    spans = timed_cache(tr.cache)
+    step, losses = tr._packed_step(spec["batch"]), []
+
+    def recorded(*a):
+        out = step(*a)
+        losses.append(out[3])
+        return out
+
+    tr._packed_steps[(spec["batch"], 1)] = recorded
+    push, restore = capture_first_push()
+    _sync(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        r = tr.train_from_dataset(ds, batch_size=spec["batch"])
+    finally:
+        restore()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    b1 = wd_b1_check(push, acc.embedx_dim, "gpubox push over RPC") if dev.type == "cuda" else None
+    del push
+    # the host's share of a step: 4 batches sliced and packed as the
+    # prefetcher thread does, no step
+    t0, n_b = time.perf_counter(), 0
+    for batch in ds.batch_iter(spec["batch"]):
+        tr._pack(batch)
+        n_b += 1
+        if n_b == 4:
+            break
+    slice_ms = 1e3 * (time.perf_counter() - t0) / n_b
+    size = fleet.client.size(0)
+    fleet.stop_worker()
+    fleet.client.barrier()
+    fleet.client.stop_servers()
+    fleet.client.close()
+    return {"rank": 0, "loaded": loaded, "load_s": load_s, "steps": int(r["steps"]),
+            "loss": r["loss"], "losses": [float(x) for x in losses], "s": wall,
+            "samples_per_s": r["samples"] / wall, "build_s": spans["activate"][0],
+            "prepare_s": spans["prepare"][0], "flush_s": spans["flush"][0],
+            "launches": launches, "size": size, "keys": len(dataset_keys(ds)), "b1": b1,
+            "slice_ms": slice_ms}
+
+
+def ps_job_child(path):
+    """``--ps-job CONFIG.json``: one process of the job. A PSERVER serves
+    until a trainer stops it; a TRAINER runs its leg and prints one
+    ``PS_JOB_READING {json}`` line."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ps.config import load_ps_config
+
+    with open(path) as f:
+        spec = json.load(f)
+    job = load_ps_config(spec["ps"])
+    fleet.init(strategy=job.strategy)
+    if fleet.is_server():
+        fleet.init_server()
+        fleet.run_server()
+        fleet.stop_server()
+        return 0
+    dev = torch.device(spec["device"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fleet.init_worker()
+    fleet.register_sparse_table(0, job.table)
+    leg = {"async": ps_job_async, "gpubox": ps_job_gpubox}[job.sync_mode]
+    print(_READING + json.dumps(leg(fleet, job, spec, dev)), flush=True)
+    return 0
+
+
+def _port_free(port):
+    import socket
+
+    with socket.socket() as s:
+        try:
+            s.bind(("127.0.0.1", port))
+            return True
+        except OSError:
+            return False
+
+
+def ps_job_ports(nproc, servers):
+    """(launcher base port P, store port): P+1..P+nproc (the trainers'
+    names) and P+100..P+100+servers-1 (the servers) free, and a free store
+    port outside both."""
+    rng = np.random.default_rng()
+    for _ in range(500):
+        p = int(rng.integers(20000, 50000))
+        ports = [p + 1 + i for i in range(nproc)] + [p + 100 + i for i in range(servers)]
+        if all(_port_free(q) for q in ports + [p + 200]):
+            return p, p + 200
+    raise RuntimeError("no free port range for the job")
+
+
+def ps_job_launch(base, mode, files, nproc, dev):
+    """Launch one leg's 2 servers and ``nproc`` trainers through
+    ``launch_local``; returns (the trainers' readings, seconds, spec).
+    A non-zero exit, a timeout or a missing reading fails the leg with
+    every process's log tail."""
+    import subprocess
+
+    from paddle_tpu_torch.distributed.launch import JobSpec, launch_local
+
+    spec = {"ps": ps_job_config(mode), "files": files, "device": dev.type,
+            "batch": PSJOB_BATCH, "epochs": PSJOB_EPOCHS, "cache_capacity": CAPACITY,
+            "save_dir": os.path.join(base, f"saved_{mode}")}
+    spec["seed"] = spec["ps"]["seed"]
+    path = os.path.join(base, f"job_{mode}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    log_dir = os.path.join(base, f"logs_{mode}")
+    port, store_port = ps_job_ports(nproc, PSJOB_SERVERS)
+    t0 = time.perf_counter()
+    try:
+        rc = launch_local(JobSpec([PSJOB_SCRIPT, "--ps-job", path], nproc=nproc,
+                                  servers=PSJOB_SERVERS, coordinator_port=port, log_dir=log_dir,
+                                  env={"PADDLE_UTIL_STORE_PORT": str(store_port)}),
+                          timeout=PSJOB_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        rc = f"timeout after {PSJOB_TIMEOUT} s"
+    wall = time.perf_counter() - t0
+    readings = []
+    for r in range(nproc):
+        log_path = os.path.join(log_dir, f"trainer_{r}.log")
+        lines = open(log_path).read().splitlines() if os.path.exists(log_path) else []
+        got = [json.loads(l[len(_READING):]) for l in lines if l.startswith(_READING)]
+        readings += got[-1:]
+    if rc != 0 or len(readings) != nproc:
+        for name in sorted(os.listdir(log_dir)) if os.path.isdir(log_dir) else []:
+            with open(os.path.join(log_dir, name)) as f:
+                log(f"--- {name} (tail) ---\n{f.read()[-4000:]}")
+        raise AssertionError(f"PaddleRec job, {mode}: launcher rc {rc}, {len(readings)} of "
+                             f"{nproc} readings")
+    return readings, wall, spec
+
+
+def ps_job_leg_async(dev, card, base, files, whole):
+    """Leg A: 2 servers + 2 trainers, ``sync_mode: async``. Checks the
+    shuffle conserved the records (counts, each within 2 % of half, the
+    order-free digest), the losses, no table kernel, and that the saved
+    tables hold the data's distinct keys, also once loaded into a fresh
+    local-transport ``Fleet``."""
+    from paddle_tpu_torch.distributed import DistributedStrategy, Fleet, UserDefinedRoleMaker
+    from paddle_tpu_torch.ps.config import load_ps_config
+
+    readings, wall, spec = ps_job_launch(base, "async", files, 2, dev)
+    for r in readings:
+        e = r["epochs"]
+        log(f"PaddleRec job, async, trainer {r['rank']}: {r['loaded']} records loaded in "
+            f"{r['load_s']:.3f} s (4 reader threads), global shuffle {r['shuffle_s']:.3f} s "
+            f"(-> {r['records']} records), epochs "
+            + "; ".join(f"{x['steps']} steps {x['s']:.3f} s, loss {x['loss']:.6f}, "
+                        f"{x['samples_per_s']:.1f} samples/s, client ops/step {x['ops_per_step']}"
+                        for x in e)
+            + f"; launches {r['launches']}" + (f"; save {r['save_s']:.3f} s" if r["saved"] else "")
+            + f" on {card}")
+    n, keys = whole.num_records, dataset_keys(whole)
+    counts = [r["records"] for r in readings]
+    assert sum(counts) == n and sum(r["loaded"] for r in readings) == n, (counts, n)
+    assert all(abs(c - n / 2) <= PSJOB_BALANCE * n / 2 for c in counts), \
+        f"unbalanced shuffle {counts}"
+    digest = sum(int(r["digest"]) for r in readings) % (1 << 64)
+    assert digest == record_digest(whole), "the shuffled records differ from the files'"
+    for r in readings:
+        losses = [x["loss"] for x in r["epochs"]]
+        assert np.isfinite(losses).all() and losses[-1] < losses[0], f"losses {losses}"
+        assert sum(r["launches"].values()) == 0, f"a table kernel launched: {r['launches']}"
+    saved = readings[0]["saved"]
+    assert saved == {"0": len(keys)}, f"saved {saved}, the data has {len(keys)} distinct keys"
+    job = load_ps_config(spec["ps"])
+    local = Fleet().init(UserDefinedRoleMaker(), strategy=DistributedStrategy(ps_transport="local"))
+    local.register_sparse_table(0, job.table)
+    t0 = time.perf_counter()
+    loaded = local.load_model(os.path.join(spec["save_dir"]))
+    _, found = local.client._sparse(0).export_full(keys)
+    size = local.client._sparse(0).size()
+    local.client.server.close()
+    assert loaded == {0: len(keys)} and size == len(keys) and found.all(), (loaded, size)
+    log(f"PaddleRec job, async: {n} records over 2 trainers {counts}, digest equal; saved "
+        f"{saved['0']} rows = the data's distinct keys; a local Fleet loads them in "
+        f"{time.perf_counter() - t0:.3f} s; leg {wall:.1f} s (4 processes)")
+
+
+def ps_job_leg_gpubox(dev, card, base, files, whole):
+    """Leg B: 2 servers + 1 trainer, ``sync_mode: gpubox``: one B1 launch a
+    step, B1 bitwise on a real push, losses falling over the pass, the
+    servers' rows = the data's distinct keys. Returns the trainer's reading."""
+    (r,), wall, _ = ps_job_launch(base, "gpubox", files, 1, dev)
+    steps, b1 = r["steps"], r["b1"]
+    log(f"PaddleRec job, gpubox: {r['loaded']} records loaded in {r['load_s']:.3f} s, one pass "
+        f"of {steps} steps in {r['s']:.3f} s ({r['samples_per_s']:.1f} samples/s, the build and "
+        f"flush included), mean loss {r['loss']:.6f}; pass prepare {r['prepare_s']:.3f} s "
+        f"(host), build {r['build_s']:.3f} s (remote export_full), flush {r['flush_s']:.3f} s "
+        f"(remote import_full); a batch sliced and packed on the host {r['slice_ms']:.3f} ms "
+        f"(one thread, no step); launches {r['launches']}; servers hold {r['size']} rows, the data "
+        f"{r['keys']} keys; leg {wall:.1f} s (3 processes) on {card}")
+    if b1 is not None:
+        log(f"kernel ctr_sparse_rows_at, gpubox push over RPC (in the trainer process): "
+            f"bitwise, max_abs {b1['max_abs_err']}; device {b1['ms']} ms, plain "
+            f"{b1['plain_ms']} ms, bound {b1['bound_ms']} ms ({b1['bound_by']}) on {card}")
+    want = whole.num_records // PSJOB_BATCH
+    assert steps == want, f"{steps} steps, want {want}"
+    losses = r["losses"]
+    assert len(losses) == steps and np.isfinite(losses).all(), losses
+    assert np.mean(losses[-8:]) < np.mean(losses[:8]), f"losses did not fall {losses}"
+    if dev.type == "cuda":
+        assert r["launches"]["ctr_sparse_rows"] == steps, \
+            f"B1 launches {r['launches']['ctr_sparse_rows']} != {steps} steps"
+        assert b1 is not None
+    assert r["size"] == r["keys"] == len(dataset_keys(whole)), (r["size"], r["keys"])
+    return r
+
+
+def ps_job_leg_dense(dev, card, files):
+    """Leg C: ``Trainer.train_from_dataset`` over a ``QueueDataset`` of the
+    files, the reference test's 2-layer MLP over the 13 dense slots, 1
+    epoch on ``dev``."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.data.dataset import QueueDataset, SlotDesc
+    from paddle_tpu_torch.executor import Trainer
+    from paddle_tpu_torch.optimizer import Adam
+
+    class MLP(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            g = torch.Generator().manual_seed(3)
+            self.l1 = nn.Linear(DENSE, 16, generator=g)
+            self.l2 = nn.Linear(16, 1, generator=g)
+
+        def forward(self, x):
+            return self.l2(nn.functional.relu(self.l1(x)))[..., 0]
+
+    def feed(batch):
+        dense = np.concatenate([batch[f"d{i}"][0] for i in range(DENSE)], axis=1)
+        return dense.astype(np.float32), batch["label"][0][:, 0].astype(np.float32)
+
+    ds = QueueDataset([SlotDesc(f"s{i}") for i in range(SLOTS)]
+                      + [SlotDesc(f"d{i}", is_float=True) for i in range(DENSE)]
+                      + [SlotDesc("label", is_float=True)])
+    ds.set_filelist(files)
+    tr = Trainer(MLP(), Adam(1e-2), nn.functional.binary_cross_entropy_with_logits, device=dev)
+    seen = []
+    train_step = tr.train_step
+
+    def step(inputs, labels):
+        loss = train_step(inputs, labels)
+        seen[:] = [loss]
+        return loss
+
+    tr.train_step = step
+    t0 = time.perf_counter()
+    (loss,) = tr.train_from_dataset(ds, feed, batch_size=PSJOB_BATCH, epochs=1)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    log(f"PaddleRec job, dense executor: {tr.global_step} steps over a QueueDataset, epoch "
+        f"loss {loss:.6f}, {tr.global_step * PSJOB_BATCH / wall:.1f} samples/s ({wall:.3f} s, "
+        f"parsing included) on {card}")
+    assert np.isfinite(loss) and seen[0].device.type == dev.type, (loss, seen[0].device)
+    assert tr.global_step == sum(1 for _ in open(files[0])) * len(files) // PSJOB_BATCH
+
+
+def phase_ps_job(dev, card):
+    """Phase 14: the part files, then leg A (async), leg B (gpubox) and
+    leg C (the dense executor). Returns leg B's reading."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="ps_job_")
+    try:
+        t0 = time.perf_counter()
+        files = write_part_files(base)
+        whole = ps_job_dataset()
+        whole.set_filelist(files)
+        whole.load_into_memory(num_threads=4)
+        log(f"PaddleRec job: {whole.num_records} MultiSlot lines in {len(files)} part files, "
+            f"written and read back in {time.perf_counter() - t0:.2f} s (host)")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()  # the job's processes share the card
+        ps_job_leg_async(dev, card, base, files, whole)
+        gpubox = ps_job_leg_gpubox(dev, card, base, files, whole)
+        ps_job_leg_dense(dev, card, files)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"PaddleRec job (phase 14): {time.perf_counter() - t_phase:.1f} s")
+    return gpubox
+
+
 def main(argv):
     profile_dir = None
+    if argv[:1] == ["--ps-job"] and len(argv) == 2:
+        return ps_job_child(argv[1])
     if argv[:1] == ["--profile"] and len(argv) == 2:
         profile_dir = argv[1]
     elif argv:
-        print("usage: chip_smoke.py [--profile DIR]", file=sys.stderr)
+        print("usage: chip_smoke.py [--profile DIR]  (--ps-job CONFIG.json: one process of "
+              "phase 14's job)", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -2908,6 +3370,7 @@ def main(argv):
     wd_counts, wd_b1 = phase_widedeep(dev, card)
     rpc_counts, rpc_b2, rpc_b4 = phase_rpc(dev, card, ds)
     del ds
+    gpubox = phase_ps_job(dev, card)
     phase_kernel_counts(dev)
     wd_kernel_counts(dev)
     phase_resnet_kernel_counts(resnets, resnet_batch, profile_dir)
@@ -2955,7 +3418,12 @@ def main(argv):
         entry("hot_probe_gather@rpc", hot_src, "paddle_tpu/ops/hot_kernels.py:116",
               rpc_counts["hot_probe_gather"], rpc_b2),
         entry("hot_scatter_apply@rpc", hot_src, "paddle_tpu/ops/hot_kernels.py:278",
-              rpc_counts["hot_scatter_apply"], rpc_b4)]
+              rpc_counts["hot_scatter_apply"], rpc_b4),
+        # B1 again as phase 14's gpubox trainer process launches it over
+        # RemoteSparseTable: its launches there, its numbers on that leg's
+        # first push, measured in that process
+        entry("ctr_sparse_rows@gpubox_rpc", b1_src, b1_ref,
+              gpubox["launches"]["ctr_sparse_rows"], gpubox["b1"])]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -12,6 +12,11 @@ memory), on the stream the step runs on. The caller keeps every host
 tensor of a batch referenced until the step that reads its device copy
 has been enqueued: a pinned buffer freed under an in-flight
 ``non_blocking`` copy would be silent corruption.
+
+:func:`device_prefetch` is the JAX package's default transform: every
+array leaf of a batch goes to the device INSIDE the producer thread (from
+pageable memory, so the copy has read its source when it returns), and
+the training thread receives device tensors.
 """
 
 from __future__ import annotations
@@ -19,12 +24,14 @@ from __future__ import annotations
 import queue
 import threading
 import weakref
-from typing import Iterable, Iterator, Union
+from typing import Any, Iterable, Iterator, Union
 
 import numpy as np
 import torch
 
-__all__ = ["DevicePrefetcher", "host_tensors", "to_device"]
+from ..core.device import resolve_device
+
+__all__ = ["DevicePrefetcher", "device_prefetch", "host_tensors", "to_device"]
 
 _STOP = object()
 
@@ -102,3 +109,23 @@ def to_device(tensors, device: Union[str, torch.device]) -> tuple:
     """Tensors → ``device``, non-blocking (asynchronous from pinned
     memory). Runs on the training thread."""
     return tuple(t.to(device, non_blocking=True) for t in tensors)
+
+
+def _leaves_to_device(item: Any, device: torch.device) -> Any:
+    if isinstance(item, (tuple, list)):
+        return type(item)(_leaves_to_device(x, device) for x in item)
+    if isinstance(item, dict):
+        return {k: _leaves_to_device(v, device) for k, v in item.items()}
+    if isinstance(item, np.ndarray):
+        return to_device(host_tensors((item,)), device)[0]
+    return item
+
+
+def device_prefetch(source: Iterable, depth: int = 2,
+                    device: Union[str, torch.device, None] = None) -> DevicePrefetcher:
+    """Prefetch ``source`` with every numpy array leaf of a tuple/list/dict
+    batch moved to ``device`` as a tensor on the producer thread.
+    ``device=None`` means ``"cuda"`` and raises without a GPU unless
+    ``device="cpu"``."""
+    dev = resolve_device(device)
+    return DevicePrefetcher((_leaves_to_device(b, dev) for b in source), depth=depth)

@@ -16,13 +16,15 @@ bf16 with f32 accumulation, everything else f32); ``Trainer(amp="O2")``
 also stores the parameters in bf16 with f32 masters
 (``optimizer.decorate_o2``).
 
-Not in this slice: ``train_from_dataset`` (its data feed, ROADMAP A8)
-raises.
+``Trainer.train_from_dataset`` drives a dataset's batches through the
+step with the batch's arrays moved to the device on the prefetcher's
+thread (``data.prefetcher.device_prefetch``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+import inspect
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -31,6 +33,7 @@ from torch.func import functional_call
 from .amp import step_ctx
 from .core.device import resolve_device
 from .core.enforce import InvalidArgumentError, enforce
+from .data.prefetcher import device_prefetch
 from .nn.layers import Dropout
 from .optimizer import decorate_o2
 
@@ -152,9 +155,32 @@ class Trainer:
         with torch.profiler.record_function("eval_step"):
             return self._eval_step(self.state, self._to_device(inputs))
 
-    def train_from_dataset(self, *args, **kwargs):
-        raise InvalidArgumentError("Trainer.train_from_dataset needs the dataset feed "
-                                   "(data_feed, ROADMAP A8), which is not ported yet")
+    def train_from_dataset(self, dataset, feed: Callable, batch_size: int = 256,
+                           epochs: int = 1, prefetch_depth: int = 2,
+                           drop_last: bool = True) -> List[float]:
+        """The reference's ``Executor.train_from_dataset`` (executor.py:2389):
+        every batch of ``dataset`` (an ``InMemoryDataset`` or
+        ``QueueDataset``) through :meth:`train_step`, ``epochs`` times.
+        ``feed(batch) -> (inputs, labels)`` adapts the {slot: (values,
+        lengths)} columns to the model; its arrays reach the device on the
+        prefetcher's thread. Returns each epoch's mean loss as a float
+        (one host sync an epoch; NaN for an epoch with no batch).
+        ``drop_last`` goes only to a ``batch_iter`` that takes it (a
+        stream cannot know its tail)."""
+        kw = ({"drop_last": drop_last}
+              if "drop_last" in inspect.signature(dataset.batch_iter).parameters else {})
+        epoch_losses = []
+        for _ in range(int(epochs)):
+            pf = device_prefetch((feed(b) for b in dataset.batch_iter(batch_size, **kw)),
+                                 depth=prefetch_depth, device=self.device)
+            losses = []
+            try:
+                for inputs, labels in pf:
+                    losses.append(self.train_step(inputs, labels))
+            finally:
+                pf.close()
+            epoch_losses.append(float(torch.stack(losses).mean()) if losses else float("nan"))
+        return epoch_losses
 
     def sync_model(self) -> nn.Module:
         """Write the live parameters and buffers back into the module."""

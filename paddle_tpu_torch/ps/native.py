@@ -1,10 +1,11 @@
 """ctypes bindings for the port's host library (``csrc/``).
 
 ``sparse_index.cc`` (the feasign index and the parallel pass dedup),
-``cuckoo.cc`` (the per-pass device key map build) and ``slot_parser.cc``
-(the MultiSlot text parser of the dataset) are the port's own copies of
-the JAX package's sources. They build at first use with
-``g++ -O3 -ffp-contract=off -std=c++17 -fPIC -shared`` into the
+``cuckoo.cc`` (the per-pass device key map build), ``slot_parser.cc``
+(the MultiSlot text parser of the dataset) and ``data_feed.cc`` (the
+threaded file reader over that parser, :class:`NativeDataFeed`) are the
+port's own copies of the JAX package's sources. They build at first use
+with ``g++ -O3 -ffp-contract=off -std=c++17 -fPIC -shared`` into the
 gitignored build directory (``ops/_build.py``). There is no Python
 fallback: ``dedup_u64``'s order fixes the cache row ids of a pass, and a
 different dedup would give different rows.
@@ -36,13 +37,13 @@ import numpy as np
 
 from ..ops._build import build_shared_library
 
-__all__ = ["FeasignIndex", "SST_STAT_FIELDS", "SlotParser", "SsdTableEngine", "cuckoo_build",
-           "dedup_u64", "load_native", "load_ssd", "table_native_params"]
+__all__ = ["FeasignIndex", "NativeDataFeed", "SST_STAT_FIELDS", "SlotParser", "SsdTableEngine",
+           "cuckoo_build", "dedup_u64", "load_native", "load_ssd", "table_native_params"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "csrc")
 _SOURCES = tuple(os.path.join(_CSRC, f)
-                 for f in ("sparse_index.cc", "cuckoo.cc", "slot_parser.cc"))
+                 for f in ("sparse_index.cc", "cuckoo.cc", "slot_parser.cc", "data_feed.cc"))
 _SSD_SOURCES = tuple(os.path.join(_CSRC, f) for f in ("ssd_table.cc", "ps_service.cc",
                                                       "sparse_table.h", "graph_store.h"))
 _LOCK = threading.Lock()
@@ -134,6 +135,21 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.slotp_slot_fetch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, i32p]
     lib.slotp_reset.restype = None
     lib.slotp_reset.argtypes = [ctypes.c_void_p]
+    lib.dfd_create.restype = ctypes.c_void_p
+    lib.dfd_create.argtypes = [ctypes.c_int, u8p, u8p, ctypes.c_char_p, ctypes.c_int,
+                               ctypes.c_int]
+    lib.dfd_destroy.restype = None
+    lib.dfd_destroy.argtypes = [ctypes.c_void_p]
+    lib.dfd_next.restype = ctypes.c_int64
+    lib.dfd_next.argtypes = [ctypes.c_void_p]
+    lib.dfd_value_count.restype = ctypes.c_int64
+    lib.dfd_value_count.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.dfd_fetch.restype = None
+    lib.dfd_fetch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, i32p]
+    lib.dfd_release.restype = None
+    lib.dfd_release.argtypes = [ctypes.c_void_p]
+    lib.dfd_errors.restype = ctypes.c_int64
+    lib.dfd_errors.argtypes = [ctypes.c_void_p]
 
 
 def _u64(a: np.ndarray):
@@ -283,6 +299,58 @@ class SlotParser:
             out[name] = (values, lengths)
         self._lib.slotp_reset(self._h)
         return out
+
+
+class NativeDataFeed:
+    """The threaded MultiSlot file reader (``csrc/data_feed.cc``): reader
+    threads take whole files from a queue, parse each with the slot parser
+    and hand the chunks through a channel of ``capacity`` chunks; iterating
+    yields one {slot_name: (values, lengths)} dict per non-empty file, for
+    the used slots. One thread yields the files in order; more yield them
+    in the order they finish. A file that cannot be read counts one error
+    (:attr:`errors`, with the parser's bad lines). Raises when the host
+    library does not build: there is no Python reader behind it."""
+
+    def __init__(self, slots, files, num_threads: int = 4, capacity: int = 8) -> None:
+        self.slots = [(str(n), bool(f), bool(u)) for n, f, u in slots]
+        self._lib = load_native()
+        is_float = np.asarray([f for _, f, _ in self.slots], np.uint8)
+        used = np.asarray([u for _, _, u in self.slots], np.uint8)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        self._h = self._lib.dfd_create(len(self.slots), is_float.ctypes.data_as(u8p),
+                                       used.ctypes.data_as(u8p), "\n".join(files).encode(),
+                                       int(num_threads), int(capacity))
+
+    def __del__(self):
+        self.close()
+
+    def close(self) -> None:
+        """Stop and join the readers and free the feed (idempotent)."""
+        if getattr(self, "_h", None):
+            self._lib.dfd_destroy(self._h)
+            self._h = None
+
+    @property
+    def errors(self) -> int:
+        return int(self._lib.dfd_errors(self._h))
+
+    def __iter__(self):
+        while True:
+            n = int(self._lib.dfd_next(self._h))
+            if n < 0:
+                return
+            out = {}
+            for s, (name, is_float, used) in enumerate(self.slots):
+                if not used:
+                    continue
+                count = int(self._lib.dfd_value_count(self._h, s))
+                values = np.empty(count, np.float32 if is_float else np.uint64)
+                lengths = np.empty(n, np.int32)
+                self._lib.dfd_fetch(self._h, s, values.ctypes.data_as(ctypes.c_void_p),
+                                    _i32(lengths))
+                out[name] = (values, lengths)
+            self._lib.dfd_release(self._h)
+            yield out
 
 
 # -- the SSD tier (csrc/ssd_table.cc) ------------------------------------------

@@ -56,6 +56,7 @@ the JAX package; the flags module is not ported).
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import os
 import time
 from collections import deque
@@ -510,12 +511,20 @@ class CtrStreamTrainer:
 
     def train_from_dataset(self, dataset, batch_size: int = 512, drop_last: bool = True,
                            start_batch: int = 0) -> Dict[str, Any]:
-        """One pass over ``dataset`` (an ``InMemoryDataset``) from batch
-        ``start_batch``. Returns {loss (mean over steps), steps, samples,
-        samples_per_sec} and, with a hot tier, its ``stats()`` under
-        ``hot_tier``. With a communicator the pass ends with its
-        ``barrier()``, which raises a failure of its push thread."""
-        kw = dict(drop_last=drop_last, start_batch=start_batch)
+        """One pass over ``dataset`` (an ``InMemoryDataset`` or a
+        ``QueueDataset``) from batch ``start_batch``. Returns {loss (mean
+        over steps), steps, samples, samples_per_sec} and, with a hot tier,
+        its ``stats()`` under ``hot_tier``. With a communicator the pass
+        ends with its ``barrier()``, which raises a failure of its push
+        thread. ``drop_last`` and ``start_batch`` go only to a
+        ``batch_iter`` that takes them (a stream has no ``drop_last``); a
+        resume cursor on a dataset without one raises."""
+        params = inspect.signature(dataset.batch_iter).parameters
+        kw = {k: v for k, v in (("drop_last", drop_last), ("start_batch", start_batch))
+              if k in params}
+        enforce(start_batch == 0 or "start_batch" in params,
+                f"{type(dataset).__name__}.batch_iter has no start_batch cursor: cannot "
+                "resume mid-stream")
         stats = _PassStats()
         self.batches_done = int(start_batch)
         if self.hot_tier is not None:

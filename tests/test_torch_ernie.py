@@ -38,7 +38,7 @@ from paddle_tpu import optimizer as jopt
 from paddle_tpu.executor import Trainer as JaxTrainer
 from paddle_tpu.models import ernie as jernie
 from paddle_tpu_torch.convert import adam_state_from_jax, ernie_params_from_jax
-from paddle_tpu_torch.core.enforce import InvalidArgumentError
+from paddle_tpu_torch.core.enforce import InvalidArgumentError, PreconditionNotMetError
 from paddle_tpu_torch.executor import Trainer
 from paddle_tpu_torch.models import ernie
 from paddle_tpu_torch.nn import Dropout, LayerNorm
@@ -243,8 +243,11 @@ def test_out_of_slice_options_raise():
     with pytest.raises(InvalidArgumentError, match="amp"):
         Trainer(model, Adam(), lambda o, y: o.sum(), amp="O3", device="cpu")
     tr = Trainer(model, Adam(), lambda o, y: o.sum(), device="cpu")
-    with pytest.raises(InvalidArgumentError, match="data_feed"):
-        tr.train_from_dataset(None)
+    # train_from_dataset is ported: a dataset that was never loaded raises
+    from paddle_tpu_torch.data.dataset import InMemoryDataset, SlotDesc
+
+    with pytest.raises(PreconditionNotMetError, match="load_from_lines first"):
+        tr.train_from_dataset(InMemoryDataset([SlotDesc("x")]), lambda b: (b, b))
 
 
 def test_trainer_owns_the_dropout_generator():

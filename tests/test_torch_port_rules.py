@@ -332,3 +332,52 @@ def test_amp_is_not_torch_autocast():
     for path in PORT_FILES:
         src = path.read_text()
         assert "torch.autocast" not in src and "torch.cuda.amp" not in src, path
+
+
+def test_import_rule_covers_the_job_surface():
+    """The PaddleRec job's modules are in the rule's file list (the rule
+    reads every module of the package, ``distributed/`` included), and
+    ``chip_smoke.py``'s ``--ps-job`` mode (the job's processes) lives in
+    the checked script. Its run time check, with ``jax`` and ``paddle_tpu``
+    unimportable, is ``test_torch_fleet_cluster.py``'s rehearsal."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("distributed/__init__.py", "distributed/strategy.py",
+                "distributed/role_maker.py", "distributed/collective.py",
+                "distributed/fleet.py", "distributed/launch.py", "ps/config.py",
+                "data/dataset.py", "data/prefetcher.py", "executor.py"):
+        assert f"paddle_tpu_torch/{mod}" in names, mod
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert '"--ps-job"' in src and "def ps_job_child(" in src
+
+
+def test_dataset_entry_points_without_device_raise_without_gpu():
+    """``device_prefetch`` defaults to the card; ``Trainer.train_from_dataset``
+    moves its batches to the trainer's device (the CPU only when asked)."""
+    _no_gpu()
+    from paddle_tpu_torch import executor
+    from paddle_tpu_torch.core.enforce import UnavailableError
+    from paddle_tpu_torch.data.dataset import QueueDataset, SlotDesc
+    from paddle_tpu_torch.data.prefetcher import device_prefetch
+    from paddle_tpu_torch.optimizer import SGD
+
+    with pytest.raises(UnavailableError, match="device='cpu'"):
+        device_prefetch(iter([(np.zeros(2, np.float32),)]))
+    (got,) = list(device_prefetch(iter([{"x": (np.ones(2, np.float32), 3)}]), device="cpu"))
+    assert isinstance(got["x"][0], torch.Tensor) and got["x"][0].is_cpu and got["x"][1] == 3
+
+    seen = []
+    real = executor.device_prefetch
+
+    def spy(source, depth=2, device=None):
+        seen.append(device)
+        return real(source, depth, device)
+
+    tr = executor.Trainer(torch.nn.Linear(1, 1), SGD(0.1),
+                          lambda out, y: ((out[:, 0] - y) ** 2).mean(), device="cpu")
+    executor.device_prefetch, saved = spy, executor.device_prefetch
+    try:
+        ds = QueueDataset([SlotDesc("x", is_float=True)])
+        assert len(tr.train_from_dataset(ds, lambda b: (b["x"][0], b["x"][0][:, 0]))) == 1
+    finally:
+        executor.device_prefetch = saved
+    assert seen == [torch.device("cpu")]
