@@ -9,7 +9,8 @@ three CUDA kernel libraries from the checkout at first use, in parallel
 (into ``paddle_tpu_torch/_build/``). Phase 13 starts PS servers on
 127.0.0.1 (ephemeral ports) and closes them; phase 14 starts the job's
 server and trainer processes (ports on 127.0.0.1 it checks are free)
-and waits for them, or ends them. Exits non-zero, with no
+and waits for them, or ends them; phase 15 starts its three legs' processes
+one at a time and waits for each (a leg past its time limit is killed). Exits non-zero, with no
 result line, when there is no CUDA device, when the package is missing,
 or when any phase fails. Phases:
 
@@ -138,7 +139,27 @@ or when any phase fails. Phases:
    process, losses falling, the servers' rows = the data's keys). Leg C:
    ``Trainer.train_from_dataset`` over a ``QueueDataset`` of the files (a
    2-layer MLP over the dense slots, 1 epoch on the card);
-15. the ``kernels`` JSON line (B1 three times: ``ctr_sparse_rows`` on the
+15. the job restarts (a the_one_ps stream job's checkpoint, as a
+   preempted job meets it): three processes of this script in
+   ``--ckpt-job CONFIG.json`` mode, one after another, each with two
+   in-process ``NativePsServer``s on 127.0.0.1 (phase 13's 16-shard table,
+   ``initial_range=0``), a ``SyncCommunicator`` and
+   ``CtrStreamTrainer(hot_tier=HotTierConfig(capacity=2^19))`` at phase
+   4's width on phase 4's data (16 batches of 4096), checkpointing every 4
+   batches through ``JobCheckpointManager`` under
+   ``CheckpointGate(servers=...)``: the oracle (the epoch, into its own
+   root); the victim (``ckpt.manifest=kill-job:after=3``: must exit -9 and
+   leave ``ckpt_0`` and ``ckpt_1`` published, ``ckpt_2.tmp`` not); one
+   byte of ``ckpt_1``'s sparse artifact flipped; the resume (a fresh
+   process: ``load_latest`` falls back to ``ckpt_0``, cursor batch 4, one
+   fallback; the servers' rows and the dense tier restored; the other 12
+   batches). Checks: one B2 and one B4 a step in every leg, the loss
+   falling, and the resumed run's rows pulled for the data's keys, dense
+   params, Adam state, per-step losses and table digest bitwise equal to
+   the oracle's. Logs the tier flush, gate pause, capture and write ms a
+   checkpoint, its bytes, and the resume's ``load_latest``,
+   ``restore_sparse`` and ``restore_train_state`` seconds;
+16. the ``kernels`` JSON line (B1 three times: ``ctr_sparse_rows`` on the
    pass path, ``ctr_sparse_rows@widedeep`` on phase 12's,
    ``ctr_sparse_rows@gpubox_rpc`` on phase 14's leg B; B2 and B4 twice:
    ``hot_probe_gather``/``hot_scatter_apply`` on the hot path,
@@ -3318,15 +3339,315 @@ def phase_ps_job(dev, card):
     return gpubox
 
 
+# -- phase 15: the job restarts --------------------------------------------------
+
+# A the_one_ps stream job, SIGKILLed mid-save, restarts from its newest
+# verified checkpoint and ends bit-identical to a run that never stopped.
+# Each leg is this script in ``--ckpt-job CONFIG.json`` mode, one process:
+# two in-process NativePsServers on 127.0.0.1 (phase 13's 16-shard table,
+# rows created with initial_range=0), a SyncCommunicator (pull-ahead 0: the
+# bitwise contract), CtrStreamTrainer over HotTierConfig(capacity=2^19) at
+# phase 4's width and data (65,536 lines, 10,000 ids a slot, batch 4096: 16
+# batches), checkpoint_every=4 under CheckpointGate(servers=...). Both the
+# oracle and the resumed run checkpoint at the same batches, so the tier
+# flushes at the same points.
+JOBCKPT_LINES, JOBCKPT_IDS, JOBCKPT_BATCH, JOBCKPT_CAP = HOT_LINES, HOT_IDS, BATCH, HOT_CAP
+JOBCKPT_EVERY = 4            # batches between checkpoints
+JOBCKPT_KILL_AT = 3          # the victim dies in its third checkpoint's manifest write
+JOBCKPT_TIMEOUT = 240        # seconds a leg's process may take
+_CKPT_READING, _CKPT_SAVE = "CKPT_JOB_READING ", "CKPT_JOB_SAVE "
+
+
+def ckpt_job_child(path):
+    """``--ckpt-job CONFIG.json``: one leg of phase 15 in this process.
+    ``leg`` "oracle" trains the epoch; "victim" arms ``ckpt.manifest=
+    kill-job:after=3`` and dies by SIGKILL in its third save; "resume"
+    loads the newest verified checkpoint, restores the servers' rows and the
+    dense tier and trains the rest. Each save prints one ``CKPT_JOB_SAVE``
+    line (its timings and the launch counts so far); a leg that ends writes
+    its rows, dense tier and per-step losses to ``out`` and prints one
+    ``CKPT_JOB_READING`` line."""
+    from paddle_tpu_torch.io import checkpoint as ckpt
+    from paddle_tpu_torch.io.job_checkpoint import JobCheckpointManager, combined_digest
+    from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.ps.accessor import AccessorConfig
+    from paddle_tpu_torch.ps.communicator import SyncCommunicator
+    from paddle_tpu_torch.ps.faultpoints import arm_faultpoint
+    from paddle_tpu_torch.ps.ha import CheckpointGate
+    from paddle_tpu_torch.ps.hot_tier import HotTierConfig
+    from paddle_tpu_torch.ps.ps_trainer import CtrStreamTrainer
+    from paddle_tpu_torch.ps.rpc import RemoteSparseTable
+    from paddle_tpu_torch.ps.sgd_rule import SGDRuleConfig
+
+    with open(path) as f:
+        spec = json.load(f)
+    dev = torch.device(spec["device"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    ds = ctr_dataset(ctr_lines(np.random.default_rng(20), spec["lines"], spec["ids"], SLOTS,
+                               DENSE), SLOTS, DENSE)
+    data_s = time.perf_counter() - t0
+    servers, client = rpc_cluster(acc=AccessorConfig(
+        embedx_dim=DIM, embedx_threshold=0.0, sgd=SGDRuleConfig(initial_range=0.0)))
+    comm = SyncCommunicator(client)
+    try:
+        comm.start()
+        model = DeepFM(CtrConfig(SLOTS, DENSE, DIM, (400, 400, 400)),
+                       generator=torch.Generator().manual_seed(0))
+        trainer = CtrStreamTrainer(model, Adam(learning_rate=1e-3), None, communicator=comm,
+                                   table_id=0, embedx_dim=DIM,
+                                   hot_tier=HotTierConfig(capacity=spec["capacity"]),
+                                   device=dev, **slot_names(SLOTS, DENSE))
+        table = RemoteSparseTable(client, 0, client.sparse_config(0))
+        mgr = JobCheckpointManager(spec["root"], gate=CheckpointGate(servers=servers),
+                                   max_keep=8)
+        mgr.register_sparse("ctr", table)
+
+        # timers around the manager's and the tier's calls, and the step's
+        # losses (device scalars, read after the run)
+        losses, writes, flush_ms, saves = [], [], [], []
+        hot_step, real_flush, real_write = trainer._hot_step, trainer.hot_tier.flush, mgr._write
+        real_save, real_state = mgr.save, trainer.train_state
+        dense_ms = []
+
+        def step(*a):
+            out = hot_step(*a)
+            losses.append(out[3])
+            return out
+
+        def flush():
+            t = time.perf_counter()
+            n = real_flush()
+            flush_ms.append(1e3 * (time.perf_counter() - t))
+            return n
+
+        def write(snap):  # the writer thread
+            t = time.perf_counter()
+            real_write(snap)
+            writes.append([snap.ckpt_id, 1e3 * (time.perf_counter() - t)])
+
+        def train_state():
+            t = time.perf_counter()
+            out = real_state()
+            dense_ms.append(1e3 * (time.perf_counter() - t))
+            return out
+
+        def save(step, cursor=None, dense=None, blocking=False):
+            t = time.perf_counter()
+            no = real_save(step, cursor, dense, blocking)
+            rec = {"ckpt": no, "batch": step, "capture_ms": 1e3 * (time.perf_counter() - t),
+                   "pause_ms": mgr.pause_ms[-1], "flush_ms": flush_ms[-1],
+                   "dense_ms": dense_ms[-1], "launches": read_launches(),
+                   "writes_done": list(writes)}
+            saves.append(rec)
+            print(_CKPT_SAVE + json.dumps(rec), flush=True)
+            return no
+
+        trainer._hot_step, trainer.hot_tier.flush, mgr._write = step, flush, write
+        mgr.save, trainer.train_state = save, train_state
+
+        start, restored = 0, {}
+        if spec["leg"] == "victim":
+            arm_faultpoint("ckpt.manifest", "kill-job", after=JOBCKPT_KILL_AT)
+        if spec["leg"] == "resume":
+            t = time.perf_counter()
+            r = mgr.load_latest()
+            restored["load_latest_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            restored["rows"] = r.restore_sparse("ctr", table)
+            restored["restore_sparse_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            trainer.restore_train_state(r.dense)
+            _sync(dev)
+            restored["restore_train_state_s"] = time.perf_counter() - t
+            restored.update(ckpt_id=r.ckpt_id, cursor=r.cursor,
+                            fallbacks=[[no, why] for no, why in mgr.fallbacks],
+                            occupancy=trainer.hot_tier.stats()["occupancy"])
+            start = r.cursor
+        _sync(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        r = trainer.train_from_dataset(ds, batch_size=spec["batch"], start_batch=start,
+                                       checkpoint=mgr, checkpoint_every=JOBCKPT_EVERY)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        mgr.stop()  # drains the writer: the victim's armed kill fires by here
+        if spec["leg"] == "victim":
+            print("SURVIVED", flush=True)
+            return 3
+        trainer.hot_tier.flush = real_flush
+        trainer.hot_tier.flush()
+        comm.barrier()
+        keys = dataset_keys(ds)
+        ckpt.save({"keys": keys, "pulled": client.pull_sparse(0, keys, create=False),
+                   "dense": real_state(), "losses": np.asarray([float(x) for x in losses])},
+                  spec["out"])
+        print(_CKPT_READING + json.dumps({
+            "leg": spec["leg"], "steps": int(r["steps"]), "loss": r["loss"], "s": wall,
+            "samples_per_s": r["samples"] / wall, "data_s": data_s, "launches": launches,
+            "digest": str(combined_digest(table)), "rows": client.size(0), "saves": saves,
+            "writes": writes, "restored": restored}), flush=True)
+        return 0
+    finally:
+        comm.stop()
+        close_cluster(servers, client)
+
+
+def ckpt_job_leg(base, leg, dev):
+    """Run one leg's process; returns (CompletedProcess, reading or None,
+    the save records it printed, seconds)."""
+    spec = {"leg": leg, "device": dev.type, "root": os.path.join(base, "ckpt"),
+            "out": os.path.join(base, f"out_{leg}"), "lines": JOBCKPT_LINES,
+            "ids": JOBCKPT_IDS, "batch": JOBCKPT_BATCH, "capacity": JOBCKPT_CAP}
+    if leg == "oracle":
+        spec["root"] = os.path.join(base, "ckpt_oracle")  # its own checkpoints, same cadence
+    path = os.path.join(base, f"{leg}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, PSJOB_SCRIPT, "--ckpt-job", path], capture_output=True,
+                       text=True, timeout=JOBCKPT_TIMEOUT)
+    wall = time.perf_counter() - t0
+    lines = p.stdout.splitlines()
+    saves = [json.loads(l[len(_CKPT_SAVE):]) for l in lines if l.startswith(_CKPT_SAVE)]
+    got = [json.loads(l[len(_CKPT_READING):]) for l in lines if l.startswith(_CKPT_READING)]
+    for rec in saves:
+        log(f"job restarts, {leg}: checkpoint {rec['ckpt']} at batch {rec['batch']}: tier "
+            f"flush {rec['flush_ms']:.1f} ms, dense host copy {rec['dense_ms']:.1f} ms, gate "
+            f"pause {rec['pause_ms']:.1f} ms, capture (save() call) {rec['capture_ms']:.1f} ms; "
+            f"writes done so far (id, ms) {rec['writes_done']}")
+    return p, (got[-1] if got else None), saves, wall
+
+
+def _ckpt_bytes(root):
+    """Published checkpoint id → the bytes of its artifacts (manifest's)."""
+    from paddle_tpu_torch.io.job_checkpoint import verify_checkpoint
+
+    out = {}
+    for name in sorted(os.listdir(root)):
+        if name.startswith("ckpt_") and not name.endswith(".tmp"):
+            man = verify_checkpoint(os.path.join(root, name))
+            out[man["ckpt_id"]] = sum(a["bytes"] for a in man["artifacts"].values())
+    return out
+
+
+def phase_job_checkpoint(dev, card):
+    """Phase 15: the oracle, the victim (SIGKILL in its third save), one
+    flipped byte in the newest published checkpoint, the resume. Checks the
+    kill, the fallback to ckpt_0 (cursor batch 4), one B2 and one B4 a step
+    in every leg, the loss falling, and the resumed run's rows, dense
+    params, Adam state, losses and table digest bitwise against the
+    oracle's."""
+    import tempfile
+
+    from paddle_tpu_torch.io import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="job_ckpt_")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # the legs' processes share the card
+    try:
+        def checked(leg):
+            p, reading, saves, wall = ckpt_job_leg(base, leg, dev)
+            if p.returncode != 0 or reading is None:
+                log(f"--- {leg} stdout (tail) ---\n{p.stdout[-4000:]}\n--- {leg} stderr "
+                    f"(tail) ---\n{p.stderr[-4000:]}")
+                raise AssertionError(f"job restarts, {leg}: rc {p.returncode}")
+            log(f"job restarts, {leg}: {reading['steps']} steps in {reading['s']:.3f} s, "
+                f"{reading['samples_per_s']:.1f} samples/s (4 checkpoints' flush and capture "
+                f"included), mean loss {reading['loss']:.6f}; data made and parsed in "
+                f"{reading['data_s']:.2f} s; launches {reading['launches']}; writes (id, ms) "
+                f"{reading['writes']}; process {wall:.1f} s on {card}")
+            if dev.type == "cuda":
+                n = reading["steps"]
+                assert reading["launches"]["hot_probe_gather"] == n and \
+                    reading["launches"]["hot_scatter_apply"] == n, \
+                    f"{leg}: B2/B4 launches {reading['launches']} != {n} steps"
+            return reading
+
+        oracle = checked("oracle")
+        n_batches = JOBCKPT_LINES // JOBCKPT_BATCH
+        assert oracle["steps"] == n_batches, oracle["steps"]
+
+        p, _, saves, wall = ckpt_job_leg(base, "victim", dev)
+        root = os.path.join(base, "ckpt")
+        names = sorted(os.listdir(root))
+        log(f"job restarts, victim: exit {p.returncode} after {wall:.1f} s, {len(saves)} saves "
+            f"begun; the checkpoint root holds {names}")
+        if p.returncode != -9 or "SURVIVED" in p.stdout:
+            log(f"--- victim stdout (tail) ---\n{p.stdout[-4000:]}\n--- victim stderr (tail) "
+                f"---\n{p.stderr[-4000:]}")
+            raise AssertionError(f"job restarts: the victim exited {p.returncode}, not -9")
+        assert [x for x in names if not x.endswith(".tmp")] == ["ckpt_0", "ckpt_1"] and \
+            "ckpt_2.tmp" in names, f"victim left {names}: want ckpt_0, ckpt_1, ckpt_2.tmp"
+        last = saves[-1]
+        if dev.type == "cuda":
+            assert last["launches"]["hot_probe_gather"] == last["batch"] == \
+                last["launches"]["hot_scatter_apply"], f"victim launches {last}"
+        flipped = os.path.join(root, "ckpt_1", "sparse_ctr.npz")
+        size = os.path.getsize(flipped)
+        with open(flipped, "r+b") as f:
+            f.seek(size // 2)
+            b = f.read(1)
+            f.seek(size // 2)
+            f.write(bytes([b[0] ^ 0xFF]))
+        log(f"job restarts: flipped byte {size // 2} of ckpt_1/sparse_ctr.npz ({size} bytes)")
+
+        resume = checked("resume")
+        got = resume["restored"]
+        log(f"job restarts, resume: load_latest {got['load_latest_s']:.3f} s (ckpt "
+            f"{got['ckpt_id']}, cursor {got['cursor']}, fallbacks {got['fallbacks']}), "
+            f"restore_sparse {got['restore_sparse_s']:.3f} s ({got['rows']} rows into fresh "
+            f"servers, digest checked), restore_train_state {got['restore_train_state_s']:.3f} s "
+            f"(tier occupancy after {got['occupancy']}) on {card}")
+        assert got["ckpt_id"] == 0 and got["cursor"] == {"batch": JOBCKPT_EVERY,
+                                                         "batch_size": JOBCKPT_BATCH}, got
+        assert len(got["fallbacks"]) == 1 and got["fallbacks"][0][0] == 1 and \
+            "CRC32C" in got["fallbacks"][0][1], got["fallbacks"]
+        assert got["occupancy"] == 0 and resume["steps"] == n_batches - JOBCKPT_EVERY
+
+        want = ckpt.load(os.path.join(base, "out_oracle"))
+        have = ckpt.load(os.path.join(base, "out_resume"))
+        leaves = lambda t: ([x for k in sorted(t) for x in leaves(t[k])]  # noqa: E731
+                            if isinstance(t, dict) else [np.asarray(t)])
+        checks = {
+            "rows pulled for the data's keys": np.array_equal(have["keys"], want["keys"])
+            and np.array_equal(have["pulled"], want["pulled"]),
+            "dense params": all(np.array_equal(a, b) for a, b in
+                                zip(leaves(have["dense"]["state"]),
+                                    leaves(want["dense"]["state"]))),
+            "Adam state": all(np.array_equal(a, b) for a, b in
+                              zip(leaves(have["dense"]["opt"]), leaves(want["dense"]["opt"]))),
+            "table digest": resume["digest"] == oracle["digest"],
+            "per-step losses": np.array_equal(have["losses"],
+                                              want["losses"][JOBCKPT_EVERY:]),
+        }
+        log(f"job restarts: resume vs oracle, bitwise: {checks}; {len(want['keys'])} keys, "
+            f"{oracle['rows']} rows on the servers")
+        assert all(checks.values()), f"the resumed run differs from the oracle: {checks}"
+        ls = want["losses"]
+        assert np.isfinite(ls).all() and ls[-4:].mean() < ls[:4].mean(), f"losses {ls}"
+        sizes = _ckpt_bytes(os.path.join(base, "ckpt_oracle"))
+        log(f"job restarts: loss {ls[:4].mean():.6f} (batches 1-4) -> {ls[-4:].mean():.6f} "
+            f"(13-16); checkpoint bytes (id: bytes) {sizes}")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"job restarts (phase 15): {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv):
     profile_dir = None
     if argv[:1] == ["--ps-job"] and len(argv) == 2:
         return ps_job_child(argv[1])
+    if argv[:1] == ["--ckpt-job"] and len(argv) == 2:
+        return ckpt_job_child(argv[1])
     if argv[:1] == ["--profile"] and len(argv) == 2:
         profile_dir = argv[1]
     elif argv:
         print("usage: chip_smoke.py [--profile DIR]  (--ps-job CONFIG.json: one process of "
-              "phase 14's job)", file=sys.stderr)
+              "phase 14's job; --ckpt-job CONFIG.json: one leg of phase 15)", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -3371,6 +3692,7 @@ def main(argv):
     rpc_counts, rpc_b2, rpc_b4 = phase_rpc(dev, card, ds)
     del ds
     gpubox = phase_ps_job(dev, card)
+    phase_job_checkpoint(dev, card)
     phase_kernel_counts(dev)
     wd_kernel_counts(dev)
     phase_resnet_kernel_counts(resnets, resnet_batch, profile_dir)

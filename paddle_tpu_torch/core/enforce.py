@@ -11,6 +11,7 @@ from typing import Any, NoReturn
 
 __all__ = [
     "EnforceNotMet",
+    "ExecuteError",
     "InvalidArgumentError",
     "NotFoundError",
     "PreconditionNotMetError",
@@ -47,6 +48,10 @@ class PsTransportError(PreconditionNotMetError):
 
 class UnavailableError(EnforceNotMet):
     pass
+
+
+class ExecuteError(EnforceNotMet):
+    """Shell/filesystem command failure (fleet/utils/fs.py ExecuteError)."""
 
 
 def _fail(err_cls: type, msg: str) -> NoReturn:

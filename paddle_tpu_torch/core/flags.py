@@ -6,8 +6,11 @@ flag keeps; an environment variable ``FLAGS_<name>`` overrides the
 default when the flag is defined; :func:`set_flags` and
 :func:`get_flags` read and write them at run time. Only the flags of the
 port's own modules exist (the PS transport's in ``ps.rpc``, the
-communicator's in ``ps.communicator``), under the JAX package's names
-and defaults.
+communicator's in ``ps.communicator``, the metrics registry's in
+``obs.registry``, the job checkpoint's in ``io.job_checkpoint``), under
+the JAX package's names and defaults. ``ps_faultpoints`` is defined
+here, as in the JAX package, since more than one layer's fault sites
+read it.
 """
 
 from __future__ import annotations
@@ -72,3 +75,12 @@ def set_flags(kv: Dict[str, Any]) -> None:
             if name not in _values:
                 raise KeyError(f"unknown flag: {name!r}")
             _values[name] = _coerce(value, _types[name], name)
+
+
+# Cross-cutting chaos switch: read by the job checkpoint's fault sites now
+# and by the transport's when HA is ported, so it lives here rather than
+# at either point of use. Format and actions: ps/faultpoints.py.
+define_flag("ps_faultpoints", "",
+            "arm PS fault-injection sites: 'site=action[:k=v]*[;...]' — "
+            "actions delay-ms/drop-frame/close-socket/kill-shard/"
+            "corrupt-epoch (ps/faultpoints.py; chaos testing only)")

@@ -1,7 +1,10 @@
 """Checkpoint save/load in the JAX package's file format.
 
-Port of ``save``/``load``/``save_checkpoint``/``load_checkpoint`` from
-``paddle_tpu.io.checkpoint``. A tree of dicts, lists and tuples with
+Port of ``save``/``load``/``save_checkpoint``/``load_checkpoint``/
+``save_train_state``/``load_train_state`` from ``paddle_tpu.io.checkpoint``
+(``graft_into``, which re-places loaded leaves on a live tree's
+shardings, waits for the distributed trainers: ROADMAP Queue A items 4
+and 8). A tree of dicts, lists and tuples with
 tensor, array or scalar leaves is written as one ``.npz`` (the arrays, by
 position) and a ``.meta.json`` sidecar tagged ``paddle_tpu.v1`` (the
 nesting, with leaf references), so dots inside dict keys are never
@@ -24,7 +27,8 @@ import torch
 from ..core.device import resolve_device
 from ..core.enforce import InvalidArgumentError, NotFoundError
 
-__all__ = ["load", "load_checkpoint", "save", "save_checkpoint"]
+__all__ = ["load", "load_checkpoint", "load_train_state", "save", "save_checkpoint",
+           "save_train_state"]
 
 _ARR = "__arr__"
 _FORMAT = "paddle_tpu.v1"
@@ -126,3 +130,28 @@ def load_checkpoint(path: str, device: Optional[Union[str, torch.device]] = None
     leaves as tensors on ``device`` (``None``: the card, raising without
     one; pass ``"cpu"`` for the CPU)."""
     return _to_device(load(path), resolve_device(device))
+
+
+def save_train_state(path: str, state: Any, opt_state: Any = None,
+                     rng: Any = None, step: int = 0) -> Tuple[str, str]:
+    """A trainer snapshot in the JAX package's schema: ``{"model":
+    {"state": state[, "rng": rng]}, "opt": opt_state, "step": step}``.
+    ``rng`` is a key's raw data (what ``jax.random.key_data`` gives the
+    JAX package) or None. Trees go in as the caller gives them: a trainer
+    whose files the JAX package should load passes its state in the JAX
+    layout (``convert.ctr_params_to_jax``/``opt_state_to_jax``)."""
+    payload = {"state": state}
+    if rng is not None:
+        payload["rng"] = rng
+    return save_checkpoint(path, payload, opt_state=opt_state, step=step)
+
+
+def load_train_state(path: str) -> Dict[str, Any]:
+    """Inverse of :func:`save_train_state` (either package's file):
+    ``{"state", "opt", "rng" (the key's raw data, or None), "step"}`` with
+    numpy leaves (bf16 leaves as bf16 CPU tensors) and plain-dict
+    containers."""
+    snap = load(path)
+    return {"state": snap["model"]["state"], "opt": snap["opt"],
+            "rng": snap["model"].get("rng"), "step": int(snap.get("step", 0))}
+

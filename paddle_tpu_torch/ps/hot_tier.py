@@ -68,6 +68,7 @@ from ..core.device import resolve_device
 from ..core.enforce import enforce
 from ..core.mesh import Mesh, mesh_axis_size
 from ..nn import functional as F
+from ..obs.registry import CounterGroup
 from ..ops.hot_kernels import hot_probe, hot_probe_gather, hot_scatter_apply
 from .device_hash import DynamicDeviceKeyMap, dynamic_map_lookup
 from .embedding_cache import CacheConfig, cache_pull, cache_push
@@ -79,6 +80,7 @@ __all__ = ["HotEmbeddingTier", "HotTierConfig", "make_hot_ctr_train_step",
 _KERNELS = ("auto", "unfused")
 _COUNTERS = ("hits", "misses", "evictions", "writebacks", "cold_fetches",
              "flushes", "reshards", "tenant_cap_evictions")
+_TIER_SEQ = iter(range(1, 1 << 30))  # per-process tier tag allocator
 
 
 @dataclasses.dataclass
@@ -195,7 +197,12 @@ class HotEmbeddingTier:
         self._tick = np.zeros(C, np.int64)
         self._clock = 0
         self._prefetched: Dict[int, Future] = {}  # token → future of (missing keys, rows)
-        self.counters: Dict[str, int] = dict.fromkeys(_COUNTERS, 0)
+        # registry-backed counters: the dict-shaped increments are those of
+        # a plain dict, and every count also lands in the process registry's
+        # ``hot_tier_events`` family, labelled by a per-process tier tag;
+        # ``stats()`` reads the exact local values
+        self.counters = CounterGroup("hot_tier_events", _COUNTERS, max_series=1024,
+                                     tier=str(next(_TIER_SEQ)))
         self._reset_resident_set()
 
     def _reset_resident_set(self) -> None:

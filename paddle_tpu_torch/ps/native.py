@@ -390,8 +390,8 @@ def table_native_params(shard_num: int, accessor: str, acc_cfg,
 
 
 def _configure_rpc(lib: ctypes.CDLL) -> None:
-    """The PS service's server lifecycle, connection and scatter-gather
-    call (``psc_callv`` sends the 44-byte request header with a zero trace
+    """The PS service's server lifecycle and mutation gate, connection and
+    scatter-gather call (``psc_callv`` sends the 44-byte request header with a zero trace
     context)."""
     h = ctypes.c_void_p
     lib.pss_create.restype = ctypes.c_void_p
@@ -404,6 +404,8 @@ def _configure_rpc(lib: ctypes.CDLL) -> None:
     lib.pss_stop.argtypes = [h]
     lib.pss_destroy.restype = None
     lib.pss_destroy.argtypes = [h]
+    lib.pss_pause_mutations.restype = None
+    lib.pss_pause_mutations.argtypes = [h, ctypes.c_int]
     lib.psc_connect2.restype = ctypes.c_void_p
     lib.psc_connect2.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.psc_close.restype = None

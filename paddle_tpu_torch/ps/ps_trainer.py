@@ -44,13 +44,20 @@ Port of ``CtrPassTrainer`` and ``CtrStreamTrainer`` from
 Slot-tagged keys: feasign = slot index << 32 | id (the column position
 tags the key, as in FleetWrapper::PullSparseToTensorSync).
 
+``CtrStreamTrainer``'s job-checkpoint surface (``io.job_checkpoint``):
+``train_state()``/``restore_train_state()`` (the dense tier, as a host
+copy in the JAX package's layout, so either package loads the other's
+checkpoint; a restore drops the hot tier's resident set, which refills on
+miss), ``checkpoint=``/``checkpoint_every=`` (quiesce the communicator,
+flush the hot tier, save the cut with its stream cursor), ``start_batch``
+as that cursor, and ``on_reshard()``. Its obs hooks: the
+``trainer_step_time_s`` histogram (host time a step, no device sync) and
+the flight recorder's ``trainer_exception`` notify.
+
 Not ported yet (ROADMAP Queue A): measured placement (``placement=``
-raises), the job-checkpoint surface (``train_state``,
-``restore_train_state``, ``on_reshard``, checkpoint cursors), the
-step-time histogram and the flight recorder hook;
-``CtrPassTrainer.save_inference_model`` (raises: ``io/inference.py``)
-and the pass-end ``check_nan_inf`` guard (a flag that defaults to off in
-the JAX package; the flags module is not ported).
+raises); ``CtrPassTrainer.save_inference_model`` (raises:
+``io/inference.py``) and the pass-end ``check_nan_inf`` guard (a flag
+that defaults to off in the JAX package; the port does not define it).
 """
 
 from __future__ import annotations
@@ -77,6 +84,8 @@ from ..io.checkpoint import load_checkpoint, save_checkpoint
 from ..metrics.auc import AUC
 from ..metrics.basic import WuAUC
 from ..models.ctr import make_ctr_train_step_packed, make_ctr_train_step_slab, pack_ctr_batch
+from ..obs import flightrec as _flightrec
+from ..obs import registry as _obs_registry
 from .embedding_cache import CacheConfig, HbmEmbeddingCache
 from .hot_tier import (HotEmbeddingTier, HotTierConfig, make_hot_ctr_train_step,
                        make_sharded_hot_train_step, stream_loss_fn)
@@ -461,6 +470,7 @@ class CtrStreamTrainer:
             self._dim = table.accessor.config.embedx_dim
         self._pull_width = 1 + self._dim
 
+        self.optimizer = optimizer
         self.params = {k: v.detach().to(self.device) for k, v in model.named_parameters()}
         self.opt_state = optimizer.init(self.params)
 
@@ -473,8 +483,14 @@ class CtrStreamTrainer:
             return new_params, new_opt, loss.detach(), emb_grad
 
         self._step = step
-        #: completed-batch cursor of the last (or current) run
+        #: completed-batch cursor of the last (or current) run: the stream
+        #: position a job checkpoint records and a restarted job resumes from
         self.batches_done = 0
+        # host seconds a step as a registry histogram, observed once a step
+        # without a device sync (a sync would end the overlap of the host's
+        # next batch with the step in front of it)
+        self._h_step = _obs_registry.REGISTRY.histogram(
+            "trainer_step_time_s", max_series=256, table=str(table_id))
 
         self.hot_tier: Optional[HotEmbeddingTier] = None
         self._hot_step = None
@@ -507,10 +523,64 @@ class CtrStreamTrainer:
                     probe_buckets=dm.probe_buckets, banks=dm.banks, kernels=tc.kernels,
                     device=self.device)
 
+    # -- job checkpoint surface (io/job_checkpoint.py) --------------------
+
+    def train_state(self) -> Dict[str, Any]:
+        """The dense tier of a job snapshot in the ``save_train_state``
+        schema ({"state", "opt"}; no rng: the stream step is deterministic
+        given the pulled rows), as the JAX trainer's trees: a host copy in
+        the JAX layout (``convert.ctr_params_to_jax``/``opt_state_to_jax``),
+        taken now, so later steps cannot change it and the JAX package
+        loads what it becomes."""
+        return {"state": ctr_params_to_jax(self.params),
+                "opt": opt_state_to_jax(self.opt_state, self.optimizer)}
+
+    def restore_train_state(self, dense: Dict[str, Any]) -> None:
+        """Inverse of :meth:`train_state`: takes the dict that
+        ``load_train_state``/``RestoredJob.dense`` returns (either
+        package's). The hot tier's resident set is dropped: the cold table
+        was (or is about to be) rebuilt from the checkpoint, so the tier
+        restarts cold and refills on miss."""
+        self.params = ctr_params_from_jax(dense["state"], self.device)
+        self.opt_state = opt_state_from_jax(dense["opt"], self.optimizer, self.device,
+                                            ctr_params_from_jax)
+        if self.hot_tier is not None:
+            self.hot_tier.drop()
+
+    def on_reshard(self) -> None:
+        """Trainer-side reshard participation, from the training thread at
+        a batch boundary: the communicator quiesces (no queued push
+        straddles the cutover) and the hot tier flushes its dirty rows and
+        KEEPS its resident set (``HotEmbeddingTier.on_reshard``). The JAX
+        trainer then has the client re-resolve its routing; the port's
+        ``RpcPsClient`` routes statically until live reshard is ported
+        (ROADMAP Queue A item 3, entry 3), so there is nothing to
+        refresh."""
+        if self.communicator is not None:
+            self.communicator.quiesce()
+        if self.hot_tier is not None:
+            self.hot_tier.on_reshard()
+
+    def _maybe_checkpoint(self, checkpoint, every: int, batch_size: int) -> None:
+        if checkpoint is None or every <= 0 or self.batches_done % every != 0:
+            return
+        if self.communicator is not None:
+            # local quiesce, NOT barrier(): a sync barrier is a rendezvous
+            # of every trainer, and the others are not at it
+            self.communicator.quiesce()
+        if self.hot_tier is not None:
+            # flush-dirty-then-snapshot: every resident row's training is in
+            # the cold table before the manager gates mutations and digests
+            self.hot_tier.flush()
+        checkpoint.save(step=self.batches_done,
+                        cursor={"batch": self.batches_done, "batch_size": int(batch_size)},
+                        dense=self.train_state())
+
     # -- the stream loops -------------------------------------------------
 
     def train_from_dataset(self, dataset, batch_size: int = 512, drop_last: bool = True,
-                           start_batch: int = 0) -> Dict[str, Any]:
+                           start_batch: Union[int, Dict[str, Any]] = 0, checkpoint=None,
+                           checkpoint_every: int = 0) -> Dict[str, Any]:
         """One pass over ``dataset`` (an ``InMemoryDataset`` or a
         ``QueueDataset``) from batch ``start_batch``. Returns {loss (mean
         over steps), steps, samples, samples_per_sec} and, with a hot tier,
@@ -518,7 +588,39 @@ class CtrStreamTrainer:
         ends with its ``barrier()``, which raises a failure of its push
         thread. ``drop_last`` and ``start_batch`` go only to a
         ``batch_iter`` that takes them (a stream has no ``drop_last``); a
-        resume cursor on a dataset without one raises."""
+        resume cursor on a dataset without one raises.
+
+        ``start_batch`` may be a saved cursor (``RestoredJob.cursor``): its
+        ``batch_size`` must equal this call's, since a batch offset at
+        another size is the wrong record offset. ``checkpoint`` (a
+        ``JobCheckpointManager`` the trainer's table is registered with)
+        saves the job every ``checkpoint_every`` completed batches:
+        communicator quiesced, hot tier flushed, then tables + dense state
+        + cursor as one cut. A resumed run is bit-identical to an
+        uninterrupted one that checkpoints at the same batches with a
+        local table or a ``SyncCommunicator`` (pull-ahead 0); async modes
+        resume within their usual staleness.
+
+        An exception that escapes the loop notifies the flight recorder
+        (``trainer_exception``, with ``batches_done``) before it goes up."""
+        try:
+            return self._train_from_dataset(dataset, batch_size, drop_last, start_batch,
+                                            checkpoint, checkpoint_every)
+        except BaseException as e:
+            _flightrec.notify("trainer_exception", error=f"{type(e).__name__}: {e}",
+                              batches_done=self.batches_done)
+            raise
+
+    def _train_from_dataset(self, dataset, batch_size: int, drop_last: bool,
+                            start_batch: Union[int, Dict[str, Any]], checkpoint,
+                            checkpoint_every: int) -> Dict[str, Any]:
+        if isinstance(start_batch, dict):
+            saved_bs = start_batch.get("batch_size")
+            enforce(saved_bs is None or int(saved_bs) == int(batch_size),
+                    f"cursor was recorded at batch_size={saved_bs}; resuming at "
+                    f"batch_size={batch_size} re-enters the stream at the wrong record "
+                    "offset — resume with the saved batch_size")
+            start_batch = int(start_batch.get("batch", 0))
         params = inspect.signature(dataset.batch_iter).parameters
         kw = {k: v for k, v in (("drop_last", drop_last), ("start_batch", start_batch))
               if k in params}
@@ -528,7 +630,7 @@ class CtrStreamTrainer:
         stats = _PassStats()
         self.batches_done = int(start_batch)
         if self.hot_tier is not None:
-            return self._train_hot(dataset, batch_size, kw, stats)
+            return self._train_hot(dataset, batch_size, kw, stats, checkpoint, checkpoint_every)
 
         S = len(self.sparse_slots)
         slot_ids = np.tile(np.arange(S, dtype=np.int32), batch_size)
@@ -549,6 +651,7 @@ class CtrStreamTrainer:
             return keys, flat, dense, labels, fut
 
         def _run(keys, flat, dense, labels, fut):
+            t_step = time.perf_counter()
             with torch.profiler.record_function("ctr_stream_step"):
                 if fut is not None:
                     pulled = fut.result()
@@ -578,6 +681,8 @@ class CtrStreamTrainer:
                 stats.samples += int(labels.shape[0])
                 stats.loss_sum += float(loss)
                 self.batches_done += 1
+            self._h_step.observe(time.perf_counter() - t_step)
+            self._maybe_checkpoint(checkpoint, checkpoint_every, batch_size)
 
         t0 = time.perf_counter()
         window: deque = deque()  # batches whose pull is issued (or due)
@@ -600,8 +705,8 @@ class CtrStreamTrainer:
                 "samples": float(stats.samples),
                 "samples_per_sec": stats.samples / max(dt, 1e-9)}
 
-    def _train_hot(self, dataset, batch_size: int, kw: Dict[str, Any],
-                   stats: _PassStats) -> Dict[str, Any]:
+    def _train_hot(self, dataset, batch_size: int, kw: Dict[str, Any], stats: _PassStats,
+                   checkpoint, checkpoint_every: int) -> Dict[str, Any]:
         """The hot-tier loop: residency is ensured host-side per batch,
         then ONE step on the card does probe → pull → fwd/bwd → Adam →
         CTR push. Batch packing (column slicing, key tagging, pinning)
@@ -633,6 +738,7 @@ class CtrStreamTrainer:
             # the host tensors stay referenced until the step that reads
             # their device copies has been enqueued (a pinned buffer freed
             # under a non_blocking copy would be silent corruption)
+            t_step = time.perf_counter()
             with torch.profiler.record_function("ctr_hot_step"):
                 lo32, dense, labels = to_device((lo32_h, dense_h, labels_h), dev)
                 tier.ensure(flat)
@@ -652,6 +758,8 @@ class CtrStreamTrainer:
             stats.steps += 1
             stats.samples += n_real
             self.batches_done += 1
+            self._h_step.observe(time.perf_counter() - t_step)
+            self._maybe_checkpoint(checkpoint, checkpoint_every, batch_size)
 
         t0 = time.perf_counter()
         window: deque = deque()

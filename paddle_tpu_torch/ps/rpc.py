@@ -126,6 +126,21 @@ class NativePsServer:
         self._h = self._lib.pss_create(host.encode(), int(port), int(n_trainers))
         enforce(self._h is not None, f"failed to bind PS server {host}:{port}")
         self.port = int(self._lib.pss_port(self._h))
+        self._pause_mu = threading.Lock()
+        self._pause_depth = 0
+
+    def pause_mutations(self, paused: bool) -> None:
+        """Quiesce writers (a mutating request blocks, within its IO
+        deadline; reads go on) while a snapshot takes a consistent cut.
+        ``pause_mutations(True)`` returns once no mutation is in flight.
+        Pause/resume pairs NEST (depth-counted), so an inner pair's resume
+        never releases an outer gate mid-capture; a resume without a
+        matching pause raises before it changes anything."""
+        with self._pause_mu:
+            enforce(paused or self._pause_depth > 0,
+                    "pause_mutations(False) without a matching pause")
+            self._pause_depth += 1 if paused else -1
+            self._lib.pss_pause_mutations(self._h, 1 if self._pause_depth > 0 else 0)
 
     def stop(self) -> None:
         """Stop serving (the handle stays until :meth:`close`)."""
