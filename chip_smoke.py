@@ -10,7 +10,9 @@ three CUDA kernel libraries from the checkout at first use, in parallel
 127.0.0.1 (ephemeral ports) and closes them; phase 14 starts the job's
 server and trainer processes (ports on 127.0.0.1 it checks are free)
 and waits for them, or ends them; phase 15 starts its three legs' processes
-one at a time and waits for each (a leg past its time limit is killed). Exits non-zero, with no
+one at a time and waits for each (a leg past its time limit is killed);
+phase 16 starts its in-process clusters on 127.0.0.1 and four server
+processes, and kills and reaps every one of them. Exits non-zero, with no
 result line, when there is no CUDA device, when the package is missing,
 or when any phase fails. Phases:
 
@@ -159,11 +161,43 @@ or when any phase fails. Phases:
    the oracle's. Logs the tier flush, gate pause, capture and write ms a
    checkpoint, its bytes, and the resume's ``load_latest``,
    ``restore_sparse`` and ``restore_train_state`` seconds;
-16. the ``kernels`` JSON line (B1 three times: ``ctr_sparse_rows`` on the
+16. the PS loses a primary (PS high availability and the compressed
+   sparse wires): phase 4's data, width and model (one cold epoch of 16
+   batches a run) on phase 13's 16-shard table (``initial_range=0``),
+   every run on a fresh ``ha.HACluster(num_shards=2, replication=2,
+   sync=True)`` of in-process servers. Leg A, the wire ladder: RPC-only
+   over a ``HalfAsyncCommunicator`` with push wires fp32, fp16 and int8
+   (error feedback, block 128): the push-byte counter equals 56 / 38 /
+   33 B a merged row (+ 56 B a residual row the closing drain pushes), no
+   residual after the closing quiesce, primary ≡ backup digests, losses
+   falling, and once the data's keys pulled over the fp16 wire equal the
+   fp32 pull rounded to half bitwise. Leg B, failover through a
+   ``SyncCommunicator`` with ``cluster.drain()`` after every call that
+   changes the servers, an oracle and a chaos run per arm: RPC-only
+   (``kill-shard`` on shard 0's primary at its 6th push; afterwards the
+   dead replica restarts and rejoins, every replica's digest equal) and
+   over ``HotTierConfig(capacity=2^19)`` (``kill-shard`` on shard 1's
+   primary at its 7th export, a miss fill; a checkpoint every 4 batches
+   under ``cluster.checkpoint_gate()``, each manifest's digest equal to
+   every live replica's at the cut; one B2 and one B4 a step, both
+   bitwise against their plain versions on the first batch after the
+   promotion). Checks: a promotion, the victim stopped, the chaos run's
+   rows pulled for the data's keys, dense params, Adam state and per-step
+   losses bitwise equal to its oracle's. Leg C: four processes of this
+   script in ``--ha-server STORE JOB SHARD`` mode (2 shards x 2 replicas
+   over a ``FileStore``, started together), the parent's
+   ``FailoverCoordinator`` and leg B's RPC-only run through ``HARouter``
+   with ``drain_remote`` after every change, shard 0's primary process
+   SIGKILLed after batch 5: bitwise equal to leg B's RPC-only oracle, the
+   routing names the backup, every process reaped. Logs samples/s per leg
+   and arm, the recovery ms, the chaos step beside the median, push bytes,
+   the loss curves, the tier's gate pause and capture ms;
+17. the ``kernels`` JSON line (B1 three times: ``ctr_sparse_rows`` on the
    pass path, ``ctr_sparse_rows@widedeep`` on phase 12's,
-   ``ctr_sparse_rows@gpubox_rpc`` on phase 14's leg B; B2 and B4 twice:
-   ``hot_probe_gather``/``hot_scatter_apply`` on the hot path,
-   ``...@rpc`` on phase 13's), then the card line, then the result line.
+   ``ctr_sparse_rows@gpubox_rpc`` on phase 14's leg B; B2 and B4 three
+   times: ``hot_probe_gather``/``hot_scatter_apply`` on the hot path,
+   ``...@rpc`` on phase 13's, ``...@ha`` on phase 16's tier arm), then the
+   card line, then the result line.
 
 ``--profile DIR`` also runs two more pass-path slabs, two more warm
 batches of each hot path and two more ERNIE steps under torch.profiler (after the
@@ -2771,7 +2805,7 @@ def phase_rpc_leg(dev, card, ds, hot):
         close_cluster(servers, client)
 
 
-def rpc_b2_check(b2):
+def rpc_b2_check(b2, what="the_one_ps batch"):
     """B2 on the captured batch, bitwise against its plain version, then
     timed beside it and its byte bound."""
     from paddle_tpu_torch.ops.hot_kernels import hot_probe_gather, hot_probe_gather_plain
@@ -2784,12 +2818,12 @@ def rpc_b2_check(b2):
     err = max_abs(got[1], want[1])
     n, found = int(th.numel()), int((got[0] >= 0).sum())
     if not ok:
-        raise AssertionError(f"B2 disagrees with plain on the the_one_ps batch (max_abs {err})")
+        raise AssertionError(f"B2 disagrees with plain on the {what} (max_abs {err})")
     nbytes, buckets = probe_gather_bytes(ms, th, tl, found, kw["banks"])
     ms_k, call_k = time_cuda(lambda: hot_probe_gather(ms, th, tl, tier, **kw))
     ms_p, call_p = time_cuda(lambda: hot_probe_gather_plain(ms, th, tl, tier, **kw))
     bound = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"kernel hot_probe_gather, the_one_ps batch: n={n} found={found} bitwise={ok} "
+    log(f"kernel hot_probe_gather, {what}: n={n} found={found} bitwise={ok} "
         f"max_abs={err}; device {ms_k} ms, plain {ms_p} ms, bound {bound} ms (bytes: {nbytes} "
         f"B, {buckets} buckets probed); per call from an idle card {call_k} ms, plain "
         f"{call_p} ms")
@@ -2797,7 +2831,7 @@ def rpc_b2_check(b2):
             "bound_by": "bytes"}
 
 
-def rpc_b4_check(b4):
+def rpc_b4_check(b4, what="the_one_ps batch"):
     """B4 on the captured batch, bitwise against its plain version on the
     CPU copy, then timed beside the plain version on the card and the
     bound."""
@@ -2812,7 +2846,7 @@ def rpc_b4_check(b4):
     ok = all(bitwise_equal(got[k].cpu(), want[k]) for k in COLUMNS)
     err = max(max_abs(got[k].cpu(), want[k]) for k in COLUMNS)
     if not ok:
-        raise AssertionError(f"B4 disagrees with plain on the the_one_ps batch (max_abs {err})")
+        raise AssertionError(f"B4 disagrees with plain on the {what} (max_abs {err})")
     n, C = int(rows.numel()), int(state["embed_w"].shape[0])
     u = int(torch.unique(rows[(rows >= 0) & (rows < C)]).numel())
     nbytes, nops, bytes_ms, ops_ms = scatter_bound(n, u, cfg)
@@ -2821,7 +2855,7 @@ def rpc_b4_check(b4):
                                                            cfg))
     ms_p, call_p = time_cuda(lambda: hk.hot_scatter_apply_plain(work, rows, grads, shows,
                                                                 clicks, cfg))
-    log(f"kernel hot_scatter_apply {cfg.embed_rule}/{cfg.embedx_rule}, the_one_ps batch: n={n} "
+    log(f"kernel hot_scatter_apply {cfg.embed_rule}/{cfg.embedx_rule}, {what}: n={n} "
         f"u={u}: bitwise={ok} max_abs={err}; device {ms_k} ms, plain {ms_p} ms, bound "
         f"{max(bytes_ms, ops_ms)} ms ({nbytes} B, {nops} f32 ops); per call from an idle card "
         f"{call_k} ms, plain {call_p} ms")
@@ -3637,17 +3671,571 @@ def phase_job_checkpoint(dev, card):
     log(f"job restarts (phase 15): {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 16: the PS loses a primary -----------------------------------------------
+
+# PS high availability and the compressed sparse wires at phase 4's width and
+# data (DeepFM 26 slots x dim 8, 13 dense, DNN 400^3, batch 4096, 65,536 lines
+# of 10,000 ids a slot: one cold epoch of 16 batches a run) on phase 13's
+# 16-shard table (rows created with initial_range=0), each run on a fresh
+# ha.HACluster(num_shards=2, replication=2, sync=True) of in-process servers.
+# Leg A: the wire ladder (fp32, fp16, int8 push wires) through a
+# HalfAsyncCommunicator. Leg B: failover, an oracle and a chaos run per arm
+# through a SyncCommunicator, cluster.drain() after every call that changes
+# the servers; RPC-only (kill-shard on shard 0's primary at its 6th push) and
+# over HotTierConfig(capacity=2^19) (kill-shard on shard 1's primary at its
+# 7th export, a miss fill; a checkpoint every 4 batches under
+# cluster.checkpoint_gate()). Leg C: leg B's RPC arm against four server
+# processes of this script (--ha-server) over a FileStore, shard 0's primary
+# SIGKILLed after batch 5.
+HA_LINES, HA_IDS, HA_BATCH, HA_CAP = HOT_LINES, HOT_IDS, BATCH, HOT_CAP
+HA_SHARDS, HA_REPLICAS = 2, 2
+HA_EVERY = 4             # batches between the tier arm's checkpoints
+HA_KILL_PUSH = 6         # RPC arm: shard 0's primary dies on its 6th push (5 landed)
+HA_KILL_EXPORT = 7       # tier arm: shard 1's primary dies on its 7th export (6 answered)
+HA_KILL_AFTER_BATCH = 5  # leg C: the SIGKILL lands after batch 5
+HA_TIMEOUT = 240         # seconds a leg C server process may live
+_HA_READY = "HA_SERVER_READY "
+_U64 = 0xFFFFFFFFFFFFFFFF
+
+
+def ha_dataset():
+    return ctr_dataset(ctr_lines(np.random.default_rng(20), HA_LINES, HA_IDS, SLOTS, DENSE),
+                       SLOTS, DENSE)
+
+
+def ha_table_config(**wire):
+    from paddle_tpu_torch.ps.accessor import AccessorConfig
+    from paddle_tpu_torch.ps.sgd_rule import SGDRuleConfig
+    from paddle_tpu_torch.ps.table import TableConfig
+
+    return TableConfig(table_id=0, shard_num=RPC_TABLE_SHARDS, accessor_config=AccessorConfig(
+        embedx_dim=DIM, embedx_threshold=0.0, sgd=SGDRuleConfig(initial_range=0.0)), **wire)
+
+
+def ha_cluster():
+    from paddle_tpu_torch.ps.ha import HACluster
+
+    return HACluster(num_shards=HA_SHARDS, replication=HA_REPLICAS, sync=True)
+
+
+def ha_trainer(dev, comm, hot):
+    """Phase 4's DeepFM from seed 0 over ``comm`` (table 0), RPC-only or
+    over the hot tier; its per-step losses and step-end times are kept."""
+    from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.ps.hot_tier import HotTierConfig
+    from paddle_tpu_torch.ps.ps_trainer import CtrStreamTrainer
+
+    model = DeepFM(CtrConfig(SLOTS, DENSE, DIM, (400, 400, 400)),
+                   generator=torch.Generator().manual_seed(0))
+    tr = CtrStreamTrainer(model, Adam(learning_rate=1e-3), None, communicator=comm, table_id=0,
+                          embedx_dim=DIM, hot_tier=HotTierConfig(capacity=HA_CAP) if hot else None,
+                          device=dev, **slot_names(SLOTS, DENSE))
+    tr.ha_losses, tr.ha_step_ends = [], []
+    name, at = ("_hot_step", 3) if hot else ("_step", 2)
+    real = getattr(tr, name)
+
+    def step(*a):
+        out = real(*a)
+        tr.ha_losses.append(out[at])
+        tr.ha_step_ends.append(time.perf_counter())
+        return out
+
+    setattr(tr, name, step)
+    return tr
+
+
+def ha_losses(tr):
+    return np.asarray([float(x) for x in tr.ha_losses])
+
+
+def ha_check_losses(ls, what):
+    assert np.isfinite(ls).all() and ls[-4:].mean() < ls[:4].mean(), f"{what}: losses {ls}"
+
+
+def ha_wire_counter(what):
+    """The summed ``ps_client_wire_<what>`` push series of table 0."""
+    from paddle_tpu_torch.obs import registry
+
+    fam = registry.REGISTRY.snapshot()["metrics"].get(f"ps_client_wire_{what}",
+                                                      {"series": []})
+    return sum(s["value"] for s in fam["series"]
+               if s["labels"].get("dir") == "push" and s["labels"].get("table") == "0")
+
+
+def ha_replicas_equal(cluster, what):
+    """After a drain: per shard, the digests of its live replicas."""
+    digs = [cluster.digests(0, s) for s in range(HA_SHARDS)]
+    for s, d in enumerate(digs):
+        assert len(set(d.values())) == 1, f"{what}: shard {s} replicas differ: {d}"
+    return digs
+
+
+def ha_wire_run(dev, card, ds, wire):
+    """Leg A, one rung: a cold epoch RPC-only over a HalfAsyncCommunicator
+    with the given push wire (int8: error feedback, block 128). Checks the
+    push-byte counter against the encoded row's formula, no residual left
+    after the closing quiesce, primary ≡ backup digests, losses."""
+    from paddle_tpu_torch.ps.communicator import HalfAsyncCommunicator
+
+    cluster = ha_cluster()
+    try:
+        client = cluster.client()
+        client.create_sparse_table(0, ha_table_config(push_wire_dtype=wire))
+        drained, real_drain = [], client.drain_push_residuals
+
+        def drain(table_id=None):
+            n = real_drain(table_id)
+            drained.append(n)
+            return n
+
+        client.drain_push_residuals = drain
+        comm = HalfAsyncCommunicator(client)
+        comm.start()
+        tr = ha_trainer(dev, comm, hot=False)
+        b0, r0 = ha_wire_counter("bytes"), ha_wire_counter("rows")
+        t0 = time.perf_counter()
+        r = tr.train_from_dataset(ds, batch_size=HA_BATCH)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        comm.stop()  # the closing quiesce: queued pushes and residuals drain
+        resid = client.push_residual_rows()
+        nbytes, nrows = ha_wire_counter("bytes") - b0, ha_wire_counter("rows") - r0
+        n_drained = sum(drained)
+        gd = client._dims(0)[1] - 3
+        per_row = 8 + 12 + gd * {"fp32": 4, "fp16": 2, "int8": 1}[wire] + \
+            (4 * -(-gd // 128) if wire == "int8" else 0)
+        want = per_row * (nrows - n_drained) + (8 + 4 * (3 + gd)) * n_drained
+        ls = ha_losses(tr)
+        log(f"PS HA leg A, push wire {wire}: {int(r['steps'])} steps, "
+            f"{r['samples'] / wall:.1f} samples/s ({1e3 * wall / r['steps']:.3f} ms/step); "
+            f"push bytes {nbytes} = {per_row} B x {nrows - n_drained} merged rows + 56 B x "
+            f"{n_drained} drained residual rows (counter rows {nrows}); residual rows after "
+            f"the quiesce {resid}; loss {ls[:4].mean():.6f} (batches 1-4) -> "
+            f"{ls[-4:].mean():.6f} (last 4) on {card}")
+        assert nbytes == want, f"{wire}: push bytes {nbytes} != {want}"
+        assert resid == 0, f"{wire}: {resid} residual rows after the quiesce"
+        assert (n_drained > 0) == (wire == "int8"), f"{wire}: drained {n_drained}"
+        ha_check_losses(ls, f"PS HA leg A {wire}")
+        cluster.drain()
+        digs = ha_replicas_equal(cluster, f"PS HA leg A {wire}")
+        if wire == "fp32":
+            ha_fp16_pull_check(cluster, ds)
+        return {"samples_per_s": r["samples"] / wall, "bytes": nbytes, "rows": nrows,
+                "drained": n_drained, "per_row": per_row, "losses": ls, "digests": digs}
+    finally:
+        cluster.stop()
+
+
+def ha_fp16_pull_check(cluster, ds):
+    """The data's keys pulled over the fp16 wire equal the fp32 pull
+    rounded to half and widened, bitwise (the server rounds to nearest
+    even)."""
+    keys = dataset_keys(ds)
+    c32, c16 = cluster.client(), cluster.client()
+    c32.create_sparse_table(0, ha_table_config())  # the table exists: dims only
+    c16.create_sparse_table(0, ha_table_config(pull_wire_dtype="fp16"))
+    fp32, half = c32.pull_sparse(0, keys, create=False), c16.pull_sparse(0, keys, create=False)
+    ok = half.tobytes() == torch.from_numpy(fp32).half().float().numpy().tobytes()
+    log(f"PS HA leg A: fp16 pull of {len(keys)} keys: equal to the fp32 pull rounded to half "
+        f"bitwise {ok}; max |fp16 - fp32| {float(np.abs(half - fp32).max())}")
+    assert ok, "the fp16 pull differs from the fp32 pull rounded to half"
+
+
+class _CutDigests:
+    """``cluster.checkpoint_gate()`` that also reads every live replica's
+    digest at the cut (inside the gate, after its drain)."""
+
+    def __init__(self, cluster):
+        self.cluster, self.gate, self.cuts = cluster, cluster.checkpoint_gate(), []
+
+    def __enter__(self):
+        self.gate.__enter__()
+        try:
+            self.cuts.append([self.cluster.digests(0, s) for s in range(HA_SHARDS)])
+        except BaseException:
+            self.gate.__exit__(None, None, None)
+            raise
+        return self
+
+    def __exit__(self, *exc):
+        self.gate.__exit__(*exc)
+
+
+def ha_arm_run(dev, ds, hot, chaos, root=None):
+    """Leg B, one run on a fresh cluster through a SyncCommunicator,
+    ``cluster.drain()`` after every call that changes the servers. With
+    ``chaos`` the armed kill-shard fires mid-epoch; the RPC arm then
+    restarts the dead replica, waits for its rejoin and holds every
+    replica's digest equal. The tier arm checkpoints every ``HA_EVERY``
+    batches into ``root`` and captures B2/B4's inputs on the first batch
+    after the promotion. Returns the run's record."""
+    from paddle_tpu_torch.io.job_checkpoint import JobCheckpointManager, verify_checkpoint
+    from paddle_tpu_torch.ps.communicator import SyncCommunicator
+    from paddle_tpu_torch.ps.rpc import _EXPORT, _PUSH_SPARSE, RemoteSparseTable
+
+    cluster = ha_cluster()
+    got, restore = capture_hot_step() if hot and chaos else ({}, lambda: None)
+    mgr = None
+    try:
+        client = cluster.client()
+        client.create_sparse_table(0, ha_table_config())
+        coord = cluster.coordinator
+        calls = []  # (end time, ms, promotions before, after) of each call that may fail
+
+        def timed_drained(fn, drain_if=lambda *a, **k: True):
+            def run(*a, **k):
+                before, t = coord.promotions, time.perf_counter()
+                out = fn(*a, **k)
+                end = time.perf_counter()
+                calls.append((end, 1e3 * (end - t), before, coord.promotions))
+                if drain_if(*a, **k):
+                    cluster.drain()
+                return out
+            return run
+
+        comm = SyncCommunicator(client)
+        comm.start()
+        base_send = comm.send_sparse
+
+        def send(table_id, keys, values):
+            base_send(table_id, keys, values)
+            cluster.drain()
+
+        comm.send_sparse = send
+        tr = ha_trainer(dev, comm, hot)
+        if hot:
+            tier = tr.hot_tier
+            tier.table.export_full = timed_drained(
+                tier.table.export_full, lambda keys, create=False, slots=None: create)
+            tier.table.import_full = timed_drained(tier.table.import_full)
+            gate = _CutDigests(cluster)
+            mgr = JobCheckpointManager(root, gate=gate, max_keep=8)
+            mgr.register_sparse("ctr", RemoteSparseTable(client, 0, client.sparse_config(0)))
+            real_save = mgr.save
+            save_ms = []
+
+            def save(*a, **k):
+                t = time.perf_counter()
+                no = real_save(*a, **k)
+                save_ms.append(1e3 * (time.perf_counter() - t))
+                return no
+
+            mgr.save = save
+            hot_step = tr._hot_step
+
+            def arm_then_step(*a):  # the first batch after the promotion
+                if chaos and not got["armed"] and coord.promotions:
+                    got["armed"] = True
+                return hot_step(*a)
+
+            tr._hot_step = arm_then_step
+        else:
+            client.pull_sparse = timed_drained(client.pull_sparse)
+            client.push_sparse = timed_drained(client.push_sparse)
+        victim = None
+        if chaos:
+            shard, cmd, after = (1, _EXPORT, HA_KILL_EXPORT) if hot else \
+                (0, _PUSH_SPARSE, HA_KILL_PUSH)
+            victim = cluster.primary(shard)
+            victim.server.arm_fault("kill-shard", cmd=cmd, after=after)
+        _sync(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        r = tr.train_from_dataset(ds, batch_size=HA_BATCH, checkpoint=mgr,
+                                  checkpoint_every=HA_EVERY if hot else 0)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        rec = {"steps": int(r["steps"]), "wall": wall, "samples_per_s": r["samples"] / wall,
+               "launches": launches, "losses": ha_losses(tr),
+               "step_ms": np.diff([t0] + tr.ha_step_ends) * 1e3, "step_ends": tr.ha_step_ends,
+               "promotions": coord.promotions, "calls": calls}
+        if hot:
+            mgr.wait()
+            tr.hot_tier.flush()
+            rec["pause_ms"], rec["save_ms"] = list(mgr.pause_ms), save_ms
+            rec["cuts"] = []
+            for no, cut in enumerate(gate.cuts):
+                man = verify_checkpoint(os.path.join(root, f"ckpt_{no}"))
+                prim = [set(d.values()) for d in cut]
+                assert all(len(p) == 1 for p in prim), f"replicas differ at cut {no}: {cut}"
+                total = sum(next(iter(p)) for p in prim) & _U64
+                assert man["tables"]["ctr"]["digest"] == total, \
+                    f"checkpoint {no}: manifest digest != the replicas' at the cut"
+                rec["cuts"].append({no: [len(d) for d in cut]})
+            mgr.stop()
+            mgr = None
+        comm.stop()
+        if chaos:
+            assert victim.server.stopped, "the armed primary did not die"
+            assert coord.promotions >= 1, "no promotion"
+            if not hot:
+                dead = victim.endpoint
+                t = time.perf_counter()
+                cluster.restart_replica(0, dead)
+                deadline = time.monotonic() + 30
+                while dead not in cluster.routing.read()[1][0].get("backups", []):
+                    assert time.monotonic() < deadline, "the restarted replica never rejoined"
+                    time.sleep(0.02)
+                cluster.drain()
+                rec["rejoin_s"] = time.perf_counter() - t
+                rec["rejoin_digests"] = ha_replicas_equal(cluster, "PS HA leg B after rejoin")
+                assert all(len(d) == HA_REPLICAS for d in rec["rejoin_digests"])
+        cluster.drain()
+        rec["digests"] = ha_replicas_equal(cluster, "PS HA leg B")
+        keys = dataset_keys(ds)
+        rec["pulled"] = client.pull_sparse(0, keys, create=False)
+        rec["dense"] = tr.train_state()
+        rec["captured"] = {k: got[k] for k in ("b2", "b4") if k in got}
+        return rec
+    finally:
+        restore()
+        if mgr is not None:
+            mgr.stop()
+        cluster.stop()
+
+
+def ha_leaves(t):
+    return ([x for k in sorted(t) for x in ha_leaves(t[k])] if isinstance(t, dict)
+            else [np.asarray(t)])
+
+
+def ha_bitwise(a, b):
+    """The run's rows pulled for the data's keys, dense params, Adam state
+    and per-step losses, each bitwise."""
+    return {"rows pulled for the data's keys": np.array_equal(a["pulled"], b["pulled"]),
+            "dense params": all(np.array_equal(x, y) for x, y in
+                                zip(ha_leaves(a["dense"]["state"]),
+                                    ha_leaves(b["dense"]["state"]))),
+            "Adam state": all(np.array_equal(x, y) for x, y in
+                              zip(ha_leaves(a["dense"]["opt"]), ha_leaves(b["dense"]["opt"]))),
+            "per-step losses": np.array_equal(a["losses"], b["losses"])}
+
+
+def ha_recovery(rec, step_ends):
+    """(ms of the call the promotion happened in, median ms of the other
+    calls, the index of the step that call belongs to)."""
+    hit = [(end, ms) for end, ms, before, after in rec["calls"] if after > before]
+    rest = [ms for _, ms, before, after in rec["calls"] if after == before]
+    step = int(np.searchsorted(step_ends, hit[0][0])) if hit else -1
+    return (hit[0][1] if hit else float("nan")), float(np.median(rest)), step
+
+
+def ha_arm(dev, card, ds, hot):
+    """Leg B, one arm: the oracle, then the chaos run, each bitwise checked
+    against the other. Returns (oracle, chaos)."""
+    import tempfile
+
+    name = "tier" if hot else "RPC-only"
+    base = tempfile.mkdtemp(prefix="ps_ha_") if hot else None
+    try:
+        oracle = ha_arm_run(dev, ds, hot, chaos=False,
+                            root=os.path.join(base, "oracle") if hot else None)
+        chaos = ha_arm_run(dev, ds, hot, chaos=True,
+                           root=os.path.join(base, "chaos") if hot else None)
+    finally:
+        if base is not None:
+            shutil.rmtree(base, ignore_errors=True)
+    rec_ms, call_ms, hit = ha_recovery(chaos, chaos["step_ends"])
+    step = chaos["step_ms"]
+    log(f"PS HA leg B, {name} arm: oracle {oracle['samples_per_s']:.1f} samples/s, chaos "
+        f"{chaos['samples_per_s']:.1f} samples/s ({chaos['steps']} steps each); promotions "
+        f"{chaos['promotions']}; recovery (the call the promotion landed in) {rec_ms:.1f} ms "
+        f"against a median call of {call_ms:.1f} ms; the chaos step (step {hit + 1}) "
+        f"{step[hit]:.1f} ms against the median step {float(np.median(step)):.1f} ms (the "
+        f"oracle's step {hit + 1}: {oracle['step_ms'][hit]:.1f} ms) on {card}")
+    if hot:
+        log(f"PS HA leg B, tier arm: gate pause ms {[round(x, 1) for x in chaos['pause_ms']]}, "
+            f"save() ms {[round(x, 1) for x in chaos['save_ms']]}; manifest digests equal to "
+            f"every live replica's at each cut {chaos['cuts']}; launches {chaos['launches']}")
+    else:
+        log(f"PS HA leg B, RPC-only arm: the dead replica restarted and rejoined (catalog "
+            f"replay, snapshot, tail) in {chaos['rejoin_s']:.2f} s; every replica's digest "
+            f"equal: {chaos['rejoin_digests']}")
+    for r in (oracle, chaos):
+        assert r["steps"] == HA_LINES // HA_BATCH, f"{name}: {r['steps']} steps"
+        ha_check_losses(r["losses"], f"PS HA leg B {name}")
+        if hot and dev.type == "cuda":
+            n = r["steps"]
+            assert r["launches"]["hot_probe_gather"] == n == r["launches"]["hot_scatter_apply"], \
+                f"{name}: B2/B4 launches {r['launches']} != {n} steps"
+    checks = ha_bitwise(chaos, oracle)
+    log(f"PS HA leg B, {name} arm: chaos vs oracle, bitwise: {checks}")
+    assert all(checks.values()), f"the {name} chaos run differs from its oracle: {checks}"
+    return oracle, chaos
+
+
+def ha_server_child(store_dir, job, shard):
+    """``--ha-server STORE JOB SHARD``: one replica of leg C (an
+    ``HAServer`` over a ``FileStore`` on 127.0.0.1) until it is killed, its
+    server stops, its parent goes or ``HA_TIMEOUT`` passes."""
+    from paddle_tpu_torch.distributed.elastic import FileStore
+    from paddle_tpu_torch.ps.ha import HAServer
+
+    parent = os.getppid()
+    s = HAServer(FileStore(store_dir), job, int(shard), n_trainers=1, sync=True,
+                 hb_interval=0.1, hb_ttl=0.6)
+    s.start()
+    print(_HA_READY + s.endpoint, flush=True)
+    deadline = time.monotonic() + HA_TIMEOUT
+    while not s.server.stopped and os.getppid() == parent and time.monotonic() < deadline:
+        time.sleep(0.1)
+    s.close()
+    return 0
+
+
+def ha_process_leg(dev, card, ds, want):
+    """Leg C: four ``--ha-server`` processes (2 shards x 2 replicas, started
+    together), the parent's ``FailoverCoordinator`` and leg B's RPC-only run
+    through ``HARouter(store, job)`` with ``drain_remote`` after every call
+    that changes the servers; shard 0's primary process SIGKILLed after batch
+    ``HA_KILL_AFTER_BATCH``. Checks: bitwise equal to leg B's RPC-only
+    oracle, the routing names the backup, every process reaped."""
+    import tempfile
+
+    from paddle_tpu_torch.distributed.elastic import FileStore
+    from paddle_tpu_torch.ps import ha
+    from paddle_tpu_torch.ps.communicator import SyncCommunicator
+    from paddle_tpu_torch.ps.rpc import RpcPsClient
+
+    job = "phase16"
+    base = tempfile.mkdtemp(prefix="ps_ha_procs_")
+    store_dir = os.path.join(base, "store")
+    os.makedirs(store_dir)
+    procs, coord, client = {}, None, None
+    t_phase = time.perf_counter()
+    try:
+        for shard in range(HA_SHARDS):
+            for rep in range(HA_REPLICAS):
+                err = open(os.path.join(base, f"server_{shard}_{rep}.err"), "w")
+                procs[(shard, rep)] = subprocess.Popen(
+                    [sys.executable, PSJOB_SCRIPT, "--ha-server", store_dir, job, str(shard)],
+                    stdout=subprocess.PIPE, stderr=err, text=True)
+                err.close()
+        eps = {}
+        for key, p in procs.items():
+            line = p.stdout.readline().strip()
+            assert line.startswith(_HA_READY), f"server {key} did not start: {line!r}"
+            eps[key] = line[len(_HA_READY):]
+        up_s = time.perf_counter() - t_phase
+        store = FileStore(store_dir)
+        routing = ha.RoutingTable(store, job)
+        routing.publish(0, [{"primary": eps[(s, 0)],
+                             "backups": [eps[(s, r)] for r in range(1, HA_REPLICAS)],
+                             "replicas": [eps[(s, r)] for r in range(HA_REPLICAS)]}
+                            for s in range(HA_SHARDS)])
+        coord = ha.FailoverCoordinator(store, job, grace_s=0.2, poll_s=0.05).start()
+        client = RpcPsClient(routing.primaries(), router=ha.HARouter(store, job))
+        client.create_sparse_table(0, ha_table_config())
+
+        def drain_all():
+            for sh in routing.read()[1]:
+                ha.drain_remote(sh["primary"], sh.get("backups", []))
+
+        sends, kill_at, first_after = [0], [None], []
+        base_pull = client.pull_sparse
+
+        def pull(*a, **k):
+            out = base_pull(*a, **k)
+            if kill_at[0] is not None and not first_after:
+                first_after.append(time.perf_counter() - kill_at[0])
+            drain_all()
+            return out
+
+        client.pull_sparse = pull
+        comm = SyncCommunicator(client)
+        comm.start()
+        base_send = comm.send_sparse
+
+        def send(table_id, keys, values):
+            base_send(table_id, keys, values)
+            drain_all()
+            sends[0] += 1
+            if sends[0] == HA_KILL_AFTER_BATCH:
+                procs[(0, 0)].kill()  # SIGKILL: nothing graceful; the lease expires by TTL
+                kill_at[0] = time.perf_counter()
+
+        comm.send_sparse = send
+        tr = ha_trainer(dev, comm, hot=False)
+        _sync(dev)
+        t0 = time.perf_counter()
+        r = tr.train_from_dataset(ds, batch_size=HA_BATCH)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        comm.stop()
+        procs[(0, 0)].wait(timeout=30)
+        got = {"pulled": client.pull_sparse(0, dataset_keys(ds), create=False),
+               "dense": tr.train_state(), "losses": ha_losses(tr)}
+        step = np.diff([t0] + tr.ha_step_ends) * 1e3
+        new_primary = routing.read()[1][0]["primary"]
+        log(f"PS HA leg C: 4 server processes up in {up_s:.2f} s; {int(r['steps'])} steps, "
+            f"{r['samples'] / wall:.1f} samples/s; SIGKILL after batch {HA_KILL_AFTER_BATCH} "
+            f"(exit {procs[(0, 0)].returncode}); the first call after it answered "
+            f"{1e3 * first_after[0]:.1f} ms after the kill; promotions {coord.promotions}; "
+            f"step {HA_KILL_AFTER_BATCH + 1} {step[HA_KILL_AFTER_BATCH]:.1f} ms against the "
+            f"median {float(np.median(step)):.1f} ms on {card}")
+        assert procs[(0, 0)].returncode == -9, procs[(0, 0)].returncode
+        assert new_primary == eps[(0, 1)], f"shard 0 routes to {new_primary}, not its backup"
+        assert coord.promotions >= 1 and int(r["steps"]) == HA_LINES // HA_BATCH
+        checks = ha_bitwise(got, want)
+        log(f"PS HA leg C: SIGKILLed process run vs leg B's RPC-only oracle, bitwise: {checks}")
+        assert all(checks.values()), f"leg C differs from leg B's oracle: {checks}"
+        return {"samples_per_s": r["samples"] / wall, "recovery_ms": 1e3 * first_after[0]}
+    finally:
+        if client is not None:
+            client.close()
+        if coord is not None:
+            coord.stop()
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)
+            p.stdout.close()
+        assert all(p.returncode is not None for p in procs.values()), "a server was not reaped"
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def phase_ha(dev, card):
+    """Phase 16: leg A (the wire ladder), leg B (failover, RPC-only and
+    tier arms; B2 and B4 bitwise on the first batch after the tier arm's
+    promotion), leg C (SIGKILLed server processes). Returns (the tier chaos
+    run's launch counts, B2's numbers, B4's numbers)."""
+    t_phase = time.perf_counter()
+    ds = ha_dataset()
+    wires = {w: ha_wire_run(dev, card, ds, w) for w in ("fp32", "fp16", "int8")}
+    curves = {w: [round(float(x), 6) for x in wires[w]["losses"]] for w in wires}
+    log(f"PS HA leg A: push bytes {({w: wires[w]['bytes'] for w in wires})}, fp32/int8 "
+        f"{wires['fp32']['bytes'] / wires['int8']['bytes']:.3f}x, fp32/fp16 "
+        f"{wires['fp32']['bytes'] / wires['fp16']['bytes']:.3f}x; residual rows drained "
+        f"{({w: wires[w]['drained'] for w in wires})}; loss curves {curves}")
+    rpc_oracle, _ = ha_arm(dev, card, ds, hot=False)
+    _, tier = ha_arm(dev, card, ds, hot=True)
+    b2, b4 = ({}, {})
+    if dev.type == "cuda":
+        cap = tier["captured"]
+        assert "b2" in cap and "b4" in cap, "nothing captured after the promotion"
+        b2 = rpc_b2_check(cap["b2"], "first batch after the promotion")
+        b4 = rpc_b4_check(cap["b4"], "first batch after the promotion")
+    ha_process_leg(dev, card, ds, rpc_oracle)
+    log(f"PS loses a primary (phase 16): {time.perf_counter() - t_phase:.1f} s")
+    return tier["launches"], b2, b4
+
+
 def main(argv):
     profile_dir = None
     if argv[:1] == ["--ps-job"] and len(argv) == 2:
         return ps_job_child(argv[1])
     if argv[:1] == ["--ckpt-job"] and len(argv) == 2:
         return ckpt_job_child(argv[1])
+    if argv[:1] == ["--ha-server"] and len(argv) == 4:
+        return ha_server_child(*argv[1:])
     if argv[:1] == ["--profile"] and len(argv) == 2:
         profile_dir = argv[1]
     elif argv:
         print("usage: chip_smoke.py [--profile DIR]  (--ps-job CONFIG.json: one process of "
-              "phase 14's job; --ckpt-job CONFIG.json: one leg of phase 15)", file=sys.stderr)
+              "phase 14's job; --ckpt-job CONFIG.json: one leg of phase 15; --ha-server STORE "
+              "JOB SHARD: one server process of phase 16's leg C)", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -3693,6 +4281,7 @@ def main(argv):
     del ds
     gpubox = phase_ps_job(dev, card)
     phase_job_checkpoint(dev, card)
+    ha_counts, ha_b2, ha_b4 = phase_ha(dev, card)
     phase_kernel_counts(dev)
     wd_kernel_counts(dev)
     phase_resnet_kernel_counts(resnets, resnet_batch, profile_dir)
@@ -3745,7 +4334,14 @@ def main(argv):
         # RemoteSparseTable: its launches there, its numbers on that leg's
         # first push, measured in that process
         entry("ctr_sparse_rows@gpubox_rpc", b1_src, b1_ref,
-              gpubox["launches"]["ctr_sparse_rows"], gpubox["b1"])]
+              gpubox["launches"]["ctr_sparse_rows"], gpubox["b1"]),
+        # B2 and B4 again as phase 16's tier arm launches them across a
+        # failover: the chaos run's launches, their numbers on the first
+        # batch after the promotion
+        entry("hot_probe_gather@ha", hot_src, "paddle_tpu/ops/hot_kernels.py:116",
+              ha_counts["hot_probe_gather"], ha_b2),
+        entry("hot_scatter_apply@ha", hot_src, "paddle_tpu/ops/hot_kernels.py:278",
+              ha_counts["hot_scatter_apply"], ha_b4)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -8,7 +8,9 @@ a checkpoint written by either package verifies and loads in the other.
 
 - **consistent cut** — ``save()`` briefly holds a mutation gate
   (:class:`~paddle_tpu_torch.ps.ha.CheckpointGate` over the servers'
-  ``pause_mutations``; the caller quiesces its communicator first) and
+  ``pause_mutations``, or ``HACluster.checkpoint_gate()``: the routed
+  primaries, drained to their backups; the caller quiesces its
+  communicator first) and
   captures, in RAM: every registered sparse table's full rows through
   the save-path exporter (``snapshot_items`` — binary-exact) and its
   content digest, taken under the gate. The gate is held for the table
@@ -215,6 +217,7 @@ class JobCheckpointManager:
     """See the module docstring. Typical wiring::
 
         mgr = JobCheckpointManager(root, gate=CheckpointGate(servers=servers))
+        # or gate=cluster.checkpoint_gate() over an ha.HACluster
         mgr.register_sparse("ctr", RemoteSparseTable(cli, 0, cfg))
         trainer.train_from_dataset(ds, checkpoint=mgr, checkpoint_every=50)
         ...

@@ -19,12 +19,15 @@ when ``is_sgd_optimizer``) and pushes them through the PS client.
 Pulls issued ahead (:meth:`_BaseCommunicator.pull_sparse_async`) and
 other fetches (:meth:`_BaseCommunicator.fetch_async`, the hot tier's
 cold-row prefetch) run on two pull workers and are tracked, so
-``quiesce()``/``barrier()`` wait for them too. A push that fails on the
-background thread is stored and raised at the next ``barrier()`` or
-``stop()``; after that the communicator stays failed. Plain ``threading``
-and ``queue`` carry it; the obs counters are plain integers. The
-failover replay of a prefetched pull and the int8 error-feedback drain
-are not ported (``ps.rpc`` has neither).
+``quiesce()``/``barrier()`` wait for them too. A prefetched pull that
+dies on a transport failure refreshes the client's routing (``ps.ha``
+failover) and replays once on the promoted backup. ``quiesce()`` and
+``stop()`` drain the client's int8 error-feedback residuals
+(``RpcPsClient.drain_push_residuals``): after a quiesce no training
+signal lives on the client side. A push that fails on the background
+thread is stored and raised at the next ``barrier()`` or ``stop()``;
+after that the communicator stays failed. Plain ``threading`` and
+``queue`` carry it; the obs counters are plain integers.
 """
 
 from __future__ import annotations
@@ -113,7 +116,18 @@ class _BaseCommunicator:
         """Issue a pull on a pull worker; the future's result is the
         pulled values. It sees the pushes that have already reached the PS
         (stale by up to the queue depth: the async-PS contract)."""
-        return self._submit(self.client.pull_sparse, table_id, keys, create, slots)
+        return self._submit(self._pull_with_replay, table_id, keys, create, slots)
+
+    def _pull_with_replay(self, table_id, keys, create, slots):
+        try:
+            return self.client.pull_sparse(table_id, keys, create, slots)
+        except Exception:
+            # the client's own failover may have timed out mid-promotion:
+            # one refresh and replay covers the window
+            refresh = getattr(self.client, "refresh_routing", None)
+            if refresh is None or not refresh():
+                raise
+            return self.client.pull_sparse(table_id, keys, create, slots)
 
     def fetch_async(self, fn) -> Future:
         """Run a zero-arg PS fetch on the pull workers, tracked like a
@@ -160,7 +174,15 @@ class _BaseCommunicator:
         if not self._push_thread_dead:
             self._drain_all()
         self._shutdown_pull_pool()
+        if not self._push_thread_dead:
+            self._drain_residuals()
         self.check_error()
+
+    def _drain_residuals(self) -> None:
+        """Push the client's error-feedback residuals (int8 push wire)."""
+        drain = getattr(self.client, "drain_push_residuals", None)
+        if drain is not None:
+            drain()
 
     def _shutdown_pull_pool(self) -> None:
         self._drain_pulls()
@@ -181,14 +203,16 @@ class _BaseCommunicator:
                 "undrained — restart the communicator")
 
     def quiesce(self) -> None:
-        """Local traffic barrier: this trainer's queued sends have reached
-        the PS and its pulls are done (no other trainer takes part)."""
+        """Local traffic barrier: this trainer's queued sends and its
+        error-feedback residuals have reached the PS and its pulls are done
+        (no other trainer takes part): the checkpoint cut."""
         while not self._all_empty():
             if self._push_thread_dead:
                 break
             time.sleep(0.001)
         self._drained.wait(timeout=10)
         self._drain_pulls()
+        self._drain_residuals()
         self.check_error()
 
     def barrier(self) -> None:
@@ -276,6 +300,7 @@ class SyncCommunicator(_BaseCommunicator):
         self._running = False
         self._drain_all()
         self._shutdown_pull_pool()
+        self._drain_residuals()
 
     def send_sparse(self, table_id, keys, values):
         self.client.push_sparse(table_id, keys, values)

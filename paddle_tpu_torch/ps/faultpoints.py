@@ -7,11 +7,15 @@ call :func:`faultpoint` with a site name. A site is inert — one dict
 probe — until a test or operator arms it with :func:`arm_faultpoint` or
 the ``FLAGS_ps_faultpoints`` flag/env.
 
-Sites in the port: the job checkpoint's ``ckpt.artifact``,
+Sites in the port: the RPC connection's ``rpc.call`` (inside the retry
+loop, ``ps/rpc.py``), the replication shipper's ``repl.ship``
+(``rpc.send_replicate``), the HA heartbeat's ``ha.heartbeat``
+(``ps/ha.py``), and the job checkpoint's ``ckpt.artifact``,
 ``ckpt.manifest`` and ``ckpt.publish`` (``io/job_checkpoint.py``). The
-RPC client's and the server's sites (``rpc.call``, ``repl.ship``, the C++
-mirror armed through ``pss_arm_fault``) come with HA (ROADMAP Queue A
-item 3, entry 2).
+C++ server has its own mirror, counted per command and armed through
+``NativePsServer.arm_fault`` (``kill-shard``, ``drop-frame``,
+``close-socket``, ``delay-ms``; each fires before the request changes any
+state).
 
 Actions:
 
@@ -40,7 +44,7 @@ the threshold hit), at most ``count`` times total (0 = unlimited).
 
 Flag format (``FLAGS_ps_faultpoints``):
 ``site=action[:k=v]*[;site=action...]`` — e.g.
-``ckpt.manifest=kill-job:after=3`` or ``ckpt.artifact=flip-bytes``.
+``rpc.call=delay-ms:ms=20`` or ``ckpt.manifest=kill-job:after=3``.
 """
 
 from __future__ import annotations
@@ -60,7 +64,8 @@ __all__ = ["FaultSpec", "faultpoint", "arm_faultpoint", "disarm_faultpoints",
            "armed_faultpoints", "FaultInjected"]
 
 # FLAGS_ps_faultpoints itself is defined in core/flags.py, as in the JAX
-# package (the transport's sites will read it too)
+# package (the transport's, the HA harness's and the checkpoint's sites
+# read it)
 
 _ACTIONS = frozenset({"delay-ms", "drop-frame", "close-socket", "kill-shard",
                       "kill-job", "corrupt-epoch", "truncate-artifact",

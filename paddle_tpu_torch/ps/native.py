@@ -21,9 +21,12 @@ streaming file save/load are not (ROADMAP Queue A).
 The PS service (``ps_service.cc`` with ``graph_store.h``, the port's
 copies of the TCP server and client of ``ps.rpc``) calls the SSD
 engine's ``sst_*`` and zlib, so it builds into the same second library,
-and :func:`load_ssd` loads both. Only the server lifecycle, the
-connection and the scatter-gather call (``psc_callv``) are bound. The replication, serving, fault and
-tenancy symbols are in the library but not bound (ROADMAP Queue A).
+and :func:`load_ssd` loads both. Bound: the server lifecycle, the
+mutation gate, the high-availability controls (the oplog tap and its
+consumer, the create catalog, epoch, applied seq, read-only mode, dense
+version, the server's faults), the connection and the scatter-gather call
+(``psc_callv``). The tenancy and obs symbols are in the library but not
+bound (ROADMAP Queue A item 3, entries 4 and 6).
 """
 
 from __future__ import annotations
@@ -390,9 +393,9 @@ def table_native_params(shard_num: int, accessor: str, acc_cfg,
 
 
 def _configure_rpc(lib: ctypes.CDLL) -> None:
-    """The PS service's server lifecycle and mutation gate, connection and
-    scatter-gather call (``psc_callv`` sends the 44-byte request header with a zero trace
-    context)."""
+    """The PS service's server lifecycle, mutation gate and high-availability
+    controls, connection and scatter-gather call (``psc_callv`` sends the
+    44-byte request header with a zero trace context)."""
     h = ctypes.c_void_p
     lib.pss_create.restype = ctypes.c_void_p
     lib.pss_create.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
@@ -420,6 +423,32 @@ def _configure_rpc(lib: ctypes.CDLL) -> None:
     lib.psc_resp_ptr.argtypes = [h]
     lib.psc_resp_copy.restype = None
     lib.psc_resp_copy.argtypes = [h, ctypes.c_void_p]
+    # high availability (ps/ha.py): the oplog tap and its single consumer,
+    # the create catalog, epoch and applied seq, read-only mode, the dense
+    # version and the server's own faults
+    lib.pss_set_replication.restype = None
+    lib.pss_set_replication.argtypes = [h, ctypes.c_int, ctypes.c_int64]
+    lib.pss_oplog_next.restype = ctypes.c_int64
+    lib.pss_oplog_next.argtypes = [h, ctypes.c_int32]
+    lib.pss_staged_len.restype = ctypes.c_uint64
+    lib.pss_staged_len.argtypes = [h]
+    lib.pss_staged_ptr.restype = ctypes.c_void_p
+    lib.pss_staged_ptr.argtypes = [h]
+    for fn in ("pss_oplog_seq", "pss_oplog_pending", "pss_oplog_dropped", "pss_catalog_count",
+               "pss_epoch", "pss_applied_seq", "pss_dense_version"):
+        getattr(lib, fn).restype = ctypes.c_int64
+        getattr(lib, fn).argtypes = [h]
+    lib.pss_catalog_get.restype = ctypes.c_int64
+    lib.pss_catalog_get.argtypes = [h, ctypes.c_int64]
+    lib.pss_set_epoch.restype = None
+    lib.pss_set_epoch.argtypes = [h, ctypes.c_int64]
+    lib.pss_set_read_only.restype = None
+    lib.pss_set_read_only.argtypes = [h, ctypes.c_int]
+    lib.pss_read_only.restype = ctypes.c_int
+    lib.pss_read_only.argtypes = [h]
+    lib.pss_arm_fault.restype = None
+    lib.pss_arm_fault.argtypes = [h, ctypes.c_char_p, ctypes.c_uint32, ctypes.c_int64,
+                                  ctypes.c_int64]
 
 
 def _configure_sst(lib: ctypes.CDLL) -> None:

@@ -4,12 +4,15 @@ The port's own copy of ``paddle_tpu.ps.rpc`` over its own copy of the
 native service (``csrc/ps_service.cc``, built into the SSD tier's
 library, loaded by ``ps.native.load_ssd``). The wire is the JAX package's: a
 44-byte request header (the trace-context field always zero), the same
-command ids and status codes, so a client of either package talks to the
-servers of either.
+command ids, status codes, value encodings and replication frames, so a
+client of either package talks to the servers of either, and a primary
+of either replicates to a backup of either.
 
 - :class:`NativePsServer` hosts the C++ service in this process (accept
   loop and handler threads live in C++); ``port=0`` binds an ephemeral
-  port.
+  port. Its high-availability controls (the oplog tap, the create
+  catalog, epoch, applied seq, read-only mode, dense version, the
+  server's own faults) are what ``ps.ha`` drives.
 - :class:`RpcPsClient` is the :class:`~paddle_tpu_torch.ps.client.PSClient`
   over N servers: sparse keys route by ``key % num_servers``, one request
   per server per call, fanned out concurrently (``FLAGS_ps_rpc_parallel``)
@@ -19,20 +22,27 @@ servers of either.
   (``FLAGS_pserver_timeout_ms``, longer for table-scale commands) and
   retries a dead connection ``FLAGS_pserver_max_retry`` times with
   doubling backoff, reconnecting each time; then it raises
-  :class:`~paddle_tpu_torch.core.enforce.PsTransportError`. Nothing falls
-  back to a local table.
+  :class:`~paddle_tpu_torch.core.enforce.PsTransportError`. With a
+  ``router`` (``ps.ha.HARouter``) every shard op runs through
+  :meth:`RpcPsClient._shard_op`: a circuit breaker per endpoint, and on a
+  transport death the op replays on the backup the failover coordinator
+  promoted. Nothing falls back to a local table.
+- The wires (``TableConfig.pull_wire_dtype``/``push_wire_dtype``): fp16
+  pulls; fp16 or block-int8 push gradients, quantized once per merged
+  push on the host (numpy), with the int8 error-feedback residuals kept
+  per (table, key) and drained over the fp32 wire at the communicator's
+  quiesce. The per-table ``ps_client_wire_bytes``/``ps_client_wire_rows``
+  counters (``obs.registry``) count the encoded payload.
 - :class:`RemoteSparseTable` is the table-shaped view over one sparse
   table on the servers (the hot tier's cold store).
 
-Not ported (ROADMAP Queue A): the fp16 and int8 wires and the int8
-error-feedback store (``TableConfig`` refuses them); failover (the
-router, circuit breaker, ``_shard_op`` replay, ``_swap_conn``,
-``refresh_routing``, the ``WrongShard`` bounce and reroute,
-``digest_routed``/``digest_at``/``retain``/``ownership``/``server_epoch``/
-``repl_state``/``dense_snapshot``/``dense_restore``) and the server's
-replication, epoch, read-only, dense-version and fault controls;
-tenancy; the serve QoS class; the obs wire accounting. ``op_counts`` is a
-plain counter under a lock.
+Not ported (each raises ``UnavailableError`` naming its place in ROADMAP
+Queue A item 3): the live-reshard surface (the ``WrongShard`` bounce and
+reroute, ``retain``, ``ownership``, ``server_epoch``, ``digest_routed``;
+entry 3), tenancy (``tenant=``; entry 4), the serve QoS class
+(``qos="serve"``; entry 5), and the per-table density series
+(``density_series``, which needs ``distributed/placement.py``, item 10).
+``op_counts`` is a plain counter under a lock.
 """
 
 from __future__ import annotations
@@ -40,7 +50,11 @@ from __future__ import annotations
 import ctypes
 import json
 import os
-import threading
+# lock discipline (the JAX module's): every client and server mutex is a
+# leaf. `_mu` is the per-connection wire mutex; `_conns_mu` only swaps
+# connections (connects build outside it); `_pool_mu`/`_count_mu`/
+# `_pause_mu` guard scalars; `_ef_mu` guards the error-feedback store
+# (gather, quantize, scatter under it; the network send outside).
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
@@ -48,14 +62,20 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from ..core.enforce import NotFoundError, PsTransportError, enforce
+from ..core import sync as _sync
+from ..core.enforce import (NotFoundError, PreconditionNotMetError, PsTransportError,
+                            UnavailableError, enforce)
 from ..core.flags import define_flag, flag
+from ..obs import flightrec as _flightrec
+from ..obs import registry as _obs_registry
 from .accessor import AccessorConfig, make_accessor
 from .client import PSClient
+from .faultpoints import faultpoint
 from .native import load_ssd, table_native_params
 from .table import TableConfig, converter_entry, merge_duplicate_keys
 
-__all__ = ["NativePsServer", "RemoteSparseTable", "RpcPsClient"]
+__all__ = ["NativePsServer", "RemoteSparseTable", "RpcPsClient", "make_conn",
+           "send_replicate"]
 
 define_flag("pserver_connect_timeout_ms", 10000,
             "PS client TCP connect deadline (0 = blocking)")
@@ -72,6 +92,10 @@ define_flag("pserver_barrier_timeout_ms", 1800000,
 define_flag("ps_rpc_parallel", True,
             "fan multi-server PS calls out concurrently (one in-flight call per "
             "connection); False runs the servers one after another")
+define_flag("ps_push_ef_max_rows", 1 << 20,
+            "per-table cap on client-side error-feedback residual rows "
+            "(push_wire_dtype='int8'): past it the whole table's residuals drain "
+            "over the fp32 wire and the store restarts empty")
 
 # command ids (ps_service.cc Cmd)
 _CREATE_SPARSE = 1
@@ -98,13 +122,27 @@ _COMPACT = 24
 _LOAD_COLD = 34
 _SAVE_FILE = 35
 _LOAD_FILE = 36
+# high availability (ps/ha.py drives these)
+_REPLICATE = 37
+_EPOCH = 38
+_REPL_STATE = 39
 _DIGEST = 40
+_DENSE_SNAP = 41
+_DENSE_RESTORE = 42
+
+# push-value wire encodings (csrc PushWireFlag: kPushSparse aux bits)
+_PUSH_WIRE_F16 = 1
+_PUSH_WIRE_I8 = 2
+_PUSH_WIRE_BLOCK_SHIFT = 8
 
 _ERR_NO_TABLE = -2  # ps_service.cc kErrNoTable
+_ERR_READ_ONLY = -7  # kErrReadOnly
 _ERR_RESET, _ERR_DEADLINE = -1000, -1001  # PsConn transport failures
 
 _DENSE_OPT_IDS = {"sgd": 0, "adam": 1, "sum": 2}
 _SAVE_FORMATS = {None: (0, ""), "gzip": (1, ".gz"), "raw": (2, ".bin")}
+
+_RESHARD = "ROADMAP Queue A item 3, entry 3 (live reshard)"
 
 
 def _long_ms() -> int:
@@ -126,7 +164,7 @@ class NativePsServer:
         self._h = self._lib.pss_create(host.encode(), int(port), int(n_trainers))
         enforce(self._h is not None, f"failed to bind PS server {host}:{port}")
         self.port = int(self._lib.pss_port(self._h))
-        self._pause_mu = threading.Lock()
+        self._pause_mu = _sync.Lock()
         self._pause_depth = 0
 
     def pause_mutations(self, paused: bool) -> None:
@@ -151,6 +189,83 @@ class NativePsServer:
     def stopped(self) -> bool:
         return self._h is None or bool(self._lib.pss_stopped(self._h))
 
+    # -- high availability (ps/ha.py) ------------------------------------------
+
+    def set_replication(self, enable: bool, cap_entries: int = 0) -> None:
+        """Start/stop tapping mutating request frames into the oplog ring
+        (bounded at ``cap_entries``; an overflow drops the oldest entry and
+        the shipper sees the seq gap and resyncs by snapshot)."""
+        self._lib.pss_set_replication(self._h, 1 if enable else 0, int(cap_entries))
+
+    def oplog_next(self, timeout_ms: int = 100):
+        """Pop the next oplog entry (one consumer: the shipper thread):
+        ``(seq, frame_bytes)``, ``(-1, None)`` on timeout, ``(-2, None)``
+        once the server is stopping and the ring is empty. A frame is
+        ``[request header][payload]``."""
+        seq = int(self._lib.pss_oplog_next(self._h, int(timeout_ms)))
+        if seq < 0:
+            return seq, None
+        return seq, self._staged(int(self._lib.pss_staged_len(self._h)))
+
+    def _staged(self, n: int) -> bytes:
+        buf = ctypes.create_string_buffer(n)
+        ctypes.memmove(buf, self._lib.pss_staged_ptr(self._h), n)
+        return buf.raw
+
+    def oplog_seq(self) -> int:
+        return int(self._lib.pss_oplog_seq(self._h))
+
+    def oplog_pending(self) -> int:
+        return int(self._lib.pss_oplog_pending(self._h))
+
+    def oplog_dropped(self) -> int:
+        return int(self._lib.pss_oplog_dropped(self._h))
+
+    def catalog(self) -> List[bytes]:
+        """Every create-table frame seen so far (replayed to a rejoining
+        backup before the data snapshot)."""
+        out = []
+        for i in range(int(self._lib.pss_catalog_count(self._h))):
+            n = int(self._lib.pss_catalog_get(self._h, i))
+            if n >= 0:
+                out.append(self._staged(n))
+        return out
+
+    @property
+    def epoch(self) -> int:
+        return int(self._lib.pss_epoch(self._h))
+
+    def set_epoch(self, epoch: int) -> None:
+        self._lib.pss_set_epoch(self._h, int(epoch))
+
+    @property
+    def applied_seq(self) -> int:
+        return int(self._lib.pss_applied_seq(self._h))
+
+    def set_read_only(self, on: bool) -> None:
+        """Read-only mode: training-plane mutations (push, geo, shrink,
+        create-exports, bulk load) bounce with ``kErrReadOnly``;
+        insert-on-miss pulls read missing rows as zeros. The replication
+        plane (kReplicate, snapshot inserts, dense restore, creates) stays
+        open."""
+        self._lib.pss_set_read_only(self._h, 1 if on else 0)
+
+    @property
+    def read_only(self) -> bool:
+        return bool(self._lib.pss_read_only(self._h))
+
+    @property
+    def dense_version(self) -> int:
+        """Count of dense mutations applied (direct or replicated)."""
+        return int(self._lib.pss_dense_version(self._h))
+
+    def arm_fault(self, name: str, cmd: int = 0, after: int = 1, param: int = 0) -> None:
+        """Arm a server-side fault (``kill-shard``, ``drop-frame``,
+        ``close-socket``, ``delay-ms``): it fires once ``after`` matching
+        requests (``cmd`` 0 = any) have been seen, before the request
+        changes any state; ``delay-ms`` stays armed with ``param`` ms."""
+        self._lib.pss_arm_fault(self._h, name.encode(), int(cmd), int(after), int(param))
+
     def close(self) -> None:
         """Stop and release the server (idempotent)."""
         if getattr(self, "_h", None):
@@ -173,7 +288,9 @@ class _ServerConn:
     transport failure (the framed stream is undefined then, so the socket
     is rebuilt, never reused). A retry replays the command: at-least-once,
     as brpc's channel retry; ``retries=0`` opts a call out (barrier,
-    shrink, spill, server-side save/load)."""
+    shrink, spill, server-side save/load). The fault site ``rpc.call``
+    sits inside the retry loop, so an injected fault walks the recovery
+    path a real one would."""
 
     def __init__(self, lib: ctypes.CDLL, host: str, port: int) -> None:
         self._lib = lib
@@ -182,7 +299,7 @@ class _ServerConn:
         self._h = None
         # one caller owns connect/call/close at a time: a reconnect frees
         # the C++ PsConn another thread could be calling through
-        self._mu = threading.RLock()
+        self._mu = _sync.RLock()
         self._connect()
 
     def _connect(self) -> None:
@@ -261,6 +378,7 @@ class _ServerConn:
         last: Optional[Exception] = None
         for attempt in range(retries + 1):
             try:
+                faultpoint("rpc.call", cmd=cmd, close=self.close)
                 with self._mu:
                     if self._h is None:
                         self._connect()
@@ -279,8 +397,34 @@ class _ServerConn:
         status, resp = self.call(cmd, table_id, n, aux, payload, **kw)
         if status == _ERR_NO_TABLE:
             raise NotFoundError(f"table {table_id} not created on server {self.endpoint}")
+        if status == _ERR_READ_ONLY:
+            raise PreconditionNotMetError(
+                f"PS server {self.endpoint} is read-only: training-plane command {cmd} "
+                "refused")
         enforce(status >= 0, f"PS command {cmd} on {self.endpoint} failed with status {status}")
         return status, resp
+
+
+def make_conn(endpoint: str) -> _ServerConn:
+    """One connection to ``endpoint`` ("host:port"): the replication
+    shipper's channel to a backup (``ps.ha``)."""
+    host, port = endpoint.rsplit(":", 1)
+    return _ServerConn(load_ssd(), host, int(port))
+
+
+def send_replicate(conn: _ServerConn, frame: bytes, seq: int, epoch: int,
+                   retries: Optional[int] = None) -> int:
+    """Ship one oplog entry (``frame`` as ``NativePsServer.oplog_next``
+    gives it) to a backup as a kReplicate command. Returns the server's
+    status: the acked seq, or -5 (stale epoch: the sender is fenced) or -6
+    (seq gap: the backup needs a snapshot). The fault site ``repl.ship``
+    can corrupt the epoch stamp to exercise the fence."""
+    spec = faultpoint("repl.ship", close=conn.close)
+    if spec is not None and spec.action == "corrupt-epoch":
+        epoch = spec.param
+    status, _ = conn.call(_REPLICATE, 0, n=int(seq), aux=int(epoch), payload=frame,
+                          retries=retries)
+    return int(status)
 
 
 def _sparse_config_payload(cfg: TableConfig) -> bytes:
@@ -289,19 +433,70 @@ def _sparse_config_payload(cfg: TableConfig) -> bytes:
     return ip.tobytes() + fp.tobytes()
 
 
+def _quant_push_int8(grad: np.ndarray, block: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Block-wise symmetric int8 over the gradient block: one fp32 absmax
+    scale per block, blocks tiling a row (nblk = ceil(gd / block); the
+    last block may be ragged, and its zero pad never raises the absmax).
+    Returns (q int8 [n, gd], scales f32 [n, nblk])."""
+    n, gd = grad.shape
+    nblk = -(-gd // block)
+    pad = nblk * block - gd
+    g = np.pad(grad, ((0, 0), (0, pad))) if pad else grad
+    gb = g.reshape(n, nblk, block)
+    amax = np.max(np.abs(gb), axis=2)
+    scales = (amax / np.float32(127.0)).astype(np.float32)
+    inv = np.where(scales > 0, np.float32(1.0) / scales, np.float32(0.0)).astype(np.float32)
+    q = np.clip(np.rint(gb * inv[:, :, None]), -127, 127).astype(np.int8)
+    return np.ascontiguousarray(q.reshape(n, nblk * block)[:, :gd]), scales
+
+
+def _dequant_push_int8(q: np.ndarray, scales: np.ndarray, block: int) -> np.ndarray:
+    """Inverse of :func:`_quant_push_int8`: float32(q) * scale, the f32
+    multiply the server's ``decode_push_rows`` applies, so the client's
+    error-feedback residual is taken against exactly what the server (and
+    every backup replaying the frame) adds to the rows."""
+    n, gd = q.shape
+    nblk = scales.shape[1]
+    pad = nblk * block - gd
+    qq = np.pad(q, ((0, 0), (0, pad))) if pad else q
+    out = qq.reshape(n, nblk, block).astype(np.float32) * scales[:, :, None]
+    return out.reshape(n, nblk * block)[:, :gd]
+
+
 class RpcPsClient(PSClient):
     """:class:`~paddle_tpu_torch.ps.client.PSClient` over N TCP servers
-    (see the module docstring). ``endpoints`` are ``"host:port"``."""
+    (see the module docstring). ``endpoints`` are ``"host:port"``;
+    ``router`` is an ``ps.ha.HARouter`` (None: the static topology, no
+    breaker, no failover)."""
 
-    def __init__(self, endpoints: Sequence[str]) -> None:
+    def __init__(self, endpoints: Sequence[str], router: Optional[object] = None,
+                 qos: str = "train", tenant: Optional[Tuple[int, bytes]] = None) -> None:
+        if qos != "train":
+            raise UnavailableError(
+                f"RpcPsClient(qos={qos!r}): the serve QoS class is not ported yet "
+                "(ROADMAP Queue A item 3, entry 5, with serving)")
+        if tenant is not None:
+            raise UnavailableError("RpcPsClient(tenant=...): tenancy is not ported yet "
+                                   "(ROADMAP Queue A item 3, entry 4)")
         self._lib = load_ssd()
+        self.qos = qos
         self._sparse_dims: Dict[int, Tuple[int, int, int]] = {}  # pull, push, full
         self._sparse_cfgs: Dict[int, TableConfig] = {}
         self._dense_dims: Dict[int, int] = {}
         self._geo_dims: Dict[int, int] = {}
+        self._wire_f16: Dict[int, bool] = {}  # table -> fp16 pull values
+        # table -> (push wire dtype, int8 block, error feedback on)
+        self._push_wire: Dict[int, Tuple[str, int, bool]] = {}
+        # error-feedback residuals: table -> {key -> f32 gradient residual}
+        self._push_ef: Dict[int, Dict[int, np.ndarray]] = {}
+        self._ef_mu = _sync.Lock()
+        # per-table wire counters, bound when the table is created
+        self._tbl_obs: Dict[int, Dict[str, object]] = {}
+        self._router = router
+        self._conns_mu = _sync.Lock()  # failover connection swaps
         self._pool: Optional[ThreadPoolExecutor] = None
-        self._pool_mu = threading.Lock()
-        self._count_mu = threading.Lock()
+        self._pool_mu = _sync.Lock()
+        self._count_mu = _sync.Lock()
         self._ops: Counter = Counter()
         self._conns: List[_ServerConn] = []
         try:
@@ -312,7 +507,7 @@ class RpcPsClient(PSClient):
             self.close()
             raise
 
-    # -- op counts ----------------------------------------------------------
+    # -- op counts and wire counters -----------------------------------------
 
     def _op_count(self, op: str) -> None:
         with self._count_mu:
@@ -331,6 +526,25 @@ class RpcPsClient(PSClient):
             out, self._ops = dict(self._ops), Counter()
         return out
 
+    def _bind_table_obs(self, table_id: int) -> None:
+        """Bind the table's wire counters (bytes and rows, a series per
+        direction) on the create path; with ``FLAGS_obs_metrics`` off
+        nothing is bound and the data path skips the accounting."""
+        if not _obs_registry.metrics_enabled():
+            self._tbl_obs.pop(table_id, None)
+            return
+        t, reg = str(table_id), _obs_registry.REGISTRY
+        self._tbl_obs[table_id] = {
+            f"{d}_{what}": reg.counter(f"ps_client_wire_{what}", table=t, dir=d)
+            for d in ("pull", "push") for what in ("bytes", "rows")}
+
+    def density_series(self, table_id: int, direction: str = "push"):
+        """Not ported: the windowed density series needs
+        ``distributed/placement.py`` (ROADMAP Queue A item 10)."""
+        raise UnavailableError(
+            "RpcPsClient.density_series needs distributed/placement.DensitySeries, which "
+            "is not ported yet (ROADMAP Queue A item 10)")
+
     @property
     def num_servers(self) -> int:
         return len(self._conns)
@@ -345,6 +559,105 @@ class RpcPsClient(PSClient):
             pool.shutdown(wait=True)
         for c in self._conns:
             c.close()
+
+    # -- failover (router-gated; plain calls without a router) ---------------
+
+    def _swap_conn(self, s: int, endpoint: str) -> None:
+        """Point shard ``s`` at ``endpoint`` (a promoted backup). Another
+        thread may have swapped already: endpoint equality makes the swap
+        idempotent and the loser's connection closes. The connect happens
+        outside ``_conns_mu``, which every shard op takes."""
+        with self._conns_mu:
+            if self._conns[s].endpoint == endpoint:
+                return
+        host, port = endpoint.rsplit(":", 1)
+        fresh = _ServerConn(self._lib, host, int(port))
+        with self._conns_mu:
+            if self._conns[s].endpoint == endpoint:
+                stale = fresh
+            else:
+                stale, self._conns[s] = self._conns[s], fresh
+        stale.close()
+
+    def refresh_routing(self) -> bool:
+        """Re-resolve every shard's endpoint from the router's routing
+        table; True if a connection changed. A caller holding a failed
+        future (the communicator's prefetched pull) refreshes and replays.
+        No-op without a router. A routing table with another shard count
+        is a reshard, which the port does not have (raises)."""
+        if self._router is None:
+            return False
+        _, eps = self._router.routing()
+        if not eps:
+            return False
+        with self._conns_mu:
+            have = [c.endpoint for c in self._conns]
+        if have == list(eps):
+            return False
+        if len(eps) != len(have):
+            raise UnavailableError(
+                f"the routing table names {len(eps)} shards, this client has {len(have)}: "
+                f"resharding is not ported ({_RESHARD})")
+        for s, ep in enumerate(eps):
+            self._swap_conn(s, ep)
+        return True
+
+    def _shard_op(self, s: int, fn):
+        """Run ``fn(conn)`` against shard ``s``'s current server. With a
+        router: gate the endpoint through its breaker (an open breaker
+        fails fast instead of paying timeout × retries again), and on a
+        transport death ask the router for the promoted replacement and
+        replay ``fn`` there. A server's rejection (NotFoundError, a
+        negative status) passes straight through and counts as a success
+        for the breaker: the transport is alive, and a half-open probe
+        must be released."""
+        with self._conns_mu:
+            c = self._conns[s]
+        r = self._router
+        if r is None:
+            return fn(c)
+        ep = c.endpoint
+        if not r.allow(ep):
+            new_ep = r.failover(s, ep)
+            if new_ep is None or new_ep == ep:
+                raise PsTransportError(f"PS shard {s} endpoint {ep} circuit breaker open "
+                                       "and no promoted replacement published")
+            self._swap_conn(s, new_ep)
+            with self._conns_mu:
+                c = self._conns[s]
+            ep = c.endpoint
+        try:
+            out = fn(c)
+        except PsTransportError as e:
+            r.record(ep, ok=False)
+            rec = _flightrec.installed()
+            if rec is not None:
+                rec.note("transport_error", shard=s, endpoint=ep,
+                         error=f"{type(e).__name__}: {e}")
+            new_ep = r.failover(s, ep)
+            if new_ep is None or new_ep == ep:
+                raise
+            self._swap_conn(s, new_ep)
+            with self._conns_mu:
+                c = self._conns[s]
+            out = fn(c)
+            r.record(new_ep, ok=True)
+            return out
+        except BaseException:
+            r.record(ep, ok=True)
+            raise
+        r.record(ep, ok=True)
+        return out
+
+    def _direct(self, server: int, fn):
+        """Server-targeted call: no breaker, no failover replay (an
+        introspection answer must come from the addressed server)."""
+        return fn(self._conns[server])
+
+    def _task(self, s: int, fn):
+        """A zero-arg fan-out task bound to the shard index, not to a
+        connection (failover may swap it between submit and run)."""
+        return lambda: self._shard_op(s, fn)
 
     # -- fan-out ------------------------------------------------------------
 
@@ -372,8 +685,8 @@ class RpcPsClient(PSClient):
         return results
 
     def _each_server(self, fn):
-        """``fn(conn)`` on every server, fanned out; results by server."""
-        return self._fanout([lambda c=c: fn(c) for c in self._conns])
+        """``fn(conn)`` on every shard, fanned out; results by shard."""
+        return self._fanout([self._task(s, fn) for s in range(self.num_servers)])
 
     def _route(self, keys: np.ndarray) -> np.ndarray:
         return (keys % np.uint64(self.num_servers)).astype(np.int64)
@@ -392,8 +705,8 @@ class RpcPsClient(PSClient):
         return out
 
     def _keyed(self, keys: np.ndarray, one) -> None:
-        """``one(conn, sel)`` for each server owning some of ``keys``."""
-        self._fanout([lambda s=s, sel=sel: one(self._conns[s], sel)
+        """``one(conn, sel)`` for each shard owning some of ``keys``."""
+        self._fanout([self._task(s, lambda c, sel=sel: one(c, sel))
                       for s, sel in self._shard_sel(keys)])
 
     def _dims(self, table_id: int) -> Tuple[int, int, int]:
@@ -410,11 +723,23 @@ class RpcPsClient(PSClient):
         ``config.ssd_path/table<id>/server<s>``); a table that exists
         already stays as it is."""
         cfg = config or TableConfig(table_id=table_id)
+        enforce(cfg.pull_wire_dtype in ("fp32", "fp16"),
+                f"TableConfig.pull_wire_dtype must be 'fp32' or 'fp16', got "
+                f"{cfg.pull_wire_dtype!r}")
+        enforce(cfg.push_wire_dtype in ("fp32", "fp16", "int8"),
+                f"TableConfig.push_wire_dtype must be 'fp32', 'fp16' or 'int8', got "
+                f"{cfg.push_wire_dtype!r}")
+        block = int(cfg.push_wire_block)
+        enforce(1 <= block <= 0xFFFF,
+                f"TableConfig.push_wire_block must be in [1, 65535], got {block}")
         enforce(cfg.ssd_value_dtype in ("fp32", "fp16"),
                 f"TableConfig.ssd_value_dtype must be 'fp32' or 'fp16', got "
                 f"{cfg.ssd_value_dtype!r}")
         if cfg.storage == "ssd":
             enforce(cfg.ssd_path is not None, "TableConfig.storage='ssd' requires ssd_path")
+        self._sparse_cfgs[table_id] = cfg
+        self._wire_f16[table_id] = cfg.pull_wire_dtype == "fp16"
+        self._push_wire[table_id] = (cfg.push_wire_dtype, block, bool(cfg.push_error_feedback))
         base = _sparse_config_payload(cfg)
 
         def mk(s, c):
@@ -430,10 +755,11 @@ class RpcPsClient(PSClient):
             d = np.frombuffer(resp, np.int32)
             return int(d[0]), int(d[1]), int(d[2])
 
-        dims = self._fanout([lambda s=s, c=c: mk(s, c) for s, c in enumerate(self._conns)])
+        dims = self._fanout([self._task(s, lambda c, s=s: mk(s, c))
+                             for s in range(self.num_servers)])
         enforce(len(set(dims)) == 1, f"servers disagree on table {table_id} dims: {dims}")
-        self._sparse_cfgs[table_id] = cfg
         self._sparse_dims[table_id] = dims[0]
+        self._bind_table_obs(table_id)
 
     def sparse_config(self, table_id: int) -> TableConfig:
         """The config this client created ``table_id`` with."""
@@ -444,18 +770,20 @@ class RpcPsClient(PSClient):
     def create_dense_table(self, table_id: int, dim: int, optimizer: str = "adam",
                            lr: float = 0.001) -> None:
         enforce(optimizer in _DENSE_OPT_IDS, f"unknown dense optimizer {optimizer!r}")
-        for s, c in enumerate(self._conns):
+        self._dense_dims[table_id] = dim
+        self._bind_table_obs(table_id)
+        for s in range(self.num_servers):
             payload = (np.asarray([len(self._dense_slice(dim, s)), _DENSE_OPT_IDS[optimizer]],
                                   np.int32).tobytes()
                        + np.asarray([lr], np.float32).tobytes())
-            c.check(_CREATE_DENSE, table_id, payload=payload)
-        self._dense_dims[table_id] = dim
+            self._shard_op(s, lambda c, pl=payload: c.check(_CREATE_DENSE, table_id,
+                                                            payload=pl))
 
     def create_geo_table(self, table_id: int, dim: int) -> None:
-        payload = np.asarray([dim], np.int32).tobytes()
-        for c in self._conns:
-            c.check(_CREATE_GEO, table_id, payload=payload)
         self._geo_dims[table_id] = dim
+        payload = np.asarray([dim], np.int32).tobytes()
+        for s in range(self.num_servers):
+            self._shard_op(s, lambda c: c.check(_CREATE_GEO, table_id, payload=payload))
 
     def _dense_slice(self, dim: int, server: int) -> range:
         per = (dim + self.num_servers - 1) // self.num_servers
@@ -466,41 +794,154 @@ class RpcPsClient(PSClient):
 
     def pull_sparse(self, table_id, keys, create=True, slots=None):
         """[n, pull_dim] values of ``keys`` (insert-on-miss with
-        ``create``; ``slots`` tags created rows)."""
+        ``create``; ``slots`` tags created rows). Over the fp16 pull wire
+        the values are exactly the fp32 rows rounded to half and widened."""
         self._op_count("pull_sparse")
         keys = np.ascontiguousarray(keys, np.uint64)
         pull_dim = self._dims(table_id)[0]
         out = np.zeros((len(keys), pull_dim), np.float32)
         slots_arr = (np.ascontiguousarray(slots, np.int32) if slots is not None
                      else np.zeros(len(keys), np.int32))
+        f16 = self._wire_f16.get(table_id, False)
+        aux = (1 if create else 0) | (2 if f16 else 0)
 
         def one(c, sel):
             kp = keys if sel is None else keys[sel]
             sp = slots_arr if sel is None else slots_arr[sel]
-            _, resp = c.check(_PULL_SPARSE, table_id, n=len(kp), aux=1 if create else 0,
-                              payload=(kp, sp), view=True)
-            vals = resp.view(np.float32).reshape(len(kp), pull_dim)
+            _, resp = c.check(_PULL_SPARSE, table_id, n=len(kp), aux=aux, payload=(kp, sp),
+                              view=True)
+            vals = resp.view(np.float16).astype(np.float32) if f16 else resp.view(np.float32)
             if sel is None:
-                out[:] = vals
+                out[:] = vals.reshape(len(kp), pull_dim)
             else:
-                out[sel] = vals
+                out[sel] = vals.reshape(len(kp), pull_dim)
 
         self._keyed(keys, one)
+        m = self._tbl_obs.get(table_id)
+        if m is not None:
+            m["pull_rows"].inc(len(keys))
+            m["pull_bytes"].inc(keys.nbytes + slots_arr.nbytes + out.size * (2 if f16 else 4))
         return out
 
     def push_sparse(self, table_id, keys, values):
         """Push [n, push_dim] rows (slot, show, click, gradients); duplicate
-        keys merge client-side first."""
+        keys merge client-side first, then the gradient block is encoded
+        once for the table's push wire."""
         self._op_count("push_sparse")
+        self._push_sparse(table_id, keys, values)
+
+    def _push_sparse(self, table_id, keys, values, _wire=None):
         keys, values = merge_duplicate_keys(np.ascontiguousarray(keys, np.uint64),
                                             np.ascontiguousarray(values, np.float32))
+        wire, block, ef_on = ((_wire, 0, False) if _wire is not None else
+                              self._push_wire.get(table_id, ("fp32", 0, False)))
+        gd = values.shape[1] - 3 if values.ndim == 2 else 0
+        overflow = False
+        if wire == "fp32" or gd <= 0:
+            enc, aux = None, 0
+            wire_bytes = keys.nbytes + values.nbytes
+        else:
+            # quantize once for the whole merged batch, before routing: a
+            # failover replay re-sends the same encoded slices, so the
+            # residual (already advanced for these rows) is never counted
+            # twice and every replica applies exactly these bytes
+            head = np.ascontiguousarray(values[:, :3])
+            grad = values[:, 3:]
+            if wire == "fp16":
+                enc = (head, np.ascontiguousarray(grad.astype(np.float16)))
+                aux = _PUSH_WIRE_F16
+            else:
+                blk = min(block, gd)
+                if ef_on:
+                    with self._ef_mu:
+                        g = grad + self._ef_gather(table_id, keys, gd)
+                        q, scales = _quant_push_int8(g, blk)
+                        self._ef_scatter(table_id, keys, g - _dequant_push_int8(q, scales, blk))
+                        overflow = (len(self._push_ef.get(table_id, ()))
+                                    > int(flag("ps_push_ef_max_rows")))
+                else:
+                    q, scales = _quant_push_int8(grad, blk)
+                enc = (head, scales, q)
+                aux = _PUSH_WIRE_I8 | (blk << _PUSH_WIRE_BLOCK_SHIFT)
+            wire_bytes = keys.nbytes + sum(a.nbytes for a in enc)
+        self._push_encoded(table_id, keys, values if enc is None else None, enc, aux)
+        if overflow:
+            # bounded client memory: past the cap the table's residuals drain
+            # over the fp32 wire (outside _ef_mu: the drain is a push)
+            self.drain_push_residuals(table_id)
+        m = self._tbl_obs.get(table_id)
+        if m is not None:
+            m["push_rows"].inc(len(keys))
+            m["push_bytes"].inc(wire_bytes)
+
+    def _push_encoded(self, table_id, keys, values, enc, aux) -> None:
+        """Route and fan out one encoded push batch: ``enc`` None ships
+        ``values`` raw (fp32), else the tuple of encoded parts (head
+        [, scales], gradient) whose row slices each shard gets."""
 
         def one(c, sel):
             kp = keys if sel is None else keys[sel]
-            vp = values if sel is None else values[sel]
-            c.check(_PUSH_SPARSE, table_id, n=len(kp), payload=(kp, vp))
+            if enc is None:
+                parts = (kp, values if sel is None else values[sel])
+            else:
+                parts = (kp,) + tuple(a if sel is None else np.ascontiguousarray(a[sel])
+                                      for a in enc)
+            c.check(_PUSH_SPARSE, table_id, n=len(kp), aux=aux, payload=parts)
 
         self._keyed(keys, one)
+
+    # -- error-feedback residuals (push_wire_dtype="int8") -----------------
+
+    def _ef_gather(self, table_id: int, keys: np.ndarray, gd: int) -> np.ndarray:
+        """Residual rows of ``keys`` (zeros for keys never quantized); the
+        caller holds ``_ef_mu``."""
+        store = self._push_ef.setdefault(table_id, {})
+        out = np.zeros((len(keys), gd), np.float32)
+        for i, k in enumerate(keys.tolist()):
+            r = store.get(k)
+            if r is not None:
+                out[i] = r
+        return out
+
+    def _ef_scatter(self, table_id: int, keys: np.ndarray, resid: np.ndarray) -> None:
+        """Store the fresh residuals (the caller holds ``_ef_mu``)."""
+        store = self._push_ef.setdefault(table_id, {})
+        for i, k in enumerate(keys.tolist()):
+            store[k] = resid[i].copy()
+
+    def push_residual_rows(self, table_id: Optional[int] = None) -> int:
+        """Residual rows held client-side (0 after a drain)."""
+        with self._ef_mu:
+            if table_id is not None:
+                return len(self._push_ef.get(table_id, ()))
+            return sum(len(s) for s in self._push_ef.values())
+
+    def drain_push_residuals(self, table_id: Optional[int] = None) -> int:
+        """Push every held error-feedback residual over the fp32 wire and
+        clear the store; returns the rows drained. ``Communicator.quiesce()``
+        calls it, so after a quiesce no training signal lives client-side
+        (the checkpoint cut). Drain rows carry show 1, click 0: the AdaGrad
+        family divides the gradient by the pushed show, so a zero show would
+        amplify the residual instead of applying it."""
+        with self._ef_mu:
+            if table_id is None:
+                drained = {t: s for t, s in self._push_ef.items() if s}
+                self._push_ef = {}
+            else:
+                drained = {table_id: self._push_ef.pop(table_id, {})}
+        total = 0
+        for tid, store in drained.items():
+            if not store:
+                continue
+            keys = np.fromiter(store.keys(), np.uint64, len(store))
+            vals = np.zeros((len(keys), self._dims(tid)[1]), np.float32)
+            vals[:, 1] = 1.0  # show (see the docstring)
+            resid = np.stack(list(store.values()))
+            vals[:, 3:3 + resid.shape[1]] = resid
+            self._op_count("push_sparse")
+            self._push_sparse(tid, keys, vals, _wire="fp32")
+            total += len(keys)
+        return total
 
     def export_full(self, table_id, keys, create=False, slots=None):
         """(values [n, full_dim], found [n]): full rows, optimizer state
@@ -527,6 +968,10 @@ class RpcPsClient(PSClient):
                 out[sel], found[sel] = vals, resp[nb:] != 0
 
         self._keyed(keys, one)
+        m = self._tbl_obs.get(table_id)
+        if m is not None:
+            m["pull_rows"].inc(len(keys))
+            m["pull_bytes"].inc(keys.nbytes + out.nbytes + found.nbytes)
         return out, found
 
     def import_full(self, table_id, keys, values):
@@ -541,6 +986,10 @@ class RpcPsClient(PSClient):
             c.check(_INSERT_FULL, table_id, n=len(kp), payload=(kp, vp), timeout_ms=_long_ms())
 
         self._keyed(keys, one)
+        m = self._tbl_obs.get(table_id)
+        if m is not None:
+            m["push_rows"].inc(len(keys))
+            m["push_bytes"].inc(keys.nbytes + values.nbytes)
 
     def load_cold(self, table_id, keys, values, chunk: int = 1 << 21) -> int:
         """Bulk-load full rows (SSD tables: into the disk tier; RAM tables
@@ -553,17 +1002,17 @@ class RpcPsClient(PSClient):
                 f"load_cold values shape {values.shape} != ({len(keys)}, {full_dim})")
         sv = self._route(keys)
 
-        def one(s):
+        def one(c, s):
             sel, done = np.flatnonzero(sv == s), 0
             for lo in range(0, len(sel), chunk):
                 part = sel[lo:lo + chunk]
-                cnt, _ = self._conns[s].check(_LOAD_COLD, table_id, n=len(part),
-                                              payload=(keys[part], values[part]),
-                                              timeout_ms=_long_ms())
+                cnt, _ = c.check(_LOAD_COLD, table_id, n=len(part),
+                                 payload=(keys[part], values[part]), timeout_ms=_long_ms())
                 done += int(cnt)
             return done
 
-        return sum(self._fanout([lambda s=s: one(s) for s in range(self.num_servers)]))
+        return sum(self._fanout([self._task(s, lambda c, s=s: one(c, s))
+                                 for s in range(self.num_servers)]))
 
     # -- dense and geo ------------------------------------------------------
 
@@ -580,23 +1029,29 @@ class RpcPsClient(PSClient):
             _, resp = c.check(_PULL_DENSE, table_id, view=True)
             out[sl.start:sl.stop] = resp.view(np.float32)
 
-        self._fanout([lambda c=c, sl=self._dense_slice(dim, s): one(c, sl)
-                      for s, c in enumerate(self._conns) if len(self._dense_slice(dim, s))])
+        self._fanout([self._task(s, lambda c, sl=self._dense_slice(dim, s): one(c, sl))
+                      for s in range(self.num_servers) if len(self._dense_slice(dim, s))])
+        m = self._tbl_obs.get(table_id)
+        if m is not None:
+            m["pull_bytes"].inc(out.nbytes)
         return out
 
     def _dense_send(self, cmd: int, table_id: int, values: np.ndarray) -> None:
-        values = np.ascontiguousarray(values, np.float32)
         dim = self._dense_dims[table_id]
-        self._fanout([lambda c=c, sl=self._dense_slice(dim, s):
-                      c.check(cmd, table_id, payload=values[sl.start:sl.stop])
-                      for s, c in enumerate(self._conns) if len(self._dense_slice(dim, s))])
+        self._fanout([self._task(s, lambda c, sl=self._dense_slice(dim, s):
+                                 c.check(cmd, table_id, payload=values[sl.start:sl.stop]))
+                      for s in range(self.num_servers) if len(self._dense_slice(dim, s))])
 
     def push_dense(self, table_id, grad):
         self._op_count("push_dense")
+        grad = np.ascontiguousarray(grad, np.float32)
+        m = self._tbl_obs.get(table_id)
+        if m is not None:
+            m["push_bytes"].inc(grad.nbytes)
         self._dense_send(_PUSH_DENSE, table_id, grad)
 
     def set_dense(self, table_id, values):
-        self._dense_send(_SET_DENSE, table_id, values)
+        self._dense_send(_SET_DENSE, table_id, np.ascontiguousarray(values, np.float32))
 
     def push_geo(self, table_id, keys, deltas):
         self._op_count("push_geo")
@@ -631,13 +1086,15 @@ class RpcPsClient(PSClient):
 
     def barrier(self):
         """All-trainer barrier on server 0: a long but finite deadline, no
-        retry (a replay could arrive twice)."""
-        self._conns[0].check(_BARRIER, retries=0,
-                             timeout_ms=int(flag("pserver_barrier_timeout_ms")))
+        retry (a replay could arrive twice). Through :meth:`_shard_op`: a
+        barrier racing a promotion re-arrives on the promoted server (the
+        dead one never counted the arrival)."""
+        self._shard_op(0, lambda c: c.check(
+            _BARRIER, retries=0, timeout_ms=int(flag("pserver_barrier_timeout_ms"))))
 
     def global_step(self, increment: int = 1) -> int:
         self._op_count("global_step")
-        status, _ = self._conns[0].check(_GLOBAL_STEP, n=increment)
+        status, _ = self._shard_op(0, lambda c: c.check(_GLOBAL_STEP, n=increment))
         return status
 
     def stop_servers(self) -> None:
@@ -677,16 +1134,63 @@ class RpcPsClient(PSClient):
         return {"hot_rows": sum(s[0] for s in stats), "cold_rows": sum(s[1] for s in stats),
                 "disk_bytes": sum(s[2] for s in stats)}
 
+    # -- high availability (ps/ha.py drives these) ---------------------------
+
     def digest(self, table_id: int) -> List[int]:
-        """Per-server order-independent content digests."""
+        """Per-server order-independent content digests (two replicas of a
+        shard holding bit-identical rows digest equal)."""
         return self._each_server(lambda c: int(np.frombuffer(
             c.check(_DIGEST, table_id)[1], np.uint64)[0]))
 
+    def digest_at(self, server: int, table_id: int, modulus: int = 0,
+                  residue: int = 0) -> int:
+        """One server's content digest, optionally over the keys with
+        ``key % modulus == residue`` only. Server-targeted: no failover
+        replay."""
+        _, resp = self._direct(server, lambda c: c.check(
+            _DIGEST, table_id, n=int(modulus), aux=int(residue), timeout_ms=_long_ms()))
+        return int(np.frombuffer(resp, np.uint64)[0])
+
+    def repl_state(self, server: int) -> Tuple[int, int, int, int]:
+        """(applied_seq, epoch, oplog_seq, oplog_pending) of one server:
+        enough for a cross-process replication drain (``ha.drain_remote``)."""
+        _, resp = self._direct(server, lambda c: c.check(_REPL_STATE, n=-1))
+        st = np.frombuffer(resp, np.int64)
+        return int(st[0]), int(st[1]), int(st[2]), int(st[3])
+
+    def dense_snapshot(self, table_id: int, server: int) -> bytes:
+        """One server's dense-table state (values, optimizer moments, step):
+        the rejoin snapshot's payload."""
+        _, resp = self._direct(server, lambda c: c.check(_DENSE_SNAP, table_id,
+                                                         timeout_ms=_long_ms()))
+        return bytes(resp)
+
+    def dense_restore(self, table_id: int, server: int, blob: bytes) -> None:
+        self._direct(server, lambda c: c.check(_DENSE_RESTORE, table_id, payload=blob,
+                                               timeout_ms=_long_ms()))
+
+    def _no_reshard(self, what: str):
+        raise UnavailableError(f"RpcPsClient.{what} belongs to live resharding, which is "
+                               f"not ported yet ({_RESHARD})")
+
+    def retain(self, server: int, modulus: int, residue: int) -> int:
+        self._no_reshard("retain")
+
+    def ownership(self, server: int) -> Tuple[int, int]:
+        self._no_reshard("ownership")
+
+    def server_epoch(self, server: int, set_to: Optional[int] = None) -> int:
+        self._no_reshard("server_epoch")
+
+    def digest_routed(self, table_id: int) -> List[int]:
+        self._no_reshard("digest_routed")
+
     # -- save/load ----------------------------------------------------------
 
-    def _save_all_items(self, c: _ServerConn, table_id: int, mode: int):
+    def _save_all_items(self, server: int, table_id: int, mode: int):
         full_dim = self._dims(table_id)[2]
-        cnt, resp = c.check(_SAVE_ALL, table_id, aux=mode, timeout_ms=_long_ms(), retries=0)
+        cnt, resp = self._shard_op(server, lambda c: c.check(
+            _SAVE_ALL, table_id, aux=mode, timeout_ms=_long_ms(), retries=0))
         keys = np.frombuffer(resp[:cnt * 8], np.uint64)
         values = np.frombuffer(resp[cnt * 8:], np.float32).reshape(cnt, full_dim)
         return keys, values
@@ -695,7 +1199,8 @@ class RpcPsClient(PSClient):
         """(keys [n] u64, full rows [n, full_dim]) of every server's rows
         that pass the save filter of ``mode`` (after the accessor's
         update_stat_after_save), exported in one command a server."""
-        parts = self._each_server(lambda c: self._save_all_items(c, table_id, mode))
+        parts = self._fanout([lambda s=s: self._save_all_items(s, table_id, mode)
+                              for s in range(self.num_servers)])
         return (np.concatenate([k for k, _ in parts]),
                 np.concatenate([v for _, v in parts]))
 
@@ -714,8 +1219,8 @@ class RpcPsClient(PSClient):
         cfg = self._sparse_cfgs[table_id]
         acc = make_accessor(cfg.accessor, cfg.accessor_config)
         total = 0
-        for s, c in enumerate(self._conns):
-            keys, values = self._save_all_items(c, table_id, mode)
+        for s in range(self.num_servers):
+            keys, values = self._save_all_items(s, table_id, mode)
             with open(os.path.join(dirname, f"part-{s:05d}.shard"), "w") as f:
                 for j in range(len(keys)):
                     f.write(acc.format_row(keys[j], values[j]) + "\n")
@@ -765,10 +1270,10 @@ class RpcPsClient(PSClient):
         fmt, suffix = _SAVE_FORMATS[converter]
         os.makedirs(dirname, exist_ok=True)
         total = sum(self._fanout([
-            lambda c=c, path=os.path.join(dirname, f"part-{s:05d}.shard{suffix}"): int(
-                c.check(_SAVE_FILE, table_id, aux=int(mode) | (fmt << 8),
-                        payload=path.encode(), timeout_ms=0, retries=0)[0])
-            for s, c in enumerate(self._conns)]))
+            self._task(s, lambda c, path=os.path.join(dirname, f"part-{s:05d}.shard{suffix}"):
+                       int(c.check(_SAVE_FILE, table_id, aux=int(mode) | (fmt << 8),
+                                   payload=path.encode(), timeout_ms=0, retries=0)[0]))
+            for s in range(self.num_servers)]))
         with open(os.path.join(dirname, "meta.json"), "w") as f:
             json.dump(self._meta(table_id, mode, converter), f)
         return total
@@ -785,12 +1290,12 @@ class RpcPsClient(PSClient):
         enforce(conv in _SAVE_FORMATS, f"unknown save_local converter {conv!r}")
         fmt, suffix = _SAVE_FORMATS[conv]
         tasks = []
-        for s, c in enumerate(self._conns):
+        for s in range(self.num_servers):
             path = os.path.join(dirname, f"part-{s:05d}.shard{suffix}")
             if os.path.exists(path):
-                tasks.append(lambda c=c, path=path: int(c.check(
+                tasks.append(self._task(s, lambda c, path=path: int(c.check(
                     _LOAD_FILE, table_id, aux=fmt << 8, payload=path.encode(), timeout_ms=0,
-                    retries=0)[0]))
+                    retries=0)[0])))
         return sum(self._fanout(tasks))
 
 

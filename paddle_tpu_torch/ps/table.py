@@ -36,7 +36,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from ..core.enforce import InvalidArgumentError, UnavailableError, enforce, enforce_eq
+from ..core.enforce import InvalidArgumentError, enforce, enforce_eq
 from .accessor import AccessorConfig, CtrCommonAccessor, FeatureBlock, accessor_class, make_accessor
 from .native import FeasignIndex, SsdTableEngine
 
@@ -103,9 +103,9 @@ def merge_duplicate_keys(keys: np.ndarray, values: np.ndarray) -> Tuple[np.ndarr
 @dataclasses.dataclass
 class TableConfig:
     """Mirrors TableParameter (ps.proto:121) for the port's tables: the CTR
-    accessor, Python shards in RAM or the two-tier SSD engine. The RPC
-    wire (``ps.rpc``) carries fp32 values only: the fp16 and int8 wires
-    are not ported (ROADMAP Queue A), and asking for one raises."""
+    accessor, Python shards in RAM or the two-tier SSD engine, and the
+    value encodings of the RPC wire (``ps.rpc`` checks them when it
+    creates the table; local tables ignore them)."""
 
     #: the table's id on a PS client (``ps.client``, ``ps.rpc``)
     table_id: int = 0
@@ -121,17 +121,20 @@ class TableConfig:
     ssd_value_dtype: str = "fp32"
     # named shard-file converter of save/load ("gzip" built in)
     converter: Optional[str] = None
-    # value encodings on the RPC wire (local tables ignore them)
+    # pull-value encoding on the RPC wire: "fp32" exact, or "fp16" (the
+    # server rounds to nearest even, the client widens back)
     pull_wire_dtype: str = "fp32"
+    # push-gradient encoding on the RPC wire: "fp32" exact; "fp16" halves
+    # the gradient block; "int8" = block-quantized int8 with one fp32 absmax
+    # scale a block, plus a client-side fp32 error-feedback residual per
+    # (table, key) folded into the key's next push and drained over the fp32
+    # wire at Communicator.quiesce(). The slot/show/click head stays fp32;
+    # the server dequantizes before it applies.
     push_wire_dtype: str = "fp32"
-
-    def __post_init__(self) -> None:
-        for name in ("pull_wire_dtype", "push_wire_dtype"):
-            value = getattr(self, name)
-            enforce(value == "fp32",
-                    f"TableConfig.{name}={value!r}: the port's RPC wire carries fp32 only "
-                    "(the fp16/int8 wires are not ported yet, ROADMAP Queue A)",
-                    UnavailableError)
+    # int8 scale block (gradient elements per scale; blocks tile a row)
+    push_wire_block: int = 128
+    # int8 only: keep the quantization error client-side and re-inject it
+    push_error_feedback: bool = True
 
 
 class _SparseShard:

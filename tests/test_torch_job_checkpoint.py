@@ -11,7 +11,8 @@ The harness is the JAX tests' (3 slots, 2 dense, dim 8, DNN (8,), batch
   faultpoints, GC, the latched writer failure, the backpressured save
   that holds no lifecycle lock (here held by events, not by a wall-clock
   budget), table snapshot/restore (RAM and SSD tables) and the gate's
-  consistent cut under concurrent pushes.
+  consistent cut under concurrent pushes, over plain servers and over an
+  ``HACluster`` (``cluster.checkpoint_gate()``).
 - Across the packages, exact: ``crc32c`` against the JAX function; a
   checkpoint written by the port verifies and loads in the JAX package
   and one written by the JAX package in the port (rows bitwise, the
@@ -21,7 +22,9 @@ The harness is the JAX tests' (3 slots, 2 dense, dim 8, DNN (8,), batch
   digest) over a local table, over the hot tier (capacity 256, eviction
   churn; the oracle checkpoints at the same batches, so the tier flushes
   at the same points), over RPC with a ``SyncCommunicator`` and
-  ``CheckpointGate(servers=...)``, and over the hot tier over RPC. The
+  ``CheckpointGate(servers=...)``, over the hot tier over RPC, and both
+  of these over a 2 x 2 sync ``HACluster`` under
+  ``cluster.checkpoint_gate()``. The
   port's resumed run stays within ``test_torch_hot_tier.py``'s
   tolerances of the JAX package's resumed run (dense params rtol 1e-4 /
   atol 1e-6, rows rtol 1e-4 / atol 1e-5: the dense products run in
@@ -67,8 +70,7 @@ from paddle_tpu.ps.sgd_rule import SGDRuleConfig as JaxSGDRuleConfig
 from paddle_tpu.ps.table import MemorySparseTable as JaxTable
 from paddle_tpu.ps.table import TableConfig as JaxTableConfig
 from paddle_tpu_torch.convert import adam_state_from_jax, ctr_params_from_jax, ctr_params_to_jax
-from paddle_tpu_torch.core.enforce import (NotFoundError, PreconditionNotMetError,
-                                           UnavailableError)
+from paddle_tpu_torch.core.enforce import NotFoundError, PreconditionNotMetError
 from paddle_tpu_torch.data.dataset import InMemoryDataset, SlotDesc
 from paddle_tpu_torch.io import checkpoint as ckpt
 from paddle_tpu_torch.io.fs import crc32c, crc32c_file, publish_atomic
@@ -76,7 +78,7 @@ from paddle_tpu_torch.io.job_checkpoint import (CorruptCheckpointError, JobCheck
                                                 combined_digest, verify_checkpoint)
 from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
 from paddle_tpu_torch.optimizer import Adam
-from paddle_tpu_torch.ps import rpc
+from paddle_tpu_torch.ps import ha, rpc
 from paddle_tpu_torch.ps.accessor import AccessorConfig
 from paddle_tpu_torch.ps.communicator import SyncCommunicator
 from paddle_tpu_torch.ps.faultpoints import (FaultInjected, arm_faultpoint,
@@ -586,6 +588,11 @@ def test_pause_mutations_nests_and_rejects_an_unmatched_resume():
 
 
 def test_checkpoint_gate_resumes_on_error_and_refuses_cluster():
+    """The gate resumes every server when the capture raises, in both its
+    forms; it refuses to be given both a cluster and servers (or
+    neither), and its cluster form works: the routed primaries pause under
+    the cluster's actuation section (failover scans suspended) and the
+    backups hold the cut after its drain."""
     cl = _Servers()
     try:
         gate = CheckpointGate(servers=cl.servers)
@@ -595,10 +602,80 @@ def test_checkpoint_gate_resumes_on_error_and_refuses_cluster():
         # resumed: a push lands at once, and each server's depth is 0 again
         cl.client.pull_sparse(0, np.arange(4, dtype=np.uint64), create=True)
         assert all(s._pause_depth == 0 for s in cl.servers)
-        with pytest.raises(UnavailableError, match="HACluster"):
-            CheckpointGate(cluster=object())
+        with pytest.raises(PreconditionNotMetError, match="exactly one"):
+            CheckpointGate(cluster=object(), servers=cl.servers)
+        with pytest.raises(PreconditionNotMetError, match="exactly one"):
+            CheckpointGate()
     finally:
         cl.close()
+    with ha.HACluster(num_shards=2, replication=2, sync=True) as cluster:
+        cli = cluster.client()
+        cli.create_sparse_table(0, _cfg(table_id=0))
+        keys = np.arange(1, 65, dtype=np.uint64)
+        cli.pull_sparse(0, keys, create=True)
+        gate = cluster.checkpoint_gate()
+        with gate:
+            prims = [cluster.primary(s).server for s in range(2)]
+            assert all(p._pause_depth == 1 for p in prims)
+            assert cluster.coordinator._suspended.is_set()
+            for s in range(2):  # drained: the backups hold the cut
+                assert len(set(cluster.digests(0, s).values())) == 1
+        assert all(p._pause_depth == 0 for p in prims)
+        assert not cluster.coordinator._suspended.is_set()
+        with pytest.raises(RuntimeError, match="capture failed"):
+            with gate:
+                raise RuntimeError("capture failed")
+        assert all(p._pause_depth == 0 for p in prims)
+        assert not cluster.coordinator._suspended.is_set()
+        cli.pull_sparse(0, keys + np.uint64(100), create=True)
+
+
+def test_gate_cut_is_consistent_under_concurrent_pushes_on_a_cluster(tmp_path):
+    """``tests/test_job_checkpoint.py``'s cut test on an ``HACluster``:
+    captures under ``cluster.checkpoint_gate()`` while another client
+    hammers pushes digest equal to the arrays they captured."""
+    with ha.HACluster(num_shards=2, replication=2, sync=True) as cluster:
+        cli = cluster.client()
+        cli.create_sparse_table(0, _cfg(table_id=0))
+        remote = rpc.RemoteSparseTable(cli, 0, _cfg(table_id=0))
+        stop = threading.Event()
+        errors = []
+
+        def hammer():
+            cli2 = cluster.client()
+            r = np.random.default_rng(2)
+            try:
+                while not stop.is_set():
+                    ks = r.integers(0, 512, 64).astype(np.uint64)
+                    push = np.zeros((64, 12), np.float32)
+                    push[:, 1] = 1.0
+                    push[:, 3:] = r.normal(0, 0.1, (64, 9)).astype(np.float32)
+                    cli2.push_sparse(0, ks, push)
+            except BaseException as e:  # noqa: BLE001 — reported by the test
+                errors.append(e)
+
+        cli.pull_sparse(0, np.random.default_rng(1).integers(0, 512, 256).astype(np.uint64),
+                        create=True)
+        th = threading.Thread(target=hammer, name="hammer")
+        th.start()
+        try:
+            mgr = _mgr(tmp_path, gate=cluster.checkpoint_gate(), max_keep=8)
+            mgr.register_sparse("ctr", remote)
+            for i in range(3):
+                mgr.save(step=i, blocking=True)
+        finally:
+            stop.set()
+            th.join(timeout=60)
+        assert not th.is_alive() and not errors, errors
+        for no in mgr._ids():
+            path = os.path.join(mgr.root, f"ckpt_{no}")
+            man = verify_checkpoint(path)
+            snap = ckpt.load(os.path.join(path, "sparse_ctr"))
+            assert row_digest(np.ascontiguousarray(snap["keys"], np.uint64),
+                              np.ascontiguousarray(snap["values"], np.float32)) \
+                == man["tables"]["ctr"]["digest"]
+        assert mgr.stats()["pause_ms_last"] > 0.0
+        mgr.stop()
 
 
 # -- across the packages ---------------------------------------------------------
@@ -763,7 +840,7 @@ def test_train_state_files_cross_load_with_their_rng(tmp_path):
 
 # -- stream resume: bitwise against the port's own oracle, near JAX's ---------------
 
-_SETTINGS = ["local", "hot_tier", "rpc", "rpc_hot_tier"]
+_SETTINGS = ["local", "hot_tier", "rpc", "rpc_hot_tier", "rpc_ha", "rpc_ha_hot_tier"]
 _EVERY = 2   # checkpoint cadence: batches 2 and 4 of 5
 
 
@@ -774,10 +851,12 @@ def _nid(setting):
 
 class _Job:
     """One process-equivalent of a job in ``setting`` on package ``pkg``
-    ("port" or "jax"): a fresh table (or two fresh servers, a client and a
+    ("port" or "jax"): a fresh table (or two fresh servers, or with
+    ``rpc_ha`` a fresh 2 x 2 sync ``HACluster``, a client and a
     ``SyncCommunicator``), a trainer from the JAX DeepFM's seeded initial
     weights and, with ``root``, a checkpoint manager (gated over the
-    servers) with the table registered."""
+    servers, or by ``cluster.checkpoint_gate()``) with the table
+    registered."""
 
     def __init__(self, pkg, setting, root=None):
         self.pkg, self.setting = pkg, setting
@@ -787,10 +866,15 @@ class _Job:
         hot = None
         if setting.endswith("hot_tier"):
             hot = (HotTierConfig if port else JaxHotTierConfig)(capacity=256)
-        self.servers, self.client, self.comm = [], None, None
-        if setting.startswith("rpc"):
+        self.servers, self.client, self.comm, self.cluster = [], None, None, None
+        if setting.startswith("rpc_ha"):
+            self.cluster = (ha if port else jax_ha).HACluster(num_shards=2, replication=2,
+                                                              sync=True)
+            self.client = self.cluster.client()
+        elif setting.startswith("rpc"):
             self.servers = [rpc_mod.NativePsServer(n_trainers=1) for _ in range(2)]
             self.client = rpc_mod.RpcPsClient([f"127.0.0.1:{s.port}" for s in self.servers])
+        if setting.startswith("rpc"):
             self.client.create_sparse_table(0, cfg)
             self.comm = (SyncCommunicator if port else jax_comm.SyncCommunicator)(self.client)
             self.comm.start()
@@ -815,6 +899,8 @@ class _Job:
             gate = None
             if self.servers:
                 gate = (CheckpointGate if port else jax_ha.CheckpointGate)(servers=self.servers)
+            elif self.cluster is not None:
+                gate = self.cluster.checkpoint_gate()
             self.mgr = (JobCheckpointManager if port else jax_jc.JobCheckpointManager)(
                 str(root), max_keep=8, gate=gate)
             self.mgr.register_sparse("ctr", self.table)
@@ -850,6 +936,8 @@ class _Job:
             self.client.close()
         for s in self.servers:
             s.close()
+        if self.cluster is not None:
+            self.cluster.stop()
 
 
 def _run_job_and_resume(pkg, setting, tmp):
@@ -1004,7 +1092,7 @@ from paddle_tpu_torch.io import checkpoint as ckpt
 from paddle_tpu_torch.io.job_checkpoint import JobCheckpointManager
 from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
 from paddle_tpu_torch.optimizer import Adam
-from paddle_tpu_torch.ps import rpc
+from paddle_tpu_torch.ps import ha, rpc
 from paddle_tpu_torch.ps.accessor import AccessorConfig
 from paddle_tpu_torch.ps.communicator import SyncCommunicator
 from paddle_tpu_torch.ps.faultpoints import arm_faultpoint

@@ -31,7 +31,7 @@ import pytest
 from test_torch_jax_native import jax_native  # noqa: F401  (the fixture)
 
 from paddle_tpu_torch.core.enforce import (NotFoundError, PreconditionNotMetError,
-                                           PsTransportError, UnavailableError)
+                                           PsTransportError)
 from paddle_tpu_torch.core.flags import get_flags, set_flags
 from paddle_tpu_torch.ps import rpc
 from paddle_tpu_torch.ps.accessor import AccessorConfig
@@ -275,9 +275,24 @@ def test_concurrent_calls_on_one_client_lose_no_update(cluster):
 
 
 def test_wire_dtypes_other_than_fp32_raise():
-    for name in ("pull_wire_dtype", "push_wire_dtype"):
-        with pytest.raises(UnavailableError, match="fp32 only"):
-            TableConfig(**{name: "fp16"})
+    """The wires the JAX package has (pull fp16; push fp16 and int8 with a
+    block in [1, 65535]) are accepted; any other encoding raises when the
+    client creates the table, as in JAX (``tests/test_torch_sparse_wire.py``
+    holds what the accepted wires carry)."""
+    c = _Cluster(rpc, rpc)
+    try:
+        for bad in ({"pull_wire_dtype": "int8"}, {"pull_wire_dtype": "bf16"},
+                    {"push_wire_dtype": "bf16"},
+                    {"push_wire_dtype": "int8", "push_wire_block": 0}):
+            with pytest.raises(PreconditionNotMetError, match="wire"):
+                c.client.create_sparse_table(1, TableConfig(**bad))
+        for tid, ok in enumerate(({"pull_wire_dtype": "fp16"}, {"push_wire_dtype": "fp16"},
+                                  {"push_wire_dtype": "int8", "push_wire_block": 7}), 1):
+            c.client.create_sparse_table(tid, TableConfig(**ok))
+            assert c.client.sparse_config(tid).pull_wire_dtype == ok.get("pull_wire_dtype",
+                                                                         "fp32")
+    finally:
+        c.close()
 
 
 def test_flags_match_the_jax_package():
