@@ -12,7 +12,8 @@ server and trainer processes (ports on 127.0.0.1 it checks are free)
 and waits for them, or ends them; phase 15 starts its three legs' processes
 one at a time and waits for each (a leg past its time limit is killed);
 phase 16 starts its in-process clusters on 127.0.0.1 and four server
-processes, and kills and reaps every one of them. Exits non-zero, with no
+processes, and kills and reaps every one of them; phase 17 starts and
+stops in-process clusters on 127.0.0.1. Exits non-zero, with no
 result line, when there is no CUDA device, when the package is missing,
 or when any phase fails. Phases:
 
@@ -192,12 +193,33 @@ or when any phase fails. Phases:
    routing names the backup, every process reaped. Logs samples/s per leg
    and arm, the recovery ms, the chaos step beside the median, push bytes,
    the loss curves, the tier's gate pause and capture ms;
-17. the ``kernels`` JSON line (B1 three times: ``ctr_sparse_rows`` on the
+17. the PS reshards under load (live resharding): phase 16's cell uncut,
+   every run on a fresh 2 x 2 sync ``HACluster`` through a
+   ``SyncCommunicator`` with ``cluster.drain()`` after every change. Leg
+   A, RPC-only, 3 epochs: an oracle, and a chaos run that arms
+   ``kill-shard`` on shard 0's primary for its first kSaveAll (the grow's
+   snapshot read) and starts ``ReshardController.grow(2)`` on a thread
+   before epoch 2, joins it (4 shards, no error) and starts ``shrink(2)``
+   before epoch 3, and joins that after it. Checks: no error reaches the
+   trainer, the events are grow then shrink, a promotion, 2 shards and
+   every live replica's digest equal at the end, and the table's size and
+   digest sum, the rows pulled for the data's keys, dense params, Adam
+   state and per-step losses bitwise equal to the oracle's. Leg B, over
+   ``HotTierConfig(capacity=2^19)``, 2 epochs: an oracle, and a run that
+   grows after the cold epoch and calls ``tr.on_reshard()`` (occupancy
+   unchanged, one reshard, 4 servers), trains the warm epoch across the
+   flip with 0 client ops and one B2 and one B4 a step (both bitwise
+   against their plain versions on its first batch), flushes, and shrinks
+   back; bitwise equal to its oracle as leg A. Logs samples/s per epoch,
+   each operation's bootstrap s, cutover pause ms and rows moved, the
+   promotion's call and the steps the cutovers land in beside the median;
+18. the ``kernels`` JSON line (B1 three times: ``ctr_sparse_rows`` on the
    pass path, ``ctr_sparse_rows@widedeep`` on phase 12's,
-   ``ctr_sparse_rows@gpubox_rpc`` on phase 14's leg B; B2 and B4 three
+   ``ctr_sparse_rows@gpubox_rpc`` on phase 14's leg B; B2 and B4 four
    times: ``hot_probe_gather``/``hot_scatter_apply`` on the hot path,
-   ``...@rpc`` on phase 13's, ``...@ha`` on phase 16's tier arm), then the
-   card line, then the result line.
+   ``...@rpc`` on phase 13's, ``...@ha`` on phase 16's tier arm,
+   ``...@reshard`` on phase 17's leg B), then the card line, then the
+   result line.
 
 ``--profile DIR`` also runs two more pass-path slabs, two more warm
 batches of each hot path and two more ERNIE steps under torch.profiler (after the
@@ -4222,6 +4244,257 @@ def phase_ha(dev, card):
     return tier["launches"], b2, b4
 
 
+# -- phase 17: the PS reshards under load ------------------------------------
+# Phase 16's cell uncut (DeepFM 26 slots, 13 dense, dim 8, DNN 400^3, Adam
+# 1e-3; 65,536 lines at 10,000 ids a slot, batch 4096: 16 batches, 259,635
+# keys) on fresh 2 shards x 2 replicas sync HAClusters, a SyncCommunicator
+# and cluster.drain() after every change. Leg A, RPC-only, 3 epochs: an
+# oracle, and a chaos run that grows 2 -> 4 on a thread during epoch 2
+# (shard 0's primary killed on its first kSaveAll, the migration's snapshot
+# read) and shrinks back during epoch 3. Leg B, over HotTierConfig(2^19), 2
+# epochs: an oracle, and a run that grows after the cold epoch (then
+# tr.on_reshard()), trains the warm epoch across the flip, and shrinks back.
+RESHARD_EPOCHS = 3
+
+
+def reshard_drained(cluster, fn, calls):
+    """``fn`` then ``cluster.drain()``, timed together (the kill lands on
+    the reshard's thread, so the trainer may meet it in either): (end
+    time, ms, promotions before, after) of each call lands in ``calls``."""
+    coord = cluster.coordinator
+
+    def run(*a, **k):
+        before, t = coord.promotions, time.perf_counter()
+        out = fn(*a, **k)
+        cluster.drain()
+        end = time.perf_counter()
+        calls.append((end, 1e3 * (end - t), before, coord.promotions))
+        return out
+    return run
+
+
+def reshard_on_thread(op, errs):
+    """Run the reshard ``op`` on a thread; its exception lands in ``errs``."""
+    import threading
+
+    def run():
+        try:
+            op()
+        except BaseException as e:  # noqa: BLE001 — raised by the caller
+            errs.append(e)
+    th = threading.Thread(target=run, name="reshard")
+    th.start()
+    return th
+
+
+def reshard_table_state(client, ds):
+    """Rows pulled for the data's keys (the pull re-resolves a stale
+    client), then the table's size and digest sum."""
+    pulled = client.pull_sparse(0, dataset_keys(ds), create=False)
+    return {"pulled": pulled, "size": client.size(0),
+            "digest_sum": sum(client.digest(0)) & _U64}
+
+
+def reshard_leg_a_run(dev, ds, chaos):
+    """Leg A, one run of ``RESHARD_EPOCHS`` epochs RPC-only (see the
+    section's comment). Returns the run's record."""
+    from paddle_tpu_torch.ps.communicator import SyncCommunicator
+    from paddle_tpu_torch.ps.reshard import ReshardController
+    from paddle_tpu_torch.ps.rpc import _SAVE_ALL
+
+    cluster = ha_cluster()
+    try:
+        client = cluster.client()
+        client.create_sparse_table(0, ha_table_config())
+        calls = []
+        client.pull_sparse = reshard_drained(cluster, client.pull_sparse, calls)
+        client.push_sparse = reshard_drained(cluster, client.push_sparse, calls)
+        comm = SyncCommunicator(client)
+        comm.start()
+        base_send = comm.send_sparse
+
+        def send(table_id, keys, values):
+            base_send(table_id, keys, values)
+            cluster.drain()
+
+        comm.send_sparse = send
+        tr = ha_trainer(dev, comm, hot=False)
+        ctrl = ReshardController(cluster)
+        cut_at, errs, th, eps = [], [], None, []
+        ctrl.on_pre_cutover(lambda plan: cut_at.append(time.perf_counter()))
+        _sync(dev)
+        t0 = time.perf_counter()
+        for e in range(RESHARD_EPOCHS):
+            if chaos and e == 1:
+                # die on the first kSaveAll: the grow's snapshot read of shard 0
+                cluster.primary(0).server.arm_fault("kill-shard", cmd=_SAVE_ALL, after=1)
+                th = reshard_on_thread(lambda: ctrl.grow(2), errs)
+            if chaos and e == 2:
+                th.join()
+                assert not errs, f"the grow failed: {errs}"
+                assert cluster.num_shards == 4, cluster.num_shards
+                th = reshard_on_thread(lambda: ctrl.shrink(2), errs)
+            te = time.perf_counter()
+            r = tr.train_from_dataset(ds, batch_size=HA_BATCH)
+            _sync(dev)
+            eps.append(r["samples"] / (time.perf_counter() - te))
+        if th is not None:
+            th.join()
+            assert not errs, f"the shrink failed: {errs}"
+        comm.stop()
+        cluster.drain()
+        rec = {"epoch_sps": eps, "losses": ha_losses(tr), "events": list(ctrl.events),
+               "promotions": cluster.coordinator.promotions, "calls": calls,
+               "step_ends": tr.ha_step_ends, "step_ms": np.diff([t0] + tr.ha_step_ends) * 1e3,
+               "cut_at": cut_at, "num_shards": cluster.num_shards}
+        rec.update(reshard_table_state(client, ds))
+        rec["digests"] = ha_replicas_equal(cluster, "PS reshard leg A")
+        rec["dense"] = tr.train_state()
+        return rec
+    finally:
+        cluster.stop()
+
+
+def reshard_leg_b_run(dev, ds, flip):
+    """Leg B, one run over the tier: a cold epoch, then (with ``flip``) a
+    grow and ``tr.on_reshard()`` from the training thread, the warm epoch
+    (B2 and B4 captured on its first batch), flush and barrier, then (with
+    ``flip``) a shrink. Returns the run's record."""
+    from paddle_tpu_torch.ps.communicator import SyncCommunicator
+    from paddle_tpu_torch.ps.reshard import ReshardController
+
+    cluster = ha_cluster()
+    got, restore = capture_hot_step() if flip else ({"armed": False}, lambda: None)
+    try:
+        client = cluster.client()
+        client.create_sparse_table(0, ha_table_config())
+        comm = SyncCommunicator(client)
+        comm.start()
+        tr = ha_trainer(dev, comm, hot=True)
+        ctrl = ReshardController(cluster)
+        tier, rec = tr.hot_tier, {}
+        _sync(dev)
+        t0 = time.perf_counter()
+        cold = tr.train_from_dataset(ds, batch_size=HA_BATCH)
+        _sync(dev)
+        rec["cold_sps"] = cold["samples"] / (time.perf_counter() - t0)
+        if flip:
+            occ = tier.stats()["occupancy"]
+            rec["grow"] = ctrl.grow(2)
+            t = time.perf_counter()
+            tr.on_reshard()
+            rec["on_reshard_ms"] = 1e3 * (time.perf_counter() - t)
+            st = tier.stats()
+            assert st["occupancy"] == occ and st["reshards"] == 1, \
+                f"leg B: the tier changed across the grow: {occ} -> {st}"
+            assert client.num_servers == 4, client.num_servers
+        client.reset_op_counts()
+        reset_launches()
+        got["armed"] = flip
+        t = time.perf_counter()
+        warm = tr.train_from_dataset(ds, batch_size=HA_BATCH)
+        _sync(dev)
+        rec["warm_sps"] = warm["samples"] / (time.perf_counter() - t)
+        rec["warm_ops"] = client.reset_op_counts()
+        rec["launches"] = read_launches()
+        rec["warm_steps"] = int(warm["steps"])
+        tier.flush()
+        comm.barrier()
+        if flip:
+            rec["shrink"] = ctrl.shrink(2)
+        comm.stop()
+        cluster.drain()
+        rec.update(reshard_table_state(client, ds))
+        rec["num_shards"] = cluster.num_shards
+        rec["losses"], rec["dense"] = ha_losses(tr), tr.train_state()
+        rec["captured"] = {k: got[k] for k in ("b2", "b4") if k in got}
+        return rec
+    finally:
+        restore()
+        cluster.stop()
+
+
+def reshard_bitwise(a, b):
+    """``ha_bitwise`` and the table's size and digest sum."""
+    return dict(ha_bitwise(a, b), **{"table size": a["size"] == b["size"],
+                                     "digest sum": a["digest_sum"] == b["digest_sum"]})
+
+
+def reshard_leg_a(dev, card, ds):
+    oracle = reshard_leg_a_run(dev, ds, chaos=False)
+    chaos = reshard_leg_a_run(dev, ds, chaos=True)
+    step = chaos["step_ms"]
+    med = float(np.median(step))
+    rec_ms, call_ms, hit = ha_recovery(chaos, chaos["step_ends"])
+    cuts = [int(np.searchsorted(chaos["step_ends"], t)) for t in chaos["cut_at"]]
+    log(f"PS reshard leg A: samples/s per epoch, oracle "
+        f"{[round(x, 1) for x in oracle['epoch_sps']]}, chaos "
+        f"{[round(x, 1) for x in chaos['epoch_sps']]} on {card}")
+    for ev in chaos["events"]:
+        log(f"PS reshard leg A: {ev['direction']} {ev['from_shards']} -> {ev['to_shards']}: "
+            f"bootstrap {ev['bootstrap_s']} s, cutover pause {ev['cutover_pause_ms']} ms, rows "
+            f"moved {ev.get('rows_moved', 'n/a')}")
+    log(f"PS reshard leg A: promotions {chaos['promotions']}; the promotion's call (with its "
+        f"drain) {rec_ms:.1f} ms against a median call of {call_ms:.1f} ms (step {hit + 1}); the "
+        f"cutovers land in steps {[c + 1 for c in cuts]}, "
+        f"{[round(float(step[c]), 1) for c in cuts if c < len(step)]} ms against the median "
+        f"step {med:.1f} ms on {card}")
+    for r in (oracle, chaos):
+        assert r["num_shards"] == HA_SHARDS, r["num_shards"]
+        assert len(r["losses"]) == RESHARD_EPOCHS * (HA_LINES // HA_BATCH), len(r["losses"])
+        ha_check_losses(r["losses"], "PS reshard leg A")
+    assert [e["direction"] for e in chaos["events"]] == ["grow", "shrink"], chaos["events"]
+    assert chaos["promotions"] >= 1, "no promotion: the kill did not fire mid-migration"
+    checks = reshard_bitwise(chaos, oracle)
+    log(f"PS reshard leg A: chaos vs oracle, bitwise: {checks}")
+    assert all(checks.values()), f"leg A's chaos run differs from its oracle: {checks}"
+
+
+def reshard_leg_b(dev, card, ds):
+    oracle = reshard_leg_b_run(dev, ds, flip=False)
+    run = reshard_leg_b_run(dev, ds, flip=True)
+    n = run["warm_steps"]
+    log(f"PS reshard leg B: cold {run['cold_sps']:.1f} samples/s (oracle "
+        f"{oracle['cold_sps']:.1f}); grow: bootstrap {run['grow']['bootstrap_s']} s, cutover "
+        f"pause {run['grow']['cutover_pause_ms']} ms, rows moved {run['grow']['rows_moved']}; "
+        f"on_reshard (flush, re-route) {run['on_reshard_ms']:.1f} ms; warm epoch across the "
+        f"flip {run['warm_sps']:.1f} samples/s (oracle {oracle['warm_sps']:.1f}), client ops "
+        f"{run['warm_ops']}, launches {run['launches']}; shrink: bootstrap "
+        f"{run['shrink']['bootstrap_s']} s, cutover pause {run['shrink']['cutover_pause_ms']} ms "
+        f"on {card}")
+    assert run["num_shards"] == oracle["num_shards"] == HA_SHARDS
+    assert sum(run["warm_ops"].values()) == 0, f"leg B: the warm epoch's client ops {run['warm_ops']}"
+    if dev.type == "cuda":
+        for r in (oracle, run):
+            assert r["launches"]["hot_probe_gather"] == n == r["launches"]["hot_scatter_apply"], \
+                f"leg B: B2/B4 launches {r['launches']} != {n} warm steps"
+    for r in (oracle, run):
+        ha_check_losses(r["losses"], "PS reshard leg B")
+    checks = reshard_bitwise(run, oracle)
+    log(f"PS reshard leg B: the run across the flip vs its oracle, bitwise: {checks}")
+    assert all(checks.values()), f"leg B differs from its oracle: {checks}"
+    return run
+
+
+def phase_reshard(dev, card):
+    """Phase 17: leg A (RPC-only, a grow and a shrink under load with a
+    kill mid-migration) and leg B (the tier across a grow; B2 and B4
+    bitwise on the first batch after the flip). Returns (leg B's launch
+    counts in the warm epoch across the flip, B2's numbers, B4's numbers)."""
+    t_phase = time.perf_counter()
+    ds = ha_dataset()
+    reshard_leg_a(dev, card, ds)
+    run = reshard_leg_b(dev, card, ds)
+    b2, b4 = ({}, {})
+    if dev.type == "cuda":
+        cap = run["captured"]
+        assert "b2" in cap and "b4" in cap, "nothing captured after the flip"
+        b2 = rpc_b2_check(cap["b2"], "first batch after the flip")
+        b4 = rpc_b4_check(cap["b4"], "first batch after the flip")
+    log(f"PS reshards under load (phase 17): {time.perf_counter() - t_phase:.1f} s")
+    return run["launches"], b2, b4
+
+
 def main(argv):
     profile_dir = None
     if argv[:1] == ["--ps-job"] and len(argv) == 2:
@@ -4282,6 +4555,7 @@ def main(argv):
     gpubox = phase_ps_job(dev, card)
     phase_job_checkpoint(dev, card)
     ha_counts, ha_b2, ha_b4 = phase_ha(dev, card)
+    rs_counts, rs_b2, rs_b4 = phase_reshard(dev, card)
     phase_kernel_counts(dev)
     wd_kernel_counts(dev)
     phase_resnet_kernel_counts(resnets, resnet_batch, profile_dir)
@@ -4341,7 +4615,13 @@ def main(argv):
         entry("hot_probe_gather@ha", hot_src, "paddle_tpu/ops/hot_kernels.py:116",
               ha_counts["hot_probe_gather"], ha_b2),
         entry("hot_scatter_apply@ha", hot_src, "paddle_tpu/ops/hot_kernels.py:278",
-              ha_counts["hot_scatter_apply"], ha_b4)]
+              ha_counts["hot_scatter_apply"], ha_b4),
+        # B2 and B4 again as phase 17's tier leg launches them across a
+        # grow: the warm epoch's launches, their numbers on its first batch
+        entry("hot_probe_gather@reshard", hot_src, "paddle_tpu/ops/hot_kernels.py:116",
+              rs_counts["hot_probe_gather"], rs_b2),
+        entry("hot_scatter_apply@reshard", hot_src, "paddle_tpu/ops/hot_kernels.py:278",
+              rs_counts["hot_scatter_apply"], rs_b4)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

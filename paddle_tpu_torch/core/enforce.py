@@ -17,6 +17,7 @@ __all__ = [
     "PreconditionNotMetError",
     "PsTransportError",
     "UnavailableError",
+    "WrongShardError",
     "enforce",
     "enforce_eq",
     "enforce_le",
@@ -44,6 +45,16 @@ class PsTransportError(PreconditionNotMetError):
     framed stream is undefined and the server may be gone. Distinct from
     a server's rejection of a request (``PreconditionNotMetError``,
     ``NotFoundError``), which leaves the connection usable."""
+
+
+class WrongShardError(PreconditionNotMetError):
+    """A keyed PS data op carried a key outside the addressed server's
+    (modulus, residue) ownership class (the service's ``kErrWrongShard``):
+    the client routed with a stale shard topology, because a live reshard
+    (``ps.reshard``) moved the key's residue class. The server rejected the
+    frame whole (no state changed), so the client re-resolves the routing
+    table and replays exactly the bounced keys. Not a transport error: the
+    server answered, so the breaker and failover paths stay cold."""
 
 
 class UnavailableError(EnforceNotMet):

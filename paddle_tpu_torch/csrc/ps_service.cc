@@ -3,8 +3,11 @@
 // handlers must stay identical in behaviour: a client of either package
 // talks to a server of either package, and rows pushed through either
 // come out bit for bit equal (-ffp-contract=off, as the JAX build).
-// One change to the ABI: pss_create takes the IPv4 address to listen on
-// (the JAX service always listens on every interface).
+// Two changes to the ABI: pss_create takes the IPv4 address to listen on
+// (the JAX service always listens on every interface), and the catalog is
+// read by pss_catalog_copy into the caller's buffer (pss_catalog_get
+// staged it in the shipper's buffer, which a migration's snapshot thread
+// would race).
 //
 // Native TCP parameter-server transport: the DCN control/data plane for
 // multi-host CPU tables.
@@ -851,8 +854,10 @@ struct PsServer {
   // create-command frames, replayed to a rejoining backup before the
   // data snapshot (recorded unconditionally — creates are rare/small)
   std::vector<std::vector<char>> catalog;
-  // staging buffer for pss_oplog_next / pss_catalog_get (single
-  // consumer: the one shipper thread)
+  // staging buffer for pss_oplog_next (single consumer: the one shipper
+  // thread). The catalog is read by pss_catalog_copy into the caller's
+  // buffer instead: a migration's snapshot runs on a thread of its own,
+  // beside the shipper.
   std::vector<char> staged;
 
   // mutation pause gate: full-snapshot sync quiesces writers so the
@@ -2659,13 +2664,16 @@ int64_t pss_catalog_count(void* h) {
   std::lock_guard<std::mutex> g(s->oplog_mu);
   return static_cast<int64_t>(s->catalog.size());
 }
-// stage catalog frame i for pss_staged_ptr/len; returns its length
-int64_t pss_catalog_get(void* h, int64_t i) {
+// copy catalog frame i into buf when it fits in cap bytes; returns its
+// length (-1: no such frame). Safe beside the shipper's pss_oplog_next.
+int64_t pss_catalog_copy(void* h, int64_t i, void* buf, int64_t cap) {
   PsServer* s = static_cast<PsServer*>(h);
   std::lock_guard<std::mutex> g(s->oplog_mu);
   if (i < 0 || i >= static_cast<int64_t>(s->catalog.size())) return -1;
-  s->staged = s->catalog[static_cast<size_t>(i)];
-  return static_cast<int64_t>(s->staged.size());
+  const std::vector<char>& f = s->catalog[static_cast<size_t>(i)];
+  int64_t n = static_cast<int64_t>(f.size());
+  if (buf != nullptr && n <= cap && n > 0) std::memcpy(buf, f.data(), f.size());
+  return n;
 }
 
 void pss_pause_mutations(void* h, int on) {

@@ -334,6 +334,14 @@ class JobCheckpointManager:
         with gate:
             tables = {}
             for name, t in self._tables.items():
+                # a capture only reads, so it never trips a live reshard's
+                # ownership fence: it re-resolves the topology here, under
+                # the gate (whose control_mu pins the routing), or a capture
+                # after a grow would read the old servers and miss every
+                # moved row
+                refresh = getattr(t, "refresh_routing", None)
+                if refresh is not None:
+                    refresh()
                 keys, values = t.snapshot_items(0)
                 # digest under the gate: the same cut the arrays came
                 # from (native-fast; the python mirror is row_digest)

@@ -38,17 +38,23 @@ connections can differ from the engines' apply order for racing
 same-key pushes; the sync-mode bitwise guarantee assumes serialized
 pushes (one trainer connection per server).
 
+Live reshard (``ps.reshard``) rides the same machinery: a migration target
+registers under the source shard's :func:`observer_key` with the value
+``{"mode": "migrate"}``, and the source's shipper snapshots sparse rows
+into it on a thread of its own (no dense state, no step top-up) and ships
+the tail; ``HACluster.spawn_shard``/``retire_shard`` grow and shrink the
+server rows, and a snapshot carries the primary's ownership predicate to a
+backup. Read-only observers (serving replicas) attach by their TTL'd
+registration under :func:`observer_key`, as in JAX.
+
 Not ported (each raises ``UnavailableError`` naming its ROADMAP entry):
-``HACluster.spawn_shard``/``retire_shard`` (live reshard, Queue A item
-3 entry 3, and with it the shipper's reshard-migration subscribers and
-the ownership replay of a snapshot), ``HACluster.client(qos="serve")``
-(entry 5) and ``HACluster.obs_probe`` (entry 6). Read-only observers
-(serving replicas) attach by their TTL'd registration under
-:func:`observer_key`, as in JAX.
+``HACluster.client(qos="serve")`` (Queue A item 3, entry 5) and
+``HACluster.obs_probe`` (entry 6).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import random
 import struct
@@ -56,9 +62,10 @@ import struct
 # (breaker/router/shipper `_mu`, the coordinator's `_step_mu` and
 # `_susp_mu`), taken for small in-memory state and never across a nested
 # lock or a block. The cluster-wide `control_mu` (RLock) is the control
-# plane's innermost non-leaf lock: checkpoint gates serialize under it,
-# always through HACluster.begin_actuation/end_actuation, which pair it
-# with coordinator suspension. Order: control_mu < _mu.
+# plane's innermost non-leaf lock: reshard cutovers and checkpoint gates
+# serialize under it, always through HACluster.begin_actuation/
+# end_actuation, which pair it with coordinator suspension. Order:
+# control_mu < _mu.
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -356,6 +363,7 @@ class ReplicationManager:
         self._mu = _sync.Lock()
         self._stop = _sync.Event()
         self._thread: Optional[threading.Thread] = None
+        self._bg_syncs: List[threading.Thread] = []  # migrate snapshots in flight
         self._self_conn = None
         self._last_route_poll = 0.0
         # per-backup lag gauges bind at the first export (backups attach at
@@ -376,6 +384,11 @@ class ReplicationManager:
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=10)
+        # a migrate snapshot still running would touch the server handle
+        # after its owner frees it; the server's stop wakes its gate waits
+        for t in self._bg_syncs:
+            t.join(timeout=10)
+        self._bg_syncs.clear()
         with self._mu:
             for st in self._backups.values():
                 st["conn"].close()
@@ -399,8 +412,14 @@ class ReplicationManager:
     def export_metrics(self) -> None:
         """Publish each attached backup's acked-cursor gap as a
         ``ps_replication_lag_entries`` gauge (label ``backup``), and the
-        ring's pending entries; a detached backup's gauge reads 0."""
+        ring's pending entries; a detached backup's gauge reads 0. Migrate
+        subscribers (reshard targets) are left out: mid-copy their cursor
+        trails by the whole history, and a replication-lag alert on it
+        would ask for more shards in answer to the reshard itself."""
+        with self._mu:
+            migrate = {ep for ep, st in self._backups.items() if st.get("migrate")}
         lg = self.lag()
+        lg["acked"] = {ep: a for ep, a in lg["acked"].items() if ep not in migrate}
         self._lag_gauges.update({
             ep: _obs_registry.REGISTRY.gauge("ps_replication_lag_entries", max_series=1024,
                                              shard=str(self.shard), backup=ep)
@@ -412,11 +431,15 @@ class ReplicationManager:
     def drain(self, timeout: float = 30.0) -> None:
         """Sync-replication barrier: block until every attached backup and
         observer has acked the newest oplog seq (primary ≡ backup for every
-        op before the call)."""
+        op before the call). Migrate subscribers are left out: their copy
+        may land on a server a checkpoint gate holds, and a drain that
+        waited on them could deadlock against the gate that called it (the
+        reshard cutover drains them itself)."""
         deadline = time.monotonic() + timeout
         while True:
             with self._mu:
-                acked = {ep: st["acked"] for ep, st in self._backups.items()}
+                acked = {ep: st["acked"] for ep, st in self._backups.items()
+                         if not st.get("migrate")}
             seq = self.server.oplog_seq()
             if not self.fenced and self.server.oplog_pending() == 0 and \
                     all(a >= seq for a in acked.values()):
@@ -440,22 +463,33 @@ class ReplicationManager:
         if sh["primary"] != self.endpoint:
             return  # demoted; the HAServer stops us
         want = [ep for ep in sh.get("backups", []) if ep != self.endpoint]
+        # observers (TTL'd registrations outside the routing): a value of
+        # {"mode": "migrate"} is a reshard target, which takes sparse rows
+        # only (it is, or feeds, a live server with its own dense state)
         pref = _obs_prefix(self.routing.job_id, self.shard)
-        for key in self.routing.store.list_prefix(pref):
+        migrate = set()
+        for key, val in self.routing.store.list_prefix(pref).items():
             ep = key[len(pref):]
-            if ep != self.endpoint and ep not in want:
-                want.append(ep)
+            if ep == self.endpoint or ep in want:
+                continue
+            want.append(ep)
+            try:
+                if val and json.loads(val).get("mode") == "migrate":
+                    migrate.add(ep)
+            except (ValueError, AttributeError):
+                pass  # a value of another shape: a plain observer
         with self._mu:
             have = set(self._backups)
         for ep in want:
             if ep not in have:
-                self._attach(ep)
+                self._attach(ep, migrate=ep in migrate)
         for ep in have - set(want):
             self._drop_backup(ep)
 
-    def _attach(self, ep: str) -> None:
+    def _attach(self, ep: str, migrate: bool = False) -> None:
         """Adopt ``ep``: read its applied seq and epoch; the gap logic then
-        chooses between the ring's tail and a full snapshot."""
+        chooses between the ring's tail and a full snapshot (always the
+        snapshot for a migrate target)."""
         try:
             conn = make_conn(ep)
             _, resp = conn.check(_rpc._REPL_STATE, n=-1, retries=0)
@@ -484,8 +518,15 @@ class ReplicationManager:
             # chain): comparing it with our seqs would skip every ship, so
             # take the snapshot path, which rebases it
             applied = -1
+        if migrate:
+            # a reshard target never takes the ring's tail from birth: the
+            # ring holds frames that are poison out of context (our own
+            # bootstrap's kInsertFull of stale rows, past kRetain frames
+            # that would erase the target's classes); the snapshot copies
+            # current rows and rebases the cursor past all of it
+            applied = -1
         with self._mu:
-            self._backups[ep] = {"conn": conn, "acked": applied}
+            self._backups[ep] = {"conn": conn, "acked": applied, "migrate": migrate}
 
     def _loop(self) -> None:
         while not self._stop.is_set():
@@ -509,19 +550,55 @@ class ReplicationManager:
         with self._mu:
             lagging = [(ep, st) for ep, st in self._backups.items() if st["acked"] < top]
         for ep, st in lagging:
+            self._snapshot(ep, st)
+
+    def _snapshot(self, ep: str, st: dict) -> None:
+        """Snapshot one subscriber: inline for a backup, on a thread of its
+        own for a migrate target; nothing while that thread runs."""
+        if st.get("syncing"):
+            return
+        if st.get("migrate"):
+            self._sync_migrate_bg(ep, st)
+        else:
             self._full_sync(ep, st)
+
+    def _sync_migrate_bg(self, ep: str, st: dict) -> None:
+        """A migrate target's snapshot on its own thread. The shipper must
+        not block behind it: the target is a live routed server whose
+        mutation gate a checkpoint capture may hold, and a shipper stuck
+        there starves the shard's backups, whose drain that capture waits
+        on. While ``syncing`` the shipper skips this cursor; the rebase
+        covers what lands meanwhile."""
+        st["syncing"] = True
+
+        def run():
+            try:
+                with self._mu:
+                    if self._backups.get(ep) is not st:
+                        return  # detached while queued
+                if not self._stop.is_set():
+                    self._full_sync(ep, st)
+            finally:
+                st["syncing"] = False
+
+        t = _sync.Thread(target=run, daemon=True, name=f"ps-migrate:{self.shard}->{ep}")
+        self._bg_syncs = [x for x in self._bg_syncs if x.is_alive()]
+        self._bg_syncs.append(t)
+        t.start()
 
     def _ship(self, seq: int, frame: bytes) -> None:
         with self._mu:
             backups = list(self._backups.items())
         for ep, st in backups:
+            if st.get("syncing"):
+                continue  # a migrate snapshot owns this cursor
             if st["acked"] >= seq:
                 continue  # a snapshot rebase already covers this entry
             if st["acked"] + 1 != seq:
                 # the ring dropped entries before this backup consumed them
                 # (overflow or a late attach): snapshot, which makes this
                 # frame redundant
-                self._full_sync(ep, st)
+                self._snapshot(ep, st)
                 continue
             try:
                 status = send_replicate(st["conn"], frame, seq, self.epoch, retries=0)
@@ -531,7 +608,7 @@ class ReplicationManager:
             if status == seq:
                 st["acked"] = seq
             elif status == _ERR_SEQ_GAP:
-                self._full_sync(ep, st)
+                self._snapshot(ep, st)
             elif status == _ERR_STALE_EPOCH:
                 self.fenced = True  # the backup outranks us
                 return
@@ -580,7 +657,10 @@ class ReplicationManager:
         dense tables (values, optimizer moments, step) and the global step;
         GEO accumulators are not snapshotted (reading them drains them, and
         losing at most one un-pulled delta round on a rejoin is within
-        GEO-SGD's staleness; live geo pushes do replicate)."""
+        GEO-SGD's staleness; live geo pushes do replicate). A backup also
+        gets the primary's ownership predicate; a migrate target gets the
+        sparse rows only (the reshard installs its predicate at the
+        cutover)."""
         conn = st["conn"]
         self.server.pause_mutations(True)
         try:
@@ -591,6 +671,20 @@ class ReplicationManager:
                     self.fenced = True
                     return
                 enforce(status >= 0, f"catalog replay to {ep} failed with {status}")
+            # the ownership predicate is replicated state too: a backup
+            # attached after a reshard must bounce stale-topology traffic
+            # once promoted. Shipped replicate-wrapped at seq -1, like the
+            # catalog, so a read-only observer takes it as well
+            if not st.get("migrate"):
+                _, own_resp = self._self().check(_rpc._RETAIN, n=0, retries=0)
+                own = np.frombuffer(own_resp, np.int64)
+                if int(own[0]) > 0:
+                    frame = _HDR.pack(0, _rpc._RETAIN, 0, int(own[0]), int(own[1]), 0, 0)
+                    status = send_replicate(conn, frame, -1, self.epoch, retries=0)
+                    if status == _ERR_STALE_EPOCH:
+                        self.fenced = True
+                        return
+                    enforce(status >= 0, f"ownership replay to {ep} failed with {status}")
             cut = self.server.oplog_seq()
             sparse, dense = self._catalog_tables()
             me = self._self()
@@ -607,19 +701,31 @@ class ReplicationManager:
                 for lo in range(0, cnt, self._SNAP_CHUNK):
                     kp = np.ascontiguousarray(keys[lo:lo + self._SNAP_CHUNK])
                     vp = np.ascontiguousarray(vals[lo:lo + self._SNAP_CHUNK])
-                    conn.check(_rpc._INSERT_FULL, tid, n=len(kp), payload=(kp, vp),
+                    # replicate-wrapped at seq -1: the ownership fence does
+                    # not filter it, and a migrate target's fence may not
+                    # cover these keys yet (a shrink's survivor owns the
+                    # retiree's class only from the cutover on)
+                    frame = _HDR.pack(kp.nbytes + vp.nbytes, _rpc._INSERT_FULL, tid, len(kp),
+                                      0, 0, 0) + kp.tobytes() + vp.tobytes()
+                    status = send_replicate(conn, frame, -1, self.epoch, retries=0)
+                    if status == _ERR_STALE_EPOCH:
+                        self.fenced = True
+                        return
+                    enforce(status >= 0, f"snapshot rows to {ep} failed with {status}")
+            # 3. dense tables, with their optimizer state and step, and 4. the
+            # shared step counter (a delta: the backup starts lower). Not for
+            # a migrate target: a live server with its own dense state and
+            # step, which may out-count us
+            if not st.get("migrate"):
+                for tid in dense:
+                    _, blob = me.check(_rpc._DENSE_SNAP, tid, timeout_ms=_rpc._long_ms(),
+                                       retries=0)
+                    conn.check(_rpc._DENSE_RESTORE, tid, payload=bytes(blob),
                                timeout_ms=_rpc._long_ms(), retries=0)
-            # 3. dense tables, with their optimizer state and step
-            for tid in dense:
-                _, blob = me.check(_rpc._DENSE_SNAP, tid, timeout_ms=_rpc._long_ms(),
-                                   retries=0)
-                conn.check(_rpc._DENSE_RESTORE, tid, payload=bytes(blob),
-                           timeout_ms=_rpc._long_ms(), retries=0)
-            # 4. the shared step counter (a delta: the backup starts lower)
-            cur_p, _ = me.check(_rpc._GLOBAL_STEP, n=0, retries=0)
-            cur_b, _ = conn.check(_rpc._GLOBAL_STEP, n=0, retries=0)
-            if cur_p != cur_b:
-                conn.check(_rpc._GLOBAL_STEP, n=cur_p - cur_b, retries=0)
+                cur_p, _ = me.check(_rpc._GLOBAL_STEP, n=0, retries=0)
+                cur_b, _ = conn.check(_rpc._GLOBAL_STEP, n=0, retries=0)
+                if cur_p != cur_b:
+                    conn.check(_rpc._GLOBAL_STEP, n=cur_p - cur_b, retries=0)
             # 5. rebase: the backup now holds everything up to `cut`
             conn.check(_rpc._REPL_STATE, n=cut, retries=0)
             st["acked"] = cut
@@ -996,8 +1102,9 @@ class HACluster:
         self._n_trainers = n_trainers
         self._hb_interval = hb_interval
         self._hb_ttl = hb_ttl
-        #: the control plane's mutex: a checkpoint capture holds it (through
-        #: begin_actuation) so that nothing else actuates mid-capture
+        #: the control plane's mutex: a reshard cutover and a checkpoint
+        #: capture hold it (through begin_actuation), so a capture never
+        #: reads a half-migrated key set
         self.control_mu = _sync.RLock()
         self._clients: List[RpcPsClient] = []
         self.coordinator: Optional[FailoverCoordinator] = None
@@ -1042,19 +1149,54 @@ class HACluster:
         if self.coordinator is not None:
             self.coordinator.resume_scans()
 
+    @contextlib.contextmanager
+    def actuation(self):
+        """:meth:`begin_actuation` ... :meth:`end_actuation` as a context."""
+        self.begin_actuation()
+        try:
+            yield self
+        finally:
+            self.end_actuation()
+
     # -- topology --------------------------------------------------------------
 
     @property
     def num_shards(self) -> int:
+        """The live shard count: a reshard grows and shrinks
+        ``self.servers`` at its cutover."""
         return len(self.servers)
 
-    def spawn_shard(self, shard: int, replication: Optional[int] = None):
-        raise UnavailableError("HACluster.spawn_shard belongs to live resharding, which is "
-                               "not ported yet (ROADMAP Queue A item 3, entry 3)")
+    def spawn_shard(self, shard: int, replication: Optional[int] = None) -> List[HAServer]:
+        """Bring up one new shard row (a full replica set) outside the
+        routing table, a grow's raw material: its servers heartbeat but own
+        no keys and take no traffic until the cutover publishes them."""
+        enforce(shard == len(self.servers),
+                f"spawn_shard({shard}): shards are routing positions, the next new row is "
+                f"{len(self.servers)}")
+        n = replication if replication is not None else self.replication
+        row: List[HAServer] = []
+        try:
+            for _ in range(n):
+                row.append(HAServer(self.store, self.job_id, shard, n_trainers=self._n_trainers,
+                                    sync=self.sync, hb_interval=self._hb_interval,
+                                    hb_ttl=self._hb_ttl))
+        except BaseException:
+            for r in row:
+                r.close()
+            raise
+        self.servers.append(row)
+        for r in row:
+            r.start()
+        return row
 
-    def retire_shard(self, shard: int):
-        raise UnavailableError("HACluster.retire_shard belongs to live resharding, which is "
-                               "not ported yet (ROADMAP Queue A item 3, entry 3)")
+    def retire_shard(self, shard: int) -> List[HAServer]:
+        """Drop the trailing shard row from the topology (after a shrink's
+        cutover) and return it; stopping its fenced servers is the caller's
+        job once stale clients have re-resolved."""
+        enforce(shard == len(self.servers) - 1,
+                f"retire_shard({shard}): only the trailing shard ({len(self.servers) - 1}) can "
+                "retire; shard indices are routing positions")
+        return self.servers.pop()
 
     def replica(self, shard: int, endpoint: str) -> HAServer:
         for r in self.servers[shard]:
@@ -1065,6 +1207,10 @@ class HACluster:
     def primary(self, shard: int) -> HAServer:
         _, shards = self.routing.read()
         return self.replica(shard, shards[shard]["primary"])
+
+    def backups(self, shard: int) -> List[HAServer]:
+        _, shards = self.routing.read()
+        return [self.replica(shard, ep) for ep in shards[shard].get("backups", [])]
 
     # -- clients and chaos -----------------------------------------------------
 
@@ -1129,11 +1275,15 @@ class HACluster:
         the routing table is attached to its primary's shipper and has acked
         every oplog entry. It waits through the shipper's start and attach
         (role changes ride the heartbeat tick), so a drain right after
-        bring-up or a promotion is safe."""
+        bring-up or a promotion is safe. Only the routed shards drain: a
+        grow's targets drain through their source's shipper until the
+        cutover routes them."""
         deadline = time.monotonic() + timeout
         for si in range(len(self.routing.read()[1])):
             while True:
                 _, shards = self.routing.read()
+                if si >= len(shards):
+                    break  # a concurrent shrink retired this index
                 sh = shards[si]
                 prim = self.replica(si, sh["primary"])
                 alive = {ep for ep in sh.get("backups", [])

@@ -438,8 +438,8 @@ def _configure_rpc(lib: ctypes.CDLL) -> None:
                "pss_epoch", "pss_applied_seq", "pss_dense_version"):
         getattr(lib, fn).restype = ctypes.c_int64
         getattr(lib, fn).argtypes = [h]
-    lib.pss_catalog_get.restype = ctypes.c_int64
-    lib.pss_catalog_get.argtypes = [h, ctypes.c_int64]
+    lib.pss_catalog_copy.restype = ctypes.c_int64
+    lib.pss_catalog_copy.argtypes = [h, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
     lib.pss_set_epoch.restype = None
     lib.pss_set_epoch.argtypes = [h, ctypes.c_int64]
     lib.pss_set_read_only.restype = None

@@ -549,17 +549,21 @@ class CtrStreamTrainer:
 
     def on_reshard(self) -> None:
         """Trainer-side reshard participation, from the training thread at
-        a batch boundary: the communicator quiesces (no queued push
-        straddles the cutover) and the hot tier flushes its dirty rows and
-        KEEPS its resident set (``HotEmbeddingTier.on_reshard``). The JAX
-        trainer then has the client re-resolve its routing; the port's
-        ``RpcPsClient`` routes statically until live reshard is ported
-        (ROADMAP Queue A item 3, entry 3), so there is nothing to
-        refresh."""
+        a batch boundary (optional: misrouted ops bounce and replay either
+        way, this only narrows the window). The communicator quiesces (no
+        queued push straddles the cutover), the hot tier flushes its dirty
+        rows and KEEPS its resident set (``HotEmbeddingTier.on_reshard``),
+        and the client re-resolves the routing at once instead of paying
+        one bounced op. The JAX trainer then polls its placement manager,
+        which is not ported (ROADMAP Queue A item 10)."""
         if self.communicator is not None:
             self.communicator.quiesce()
         if self.hot_tier is not None:
             self.hot_tier.on_reshard()
+        if self.communicator is not None:
+            refresh = getattr(self.communicator.client, "refresh_routing", None)
+            if refresh is not None:
+                refresh()
 
     def _maybe_checkpoint(self, checkpoint, every: int, batch_size: int) -> None:
         if checkpoint is None or every <= 0 or self.batches_done % every != 0:

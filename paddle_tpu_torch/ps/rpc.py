@@ -27,6 +27,12 @@ of either replicates to a backup of either.
   :meth:`RpcPsClient._shard_op`: a circuit breaker per endpoint, and on a
   transport death the op replays on the backup the failover coordinator
   promoted. Nothing falls back to a local table.
+- Live reshard (``ps.reshard`` drives it): a server whose ownership fence
+  (``kRetain``) no longer covers a key bounces the whole frame with
+  :class:`~paddle_tpu_torch.core.enforce.WrongShardError`; a routed client
+  then re-resolves the epoch-stamped routing table (another shard count
+  rebuilds its connection set) and replays exactly the bounced keys, each
+  applied once (:meth:`RpcPsClient._bounce_guard`).
 - The wires (``TableConfig.pull_wire_dtype``/``push_wire_dtype``): fp16
   pulls; fp16 or block-int8 push gradients, quantized once per merged
   push on the host (numpy), with the int8 error-feedback residuals kept
@@ -37,9 +43,7 @@ of either replicates to a backup of either.
   table on the servers (the hot tier's cold store).
 
 Not ported (each raises ``UnavailableError`` naming its place in ROADMAP
-Queue A item 3): the live-reshard surface (the ``WrongShard`` bounce and
-reroute, ``retain``, ``ownership``, ``server_epoch``, ``digest_routed``;
-entry 3), tenancy (``tenant=``; entry 4), the serve QoS class
+Queue A item 3): tenancy (``tenant=``; entry 4), the serve QoS class
 (``qos="serve"``; entry 5), and the per-table density series
 (``density_series``, which needs ``distributed/placement.py``, item 10).
 ``op_counts`` is a plain counter under a lock.
@@ -64,7 +68,7 @@ import numpy as np
 
 from ..core import sync as _sync
 from ..core.enforce import (NotFoundError, PreconditionNotMetError, PsTransportError,
-                            UnavailableError, enforce)
+                            UnavailableError, WrongShardError, enforce)
 from ..core.flags import define_flag, flag
 from ..obs import flightrec as _flightrec
 from ..obs import registry as _obs_registry
@@ -129,6 +133,8 @@ _REPL_STATE = 39
 _DIGEST = 40
 _DENSE_SNAP = 41
 _DENSE_RESTORE = 42
+# live reshard (ps/reshard.py drives it): n = modulus (0 = read), aux = residue
+_RETAIN = 44
 
 # push-value wire encodings (csrc PushWireFlag: kPushSparse aux bits)
 _PUSH_WIRE_F16 = 1
@@ -137,12 +143,11 @@ _PUSH_WIRE_BLOCK_SHIFT = 8
 
 _ERR_NO_TABLE = -2  # ps_service.cc kErrNoTable
 _ERR_READ_ONLY = -7  # kErrReadOnly
+_ERR_WRONG_SHARD = -8  # kErrWrongShard
 _ERR_RESET, _ERR_DEADLINE = -1000, -1001  # PsConn transport failures
 
 _DENSE_OPT_IDS = {"sgd": 0, "adam": 1, "sum": 2}
 _SAVE_FORMATS = {None: (0, ""), "gzip": (1, ".gz"), "raw": (2, ".bin")}
-
-_RESHARD = "ROADMAP Queue A item 3, entry 3 (live reshard)"
 
 
 def _long_ms() -> int:
@@ -223,12 +228,16 @@ class NativePsServer:
 
     def catalog(self) -> List[bytes]:
         """Every create-table frame seen so far (replayed to a rejoining
-        backup before the data snapshot)."""
+        backup before the data snapshot). Copied into buffers of its own,
+        not the shipper's staging buffer: a migration's snapshot reads the
+        catalog on its own thread while the shipper pops the oplog."""
         out = []
         for i in range(int(self._lib.pss_catalog_count(self._h))):
-            n = int(self._lib.pss_catalog_get(self._h, i))
+            n = int(self._lib.pss_catalog_copy(self._h, i, None, 0))
             if n >= 0:
-                out.append(self._staged(n))
+                buf = ctypes.create_string_buffer(max(n, 1))
+                self._lib.pss_catalog_copy(self._h, i, buf, n)
+                out.append(buf.raw[:n])
         return out
 
     @property
@@ -401,6 +410,11 @@ class _ServerConn:
             raise PreconditionNotMetError(
                 f"PS server {self.endpoint} is read-only: training-plane command {cmd} "
                 "refused")
+        if status == _ERR_WRONG_SHARD:
+            raise WrongShardError(
+                f"PS server {self.endpoint} no longer owns a key in this request (cmd {cmd}, "
+                f"table {table_id}): the shard topology moved (live reshard); re-resolve the "
+                "routing table and replay")
         enforce(status >= 0, f"PS command {cmd} on {self.endpoint} failed with status {status}")
         return status, resp
 
@@ -495,6 +509,7 @@ class RpcPsClient(PSClient):
         self._router = router
         self._conns_mu = _sync.Lock()  # failover connection swaps
         self._pool: Optional[ThreadPoolExecutor] = None
+        self._retired_pools: List[ThreadPoolExecutor] = []  # outgrown by a reshard
         self._pool_mu = _sync.Lock()
         self._count_mu = _sync.Lock()
         self._ops: Counter = Counter()
@@ -555,8 +570,9 @@ class RpcPsClient(PSClient):
         deadline)."""
         with self._pool_mu:
             pool, self._pool = self._pool, None
-        if pool is not None:
-            pool.shutdown(wait=True)
+            retired, self._retired_pools = self._retired_pools, []
+        for p in ([pool] if pool is not None else []) + retired:
+            p.shutdown(wait=True)
         for c in self._conns:
             c.close()
 
@@ -568,39 +584,88 @@ class RpcPsClient(PSClient):
         idempotent and the loser's connection closes. The connect happens
         outside ``_conns_mu``, which every shard op takes."""
         with self._conns_mu:
-            if self._conns[s].endpoint == endpoint:
+            if s >= len(self._conns) or self._conns[s].endpoint == endpoint:
                 return
         host, port = endpoint.rsplit(":", 1)
         fresh = _ServerConn(self._lib, host, int(port))
         with self._conns_mu:
-            if self._conns[s].endpoint == endpoint:
-                stale = fresh
+            if s >= len(self._conns) or self._conns[s].endpoint == endpoint:
+                stale = fresh  # raced: another swap (or a shrink) won
             else:
                 stale, self._conns[s] = self._conns[s], fresh
         stale.close()
 
     def refresh_routing(self) -> bool:
-        """Re-resolve every shard's endpoint from the router's routing
-        table; True if a connection changed. A caller holding a failed
-        future (the communicator's prefetched pull) refreshes and replays.
-        No-op without a router. A routing table with another shard count
-        is a reshard, which the port does not have (raises)."""
+        """Re-resolve every shard's endpoint and the shard count from the
+        router's routing table; True if the connection set changed. A caller
+        holding a failed future (the communicator's prefetched pull)
+        refreshes and replays, and so does a ``WrongShardError`` bounce (a
+        live reshard moved a key class): the client rebuilds its topology
+        and the op replays the bounced keys. No-op without a router."""
         if self._router is None:
             return False
         _, eps = self._router.routing()
         if not eps:
             return False
         with self._conns_mu:
-            have = [c.endpoint for c in self._conns]
-        if have == list(eps):
-            return False
-        if len(eps) != len(have):
-            raise UnavailableError(
-                f"the routing table names {len(eps)} shards, this client has {len(have)}: "
-                f"resharding is not ported ({_RESHARD})")
-        for s, ep in enumerate(eps):
-            self._swap_conn(s, ep)
+            if [c.endpoint for c in self._conns] == list(eps):
+                return False
+            have = {c.endpoint for c in self._conns}
+        # connect outside _conns_mu (every shard op takes it); a partial
+        # failure closes what it built
+        built: Dict[str, _ServerConn] = {}
+        try:
+            for ep in eps:
+                if ep not in have and ep not in built:
+                    host, port = ep.rsplit(":", 1)
+                    built[ep] = _ServerConn(self._lib, host, int(port))
+        except BaseException:
+            for c in built.values():
+                c.close()
+            raise
+        with self._conns_mu:
+            old, conns = self._conns, []
+            for ep in eps:
+                cur = next((c for c in old if c.endpoint == ep), None)
+                if cur is None:
+                    cur = built.pop(ep, None)
+                if cur is None:
+                    # an endpoint a concurrent refresh dropped between the
+                    # two reads: the rare in-lock connect
+                    host, port = ep.rsplit(":", 1)
+                    cur = _ServerConn(self._lib, host, int(port))
+                conns.append(cur)
+            stale = [c for c in old if c not in conns]
+            self._conns = conns
+        for c in list(built.values()) + stale:
+            c.close()
+        # a grown topology outgrows the fan-out pool; the old one may carry
+        # in-flight fan-outs, so it retires (close() shuts the retirees)
+        with self._pool_mu:
+            if self._pool is not None and len(conns) > self._pool._max_workers:
+                self._retired_pools.append(self._pool)
+                self._pool = None
         return True
+
+    def _conn_at(self, s: int) -> _ServerConn:
+        """Shard ``s``'s current connection; a shard index past the
+        topology (a live reshard shrank it under this op) bounces as a
+        misroute."""
+        with self._conns_mu:
+            if s >= len(self._conns):
+                raise WrongShardError(f"shard {s} is beyond the current topology "
+                                      f"({len(self._conns)} servers): stale routing")
+            return self._conns[s]
+
+    @staticmethod
+    def _raise_if_shrunk(s: int, router) -> None:
+        """A transport death on a shard index the routing no longer has is
+        a shrink, not a dead primary: take the misroute path at once
+        instead of waiting out a failover that cannot come."""
+        _, eps = router.routing()
+        if eps and s >= len(eps):
+            raise WrongShardError(f"shard {s} left the topology ({len(eps)} shards "
+                                  "published): stale routing")
 
     def _shard_op(self, s: int, fn):
         """Run ``fn(conn)`` against shard ``s``'s current server. With a
@@ -611,20 +676,19 @@ class RpcPsClient(PSClient):
         negative status) passes straight through and counts as a success
         for the breaker: the transport is alive, and a half-open probe
         must be released."""
-        with self._conns_mu:
-            c = self._conns[s]
+        c = self._conn_at(s)
         r = self._router
         if r is None:
             return fn(c)
         ep = c.endpoint
         if not r.allow(ep):
+            self._raise_if_shrunk(s, r)
             new_ep = r.failover(s, ep)
             if new_ep is None or new_ep == ep:
                 raise PsTransportError(f"PS shard {s} endpoint {ep} circuit breaker open "
                                        "and no promoted replacement published")
             self._swap_conn(s, new_ep)
-            with self._conns_mu:
-                c = self._conns[s]
+            c = self._conn_at(s)
             ep = c.endpoint
         try:
             out = fn(c)
@@ -634,13 +698,12 @@ class RpcPsClient(PSClient):
             if rec is not None:
                 rec.note("transport_error", shard=s, endpoint=ep,
                          error=f"{type(e).__name__}: {e}")
+            self._raise_if_shrunk(s, r)
             new_ep = r.failover(s, ep)
             if new_ep is None or new_ep == ep:
                 raise
             self._swap_conn(s, new_ep)
-            with self._conns_mu:
-                c = self._conns[s]
-            out = fn(c)
+            out = fn(self._conn_at(s))
             r.record(new_ep, ok=True)
             return out
         except BaseException:
@@ -652,7 +715,7 @@ class RpcPsClient(PSClient):
     def _direct(self, server: int, fn):
         """Server-targeted call: no breaker, no failover replay (an
         introspection answer must come from the addressed server)."""
-        return fn(self._conns[server])
+        return fn(self._conn_at(server))
 
     def _task(self, s: int, fn):
         """A zero-arg fan-out task bound to the shard index, not to a
@@ -688,15 +751,14 @@ class RpcPsClient(PSClient):
         """``fn(conn)`` on every shard, fanned out; results by shard."""
         return self._fanout([self._task(s, fn) for s in range(self.num_servers)])
 
-    def _route(self, keys: np.ndarray) -> np.ndarray:
-        return (keys % np.uint64(self.num_servers)).astype(np.int64)
-
     def _shard_sel(self, keys: np.ndarray):
-        """(server, sel) for the servers that own some of ``keys``; sel is
-        None when one server owns them all (no gather copy)."""
-        sv = self._route(keys)
+        """(server, sel) for the servers that own some of ``keys`` under
+        one read of the shard count; sel is None when one server owns them
+        all (no gather copy)."""
+        n = self.num_servers
+        sv = (keys % np.uint64(n)).astype(np.int64)
         out = []
-        for s in range(self.num_servers):
+        for s in range(n):
             sel = np.flatnonzero(sv == s)
             if len(sel) == len(sv):
                 out.append((s, None))
@@ -704,10 +766,47 @@ class RpcPsClient(PSClient):
                 out.append((s, sel))
         return out
 
-    def _keyed(self, keys: np.ndarray, one) -> None:
-        """``one(conn, sel)`` for each shard owning some of ``keys``."""
-        self._fanout([self._task(s, lambda c, sel=sel: one(c, sel))
+    # -- the live-reshard misroute replay (ps/reshard.py) ------------------
+
+    _REROUTE_HOPS = 8
+
+    def _bounce_guard(self, s: int, fn, misrouted: List, sel, n_keys: int):
+        """Fan-out task of a keyed op: a ``WrongShardError`` bounce (or a
+        shard index past a shrunk topology) records which key positions
+        bounced instead of failing the op. The server rejected the frame
+        whole, so the op re-resolves and replays exactly those keys, each
+        applied once. Without a router there is nothing to re-resolve and
+        the error propagates. ``misrouted.append`` from the fan-out workers
+        is atomic under the GIL."""
+        def run():
+            try:
+                self._shard_op(s, fn)
+            except WrongShardError:
+                if self._router is None:
+                    raise
+                misrouted.append(np.arange(n_keys, dtype=np.int64) if sel is None else sel)
+        return run
+
+    def _keyed(self, keys: np.ndarray, one) -> Optional[np.ndarray]:
+        """``one(conn, sel)`` for each shard owning some of ``keys``; the
+        positions of the keys that bounced (None if none did)."""
+        misrouted: List[np.ndarray] = []
+        self._fanout([self._bounce_guard(s, lambda c, sel=sel: one(c, sel), misrouted, sel,
+                                         len(keys))
                       for s, sel in self._shard_sel(keys)])
+        return np.concatenate(misrouted) if misrouted else None
+
+    def _reroute_backoff(self, hops: int) -> None:
+        """Between misroute replays: re-resolve the routing table, and when
+        it has not changed yet (a cutover installs the ownership fence a
+        moment before it publishes the flipped routing) back off briefly.
+        Raises once the hop budget is spent: a topology that stays stale
+        means the reshard wedged mid-cutover."""
+        enforce(hops < self._REROUTE_HOPS,
+                f"misrouted PS op: topology still stale after {hops} re-resolves "
+                "(a reshard wedged mid-cutover?)", WrongShardError)
+        if not self.refresh_routing() and hops > 0:
+            time.sleep(min(0.002 * (2 ** hops), 0.1))
 
     def _dims(self, table_id: int) -> Tuple[int, int, int]:
         try:
@@ -797,6 +896,9 @@ class RpcPsClient(PSClient):
         ``create``; ``slots`` tags created rows). Over the fp16 pull wire
         the values are exactly the fp32 rows rounded to half and widened."""
         self._op_count("pull_sparse")
+        return self._pull_sparse(table_id, keys, create, slots)
+
+    def _pull_sparse(self, table_id, keys, create, slots, _hops=0):
         keys = np.ascontiguousarray(keys, np.uint64)
         pull_dim = self._dims(table_id)[0]
         out = np.zeros((len(keys), pull_dim), np.float32)
@@ -816,8 +918,11 @@ class RpcPsClient(PSClient):
             else:
                 out[sel] = vals.reshape(len(kp), pull_dim)
 
-        self._keyed(keys, one)
-        m = self._tbl_obs.get(table_id)
+        idx = self._keyed(keys, one)
+        if idx is not None:
+            self._reroute_backoff(_hops)
+            out[idx] = self._pull_sparse(table_id, keys[idx], create, slots_arr[idx], _hops + 1)
+        m = self._tbl_obs.get(table_id) if _hops == 0 else None
         if m is not None:
             m["pull_rows"].inc(len(keys))
             m["pull_bytes"].inc(keys.nbytes + slots_arr.nbytes + out.size * (2 if f16 else 4))
@@ -864,7 +969,7 @@ class RpcPsClient(PSClient):
                 enc = (head, scales, q)
                 aux = _PUSH_WIRE_I8 | (blk << _PUSH_WIRE_BLOCK_SHIFT)
             wire_bytes = keys.nbytes + sum(a.nbytes for a in enc)
-        self._push_encoded(table_id, keys, values if enc is None else None, enc, aux)
+        self._push_encoded(table_id, keys, values if enc is None else None, enc, aux, 0)
         if overflow:
             # bounded client memory: past the cap the table's residuals drain
             # over the fp32 wire (outside _ef_mu: the drain is a push)
@@ -874,10 +979,12 @@ class RpcPsClient(PSClient):
             m["push_rows"].inc(len(keys))
             m["push_bytes"].inc(wire_bytes)
 
-    def _push_encoded(self, table_id, keys, values, enc, aux) -> None:
+    def _push_encoded(self, table_id, keys, values, enc, aux, _hops) -> None:
         """Route and fan out one encoded push batch: ``enc`` None ships
         ``values`` raw (fp32), else the tuple of encoded parts (head
-        [, scales], gradient) whose row slices each shard gets."""
+        [, scales], gradient) whose row slices each shard gets. A bounced
+        slice changed nothing on its server, so the replay re-sends those
+        same encoded rows (no int8 residual is taken twice)."""
 
         def one(c, sel):
             kp = keys if sel is None else keys[sel]
@@ -888,7 +995,12 @@ class RpcPsClient(PSClient):
                                       for a in enc)
             c.check(_PUSH_SPARSE, table_id, n=len(kp), aux=aux, payload=parts)
 
-        self._keyed(keys, one)
+        idx = self._keyed(keys, one)
+        if idx is not None:
+            self._reroute_backoff(_hops)
+            self._push_encoded(table_id, keys[idx], None if values is None else values[idx],
+                               None if enc is None else tuple(a[idx] for a in enc), aux,
+                               _hops + 1)
 
     # -- error-feedback residuals (push_wire_dtype="int8") -----------------
 
@@ -943,11 +1055,12 @@ class RpcPsClient(PSClient):
             total += len(keys)
         return total
 
-    def export_full(self, table_id, keys, create=False, slots=None):
+    def export_full(self, table_id, keys, create=False, slots=None, _hops=0):
         """(values [n, full_dim], found [n]): full rows, optimizer state
         included; with ``create`` missing rows are inserted in the same
         visit."""
-        self._op_count("export_full")
+        if _hops == 0:
+            self._op_count("export_full")
         keys = np.ascontiguousarray(keys, np.uint64)
         full_dim = self._dims(table_id)[2]
         out = np.zeros((len(keys), full_dim), np.float32)
@@ -967,16 +1080,21 @@ class RpcPsClient(PSClient):
             else:
                 out[sel], found[sel] = vals, resp[nb:] != 0
 
-        self._keyed(keys, one)
-        m = self._tbl_obs.get(table_id)
+        idx = self._keyed(keys, one)
+        if idx is not None:
+            self._reroute_backoff(_hops)
+            out[idx], found[idx] = self.export_full(table_id, keys[idx], create,
+                                                    slots_arr[idx], _hops + 1)
+        m = self._tbl_obs.get(table_id) if _hops == 0 else None
         if m is not None:
             m["pull_rows"].inc(len(keys))
             m["pull_bytes"].inc(keys.nbytes + out.nbytes + found.nbytes)
         return out, found
 
-    def import_full(self, table_id, keys, values):
+    def import_full(self, table_id, keys, values, _hops=0):
         """Overwrite full rows (insert-on-miss)."""
-        self._op_count("import_full")
+        if _hops == 0:
+            self._op_count("import_full")
         keys = np.ascontiguousarray(keys, np.uint64)
         values = np.ascontiguousarray(values, np.float32)
 
@@ -985,34 +1103,63 @@ class RpcPsClient(PSClient):
             vp = values if sel is None else values[sel]
             c.check(_INSERT_FULL, table_id, n=len(kp), payload=(kp, vp), timeout_ms=_long_ms())
 
-        self._keyed(keys, one)
-        m = self._tbl_obs.get(table_id)
+        idx = self._keyed(keys, one)
+        if idx is not None:
+            self._reroute_backoff(_hops)
+            self.import_full(table_id, keys[idx], values[idx], _hops + 1)
+        m = self._tbl_obs.get(table_id) if _hops == 0 else None
         if m is not None:
             m["push_rows"].inc(len(keys))
             m["push_bytes"].inc(keys.nbytes + values.nbytes)
 
-    def load_cold(self, table_id, keys, values, chunk: int = 1 << 21) -> int:
+    def load_cold(self, table_id, keys, values, chunk: int = 1 << 21, _hops=0) -> int:
         """Bulk-load full rows (SSD tables: into the disk tier; RAM tables
         insert). Each server's slice goes in chunks of ``chunk`` rows, the
-        servers in parallel. Returns the rows loaded."""
+        servers in parallel. A chunk that bounces (a reshard moved its
+        class) replays with the rest of that server's slice after a
+        re-resolve; the chunks before it landed and are not re-sent.
+        Returns the rows loaded."""
         keys = np.ascontiguousarray(keys, np.uint64)
         values = np.ascontiguousarray(values, np.float32)
         full_dim = self._dims(table_id)[2]
         enforce(values.shape == (len(keys), full_dim),
                 f"load_cold values shape {values.shape} != ({len(keys)}, {full_dim})")
-        sv = self._route(keys)
+        shards = self._shard_sel(keys)
+        done = [0] * len(shards)
+        misrouted: List[np.ndarray] = []
 
-        def one(c, s):
-            sel, done = np.flatnonzero(sv == s), 0
+        def one(c, i, sel):
             for lo in range(0, len(sel), chunk):
                 part = sel[lo:lo + chunk]
-                cnt, _ = c.check(_LOAD_COLD, table_id, n=len(part),
-                                 payload=(keys[part], values[part]), timeout_ms=_long_ms())
-                done += int(cnt)
-            return done
+                try:
+                    cnt, _ = c.check(_LOAD_COLD, table_id, n=len(part),
+                                     payload=(keys[part], values[part]), timeout_ms=_long_ms())
+                except WrongShardError:
+                    if self._router is None:
+                        raise
+                    misrouted.append(sel[lo:])
+                    return
+                done[i] += int(cnt)
 
-        return sum(self._fanout([self._task(s, lambda c, s=s: one(c, s))
-                                 for s in range(self.num_servers)]))
+        def task(i, s, sel):
+            sel = np.arange(len(keys), dtype=np.int64) if sel is None else sel
+
+            def run():
+                try:
+                    self._shard_op(s, lambda c: one(c, i, sel))
+                except WrongShardError:  # a shard index past a shrink: nothing sent
+                    if self._router is None:
+                        raise
+                    misrouted.append(sel)
+            return run
+
+        self._fanout([task(i, s, sel) for i, (s, sel) in enumerate(shards)])
+        total = sum(done)
+        if misrouted:
+            self._reroute_backoff(_hops)
+            idx = np.concatenate(misrouted)
+            total += self.load_cold(table_id, keys[idx], values[idx], chunk, _hops + 1)
+        return total
 
     # -- dense and geo ------------------------------------------------------
 
@@ -1053,8 +1200,9 @@ class RpcPsClient(PSClient):
     def set_dense(self, table_id, values):
         self._dense_send(_SET_DENSE, table_id, np.ascontiguousarray(values, np.float32))
 
-    def push_geo(self, table_id, keys, deltas):
-        self._op_count("push_geo")
+    def push_geo(self, table_id, keys, deltas, _hops=0):
+        if _hops == 0:
+            self._op_count("push_geo")
         keys = np.ascontiguousarray(keys, np.uint64)
         deltas = np.ascontiguousarray(deltas, np.float32)
 
@@ -1063,7 +1211,10 @@ class RpcPsClient(PSClient):
             dp = deltas if sel is None else deltas[sel]
             c.check(_PUSH_GEO, table_id, n=len(kp), payload=(kp, dp))
 
-        self._keyed(keys, one)
+        idx = self._keyed(keys, one)
+        if idx is not None:
+            self._reroute_backoff(_hops)
+            self.push_geo(table_id, keys[idx], deltas[idx], _hops + 1)
 
     def pull_geo(self, table_id):
         """(keys, mean deltas) drained from every server."""
@@ -1169,21 +1320,44 @@ class RpcPsClient(PSClient):
         self._direct(server, lambda c: c.check(_DENSE_RESTORE, table_id, payload=blob,
                                                timeout_ms=_long_ms()))
 
-    def _no_reshard(self, what: str):
-        raise UnavailableError(f"RpcPsClient.{what} belongs to live resharding, which is "
-                               f"not ported yet ({_RESHARD})")
-
-    def retain(self, server: int, modulus: int, residue: int) -> int:
-        self._no_reshard("retain")
-
-    def ownership(self, server: int) -> Tuple[int, int]:
-        self._no_reshard("ownership")
-
-    def server_epoch(self, server: int, set_to: Optional[int] = None) -> int:
-        self._no_reshard("server_epoch")
+    # -- the live-reshard control surface (ps/reshard.py drives it) ----------
 
     def digest_routed(self, table_id: int) -> List[int]:
-        self._no_reshard("digest_routed")
+        """Per-server digests of each server's routed key class (``key %
+        num_servers == s``), the companion of :meth:`snapshot_items`:
+        mid-reshard a migrating class on two servers digests once. Equal to
+        :meth:`digest` in steady state. An SSD table has no filtered digest
+        (and cannot reshard), so it takes the plain one."""
+        cfg = self._sparse_cfgs.get(table_id)
+        if cfg is not None and cfg.storage == "ssd":
+            return self.digest(table_id)
+        n = self.num_servers
+        return [self.digest_at(s, table_id, n, s) for s in range(n)]
+
+    def retain(self, server: int, modulus: int, residue: int) -> int:
+        """Install ``server``'s key-ownership predicate and, when ``0 <=
+        residue < modulus``, drop every row outside it (kRetain; tapped, so
+        the shard's backups converge). ``residue=-1`` fences the server out
+        of the data plane (a retiring shard: every keyed op bounces until
+        the stale client re-resolves). Returns the rows erased."""
+        status, _ = self._direct(server, lambda c: c.check(
+            _RETAIN, n=int(modulus), aux=int(residue), timeout_ms=_long_ms(), retries=0))
+        return int(status)
+
+    def ownership(self, server: int) -> Tuple[int, int]:
+        """One server's (modulus, residue) ownership predicate; (0, 0) owns
+        everything (the static topology)."""
+        _, resp = self._direct(server, lambda c: c.check(_RETAIN, n=0))
+        st = np.frombuffer(resp, np.int64)
+        return int(st[0]), int(st[1])
+
+    def server_epoch(self, server: int, set_to: Optional[int] = None) -> int:
+        """Read (or set) one server's routing epoch (kEpoch): the failover
+        coordinator and a grow's cutover fence a server this way before
+        publishing the routing that names it."""
+        status, _ = self._direct(server, lambda c: c.check(
+            _EPOCH, n=-1 if set_to is None else int(set_to)))
+        return int(status)
 
     # -- save/load ----------------------------------------------------------
 
@@ -1198,11 +1372,20 @@ class RpcPsClient(PSClient):
     def snapshot_items(self, table_id, mode: int = 0) -> Tuple[np.ndarray, np.ndarray]:
         """(keys [n] u64, full rows [n, full_dim]) of every server's rows
         that pass the save filter of ``mode`` (after the accessor's
-        update_stat_after_save), exported in one command a server."""
+        update_stat_after_save), exported in one command a server. Each
+        server's rows are filtered to the class the current routing gives
+        it (``key % num_servers == s``): during a reshard's bootstrap a
+        moving class lives on two servers, and the filter captures it once
+        (in steady state it keeps every row)."""
+        n = self.num_servers
         parts = self._fanout([lambda s=s: self._save_all_items(s, table_id, mode)
-                              for s in range(self.num_servers)])
-        return (np.concatenate([k for k, _ in parts]),
-                np.concatenate([v for _, v in parts]))
+                              for s in range(n)])
+        routed = []
+        for s, (k, v) in enumerate(parts):
+            own = (k % np.uint64(n)).astype(np.int64) == s
+            routed.append((k, v) if own.all() else (k[own], v[own]))
+        return (np.concatenate([k for k, _ in routed]),
+                np.concatenate([v for _, v in routed]))
 
     def _meta(self, table_id: int, mode: int, converter=None) -> dict:
         cfg = self._sparse_cfgs[table_id]
@@ -1348,6 +1531,13 @@ class RemoteSparseTable:
     def snapshot_items(self, mode: int = 0):
         return self._client.snapshot_items(self._table_id, mode=mode)
 
+    def refresh_routing(self) -> bool:
+        """Re-resolve the client's shard topology. A capture only reads
+        (kSaveAll and kDigest are not fenced), so without this a capture
+        after a grow would read the old server set and miss every moved
+        row; the job-checkpoint manager calls it under its gate."""
+        return self._client.refresh_routing()
+
     def spill(self, hot_budget: int) -> int:
         return self._client.spill(self._table_id, hot_budget)
 
@@ -1355,7 +1545,10 @@ class RemoteSparseTable:
         return self._client.table_stats(self._table_id)
 
     def digest(self) -> List[int]:
-        return self._client.digest(self._table_id)
+        """The routed per-server digests (:meth:`RpcPsClient.digest_routed`):
+        the same row set :meth:`snapshot_items` exports, once per key class
+        even mid-reshard; the plain digests in steady state."""
+        return self._client.digest_routed(self._table_id)
 
     @property
     def full_dim(self) -> int:

@@ -43,6 +43,7 @@ import os
 import subprocess
 import sys
 import threading
+import time
 
 import jax
 import numpy as np
@@ -330,23 +331,36 @@ def test_flags_of_the_manager_match_jax():
     assert get_flags(names) == jax_get_flags(names)
 
 
-def test_backpressured_save_does_not_hold_lifecycle_lock(tmp_path):
+@pytest.mark.parametrize("first_get_delay_s", [0.0, 0.2])
+def test_backpressured_save_does_not_hold_lifecycle_lock(tmp_path, first_get_delay_s):
     """A save() parked on a FULL writer queue holds no lifecycle lock, and
     a stop() concurrent with it writes every admitted snapshot in order.
-    Each moment is reached by an event, not a wall-clock budget."""
+    Each moment is reached by an event, not a wall-clock budget; the
+    writer's first ``get`` is delayed by ``first_get_delay_s`` (0.2 s: a
+    writer thread slow to start, as under a loaded test run), and the
+    producer starts only once the writer holds snap 0."""
     import queue
 
     mgr = _mgr(tmp_path, queue_depth=1)
-    release, parked, stopper_waits = (threading.Event() for _ in range(3))
+    release, parked, stopper_waits, holding = (threading.Event() for _ in range(4))
     wrote = []
     real_write = mgr._write
 
     def slow_write(snap):
+        holding.set()  # the writer has taken this snapshot off the queue
         assert release.wait(120), "the test never released the writer"
         real_write(snap)
         wrote.append(snap.ckpt_id)
 
     class Parking(queue.Queue):
+        gets = 0
+
+        def get(self, *a, **kw):
+            if self.gets == 0:
+                time.sleep(first_get_delay_s)
+            self.gets += 1
+            return super().get(*a, **kw)
+
         def put(self, item, *a, **kw):
             if item is not None and self.full():
                 parked.set()   # the producer is about to block on this put
@@ -363,6 +377,7 @@ def test_backpressured_save_does_not_hold_lifecycle_lock(tmp_path):
     # the writer takes snap 0 and blocks; snap 1 fills the queue; snap 2
     # parks on the bounded put
     mgr.save(step=0, dense=_dense(0))
+    assert holding.wait(120), "the writer never took snap 0"
     producer = threading.Thread(target=lambda: [mgr.save(step=1, dense=_dense(1)),
                                                 mgr.save(step=2, dense=_dense(2))],
                                 name="ckpt-producer")

@@ -755,14 +755,8 @@ def test_breaker_opens_after_repeated_failures_without_promotion():
 
 def test_not_ported_surfaces_raise(cluster):
     cli = cluster.client()
-    for call, entry in ((lambda: cluster.spawn_shard(2), "entry 3"),
-                        (lambda: cluster.retire_shard(1), "entry 3"),
-                        (lambda: cluster.client(qos="serve"), "entry 5"),
+    for call, entry in ((lambda: cluster.client(qos="serve"), "entry 5"),
                         (lambda: cluster.obs_probe(), "entry 6"),
-                        (lambda: cli.retain(0, 2, 0), "entry 3"),
-                        (lambda: cli.ownership(0), "entry 3"),
-                        (lambda: cli.server_epoch(0), "entry 3"),
-                        (lambda: cli.digest_routed(0), "entry 3"),
                         (lambda: cli.density_series(0), "item 10"),
                         (lambda: rpc.RpcPsClient([], tenant=(1, b"t")), "entry 4"),
                         (lambda: ha.HARouter(cluster.store, "x", qos="serve"), "entry 5")):
