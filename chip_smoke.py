@@ -213,13 +213,37 @@ or when any phase fails. Phases:
    back; bitwise equal to its oracle as leg A. Logs samples/s per epoch,
    each operation's bootstrap s, cutover pause ms and rows moved, the
    promotion's call and the steps the cutovers land in beside the median;
-18. the ``kernels`` JSON line (B1 three times: ``ctr_sparse_rows`` on the
+18. tenants share a PS, and replicas serve (``ps.tenancy``, the serve QoS
+   class, ``serving``): one 2 × 2 sync ``HACluster`` with a
+   ``TenantDirectory``: ``ctr`` (tid 1) and ``abuse`` (tid 9, batch class,
+   a 500/s bucket of 500, 500 rows a shard). Leg A: the ``ctr`` tenant
+   trains phase 17 leg B's cell through ``d.client("ctr")`` on
+   ``tenant_table_id(1, 0)`` (tier, ``SyncCommunicator``, 2 epochs) while
+   the abuser floods from a thread (512-key pulls that create rows,
+   probes of the ``ctr`` table); the abuser met ``ThrottledError``,
+   ``QuotaExceededError`` and ``WrongTenantError``, its rows stay within
+   the cap plus one frame a shard, and the tenant's table size, digest
+   sum, rows, dense params, Adam state and per-step losses are bitwise
+   equal to phase 17 leg B's oracle (the same computation without tenants
+   or abuser); B2 and B4 bitwise on the first warm batch. Leg B: the
+   trained dense tower goes out through ``DenseTowerPublisher`` on
+   ``tenant_table_id(1, 7)``; one read-only ``ServingReplica`` a shard,
+   ``make_serve_client``, ``CachedLookup`` over a read-only tier of 2^19
+   rows on the card and a ``ServingFrontend`` (max batch 64) whose infer is
+   the DeepFM forward on the card on the params ``DenseTowerSync``
+   delivers; 2,000 warm requests (one record each) from 8 closed-loop
+   submitters: the first 512 predictions against the forward on the
+   trained params and the primaries' rows (rtol 1e-5, atol 1e-6), 0 client
+   ops on the training clients and the serve client, then 25 freshness
+   probes beside the flood with no failure. Logs samples/s alone and
+   beside the abuser, the abuser's sheds, warm p50/p99, freshness p95;
+19. the ``kernels`` JSON line (B1 three times: ``ctr_sparse_rows`` on the
    pass path, ``ctr_sparse_rows@widedeep`` on phase 12's,
-   ``ctr_sparse_rows@gpubox_rpc`` on phase 14's leg B; B2 and B4 four
+   ``ctr_sparse_rows@gpubox_rpc`` on phase 14's leg B; B2 and B4 five
    times: ``hot_probe_gather``/``hot_scatter_apply`` on the hot path,
    ``...@rpc`` on phase 13's, ``...@ha`` on phase 16's tier arm,
-   ``...@reshard`` on phase 17's leg B), then the card line, then the
-   result line.
+   ``...@reshard`` on phase 17's leg B, ``...@tenancy`` on phase 18's leg
+   A), then the card line, then the result line.
 
 ``--profile DIR`` also runs two more pass-path slabs, two more warm
 batches of each hot path and two more ERNIE steps under torch.profiler (after the
@@ -3740,9 +3764,9 @@ def ha_cluster():
     return HACluster(num_shards=HA_SHARDS, replication=HA_REPLICAS, sync=True)
 
 
-def ha_trainer(dev, comm, hot):
-    """Phase 4's DeepFM from seed 0 over ``comm`` (table 0), RPC-only or
-    over the hot tier; its per-step losses and step-end times are kept."""
+def ha_trainer(dev, comm, hot, table=0):
+    """Phase 4's DeepFM from seed 0 over ``comm`` (on ``table``), RPC-only
+    or over the hot tier; its per-step losses and step-end times are kept."""
     from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
     from paddle_tpu_torch.optimizer import Adam
     from paddle_tpu_torch.ps.hot_tier import HotTierConfig
@@ -3750,7 +3774,7 @@ def ha_trainer(dev, comm, hot):
 
     model = DeepFM(CtrConfig(SLOTS, DENSE, DIM, (400, 400, 400)),
                    generator=torch.Generator().manual_seed(0))
-    tr = CtrStreamTrainer(model, Adam(learning_rate=1e-3), None, communicator=comm, table_id=0,
+    tr = CtrStreamTrainer(model, Adam(learning_rate=1e-3), None, communicator=comm, table_id=table,
                           embedx_dim=DIM, hot_tier=HotTierConfig(capacity=HA_CAP) if hot else None,
                           device=dev, **slot_names(SLOTS, DENSE))
     tr.ha_losses, tr.ha_step_ends = [], []
@@ -4287,12 +4311,12 @@ def reshard_on_thread(op, errs):
     return th
 
 
-def reshard_table_state(client, ds):
+def reshard_table_state(client, ds, table=0):
     """Rows pulled for the data's keys (the pull re-resolves a stale
     client), then the table's size and digest sum."""
-    pulled = client.pull_sparse(0, dataset_keys(ds), create=False)
-    return {"pulled": pulled, "size": client.size(0),
-            "digest_sum": sum(client.digest(0)) & _U64}
+    pulled = client.pull_sparse(table, dataset_keys(ds), create=False)
+    return {"pulled": pulled, "size": client.size(table),
+            "digest_sum": sum(client.digest(table)) & _U64}
 
 
 def reshard_leg_a_run(dev, ds, chaos):
@@ -4473,18 +4497,21 @@ def reshard_leg_b(dev, card, ds):
     checks = reshard_bitwise(run, oracle)
     log(f"PS reshard leg B: the run across the flip vs its oracle, bitwise: {checks}")
     assert all(checks.values()), f"leg B differs from its oracle: {checks}"
-    return run
+    return run, oracle
 
 
-def phase_reshard(dev, card):
+def phase_reshard(dev, card, keep=None):
     """Phase 17: leg A (RPC-only, a grow and a shrink under load with a
     kill mid-migration) and leg B (the tier across a grow; B2 and B4
     bitwise on the first batch after the flip). Returns (leg B's launch
-    counts in the warm epoch across the flip, B2's numbers, B4's numbers)."""
+    counts in the warm epoch across the flip, B2's numbers, B4's numbers);
+    leg B's oracle record lands in ``keep["leg_b_oracle"]`` (phase 18's)."""
     t_phase = time.perf_counter()
     ds = ha_dataset()
     reshard_leg_a(dev, card, ds)
-    run = reshard_leg_b(dev, card, ds)
+    run, oracle = reshard_leg_b(dev, card, ds)
+    if keep is not None:
+        keep["leg_b_oracle"] = oracle
     b2, b4 = ({}, {})
     if dev.type == "cuda":
         cap = run["captured"]
@@ -4492,6 +4519,408 @@ def phase_reshard(dev, card):
         b2 = rpc_b2_check(cap["b2"], "first batch after the flip")
         b4 = rpc_b4_check(cap["b4"], "first batch after the flip")
     log(f"PS reshards under load (phase 17): {time.perf_counter() - t_phase:.1f} s")
+    return run["launches"], b2, b4
+
+
+# -- phase 18: tenants share a PS, and replicas serve ----------------------------------
+# One 2 x 2 sync HACluster shared by the two tenants of a TenantDirectory.
+# "ctr" trains phase 17 leg B's cell through its tenant-bound client on
+# tenant_table_id(1, 0) (the tier of 2^19 rows, a SyncCommunicator, 2
+# epochs): its oracle is that leg's, the same computation on an untenanted
+# cluster (the table id changes no row: rows start at zero with
+# initial_range=0, and the digest hashes keys and values only). "abuse"
+# floods beside it with the envelope of the JAX package's interference test
+# (tests/test_tenancy.py: batch class, 500 units/s, a burst of 500, 500 rows
+# a shard). Then read-only replicas serve the trained model's predictions.
+TENANT_CTR, TENANT_ABUSE = 1, 9
+ABUSE_ENVELOPE = dict(pclass=1, rate=500.0, burst=500.0, max_rows=500)
+ABUSE_KEYS = 512          # keys of one flood pull
+ABUSE_OUTCOMES = ("ThrottledError", "QuotaExceededError", "WrongTenantError")
+DENSE_LOCAL_ID = 7        # the dense tower's table inside the ctr namespace
+SERVE_REQUESTS, SERVE_SUBMITTERS, SERVE_BATCH = 2000, 8, 64  # tools/serving_bench.py's defaults
+SERVE_PRIME = 128         # requests served before the measured ones
+SERVE_CHECKED = 512       # predictions held against the forward on the primaries' rows
+SERVE_PROBES = 25
+SERVE_TOL = dict(rtol=1e-5, atol=1e-6)  # cuBLAS may pick another GEMM at another batch
+
+
+class TenantAbuser:
+    """The abusive tenant's flood on a thread of its own, as the JAX
+    interference test drives it: pulls of ``ABUSE_KEYS`` random keys that
+    create rows, each followed by a probe of another tenant's table. Counts
+    each outcome; another error stops the flood and is raised by ``stop``.
+    A quota refusal needs a third admitted frame on a shard, ~0.5 s of
+    refill at 500 units/s: ``stop(until_seen=...)`` lets the flood run on
+    until it has met each named outcome (or ``timeout`` s pass), so a short
+    run still shows all three."""
+
+    def __init__(self, client, table, probe_table):
+        from collections import Counter
+
+        self.client, self.table, self.probe_table = client, table, probe_table
+        self.seen = Counter()
+        self._rng = np.random.default_rng(7)
+        self._thread, self._stop, self._error = None, None, None
+
+    def start(self):
+        import threading
+
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="tenant-abuse", daemon=True)
+        self._thread.start()
+
+    def stop(self, until_seen=(), timeout=30.0):
+        deadline = time.monotonic() + timeout
+        while (any(self.seen[k] == 0 for k in until_seen) and self._thread.is_alive()
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        self._stop.set()
+        self._thread.join(60)
+        assert not self._thread.is_alive(), "the abuser's flood did not stop"
+        if self._error is not None:
+            raise self._error
+
+    def _run(self):
+        from paddle_tpu_torch.core.enforce import (QuotaExceededError, ThrottledError,
+                                                   WrongTenantError)
+
+        try:
+            while not self._stop.is_set():
+                keys = self._rng.integers(1, 1 << 40, ABUSE_KEYS).astype(np.uint64)
+                for call in (lambda: self.client.pull_sparse(self.table, keys, create=True),
+                             lambda: self.client.size(self.probe_table)):
+                    try:
+                        call()
+                        self.seen["ok"] += 1
+                    except (ThrottledError, QuotaExceededError, WrongTenantError) as e:
+                        self.seen[type(e).__name__] += 1
+        except BaseException as e:  # noqa: BLE001 — raised by stop()
+            self._error = e
+
+
+def tenancy_cluster():
+    """The shared cluster, its directory with the two tenants, the abuser's
+    client and its table."""
+    from paddle_tpu_torch.ps.tenancy import Tenant, TenantDirectory, tenant_table_id
+
+    cluster = ha_cluster()
+    d = TenantDirectory(cluster)
+    d.register(Tenant(name="ctr", tid=TENANT_CTR, token=b"ctr"))
+    d.register(Tenant(name="abuse", tid=TENANT_ABUSE, token=b"abuse", **ABUSE_ENVELOPE))
+    abuse = d.client("abuse")
+    abuse.create_sparse_table(tenant_table_id(TENANT_ABUSE, 0), ha_table_config())
+    return cluster, d, abuse
+
+
+def tenancy_train(dev, ds, cluster, d, abuser):
+    """Leg A: the ctr tenant's two epochs over the tier beside the flood
+    (started here, left running), B2 and B4 captured on the first warm
+    batch. Returns (the run's record, the trainer, the tenant's client)."""
+    from paddle_tpu_torch.ps.communicator import SyncCommunicator
+    from paddle_tpu_torch.ps.tenancy import tenant_table_id
+
+    table = tenant_table_id(TENANT_CTR, 0)
+    client = d.client("ctr")
+    client.create_sparse_table(table, ha_table_config())
+    comm = SyncCommunicator(client)
+    # a tenant has no barrier (kBarrier is the operator plane's and a tenant
+    # connection is refused it, in both packages): the tenant's one trainer
+    # quiesces its own traffic instead, which the inline sends already have
+    comm.barrier = comm.quiesce
+    comm.start()
+    tr = ha_trainer(dev, comm, hot=True, table=table)
+    got, restore = capture_hot_step()
+    rec = {}
+    try:
+        abuser.start()
+        _sync(dev)
+        t0 = time.perf_counter()
+        cold = tr.train_from_dataset(ds, batch_size=HA_BATCH)
+        _sync(dev)
+        rec["cold_sps"] = cold["samples"] / (time.perf_counter() - t0)
+        client.reset_op_counts()
+        reset_launches()
+        got["armed"] = True
+        t = time.perf_counter()
+        warm = tr.train_from_dataset(ds, batch_size=HA_BATCH)
+        _sync(dev)
+        rec["warm_sps"] = warm["samples"] / (time.perf_counter() - t)
+        rec["warm_ops"] = client.reset_op_counts()
+        rec["launches"] = read_launches()
+        rec["warm_steps"] = int(warm["steps"])
+    finally:
+        restore()
+    tr.hot_tier.flush()
+    comm.barrier()
+    comm.stop()
+    cluster.drain()
+    rec.update(reshard_table_state(client, ds, table))
+    rec["losses"], rec["dense"] = ha_losses(tr), tr.train_state()
+    rec["captured"] = {k: got[k] for k in ("b2", "b4") if k in got}
+    return rec, tr, client
+
+
+def tenancy_rows_per_shard(cluster, tid):
+    from paddle_tpu_torch.ps.rpc import make_conn
+
+    rows = []
+    for s in range(cluster.num_shards):
+        conn = make_conn(cluster.primary(s).endpoint)
+        try:
+            rows.append(int(conn.tenant_usage(tid)["rows"]))
+        finally:
+            conn.close()
+    return rows
+
+
+def tenancy_wait(cond, what, timeout=60.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < deadline, f"phase 18: {what}"
+        time.sleep(0.01)
+
+
+def serve_requests(ds, n):
+    """[n, 26] slot-tagged keys and [n, 13] dense features: one dataset
+    record a request."""
+    from paddle_tpu_torch.ps.ps_trainer import _dense_and_labels, _slot_tagged_keys
+
+    names = slot_names(SLOTS, DENSE)
+    b = next(iter(ds.batch_iter(n, drop_last=False)))
+    keys = _slot_tagged_keys(b, names["sparse_slots"])
+    dense, _ = _dense_and_labels(b, names["dense_slots"], names["label_slot"], len(keys))
+    return keys, dense
+
+
+def serve_drive(frontend, keys, dense, lo, hi, preds):
+    """Requests lo..hi-1 from ``SERVE_SUBMITTERS`` closed-loop submitters;
+    each prediction lands in ``preds``. Returns the wall seconds."""
+    import threading
+
+    nxt, mu, errs = [lo], threading.Lock(), []
+
+    def submitter():
+        try:
+            while True:
+                with mu:
+                    i = nxt[0]
+                    if i >= hi:
+                        return
+                    nxt[0] += 1
+                preds[i] = frontend.submit(keys[i], dense=dense[i]).result(60)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=submitter, name=f"serve-submit-{t}")
+               for t in range(SERVE_SUBMITTERS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errs, f"phase 18: a serve request failed: {errs[0]!r}"
+    return time.perf_counter() - t0
+
+
+def tenancy_serve(dev, card, cluster, d, tr, client, abuser, abuse, ds):
+    """Leg B (the flood stopped): publish the trained dense tower, one
+    read-only replica a shard, the cached lookup and the frontend; warm
+    requests checked against the forward on the primaries' rows with no
+    client op; then the freshness probes beside the restarted flood.
+    Returns the serving record."""
+    from torch.func import functional_call
+
+    from paddle_tpu_torch.convert import ctr_params_from_jax, ctr_params_to_jax
+    from paddle_tpu_torch.ps.hot_tier import HotEmbeddingTier, HotTierConfig
+    from paddle_tpu_torch.ps.rpc import RpcPsClient
+    from paddle_tpu_torch.ps.tenancy import tenant_table_id
+    from paddle_tpu_torch.serving import (CachedLookup, DenseTowerPublisher, DenseTowerSync,
+                                          FreshnessProbe, FrontendConfig, ReplicaLookup,
+                                          ServingFrontend, ServingReplica, make_serve_client)
+
+    table = tenant_table_id(TENANT_CTR, 0)
+    dense_table = tenant_table_id(TENANT_CTR, DENSE_LOCAL_ID)
+    ctr = d.get("ctr")
+    rec = {}
+    t0 = time.perf_counter()
+    # the dense tower lives whole on shard 0 (DenseTowerSync reads one
+    # replica): the tenant's client of that shard publishes it
+    pub_client = RpcPsClient([cluster.primary(0).endpoint], tenant=(ctr.tid, ctr.token))
+    replicas, serve, frontend = [], None, None
+    try:
+        tree = ctr_params_to_jax(tr.params)["params"]
+        pub = DenseTowerPublisher(pub_client, dense_table, tree)
+        pub.publish(tree)
+        cluster.drain()
+        replicas = [ServingReplica(cluster.store, cluster.job_id, shard=s)
+                    for s in range(cluster.num_shards)]
+        serve = make_serve_client(replicas)
+        view = replicas[0].serve_view(table, ha_table_config(), client=serve)
+        live = {}
+        sync = DenseTowerSync(replicas[0], dense_table, pub.dim, pub.unravel,
+                              sink=lambda t: live.__setitem__("params",
+                                                              ctr_params_from_jax(t, dev)))
+        tenancy_wait(lambda: all(
+            cluster.digests(table, s)[cluster.primary(s).endpoint] == serve.digest(table)[s]
+            for s in range(cluster.num_shards)), "a replica never caught up with its primary")
+        tenancy_wait(lambda: "params" in live and all(
+            torch.equal(live["params"][k], v) for k, v in tr.params.items()),
+            "the dense tower never reached the serving side")
+        rec["catch_up_s"] = time.perf_counter() - t0
+        rec["dense_syncs"] = sync.syncs
+        tier = HotEmbeddingTier(view, HotTierConfig(capacity=HA_CAP, create_on_miss=False),
+                                device=dev)
+        lookup = CachedLookup(tier, replica=replicas[0], freshness_budget_s=0.05)
+
+        def infer(emb, dense):
+            with torch.no_grad():
+                out = functional_call(tr.model, live["params"],
+                                      (torch.from_numpy(emb).to(dev),
+                                       torch.from_numpy(dense).to(dev)))
+                return torch.sigmoid(out).cpu().numpy()
+
+        frontend = ServingFrontend(lookup, infer=infer, config=FrontendConfig(
+            max_batch=SERVE_BATCH, max_delay_us=200, queue_cap=4096,
+            default_deadline_ms=1000.0))
+        n = SERVE_PRIME + SERVE_REQUESTS
+        keys, dense = serve_requests(ds, n)
+        preds = np.zeros(n, np.float32)
+        lookup.lookup(np.unique(keys))  # admit the working set
+        serve_drive(frontend, keys, dense, 0, SERVE_PRIME, preds)
+        frontend.reset_stats()
+        for c in (client, abuse, serve):
+            c.reset_op_counts()
+        wall = serve_drive(frontend, keys, dense, SERVE_PRIME, n, preds)
+        rec["ops"] = {"ctr": client.reset_op_counts(), "abuse": abuse.reset_op_counts(),
+                      "serve": serve.reset_op_counts()}
+        st = frontend.stats()
+        rec["warm"], rec["qps"] = st, st["served"] / wall
+        # the reference: the forward on the trained params and the
+        # primaries' rows, at one batch
+        ck = keys[SERVE_PRIME:SERVE_PRIME + SERVE_CHECKED]
+        rows = client.pull_sparse(table, ck.reshape(-1), create=False)[:, 2:]
+        with torch.no_grad():
+            want = torch.sigmoid(functional_call(tr.model, tr.params, (
+                torch.from_numpy(rows.reshape(len(ck), SLOTS, -1)).to(dev),
+                torch.from_numpy(dense[SERVE_PRIME:SERVE_PRIME + SERVE_CHECKED]).to(dev)))
+                ).cpu().numpy()
+        got = preds[SERVE_PRIME:SERVE_PRIME + SERVE_CHECKED]
+        rec["checked_preds"] = got.copy()
+        rec["pred_max_abs"] = float(np.max(np.abs(got - want)))
+        rec["pred_ok"] = bool(np.allclose(got, want, **SERVE_TOL))
+        rec["preds_finite"] = bool(np.isfinite(preds).all())
+
+        # freshness beside the flood: a marker the ctr client pushes must
+        # become visible through the serving path
+        marker_key = np.asarray([np.uint64(1) << np.uint64(41)], np.uint64)
+        client.pull_sparse(table, marker_key)
+        cluster.drain()
+        width = client._dims(table)[1]
+        direct = ReplicaLookup(serve, table)
+        probe = FreshnessProbe(timeout_s=5.0)
+        marker = [0.0]
+
+        def write():
+            marker[0] += 1.0
+            mp = np.zeros((1, width), np.float32)
+            mp[0, 2] = marker[0]  # the click stat: additive, pull column 1
+            client.push_sparse(table, marker_key, mp)
+
+        abuser.start()
+        try:
+            for _ in range(SERVE_PROBES):
+                probe.measure(write, lambda: direct.lookup(marker_key)[0, 1],
+                              lambda v, m=marker: v >= m[0])
+        finally:
+            abuser.stop()
+        rec["fresh"] = probe.stats()
+        return rec
+    finally:
+        if frontend is not None:
+            frontend.stop()
+        if serve is not None:
+            serve.close()
+        pub_client.close()
+        for r in replicas:
+            r.close()
+
+
+def phase_tenancy(dev, card, oracle=None, keep=None):
+    """Phase 18 (see the section's comment). ``oracle`` is phase 17 leg B's
+    oracle record (None: run it here). Returns (the warm epoch's launch
+    counts, B2's numbers, B4's numbers); the legs' records land in
+    ``keep["train"]`` and ``keep["serve"]``."""
+    from paddle_tpu_torch.ps.tenancy import tenant_table_id
+
+    t_phase = time.perf_counter()
+    ds = ha_dataset()
+    if oracle is None:
+        oracle = reshard_leg_b_run(dev, ds, flip=False)
+    cluster, d, abuse = tenancy_cluster()
+    try:
+        abuser = TenantAbuser(abuse, tenant_table_id(TENANT_ABUSE, 0),
+                              tenant_table_id(TENANT_CTR, 0))
+        try:
+            run, tr, client = tenancy_train(dev, ds, cluster, d, abuser)
+        finally:
+            abuser.stop(until_seen=ABUSE_OUTCOMES)
+        leg_a = dict(abuser.seen)
+        usage = d.usage("abuse")
+        per_shard = tenancy_rows_per_shard(cluster, TENANT_ABUSE)
+        n = run["warm_steps"]
+        log(f"tenancy leg A: the ctr tenant beside the abuser: cold {run['cold_sps']:.1f} "
+            f"samples/s (alone, phase 17 leg B's oracle: {oracle['cold_sps']:.1f}), warm "
+            f"{run['warm_sps']:.1f} (alone {oracle['warm_sps']:.1f}), warm client ops "
+            f"{run['warm_ops']}, launches {run['launches']}; the abuser's calls {leg_a}, its "
+            f"meter {usage}, rows a shard {per_shard} on {card}")
+        assert sum(run["warm_ops"].values()) == 0, f"phase 18: warm client ops {run['warm_ops']}"
+        for kind in ABUSE_OUTCOMES:
+            assert leg_a.get(kind, 0) >= 1, f"phase 18: the abuser never met {kind}: {leg_a}"
+        # the quota refuses at batch granularity: the last admitted frame may
+        # overshoot the cap by its keys on that shard
+        cap = ABUSE_ENVELOPE["max_rows"] + ABUSE_KEYS
+        assert all(r <= cap for r in per_shard), f"phase 18: abuser rows {per_shard} > {cap}"
+        if dev.type == "cuda":
+            assert run["launches"]["hot_probe_gather"] == n == \
+                run["launches"]["hot_scatter_apply"], \
+                f"phase 18: B2/B4 launches {run['launches']} != {n} warm steps"
+        ha_check_losses(run["losses"], "tenancy leg A")
+        checks = reshard_bitwise(run, oracle)
+        log(f"tenancy leg A: the ctr tenant vs its oracle without tenants or abuser, bitwise: "
+            f"{checks}")
+        assert all(checks.values()), f"phase 18: the tenant differs from its oracle: {checks}"
+
+        srv = tenancy_serve(dev, card, cluster, d, tr, client, abuser, abuse, ds)
+        req, fresh = srv["warm"]["request"], srv["fresh"]
+        leg_b = {k: v - leg_a.get(k, 0) for k, v in abuser.seen.items()}
+        log(f"tenancy leg B: replicas caught up and the dense tower synced in "
+            f"{srv['catch_up_s']:.2f} s ({srv['dense_syncs']} syncs); {srv['warm']['served']} "
+            f"warm requests at {srv['qps']:.1f}/s, avg batch {srv['warm'].get('avg_batch')}, "
+            f"p50 {req['p50_ms']} ms, p99 {req['p99_ms']} ms, serve batch p50 "
+            f"{srv['warm']['serve_batch']['p50_ms']} ms; client ops {srv['ops']}; first "
+            f"{SERVE_CHECKED} predictions vs the forward on the primaries' rows: max_abs "
+            f"{srv['pred_max_abs']}; freshness beside the flood: {fresh['probes']} probes, "
+            f"failures {fresh['failures']}, p50 {fresh['p50_ms']} ms, p95 {fresh['p95_ms']} ms "
+            f"(the abuser's calls meanwhile {leg_b}) on {card}")
+        assert srv["preds_finite"] and srv["pred_ok"], \
+            f"phase 18: predictions off the forward by {srv['pred_max_abs']}"
+        assert srv["warm"]["served"] == SERVE_REQUESTS and srv["warm"]["errors"] == 0, srv["warm"]
+        assert all(not ops for ops in srv["ops"].values()), \
+            f"phase 18: warm requests made client ops {srv['ops']}"
+        assert fresh["failures"] == 0 and fresh["probes"] == SERVE_PROBES, fresh
+        usage = d.usage("abuse")
+        log(f"tenancy: the abuser's meter at the end {usage}")
+        if keep is not None:
+            keep.update(train=run, serve=srv)
+    finally:
+        cluster.stop()
+    b2, b4 = ({}, {})
+    if dev.type == "cuda":
+        cap = run["captured"]
+        assert "b2" in cap and "b4" in cap, "phase 18: nothing captured on the first warm batch"
+        b2 = rpc_b2_check(cap["b2"], "tenant's first warm batch")
+        b4 = rpc_b4_check(cap["b4"], "tenant's first warm batch")
+    log(f"tenants and serving (phase 18): {time.perf_counter() - t_phase:.1f} s")
     return run["launches"], b2, b4
 
 
@@ -4555,7 +4984,9 @@ def main(argv):
     gpubox = phase_ps_job(dev, card)
     phase_job_checkpoint(dev, card)
     ha_counts, ha_b2, ha_b4 = phase_ha(dev, card)
-    rs_counts, rs_b2, rs_b4 = phase_reshard(dev, card)
+    keep = {}
+    rs_counts, rs_b2, rs_b4 = phase_reshard(dev, card, keep)
+    tn_counts, tn_b2, tn_b4 = phase_tenancy(dev, card, keep.pop("leg_b_oracle"))
     phase_kernel_counts(dev)
     wd_kernel_counts(dev)
     phase_resnet_kernel_counts(resnets, resnet_batch, profile_dir)
@@ -4621,7 +5052,13 @@ def main(argv):
         entry("hot_probe_gather@reshard", hot_src, "paddle_tpu/ops/hot_kernels.py:116",
               rs_counts["hot_probe_gather"], rs_b2),
         entry("hot_scatter_apply@reshard", hot_src, "paddle_tpu/ops/hot_kernels.py:278",
-              rs_counts["hot_scatter_apply"], rs_b4)]
+              rs_counts["hot_scatter_apply"], rs_b4),
+        # B2 and B4 again as phase 18's tenant launches them beside the
+        # abuser: the warm epoch's launches, their numbers on its first batch
+        entry("hot_probe_gather@tenancy", hot_src, "paddle_tpu/ops/hot_kernels.py:116",
+              tn_counts["hot_probe_gather"], tn_b2),
+        entry("hot_scatter_apply@tenancy", hot_src, "paddle_tpu/ops/hot_kernels.py:278",
+              tn_counts["hot_scatter_apply"], tn_b4)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -24,13 +24,14 @@ from typing import Callable, Dict, Mapping, Union
 import numpy as np
 import torch
 
+from .core.enforce import enforce
 from .optimizer import Adam, MasterWeights
 from .ps.device_hash import dynamic_map_state_to_device, map_state_to_device
 
 __all__ = ["adam_state_from_jax", "cache_state_from_jax", "ctr_params_from_jax",
            "ctr_params_to_jax", "opt_state_to_jax", "dynamic_map_state_from_jax",
            "ernie_params_from_jax", "map_state_from_jax", "opt_state_from_jax",
-           "vision_params_from_jax"]
+           "ravel_tree", "vision_params_from_jax"]
 
 Device = Union[str, torch.device]
 
@@ -57,6 +58,53 @@ def ctr_params_to_jax(params: Mapping) -> dict:
         a = v.detach().cpu().numpy()
         out[k] = np.array(a.T if a.ndim == 2 else a, order="C")
     return {"params": out, "buffers": {}}
+
+
+def _tree_leaves(tree) -> list:
+    """Leaves in the JAX package's tree order: dict keys sorted, lists and
+    tuples in order, None empty."""
+    if isinstance(tree, Mapping):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def _tree_rebuild(tree, leaves):
+    if isinstance(tree, Mapping):
+        out = {k: _tree_rebuild(tree[k], leaves) for k in sorted(tree)}
+        return {k: out[k] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_rebuild(v, leaves) for v in tree)
+    return None if tree is None else next(leaves)
+
+
+def _leaf_array(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v, np.float32)
+
+
+def ravel_tree(tree):
+    """(flat [n] f32 numpy, unravel) of a tree of tensors or arrays (nested
+    dicts, lists, tuples), in the order ``jax.flatten_util.ravel_pytree``
+    gives the same tree: leaves by sorted dict key, each row-major. An f32
+    tree's flat vector equals JAX's bit for bit. ``unravel(flat)`` gives the
+    tree back with the same structure and shapes, as f32 CPU tensors."""
+    leaves = [_leaf_array(v) for v in _tree_leaves(tree)]
+    shapes, sizes = [a.shape for a in leaves], [a.size for a in leaves]
+    flat = np.concatenate([a.reshape(-1) for a in leaves] or [np.zeros(0, np.float32)])
+
+    def unravel(vec):
+        vec = _leaf_array(vec)
+        enforce(vec.shape == (sum(sizes),),
+                f"unravel takes a flat [{sum(sizes)}] vector, got {vec.shape}")
+        offs = np.cumsum([0] + sizes)
+        return _tree_rebuild(tree, iter(
+            torch.from_numpy(vec[o:o + n].reshape(s).copy())
+            for o, n, s in zip(offs, sizes, shapes)))
+
+    return flat, unravel
 
 
 def ernie_params_from_jax(named_params: Mapping,

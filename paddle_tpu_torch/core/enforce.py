@@ -16,8 +16,11 @@ __all__ = [
     "NotFoundError",
     "PreconditionNotMetError",
     "PsTransportError",
+    "QuotaExceededError",
+    "ThrottledError",
     "UnavailableError",
     "WrongShardError",
+    "WrongTenantError",
     "enforce",
     "enforce_eq",
     "enforce_le",
@@ -55,6 +58,36 @@ class WrongShardError(PreconditionNotMetError):
     frame whole (no state changed), so the client re-resolves the routing
     table and replays exactly the bounced keys. Not a transport error: the
     server answered, so the breaker and failover paths stay cold."""
+
+
+class WrongTenantError(PreconditionNotMetError):
+    """A PS request crossed a tenant-namespace fence (the service's
+    ``kErrWrongTenant``): the frame addressed a table outside the
+    connection's bound tenant (the table id's high byte, ``ps.tenancy``),
+    named an unknown tenant or a bad hello token, or was an operator-plane
+    command from a tenant connection. Rejected whole before any state
+    change or oplog tap. Not a transport error and not retryable: the same
+    frame on the same connection fails the same way."""
+
+
+class QuotaExceededError(PreconditionNotMetError):
+    """The tenant's enforced row or SSD-byte quota is exhausted (the
+    service's ``kErrQuota``): the server refused a row-creating command
+    whole, pushes included (their insert creates rows). Another tenant's
+    rows are never evicted to make room. Not retryable without freeing
+    space."""
+
+
+class ThrottledError(PreconditionNotMetError):
+    """The tenant's token-bucket request budget is dry (the service's
+    ``kErrThrottled``): the frame was shed before any state change, with
+    the server's suggested backoff in ``retry_after_ms``. Retryable after
+    that long; serve-class (pclass 0) tenants queue briefly server-side
+    before this surfaces, batch classes shed at once."""
+
+    def __init__(self, msg: str = "", retry_after_ms: int = 0):
+        super().__init__(msg)
+        self.retry_after_ms = int(retry_after_ms)
 
 
 class UnavailableError(EnforceNotMet):

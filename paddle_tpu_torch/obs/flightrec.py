@@ -67,13 +67,17 @@ class FlightRecorder:
     """``out_dir`` is the bundle root (created if missing). ``ring``,
     ``watchdog`` and ``client`` are the JAX recorder's outside sources;
     the port has none of them yet, and passing one raises
-    :class:`UnavailableError` (see the module docstring)."""
+    :class:`UnavailableError` (see the module docstring). ``scope`` is a
+    label subset (``{"tenant": name}``, ``ps.tenancy``): alerts whose
+    labels lack it are left out of the bundle, and the manifest records
+    it. None: a whole-cluster recorder."""
 
     def __init__(self, out_dir: str,
                  ring=None, watchdog=None, client=None,
                  dump_on: Optional[Set[str]] = None,
                  keep: int = 8, min_interval_s: float = 5.0,
-                 tail_events: int = 1024) -> None:
+                 tail_events: int = 1024,
+                 scope: Optional[Dict[str, str]] = None) -> None:
         for what, src, module in (("ring", ring, "obs/timeseries.py"),
                                   ("watchdog", watchdog, "obs/slo.py"),
                                   ("client", client, "obs/aggregate.py and the server's obs wire")):
@@ -83,6 +87,7 @@ class FlightRecorder:
                     "(ROADMAP Queue A item 10)")
         self.out_dir = out_dir
         os.makedirs(out_dir, exist_ok=True)
+        self.scope = dict(scope) if scope else None
         self.dump_on = (set(DEFAULT_DUMP_ON) if dump_on is None
                         else set(dump_on))
         self.keep = int(keep)
@@ -119,6 +124,14 @@ class FlightRecorder:
         return self.trigger(reason=kind, **info)
 
     # -- the dump ----------------------------------------------------------
+
+    def in_scope(self, alerts: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+        """The alerts whose labels carry the recorder's scope (all of them
+        for an unscoped recorder)."""
+        if not self.scope:
+            return list(alerts)
+        return [a for a in alerts
+                if all((a.get("labels") or {}).get(k) == v for k, v in self.scope.items())]
 
     def trigger(self, reason: str, **info: Any) -> Optional[str]:
         """Publish one atomic postmortem bundle; returns its path, or
@@ -191,7 +204,7 @@ class FlightRecorder:
 
         # no watchdog and no metric ring in the port (the constructor
         # refuses them): the bundle keeps the JAX schema with both empty
-        alerts: List[Dict[str, Any]] = []
+        alerts = self.in_scope([])
         records: List[Dict[str, Any]] = []
         tmp = os.path.join(self.out_dir, f"{BUNDLE_PREFIX}{bundle_id}.tmp")
         final = os.path.join(self.out_dir, f"{BUNDLE_PREFIX}{bundle_id}")
@@ -210,6 +223,7 @@ class FlightRecorder:
                 json.dump(blob, f)
         manifest = {
             "reason": reason,
+            **({"scope": self.scope} if self.scope else {}),
             "info": {k: v for k, v in info.items()
                      if isinstance(v, (str, int, float, bool, list, dict))},
             "wall_s": now,

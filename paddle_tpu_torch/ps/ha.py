@@ -47,9 +47,13 @@ server rows, and a snapshot carries the primary's ownership predicate to a
 backup. Read-only observers (serving replicas) attach by their TTL'd
 registration under :func:`observer_key`, as in JAX.
 
-Not ported (each raises ``UnavailableError`` naming its ROADMAP entry):
-``HACluster.client(qos="serve")`` (Queue A item 3, entry 5) and
-``HACluster.obs_probe`` (entry 6).
+A serve-QoS router (``HARouter(qos="serve")``, which
+``HACluster.client(qos="serve")`` builds) takes its breaker thresholds from
+``FLAGS_ps_serve_breaker_*``; breakers live per router, so a serving
+brown-out never opens a training client's breaker.
+
+Not ported: ``HACluster.obs_probe`` raises ``UnavailableError`` (ROADMAP
+Queue A item 3, entry 6).
 """
 
 from __future__ import annotations
@@ -263,11 +267,16 @@ class HARouter:
                  qos: str = "train", clock: Callable[[], float] = time.monotonic,
                  sleep: Callable[[float], None] = time.sleep,
                  jitter_seed: Optional[int] = None) -> None:
-        if qos != "train":
-            raise UnavailableError(
-                f"HARouter(qos={qos!r}): the serve QoS class is not ported yet (ROADMAP "
-                "Queue A item 3, entry 5)")
+        enforce(qos in ("train", "serve"), f"HARouter qos must be 'train' or 'serve', got {qos!r}")
+        # a serve router trips faster and probes sooner; its breakers are its
+        # own, so serve traffic can neither open nor be blocked by a training
+        # client's
         self.qos = qos
+        if qos == "serve":
+            if failures is None:
+                failures = int(flag("ps_serve_breaker_failures"))
+            if cooldown_s is None:
+                cooldown_s = int(flag("ps_serve_breaker_cooldown_ms")) / 1000.0
         self.routing_table = RoutingTable(store, job_id)
         self._clock = clock
         self._sleep = sleep
@@ -1223,13 +1232,12 @@ class HACluster:
         return CheckpointGate(cluster=self, **kw)
 
     def client(self, with_router: bool = True, qos: str = "train", **router_kw) -> RpcPsClient:
-        """A router-wired client (``qos="serve"`` raises: entry 5)."""
-        if qos != "train":
-            raise UnavailableError(
-                f"HACluster.client(qos={qos!r}): the serve QoS class is not ported yet "
-                "(ROADMAP Queue A item 3, entry 5)")
+        """A router-wired client. ``qos="serve"``: the serving read class, a
+        router of its own (its own breakers) and the serve deadline and
+        attempt budget."""
         cli = RpcPsClient(self.routing.primaries(),
-                          router=self.router(**router_kw) if with_router else None)
+                          router=self.router(qos=qos, **router_kw) if with_router else None,
+                          qos=qos)
         self._clients.append(cli)
         return cli
 

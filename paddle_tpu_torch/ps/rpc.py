@@ -41,11 +41,21 @@ of either replicates to a backup of either.
   counters (``obs.registry``) count the encoded payload.
 - :class:`RemoteSparseTable` is the table-shaped view over one sparse
   table on the servers (the hot tier's cold store).
+- QoS classes: ``qos="serve"`` (the serving read path) takes its per-call
+  deadline and attempt budget from ``FLAGS_pserver_serve_timeout_ms`` and
+  ``FLAGS_pserver_serve_max_retry`` instead of the training flags; a serve
+  router (``ps.ha.HARouter(qos="serve")``) has breakers of its own.
+- Tenancy (``ps.tenancy`` drives it): ``tenant=(tid, token)`` binds every
+  connection the client ever builds, failover and reshard replacements
+  included, with a ``kTenantHello`` before its first data frame, replayed
+  after every reconnect. The server's namespace fence, token bucket and
+  quotas answer with :class:`~paddle_tpu_torch.core.enforce.WrongTenantError`,
+  :class:`~paddle_tpu_torch.core.enforce.ThrottledError` (with the server's
+  ``retry_after_ms``) and :class:`~paddle_tpu_torch.core.enforce.QuotaExceededError`.
 
-Not ported (each raises ``UnavailableError`` naming its place in ROADMAP
-Queue A item 3): tenancy (``tenant=``; entry 4), the serve QoS class
-(``qos="serve"``; entry 5), and the per-table density series
-(``density_series``, which needs ``distributed/placement.py``, item 10).
+Not ported: the per-table density series (``density_series`` raises
+``UnavailableError``: it needs ``distributed/placement.py``, ROADMAP Queue A
+item 10).
 ``op_counts`` is a plain counter under a lock.
 """
 
@@ -54,6 +64,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import struct
 # lock discipline (the JAX module's): every client and server mutex is a
 # leaf. `_mu` is the per-connection wire mutex; `_conns_mu` only swaps
 # connections (connects build outside it); `_pool_mu`/`_count_mu`/
@@ -68,7 +79,8 @@ import numpy as np
 
 from ..core import sync as _sync
 from ..core.enforce import (NotFoundError, PreconditionNotMetError, PsTransportError,
-                            UnavailableError, WrongShardError, enforce)
+                            QuotaExceededError, ThrottledError, UnavailableError,
+                            WrongShardError, WrongTenantError, enforce)
 from ..core.flags import define_flag, flag
 from ..obs import flightrec as _flightrec
 from ..obs import registry as _obs_registry
@@ -96,6 +108,19 @@ define_flag("pserver_barrier_timeout_ms", 1800000,
 define_flag("ps_rpc_parallel", True,
             "fan multi-server PS calls out concurrently (one in-flight call per "
             "connection); False runs the servers one after another")
+# the serve QoS class: serving reads are latency-bound and may be shed, so
+# they get a short deadline, one attempt and breaker thresholds of their own
+define_flag("pserver_serve_timeout_ms", 2000,
+            "per-call IO deadline for qos='serve' PS clients (serving reads fail fast "
+            "instead of queueing behind long training calls)")
+define_flag("pserver_serve_max_retry", 1,
+            "attempts per PS call for qos='serve' clients (1 = no retry: the frontend's "
+            "admission control owns the retry policy)")
+define_flag("ps_serve_breaker_failures", 2,
+            "consecutive transport failures before a serve-qos router opens an endpoint's "
+            "breaker")
+define_flag("ps_serve_breaker_cooldown_ms", 500,
+            "open-breaker cooldown of a serve-qos router before one half-open probe")
 define_flag("ps_push_ef_max_rows", 1 << 20,
             "per-table cap on client-side error-feedback residual rows "
             "(push_wire_dtype='int8'): past it the whole table's residuals drain "
@@ -135,6 +160,12 @@ _DENSE_SNAP = 41
 _DENSE_RESTORE = 42
 # live reshard (ps/reshard.py drives it): n = modulus (0 = read), aux = residue
 _RETAIN = 44
+# tenancy (ps/tenancy.py drives it): the hello binds a connection to tenant
+# n (payload: the token); the config installs a tenant (n = 1) or reads its
+# meter (n = 0), operator plane only. The tag rides the table id's high byte
+_TENANT_HELLO = 45
+_TENANT_CONFIG = 46
+_TENANT_SHIFT = 24  # ps_service.cc kTenantShift
 
 # push-value wire encodings (csrc PushWireFlag: kPushSparse aux bits)
 _PUSH_WIRE_F16 = 1
@@ -144,6 +175,9 @@ _PUSH_WIRE_BLOCK_SHIFT = 8
 _ERR_NO_TABLE = -2  # ps_service.cc kErrNoTable
 _ERR_READ_ONLY = -7  # kErrReadOnly
 _ERR_WRONG_SHARD = -8  # kErrWrongShard
+_ERR_WRONG_TENANT = -9  # kErrWrongTenant
+_ERR_QUOTA = -10  # kErrQuota
+_ERR_THROTTLED = -11  # kErrThrottled (payload: i64 retry-after ms)
 _ERR_RESET, _ERR_DEADLINE = -1000, -1001  # PsConn transport failures
 
 _DENSE_OPT_IDS = {"sgd": 0, "adam": 1, "sum": 2}
@@ -291,6 +325,35 @@ class NativePsServer:
         self.close()
 
 
+def _frame_parts(payload):
+    """(ptrs, lens, nparts, keep) of a frame's payload: bytes, one array or
+    a sequence of C-contiguous arrays, sent scatter-gather (the arrays
+    themselves are the frame). ``keep`` holds the bytes parts' buffers: the
+    caller keeps it alive while the pointers are in use."""
+    if payload is None:
+        parts: Tuple = ()
+    elif isinstance(payload, (bytes, bytearray, np.ndarray)):
+        parts = (payload,)
+    else:
+        parts = tuple(payload)
+    nparts = len(parts)
+    ptrs = (ctypes.c_void_p * max(nparts, 1))()
+    lens = (ctypes.c_uint64 * max(nparts, 1))()
+    keep = []
+    for i, part in enumerate(parts):
+        if isinstance(part, np.ndarray):
+            enforce(part.flags["C_CONTIGUOUS"],
+                    "scatter-gather payload parts must be C-contiguous")
+            ptrs[i] = part.ctypes.data
+            lens[i] = part.nbytes
+        else:
+            b = bytes(part)
+            keep.append(b)
+            ptrs[i] = ctypes.cast(ctypes.c_char_p(b), ctypes.c_void_p)
+            lens[i] = len(b)
+    return ptrs, lens, nparts, keep
+
+
 class _ServerConn:
     """One TCP connection (C++ ``PsConn``) with connect and per-call IO
     deadlines, bounded retry with doubling backoff, and reconnect after a
@@ -299,13 +362,27 @@ class _ServerConn:
     as brpc's channel retry; ``retries=0`` opts a call out (barrier,
     shrink, spill, server-side save/load). The fault site ``rpc.call``
     sits inside the retry loop, so an injected fault walks the recovery
-    path a real one would."""
+    path a real one would.
 
-    def __init__(self, lib: ctypes.CDLL, host: str, port: int) -> None:
+    ``io_timeout_flag`` and ``max_retry_flag`` name the flags the deadline
+    and the attempt budget are read from at (re)connect and call time (the
+    serve QoS class passes its own). ``hello`` = (tenant, token) binds the
+    socket to a tenant; the binding is per socket on the server, so it is
+    replayed after every reconnect (a rebuilt socket would otherwise come
+    back on the operator plane)."""
+
+    def __init__(self, lib: ctypes.CDLL, host: str, port: int,
+                 io_timeout_flag: str = "pserver_timeout_ms",
+                 max_retry_flag: str = "pserver_max_retry",
+                 hello: Optional[Tuple[int, bytes]] = None) -> None:
         self._lib = lib
         self._host, self._port = host, port
         self.endpoint = f"{host}:{port}"
         self._h = None
+        self._io_flag = io_timeout_flag
+        self._retry_flag = max_retry_flag
+        self._hello: Optional[Tuple[int, bytes]] = (
+            (int(hello[0]), bytes(hello[1])) if hello else None)
         # one caller owns connect/call/close at a time: a reconnect frees
         # the C++ PsConn another thread could be calling through
         self._mu = _sync.RLock()
@@ -314,11 +391,20 @@ class _ServerConn:
     def _connect(self) -> None:
         self._h = self._lib.psc_connect2(self._host.encode(), self._port,
                                          int(flag("pserver_connect_timeout_ms")),
-                                         int(flag("pserver_timeout_ms")))
+                                         int(flag(self._io_flag)))
         if not self._h:
             raise PsTransportError(
                 f"cannot connect to PS server {self.endpoint} "
                 f"(connect timeout {flag('pserver_connect_timeout_ms')} ms)")
+        if self._hello is not None:
+            tenant, token = self._hello
+            ptrs, lens, nparts, _keep = _frame_parts(token or None)
+            status, _ = self._call_once(_TENANT_HELLO, 0, tenant, 0, ptrs, lens, nparts,
+                                        None, False)
+            if status < 0:
+                self.close()
+                raise WrongTenantError(f"tenant {tenant} hello refused by {self.endpoint} "
+                                       f"(status {status})")
 
     def close(self) -> None:
         with self._mu:
@@ -360,29 +446,10 @@ class _ServerConn:
         deadline (None: the connection's, 0: none). ``view``: the response
         as a uint8 view of this thread's native buffer, valid until the
         thread's next call."""
-        if payload is None:
-            parts: Tuple = ()
-        elif isinstance(payload, (bytes, bytearray, np.ndarray)):
-            parts = (payload,)
-        else:
-            parts = tuple(payload)
-        nparts = len(parts)
-        ptrs = (ctypes.c_void_p * max(nparts, 1))()
-        lens = (ctypes.c_uint64 * max(nparts, 1))()
-        keep = []  # bytes parts stay alive through every attempt
-        for i, part in enumerate(parts):
-            if isinstance(part, np.ndarray):
-                enforce(part.flags["C_CONTIGUOUS"],
-                        "scatter-gather payload parts must be C-contiguous")
-                ptrs[i] = part.ctypes.data
-                lens[i] = part.nbytes
-            else:
-                b = bytes(part)
-                keep.append(b)
-                ptrs[i] = ctypes.cast(ctypes.c_char_p(b), ctypes.c_void_p)
-                lens[i] = len(b)
+        # _keep holds the bytes parts alive through every attempt
+        ptrs, lens, nparts, _keep = _frame_parts(payload)
         if retries is None:
-            retries = max(0, int(flag("pserver_max_retry")) - 1)
+            retries = max(0, int(flag(self._retry_flag)) - 1)
         backoff = int(flag("pserver_retry_backoff_ms")) / 1000.0
         last: Optional[Exception] = None
         for attempt in range(retries + 1):
@@ -415,8 +482,57 @@ class _ServerConn:
                 f"PS server {self.endpoint} no longer owns a key in this request (cmd {cmd}, "
                 f"table {table_id}): the shard topology moved (live reshard); re-resolve the "
                 "routing table and replay")
+        if status == _ERR_WRONG_TENANT:
+            raise WrongTenantError(
+                f"PS server {self.endpoint} refused cmd {cmd} on table {table_id}: outside "
+                "this connection's tenant namespace (or an unknown tenant, a bad hello "
+                "token, or an operator-plane command from a tenant connection)")
+        if status == _ERR_QUOTA:
+            raise QuotaExceededError(
+                f"PS server {self.endpoint} refused row-creating cmd {cmd} on table "
+                f"{table_id}: the tenant's row/SSD-byte quota is exhausted (other tenants' "
+                "rows are never evicted to make room)")
+        if status == _ERR_THROTTLED:
+            # the shed response carries the server's backoff hint (bytes or a
+            # uint8 view); a shed without it reads 1 ms
+            retry_ms = struct.unpack("<q", bytes(resp[:8]))[0] if len(resp) >= 8 else 1
+            raise ThrottledError(f"PS server {self.endpoint} shed cmd {cmd}: the tenant's "
+                                 f"request budget is dry, retry after {retry_ms} ms",
+                                 retry_after_ms=retry_ms)
         enforce(status >= 0, f"PS command {cmd} on {self.endpoint} failed with status {status}")
         return status, resp
+
+    # -- tenancy (ps.tenancy drives these) -------------------------------------
+
+    def tenant_hello(self, tenant: int, token: bytes) -> None:
+        """Bind this connection to ``tenant`` (1..255): every later frame is
+        admitted against its namespace, token bucket and quotas; a rebind is
+        refused by the server. The binding is replayed after a reconnect."""
+        token = bytes(token)
+        self.check(_TENANT_HELLO, 0, int(tenant), 0, token, retries=0)
+        self._hello = (int(tenant), token)
+
+    def tenant_config(self, tenant: int, *, pclass: int = 1, rate: float = 0.0,
+                      burst: float = 0.0, max_rows: int = 0, max_ssd_bytes: int = 0,
+                      token: bytes = b"") -> None:
+        """Install or update a tenant on this server (operator plane only).
+        ``rate``/``burst`` meter its token bucket in cost units (1 a frame + 1
+        a key; 0 = unmetered); ``pclass`` 0 = serve (queues briefly when
+        dry), >= 1 = batch (sheds at once)."""
+        token = bytes(token)
+        payload = struct.pack("<IiddqqII", int(tenant), int(pclass), float(rate),
+                              float(burst), int(max_rows), int(max_ssd_bytes), len(token),
+                              0) + token
+        self.check(_TENANT_CONFIG, 0, 1, 0, payload)
+
+    def tenant_usage(self, tenant: int) -> Dict[str, float]:
+        """A tenant's meter on this server: resident rows, SSD bytes, shed and
+        quota-refusal counts, the bucket's tokens and the class."""
+        _, resp = self.check(_TENANT_CONFIG, int(tenant), 0, 0, None)
+        rows, ssd_bytes, throttled, refused, tokens, pclass = struct.unpack(
+            "<qqqqdq", bytes(resp[:48]))
+        return {"rows": rows, "ssd_bytes": ssd_bytes, "throttled": throttled,
+                "quota_refused": refused, "tokens": tokens, "pclass": pclass}
 
 
 def make_conn(endpoint: str) -> _ServerConn:
@@ -481,19 +597,24 @@ class RpcPsClient(PSClient):
     """:class:`~paddle_tpu_torch.ps.client.PSClient` over N TCP servers
     (see the module docstring). ``endpoints`` are ``"host:port"``;
     ``router`` is an ``ps.ha.HARouter`` (None: the static topology, no
-    breaker, no failover)."""
+    breaker, no failover). ``qos`` is ``"train"`` or ``"serve"``;
+    ``tenant`` = (tid, token) binds every connection to that tenant."""
 
     def __init__(self, endpoints: Sequence[str], router: Optional[object] = None,
                  qos: str = "train", tenant: Optional[Tuple[int, bytes]] = None) -> None:
-        if qos != "train":
-            raise UnavailableError(
-                f"RpcPsClient(qos={qos!r}): the serve QoS class is not ported yet "
-                "(ROADMAP Queue A item 3, entry 5, with serving)")
-        if tenant is not None:
-            raise UnavailableError("RpcPsClient(tenant=...): tenancy is not ported yet "
-                                   "(ROADMAP Queue A item 3, entry 4)")
+        enforce(qos in ("train", "serve"), f"RpcPsClient qos must be 'train' or 'serve', "
+                f"got {qos!r}")
         self._lib = load_ssd()
         self.qos = qos
+        conn_kw = {}
+        if qos == "serve":
+            conn_kw = dict(io_timeout_flag="pserver_serve_timeout_ms",
+                           max_retry_flag="pserver_serve_max_retry")
+        if tenant is not None:
+            conn_kw["hello"] = (int(tenant[0]), bytes(tenant[1]))
+        # every connection this client builds (failover and reshard
+        # replacements too) takes these
+        self._conn_kw = conn_kw
         self._sparse_dims: Dict[int, Tuple[int, int, int]] = {}  # pull, push, full
         self._sparse_cfgs: Dict[int, TableConfig] = {}
         self._dense_dims: Dict[int, int] = {}
@@ -517,7 +638,7 @@ class RpcPsClient(PSClient):
         try:
             for ep in endpoints:
                 host, port = ep.rsplit(":", 1)
-                self._conns.append(_ServerConn(self._lib, host, int(port)))
+                self._conns.append(_ServerConn(self._lib, host, int(port), **conn_kw))
         except BaseException:
             self.close()
             raise
@@ -587,7 +708,7 @@ class RpcPsClient(PSClient):
             if s >= len(self._conns) or self._conns[s].endpoint == endpoint:
                 return
         host, port = endpoint.rsplit(":", 1)
-        fresh = _ServerConn(self._lib, host, int(port))
+        fresh = _ServerConn(self._lib, host, int(port), **self._conn_kw)
         with self._conns_mu:
             if s >= len(self._conns) or self._conns[s].endpoint == endpoint:
                 stale = fresh  # raced: another swap (or a shrink) won
@@ -618,7 +739,7 @@ class RpcPsClient(PSClient):
             for ep in eps:
                 if ep not in have and ep not in built:
                     host, port = ep.rsplit(":", 1)
-                    built[ep] = _ServerConn(self._lib, host, int(port))
+                    built[ep] = _ServerConn(self._lib, host, int(port), **self._conn_kw)
         except BaseException:
             for c in built.values():
                 c.close()
@@ -633,7 +754,7 @@ class RpcPsClient(PSClient):
                     # an endpoint a concurrent refresh dropped between the
                     # two reads: the rare in-lock connect
                     host, port = ep.rsplit(":", 1)
-                    cur = _ServerConn(self._lib, host, int(port))
+                    cur = _ServerConn(self._lib, host, int(port), **self._conn_kw)
                 conns.append(cur)
             stale = [c for c in old if c not in conns]
             self._conns = conns

@@ -1,0 +1,52 @@
+"""Online serving plane: oplog-subscribed read replicas and a batched
+low-latency frontend.
+
+The port's own copy of the first part of ``paddle_tpu.serving``. The
+training side ships every mutation through a seq-numbered replication
+oplog (``ps.ha``); this package uses that stream as a change feed, so
+serving freshness rides replication:
+
+- :class:`~paddle_tpu_torch.serving.replica.ServingReplica`: a read-only
+  ``NativePsServer`` that registers a TTL'd observer lease; the primaries'
+  ``ReplicationManager`` attaches it as it attaches a backup (snapshot,
+  oplog tail, epoch fence), but the coordinator never promotes it. Dense
+  towers refresh off the feed's ``dense_version`` counter
+  (:class:`DenseTowerPublisher`, :class:`DenseTowerSync`).
+- :class:`~paddle_tpu_torch.serving.frontend.ServingFrontend`:
+  micro-batching (up to ``max_batch`` or ``max_delay_us``), a bounded
+  admission queue with load shedding, two priority classes and
+  per-request deadlines.
+- :mod:`~paddle_tpu_torch.serving.lookup`: ``CachedLookup`` serves
+  resident rows through a read-only ``HotEmbeddingTier`` (bounded
+  staleness, no call on warm keys); ``ReplicaLookup`` reads the replica's
+  table.
+
+Every read goes to the replica: serving makes no training-PS call by
+construction, and the serve-path clients run in their own QoS class
+(``ps.rpc`` ``qos="serve"``: short deadlines, breakers of their own).
+
+Not ported yet (ROADMAP Queue A item 6): ``router``, ``fleet``,
+``pipeline``, ``member_host`` and ``rollout``.
+"""
+
+from .frontend import (DeadlineExceeded, FrontendConfig, PendingResult, RequestRejected,
+                       ServingFrontend)
+from .lookup import CachedLookup, ReplicaLookup
+from .metrics import FreshnessProbe, LatencyRecorder
+from .replica import DenseTowerPublisher, DenseTowerSync, ServingReplica, make_serve_client
+
+__all__ = [
+    "ServingReplica",
+    "ServingFrontend",
+    "FrontendConfig",
+    "PendingResult",
+    "RequestRejected",
+    "DeadlineExceeded",
+    "ReplicaLookup",
+    "CachedLookup",
+    "DenseTowerPublisher",
+    "DenseTowerSync",
+    "make_serve_client",
+    "LatencyRecorder",
+    "FreshnessProbe",
+]

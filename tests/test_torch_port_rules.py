@@ -381,3 +381,40 @@ def test_dataset_entry_points_without_device_raise_without_gpu():
     finally:
         executor.device_prefetch = saved
     assert seen == [torch.device("cpu")]
+
+
+def test_import_rule_covers_tenancy_and_serving():
+    """The tenancy module and the serving package are in the rule's file
+    list, and the serving package exports only what is ported (the fleet
+    layer, ``router``/``fleet``/``pipeline``/``member_host``/``rollout``,
+    is not)."""
+    import paddle_tpu_torch.serving as serving
+
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("ps/tenancy.py", "serving/__init__.py", "serving/metrics.py",
+                "serving/frontend.py", "serving/replica.py", "serving/lookup.py"):
+        assert f"paddle_tpu_torch/{mod}" in names, mod
+    assert set(serving.__all__) == {
+        "ServingReplica", "ServingFrontend", "FrontendConfig", "PendingResult",
+        "RequestRejected", "DeadlineExceeded", "ReplicaLookup", "CachedLookup",
+        "DenseTowerPublisher", "DenseTowerSync", "make_serve_client", "LatencyRecorder",
+        "FreshnessProbe"}
+    for later in ("router", "fleet", "pipeline", "member_host", "rollout"):
+        assert not (ROOT / "paddle_tpu_torch" / "serving" / f"{later}.py").exists(), later
+
+
+def test_cached_lookup_tier_without_device_raises_without_gpu():
+    """The serving tier is a hot tier: without a GPU it raises unless the
+    caller asks for the CPU."""
+    _no_gpu()
+    from paddle_tpu_torch.core.enforce import UnavailableError
+    from paddle_tpu_torch.ps.hot_tier import HotEmbeddingTier, HotTierConfig
+    from paddle_tpu_torch.ps.table import MemorySparseTable, TableConfig
+    from paddle_tpu_torch.serving import CachedLookup
+
+    table = MemorySparseTable(TableConfig(shard_num=2, accessor="ctr"))
+    with pytest.raises(UnavailableError):
+        HotEmbeddingTier(table, HotTierConfig(capacity=64, create_on_miss=False))
+    tier = HotEmbeddingTier(table, HotTierConfig(capacity=64, create_on_miss=False),
+                            device="cpu")
+    assert CachedLookup(tier).lookup(np.arange(1, 5, dtype=np.uint64)).shape == (4, 9)
