@@ -2992,7 +2992,9 @@ def phase_rpc(dev, card, ds):
 # table and strategy, and the data comes from MultiSlot part files through
 # the native feed. Phase 4's generator and width (26 slots of 10,000 ids,
 # 13 dense, DeepFM dim 8, DNN 400^3, batch 4096); 131,072 lines in 8 files.
-PSJOB_LINES, PSJOB_FILES, PSJOB_SERVERS, PSJOB_EPOCHS = 131_072, 8, 2, 2
+# The async leg trains one epoch (16 steps a trainer): its losses are checked
+# step by step.
+PSJOB_LINES, PSJOB_FILES, PSJOB_SERVERS, PSJOB_EPOCHS = 131_072, 8, 2, 1
 PSJOB_BATCH = BATCH
 PSJOB_TIMEOUT = 300          # seconds a leg's processes may take
 PSJOB_BALANCE = 0.02         # a trainer's share after the shuffle: half, within 2 %
@@ -3079,6 +3081,15 @@ def ps_job_async(fleet, job, spec, dev):
                                communicator=fleet.communicator, table_id=0,
                                embedx_dim=job.table.accessor_config.embedx_dim, device=dev,
                                **slot_names(SLOTS, DENSE))
+    step_losses = []
+    real_step = trainer._step
+
+    def step(*a):
+        out = real_step(*a)
+        step_losses.append(out[2])
+        return out
+
+    trainer._step = step
     _sync(dev)
     reset_launches()
     epochs = []
@@ -3107,7 +3118,8 @@ def ps_job_async(fleet, job, spec, dev):
     fleet.client.close()
     return {"rank": rank, "loaded": loaded, "records": ds.num_records,
             "digest": str(record_digest(ds)), "load_s": load_s, "shuffle_s": shuffle_s,
-            "epochs": epochs, "launches": launches, "saved": saved, "save_s": save_s}
+            "epochs": epochs, "launches": launches, "saved": saved, "save_s": save_s,
+            "step_losses": [float(x) for x in step_losses]}
 
 
 def ps_job_gpubox(fleet, job, spec, dev):
@@ -3295,8 +3307,7 @@ def ps_job_leg_async(dev, card, base, files, whole):
     digest = sum(int(r["digest"]) for r in readings) % (1 << 64)
     assert digest == record_digest(whole), "the shuffled records differ from the files'"
     for r in readings:
-        losses = [x["loss"] for x in r["epochs"]]
-        assert np.isfinite(losses).all() and losses[-1] < losses[0], f"losses {losses}"
+        ha_check_losses(np.asarray(r["step_losses"]), f"PaddleRec job, trainer {r['rank']}")
         assert sum(r["launches"].values()) == 0, f"a table kernel launched: {r['launches']}"
     saved = readings[0]["saved"]
     assert saved == {"0": len(keys)}, f"saved {saved}, the data has {len(keys)} distinct keys"
@@ -3764,9 +3775,10 @@ def ha_cluster():
     return HACluster(num_shards=HA_SHARDS, replication=HA_REPLICAS, sync=True)
 
 
-def ha_trainer(dev, comm, hot, table=0):
+def ha_trainer(dev, comm, hot, table=0, placement=None):
     """Phase 4's DeepFM from seed 0 over ``comm`` (on ``table``), RPC-only
-    or over the hot tier; its per-step losses and step-end times are kept."""
+    (with ``placement``, a ``PlacementManager``) or over the hot tier; its
+    per-step losses and step-end times are kept."""
     from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
     from paddle_tpu_torch.optimizer import Adam
     from paddle_tpu_torch.ps.hot_tier import HotTierConfig
@@ -3776,7 +3788,7 @@ def ha_trainer(dev, comm, hot, table=0):
                    generator=torch.Generator().manual_seed(0))
     tr = CtrStreamTrainer(model, Adam(learning_rate=1e-3), None, communicator=comm, table_id=table,
                           embedx_dim=DIM, hot_tier=HotTierConfig(capacity=HA_CAP) if hot else None,
-                          device=dev, **slot_names(SLOTS, DENSE))
+                          placement=placement, device=dev, **slot_names(SLOTS, DENSE))
     tr.ha_losses, tr.ha_step_ends = [], []
     name, at = ("_hot_step", 3) if hot else ("_step", 2)
     real = getattr(tr, name)
@@ -4472,6 +4484,7 @@ def reshard_leg_a(dev, card, ds):
     checks = reshard_bitwise(chaos, oracle)
     log(f"PS reshard leg A: chaos vs oracle, bitwise: {checks}")
     assert all(checks.values()), f"leg A's chaos run differs from its oracle: {checks}"
+    return oracle
 
 
 def reshard_leg_b(dev, card, ds):
@@ -4505,13 +4518,14 @@ def phase_reshard(dev, card, keep=None):
     kill mid-migration) and leg B (the tier across a grow; B2 and B4
     bitwise on the first batch after the flip). Returns (leg B's launch
     counts in the warm epoch across the flip, B2's numbers, B4's numbers);
-    leg B's oracle record lands in ``keep["leg_b_oracle"]`` (phase 18's)."""
+    leg B's oracle record lands in ``keep["leg_b_oracle"]`` (phase 18's),
+    leg A's in ``keep["leg_a_oracle"]`` (phase 19's)."""
     t_phase = time.perf_counter()
     ds = ha_dataset()
-    reshard_leg_a(dev, card, ds)
+    oracle_a = reshard_leg_a(dev, card, ds)
     run, oracle = reshard_leg_b(dev, card, ds)
     if keep is not None:
-        keep["leg_b_oracle"] = oracle
+        keep["leg_b_oracle"], keep["leg_a_oracle"] = oracle, oracle_a
     b2, b4 = ({}, {})
     if dev.type == "cuda":
         cap = run["captured"]
@@ -4924,6 +4938,555 @@ def phase_tenancy(dev, card, oracle=None, keep=None):
     return run["launches"], b2, b4
 
 
+# -- phase 19: the PS seen from the server, measured placement, a serving fleet --------
+# Leg A is phase 17 leg A's cell uncut (config 3 as tools/sparse_hot_bench.py
+# runs it: DeepFM on the Criteo shape, 26 slots, dim 8, DNN 400^3, batch 4096;
+# 65,536 lines of 10,000 ids a slot, 259,635 keys; one 2 x 2 sync HACluster,
+# RPC-only, a SyncCommunicator with a drain after every send; 3 epochs), and its
+# oracle is that leg's run without a reshard. Epoch 1 runs traced (every root
+# sampled): the servers' spans and wire counters come back over kObsSnap. A
+# PlacementManager arms the densify from the measured push density (as
+# tests/test_placement.py's acceptance does); a grow before epoch 2 fires its
+# fence, epoch 2 trains on the collective plane (the servers' engine, in the
+# trainer's process), and an arm and a fence before epoch 3 move the table
+# back. Leg B is tools/serving_fleet_bench.py's topology at a smoke's counts
+# (its saturation arm, a capacity number, is left out): a 1-shard HACluster
+# holding leg A's trained rows, 3 members (a read-only replica, a tier of 2^19
+# rows on the card, a CachedLookup and a frontend each) behind a ServingRouter,
+# a lease-watched ServingFleet and a RolloutManager; a request is one record of
+# the data (26 keys), its prediction the DeepFM forward on the card with leg A's
+# trained dense tower as v1 (v2 = v1 + 0.01, the bench's flat_v2).
+PLACE_DENSIFY, PLACE_MIN_SAMPLES = 0.5, 4
+FLEET_MEMBERS, FLEET_CAP, FLEET_BATCH, FLEET_DELAY_US = 3, 1 << 19, 64, 4000
+FLEET_RATE = 1000.0           # open-loop arrivals a second (the bench's steady floor)
+FLEET_REF, FLEET_STEADY, FLEET_CHAOS, FLEET_CHUNK = 1000, 2000, 1000, 500
+FLEET_CHECKED = 512           # steady predictions held against the forward on v1
+FLEET_CANARY = 0.2            # the bench's canary band
+FLEET_BLOCK_SHIFT = 6
+
+
+def phase_wait(cond, what, timeout=60.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < deadline, f"phase 19: {what}"
+        time.sleep(0.01)
+
+
+def obs_wire_rows(snap, role):
+    """Table 0's rows a direction in a merged job snapshot: the client's
+    ``ps_client_wire_rows`` (role "client") or the servers' summed
+    ``ps_server_wire_rows``."""
+    fam = "ps_client_wire_rows" if role == "client" else "ps_server_wire_rows"
+    out = {}
+    for s in snap["metrics"].get(fam, {"series": []})["series"]:
+        if s["labels"].get("table") == "0":
+            d = s["labels"]["dir"]
+            out[d] = out.get(d, 0) + s["value"]
+    return out
+
+
+def obs_traced_epoch(dev, ds, client, tr):
+    """Epoch 1 with every root sampled. Returns the epoch's samples/s and
+    the obs record: the client's spans, each primary's drained server spans
+    and kObsSnap bytes, the wire rows a direction on both sides (deltas over
+    the epoch), and the stitched chrome trace's flows."""
+    from paddle_tpu_torch.obs import aggregate, trace
+    from paddle_tpu_torch.obs.trace import SERVER_SPAN_STRUCT, SERVER_WIRE_STRUCT
+
+    for s in range(client.num_servers):
+        aggregate.fetch_server_obs(client, s, drain=True)
+    base = aggregate.job_snapshot(client)
+    trace.start_tracing(sample=1.0)
+    try:
+        _sync(dev)
+        t = time.perf_counter()
+        r = tr.train_from_dataset(ds, batch_size=HA_BATCH)
+        _sync(dev)
+        sps = r["samples"] / (time.perf_counter() - t)
+    finally:
+        trace.stop_tracing()
+    spans = trace.drain_spans()
+    rec = {"client_spans": len(spans), "spans_dropped": trace.dropped_spans(), "shards": []}
+    events = trace.spans_to_chrome(spans, pid=0, process_name="trainer",
+                                   epoch_offset_us=trace.EPOCH_ANCHOR_US)
+    by_id = {s.span_id: s for s in spans}
+    offsets = []
+    for s in range(client.num_servers):
+        snap, sspans = aggregate.fetch_server_obs(client, s, drain=True)
+        ids = [x["span_id"] for x in sspans]
+        n_tables = len(snap["metrics"]["ps_server_requests"]["series"])
+        rec["shards"].append({
+            "spans": len(sspans), "dropped": snap["process"]["spans_dropped"],
+            "linked": all(i in by_id for i in ids), "unique": len(set(ids)) == len(ids),
+            "same_trace": all(x["trace_id"] == by_id[x["span_id"]].trace_id
+                              for x in sspans if x["span_id"] in by_id),
+            "snap_bytes": 16 + SERVER_WIRE_STRUCT.size * n_tables
+            + SERVER_SPAN_STRUCT.size * len(sspans)})
+        # where each server span starts inside its client span, on the wall
+        # clock: the server's C++ stamp against the client's anchored one
+        offsets += [x["ts_us"] - (trace.EPOCH_ANCHOR_US + by_id[x["span_id"]].t0 * 1e6)
+                    for x in sspans if x["span_id"] in by_id]
+        events += aggregate.server_spans_to_chrome(sspans, pid=1 + s, process_name=f"ps_shard_{s}")
+    after = aggregate.job_snapshot(client)
+    rec["client_rows"] = {d: v - obs_wire_rows(base, "client").get(d, 0)
+                          for d, v in obs_wire_rows(after, "client").items()}
+    rec["server_rows"] = {d: v - obs_wire_rows(base, "server").get(d, 0)
+                          for d, v in obs_wire_rows(after, "server").items()}
+    blob = json.loads(json.dumps({"traceEvents": events, "displayTimeUnit": "ms"}))
+    evs = blob["traceEvents"]
+    starts = {e["id"] for e in evs if e.get("ph") == "s"}
+    finishes = [e for e in evs if e.get("ph") == "f"]
+    rec["flows"] = len(finishes)
+    rec["flows_closed"] = bool(finishes) and all(e["id"] in starts and e["pid"] >= 1
+                                                 for e in finishes)
+    rec["offset_us_p50"] = float(np.median(offsets)) if offsets else float("nan")
+    return sps, rec
+
+
+def placement_leg_a_run(dev, ds):
+    """Leg A, the traced and placed run (see the section's comment). Returns
+    its record: phase 17's table state and dense tree, the obs record, the
+    placement's timings and events, and the trained rows (leg B's table)."""
+    from paddle_tpu_torch.convert import ctr_params_to_jax
+    from paddle_tpu_torch.distributed.placement import PlacementConfig, PlacementManager
+    from paddle_tpu_torch.ps.communicator import SyncCommunicator
+    from paddle_tpu_torch.ps.reshard import ReshardController
+
+    cluster = ha_cluster()
+    try:
+        client = cluster.client()
+        client.create_sparse_table(0, ha_table_config())
+        comm = SyncCommunicator(client)
+        comm.start()
+        base_send = comm.send_sparse
+
+        def send(table_id, keys, values):
+            base_send(table_id, keys, values)
+            cluster.drain()
+
+        comm.send_sparse = send
+        ctrl = ReshardController(cluster)
+        mgr = PlacementManager(client, 0, PlacementConfig(densify_threshold=PLACE_DENSIFY,
+                                                          min_samples=PLACE_MIN_SAMPLES),
+                               controller=ctrl)
+        decided, base_arm = [], mgr.arm
+
+        def arm(target):  # the auto policy's first arm: its series at the decision
+            if not decided:
+                s = mgr.series()
+                decided.append({"target": target, "ewma": s.ewma, "wmin": s.wmin, "n": s.n,
+                                "batch": tr.batches_done})
+            base_arm(target)
+
+        mgr.arm = arm
+        tr = ha_trainer(dev, comm, hot=False, placement=mgr)
+        rec = {"epoch_sps": [], "decided": decided}
+        sps, rec["obs"] = obs_traced_epoch(dev, ds, client, tr)
+        rec["epoch_sps"].append(sps)
+        rec["after_1"] = (mgr.placement, mgr.armed())
+        t = time.perf_counter()
+        rec["grow"] = ctrl.grow(2)
+        rec["grow_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        tr.on_reshard()  # the batch boundary after the fence: the swap applies
+        rec["to_collective_s"] = time.perf_counter() - t
+        rec["after_grow"] = (mgr.placement, client.num_servers)
+        client.reset_op_counts()
+        _sync(dev)
+        t = time.perf_counter()
+        r = tr.train_from_dataset(ds, batch_size=HA_BATCH)
+        _sync(dev)
+        rec["epoch_sps"].append(r["samples"] / (time.perf_counter() - t))
+        rec["collective_ops"] = client.reset_op_counts()
+        mgr.arm("ps")
+        mgr.fence()
+        t = time.perf_counter()
+        mgr.poll(tr)  # a batch boundary after the fence: the swap back
+        rec["to_ps_s"] = time.perf_counter() - t
+        rec["after_back"] = mgr.placement
+        _sync(dev)
+        t = time.perf_counter()
+        r = tr.train_from_dataset(ds, batch_size=HA_BATCH)
+        _sync(dev)
+        rec["epoch_sps"].append(r["samples"] / (time.perf_counter() - t))
+        comm.stop()
+        cluster.drain()
+        rec["events"] = list(mgr.events)
+        rec.update(reshard_table_state(client, ds))
+        rec["num_shards"] = cluster.num_shards
+        rec["replicas_equal"] = all(len(set(cluster.digests(0, s).values())) == 1
+                                    for s in range(cluster.num_shards))
+        rec["losses"], rec["dense"] = ha_losses(tr), tr.train_state()
+        rec["rows"] = client.snapshot_items(0)
+        rec["tree"] = ctr_params_to_jax(tr.params)["params"]
+        return rec
+    finally:
+        cluster.stop()
+
+
+def placement_leg_a(dev, card, ds, oracle):
+    run = placement_leg_a_run(dev, ds)
+    obs, dec = run["obs"], run["decided"]
+    to_c, to_p = run["events"][0]["rows"], run["events"][-1]["rows"]
+    log(f"obs wire leg A: traced epoch 1 {run['epoch_sps'][0]:.1f} samples/s against the "
+        f"untraced oracle's {oracle['epoch_sps'][0]:.1f} (tracing's cost "
+        f"{100 * (1 - run['epoch_sps'][0] / oracle['epoch_sps'][0]):.1f} %); client spans "
+        f"{obs['client_spans']} (dropped {obs['spans_dropped']}); per shard: "
+        + "; ".join(f"{x['spans']} server spans, kObsSnap {x['snap_bytes']} B"
+                    for x in obs["shards"])
+        + f"; wire rows client {obs['client_rows']} server {obs['server_rows']}; "
+        f"{obs['flows']} flows, all finishing on a server lane: {obs['flows_closed']}; "
+        f"server span start - client span start, median {obs['offset_us_p50']:.1f} us on {card}")
+    log(f"placement leg A: armed {dec[0]['target'] if dec else None} from the measured push "
+        f"density at batch {dec[0]['batch'] if dec else '-'} (EWMA "
+        f"{dec[0]['ewma'] if dec else float('nan'):.4f}, window min "
+        f"{dec[0]['wmin'] if dec else float('nan'):.4f}, {dec[0]['n'] if dec else 0} samples); "
+        f"grow 2 -> 4 {run['grow_s']:.2f} s (bootstrap {run['grow']['bootstrap_s']} s, rows "
+        f"moved {run['grow'].get('rows_moved', 'n/a')}); swap to the collective plane "
+        f"{to_c} rows {run['to_collective_s']:.3f} s, back to the PS {to_p} rows "
+        f"{run['to_ps_s']:.3f} s; samples/s per epoch (PS, collective, PS) "
+        f"{[round(x, 1) for x in run['epoch_sps']]} against the oracle's "
+        f"{[round(x, 1) for x in oracle['epoch_sps']]}; client ops on the collective plane "
+        f"{run['collective_ops']} on {card}")
+    for x in obs["shards"]:
+        assert x["spans"] > 0 and x["linked"] and x["unique"] and x["same_trace"], \
+            f"phase 19: server spans not linked to the client's: {obs['shards']}"
+        assert x["dropped"] == 0, f"phase 19: a server dropped spans: {obs['shards']}"
+    assert obs["spans_dropped"] == 0, obs
+    assert obs["client_rows"] == {"pull": obs["server_rows"]["out"],
+                                  "push": obs["server_rows"]["in"]}, \
+        f"phase 19: wire rows client {obs['client_rows']} != server {obs['server_rows']}"
+    assert obs["flows_closed"], "phase 19: a flow of the chrome trace does not finish on a server"
+    assert dec and dec[0]["target"] == "collective", f"phase 19: no densify decision {dec}"
+    assert run["after_1"] == ("ps", "collective"), run["after_1"]
+    assert run["after_grow"] == ("collective", 4), run["after_grow"]
+    assert not {k: v for k, v in run["collective_ops"].items() if "sparse" in k}, \
+        f"phase 19: client sparse ops on the collective plane {run['collective_ops']}"
+    assert run["after_back"] == "ps" and [e["to"] for e in run["events"]] == ["collective", "ps"]
+    assert run["num_shards"] == 4 and run["replicas_equal"], run["num_shards"]
+    assert len(run["losses"]) == RESHARD_EPOCHS * (HA_LINES // HA_BATCH), len(run["losses"])
+    ha_check_losses(run["losses"], "placement leg A")
+    checks = reshard_bitwise(run, oracle)
+    log(f"placement leg A: traced, swapped to the collective plane and back, vs phase 17 leg "
+        f"A's oracle, bitwise: {checks}")
+    assert all(checks.values()), f"phase 19: leg A differs from its oracle: {checks}"
+    return run
+
+
+def fleet_member_factory(dev, cluster, flat_v1, unravel):
+    """One ready member: a replica (the bench's fast lease) caught up with
+    the primary, a read-only tier of ``FLEET_CAP`` rows on ``dev``, the
+    cached lookup, v1 on the card and the DeepFM forward as its infer. Each
+    member has a module of its own: ``functional_call`` swaps a module's
+    parameters while it runs, and the members' frontends run concurrently."""
+    from torch.func import functional_call
+
+    from paddle_tpu_torch.convert import ctr_params_from_jax
+    from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
+    from paddle_tpu_torch.ps.hot_tier import HotEmbeddingTier, HotTierConfig
+    from paddle_tpu_torch.serving import (CachedLookup, DenseModel, FleetMember,
+                                          FrontendConfig, ServingFrontend, ServingReplica)
+
+    def build():
+        rep = ServingReplica(cluster.store, cluster.job_id, shard=0, hb_interval=0.05,
+                             hb_ttl=0.4)
+        serve = rep.client()
+        view = rep.serve_view(0, ha_table_config(), client=serve)
+        prim = cluster.primary(0).endpoint
+        phase_wait(lambda: cluster.digests(0, 0).get(prim) == serve.digest(0)[0],
+                   "a member's replica never caught up")
+        tier = HotEmbeddingTier(view, HotTierConfig(capacity=FLEET_CAP, create_on_miss=False),
+                                device=dev)
+        lookup = CachedLookup(tier, replica=rep, freshness_budget_s=30.0)
+        model = DeepFM(CtrConfig(SLOTS, DENSE, DIM, (400, 400, 400)))
+        live = {}
+        dm = DenseModel(unravel, flat_v1,
+                        sink=lambda t: live.__setitem__("params", ctr_params_from_jax(t, dev)))
+
+        def infer(emb, dense):
+            with torch.no_grad():
+                out = functional_call(model, live["params"], (torch.from_numpy(emb).to(dev),
+                                                              torch.from_numpy(dense).to(dev)))
+                return torch.sigmoid(out).cpu().numpy()
+
+        fe = ServingFrontend(lookup, infer=infer, config=FrontendConfig(
+            max_batch=FLEET_BATCH, max_delay_us=FLEET_DELAY_US, queue_cap=4096,
+            default_deadline_ms=2000.0), replica_label=rep.endpoint)
+        member = FleetMember(rep, lookup, fe, model=dm)
+        member.live = live
+        return member
+    return build
+
+
+def fleet_replay(router, keys, dense, idx, preds=None, mid_hook=None, deadline_ms=2000.0):
+    """Open loop, the bench's driver: request ``idx[j]`` is submitted at
+    ``j / FLEET_RATE`` s whether or not earlier ones finished (``mid_hook``
+    runs a third of the way in), 8 threads collect. Returns wall seconds,
+    errors (a shed at the router included), late arrivals (> 50 ms) and the
+    first error."""
+    import queue
+    import threading
+
+    q, errors = queue.Queue(), []
+
+    def collect():
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            i, rr = item
+            try:
+                v = rr.result(30)
+                if preds is not None:
+                    preds[i] = v
+            except Exception as e:  # noqa: BLE001 — counted
+                errors.append(e)
+
+    threads = [threading.Thread(target=collect, name=f"fleet-collect-{c}") for c in range(8)]
+    for th in threads:
+        th.start()
+    late, start = 0, time.perf_counter()
+    try:
+        for j, i in enumerate(idx):
+            target = start + j / FLEET_RATE
+            now = time.perf_counter()
+            if target > now:
+                time.sleep(target - now)
+            elif now - target > 0.05:
+                late += 1
+            if mid_hook is not None and j == len(idx) // 3:
+                mid_hook()
+            try:
+                q.put((i, router.submit(keys[i], dense=dense[i], deadline_ms=deadline_ms)))
+            except Exception as e:  # noqa: BLE001 — a shed at the router, counted
+                errors.append(e)
+    finally:
+        for _ in threads:
+            q.put(None)
+        for th in threads:
+            th.join()
+    return {"wall_s": time.perf_counter() - start, "errors": len(errors), "late": late,
+            "first_error": repr(errors[0]) if errors else None}
+
+
+def fleet_arm(router, fleet, keys, dense, idx, **kw):
+    """One arm of open-loop traffic: the router's request latency and the
+    members' frontends reset first; p50/p99, requests/s, hedge rate."""
+    for m in fleet.members():
+        m.frontend.reset_stats()
+    router.latency.reset()
+    st0 = router.stats()
+    rep = fleet_replay(router, keys, dense, idx, **kw)
+    st = router.stats()
+    lat = st["request"]
+    routed = st["routed"] - st0["routed"]
+    batches = [m.frontend.stats().get("avg_batch") for m in fleet.members()]
+    rep.update(requests=len(idx), p50_ms=lat["p50_ms"], p99_ms=lat["p99_ms"], avg_batch=batches,
+               rps=(len(idx) - rep["errors"]) / rep["wall_s"],
+               hedges=st["hedges"] - st0["hedges"], reroutes=st["reroutes"] - st0["reroutes"],
+               hedge_rate=(st["hedges"] - st0["hedges"]) / max(routed, 1))
+    return rep
+
+
+def fleet_join_curve(member, keys, dense, idx):
+    """``idx`` through one member's frontend in 4 parts; its tier's misses
+    after each (cumulative)."""
+    miss0, curve = member.lookup.tier.counters["misses"], []
+    for part in np.array_split(np.asarray(idx), 4):
+        pend = [member.frontend.submit(keys[i], dense=dense[i], deadline_ms=10000.0)
+                for i in part]
+        for p in pend:
+            p.result(30)
+        curve.append(int(member.lookup.tier.counters["misses"] - miss0))
+    return curve
+
+
+def fleet_leg_b(dev, card, ds, leg_a):
+    """Leg B (see the section's comment). Returns its record."""
+    import random
+
+    from torch.func import functional_call
+
+    from paddle_tpu_torch.convert import ctr_params_from_jax, ravel_tree
+    from paddle_tpu_torch.io.fs import crc32c
+    from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
+    from paddle_tpu_torch.ps.ha import HACluster
+    from paddle_tpu_torch.serving import (FleetConfig, RolloutManager, RouterConfig,
+                                          ServingFleet, ServingRouter)
+
+    rec = {}
+    cluster = HACluster(num_shards=1, replication=1, sync=False)
+    fleet = router = None
+    try:
+        train = cluster.client()
+        train.create_sparse_table(0, ha_table_config())
+        rows_k, rows_v = leg_a["rows"]
+        for lo in range(0, len(rows_k), 1 << 16):
+            train.import_full(0, rows_k[lo:lo + (1 << 16)], rows_v[lo:lo + (1 << 16)])
+        model = DeepFM(CtrConfig(SLOTS, DENSE, DIM, (400, 400, 400)))
+        flat_v1, unravel = ravel_tree(leg_a["tree"])
+        flat_v2 = flat_v1 + np.float32(0.01)
+        dg_v1 = crc32c(np.ascontiguousarray(flat_v1).tobytes())
+        router = ServingRouter(RouterConfig(block_shift=FLEET_BLOCK_SHIFT, hedge_default_ms=25.0,
+                                            hedge_floor_ms=10.0), rng=random.Random(0))
+        fleet = ServingFleet(cluster.store, cluster.job_id,
+                             fleet_member_factory(dev, cluster, flat_v1, unravel), router,
+                             config=FleetConfig(poll_s=0.05, warm_chunk=4096,
+                                                max_replicas=16)).start()
+        rollout = RolloutManager(lambda: fleet.members(), router)
+        fleet.rollout = rollout
+        v1 = rollout.register_baseline(flat_v1)
+        n = FLEET_REF + FLEET_STEADY + 2 * FLEET_CHAOS + 2 * FLEET_CHUNK
+        keys, dense = serve_requests(ds, n)
+        cuts = np.cumsum([0, FLEET_REF, FLEET_STEADY, FLEET_CHAOS, FLEET_CHAOS, FLEET_CHUNK,
+                          FLEET_CHUNK])
+        ref_i, steady_i, crash_i, drain_i, join_i, canary_i = (
+            np.arange(cuts[k], cuts[k + 1]) for k in range(6))
+        # arm 0: one member, its tier primed with the requests' keys (the
+        # working set a cover pass would leave resident)
+        t = time.perf_counter()
+        (first,) = fleet.add(1, warm=False)
+        rec["join_s"] = time.perf_counter() - t
+        work = np.unique(keys)
+        rec["working_set"] = int(len(work))
+        t = time.perf_counter()
+        for lo in range(0, len(work), 1 << 16):
+            first.lookup.lookup(work[lo:lo + (1 << 16)])
+        rec["prime_s"] = time.perf_counter() - t
+        rec["ref"] = fleet_arm(router, fleet, keys, dense, ref_i)
+        # the fleet: 2 warm joins
+        t = time.perf_counter()
+        fleet.add(FLEET_MEMBERS - 1, warm=True)
+        rec["grow_s"] = time.perf_counter() - t
+        rec["handoffs"] = [e["handoff"] for e in list(fleet.events)[-(FLEET_MEMBERS - 1):]]
+        preds = np.full(n, np.nan, np.float32)
+        rec["steady"] = fleet_arm(router, fleet, keys, dense, steady_i, preds=preds)
+        ck = steady_i[:FLEET_CHECKED]
+        rows = train.pull_sparse(0, keys[ck].reshape(-1), create=False)[:, 2:]
+        p1 = ctr_params_from_jax(unravel(flat_v1), dev)
+        with torch.no_grad():
+            want = torch.sigmoid(functional_call(model, p1, (
+                torch.from_numpy(rows.reshape(len(ck), SLOTS, -1)).to(dev),
+                torch.from_numpy(dense[ck]).to(dev)))).cpu().numpy()
+        rec["pred_max_abs"] = float(np.max(np.abs(preds[ck] - want)))
+        rec["pred_ok"] = bool(np.allclose(preds[ck], want, **SERVE_TOL))
+        rec["preds_finite"] = bool(np.isfinite(preds[steady_i]).all())
+        # a member crashed mid-replay: its lease lapses and the watch removes it
+        victim = fleet.members()[-1]
+        rec["crash"] = fleet_arm(router, fleet, keys, dense, crash_i, mid_hook=victim.crash)
+        phase_wait(lambda: all(m.endpoint != victim.endpoint
+                               for m in fleet.members(live_only=False)),
+                   "the crashed member was never removed", timeout=10.0)
+        rec["crash"]["removed"] = fleet.counters["crashes_removed"]
+        # a member drained and a fresh one joined warm mid-replay
+        # (on a thread of its own, so the arrivals stay open-loop meanwhile)
+        import threading
+
+        oldest, clean, hook = fleet.members()[0], [], []
+
+        def drain_restart():
+            clean.append(fleet.drain(oldest.endpoint))
+            fleet.add(1, warm=True)
+
+        def start_drain_restart():
+            hook.append(threading.Thread(target=drain_restart, name="fleet-drain-restart"))
+            hook[0].start()
+
+        rec["drain"] = fleet_arm(router, fleet, keys, dense, drain_i,
+                                 mid_hook=start_drain_restart)
+        hook[0].join(120)
+        assert not hook[0].is_alive(), "phase 19: the drain and warm join did not end"
+        rec["drain"]["clean"] = bool(clean and clean[0])
+        rec["members"] = fleet.size()
+        # a warm and a cold join, each serving the same chunk
+        (warm_m,) = fleet.add(1, warm=True)
+        rec["warm_handoff"] = fleet.events[-1]["handoff"]
+        rec["warm_curve"] = fleet_join_curve(warm_m, keys, dense, join_i)
+        (cold_m,) = fleet.add(1, warm=False)
+        rec["cold_curve"] = fleet_join_curve(cold_m, keys, dense, join_i)
+        # canary, promote, rollback
+        v2 = rollout.begin_canary(flat_v2, fraction=FLEET_CANARY)
+        expect = sum(router.in_canary_band(int(keys[i][0]) >> FLEET_BLOCK_SHIFT, FLEET_CANARY)
+                     for i in canary_i)
+        rec["canary"] = fleet_arm(router, fleet, keys, dense, canary_i)
+        rec["version_counts"] = dict(router.stats()["version_counts"])
+        rec["expected_split"] = {str(v2): int(expect), str(v1): int(len(canary_i) - expect)}
+        t = time.perf_counter()
+        rollout.promote()
+        rec["promote_s"] = time.perf_counter() - t
+        rec["promoted"] = set(rollout.fleet_versions().values()) == {
+            (v2, rollout.version_digest(v2))}
+        t = time.perf_counter()
+        rollout.rollback(reason="phase 19")
+        rec["rollback_s"] = time.perf_counter() - t
+        back = rollout.fleet_versions()
+        rec["rollback_ok"] = set(back.values()) == {(v1, dg_v1)}
+        rec["rollback_members"] = len(back)
+        rec["live_v1"] = all(all(torch.equal(m.live["params"][k], p1[k]) for k in p1)
+                             for m in fleet.members())
+        rec["fleet_events"] = dict(fleet.counters)
+        rec["hedge_rate"] = router.stats().get("hedge_rate")
+        return rec
+    finally:
+        if fleet is not None:
+            fleet.stop()
+        if router is not None:
+            router.stop()
+        cluster.stop()
+
+
+def phase_obs_fleet(dev, card, oracle=None):
+    """Phase 19 (see the section's comment). ``oracle`` is phase 17 leg A's
+    oracle record (None: run it here)."""
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ds = ha_dataset()
+    if oracle is None:
+        oracle = reshard_leg_a_run(dev, ds, chaos=False)
+    t = time.perf_counter()
+    leg_a = placement_leg_a(dev, card, ds, oracle)
+    leg_a_s = time.perf_counter() - t
+    t = time.perf_counter()
+    b = fleet_leg_b(dev, card, ds, leg_a)
+    leg_b_s = time.perf_counter() - t
+    for name in ("ref", "steady", "crash", "drain", "canary"):
+        a = b[name]
+        log(f"fleet leg B, {name}: {a['requests']} requests open-loop at {FLEET_RATE:.0f}/s: "
+            f"{a['rps']:.1f} requests/s, p50 {a['p50_ms']} ms, p99 {a['p99_ms']} ms, hedge rate "
+            f"{a['hedge_rate']:.4f} ({a['hedges']} hedges, {a['reroutes']} reroutes), errors "
+            f"{a['errors']} (first {a['first_error']}), late arrivals {a['late']}, requests a "
+            f"micro-batch per member {a['avg_batch']} on {card}")
+    log(f"fleet leg B: first member joined in {b['join_s']:.2f} s, its tier primed with the "
+        f"requests' {b['working_set']} keys in {b['prime_s']:.2f} s; 2 warm joins in "
+        f"{b['grow_s']:.2f} s (handoffs "
+        f"{b['handoffs']}); first {FLEET_CHECKED} steady predictions vs the forward on v1 and "
+        f"the primary's rows: max_abs {b['pred_max_abs']}; crash removed by the lease watch "
+        f"({b['crash']['removed']}); drain clean {b['drain']['clean']}; warm join (handoff "
+        f"{b['warm_handoff']}) misses {b['warm_curve']} against a cold join's "
+        f"{b['cold_curve']} over the same {FLEET_CHUNK} requests; canary split "
+        f"{b['version_counts']} (the band predicate: {b['expected_split']}); promote "
+        f"{b['promote_s']:.3f} s, rollback {b['rollback_s']:.3f} s over {b['rollback_members']} "
+        f"members; fleet events {b['fleet_events']} on {card}")
+    assert b["preds_finite"] and b["pred_ok"], \
+        f"phase 19: predictions off the forward by {b['pred_max_abs']}"
+    for name in ("ref", "steady", "crash", "drain", "canary"):
+        assert b[name]["errors"] == 0, f"phase 19: {name} arm errors {b[name]}"
+    assert b["crash"]["removed"] == 1 and b["drain"]["clean"], (b["crash"], b["drain"])
+    assert b["warm_curve"][-1] < b["cold_curve"][-1], (b["warm_curve"], b["cold_curve"])
+    assert b["version_counts"] == b["expected_split"], \
+        f"phase 19: canary split {b['version_counts']} != {b['expected_split']}"
+    assert b["promoted"] and b["rollback_ok"] and b["live_v1"], \
+        "phase 19: v1 was not restored identically on every member"
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30) if dev.type == "cuda" else float("nan")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"obs wire, placement and the serving fleet (phase 19): "
+        f"{time.perf_counter() - t_phase:.1f} s (leg A {leg_a_s:.1f} s, leg B {leg_b_s:.1f} s), "
+        f"peak device memory {peak:.2f} GiB on {card}")
+    return leg_a, b
+
+
 def main(argv):
     profile_dir = None
     if argv[:1] == ["--ps-job"] and len(argv) == 2:
@@ -4987,6 +5550,7 @@ def main(argv):
     keep = {}
     rs_counts, rs_b2, rs_b4 = phase_reshard(dev, card, keep)
     tn_counts, tn_b2, tn_b4 = phase_tenancy(dev, card, keep.pop("leg_b_oracle"))
+    phase_obs_fleet(dev, card, keep.pop("leg_a_oracle"))
     phase_kernel_counts(dev)
     wd_kernel_counts(dev)
     phase_resnet_kernel_counts(resnets, resnet_batch, profile_dir)

@@ -9,20 +9,23 @@ TRIGGER pays real cost: one atomic directory publish
 
 - ``manifest.json``  — reason, trigger info, process identity, wall
   time, bundle content listing;
-- ``trace.json``     — one chrome trace: this process's span tail and
-  the noted events as instant events, on the shared wall-clock axis;
+- ``trace.json``     — one chrome trace: this process's span tail, the
+  PS shards' server spans (with ``client=``) and the noted events as
+  instant events, on the shared wall-clock axis;
 - ``timeline.json``  — the metric ring's delta records;
 - ``alerts.json``    — the SLO alert log;
 - ``events.json``    — the recorder's own noted-event tail with wall
   timestamps.
 
-The JAX recorder's three outside sources — the metric ring (``ring=``,
-``obs/timeseries.py``), the SLO watchdog (``watchdog=``, ``obs/slo.py``)
-and the PS shards' server spans (``client=``, ``obs/aggregate.py`` over
-the server's obs wire) — are not ported (ROADMAP Queue A item 10).
-Passing any of them raises :class:`UnavailableError`; the bundle then
-always has empty ``timeline.json`` records and ``alerts.json`` alerts,
-in the JAX package's schema.
+``client=`` (an ``RpcPsClient``) adds each reachable shard's server spans
+(``obs.aggregate.fetch_server_obs``, a non-draining peek that does not
+retry: a dead shard, often the reason for the dump, is skipped). The JAX
+recorder's other two outside sources — the metric ring (``ring=``,
+``obs/timeseries.py``) and the SLO watchdog (``watchdog=``,
+``obs/slo.py``) — are not ported (ROADMAP Queue A item 10). Passing one
+raises :class:`UnavailableError`; the bundle then always has empty
+``timeline.json`` records and ``alerts.json`` alerts, in the JAX
+package's schema.
 
 Trigger sites call the module-level :func:`notify` — one global read,
 a no-op until a recorder is :func:`install`-ed. In the port the wired
@@ -44,6 +47,7 @@ from typing import Any, Dict, List, Optional, Set
 
 from ..core import sync as _sync
 from ..core.enforce import UnavailableError
+from . import aggregate as _aggregate
 from . import registry as _registry
 from . import trace as _trace
 from .trace import wall_s
@@ -64,10 +68,11 @@ DEFAULT_DUMP_ON = frozenset({
 
 
 class FlightRecorder:
-    """``out_dir`` is the bundle root (created if missing). ``ring``,
-    ``watchdog`` and ``client`` are the JAX recorder's outside sources;
-    the port has none of them yet, and passing one raises
-    :class:`UnavailableError` (see the module docstring). ``scope`` is a
+    """``out_dir`` is the bundle root (created if missing). ``client``
+    (an ``RpcPsClient``) adds the PS shards' server spans to the trace;
+    ``ring`` and ``watchdog``, the JAX recorder's other outside sources,
+    are not ported, and passing one raises :class:`UnavailableError`
+    (see the module docstring). ``scope`` is a
     label subset (``{"tenant": name}``, ``ps.tenancy``): alerts whose
     labels lack it are left out of the bundle, and the manifest records
     it. None: a whole-cluster recorder."""
@@ -79,12 +84,12 @@ class FlightRecorder:
                  tail_events: int = 1024,
                  scope: Optional[Dict[str, str]] = None) -> None:
         for what, src, module in (("ring", ring, "obs/timeseries.py"),
-                                  ("watchdog", watchdog, "obs/slo.py"),
-                                  ("client", client, "obs/aggregate.py and the server's obs wire")):
+                                  ("watchdog", watchdog, "obs/slo.py")):
             if src is not None:
                 raise UnavailableError(
                     f"FlightRecorder({what}=...) needs {module}, which is not ported yet "
                     "(ROADMAP Queue A item 10)")
+        self.client = client
         self.out_dir = out_dir
         os.makedirs(out_dir, exist_ok=True)
         self.scope = dict(scope) if scope else None
@@ -169,14 +174,33 @@ class FlightRecorder:
         self._c_dumps.inc()
         return path
 
+    def _server_span_events(self) -> List[Dict[str, Any]]:
+        if self.client is None:
+            return []
+        events: List[Dict[str, Any]] = []
+        for s in range(self.client.num_servers):
+            try:
+                # a non-draining peek that fails fast: the shard keeps its
+                # ring for the next bundle, and a dead shard (often the
+                # reason for this dump) costs no retry budget
+                _, spans = _aggregate.fetch_server_obs(self.client, s, drain=False,
+                                                       retries=0)
+            except Exception:  # noqa: BLE001 — the dead shard IS the story
+                continue
+            events.extend(_aggregate.server_spans_to_chrome(
+                spans, pid=1 + s, process_name=f"ps_shard_{s}"))
+        return events
+
     def _merged_trace(self, alerts: List[Dict[str, Any]]
                       ) -> Dict[str, Any]:
         """One chrome trace on the shared wall axis: local span tail
-        (epoch-anchored), SLO alerts + noted events as instant events."""
+        (epoch-anchored), reachable server spans (already wall µs), SLO
+        alerts + noted events as instant events."""
         role = _registry.snapshot()["process"]["role"]
         events = _trace.spans_to_chrome(
             _trace.peek_spans(), pid=0, process_name=role,
             epoch_offset_us=_trace.EPOCH_ANCHOR_US)
+        events.extend(self._server_span_events())
         for a in alerts:
             events.append({"name": f"ALERT {a.get('rule', '?')}",
                            "cat": "slo_alert", "ph": "i", "s": "g",

@@ -1,17 +1,21 @@
 """Trace spans (the obs plane's tracing leg).
 
 The port's own copy of ``paddle_tpu.obs.trace``: a trace is a tree of
-spans rooted at one sampled operation; the compact context
-``(trace_id, span_id)`` of the INNERMOST open span is what an RPC frame
-header would carry (the wire's fixed 16-byte field; the port's client
-sends it zeroed — the server-side spans and their stitching,
-``obs/aggregate.py``, are not ported: ROADMAP Queue A). Spans land in a
-bounded ring and export as chrome-trace JSON.
+spans rooted at one sampled operation (one ``CtrStreamTrainer`` step);
+the compact context ``(trace_id, span_id)`` of the INNERMOST open span
+rides the PS RPC frame header (``ps.rpc`` → the fixed 16-byte field of
+``csrc/ps_service.cc``'s ReqHeader). The server records a server-side
+span against it (service time, gate wait, request and response bytes),
+and ``obs.aggregate`` stitches both sides into one chrome trace, where a
+client pull span links by a flow event to the shard that served it.
+Spans land in a bounded ring and export as chrome-trace JSON.
 
 Cost model:
 
 - tracing OFF (default): ``span()`` is one module-bool check;
-  ``wire_context()`` is one check returning (0, 0).
+  ``wire_context()`` is one check returning (0, 0): the request header
+  still carries the 16-byte context field, zeroed, and the server
+  records no span.
 - tracing ON: only SAMPLED roots allocate spans; unsampled traffic pays
   the same single check.
 
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import struct
 import threading
 import time
 from collections import deque
@@ -34,6 +39,7 @@ __all__ = [
     "wire_context", "current_span", "mark_retried", "with_span",
     "drain_spans", "peek_spans", "spans_to_chrome", "export_chrome_trace",
     "WIRE_CONTEXT_BYTES", "EPOCH_ANCHOR_US", "wall_s",
+    "SERVER_SPAN_STRUCT", "SERVER_WIRE_STRUCT",
 ]
 
 #: bytes the trace context occupies in the RPC frame header — fixed
@@ -307,3 +313,15 @@ def export_chrome_trace(path: str, pid: int = 0,
         json.dump({"traceEvents": events, "displayTimeUnit": "ms",
                    "clockSyncUs": EPOCH_ANCHOR_US}, f)
     return path
+
+
+# ---------------------------------------------------------------------------
+# server-span wire format (the kObsSnap response; see csrc/ps_service.cc)
+# ---------------------------------------------------------------------------
+
+#: one server-side span record: trace_id, span_id, cmd, table_id,
+#: ts_us (wall), dur_us, gate_us, req_bytes, resp_bytes
+SERVER_SPAN_STRUCT = struct.Struct("<QQII q q q QQ")
+#: one per-table wire record: table_id, pad, in_bytes, out_bytes,
+#: in_rows, out_rows, reqs
+SERVER_WIRE_STRUCT = struct.Struct("<II qqqqq")

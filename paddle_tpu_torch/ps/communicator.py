@@ -21,8 +21,10 @@ other fetches (:meth:`_BaseCommunicator.fetch_async`, the hot tier's
 cold-row prefetch) run on two pull workers and are tracked, so
 ``quiesce()``/``barrier()`` wait for them too. A prefetched pull that
 dies on a transport failure refreshes the client's routing (``ps.ha``
-failover) and replays once on the promoted backup. ``quiesce()`` and
-``stop()`` drain the client's int8 error-feedback residuals
+failover) and replays once on the promoted backup. A prefetched pull
+carries the submitting thread's trace span (``obs.trace``), so its wire
+frames carry the span's context and a replay marks that span retried.
+``quiesce()`` and ``stop()`` drain the client's int8 error-feedback residuals
 (``RpcPsClient.drain_push_residuals``): after a quiesce no training
 signal lives on the client side. A push that fails on the background
 thread is stored and raised at the next ``barrier()`` or ``stop()``;
@@ -42,6 +44,7 @@ import numpy as np
 
 from ..core.enforce import PreconditionNotMetError
 from ..core.flags import define_flag, flag
+from ..obs import trace as _trace
 from .client import PSClient
 
 __all__ = ["AsyncCommunicator", "CommunicatorConfig", "GeoCommunicator",
@@ -116,7 +119,14 @@ class _BaseCommunicator:
         """Issue a pull on a pull worker; the future's result is the
         pulled values. It sees the pushes that have already reached the PS
         (stale by up to the queue depth: the async-PS contract)."""
-        return self._submit(self._pull_with_replay, table_id, keys, create, slots)
+        # the worker adopts the submitting thread's sampled span (usually
+        # the train step's)
+        return self._submit(self._pull_traced, _trace.current_span(), table_id, keys,
+                            create, slots)
+
+    def _pull_traced(self, ctx, table_id, keys, create, slots):
+        with _trace.with_span(ctx):
+            return self._pull_with_replay(table_id, keys, create, slots)
 
     def _pull_with_replay(self, table_id, keys, create, slots):
         try:
@@ -127,6 +137,7 @@ class _BaseCommunicator:
             refresh = getattr(self.client, "refresh_routing", None)
             if refresh is None or not refresh():
                 raise
+            _trace.mark_retried()  # the same span: a replay, not a new op
             return self.client.pull_sparse(table_id, keys, create, slots)
 
     def fetch_async(self, fn) -> Future:

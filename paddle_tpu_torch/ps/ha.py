@@ -52,8 +52,8 @@ A serve-QoS router (``HARouter(qos="serve")``, which
 ``FLAGS_ps_serve_breaker_*``; breakers live per router, so a serving
 brown-out never opens a training client's breaker.
 
-Not ported: ``HACluster.obs_probe`` raises ``UnavailableError`` (ROADMAP
-Queue A item 3, entry 6).
+``HACluster.obs_probe`` exports every live primary's replication lag
+gauges (``ReplicationManager.export_metrics``), one call a sampler tick.
 """
 
 from __future__ import annotations
@@ -77,7 +77,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..core import sync as _sync
-from ..core.enforce import PreconditionNotMetError, PsTransportError, UnavailableError, enforce
+from ..core.enforce import PreconditionNotMetError, PsTransportError, enforce
 from ..core.flags import define_flag, flag
 from ..distributed.elastic import Lease, MemoryStore
 from ..obs import flightrec as _flightrec
@@ -1242,8 +1242,14 @@ class HACluster:
         return cli
 
     def obs_probe(self) -> None:
-        raise UnavailableError("HACluster.obs_probe feeds obs/timeseries.py's sampler, which "
-                               "is not ported yet (ROADMAP Queue A item 3, entry 6)")
+        """A sampler's probe: export every live primary's replication lag
+        gauges (``ps_replication_lag_entries`` a backup, the ring's
+        pending entries), so one call wires the cluster's lag curves into
+        a job's metrics."""
+        for row in self.servers:
+            for r in row:
+                if r.rm is not None and not r.server.stopped:
+                    r.rm.export_metrics()
 
     def kill_primary(self, shard: int) -> str:
         """Host-death the shard's current primary now; returns its

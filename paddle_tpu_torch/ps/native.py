@@ -13,7 +13,9 @@ different dedup would give different rows.
 The SSD tier (``ssd_table.cc`` over ``sparse_table.h``, the port's copies
 too) builds the same way into a second library, linked with zlib
 (``-lz``), so the host library's build does not need zlib and a machine
-without it fails only the paths that open an SSD table. Only what the
+without it fails only the paths that open an SSD table. The native RAM
+table engine's C ABI (``sparse_table.cc``, :class:`NativeSparseTableEngine`)
+is in that library too: the servers' RAM tables run it. Only what the
 pass trainer's daily loop calls is bound (:class:`SsdTableEngine`); the
 engine's admission sketch, IO budget, background compaction and
 streaming file save/load are not (ROADMAP Queue A).
@@ -25,8 +27,9 @@ and :func:`load_ssd` loads both. Bound: the server lifecycle, the
 mutation gate, the high-availability controls (the oplog tap and its
 consumer, the create catalog, epoch, applied seq, read-only mode, dense
 version, the server's faults), the connection and the scatter-gather call
-(``psc_callv``). The tenancy and obs symbols are in the library but not
-bound (ROADMAP Queue A item 3, entries 4 and 6).
+with its trace context (``psc_callv2``, which ``ps.rpc`` sends every frame
+through). The tenancy commands ride that call; the server's obs state
+answers its ``kObsSnap`` command (``obs.aggregate``).
 """
 
 from __future__ import annotations
@@ -40,15 +43,17 @@ import numpy as np
 
 from ..ops._build import build_shared_library
 
-__all__ = ["FeasignIndex", "NativeDataFeed", "SST_STAT_FIELDS", "SlotParser", "SsdTableEngine",
-           "cuckoo_build", "dedup_u64", "load_native", "load_ssd", "table_native_params"]
+__all__ = ["FeasignIndex", "NativeDataFeed", "NativeSparseTableEngine", "SST_STAT_FIELDS",
+           "SlotParser", "SsdTableEngine", "cuckoo_build", "dedup_u64", "load_native",
+           "load_ssd", "table_native_params"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "csrc")
 _SOURCES = tuple(os.path.join(_CSRC, f)
                  for f in ("sparse_index.cc", "cuckoo.cc", "slot_parser.cc", "data_feed.cc"))
 _SSD_SOURCES = tuple(os.path.join(_CSRC, f) for f in ("ssd_table.cc", "ps_service.cc",
-                                                      "sparse_table.h", "graph_store.h"))
+                                                      "sparse_table.cc", "sparse_table.h",
+                                                      "graph_store.h"))
 _LOCK = threading.Lock()
 _SSD_LOCK = threading.Lock()  # its own, so the two builds run side by side
 _LIB: Optional[ctypes.CDLL] = None
@@ -65,7 +70,8 @@ def _gxx_command(out: str):
 def _gxx_ssd_command(out: str):
     # the headers join the build's digest (_SSD_SOURCES), not the argv
     return ["g++", "-O3", "-ffp-contract=off", "-std=c++17", "-fPIC",
-            "-shared", "-o", out, *_SSD_SOURCES[:2], "-lpthread", "-lz"]
+            "-shared", "-o", out, *(f for f in _SSD_SOURCES if f.endswith(".cc")),
+            "-lpthread", "-lz"]
 
 
 def load_native() -> ctypes.CDLL:
@@ -89,6 +95,7 @@ def load_ssd() -> ctypes.CDLL:
             lib = ctypes.CDLL(build_shared_library("paddle_tpu_torch_ssd", _SSD_SOURCES,
                                                    _gxx_ssd_command))
             _configure_sst(lib)
+            _configure_pst(lib)
             _configure_rpc(lib)
             _SSD_LIB = lib
         return _SSD_LIB
@@ -394,8 +401,9 @@ def table_native_params(shard_num: int, accessor: str, acc_cfg,
 
 def _configure_rpc(lib: ctypes.CDLL) -> None:
     """The PS service's server lifecycle, mutation gate and high-availability
-    controls, connection and scatter-gather call (``psc_callv`` sends the
-    44-byte request header with a zero trace context)."""
+    controls, connection and scatter-gather call (``psc_callv2`` sends the
+    44-byte request header with the caller's trace context, (0, 0) when
+    untraced)."""
     h = ctypes.c_void_p
     lib.pss_create.restype = ctypes.c_void_p
     lib.pss_create.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
@@ -413,10 +421,11 @@ def _configure_rpc(lib: ctypes.CDLL) -> None:
     lib.psc_connect2.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.psc_close.restype = None
     lib.psc_close.argtypes = [h]
-    lib.psc_callv.restype = ctypes.c_int64
-    lib.psc_callv.argtypes = [h, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64,
-                              ctypes.c_int32, ctypes.c_int32, ctypes.POINTER(ctypes.c_void_p),
-                              ctypes.POINTER(ctypes.c_uint64), ctypes.c_int32]
+    lib.psc_callv2.restype = ctypes.c_int64
+    lib.psc_callv2.argtypes = [h, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64,
+                               ctypes.c_int32, ctypes.c_int32, ctypes.POINTER(ctypes.c_void_p),
+                               ctypes.POINTER(ctypes.c_uint64), ctypes.c_int32, ctypes.c_uint64,
+                               ctypes.c_uint64]
     lib.psc_resp_len.restype = ctypes.c_uint64
     lib.psc_resp_len.argtypes = [h]
     lib.psc_resp_ptr.restype = ctypes.c_void_p
@@ -495,6 +504,129 @@ def _configure_sst(lib: ctypes.CDLL) -> None:
     lib.sst_flush.argtypes = [h]
     lib.sst_digest.restype = ctypes.c_uint64
     lib.sst_digest.argtypes = [h]
+
+
+def _configure_pst(lib: ctypes.CDLL) -> None:
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    h = ctypes.c_void_p
+    lib.pst_create.restype = ctypes.c_void_p
+    lib.pst_create.argtypes = [i32p, f32p]
+    lib.pst_destroy.restype = None
+    lib.pst_destroy.argtypes = [h]
+    for fn in ("pst_pull_dim", "pst_push_dim", "pst_full_dim"):
+        getattr(lib, fn).restype = ctypes.c_int32
+        getattr(lib, fn).argtypes = [h]
+    lib.pst_size.restype = ctypes.c_int64
+    lib.pst_size.argtypes = [h]
+    lib.pst_shard_sizes.restype = None
+    lib.pst_shard_sizes.argtypes = [h, ctypes.POINTER(ctypes.c_int64)]
+    lib.pst_pull.restype = None
+    lib.pst_pull.argtypes = [h, u64p, i32p, ctypes.c_int64, ctypes.c_int32, f32p]
+    lib.pst_push.restype = None
+    lib.pst_push.argtypes = [h, u64p, f32p, ctypes.c_int64]
+    lib.pst_shrink.restype = ctypes.c_int64
+    lib.pst_shrink.argtypes = [h]
+    lib.pst_save_begin.restype = ctypes.c_int64
+    lib.pst_save_begin.argtypes = [h, ctypes.c_int32]
+    lib.pst_save_fetch.restype = None
+    lib.pst_save_fetch.argtypes = [h, u64p, f32p]
+    lib.pst_insert_full.restype = None
+    lib.pst_insert_full.argtypes = [h, u64p, f32p, ctypes.c_int64]
+    lib.pst_export_create.restype = None
+    lib.pst_export_create.argtypes = [h, u64p, i32p, ctypes.c_int64, f32p, u8p]
+    lib.pst_export.restype = None
+    lib.pst_export.argtypes = [h, u64p, ctypes.c_int64, f32p, u8p]
+    lib.pst_digest.restype = ctypes.c_uint64
+    lib.pst_digest.argtypes = [h]
+
+
+class NativeSparseTableEngine:
+    """ctypes handle over the native RAM table engine
+    (``csrc/sparse_table.cc``, built into the PS service's library): the
+    engine the servers' RAM tables run, shard-parallel pull and push with
+    the accessor and SGD rules in C++, so a local table on it updates bit
+    for bit as a server does."""
+
+    def __init__(self, shard_num: int, accessor: str, acc_cfg, seed: int) -> None:
+        self._lib = load_ssd()
+        iparams, fparams = table_native_params(shard_num, accessor, acc_cfg, seed)
+        self._h = self._lib.pst_create(_i32(iparams), _f32(fparams))
+        self._save_lock = threading.Lock()  # a save's begin and fetch must not interleave
+        self.pull_dim = int(self._lib.pst_pull_dim(self._h))
+        self.push_dim = int(self._lib.pst_push_dim(self._h))
+        self.full_dim = int(self._lib.pst_full_dim(self._h))
+
+    def __del__(self):
+        self.close()
+
+    def close(self) -> None:
+        """Release the engine (idempotent)."""
+        if getattr(self, "_h", None):
+            self._lib.pst_destroy(self._h)
+            self._h = None
+
+    def size(self) -> int:
+        return int(self._lib.pst_size(self._h))
+
+    def shard_sizes(self, shard_num: int) -> np.ndarray:
+        out = np.empty(shard_num, np.int64)
+        self._lib.pst_shard_sizes(self._h, out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+        return out
+
+    def pull(self, keys: np.ndarray, slots, create: bool) -> np.ndarray:
+        keys = np.ascontiguousarray(keys, np.uint64)
+        out = np.empty((len(keys), self.pull_dim), np.float32)
+        slots_arr = np.ascontiguousarray(slots, np.int32) if slots is not None else None
+        self._lib.pst_pull(self._h, _u64(keys),
+                           _i32(slots_arr) if slots_arr is not None else None,
+                           len(keys), 1 if create else 0, _f32(out))
+        return out
+
+    def push(self, keys: np.ndarray, push_values: np.ndarray) -> None:
+        keys = np.ascontiguousarray(keys, np.uint64)
+        push_values = np.ascontiguousarray(push_values, np.float32)
+        self._lib.pst_push(self._h, _u64(keys), _f32(push_values), len(keys))
+
+    def shrink(self) -> int:
+        return int(self._lib.pst_shrink(self._h))
+
+    def export_full(self, keys: np.ndarray, create: bool = False,
+                    slots=None) -> Tuple[np.ndarray, np.ndarray]:
+        keys = np.ascontiguousarray(keys, np.uint64)
+        values = np.empty((len(keys), self.full_dim), np.float32)
+        found = np.empty(len(keys), np.uint8)
+        fp = found.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+        if create:
+            slots_arr = np.ascontiguousarray(slots, np.int32) if slots is not None else None
+            self._lib.pst_export_create(self._h, _u64(keys),
+                                        _i32(slots_arr) if slots_arr is not None else None,
+                                        len(keys), _f32(values), fp)
+        else:
+            self._lib.pst_export(self._h, _u64(keys), len(keys), _f32(values), fp)
+        return values, found.astype(bool)
+
+    def insert_full(self, keys: np.ndarray, values: np.ndarray) -> None:
+        keys = np.ascontiguousarray(keys, np.uint64)
+        values = np.ascontiguousarray(values, np.float32)
+        self._lib.pst_insert_full(self._h, _u64(keys), _f32(values), len(keys))
+
+    def digest(self) -> int:
+        """Order-independent content digest, equal to a server's for the
+        same rows."""
+        return int(self._lib.pst_digest(self._h))
+
+    def save_items(self, mode: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(keys, full rows) after the accessor's save filter for ``mode``;
+        the engine applies update_stat_after_save."""
+        with self._save_lock:
+            n = int(self._lib.pst_save_begin(self._h, mode))
+            keys = np.empty(n, np.uint64)
+            values = np.empty((n, self.full_dim), np.float32)
+            self._lib.pst_save_fetch(self._h, _u64(keys), _f32(values))
+        return keys, values
 
 
 class SsdTableEngine:

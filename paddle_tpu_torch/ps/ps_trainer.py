@@ -51,11 +51,17 @@ checkpoint; a restore drops the hot tier's resident set, which refills on
 miss), ``checkpoint=``/``checkpoint_every=`` (quiesce the communicator,
 flush the hot tier, save the cut with its stream cursor), ``start_batch``
 as that cursor, and ``on_reshard()``. Its obs hooks: the
-``trainer_step_time_s`` histogram (host time a step, no device sync) and
-the flight recorder's ``trainer_exception`` notify.
+``trainer_step_time_s`` histogram (host time a step, no device sync), the
+flight recorder's ``trainer_exception`` notify, and a
+``ctr_stream_step`` trace span a step while tracing is on (the root the
+PS client's spans hang under). Measured placement
+(``placement=distributed.placement.PlacementManager``): the manager polls
+at every batch boundary and may move the table to a trainer-local table
+(the collective plane: pulls and pushes there, no PS call) and back at a
+reshard's epoch fence; it flushes before a checkpoint cut and drops the
+local residence after a restore.
 
-Not ported yet (ROADMAP Queue A): measured placement (``placement=``
-raises); ``CtrPassTrainer.save_inference_model`` (raises:
+Not ported yet (ROADMAP Queue A): ``CtrPassTrainer.save_inference_model`` (raises:
 ``io/inference.py``) and the pass-end ``check_nan_inf`` guard (a flag
 that defaults to off in the JAX package; the port does not define it).
 """
@@ -86,6 +92,7 @@ from ..metrics.basic import WuAUC
 from ..models.ctr import make_ctr_train_step_packed, make_ctr_train_step_slab, pack_ctr_batch
 from ..obs import flightrec as _flightrec
 from ..obs import registry as _obs_registry
+from ..obs import trace as _trace
 from .embedding_cache import CacheConfig, HbmEmbeddingCache
 from .hot_tier import (HotEmbeddingTier, HotTierConfig, make_hot_ctr_train_step,
                        make_sharded_hot_train_step, stream_loss_fn)
@@ -439,13 +446,10 @@ class CtrStreamTrainer:
         embedx_dim: Optional[int] = None,
         pull_ahead: Optional[int] = None,
         hot_tier=None,       # HotEmbeddingTier | HotTierConfig | None
-        placement=None,
+        placement=None,      # distributed.placement.PlacementManager
         device: Optional[Union[str, torch.device]] = None,
         amp: bool = False,
     ) -> None:
-        enforce(placement is None,
-                "CtrStreamTrainer: measured placement is not ported yet "
-                "(distributed/placement.py, ROADMAP Queue A)", UnavailableError)
         enforce(table is not None or communicator is not None,
                 "need a local table or a communicator-wrapped client")
         self.device = resolve_device(device)
@@ -462,6 +466,15 @@ class CtrStreamTrainer:
             self.pull_ahead = max(0, int(flag("communicator_pull_ahead")))
         else:
             self.pull_ahead = max(0, int(pull_ahead))
+        #: measured placement: a poll at a batch boundary may swap the table
+        #: between the PS and the collective plane, and a prefetched pull
+        #: would straddle the swap, so placement forces pull-ahead 0; the hot
+        #: tier owns its table's residency itself (mutually exclusive)
+        self.placement = placement
+        if placement is not None:
+            enforce(hot_tier is None, "placement and hot_tier are mutually exclusive — "
+                    "the tier already owns this table's residency")
+            self.pull_ahead = 0
         self.amp = bool(amp)
         if embedx_dim is not None:
             self._dim = int(embedx_dim)
@@ -544,6 +557,10 @@ class CtrStreamTrainer:
         self.params = ctr_params_from_jax(dense["state"], self.device)
         self.opt_state = opt_state_from_jax(dense["opt"], self.optimizer, self.device,
                                             ctr_params_from_jax)
+        if self.placement is not None:
+            # the PS was (or is about to be) rebuilt from the checkpoint: a
+            # collective-plane residence is stale against it
+            self.placement.reset_to_ps()
         if self.hot_tier is not None:
             self.hot_tier.drop()
 
@@ -554,8 +571,9 @@ class CtrStreamTrainer:
         queued push straddles the cutover), the hot tier flushes its dirty
         rows and KEEPS its resident set (``HotEmbeddingTier.on_reshard``),
         and the client re-resolves the routing at once instead of paying
-        one bounced op. The JAX trainer then polls its placement manager,
-        which is not ported (ROADMAP Queue A item 10)."""
+        one bounced op. Then the placement manager polls: the reshard's
+        pre-cutover hook fenced it, and this boundary is the first safe
+        point after the fence, so an armed swap applies now."""
         if self.communicator is not None:
             self.communicator.quiesce()
         if self.hot_tier is not None:
@@ -564,6 +582,8 @@ class CtrStreamTrainer:
             refresh = getattr(self.communicator.client, "refresh_routing", None)
             if refresh is not None:
                 refresh()
+        if self.placement is not None:
+            self.placement.poll(self)
 
     def _maybe_checkpoint(self, checkpoint, every: int, batch_size: int) -> None:
         if checkpoint is None or every <= 0 or self.batches_done % every != 0:
@@ -572,6 +592,10 @@ class CtrStreamTrainer:
             # local quiesce, NOT barrier(): a sync barrier is a rendezvous
             # of every trainer, and the others are not at it
             self.communicator.quiesce()
+        if self.placement is not None:
+            # collective-plane rows write back (the trainer stays on the
+            # plane), so the PS table the cut captures is complete
+            self.placement.flush()
         if self.hot_tier is not None:
             # flush-dirty-then-snapshot: every resident row's training is in
             # the cold table before the manager gates mutations and digests
@@ -656,8 +680,19 @@ class CtrStreamTrainer:
 
         def _run(keys, flat, dense, labels, fut):
             t_step = time.perf_counter()
-            with torch.profiler.record_function("ctr_stream_step"):
-                if fut is not None:
+            # the step's span is the trace root the client's pull and push
+            # spans hang under (tracing off: one flag check)
+            with torch.profiler.record_function("ctr_stream_step"), \
+                    _trace.span("ctr_stream_step"):
+                # measured placement: an armed swap executes here, at the
+                # batch boundary, never mid-push
+                local = None
+                if self.placement is not None:
+                    self.placement.poll(self)
+                    local = self.placement.local_table
+                if local is not None:  # the collective plane's residence
+                    pulled = local.pull_sparse(flat, slots=slot_ids[:len(flat)], create=True)
+                elif fut is not None:
                     pulled = fut.result()
                 elif comm is not None:
                     pulled = comm.client.pull_sparse(self.table_id, flat, create=True,
@@ -677,7 +712,12 @@ class CtrStreamTrainer:
                 push[:, 1] = 1.0                        # show
                 push[:, 2] = np.repeat(labels, S)       # click
                 push[:, 3:] = g
-                if comm is not None:
+                if local is not None:
+                    local.push_sparse(flat, push)
+                    # local pushes cross no wire counter: the placement
+                    # window gets the sample, so sparsify-back has a signal
+                    self.placement.observe_push(push)
+                elif comm is not None:
                     comm.send_sparse(self.table_id, flat, push)
                 else:
                     self.table.push_sparse(flat, push)

@@ -3,7 +3,8 @@
 The port's own copy of ``paddle_tpu.ps.rpc`` over its own copy of the
 native service (``csrc/ps_service.cc``, built into the SSD tier's
 library, loaded by ``ps.native.load_ssd``). The wire is the JAX package's: a
-44-byte request header (the trace-context field always zero), the same
+44-byte request header (its last 16 bytes the trace context,
+``obs.trace.wire_context()``: zero unless a sampled span is open), the same
 command ids, status codes, value encodings and replication frames, so a
 client of either package talks to the servers of either, and a primary
 of either replicates to a backup of either.
@@ -53,9 +54,16 @@ of either replicates to a backup of either.
   :class:`~paddle_tpu_torch.core.enforce.ThrottledError` (with the server's
   ``retry_after_ms``) and :class:`~paddle_tpu_torch.core.enforce.QuotaExceededError`.
 
-Not ported: the per-table density series (``density_series`` raises
-``UnavailableError``: it needs ``distributed/placement.py``, ROADMAP Queue A
-item 10).
+- The obs wire: every frame carries the calling thread's trace context
+  (fan-out workers adopt the op's span; a retry or a failover replay marks
+  it ``retried``); ``pull_sparse``/``push_sparse`` open the client spans
+  ``pserver_client_pull_sparse``/``_push_sparse`` while tracing is on. A
+  server records a span for each traced frame, and ``obs.aggregate``
+  fetches them with the per-table server wire counters (``kObsSnap``).
+  Beside the client's wire counters, each table has a windowed density
+  series a direction (``density_series``: the nonzero share of the pulled
+  rows and of the pushed gradient block), the signal
+  ``distributed.placement`` decides on.
 ``op_counts`` is a plain counter under a lock.
 """
 
@@ -79,11 +87,12 @@ import numpy as np
 
 from ..core import sync as _sync
 from ..core.enforce import (NotFoundError, PreconditionNotMetError, PsTransportError,
-                            QuotaExceededError, ThrottledError, UnavailableError,
-                            WrongShardError, WrongTenantError, enforce)
+                            QuotaExceededError, ThrottledError, WrongShardError,
+                            WrongTenantError, enforce)
 from ..core.flags import define_flag, flag
 from ..obs import flightrec as _flightrec
 from ..obs import registry as _obs_registry
+from ..obs import trace as _trace
 from .accessor import AccessorConfig, make_accessor
 from .client import PSClient
 from .faultpoints import faultpoint
@@ -158,6 +167,9 @@ _REPL_STATE = 39
 _DIGEST = 40
 _DENSE_SNAP = 41
 _DENSE_RESTORE = 42
+# obs plane (obs/aggregate.py): the per-table wire counters and the server
+# spans; aux 1 drains the spans, aux 2 zeroes the counters
+_OBS_SNAP = 43
 # live reshard (ps/reshard.py drives it): n = modulus (0 = read), aux = residue
 _RETAIN = 44
 # tenancy (ps/tenancy.py drives it): the hello binds a connection to tenant
@@ -179,6 +191,10 @@ _ERR_WRONG_TENANT = -9  # kErrWrongTenant
 _ERR_QUOTA = -10  # kErrQuota
 _ERR_THROTTLED = -11  # kErrThrottled (payload: i64 retry-after ms)
 _ERR_RESET, _ERR_DEADLINE = -1000, -1001  # PsConn transport failures
+# frame header sizes: the request's 28 bytes and the 16-byte trace context
+# (ps/ha.py _HDR is the same 44), the response's length and status
+_REQ_HEADER_BYTES = 28 + _trace.WIRE_CONTEXT_BYTES
+_RESP_HEADER_BYTES = 16
 
 _DENSE_OPT_IDS = {"sgd": 0, "adam": 1, "sum": 2}
 _SAVE_FORMATS = {None: (0, ""), "gzip": (1, ".gz"), "raw": (2, ".bin")}
@@ -187,6 +203,12 @@ _SAVE_FORMATS = {None: (0, ""), "gzip": (1, ".gz"), "raw": (2, ".bin")}
 def _long_ms() -> int:
     """Deadline of a command whose run time grows with the table."""
     return int(flag("pserver_long_call_timeout_ms"))
+
+
+def _run_with_span(span, task):
+    """Fan-out worker shim: ``task`` with the submitting thread's span."""
+    with _trace.with_span(span):
+        return task()
 
 
 class NativePsServer:
@@ -416,13 +438,22 @@ class _ServerConn:
         self.close()
 
     def _call_once(self, cmd, table_id, n, aux, ptrs, lens, nparts, timeout_ms, view):
-        status = int(self._lib.psc_callv(self._h, cmd, table_id, n, aux, nparts, ptrs, lens,
-                                         -1 if timeout_ms is None else timeout_ms))
+        # the sampled span open on this thread rides the header's context
+        # field; (0, 0) otherwise, and the server records no span
+        trace_id, span_id = _trace.wire_context()
+        status = int(self._lib.psc_callv2(self._h, cmd, table_id, n, aux, nparts, ptrs, lens,
+                                          -1 if timeout_ms is None else timeout_ms,
+                                          trace_id, span_id))
         if status <= _ERR_RESET:
             self.close()
             kind = "timed out" if status == _ERR_DEADLINE else "reset/refused"
             raise PsTransportError(f"PS transport to {self.endpoint} {kind} (cmd {cmd})")
         rlen = int(self._lib.psc_resp_len(self._h))
+        if span_id:  # traced: the frame's bytes go on the client span
+            sp = _trace.current_span()
+            if sp is not None:
+                sp.add_bytes(tx=_REQ_HEADER_BYTES + sum(lens[i] for i in range(nparts)),
+                             rx=_RESP_HEADER_BYTES + rlen)
         if not rlen:
             return status, b""
         if view:
@@ -463,6 +494,9 @@ class _ServerConn:
             except PsTransportError as e:
                 last = e
                 if attempt < retries:
+                    # a replay of the same op: the open span is marked, so
+                    # the trace shows a retried call, not an extra one
+                    _trace.mark_retried()
                     time.sleep(backoff * (2 ** attempt))
         raise PsTransportError(f"PS server {self.endpoint} unreachable after "
                                f"{retries + 1} attempt(s): {last}")
@@ -664,22 +698,34 @@ class RpcPsClient(PSClient):
 
     def _bind_table_obs(self, table_id: int) -> None:
         """Bind the table's wire counters (bytes and rows, a series per
-        direction) on the create path; with ``FLAGS_obs_metrics`` off
-        nothing is bound and the data path skips the accounting."""
+        direction) and its density series (``ps_client_density`` with its
+        window's ``_min``/``_max`` gauges, a series per direction) on the
+        create path; with ``FLAGS_obs_metrics`` off nothing is bound and
+        the data path skips the accounting, its nonzero scans included."""
         if not _obs_registry.metrics_enabled():
             self._tbl_obs.pop(table_id, None)
             return
+        # lazy: distributed/__init__ pulls the fleet, which imports ps.*
+        from ..distributed.placement import DensitySeries
+
         t, reg = str(table_id), _obs_registry.REGISTRY
-        self._tbl_obs[table_id] = {
+        m: Dict[str, object] = {
             f"{d}_{what}": reg.counter(f"ps_client_wire_{what}", table=t, dir=d)
             for d in ("pull", "push") for what in ("bytes", "rows")}
+        for d in ("pull", "push"):
+            m[f"{d}_window"] = DensitySeries(
+                gauge=reg.gauge("ps_client_density", table=t, dir=d),
+                gmin=reg.gauge("ps_client_density_min", table=t, dir=d),
+                gmax=reg.gauge("ps_client_density_max", table=t, dir=d))
+        self._tbl_obs[table_id] = m
 
     def density_series(self, table_id: int, direction: str = "push"):
-        """Not ported: the windowed density series needs
-        ``distributed/placement.py`` (ROADMAP Queue A item 10)."""
-        raise UnavailableError(
-            "RpcPsClient.density_series needs distributed/placement.DensitySeries, which "
-            "is not ported yet (ROADMAP Queue A item 10)")
+        """The windowed density series of one (table, direction), the
+        measured sparsity ``distributed.placement`` reads. None with
+        ``FLAGS_obs_metrics`` off or for a table this client did not
+        create."""
+        m = self._tbl_obs.get(table_id)
+        return None if m is None else m.get(f"{direction}_window")
 
     @property
     def num_servers(self) -> int:
@@ -824,6 +870,8 @@ class RpcPsClient(PSClient):
             if new_ep is None or new_ep == ep:
                 raise
             self._swap_conn(s, new_ep)
+            # the replay on the promoted backup keeps the op's span id
+            _trace.mark_retried()
             out = fn(self._conn_at(s))
             r.record(new_ep, ok=True)
             return out
@@ -852,6 +900,11 @@ class RpcPsClient(PSClient):
         the first error propagates."""
         if len(tasks) <= 1 or not flag("ps_rpc_parallel"):
             return [t() for t in tasks]
+        # the op's sampled span lives in the caller's thread: the workers
+        # adopt it, so their frames carry its context and retries mark it
+        cur = _trace.current_span()
+        if cur is not None:
+            tasks = [(lambda t=t: _run_with_span(cur, t)) for t in tasks]
         with self._pool_mu:
             if self._pool is None:
                 self._pool = ThreadPoolExecutor(max_workers=len(self._conns),
@@ -1017,7 +1070,8 @@ class RpcPsClient(PSClient):
         ``create``; ``slots`` tags created rows). Over the fp16 pull wire
         the values are exactly the fp32 rows rounded to half and widened."""
         self._op_count("pull_sparse")
-        return self._pull_sparse(table_id, keys, create, slots)
+        with _trace.span("pserver_client_pull_sparse"):
+            return self._pull_sparse(table_id, keys, create, slots)
 
     def _pull_sparse(self, table_id, keys, create, slots, _hops=0):
         keys = np.ascontiguousarray(keys, np.uint64)
@@ -1047,6 +1101,8 @@ class RpcPsClient(PSClient):
         if m is not None:
             m["pull_rows"].inc(len(keys))
             m["pull_bytes"].inc(keys.nbytes + slots_arr.nbytes + out.size * (2 if f16 else 4))
+            if out.size:
+                m["pull_window"].update(float(np.count_nonzero(out)) / out.size)
         return out
 
     def push_sparse(self, table_id, keys, values):
@@ -1054,7 +1110,8 @@ class RpcPsClient(PSClient):
         keys merge client-side first, then the gradient block is encoded
         once for the table's push wire."""
         self._op_count("push_sparse")
-        self._push_sparse(table_id, keys, values)
+        with _trace.span("pserver_client_push_sparse"):
+            self._push_sparse(table_id, keys, values)
 
     def _push_sparse(self, table_id, keys, values, _wire=None):
         keys, values = merge_duplicate_keys(np.ascontiguousarray(keys, np.uint64),
@@ -1099,6 +1156,11 @@ class RpcPsClient(PSClient):
         if m is not None:
             m["push_rows"].inc(len(keys))
             m["push_bytes"].inc(wire_bytes)
+            # the gradient block's density (the push layout's slot, show and
+            # click columns are always set)
+            g = values[:, 3:] if values.ndim == 2 and values.shape[1] > 3 else values
+            if g.size:
+                m["push_window"].update(float(np.count_nonzero(g)) / g.size)
 
     def _push_encoded(self, table_id, keys, values, enc, aux, _hops) -> None:
         """Route and fan out one encoded push batch: ``enc`` None ships
@@ -1316,6 +1378,8 @@ class RpcPsClient(PSClient):
         m = self._tbl_obs.get(table_id)
         if m is not None:
             m["push_bytes"].inc(grad.nbytes)
+            if grad.size:
+                m["push_window"].update(float(np.count_nonzero(grad)) / grad.size)
         self._dense_send(_PUSH_DENSE, table_id, grad)
 
     def set_dense(self, table_id, values):

@@ -3,12 +3,18 @@
 The port's own copy of ``MemorySparseTable`` and ``SsdSparseTable`` from
 ``paddle_tpu.ps.table``:
 
-- ``MemorySparseTable``, with the Python-shard backend (the native RAM
-  engine is not ported): N local shards, feasign-routed
+- ``MemorySparseTable``, with the Python-shard backend: N local shards, feasign-routed
   (``shard = key % shard_num``), insert-on-miss pull, push through the
   CTR accessor, and the full-row export/import the pass cache builds from
   and flushes back to. Columnar numpy blocks per shard; the key→row map
   of each shard is the native ``FeasignIndex``.
+- ``NativeMemorySparseTable`` (``TableConfig(backend="native")``), the same
+  table API on the native RAM engine the PS servers run
+  (``ps.native.NativeSparseTableEngine``): row creation and every rule
+  update bit for bit a server's. The measured-placement collective plane
+  (``distributed.placement``) keeps its rows in one. The Python shards
+  draw new rows from a per-shard generator, so with a nonzero
+  ``initial_range`` their rows differ from a server's.
 - ``SsdSparseTable``, the two-tier table over the native SSD engine
   (``ps.native.SsdTableEngine``): a RAM hot tier plus per-shard disk
   logs, the same table API, and ``spill``/``compact``/``load_cold``.
@@ -38,10 +44,11 @@ import numpy as np
 
 from ..core.enforce import InvalidArgumentError, enforce, enforce_eq
 from .accessor import AccessorConfig, CtrCommonAccessor, FeatureBlock, accessor_class, make_accessor
-from .native import FeasignIndex, SsdTableEngine
+from .native import FeasignIndex, NativeSparseTableEngine, SsdTableEngine
 
 __all__ = ["BarrierTable", "GlobalStepTable", "MemoryDenseTable", "MemorySparseGeoTable",
-           "MemorySparseTable", "SsdSparseTable", "TableConfig", "converter_entry",
+           "MemorySparseTable", "NativeMemorySparseTable", "SsdSparseTable", "TableConfig",
+           "converter_entry",
            "make_sparse_table", "merge_duplicate_keys", "register_converter", "row_digest"]
 
 _SAVE_MODE_ALL = 0
@@ -113,6 +120,10 @@ class TableConfig:
     accessor_config: Optional[AccessorConfig] = None
     seed: int = 0
     accessor: str = "ctr"
+    # a "memory" table's engine: "python" = MemorySparseTable's shards (what
+    # the JAX package's backend="python" computes); "native" =
+    # NativeMemorySparseTable, the PS servers' C++ engine
+    backend: str = "python"
     # "memory" = MemorySparseTable; "ssd" = SsdSparseTable (needs ssd_path)
     storage: str = "memory"
     ssd_path: Optional[str] = None
@@ -443,6 +454,55 @@ class MemorySparseTable:
         self.import_full(keys, values)
 
 
+class NativeMemorySparseTable(MemorySparseTable):
+    """The RAM table on the native engine the PS servers run
+    (``ps.native.NativeSparseTableEngine``): the same API as
+    :class:`MemorySparseTable`, with every row created and updated as a
+    server's RAM table does it, so a local copy of a server's rows trains
+    bit for bit as the server would."""
+
+    def __init__(self, config: Optional[TableConfig] = None) -> None:
+        self.config = config or TableConfig(backend="native")
+        self.accessor = make_accessor(self.config.accessor, self.config.accessor_config)
+        self._engine = NativeSparseTableEngine(self.config.shard_num, self.config.accessor,
+                                               self.accessor.config, self.config.seed)
+
+    def close(self) -> None:
+        """Release the engine."""
+        self._engine.close()
+
+    def pull_sparse(self, keys: np.ndarray, slots: Optional[np.ndarray] = None,
+                    create: bool = True) -> np.ndarray:
+        return self._engine.pull(keys, slots, create)
+
+    def push_sparse(self, keys: np.ndarray, push_values: np.ndarray) -> None:
+        keys, push_values = merge_duplicate_keys(
+            np.ascontiguousarray(keys, np.uint64), push_values)
+        self._engine.push(keys, push_values)
+
+    def export_full(self, keys: np.ndarray, create: bool = False,
+                    slots: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
+        return self._engine.export_full(keys, create=create, slots=slots)
+
+    def import_full(self, keys: np.ndarray, values: np.ndarray) -> None:
+        self._engine.insert_full(keys, values)
+
+    def size(self) -> int:
+        return self._engine.size()
+
+    def shard_sizes(self) -> np.ndarray:
+        return self._engine.shard_sizes(self.config.shard_num)
+
+    def shrink(self) -> int:
+        return self._engine.shrink()
+
+    def snapshot_items(self, mode: int = _SAVE_MODE_ALL) -> Tuple[np.ndarray, np.ndarray]:
+        return self._engine.save_items(mode)
+
+    def digest(self) -> int:
+        return self._engine.digest()
+
+
 class SsdSparseTable(MemorySparseTable):
     """Two-tier sparse table: a RAM hot tier plus per-shard disk logs, on
     the native SSD engine (``ps.native.SsdTableEngine``). Reads promote
@@ -534,10 +594,15 @@ class SsdSparseTable(MemorySparseTable):
 
 
 def make_sparse_table(config: TableConfig) -> MemorySparseTable:
-    """``config.storage`` picks MemorySparseTable ("memory") or
-    SsdSparseTable ("ssd", at ``config.ssd_path``)."""
+    """``config.storage`` picks a RAM table ("memory": ``config.backend``
+    picks MemorySparseTable or NativeMemorySparseTable) or SsdSparseTable
+    ("ssd", at ``config.ssd_path``)."""
     if config.storage == "memory":
-        return MemorySparseTable(config)
+        enforce(config.backend in ("python", "native"),
+                f"unknown table backend {config.backend!r}; have python|native",
+                InvalidArgumentError)
+        return (NativeMemorySparseTable(config) if config.backend == "native"
+                else MemorySparseTable(config))
     if config.storage == "ssd":
         enforce(config.ssd_path is not None, "TableConfig.storage='ssd' requires ssd_path",
                 InvalidArgumentError)

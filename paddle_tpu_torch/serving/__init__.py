@@ -25,15 +25,28 @@ Every read goes to the replica: serving makes no training-PS call by
 construction, and the serve-path clients run in their own QoS class
 (``ps.rpc`` ``qos="serve"``: short deadlines, breakers of their own).
 
-Not ported yet (ROADMAP Queue A item 6): ``router``, ``fleet``,
-``pipeline``, ``member_host`` and ``rollout``.
+The fleet layer turns one replica into a tier:
+:class:`~paddle_tpu_torch.serving.router.ServingRouter` balances requests
+over N members (bounded-load consistent hashing on the sparse key block
+for cached-lookup affinity, power-of-two choices for dense-only traffic,
+hedging with dedupe on a measured budget, failure reroute);
+:class:`~paddle_tpu_torch.serving.fleet.ServingFleet` owns membership off
+the TTL'd observer leases (drain restarts, warm-handoff joins, crash
+removal); :class:`~paddle_tpu_torch.serving.rollout.RolloutManager` makes a
+model push a routed event (canary band, promote, digest-pinned rollback).
+
+Not ported yet (ROADMAP Queue A item 6, with the rankers): ``pipeline``
+and ``member_host``.
 """
 
+from .fleet import FleetConfig, FleetController, FleetMember, ServingFleet
 from .frontend import (DeadlineExceeded, FrontendConfig, PendingResult, RequestRejected,
                        ServingFrontend)
 from .lookup import CachedLookup, ReplicaLookup
 from .metrics import FreshnessProbe, LatencyRecorder
 from .replica import DenseTowerPublisher, DenseTowerSync, ServingReplica, make_serve_client
+from .rollout import DenseModel, RolloutConfig, RolloutManager
+from .router import RoutedRequest, RouterConfig, ServingRouter
 
 __all__ = [
     "ServingReplica",
@@ -49,4 +62,14 @@ __all__ = [
     "make_serve_client",
     "LatencyRecorder",
     "FreshnessProbe",
+    "ServingRouter",
+    "RouterConfig",
+    "RoutedRequest",
+    "ServingFleet",
+    "FleetConfig",
+    "FleetMember",
+    "FleetController",
+    "RolloutManager",
+    "RolloutConfig",
+    "DenseModel",
 ]

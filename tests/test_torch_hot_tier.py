@@ -277,16 +277,24 @@ def test_flush_drop_resume_exact():
 
 def test_mesh_and_communicator_raise():
     """A mesh is accepted (the sharded tier; its tests are in
-    ``test_torch_sharded_hot_tier.py``); measured placement still raises.
-    (The communicator is ported: ``test_torch_stream_rpc.py``.)"""
-    from paddle_tpu_torch.core.enforce import UnavailableError
+    ``test_torch_sharded_hot_tier.py``); measured placement constructs
+    (forcing pull-ahead 0) and, as in JAX, raises beside a hot tier: the
+    tier owns its table's residency. (The communicator is ported:
+    ``test_torch_stream_rpc.py``; placement's runs:
+    ``test_torch_placement.py``.)"""
+    from paddle_tpu_torch.core.enforce import PreconditionNotMetError
     from paddle_tpu_torch.core.mesh import make_mesh
 
     t = _trainer(_table(), HotTierConfig(capacity=256, mesh=make_mesh({"ps": 2}, device="cpu")))
     assert t.hot_tier.stats()["shards"] == 2
     model = DeepFM(CtrConfig(S, D, DIM, (8,)))
-    with pytest.raises(UnavailableError, match="placement"):
-        CtrStreamTrainer(model, Adam(), _table(), placement=object(), device="cpu", **_NAMES)
+    mgr = object()
+    placed = CtrStreamTrainer(model, Adam(), _table(), placement=mgr, pull_ahead=2,
+                              device="cpu", **_NAMES)
+    assert placed.placement is mgr and placed.pull_ahead == 0
+    with pytest.raises(PreconditionNotMetError, match="placement and hot_tier"):
+        CtrStreamTrainer(model, Adam(), _table(), placement=mgr,
+                         hot_tier=HotTierConfig(capacity=256), device="cpu", **_NAMES)
 
 
 @pytest.mark.parametrize("hot", [False, True], ids=["local_table", "hot_tier"])

@@ -13,7 +13,8 @@ points and its auto-checkpoint, on the CPU, against the JAX package.
 - The flight recorder: bundles, rate limit, GC and restart numbering,
   the hook surface, a fired faultpoint, a ``CtrStreamTrainer`` exception
   (a bundle with ``batches_done`` in it), SIGTERM in a subprocess; its
-  ``ring=``/``watchdog=``/``client=`` sources raise ``UnavailableError``.
+  ``client=`` source puts the PS shards' server spans in the bundle's
+  trace, its ``ring=``/``watchdog=`` sources raise ``UnavailableError``.
 - Faultpoints: the flag's parser and the scheduling (after, every,
   count) against the JAX module's.
 - ``auto_checkpoint``: the JAX tests' counterparts, and a
@@ -236,10 +237,52 @@ def test_trigger_dumps_parseable_atomic_bundle(tmp_path):
     assert ev[0]["kind"] == "transport_error"
 
 
-@pytest.mark.parametrize("source", ["ring", "watchdog", "client"])
+@pytest.mark.parametrize("source", ["ring", "watchdog"])
 def test_unported_sources_raise(tmp_path, source):
     with pytest.raises(UnavailableError, match="ROADMAP"):
         FlightRecorder(str(tmp_path), **{source: object()})
+
+
+def test_client_source_bundles_server_spans(tmp_path):
+    """``client=`` (ported with ``obs/aggregate.py``): a bundle's trace
+    holds each shard's server spans on its own lane, each a flow finish
+    bound to the traced client span it served, and the peek leaves the
+    shards' rings for the next bundle; a dead shard is skipped."""
+    from paddle_tpu_torch.obs import aggregate
+    from paddle_tpu_torch.ps import rpc
+
+    servers = [rpc.NativePsServer() for _ in range(2)]
+    cli = rpc.RpcPsClient([f"127.0.0.1:{s.port}" for s in servers])
+    try:
+        cli.create_sparse_table(0, TableConfig(shard_num=4))
+        keys = np.arange(1, 65, dtype=np.uint64)
+        trace.start_tracing(sample=1.0)
+        with trace.span("step"):
+            cli.pull_sparse(0, keys)
+        trace.stop_tracing()
+        rec = FlightRecorder(str(tmp_path), client=cli, min_interval_s=0.0)
+        blob = json.load(open(os.path.join(rec.trigger("test"), "trace.json")))
+        evs = blob["traceEvents"]
+        served = [e for e in evs if e["name"] == "ps_server_pull_sparse"]
+        assert sorted(e["pid"] for e in served) == [1, 2]
+        pull = next(e for e in evs if e["name"] == "pserver_client_pull_sparse")
+        assert {e["id"] for e in evs if e.get("ph") == "f"} == {int(pull["args"]["span_id"], 16)}
+        assert all(len(aggregate.fetch_server_obs(cli, s, drain=False)[1]) == 1 for s in range(2))
+        servers[1].stop()
+        was = get_flags(["pserver_timeout_ms"])
+        set_flags({"pserver_timeout_ms": 500})  # the dead shard's call fails fast
+        try:
+            blob = json.load(open(os.path.join(rec.trigger("dead shard"), "trace.json")))
+        finally:
+            set_flags(was)
+        assert {e["pid"] for e in blob["traceEvents"]
+                if e["name"] == "ps_server_pull_sparse"} == {1}
+    finally:
+        trace.drain_spans()
+        cli.close()
+        for s in servers:
+            s.stop()
+            s.close()
 
 
 def test_rate_limit_gc_and_restart_numbering(tmp_path):

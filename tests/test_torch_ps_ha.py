@@ -55,6 +55,7 @@ from paddle_tpu_torch.core.flags import get_flags, set_flags
 from paddle_tpu_torch.data.dataset import InMemoryDataset, SlotDesc
 from paddle_tpu_torch.distributed import elastic
 from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
+from paddle_tpu_torch.obs import registry as obs_registry
 from paddle_tpu_torch.optimizer import Adam
 from paddle_tpu_torch.ps import faultpoints as fp
 from paddle_tpu_torch.ps import ha, rpc
@@ -754,13 +755,28 @@ def test_breaker_opens_after_repeated_failures_without_promotion():
 
 
 def test_not_ported_surfaces_raise(cluster):
-    """What is still out raises, naming its ROADMAP entry; the serve QoS
-    class and tenancy (entries 5 and 4) are ported and construct."""
+    """The surfaces this test once held as unported are ported and work:
+    ``obs_probe`` exports every live primary's replication lag gauges, and
+    ``density_series`` returns the push window a push fed; the serve QoS
+    class and tenancy construct."""
     cli = cluster.client()
-    for call, entry in ((lambda: cluster.obs_probe(), "entry 6"),
-                        (lambda: cli.density_series(0), "item 10")):
-        with pytest.raises(UnavailableError, match=entry):
-            call()
+    cli.create_sparse_table(0, _cfg())
+    keys = np.arange(1, 33, dtype=np.uint64)
+    cli.pull_sparse(0, keys)
+    push = np.zeros((len(keys), cli._dims(0)[1]), np.float32)
+    push[:, 1] = 1.0
+    push[:, 3::2] = 0.5  # half the gradient block nonzero
+    cli.push_sparse(0, keys, push)
+    cluster.drain()
+    cluster.obs_probe()
+    snap = obs_registry.REGISTRY.snapshot()["metrics"]
+    lag = [s for s in snap["ps_replication_lag_entries"]["series"]
+           if s["labels"]["backup"] in {r.endpoint for row in cluster.servers for r in row}]
+    assert lag and all(s["value"] == 0 for s in lag), lag
+    win = cli.density_series(0, "push")
+    assert win is not None and win.n == 1
+    assert win.ewma == win.wmin == win.wmax == np.count_nonzero(push[:, 3:]) / push[:, 3:].size
+    assert cli.density_series(0, "pull").n == 1 and cli.density_series(5) is None
     serve = cluster.client(qos="serve")
     assert serve.qos == "serve" and serve._router.qos == "serve"
     assert rpc.RpcPsClient([], tenant=(1, b"t"))._conn_kw == {"hello": (1, b"t")}
