@@ -13,7 +13,9 @@ and waits for them, or ends them; phase 15 starts its three legs' processes
 one at a time and waits for each (a leg past its time limit is killed);
 phase 16 starts its in-process clusters on 127.0.0.1 and four server
 processes, and kills and reaps every one of them; phase 17 starts and
-stops in-process clusters on 127.0.0.1. Exits non-zero, with no
+stops in-process clusters on 127.0.0.1; phase 20 starts serving member
+processes (``python -m paddle_tpu_torch.serving.member_host``), kills one
+and stops the others. Exits non-zero, with no
 result line, when there is no CUDA device, when the package is missing,
 or when any phase fails. Phases:
 
@@ -100,7 +102,8 @@ or when any phase fails. Phases:
 12. Wide&Deep daily at full width (BASELINE.md config 4, as
    ``tools/widedeep_daily.py`` runs it): ``WideDeep`` (8 slots, 4 dense,
    dim 8, DNN 128²) trained by ``CtrPassTrainer`` over a 16-shard
-   ``SsdSparseTable`` holding 5,000,000 cold rows, three days of 50,000
+   ``SsdSparseTable`` holding 2,000,000 cold rows (the tool's 5,000,000 cut
+   for the script's time limit), three days of 50,000
    records, batch 512, the next day's pass built in the background; one
    ``ctr_sparse_rows`` launch and one merge a step, the merge (card vs
    CPU) and B1 (against its plain version) bitwise on one real push of
@@ -163,8 +166,9 @@ or when any phase fails. Phases:
    checkpoint, its bytes, and the resume's ``load_latest``,
    ``restore_sparse`` and ``restore_train_state`` seconds;
 16. the PS loses a primary (PS high availability and the compressed
-   sparse wires): phase 4's data, width and model (one cold epoch of 16
-   batches a run) on phase 13's 16-shard table (``initial_range=0``),
+   sparse wires): phase 4's width and model on half its data (32,768
+   lines: one cold epoch of 8 batches a run, cut from 16 for the script's
+   time limit) on phase 13's 16-shard table (``initial_range=0``),
    every run on a fresh ``ha.HACluster(num_shards=2, replication=2,
    sync=True)`` of in-process servers. Leg A, the wire ladder: RPC-only
    over a ``HalfAsyncCommunicator`` with push wires fp32, fp16 and int8
@@ -193,7 +197,7 @@ or when any phase fails. Phases:
    routing names the backup, every process reaped. Logs samples/s per leg
    and arm, the recovery ms, the chaos step beside the median, push bytes,
    the loss curves, the tier's gate pause and capture ms;
-17. the PS reshards under load (live resharding): phase 16's cell uncut,
+17. the PS reshards under load (live resharding): phase 16's cell,
    every run on a fresh 2 x 2 sync ``HACluster`` through a
    ``SyncCommunicator`` with ``cluster.drain()`` after every change. Leg
    A, RPC-only, 3 epochs: an oracle, and a chaos run that arms
@@ -237,9 +241,37 @@ or when any phase fails. Phases:
    ops on the training clients and the serve client, then 25 freshness
    probes beside the flood with no failure. Logs samples/s alone and
    beside the abuser, the abuser's sheds, warm p50/p99, freshness p95;
-19. the ``kernels`` JSON line (B1 three times: ``ctr_sparse_rows`` on the
+19. the PS seen from the server, measured placement and a serving fleet
+   (see that section's comment);
+20. the recsys serve path (``models.{gru4rec,dssm,tdm}``,
+   ``serving.{pipeline,member_host}``; ``tools/recsys_replay.py``'s
+   configuration: 20,000 item keys, dim 8, GRU4Rec hidden 16 / out 16,
+   history 6, fanout 2 × 8, top-K 8, ranking batches of up to 32 in a 4
+   ms window, 2 member processes). Leg A: GRU4Rec (T 6, lengths 2-6),
+   DSSM (6 query slots, 1 doc slot) and TDM (a branch-2 tree over the
+   20,000 items, one negative a layer) each train 16 steps at batch 128
+   on the card and on the CPU from the same numpy seed, for seeds 0-2:
+   losses, params and cache columns card vs CPU within ``RS_TOL`` (set
+   from those three seeds on the H100, per family), one B1
+   and one merge a step, B1 bitwise on each family's first push (timed on
+   GRU4Rec's), the trained TDM's beam (k 8) on the card equal to the CPU
+   walk over the same state. Leg B: a 1-shard HACluster over a FileStore,
+   a stream trainer in the background, a parent-side replica and cached
+   lookup on the card, 2 ``spawn_member`` processes on the card behind a
+   router and a lease-watched fleet, and a ``PipelineFrontend`` ranking
+   with leg A's GRU4Rec; open loop with Zipf users and candidates: a 10 s
+   ramp 15 → 60/s with one member SIGKILLed mid-way, a 6 s tail at 60/s,
+   and a canary/promote/rollback over 400 requests. Checks: 0 errors,
+   answers best first, coalesce factor > 1, stragglers counted, the crash
+   removed by the lease watch, v1 restored crc32c-identical on every live
+   member, the sampled ranking batches and the DSSM ranker within 1e-5 of
+   the CPU's on the same rows, a TDM walk through ``ServingBeamSource``
+   on the card equal to the CPU's; logs stage p50/p99, requests/s,
+   freshness p95 and a ranking batch's host↔card copy time;
+21. the ``kernels`` JSON line (B1 four times: ``ctr_sparse_rows`` on the
    pass path, ``ctr_sparse_rows@widedeep`` on phase 12's,
-   ``ctr_sparse_rows@gpubox_rpc`` on phase 14's leg B; B2 and B4 five
+   ``ctr_sparse_rows@gpubox_rpc`` on phase 14's leg B,
+   ``ctr_sparse_rows@recsys`` on phase 20's leg A; B2 and B4 five
    times: ``hot_probe_gather``/``hot_scatter_apply`` on the hot path,
    ``...@rpc`` on phase 13's, ``...@ha`` on phase 16's tier arm,
    ``...@reshard`` on phase 17's leg B, ``...@tenancy`` on phase 18's leg
@@ -259,6 +291,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -2261,15 +2294,16 @@ def phase_vision_parity(dev):
 
 # -- phase 12: the Wide&Deep daily loop at full width ---------------------------
 
-# tools/widedeep_daily.py's configuration (BASELINE.md config 4), uncut:
-# 8 sparse slots, 4 dense, dim 8, DNN 128^2, batch 512, a 2^18-row cache,
-# a 16-shard SSD table, Adam(1e-3); 5,000,000 cold rows loaded 1,000,000 at
-# a time (show 10), 3 days of 50,000 records with ids from a pool of
+# tools/widedeep_daily.py's configuration (BASELINE.md config 4): 8 sparse
+# slots, 4 dense, dim 8, DNN 128^2, batch 512, a 2^18-row cache, a 16-shard
+# SSD table, Adam(1e-3); 2,000,000 cold rows loaded 1,000,000 at a time (show
+# 10; the tool's 5,000,000 cut for the script's time limit: the base save and
+# the shrink scan every row), 3 days of 50,000 records with ids from a pool of
 # 20,000, a 500,000-row spill budget.
 WD_SLOTS, WD_DENSE, WD_DIM, WD_HIDDEN = 8, 4, 8, (128, 128)
 WD_BATCH, WD_CAP, WD_SHARDS = 512, 1 << 18, 16
 WD_POP, WD_CHUNK, WD_DAYS, WD_RECORDS, WD_POOL, WD_HOT = \
-    5_000_000, 1_000_000, 3, 50_000, 20_000, 500_000
+    2_000_000, 1_000_000, 3, 50_000, 20_000, 500_000
 WD_AUC_BAR = 0.80   # the JAX package read 0.821, 0.825, 0.839 on the CPU (WIDEDEEP.json)
 # card vs CPU, the small leg: a population of 20,000, 2 days of 2,048
 # records (ids from a pool of 2,000), batch 256, the same weights. cuBLAS
@@ -2461,7 +2495,7 @@ def wd_b1_check(push, dim=WD_DIM, what="Wide&Deep push"):
 
 def phase_widedeep(dev, card):
     """BASELINE.md config 4 as ``tools/widedeep_daily.py`` runs it, through
-    the port: a 5,000,000-row cold population on the SSD tier, three days
+    the port: a 2,000,000-row cold population on the SSD tier, three days
     of pass training (``CtrPassTrainer.train_passes``, the next day's build
     overlapped), each day's final-model AUC, a base save, shrink, spill.
     Checks: losses finite and falling; one B1 launch and one merge a step;
@@ -3730,9 +3764,10 @@ def phase_job_checkpoint(dev, card):
 
 # -- phase 16: the PS loses a primary -----------------------------------------------
 
-# PS high availability and the compressed sparse wires at phase 4's width and
-# data (DeepFM 26 slots x dim 8, 13 dense, DNN 400^3, batch 4096, 65,536 lines
-# of 10,000 ids a slot: one cold epoch of 16 batches a run) on phase 13's
+# PS high availability and the compressed sparse wires at phase 4's width on
+# half its data (DeepFM 26 slots x dim 8, 13 dense, DNN 400^3, batch 4096,
+# 32,768 lines of 10,000 ids a slot: one cold epoch of 8 batches a run; cut
+# from 16 for the script's time limit, phases 17-19 share it) on phase 13's
 # 16-shard table (rows created with initial_range=0), each run on a fresh
 # ha.HACluster(num_shards=2, replication=2, sync=True) of in-process servers.
 # Leg A: the wire ladder (fp32, fp16, int8 push wires) through a
@@ -3744,7 +3779,7 @@ def phase_job_checkpoint(dev, card):
 # cluster.checkpoint_gate()). Leg C: leg B's RPC arm against four server
 # processes of this script (--ha-server) over a FileStore, shard 0's primary
 # SIGKILLed after batch 5.
-HA_LINES, HA_IDS, HA_BATCH, HA_CAP = HOT_LINES, HOT_IDS, BATCH, HOT_CAP
+HA_LINES, HA_IDS, HA_BATCH, HA_CAP = HOT_LINES // 2, HOT_IDS, BATCH, HOT_CAP
 HA_SHARDS, HA_REPLICAS = 2, 2
 HA_EVERY = 4             # batches between the tier arm's checkpoints
 HA_KILL_PUSH = 6         # RPC arm: shard 0's primary dies on its 6th push (5 landed)
@@ -4281,9 +4316,8 @@ def phase_ha(dev, card):
 
 
 # -- phase 17: the PS reshards under load ------------------------------------
-# Phase 16's cell uncut (DeepFM 26 slots, 13 dense, dim 8, DNN 400^3, Adam
-# 1e-3; 65,536 lines at 10,000 ids a slot, batch 4096: 16 batches, 259,635
-# keys) on fresh 2 shards x 2 replicas sync HAClusters, a SyncCommunicator
+# Phase 16's cell (DeepFM 26 slots, 13 dense, dim 8, DNN 400^3, Adam 1e-3;
+# 32,768 lines at 10,000 ids a slot, batch 4096: 8 batches an epoch) on fresh 2 shards x 2 replicas sync HAClusters, a SyncCommunicator
 # and cluster.drain() after every change. Leg A, RPC-only, 3 epochs: an
 # oracle, and a chaos run that grows 2 -> 4 on a thread during epoch 2
 # (shard 0's primary killed on its first kSaveAll, the migration's snapshot
@@ -4939,9 +4973,9 @@ def phase_tenancy(dev, card, oracle=None, keep=None):
 
 
 # -- phase 19: the PS seen from the server, measured placement, a serving fleet --------
-# Leg A is phase 17 leg A's cell uncut (config 3 as tools/sparse_hot_bench.py
-# runs it: DeepFM on the Criteo shape, 26 slots, dim 8, DNN 400^3, batch 4096;
-# 65,536 lines of 10,000 ids a slot, 259,635 keys; one 2 x 2 sync HACluster,
+# Leg A is phase 17 leg A's cell (config 3 as tools/sparse_hot_bench.py runs
+# it: DeepFM on the Criteo shape, 26 slots, dim 8, DNN 400^3, batch 4096; the
+# 32,768 lines of phase 16's cell at 10,000 ids a slot; one 2 x 2 sync HACluster,
 # RPC-only, a SyncCommunicator with a drain after every send; 3 epochs), and its
 # oracle is that leg's run without a reshard. Epoch 1 runs traced (every root
 # sampled): the servers' spans and wire counters come back over kObsSnap. A
@@ -5487,6 +5521,745 @@ def phase_obs_fleet(dev, card, oracle=None):
     return leg_a, b
 
 
+# -- phase 20: the recsys serve path -----------------------------------------
+#
+# Leg A: GRU4Rec, DSSM and TDM train RS_STEPS steps at batch RS_BATCH on the
+# card and the same steps on the CPU, from one numpy seed each (the cache over
+# the items' keys, or the tree's node codes, and the model's weights carried
+# across), for each seed of RS_SEEDS; the card runs of the first seed are the
+# path's run (B1 launches counted there, its first push of each family checked
+# bitwise). Leg B: tools/recsys_replay.py's configuration without the flash
+# crowd, through the port: a 1-shard HACluster over a FileStore with the
+# RS_KEYS keys preloaded, a stream trainer in the background, a parent-side
+# replica and cached lookup on the card, RS_MEMBERS member processes on the
+# card behind a router and a fleet, and a PipelineFrontend whose ranker is leg
+# A's trained GRU4Rec; an open-loop replay (a ramp with a member SIGKILLed
+# mid-way, a tail, a canary/promote/rollback), then the DSSM ranker and a TDM
+# walk on the card against their CPU runs over the parent's lookup.
+RS_KEYS, RS_DIM, RS_HIDDEN, RS_OUT = 20_000, 8, 16, 16
+RS_HIST, RS_FANOUT, RS_FAN_WIDTH, RS_TOPK = 6, 2, 8, 8
+RS_RANK_BATCH, RS_DELAY_US, RS_MEMBERS = 32, 4000, 2
+RS_STEPS, RS_BATCH, RS_SEEDS = 16, 128, (0, 1, 2)
+RS_DSSM_SQ = 6                 # DSSM query slots (the ranker's history length)
+RS_TREE_ITEMS = 8192           # leg B's serving tree: node codes 0..16,382, all preloaded
+RS_USERS, RS_DEADLINE_MS = 1_000_000, 4000.0
+RS_BASE_QPS, RS_PEAK_QPS, RS_RAMP_S, RS_TAIL_S = 15.0, 60.0, 10.0, 6.0
+RS_WARM, RS_CANARY, RS_SCORED = 100, 400, 64
+RS_TRAIN_BATCH, RS_DENSE_LEN = 128, 64
+# card vs CPU after RS_STEPS steps, from seeds 0-2 on the H100 (PERF.md §6):
+# losses relative; params and cache columns as a share of each tensor's
+# largest magnitude. GRU4Rec's and DSSM's worst: 2.4e-6 / 3.5e-6 params, 1.3e-6
+# cache. TDM starts at its loss's saddle (BCE at ln 2): its gradients are sums
+# that cancel, and Adam scales the rounding left in them up to a step, so
+# from about step 8 of seed 2 card and CPU part (params 2.6e-3; the adagrad
+# state column, values ~1e-9, 5.4e-2), while its losses stay within 3.5e-7
+RS_TOL = {"gru4rec": {"loss": 1e-6, "params": 1e-5, "cache": 1e-5},
+          "dssm": {"loss": 1e-6, "params": 1e-5, "cache": 1e-5},
+          "tdm": {"loss": 1e-6, "params": 1e-2, "cache": 2e-1}}
+RS_SCORE_TOL = 1e-5            # ranker scores, card vs CPU on the same rows
+
+
+def rs_family_inputs(family, seed):
+    """One family's pass keys, numpy batches and the model's constructor, all
+    from ``seed``."""
+    from paddle_tpu_torch.data.index_dataset import LayerWiseSampler, TreeIndex
+    from paddle_tpu_torch.models.tdm import node_keys, tdm_sample_batch
+
+    rng = np.random.default_rng(1000 * seed + {"gru4rec": 1, "dssm": 2, "tdm": 3}[family])
+    B, T = RS_BATCH, RS_HIST
+    out = {"batches": []}
+    if family == "gru4rec":
+        out["keys"] = np.arange(RS_KEYS, dtype=np.uint64)
+        for _ in range(RS_STEPS):
+            lengths = rng.integers(2, T + 1, B)
+            out["batches"].append((rng.integers(0, RS_KEYS, (B, T)), lengths,
+                                   rng.integers(0, RS_KEYS, B)))
+    elif family == "dssm":
+        out["keys"] = np.arange(RS_KEYS, dtype=np.uint64)
+        for _ in range(RS_STEPS):
+            out["batches"].append((rng.integers(0, RS_KEYS, (B, RS_DSSM_SQ + 1)),))
+    else:
+        tree = TreeIndex(list(range(RS_KEYS)), branch=2)
+        sampler = LayerWiseSampler(tree, [1] * tree.height, seed=seed)
+        leaf = np.array([int(tree.get_travel_codes(i)[0]) for i in range(RS_KEYS)])
+        out["keys"] = node_keys(np.arange(tree.total_node_num()))
+        out["tree"] = tree
+        for _ in range(RS_STEPS):
+            behav = leaf[rng.integers(0, RS_KEYS, (B, 3))]
+            codes, labels = tdm_sample_batch(sampler, rng.integers(0, RS_KEYS, B))
+            out["batches"].append((behav, codes, labels))
+    out["embedx"] = rng.normal(scale=0.1, size=(len(out["keys"]), RS_DIM)).astype(np.float32)
+    return out
+
+
+def rs_model(family, seed):
+    from paddle_tpu_torch.models.dssm import DSSM
+    from paddle_tpu_torch.models.gru4rec import GRU4Rec
+    from paddle_tpu_torch.models.tdm import TDM
+
+    g = torch.Generator().manual_seed(seed)
+    if family == "gru4rec":
+        return GRU4Rec(embedx_dim=RS_DIM, hidden=RS_HIDDEN, out_dim=RS_OUT, generator=g)
+    if family == "dssm":
+        return DSSM(RS_DSSM_SQ, 1, RS_DIM, hidden=(64, 32), out_dim=RS_OUT, generator=g)
+    return TDM(embedx_dim=RS_DIM, hidden=(64, 32), generator=g)
+
+
+def rs_caches(inp, devs):
+    """One host table and one cache per device over it (the rows the pass
+    creates are the table's, so both caches start equal), embedx set from the
+    input's numpy draw."""
+    from paddle_tpu_torch.ps.accessor import AccessorConfig
+    from paddle_tpu_torch.ps.embedding_cache import CacheConfig, HbmEmbeddingCache
+    from paddle_tpu_torch.ps.sgd_rule import SGDRuleConfig
+    from paddle_tpu_torch.ps.table import MemorySparseTable, TableConfig
+
+    sgd = SGDRuleConfig(learning_rate=0.05)
+    table = MemorySparseTable(TableConfig(shard_num=4, accessor_config=AccessorConfig(
+        embedx_dim=RS_DIM, embedx_threshold=0.0, sgd=sgd)))
+    cap = 1 << int(np.ceil(np.log2(len(inp["keys"]) + 1)))
+    cfg = CacheConfig(capacity=cap, embedx_dim=RS_DIM, embedx_threshold=0.0, sgd=sgd)
+    caches = []
+    for d in devs:
+        c = HbmEmbeddingCache(table, cfg, device=d)
+        c.begin_pass(inp["keys"])
+        rows = torch.from_numpy(c.lookup(inp["keys"])).to(d)
+        c.state["embedx_w"][rows] = torch.from_numpy(inp["embedx"]).to(d)
+        caches.append(c)
+    return table, cfg, caches
+
+
+def rs_run_family(family, inp, model, cfg, cache, dev, after_first_step=None):
+    """RS_STEPS steps of one family on ``dev``. Returns (losses, params,
+    cache) with params and cache columns on the host."""
+    from paddle_tpu_torch.models.dssm import make_dssm_train_step
+    from paddle_tpu_torch.models.gru4rec import item_keys, make_gru4rec_train_step
+    from paddle_tpu_torch.models.tdm import make_tdm_train_step, node_keys
+    from paddle_tpu_torch.optimizer import Adam
+
+    opt = Adam(3e-3)
+    params = {k: v.detach().clone().to(dev) for k, v in model.named_parameters()}
+    opt_state = opt.init(params)
+    C = cfg.capacity
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    if family == "gru4rec":
+        step = make_gru4rec_train_step(model, opt, cfg, device=dev)
+    elif family == "dssm":
+        step = make_dssm_train_step(model, opt, cfg, temperature=0.2, device=dev)
+    else:
+        step = make_tdm_train_step(model, opt, cfg, device=dev)
+    losses = []
+    for i, batch in enumerate(inp["batches"]):
+        if family == "gru4rec":
+            seq, lengths, target = batch
+            rs = cache.lookup(item_keys(seq.reshape(-1))).reshape(seq.shape)
+            rs = np.where(np.arange(RS_HIST)[None, :] >= lengths[:, None], C, rs)
+            args = (to(rs), to(cache.lookup(item_keys(target))), to(lengths))
+        elif family == "dssm":
+            (k,) = batch
+            args = (to(cache.lookup(k.reshape(-1).astype(np.uint64)).reshape(k.shape)),
+                    torch.zeros((RS_BATCH, 1), device=dev),
+                    torch.ones(RS_BATCH, dtype=torch.int32, device=dev))
+        else:
+            behav, codes, labels = batch
+            args = (to(cache.lookup(node_keys(behav.reshape(-1))).reshape(behav.shape)),
+                    to(cache.lookup(node_keys(codes.reshape(-1))).reshape(codes.shape)),
+                    to(labels))
+        params, opt_state, cache.state, loss = step(params, opt_state, cache.state, *args)
+        losses.append(float(loss))
+        if after_first_step is not None and i == 0:
+            after_first_step()
+    return (losses, {k: v.detach().cpu() for k, v in params.items()},
+            {k: v.cpu() for k, v in cache.state.items()})
+
+
+def rs_share(got, want):
+    """max |got - want| as a share of want's largest magnitude."""
+    if not want.numel():
+        return 0.0
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def rs_leg_a(dev, card):
+    """Leg A. Returns its record: per family and seed the card-vs-CPU
+    readings, the path's B1 launches, the first push of each family, and the
+    trained card models of the first seed (for leg B)."""
+    from paddle_tpu_torch.models.tdm import beam_search_retrieve
+
+    rec = {"diff": {}, "launches": {}, "b1": {}, "beam": {}, "losses": {}}
+    cpu = torch.device("cpu")
+    for seed in RS_SEEDS:
+        for family in ("gru4rec", "dssm", "tdm"):
+            inp = rs_family_inputs(family, seed)
+            table, cfg, (c_dev, c_cpu) = rs_caches(inp, (dev, cpu))
+            model = rs_model(family, seed)
+            first = seed == RS_SEEDS[0]
+            got = restore = None
+            if first and dev.type == "cuda":
+                got, restore = capture_first_push()
+            if first:
+                reset_launches()
+            t0 = time.perf_counter()
+            run_dev = rs_run_family(family, inp, model, cfg, c_dev, dev,
+                                    after_first_step=restore)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            dev_s = time.perf_counter() - t0
+            if first:
+                rec["launches"][family] = read_launches()
+                rec["push_" + family] = got
+                rec["losses"][family] = run_dev[0]
+            run_cpu = rs_run_family(family, inp, model, cfg, c_cpu, cpu)
+            p_share = {k: rs_share(run_dev[1][k], run_cpu[1][k]) for k in run_cpu[1]}
+            c_share = {k: rs_share(run_dev[2][k], run_cpu[2][k]) for k in run_cpu[2]}
+            d = {"loss": max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(run_dev[0],
+                                                                            run_cpu[0])),
+                 "params": max(p_share.values()), "cache": max(c_share.values()),
+                 "worst": (max(p_share, key=p_share.get), max(c_share, key=c_share.get)),
+                 "steps_s": dev_s}
+            rec["diff"][(family, seed)] = d
+            if family == "tdm":
+                # the walk over the card's state against the same walk on a CPU
+                # copy of it (exact), and against the CPU-trained run's (logged)
+                tree = inp["tree"]
+                params_dev = {k: v.to(dev) for k, v in run_dev[1].items()}
+                same = types.SimpleNamespace(state={k: v for k, v in run_dev[2].items()},
+                                             lookup=c_dev.lookup)
+                trained = types.SimpleNamespace(state=run_cpu[2], lookup=c_cpu.lookup)
+                users = [[u % RS_KEYS for u in us] for us in (
+                    [0, 17, 4242], [19_999, 5, 77], [1234], [8000, 8001, 8002])]
+                walks = [(beam_search_retrieve(tree, model, params_dev, c_dev, u, k=8),
+                          beam_search_retrieve(tree, model, run_dev[1], same, u, k=8),
+                          beam_search_retrieve(tree, model, run_cpu[1], trained, u, k=8))
+                         for u in users]
+                rec["beam"][seed] = {"same_state": all(a == b for a, b, _ in walks),
+                                     "cpu_trained": all(a == c for a, _, c in walks),
+                                     "items": [len(a) for a, _, _ in walks]}
+            if first:
+                rec.setdefault("trained", {})[family] = (model, {
+                    k: v.to(dev) for k, v in run_dev[1].items()})
+            table.close()
+    return rec
+
+
+def rs_check_leg_a(rec, dev, card):
+    for (family, seed), d in sorted(rec["diff"].items()):
+        log(f"recsys leg A, {family} seed {seed}: {RS_STEPS} steps at batch {RS_BATCH} on the "
+            f"card in {d['steps_s']:.2f} s; card vs CPU: loss {d['loss']:.3e} (relative), "
+            f"params {d['params']:.3e}, cache columns {d['cache']:.3e} (of each tensor's "
+            f"largest magnitude; worst {d['worst'][0]}, {d['worst'][1]}) on {card}")
+        for key in ("loss", "params", "cache"):
+            tol = RS_TOL[family][key]
+            assert d[key] <= tol, \
+                f"phase 20: {family} seed {seed} {key} card vs CPU {d[key]} > {tol}"
+    for seed, b in sorted(rec["beam"].items()):
+        log(f"recsys leg A, TDM seed {seed}: beam (k=8) on the card == the CPU walk over the "
+            f"same state {b['same_state']}; == the CPU-trained run's {b['cpu_trained']}; "
+            f"items {b['items']}")
+        assert b["same_state"] and all(b["items"]), f"phase 20: beam differs {b}"
+    for family, ls in rec["losses"].items():
+        assert np.isfinite(ls).all(), f"phase 20: {family} losses {ls}"
+        log(f"recsys leg A, {family}: losses {ls[0]:.4f} -> {ls[-1]:.4f}")
+    for family, n in rec["launches"].items():
+        log(f"recsys leg A, {family}: launches {n} over {RS_STEPS} steps")
+        if dev.type == "cuda":
+            assert n["ctr_sparse_rows"] == RS_STEPS, f"phase 20: {family} B1 launches {n}"
+            assert n["merge_sparse_grads"] == RS_STEPS, f"phase 20: {family} merges {n}"
+
+
+# -- leg B -------------------------------------------------------------------------
+
+def rs_gen_phase(duration, rate_fn, seed):
+    """recsys_replay.gen_phase: arrival times (deterministic spacing at the
+    rate), Zipf users and candidates, the user's history keys and a user
+    vector."""
+    g = np.random.default_rng(seed)
+    ts, t = [], 0.0
+    while t < duration:
+        t += 1.0 / max(rate_fn(t), 1.0)
+        ts.append(t)
+    n = len(ts)
+    users = ((g.zipf(1.2, n) - 1) % RS_USERS).astype(np.uint64)
+    cand = ((g.zipf(1.3, (n, RS_FANOUT * RS_FAN_WIDTH)) - 1) % RS_KEYS).astype(np.uint64)
+    mix1, mix2 = np.uint64(2654435761), np.uint64(0x9E3779B9)
+    hist = ((users[:, None] * mix1 + np.arange(RS_HIST, dtype=np.uint64)[None, :] * mix2)
+            % np.uint64(RS_KEYS)).astype(np.uint64)
+    uv = g.standard_normal((n, RS_DIM)).astype(np.float32)
+    return np.asarray(ts), hist, cand, uv
+
+
+def rs_replay(pipe, phase, mid_hook=None, answers=None):
+    """Open loop: request i is submitted at ts[i] whatever the earlier ones
+    did; 8 threads collect. Returns requests, errors, late arrivals, wall s,
+    and whether every answer was best-first."""
+    import queue
+    import threading
+
+    ts, hist, cand, uv = phase
+    q, errors, order_ok = queue.Queue(), [], [True]
+
+    def collect():
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            i, pr = item
+            try:
+                keys, scores = pr.result(RS_DEADLINE_MS / 1e3 + 10)
+                if not (np.diff(scores) <= 0).all():
+                    order_ok[0] = False
+                if answers is not None:
+                    answers[i] = (keys, scores)
+            except Exception as e:  # noqa: BLE001 — counted
+                errors.append(e)
+
+    threads = [threading.Thread(target=collect, name=f"rs-collect-{c}") for c in range(8)]
+    for th in threads:
+        th.start()
+    late, start = 0, time.perf_counter()
+    try:
+        for i in range(len(ts)):
+            target = start + ts[i]
+            now = time.perf_counter()
+            if target > now:
+                time.sleep(target - now)
+            elif now - target > 0.05:
+                late += 1
+            if mid_hook is not None and i == len(ts) // 2:
+                mid_hook()
+            try:
+                q.put((i, pipe.submit(uv[i], hist[i], cand[i])))
+            except Exception as e:  # noqa: BLE001 — a shed at admission, counted
+                errors.append(e)
+    finally:
+        for _ in threads:
+            q.put(None)
+        for th in threads:
+            th.join()
+    return {"requests": len(ts), "errors": len(errors), "late": late,
+            "wall_s": time.perf_counter() - start, "best_first": order_ok[0],
+            "first_error": repr(errors[0]) if errors else None}
+
+
+def rs_arm(pipe, router, phase, **kw):
+    """One arm: the pipeline's counters as deltas, its latency windows reset."""
+    keys = ("served", "errors", "early_cuts", "stragglers_abandoned", "stragglers_late",
+            "fan_failures", "rank_batches", "coalesced", "rank_deadline_dropped",
+            "deadline_misses", "shed")
+    s0, h0, r0 = pipe.stats(), router.counters["hedges"], router.counters["reroutes"]
+    for r in (pipe.e2e_latency, pipe.stage_retrieval, pipe.stage_ranking):
+        r.reset()
+    out = rs_replay(pipe, phase, **kw)
+    s1 = pipe.stats()
+    out.update({k: int(s1[k] - s0[k]) for k in keys})
+    out.update(e2e=s1["e2e_ms"], retrieval=s1["stage_retrieval_ms"],
+               ranking=s1["stage_ranking_ms"], rps=(out["requests"] - out["errors"])
+               / out["wall_s"], hedges=int(router.counters["hedges"] - h0),
+               reroutes=int(router.counters["reroutes"] - r0))
+    out["coalesce_factor"] = out["coalesced"] / max(out["rank_batches"], 1)
+    return out
+
+
+def rs_copy_ms(dev, B):
+    """Median ms of one ranking batch's copies at B requests: the gathered rows
+    [B*(H+K), 1+dim] card→host (the cached lookup's result), the ranker's
+    [B, H, d] and [B, K, d] host→card, and its [B, K] scores card→host."""
+    d = 1 + RS_DIM
+    rows = torch.randn(B * (RS_HIST + RS_TOPK), d, device=dev)
+    hist = np.zeros((B, RS_HIST, d), np.float32)
+    cand = np.zeros((B, RS_TOPK, d), np.float32)
+    scores = torch.randn(B, RS_TOPK, device=dev)
+
+    def once():
+        rows.cpu().numpy()
+        torch.from_numpy(hist).to(dev)
+        torch.from_numpy(cand).to(dev)
+        scores.cpu().numpy()
+
+    out = []
+    for _ in range(23):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        once()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out[3:]))
+
+
+def rs_leg_b(dev, card, leg_a):
+    """Leg B (see the section's comment). Returns its record."""
+    import random
+    import tempfile
+    import threading
+
+    from paddle_tpu_torch.convert import ravel_tree
+    from paddle_tpu_torch.data.dataset import QueueDataset, SlotDesc
+    from paddle_tpu_torch.data.index_dataset import TreeIndex
+    from paddle_tpu_torch.distributed.elastic import FileStore
+    from paddle_tpu_torch.io.fs import crc32c
+    from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
+    from paddle_tpu_torch.models.dssm import make_dssm_ranker
+    from paddle_tpu_torch.models.gru4rec import make_gru4rec_ranker
+    from paddle_tpu_torch.models.tdm import ServingBeamSource, beam_search_retrieve
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.ps.accessor import AccessorConfig
+    from paddle_tpu_torch.ps.communicator import HalfAsyncCommunicator
+    from paddle_tpu_torch.ps.ha import HACluster
+    from paddle_tpu_torch.ps.hot_tier import HotEmbeddingTier, HotTierConfig
+    from paddle_tpu_torch.ps.ps_trainer import CtrStreamTrainer
+    from paddle_tpu_torch.ps.sgd_rule import SGDRuleConfig
+    from paddle_tpu_torch.ps.table import TableConfig
+    from paddle_tpu_torch.serving import (CachedLookup, FleetConfig, FreshnessProbe,
+                                          PipelineConfig, PipelineFrontend, RolloutManager,
+                                          RouterConfig, ServingFleet, ServingReplica,
+                                          ServingRouter, spawn_member)
+
+    rec = {}
+    xd, S, D = RS_DIM, 8, 4
+    cfg = TableConfig(shard_num=4, accessor_config=AccessorConfig(
+        embedx_dim=xd, embedx_threshold=0.0, sgd=SGDRuleConfig(initial_range=0.01)))
+    cap = 1 << int(np.ceil(np.log2(max(RS_KEYS * 1.8, 1 << 12))))
+    base = tempfile.mkdtemp(prefix="chip_smoke_recsys_")
+    store_dir = os.path.join(base, "store")
+    os.makedirs(store_dir)
+    rng = np.random.default_rng(0)
+    cluster = HACluster(num_shards=1, replication=1, store=FileStore(store_dir), sync=False)
+    fleet = router = pipe = rep = comm = None
+    stop_train, stop_probe = threading.Event(), threading.Event()
+    threads = []
+    try:
+        train_cli = cluster.client()
+        train_cli.create_sparse_table(0, cfg)
+        keys = np.arange(RS_KEYS, dtype=np.uint64)
+        t = time.perf_counter()
+        width = None
+        for lo in range(0, RS_KEYS, 1 << 15):
+            kc = keys[lo:lo + (1 << 15)]
+            train_cli.pull_sparse(0, kc)
+            width = width or train_cli._dims(0)[1]
+            push = np.zeros((len(kc), width), np.float32)
+            push[:, 1] = 1.0
+            push[:, 3:] = 0.01 * rng.standard_normal((len(kc), width - 3)).astype(np.float32)
+            train_cli.push_sparse(0, kc, push)
+        rec["preload_s"] = time.perf_counter() - t
+        # the parent-side ranking stack: its own read replica and a tier on the card
+        rep = ServingReplica(cluster.store, cluster.job_id, shard=0, hb_interval=0.05,
+                             hb_ttl=10.0)
+        serve = rep.client()
+        view = rep.serve_view(0, cfg, client=serve)
+
+        def caught_up():
+            return cluster.digests(0, 0).get(cluster.primary(0).endpoint) == serve.digest(0)[0]
+
+        phase_wait(caught_up, "phase 20: the parent's replica never caught up")
+        tier = HotEmbeddingTier(view, HotTierConfig(capacity=cap, create_on_miss=False),
+                                device=dev)
+        lookup = CachedLookup(tier, replica=rep, freshness_budget_s=30.0)
+        gru, gru_params = leg_a["trained"]["gru4rec"]
+        gru_rank = make_gru4rec_ranker(gru, gru_params, device=dev)
+        scored, rank_ms, gather_ms = [], [], []
+
+        def ranker(hist, lengths, cand):
+            t0 = time.perf_counter()
+            out = gru_rank(hist, lengths, cand)       # copies in, GRU, scores back
+            rank_ms.append((time.perf_counter() - t0) * 1e3)
+            if len(scored) < RS_SCORED:
+                scored.append((hist.copy(), lengths.copy(), cand.copy(), out.copy()))
+            return out
+
+        class TimedLookup:
+            """The ranking stage's gather, timed (the pipeline's only call)."""
+
+            def lookup(self, keys):
+                t0 = time.perf_counter()
+                out = lookup.lookup(keys)
+                gather_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+        # the fleet: member processes on the card, a router, the rollout plane
+        t = time.perf_counter()
+
+        def make_member():
+            return spawn_member(f"file:{store_dir}", cluster.job_id, embedx_dim=xd,
+                                shard_num=4, capacity=cap, dense_len=RS_DENSE_LEN,
+                                max_batch=64, max_delay_us=1000, freshness_budget_s=2.0,
+                                default_deadline_ms=RS_DEADLINE_MS, prime_pow2_max=RS_FAN_WIDTH,
+                                hb_ttl=10.0, device=dev.type)
+
+        router = ServingRouter(RouterConfig(block_shift=6, hedge_default_ms=25.0,
+                                            hedge_floor_ms=10.0), rng=random.Random(0))
+        fleet = ServingFleet(cluster.store, cluster.job_id, make_member, router,
+                             config=FleetConfig(poll_s=0.25, warm_handoff=False,
+                                                min_replicas=1, max_replicas=6)).start()
+        rollout = RolloutManager(lambda: fleet.members(), router)
+        fleet.rollout = rollout
+        rngp = np.random.default_rng(7)
+        flat_v1 = 0.1 * rngp.standard_normal(RS_DENSE_LEN).astype(np.float32)
+        flat_v2 = flat_v1 + np.float32(0.01)
+        dg_v1 = crc32c(np.ascontiguousarray(flat_v1).tobytes())
+        rollout.register_baseline(flat_v1)
+        fleet.add(RS_MEMBERS)
+        rec["spawn_s"] = time.perf_counter() - t
+        pipe = PipelineFrontend(router, TimedLookup(), ranker=ranker, config=PipelineConfig(
+            default_deadline_ms=RS_DEADLINE_MS, retrieval_frac=0.5, fanout=RS_FANOUT,
+            fan_width=RS_FAN_WIDTH, early_cut_frac=0.5, topk=RS_TOPK,
+            rank_max_batch=RS_RANK_BATCH, rank_max_delay_us=RS_DELAY_US, queue_cap=8192),
+            idle_pop_s=0.005, name="recsys")
+        # the stream trainer (the load beside the serving: fresh rows on the feed)
+        slots = ([SlotDesc(f"s{i}", is_float=False, max_len=1) for i in range(S)]
+                 + [SlotDesc(f"d{i}", is_float=True, max_len=1) for i in range(D)]
+                 + [SlotDesc("label", is_float=True, max_len=1)])
+        comm_cli = cluster.client()
+        comm_cli.create_sparse_table(0, cfg)
+        comm = HalfAsyncCommunicator(comm_cli)
+        comm.start()
+        trainer = CtrStreamTrainer(
+            DeepFM(CtrConfig(num_sparse_slots=S, num_dense=D, embedx_dim=xd,
+                             dnn_hidden=(32, 32)), generator=torch.Generator().manual_seed(0)),
+            Adam(1e-3), None, embedx_dim=xd, sparse_slots=[f"s{i}" for i in range(S)],
+            dense_slots=[f"d{i}" for i in range(D)], label_slot="label", communicator=comm,
+            table_id=0, device=dev)
+        hot_ids = rng.choice(RS_KEYS, 2000, replace=False)
+        trng = np.random.default_rng(11)
+        rounds = [0]
+
+        def train_round():
+            lines = []
+            for _ in range(RS_TRAIN_BATCH):
+                ids = trng.choice(hot_ids, S)
+                dense = trng.normal(size=D)
+                label = int((ids % 5 == 0).sum() + dense[0] > 1.0)
+                lines.append(" ".join([f"1 {v}" for v in ids] + [f"1 {v:.4f}" for v in dense]
+                                      + [f"1 {label}"]))
+            path = os.path.join(base, f"stream_{rounds[0] % 2}.txt")
+            with open(path, "w") as f:
+                f.write("\n".join(lines))
+            ds = QueueDataset(slots)
+            ds.set_filelist([path])
+            trainer.train_from_dataset(ds, batch_size=RS_TRAIN_BATCH, drop_last=False)
+            rounds[0] += 1
+
+        def train_loop():
+            while not stop_train.is_set():
+                train_round()
+                stop_train.wait(0.25)
+
+        train_round()
+        # the fleet-wide freshness prober (recsys_replay's): a marker key's embed_w
+        # rises on every write; a member is fresh once it serves the primary's value
+        probe_cli = cluster.client()
+        probe_cli.create_sparse_table(0, cfg)
+        marker = np.asarray([np.uint64(1) << np.uint64(41)], np.uint64)
+        probe_cli.pull_sparse(0, marker)
+        truth, fresh, fresh_fail, probe_skips, probes = [0.0], [], [0], [0], {}
+
+        def write_marker():
+            mp = np.zeros((1, width), np.float32)
+            mp[0, 1], mp[0, 3] = 1.0, -1.0
+            probe_cli.push_sparse(0, marker, mp)
+            truth[0] = float(probe_cli.pull_sparse(0, marker)[0, 2])
+
+        def probe_loop():
+            idx = 0
+            while not stop_probe.is_set():
+                members = fleet.members()
+                if not members:
+                    stop_probe.wait(0.2)
+                    continue
+                m = members[idx % len(members)]
+                idx += 1
+                pr = probes.setdefault(m.endpoint, FreshnessProbe(
+                    timeout_s=5.0, poll_s=0.002, replica=m.endpoint))
+                pk = np.full(RS_FAN_WIDTH, marker[0], np.uint64)
+
+                def read(m=m, pk=pk):
+                    return float(m.frontend.submit(pk, deadline_ms=1500.0).result(3.0)[0, 0])
+
+                try:
+                    dt = pr.measure(write_marker, read, lambda v: v >= truth[0] - 1e-7)
+                    (fresh.append(dt) if dt is not None else fresh_fail.__setitem__(
+                        0, fresh_fail[0] + 1))
+                except Exception:  # noqa: BLE001 — a member died mid-probe
+                    probe_skips[0] += 1
+                stop_probe.wait(0.3)
+
+        # warm pass (off the record), then the measured arms
+        rs_replay(pipe, rs_gen_phase(RS_WARM / RS_PEAK_QPS, lambda t: RS_PEAK_QPS, seed=1))
+        pipe.reset_stats()
+        router.latency.reset()
+        del rank_ms[:], gather_ms[:]
+        threads = [threading.Thread(target=train_loop, name="rs-trainer"),
+                   threading.Thread(target=probe_loop, name="rs-freshness")]
+        for th in threads:
+            th.start()
+        victim = fleet.members()[-1]
+        rec["ramp"] = rs_arm(pipe, router, rs_gen_phase(
+            RS_RAMP_S, lambda t: RS_BASE_QPS + (RS_PEAK_QPS - RS_BASE_QPS)
+            * float(np.sin(0.5 * np.pi * min(t / RS_RAMP_S, 1.0))), seed=2),
+            mid_hook=victim.crash)
+        rec["killed"] = victim.endpoint
+        rec["tail"] = rs_arm(pipe, router, rs_gen_phase(RS_TAIL_S, lambda t: RS_PEAK_QPS,
+                                                       seed=4))
+        stop_probe.set()
+        stop_train.set()
+        for th in threads:
+            th.join(120)
+        assert not any(th.is_alive() for th in threads), "phase 20: trainer or prober hung"
+        fresh.sort()
+        rec["freshness"] = {
+            "probes": len(fresh) + fresh_fail[0], "failures": fresh_fail[0],
+            "skipped": probe_skips[0], "rounds": rounds[0],
+            "p50_s": fresh[len(fresh) // 2] if fresh else None,
+            "p95_s": fresh[min(int(len(fresh) * 0.95), len(fresh) - 1)] if fresh else None}
+        # the crash: the dead member's lease lapses and the watch removes it
+        phase_wait(lambda: fleet.counters["crashes_removed"] >= 1,
+                   "the crashed member was never removed", timeout=30.0)
+        rec["crashes_removed"] = fleet.counters["crashes_removed"]
+        # canary, promote, rollback over the wire (a canary needs a stable member
+        # beside the band: top the fleet back up to two, as the replay does)
+        t = time.perf_counter()
+        if fleet.size() < 2:
+            fleet.add(2 - fleet.size())
+        rec["topup_s"] = time.perf_counter() - t
+        v1 = rollout.current
+        v2 = rollout.begin_canary(flat_v2, fraction=0.2)
+        c0 = dict(router.stats()["version_counts"])
+        rec["canary"] = rs_arm(pipe, router, rs_gen_phase(RS_CANARY / RS_PEAK_QPS,
+                                                         lambda t: RS_PEAK_QPS, seed=5))
+        rec["version_counts"] = {k: v - c0.get(k, 0)
+                                 for k, v in router.stats()["version_counts"].items()}
+        rollout.promote()
+        rec["promoted"] = set(rollout.fleet_versions().values()) == {
+            (v2, rollout.version_digest(v2))}
+        rollout.rollback(reason="phase 20")
+        back = rollout.fleet_versions()
+        rec["rollback_ok"] = set(back.values()) == {(v1, dg_v1)} and len(back) == fleet.size()
+        rec["rollback_members"] = len(back)
+        rec["pipeline"] = pipe.stats()
+        pipe.stop()
+        rec["rank_ms"] = (float(np.median(rank_ms)), float(np.percentile(rank_ms, 99)))
+        rec["gather_ms"] = (float(np.median(gather_ms)), float(np.percentile(gather_ms, 99)))
+        # the sampled ranking batches against the CPU ranker on the same rows
+        cpu_rank = make_gru4rec_ranker(gru, {k: v.cpu() for k, v in gru_params.items()},
+                                       device="cpu")
+        rec["scored"] = len(scored)
+        rec["score_err"] = max(float(np.abs(cpu_rank(h, l, c) - s).max())
+                               for h, l, c, s in scored)
+        # the DSSM ranker and a TDM walk through ServingBeamSource, on the card and
+        # the CPU, over the parent's lookup (the feed idle and caught up)
+        phase_wait(caught_up, "phase 20: the parent's replica never caught up after training")
+        dssm, dssm_params = leg_a["trained"]["dssm"]
+        g = np.random.default_rng(9)
+        hk = g.integers(0, RS_KEYS, (RS_RANK_BATCH, RS_DSSM_SQ)).astype(np.uint64)
+        ck = g.integers(0, RS_KEYS, (RS_RANK_BATCH, RS_TOPK)).astype(np.uint64)
+        hist = lookup.lookup(hk.reshape(-1)).reshape(RS_RANK_BATCH, RS_DSSM_SQ, -1)
+        cand = lookup.lookup(ck.reshape(-1)).reshape(RS_RANK_BATCH, RS_TOPK, -1)
+        lens = np.full(RS_RANK_BATCH, RS_DSSM_SQ, np.int32)
+        on_dev = make_dssm_ranker(dssm, dssm_params, device=dev)(hist, lens, cand)
+        on_cpu = make_dssm_ranker(dssm, {k: v.cpu() for k, v in dssm_params.items()},
+                                  device="cpu")(hist, lens, cand)
+        rec["dssm_err"] = float(np.abs(on_dev - on_cpu).max())
+        tdm, tdm_params = leg_a["trained"]["tdm"]
+        tree = TreeIndex(list(range(RS_TREE_ITEMS)), branch=2)
+        users = [list(g.integers(0, RS_TREE_ITEMS, 3)) for _ in range(4)]
+        src_dev = ServingBeamSource(lookup, device=dev)
+        src_cpu = ServingBeamSource(lookup, device="cpu")
+        cpu_params = {k: v.cpu() for k, v in tdm_params.items()}
+        walks = [(beam_search_retrieve(tree, tdm, tdm_params, src_dev, u, k=8),
+                  beam_search_retrieve(tree, tdm, cpu_params, src_cpu, u, k=8)) for u in users]
+        rec["tdm_same"] = all(a == b for a, b in walks)
+        rec["tdm_items"] = [len(a) for a, _ in walks]
+        rec["tdm_flushes"] = (src_dev.flushes, src_cpu.flushes)
+        rec["members"] = fleet.size()
+        return rec
+    finally:
+        stop_probe.set()
+        stop_train.set()
+        for th in threads:
+            if th.is_alive():
+                th.join(60)
+        if pipe is not None:
+            pipe.stop()
+        if comm is not None:
+            comm.stop()
+        if fleet is not None:
+            fleet.stop()
+        if router is not None:
+            router.stop()
+        if rep is not None:
+            rep.close()
+        cluster.stop()
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def phase_recsys(dev, card):
+    """Phase 20 (see the section's comment). Returns (the path's launches, B1's
+    numbers on GRU4Rec's first push)."""
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    a = rs_leg_a(dev, card)
+    leg_a_s = time.perf_counter() - t
+    rs_check_leg_a(a, dev, card)
+    b1 = None
+    if dev.type == "cuda":
+        for family in ("gru4rec", "dssm", "tdm"):
+            r = wd_b1_check(a["push_" + family], dim=RS_DIM, what=f"{family} push")
+            if family == "gru4rec":
+                b1 = r
+    launches = sum(n["ctr_sparse_rows"] for n in a["launches"].values())
+    t = time.perf_counter()
+    b = rs_leg_b(dev, card, a)
+    leg_b_s = time.perf_counter() - t
+    for name in ("ramp", "tail", "canary"):
+        r = b[name]
+        log(f"recsys leg B, {name}: {r['requests']} requests open-loop, {r['rps']:.1f} "
+            f"requests/s, errors {r['errors']} (first {r['first_error']}), e2e p50 "
+            f"{r['e2e']['p50_ms']} ms p99 {r['e2e']['p99_ms']} ms, retrieval p50 "
+            f"{r['retrieval']['p50_ms']} ms p99 {r['retrieval']['p99_ms']} ms, ranking p50 "
+            f"{r['ranking']['p50_ms']} ms p99 {r['ranking']['p99_ms']} ms, {r['rank_batches']} "
+            f"ranking batches (coalesce factor {r['coalesce_factor']:.3f}), stragglers "
+            f"abandoned {r['stragglers_abandoned']} late {r['stragglers_late']}, fan failures "
+            f"{r['fan_failures']}, hedges {r['hedges']}, reroutes {r['reroutes']}, late "
+            f"arrivals {r['late']}, best first {r['best_first']} on {card}")
+    p = b["pipeline"]
+    copy = {B: rs_copy_ms(dev, B) for B in (1, RS_RANK_BATCH)}
+    log(f"recsys leg B: preload {b['preload_s']:.2f} s, {RS_MEMBERS} member processes up in "
+        f"{b['spawn_s']:.2f} s, member {b['killed']} SIGKILLed mid-ramp and removed by the "
+        f"lease watch ({b['crashes_removed']}), top-up {b['topup_s']:.2f} s; freshness under "
+        f"training {b['freshness']}; canary split {b['version_counts']}, promoted "
+        f"{b['promoted']}, v1 restored on {b['rollback_members']} members {b['rollback_ok']}; "
+        f"coalesce factor over the leg {p.get('coalesce_factor')}; {b['scored']} ranking "
+        f"batches vs the CPU ranker max_abs {b['score_err']:.3e}; DSSM ranker card vs CPU "
+        f"max_abs {b['dssm_err']:.3e}; TDM walk card == CPU {b['tdm_same']} (items "
+        f"{b['tdm_items']}, flushes {b['tdm_flushes']}); a ranking batch's gather p50/p99 "
+        f"{b['gather_ms'][0]:.3f}/{b['gather_ms'][1]:.3f} ms and ranker call "
+        f"{b['rank_ms'][0]:.3f}/{b['rank_ms'][1]:.3f} ms; its host<->card copies "
+        f"{copy[1]:.4f} ms at 1 request, {copy[RS_RANK_BATCH]:.4f} ms at {RS_RANK_BATCH} "
+        f"on {card}")
+    for name in ("ramp", "tail", "canary"):
+        assert b[name]["errors"] == 0, f"phase 20: {name} errors {b[name]}"
+        assert b[name]["best_first"], f"phase 20: {name} answers not best first"
+    assert p["coalesced"] > p["rank_batches"], f"phase 20: coalesce factor {p}"
+    assert p["stragglers_abandoned"] > 0, f"phase 20: no straggler counted {p}"
+    assert b["crashes_removed"] == 1
+    assert b["promoted"] and b["rollback_ok"], "phase 20: v1 was not restored on every member"
+    assert b["freshness"]["p95_s"] is not None, f"phase 20: freshness {b['freshness']}"
+    assert b["score_err"] <= RS_SCORE_TOL and b["dssm_err"] <= RS_SCORE_TOL, \
+        (b["score_err"], b["dssm_err"])
+    assert b["tdm_same"] and all(b["tdm_items"]) and b["tdm_flushes"] == (0, 0), b["tdm_items"]
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30) if dev.type == "cuda" else float("nan")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"recsys serve path (phase 20): {time.perf_counter() - t_phase:.1f} s (leg A "
+        f"{leg_a_s:.1f} s, leg B {leg_b_s:.1f} s), ctr_sparse_rows launches on the path "
+        f"{launches}, peak device memory {peak:.2f} GiB on {card}")
+    return launches, b1
+
+
 def main(argv):
     profile_dir = None
     if argv[:1] == ["--ps-job"] and len(argv) == 2:
@@ -5551,6 +6324,7 @@ def main(argv):
     rs_counts, rs_b2, rs_b4 = phase_reshard(dev, card, keep)
     tn_counts, tn_b2, tn_b4 = phase_tenancy(dev, card, keep.pop("leg_b_oracle"))
     phase_obs_fleet(dev, card, keep.pop("leg_a_oracle"))
+    rs_launches, rs_b1 = phase_recsys(dev, card)
     phase_kernel_counts(dev)
     wd_kernel_counts(dev)
     phase_resnet_kernel_counts(resnets, resnet_batch, profile_dir)
@@ -5622,7 +6396,10 @@ def main(argv):
         entry("hot_probe_gather@tenancy", hot_src, "paddle_tpu/ops/hot_kernels.py:116",
               tn_counts["hot_probe_gather"], tn_b2),
         entry("hot_scatter_apply@tenancy", hot_src, "paddle_tpu/ops/hot_kernels.py:278",
-              tn_counts["hot_scatter_apply"], tn_b4)]
+              tn_counts["hot_scatter_apply"], tn_b4),
+        # B1 again as phase 20's recsys train steps launch it: the three
+        # families' launches summed, its numbers on GRU4Rec's first push
+        entry("ctr_sparse_rows@recsys", b1_src, b1_ref, rs_launches, rs_b1)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -9,9 +9,11 @@ port trainer writes into a checkpoint the JAX package loads.
 
 Layouts: the JAX ``Linear`` weight is ``[in, out]`` (paddle convention),
 the port's ``[out, in]`` (torch's), so the CTR models' (DeepFM,
-WideDeep) and the vision models' 2-D parameters are transposed, and conv weights (OIHW in both) are not; ERNIE
-keeps the JAX layout (``x @ w``), so its parameters and Adam slots carry
-over name for name with no transpose. Cache and tier
+WideDeep), the recsys models' (GRU4Rec, DSSM, TDM) and the vision models'
+2-D ``Linear`` weights are transposed, and conv weights (OIHW in both) and
+the recurrent layers' ``w_ih_*``/``w_hh_*`` (``[in, gates*H]`` in both)
+are not; ERNIE keeps the JAX layout (``x @ w``), so its parameters and
+Adam slots carry over name for name with no transpose. Cache and tier
 state keep the JAX layout (see ``ps.embedding_cache``); the static map's
 uint32 hi/lo/seed widen to int64, the dynamic map's stay 32-bit patterns
 in int32 tensors (``ps.device_hash``).
@@ -31,7 +33,8 @@ from .ps.device_hash import dynamic_map_state_to_device, map_state_to_device
 __all__ = ["adam_state_from_jax", "cache_state_from_jax", "ctr_params_from_jax",
            "ctr_params_to_jax", "opt_state_to_jax", "dynamic_map_state_from_jax",
            "ernie_params_from_jax", "map_state_from_jax", "opt_state_from_jax",
-           "ravel_tree", "vision_params_from_jax"]
+           "ravel_tree", "recsys_params_from_jax", "recsys_params_to_jax",
+           "vision_params_from_jax"]
 
 Device = Union[str, torch.device]
 
@@ -57,6 +60,36 @@ def ctr_params_to_jax(params: Mapping) -> dict:
     for k, v in params.items():
         a = v.detach().cpu().numpy()
         out[k] = np.array(a.T if a.ndim == 2 else a, order="C")
+    return {"params": out, "buffers": {}}
+
+
+def _is_rnn_weight(name: str) -> bool:
+    leaf = name.rsplit(".", 1)[-1]
+    return leaf.startswith(("w_ih_", "w_hh_"))
+
+
+def recsys_params_from_jax(named_params: Mapping,
+                           device: Device = "cpu") -> Dict[str, torch.Tensor]:
+    """JAX ``named_parameters()`` (or a ``{"params": ..., "buffers": {}}``
+    tree) of a ``GRU4Rec``, ``DSSM`` or ``TDM`` → the port's params dict:
+    the same names; ``Linear`` weights transposed to [out, in], the GRU's
+    ``w_ih_*``/``w_hh_*`` kept in their ``[in, gates*H]`` layout."""
+    out = {}
+    for k, v in named_params.get("params", named_params).items():
+        a = np.asarray(v, np.float32)
+        if a.ndim == 2 and not _is_rnn_weight(k):
+            a = a.T
+        out[k] = torch.from_numpy(np.array(a, order="C")).to(device)
+    return out
+
+
+def recsys_params_to_jax(params: Mapping) -> dict:
+    """Inverse of :func:`recsys_params_from_jax`: the port's params dict →
+    the JAX ``{"params": ..., "buffers": {}}`` tree of numpy arrays."""
+    out = {}
+    for k, v in params.items():
+        a = v.detach().cpu().numpy()
+        out[k] = np.array(a.T if a.ndim == 2 and not _is_rnn_weight(k) else a, order="C")
     return {"params": out, "buffers": {}}
 
 

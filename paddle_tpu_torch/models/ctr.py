@@ -34,7 +34,7 @@ from torch import nn
 from torch.func import functional_call
 
 from ..core.device import resolve_device
-from ..core.enforce import InvalidArgumentError, enforce, enforce_eq
+from ..core.enforce import InvalidArgumentError, UnavailableError, enforce, enforce_eq
 from ..amp import step_ctx
 from ..nn import functional as F
 from ..nn.layers import Linear
@@ -164,13 +164,24 @@ def _push_stats(labels, weights, n_cols):
 
 
 def _ctr_step_body(model, optimizer, cache_cfg, params, opt_state, cache_state,
-                   flat_rows, B, S, dense_x, labels, weights=None):
+                   flat_rows, B, S, dense_x, labels, weights=None, loss_builder=None,
+                   with_real=False):
+    """One GPUPS step: pull, forward and backward, dense update, push.
+    ``loss_builder(model, dense_x, labels, weights)`` (default: weighted
+    BCE, :func:`_make_loss_fn`) lets a model family with its own objective
+    reuse the body; the ``loss_fn(params, emb)`` it returns gives the loss
+    alone (the JAX builders' auxiliary output is never read by the body).
+    ``with_real`` (the real-position mask for attention models) comes with
+    DIN, which is not ported yet."""
+    if with_real:
+        raise UnavailableError("with_real serves DIN, which is not ported yet "
+                               "(ROADMAP Queue A item 9)")
     # the wire carries f16 dense features and int8 labels; compute is f32
     dense_x = dense_x.to(torch.float32)
     labels = labels.to(torch.int32)
     emb = cache_pull(cache_state, flat_rows).reshape(B, S, -1).requires_grad_(True)
     leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
-    loss = _make_loss_fn(model, dense_x, labels, weights)(leaves, emb)
+    loss = (loss_builder or _make_loss_fn)(model, dense_x, labels, weights)(leaves, emb)
     *g, emb_grad = torch.autograd.grad(loss, [*leaves.values(), emb])
     new_params, new_opt = optimizer.update(dict(zip(leaves, g)), opt_state, params)
     shows, clicks = _push_stats(labels, weights, S)

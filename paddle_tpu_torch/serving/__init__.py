@@ -35,15 +35,22 @@ the TTL'd observer leases (drain restarts, warm-handoff joins, crash
 removal); :class:`~paddle_tpu_torch.serving.rollout.RolloutManager` makes a
 model push a routed event (canary band, promote, digest-pinned rollback).
 
-Not ported yet (ROADMAP Queue A item 6, with the rankers): ``pipeline``
-and ``member_host``.
+The pipeline layer chains retrieval into ranking behind one deadline:
+:class:`~paddle_tpu_torch.serving.pipeline.PipelineFrontend` carves a
+request's budget into stage budgets (the candidate fan-out over the fleet
+with an early top-K cut, then ranking coalesced across requests: one
+gather and one stacked ranker call for many requests), and
+:mod:`~paddle_tpu_torch.serving.member_host` runs each fleet member in a
+process of its own (``spawn_member``), reachable only by its endpoint.
 """
 
 from .fleet import FleetConfig, FleetController, FleetMember, ServingFleet
 from .frontend import (DeadlineExceeded, FrontendConfig, PendingResult, RequestRejected,
                        ServingFrontend)
 from .lookup import CachedLookup, ReplicaLookup
+from .member_host import RemoteFrontend, RemoteModel, spawn_member
 from .metrics import FreshnessProbe, LatencyRecorder
+from .pipeline import PipelineConfig, PipelineFrontend
 from .replica import DenseTowerPublisher, DenseTowerSync, ServingReplica, make_serve_client
 from .rollout import DenseModel, RolloutConfig, RolloutManager
 from .router import RoutedRequest, RouterConfig, ServingRouter
@@ -72,4 +79,9 @@ __all__ = [
     "RolloutManager",
     "RolloutConfig",
     "DenseModel",
+    "PipelineFrontend",
+    "PipelineConfig",
+    "spawn_member",
+    "RemoteFrontend",
+    "RemoteModel",
 ]

@@ -385,10 +385,10 @@ def test_dataset_entry_points_without_device_raise_without_gpu():
 
 def test_import_rule_covers_tenancy_and_serving():
     """The tenancy module, the serving package with its fleet layer
-    (``router``/``fleet``/``rollout``), the obs wire's ``obs/aggregate.py``
-    and ``distributed/placement.py`` are in the rule's file list; the
-    serving package exports what JAX's does but the recsys pipeline's
-    names, whose modules (``pipeline``/``member_host``) are still absent."""
+    (``router``/``fleet``/``rollout``) and its pipeline layer
+    (``pipeline``/``member_host``), the obs wire's ``obs/aggregate.py``,
+    ``distributed/placement.py`` and the recsys models are in the rule's
+    file list; the serving package exports what JAX's does."""
     import paddle_tpu.serving as jax_serving_names  # noqa: F401  (the JAX list)
     import paddle_tpu_torch.serving as serving
 
@@ -396,13 +396,68 @@ def test_import_rule_covers_tenancy_and_serving():
     for mod in ("ps/tenancy.py", "serving/__init__.py", "serving/metrics.py",
                 "serving/frontend.py", "serving/replica.py", "serving/lookup.py",
                 "serving/router.py", "serving/fleet.py", "serving/rollout.py",
-                "obs/aggregate.py", "distributed/placement.py"):
+                "serving/pipeline.py", "serving/member_host.py", "obs/aggregate.py",
+                "distributed/placement.py", "data/index_dataset.py", "nn/rnn.py",
+                "models/dssm.py", "models/gru4rec.py", "models/tdm.py"):
         assert f"paddle_tpu_torch/{mod}" in names, mod
-    assert set(serving.__all__) == set(jax_serving_names.__all__) - {
-        "PipelineFrontend", "PipelineConfig", "spawn_member", "RemoteFrontend",
-        "RemoteModel"}
-    for later in ("pipeline", "member_host"):
-        assert not (ROOT / "paddle_tpu_torch" / "serving" / f"{later}.py").exists(), later
+    assert set(serving.__all__) == set(jax_serving_names.__all__)
+
+
+def test_member_process_runs_the_port_module(monkeypatch):
+    """``spawn_member`` starts ``python -m paddle_tpu_torch.serving.member_host``
+    (the import rule reads the syntax tree and cannot see a module name
+    inside a string), with the device in the child's config."""
+    import json
+
+    from paddle_tpu_torch.serving import member_host
+
+    seen = []
+
+    def fake_popen(argv, **kw):
+        seen.append((argv, kw.get("env", {})))
+        raise OSError("not started")
+
+    monkeypatch.setattr(member_host.subprocess, "Popen", fake_popen)
+    with pytest.raises(OSError, match="not started"):
+        member_host.spawn_member("file:/nonexistent", "job", device="cpu")
+    (argv, env), = seen
+    assert member_host.CHILD_MODULE == "paddle_tpu_torch.serving.member_host"
+    assert argv[1:3] == ["-m", "paddle_tpu_torch.serving.member_host"]
+    assert json.loads(argv[3])["device"] == "cpu"
+    assert env["PYTHONPATH"].split(":")[0] == str(ROOT)
+
+
+def test_recsys_entry_points_without_device_raise_without_gpu():
+    """The recsys train steps, the rankers, ``ServingBeamSource`` and
+    ``spawn_member`` run on the card unless the caller asks for the CPU."""
+    _no_gpu()
+    from paddle_tpu_torch.core.enforce import UnavailableError
+    from paddle_tpu_torch.models.dssm import DSSM, make_dssm_ranker, make_dssm_train_step
+    from paddle_tpu_torch.models.gru4rec import (GRU4Rec, make_gru4rec_ranker,
+                                                 make_gru4rec_train_step)
+    from paddle_tpu_torch.models.tdm import TDM, ServingBeamSource, make_tdm_train_step
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.ps.embedding_cache import CacheConfig
+    from paddle_tpu_torch.serving import spawn_member
+
+    cfg = CacheConfig(capacity=64, embedx_dim=4)
+    gru, dssm, tdm = GRU4Rec(4, 8, 8), DSSM(2, 1, 4), TDM(4)
+
+    class Lookup:
+        def lookup(self, keys):
+            return np.zeros((len(keys), 5), np.float32)
+
+    for make in (lambda **kw: make_gru4rec_train_step(gru, Adam(), cfg, **kw),
+                 lambda **kw: make_dssm_train_step(dssm, Adam(), cfg, **kw),
+                 lambda **kw: make_tdm_train_step(tdm, Adam(), cfg, **kw),
+                 lambda **kw: make_gru4rec_ranker(gru, **kw),
+                 lambda **kw: make_dssm_ranker(dssm, **kw),
+                 lambda **kw: ServingBeamSource(Lookup(), capacity=8, **kw)):
+        with pytest.raises(UnavailableError, match="device='cpu'"):
+            make()
+        make(device="cpu")
+    with pytest.raises(UnavailableError, match="device='cpu'"):
+        spawn_member("file:/nonexistent", "job")
 
 
 def test_cached_lookup_tier_without_device_raises_without_gpu():

@@ -520,6 +520,11 @@ def _cached_scenario(p, monkeypatch):
             serve = rep.client()
             view = rep.serve_view(0, _cfg(p), client=serve)
             _wait_digest_match(cluster, 0, serve)
+            # the digest matches once the snapshot lands, and the feed cursor
+            # then moves through the oplog's tail (no row changes): rows
+            # stamped before that would read as stale on an idle feed
+            top = cluster.primary(0).server.oplog_seq()
+            _wait(lambda: rep.applied_seq >= top, "the replica's feed never reached the oplog")
             tier = p.HotEmbeddingTier(view, p.HotTierConfig(capacity=1 << 10,
                                                             create_on_miss=False),
                                       **p.tier_kw)
