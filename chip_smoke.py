@@ -268,13 +268,36 @@ or when any phase fails. Phases:
    the CPU's on the same rows, a TDM walk through ``ServingBeamSource``
    on the card equal to the CPU's; logs stage p50/p99, requests/s,
    freshness p95 and a ranking batch's host↔card copy time;
-21. the ``kernels`` JSON line (B1 four times: ``ctr_sparse_rows`` on the
+21. ERNIE over a dp×pp×cp×mp mesh of logical ranks on the card
+   (``parallel.HybridParallelTrainer``: a thread a rank, collectives by
+   axis name). Leg A: phase 7's width (vocab 32,768, hidden 1024, 16
+   heads, ffn 4096, 8 layers, batch 8 × seq 512), causal, on ``{"dp": 1,
+   "pp": 2, "cp": 2, "mp": 2}``, ``Adam(1e-4)``, 2 micro-batches, 2
+   warm-up and 6 timed steps: loss finite and falling, the first loss
+   within rtol 1e-4 of the serial ``Ernie`` on the trainer's params, every
+   attention call a ring of cp hops through the flash kernels, launches a
+   step equal to the formula (B5 8 ranks × 3 ticks × 4 blocks × 2 hops =
+   192, B6 and B7 the 2 valid ticks: 128); tokens/s, ms/step and peak
+   memory beside phase 7's step (at the end, with the other profiler
+   windows, one step's host ranges, device kernels and busy share). Leg B: a small ERNIE on the same mesh, 3
+   steps card (the kernels) vs CPU (their plain versions) from the same
+   weights, causal and not, seeds 0–2, within ``HYB_TOL``; then B5–B7 at
+   leg A's hop shape [4, 256, 8, 64], causal, at the hop of past keys
+   (q_offset 256) and the fully masked hop (k_offset 256) with a
+   numpy-seeded dO and dlse: within ``FA_TOL`` of their plain versions,
+   twice the same bits, the masked hop's out, dQ, dK, dV exactly 0 and
+   lse exactly NEG; timed at the first for the kernels line. Leg C: 8
+   experts (gshard) at full width on ``{"dp": 2, "pp": 2, "cp": 1, "mp":
+   2}``, ep riding dp, 2 warm-up and 4 timed steps: loss finite and
+   falling, the aux loss logged, tokens/s;
+22. the ``kernels`` JSON line (B1 four times: ``ctr_sparse_rows`` on the
    pass path, ``ctr_sparse_rows@widedeep`` on phase 12's,
    ``ctr_sparse_rows@gpubox_rpc`` on phase 14's leg B,
    ``ctr_sparse_rows@recsys`` on phase 20's leg A; B2 and B4 five
    times: ``hot_probe_gather``/``hot_scatter_apply`` on the hot path,
    ``...@rpc`` on phase 13's, ``...@ha`` on phase 16's tier arm,
    ``...@reshard`` on phase 17's leg B, ``...@tenancy`` on phase 18's leg
+   A; B5–B7 twice: on the ERNIE path and ``...@ring`` on phase 21's leg
    A), then the card line, then the result line.
 
 ``--profile DIR`` also runs two more pass-path slabs, two more warm
@@ -6260,6 +6283,339 @@ def phase_recsys(dev, card):
     return launches, b1
 
 
+# -- phase 21: ERNIE over a dp×pp×cp×mp mesh of logical ranks ------------------
+
+HYB_MESH = {"dp": 1, "pp": 2, "cp": 2, "mp": 2}       # leg A (and B)
+HYB_MOE_MESH = {"dp": 2, "pp": 2, "cp": 1, "mp": 2}   # leg C: ep rides dp
+HYB_MICRO, HYB_WARM, HYB_STEPS, HYB_MOE_STEPS = 2, 2, 6, 4
+HYB_SMALL = dict(vocab_size=1024, hidden_size=64, num_heads=4, ffn_size=128, num_layers=2,
+                 max_seq_len=64)
+HYB_SMALL_BATCH, HYB_SMALL_STEPS = 4, 3
+# leg B, card (the kernels) vs CPU (their plain versions) after 3 steps:
+# the first loss (relative) and each tensor's update ||Δcard − Δcpu|| /
+# ||Δcpu|| (the key bias left out, as phase 8 does)
+HYB_TOL = {"loss": 1e-4, "update": 5e-2}
+RING_HOP = (4, 256, 8, 64)    # leg A's hop: [B/(dp·M), L/cp, H/mp, D]
+
+
+def hybrid_launches_per_step(cfg, shape, micro):
+    """Flash launches a step of the hybrid trainer: every rank runs every
+    tick (M + pp − 1) through its stage's blocks, each attention a ring of
+    cp hops (B5 once a hop); the backward runs B6 and B7 once for each
+    forward call that reaches the loss, the M valid ticks of each rank."""
+    ranks = int(np.prod(list(shape.values())))
+    bps, hops, ticks = cfg.num_layers // shape["pp"], shape["cp"], micro + shape["pp"] - 1
+    bwd = ranks * micro * bps * hops
+    return {"flash_attention_fwd": ranks * ticks * bps * hops,
+            "flash_attention_bwd_dq": bwd, "flash_attention_bwd_dkv": bwd}
+
+
+def hybrid_batch(rng, vocab, batch, seq, dev):
+    return tuple(torch.from_numpy(rng.integers(0, vocab, (batch, seq))).to(dev)
+                 for _ in range(2))
+
+
+def hybrid_leg_a(dev, card, serial):
+    """Full width, causal, ``{"dp": 1, "pp": 2, "cp": 2, "mp": 2}``: 2 warm-up
+    and 6 timed steps; the first loss against the serial port model on the
+    trainer's params; the flash launches against the formula."""
+    from paddle_tpu_torch.core.mesh import make_mesh
+    from paddle_tpu_torch.models.ernie import Ernie, ErnieConfig
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel.hybrid import HybridParallelTrainer
+
+    cfg = ErnieConfig(**ERNIE_CFG, causal=True)
+    t0 = time.perf_counter()
+    tr = HybridParallelTrainer(cfg, make_mesh(HYB_MESH), Adam(1e-4), num_micro=HYB_MICRO,
+                               seed=0)
+    ids, labels = hybrid_batch(np.random.default_rng(30), cfg.vocab_size, ERNIE_BATCH,
+                               ERNIE_SEQ, dev)
+    with torch.device("meta"):
+        model = Ernie(cfg)
+    model.load_state_dict(tr.serial_state_dict(), assign=True)
+    with torch.no_grad():
+        serial_loss = float(model.loss(ids, labels))
+    del model
+    torch.cuda.synchronize()
+    log(f"hybrid leg A: built on {HYB_MESH} in {time.perf_counter() - t0:.2f} s (host); "
+        f"the serial model's loss on the same params {serial_loss}")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses = []
+    for i in range(HYB_WARM + HYB_STEPS):
+        if i == HYB_WARM:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(tr.train_step(ids, labels))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_launches()
+    steps = HYB_WARM + HYB_STEPS
+    losses = torch.stack(losses).cpu().numpy()
+    want = {k: steps * n for k, n in hybrid_launches_per_step(cfg, HYB_MESH, HYB_MICRO).items()}
+    tokens = ERNIE_BATCH * ERNIE_SEQ
+    stats = {"ms_per_step": 1e3 * dt / HYB_STEPS, "tokens_per_s": tokens * HYB_STEPS / dt,
+             "peak_bytes": torch.cuda.max_memory_allocated()}
+    rel = abs(float(losses[0]) - serial_loss) / abs(serial_loss)
+    log(f"hybrid leg A: {steps} steps, flash launches {counts} (formula {want}: 8 ranks x "
+        f"{HYB_MICRO + HYB_MESH['pp'] - 1} ticks x {cfg.num_layers // HYB_MESH['pp']} blocks x "
+        f"{HYB_MESH['cp']} hops a step for B5, x {HYB_MICRO} valid ticks for B6/B7), losses "
+        f"{losses.tolist()}; first loss vs serial {rel} (stated bound 1e-4)")
+    log(f"hybrid leg A: {stats['tokens_per_s']:.1f} tokens/s, {stats['ms_per_step']:.3f} ms/step "
+        f"({HYB_STEPS} timed steps, {dt:.4f} s), peak memory {stats['peak_bytes']} B, against "
+        f"phase 7's serial step {serial['ms_per_step']:.3f} ms, {serial['tokens_per_s']:.1f} "
+        f"tokens/s on {card}")
+    assert np.isfinite(losses).all(), "hybrid leg A: non-finite loss"
+    assert losses[-1] < losses[0], "hybrid leg A: loss did not fall"
+    assert rel <= 1e-4, f"hybrid leg A: first loss {losses[0]} vs serial {serial_loss}"
+    for name, n in want.items():
+        assert counts[name] == n, f"hybrid leg A: {name} {counts[name]} launches, formula {n}"
+    return tr, (ids, labels), counts, stats
+
+
+def hybrid_small_run(device, causal, impl, seed, batches):
+    """3 hybrid steps of a small ERNIE on ``HYB_MESH``: (losses, start and
+    end params on the CPU)."""
+    from paddle_tpu_torch.core.mesh import make_mesh
+    from paddle_tpu_torch.models.ernie import ErnieConfig
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel.hybrid import HybridParallelTrainer, flatten_tree
+
+    cfg = ErnieConfig(**HYB_SMALL, causal=causal, attn_impl=impl)
+    tr = HybridParallelTrainer(cfg, make_mesh(HYB_MESH, device=device), Adam(1e-3),
+                               num_micro=HYB_MICRO, seed=seed, device=device)
+    start = {k: v.cpu().clone() for k, v in flatten_tree(tr.params).items()}
+    losses = [float(tr.train_step(i.to(device), y.to(device))) for i, y in batches]
+    return np.asarray(losses), start, {k: v.cpu() for k, v in flatten_tree(tr.params).items()}
+
+
+def hybrid_leg_b(dev):
+    """Card (``"auto"``: the kernels) vs CPU (``"flash"``: their plain
+    versions), causal and not, seeds 0–2, 3 steps from the same weights."""
+    H, D = HYB_SMALL["num_heads"], HYB_SMALL["hidden_size"] // HYB_SMALL["num_heads"]
+    worst = {"loss": 0.0, "update": 0.0}
+    for causal in (False, True):
+        for seed in range(3):
+            rng = np.random.default_rng(60 + seed)
+            batches = [hybrid_batch(rng, HYB_SMALL["vocab_size"], HYB_SMALL_BATCH,
+                                    HYB_SMALL["max_seq_len"], "cpu")
+                       for _ in range(HYB_SMALL_STEPS)]
+            gl, w0, gp = hybrid_small_run(dev, causal, "auto", seed, batches)
+            cl, c0, cp = hybrid_small_run(torch.device("cpu"), causal, "flash", seed, batches)
+            assert all(torch.equal(w0[k], c0[k]) for k in w0), "leg B: weights differ"
+            loss = float(np.max(np.abs(gl - cl) / np.abs(cl)))
+            upd = 0.0
+            for k, s in w0.items():
+                dg, dc = gp[k] - s, cp[k] - s
+                if k.endswith("attn.qkv_b"):     # [pp, H·3·D]: drop the key bias
+                    dg, dc = (d.reshape(-1, H, 3, D)[:, :, [0, 2]] for d in (dg, dc))
+                if float(dc.norm()) > 0:
+                    upd = max(upd, float((dg - dc).norm() / dc.norm()))
+            worst["loss"], worst["update"] = max(worst["loss"], loss), max(worst["update"], upd)
+            log(f"hybrid leg B causal={causal} seed={seed}: card vs CPU losses {gl.tolist()} "
+                f"vs {cl.tolist()} (worst relative {loss}), worst relative update difference "
+                f"{upd} (stated bounds {HYB_TOL})")
+            assert loss <= HYB_TOL["loss"] and upd <= HYB_TOL["update"], \
+                f"hybrid leg B causal={causal} seed={seed}: {loss}, {upd}"
+    return worst
+
+
+def ring_hop_kernels(dev):
+    """B5–B7 at leg A's hop shape, causal: the hop of past keys (q_offset
+    L, k_offset 0) and the fully masked hop (q_offset 0, k_offset L), with
+    a numpy-seeded dO and dlse, against their plain versions on the card
+    (``FA_TOL``), each twice to the same bits; at the masked hop out, dQ,
+    dK, dV exactly 0 and lse exactly NEG. Then the times at the hop of
+    past keys (every pair visible) for the kernels line."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    B, L, H, D = RING_HOP
+    rng = np.random.default_rng(41)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=RING_HOP).astype(np.float32)).to(dev)
+                   for _ in range(4))
+    dlse = torch.from_numpy(rng.normal(size=(B, L, H)).astype(np.float32)).to(dev)
+    tol = FA_TOL["default"]
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for qo, ko in ((L, 0), (0, L)):
+        kw = dict(causal=True, q_offset=qo, k_offset=ko)
+
+        def run():
+            out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            delta = ((do * out).sum(-1) - dlse).contiguous()
+            return (out, lse, fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
+                    *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)), delta
+
+        got, delta = run()
+        again, _ = run()
+        torch.cuda.synchronize()
+        same = all(bitwise_equal(a, b) for a, b in zip(got, again))
+        out, lse, dq, dk, dv = got
+        w_out, w_lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+        w_dq = fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+        w_dk, w_dv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
+        errs = {"out": max_abs(out, w_out), "lse": max_abs(lse, w_lse), "dq": max_abs(dq, w_dq),
+                "dk": max_abs(dk, w_dk), "dv": max_abs(dv, w_dv)}
+        ok = same and all(bool(torch.isfinite(t).all()) for t in got) and \
+            all(e <= tol.get(n, tol["grad"]) for n, e in errs.items())
+        line = (f"kernel flash_attention ring hop {list(RING_HOP)} causal q_offset={qo} "
+                f"k_offset={ko}: max_abs {errs} (stated bounds {tol}), two runs bitwise {same}")
+        if qo + L - 1 < ko:
+            exact = (all(bool((t == 0).all()) for t in (out, dq, dk, dv))
+                     and bool((lse == fa.NEG).all()))
+            ok = ok and exact
+            line += f"; masked hop: out, dQ, dK, dV exactly 0 and lse exactly NEG {exact}"
+        log(line)
+        assert ok, f"ring hop kernels: q_offset {qo}, k_offset {ko}"
+        for name, keys in (("fwd", ("out", "lse")), ("dq", ("dq",)), ("dkv", ("dk", "dv"))):
+            worst[name] = max(worst[name], *(errs[n] for n in keys))
+
+    kw = dict(causal=True, q_offset=L, k_offset=0)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    delta = ((do * out).sum(-1) - dlse).contiguous()
+    bw = (q, k, v, do, lse, delta)
+    runs = {"fwd": (lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                    lambda: fa.flash_attention_fwd_plain(q, k, v, **kw)),
+            "dq": (lambda: fa.flash_attention_bwd_dq(*bw, **kw),
+                   lambda: fa.flash_attention_bwd_dq_plain(*bw, **kw)),
+            "dkv": (lambda: fa.flash_attention_bwd_dkv(*bw, **kw),
+                    lambda: fa.flash_attention_bwd_dkv_plain(*bw, **kw))}
+    # the library call: SDPA (bf16) over the same q, k, v; every key is in
+    # the past of every query at this hop, so it runs without a mask
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (t.permute(0, 2, 1, 3).to(torch.bfloat16).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    so = sdpa(qs, ks, vs)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            sdpa(qs, ks, vs)
+
+    lib_fwd, _ = time_cuda(sdpa_fwd)
+    lib_bwd, _ = time_cuda(lambda: torch.autograd.grad(
+        so, (qs, ks, vs), do.permute(0, 2, 1, 3).to(torch.bfloat16), retain_graph=True))
+    bounds = fa_bounds(B, L, H, D)
+    result = {}
+    for name, (kern, plain_fn) in runs.items():
+        ms_k, call_k = time_cuda(kern)
+        ms_p, _ = time_cuda(plain_fn)
+        nbytes, nops = bounds[name]
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / BF16_OPS_PER_S * 1e3
+        lib = lib_fwd if name == "fwd" else lib_bwd
+        log(f"kernel flash_attention_{name}@ring at {list(RING_HOP)} causal q_offset={L}: "
+            f"device {ms_k} ms, plain {ms_p} ms, bound {max(bytes_ms, ops_ms)} ms ({nbytes} B, "
+            f"{nops} bf16 ops), scaled_dot_product_attention bf16 "
+            f"{'forward' if name == 'fwd' else 'backward'} {lib} ms; per call from an idle "
+            f"card {call_k} ms")
+        result[name] = {"max_abs_err": worst[name], "ms": ms_k, "plain_ms": ms_p,
+                        "bound_ms": max(bytes_ms, ops_ms),
+                        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                        "library_ms": lib}
+    return result
+
+
+def hybrid_leg_c(dev, card):
+    """MoE at full width: 8 experts (gshard) on ``{"dp": 2, "pp": 2, "cp": 1,
+    "mp": 2}``, ep riding dp; 2 warm-up and 4 timed steps."""
+    from paddle_tpu_torch.core.mesh import make_mesh
+    from paddle_tpu_torch.models.ernie import ErnieConfig
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel.hybrid import HybridParallelTrainer
+
+    cfg = ErnieConfig(**ERNIE_CFG, num_experts=8, moe_gate="gshard")
+    t0 = time.perf_counter()
+    tr = HybridParallelTrainer(cfg, make_mesh(HYB_MOE_MESH), Adam(1e-4), num_micro=HYB_MICRO,
+                               seed=1)
+    n_params = sum(t.numel() for g in tr.params["stages"].values() for t in g.values())
+    ids, labels = hybrid_batch(np.random.default_rng(31), cfg.vocab_size, ERNIE_BATCH,
+                               ERNIE_SEQ, dev)
+    torch.cuda.synchronize()
+    log(f"hybrid leg C: {cfg.num_experts} experts, {n_params} stage parameters, built on "
+        f"{HYB_MOE_MESH} in {time.perf_counter() - t0:.2f} s (host)")
+    torch.cuda.reset_peak_memory_stats()
+    losses, aux = [], []
+    for i in range(HYB_WARM + HYB_MOE_STEPS):
+        if i == HYB_WARM:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(float(tr.train_step(ids, labels)))
+        aux.append(tr.last_aux_loss)
+    dt = time.perf_counter() - t0
+    tps = ERNIE_BATCH * ERNIE_SEQ * HYB_MOE_STEPS / dt
+    log(f"hybrid leg C: losses {losses}, aux (load-balancing) losses {aux}; {tps:.1f} tokens/s, "
+        f"{1e3 * dt / HYB_MOE_STEPS:.3f} ms/step, peak memory "
+        f"{torch.cuda.max_memory_allocated()} B on {card}")
+    assert np.isfinite(losses).all() and np.isfinite(aux).all(), "hybrid leg C: non-finite"
+    assert losses[-1] < losses[0], "hybrid leg C: loss did not fall"
+    return {"tokens_per_s": tps, "ms_per_step": 1e3 * dt / HYB_MOE_STEPS}
+
+
+def phase_hybrid(dev, card, serial):
+    """Phase 21: legs A (full width, causal, the ring over cp), B (card vs
+    CPU, small; the ring hop kernels at leg A's shape) and C (MoE)."""
+    t_phase = time.perf_counter()
+    tr, batch, counts, stats = hybrid_leg_a(dev, card, serial)
+    t_b = time.perf_counter()
+    hybrid_leg_b(dev)
+    ring = ring_hop_kernels(dev)
+    t_c = time.perf_counter()
+    moe = hybrid_leg_c(dev, card)
+    torch.cuda.empty_cache()
+    log(f"hybrid (phase 21): {time.perf_counter() - t_phase:.1f} s (leg A {t_b - t_phase:.1f} s, "
+        f"leg B and the hop kernels {t_c - t_b:.1f} s, leg C {time.perf_counter() - t_c:.1f} s) "
+        f"on {card}")
+    return {"trainer": tr, "batch": batch, "counts": counts, "stats": stats, "ring": ring,
+            "moe": moe}
+
+
+HYB_RANGES = ("hybrid_forward", "hybrid_backward", "hybrid_update")
+# B5-B7's kernels in ops/csrc/flash_attention.cu (tensor-core and f32 forms)
+HYB_FLASH_KERNELS = ("fwd_mma_kernel", "bwd_dq_mma_kernel", "bwd_dkv_mma_kernel",
+                     "fwd_f32_kernel", "bwd_dq_f32_kernel", "bwd_dkv_f32_kernel")
+
+
+def hybrid_step_profile(hyb):
+    """Where one leg A step's time goes: torch.profiler over one step (after
+    a warm-up step; the ranks' threads and autograd's included), the
+    trainer's three ranges (host ms: the ranks' forwards, the backward,
+    Adam), the device kernels (count, ms by kind) and the device's busy
+    share of the step's wall time. Taken last, with the other profiler
+    windows (a window slows every later launch of the process)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tr, (ids, labels) = hyb["trainer"], hyb["batch"]
+    tr.train_step(ids, labels)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train_step(ids, labels)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    host = {n: sum(e.cpu_time_total for e in events if e.name == n) / 1e3 for n in HYB_RANGES}
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith(("Memset", "Memcpy"))]
+    kinds = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
+    by_name = {}
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        short = (e.name.replace("(anonymous namespace)::", "").replace("void ", "")
+                 .split("(")[0].split("<")[0])
+        low = short.lower()
+        kind = ("flash" if low.endswith(HYB_FLASH_KERNELS) else
+                "gemm" if any(w in low for w in ("gemm", "xmma", "cutlass")) else "other")
+        kinds[kind] += us / 1e3
+        by_name[short] = by_name.get(short, 0.0) + us / 1e3
+    busy = sum(kinds.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"hybrid leg A profile (one step): wall {wall:.3f} ms; host ranges {host}; device "
+        f"kernels {len(kernels)}, device ms {busy:.3f} (busy {100 * busy / wall:.1f} %) by kind "
+        f"{ {k: round(v, 3) for k, v in kinds.items()} }; top {[(n, round(v, 3)) for n, v in top]}")
+    return {"wall_ms": wall, "host_ms": host, "kernels": len(kernels), "device_ms": busy}
+
+
 def main(argv):
     profile_dir = None
     if argv[:1] == ["--ps-job"] and len(argv) == 2:
@@ -6309,7 +6665,7 @@ def main(argv):
     phase_hot_parity(dev)
     phase_sharded_parity(dev)
     fa = phase_flash_kernels(dev)
-    ernie_counts, _ = phase_ernie(dev, card, profile_dir)
+    ernie_counts, ernie_stats = phase_ernie(dev, card, profile_dir)
     phase_ernie_parity(dev)
     resnets, resnet_batch = phase_resnet(dev, card)
     phase_lenet(dev, card)
@@ -6325,10 +6681,12 @@ def main(argv):
     tn_counts, tn_b2, tn_b4 = phase_tenancy(dev, card, keep.pop("leg_b_oracle"))
     phase_obs_fleet(dev, card, keep.pop("leg_a_oracle"))
     rs_launches, rs_b1 = phase_recsys(dev, card)
+    hyb = phase_hybrid(dev, card, ernie_stats)
     phase_kernel_counts(dev)
     wd_kernel_counts(dev)
+    hybrid_step_profile(hyb)
     phase_resnet_kernel_counts(resnets, resnet_batch, profile_dir)
-    del resnets, resnet_batch
+    del resnets, resnet_batch, hyb["trainer"]
 
     def entry(name, source, replaces, launches, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -6399,7 +6757,15 @@ def main(argv):
               tn_counts["hot_scatter_apply"], tn_b4),
         # B1 again as phase 20's recsys train steps launch it: the three
         # families' launches summed, its numbers on GRU4Rec's first push
-        entry("ctr_sparse_rows@recsys", b1_src, b1_ref, rs_launches, rs_b1)]
+        entry("ctr_sparse_rows@recsys", b1_src, b1_ref, rs_launches, rs_b1),
+        # B5-B7 again as phase 21's hybrid trainer launches them, once a hop
+        # of the ring over cp: leg A's launches, their numbers at its hop
+        entry("flash_attention_fwd@ring", fa_src, f"{fa_ref}:127",
+              hyb["counts"]["flash_attention_fwd"], hyb["ring"]["fwd"]),
+        entry("flash_attention_bwd_dq@ring", fa_src, f"{fa_ref}:176",
+              hyb["counts"]["flash_attention_bwd_dq"], hyb["ring"]["dq"]),
+        entry("flash_attention_bwd_dkv@ring", fa_src, f"{fa_ref}:221",
+              hyb["counts"]["flash_attention_bwd_dkv"], hyb["ring"]["dkv"])]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -32,7 +32,8 @@ from .ps.device_hash import dynamic_map_state_to_device, map_state_to_device
 
 __all__ = ["adam_state_from_jax", "cache_state_from_jax", "ctr_params_from_jax",
            "ctr_params_to_jax", "opt_state_to_jax", "dynamic_map_state_from_jax",
-           "ernie_params_from_jax", "map_state_from_jax", "opt_state_from_jax",
+           "ernie_params_from_jax", "hybrid_opt_state_from_jax", "hybrid_params_from_jax",
+           "map_state_from_jax", "opt_state_from_jax",
            "ravel_tree", "recsys_params_from_jax", "recsys_params_to_jax",
            "vision_params_from_jax"]
 
@@ -147,6 +148,32 @@ def ernie_params_from_jax(named_params: Mapping,
     the same names and shapes, f32, no transpose."""
     return {k: torch.from_numpy(np.array(v, np.float32)).to(device)
             for k, v in named_params.get("params", named_params).items()}
+
+
+def hybrid_params_from_jax(trainer_params: Mapping, device: Device = "cpu") -> dict:
+    """The JAX ``HybridParallelTrainer.params`` — ``{"stages": {"params"/
+    "buffers": {name: [pp, …]}}, "aux": {"embed"/"head": {"params"/
+    "buffers": …}}}``, as numpy or anything ``np.asarray`` reads — → the
+    port trainer's tree with the same names and shapes, f32 tensors on
+    ``device`` (ERNIE keeps the JAX layout: nothing is transposed)."""
+    def conv(tree):
+        if isinstance(tree, Mapping):
+            return {str(k): conv(v) for k, v in tree.items()}
+        return torch.from_numpy(np.array(tree, np.float32)).to(device)
+
+    return conv(trainer_params)
+
+
+def hybrid_opt_state_from_jax(opt_state: Mapping, optimizer, device: Device = "cpu") -> dict:
+    """The JAX hybrid trainer's optimizer state → the port trainer's
+    (:func:`opt_state_from_jax`, each slot tree converted by
+    :func:`hybrid_params_from_jax` and flattened to the trainer's keys,
+    ``parallel.hybrid.flatten_tree``)."""
+    from .parallel.hybrid import flatten_tree
+
+    return opt_state_from_jax(
+        opt_state, optimizer, device,
+        lambda tree, dev: flatten_tree(hybrid_params_from_jax(tree, dev)))
 
 
 def adam_state_from_jax(opt_state: Mapping, device: Device = "cpu",

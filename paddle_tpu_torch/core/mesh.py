@@ -1,61 +1,114 @@
-"""The shard mesh of the sharded parameter-server paths.
+"""The mesh of logical ranks.
 
-Port of ``paddle_tpu.core.mesh.make_mesh`` for the one layout the port's
-sharded slice uses: ONE named axis of K logical shards, all on one
-device (the card, or the CPU in the tests). The JAX package's mesh is a
-grid of devices and its sharded step a ``shard_map`` over it; here a
-shard is a rank index and a contiguous row block of tensors that stay
-whole on the device, the per-rank functions run in lockstep over the
-ranks, and the collectives between them are plain functions over the
-list of per-rank tensors (``ops.collectives``). A mesh over distinct
-devices replaces only those collectives (ROADMAP A9).
+Port of ``paddle_tpu.core.mesh.make_mesh``. The JAX package's mesh is a
+grid of devices and its parallel steps a ``shard_map`` over it; here a
+mesh is a grid of LOGICAL ranks that all live on one device (the card,
+or the CPU in the tests). Ranks are numbered row-major over the axes in
+the order they are given, as a JAX mesh orders its devices, so rank r
+has the coordinates :meth:`Mesh.coords` gives and
+``mesh.rank(**mesh.coords(r)) == r``.
+
+Two kinds of callers run per-rank code on it:
+
+- the sharded parameter-server paths (``ps.hot_tier``,
+  ``ps.sharded_cache``, ``ps.embedding_cache``) take a mesh of exactly
+  one axis (:func:`ps_shard_count`) and pass lists of per-rank tensors
+  to ``ops.collectives``' list form;
+- the hybrid parallel layouts (``parallel``, ``models.ernie``) run one
+  function per rank in lockstep (``ops.collectives.run_ranks``), whose
+  collectives name mesh axes as the JAX code does.
+
+A mesh over distinct devices replaces only the collectives (ROADMAP
+item 7).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from .device import resolve_device
 from .enforce import InvalidArgumentError, UnavailableError, enforce
 
-__all__ = ["Mesh", "make_mesh", "mesh_axis_size"]
+__all__ = ["Mesh", "make_mesh", "mesh_axis_size", "ps_shard_count"]
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """``shape`` maps the one axis name to its shard count; every shard
+    """``shape`` maps each axis name, in order, to its size; every rank
     lives on ``device``."""
 
     shape: Dict[str, int]
     device: torch.device
 
     @property
-    def axis_names(self):
+    def axis_names(self) -> Tuple[str, ...]:
         return tuple(self.shape)
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for k in self.shape.values():
+            n *= k
+        return n
+
+    def coords(self, rank: int) -> Dict[str, int]:
+        """Rank → {axis: coordinate}, row-major (the last axis fastest)."""
+        enforce(0 <= rank < self.size, f"rank {rank} out of range {self.size}",
+                InvalidArgumentError)
+        out = {}
+        for name in reversed(self.axis_names):
+            out[name] = rank % self.shape[name]
+            rank //= self.shape[name]
+        return {n: out[n] for n in self.axis_names}
+
+    def rank(self, **coords: int) -> int:
+        """{axis: coordinate} for every axis → the rank."""
+        enforce(sorted(coords) == sorted(self.axis_names),
+                f"rank() needs a coordinate on every axis {self.axis_names}, got {sorted(coords)}",
+                InvalidArgumentError)
+        r = 0
+        for name in self.axis_names:
+            c = int(coords[name])
+            enforce(0 <= c < self.shape[name],
+                    f"coordinate {name}={c} out of range {self.shape[name]}", InvalidArgumentError)
+            r = r * self.shape[name] + c
+        return r
 
 
 def make_mesh(axis_sizes: Dict[str, int],
               device: Optional[Union[str, torch.device]] = None) -> Mesh:
-    """``{axis: K}`` → a mesh of K logical shards on one device.
-    ``device`` defaults to ``"cuda"`` and raises without a GPU unless the
-    caller passes ``device="cpu"``. Any other layout raises: meshes of
-    several axes (the hybrid dp/pp/mp/cp/ep layouts) come with ROADMAP
-    A11–A12."""
-    enforce(len(axis_sizes) == 1,
-            f"make_mesh: the port's mesh has exactly one axis, got {dict(axis_sizes)}; "
-            "meshes of several axes come with the hybrid parallel layouts "
-            "(ROADMAP A11-A12)", UnavailableError)
-    (name, k), = axis_sizes.items()
-    enforce(isinstance(name, str) and int(k) == k and k >= 1,
-            f"make_mesh: axis {name!r} needs a positive integer size, got {k!r}",
+    """``{axis: size, ...}`` (any number of named axes, e.g. ``{"ps": 4}``
+    or ``{"dp": 1, "pp": 2, "cp": 2, "mp": 2}``) → a mesh of their
+    product of logical ranks on one device. ``device`` defaults to
+    ``"cuda"`` and raises without a GPU unless the caller passes
+    ``device="cpu"``."""
+    enforce(len(axis_sizes) >= 1, "make_mesh: a mesh needs at least one axis",
             InvalidArgumentError)
-    return Mesh({name: int(k)}, resolve_device(device))
+    shape = {}
+    for name, k in axis_sizes.items():
+        enforce(isinstance(name, str) and int(k) == k and k >= 1,
+                f"make_mesh: axis {name!r} needs a positive integer size, got {k!r}",
+                InvalidArgumentError)
+        shape[name] = int(k)
+    return Mesh(shape, resolve_device(device))
 
 
 def mesh_axis_size(mesh: Mesh, axis: str) -> int:
     enforce(axis in mesh.shape,
             f"mesh has no axis {axis!r}; axes: {mesh.axis_names}", InvalidArgumentError)
     return mesh.shape[axis]
+
+
+def ps_shard_count(mesh: Mesh, axis: str) -> int:
+    """The shard count of a sharded parameter-server path's mesh, which
+    has exactly the one axis ``axis``. A mesh of several axes raises:
+    the PS paths over a hybrid mesh come with the multi-device mesh
+    (ROADMAP item 7)."""
+    enforce(len(mesh.shape) == 1,
+            f"the sharded parameter-server paths take a mesh of one axis, got "
+            f"{dict(mesh.shape)}; over a mesh of several axes they come with ROADMAP item 7",
+            UnavailableError)
+    return mesh_axis_size(mesh, axis)

@@ -1,10 +1,8 @@
 """Checkpoint save/load in the JAX package's file format.
 
 Port of ``save``/``load``/``save_checkpoint``/``load_checkpoint``/
-``save_train_state``/``load_train_state`` from ``paddle_tpu.io.checkpoint``
-(``graft_into``, which re-places loaded leaves on a live tree's
-shardings, waits for the distributed trainers: ROADMAP Queue A items 4
-and 8). A tree of dicts, lists and tuples with
+``save_train_state``/``load_train_state``/``graft_into`` from
+``paddle_tpu.io.checkpoint``. A tree of dicts, lists and tuples with
 tensor, array or scalar leaves is written as one ``.npz`` (the arrays, by
 position) and a ``.meta.json`` sidecar tagged ``paddle_tpu.v1`` (the
 nesting, with leaf references), so dots inside dict keys are never
@@ -27,7 +25,7 @@ import torch
 from ..core.device import resolve_device
 from ..core.enforce import InvalidArgumentError, NotFoundError
 
-__all__ = ["load", "load_checkpoint", "load_train_state", "save", "save_checkpoint",
+__all__ = ["graft_into", "load", "load_checkpoint", "load_train_state", "save", "save_checkpoint",
            "save_train_state"]
 
 _ARR = "__arr__"
@@ -155,3 +153,26 @@ def load_train_state(path: str) -> Dict[str, Any]:
     return {"state": snap["model"]["state"], "opt": snap["opt"],
             "rng": snap["model"].get("rng"), "step": int(snap.get("step", 0))}
 
+
+
+def graft_into(template: Any, loaded: Any) -> Any:
+    """``loaded``'s values restored INTO the structure of the live
+    ``template`` by key path (loaded containers are plain dicts with
+    string keys; a template key that is not a string is looked up in its
+    string form): each leaf becomes a tensor with the template leaf's
+    dtype on its device. A path the template has and ``loaded`` lacks
+    raises ``NotFoundError``."""
+    if isinstance(template, dict):
+        out = {}
+        for k, v in template.items():
+            key = k if k in loaded else str(k)
+            if key not in loaded:
+                raise NotFoundError(f"graft_into: the loaded tree has no entry {k!r}")
+            out[k] = graft_into(v, loaded[key])
+        return out
+    if isinstance(template, (list, tuple)):
+        return type(template)(graft_into(v, loaded[i]) for i, v in enumerate(template))
+    if isinstance(template, torch.Tensor):
+        src = loaded if isinstance(loaded, torch.Tensor) else torch.from_numpy(np.array(loaded))
+        return src.to(device=template.device, dtype=template.dtype)
+    return loaded

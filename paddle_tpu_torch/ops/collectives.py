@@ -1,31 +1,70 @@
-"""Collectives over the ranks of a one-device shard mesh.
+"""Collectives over the logical ranks of a one-device mesh.
 
-Port of the four collectives of ``paddle_tpu.ops.collectives`` that the
-sharded parameter-server paths use. The JAX functions run inside
-``shard_map`` on one rank's value and name the mesh axis; here each
-takes the list of the K ranks' tensors, in rank order, and returns the
-list of what each rank receives (``core.mesh``: the K shards share one
-device, so a collective is a tensor move, not a kernel).
+Port of ``paddle_tpu.ops.collectives``. The JAX functions run inside
+``shard_map`` on one rank's value and name a mesh axis; XLA performs the
+transfer. Here every rank of a ``core.mesh`` lives on one device, and
+the collectives come in two forms:
 
-Sums run in rank order 0, 1, …, K−1, starting from rank 0's value, so a
-result is the same from run to run and on every device. XLA's all-reduce
-associates its sum in its own order, so a reduced value can differ from
-the JAX package's in the last bits; nothing else here rounds.
+- **the list form** (:func:`all_reduce`, :func:`all_gather`,
+  :func:`reduce_scatter`, :func:`all_to_all` given a list): the caller
+  holds the K ranks' tensors of a one-axis mesh, in rank order, and gets
+  the list of what each rank receives. The sharded parameter-server
+  paths call these.
+- **the axis form** (:func:`psum`, :func:`pmax`,
+  :func:`all_gather`/:func:`all_to_all` given an axis, :func:`ppermute`,
+  :func:`shift`, :func:`broadcast`, :func:`axis_index`,
+  :func:`axis_size`): called from inside per-rank code that
+  :func:`run_ranks` runs, one thread per rank, in lockstep. Each call
+  meets the other ranks of its group (the ranks that differ from it only
+  on the named axes) at a rendezvous; the last to arrive performs the
+  collective once, on all the group's tensors, and each rank takes its
+  result. The per-rank code keeps the shape of the JAX ``shard_map``
+  body: ``psum(x, "mp")``, ``shift(k, "cp", 1)``, ``axis_index("cp")``.
 
-Replicated results (``all_reduce``, ``all_gather``) are ONE tensor that
-every rank's entry of the returned list refers to: read it, do not
-modify it in place.
+Gradients: the ranks' forwards build ONE autograd graph in one process,
+and a collective is a few tensor ops on the group's tensors (a sum, a
+slice, a concatenation), so its gradient is the autograd of those ops:
+no collective is written for the backward. The JAX package's
+``psum_replicated`` (a psum with a pinned identity VJP) and
+``spec_reduced_grads`` (the explicit gradient psums of a
+``check_vma=False`` step) exist to get its transposes of ``psum`` right;
+with one graph the gradient of a sum is already right, and a parameter
+that every rank reads through a view sums its ranks' gradients in the
+one ``.grad``, so neither is ported.
+
+Sums run in rank order, starting from the group's first rank, so a
+result is the same from run to run and on every device. XLA's
+all-reduce associates its sum in its own order, so a reduced value can
+differ from the JAX package's in the last bits; nothing else here
+rounds. A replicated result (``psum``, ``all_gather``) is ONE tensor
+that every rank receives: read it, do not modify it in place.
+
+A rank that raises aborts the rendezvous: the other ranks' waiting
+collectives raise, and :func:`run_ranks` re-raises the first rank's
+error. A collective that waits longer than the run's timeout, or whose
+group holds a rank that has already returned, raises too, so a failing
+or diverging rank never hangs the others.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from ..core.enforce import InvalidArgumentError, enforce
+from ..core.enforce import InvalidArgumentError, PreconditionNotMetError, enforce
+from ..core.mesh import Mesh
 
-__all__ = ["ReduceOp", "all_gather", "all_reduce", "all_to_all", "reduce_scatter"]
+__all__ = ["ReduceOp", "all_gather", "all_reduce", "all_to_all", "axis_active", "axis_index",
+           "axis_size", "broadcast", "pmax", "ppermute", "psum", "reduce_scatter",
+           "run_ranks", "shift"]
+
+AxisName = Union[str, Sequence[str]]
+
+#: seconds a collective waits for its group before it raises
+DEFAULT_TIMEOUT = 600.0
 
 
 class ReduceOp:
@@ -41,6 +80,9 @@ def _rank_sum(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     return total
 
 
+# -- the list form -------------------------------------------------------------
+
+
 def all_reduce(xs: Sequence[torch.Tensor], op: str = ReduceOp.SUM) -> List[torch.Tensor]:
     """``psum`` (``op="sum"``) or ``pmean`` (``op="avg"``: the rank-order
     sum divided by K) — every rank receives the result."""
@@ -52,11 +94,20 @@ def all_reduce(xs: Sequence[torch.Tensor], op: str = ReduceOp.SUM) -> List[torch
     return [total] * len(xs)
 
 
-def all_gather(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Tiled ``all_gather``: every rank receives the ranks' tensors
-    concatenated along the leading dimension in rank order."""
-    full = torch.cat(list(xs))
-    return [full] * len(xs)
+def _tiled_all_gather(xs: Sequence[torch.Tensor], dim: int = 0) -> torch.Tensor:
+    return torch.cat(list(xs), dim=dim)
+
+
+def all_gather(x, axis: Optional[str] = None, concat_axis: int = 0):
+    """Tiled ``all_gather``. List form (``all_gather(xs)``): every rank
+    receives the ranks' tensors concatenated along the leading dimension
+    in rank order. Axis form (``all_gather(x, axis, concat_axis)``):
+    this rank receives its group's tensors concatenated along
+    ``concat_axis`` in axis order."""
+    if axis is None:
+        full = _tiled_all_gather(x)
+        return [full] * len(x)
+    return _collective(x, (axis,), lambda xs: [_tiled_all_gather(xs, concat_axis)] * len(xs))
 
 
 def reduce_scatter(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -69,14 +120,274 @@ def reduce_scatter(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return list(_rank_sum(xs).chunk(K))
 
 
-def all_to_all(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Tiled ``all_to_all`` along the leading dimension: rank r's tensor
-    is cut into K equal tiles; rank s receives tile s of every rank,
-    concatenated in rank order. On a ``[K, …]`` bucket array this is
-    ``lax.all_to_all(x, axis, 0, 0)``: ``out_s[r] = x_r[s]``."""
+def _tiled_all_to_all(xs: Sequence[torch.Tensor], split: int, concat: int) -> List[torch.Tensor]:
     K = len(xs)
-    enforce(all(x.shape[0] % K == 0 for x in xs),
-            f"all_to_all: the leading dimension does not split over {K} ranks",
+    enforce(all(x.shape[split] % K == 0 for x in xs),
+            f"all_to_all: dimension {split} does not split over {K} ranks",
             InvalidArgumentError)
-    tiles = [x.chunk(K) for x in xs]
-    return [torch.cat([tiles[r][s] for r in range(K)]) for s in range(K)]
+    tiles = [x.chunk(K, dim=split) for x in xs]
+    return [torch.cat([tiles[r][s] for r in range(K)], dim=concat) for s in range(K)]
+
+
+def all_to_all(x, axis: Optional[str] = None, split_axis_: int = 0, concat_axis: int = 0):
+    """Tiled ``all_to_all``. List form (``all_to_all(xs)``): rank r's
+    tensor is cut into K equal tiles along the leading dimension; rank s
+    receives tile s of every rank, concatenated in rank order (on a
+    ``[K, …]`` bucket array, ``out_s[r] = x_r[s]``). Axis form
+    (``all_to_all(x, axis, split_axis_, concat_axis)``, the JAX
+    signature): the same along ``split_axis_``, the received tiles
+    concatenated along ``concat_axis``."""
+    if axis is None:
+        return _tiled_all_to_all(x, 0, 0)
+    return _collective(x, (axis,), lambda xs: _tiled_all_to_all(xs, split_axis_, concat_axis))
+
+
+# -- the rank context and the rendezvous ------------------------------------------
+
+
+class _Aborted(RuntimeError):
+    """Raised in a waiting rank when another rank failed."""
+
+
+class _Slot:
+    __slots__ = ("values", "arrived", "results", "taken", "done")
+
+    def __init__(self, n: int) -> None:
+        self.values: List[Any] = [None] * n
+        self.arrived = 0
+        self.results: Optional[List[Any]] = None
+        self.taken = 0
+        self.done = False
+
+
+class _Rendezvous:
+    """Where a run's ranks meet for their collectives. A call is keyed by
+    its axes, its group (the coordinates on the other axes) and how many
+    calls over those axes the rank has made before it: ranks that run
+    the same program meet at the same key."""
+
+    def __init__(self, mesh: Mesh, timeout: float) -> None:
+        self.mesh = mesh
+        self.timeout = timeout
+        self.cond = threading.Condition()
+        self.slots: Dict[tuple, _Slot] = {}
+        self.calls: List[Dict[tuple, int]] = [{} for _ in range(mesh.size)]
+        self.finished = set()
+        self.error: Optional[BaseException] = None
+        self._coords = [mesh.coords(r) for r in range(mesh.size)]
+        self._groups: Dict[tuple, Tuple[tuple, List[int]]] = {}
+
+    def group(self, rank: int, axes: Tuple[str, ...]) -> Tuple[tuple, List[int]]:
+        """(group key, the group's ranks in rank order) of ``rank`` over ``axes``."""
+        got = self._groups.get((rank, axes))
+        if got is None:
+            c = self._coords[rank]
+            key = tuple((a, c[a]) for a in self.mesh.axis_names if a not in axes)
+            ranks = [r for r in range(self.mesh.size)
+                     if all(self._coords[r][a] == v for a, v in key)]
+            got = self._groups[(rank, axes)] = (key, ranks)
+        return got
+
+    def exchange(self, rank: int, axes: Tuple[str, ...], value: Any,
+                 fn: Callable[[List[Any]], List[Any]]) -> Any:
+        gkey, ranks = self.group(rank, axes)
+        pos = ranks.index(rank)
+        with self.cond:
+            n = self.calls[rank].get(axes, 0)
+            self.calls[rank][axes] = n + 1
+            key = (axes, gkey, n)
+            slot = self.slots.get(key)
+            if slot is None:
+                slot = self.slots[key] = _Slot(len(ranks))
+            slot.values[pos] = value
+            slot.arrived += 1
+            if slot.arrived == len(ranks):
+                try:
+                    slot.results = fn(slot.values)
+                except BaseException as e:
+                    self._abort(e)
+                    raise
+                slot.values = None
+                slot.done = True
+                self.cond.notify_all()
+            deadline = time.monotonic() + self.timeout
+            while not slot.done:
+                if self.error is not None:
+                    raise _Aborted(f"rank {rank}: another rank failed ({self.error!r})")
+                gone = self.finished.intersection(ranks)
+                if gone:
+                    raise PreconditionNotMetError(
+                        f"rank {rank}: collective over {axes} (call {n}) waits for rank(s) "
+                        f"{sorted(gone)}, which returned without joining it")
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise PreconditionNotMetError(
+                        f"rank {rank}: collective over {axes} (call {n}) timed out after "
+                        f"{self.timeout} s waiting for its group {ranks}")
+                self.cond.wait(left)
+            out = slot.results[pos]
+            slot.taken += 1
+            if slot.taken == len(ranks):
+                del self.slots[key]
+            return out
+
+    def _abort(self, err: BaseException) -> None:
+        if self.error is None:
+            self.error = err
+        self.cond.notify_all()
+
+    def abort(self, err: BaseException) -> None:
+        with self.cond:
+            self._abort(err)
+
+    def finish(self, rank: int) -> None:
+        with self.cond:
+            self.finished.add(rank)
+            self.cond.notify_all()
+
+
+class _RankContext:
+    __slots__ = ("mesh", "rank", "coords", "rendezvous")
+
+    def __init__(self, mesh: Mesh, rank: int, rendezvous: _Rendezvous) -> None:
+        self.mesh = mesh
+        self.rank = rank
+        self.coords = mesh.coords(rank)
+        self.rendezvous = rendezvous
+
+
+_LOCAL = threading.local()
+
+
+def _context() -> Optional[_RankContext]:
+    return getattr(_LOCAL, "ctx", None)
+
+
+def run_ranks(mesh: Mesh, fn: Callable[[int], Any], timeout: float = DEFAULT_TIMEOUT) -> List[Any]:
+    """``fn(rank)`` for every rank of ``mesh``, in lockstep — one thread
+    a rank (inline for a mesh of one rank), each bound to its rank so the
+    axis-form collectives and :func:`axis_index` answer for it — and the
+    list of their results in rank order. The caller's grad mode carries
+    into the ranks. If a rank raises, the others' collectives abort and
+    the first rank's error is raised here (with its rank in the note)."""
+    rv = _Rendezvous(mesh, timeout)
+    n = mesh.size
+    results: List[Any] = [None] * n
+    errors: List[Optional[BaseException]] = [None] * n
+    grad = torch.is_grad_enabled()
+
+    def body(r: int) -> None:
+        prev = _context()
+        _LOCAL.ctx = _RankContext(mesh, r, rv)
+        try:
+            with torch.set_grad_enabled(grad):
+                results[r] = fn(r)
+        except BaseException as e:  # re-raised below, in the caller
+            errors[r] = e
+            rv.abort(e)
+        finally:
+            _LOCAL.ctx = prev
+            rv.finish(r)
+
+    if n == 1:
+        body(0)
+    else:
+        threads = [threading.Thread(target=body, args=(r,), name=f"rank{r}", daemon=True)
+                   for r in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    first = [e for e in errors if e is not None and not isinstance(e, _Aborted)]
+    if first or any(errors):
+        err = (first or [e for e in errors if e is not None])[0]
+        err.add_note(f"raised in rank {errors.index(err)} of the mesh {dict(mesh.shape)}")
+        raise err
+    return results
+
+
+def _axes(axis: AxisName) -> Tuple[str, ...]:
+    ctx = _context()
+    names = (axis,) if isinstance(axis, str) else tuple(axis)
+    if ctx is None:
+        raise InvalidArgumentError(
+            f"collective over {names}: no mesh axis is bound here (call it inside run_ranks)")
+    for a in names:
+        enforce(a in ctx.mesh.shape,
+                f"collective over {names}: the mesh {dict(ctx.mesh.shape)} has no axis {a!r}",
+                InvalidArgumentError)
+    # the group's order is the mesh's, whatever order the caller names them in
+    return tuple(a for a in ctx.mesh.axis_names if a in names)
+
+
+def _collective(x: Any, axes: AxisName, fn: Callable[[List[Any]], List[Any]]) -> Any:
+    """This rank's result of ``fn`` over its group's values along ``axes``."""
+    axes = _axes(axes)
+    ctx = _context()
+    return ctx.rendezvous.exchange(ctx.rank, axes, x, fn)
+
+
+# -- the axis form ------------------------------------------------------------------
+
+
+def axis_active(axis: Optional[str]) -> bool:
+    """True inside :func:`run_ranks` when the mesh has ``axis`` (of any
+    size) — the JAX package's ``_axis_active``: an axis bound by the
+    enclosing ``shard_map``."""
+    ctx = _context()
+    return axis is not None and ctx is not None and axis in ctx.mesh.shape
+
+
+def axis_index(axis: str) -> int:
+    """This rank's coordinate on ``axis``."""
+    _axes(axis)
+    return _context().coords[axis]
+
+
+def axis_size(axis: str) -> int:
+    _axes(axis)
+    return _context().mesh.shape[axis]
+
+
+def psum(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
+    """``lax.psum``: the group's rank-order sum, one tensor for all."""
+    return _collective(x, axis, lambda xs: [_rank_sum(xs)] * len(xs))
+
+
+def pmax(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
+    """``lax.pmax``: the elementwise maximum over the group."""
+    def fn(xs):
+        m = xs[0]
+        for y in xs[1:]:
+            m = torch.maximum(m, y)
+        return [m] * len(xs)
+
+    return _collective(x, axis, fn)
+
+
+def ppermute(x: torch.Tensor, axis: str, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """``lax.ppermute``: for each pair (i, j), the rank at coordinate j
+    on ``axis`` receives the tensor of the rank at coordinate i; a rank
+    that no pair sends to receives zeros."""
+    def fn(xs):
+        out = [None] * len(xs)
+        for i, j in perm:
+            out[j] = xs[i]
+        return [torch.zeros_like(xs[j]) if o is None else o for j, o in enumerate(out)]
+
+    return _collective(x, axis, fn)
+
+
+def shift(x: torch.Tensor, axis: str, offset: int = 1) -> torch.Tensor:
+    """Ring rotation by ``offset`` hops: coordinate i's tensor goes to
+    coordinate (i + offset) mod n."""
+    n = axis_size(axis)
+    return ppermute(x, axis, [(i, (i + offset) % n) for i in range(n)])
+
+
+def broadcast(x: Optional[torch.Tensor], axis: str, root: int = 0) -> torch.Tensor:
+    """``c_broadcast``: every rank of the group receives the tensor of the
+    rank at coordinate ``root`` (the others may pass None). The JAX
+    package masks and psums; here the root's tensor is handed over as it
+    is, so nothing is computed for the other ranks' values."""
+    return _collective(x, axis, lambda xs: [xs[root]] * len(xs))

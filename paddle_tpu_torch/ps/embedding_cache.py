@@ -40,7 +40,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.enforce import enforce, enforce_le
-from ..core.mesh import Mesh, mesh_axis_size
+from ..core.mesh import Mesh, ps_shard_count
 from ..ops.hot_kernels import merge_sparse_grads
 from ..ops.sparse_optimizer import ctr_sparse_rows_at, fused_row_update
 from .device_hash import DeviceKeyMap
@@ -220,7 +220,7 @@ class HbmEmbeddingCache:
                     f"table accessor sgd.{f} ({getattr(acc_cfg.sgd, f)})")
         self._n_shards = 1
         if mesh is not None:
-            self._n_shards = mesh_axis_size(mesh, axis)
+            self._n_shards = ps_shard_count(mesh, axis)
             enforce(mesh.device.type == self.device.type,
                     f"the mesh lives on {mesh.device}, the cache on {self.device}")
             enforce(self.config.capacity % self._n_shards == 0,

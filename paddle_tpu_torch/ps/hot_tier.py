@@ -66,7 +66,7 @@ from torch.func import functional_call
 
 from ..core.device import resolve_device
 from ..core.enforce import enforce
-from ..core.mesh import Mesh, mesh_axis_size
+from ..core.mesh import Mesh, ps_shard_count
 from ..nn import functional as F
 from ..obs.registry import CounterGroup
 from ..ops.hot_kernels import hot_probe, hot_probe_gather, hot_scatter_apply
@@ -165,7 +165,7 @@ class HotEmbeddingTier:
         C = self.config.capacity
         self._n_shards = 1
         if self.config.mesh is not None:
-            self._n_shards = mesh_axis_size(self.config.mesh, self.config.axis)
+            self._n_shards = ps_shard_count(self.config.mesh, self.config.axis)
             enforce(self.config.mesh.device.type == self.device.type,
                     f"the mesh lives on {self.config.mesh.device}, the tier on {self.device}")
             enforce(C % self._n_shards == 0,

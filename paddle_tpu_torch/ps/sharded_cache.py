@@ -46,7 +46,7 @@ import torch
 from torch import nn
 
 from ..core.enforce import InvalidArgumentError, enforce
-from ..core.mesh import Mesh, mesh_axis_size
+from ..core.mesh import Mesh, ps_shard_count
 from ..models.ctr import _check_device, _make_loss_fn
 from ..ops import collectives
 from ..ops.hot_kernels import merge_sparse_grads, sort_segments
@@ -450,7 +450,7 @@ def _make_sharded_step(model: nn.Module, optimizer, cache_cfg: CacheConfig, mesh
     ``shard_state``. step(params, opt_state, state, *inputs, dense_x,
     labels) → (params, opt_state, state, loss, overflow)."""
     _check_routing_arg(routing)
-    K = mesh_axis_size(mesh, axis)
+    K = ps_shard_count(mesh, axis)
 
     def step(params, opt_state, state, *args):
         *inputs, dense_x, labels = args

@@ -230,14 +230,21 @@ def test_trainer_three_steps_match_jax_trainer(impl, causal):
 
 
 def test_out_of_slice_options_raise():
-    with pytest.raises(InvalidArgumentError, match="MoE"):
-        ernie.Ernie(ernie.ErnieConfig(**SMALL, num_experts=4))
     with pytest.raises(InvalidArgumentError, match="attn_impl"):
         ernie.Ernie(ernie.ErnieConfig(**SMALL, attn_impl="ring"))
-    with pytest.raises(InvalidArgumentError, match="vocab-sharded"):
-        ernie.parallel_cross_entropy(torch.zeros(2, 8), torch.zeros(2, dtype=torch.int64), 16)
-    with pytest.raises(InvalidArgumentError, match="not ported"):
-        ernie.partition_spec("head.w", None, None)
+    # MoE blocks and the mesh layouts are ported; the sharding (ZeRO) axis
+    # of the hybrid trainer is the boundary now
+    from paddle_tpu_torch.core.enforce import UnavailableError
+    from paddle_tpu_torch.core.mesh import make_mesh
+    from paddle_tpu_torch.parallel.hybrid import HybridParallelTrainer
+
+    moe = ernie.ErnieConfig(**SMALL, num_experts=4)
+    assert ernie.Ernie(moe).blocks[0].ffn.w_in.shape == (4, SMALL["hidden_size"],
+                                                         SMALL["ffn_size"])
+    assert ernie.partition_spec("head.w", torch.zeros(2, 3), moe) == (None, "mp")
+    with pytest.raises(UnavailableError, match="item 7"):
+        HybridParallelTrainer(moe, make_mesh({"dp": 1, "pp": 2, "cp": 1, "mp": 2, "sh": 2},
+                                             device="cpu"), Adam(), device="cpu")
     model = ernie.Ernie(ernie.ErnieConfig(**SMALL))
     # amp is ported: True/"O1"/"O2" are accepted, an unknown level raises
     with pytest.raises(InvalidArgumentError, match="amp"):

@@ -53,6 +53,7 @@ from paddle_tpu_torch.optimizer import Adam
 from paddle_tpu_torch.ps import embedding_cache as tec
 from paddle_tpu_torch.ps import sharded_cache as tsc
 from paddle_tpu_torch.ps.accessor import AccessorConfig
+from paddle_tpu_torch.ps.hot_tier import HotEmbeddingTier, HotTierConfig
 from paddle_tpu_torch.ps.table import MemorySparseTable, TableConfig
 from test_torch_jax_native import jax_native  # noqa: F401  (the fixture)
 
@@ -107,8 +108,19 @@ def test_collectives_rank_order():
 def test_make_mesh_layouts():
     m = make_mesh({"ps": 4}, device="cpu")
     assert m.shape == {"ps": 4} and m.axis_names == ("ps",) and m.device.type == "cpu"
-    with pytest.raises(UnavailableError, match="A11"):
-        make_mesh({"dp": 2, "ps": 2}, device="cpu")
+    # a mesh of two axes is made (the hybrid layouts run on it), and the
+    # sharded PS paths refuse it: over such a mesh they come with item 7
+    two = make_mesh({"dp": 2, "ps": 2}, device="cpu")
+    assert two.shape == {"dp": 2, "ps": 2} and two.size == 4
+    table = MemorySparseTable(TableConfig(shard_num=2,
+                                          accessor_config=AccessorConfig(embedx_dim=DIM)))
+    with pytest.raises(UnavailableError, match="item 7"):
+        tec.HbmEmbeddingCache(table, tec.CacheConfig(**CACHE_KW), device="cpu", mesh=two)
+    with pytest.raises(UnavailableError, match="item 7"):
+        HotEmbeddingTier(table, HotTierConfig(capacity=1 << 12, mesh=two), device="cpu")
+    with pytest.raises(UnavailableError, match="item 7"):
+        tsc.make_sharded_ctr_train_step(tctr.DeepFM(tctr.CtrConfig(2, 2, DIM, (8,))), Adam(),
+                                        tec.CacheConfig(**CACHE_KW), two)
     with pytest.raises(EnforceNotMet, match="positive"):
         make_mesh({"ps": 0}, device="cpu")
 
