@@ -15,7 +15,8 @@ phase 16 starts its in-process clusters on 127.0.0.1 and four server
 processes, and kills and reaps every one of them; phase 17 starts and
 stops in-process clusters on 127.0.0.1; phase 20 starts serving member
 processes (``python -m paddle_tpu_torch.serving.member_host``), kills one
-and stops the others. Exits non-zero, with no
+and stops the others; phase 22 starts one serving child (this script in
+``--serve-export DIR`` mode) and waits for it. Exits non-zero, with no
 result line, when there is no CUDA device, when the package is missing,
 or when any phase fails. Phases:
 
@@ -289,11 +290,35 @@ or when any phase fails. Phases:
    lse exactly NEG; timed at the first for the kernels line. Leg C: 8
    experts (gshard) at full width on ``{"dp": 2, "pp": 2, "cp": 1, "mp":
    2}``, ep riding dp, 2 warm-up and 4 timed steps: loss finite and
-   falling, the aux loss logged, tokens/s;
-22. the ``kernels`` JSON line (B1 four times: ``ctr_sparse_rows`` on the
+   falling, the aux loss logged, tokens/s. Leg A's first ``HYB_REPEAT``
+   steps run again on a second trainer of the same seed: the losses
+   bitwise equal;
+22. ROADMAP item 5 (``models.ctr.DCN``/``XDeepFM``, ``io.inference``, the
+   other dense optimizers, the vision zoo). Leg A: ``CtrPassTrainer`` with
+   ``DCN`` (``Adagrad``) and then ``XDeepFM`` (``Lamb``) at the pass
+   path's width (26 slots, 13 dense, dim 8, DNN 400³, a 2^21-row cache,
+   batch 4096), one pass over 32,768 MultiSlot lines each (8 steps):
+   losses finite and falling, one B1 and one merge a step, B1 bitwise on
+   each family's first push; DeepFM through the same pass for the step
+   comparison; then ``save_inference_model(fused=True)`` over the pass's
+   keys (the pass stays active) and ``fused=False``; a child process of
+   this script (``--serve-export DIR``) loads the four artifacts on the
+   card and serves batch 1 and 4096 (5 % of the keys outside the pass,
+   pulling zeros) within ``EXPORT_TOL`` of the trainer's own forward,
+   launching no kernel; export, load and serving p50 logged. Leg B:
+   ``vgg16``, ``alexnet``, ``squeezenet1_1``, ``mobilenet_v2``,
+   ``shufflenet_v2_x1_0``, ``googlenet`` and ``densenet121`` at 224², 1000
+   classes, batch 32, f32, through ``Trainer`` with ``Momentum``,
+   ``RMSProp``, ``Adadelta``, ``Adamax`` and ``Lars``: 3 steps each,
+   losses finite, ms a step and peak memory; card vs CPU from the same
+   weights (64², batch 4; AlexNet and VGG 224², batch 2): the eval forward
+   and one step's update within ``ZOO_FWD_TOL``/``ZOO_UPDATE_TOL``;
+   ``hapi.Model.save``/``load`` on the card, the next step bitwise;
+23. the ``kernels`` JSON line (B1 six times: ``ctr_sparse_rows`` on the
    pass path, ``ctr_sparse_rows@widedeep`` on phase 12's,
    ``ctr_sparse_rows@gpubox_rpc`` on phase 14's leg B,
-   ``ctr_sparse_rows@recsys`` on phase 20's leg A; B2 and B4 five
+   ``ctr_sparse_rows@recsys`` on phase 20's leg A,
+   ``ctr_sparse_rows@dcn`` and ``@xdeepfm`` on phase 22's leg A; B2 and B4 five
    times: ``hot_probe_gather``/``hot_scatter_apply`` on the hot path,
    ``...@rpc`` on phase 13's, ``...@ha`` on phase 16's tier arm,
    ``...@reshard`` on phase 17's leg B, ``...@tenancy`` on phase 18's leg
@@ -6295,6 +6320,7 @@ HYB_SMALL_BATCH, HYB_SMALL_STEPS = 4, 3
 # the first loss (relative) and each tensor's update ||Δcard − Δcpu|| /
 # ||Δcpu|| (the key bias left out, as phase 8 does)
 HYB_TOL = {"loss": 1e-4, "update": 5e-2}
+HYB_REPEAT = 3                # leg A's steps run again by a second trainer of the same seed
 RING_HOP = (4, 256, 8, 64)    # leg A's hop: [B/(dp·M), L/cp, H/mp, D]
 
 
@@ -6366,6 +6392,16 @@ def hybrid_leg_a(dev, card, serial):
         f"({HYB_STEPS} timed steps, {dt:.4f} s), peak memory {stats['peak_bytes']} B, against "
         f"phase 7's serial step {serial['ms_per_step']:.3f} ms, {serial['tokens_per_s']:.1f} "
         f"tokens/s on {card}")
+    # the same steps again from a trainer of the same seed: bitwise the same?
+    again = HybridParallelTrainer(cfg, make_mesh(HYB_MESH), Adam(1e-4), num_micro=HYB_MICRO,
+                                  seed=0)
+    rerun = torch.stack([again.train_step(ids, labels)
+                         for _ in range(HYB_REPEAT)]).cpu().numpy()
+    del again
+    repeat = bool(np.array_equal(rerun, losses[:HYB_REPEAT]))
+    log(f"hybrid leg A: a second trainer of the same seed, {HYB_REPEAT} steps: losses "
+        f"{rerun.tolist()}, bitwise equal to the first run's: {repeat}")
+    assert repeat, "hybrid leg A: the same steps did not repeat bit for bit on the card"
     assert np.isfinite(losses).all(), "hybrid leg A: non-finite loss"
     assert losses[-1] < losses[0], "hybrid leg A: loss did not fall"
     assert rel <= 1e-4, f"hybrid leg A: first loss {losses[0]} vs serial {serial_loss}"
@@ -6568,6 +6604,407 @@ def phase_hybrid(dev, card, serial):
             "moe": moe}
 
 
+# -- phase 22: DCN and xDeepFM through the pass trainer, the serving export,
+# -- the rest of the vision zoo ------------------------------------------------
+
+# Leg A: the pass path's Criteo shape (26 slots, 13 dense, dim 8, DNN 400^3,
+# a 2^21-row cache, batch 4096) over ZOO_LINES MultiSlot lines from the hot
+# path's generator (``ctr_lines``, ZOO_IDS ids a slot): one pass, 8 steps, each
+# family with a dense optimizer of this slice. The exports serve batch 1 and
+# 4096 in a child process (``--serve-export DIR``); SERVE_UNSEEN of the keys
+# are outside the pass; SERVE_CALLS calls at 4096 give the p50.
+ZOO_LINES, ZOO_IDS = 32_768, 10_000
+CTR_FAMILIES = (("DCN", "Adagrad"), ("XDeepFM", "Lamb"))
+SERVE_UNSEEN, SERVE_CALLS, EXPORT_TOL = 0.05, 50, 1e-6
+_SERVE_RESULT = "SERVE_EXPORT "
+# Leg B: each family at 224x224, 1000 classes, batch ZOO_BATCH, f32, through
+# ``Trainer`` for ZOO_STEPS steps (the first a warm-up), each with its dense
+# optimizer; then card vs CPU at ZOO_SMALL (side, batch) from the same weights:
+# the eval forward within ZOO_FWD_TOL of the CPU output's largest value, and one
+# training step's update within ZOO_UPDATE_TOL (||Δcard − Δcpu|| / ||Δcpu||
+# over all parameters; dropout off on both sides). AlexNet's 6x6 and VGG's 7x7
+# adaptive pools need 224.
+ZOO_BATCH, ZOO_STEPS, ZOO_CLASSES = 32, 3, 1000
+ZOO = (("vgg16", "Momentum"), ("alexnet", "RMSProp"), ("squeezenet1_1", "Adadelta"),
+       ("mobilenet_v2", "Adamax"), ("shufflenet_v2_x1_0", "Lars"), ("googlenet", "Momentum"),
+       ("densenet121", "RMSProp"))
+# Readings on an H100 80GB HBM3 (700 W), seed 63 / weights 7: eval out
+# 3.8e-7-2.6e-6 (VGG16); updates without BatchNorm 4.3e-7-2.1e-5 (VGG16),
+# with it 2.9e-5 (DenseNet121), 0.017 (ShuffleNetV2), 0.082 (MobileNetV2:
+# batch statistics over 4 images, ill-conditioned at init as phase 11's
+# ResNet). Bounds ~2.5-5x the largest reading.
+ZOO_SMALL = {"vgg16": (224, 2), "alexnet": (224, 2)}   # others: (64, 4)
+ZOO_FWD_TOL = 1e-5
+ZOO_UPDATE_TOL = {True: 0.2, False: 1e-4}              # by "has BatchNorm"
+
+
+def zoo_optimizer(name):
+    from paddle_tpu_torch import optimizer as O
+
+    return {"Momentum": lambda: O.Momentum(0.01, 0.9, weight_decay=1e-4),
+            "RMSProp": lambda: O.RMSProp(1e-4),
+            "Adadelta": lambda: O.Adadelta(1.0),
+            "Adamax": lambda: O.Adamax(2e-3),
+            "Lars": lambda: O.Lars(0.1),
+            "Adagrad": lambda: O.Adagrad(1e-2),
+            "Adam": lambda: O.Adam(1e-3),
+            "Lamb": lambda: O.Lamb(1e-2)}[name]()
+
+
+def zoo_ctr_trainer(family, opt_name, dev):
+    """A ``CtrPassTrainer`` of ``family`` at the pass path's width over a
+    16-shard host table, its per-step losses recorded (device scalars)."""
+    from paddle_tpu_torch.models import ctr
+    from paddle_tpu_torch.ps.accessor import AccessorConfig
+    from paddle_tpu_torch.ps.embedding_cache import CacheConfig
+    from paddle_tpu_torch.ps.ps_trainer import CtrPassTrainer
+    from paddle_tpu_torch.ps.table import MemorySparseTable, TableConfig
+
+    model = getattr(ctr, family)(ctr.CtrConfig(SLOTS, DENSE, DIM, (400, 400, 400)),
+                                 generator=torch.Generator().manual_seed(0))
+    table = MemorySparseTable(TableConfig(shard_num=16,
+                                          accessor_config=AccessorConfig(embedx_dim=DIM)))
+    tr = CtrPassTrainer(model, zoo_optimizer(opt_name), table,
+                        CacheConfig(capacity=CAPACITY, embedx_dim=DIM, embedx_threshold=0.0),
+                        device=dev, **slot_names(SLOTS, DENSE))
+    losses, build = [], tr._packed_step
+
+    def recording(batch_size, slab=1):
+        step = build(batch_size, slab)
+
+        def run(*args):
+            if not losses:
+                losses.t0 = time.perf_counter()
+            out = step(*args)
+            losses.append(out[3])
+            return out
+        return run
+
+    tr._packed_step = recording
+    losses = _Losses()
+    return tr, losses
+
+
+class _Losses(list):
+    """The pass's per-step losses; ``t0``: the host clock at the first step."""
+    t0 = None
+
+
+def step_ms(losses, steps):
+    """Host ms a step from the first step's call to the last loss on the
+    host (the pass's build before it excluded)."""
+    float(losses[-1])
+    return 1e3 * (time.perf_counter() - losses.t0) / steps
+
+
+def serving_batch(tr, ds, rng):
+    """(lo32 [4096, S] int64 with SERVE_UNSEEN of the keys outside the pass,
+    dense [4096, D] f32, the unseen mask) from the pass's first records."""
+    from paddle_tpu_torch.ps.ps_trainer import _dense_and_labels, _slot_tagged_keys
+
+    batch = next(iter(ds.batch_iter(BATCH, drop_last=False)))
+    lo32 = (_slot_tagged_keys(batch, tr.sparse_slots) & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    dense, _ = _dense_and_labels(batch, tr.dense_slots, tr.label_slot, lo32.shape[0])
+    unseen = rng.random(lo32.shape) < SERVE_UNSEEN
+    lo32[unseen] = ZOO_IDS + rng.integers(0, 1 << 20, int(unseen.sum()))
+    return lo32, dense.astype(np.float32), unseen
+
+
+def ctr_export_leg(dev, card, family, opt_name, ds, base):
+    """One family: a pass, its launches and B1 on a captured push, then the
+    fused and dense exports and the trainer's own predictions for them."""
+    from paddle_tpu_torch.models.ctr import serving_pull
+
+    tr, step_losses = zoo_ctr_trainer(family, opt_name, dev)
+    try:
+        push, restore = capture_first_push()
+        torch.cuda.synchronize()
+        reset_launches()
+        try:
+            res = tr.train_from_dataset(ds, batch_size=BATCH, drop_last=False)
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        counts = read_launches()
+        steps = int(res["steps"])
+        ms = step_ms(step_losses, steps)
+        losses = torch.stack(step_losses).cpu().numpy()
+        log(f"item 5 {family} ({opt_name}): {steps} steps, {res['samples_per_sec']:.1f} "
+            f"samples/s (batch {BATCH}, the pass's host build included), {ms:.3f} ms a step "
+            f"(host clock, build excluded), losses {losses.tolist()}, launches {counts} on "
+            f"{card}")
+        assert np.isfinite(losses).all(), f"{family}: non-finite loss"
+        assert losses[-2:].mean() < losses[:2].mean(), f"{family}: loss did not fall"
+        assert counts["ctr_sparse_rows"] == steps == ZOO_LINES // BATCH, \
+            f"{family}: B1 launches {counts['ctr_sparse_rows']} != steps {steps}"
+        assert counts["merge_sparse_grads"] == steps, f"{family}: merge launches {counts}"
+        b1 = wd_b1_check(push, dim=DIM, what=f"{family} push")
+
+        keys = np.unique(tr._tagged_pass_keys(ds))
+        out = {}
+        for fused in (True, False):
+            d = os.path.join(base, f"{family}_{'fused' if fused else 'dense'}")
+            t0 = time.perf_counter()
+            tr.save_inference_model(d, fused=fused, keys=keys if fused else None)
+            out["fused" if fused else "dense"] = time.perf_counter() - t0
+        assert tr.cache.state is not None, f"{family}: the exported pass is not active"
+        lo32, dense, unseen = serving_batch(tr, ds, np.random.default_rng(61))
+        lo_d = torch.from_numpy(lo32).to(dev)
+        with torch.no_grad():
+            emb = serving_pull(tr.cache.state, tr.cache.device_map.state,
+                               torch.arange(SLOTS, device=dev), lo_d)
+            want = torch.sigmoid(torch.func.functional_call(
+                tr.model, tr.params, (emb, torch.from_numpy(dense).to(dev))))
+        zeros = bool((emb[torch.from_numpy(unseen).to(dev)] == 0).all())
+        assert zeros, f"{family}: an unseen key pulled a nonzero row"
+        np.savez(os.path.join(base, f"{family}_inputs.npz"), lo32=lo32, dense=dense,
+                 emb=emb.cpu().numpy(), want=want.cpu().numpy())
+        tr.cache.end_pass()
+        log(f"item 5 {family}: exports fused {out['fused']:.2f} s, dense {out['dense']:.2f} s "
+            f"(torch.export trace + save); {int(unseen.sum())} of {unseen.size} serving keys "
+            f"outside the pass, their rows zero on {card}")
+        return {"steps": steps, "launches": counts["ctr_sparse_rows"], "b1": b1,
+                "samples_per_s": res["samples_per_sec"], "ms_per_step": ms, "export_s": out}
+    finally:
+        tr.table.close()
+
+
+def deepfm_pass_baseline(dev, card, ds):
+    """DeepFM (Adam) through the same pass: ms a step for the families'
+    comparison."""
+    tr, step_losses = zoo_ctr_trainer("DeepFM", "Adam", dev)
+    try:
+        res = tr.train_from_dataset(ds, batch_size=BATCH, drop_last=False)
+        ms = step_ms(step_losses, int(res["steps"]))
+        log(f"item 5 DeepFM (Adam) baseline: {res['samples_per_sec']:.1f} samples/s, {ms:.3f} ms "
+            f"a step (host clock, build excluded) on {card}")
+        return ms
+    finally:
+        tr.table.close()
+
+
+def serve_export_child(base, device="cuda"):
+    """``--serve-export DIR``: load each artifact of ``DIR`` on the card,
+    serve batch 1 and the parent's whole batch (4096) against the parent's
+    predictions (within EXPORT_TOL), check that serving launched no kernel,
+    time SERVE_CALLS calls at the whole batch; prints one
+    ``SERVE_EXPORT {json}`` line."""
+    from paddle_tpu_torch.io.inference import load_inference_model
+
+    dev = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    rec = {}
+    for family, _ in CTR_FAMILIES:
+        inp = np.load(os.path.join(base, f"{family}_inputs.npz"))
+        for kind in ("fused", "dense"):
+            t0 = time.perf_counter()
+            pred = load_inference_model(os.path.join(base, f"{family}_{kind}"), device=dev)
+            sync()
+            load_s = time.perf_counter() - t0
+            first = inp["lo32"] if kind == "fused" else inp["emb"]
+            reset_launches()
+            err = 0.0
+            for n in (1, len(inp["want"])):
+                got = pred(first[:n], inp["dense"][:n]).cpu().numpy()
+                assert got.shape == (n,), f"{family} {kind}: shape {got.shape}"
+                err = max(err, float(np.abs(got - inp["want"][:n]).max()))
+            x = torch.from_numpy(first).to(dev)
+            dn = torch.from_numpy(inp["dense"]).to(dev)
+            ms = []
+            for _ in range(SERVE_CALLS):
+                sync()
+                t0 = time.perf_counter()
+                pred(x, dn)
+                sync()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            launched = sum(read_launches().values())
+            rec[f"{family}_{kind}"] = {"max_abs_err": err, "load_s": load_s,
+                                       "p50_ms": float(np.median(ms)), "launches": launched}
+    print(_SERVE_RESULT + json.dumps(rec), flush=True)
+    return 0
+
+
+def zoo_step_run(device, name, opt_name, weights, batches):
+    """One model of the zoo through ``Trainer``: (losses, the start and the
+    params and buffers after the steps, on the CPU)."""
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.executor import Trainer
+    from paddle_tpu_torch.nn import functional as F
+
+    from paddle_tpu_torch.nn.layers import Dropout
+
+    model = getattr(models, name)(num_classes=ZOO_CLASSES)
+    model.load_state_dict(weights)
+    for m in model.modules():  # the card's and the CPU's generators draw other masks
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    tr = Trainer(model, zoo_optimizer(opt_name), F.cross_entropy, device=device)
+    losses = [float(tr.train_step(x.to(device), y.to(device))) for x, y in batches]
+    return np.asarray(losses), {k: v.cpu() for k, v in
+                                {**tr.state["params"], **tr.state["buffers"]}.items()}
+
+
+def zoo_full_width(dev, card):
+    """Leg B at 224: ms a step (the steps after the first) and peak memory."""
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.executor import Trainer
+    from paddle_tpu_torch.nn import functional as F
+
+    rng = np.random.default_rng(62)
+    x = torch.from_numpy(rng.normal(size=(ZOO_BATCH, 3, 224, 224)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, ZOO_CLASSES, ZOO_BATCH)).to(dev)
+    stats = {}
+    for name, opt_name in ZOO:
+        model = getattr(models, name)(num_classes=ZOO_CLASSES,
+                                      generator=torch.Generator().manual_seed(0))
+        tr = Trainer(model, zoo_optimizer(opt_name), F.cross_entropy, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [tr.train_step(x, y)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [tr.train_step(x, y) for _ in range(ZOO_STEPS - 1)]
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / (ZOO_STEPS - 1)
+        losses = torch.stack(losses).cpu().numpy()
+        stats[name] = {"ms_per_step": ms, "peak_bytes": torch.cuda.max_memory_allocated(),
+                       "images_per_s": 1e3 * ZOO_BATCH / ms}
+        log(f"zoo {name} ({opt_name}): losses {losses.tolist()}, {ms:.3f} ms/step "
+            f"({ZOO_STEPS - 1} timed steps after 1, batch {ZOO_BATCH} x 3x224x224), "
+            f"{stats[name]['images_per_s']:.1f} images/s, peak memory "
+            f"{stats[name]['peak_bytes']} B on {card}")
+        assert np.isfinite(losses).all(), f"zoo {name}: non-finite loss"
+        del tr, model
+        torch.cuda.empty_cache()
+    return stats
+
+
+def zoo_parity(dev):
+    """Leg B small: card vs CPU from the same weights (ZOO_SMALL): the eval
+    forward (ZOO_FWD_TOL) and one training step's update
+    (ZOO_UPDATE_TOL)."""
+    from paddle_tpu_torch import models
+
+    cpu = torch.device("cpu")
+    for name, opt_name in ZOO:
+        side, batch = ZOO_SMALL.get(name, (64, 4))
+        rng = np.random.default_rng(63)
+        batches = [(torch.from_numpy(rng.normal(size=(batch, 3, side, side)).astype(np.float32)),
+                    torch.from_numpy(rng.integers(0, ZOO_CLASSES, batch)))]
+        model = getattr(models, name)(num_classes=ZOO_CLASSES,
+                                      generator=torch.Generator().manual_seed(7))
+        weights = model.state_dict()
+        model.eval()
+        with torch.no_grad():
+            want = model(batches[0][0])
+            model.to(dev)
+            got = model(batches[0][0].to(dev)).cpu()
+        fwd = float((got - want).abs().max() / want.abs().max())
+        has_bn = any(k.endswith("_mean") for k in weights)
+        gl, gs = zoo_step_run(dev, name, opt_name, weights, batches)
+        cl, cs = zoo_step_run(cpu, name, opt_name, weights, batches)
+        num = den = 0.0
+        for k, w0 in weights.items():
+            if k.endswith(("_mean", "_variance")):
+                continue
+            dg, dc = gs[k] - w0, cs[k] - w0
+            num, den = num + float((dg - dc).norm()) ** 2, den + float(dc.norm()) ** 2
+        upd = (num / max(den, 1e-30)) ** 0.5
+        loss = float(abs(gl[0] / cl[0] - 1))
+        log(f"zoo parity {name} ({side}x{side}, batch {batch}): eval out card vs CPU {fwd} of "
+            f"its largest (bound {ZOO_FWD_TOL}); step loss {loss}; update {upd} over all params "
+            f"(bound {ZOO_UPDATE_TOL[has_bn]}, BatchNorm {has_bn})")
+        assert fwd <= ZOO_FWD_TOL, f"zoo {name}: eval forward differs by {fwd}"
+        assert loss <= ZOO_FWD_TOL, f"zoo {name}: step loss differs by {loss}"
+        assert upd <= ZOO_UPDATE_TOL[has_bn], f"zoo {name}: updates differ by {upd}"
+
+
+def zoo_hapi_roundtrip(dev, base):
+    """``hapi.Model.save``/``load`` on the card: a step after a load is
+    bitwise the step after the save (cuDNN deterministic and dropout off
+    for the check)."""
+    from paddle_tpu_torch import hapi, models
+    from paddle_tpu_torch.nn import functional as F
+
+    rng = np.random.default_rng(64)
+    x = rng.normal(size=(8, 3, 64, 64)).astype(np.float32)
+    y = rng.integers(0, ZOO_CLASSES, 8)
+    from paddle_tpu_torch.nn.layers import Dropout
+
+    net = models.squeezenet1_1(num_classes=ZOO_CLASSES, generator=torch.Generator().manual_seed(5))
+    for mod in net.modules():  # the trainer's generator is not part of the checkpoint
+        if isinstance(mod, Dropout):
+            mod.p = 0.0
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        m = hapi.Model(net, device=dev)
+        m.prepare(zoo_optimizer("Adamax"), F.cross_entropy)
+        m.train_batch(x, y)
+        path = os.path.join(base, "hapi_squeezenet")
+        m.save(path)
+        a = m.train_batch(x, y)["loss"]
+        pa = {k: v.clone() for k, v in m.state["params"].items()}
+        m.load(path)
+        b = m.train_batch(x, y)["loss"]
+        same = a == b and all(torch.equal(pa[k], v) for k, v in m.state["params"].items())
+    finally:
+        torch.backends.cudnn.deterministic = det
+    log(f"zoo hapi: Model.save/load round trip on the card (squeezenet1_1, Adamax): the next "
+        f"step's loss {a} vs {b}, params bitwise {same}")
+    assert same, "hapi save/load: the step after a load differs from the step after the save"
+
+
+def phase_item5(dev, card):
+    """Phase 22: leg A (DCN and xDeepFM through ``CtrPassTrainer`` at the
+    pass path's width, B1 a step, the fused and dense serving exports
+    served from a child process) and leg B (the vision zoo at 224, card vs
+    CPU, hapi save/load)."""
+    import shutil as _shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="item5_")
+    try:
+        t0 = time.perf_counter()
+        ds = ctr_dataset(ctr_lines(np.random.default_rng(60), ZOO_LINES, ZOO_IDS, SLOTS, DENSE),
+                         SLOTS, DENSE)
+        log(f"item 5: {ds.num_records} MultiSlot lines made and parsed in "
+            f"{time.perf_counter() - t0:.2f} s (host)")
+        fam = {f: ctr_export_leg(dev, card, f, o, ds, base) for f, o in CTR_FAMILIES}
+        base_ms = deepfm_pass_baseline(dev, card, ds)
+        log(f"item 5: a step against DeepFM's {base_ms:.3f} ms: " + ", ".join(
+            f"{f} {r['ms_per_step'] / base_ms:.2f}x" for f, r in fam.items()))
+        del ds
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, PSJOB_SCRIPT, "--serve-export", base],
+                           capture_output=True, text=True, timeout=900)
+        child_s = time.perf_counter() - t0
+        got = [json.loads(l[len(_SERVE_RESULT):]) for l in p.stdout.splitlines()
+               if l.startswith(_SERVE_RESULT)]
+        assert p.returncode == 0 and got, \
+            f"serve-export child rc {p.returncode}:\n{p.stdout[-3000:]}\n{p.stderr[-3000:]}"
+        for name, r in got[0].items():
+            log(f"item 5 serving {name} (child process, {child_s:.1f} s in all): load "
+                f"{r['load_s']:.3f} s, batch 1 and {BATCH} within {r['max_abs_err']} of the "
+                f"trainer's forward (bound {EXPORT_TOL}), p50 {r['p50_ms']:.3f} ms at batch "
+                f"{BATCH} over {SERVE_CALLS} calls, kernel launches while serving "
+                f"{r['launches']} on {card}")
+            assert r["max_abs_err"] <= EXPORT_TOL, f"{name}: served {r['max_abs_err']} off"
+            assert r["launches"] == 0, f"{name}: serving launched {r['launches']} kernels"
+        t_b = time.perf_counter()
+        zoo = zoo_full_width(dev, card)
+        zoo_parity(dev)
+        zoo_hapi_roundtrip(dev, base)
+    finally:
+        _shutil.rmtree(base, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"item 5 (phase 22): {time.perf_counter() - t_phase:.1f} s (leg A "
+        f"{t_b - t_phase:.1f} s, leg B {time.perf_counter() - t_b:.1f} s) on {card}")
+    return {"families": fam, "zoo": zoo}
+
+
 HYB_RANGES = ("hybrid_forward", "hybrid_backward", "hybrid_update")
 # B5-B7's kernels in ops/csrc/flash_attention.cu (tensor-core and f32 forms)
 HYB_FLASH_KERNELS = ("fwd_mma_kernel", "bwd_dq_mma_kernel", "bwd_dkv_mma_kernel",
@@ -6624,18 +7061,26 @@ def main(argv):
         return ckpt_job_child(argv[1])
     if argv[:1] == ["--ha-server"] and len(argv) == 4:
         return ha_server_child(*argv[1:])
+    if argv[:1] == ["--serve-export"] and len(argv) == 2:
+        return serve_export_child(argv[1])
     if argv[:1] == ["--profile"] and len(argv) == 2:
         profile_dir = argv[1]
     elif argv:
         print("usage: chip_smoke.py [--profile DIR]  (--ps-job CONFIG.json: one process of "
               "phase 14's job; --ckpt-job CONFIG.json: one leg of phase 15; --ha-server STORE "
-              "JOB SHARD: one server process of phase 16's leg C)", file=sys.stderr)
+              "JOB SHARD: one server process of phase 16's leg C; --serve-export DIR: phase "
+              "22's serving child)", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 2
-    import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
+    try:
+        import paddle_tpu_torch  # noqa: F401
+    except ImportError as e:  # the script alone, outside a checkout
+        print(f"chip_smoke: the paddle_tpu_torch package is not importable here ({e}); run "
+              "this script from the root of a checkout", file=sys.stderr)
+        return 2
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # full-f32 matmuls for parity
@@ -6682,6 +7127,7 @@ def main(argv):
     phase_obs_fleet(dev, card, keep.pop("leg_a_oracle"))
     rs_launches, rs_b1 = phase_recsys(dev, card)
     hyb = phase_hybrid(dev, card, ernie_stats)
+    item5 = phase_item5(dev, card)
     phase_kernel_counts(dev)
     wd_kernel_counts(dev)
     hybrid_step_profile(hyb)
@@ -6765,7 +7211,13 @@ def main(argv):
         entry("flash_attention_bwd_dq@ring", fa_src, f"{fa_ref}:176",
               hyb["counts"]["flash_attention_bwd_dq"], hyb["ring"]["dq"]),
         entry("flash_attention_bwd_dkv@ring", fa_src, f"{fa_ref}:221",
-              hyb["counts"]["flash_attention_bwd_dkv"], hyb["ring"]["dkv"])]
+              hyb["counts"]["flash_attention_bwd_dkv"], hyb["ring"]["dkv"]),
+        # B1 again as phase 22's DCN and xDeepFM passes launch it: each pass's
+        # launches, its numbers on that family's first push
+        entry("ctr_sparse_rows@dcn", b1_src, b1_ref, item5["families"]["DCN"]["launches"],
+              item5["families"]["DCN"]["b1"]),
+        entry("ctr_sparse_rows@xdeepfm", b1_src, b1_ref,
+              item5["families"]["XDeepFM"]["launches"], item5["families"]["XDeepFM"]["b1"])]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

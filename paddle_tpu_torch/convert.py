@@ -42,7 +42,8 @@ Device = Union[str, torch.device]
 
 def ctr_params_from_jax(named_params: Mapping,
                            device: Device = "cpu") -> Dict[str, torch.Tensor]:
-    """JAX ``named_parameters()`` of a CTR model (``DeepFM``, ``WideDeep``)
+    """JAX ``named_parameters()`` of a CTR model (``DeepFM``, ``WideDeep``,
+    ``DCN``: ``cross.i``/``combine``, ``XDeepFM``: ``cin.i``/``cin_out``)
     — or a trainer's ``{"params": ..., "buffers": {}}`` tree → the port's
     params dict (the model's ``state_dict``): same names, 2-D weights
     transposed to [out, in]."""
@@ -192,7 +193,10 @@ def vision_params_from_jax(state: Mapping, device: Device = "cpu") -> Dict[str, 
     ``load_state_dict``: the same names (BatchNorm's ``_mean`` and
     ``_variance`` included), f32, conv weights OIHW as they are and the
     ``Linear`` weights (the only 2-D tensors of the vision models)
-    transposed to ``[out, in]``."""
+    transposed to ``[out, in]``. Every family of ``models`` (LeNet,
+    ResNet, VGG, AlexNet, SqueezeNet, MobileNet, ShuffleNetV2, GoogLeNet
+    with its aux heads, DenseNet) keeps the JAX module names, so one
+    rule carries them all."""
     flat = {**state["params"], **state.get("buffers", {})} if "params" in state else state
     return ctr_params_from_jax(flat, device)
 

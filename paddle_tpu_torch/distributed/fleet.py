@@ -29,8 +29,8 @@ communicator.
   ``PADDLE_UTIL_STORE_PORT``.
 - ``distributed_optimizer`` returns the optimizer as it is for a strategy
   without a dense flag; a dense flag raises (``meta_optimizers`` is not
-  ported, ROADMAP Queue A item 8). ``save_inference_model`` raises
-  (``io/inference.py``, item 5).
+  ported, ROADMAP Queue A item 8). ``save_inference_model`` exports
+  through ``io.inference`` (``torch.export``).
 """
 
 from __future__ import annotations
@@ -436,9 +436,14 @@ class Fleet:
         return {tid: self._client.save(tid, f"{dirname}/table_{tid}", mode)
                 for tid in self._sparse_table_ids()}
 
-    def save_inference_model(self, *args, **kwargs) -> None:
-        raise UnavailableError("fleet.save_inference_model needs io/inference.py, which is not "
-                               "ported yet (ROADMAP Queue A item 5)")
+    def save_inference_model(self, dirname: str, fn, params, example_inputs,
+                             freeze: bool = False) -> None:
+        """Export the serving function (fleet_base.py:787): a
+        ``torch.export`` program and its params (``io.inference``)."""
+        self._check_init()
+        from ..io.inference import save_inference_model as _save
+
+        _save(dirname, fn, params, example_inputs, freeze=freeze)
 
     def load_model(self, dirname: str) -> Dict[int, int]:
         self._check_init()

@@ -7,9 +7,12 @@ amp handling), evaluating with ``executor.make_eval_step``. Batches are
 numpy arrays or tensors; they move to ``device``, which defaults to the
 card (``"cuda"``, raising without one unless ``device="cpu"``).
 
-Not ported yet: ``save``/``load`` raise. They need only their glue over
-``io/checkpoint.py`` (ROADMAP Queue A item 5); ``save(training=False)``
-also needs ``io/inference.py``.
+``save``/``load`` write and read the shared checkpoint schema
+(``{"model", "opt", "step"}``, ``io.checkpoint``) in the JAX package's
+layout (``Linear`` weights ``[in, out]``), so either package's ``Model``
+loads the other's file; ``save(training=False)`` exports the eval
+forward for serving (``io.inference``). ``ModelCheckpoint`` saves every
+``save_freq`` epochs.
 """
 
 from __future__ import annotations
@@ -21,10 +24,13 @@ import torch
 from torch import nn
 
 from .core.device import resolve_device
-from .core.enforce import InvalidArgumentError, PreconditionNotMetError, enforce
+from .convert import opt_state_from_jax, opt_state_to_jax
+from .core.enforce import PreconditionNotMetError, enforce
 from .executor import Trainer, amp_level, make_eval_step
+from .io import checkpoint as ckpt
+from .io.inference import save_inference_model
 
-__all__ = ["Callback", "Model", "ProgBarLogger"]
+__all__ = ["Callback", "Model", "ModelCheckpoint", "ProgBarLogger"]
 
 
 class Callback:
@@ -49,6 +55,37 @@ class ProgBarLogger(Callback):
     def on_epoch_end(self, model, epoch, logs):
         if self.verbose:
             print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in logs.items()))
+
+
+class ModelCheckpoint(Callback):
+    """``model.save(f"{save_dir}/epoch_{epoch}")`` every ``save_freq``
+    epochs."""
+
+    def __init__(self, save_dir: str, save_freq: int = 1) -> None:
+        self.save_dir = save_dir
+        self.save_freq = save_freq
+
+    def on_epoch_end(self, model, epoch, logs):
+        if (epoch + 1) % self.save_freq == 0:
+            model.save(f"{self.save_dir}/epoch_{epoch}")
+
+
+def _to_jax_layout(flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A flat dict of the port's tensors (params, buffers or an optimizer
+    slot) in the JAX package's layout: 2-D (``Linear``) weights
+    transposed to ``[in, out]``, on the host, dtypes kept."""
+    return {k: (v.detach().t() if v.dim() == 2 else v.detach()).contiguous().cpu()
+            for k, v in flat.items()}
+
+
+def _from_jax_layout(flat, device: torch.device) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`_to_jax_layout` for a loaded tree's leaves
+    (numpy arrays, or bf16 tensors)."""
+    out = {}
+    for k, v in flat.items():
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
+        out[k] = (t.t() if t.dim() == 2 else t).contiguous().to(device)
+    return out
 
 
 def _as_tuple(x) -> tuple:
@@ -179,10 +216,57 @@ class Model:
     # -- save/load --------------------------------------------------------
 
     def save(self, path: str, training: bool = True, example_inputs=None) -> None:
-        raise InvalidArgumentError("Model.save is not ported yet: its glue over "
-                                   "io/checkpoint.py (and, with training=False, "
-                                   "io/inference.py; ROADMAP Queue A item 5)")
+        """``training=True`` (default) writes the shared checkpoint schema
+        (``{"model": {"params", "buffers"}, "opt", "step"}``,
+        ``io.checkpoint``) in the JAX package's layout, so ``Model.save``
+        and ``save_checkpoint`` files of either package interchange.
+
+        ``training=False`` exports the SERVING artifact instead (the
+        reference's inference-model export): the eval forward through
+        ``io.inference`` (``torch.export``, batch dynamic), traced on
+        ``example_inputs`` (a tuple of arrays or tensors, or one bare
+        array) on this model's device."""
+        self._check_prepared()
+        state = self.state
+        if not training:
+            enforce(example_inputs is not None, "training=False export needs example_inputs",
+                    PreconditionNotMetError)
+            fwd = self._eval_fwd
+
+            def serve(st, *ins):
+                return fwd(st, ins)
+
+            save_inference_model(path, serve, {k: dict(v) for k, v in state.items()},
+                                 self._tensors(example_inputs))
+            return
+        tr = self._trainer
+        opt = (opt_state_to_jax(tr.opt_state, tr.optimizer, params_to_jax=_to_jax_layout)
+               if tr is not None else None)
+        ckpt.save_checkpoint(path, {"params": _to_jax_layout(state["params"]),
+                                    "buffers": _to_jax_layout(state["buffers"])},
+                             opt, step=tr.global_step if tr is not None else 0)
 
     def load(self, path: str) -> None:
-        raise InvalidArgumentError("Model.load is not ported yet: its glue over "
-                                   "io/checkpoint.py (ROADMAP Queue A item 5)")
+        """Restore a :meth:`save` file (either package's): the params and
+        buffers, and the optimizer state when this model was prepared
+        with an optimizer and the file has one; the network's own
+        tensors are updated too."""
+        self._check_prepared()
+        blob = ckpt.load(path)
+        dev = self.device
+        new = {"params": _from_jax_layout(blob["model"]["params"], dev),
+               "buffers": _from_jax_layout(blob["model"].get("buffers", {}), dev)}
+        tr = self._trainer
+        if tr is not None:
+            tr.state = new
+            if blob.get("opt") is not None:
+                tr.opt_state = opt_state_from_jax(blob["opt"], tr.optimizer, dev,
+                                                  params_from_jax=_from_jax_layout)
+            tr.global_step = int(blob.get("step", 0))
+        else:
+            self._eval_state = new
+        with torch.no_grad():
+            for k, p in self.network.named_parameters():
+                p.copy_(new["params"][k])
+            for k, b in self.network.named_buffers():
+                b.copy_(new["buffers"][k])

@@ -1,7 +1,9 @@
-"""DeepFM and Wide&Deep on the sparse PS path: the GPUPS pass-training step.
+"""The CTR model family on the sparse PS path: the GPUPS pass-training step.
 
-Port of the DeepFM and WideDeep part of ``paddle_tpu.models.ctr`` (DCN
-and xDeepFM are not ported: ROADMAP Queue A). One step unpacks
+Port of ``paddle_tpu.models.ctr``: ``DeepFM``, ``WideDeep``, ``DCN`` and
+``XDeepFM``; the row-fed, packed, slab, from-keys and pooled
+(multi-valued slots) steps; and ``export_ctr_inference``, the serving
+export (``io.inference`` over ``torch.export``). One step unpacks
 one packed wire buffer (the ``pack_ctr_batch`` layout, byte-identical to
 the JAX package), probes the pass's on-device key map
 (``ps.device_hash``), pulls the rows from the device cache, runs the
@@ -41,9 +43,10 @@ from ..nn.layers import Linear
 from ..ps.device_hash import device_hash_lookup
 from ..ps.embedding_cache import CacheConfig, cache_pull, cache_push
 
-__all__ = ["CtrConfig", "DeepFM", "WideDeep", "make_ctr_train_step",
-           "make_ctr_train_step_packed", "make_ctr_train_step_slab",
-           "make_random_packs", "pack_ctr_batch", "serving_pull"]
+__all__ = ["CtrConfig", "DCN", "DeepFM", "WideDeep", "XDeepFM", "export_ctr_inference",
+           "make_ctr_pooled_train_step", "make_ctr_train_step",
+           "make_ctr_train_step_from_keys", "make_ctr_train_step_packed",
+           "make_ctr_train_step_slab", "make_random_packs", "pack_ctr_batch", "serving_pull"]
 
 Device = Optional[Union[str, torch.device]]
 
@@ -130,6 +133,81 @@ class WideDeep(nn.Module):
         return wide + self.dnn(deep_in)
 
 
+class DCN(nn.Module):
+    """Deep & Cross Network (PaddleRec's dcn): the cross tower
+    ``x_{l+1} = x0 * (w_l · x_l) + b_l + x_l`` over ``x0`` = the slot
+    embeddings ++ the dense features, beside the DNN over ``x0``,
+    combined by a ``Linear`` over [x_L, deep], plus the first-order
+    weights. forward(emb, dense_x) as :class:`DeepFM`; parameter names
+    the JAX package's (``cross.i``, ``dnn.layers.i``, ``combine``)."""
+
+    def __init__(self, cfg: CtrConfig, num_cross: int = 3,
+                 generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.num_sparse_slots * cfg.embedx_dim + cfg.num_dense
+        self.num_cross = num_cross
+        self.cross = nn.ModuleList([Linear(d, 1, generator=generator)
+                                    for _ in range(num_cross)])
+        self.dnn = _DNN(d, cfg.dnn_hidden, generator=generator)
+        self.combine = Linear(d + 1, 1, generator=generator)
+
+    def forward(self, emb: torch.Tensor, dense_x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        v = emb[..., 1:]
+        x0 = torch.cat([v.reshape(v.shape[0], cfg.num_sparse_slots * cfg.embedx_dim),
+                        dense_x], dim=-1)
+        x = x0
+        for lin in self.cross:
+            x = x0 * lin(x) + x       # x0 * (w·x) + b + x: the bias lives in the Linear
+        deep = self.dnn(x0)
+        out = self.combine(torch.cat([x, deep[:, None]], dim=-1))
+        return out[..., 0] + emb[..., 0].sum(dim=-1)
+
+
+class XDeepFM(nn.Module):
+    """xDeepFM (PaddleRec's xdeepfm): the Compressed Interaction Network
+    over the slot embeddings — each layer the pairwise products of x0's
+    S rows and the previous layer's H_k rows, [B, S·H_k, D], taken by a
+    ``Linear`` over the S·H_k channels for each embedding dim (a 1×1
+    conv), sum-pooled over the dim — plus the DNN, a dense linear and the
+    first-order weights. forward(emb, dense_x) as :class:`DeepFM`;
+    parameter names the JAX package's (``cin.i``, ``cin_out``,
+    ``dnn.layers.i``, ``dense_lin``)."""
+
+    def __init__(self, cfg: CtrConfig, cin_layers: Tuple[int, ...] = (16, 16),
+                 generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        g = generator
+        self.cfg = cfg
+        self.cin_sizes = tuple(cin_layers)
+        S = cfg.num_sparse_slots
+        prev = S
+        self.cin = nn.ModuleList()
+        for h in self.cin_sizes:
+            self.cin.append(Linear(S * prev, h, bias_attr=False, generator=g))
+            prev = h
+        self.cin_out = Linear(sum(self.cin_sizes), 1, generator=g)
+        self.dnn = _DNN(S * cfg.embedx_dim + cfg.num_dense, cfg.dnn_hidden, generator=g)
+        self.dense_lin = Linear(cfg.num_dense, 1, generator=g)
+
+    def forward(self, emb: torch.Tensor, dense_x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        S, D = cfg.num_sparse_slots, cfg.embedx_dim
+        B = emb.shape[0]
+        v = emb[..., 1:]                                        # [B, S, D]
+        xk = v
+        pooled = []
+        for lin in self.cin:
+            z = (v[:, :, None, :] * xk[:, None, :, :]).reshape(B, -1, D)  # [B, S·Hk, D]
+            xk = lin(z.transpose(1, 2)).transpose(1, 2)          # [B, H, D]
+            pooled.append(xk.sum(dim=-1))
+        cin = self.cin_out(torch.cat(pooled, dim=-1))[..., 0]
+        deep_in = torch.cat([v.reshape(B, S * D), dense_x], dim=-1)
+        return (cin + self.dnn(deep_in) + self.dense_lin(dense_x)[..., 0]
+                + emb[..., 0].sum(dim=-1))
+
+
 def _weighted_mean(per: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:
     """Mean of per-example losses under the optional [B] 0/1 padding mask."""
     if weights is None:
@@ -151,14 +229,18 @@ def _make_loss_fn(model: nn.Module, dense_x, labels, weights):
     return loss_fn
 
 
-def _push_stats(labels, weights, n_cols):
+def _push_stats(labels, weights, n_cols, real=None):
     """Per-position (show, click): show=1 per real example-position,
-    click=label (FleetWrapper::PushSparseFromTensorAsync semantics)."""
+    click=label (FleetWrapper::PushSparseFromTensorAsync semantics);
+    ``real`` ([B*n_cols] 0/1, optional) masks the padding positions of
+    multi-valued slots."""
     if weights is None:
         shows = torch.ones(labels.shape[0] * n_cols, dtype=torch.float32,
                            device=labels.device)
     else:
         shows = torch.repeat_interleave(weights.to(torch.float32), n_cols)
+    if real is not None:
+        shows = shows * real
     clicks = torch.repeat_interleave(labels.to(torch.float32), n_cols) * shows
     return shows, clicks
 
@@ -214,6 +296,109 @@ def make_ctr_train_step(model: nn.Module, optimizer, cache_cfg: CacheConfig,
         return _ctr_step_body(model, optimizer, cache_cfg, params, opt_state,
                               cache_state, rows.reshape(-1), B, S, dense_x, labels,
                               weights)
+
+    return step
+
+
+def make_ctr_pooled_train_step(model: nn.Module, optimizer, cache_cfg: CacheConfig,
+                                slot_of_column, device: Device = None,
+                                amp: bool = False) -> Callable:
+    """The GPUPS step for MULTI-VALUED sparse slots: each slot carries up
+    to max_len feasigns an example, whose embeddings SUM-POOL into the
+    slot (``FleetWrapper::PullSparseToTensorSync`` accumulates them into
+    one slice); the push hands the slot's gradient to every contributing
+    feasign with show=1 each (``PushSparseFromTensorAsync``).
+
+    ``slot_of_column``: the [T] slot of each padded key column (T = the
+    sum of the slots' max lengths, S slots). ``rows``: [B, T] int64 cache
+    rows; padding positions hold the capacity sentinel C, pull zeros (the
+    sum's identity) and push nothing (show 0).
+
+    step(params, opt_state, cache_state, rows, dense_x, labels, weights=None)
+      → (params, opt_state, cache_state, loss)
+
+    ``device`` defaults to ``"cuda"`` (raises without a GPU); ``amp`` runs
+    the step under ``amp.step_ctx``."""
+    dev = resolve_device(device)
+    cols = np.asarray(slot_of_column, np.int64)
+    seg = torch.as_tensor(cols, device=dev)
+    S = int(cols.max()) + 1
+
+    def step(params, opt_state, cache_state, rows, dense_x, labels, weights=None):
+        _check_device(rows, dev, "rows")
+        with step_ctx(amp):
+            dense_x = dense_x.to(torch.float32)
+            labels = labels.to(torch.int32)
+            B, T = rows.shape
+            C = cache_state["embed_w"].shape[0]
+            flat = rows.reshape(-1)
+            emb_pos = cache_pull(cache_state, flat).reshape(B, T, -1)
+            # sum-pool the columns into their slots: [B, T, 1+dim] → [B, S, 1+dim]
+            pooled = torch.zeros((B, S, emb_pos.shape[-1]), dtype=emb_pos.dtype,
+                                 device=emb_pos.device).index_add_(1, seg, emb_pos)
+            pooled.requires_grad_(True)
+            leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+            loss = _make_loss_fn(model, dense_x, labels, weights)(leaves, pooled)
+            *g, pooled_grad = torch.autograd.grad(loss, [*leaves.values(), pooled])
+            new_params, new_opt = optimizer.update(dict(zip(leaves, g)), opt_state, params)
+            # sum-pool: every contributing position receives its slot's gradient
+            pos_grad = pooled_grad[:, seg, :].reshape(B * T, -1)
+            real = (flat < C).to(torch.float32)
+            shows, clicks = _push_stats(labels, weights, T, real=real)
+            with torch.no_grad():
+                new_cache = cache_push(cache_state, flat, pos_grad, shows, clicks, cache_cfg)
+        return new_params, new_opt, new_cache, loss.detach()
+
+    return step
+
+
+def make_ctr_train_step_from_keys(model: nn.Module, optimizer, cache_cfg: CacheConfig,
+                                  slot_ids=None, device: Device = None,
+                                  amp: bool = False) -> Callable:
+    """The GPUPS step with the key→row probe in the step (the reference's
+    PSGPUWorker: CopyKeys, then the device ``HashTable::get``): the host
+    ships the low 32 bits of the slot-tagged feasigns, the step probes the
+    pass's key map (``ps.device_hash``), pulls, runs forward/backward and
+    the dense update, and pushes. ``slot_ids``: the [S] static high halves
+    of the columns (key = slot_id << 32 | lo32).
+
+    step(params, opt_state, cache_state, map_state, keys_lo, dense_x,
+         labels, weights=None) → (params, opt_state, cache_state, loss)
+
+    ``keys_lo`` is [B, S] int64 (uint32 values) or int32 (their bit
+    patterns). Keys missing from the pass probe to the capacity sentinel:
+    zero pull, dropped push. ``slot_ids=None`` is the wide-key variant for
+    feasigns whose high halves are not the column's slot: the step then
+    takes ``(keys_hi, keys_lo)`` in place of ``keys_lo``.
+    ``device`` defaults to ``"cuda"`` (raises without a GPU); ``amp`` runs
+    the step under ``amp.step_ctx``."""
+    dev = resolve_device(device)
+    slot_hi = (torch.as_tensor(np.asarray(slot_ids, np.int64), device=dev)
+               if slot_ids is not None else None)
+
+    def _finish(params, opt_state, cache_state, map_state, hi, lo, B, S, dense_x, labels,
+                weights):
+        _check_device(lo, dev, "keys")
+        lo = lo.to(torch.int64) & 0xFFFFFFFF
+        hi = hi.to(torch.int64) & 0xFFFFFFFF
+        with step_ctx(amp):
+            rows = _lookup_rows(cache_state, map_state, hi, lo)
+            return _ctr_step_body(model, optimizer, cache_cfg, params, opt_state,
+                                  cache_state, rows, B, S, dense_x, labels, weights)
+
+    if slot_ids is not None:
+        def step(params, opt_state, cache_state, map_state, keys_lo, dense_x, labels,
+                 weights=None):
+            B, S = keys_lo.shape
+            hi = slot_hi[None, :].expand(B, S).reshape(-1)
+            return _finish(params, opt_state, cache_state, map_state, hi,
+                           keys_lo.reshape(-1), B, S, dense_x, labels, weights)
+    else:
+        def step(params, opt_state, cache_state, map_state, keys_hi, keys_lo, dense_x,
+                 labels, weights=None):
+            B, S = keys_lo.shape
+            return _finish(params, opt_state, cache_state, map_state, keys_hi.reshape(-1),
+                           keys_lo.reshape(-1), B, S, dense_x, labels, weights)
 
     return step
 
@@ -376,3 +561,63 @@ def serving_pull(tables: Dict[str, torch.Tensor], map_state: Dict[str, torch.Ten
     if with_real:
         return emb, (rows < C).to(torch.float32).reshape(B, S)
     return emb
+
+
+def export_ctr_inference(dirname: str, model: nn.Module, cache, slot_ids, num_dense: int,
+                         freeze: bool = False, with_real: bool = False, params=None,
+                         refresh_only: bool = False) -> None:
+    """``fleet.save_inference_model`` for the CTR serving path: probe →
+    pull → forward → sigmoid exported as one program
+    (``io.inference.save_inference_model``, ``torch.export``) with the
+    dense params and the PRUNED serving tables (``embed_w``/``embedx_w``
+    only; optimizer state and show/click are training-only) plus the
+    pass's key map.
+
+    Serving input: (lo32 [b, S] int64 holding the uint32 key halves,
+    dense [b, D] float32) → pctr [b] float32, ``b`` dynamic. Keys outside
+    the pass probe to the sentinel and pull zeros. The program is traced
+    on the cache's device and serves there. ``params``: the trained
+    params dict (default: the model's own parameters).
+
+    ``refresh_only=True`` overwrites just the serving values (params,
+    tables, key map) of an existing unfrozen export, skipping the trace.
+    ``with_real`` (DIN's real-position mask) waits for DIN (ROADMAP
+    Queue A item 9)."""
+    from ..io.inference import refresh_inference_params, save_inference_model
+
+    if with_real:
+        raise UnavailableError("export_ctr_inference(with_real=True) serves DIN, which is not "
+                               "ported yet (ROADMAP Queue A item 9)")
+    enforce(cache.state is not None, "begin_pass first")
+    enforce(cache.device_map is not None,
+            "export_ctr_inference needs device_map=True on the cache "
+            "(the serving program probes the pass's key map)")
+    S, D = len(slot_ids), int(num_dense)
+    dev = cache.state["embed_w"].device
+    serving = {
+        "model": {"params": {k: v.detach() for k, v in
+                             (params if params is not None
+                              else dict(model.named_parameters())).items()},
+                  "buffers": {}},
+        "tables": {"embed_w": cache.state["embed_w"], "embedx_w": cache.state["embedx_w"]},
+        "map": dict(cache.device_map.state),
+    }
+    if refresh_only:
+        enforce(not freeze, "refresh_only applies to unfrozen exports")
+        refresh_inference_params(dirname, serving)
+        return
+    slot_hi = torch.as_tensor(np.asarray(slot_ids, np.int64), device=dev)
+
+    def serve_fn(p, lo32, dense_x):
+        emb = serving_pull(p["tables"], p["map"], slot_hi, lo32)
+        out = functional_call(model, {**p["model"]["params"], **p["model"]["buffers"]},
+                              (emb, dense_x.to(torch.float32)))
+        return torch.sigmoid(out)
+
+    example = (torch.zeros((2, S), dtype=torch.int64, device=dev),
+               torch.zeros((2, D), dtype=torch.float32, device=dev))
+    save_inference_model(dirname, serve_fn, serving, example, freeze=freeze,
+                         notes={"inputs": "lo32 [b, S]: the uint32 low halves of the "
+                                          "slot-tagged keys, carried as int64 in [0, 2^32); "
+                                          "dense [b, D] float32",
+                                "output": "pctr [b] float32"})

@@ -12,7 +12,8 @@ merge and the ``ctr_sparse_rows_at`` kernel on the card.
 Params are the model's ``named_parameters()`` dict (``Linear`` weights
 ``[out, in]``; ``convert.recsys_params_from_jax`` carries the JAX
 package's across); the module supplies the forward
-(``torch.func.functional_call``).
+(``torch.func.functional_call``). ``export_dssm_towers`` exports the
+two towers for serving (``io.inference``).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from torch import nn
 from torch.func import functional_call
 
 from ..core.device import resolve_device
-from ..core.enforce import UnavailableError
+from ..core.enforce import enforce
 from ..ps.embedding_cache import CacheConfig
 from .ctr import _DNN, _check_device, _ctr_step_body, _weighted_mean
 
@@ -115,10 +116,48 @@ def make_dssm_train_step(model: DSSM, optimizer, cache_cfg: CacheConfig,
     return step
 
 
-def export_dssm_towers(*args, **kwargs) -> None:
-    """The towers' inference export waits for ``io/inference.py``."""
-    raise UnavailableError("export_dssm_towers needs io/inference.py, which is not "
-                           "ported yet (ROADMAP Queue A item 5)")
+def export_dssm_towers(dirname: str, model: DSSM, cache, query_slot_ids, doc_slot_ids,
+                       refresh_only: bool = False) -> None:
+    """The two-tower deployment split: ``<dirname>/query`` serves the
+    ONLINE tower (query lo32 [b, Sq] int64 → the normalized query vector)
+    and ``<dirname>/doc`` the OFFLINE one (doc lo32 [b, Sd] → normalized
+    doc vectors for the ANN index build). Each is an ``io.inference``
+    export (``torch.export``, ``b`` dynamic) with the PRUNED serving
+    tables (``embed_w``/``embedx_w`` and the pass's key map) and its own
+    tower's params only. ``*_slot_ids`` are the columns' key high halves.
+
+    ``refresh_only=True`` overwrites only the serving values of both
+    existing exports (no trace)."""
+    import os
+
+    from ..io.inference import refresh_inference_params, save_inference_model
+    from .ctr import serving_pull
+
+    enforce(cache.state is not None, "begin_pass first")
+    enforce(cache.device_map is not None,
+            "export_dssm_towers needs device_map=True on the cache")
+    state = {k: v.detach() for k, v in model.named_parameters()}
+    dev = cache.state["embed_w"].device
+    tables = {"embed_w": cache.state["embed_w"], "embedx_w": cache.state["embedx_w"]}
+    map_state = dict(cache.device_map.state)
+
+    for which, slot_ids, tower in (("query", query_slot_ids, model.query_tower),
+                                   ("doc", doc_slot_ids, model.doc_tower)):
+        slot_hi = torch.as_tensor(np.asarray(slot_ids, np.int64), device=dev)
+        serving = {"model": {"params": _sub_params(state, f"{which}_tower"), "buffers": {}},
+                   "tables": tables, "map": map_state}
+        if refresh_only:
+            refresh_inference_params(os.path.join(dirname, which), serving)
+            continue
+
+        def fn(p, lo32, tower=tower, slot_hi=slot_hi):
+            emb = serving_pull(p["tables"], p["map"], slot_hi, lo32)
+            return _l2_normalize(functional_call(tower, p["model"]["params"],
+                                                 (emb.reshape(emb.shape[0], -1),)))
+
+        save_inference_model(os.path.join(dirname, which), fn, serving,
+                             (torch.zeros((2, len(slot_hi)), dtype=torch.int64, device=dev),),
+                             notes={"lo32": "uint32 key halves carried as int64 in [0, 2^32)"})
 
 
 def make_dssm_ranker(model: DSSM, params: Optional[Dict[str, torch.Tensor]] = None,

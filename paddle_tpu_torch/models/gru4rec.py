@@ -7,6 +7,8 @@ uses in-batch negatives (DSSM's objective). One step: ONE pull of the
 sequence and target rows, the GRU and the projections forward and
 backward, the dense update, and ONE push carrying both row sets (the
 merge and the ``ctr_sparse_rows_at`` kernel on the card).
+``export_gru4rec_towers`` exports the session and item towers for
+serving (``io.inference``).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from torch import nn
 from torch.func import functional_call
 
 from ..core.device import resolve_device
-from ..core.enforce import UnavailableError
+from ..core.enforce import enforce
 from ..nn.layers import Linear
 from ..nn.rnn import GRU
 from ..ps.embedding_cache import CacheConfig, cache_pull, cache_push
@@ -119,7 +121,60 @@ def make_gru4rec_ranker(model: GRU4Rec, params: Optional[Dict[str, torch.Tensor]
     return rank
 
 
-def export_gru4rec_towers(*args, **kwargs) -> None:
-    """The towers' inference export waits for ``io/inference.py``."""
-    raise UnavailableError("export_gru4rec_towers needs io/inference.py, which is not "
-                           "ported yet (ROADMAP Queue A item 5)")
+def export_gru4rec_towers(dirname: str, model: GRU4Rec, cache, max_len: int,
+                          refresh_only: bool = False) -> None:
+    """The session-recall deployment split: ``<dirname>/session`` serves
+    the ONLINE tower — (item lo32 [b, max_len] int64, lengths [b] int64)
+    → the normalized session vector — and ``<dirname>/item`` the OFFLINE
+    one (item lo32 [b, 1] → normalized item vectors for the ANN index).
+    Each is an ``io.inference`` export (``torch.export``, ``b`` dynamic)
+    with the PRUNED serving tables (``embed_w``/``embedx_w`` and the
+    pass's key map; no optimizer state) and its own tower's params only.
+    Out-of-pass and padding ids probe to the sentinel and pull zeros;
+    positions past ``lengths`` are frozen by the GRU's length mask, as in
+    training. ``max_len`` is the deploy-time session length.
+
+    ``refresh_only=True`` overwrites only the serving values of both
+    existing exports (no trace)."""
+    import os
+
+    from ..io.inference import refresh_inference_params, save_inference_model
+    from .ctr import serving_pull
+    from .dssm import _sub_params
+
+    enforce(cache.state is not None, "begin_pass first")
+    enforce(cache.device_map is not None,
+            "export_gru4rec_towers needs device_map=True on the cache")
+    state = {k: v.detach() for k, v in model.named_parameters()}
+    dev = cache.state["embed_w"].device
+    tables = {"embed_w": cache.state["embed_w"], "embedx_w": cache.state["embedx_w"]}
+    map_state = dict(cache.device_map.state)
+    # one item table: every key lives in hi = 0 (item_keys)
+    sess_hi = torch.zeros(int(max_len), dtype=torch.int64, device=dev)
+    item_hi = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def sess_fn(p, lo32, lengths):
+        emb = serving_pull(p["tables"], p["map"], sess_hi, lo32)
+        _, h_n = functional_call(model.gru, p["model"]["gru"], (emb, lengths))
+        return _l2_normalize(functional_call(model.sess_proj, p["model"]["sess_proj"],
+                                             (h_n[-1],)))
+
+    def item_fn(p, lo32):
+        emb = serving_pull(p["tables"], p["map"], item_hi, lo32)[:, 0, :]
+        return _l2_normalize(functional_call(model.item_proj, p["model"]["item_proj"],
+                                             (emb,)))
+
+    towers = (
+        ("session", sess_fn, {"gru": _sub_params(state, "gru"),
+                              "sess_proj": _sub_params(state, "sess_proj")},
+         (torch.zeros((2, int(max_len)), dtype=torch.int64, device=dev),
+          torch.full((2,), int(max_len), dtype=torch.int64, device=dev))),
+        ("item", item_fn, {"item_proj": _sub_params(state, "item_proj")},
+         (torch.zeros((2, 1), dtype=torch.int64, device=dev),)))
+    for which, fn, sub_states, example in towers:
+        serving = {"model": sub_states, "tables": tables, "map": map_state}
+        if refresh_only:
+            refresh_inference_params(os.path.join(dirname, which), serving)
+            continue
+        save_inference_model(os.path.join(dirname, which), fn, serving, example,
+                             notes={"lo32": "uint32 item ids carried as int64 in [0, 2^32)"})

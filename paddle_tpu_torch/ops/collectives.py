@@ -16,10 +16,10 @@ the collectives come in two forms:
   :func:`axis_size`): called from inside per-rank code that
   :func:`run_ranks` runs, one thread per rank, in lockstep. Each call
   meets the other ranks of its group (the ranks that differ from it only
-  on the named axes) at a rendezvous; the last to arrive performs the
-  collective once, on all the group's tensors, and each rank takes its
-  result. The per-rank code keeps the shape of the JAX ``shard_map``
-  body: ``psum(x, "mp")``, ``shift(k, "cp", 1)``, ``axis_index("cp")``.
+  on the named axes) at a rendezvous; once all have arrived, the group's
+  first rank performs the collective once, on all the group's tensors,
+  and each rank takes its result. The per-rank code keeps the shape of
+  the JAX ``shard_map`` body: ``psum(x, "mp")``, ``shift(k, "cp", 1)``, ``axis_index("cp")``.
 
 Gradients: the ranks' forwards build ONE autograd graph in one process,
 and a collective is a few tensor ops on the group's tensors (a sum, a
@@ -33,7 +33,8 @@ that every rank reads through a view sums its ranks' gradients in the
 one ``.grad``, so neither is ported.
 
 Sums run in rank order, starting from the group's first rank, so a
-result is the same from run to run and on every device. XLA's
+result is the same from run to run and on every device (see
+:func:`run_ranks` for the backward's order). XLA's
 all-reduce associates its sum in its own order, so a reduced value can
 differ from the JAX package's in the last bits; nothing else here
 rounds. A replicated result (``psum``, ``all_gather``) is ONE tensor
@@ -202,16 +203,22 @@ class _Rendezvous:
             slot.values[pos] = value
             slot.arrived += 1
             if slot.arrived == len(ranks):
-                try:
-                    slot.results = fn(slot.values)
-                except BaseException as e:
-                    self._abort(e)
-                    raise
-                slot.values = None
-                slot.done = True
                 self.cond.notify_all()
             deadline = time.monotonic() + self.timeout
             while not slot.done:
+                if pos == 0 and slot.arrived == len(ranks):
+                    # the group's first rank performs it, whichever arrived
+                    # last: the ops (and the autograd nodes they record)
+                    # belong to the same thread from run to run
+                    try:
+                        slot.results = fn(slot.values)
+                    except BaseException as e:
+                        self._abort(e)
+                        raise
+                    slot.values = None
+                    slot.done = True
+                    self.cond.notify_all()
+                    break
                 if self.error is not None:
                     raise _Aborted(f"rank {rank}: another rank failed ({self.error!r})")
                 gone = self.finished.intersection(ranks)
@@ -269,7 +276,12 @@ def run_ranks(mesh: Mesh, fn: Callable[[int], Any], timeout: float = DEFAULT_TIM
     axis-form collectives and :func:`axis_index` answer for it — and the
     list of their results in rank order. The caller's grad mode carries
     into the ranks. If a rank raises, the others' collectives abort and
-    the first rank's error is raised here (with its rank in the note)."""
+    the first rank's error is raised here (with its rank in the note).
+
+    A run repeats bit for bit: each rank's autograd nodes are recorded
+    by its own thread, whose sequence numbers (thread-local in torch)
+    order the one backward's gradient sums, and a collective's ops run
+    on its group's first rank, not on whichever rank arrived last."""
     rv = _Rendezvous(mesh, timeout)
     n = mesh.size
     results: List[Any] = [None] * n

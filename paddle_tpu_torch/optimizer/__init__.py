@@ -1,7 +1,8 @@
 """Dense optimizers of the port, with the JAX package's algebra.
 
 Port of ``paddle_tpu.optimizer`` (the base, ``SGD``, ``Momentum``,
-``Adam``, ``AdamW``, the gradient clips, the ``lr`` schedules,
+``Adam``, ``AdamW``, ``Adagrad``, ``Adadelta``, ``Adamax``, ``RMSProp``,
+``Lars``, ``Lamb``, the gradient clips, the ``lr`` schedules,
 ``MasterWeights`` and ``decorate_o2``). Each optimizer is functional
 over a dict of tensors keyed by parameter name::
 
@@ -11,8 +12,8 @@ over a dict of tensors keyed by parameter name::
 Inputs are not modified. The state is ``{"step": 0-dim int64, **slots}``
 on the parameters' device, each slot a dict like the params, under the
 JAX package's slot names where it has them (``Adam``: ``"m"``/``"v"``)
-and ``jax_tree_slot`` where the JAX slot is one bare tree (``Momentum``:
-``"velocity"``); ``SGD`` has none; ``MasterWeights`` keeps ``"master"``
+and ``jax_tree_slot`` where the JAX slot is one bare tree (``Momentum``
+and ``Lars``: ``"velocity"``, ``Adagrad``: ``"moment"``); ``SGD`` has none; ``MasterWeights`` keeps ``"master"``
 and the inner optimizer's slots under ``"inner"``. A constant learning
 rate is a Python float; a schedule's is a 0-dim f32 tensor computed from
 the step counter on the device, so a step needs no host sync either way.
@@ -29,8 +30,9 @@ import torch
 
 from ..core.enforce import InvalidArgumentError, enforce
 
-__all__ = ["Adam", "AdamW", "ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
-           "MasterWeights", "Momentum", "Optimizer", "SGD", "decorate_o2", "global_norm", "lr"]
+__all__ = ["Adadelta", "Adagrad", "Adam", "AdamW", "Adamax", "ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
+           "Lamb", "Lars", "MasterWeights", "Momentum", "Optimizer", "RMSProp", "SGD",
+           "decorate_o2", "global_norm", "lr"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -288,6 +290,187 @@ class AdamW(Adam):
 
     def __init__(self, learning_rate=0.001, weight_decay: float = 0.01, **kw) -> None:
         super().__init__(learning_rate, weight_decay=weight_decay, **kw)
+
+
+
+class Adagrad(Optimizer):
+    """``acc' = acc + g²``; ``p' = p - lr g / (sqrt(acc') + eps)``
+    (``g`` with coupled decay); the accumulator starts at
+    ``initial_accumulator_value``."""
+
+    jax_tree_slot = "moment"
+
+    def __init__(self, learning_rate=0.001, epsilon: float = 1e-6,
+                 initial_accumulator_value: float = 0.0, **kw) -> None:
+        super().__init__(learning_rate, **kw)
+        self.epsilon = float(epsilon)
+        self.initial_accumulator_value = float(initial_accumulator_value)
+
+    def _init_slots(self, params):
+        return {"moment": {k: torch.full_like(p, self.initial_accumulator_value)
+                           for k, p in params.items()}}
+
+    def _apply(self, grads, slots, params, lr_t, step):
+        new_p, new_acc = {}, {}
+        for k, p in params.items():
+            g = self._decay_grad(grads[k], p)
+            acc = slots["moment"][k] + g * g
+            new_p[k] = p - lr_t * g / (torch.sqrt(acc) + self.epsilon)
+            new_acc[k] = acc
+        return new_p, {"moment": new_acc}
+
+
+class Adadelta(Optimizer):
+    """``E[g²]' = rho E[g²] + (1-rho) g²``; ``u = sqrt(E[u²] + eps) /
+    sqrt(E[g²]' + eps) · g``; ``E[u²]' = rho E[u²] + (1-rho) u²``;
+    ``p' = p - lr u`` (phi adadelta_kernel)."""
+
+    def __init__(self, learning_rate=0.001, rho: float = 0.95, epsilon: float = 1e-6,
+                 **kw) -> None:
+        super().__init__(learning_rate, **kw)
+        self.rho, self.epsilon = float(rho), float(epsilon)
+
+    def _init_slots(self, params):
+        return {"avg_sq_grad": _zeros(params), "avg_sq_update": _zeros(params)}
+
+    def _apply(self, grads, slots, params, lr_t, step):
+        new_p, new_g, new_u = {}, {}, {}
+        for k, p in params.items():
+            g = self._decay_grad(grads[k], p)
+            ag = self.rho * slots["avg_sq_grad"][k] + (1 - self.rho) * (g * g)
+            au = slots["avg_sq_update"][k]
+            update = (torch.sqrt(au + self.epsilon) / torch.sqrt(ag + self.epsilon)) * g
+            new_u[k] = self.rho * au + (1 - self.rho) * (update * update)
+            new_p[k] = p - lr_t * update
+            new_g[k] = ag
+        return new_p, {"avg_sq_grad": new_g, "avg_sq_update": new_u}
+
+
+class Adamax(Optimizer):
+    """Adam with an infinity-norm second moment: ``u' = max(b2 u, |g|)``;
+    ``p' = p - lr (m'/bc1) / (u' + eps)`` (phi adamax_kernel)."""
+
+    def __init__(self, learning_rate=0.001, beta1: float = 0.9, beta2: float = 0.999,
+                 epsilon: float = 1e-8, **kw) -> None:
+        super().__init__(learning_rate, **kw)
+        self.beta1, self.beta2, self.epsilon = float(beta1), float(beta2), float(epsilon)
+
+    def _init_slots(self, params):
+        return {"m": _zeros(params), "u": _zeros(params)}
+
+    def _apply(self, grads, slots, params, lr_t, step):
+        bc1 = 1 - torch.pow(self.beta1, (step + 1).to(torch.float32))
+        new_p, new_m, new_u = {}, {}, {}
+        for k, p in params.items():
+            g = self._decay_grad(grads[k], p)
+            m = self.beta1 * slots["m"][k] + (1 - self.beta1) * g
+            u = torch.maximum(self.beta2 * slots["u"][k], torch.abs(g))
+            new_p[k] = p - lr_t * (m / bc1) / (u + self.epsilon)
+            new_m[k], new_u[k] = m, u
+        return new_p, {"m": new_m, "u": new_u}
+
+
+class RMSProp(Optimizer):
+    """Uncentered RMSProp with momentum (phi rmsprop_kernel):
+    ``ms' = rho ms + (1-rho) g²``; ``mom' = momentum mom + lr g /
+    sqrt(ms' + eps)``; ``p' = p - mom'``."""
+
+    def __init__(self, learning_rate=0.001, rho: float = 0.95, epsilon: float = 1e-6,
+                 momentum: float = 0.0, **kw) -> None:
+        super().__init__(learning_rate, **kw)
+        self.rho, self.epsilon, self.momentum = float(rho), float(epsilon), float(momentum)
+
+    def _init_slots(self, params):
+        return {"mean_sq": _zeros(params), "mom": _zeros(params)}
+
+    def _apply(self, grads, slots, params, lr_t, step):
+        new_p, new_ms, new_mom = {}, {}, {}
+        for k, p in params.items():
+            g = self._decay_grad(grads[k], p)
+            ms = self.rho * slots["mean_sq"][k] + (1 - self.rho) * (g * g)
+            mom = self.momentum * slots["mom"][k] + lr_t * g / torch.sqrt(ms + self.epsilon)
+            new_p[k] = p - mom
+            new_ms[k], new_mom[k] = ms, mom
+        return new_p, {"mean_sq": new_ms, "mom": new_mom}
+
+
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.sum(x * x))
+
+
+def _lr_tensor(lr_t, like: torch.Tensor) -> torch.Tensor:
+    """The rate as a 0-dim f32 tensor: ``lr * coeff * norm`` then rounds
+    each product to f32, as the JAX package's traced scalar does."""
+    return torch.as_tensor(lr_t, dtype=torch.float32, device=like.device)
+
+
+class Lars(Optimizer):
+    """LARS momentum (lars_momentum_op): a tensor's trust ratio
+    ``local_lr = lr · coeff · ||p|| / (||g|| + wd ||p|| + eps)`` (``lr``
+    where either norm is 0), then ``v' = momentum v + local_lr (g + wd p)``,
+    ``p' = p - v'``, all in f32 and cast back to the parameter's dtype."""
+
+    jax_tree_slot = "velocity"
+
+    def __init__(self, learning_rate=0.001, momentum: float = 0.9, lars_coeff: float = 0.001,
+                 lars_weight_decay: float = 0.0005, epsilon: float = 0.0, **kw) -> None:
+        super().__init__(learning_rate, **kw)
+        self.momentum = float(momentum)
+        self.lars_coeff = float(lars_coeff)
+        self.lars_weight_decay = float(lars_weight_decay)
+        self.epsilon = float(epsilon)
+
+    def _init_slots(self, params):
+        return {"velocity": _zeros(params)}
+
+    def _apply(self, grads, slots, params, lr_t, step):
+        new_p, new_v = {}, {}
+        wd = self.lars_weight_decay
+        for k, p in params.items():
+            pf, gf = p.to(torch.float32), grads[k].to(torch.float32)
+            lr = _lr_tensor(lr_t, pf)
+            p_norm, g_norm = _norm(pf), _norm(gf)
+            local_lr = torch.where((p_norm > 0) & (g_norm > 0),
+                                   lr * self.lars_coeff * p_norm
+                                   / (g_norm + wd * p_norm + self.epsilon), lr)
+            v = self.momentum * slots["velocity"][k] + local_lr * (gf + wd * pf)
+            new_p[k] = (pf - v).to(p.dtype)
+            new_v[k] = v
+        return new_p, {"velocity": new_v}
+
+
+class Lamb(Optimizer):
+    """LAMB (lamb_op): Adam's moments, ``r = (m'/bc1) / (sqrt(v'/bc2) +
+    eps) + wd p``, and a tensor's trust ratio ``||p|| / ||r||`` (1 where
+    either norm is 0): ``p' = p - lr · trust · r``, in f32 and cast back
+    to the parameter's dtype."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay: float = 0.01,
+                 beta1: float = 0.9, beta2: float = 0.999, epsilon: float = 1e-6,
+                 **kw) -> None:
+        super().__init__(learning_rate, **kw)
+        self.lamb_weight_decay = float(lamb_weight_decay)
+        self.beta1, self.beta2, self.epsilon = float(beta1), float(beta2), float(epsilon)
+
+    def _init_slots(self, params):
+        return {"m": _zeros(params), "v": _zeros(params)}
+
+    def _apply(self, grads, slots, params, lr_t, step):
+        t = (step + 1).to(torch.float32)
+        bc1 = 1 - torch.pow(self.beta1, t)
+        bc2 = 1 - torch.pow(self.beta2, t)
+        new_p, new_m, new_v = {}, {}, {}
+        for k, p in params.items():
+            pf, gf = p.to(torch.float32), grads[k].to(torch.float32)
+            m = self.beta1 * slots["m"][k] + (1 - self.beta1) * gf
+            v = self.beta2 * slots["v"][k] + (1 - self.beta2) * (gf * gf)
+            r = (m / bc1) / (torch.sqrt(v / bc2) + self.epsilon) + self.lamb_weight_decay * pf
+            p_norm, r_norm = _norm(pf), _norm(r)
+            one = torch.ones((), dtype=torch.float32, device=pf.device)
+            trust = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm, one)
+            new_p[k] = (pf - _lr_tensor(lr_t, pf) * trust * r).to(p.dtype)
+            new_m[k], new_v[k] = m, v
+        return new_p, {"m": new_m, "v": new_v}
 
 
 def _is_float(t: torch.Tensor) -> bool:

@@ -24,9 +24,8 @@ Mapping notes (documented divergences, not guesses):
 
 In the port: a path source imports PyYAML at the call (a dict source
 needs no YAML); ``make_model_config`` returns the port's ``CtrConfig``;
-``make_optimizer`` raises ``UnavailableError`` for a class the JAX
-package has and the port does not yet (ROADMAP Queue A item 5); and the
-SSD engine's scale knobs that the port's table does not bind
+``make_optimizer`` builds any of the JAX package's dense optimizer
+classes; and the SSD engine's scale knobs that the port's table does not bind
 (``ssd_block_compress``, ``ssd_admission_threshold``,
 ``ssd_admission_sketch_kb``, ``ssd_bg_compact``, ``ssd_io_budget_mbps``)
 raise when a config sets them off their defaults.
@@ -46,8 +45,6 @@ from .table import TableConfig
 __all__ = ["PsJobConfig", "load_ps_config"]
 
 _MODES = ("sync", "async", "geo", "heter", "gpubox")
-# optimizer classes of the JAX package that the port does not have yet
-_NOT_PORTED_OPTIMIZERS = ("Adagrad", "Adadelta", "Adamax", "RMSProp", "Lars", "Lamb")
 # SSD engine knobs the port's TableConfig does not carry, with the JAX defaults
 _UNBOUND_SSD_KNOBS = {"ssd_block_compress": False, "ssd_admission_threshold": 0,
                       "ssd_admission_sketch_kb": 64, "ssd_bg_compact": False,
@@ -88,10 +85,6 @@ class PsJobConfig:
         by_name = {n.lower(): getattr(opt_mod, n) for n in opt_mod.__all__
                    if isinstance(getattr(opt_mod, n, None), type)}
         cls = by_name.get(self.optimizer_class.lower())
-        missing = [n for n in _NOT_PORTED_OPTIMIZERS if n.lower() == self.optimizer_class.lower()]
-        if cls is None and missing:
-            raise UnavailableError(f"optimizer class {missing[0]!r} is not ported yet "
-                                   "(ROADMAP Queue A item 5)")
         enforce(cls is not None,
                 f"unknown optimizer class {self.optimizer_class!r}")
         return cls(learning_rate=self.learning_rate)
@@ -175,7 +168,7 @@ def load_ps_config(source: Union[str, Dict[str, Any]]) -> PsJobConfig:
         if type(default)(value) != default:
             raise UnavailableError(
                 f"table_parameters.{knob}={value!r}: the SSD engine's scale knobs are not "
-                "bound in the port yet (ROADMAP Queue A item 2)")
+                "bound in the port yet (ROADMAP Queue A item 5)")
     table = TableConfig(
         shard_num=int(_get(cfg, "runner.thread_num", 16)),
         accessor=accessor_name,

@@ -61,9 +61,11 @@ at every batch boundary and may move the table to a trainer-local table
 reshard's epoch fence; it flushes before a checkpoint cut and drops the
 local residence after a restore.
 
-Not ported yet (ROADMAP Queue A): ``CtrPassTrainer.save_inference_model`` (raises:
-``io/inference.py``) and the pass-end ``check_nan_inf`` guard (a flag
-that defaults to off in the JAX package; the port does not define it).
+``CtrPassTrainer.save_inference_model`` exports the serving artifact
+(``io.inference``: the dense graph, or with ``fused=True`` the whole
+probe → pull → forward → sigmoid program). Not ported yet (ROADMAP
+Queue A item 9): the pass-end ``check_nan_inf`` guard (a flag that
+defaults to off in the JAX package; the port does not define it).
 """
 
 from __future__ import annotations
@@ -83,13 +85,15 @@ from torch.func import functional_call
 from ..amp import step_ctx
 from ..convert import ctr_params_from_jax, ctr_params_to_jax, opt_state_from_jax, opt_state_to_jax
 from ..core.device import resolve_device
-from ..core.enforce import UnavailableError, enforce
+from ..core.enforce import enforce
 from ..core.flags import flag
 from ..data.prefetcher import DevicePrefetcher, host_tensors, to_device
 from ..io.checkpoint import load_checkpoint, save_checkpoint
+from ..io.inference import save_inference_model
 from ..metrics.auc import AUC
 from ..metrics.basic import WuAUC
-from ..models.ctr import make_ctr_train_step_packed, make_ctr_train_step_slab, pack_ctr_batch
+from ..models.ctr import (export_ctr_inference, make_ctr_train_step_packed,
+                          make_ctr_train_step_slab, pack_ctr_batch)
 from ..obs import flightrec as _flightrec
 from ..obs import registry as _obs_registry
 from ..obs import trace as _trace
@@ -161,14 +165,19 @@ class CtrPassTrainer:
     card by default: raises without a GPU unless ``device="cpu"``),
     ``opt_state`` the optimizer's state. ``slab`` > 1 runs that many
     steps per call (``make_ctr_train_step_slab``; the pass's tail runs
-    single steps). The JAX trainer's ``amp`` and ``prefetch_depth``
-    knobs are not taken: the steps run in f32 and the prefetcher holds
-    ``_PREFETCH_DEPTH`` batches."""
+    single steps). ``prefetch_depth`` is how many packed batches the
+    prefetcher holds ahead of the step. ``amp`` runs the train steps
+    under ``amp.step_ctx`` (the tower's products in bf16 with f32
+    accumulation and state; ``evaluate`` stays f32). The amp backward
+    rounds the cotangent to bf16 where JAX's does not (a kept divergence,
+    ROADMAP Queue C): after 3 amp steps params and cache columns sit
+    within 4e-3 of each tensor's largest value of JAX's."""
 
     def __init__(self, model, optimizer, table: MemorySparseTable, cache_config: CacheConfig,
                  sparse_slots: Sequence[str], dense_slots: Sequence[str], label_slot: str,
                  slab: int = 1,
-                 device: Optional[Union[str, torch.device]] = None) -> None:
+                 device: Optional[Union[str, torch.device]] = None,
+                 prefetch_depth: int = _PREFETCH_DEPTH, amp: bool = False) -> None:
         self.device = resolve_device(device)
         self.model = model
         self.optimizer = optimizer
@@ -179,6 +188,9 @@ class CtrPassTrainer:
         self.dense_slots = list(dense_slots)
         self.label_slot = label_slot
         self.slab = int(slab)
+        self.prefetch_depth = int(prefetch_depth)
+        enforce(self.prefetch_depth >= 1, "prefetch_depth >= 1")
+        self.amp = bool(amp)
         self.params = {k: v.detach().to(self.device) for k, v in model.named_parameters()}
         self.opt_state = optimizer.init(self.params)
         # one step per (batch size, slab): the packed wire's offsets fix B
@@ -189,7 +201,7 @@ class CtrPassTrainer:
         if step is None:
             kw = dict(slot_ids=np.arange(len(self.sparse_slots)), batch_size=batch_size,
                       num_dense=len(self.dense_slots), with_weights=True,
-                      device=self.device)
+                      device=self.device, amp=self.amp)
             if slab > 1:
                 step = make_ctr_train_step_slab(self.model, self.optimizer, self.cache.config,
                                                 slab=slab, **kw)
@@ -239,9 +251,41 @@ class CtrPassTrainer:
         self.opt_state = opt_state_from_jax(snap["opt"], self.optimizer, self.device,
                                             ctr_params_from_jax)
 
-    def save_inference_model(self, dirname: str, fused: bool = False, keys=None) -> None:
-        raise UnavailableError("CtrPassTrainer.save_inference_model needs io/inference.py, "
-                               "which is not ported yet (ROADMAP Queue A item 5)")
+    def save_inference_model(self, dirname: str, fused: bool = False,
+                             keys: Optional[np.ndarray] = None) -> None:
+        """Export the serving artifact (``io.inference``), in two shapes:
+
+        - default (``fused=False``): the DENSE graph only — (pulled
+          embeddings [b, S, 1+dim], dense [b, D]) → CTR probabilities,
+          to pair with ``table.pull_sparse`` (or a serving PS client);
+        - ``fused=True``: the whole serving program, key probe → table
+          pull → forward → sigmoid (``models.ctr.export_ctr_inference``)
+          with the trained params and the pruned tables of the ACTIVE
+          pass: pass ``keys`` (the serving key universe; a pass is begun
+          on them from the host table and stays active) or call it before
+          ``end_pass``.
+
+        Either is traced on the trainer's device and serves there."""
+        if fused:
+            if keys is not None:
+                self.cache.begin_pass(np.ascontiguousarray(keys, np.uint64))
+            enforce(self.cache.state is not None,
+                    "no active pass to export: pass `keys` (the serving key universe) or "
+                    "call before end_pass")
+            export_ctr_inference(dirname, self.model, self.cache,
+                                 slot_ids=np.arange(len(self.sparse_slots)),
+                                 num_dense=len(self.dense_slots), params=self.params)
+            return
+        model = self.model
+
+        def serve(params, emb, dense_x):
+            return torch.sigmoid(functional_call(model, params["params"], (emb, dense_x)))
+
+        S, dim = len(self.sparse_slots), self.cache.config.embedx_dim
+        example = (torch.zeros((2, S, 1 + dim), dtype=torch.float32, device=self.device),
+                   torch.zeros((2, len(self.dense_slots)), dtype=torch.float32,
+                               device=self.device))
+        save_inference_model(dirname, serve, {"params": self.params, "buffers": {}}, example)
 
     # -- evaluation -----------------------------------------------------------
 
@@ -380,7 +424,7 @@ class CtrPassTrainer:
         stats = _PassStats()
         losses = []  # device scalars: one host sync at the end of the pass
         t0 = time.perf_counter()
-        pf = DevicePrefetcher(host_items(), depth=_PREFETCH_DEPTH)
+        pf = DevicePrefetcher(host_items(), depth=self.prefetch_depth)
         try:
             # the host tensor stays referenced until its step is enqueued
             for host, n_real, is_slab in pf:

@@ -77,12 +77,17 @@ def test_hapi_rejects_unknown_levels_and_unported_io(tmp_path):
     with pytest.raises(PreconditionNotMetError, match="prepare"):
         m.predict_batch(np.zeros((1, 8), np.float32))
     m.prepare(topt.Adam(1e-2), tF.cross_entropy)
-    with pytest.raises(InvalidArgumentError, match="io/checkpoint.py"):
-        m.save(str(tmp_path / "x"))
-    with pytest.raises(InvalidArgumentError, match="io/inference.py"):
+    # save and load are ported: a round trip keeps the params and the Adam state
+    m.train_batch(np.ones((4, 8), np.float32), np.zeros(4, np.int64))
+    m.save(str(tmp_path / "x"))
+    before = {k: v.clone() for k, v in m.state["params"].items()}
+    m.train_batch(np.ones((4, 8), np.float32), np.ones(4, np.int64))
+    m.load(str(tmp_path / "x"))
+    for k, v in before.items():
+        assert torch.equal(m.state["params"][k], v), k
+    # the serving export needs its example inputs
+    with pytest.raises(PreconditionNotMetError, match="example_inputs"):
         m.save(str(tmp_path / "x"), training=False)
-    with pytest.raises(InvalidArgumentError, match="io/checkpoint.py"):
-        m.load(str(tmp_path / "x"))
 
 
 class _Recorder(hapi.Callback):
@@ -235,3 +240,46 @@ def test_metrics_match_jax():
     t2 = metrics.WuAUC()
     t2.merge(t.state)
     np.testing.assert_allclose(t2.accumulate(), t.accumulate(), rtol=1e-12)
+
+
+def test_hapi_save_load_crosses_the_packages_and_fits_on(tmp_path):
+    """``Model.save``/``load`` in the JAX package's layout: a JAX-saved
+    checkpoint (after 3 Momentum steps) loads into the port, whose next
+    ``fit`` step matches JAX's next step (loss rtol 1e-5, params rtol
+    1e-5 / atol 1e-6); the port's own file loads into JAX with the same
+    bits; ``ModelCheckpoint`` writes one file an epoch."""
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(16, 8)).astype(np.float32)
+    y = rng.integers(0, 2, 16).astype(np.int64)
+    jm, tm = _pair()
+    jmod, tmod = jhapi.Model(jm), hapi.Model(tm, device="cpu")
+    jmod.prepare(jopt.Momentum(0.05, 0.9), jnn.functional.cross_entropy)
+    tmod.prepare(topt.Momentum(0.05, 0.9), tF.cross_entropy)
+    for _ in range(3):
+        jmod.train_batch(x, y)
+    jmod.save(str(tmp_path / "jax"))
+    tmod.load(str(tmp_path / "jax"))
+    assert tmod._trainer.global_step == 0  # the JAX file records step 0
+    jl = jmod.train_batch(x, y)["loss"]
+    hist = tmod.fit([(x, y)], epochs=1, verbose=0)
+    np.testing.assert_allclose(hist["loss"][0], jl, rtol=1e-5)
+    want = vision_params_from_jax(jmod._state)
+    for k, v in tmod.state["params"].items():
+        np.testing.assert_allclose(v.numpy(), want[k].numpy(), rtol=1e-5, atol=1e-6, err_msg=k)
+    # the port's file into JAX: the same bits
+    tmod.save(str(tmp_path / "port"))
+    jback = jhapi.Model(_pair()[0])
+    jback.prepare(jopt.Momentum(0.05, 0.9), jnn.functional.cross_entropy)
+    jback.load(str(tmp_path / "port"))
+    got = vision_params_from_jax(jback._state)
+    for k, v in tmod.state["params"].items():
+        assert torch.equal(got[k], v), k
+    vel = jback._opt_state["slots"]
+    for k, v in tmod._trainer.opt_state["velocity"].items():
+        np.testing.assert_array_equal(np.asarray(vel[k]), v.numpy().T if v.dim() == 2 else
+                                      v.numpy())
+    # ModelCheckpoint: one file an epoch
+    tmod.fit([(x, y)], epochs=2, verbose=0,
+             callbacks=[hapi.ModelCheckpoint(str(tmp_path / "ck"))])
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
+        "epoch_0.meta.json", "epoch_0.npz", "epoch_1.meta.json", "epoch_1.npz"]

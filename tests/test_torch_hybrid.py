@@ -17,10 +17,9 @@ and both step on the same numpy-seeded batches. Tolerances:
   leaves its softmax unchanged): Adam divides its rounding noise by
   sqrt(v) and moves it by up to lr whatever the noise's sign, in both
   packages, so it is compared by its size instead (both below 3 steps of
-  lr). The same holds between two port runs: on the CPU the ranks'
-  threads share the intra-op pool, so a reduction may split differently
-  from run to run. Save, load and resume: the resumed losses rtol 1e-5,
-  the parameters as above.
+  lr). Save, load and resume: the resumed losses rtol 1e-5, the
+  parameters as above. Two port runs of the same steps are bitwise equal
+  (``test_adam_steps_repeat_bitwise_on_the_cpu``).
 - ``attn_impl="flash"`` (the plain versions of B5–B7 on the CPU, bf16
   operands) against JAX's einsum trainer: first loss rtol 2e-4 (seen:
   3.5e-5), the SGD delta within 2e-2 of each tensor's largest (seen:
@@ -206,3 +205,24 @@ def test_dropout_draws_from_the_trainers_generator():
     a, b, c = run(1), run(1), run(2)
     np.testing.assert_allclose(a, b, rtol=1e-6)
     assert a != c
+
+
+def test_adam_steps_repeat_bitwise_on_the_cpu():
+    """Two runs of the same 3 Adam steps on ``{"dp": 2, "pp": 2, "cp": 1,
+    "mp": 2}`` from the same weights give the same bits: a collective runs
+    on its group's first rank, so the autograd nodes it records, and the
+    order in which the one backward sums the ranks' gradients, do not
+    depend on which rank arrived last (``ops.collectives.run_ranks``)."""
+    ids, labels = (torch.from_numpy(a) for a in _data(8))
+
+    def run():
+        tr = HybridParallelTrainer(ErnieConfig(**CFG), make_mesh(MESH_B, device="cpu"),
+                                   Adam(1e-2), seed=3, device="cpu")
+        losses = [tr.train_step(ids, labels) for _ in range(3)]
+        return losses, flatten_tree(tr.params)
+
+    (la, pa), (lb, pb) = run(), run()
+    assert all(torch.equal(a, b) for a, b in zip(la, lb))
+    assert sorted(pa) == sorted(pb)
+    for k in pa:
+        assert torch.equal(pa[k], pb[k]), k

@@ -88,6 +88,23 @@ CASES = {
     "momentum-clipnorm": lambda m: m.Momentum(0.1, grad_clip=m.ClipGradByNorm(0.5)),
     "sgd-clipvalue": lambda m: m.SGD(0.1, grad_clip=m.ClipGradByValue(0.3)),
     "sgd-clipvalue-asym": lambda m: m.SGD(0.1, grad_clip=m.ClipGradByValue(0.3, -0.1)),
+    "adagrad": lambda m: m.Adagrad(0.1),
+    "adagrad-init-decay": lambda m: m.Adagrad(0.05, initial_accumulator_value=0.1,
+                                              weight_decay=1e-2),
+    "adadelta": lambda m: m.Adadelta(1.0),
+    "adadelta-decay": lambda m: m.Adadelta(0.5, rho=0.9, weight_decay=1e-2),
+    "adamax": lambda m: m.Adamax(1e-2),
+    "adamax-decay-globalclip": lambda m: m.Adamax(1e-2, weight_decay=1e-2,
+                                                  grad_clip=m.ClipGradByGlobalNorm(1.0)),
+    "rmsprop": lambda m: m.RMSProp(1e-2),
+    "rmsprop-momentum-decay": lambda m: m.RMSProp(1e-2, rho=0.9, momentum=0.9,
+                                                  weight_decay=1e-3),
+    "lars": lambda m: m.Lars(0.1),
+    "lars-eps-schedule": lambda m: m.Lars(m.lr.cosine_decay(0.1, 4), momentum=0.8,
+                                          lars_coeff=0.01, epsilon=1e-8),
+    "lamb": lambda m: m.Lamb(1e-2),
+    "lamb-decay-schedule": lambda m: m.Lamb(m.lr.exponential_decay(1e-2, 0.8),
+                                            lamb_weight_decay=0.1),
 }
 
 
@@ -119,10 +136,11 @@ def test_lr_schedule_values_and_steps_match_jax(name):
     _check(*_run(lambda m: m.Momentum(SCHEDULES[name](m.lr), 0.9)))
 
 
-@pytest.mark.parametrize("inner", ["adam", "momentum", "sgd", "adamw"])
+@pytest.mark.parametrize("inner", ["adam", "momentum", "sgd", "adamw", "lars", "lamb"])
 def test_master_weights_o2_match_jax(inner):
     make = {"adam": lambda m: m.Adam(1e-2), "momentum": lambda m: m.Momentum(0.1, 0.9),
-            "sgd": lambda m: m.SGD(0.1), "adamw": lambda m: m.AdamW(1e-2, weight_decay=0.1)}[inner]
+            "sgd": lambda m: m.SGD(0.1), "adamw": lambda m: m.AdamW(1e-2, weight_decay=0.1),
+            "lars": lambda m: m.Lars(0.1), "lamb": lambda m: m.Lamb(1e-2)}[inner]
     jo, jp, js, to, tp, ts = _run(make, bf16=True)
     assert isinstance(to, topt.MasterWeights) and sorted(ts) == ["inner", "master", "step"]
     _check(jo, jp, js, to, tp, ts)

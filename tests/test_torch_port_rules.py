@@ -475,3 +475,48 @@ def test_cached_lookup_tier_without_device_raises_without_gpu():
     tier = HotEmbeddingTier(table, HotTierConfig(capacity=64, create_on_miss=False),
                             device="cpu")
     assert CachedLookup(tier).lookup(np.arange(1, 5, dtype=np.uint64)).shape == (4, 9)
+
+
+def test_item5_entry_points_without_device_raise_without_gpu(tmp_path):
+    """The pooled and from-keys steps and the serving predictor run on the
+    card unless the caller asks for the CPU; the new modules are covered
+    by the import rule above (every file of the package)."""
+    _no_gpu()
+    from paddle_tpu_torch.core.enforce import UnavailableError
+    from paddle_tpu_torch.io.inference import InferencePredictor, save_inference_model
+    from paddle_tpu_torch.models.ctr import (DCN, CtrConfig, XDeepFM,
+                                             make_ctr_pooled_train_step,
+                                             make_ctr_train_step_from_keys)
+    from paddle_tpu_torch.optimizer import Lamb
+    from paddle_tpu_torch.ps.embedding_cache import CacheConfig
+
+    cfg = CacheConfig(capacity=64, embedx_dim=4)
+    for model in (DCN(CtrConfig(2, 3, 4, (8,))), XDeepFM(CtrConfig(2, 3, 4, (8,)))):
+        with pytest.raises(UnavailableError, match="device='cpu'"):
+            make_ctr_pooled_train_step(model, Lamb(), cfg, [0, 0, 1])
+        with pytest.raises(UnavailableError, match="device='cpu'"):
+            make_ctr_train_step_from_keys(model, Lamb(), cfg, np.arange(2))
+        make_ctr_pooled_train_step(model, Lamb(), cfg, [0, 0, 1], device="cpu")
+        make_ctr_train_step_from_keys(model, Lamb(), cfg, np.arange(2), device="cpu")
+    save_inference_model(str(tmp_path / "m"), lambda p, x: x * p["s"], {"s": torch.ones(())},
+                         (torch.ones(2, 3),))
+    with pytest.raises(UnavailableError, match="device='cpu'"):
+        InferencePredictor(str(tmp_path / "m"))
+    InferencePredictor(str(tmp_path / "m"), device="cpu")
+
+
+def test_chip_smoke_binds_each_top_level_name_once():
+    """A phase's constant or helper must not rebind another phase's name
+    (the script is one module: a later binding silently changes an earlier
+    phase's check)."""
+    import collections
+
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = collections.Counter()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names[node.name] += 1
+        elif isinstance(node, ast.Assign):
+            names.update(n.id for t in node.targets for n in ast.walk(t)
+                         if isinstance(n, ast.Name))
+    assert [n for n, c in names.items() if c > 1] == []

@@ -19,7 +19,7 @@ embeddings and batches. Tolerances:
 - beam-search items, sampler outputs and ``ServingBeamSource``'s rows and
   flushes: exact.
 
-Not here: the tower exports (``io/inference.py``, ROADMAP Queue A item 5).
+The tower exports are held against JAX's in ``tests/test_torch_inference.py``.
 """
 
 import jax
@@ -572,10 +572,16 @@ def test_dssm_ranker_matches_jax_and_checks_its_contract():
 # -- surface ---------------------------------------------------------------------------
 
 def test_exports_and_with_real_wait_for_their_items():
-    with pytest.raises(UnavailableError, match="item 5"):
-        tgru.export_gru4rec_towers("d", None, None, max_len=4)
-    with pytest.raises(UnavailableError, match="item 5"):
-        tdssm.export_dssm_towers("d", None, None, [0], [1])
+    """The tower exports are ported (``tests/test_torch_inference.py``
+    holds them against JAX's): without a pass they refuse as JAX's do.
+    DIN's ``with_real`` still waits for item 9."""
+    cache = tec.HbmEmbeddingCache(MemorySparseTable(TableConfig(
+        shard_num=1, accessor_config=AccessorConfig(embedx_dim=DIM))),
+        tec.CacheConfig(capacity=16, embedx_dim=DIM), device=CPU, device_map=True)
+    with pytest.raises(EnforceNotMet, match="begin_pass"):
+        tgru.export_gru4rec_towers("d", tgru.GRU4Rec(DIM), cache, max_len=4)
+    with pytest.raises(EnforceNotMet, match="begin_pass"):
+        tdssm.export_dssm_towers("d", tdssm.DSSM(1, 1, DIM), cache, [0], [1])
     with pytest.raises(UnavailableError, match="item 9"):
         tctr._ctr_step_body(None, None, None, {}, {}, {}, torch.zeros(1), 1, 1, None, None,
                             with_real=True)
