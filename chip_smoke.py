@@ -314,11 +314,33 @@ or when any phase fails. Phases:
    weights (64², batch 4; AlexNet and VGG 224², batch 2): the eval forward
    and one step's update within ``ZOO_FWD_TOL``/``ZOO_UPDATE_TOL``;
    ``hapi.Model.save``/``load`` on the card, the next step bitwise;
-23. the ``kernels`` JSON line (B1 six times: ``ctr_sparse_rows`` on the
+23. ROADMAP items 9 and 4's rest (``models.din``, ``models.multitask``,
+   the core runtime, the axis collectives). Leg A: DIN at PaddleRec's
+   ``models/rank/din/config.yaml`` widths (embedx dim 64, 63,001 items and
+   801 categories, attention 80, DNN 80 -> 40; 2 target columns and 50
+   behaviour columns, lengths 1-50, the rest padding) and ESMM and MMoE at
+   the pass path's width (26 slots, 13 dense, dim 8, DNN 400³), each on an
+   ``HbmEmbeddingCache`` pass over a 16-shard host table: ``begin_pass``,
+   8 steps at batch 4096 (``make_ctr_attention_train_step``,
+   ``make_multitask_train_step``, Adam), ``end_pass``: losses finite
+   and falling, one B1 and one merge a step, B1 bitwise on each family's
+   first push and timed there (DIN's at dim 64: the run-time-width
+   instantiation), ms a step. Leg B: DIN exported ``with_real`` (its last
+   two behaviour keys of every row outside the pass) and ESMM through its
+   ``predict``, loaded in this process and served at batch 1 and 4096
+   within ``EXPORT_TOL`` of the model's own forward, launching no kernel.
+   Leg C: a DeepFM ``CtrPassTrainer`` pass on 2 batches with ``Adam(nan)``
+   under ``check_nan_inf``: it raises, the pass is discarded, the host
+   table's digest is the one from before, ``ctr_train_step`` counted 2;
+   a ``Trainer`` dump of 3 steps × 3 fields on the card; ``CUDAPlace(0)``;
+   ``reduce``/``split_axis``/``barrier`` over ``run_ranks`` on ``{"dp": 2,
+   "mp": 2}``, card bitwise equal to the CPU;
+24. the ``kernels`` JSON line (B1 nine times: ``ctr_sparse_rows`` on the
    pass path, ``ctr_sparse_rows@widedeep`` on phase 12's,
    ``ctr_sparse_rows@gpubox_rpc`` on phase 14's leg B,
    ``ctr_sparse_rows@recsys`` on phase 20's leg A,
-   ``ctr_sparse_rows@dcn`` and ``@xdeepfm`` on phase 22's leg A; B2 and B4 five
+   ``ctr_sparse_rows@dcn`` and ``@xdeepfm`` on phase 22's leg A,
+   ``ctr_sparse_rows@din``, ``@esmm`` and ``@mmoe`` on phase 23's leg A; B2 and B4 five
    times: ``hot_probe_gather``/``hot_scatter_apply`` on the hot path,
    ``...@rpc`` on phase 13's, ``...@ha`` on phase 16's tier arm,
    ``...@reshard`` on phase 17's leg B, ``...@tenancy`` on phase 18's leg
@@ -558,11 +580,12 @@ def pass_push(rng, dev):
 
 
 def at_bytes(n, u, dim, es, xs, uniq_bytes):
-    """Bytes the in-place form must move: the n entries' row id and deltas
-    read once, the u touched rows' seven columns read once and written
-    once."""
+    """Bytes the in-place form must move: the n entries' row ids read once,
+    the deltas (show, click, 1 + dim grads) of the u entries that hold a
+    row read once (a sentinel's are never needed), the u touched rows'
+    seven columns read once and written once."""
     row = 1 + 1 + 1 + es + dim + xs + 1
-    return n * (uniq_bytes + 4 * (3 + dim)) + u * row * 4 * 2
+    return n * uniq_bytes + u * 4 * (3 + dim) + u * row * 4 * 2
 
 
 def at_sectors(n, u, dim, es, xs, uniq_bytes):
@@ -570,7 +593,7 @@ def at_sectors(n, u, dim, es, xs, uniq_bytes):
     each touched row's columns as the 32-byte sectors they occupy (a
     column array each), read and written."""
     sectors = sum(-(-w * 4 // 32) for w in (1, 1, 1, es, dim, xs, 1) if w)
-    return n * (uniq_bytes + 4 * (3 + dim)) + u * sectors * 32 * 2
+    return n * uniq_bytes + u * 4 * (3 + dim) + u * sectors * 32 * 2
 
 
 def bitwise_cols(got, want):
@@ -7005,6 +7028,343 @@ def phase_item5(dev, card):
     return {"families": fam, "zoo": zoo}
 
 
+# -- phase 23: ROADMAP items 9 and 4's rest ---------------------------------------------
+# DIN at PaddleRec's models/rank/din/config.yaml widths: item_emb_size 64 (embedx dim 64),
+# item_count 63,001 and cat_count 801, an attention unit 80 wide and a DNN 80 -> 40;
+# 2 target columns (item, category) and the history cut at DIN_HIST items (lengths
+# uniform in 1..DIN_HIST, the rest padding: the capacity sentinel). One dense feature,
+# the history's length over DIN_HIST (the JAX model takes dense features; PaddleRec's DIN
+# has none). Each item has one category, drawn once from the seed; a label is likelier
+# when the target's item or category is ≡ 0 mod 5. The data is synthetic: the Amazon
+# data is not in the repository.
+DIN_ITEMS, DIN_CATS, DIN_DIM, DIN_HIST = 63_001, 801, 64, 50
+DIN_ATT, DIN_DNN, DIN_CAP = 80, (80, 40), 1 << 17
+# ESMM and MMoE at the pass path's width (26 slots, 13 dense, dim 8, DNN 400^3, batch
+# 4096), MT_IDS ids a slot, MMoE with the JAX defaults (4 experts of 32, 2 tasks); the
+# labels are tests/test_multitask_models.py's recipe (a click from "clicky" ids ≡ 0 mod 5
+# and the first dense feature; a conversion only where the click is 1, from ids ≡ 0 mod
+# 7), its thresholds moved up by the mean count of such ids over 26 slots
+MT_IDS, MT_CAP = 4_000, 1 << 18
+I9_STEPS = 8                         # steps a family's pass takes at batch BATCH
+# each family's Adam rate: the 400^3 towers swing at 1e-2 (ESMM's loss 1.08 -> 2.00 at
+# step 2 on the CPU at full width), fall smoothly at 1e-3
+I9_LR = {"din": 1e-2, "esmm": 1e-3, "mmoe": 1e-3}
+I9_SERVE_CALLS = 10
+I9_MESH = {"dp": 2, "mp": 2}
+
+
+def din_batches(rng, steps, batch):
+    """``steps`` DIN batches: (keys [B, 2 + DIN_HIST] u64 — items hi 0,
+    categories hi 1 —, padding mask [B, T], dense [B, 1], labels [B])."""
+    cat_of = rng.integers(0, DIN_CATS, DIN_ITEMS)
+    out = []
+    for _ in range(steps):
+        target = rng.integers(0, DIN_ITEMS, batch)
+        hist = rng.integers(0, DIN_ITEMS, (batch, DIN_HIST))
+        lengths = rng.integers(1, DIN_HIST + 1, batch)
+        cat = cat_of[target]
+        keys = np.concatenate([target[:, None], (1 << 32) | cat[:, None], hist],
+                              axis=1).astype(np.uint64)
+        pad = np.zeros(keys.shape, bool)
+        pad[:, 2:] = np.arange(DIN_HIST)[None, :] >= lengths[:, None]
+        dense = (lengths / DIN_HIST).astype(np.float32)[:, None]
+        score = 2.0 * (cat % 5 == 0) + 2.0 * (target % 5 == 0) + rng.normal(size=batch)
+        out.append((keys, pad, dense, (score > 1.5).astype(np.int32)))
+    return out
+
+
+def mt_batches(rng, steps, batch):
+    """``steps`` multitask batches: (slot-tagged keys [B, 26], no padding,
+    dense [B, 13], labels [B, 2] = (click, conversion))."""
+    out = []
+    for _ in range(steps):
+        ids = rng.integers(0, MT_IDS, (batch, SLOTS))
+        keys = (ids.astype(np.uint64) | (np.arange(SLOTS, dtype=np.uint64) << np.uint64(32)))
+        dense = rng.normal(size=(batch, DENSE)).astype(np.float32)
+        clicky, convy = (ids % 5 == 0).sum(1), (ids % 7 == 0).sum(1)
+        click = clicky + dense[:, 0] + rng.normal(scale=0.5, size=batch) > 1.0 + SLOTS / 5
+        conv = (convy + rng.normal(scale=0.5, size=batch) > 1.0 + SLOTS / 7) & click
+        out.append((keys, np.zeros(keys.shape, bool), dense,
+                    np.stack([click, conv], axis=1).astype(np.int32)))
+    return out
+
+
+def i9_family(family):
+    """(model, the step's maker, embedx dim, capacity, batches' maker)."""
+    from paddle_tpu_torch.models import ctr
+    from paddle_tpu_torch.models.din import DIN, make_ctr_attention_train_step
+    from paddle_tpu_torch.models.multitask import ESMM, MMoE, make_multitask_train_step
+
+    g = torch.Generator().manual_seed(9)
+    if family == "din":
+        return (DIN(2, DIN_HIST, 1, DIN_DIM, dnn_hidden=DIN_DNN, att_hidden=DIN_ATT,
+                    generator=g), make_ctr_attention_train_step, DIN_DIM, DIN_CAP, din_batches)
+    cfg = ctr.CtrConfig(SLOTS, DENSE, DIM, (400, 400, 400))
+    model = ESMM(cfg, generator=g) if family == "esmm" else MMoE(cfg, generator=g)
+    return model, make_multitask_train_step, DIM, MT_CAP, mt_batches
+
+
+def i9_pass(dev, card, family, base):
+    """Leg A for one family: ``begin_pass``, I9_STEPS steps at batch BATCH,
+    the exports of leg B (DIN, ESMM) while the pass is active, ``end_pass``.
+    Returns the family's record."""
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.ps.accessor import AccessorConfig
+    from paddle_tpu_torch.ps.embedding_cache import CacheConfig, HbmEmbeddingCache
+    from paddle_tpu_torch.ps.table import MemorySparseTable, TableConfig
+
+    model, make_step, dim, cap, make_batches = i9_family(family)
+    rng = np.random.default_rng({"din": 90, "esmm": 91, "mmoe": 92}[family])
+    batches = make_batches(rng, I9_STEPS, BATCH)
+    table = MemorySparseTable(TableConfig(shard_num=16,
+                                          accessor_config=AccessorConfig(embedx_dim=dim)))
+    cfg = CacheConfig(capacity=cap, embedx_dim=dim, embedx_threshold=0.0)
+    cache = HbmEmbeddingCache(table, cfg, device=dev, device_map=True)
+    try:
+        t0 = time.perf_counter()
+        cache.begin_pass(np.unique(np.concatenate([k[~p] for k, p, _, _ in batches])))
+        build_s = time.perf_counter() - t0
+        model = model.to(dev)
+        params = {k: v.detach() for k, v in model.named_parameters()}
+        opt = Adam(I9_LR[family])
+        opt_state = opt.init(params)
+        step = make_step(model, opt, cfg, device=dev)
+        feeds = []
+        for keys, pad, dense, labels in batches:
+            rows = np.full(keys.shape, cap, np.int64)   # padding: the sentinel
+            rows[~pad] = cache.lookup(keys[~pad])
+            feeds.append(tuple(torch.from_numpy(a).to(dev) for a in (rows, dense, labels)))
+        push = restore = None
+        if dev.type == "cuda":
+            push, restore = capture_first_push()
+        _sync(dev)
+        reset_launches()
+        losses, marks = [], []
+        try:
+            for rows, dense, labels in feeds:
+                marks.append(time.perf_counter())
+                params, opt_state, cache.state, loss = step(params, opt_state, cache.state,
+                                                            rows, dense, labels)
+                losses.append(loss)
+                if len(marks) == 1:
+                    _sync(dev)   # the first step (the process's first of these shapes) apart
+            _sync(dev)
+        finally:
+            if restore is not None:
+                restore()
+        first_ms = 1e3 * (marks[1] - marks[0])
+        ms = 1e3 * (time.perf_counter() - marks[1]) / (len(feeds) - 1)
+        counts = read_launches()
+        losses = torch.stack(losses).cpu().numpy()
+        real = sum(int((~p).sum()) for _, p, _, _ in batches)
+        log(f"items 9 {family}: pass of {len(cache._pass_keys)} keys built in {build_s:.2f} s, "
+            f"{len(feeds)} steps at batch {BATCH} ({real} real positions of "
+            f"{sum(p.size for _, p, _, _ in batches)}), the first step {first_ms:.3f} ms, "
+            f"the other {len(feeds) - 1} {ms:.3f} ms a step (host clock, each span ends in a "
+            f"sync), losses {losses.tolist()}, launches {counts} on {card}")
+        assert np.isfinite(losses).all(), f"phase 23: {family} non-finite loss {losses}"
+        assert losses[-2:].mean() < losses[:2].mean(), f"phase 23: {family} loss did not fall"
+        rec = {"steps": len(feeds), "ms_per_step": ms, "first_ms": first_ms,
+               "losses": losses.tolist(),
+               "launches": counts["ctr_sparse_rows"], "b1": {}}
+        if dev.type == "cuda":
+            assert counts["ctr_sparse_rows"] == counts["merge_sparse_grads"] == len(feeds), \
+                f"phase 23: {family} B1/merge launches {counts} != steps {len(feeds)}"
+            rec["b1"] = wd_b1_check(push, dim=dim, what=f"{family} push")
+        if family in ("din", "esmm"):
+            rec["serve"] = i9_serve(dev, card, family, model, params, cache, batches[0], base)
+        cache.end_pass()
+        return rec
+    finally:
+        table.close()
+
+
+def i9_serve(dev, card, family, model, params, cache, batch, base):
+    """Leg B for one family: export the pass (DIN ``with_real``, its last
+    two behaviour keys of every row outside the pass; ESMM through its
+    ``predict``), load it in this process and serve batch 1 and BATCH
+    within EXPORT_TOL of the model's own forward on the same pull,
+    launching no kernel."""
+    from torch.func import functional_call
+
+    from paddle_tpu_torch.io.inference import load_inference_model
+    from paddle_tpu_torch.models.ctr import export_ctr_inference, serving_pull
+
+    keys, pad, dense, _ = batch
+    with_real = family == "din"
+    slot_ids = (np.array([0, 1] + [0] * DIN_HIST) if with_real else np.arange(SLOTS))
+    lo32 = (keys & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    if with_real:
+        lo32[pad] = 0xFFFFFFFF                   # padding: a key in no pass
+        lo32[:, -2:] = DIN_ITEMS + np.arange(2)  # item ids past the vocabulary
+    d = os.path.join(base, family)
+    t0 = time.perf_counter()
+    export_ctr_inference(d, model, cache, slot_ids=slot_ids, num_dense=dense.shape[1],
+                         with_real=with_real, params=params)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = load_inference_model(d, device=dev)
+    load_s = time.perf_counter() - t0
+    reset_launches()
+    got = {n: pred(lo32[:n], dense[:n]) for n in (1, len(lo32))}
+    launched = sum(read_launches().values())
+    times = []
+    for _ in range(I9_SERVE_CALLS):
+        _sync(dev)
+        t0 = time.perf_counter()
+        pred(lo32, dense)
+        _sync(dev)
+        times.append(1e3 * (time.perf_counter() - t0))
+    slot_hi = torch.as_tensor(slot_ids, device=dev)
+    err = 0.0
+    for n, out in got.items():
+        lo, dn = torch.from_numpy(lo32[:n]).to(dev), torch.from_numpy(dense[:n]).to(dev)
+        with torch.no_grad():
+            if with_real:
+                emb, real = serving_pull(cache.state, cache.device_map.state, slot_hi, lo,
+                                         with_real=True)
+                assert not real[:, -2:].any() and not emb[:, -2:].any(), \
+                    "phase 23: an out-of-pass key pulled a row"
+                want = (torch.sigmoid(functional_call(model, params, (emb, real, dn))),)
+            else:
+                emb = serving_pull(cache.state, cache.device_map.state, slot_hi, lo)
+                want = type(model).predict(functional_call(model, params, (emb, dn)))
+        out = out if isinstance(out, tuple) else (out,)
+        assert len(out) == len(want) and all(tuple(o.shape) == (n,) for o in out), \
+            f"phase 23: {family} served shapes {[tuple(o.shape) for o in out]}"
+        err = max(err, max(float((o - w).abs().max()) for o, w in zip(out, want)))
+    rec = {"export_s": export_s, "load_s": load_s, "max_abs_err": err, "launches": launched,
+           "p50_ms": float(np.median(times))}
+    log(f"items 9 {family} export ({'with_real' if with_real else 'predict'}): export "
+        f"{export_s:.2f} s, load {load_s:.3f} s, batch 1 and {len(lo32)} within {err} of the "
+        f"model's own forward (bound {EXPORT_TOL}), p50 {rec['p50_ms']:.3f} ms at batch "
+        f"{len(lo32)} over {I9_SERVE_CALLS} calls, kernel launches while serving {launched} "
+        f"on {card}")
+    assert err <= EXPORT_TOL, f"phase 23: {family} served {err} off"
+    assert launched == 0, f"phase 23: {family} serving launched {launched} kernels"
+    return rec
+
+
+def i9_guard(dev, card):
+    """Leg C's guard and scopes: a DeepFM ``CtrPassTrainer`` pass at the pass
+    path's width on 2 batches with ``Adam(nan)`` under ``check_nan_inf``:
+    it raises, the pass is discarded, the host table's digest is the one
+    from before the pass, and ``ctr_train_step`` counted the steps run."""
+    from paddle_tpu_torch.core import profiler
+    from paddle_tpu_torch.core.enforce import PreconditionNotMetError
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.models import ctr
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.ps.accessor import AccessorConfig
+    from paddle_tpu_torch.ps.embedding_cache import CacheConfig
+    from paddle_tpu_torch.ps.ps_trainer import CtrPassTrainer
+    from paddle_tpu_torch.ps.table import MemorySparseTable, TableConfig
+
+    ds = ctr_dataset(ctr_lines(np.random.default_rng(60), 2 * BATCH, ZOO_IDS, SLOTS, DENSE),
+                     SLOTS, DENSE)
+    table = MemorySparseTable(TableConfig(shard_num=16,
+                                          accessor_config=AccessorConfig(embedx_dim=DIM)))
+    tr = CtrPassTrainer(ctr.DeepFM(ctr.CtrConfig(SLOTS, DENSE, DIM, (400, 400, 400)),
+                                   generator=torch.Generator().manual_seed(0)),
+                        Adam(float("nan")), table,
+                        CacheConfig(capacity=MT_CAP, embedx_dim=DIM, embedx_threshold=0.0),
+                        device=dev, **slot_names(SLOTS, DENSE))
+    try:
+        table.pull_sparse(np.unique(tr._tagged_pass_keys(ds)), create=True)
+        before = table.digest()
+        profiler.reset_host_events()
+        set_flags({"check_nan_inf": True})
+        try:
+            tr.train_from_dataset(ds, batch_size=BATCH, drop_last=False)
+            raise AssertionError("phase 23: a NaN pass trained through check_nan_inf")
+        except PreconditionNotMetError as e:
+            msg = str(e)
+        finally:
+            set_flags({"check_nan_inf": False})
+        steps = profiler.host_event_stats().get("ctr_train_step", {}).get("count", 0)
+        same = table.digest() == before
+        log(f"items 9 guard: Adam(nan) pass raised {msg!r}; cache.state None "
+            f"{tr.cache.state is None}; host table digest unchanged {same}; ctr_train_step "
+            f"scopes {steps} for 2 steps on {card}")
+        assert tr.cache.state is None and same, "phase 23: the diverged pass was not discarded"
+        assert steps == 2, f"phase 23: ctr_train_step counted {steps} for 2 steps"
+    finally:
+        table.close()
+
+
+def i9_runtime(dev, card, base):
+    """Leg C's rest: a ``Trainer`` dump on the card, ``CUDAPlace``, and the
+    axis-form ``reduce``/``split_axis``/``barrier`` over ``run_ranks`` on
+    I9_MESH, card bitwise equal to the CPU."""
+    from paddle_tpu_torch.core import places
+    from paddle_tpu_torch.core.mesh import make_mesh
+    from paddle_tpu_torch.executor import Trainer
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.layers import Linear
+    from paddle_tpu_torch.ops import collectives as coll
+    from paddle_tpu_torch.optimizer import SGD
+
+    g = torch.Generator().manual_seed(3)
+    model = torch.nn.Sequential(Linear(4, 8, generator=g), torch.nn.ReLU(),
+                                Linear(8, 2, generator=g))
+    tr = Trainer(model, SGD(0.1), F.cross_entropy, device=dev)
+    d = os.path.join(base, "dump")
+    tr.set_dump_config(d, fields=("loss", "input:0", "label:0"), trainer_id=0)
+    rng = np.random.default_rng(4)
+    for _ in range(3):
+        tr.train_step(rng.normal(size=(8, 4)).astype(np.float32), rng.integers(0, 2, 8))
+    tr.set_dump_config(None)
+    lines = open(os.path.join(d, "trainer-000.dump")).read().strip().splitlines()
+    fields = [l.split("\t")[1] for l in lines]
+    assert len(lines) == 9 and fields == ["loss", "input:0", "label:0"] * 3, \
+        f"phase 23: dump lines {lines}"
+    if dev.type == "cuda":
+        assert places.CUDAPlace(0).torch_device() == torch.device("cuda", 0)
+
+    x = np.random.default_rng(5).integers(-8, 8, size=(4, 4, 6)).astype(np.float32)
+
+    def run(device):
+        m = make_mesh(I9_MESH, device=device)
+        xs = torch.from_numpy(x).to(device)
+
+        def f(r):
+            return (coll.reduce(xs[r], "mp", root=1),
+                    coll.reduce(xs[r], ("dp", "mp"), op=coll.ReduceOp.MAX),
+                    coll.split_axis(xs[r], "dp", dim=0), coll.barrier("mp"))
+
+        return coll.run_ranks(m, f)
+
+    on_dev, on_cpu = run(dev), run(torch.device("cpu"))
+    same = all(torch.equal(a.cpu(), b) for ra, rb in zip(on_dev, on_cpu)
+               for a, b in zip(ra[:3], rb[:3])) and all(r[3] is None for r in on_dev)
+    log(f"items 9 runtime: Trainer dump 3 steps x 3 fields; CUDAPlace(0) -> cuda:0; reduce / "
+        f"split_axis / barrier over {I9_MESH} card == CPU bitwise {same} on {card}")
+    assert same, "phase 23: the axis collectives differ between the card and the CPU"
+
+
+def phase_item9(dev, card):
+    """Phase 23: leg A (DIN, ESMM and MMoE on a pass each), leg B (DIN's
+    and ESMM's exports served in this process), leg C (the NaN guard, the
+    scopes, the dump, places, the axis collectives)."""
+    import shutil as _shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="item9_")
+    try:
+        fam = {f: i9_pass(dev, card, f, base) for f in ("din", "esmm", "mmoe")}
+        t_c = time.perf_counter()
+        i9_guard(dev, card)
+        i9_runtime(dev, card, base)
+    finally:
+        _shutil.rmtree(base, ignore_errors=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"items 9 (phase 23): {time.perf_counter() - t_phase:.1f} s (legs A and B "
+        f"{t_c - t_phase:.1f} s, leg C {time.perf_counter() - t_c:.1f} s) on {card}")
+    return {"families": fam}
+
+
 HYB_RANGES = ("hybrid_forward", "hybrid_backward", "hybrid_update")
 # B5-B7's kernels in ops/csrc/flash_attention.cu (tensor-core and f32 forms)
 HYB_FLASH_KERNELS = ("fwd_mma_kernel", "bwd_dq_mma_kernel", "bwd_dkv_mma_kernel",
@@ -7128,6 +7488,7 @@ def main(argv):
     rs_launches, rs_b1 = phase_recsys(dev, card)
     hyb = phase_hybrid(dev, card, ernie_stats)
     item5 = phase_item5(dev, card)
+    item9 = phase_item9(dev, card)
     phase_kernel_counts(dev)
     wd_kernel_counts(dev)
     hybrid_step_profile(hyb)
@@ -7217,7 +7578,12 @@ def main(argv):
         entry("ctr_sparse_rows@dcn", b1_src, b1_ref, item5["families"]["DCN"]["launches"],
               item5["families"]["DCN"]["b1"]),
         entry("ctr_sparse_rows@xdeepfm", b1_src, b1_ref,
-              item5["families"]["XDeepFM"]["launches"], item5["families"]["XDeepFM"]["b1"])]
+              item5["families"]["XDeepFM"]["launches"], item5["families"]["XDeepFM"]["b1"]),
+        # B1 again as phase 23's DIN (embedx dim 64: the run-time-width
+        # instantiation), ESMM and MMoE passes launch it: each pass's launches,
+        # its numbers on that family's first push
+        *(entry(f"ctr_sparse_rows@{f}", b1_src, b1_ref, item9["families"][f]["launches"],
+                item9["families"][f]["b1"]) for f in ("din", "esmm", "mmoe"))]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -9,7 +9,7 @@ port trainer writes into a checkpoint the JAX package loads.
 
 Layouts: the JAX ``Linear`` weight is ``[in, out]`` (paddle convention),
 the port's ``[out, in]`` (torch's), so the CTR models' (DeepFM,
-WideDeep), the recsys models' (GRU4Rec, DSSM, TDM) and the vision models'
+WideDeep, DCN, xDeepFM, DIN, ESMM, MMoE), the recsys models' (GRU4Rec, DSSM, TDM) and the vision models'
 2-D ``Linear`` weights are transposed, and conv weights (OIHW in both) and
 the recurrent layers' ``w_ih_*``/``w_hh_*`` (``[in, gates*H]`` in both)
 are not; ERNIE keeps the JAX layout (``x @ w``), so its parameters and
@@ -43,10 +43,12 @@ Device = Union[str, torch.device]
 def ctr_params_from_jax(named_params: Mapping,
                            device: Device = "cpu") -> Dict[str, torch.Tensor]:
     """JAX ``named_parameters()`` of a CTR model (``DeepFM``, ``WideDeep``,
-    ``DCN``: ``cross.i``/``combine``, ``XDeepFM``: ``cin.i``/``cin_out``)
-    — or a trainer's ``{"params": ..., "buffers": {}}`` tree → the port's
-    params dict (the model's ``state_dict``): same names, 2-D weights
-    transposed to [out, in]."""
+    ``DCN``: ``cross.i``/``combine``, ``XDeepFM``: ``cin.i``/``cin_out``,
+    ``DIN``: ``att1``/``att2``/``dnn``/``dense_lin``, ``ESMM``:
+    ``ctr_tower``/``cvr_tower``, ``MMoE``: ``experts.i``/``gates.i``/
+    ``towers.i``) — or a trainer's ``{"params": ..., "buffers": {}}`` tree
+    → the port's params dict (the model's ``state_dict``): same names, 2-D
+    weights transposed to [out, in]."""
     out = {}
     for k, v in named_params.get("params", named_params).items():
         a = np.asarray(v, np.float32)

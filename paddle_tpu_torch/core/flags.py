@@ -8,9 +8,12 @@ default when the flag is defined; :func:`set_flags` and
 port's own modules exist (the PS transport's in ``ps.rpc``, the
 communicator's in ``ps.communicator``, the metrics registry's in
 ``obs.registry``, the job checkpoint's in ``io.job_checkpoint``), under
-the JAX package's names and defaults. ``ps_faultpoints`` is defined
-here, as in the JAX package, since more than one layer's fault sites
-read it.
+the JAX package's names and defaults. The core flags are defined here,
+as in the JAX package: ``check_nan_inf`` (the numeric guard of
+``core.nan_inf``, read by ``executor.Trainer`` and ``CtrPassTrainer``),
+``benchmark``, ``tpu_allocator_strategy`` and ``eager_delete_tensor_gb``
+(kept for API parity: PyTorch's caching allocator owns device memory),
+and ``ps_faultpoints``, since more than one layer's fault sites read it.
 """
 
 from __future__ import annotations
@@ -77,9 +80,22 @@ def set_flags(kv: Dict[str, Any]) -> None:
             _values[name] = _coerce(value, _types[name], name)
 
 
-# Cross-cutting chaos switch: read by the job checkpoint's fault sites now
-# and by the transport's when HA is ported, so it lives here rather than
-# at either point of use. Format and actions: ps/faultpoints.py.
+# Core flags (a subsystem's own flags are defined by its module).
+define_flag("check_nan_inf", False, "Scan each step's loss for NaN/Inf (core.nan_inf).")
+# The next three have no reader in the port: they are defined under the
+# reference's names and defaults so that set_flags/get_flags calls carry over.
+define_flag("benchmark", False,
+            "No effect in this package (kept for API parity): no step syncs on it; time "
+            "with core.profiler.timed or CUDA events.")
+define_flag("tpu_allocator_strategy", "auto_growth",
+            "No effect in this package (kept for API parity): PyTorch's caching allocator "
+            "owns device memory.")
+define_flag("eager_delete_tensor_gb", 0.0,
+            "No effect in this package (kept for API parity): PyTorch frees tensors by "
+            "reference count.")
+# Cross-cutting chaos switch: read by the job checkpoint's and the
+# transport's fault sites, so it lives here rather than at either point of
+# use. Format and actions: ps/faultpoints.py.
 define_flag("ps_faultpoints", "",
             "arm PS fault-injection sites: 'site=action[:k=v]*[;...]' — "
             "actions delay-ms/drop-frame/close-socket/kill-shard/"

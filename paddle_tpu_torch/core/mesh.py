@@ -1,6 +1,6 @@
 """The mesh of logical ranks.
 
-Port of ``paddle_tpu.core.mesh.make_mesh``. The JAX package's mesh is a
+Port of ``paddle_tpu.core.mesh``. The JAX package's mesh is a
 grid of devices and its parallel steps a ``shard_map`` over it; here a
 mesh is a grid of LOGICAL ranks that all live on one device (the card,
 or the CPU in the tests). Ranks are numbered row-major over the axes in
@@ -20,19 +20,38 @@ Two kinds of callers run per-rank code on it:
 
 A mesh over distinct devices replaces only the collectives (ROADMAP
 item 7).
+
+The JAX module's helpers come along: :data:`HYBRID_AXES` and
+:func:`make_hybrid_mesh` (the reference's hybrid topology, every axis
+kept at size 1 too), :func:`use_mesh`/:func:`current_mesh` (a stack of
+active meshes; nothing on the port's paths reads it, as in JAX, whose
+``with mesh`` also enters jax's own context), and :func:`named_sharding`/
+:func:`replicated`, which return the port's layout tuples (one entry a
+dimension: an axis name, a tuple of names or None — JAX's
+``PartitionSpec`` entries, as ``models.ernie.partition_spec`` returns
+them), checked against the mesh's axes, where JAX builds a
+``NamedSharding``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 
 from .device import resolve_device
 from .enforce import InvalidArgumentError, UnavailableError, enforce
 
-__all__ = ["Mesh", "make_mesh", "mesh_axis_size", "ps_shard_count"]
+__all__ = ["HYBRID_AXES", "Mesh", "current_mesh", "make_hybrid_mesh", "make_mesh",
+           "mesh_axis_size", "named_sharding", "ps_shard_count", "replicated", "use_mesh"]
+
+#: the hybrid topology's axes in mesh order (innermost last), as the JAX
+#: package names them
+HYBRID_AXES: Tuple[str, ...] = ("dp", "sharding", "pp", "ep", "cp", "mp")
+
+_ACTIVE_MESH: List["Mesh"] = []
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +113,50 @@ def make_mesh(axis_sizes: Dict[str, int],
                 InvalidArgumentError)
         shape[name] = int(k)
     return Mesh(shape, resolve_device(device))
+
+
+def make_hybrid_mesh(dp: int = 1, sharding: int = 1, pp: int = 1, mp: int = 1, cp: int = 1,
+                     ep: int = 1, device: Optional[Union[str, torch.device]] = None) -> Mesh:
+    """The reference's HybridCommunicateGroup topology with cp and ep: a
+    mesh over :data:`HYBRID_AXES`, size-1 axes kept so layouts can always
+    name them."""
+    sizes = {"dp": dp, "sharding": sharding, "pp": pp, "ep": ep, "cp": cp, "mp": mp}
+    return make_mesh({name: sizes[name] for name in HYBRID_AXES}, device=device)
+
+
+def current_mesh() -> Optional[Mesh]:
+    """The innermost mesh of :func:`use_mesh`, or None outside one. No
+    entry point reads it: each takes its mesh as an argument."""
+    return _ACTIVE_MESH[-1] if _ACTIVE_MESH else None
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Mesh) -> Iterator[Mesh]:
+    """Make ``mesh`` :func:`current_mesh`'s answer inside the block (for
+    callers that read it; no entry point of the package does)."""
+    _ACTIVE_MESH.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _ACTIVE_MESH.pop()
+
+
+def named_sharding(mesh: Mesh, *spec) -> Tuple[Union[None, str, Tuple[str, ...]], ...]:
+    """The layout tuple of ``spec`` (an axis name, a tuple of names or
+    None a dimension); raises ``InvalidArgumentError`` for a name the
+    mesh does not have."""
+    for entry in spec:
+        names = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+        for a in names:
+            enforce(a in mesh.shape,
+                    f"named_sharding: the mesh {dict(mesh.shape)} has no axis {a!r}",
+                    InvalidArgumentError)
+    return tuple(spec)
+
+
+def replicated(mesh: Mesh) -> Tuple[()]:
+    """The layout of a value every rank holds whole: the empty tuple."""
+    return named_sharding(mesh)
 
 
 def mesh_axis_size(mesh: Mesh, axis: str) -> int:

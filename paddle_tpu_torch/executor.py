@@ -18,12 +18,17 @@ also stores the parameters in bf16 with f32 masters
 
 ``Trainer.train_from_dataset`` drives a dataset's batches through the
 step with the batch's arrays moved to the device on the prefetcher's
-thread (``data.prefetcher.device_prefetch``).
+thread (``data.prefetcher.device_prefetch``). ``Trainer.train_step``
+runs in a ``train_step`` profiler scope (``core.profiler.RecordEvent``),
+checks its loss for NaN/Inf while the ``check_nan_inf`` flag is set
+(``core.nan_inf.check_numerics``; one host sync a step), and appends the
+fields of :meth:`Trainer.set_dump_config` to its dump file.
 """
 
 from __future__ import annotations
 
 import inspect
+import os
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
@@ -33,6 +38,9 @@ from torch.func import functional_call
 from .amp import step_ctx
 from .core.device import resolve_device
 from .core.enforce import InvalidArgumentError, enforce
+from .core.flags import flag
+from .core.nan_inf import check_numerics
+from .core.profiler import RecordEvent
 from .data.prefetcher import device_prefetch
 from .nn.layers import Dropout
 from .optimizer import decorate_o2
@@ -139,20 +147,69 @@ class Trainer:
                                            amp_dtype=amp_dtype)
         self._eval_step = make_eval_step(model)
         self.global_step = 0
+        self._dump_fh = None
+        self._dump_fields: Tuple[str, ...] = ()
+
+    def set_dump_config(self, dump_path: Optional[str], fields=("loss",),
+                        trainer_id: int = 0) -> None:
+        """Worker debug dumps (trainer.h ParseDumpConfig / DeviceWorker
+        DumpField): after each step, append the selected values to
+        ``{dump_path}/trainer-{trainer_id:03d}.dump``, one line a field:
+        ``step<TAB>field<TAB>the first 16 values`` (``%.6g``, `` ...`` when
+        there are more). Fields: "loss", "param:<name>", "buffer:<name>",
+        "input:<i>", "label:<i>" (a param is the port's tensor, so a
+        ``Linear`` weight dumps in its ``[out, in]`` order). ``dump_path=None``
+        closes the file."""
+        if self._dump_fh is not None:
+            self._dump_fh.close()
+            self._dump_fh = None
+        self._dump_fields = tuple(fields)
+        if dump_path:
+            os.makedirs(dump_path, exist_ok=True)
+            self._dump_fh = open(os.path.join(dump_path, f"trainer-{trainer_id:03d}.dump"), "a")
+
+    def _dump(self, inputs, labels, loss) -> None:
+        def fmt(v):
+            a = v.detach().cpu().numpy().reshape(-1)
+            head = " ".join(f"{x:.6g}" for x in a[:16])
+            return f"{head}{' ...' if a.size > 16 else ''}"
+
+        for f in self._dump_fields:
+            if f == "loss":
+                val = loss
+            elif f.startswith("param:"):
+                val = self.state["params"].get(f[6:])
+            elif f.startswith("buffer:"):
+                val = self.state["buffers"].get(f[7:])
+            elif f.startswith("input:"):
+                val = inputs[int(f[6:])]
+            elif f.startswith("label:"):
+                val = labels[int(f[6:])]
+            else:
+                val = None
+            if val is not None:
+                self._dump_fh.write(f"{self.global_step}\t{f}\t{fmt(val)}\n")
+        self._dump_fh.flush()
 
     def _to_device(self, xs) -> Tuple:
         return tuple(torch.as_tensor(x, device=self.device) for x in _as_tuple(xs))
 
     def train_step(self, inputs, labels) -> torch.Tensor:
-        """One step; returns the loss as a device tensor (no host sync)."""
-        with torch.profiler.record_function("train_step"):
+        """One step; returns the loss as a device tensor (no host sync
+        unless ``check_nan_inf`` is set or a dump is configured)."""
+        inputs, labels = self._to_device(inputs), self._to_device(labels)
+        with RecordEvent("train_step"):
             self.state, self.opt_state, loss = self._train_step(
-                self.state, self.opt_state, self._to_device(inputs), self._to_device(labels))
+                self.state, self.opt_state, inputs, labels)
         self.global_step += 1
+        if flag("check_nan_inf"):
+            check_numerics({"loss": loss}, f"step {self.global_step}")
+        if self._dump_fh is not None:
+            self._dump(inputs, labels, loss)
         return loss
 
     def predict(self, inputs) -> torch.Tensor:
-        with torch.profiler.record_function("eval_step"):
+        with RecordEvent("eval_step"):
             return self._eval_step(self.state, self._to_device(inputs))
 
     def train_from_dataset(self, dataset, feed: Callable, batch_size: int = 256,

@@ -36,7 +36,7 @@ from torch import nn
 from torch.func import functional_call
 
 from ..core.device import resolve_device
-from ..core.enforce import InvalidArgumentError, UnavailableError, enforce, enforce_eq
+from ..core.enforce import InvalidArgumentError, enforce, enforce_eq
 from ..amp import step_ctx
 from ..nn import functional as F
 from ..nn.layers import Linear
@@ -253,20 +253,29 @@ def _ctr_step_body(model, optimizer, cache_cfg, params, opt_state, cache_state,
     BCE, :func:`_make_loss_fn`) lets a model family with its own objective
     reuse the body; the ``loss_fn(params, emb)`` it returns gives the loss
     alone (the JAX builders' auxiliary output is never read by the body).
-    ``with_real`` (the real-position mask for attention models) comes with
-    DIN, which is not ported yet."""
-    if with_real:
-        raise UnavailableError("with_real serves DIN, which is not ported yet "
-                               "(ROADMAP Queue A item 9)")
+    ``with_real``: the [B, S] real-position mask (1 where the row is below
+    the capacity sentinel C) goes to ``loss_builder`` as its fifth argument
+    (the attention family's models take it) and masks the padding positions out
+    of the push's shows and clicks. Labels of several tasks ([B, T]) push
+    the click task's, column 0."""
     # the wire carries f16 dense features and int8 labels; compute is f32
     dense_x = dense_x.to(torch.float32)
     labels = labels.to(torch.int32)
     emb = cache_pull(cache_state, flat_rows).reshape(B, S, -1).requires_grad_(True)
     leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
-    loss = (loss_builder or _make_loss_fn)(model, dense_x, labels, weights)(leaves, emb)
+    make_loss = loss_builder or _make_loss_fn
+    real = None
+    if with_real:
+        C = cache_state["embed_w"].shape[0]
+        real = (flat_rows < C).to(torch.float32).reshape(B, S)
+        loss = make_loss(model, dense_x, labels, weights, real)(leaves, emb)
+    else:
+        loss = make_loss(model, dense_x, labels, weights)(leaves, emb)
     *g, emb_grad = torch.autograd.grad(loss, [*leaves.values(), emb])
     new_params, new_opt = optimizer.update(dict(zip(leaves, g)), opt_state, params)
-    shows, clicks = _push_stats(labels, weights, S)
+    click_labels = labels if labels.dim() == 1 else labels[:, 0]
+    shows, clicks = _push_stats(click_labels, weights, S,
+                                real=None if real is None else real.reshape(-1))
     with torch.no_grad():
         new_cache = cache_push(cache_state, flat_rows, emb_grad.reshape(B * S, -1),
                                shows, clicks, cache_cfg)
@@ -581,13 +590,14 @@ def export_ctr_inference(dirname: str, model: nn.Module, cache, slot_ids, num_de
 
     ``refresh_only=True`` overwrites just the serving values (params,
     tables, key map) of an existing unfrozen export, skipping the trace.
-    ``with_real`` (DIN's real-position mask) waits for DIN (ROADMAP
-    Queue A item 9)."""
+    ``with_real=True`` feeds the model the [b, S] real-position mask as its
+    second argument (the attention family's step contract: DIN), derived
+    from the sentinel in the program. The output is the model's own
+    ``predict`` of its logits where its class defines one (ESMM: pCTR and
+    pCTCVR = pCTR·pCVR, the quantity its training scored), else a sigmoid
+    on each output (a tuple for MMoE's tasks), as in the JAX package."""
     from ..io.inference import refresh_inference_params, save_inference_model
 
-    if with_real:
-        raise UnavailableError("export_ctr_inference(with_real=True) serves DIN, which is not "
-                               "ported yet (ROADMAP Queue A item 9)")
     enforce(cache.state is not None, "begin_pass first")
     enforce(cache.device_map is not None,
             "export_ctr_inference needs device_map=True on the cache "
@@ -608,11 +618,19 @@ def export_ctr_inference(dirname: str, model: nn.Module, cache, slot_ids, num_de
         return
     slot_hi = torch.as_tensor(np.asarray(slot_ids, np.int64), device=dev)
 
+    predict = getattr(type(model), "predict", None)
+
     def serve_fn(p, lo32, dense_x):
-        emb = serving_pull(p["tables"], p["map"], slot_hi, lo32)
-        out = functional_call(model, {**p["model"]["params"], **p["model"]["buffers"]},
-                              (emb, dense_x.to(torch.float32)))
-        return torch.sigmoid(out)
+        if with_real:
+            emb, real = serving_pull(p["tables"], p["map"], slot_hi, lo32, with_real=True)
+            args = (emb, real, dense_x.to(torch.float32))
+        else:
+            args = (serving_pull(p["tables"], p["map"], slot_hi, lo32),
+                    dense_x.to(torch.float32))
+        out = functional_call(model, {**p["model"]["params"], **p["model"]["buffers"]}, args)
+        if predict is not None:
+            return predict(out)
+        return tuple(map(torch.sigmoid, out)) if isinstance(out, tuple) else torch.sigmoid(out)
 
     example = (torch.zeros((2, S), dtype=torch.int64, device=dev),
                torch.zeros((2, D), dtype=torch.float32, device=dev))
@@ -620,4 +638,5 @@ def export_ctr_inference(dirname: str, model: nn.Module, cache, slot_ids, num_de
                          notes={"inputs": "lo32 [b, S]: the uint32 low halves of the "
                                           "slot-tagged keys, carried as int64 in [0, 2^32); "
                                           "dense [b, D] float32",
-                                "output": "pctr [b] float32"})
+                                "output": "pctr [b] float32, or one [b] float32 per task "
+                                          "(the model's predict)"})

@@ -12,8 +12,9 @@ the collectives come in two forms:
   paths call these.
 - **the axis form** (:func:`psum`, :func:`pmax`,
   :func:`all_gather`/:func:`all_to_all` given an axis, :func:`ppermute`,
-  :func:`shift`, :func:`broadcast`, :func:`axis_index`,
-  :func:`axis_size`): called from inside per-rank code that
+  :func:`shift`, :func:`broadcast`, :func:`reduce`, :func:`split_axis`,
+  :func:`barrier`, :func:`axis_index`, :func:`axis_size`): called from
+  inside per-rank code that
   :func:`run_ranks` runs, one thread per rank, in lockstep. Each call
   meets the other ranks of its group (the ranks that differ from it only
   on the named axes) at a rendezvous; once all have arrived, the group's
@@ -59,8 +60,8 @@ from ..core.enforce import InvalidArgumentError, PreconditionNotMetError, enforc
 from ..core.mesh import Mesh
 
 __all__ = ["ReduceOp", "all_gather", "all_reduce", "all_to_all", "axis_active", "axis_index",
-           "axis_size", "broadcast", "pmax", "ppermute", "psum", "reduce_scatter",
-           "run_ranks", "shift"]
+           "axis_size", "barrier", "broadcast", "pmax", "ppermute", "psum", "reduce",
+           "reduce_scatter", "run_ranks", "shift", "split_axis"]
 
 AxisName = Union[str, Sequence[str]]
 
@@ -70,29 +71,33 @@ DEFAULT_TIMEOUT = 600.0
 
 class ReduceOp:
     SUM = "sum"
+    MAX = "max"
+    MIN = "min"
+    PROD = "prod"
     AVG = "avg"
 
 
-def _rank_sum(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+def _rank_reduce(xs: Sequence[torch.Tensor], op: str = ReduceOp.SUM) -> torch.Tensor:
+    """The ranks' values folded in rank order by ``op`` (avg: the sum
+    divided by K)."""
     enforce(len(xs) >= 1, "a collective needs at least one rank", InvalidArgumentError)
+    fold = {ReduceOp.SUM: torch.add, ReduceOp.AVG: torch.add, ReduceOp.MAX: torch.maximum,
+            ReduceOp.MIN: torch.minimum, ReduceOp.PROD: torch.mul}.get(op)
+    enforce(fold is not None, f"unknown reduce op {op!r}", InvalidArgumentError)
     total = xs[0].clone()
     for x in xs[1:]:
-        total = total + x
-    return total
+        total = fold(total, x)
+    return total / len(xs) if op == ReduceOp.AVG else total
 
 
 # -- the list form -------------------------------------------------------------
 
 
 def all_reduce(xs: Sequence[torch.Tensor], op: str = ReduceOp.SUM) -> List[torch.Tensor]:
-    """``psum`` (``op="sum"``) or ``pmean`` (``op="avg"``: the rank-order
-    sum divided by K) — every rank receives the result."""
-    total = _rank_sum(xs)
-    if op == ReduceOp.AVG:
-        total = total / len(xs)
-    else:
-        enforce(op == ReduceOp.SUM, f"unknown reduce op {op!r}", InvalidArgumentError)
-    return [total] * len(xs)
+    """``psum`` (``op="sum"``), ``pmean`` (``"avg"``: the rank-order sum
+    divided by K), ``pmax``/``pmin`` or the product — every rank receives
+    the result."""
+    return [_rank_reduce(xs, op)] * len(xs)
 
 
 def _tiled_all_gather(xs: Sequence[torch.Tensor], dim: int = 0) -> torch.Tensor:
@@ -118,7 +123,7 @@ def reduce_scatter(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     enforce(xs[0].shape[0] % K == 0,
             f"reduce_scatter: {xs[0].shape[0]} rows do not split over {K} ranks",
             InvalidArgumentError)
-    return list(_rank_sum(xs).chunk(K))
+    return list(_rank_reduce(xs).chunk(K))
 
 
 def _tiled_all_to_all(xs: Sequence[torch.Tensor], split: int, concat: int) -> List[torch.Tensor]:
@@ -363,18 +368,12 @@ def axis_size(axis: str) -> int:
 
 def psum(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
     """``lax.psum``: the group's rank-order sum, one tensor for all."""
-    return _collective(x, axis, lambda xs: [_rank_sum(xs)] * len(xs))
+    return _collective(x, axis, lambda xs: [_rank_reduce(xs)] * len(xs))
 
 
 def pmax(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
     """``lax.pmax``: the elementwise maximum over the group."""
-    def fn(xs):
-        m = xs[0]
-        for y in xs[1:]:
-            m = torch.maximum(m, y)
-        return [m] * len(xs)
-
-    return _collective(x, axis, fn)
+    return _collective(x, axis, lambda xs: [_rank_reduce(xs, ReduceOp.MAX)] * len(xs))
 
 
 def ppermute(x: torch.Tensor, axis: str, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
@@ -403,3 +402,34 @@ def broadcast(x: Optional[torch.Tensor], axis: str, root: int = 0) -> torch.Tens
     package masks and psums; here the root's tensor is handed over as it
     is, so nothing is computed for the other ranks' values."""
     return _collective(x, axis, lambda xs: [xs[root]] * len(xs))
+
+
+def reduce(x: torch.Tensor, axis: str, root: int = 0, op: str = ReduceOp.SUM) -> torch.Tensor:
+    """``c_reduce``: the rank at coordinate ``root`` receives the group's
+    reduction by ``op`` (sum, max, min, prod or avg), the others zeros of
+    its shape, as in the JAX package (whose SPMD body cannot give ranks
+    different shapes)."""
+    def fn(xs):
+        total = _rank_reduce(xs, op)
+        return [total if i == root else torch.zeros_like(total) for i in range(len(xs))]
+
+    return _collective(x, axis, fn)
+
+
+def split_axis(x: torch.Tensor, axis: str, dim: int = -1) -> torch.Tensor:
+    """``c_split``: this rank's slice of dimension ``dim``, cut into the
+    axis's size of equal pieces (the inverse of ``all_gather``); raises
+    ``InvalidArgumentError`` when the dimension does not divide."""
+    n = axis_size(axis)
+    enforce(x.shape[dim] % n == 0,
+            f"split_axis: dim {dim} (size {x.shape[dim]}) not divisible by axis {axis!r} "
+            f"size {n}", InvalidArgumentError)
+    size = x.shape[dim] // n
+    return x.narrow(dim, axis_index(axis) * size, size)
+
+
+def barrier(axis: AxisName) -> None:
+    """Wait until every rank of the group along ``axis`` has arrived. The
+    JAX package's is a no-op (any collective of a compiled program is a
+    barrier); here the ranks are threads, and this is a rendezvous."""
+    _collective(None, axis, lambda xs: [None] * len(xs))

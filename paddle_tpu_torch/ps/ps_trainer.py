@@ -63,9 +63,13 @@ local residence after a restore.
 
 ``CtrPassTrainer.save_inference_model`` exports the serving artifact
 (``io.inference``: the dense graph, or with ``fused=True`` the whole
-probe → pull → forward → sigmoid program). Not ported yet (ROADMAP
-Queue A item 9): the pass-end ``check_nan_inf`` guard (a flag that
-defaults to off in the JAX package; the port does not define it).
+probe → pull → forward → sigmoid program). With the ``check_nan_inf``
+flag set, a pass whose synced loss sum is NaN or Inf is discarded
+(``cache.discard_pass()``: nothing is flushed, so the host table keeps its
+last good rows and stays checkpointable) and the error re-raised. The
+trainers' scopes (``ctr_pass_prepare``, ``ctr_pass_build``,
+``ctr_train_step``, ``ctr_stream_step``, ``ctr_hot_step``) are
+``core.profiler.RecordEvent``s, under the JAX package's names.
 """
 
 from __future__ import annotations
@@ -87,6 +91,8 @@ from ..convert import ctr_params_from_jax, ctr_params_to_jax, opt_state_from_jax
 from ..core.device import resolve_device
 from ..core.enforce import enforce
 from ..core.flags import flag
+from ..core.nan_inf import check_numerics
+from ..core.profiler import RecordEvent
 from ..data.prefetcher import DevicePrefetcher, host_tensors, to_device
 from ..io.checkpoint import load_checkpoint, save_checkpoint
 from ..io.inference import save_inference_model
@@ -96,7 +102,6 @@ from ..models.ctr import (export_ctr_inference, make_ctr_train_step_packed,
                           make_ctr_train_step_slab, pack_ctr_batch)
 from ..obs import flightrec as _flightrec
 from ..obs import registry as _obs_registry
-from ..obs import trace as _trace
 from .embedding_cache import CacheConfig, HbmEmbeddingCache
 from .hot_tier import (HotEmbeddingTier, HotTierConfig, make_hot_ctr_train_step,
                        make_sharded_hot_train_step, stream_loss_fn)
@@ -379,14 +384,14 @@ class CtrPassTrainer:
                 current, prepared = nxt
 
     def _prepare(self, dataset) -> dict:
-        with torch.profiler.record_function("ctr_pass_prepare"):
+        with RecordEvent("ctr_pass_prepare"):
             keys = self._tagged_pass_keys(dataset)
             enforce(len(keys) > 0, "dataset has no sparse feasigns")
             return self.cache.prepare_pass(keys)
 
     def _run_pass(self, dataset, prepared: Optional[dict], batch_size: int,
                   drop_last: bool) -> Dict[str, float]:
-        with torch.profiler.record_function("ctr_pass_build"):
+        with RecordEvent("ctr_pass_build"):
             if prepared is None:
                 prepared = self._prepare(dataset)
             self.cache.activate_pass(prepared)
@@ -428,7 +433,7 @@ class CtrPassTrainer:
         try:
             # the host tensor stays referenced until its step is enqueued
             for host, n_real, is_slab in pf:
-                with torch.profiler.record_function("ctr_train_step"):
+                with RecordEvent("ctr_train_step"):
                     packed = to_device((host,), dev)[0]
                     if is_slab:
                         self.params, self.opt_state, self.cache.state, ls = slab_step(
@@ -445,6 +450,15 @@ class CtrPassTrainer:
             pf.close()
         if losses:
             stats.loss_sum = float(torch.stack(losses).sum())
+            # the flag-gated numeric guard (FLAGS_check_nan_inf): one check
+            # of the synced sum; a diverged pass is discarded, not flushed
+            if flag("check_nan_inf"):
+                try:
+                    check_numerics({"pass_loss_sum": torch.tensor(stats.loss_sum)},
+                                   "CtrPassTrainer pass")
+                except Exception:
+                    self.cache.discard_pass()
+                    raise
         dt = time.perf_counter() - t0
         self.cache.end_pass()
         return {"loss": stats.mean_loss, "steps": float(stats.steps),
@@ -726,8 +740,7 @@ class CtrStreamTrainer:
             t_step = time.perf_counter()
             # the step's span is the trace root the client's pull and push
             # spans hang under (tracing off: one flag check)
-            with torch.profiler.record_function("ctr_stream_step"), \
-                    _trace.span("ctr_stream_step"):
+            with RecordEvent("ctr_stream_step"):
                 # measured placement: an armed swap executes here, at the
                 # batch boundary, never mid-push
                 local = None
@@ -827,7 +840,7 @@ class CtrStreamTrainer:
             # their device copies has been enqueued (a pinned buffer freed
             # under a non_blocking copy would be silent corruption)
             t_step = time.perf_counter()
-            with torch.profiler.record_function("ctr_hot_step"):
+            with RecordEvent("ctr_hot_step"):
                 lo32, dense, labels = to_device((lo32_h, dense_h, labels_h), dev)
                 tier.ensure(flat)
                 map_state = tier.device_map.device_state()

@@ -56,8 +56,10 @@ of either replicates to a backup of either.
 
 - The obs wire: every frame carries the calling thread's trace context
   (fan-out workers adopt the op's span; a retry or a failover replay marks
-  it ``retried``); ``pull_sparse``/``push_sparse`` open the client spans
-  ``pserver_client_pull_sparse``/``_push_sparse`` while tracing is on. A
+  it ``retried``); ``pull_sparse``/``push_sparse`` run in the profiler
+  scopes ``pserver_client_pull_sparse``/``_push_sparse``
+  (``core.profiler.RecordEvent``), which open the client spans while
+  tracing is on. A
   server records a span for each traced frame, and ``obs.aggregate``
   fetches them with the per-table server wire counters (``kObsSnap``).
   Beside the client's wire counters, each table has a windowed density
@@ -90,6 +92,7 @@ from ..core.enforce import (NotFoundError, PreconditionNotMetError, PsTransportE
                             QuotaExceededError, ThrottledError, WrongShardError,
                             WrongTenantError, enforce)
 from ..core.flags import define_flag, flag
+from ..core.profiler import RecordEvent
 from ..obs import flightrec as _flightrec
 from ..obs import registry as _obs_registry
 from ..obs import trace as _trace
@@ -1070,7 +1073,7 @@ class RpcPsClient(PSClient):
         ``create``; ``slots`` tags created rows). Over the fp16 pull wire
         the values are exactly the fp32 rows rounded to half and widened."""
         self._op_count("pull_sparse")
-        with _trace.span("pserver_client_pull_sparse"):
+        with RecordEvent("pserver_client_pull_sparse"):
             return self._pull_sparse(table_id, keys, create, slots)
 
     def _pull_sparse(self, table_id, keys, create, slots, _hops=0):
@@ -1110,7 +1113,7 @@ class RpcPsClient(PSClient):
         keys merge client-side first, then the gradient block is encoded
         once for the table's push wire."""
         self._op_count("push_sparse")
-        with _trace.span("pserver_client_push_sparse"):
+        with RecordEvent("pserver_client_push_sparse"):
             self._push_sparse(table_id, keys, values)
 
     def _push_sparse(self, table_id, keys, values, _wire=None):

@@ -23,6 +23,12 @@ The port's own copy of ``MemorySparseTable`` and ``SsdSparseTable`` from
   ``GlobalStepTable``: the in-process tables behind ``ps.client``'s
   ``LocalPsClient``.
 
+The three sparse tables' ``pull_sparse``, ``push_sparse``, ``export_full``
+and ``import_full`` run in the profiler scopes of the JAX package's
+``MemorySparseTable`` (``core.profiler.RecordEvent``: the reference's
+CostProfiler probes ``pserver_sparse_select_all``, ``_update_all``,
+``_export_full`` and ``_import_full``), whichever engine holds the rows.
+
 Both save and load per-shard text files in the accessor's format, byte
 for byte the JAX package's (``part-NNNNN.shard[.gz]`` and a
 ``meta.json``), through an optional named converter (``"gzip"``), with
@@ -33,6 +39,7 @@ re-routes rows by the loading table's own ``shard_num``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gzip
 import json
 import os
@@ -43,6 +50,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from ..core.enforce import InvalidArgumentError, enforce, enforce_eq
+from ..core.profiler import RecordEvent
 from .accessor import AccessorConfig, CtrCommonAccessor, FeatureBlock, accessor_class, make_accessor
 from .native import FeasignIndex, NativeSparseTableEngine, SsdTableEngine
 
@@ -284,6 +292,23 @@ class _SparseShard:
             self.initialized[rows] = True
 
 
+def _scoped(name: str):
+    """Run the method in the profiler scope ``name``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kw):
+            with RecordEvent(name):
+                return fn(*args, **kw)
+        return run
+    return wrap
+
+
+_SELECT_ALL = _scoped("pserver_sparse_select_all")
+_UPDATE_ALL = _scoped("pserver_sparse_update_all")
+_EXPORT_FULL = _scoped("pserver_sparse_export_full")
+_IMPORT_FULL = _scoped("pserver_sparse_import_full")
+
+
 class MemorySparseTable:
     """Sparse embedding table over N local Python shards."""
 
@@ -313,6 +338,7 @@ class MemorySparseTable:
             futures.append((sel, self._pool.submit(fn, self._shards[s], keys[sel], *args)))
         return [(sel, f.result()) for sel, f in futures]
 
+    @_SELECT_ALL
     def pull_sparse(self, keys: np.ndarray, slots: Optional[np.ndarray] = None,
                     create: bool = True) -> np.ndarray:
         """Batched pull with insert-on-miss (memory_sparse_table.cc:443)."""
@@ -322,6 +348,7 @@ class MemorySparseTable:
             out[sel] = vals
         return out
 
+    @_UPDATE_ALL
     def push_sparse(self, keys: np.ndarray, push_values: np.ndarray) -> None:
         """Batched push: push_values [n, 4 + dim] (slot, show, click,
         embed_g, embedx_g...); duplicate keys are pre-merged."""
@@ -338,6 +365,7 @@ class MemorySparseTable:
                 + self.accessor.config.embedx_dim
                 + self.accessor.embedx_rule.state_dim)
 
+    @_EXPORT_FULL
     def export_full(self, keys: np.ndarray, create: bool = False,
                     slots: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
         """(values [n, full_dim], found [n] bool). With ``create``, missing
@@ -357,6 +385,7 @@ class MemorySparseTable:
             out[sel], found[sel] = res
         return out, found
 
+    @_IMPORT_FULL
     def import_full(self, keys: np.ndarray, values: np.ndarray) -> None:
         """Direct overwrite of full rows (insert-on-miss)."""
         self._scatter_gather(keys, lambda sh, k, v: sh.import_rows(k, v), values)
@@ -471,19 +500,23 @@ class NativeMemorySparseTable(MemorySparseTable):
         """Release the engine."""
         self._engine.close()
 
+    @_SELECT_ALL
     def pull_sparse(self, keys: np.ndarray, slots: Optional[np.ndarray] = None,
                     create: bool = True) -> np.ndarray:
         return self._engine.pull(keys, slots, create)
 
+    @_UPDATE_ALL
     def push_sparse(self, keys: np.ndarray, push_values: np.ndarray) -> None:
         keys, push_values = merge_duplicate_keys(
             np.ascontiguousarray(keys, np.uint64), push_values)
         self._engine.push(keys, push_values)
 
+    @_EXPORT_FULL
     def export_full(self, keys: np.ndarray, create: bool = False,
                     slots: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
         return self._engine.export_full(keys, create=create, slots=slots)
 
+    @_IMPORT_FULL
     def import_full(self, keys: np.ndarray, values: np.ndarray) -> None:
         self._engine.insert_full(keys, values)
 
@@ -527,10 +560,12 @@ class SsdSparseTable(MemorySparseTable):
         """Flush the logs and release the engine."""
         self._engine.close()
 
+    @_SELECT_ALL
     def pull_sparse(self, keys: np.ndarray, slots: Optional[np.ndarray] = None,
                     create: bool = True) -> np.ndarray:
         return self._engine.pull(keys, slots, create)
 
+    @_UPDATE_ALL
     def push_sparse(self, keys: np.ndarray, push_values: np.ndarray) -> None:
         self._engine.push(*merge_duplicate_keys(np.ascontiguousarray(keys, np.uint64),
                                                 push_values))
@@ -539,10 +574,12 @@ class SsdSparseTable(MemorySparseTable):
     def full_dim(self) -> int:
         return self._engine.full_dim
 
+    @_EXPORT_FULL
     def export_full(self, keys: np.ndarray, create: bool = False,
                     slots: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
         return self._engine.export_full(keys, create=create, slots=slots)
 
+    @_IMPORT_FULL
     def import_full(self, keys: np.ndarray, values: np.ndarray) -> None:
         self._engine.insert_full(keys, values)
 

@@ -229,6 +229,44 @@ def test_trainer_three_steps_match_jax_trainer(impl, causal):
                         assert np.abs(key).max() <= 1e-6 * np.abs(a).max(), f"{slot} {k}"
 
 
+def test_trainer_under_amp_stays_f32_like_jax():
+    """ERNIE under ``amp``: its products are raw ``x @ w``, which the JAX
+    ``amp`` does not cast, so ``Trainer(ernie, amp=True)`` runs in f32 in
+    both packages. 3 Adam steps (einsum attention): the port's amp run is
+    bitwise its ``amp=False`` run, and against the JAX amp Trainer the
+    einsum tolerances above (losses rtol 1e-6, updates 5e-3)."""
+    lr = 1e-3
+
+    def jax_lm_loss(out, labels):
+        return jnn.functional.cross_entropy(out.reshape(-1, out.shape[-1]), labels.reshape(-1))
+
+    def lm_loss(out, labels):
+        return F.cross_entropy(out.reshape(-1, out.shape[-1]), labels.reshape(-1))
+
+    jm, tm, w0 = _pair(attn_impl="einsum")
+    _, tm_f32, _ = _pair(attn_impl="einsum")
+    jt = JaxTrainer(jm, jopt.Adam(lr), jax_lm_loss, amp=True)
+    tt = Trainer(tm, Adam(lr), lm_loss, amp=True, device="cpu")
+    tf = Trainer(tm_f32, Adam(lr), lm_loss, amp=False, device="cpu")
+    rng = np.random.default_rng(5)
+    jl, tl = [], []
+    for _ in range(3):
+        ids, labels = _batch(rng)
+        jl.append(float(jt.train_step(jnp.asarray(ids), jnp.asarray(labels))))
+        a = tt.train_step(_t(ids), _t(labels))
+        b = tf.train_step(_t(ids), _t(labels))
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+        tl.append(float(a))
+    for k in w0:
+        assert tt.state["params"][k].dtype == torch.float32
+        assert torch.equal(tt.state["params"][k], tf.state["params"][k]), k
+    np.testing.assert_allclose(tl, jl, rtol=1e-6)
+    for k, p0 in w0.items():
+        want = _key_bias_dropped(k, np.asarray(jt.state["params"][k]) - p0, SMALL)
+        got = _key_bias_dropped(k, tt.state["params"][k].numpy() - p0, SMALL)
+        assert np.linalg.norm(got - want) <= 5e-3 * np.linalg.norm(want), k
+
+
 def test_out_of_slice_options_raise():
     with pytest.raises(InvalidArgumentError, match="attn_impl"):
         ernie.Ernie(ernie.ErnieConfig(**SMALL, attn_impl="ring"))

@@ -8,10 +8,12 @@ serving export, the family exports), each also holding the port's
 predictions against the JAX export's on the same weights; then the GRU4Rec
 and DSSM tower exports (``tests/test_gru4rec.py``, ``tests/test_dssm.py``)
 and ``CtrPassTrainer.save_inference_model``, fused and not. The family
-export runs DCN and xDeepFM: DIN and ESMM are not ported (ROADMAP Queue A
-item 9). Tolerances: a loaded program against the in-process forward of
-the same package rtol 1e-6 (the same ops); the port's predictions against
-the JAX export's rtol 1e-5 / atol 1e-6 (f32 products in another order).
+export runs DCN and xDeepFM, and DIN with ``with_real`` over the same
+pass; ESMM's and MMoE's exports are in ``tests/test_torch_multitask.py``,
+DIN's own in ``tests/test_torch_din.py``. Tolerances: a loaded program
+against the in-process forward of the same package rtol 1e-6 (the same
+ops); the port's predictions against the JAX export's rtol 1e-5 / atol
+1e-6 (f32 products in another order).
 """
 
 import json
@@ -29,6 +31,7 @@ import paddle_tpu as pt
 from paddle_tpu import nn as jnn
 from paddle_tpu.io import inference as jinf
 from paddle_tpu.models import ctr as jctr
+from paddle_tpu.models import din as jdin
 from paddle_tpu.models import dssm as jdssm
 from paddle_tpu.models import gru4rec as jgru
 from paddle_tpu.models.lenet import LeNet as JLeNet
@@ -39,10 +42,12 @@ from paddle_tpu.ps.table import MemorySparseTable as JaxTable
 from paddle_tpu.ps.table import TableConfig as JaxTableConfig
 from paddle_tpu_torch import hapi
 from paddle_tpu_torch import optimizer as topt
-from paddle_tpu_torch.convert import recsys_params_from_jax, vision_params_from_jax
+from paddle_tpu_torch.convert import (ctr_params_from_jax, recsys_params_from_jax,
+                                      vision_params_from_jax)
 from paddle_tpu_torch.core.enforce import InvalidArgumentError
 from paddle_tpu_torch.io import inference as tinf
 from paddle_tpu_torch.models import ctr as tctr
+from paddle_tpu_torch.models import din as tdin
 from paddle_tpu_torch.models import dssm as tdssm
 from paddle_tpu_torch.models import gru4rec as tgru
 from paddle_tpu_torch.models.lenet import LeNet
@@ -322,9 +327,26 @@ def test_family_serving_exports(tmp_path, family):
         np.testing.assert_allclose(pred(lo32, dense).numpy(),
                                    np.asarray(jpred(jnp.asarray(lo32), jnp.asarray(dense))),
                                    **XTOL)
-    with pytest.raises(Exception, match="item 9"):
-        tctr.export_ctr_inference(str(tmp_path / "din"), p.tmodel, p.tcache,
-                                  slot_ids=np.arange(S), num_dense=D, with_real=True)
+    # with_real over the same pass: DIN on the three columns (one target,
+    # two behaviours), its last key of every row outside the pass
+    pt.seed(1)
+    jdin_m = jdin.DIN(1, S - 1, D, DIM, dnn_hidden=(8,), att_hidden=4)
+    tdin_m = tdin.DIN(1, S - 1, D, DIM, dnn_hidden=(8,), att_hidden=4)
+    tdin_m.load_state_dict(ctr_params_from_jax(
+        {k: np.asarray(v) for k, v in jdin_m.named_parameters()}))
+    tctr.export_ctr_inference(str(tmp_path / "tdin"), tdin_m, p.tcache, slot_ids=np.arange(S),
+                              num_dense=D, with_real=True)
+    jctr.export_ctr_inference(str(tmp_path / "jdin"), jdin_m, p.jcache, slot_ids=np.arange(S),
+                              num_dense=D, with_real=True)
+    pred = tinf.load_inference_model(str(tmp_path / "tdin"), device=CPU)
+    jpred = jinf.load_inference_model(str(tmp_path / "jdin"))
+    for n in (1, 8):
+        lo32 = (p.pool[:n] & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        lo32[:, -1] = 0xFFFFFF                            # not in the pass
+        dense = rng.normal(size=(n, D)).astype(np.float32)
+        np.testing.assert_allclose(pred(lo32, dense).numpy(),
+                                   np.asarray(jpred(jnp.asarray(lo32), jnp.asarray(dense))),
+                                   **XTOL)
 
 
 @pytest.mark.parametrize("fused", [False, True])

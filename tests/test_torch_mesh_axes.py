@@ -24,6 +24,7 @@ from paddle_tpu.ops import collectives as jcoll
 from paddle_tpu.parallel.topology import CommunicateTopology as JTopo
 from paddle_tpu.parallel.topology import HybridCommunicateGroup as JHcg
 from paddle_tpu_torch.core.enforce import InvalidArgumentError, PreconditionNotMetError
+from paddle_tpu_torch.core import mesh as tmesh
 from paddle_tpu_torch.core.mesh import make_mesh
 from paddle_tpu_torch.ops import collectives as coll
 from paddle_tpu_torch.parallel.topology import CommunicateTopology, HybridCommunicateGroup
@@ -119,6 +120,20 @@ CASES = {
                      lambda a: coll.broadcast(a, "cp", root=2)),
     "axis_index": (lambda a: a * 0 + jax.lax.axis_index("cp") * 10 + jax.lax.axis_index("dp"),
                    lambda a: a * 0 + coll.axis_index("cp") * 10 + coll.axis_index("dp")),
+    "reduce_cp_root2": (lambda a: jcoll.reduce(a, "cp", root=2),
+                        lambda a: coll.reduce(a, "cp", root=2)),
+    "reduce_dp_max": (lambda a: jcoll.reduce(a, "dp", root=1, op=jcoll.ReduceOp.MAX),
+                      lambda a: coll.reduce(a, "dp", root=1, op=coll.ReduceOp.MAX)),
+    "reduce_cp_min": (lambda a: jcoll.reduce(a, "cp", op=jcoll.ReduceOp.MIN),
+                      lambda a: coll.reduce(a, "cp", op=coll.ReduceOp.MIN)),
+    "reduce_cp_prod": (lambda a: jcoll.reduce(a, "cp", root=3, op=jcoll.ReduceOp.PROD),
+                       lambda a: coll.reduce(a, "cp", root=3, op=coll.ReduceOp.PROD)),
+    "reduce_cp_avg": (lambda a: jcoll.reduce(a, "cp", root=1, op=jcoll.ReduceOp.AVG),
+                      lambda a: coll.reduce(a, "cp", root=1, op=coll.ReduceOp.AVG)),
+    "split_axis_cp": (lambda a: jcoll.split_axis(a, "cp", dim=0),
+                      lambda a: coll.split_axis(a, "cp", dim=0)),
+    "split_axis_dp_last": (lambda a: jcoll.split_axis(a, "dp"),
+                           lambda a: coll.split_axis(a, "dp")),
 }
 
 
@@ -204,3 +219,52 @@ def test_collectives_outside_a_run_raise():
     m = make_mesh({"mp": 2}, device="cpu")
     got = coll.run_ranks(m, lambda r: (coll.axis_active("mp"), coll.axis_active("cp")))
     assert got == [(True, False), (True, False)]
+
+
+def test_split_axis_that_does_not_divide_raises():
+    m = make_mesh(MESH, device="cpu")
+    with pytest.raises(InvalidArgumentError, match="not divisible"):
+        coll.run_ranks(m, lambda r: coll.split_axis(torch.zeros(4, N), "cp", dim=1))
+
+
+def test_barrier_waits_for_the_group():
+    """``barrier(axis)``: no rank leaves before every rank of its group has
+    arrived; it returns None, as the JAX package's (a no-op there: any
+    collective of a compiled program is one)."""
+    m = make_mesh(MESH, device="cpu")
+    arrived, mu = [0, 0], threading.Lock()
+
+    def f(r):
+        with mu:
+            arrived[coll.axis_index("dp")] += 1
+        out = coll.barrier("cp")
+        with mu:
+            return out, arrived[coll.axis_index("dp")]
+
+    assert coll.run_ranks(m, f) == [(None, 4)] * 8
+    assert jcoll.barrier("cp") is None
+    with pytest.raises(InvalidArgumentError, match="run_ranks"):
+        coll.barrier("cp")
+
+
+def test_hybrid_mesh_helpers_match_jax():
+    """``make_hybrid_mesh``, ``use_mesh``/``current_mesh``, and
+    ``named_sharding``/``replicated`` (the port's layout tuples: JAX's
+    ``PartitionSpec`` entries)."""
+    assert tmesh.HYBRID_AXES == jmesh.HYBRID_AXES
+    for sizes in (dict(dp=2, mp=4), dict(pp=2, cp=2, mp=2), dict(dp=2, sharding=2, ep=2)):
+        m, jm = tmesh.make_hybrid_mesh(**sizes, device="cpu"), jmesh.make_hybrid_mesh(**sizes)
+        assert m.shape == dict(jm.shape) and m.axis_names == tuple(jm.axis_names)
+        for spec in ((), ("dp", None), (None, "mp"), (("dp", "sharding"), None, "mp")):
+            assert tmesh.named_sharding(m, *spec) == tuple(jmesh.named_sharding(jm, *spec).spec)
+        assert tmesh.replicated(m) == tuple(jmesh.replicated(jm).spec) == ()
+        with pytest.raises(InvalidArgumentError, match="no axis 'xx'"):
+            tmesh.named_sharding(m, "dp", "xx")
+    a, b = make_mesh({"dp": 8}, device="cpu"), make_mesh({"mp": 2}, device="cpu")
+    assert tmesh.current_mesh() is None
+    with tmesh.use_mesh(a) as got:
+        assert got is a and tmesh.current_mesh() is a
+        with tmesh.use_mesh(b):
+            assert tmesh.current_mesh() is b
+        assert tmesh.current_mesh() is a
+    assert tmesh.current_mesh() is None

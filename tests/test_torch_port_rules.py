@@ -505,6 +505,33 @@ def test_item5_entry_points_without_device_raise_without_gpu(tmp_path):
     InferencePredictor(str(tmp_path / "m"), device="cpu")
 
 
+def test_item9_entry_points_without_device_raise_without_gpu():
+    """DIN's and the multitask family's steps and the GPU place run on the
+    card unless the caller asks for the CPU."""
+    _no_gpu()
+    from paddle_tpu_torch.core.enforce import InvalidArgumentError, UnavailableError
+    from paddle_tpu_torch.core.places import CUDAPlace, set_device
+    from paddle_tpu_torch.models.ctr import CtrConfig
+    from paddle_tpu_torch.models.din import DIN, make_ctr_attention_train_step
+    from paddle_tpu_torch.models.multitask import ESMM, MMoE, make_multitask_train_step
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.ps.embedding_cache import CacheConfig
+
+    cfg = CacheConfig(capacity=64, embedx_dim=4)
+    din = DIN(1, 2, 1, 4, dnn_hidden=(4,), att_hidden=4)
+    with pytest.raises(UnavailableError, match="device='cpu'"):
+        make_ctr_attention_train_step(din, Adam(), cfg)
+    make_ctr_attention_train_step(din, Adam(), cfg, device="cpu")
+    for model in (ESMM(CtrConfig(2, 3, 4, (8,))), MMoE(CtrConfig(2, 3, 4, (8,)))):
+        with pytest.raises(UnavailableError, match="device='cpu'"):
+            make_multitask_train_step(model, Adam(), cfg)
+        make_multitask_train_step(model, Adam(), cfg, device="cpu")
+    with pytest.raises(InvalidArgumentError, match="no 'gpu' devices"):
+        CUDAPlace(0)
+    with pytest.raises(InvalidArgumentError, match="no 'gpu' devices"):
+        set_device("gpu")
+
+
 def test_chip_smoke_binds_each_top_level_name_once():
     """A phase's constant or helper must not rebind another phase's name
     (the script is one module: a later binding silently changes an earlier

@@ -42,9 +42,10 @@ from paddle_tpu.ps.sgd_rule import SGDRuleConfig as JaxSGDRuleConfig
 from paddle_tpu.ps.table import MemorySparseTable as JaxTable
 from paddle_tpu.ps.table import TableConfig as JaxTableConfig
 from paddle_tpu_torch.convert import adam_state_from_jax, recsys_params_from_jax
-from paddle_tpu_torch.core.enforce import EnforceNotMet, UnavailableError
+from paddle_tpu_torch.core.enforce import EnforceNotMet
 from paddle_tpu_torch.data import index_dataset as tid
 from paddle_tpu_torch.models import ctr as tctr
+from paddle_tpu_torch.models import din as tdin
 from paddle_tpu_torch.models import dssm as tdssm
 from paddle_tpu_torch.models import gru4rec as tgru
 from paddle_tpu_torch.models import tdm as ttdm
@@ -574,7 +575,8 @@ def test_dssm_ranker_matches_jax_and_checks_its_contract():
 def test_exports_and_with_real_wait_for_their_items():
     """The tower exports are ported (``tests/test_torch_inference.py``
     holds them against JAX's): without a pass they refuse as JAX's do.
-    DIN's ``with_real`` still waits for item 9."""
+    DIN's ``with_real`` step body runs (``tests/test_torch_din.py`` holds
+    it against JAX's): the sentinel position pushes nothing."""
     cache = tec.HbmEmbeddingCache(MemorySparseTable(TableConfig(
         shard_num=1, accessor_config=AccessorConfig(embedx_dim=DIM))),
         tec.CacheConfig(capacity=16, embedx_dim=DIM), device=CPU, device_map=True)
@@ -582,9 +584,18 @@ def test_exports_and_with_real_wait_for_their_items():
         tgru.export_gru4rec_towers("d", tgru.GRU4Rec(DIM), cache, max_len=4)
     with pytest.raises(EnforceNotMet, match="begin_pass"):
         tdssm.export_dssm_towers("d", tdssm.DSSM(1, 1, DIM), cache, [0], [1])
-    with pytest.raises(UnavailableError, match="item 9"):
-        tctr._ctr_step_body(None, None, None, {}, {}, {}, torch.zeros(1), 1, 1, None, None,
-                            with_real=True)
+    cache.begin_pass(np.arange(1, 5, dtype=np.uint64))
+    rows = torch.from_numpy(np.array([list(cache.lookup(np.array([1, 2], np.uint64))) + [16]],
+                                     np.int64))
+    din = tdin.DIN(1, 2, 1, DIM, dnn_hidden=(4,), att_hidden=4,
+                   generator=torch.Generator().manual_seed(0))
+    params = {k: v.detach() for k, v in din.named_parameters()}
+    opt = Adam(1e-2)
+    step = tdin.make_ctr_attention_train_step(din, opt, cache.config, device=CPU)
+    show0 = float(cache.state["show"].sum())
+    _, _, st, loss = step(params, opt.init(params), cache.state, rows, torch.zeros(1, 1),
+                          torch.ones(1, dtype=torch.int32))
+    assert torch.isfinite(loss) and float(st["show"].sum()) - show0 == 2.0
 
 
 def test_default_loss_builder_is_the_bce_body():
