@@ -16,7 +16,9 @@ processes, and kills and reaps every one of them; phase 17 starts and
 stops in-process clusters on 127.0.0.1; phase 20 starts serving member
 processes (``python -m paddle_tpu_torch.serving.member_host``), kills one
 and stops the others; phase 22 starts one serving child (this script in
-``--serve-export DIR`` mode) and waits for it. Exits non-zero, with no
+``--serve-export DIR`` mode) and waits for it; phase 24 starts three PS
+servers on 127.0.0.1 and closes them, and one child (``--heter-head
+PORT``, the heter pipeline's CPU head) and waits for it. Exits non-zero, with no
 result line, when there is no CUDA device, when the package is missing,
 or when any phase fails. Phases:
 
@@ -335,17 +337,48 @@ or when any phase fails. Phases:
    a ``Trainer`` dump of 3 steps × 3 fields on the card; ``CUDAPlace(0)``;
    ``reduce``/``split_axis``/``barrier`` over ``run_ranks`` on ``{"dp": 2,
    "mp": 2}``, card bitwise equal to the CPU;
-24. the ``kernels`` JSON line (B1 nine times: ``ctr_sparse_rows`` on the
+24. ROADMAP item 8's first half (``parallel.PipelineTrainer`` with
+   ``pipeline_1f1b``, ``distributed.meta_optimizers``, the device graph and
+   DeepWalk, ``parallel.heter_{pipeline,channel}``). Leg A: ERNIE at phase
+   7's width, ``attn_impl="flash"``, through ``PipelineTrainer`` on
+   ``{"dp": 1, "pp": 4}`` with 4 micro-batches: ``f_then_b`` and ``1f1b``
+   (2 blocks a stage; 1f1b's optimizer is ``fleet.distributed_optimizer``'s
+   GradientMerge chain, k 2, over Adam) and ``interleave`` (2 chunks of 1
+   block a rank), 1 warm-up and 3 timed steps each: flash launches equal
+   to each schedule's formula, the chain's held step leaving every
+   parameter as it was, the three first losses within
+   ``PIPE_FIRST_LOSS_TOL``, losses falling; one SGD step of f_then_b and of
+   1f1b at 8 micro-batches: 1f1b's peak memory below f_then_b's; a small
+   pipeline (HYB_SMALL's widths, 4 layers, ``{"dp": 1, "pp": 2}``) card vs
+   CPU for each schedule and the chain within ``HYB_TOL``; B5–B7 at a
+   micro-batch's shape [2, 512, 16, 64] against their plain versions,
+   twice the same bits, timed. Leg B: DeepWalk at d 128, walk 40, window
+   10, 5 negatives, 1024 walks a step over a 262,144-node planted-community
+   graph (``DeviceGraph.from_arrays``), one pass of 524,288 tagged keys, 8
+   steps: B1 and the merge once a step, B1 bitwise on the first push at dim
+   128, the loss falling, every step of the first batch's walks an edge or
+   a frozen dead end; two 10-cliques (``from_graph_table``) to a link AUC
+   above 0.8; a ``DistGraphClient`` over 3 servers answering the 2-hop
+   loop in the local table's shapes. Leg C: 16 micro-batches (26 slots,
+   dim 8, batch 4096) from the child over ``ChannelClient`` through
+   ``HeterPipelineTrainer([host pull, a 400³ tower's step on the card,
+   host push])``: in order, the child's exit 0, the card's spans
+   overlapping the host sections', the table, the tower and the losses
+   bitwise equal to a serial replay of the run's order of table
+   operations;
+25. the ``kernels`` JSON line (B1 ten times: ``ctr_sparse_rows`` on the
    pass path, ``ctr_sparse_rows@widedeep`` on phase 12's,
    ``ctr_sparse_rows@gpubox_rpc`` on phase 14's leg B,
    ``ctr_sparse_rows@recsys`` on phase 20's leg A,
    ``ctr_sparse_rows@dcn`` and ``@xdeepfm`` on phase 22's leg A,
-   ``ctr_sparse_rows@din``, ``@esmm`` and ``@mmoe`` on phase 23's leg A; B2 and B4 five
+   ``ctr_sparse_rows@din``, ``@esmm`` and ``@mmoe`` on phase 23's leg A,
+   ``ctr_sparse_rows@deepwalk`` on phase 24's leg B; B2 and B4 five
    times: ``hot_probe_gather``/``hot_scatter_apply`` on the hot path,
    ``...@rpc`` on phase 13's, ``...@ha`` on phase 16's tier arm,
    ``...@reshard`` on phase 17's leg B, ``...@tenancy`` on phase 18's leg
-   A; B5–B7 twice: on the ERNIE path and ``...@ring`` on phase 21's leg
-   A), then the card line, then the result line.
+   A; B5–B7 three times: on the ERNIE path, ``...@ring`` on phase 21's leg
+   A and ``...@pipeline`` on phase 24's leg A), then the card line, then
+   the result line.
 
 ``--profile DIR`` also runs two more pass-path slabs, two more warm
 batches of each hot path and two more ERNIE steps under torch.profiler (after the
@@ -2532,7 +2565,7 @@ def wd_merge_check(push):
         raise AssertionError("merge_sparse_grads differs from the CPU on the Wide&Deep push")
 
 
-def wd_b1_check(push, dim=WD_DIM, what="Wide&Deep push"):
+def wd_b1_check(push, dim=WD_DIM, what="Wide&Deep push", plain_reps=25):
     """B1 in place on one real push (``dim`` wide) of a pass path, bitwise
     against its plain version, then timed beside it and its byte bound."""
     from paddle_tpu_torch.ops import sparse_optimizer as so
@@ -2549,7 +2582,8 @@ def wd_b1_check(push, dim=WD_DIM, what="Wide&Deep push"):
         raise AssertionError(f"B1 disagrees with plain on the {what} (max_abs {err})")
     work = tuple(c.clone() for c in state)
     ms, _ = time_cuda(lambda: so.ctr_sparse_rows_at(work, uniq, ds, dc, g, **kw))
-    plain_ms, _ = time_cuda(lambda: so.ctr_sparse_rows_at_plain(work, uniq, ds, dc, g, **kw))
+    plain_ms, _ = time_cuda(lambda: so.ctr_sparse_rows_at_plain(work, uniq, ds, dc, g, **kw),
+                            reps=plain_reps)
     u = int(((uniq >= 0) & (uniq < C)).sum())
     es, xs = so.rule_state_dim(kw["embed_rule"], 1), so.rule_state_dim(kw["embedx_rule"], dim)
     nbytes = at_bytes(n, u, dim, es, xs, uniq.element_size())
@@ -6529,48 +6563,8 @@ def ring_hop_kernels(dev):
         for name, keys in (("fwd", ("out", "lse")), ("dq", ("dq",)), ("dkv", ("dk", "dv"))):
             worst[name] = max(worst[name], *(errs[n] for n in keys))
 
-    kw = dict(causal=True, q_offset=L, k_offset=0)
-    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
-    delta = ((do * out).sum(-1) - dlse).contiguous()
-    bw = (q, k, v, do, lse, delta)
-    runs = {"fwd": (lambda: fa.flash_attention_fwd(q, k, v, **kw),
-                    lambda: fa.flash_attention_fwd_plain(q, k, v, **kw)),
-            "dq": (lambda: fa.flash_attention_bwd_dq(*bw, **kw),
-                   lambda: fa.flash_attention_bwd_dq_plain(*bw, **kw)),
-            "dkv": (lambda: fa.flash_attention_bwd_dkv(*bw, **kw),
-                    lambda: fa.flash_attention_bwd_dkv_plain(*bw, **kw))}
-    # the library call: SDPA (bf16) over the same q, k, v; every key is in
-    # the past of every query at this hop, so it runs without a mask
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qs, ks, vs = (t.permute(0, 2, 1, 3).to(torch.bfloat16).contiguous().requires_grad_(True)
-                  for t in (q, k, v))
-    so = sdpa(qs, ks, vs)
-
-    def sdpa_fwd():
-        with torch.no_grad():
-            sdpa(qs, ks, vs)
-
-    lib_fwd, _ = time_cuda(sdpa_fwd)
-    lib_bwd, _ = time_cuda(lambda: torch.autograd.grad(
-        so, (qs, ks, vs), do.permute(0, 2, 1, 3).to(torch.bfloat16), retain_graph=True))
-    bounds = fa_bounds(B, L, H, D)
-    result = {}
-    for name, (kern, plain_fn) in runs.items():
-        ms_k, call_k = time_cuda(kern)
-        ms_p, _ = time_cuda(plain_fn)
-        nbytes, nops = bounds[name]
-        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / BF16_OPS_PER_S * 1e3
-        lib = lib_fwd if name == "fwd" else lib_bwd
-        log(f"kernel flash_attention_{name}@ring at {list(RING_HOP)} causal q_offset={L}: "
-            f"device {ms_k} ms, plain {ms_p} ms, bound {max(bytes_ms, ops_ms)} ms ({nbytes} B, "
-            f"{nops} bf16 ops), scaled_dot_product_attention bf16 "
-            f"{'forward' if name == 'fwd' else 'backward'} {lib} ms; per call from an idle "
-            f"card {call_k} ms")
-        result[name] = {"max_abs_err": worst[name], "ms": ms_k, "plain_ms": ms_p,
-                        "bound_ms": max(bytes_ms, ops_ms),
-                        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                        "library_ms": lib}
-    return result
+    return flash_kernel_times(dev, q, k, v, do, dlse, dict(causal=True, q_offset=L, k_offset=0),
+                              "ring", worst)
 
 
 def hybrid_leg_c(dev, card):
@@ -7365,6 +7359,739 @@ def phase_item9(dev, card):
     return {"families": fam}
 
 
+# -- phase 24: item 8's first half: the pipelines, DeepWalk, the heter pipeline --
+
+# Leg A: ERNIE (phase 7's width) through PipelineTrainer on PIPE_MESH, M
+# micro-batches of [batch / M, 512]: f_then_b and 1f1b with 2 blocks a stage,
+# interleave with 2 chunks of 1 block a rank; PIPE_WARM + PIPE_STEPS steps
+# each; the 1f1b trainer's optimizer is fleet's GradientMerge chain (k 2)
+# over Adam. Peak memory of one SGD step at PIPE_MEM_MICRO micro-batches.
+PIPE_MESH = {"dp": 1, "pp": 4}
+PIPE_MICRO, PIPE_MEM_MICRO, PIPE_WARM, PIPE_STEPS = 4, 8, 1, 3
+PIPE_HOP = (2, 512, 16, 64)          # a micro-batch's attention: [batch / M, L, H, D]
+PIPE_FIRST_LOSS_TOL = 1e-5           # the schedules' first losses, relative to f_then_b's
+# card vs CPU at HYB_SMALL's widths, 4 layers deep on {"dp": 1, "pp": 2}
+PIPE_SMALL_MESH, PIPE_SMALL_LAYERS, PIPE_SMALL_BATCH, PIPE_SMALL_STEPS = (
+    {"dp": 1, "pp": 2}, 4, 4, 2)
+# Adam's moments card vs CPU, relative to their norm: the gradients behind
+# them differ by up to 2.1e-3 of their norm under SGD (measured on one H100:
+# the small schedules' worst update difference), so 1e-2
+PIPE_MOMENT_TOL = 1e-2
+# Leg B: DeepWalk at Perozzi et al.'s (KDD 2014) widths: d 128, walk length
+# 40, window 10; 5 negatives (word2vec's SGNS default); 1024 walks a step;
+# a planted-community graph of DW_NODES nodes (communities of DW_COMMUNITY,
+# 90 % of the edges inside), degrees 8-24 (mean 16), max_deg 32.
+DW_NODES, DW_COMMUNITY, DW_MAX_DEG = 262_144, 256, 32
+DW_DIM, DW_WALK, DW_WINDOW, DW_NEG, DW_BATCH, DW_STEPS = 128, 40, 10, 5, 1024, 8
+# The sparse rule averages a key's gradient over its appearances (the show
+# scale) and divides by sqrt(1 + its squared sum): at 0.3 (the JAX test's
+# rate on a 20-node graph) 8 steps leave the loss flat; a CPU sweep at a
+# quarter of the nodes and walks (same visits a node) fell 4.160 -> 4.135
+# at 2.0, fell faster at 3.0 and diverged by step 8 at 5.0.
+DW_LR = 2.0
+# Leg C: the HeterPS shape at the pass path's widths (26 slots, embedx dim
+# 8, batch 4096, a 400^3 tower), 16 micro-batches from a child process.
+HET_ITEMS, HET_IDS, HET_SEED = 16, 10_000, 24
+HET_READY = "HETER_HEAD_SENT "
+
+
+def pipe_models(cfg, pp, seed=0, device="cpu"):
+    """Two ``PipelineLayer``s over the same weights, drawn on ``device``
+    from a generator of it: ``pp`` stages of ``num_layers / pp`` blocks,
+    and ``num_layers`` stages of 1 block (the interleave's chunks); logical
+    stage l holds block l."""
+    from paddle_tpu_torch.models.ernie import ErnieEmbedding, ErnieHead, ErnieStage
+    from paddle_tpu_torch.parallel import LayerDesc, PipelineLayer
+
+    bps = cfg.num_layers // pp
+    g = torch.Generator(device).manual_seed(seed)
+    with torch.device(device):
+        staged = PipelineLayer([LayerDesc(ErnieStage, cfg, bps, g) for _ in range(pp)],
+                               embed=ErnieEmbedding(cfg, g), head=ErnieHead(cfg, g))
+    with torch.device("meta"):
+        per_block = PipelineLayer([LayerDesc(ErnieStage, cfg, 1) for _ in range(cfg.num_layers)],
+                                  embed=ErnieEmbedding(cfg), head=ErnieHead(cfg))
+    sd = {}
+    for k, v in staged.state_dict().items():
+        if k.startswith("stages."):
+            _, s, _, b, rest = k.split(".", 4)
+            k = f"stages.{int(s) * bps + int(b)}.blocks.0.{rest}"
+        sd[k] = v
+    per_block.load_state_dict(sd, assign=True)
+    return staged, per_block
+
+
+def pipe_launches_per_step(schedule, pp, micro, layers):
+    """Flash launches a step: under f_then_b every rank runs every tick (M +
+    pp − 1) through its blocks and the backward reaches the M valid ticks;
+    under 1f1b and interleave each of the M·layers block items runs its
+    forward twice (the item's, then its recompute in the backward) and its
+    backward once."""
+    bwd = micro * layers
+    fwd = pp * (micro + pp - 1) * (layers // pp) if schedule == "f_then_b" else 2 * bwd
+    return {"flash_attention_fwd": fwd, "flash_attention_bwd_dq": bwd,
+            "flash_attention_bwd_dkv": bwd}
+
+
+def pipe_gm_optimizer():
+    """fleet's chain for ``gradient_merge`` (k 2) over Adam(1e-4)."""
+    from paddle_tpu_torch.distributed import DistributedStrategy, Fleet, UserDefinedRoleMaker
+    from paddle_tpu_torch.optimizer import Adam
+
+    f = Fleet().init(UserDefinedRoleMaker())
+    return f.distributed_optimizer(Adam(1e-4), DistributedStrategy(
+        gradient_merge=True, gradient_merge_configs={"k_steps": 2}))
+
+
+def pipe_trainer(model, opt, schedule, V, mesh, micro, device):
+    from paddle_tpu_torch.core.mesh import make_mesh
+    from paddle_tpu_torch.parallel import PipelineTrainer
+
+    return PipelineTrainer(model, opt, lm_loss, make_mesh(mesh, device=device), micro,
+                           schedule=schedule, num_virtual=V, device=device)
+
+
+def pipe_leg_a(dev, card):
+    """Full width: the three schedules' steps (launches against the formula,
+    the GradientMerge chain's held step), their first losses, peak memory
+    of f_then_b against 1f1b at PIPE_MEM_MICRO."""
+    from paddle_tpu_torch.models.ernie import ErnieConfig
+    from paddle_tpu_torch.optimizer import SGD, Adam
+
+    cfg = ErnieConfig(**ERNIE_CFG, attn_impl="flash")
+    pp, L = PIPE_MESH["pp"], cfg.num_layers
+    t0 = time.perf_counter()
+    staged, per_block = pipe_models(cfg, pp, device=dev)
+    ids, labels = hybrid_batch(np.random.default_rng(32), cfg.vocab_size, ERNIE_BATCH,
+                               ERNIE_SEQ, dev)
+    _sync(dev)
+    log(f"pipeline leg A: ERNIE {ERNIE_CFG} drawn on the card in {time.perf_counter() - t0:.2f} s")
+    # (schedule, model, chunks a rank, optimizer, micro-batches, the GM chain)
+    runs = (("f_then_b", staged, 1, Adam(1e-4), PIPE_MICRO, False),
+            ("1f1b", staged, 1, pipe_gm_optimizer(), PIPE_MICRO, True),
+            ("interleave", per_block, 2, Adam(1e-4), PIPE_MICRO, False),
+            ("f_then_b", staged, 1, SGD(1e-4), PIPE_MEM_MICRO, False),
+            ("1f1b", staged, 1, SGD(1e-4), PIPE_MEM_MICRO, False))
+    reset_launches()
+    rec, first, peak, above = {}, {}, {}, {}
+    total = {k: 0 for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                            "flash_attention_bwd_dkv")}
+    for schedule, model, V, opt, micro, gm in runs:
+        mem = micro == PIPE_MEM_MICRO
+        before = read_launches()
+        t_setup = time.perf_counter()
+        tr = pipe_trainer(model, opt, schedule, V, PIPE_MESH, micro, dev)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t_setup
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()     # the params and what earlier phases hold
+        n_steps = 1 if mem else PIPE_WARM + PIPE_STEPS
+        start = {k: v.clone() for k, v in tr.flat_params().items()} if gm else None
+        losses = []
+        for i in range(n_steps):
+            if i == PIPE_WARM:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            losses.append(tr.train_step(ids, labels))
+            if start is not None and i == 0:   # the chain's held step
+                held = all(torch.equal(v, start[k]) for k, v in tr.flat_params().items())
+                log(f"pipeline leg A 1f1b: the GradientMerge chain's first (held) step left "
+                    f"every parameter unchanged: {held}")
+                assert held, "pipeline leg A: a held GradientMerge step moved a parameter"
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0 if not mem else None
+        got = {k: v - before[k] for k, v in read_launches().items() if k in total}
+        want = {k: n_steps * n for k, n in pipe_launches_per_step(schedule, pp, micro, L).items()}
+        for k in total:
+            total[k] += got[k]
+        losses = torch.stack(losses).cpu().numpy()
+        if mem:
+            peak[schedule] = torch.cuda.max_memory_allocated()
+            above[schedule] = peak[schedule] - base
+            log(f"pipeline leg A memory, {schedule} at M={micro}: one SGD step, loss "
+                f"{losses[0]}, peak device memory {peak[schedule]} B ({above[schedule]} B above "
+                f"the {base} B allocated before the step), flash launches {got} "
+                f"(formula {want}), stashed inputs at most {tr.last_max_stash} a rank on {card}")
+        else:
+            first[schedule] = float(losses[0])
+            rec[schedule] = {"ms_per_step": 1e3 * dt / PIPE_STEPS,
+                             "tokens_per_s": ERNIE_BATCH * ERNIE_SEQ * PIPE_STEPS / dt,
+                             "losses": losses.tolist(), "max_stash": tr.last_max_stash}
+            log(f"pipeline leg A {schedule} (pp {pp}, V {V}, M {micro}): losses "
+                f"{losses.tolist()}, {rec[schedule]['ms_per_step']:.3f} ms/step, "
+                f"{rec[schedule]['tokens_per_s']:.1f} tokens/s ({PIPE_STEPS} timed steps after "
+                f"{PIPE_WARM}; the trainer built in {t_setup:.2f} s), peak memory "
+                f"{torch.cuda.max_memory_allocated()} B, stashed "
+                f"inputs at most {tr.last_max_stash} a rank; flash launches {got} (formula "
+                f"{want}) on {card}")
+            assert np.isfinite(losses).all(), f"pipeline leg A {schedule}: non-finite loss"
+            assert losses[-1] < losses[0], f"pipeline leg A {schedule}: loss did not fall"
+        assert got == want, f"pipeline leg A {schedule} M={micro}: launches {got}, formula {want}"
+        del tr
+        torch.cuda.empty_cache()
+    rel = {s: abs(v - first["f_then_b"]) / abs(first["f_then_b"]) for s, v in first.items()}
+    log(f"pipeline leg A: first losses {first}, relative to f_then_b's {rel} (stated bound "
+        f"{PIPE_FIRST_LOSS_TOL}); peak memory at M={PIPE_MEM_MICRO}: f_then_b {peak['f_then_b']} "
+        f"B, 1f1b {peak['1f1b']} B ({peak['1f1b'] / peak['f_then_b']:.3f} of it; above the "
+        f"step's start {above['1f1b'] / max(above['f_then_b'], 1):.3f}) on {card}")
+    assert max(rel.values()) <= PIPE_FIRST_LOSS_TOL, f"pipeline leg A: first losses {first}"
+    assert peak["1f1b"] < peak["f_then_b"], f"pipeline leg A: 1f1b peak memory {peak}"
+    assert all(v > 0 for v in total.values()), f"pipeline leg A: a kernel never ran {total}"
+    return {"schedules": rec, "peak": peak, "peak_above_start": above, "counts": total}
+
+
+def pipe_small_run(device, schedule, make_opt, batches):
+    """A small ERNIE through ``PipelineTrainer`` (HYB_SMALL's widths,
+    PIPE_SMALL_LAYERS deep): (losses, start and end params, the end
+    optimizer state; on the CPU)."""
+    from paddle_tpu_torch.models.ernie import ErnieConfig
+
+    cfg = ErnieConfig(**dict(HYB_SMALL, num_layers=PIPE_SMALL_LAYERS), attn_impl="flash")
+    staged, per_block = pipe_models(cfg, PIPE_SMALL_MESH["pp"], seed=5)
+    model, V = (per_block, 2) if schedule == "interleave" else (staged, 1)
+    tr = pipe_trainer(model, make_opt(), schedule, V, PIPE_SMALL_MESH, 2, device)
+    start = {k: v.cpu().clone() for k, v in tr.flat_params().items()}
+    losses = [float(tr.train_step(i.to(device), y.to(device))) for i, y in batches]
+
+    def on_cpu(t):
+        return {k: on_cpu(v) for k, v in t.items()} if isinstance(t, dict) else t.cpu()
+
+    return (np.asarray(losses), start, {k: v.cpu() for k, v in tr.flat_params().items()},
+            on_cpu(tr.opt_state))
+
+
+def pipe_leg_a_small(dev):
+    """Card (the kernels) vs CPU (their plain versions) from the same
+    weights. Each schedule under SGD(0.1), 2 steps: the losses and each
+    tensor's update within HYB_TOL (the key bias left out, as phase 21
+    does). 1f1b under fleet's GradientMerge chain over Adam(1e-3), a held
+    and an apply step: Adam's moments within PIPE_MOMENT_TOL of their norm,
+    and the update element by element within 1e-3·lr where the merged
+    gradient is at least 1e-3 of its tensor's largest (Adam's first step is
+    ±lr, so an element whose gradient is within rounding of 0 may move
+    either way)."""
+    from paddle_tpu_torch.optimizer import SGD
+
+    H, D = HYB_SMALL["num_heads"], HYB_SMALL["hidden_size"] // HYB_SMALL["num_heads"]
+    worst = {"loss": 0.0, "update": 0.0, "moments": 0.0, "adam_update": 0.0}
+    cases = [(s, "SGD", lambda: SGD(0.1)) for s in ("f_then_b", "1f1b", "interleave")]
+    cases.append(("1f1b", "GradientMerge(Adam)", pipe_gm_optimizer))
+    for schedule, opt_name, make_opt in cases:
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(64)
+        batches = [hybrid_batch(rng, HYB_SMALL["vocab_size"], PIPE_SMALL_BATCH,
+                                HYB_SMALL["max_seq_len"], "cpu") for _ in range(PIPE_SMALL_STEPS)]
+        gl, w0, gp, gs = pipe_small_run(dev, schedule, make_opt, batches)
+        cl, c0, cp, cs_ = pipe_small_run(torch.device("cpu"), schedule, make_opt, batches)
+        assert all(torch.equal(w0[k], c0[k]) for k in w0), "pipeline small: weights differ"
+        loss = float(np.max(np.abs(gl - cl) / np.abs(cl)))
+        upd = mom = adam = 0.0
+        for k, s in w0.items():
+            dg, dc = gp[k] - s, cp[k] - s
+            if opt_name == "SGD":
+                if k.endswith("attn.qkv_b"):     # [stages, H·3·D]: drop the key bias
+                    dg, dc = (d.reshape(-1, H, 3, D)[:, :, [0, 2]] for d in (dg, dc))
+                if float(dc.norm()) > 0:
+                    upd = max(upd, float((dg - dc).norm() / dc.norm()))
+                continue
+            for slot in ("m", "v"):
+                a, b = gs["inner"][slot][k], cs_["inner"][slot][k]
+                if float(b.norm()) > 0:
+                    mom = max(mom, float((a - b).norm() / b.norm()))
+            m = cs_["inner"]["m"][k]
+            big = m.abs() >= 1e-3 * m.abs().max()
+            if bool(big.any()):
+                adam = max(adam, float((dg - dc)[big].abs().max()) / 1e-3)
+        worst = {"loss": max(worst["loss"], loss), "update": max(worst["update"], upd),
+                 "moments": max(worst["moments"], mom), "adam_update": max(worst["adam_update"],
+                                                                          adam)}
+        log(f"pipeline leg A small, {schedule} {opt_name} ({time.perf_counter() - t0:.2f} s): card "
+            f"vs CPU losses {gl.tolist()} vs "
+            f"{cl.tolist()} (worst relative {loss}); " + (
+                f"worst relative update difference {upd} (stated bounds {HYB_TOL})"
+                if opt_name == "SGD" else
+                f"Adam's moments within {mom} of their norm (bound {PIPE_MOMENT_TOL}), the update "
+                f"where |m| >= 1e-3 of its tensor's largest within {adam}·lr (bound 1e-3·lr)"))
+        assert loss <= HYB_TOL["loss"] and upd <= HYB_TOL["update"] and \
+            mom <= PIPE_MOMENT_TOL and adam <= 1e-3, \
+            f"pipeline small {schedule} {opt_name}: {loss}, {upd}, {mom}, {adam}"
+    return worst
+
+
+def flash_kernel_times(dev, q, k, v, do, dlse, kw, what, worst):
+    """B5–B7 timed at q, k, v (every (query, key) pair visible, so SDPA runs
+    unmasked as the library call) beside their plain versions and byte
+    bounds: the kernels line's numbers for ``what``."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    B, L, H, D = q.shape
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    delta = ((do * out).sum(-1) - dlse).contiguous()
+    bw = (q, k, v, do, lse, delta)
+    runs = {"fwd": (lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                    lambda: fa.flash_attention_fwd_plain(q, k, v, **kw)),
+            "dq": (lambda: fa.flash_attention_bwd_dq(*bw, **kw),
+                   lambda: fa.flash_attention_bwd_dq_plain(*bw, **kw)),
+            "dkv": (lambda: fa.flash_attention_bwd_dkv(*bw, **kw),
+                    lambda: fa.flash_attention_bwd_dkv_plain(*bw, **kw))}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (t.permute(0, 2, 1, 3).to(torch.bfloat16).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    so = sdpa(qs, ks, vs)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            sdpa(qs, ks, vs)
+
+    lib_fwd, _ = time_cuda(sdpa_fwd)
+    lib_bwd, _ = time_cuda(lambda: torch.autograd.grad(
+        so, (qs, ks, vs), do.permute(0, 2, 1, 3).to(torch.bfloat16), retain_graph=True))
+    bounds = fa_bounds(B, L, H, D)
+    result = {}
+    for name, (kern, plain_fn) in runs.items():
+        ms_k, call_k = time_cuda(kern)
+        ms_p, _ = time_cuda(plain_fn)
+        nbytes, nops = bounds[name]
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / BF16_OPS_PER_S * 1e3
+        lib = lib_fwd if name == "fwd" else lib_bwd
+        log(f"kernel flash_attention_{name}@{what} at {[B, L, H, D]} {kw}: device {ms_k} ms, "
+            f"plain {ms_p} ms, bound {max(bytes_ms, ops_ms)} ms ({nbytes} B, {nops} bf16 ops), "
+            f"scaled_dot_product_attention bf16 {'forward' if name == 'fwd' else 'backward'} "
+            f"{lib} ms; per call from an idle card {call_k} ms")
+        result[name] = {"max_abs_err": worst[name], "ms": ms_k, "plain_ms": ms_p,
+                        "bound_ms": max(bytes_ms, ops_ms),
+                        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                        "library_ms": lib}
+    return result
+
+
+def pipe_hop_kernels(dev):
+    """B5–B7 at leg A's per-micro shape PIPE_HOP, not causal, with a
+    numpy-seeded dO (dlse 0: the pipeline's attention has no ring): within
+    ``FA_TOL`` of their plain versions on the card, twice the same bits;
+    then timed for the kernels line."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    B, L, H, D = PIPE_HOP
+    rng = np.random.default_rng(42)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=PIPE_HOP).astype(np.float32)).to(dev)
+                   for _ in range(4))
+    dlse = torch.zeros((B, L, H), device=dev)
+    kw = dict(causal=False)
+
+    def run():
+        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        delta = (do * out).sum(-1).contiguous()
+        return (out, lse, fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
+                *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)), delta
+
+    got, delta = run()
+    again, _ = run()
+    torch.cuda.synchronize()
+    same = all(bitwise_equal(a, b) for a, b in zip(got, again))
+    out, lse, dq, dk, dv = got
+    w_out, w_lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    w_dq = fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    w_dk, w_dv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
+    errs = {"out": max_abs(out, w_out), "lse": max_abs(lse, w_lse), "dq": max_abs(dq, w_dq),
+            "dk": max_abs(dk, w_dk), "dv": max_abs(dv, w_dv)}
+    tol = FA_TOL["default"]
+    ok = same and all(bool(torch.isfinite(t).all()) for t in got) and \
+        all(e <= tol.get(n, tol["grad"]) for n, e in errs.items())
+    log(f"kernel flash_attention pipeline micro-batch {list(PIPE_HOP)} not causal: max_abs "
+        f"{errs} (stated bounds {tol}), two runs bitwise {same}")
+    assert ok, "pipeline hop kernels disagree with their plain versions"
+    worst = {"fwd": max(errs["out"], errs["lse"]), "dq": errs["dq"],
+             "dkv": max(errs["dk"], errs["dv"])}
+    return flash_kernel_times(dev, q, k, v, do, dlse, kw, "pipeline", worst)
+
+
+def dw_graph(rng):
+    """The planted-community graph: (nodes [N] uint64 = 0..N-1, neighbours
+    [N, DW_MAX_DEG] uint64 padded with 0, degrees [N] int32)."""
+    n = DW_NODES
+    deg = rng.integers(8, 25, n)
+    local = (np.arange(n) // DW_COMMUNITY * DW_COMMUNITY)[:, None] + \
+        rng.integers(0, DW_COMMUNITY, (n, DW_MAX_DEG))
+    far = rng.integers(0, n, (n, DW_MAX_DEG))
+    nbrs = np.where(rng.random((n, DW_MAX_DEG)) < 0.9, local, far)
+    nbrs = np.where(np.arange(DW_MAX_DEG)[None, :] < deg[:, None], nbrs, 0)
+    return np.arange(n, dtype=np.uint64), nbrs.astype(np.uint64), deg.astype(np.int32)
+
+
+def dw_cache(dev, nodes, dim, capacity, seed, lr):
+    """A 16-shard host table with both tagged tables' rows made by
+    ``init_node_embeddings``, and an ``HbmEmbeddingCache`` pass over them."""
+    from paddle_tpu_torch.models import graph_embedding as ge
+    from paddle_tpu_torch.ps.accessor import AccessorConfig
+    from paddle_tpu_torch.ps.embedding_cache import CacheConfig, HbmEmbeddingCache
+    from paddle_tpu_torch.ps.sgd_rule import SGDRuleConfig
+    from paddle_tpu_torch.ps.table import MemorySparseTable, TableConfig
+
+    sgd = SGDRuleConfig(learning_rate=lr, initial_g2sum=1.0)
+    table = MemorySparseTable(TableConfig(shard_num=16, accessor_config=AccessorConfig(
+        embedx_dim=dim, embedx_threshold=0.0, sgd=sgd)))
+    cfg = CacheConfig(capacity=capacity, embedx_dim=dim, embedx_threshold=0.0, sgd=sgd)
+    ge.init_node_embeddings(table, nodes, np.random.default_rng(seed), scale=0.1)
+    cache = HbmEmbeddingCache(table, cfg, device=dev, device_map=True)
+    cache.begin_pass(np.concatenate([ge.tag_center(nodes), ge.tag_context(nodes)]))
+    return table, cache, cfg
+
+
+def dw_walks_on_edges(walk, nbrs, deg):
+    """Every step of every walk of ``walk`` (wh, wl, live read back) is an
+    edge of the host graph, or a frozen dead end: (steps checked, live steps)."""
+    wh, wl, live = (t.cpu().numpy() for t in walk)
+    assert (wh == 0).all(), "DeepWalk: a walk left the raw-node key space"
+    slots = np.arange(nbrs.shape[1])[None, :]
+    for t in range(wl.shape[1] - 1):
+        cur, nxt = wl[:, t].astype(np.int64), wl[:, t + 1]
+        edge = ((nbrs[cur] == nxt[:, None].astype(np.uint64)) & (slots < deg[cur][:, None])).any(1)
+        ok = np.where(live[:, t + 1], edge, nxt == wl[:, t])
+        assert ok.all(), f"DeepWalk: walk step {t} left the graph for {int((~ok).sum())} walks"
+    return wl.size - wl.shape[0], int(live[:, 1:].sum())
+
+
+def dw_leg_b(dev, card):
+    """DeepWalk at the published widths: one pass, DW_STEPS steps; B1 once a
+    step and bitwise on the first push; the loss falls; one batch of walks
+    checked against the graph."""
+    from paddle_tpu_torch.models import DeepWalkConfig, make_deepwalk_train_step
+    from paddle_tpu_torch.ops.device_graph import DeviceGraph
+
+    t0 = time.perf_counter()
+    nodes, nbrs, deg = dw_graph(np.random.default_rng(24))
+    graph = DeviceGraph.from_arrays(nodes, nbrs, deg, device=dev)
+    t_graph = time.perf_counter() - t0
+    table, cache, cfg = dw_cache(dev, nodes, DW_DIM, 1 << 20, 25, DW_LR)
+    t_pass = time.perf_counter() - t0 - t_graph
+    step = make_deepwalk_train_step(graph, cfg, DeepWalkConfig(DW_WALK, DW_WINDOW, DW_NEG, DW_DIM),
+                                    pool_lo=nodes.astype(np.uint32))
+    gen = torch.Generator(dev).manual_seed(26)
+    orig_walk, walks = DeviceGraph.random_walk, []
+
+    def keep_first(*a):
+        out = orig_walk(*a)
+        if not walks:
+            walks.append(out)
+        return out
+
+    push = restore = None
+    if dev.type == "cuda":
+        push, restore = capture_first_push()
+    DeviceGraph.random_walk = staticmethod(keep_first)
+    _sync(dev)
+    reset_launches()
+    losses, marks = [], []
+    try:
+        for _ in range(DW_STEPS):
+            marks.append(time.perf_counter())
+            starts = torch.randint(0, DW_NODES, (DW_BATCH,), generator=gen, device=dev)
+            cache.state, loss = step(cache.state, cache.device_map.state, starts, gen)
+            losses.append(loss)
+            if len(marks) == 1:
+                _sync(dev)
+        _sync(dev)
+    finally:
+        DeviceGraph.random_walk = staticmethod(orig_walk)
+        if restore is not None:
+            restore()
+    ms = 1e3 * (time.perf_counter() - marks[1]) / (DW_STEPS - 1)
+    first_ms = 1e3 * (marks[1] - marks[0])
+    counts = read_launches()
+    losses = torch.stack(losses).cpu().numpy()
+    pairs = DW_BATCH * DW_WALK * 2 * DW_WINDOW
+    checked, live = dw_walks_on_edges(walks[0], nbrs, deg)
+    log(f"DeepWalk leg B: {DW_NODES} nodes (mean degree {deg.mean():.3f}, max_deg {DW_MAX_DEG}, "
+        f"capped rows {graph.capped_rows}) uploaded in {t_graph:.2f} s, a pass of "
+        f"{2 * DW_NODES} tagged keys at dim {DW_DIM} in {t_pass:.2f} s (host); {DW_STEPS} steps "
+        f"of {DW_BATCH} walks x {DW_WALK} steps, window {DW_WINDOW}, {DW_NEG} negatives "
+        f"({pairs} pair slots, {pairs * (2 + DW_NEG)} pulled rows a step): the first step "
+        f"{first_ms:.3f} ms, the other {DW_STEPS - 1} {ms:.3f} ms a step (host clock, each span "
+        f"ends in a sync), losses {losses.tolist()}, launches {counts}; the first batch's "
+        f"{checked} walk steps ({live} live) all on edges or frozen, on {card}")
+    assert np.isfinite(losses).all(), f"DeepWalk: non-finite loss {losses}"
+    assert losses[-1] < losses[0], f"DeepWalk: the loss did not fall {losses}"
+    rec = {"steps": DW_STEPS, "ms_per_step": ms, "losses": losses.tolist(),
+           "launches": counts["ctr_sparse_rows"], "b1": {}}
+    if dev.type == "cuda":
+        assert counts["ctr_sparse_rows"] == counts["merge_sparse_grads"] == DW_STEPS, \
+            f"DeepWalk: B1/merge launches {counts} != steps {DW_STEPS}"
+        # the plain version takes ~0.1 s a call at this n: 5 timed calls
+        rec["b1"] = wd_b1_check(push, dim=DW_DIM, what="DeepWalk push", plain_reps=5)
+    cache.end_pass()
+    table.close()
+    return rec
+
+
+def dw_communities(dev, card):
+    """JAX's ``test_deepwalk_learns_communities`` on the card: two 10-cliques
+    and a bridge from ``from_graph_table``, 60 steps of 64 walks (length 6,
+    window 2, 4 negatives, dim 16): link-prediction AUC > 0.8."""
+    from paddle_tpu_torch.models import DeepWalkConfig, make_deepwalk_train_step
+    from paddle_tpu_torch.models import graph_embedding as ge
+    from paddle_tpu_torch.ops.device_graph import DeviceGraph
+    from paddle_tpu_torch.ps.graph_table import GraphTable
+
+    k = 10
+    g = GraphTable(shard_num=4, seed=0)
+    src = [b + i for b in (0, k) for i in range(k) for j in range(k) if i != j] + [0, k]
+    dst = [b + j for b in (0, k) for i in range(k) for j in range(k) if i != j] + [k, 0]
+    g.add_graph_node(list(range(2 * k)))
+    g.add_edges(src, dst)
+    nodes = np.arange(2 * k, dtype=np.uint64)
+    table, cache, cfg = dw_cache(dev, nodes, 16, 1 << 8, 0, 0.3)
+    step = make_deepwalk_train_step(DeviceGraph.from_graph_table(g, 32, device=dev), cfg,
+                                    DeepWalkConfig(6, 2, 4, 16), pool_lo=nodes.astype(np.uint32))
+    gen = torch.Generator(dev).manual_seed(0)
+    losses = []
+    for _ in range(60):
+        starts = torch.randint(0, 2 * k, (64,), generator=gen, device=dev)
+        cache.state, loss = step(cache.state, cache.device_map.state, starts, gen)
+        losses.append(loss)
+    losses = torch.stack(losses).cpu().numpy()
+    intra = np.array([[b + i, b + j] for b in (0, k) for i in range(k) for j in range(k)
+                      if i != j])
+    cross = np.array([[i, k + j] for i in range(2, k) for j in range(2, k)])
+    auc = ge.link_prediction_auc(cache, intra, cross)
+    log(f"DeepWalk two 10-cliques on the card: losses {losses[0]} -> {losses[-1]}, "
+        f"link-prediction AUC {auc} (bound > 0.8) on {card}")
+    assert losses[-1] < losses[0] * 0.8 and auc > 0.8, f"DeepWalk communities: AUC {auc}"
+    cache.end_pass()
+    table.close()
+    return auc
+
+
+def dist_graph_check():
+    """A ``DistGraphClient`` over 3 port ``NativePsServer``s answers the
+    2-hop sampling loop in the local ``GraphTable``'s shapes (JAX
+    ``tests/test_dist_graph.py:129-144``), with its degrees."""
+    from paddle_tpu_torch.ps import rpc
+    from paddle_tpu_torch.ps.graph_client import DistGraphClient
+    from paddle_tpu_torch.ps.graph_table import GraphTable
+
+    servers = [rpc.NativePsServer(n_trainers=1) for _ in range(3)]
+    client = rpc.RpcPsClient([f"127.0.0.1:{s.port}" for s in servers])
+    try:
+        out = []
+        for g in (GraphTable(shard_num=2), DistGraphClient(client, table_id=11)):
+            rng = np.random.default_rng(3)
+            nodes = np.arange(1, 201, dtype=np.uint64)
+            g.add_graph_node(nodes, rng.normal(size=(200, 5)).astype(np.float32))
+            g.add_edges(rng.choice(nodes, 1200), rng.choice(nodes, 1200),
+                        rng.uniform(0.1, 2.0, 1200).astype(np.float32))
+            seeds = np.asarray([1, 2, 3], np.uint64)
+            n1, m1 = g.sample_neighbors(seeds, 4, weighted=False)
+            n2, m2 = g.sample_neighbors(n1.reshape(-1), 4, weighted=False)
+            out.append(((n1.shape, m1.shape, n2.shape, m2.shape, n1.dtype, m2.dtype),
+                        g.get_node_degree(nodes), g.node_count, g.edge_count))
+    finally:
+        client.close()
+        for s in servers:
+            s.close()
+    same = out[0][0] == out[1][0] and np.array_equal(out[0][1], out[1][1]) and \
+        out[0][2:] == out[1][2:]
+    log(f"DistGraphClient over 3 servers: 2-hop shapes {out[1][0]}, {out[1][2]} nodes, "
+        f"{out[1][3]} edges; shapes, degrees and counts equal to the local GraphTable's: {same}")
+    assert same, f"DistGraphClient: {out[1][0]} vs {out[0][0]}"
+
+
+def het_keys(rng):
+    """[BATCH, SLOTS] slot-tagged keys (slot in the high half, HET_IDS ids a slot)."""
+    ids = rng.integers(0, HET_IDS, (BATCH, SLOTS)).astype(np.uint64)
+    return (np.arange(SLOTS, dtype=np.uint64)[None, :] << np.uint64(32)) | ids
+
+
+def heter_head_child(port):
+    """``--heter-head PORT``: the CPU head of leg C; HET_ITEMS micro-batches
+    (keys, dense features, labels) from a numpy seed over the channel, then
+    STOP."""
+    from paddle_tpu_torch.parallel.heter_channel import ChannelClient
+
+    rng = np.random.default_rng(HET_SEED)
+    cli = ChannelClient("127.0.0.1", int(port))
+    for i in range(HET_ITEMS):
+        cli.send({"idx": np.asarray(i), "keys": het_keys(rng),
+                  "dense": rng.random((BATCH, DENSE), dtype=np.float32),
+                  "labels": (rng.random(BATCH) < 0.25).astype(np.float32)})
+    cli.send_stop()
+    cli.close()
+    print(f"{HET_READY}{HET_ITEMS}", flush=True)
+    return 0
+
+
+def het_sections(dev):
+    """(the three section functions, the table, the tower's params, the log
+    of table operations, the items seen): host pull → the tower's step on the
+    card (Adam) → host push; the pull and push log their order under one lock."""
+    import threading
+
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.ps.accessor import AccessorConfig
+    from paddle_tpu_torch.ps.table import MemorySparseTable, TableConfig
+
+    table = MemorySparseTable(TableConfig(shard_num=16,
+                                          accessor_config=AccessorConfig(embedx_dim=DIM)))
+    g = torch.Generator().manual_seed(HET_SEED)
+    width = SLOTS * (1 + DIM) + DENSE
+    tower = torch.nn.Sequential(Linear(width, 400, generator=g), torch.nn.ReLU(),
+                                Linear(400, 400, generator=g), torch.nn.ReLU(),
+                                Linear(400, 400, generator=g), torch.nn.ReLU(),
+                                Linear(400, 1, generator=g)).to(dev)
+    params = {k: v.detach() for k, v in tower.named_parameters()}
+    opt = Adam(1e-3)
+    state = {"params": params, "opt": opt.init(params), "losses": []}
+    order, items, lock = [], {}, threading.Lock()
+
+    def pull(item):
+        i = int(item["idx"])
+        keys = item["keys"]
+        with lock:
+            pulled = table.pull_sparse(keys.ravel())
+            order.append(("pull", i))
+        items[i] = item
+        emb = pulled[:, 2:].reshape(BATCH, SLOTS * (1 + DIM))
+        return i, keys, emb, item["dense"], item["labels"]
+
+    def card_step(x):
+        i, keys, emb, dense, labels = x
+        e = torch.from_numpy(np.ascontiguousarray(emb)).to(dev).requires_grad_(True)
+        y = torch.from_numpy(np.array(labels)).to(dev)
+        p = {k: v.requires_grad_(True) for k, v in state["params"].items()}
+        logit = torch.func.functional_call(tower, p, (torch.cat(
+            [e, torch.from_numpy(np.array(dense)).to(dev)], dim=1),))[:, 0]
+        loss = torch.nn.functional.binary_cross_entropy_with_logits(logit, y)
+        got = torch.autograd.grad(loss, [e, *p.values()])
+        new, state["opt"] = opt.update(dict(zip(p, got[1:])), state["opt"],
+                                       {k: v.detach() for k, v in p.items()})
+        state["params"] = new
+        state["losses"].append(loss.detach())
+        return i, keys, got[0].cpu().numpy(), labels
+
+    def push(x):
+        i, keys, ge, labels = x
+        n = keys.size
+        vals = np.zeros((n, 3 + 1 + DIM), np.float32)
+        vals[:, 1] = 1.0
+        vals[:, 2] = np.repeat(np.asarray(labels), SLOTS)
+        vals[:, 3:] = ge.reshape(n, 1 + DIM)
+        with lock:
+            table.push_sparse(keys.ravel(), vals)
+            order.append(("push", i))
+        return i
+
+    return (pull, card_step, push), table, state, order, items
+
+
+def het_head_start():
+    """The channel's server and the CPU head's child (started at the phase's
+    start, so its interpreter's start overlaps legs A and B; it blocks on the
+    channel's bounded queue until leg C reads)."""
+    from paddle_tpu_torch.parallel.heter_channel import ChannelServer
+
+    srv = ChannelServer(capacity=4)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    child = subprocess.Popen([sys.executable, PSJOB_SCRIPT, "--heter-head", str(srv.port)],
+                             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return srv, child
+
+
+def het_leg_c(dev, card, head):
+    """The HeterPS shape across two processes: a child runs the CPU head and
+    sends HET_ITEMS micro-batches over ``ChannelClient``; here
+    ``HeterPipelineTrainer([pull, card step, push])`` runs them from
+    ``channel_source``. Items in order, the table and the tower bitwise equal
+    to a serial replay (one thread, the run's order of table operations),
+    the child's exit 0, the card section's busy spans overlapping the host
+    sections'."""
+    from paddle_tpu_torch.parallel.heter_channel import channel_source
+    from paddle_tpu_torch.parallel.heter_pipeline import HeterPipelineTrainer, SectionConfig
+
+    srv, child = head
+    fns, table, state, order, items = het_sections(dev)
+    t0 = time.perf_counter()
+    try:
+        tr = HeterPipelineTrainer([SectionConfig(fns[0], "cpu"), SectionConfig(fns[1], "gpu"),
+                                   SectionConfig(fns[2], "cpu")], channel_capacity=2)
+        out = tr.run(channel_source(srv, timeout=120))
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        try:
+            stdout, stderr = child.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            stdout, stderr = child.communicate()
+    assert child.returncode == 0, f"leg C head child rc {child.returncode}: {stderr[-2000:]}"
+    assert out == list(range(HET_ITEMS)), f"leg C: items out of order {out}"
+    assert [i for op, i in order if op == "pull"] == list(range(HET_ITEMS)), "leg C: pull order"
+    host = tr.spans[0] + tr.spans[2]
+    overlap = sum(max(0.0, min(e, f) - max(s, r)) for s, e in tr.spans[1] for r, f in host)
+    busy = {n: sum(e - s for s, e in sp) for n, sp in zip(("pull", "card", "push"), tr.spans)}
+
+    s_fns, s_table, s_state, s_order, _ = het_sections(dev)
+    pulled, trained = {}, 0
+    for op, i in order:       # the serial replay: the run's order of table operations
+        if op == "pull":
+            pulled[i] = s_fns[0](items[i])
+            continue
+        while trained <= i:
+            pulled[trained] = s_fns[1](pulled[trained])
+            trained += 1
+        s_fns[2](pulled[i])
+    keys = np.unique(np.concatenate([items[i]["keys"].ravel() for i in items]))
+    same_table = bool(np.array_equal(table.export_full(keys)[0], s_table.export_full(keys)[0]))
+    same_tower = all(torch.equal(state["params"][k], s_state["params"][k])
+                     for k in state["params"])
+    losses = torch.stack(state["losses"]).cpu().numpy()
+    same_loss = bool(np.array_equal(losses, torch.stack(s_state["losses"]).cpu().numpy()))
+    log(f"heter leg C: {HET_ITEMS} micro-batches of {BATCH} x {SLOTS} slots from a child "
+        f"process ({stdout.strip()!r}, rc {child.returncode}) in {wall:.2f} s (the child started "
+        f"with the phase); in order; section "
+        f"busy seconds {busy}, card spans overlapping host spans {overlap:.4f} s; losses "
+        f"{losses[0]} -> {losses[-1]}; table ({len(keys)} keys), tower and losses bitwise equal "
+        f"to the serial replay: {same_table}, {same_tower}, {same_loss} on {card}")
+    assert overlap > 0, "leg C: the card section never overlapped a host section"
+    assert same_table and same_tower and same_loss, "leg C: the pipeline differs from the replay"
+    assert np.isfinite(losses).all(), "leg C: non-finite loss"
+    table.close()
+    s_table.close()
+    return {"overlap_s": overlap, "busy_s": busy, "wall_s": wall}
+
+
+def phase_item8(dev, card):
+    """Phase 24: leg A (ERNIE through PipelineTrainer, full width and card vs
+    CPU small; B5–B7 at the micro-batch shape), leg B (DeepWalk at the
+    published widths, the communities on the card, DistGraphClient), leg C
+    (the heter pipeline across two processes)."""
+    t_phase = time.perf_counter()
+    head = het_head_start()
+    try:
+        a = pipe_leg_a(dev, card)
+        t_small = time.perf_counter()
+        pipe_leg_a_small(dev)
+        a["kernels"] = pipe_hop_kernels(dev)
+        torch.cuda.empty_cache()
+        t_b = time.perf_counter()
+        b = dw_leg_b(dev, card)
+        dw_communities(dev, card)
+        dist_graph_check()
+        torch.cuda.empty_cache()
+        t_c = time.perf_counter()
+        c = het_leg_c(dev, card, head)
+    finally:
+        srv, child = head
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+        srv.close()
+    log(f"item 8 (phase 24): {time.perf_counter() - t_phase:.1f} s (leg A {t_small - t_phase:.1f} "
+        f"s and its small runs and kernels {t_b - t_small:.1f} s, leg B {t_c - t_b:.1f} s, leg C "
+        f"{time.perf_counter() - t_c:.1f} s) on {card}")
+    return {"pipeline": a, "deepwalk": b, "heter": c}
+
+
 HYB_RANGES = ("hybrid_forward", "hybrid_backward", "hybrid_update")
 # B5-B7's kernels in ops/csrc/flash_attention.cu (tensor-core and f32 forms)
 HYB_FLASH_KERNELS = ("fwd_mma_kernel", "bwd_dq_mma_kernel", "bwd_dkv_mma_kernel",
@@ -7423,13 +8150,15 @@ def main(argv):
         return ha_server_child(*argv[1:])
     if argv[:1] == ["--serve-export"] and len(argv) == 2:
         return serve_export_child(argv[1])
+    if argv[:1] == ["--heter-head"] and len(argv) == 2:
+        return heter_head_child(argv[1])
     if argv[:1] == ["--profile"] and len(argv) == 2:
         profile_dir = argv[1]
     elif argv:
         print("usage: chip_smoke.py [--profile DIR]  (--ps-job CONFIG.json: one process of "
               "phase 14's job; --ckpt-job CONFIG.json: one leg of phase 15; --ha-server STORE "
               "JOB SHARD: one server process of phase 16's leg C; --serve-export DIR: phase "
-              "22's serving child)", file=sys.stderr)
+              "22's serving child; --heter-head PORT: phase 24's CPU head)", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -7489,6 +8218,7 @@ def main(argv):
     hyb = phase_hybrid(dev, card, ernie_stats)
     item5 = phase_item5(dev, card)
     item9 = phase_item9(dev, card)
+    item8 = phase_item8(dev, card)
     phase_kernel_counts(dev)
     wd_kernel_counts(dev)
     hybrid_step_profile(hyb)
@@ -7583,7 +8313,19 @@ def main(argv):
         # instantiation), ESMM and MMoE passes launch it: each pass's launches,
         # its numbers on that family's first push
         *(entry(f"ctr_sparse_rows@{f}", b1_src, b1_ref, item9["families"][f]["launches"],
-                item9["families"][f]["b1"]) for f in ("din", "esmm", "mmoe"))]
+                item9["families"][f]["b1"]) for f in ("din", "esmm", "mmoe")),
+        # B1 again as phase 24's DeepWalk pass launches it at dim 128 (kMaxDim):
+        # its launches there, its numbers on the first push
+        entry("ctr_sparse_rows@deepwalk", b1_src, b1_ref, item8["deepwalk"]["launches"],
+              item8["deepwalk"]["b1"]),
+        # B5-B7 again as phase 24's pipeline trainer launches them (the three
+        # schedules and the memory steps of leg A), their numbers at a
+        # micro-batch's shape
+        *(entry(f"flash_attention_{name}@pipeline", fa_src, f"{fa_ref}:{line}",
+                item8["pipeline"]["counts"][f"flash_attention_{name}"],
+                item8["pipeline"]["kernels"][key])
+          for name, key, line in (("fwd", "fwd", 127), ("bwd_dq", "dq", 176),
+                                  ("bwd_dkv", "dkv", 221)))]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -4,8 +4,11 @@ launcher (``python -m paddle_tpu_torch.distributed.launch``)."""
 
 from .collective import TCPStore
 from .fleet import Fleet, fleet
+from .meta_optimizers import apply_strategy
+from .recompute import recompute, recompute_sequential
 from .role_maker import PaddleCloudRoleMaker, Role, RoleMakerBase, UserDefinedRoleMaker
 from .strategy import DistributedStrategy
 
 __all__ = ["DistributedStrategy", "Fleet", "PaddleCloudRoleMaker", "Role", "RoleMakerBase",
-           "TCPStore", "UserDefinedRoleMaker", "fleet"]
+           "TCPStore", "UserDefinedRoleMaker", "apply_strategy", "fleet", "recompute",
+           "recompute_sequential"]

@@ -27,10 +27,11 @@ communicator.
   (the transport of ``InMemoryDataset.global_shuffle``), barrier and the
   static file split, over a ``TCPStore`` that worker 0 hosts at
   ``PADDLE_UTIL_STORE_PORT``.
-- ``distributed_optimizer`` returns the optimizer as it is for a strategy
-  without a dense flag; a dense flag raises (``meta_optimizers`` is not
-  ported, ROADMAP Queue A item 8). ``save_inference_model`` exports
-  through ``io.inference`` (``torch.export``).
+- ``distributed_optimizer`` returns ``meta_optimizers.apply_strategy``'s
+  chain for the strategy's dense flags (the optimizer as it is without
+  one), as the JAX package does; a ``reducer`` raises (the fused dp
+  collectives, ROADMAP item 7). ``save_inference_model`` exports through
+  ``io.inference`` (``torch.export``).
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ..core.enforce import PreconditionNotMetError, UnavailableError, enforce
+from ..core.enforce import PreconditionNotMetError, enforce
 from ..ps.client import LocalPsClient, PsServerHandle
 from ..ps.communicator import (AsyncCommunicator, GeoCommunicator, HalfAsyncCommunicator,
                                SyncCommunicator)
@@ -53,12 +54,6 @@ from .role_maker import PaddleCloudRoleMaker, RoleMakerBase
 from .strategy import DistributedStrategy
 
 __all__ = ["Fleet", "fleet"]
-
-# the strategy flags that select a dense meta-optimizer (JAX:
-# distributed/meta_optimizers.apply_strategy)
-_DENSE_FLAGS = ("lars", "lamb", "dgc", "fp16_allreduce", "asp", "localsgd", "gradient_merge",
-                "recompute", "amp")
-
 
 class _FleetUtil:
     """``fleet.util`` (base/util_factory.py): host-side small collectives
@@ -464,23 +459,16 @@ class Fleet:
     def distributed_optimizer(self, optimizer, strategy: Optional[DistributedStrategy] = None,
                               reducer=None):
         """The reference's ``fleet.distributed_optimizer``
-        (fleet_base.py:1438). The PS path routes sparse gradients through
-        the communicator, not the optimizer, so a strategy with no dense
-        flag returns ``optimizer`` as it is (the JAX ``apply_strategy``
-        with no flag and no reducer). A dense flag, or a ``reducer``,
-        raises: the meta-optimizers are not ported."""
+        (fleet_base.py:1438): the meta-optimizer chain of the strategy's
+        dense flags (``meta_optimizers.apply_strategy``; the optimizer as it
+        is without one). Sparse gradients go through the communicator, not
+        the optimizer. ``reducer`` (the pre-reduction contract over fused dp
+        collectives) raises: ``comm_fusion`` is ROADMAP item 7."""
         self._check_init()
         if strategy is not None:
             self._strategy = strategy
-        flags = [f for f in _DENSE_FLAGS if getattr(self._strategy, f, False)]
-        if reducer is not None:
-            flags.append("reducer")
-        if flags:
-            raise UnavailableError(
-                f"distributed_optimizer: strategy flag(s) {flags} need the dense "
-                "meta-optimizers (distributed/meta_optimizers.py), which are not ported yet "
-                "(ROADMAP Queue A item 8)")
-        return optimizer
+        from .meta_optimizers import apply_strategy
 
+        return apply_strategy(optimizer, self._strategy, reducer=reducer)
 
 fleet = Fleet()

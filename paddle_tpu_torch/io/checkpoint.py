@@ -171,7 +171,9 @@ def graft_into(template: Any, loaded: Any) -> Any:
             out[k] = graft_into(v, loaded[key])
         return out
     if isinstance(template, (list, tuple)):
-        return type(template)(graft_into(v, loaded[i]) for i, v in enumerate(template))
+        items = [graft_into(v, loaded[i]) for i, v in enumerate(template)]
+        # a NamedTuple (e.g. amp.LossScaleState) takes its fields positionally
+        return type(template)(*items) if hasattr(template, "_fields") else type(template)(items)
     if isinstance(template, torch.Tensor):
         src = loaded if isinstance(loaded, torch.Tensor) else torch.from_numpy(np.array(loaded))
         return src.to(device=template.device, dtype=template.dtype)

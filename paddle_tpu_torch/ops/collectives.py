@@ -379,12 +379,13 @@ def pmax(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
 def ppermute(x: torch.Tensor, axis: str, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
     """``lax.ppermute``: for each pair (i, j), the rank at coordinate j
     on ``axis`` receives the tensor of the rank at coordinate i; a rank
-    that no pair sends to receives zeros."""
+    that no pair sends to receives zeros. A rank may send None (it has
+    nothing to send, and its receiver reads nothing): None arrives."""
     def fn(xs):
-        out = [None] * len(xs)
+        out, sent = [None] * len(xs), [False] * len(xs)
         for i, j in perm:
-            out[j] = xs[i]
-        return [torch.zeros_like(xs[j]) if o is None else o for j, o in enumerate(out)]
+            out[j], sent[j] = xs[i], True
+        return [o if sent[j] else torch.zeros_like(xs[j]) for j, o in enumerate(out)]
 
     return _collective(x, axis, fn)
 

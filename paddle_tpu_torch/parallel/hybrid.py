@@ -46,7 +46,6 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..core.device import resolve_device
 from ..core.enforce import InvalidArgumentError, UnavailableError, enforce
@@ -55,60 +54,14 @@ from ..models.ernie import (_ATTN_IMPLS, ErnieConfig, ErnieEmbedding, ErnieHead,
                             parallel_cross_entropy, partition_spec)
 from ..nn import Dropout
 from ..ops import collectives as coll
-from .pipeline import pipeline_spmd_fn
+from .pipeline import bind as _bind
+from .pipeline import flatten_tree, pipeline_spmd_fn, unflatten_tree
+from .pipeline import module_state as _module_state
+from .pipeline import with_leaves as _with_leaves
 
 __all__ = ["HybridParallelTrainer", "flatten_tree", "unflatten_tree"]
 
 Tree = Dict[str, Any]
-
-
-def flatten_tree(tree: Tree, prefix: str = "") -> Dict[str, Any]:
-    """Nested dicts → {"a/b/leaf.name": leaf} (the names inside a state
-    dict hold dots, so the tree levels join with "/")."""
-    out = {}
-    for k, v in tree.items():
-        path = f"{prefix}/{k}" if prefix else str(k)
-        if isinstance(v, dict):
-            out.update(flatten_tree(v, path))
-        else:
-            out[path] = v
-    return out
-
-
-def unflatten_tree(flat: Dict[str, Any]) -> Tree:
-    """Inverse of :func:`flatten_tree` (an empty dict of the tree has no
-    path, so it does not come back: :func:`_with_leaves` keeps it)."""
-    tree: Tree = {}
-    for path, v in flat.items():
-        *heads, leaf = path.split("/")
-        node = tree
-        for h in heads:
-            node = node.setdefault(h, {})
-        node[leaf] = v
-    return tree
-
-
-def _with_leaves(tree: Tree, flat: Dict[str, Any], prefix: str = "") -> Tree:
-    """``tree``'s structure with the leaves of ``flat`` (by path)."""
-    out = {}
-    for k, v in tree.items():
-        path = f"{prefix}/{k}" if prefix else str(k)
-        out[k] = _with_leaves(v, flat, path) if isinstance(v, dict) else flat[path]
-    return out
-
-
-def _module_state(m: nn.Module) -> Tree:
-    return {"params": dict(m.named_parameters()), "buffers": dict(m.named_buffers())}
-
-
-def _bind(module: nn.Module, state: Tree) -> None:
-    """Install ``state``'s tensors (this rank's views) as ``module``'s
-    parameters and buffers, by name."""
-    for group, slot in (("params", "_parameters"), ("buffers", "_buffers")):
-        for name, t in state.get(group, {}).items():
-            owner, _, leaf = name.rpartition(".")
-            sub = module.get_submodule(owner) if owner else module
-            getattr(sub, slot)[leaf] = t
 
 
 def _shard(t: torch.Tensor, spec: Tuple[Optional[str], ...], coords: Dict[str, int],

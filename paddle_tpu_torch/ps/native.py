@@ -2,10 +2,12 @@
 
 ``sparse_index.cc`` (the feasign index and the parallel pass dedup),
 ``cuckoo.cc`` (the per-pass device key map build), ``slot_parser.cc``
-(the MultiSlot text parser of the dataset) and ``data_feed.cc`` (the
-threaded file reader over that parser, :class:`NativeDataFeed`) are the
-port's own copies of the JAX package's sources. They build at first use
-with ``g++ -O3 -ffp-contract=off -std=c++17 -fPIC -shared`` into the
+(the MultiSlot text parser of the dataset), ``data_feed.cc`` (the
+threaded file reader over that parser, :class:`NativeDataFeed`) and
+``tensor_channel.cc`` (the heterogeneous pipeline's cross-process frame
+queue, bound by ``parallel.heter_channel``) are the port's own copies
+of the JAX package's sources. They build at first use with
+``g++ -O3 -ffp-contract=off -std=c++17 -fPIC -shared`` into the
 gitignored build directory (``ops/_build.py``). There is no Python
 fallback: ``dedup_u64``'s order fixes the cache row ids of a pass, and a
 different dedup would give different rows.
@@ -50,7 +52,8 @@ __all__ = ["FeasignIndex", "NativeDataFeed", "NativeSparseTableEngine", "SST_STA
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "csrc")
 _SOURCES = tuple(os.path.join(_CSRC, f)
-                 for f in ("sparse_index.cc", "cuckoo.cc", "slot_parser.cc", "data_feed.cc"))
+                 for f in ("sparse_index.cc", "cuckoo.cc", "slot_parser.cc", "data_feed.cc",
+                           "tensor_channel.cc"))
 _SSD_SOURCES = tuple(os.path.join(_CSRC, f) for f in ("ssd_table.cc", "ps_service.cc",
                                                       "sparse_table.cc", "sparse_table.h",
                                                       "graph_store.h"))

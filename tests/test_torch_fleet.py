@@ -19,9 +19,11 @@
   PS service, or raises; JAX's falls back), the ``TCPStore`` that
   ``fleet.util`` rides, ``init_server`` on the
   endpoint's host and port, ``fleet.util.get_file_shard`` from the role
-  maker, ``distributed_optimizer`` with no flag and with each dense flag.
+  maker, ``distributed_optimizer`` with no flag and with each dense flag
+  (the JAX ``apply_strategy`` chain; with ``reducer=`` it raises).
 
-Tolerance: exact (config and table rows).
+Tolerance: exact (config and table rows); the dense chains' 3 updates
+rtol 1e-6 / atol 1e-7.
 """
 
 import dataclasses
@@ -486,14 +488,76 @@ def test_distributed_optimizer_without_a_flag_returns_the_optimizer(tmp_path):
     assert torch.equal(got, torch.ones(5, 3) @ w)
 
 
-@pytest.mark.parametrize("flag", ["lars", "lamb", "dgc", "amp", "recompute", "gradient_merge",
-                                  "localsgd", "fp16_allreduce", "asp"])
+DENSE_FLAGS = ["lars", "lamb", "dgc", "amp", "recompute", "gradient_merge", "localsgd",
+               "fp16_allreduce", "asp"]
+
+
+@pytest.mark.parametrize("flag", DENSE_FLAGS)
 def test_distributed_optimizer_dense_flag_raises(flag):
+    """A dense flag with ``reducer=`` (the fused dp collectives) raises,
+    naming ROADMAP item 7; without one the chain is built (below)."""
     from paddle_tpu_torch.optimizer import Momentum
 
     f = tdist.Fleet().init(tdist.UserDefinedRoleMaker())
-    with pytest.raises(UnavailableError, match=f"{flag}.*item 8"):
-        f.distributed_optimizer(Momentum(0.1), tdist.DistributedStrategy(**{flag: True}))
+    with pytest.raises(UnavailableError, match="reducer.*item 7"):
+        f.distributed_optimizer(Momentum(0.1), tdist.DistributedStrategy(**{flag: True}),
+                                reducer=object())
+
+
+@pytest.mark.parametrize("flag", DENSE_FLAGS)
+def test_distributed_optimizer_dense_flag_matches_jax(flag):
+    """``fleet.distributed_optimizer`` with one dense flag builds the JAX
+    chain (``meta_optimizers.apply_strategy``): the same wrapper classes,
+    and 3 updates from the same params and gradients agree with JAX's
+    within rtol 1e-6 / atol 1e-7. The updates run inside ``run_ranks`` on a
+    dp mesh of one rank (LocalSGD's average is an axis collective); the
+    JAX LocalSGD's pmean over that one rank is the identity."""
+    import jax.numpy as jnp
+
+    from paddle_tpu import optimizer as jopt
+    from paddle_tpu.distributed import meta_optimizers as jmo
+    from paddle_tpu_torch.core.mesh import make_mesh
+    from paddle_tpu_torch.ops import collectives as coll
+    from paddle_tpu_torch.optimizer import Momentum
+
+    f = tdist.Fleet().init(tdist.UserDefinedRoleMaker())
+    topt = f.distributed_optimizer(Momentum(0.1), tdist.DistributedStrategy(**{flag: True}))
+    jopt_ = jmo.apply_strategy(jopt.Momentum(0.1), jdist.DistributedStrategy(**{flag: True}))
+
+    def chain(o):
+        names = []
+        while o is not None:
+            names.append(type(o).__name__)
+            o = getattr(o, "inner", None)
+        return names
+
+    assert chain(topt) == chain(jopt_) and len(chain(topt)) >= 1
+    node = jopt_
+    while node is not None:
+        if isinstance(node, jmo.LocalSGDOptimizer):
+            node._sync = lambda t: t
+        node = getattr(node, "inner", None)
+    rng = np.random.default_rng(5)
+    p0 = {"w": rng.normal(size=(4, 8)).astype(np.float32),
+          "b": rng.normal(size=(8,)).astype(np.float32)}
+    grads = [{k: rng.normal(size=v.shape).astype(np.float32) for k, v in p0.items()}
+             for _ in range(3)]
+    jp = {k: jnp.asarray(v) for k, v in p0.items()}
+    js = jopt_.init(jp)
+    for g in grads:
+        jp, js = jopt_.update({k: jnp.asarray(v) for k, v in g.items()}, js, jp)
+
+    def run(rank):
+        tp = {k: torch.from_numpy(v) for k, v in p0.items()}
+        ts = topt.init(tp)
+        for g in grads:
+            tp, ts = topt.update({k: torch.from_numpy(v) for k, v in g.items()}, ts, tp)
+        return tp
+
+    tp = coll.run_ranks(make_mesh({"dp": 1}, device="cpu"), run)[0]
+    for k in p0:
+        np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), rtol=1e-6, atol=1e-7,
+                                   err_msg=f"{flag}: {k}")
 
 
 def test_fleet_calls_before_init_raise():
