@@ -18,7 +18,10 @@ processes (``python -m paddle_tpu_torch.serving.member_host``), kills one
 and stops the others; phase 22 starts one serving child (this script in
 ``--serve-export DIR`` mode) and waits for it; phase 24 starts three PS
 servers on 127.0.0.1 and closes them, and one child (``--heter-head
-PORT``, the heter pipeline's CPU head) and waits for it. Exits non-zero, with no
+PORT``, the heter pipeline's CPU head) and waits for it; phase 25 starts
+one child (``--fleet-source CONFIG.json``, the fleet executor's
+source) and waits for it, and ``elastic_launch_local`` starts and reaps
+its trainers (``--elastic-trainer CONFIG.json``). Exits non-zero, with no
 result line, when there is no CUDA device, when the package is missing,
 or when any phase fails. Phases:
 
@@ -366,7 +369,28 @@ or when any phase fails. Phases:
    overlapping the host sections', the table, the tower and the losses
    bitwise equal to a serial replay of the run's order of table
    operations;
-25. the ``kernels`` JSON line (B1 ten times: ``ctr_sparse_rows`` on the
+25. ROADMAP item 8's second half (``distributed.auto_parallel``,
+   ``completion``, ``fleet_executor``, ``elastic`` and
+   ``launch.elastic_launch_local``). Leg A: ERNIE at phase 7's width
+   traced on meta tensors (no launch), the two-hint Megatron layout
+   completed for every block, ``choose_strategy`` over 4 devices under
+   the parameter bytes × 4 / 2 × 1.01, the chosen plan run through
+   ``hybrid_trainer_from_plan`` (batch 8 × 512, 4 micro-batches; first
+   loss within ``PIPE_FIRST_LOSS_TOL`` of the serial model on the
+   trainer's weights, flash launches equal to the hybrid formula, 1 warm
+   and 2 timed steps), then ``Engine(plan="auto")`` fitting 3 batches
+   bitwise equal to a ``Trainer`` on the same weights and batches,
+   evaluate, predict, save, load, ``completion()``, flash launches as
+   ERNIE's formula. Leg B: 16 micro-batches of phase 24 leg C's shape
+   made and packed in a child (``--fleet-source``), over an HMAC-signed
+   ``RemoteMessageBus`` into the pass path's DeepFM step and a sink here,
+   credits 2: one B1 a step, no edge beyond its credits, losses, dense
+   params and cache rows bitwise equal to the same 16 steps run serially.
+   Leg C: ``elastic_launch_local`` over 2 trainers (``--elastic-trainer``),
+   rank 1 crashing once: rc 0, one restart, 4 items done exactly once at
+   the rewritten world size, each loss bitwise equal to the same step
+   here;
+26. the ``kernels`` JSON line (B1 ten times: ``ctr_sparse_rows`` on the
    pass path, ``ctr_sparse_rows@widedeep`` on phase 12's,
    ``ctr_sparse_rows@gpubox_rpc`` on phase 14's leg B,
    ``ctr_sparse_rows@recsys`` on phase 20's leg A,
@@ -8092,6 +8116,521 @@ def phase_item8(dev, card):
     return {"pipeline": a, "deepwalk": b, "heter": c}
 
 
+# -- phase 25: item 8's second half: the planner, the fleet executor, the elastic launcher --
+
+# Leg A: ERNIE at phase 7's width. The planner traces it on meta tensors, completes
+# the two-hint Megatron layout on a (dp 2, mp 2) mesh, and plans 4 devices under
+# a budget that forces a split (the parameter bytes × 4 / 2 × 1.01, as JAX's
+# test_planner_bridge_realistic_width); the plan runs through
+# hybrid_trainer_from_plan on PLAN_BATCH × 512 in PLAN_MICRO micro-batches (1 warm
+# and PLAN_STEPS timed steps); then Engine(plan="auto") fits ENGINE_STEPS batches
+# beside a Trainer on the same weights and batches.
+PLAN_DEVICES, PLAN_BATCH, PLAN_MICRO, PLAN_STEPS, ENGINE_STEPS = 4, 8, 4, 2, 3
+PLAN_HINTS = {"blocks.0.attn.qkv_w": [-1, 1], "blocks.0.ffn.w_in": [-1, 1]}
+# Leg B: phase 24 leg C's HeterPS shape (26 slots, embedx dim 8, batch 4096, a
+# 400^3 tower) through the pass path's DeepFM step; FE_ITEMS micro-batches made
+# and packed in a child process, credits FE_CREDITS on every edge.
+FE_ITEMS, FE_CREDITS, FE_SEED, FE_CAP = 16, 2, 25, 1 << 19
+FE_READY = "FLEET_SOURCE_DONE "
+# Leg C: elastic_launch_local over 2 trainer processes (min_np 1, max_np 2); rank 1
+# crashes once; EL_ITEMS pass-path DeepFM steps, each from the same saved weights
+# on its own batch.
+EL_ITEMS, EL_SEED, EL_CAP = 4, 26, 1 << 18
+
+
+def plan_ernie_model(cfg, dev):
+    """The serial ERNIE of phase 7, drawn from a seed on the CPU, on ``dev``."""
+    from paddle_tpu_torch.models.ernie import Ernie
+
+    return Ernie(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+
+
+def plan_leg_a(dev, card):
+    """The planner at ERNIE's full width: trace (no launch), complete the
+    two-hint layout, choose a split plan for PLAN_DEVICES devices and run it
+    through the hybrid trainer (first loss against the serial model, launches
+    against the formula); then Engine(plan="auto") against a Trainer."""
+    import copy
+    import tempfile
+
+    from paddle_tpu_torch.distributed import auto_parallel as ap
+    from paddle_tpu_torch.distributed.completion import trace_param_graph
+    from paddle_tpu_torch.executor import Trainer
+    from paddle_tpu_torch.models.ernie import Ernie, ErnieConfig
+    from paddle_tpu_torch.optimizer import Adam
+
+    cfg = ErnieConfig(**ERNIE_CFG)
+    with torch.device("meta"):
+        meta_model = Ernie(cfg)
+    meta_ids = torch.empty(PLAN_BATCH, ERNIE_SEQ, dtype=torch.int64, device="meta")
+    reset_launches()
+    t0 = time.perf_counter()
+    graph = trace_param_graph(meta_model, [meta_ids])
+    t_trace = time.perf_counter() - t0
+    specs = ap.complete_shardings(meta_model, ap.ProcessMesh(shape=(2, 2), dim_names=("dp", "mp")),
+                                  PLAN_HINTS, example_inputs=[meta_ids])
+    pbytes = sum(p.numel() * p.element_size() for p in meta_model.parameters())
+    t0 = time.perf_counter()
+    mesh, ann, cands = ap.choose_strategy(meta_model, batch_tokens=PLAN_BATCH * ERNIE_SEQ,
+                                          n_devices=PLAN_DEVICES,
+                                          per_device_bytes=pbytes * 4.0 / 2 * 1.01,
+                                          example_inputs=[meta_ids], allow_sh=False)
+    t_plan = time.perf_counter() - t0
+    traced = read_launches()
+    assert not any(traced.values()), f"plan leg A: the trace launched a kernel {traced}"
+    want_pairs = {"attn.qkv_w": (None, "mp"), "attn.qkv_b": ("mp",), "attn.proj_w": ("mp",),
+                  "attn.proj_b": (), "ffn.w_in": (None, "mp"), "ffn.b_in": ("mp",),
+                  "ffn.w_out": ("mp",), "ffn.b_out": ()}
+    bad = [(f"blocks.{b}.{k}", specs[f"blocks.{b}.{k}"]) for b in range(cfg.num_layers)
+           for k, v in want_pairs.items() if specs[f"blocks.{b}.{k}"] != v]
+    assert not bad, f"plan leg A: the completed layout breaks a Megatron pair {bad}"
+    assert len(graph.uses) == 2 + 4 * cfg.num_layers + 1, len(graph.uses)
+    chosen = next(c for c in cands if c.get("chosen"))
+    dims = dict(zip(mesh.dim_names, mesh.shape))
+    log(f"plan leg A: ERNIE {ERNIE_CFG} ({pbytes} parameter bytes) traced on meta tensors in "
+        f"{t_trace:.2f} s ({len(graph.uses)} uses, no launch); two hints completed every "
+        f"block's Megatron pairs ({len(specs)} layouts); choose_strategy over {PLAN_DEVICES} "
+        f"devices under {pbytes * 4.0 / 2 * 1.01:.0f} B in {t_plan:.2f} s: {len(cands)} "
+        f"candidates, chosen (dp, mp, pp) = ({dims['dp']}, {dims['mp']}, {dims['pp']}), sh "
+        f"{chosen['sh']}, recompute {chosen['recompute']}, {chosen['per_device_state_bytes']:.0f} "
+        f"B a device, total_s {chosen['total_s']}, hints {len(ann)}")
+    assert chosen["fits"] and dims["dp"] * dims["mp"] * dims["pp"] == PLAN_DEVICES
+
+    # the plan on the card, against the serial model on the trainer's weights
+    t0 = time.perf_counter()
+    trainer = ap.hybrid_trainer_from_plan(cfg, mesh, Adam(1e-4), num_micro=PLAN_MICRO, seed=0,
+                                          device=dev)
+    ids, labels = hybrid_batch(np.random.default_rng(33), cfg.vocab_size, PLAN_BATCH,
+                               ERNIE_SEQ, dev)
+    serial = Ernie(cfg).to(dev)
+    serial.load_state_dict(trainer.serial_state_dict())
+    with torch.no_grad():
+        want_loss = float(serial.loss(ids, labels))
+    del serial
+    _sync(dev)
+    t_build = time.perf_counter() - t0
+    shape = {"dp": dims["dp"], "pp": dims["pp"], "cp": 1, "mp": dims["mp"]}
+    formula = hybrid_launches_per_step(cfg, shape, PLAN_MICRO)
+    reset_launches()
+    losses = [trainer.train_step(ids, labels)]
+    first = float(losses[0])
+    one = {k: v for k, v in read_launches().items() if k in formula}
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(PLAN_STEPS):
+        losses.append(trainer.train_step(ids, labels))
+    _sync(dev)
+    ms = 1e3 * (time.perf_counter() - t0) / PLAN_STEPS
+    counts = {k: v for k, v in read_launches().items() if k in formula}
+    losses = torch.stack(losses).cpu().numpy()
+    rel = abs(first - want_loss) / abs(want_loss)
+    log(f"plan leg A: hybrid_trainer_from_plan over {shape} (built with the serial check in "
+        f"{t_build:.2f} s), M={PLAN_MICRO}, batch {PLAN_BATCH} x {ERNIE_SEQ}: losses "
+        f"{losses.tolist()}, first {first} vs the serial model's {want_loss} (relative "
+        f"{rel:.3e}, stated bound {PIPE_FIRST_LOSS_TOL}), {ms:.3f} ms/step over {PLAN_STEPS} "
+        f"steps after 1, flash launches a step {one} (formula {formula}), in all {counts} on "
+        f"{card}")
+    assert rel <= PIPE_FIRST_LOSS_TOL, f"plan leg A: first loss {first} vs serial {want_loss}"
+    if dev.type == "cuda":   # the plain versions on the CPU count nothing
+        assert one == formula, f"plan leg A: launches {one}, formula {formula}"
+        assert counts == {k: (1 + PLAN_STEPS) * v for k, v in formula.items()}, counts
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    hop = (PLAN_BATCH // (PLAN_MICRO * dims["dp"]), ERNIE_SEQ, cfg.num_heads // dims["mp"],
+           cfg.head_dim)
+    # the kernels line times B5-B7 for this plan at phase 24's micro-batch
+    # shape (the @pipeline rows): a plan that splits the batch or the heads
+    # otherwise would run them at a shape no phase times
+    assert hop == PIPE_HOP, f"plan leg A: attention at {hop}, timed only at {PIPE_HOP}"
+    del trainer
+    torch.cuda.empty_cache()
+
+    # Engine(plan="auto") beside a Trainer on the same weights and batches
+    model = plan_ernie_model(cfg, dev)
+    twin = copy.deepcopy(model)
+    rng = np.random.default_rng(34)
+    batches = [hybrid_batch(rng, cfg.vocab_size, PLAN_BATCH, ERNIE_SEQ, dev)
+               for _ in range(ENGINE_STEPS + 1)]
+    card_bytes = (torch.cuda.get_device_properties(0).total_memory if dev.type == "cuda"
+                  else ap.H100_MEMORY_BYTES)
+    engine = ap.Engine(model, lm_loss, Adam(1e-4), plan="auto", n_devices=PLAN_DEVICES,
+                       per_device_bytes=card_bytes, batch_tokens=PLAN_BATCH * ERNIE_SEQ,
+                       example_inputs=[meta_ids], device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    got = engine.fit([((i,), (l,)) for i, l in batches[:ENGINE_STEPS]])
+    t_fit = time.perf_counter() - t0
+    fit_counts = read_launches()
+    reset_launches()
+    val = engine.evaluate([((batches[0][0],), (batches[0][1],))])
+    pred = engine.predict(batches[0][0])
+    eval_counts = read_launches()
+    ref_tr = Trainer(twin, Adam(1e-4), lm_loss, device=dev)
+    want = [float(ref_tr.train_step(i, l)) for i, l in batches[:ENGINE_STEPS]]
+    with tempfile.TemporaryDirectory(prefix="engine_") as tmp:
+        t0 = time.perf_counter()
+        engine.save(os.path.join(tmp, "snap"))
+        nxt = engine.fit([((batches[-1][0],), (batches[-1][1],))])
+        engine.load(os.path.join(tmp, "snap"))
+        again = engine.fit([((batches[-1][0],), (batches[-1][1],))])
+        t_ckpt = time.perf_counter() - t0
+    comp = engine.completion(batches[0][0], batches[0][1])
+    L = cfg.num_layers
+    per_step = {"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+                "flash_attention_bwd_dkv": L}
+    fit_want = {k: ENGINE_STEPS * v for k, v in per_step.items()}
+    fit_got = {k: fit_counts[k] for k in per_step}
+    eval_got = {k: eval_counts[k] for k in per_step}
+    log(f"plan leg A: Engine(plan='auto', n_devices={PLAN_DEVICES}, per_device_bytes="
+        f"{card_bytes}) chose mesh {dict(zip(engine.process_mesh.dim_names, engine.process_mesh.shape))} "
+        f"sh {engine.sharding_stage} with {len(engine.annotations)} hints; fit {got} in "
+        f"{t_fit:.2f} s, a Trainer on the same weights and batches {want} (bitwise: "
+        f"{got == want}); evaluate {val}, predict {tuple(pred.shape)}; save, one more step "
+        f"{nxt}, load, the step again {again} ({t_ckpt:.2f} s); completion() reports "
+        f"{sum(1 for v in comp['param_specs'].values() if v)} sharded of "
+        f"{len(comp['param_specs'])} layouts, batch over {comp['input_shardings'][2]}; flash "
+        f"launches fit {fit_got} (formula {fit_want}), evaluate + predict {eval_got} on {card}")
+    assert got == want, f"plan leg A: Engine losses {got} vs Trainer's {want}"
+    assert nxt == again, f"plan leg A: Engine load did not restore the state: {nxt} vs {again}"
+    assert np.isfinite(val) and tuple(pred.shape) == (PLAN_BATCH, ERNIE_SEQ, cfg.vocab_size)
+    if dev.type == "cuda":
+        assert fit_got == fit_want, f"plan leg A: Engine fit launches {fit_got}, want {fit_want}"
+        assert eval_got == {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": 0,
+                            "flash_attention_bwd_dkv": 0}, eval_got
+    assert set(comp["param_specs"]) == set(dict(model.named_parameters()))
+    del engine, ref_tr, model, twin
+    torch.cuda.empty_cache()
+    return {"plan": dims, "candidates": len(cands), "first_loss": first, "serial_loss": want_loss,
+            "ms_per_step": ms, "hop": hop, "engine_losses": got}
+
+
+def fe_conf(seed, items):
+    """What a leg's child processes need to make the same micro-batches."""
+    return {"batch": BATCH, "ids": HET_IDS, "items": items, "seed": seed}
+
+
+def fe_item(i, conf):
+    """Micro-batch ``i`` of ``conf``: ([batch, SLOTS] slot-tagged keys, dense
+    [batch, DENSE] f32, labels [batch] i32) from a numpy seed."""
+    rng = np.random.default_rng((conf["seed"], i))
+    b = conf["batch"]
+    ids = rng.integers(0, conf["ids"], (b, SLOTS)).astype(np.uint64)
+    keys = (np.arange(SLOTS, dtype=np.uint64)[None, :] << np.uint64(32)) | ids
+    dense = rng.random((b, DENSE), dtype=np.float32)
+    labels = (rng.random(b) < 0.25).astype(np.int32)
+    return keys, dense, labels
+
+
+def fe_pack(item):
+    """The pass path's wire buffer of an ``fe_item``."""
+    from paddle_tpu_torch.models.ctr import pack_ctr_batch
+
+    keys, dense, labels = item
+    lo32 = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return pack_ctr_batch(lo32, dense, labels, weights=np.ones(len(labels), np.float32))
+
+
+def fe_pass_trainer(dev, capacity, keys, batch):
+    """The pass path's DeepFM (phase 3's width, Adam 1e-3) over a fresh
+    16-shard host table with a pass over ``keys`` active: (trainer, step,
+    the device map's state)."""
+    from paddle_tpu_torch.models import ctr
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.ps.accessor import AccessorConfig
+    from paddle_tpu_torch.ps.embedding_cache import CacheConfig
+    from paddle_tpu_torch.ps.ps_trainer import CtrPassTrainer
+    from paddle_tpu_torch.ps.table import MemorySparseTable, TableConfig
+
+    model = ctr.DeepFM(ctr.CtrConfig(SLOTS, DENSE, DIM, (400, 400, 400)),
+                       generator=torch.Generator().manual_seed(0))
+    table = MemorySparseTable(TableConfig(shard_num=16,
+                                          accessor_config=AccessorConfig(embedx_dim=DIM)))
+    tr = CtrPassTrainer(model, Adam(1e-3), table,
+                        CacheConfig(capacity=capacity, embedx_dim=DIM, embedx_threshold=0.0),
+                        device=dev, **slot_names(SLOTS, DENSE))
+    tr.cache.activate_pass(tr.cache.prepare_pass(np.unique(keys.ravel())))
+    return tr, tr._packed_step(batch), tr.cache.device_map.state
+
+
+def fe_nodes(fns, n):
+    """The leg's task graph of ``n`` micro-batches: source (0) → pack (1) in
+    the child, card step (2) → sink (3) here; ``fns`` gives the local nodes'
+    functions."""
+    from paddle_tpu_torch.distributed.fleet_executor import TaskNode
+
+    return [TaskNode(0, fn=fns.get(0), role="source", max_run_times=n,
+                     downstreams=[(1, FE_CREDITS)]),
+            TaskNode(1, fn=fns.get(1), max_run_times=n, upstreams=[0],
+                     downstreams=[(2, FE_CREDITS)]),
+            TaskNode(2, fn=fns.get(2), max_run_times=n, upstreams=[1],
+                     downstreams=[(3, FE_CREDITS)]),
+            TaskNode(3, fn=fns.get(3), role="sink", max_run_times=n, upstreams=[2])]
+
+
+FE_PLACEMENT = {0: 0, 1: 0, 2: 1, 3: 1}
+
+
+def fleet_source_child(path):
+    """``--fleet-source CONFIG.json``: rank 0 of leg B, the source and the CPU
+    pack stage, over a RemoteMessageBus signed with the config's secret;
+    prints its interceptors' in-flight peaks at the end."""
+    from paddle_tpu_torch.distributed.fleet_executor import Carrier, RemoteMessageBus
+
+    with open(path) as f:
+        conf = json.load(f)
+
+    def emit(i):
+        return i, time.monotonic(), fe_item(i, conf)
+
+    def pack(x):
+        i, t, item = x
+        return i, t, fe_pack(item)
+
+    addrs = {r: ("127.0.0.1", int(p)) for r, p in enumerate(conf["ports"])}
+    bus = RemoteMessageBus(0, addrs, FE_PLACEMENT, connect_timeout=600.0,
+                           secret=bytes.fromhex(conf["secret"]))
+    carrier = Carrier(fe_nodes({0: emit, 1: pack}, conf["items"]),
+                      feeds={0: list(range(conf["items"]))}, bus=bus, local_ids=[0, 1])
+    carrier.start()
+    carrier.wait(timeout=900.0)
+    peaks = {t: carrier.interceptors[t].peak_in_flight for t in (0, 1)}
+    bus.close()
+    print(f"{FE_READY}{json.dumps(peaks)}", flush=True)
+    return 0
+
+
+def fe_source_start(base):
+    """Leg B's child, started with the phase so its interpreter's start
+    overlaps leg A (it dials this process until leg B's bus listens); its
+    config (ports, the bus's secret, the micro-batches) goes in ``base``."""
+    import socket
+
+    ports = []
+    for _ in range(2):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        ports.append(s.getsockname()[1])
+        s.close()
+    conf = dict(fe_conf(FE_SEED, FE_ITEMS), ports=ports, secret=os.urandom(16).hex())
+    path = os.path.join(base, "fleet_source.json")
+    with open(path, "w") as f:
+        json.dump(conf, f)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    child = subprocess.Popen([sys.executable, PSJOB_SCRIPT, "--fleet-source", path], env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return child, conf
+
+
+def fe_leg_b(dev, card, source):
+    """The fleet executor over the pass path: the child's source and pack stage
+    feed this process's card step (one B1 a step) and sink over a signed
+    RemoteMessageBus; losses, dense params and cache rows bitwise against the
+    same steps run serially here; no edge beyond its credits."""
+    from paddle_tpu_torch.distributed.fleet_executor import Carrier, RemoteMessageBus
+
+    child, conf = source
+    items = [fe_item(i, conf) for i in range(FE_ITEMS)]
+    keys = np.concatenate([it[0].ravel() for it in items])
+    tr, step, map_state = fe_pass_trainer(dev, FE_CAP, keys, conf["batch"])
+    state = {"losses": {}}
+
+    def card_step(x):
+        i, t, packed = x
+        p = torch.from_numpy(packed).to(dev)
+        tr.params, tr.opt_state, tr.cache.state, loss = step(tr.params, tr.opt_state,
+                                                             tr.cache.state, map_state, p)
+        return i, t, loss
+
+    def sink(x):
+        i, _, loss = x
+        state["losses"][i] = float(loss)          # the loss on the host: the step is done
+        return i, time.monotonic()
+
+    addrs = {r: ("127.0.0.1", p) for r, p in enumerate(conf["ports"])}
+    bus = RemoteMessageBus(1, addrs, FE_PLACEMENT, connect_timeout=120.0,
+                           secret=bytes.fromhex(conf["secret"]))
+    reset_launches()
+    t0 = time.perf_counter()
+    t_start = time.monotonic()
+    try:
+        carrier = Carrier(fe_nodes({2: card_step, 3: sink}, FE_ITEMS), bus=bus,
+                          local_ids=[2, 3])
+        carrier.start()
+        carrier.wait(timeout=300.0)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        bus.close()
+    launches = read_launches()
+    stdout, stderr = child.communicate(timeout=120)
+    assert child.returncode == 0, f"leg B source child rc {child.returncode}: {stderr[-2000:]}"
+    line = next(ln for ln in stdout.splitlines() if ln.startswith(FE_READY))
+    peaks = {int(k): {int(d): n for d, n in v.items()}
+             for k, v in json.loads(line[len(FE_READY):]).items()}
+    peaks[2] = dict(carrier.interceptors[2].peak_in_flight)
+    outs = carrier.sinks[0].outputs
+    assert [i for i, _ in outs] == list(range(FE_ITEMS)), f"leg B: items out of order {outs}"
+    done_at = [t_start] + [t for _, t in outs]
+    walls = [b - a for a, b in zip(done_at, done_at[1:])]
+
+    s_tr, s_step, s_map = fe_pass_trainer(dev, FE_CAP, keys, conf["batch"])
+    s_losses = []
+    for it in items:
+        p = torch.from_numpy(fe_pack(it)).to(dev)
+        s_tr.params, s_tr.opt_state, s_tr.cache.state, loss = s_step(
+            s_tr.params, s_tr.opt_state, s_tr.cache.state, s_map, p)
+        s_losses.append(float(loss))
+    losses = [state["losses"][i] for i in range(FE_ITEMS)]
+    same_loss = losses == s_losses
+    same_dense = all(torch.equal(tr.params[k], s_tr.params[k]) for k in tr.params)
+    same_rows = all(torch.equal(a, b) for a, b in zip(tr.cache.state.values(),
+                                                       s_tr.cache.state.values()))
+    peak = max(n for v in peaks.values() for n in v.values())
+    log(f"fleet leg B: {FE_ITEMS} micro-batches of {conf['batch']} x {SLOTS} slots made and packed in "
+        f"a child process, over an HMAC-signed RemoteMessageBus, through the pass path's "
+        f"DeepFM step here (credits {FE_CREDITS}) in {wall:.2f} s; each micro-batch's wall "
+        f"(its loss on this host after the previous one's, the first after the carrier's "
+        f"start; seconds) {[round(w, 4) for w in walls]}; in-flight peaks by interceptor {peaks}; B1 launches "
+        f"{launches['ctr_sparse_rows']} (one a step); losses {losses[0]} -> {losses[-1]}; "
+        f"losses, dense params and cache rows bitwise equal to the serial run: {same_loss}, "
+        f"{same_dense}, {same_rows} on {card}")
+    assert dev.type != "cuda" or launches["ctr_sparse_rows"] == FE_ITEMS, \
+        f"leg B: B1 launches {launches}"
+    assert peak <= FE_CREDITS, f"leg B: an edge held {peak} micro-batches > {FE_CREDITS} credits"
+    assert same_loss and same_dense and same_rows, "leg B: the executor differs from the serial run"
+    assert np.isfinite(losses).all(), f"leg B: non-finite loss {losses}"
+    tr.table.close()
+    s_tr.table.close()
+    return {"wall_s": wall, "walls_s": walls, "peaks": peaks, "b1": launches["ctr_sparse_rows"]}
+
+
+def el_item_step(dev, weights, i, conf):
+    """One pass-path DeepFM step on leg C's batch ``i`` from ``weights``
+    (a fresh table, cache and Adam state): the loss as a float."""
+    keys, dense, labels = fe_item(i, conf)
+    tr, step, map_state = fe_pass_trainer(dev, conf["cap"], keys, conf["batch"])
+    tr.params = {k: v.to(dev) for k, v in weights.items()}
+    tr.opt_state = tr.optimizer.init(tr.params)
+    p = torch.from_numpy(fe_pack((keys, dense, labels))).to(dev)
+    _, _, _, loss = step(tr.params, tr.opt_state, tr.cache.state, map_state, p)
+    out = float(loss)
+    tr.table.close()
+    return out
+
+
+def elastic_trainer_child(config_path):
+    """``--elastic-trainer CONFIG.json``: one trainer of leg C, started by
+    elastic_launch_local. Rank 1 crashes once (before touching the card); the
+    others take the items ``i % world == rank`` not yet done, each written to a
+    done-file made with a hard link, so an item is done at most once."""
+    with open(config_path) as f:
+        conf = json.load(f)
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    world = int(os.environ["PADDLE_TRAINERS_NUM"])
+    eps = os.environ["PADDLE_TRAINER_ENDPOINTS"].split(",")
+    base = conf["base"]
+    marker = os.path.join(base, "crashed_once")
+    if rank == 1 and not os.path.exists(marker):
+        open(marker, "w").close()
+        os._exit(17)
+    dev = torch.device(conf["device"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    weights = torch.load(os.path.join(base, "weights.pt"))
+    for i in range(conf["items"]):
+        done = os.path.join(base, f"item_{i}.json")
+        if i % world != rank or os.path.exists(done):
+            continue
+        loss = el_item_step(dev, weights, i, conf)
+        tmp = f"{done}.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump({"loss": loss.hex(), "rank": rank, "world": world, "eps": len(eps)}, f)
+        os.link(tmp, done)   # fails if the item was already done
+        os.remove(tmp)
+    return 0
+
+
+def elastic_leg_c(dev, card):
+    """elastic_launch_local over two trainer processes on the card: rank 1
+    crashes once, the supervisor restarts the world at size 1 with the env
+    rewritten, every item is done exactly once, each loss bitwise equal to
+    the same step run here."""
+    import tempfile
+
+    from paddle_tpu_torch.distributed.launch import JobSpec, elastic_launch_local
+    from paddle_tpu_torch.models import ctr
+
+    base = tempfile.mkdtemp(prefix="elastic_")
+    try:
+        model = ctr.DeepFM(ctr.CtrConfig(SLOTS, DENSE, DIM, (400, 400, 400)),
+                           generator=torch.Generator().manual_seed(EL_SEED))
+        weights = {k: v.detach() for k, v in model.named_parameters()}
+        torch.save(weights, os.path.join(base, "weights.pt"))
+        conf = dict(fe_conf(EL_SEED, EL_ITEMS), base=base, device=dev.type, cap=EL_CAP)
+        path = os.path.join(base, "config.json")
+        with open(path, "w") as f:
+            json.dump(conf, f)
+        logs = os.path.join(base, "logs")
+        t0 = time.perf_counter()
+        rc = elastic_launch_local(JobSpec([PSJOB_SCRIPT, "--elastic-trainer", path], nproc=2,
+                                          log_dir=logs, env={"OMP_NUM_THREADS": "1"}),
+                                  min_np=1, max_np=2, heartbeat_interval=0.1,
+                                  heartbeat_ttl=0.5, elastic_timeout=0.5, timeout=300)
+        wall = time.perf_counter() - t0
+        gens = sorted(os.listdir(logs))
+        done = {}
+        for i in range(EL_ITEMS):
+            with open(os.path.join(base, f"item_{i}.json")) as f:
+                done[i] = json.load(f)
+        want = [el_item_step(dev, weights, i, conf) for i in range(EL_ITEMS)]
+        got = [float.fromhex(done[i]["loss"]) for i in range(EL_ITEMS)]
+        restarts = len({g.split(".")[1] for g in gens}) - 1
+        log(f"elastic leg C: elastic_launch_local(2 trainers, min_np 1, max_np 2) rc {rc} in "
+            f"{wall:.2f} s, generations' logs {gens} ({restarts} restart), rank 1 crashed once: "
+            f"{os.path.exists(os.path.join(base, 'crashed_once'))}; items done by "
+            f"{[(d['rank'], d['world'], d['eps']) for d in done.values()]} (rank, "
+            f"PADDLE_TRAINERS_NUM, endpoints); losses {got}, the same steps here {want} "
+            f"(bitwise: {got == want}) on {card}")
+        assert rc == 0, f"leg C: elastic_launch_local rc {rc}"
+        assert restarts == 1, f"leg C: {restarts} restarts ({gens})"
+        assert sorted(n for n in os.listdir(base) if n.startswith("item_")) == sorted(
+            f"item_{i}.json" for i in range(EL_ITEMS)), os.listdir(base)
+        # rank 1's share ran in the relaunched world of one; rank 0 of the
+        # first world may have finished its own share before the restart
+        assert all(d["eps"] == d["world"] and (d["world"] == 1 or i % 2 == 0)
+                   for i, d in done.items()), done
+        assert all(done[i]["world"] == 1 for i in range(1, EL_ITEMS, 2)), done
+        assert got == want, f"leg C: losses {got} vs {want}"
+        return {"wall_s": wall, "restarts": restarts}
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def phase_item8b(dev, card):
+    """Phase 25: leg A (the planner at ERNIE's width, its plan on the hybrid
+    trainer, Engine), leg B (the fleet executor over the pass path across two
+    processes), leg C (the elastic launcher with trainers on the card)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="item8b_")
+    source = fe_source_start(base)
+    try:
+        a = plan_leg_a(dev, card)
+        t_b = time.perf_counter()
+        b = fe_leg_b(dev, card, source)
+        torch.cuda.empty_cache()
+        t_c = time.perf_counter()
+        c = elastic_leg_c(dev, card)
+    finally:
+        child = source[0]
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"item 8b (phase 25): {time.perf_counter() - t_phase:.1f} s (leg A {t_b - t_phase:.1f} "
+        f"s, leg B {t_c - t_b:.1f} s, leg C {time.perf_counter() - t_c:.1f} s) on {card}")
+    return {"plan": a, "fleet": b, "elastic": c}
+
+
 HYB_RANGES = ("hybrid_forward", "hybrid_backward", "hybrid_update")
 # B5-B7's kernels in ops/csrc/flash_attention.cu (tensor-core and f32 forms)
 HYB_FLASH_KERNELS = ("fwd_mma_kernel", "bwd_dq_mma_kernel", "bwd_dkv_mma_kernel",
@@ -8152,13 +8691,19 @@ def main(argv):
         return serve_export_child(argv[1])
     if argv[:1] == ["--heter-head"] and len(argv) == 2:
         return heter_head_child(argv[1])
+    if argv[:1] == ["--fleet-source"] and len(argv) == 2:
+        return fleet_source_child(argv[1])
+    if argv[:1] == ["--elastic-trainer"] and len(argv) == 2:
+        return elastic_trainer_child(argv[1])
     if argv[:1] == ["--profile"] and len(argv) == 2:
         profile_dir = argv[1]
     elif argv:
         print("usage: chip_smoke.py [--profile DIR]  (--ps-job CONFIG.json: one process of "
               "phase 14's job; --ckpt-job CONFIG.json: one leg of phase 15; --ha-server STORE "
               "JOB SHARD: one server process of phase 16's leg C; --serve-export DIR: phase "
-              "22's serving child; --heter-head PORT: phase 24's CPU head)", file=sys.stderr)
+              "22's serving child; --heter-head PORT: phase 24's CPU head; --fleet-source "
+              "CONFIG.json: phase 25's source process; --elastic-trainer CONFIG.json: one of "
+              "phase 25's elastic trainers)", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -8219,6 +8764,7 @@ def main(argv):
     item5 = phase_item5(dev, card)
     item9 = phase_item9(dev, card)
     item8 = phase_item8(dev, card)
+    phase_item8b(dev, card)
     phase_kernel_counts(dev)
     wd_kernel_counts(dev)
     hybrid_step_profile(hyb)

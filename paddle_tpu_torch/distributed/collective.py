@@ -8,11 +8,17 @@ connects to, one JSON line a request. Blocking ``wait`` and atomic
 ``add`` give barrier and rendezvous semantics. ``fleet.util`` (all-reduce,
 all-to-all of bytes, barrier) rides it.
 
+``set(..., ttl=)`` starts a lease on the master's monotonic clock (one
+clock for the whole job, so skewed hosts can neither fake-expire a live
+member nor keep a dead one alive), and ``list(prefix)`` enumerates the
+live keys under a prefix (etcd's get-prefix role):
+``distributed.elastic.TcpElasticStore`` and the elastic launcher's
+membership ride them. ``get``, ``wait`` and ``list`` do not see an expired
+key.
+
 Not ported here (ROADMAP Queue A item 7): the rest of the module, the
 process groups, ``init_parallel_env``/``ParallelEnv`` and the eager
-tensor collectives. The store's leases (``set(..., ttl=)``) and its
-prefix ``list``, which only the elastic launcher reads, come with that
-launcher (item 8).
+tensor collectives.
 """
 
 from __future__ import annotations
@@ -32,7 +38,13 @@ __all__ = ["TCPStore"]
 class _StoreState:
     def __init__(self) -> None:
         self.kv: Dict[str, str] = {}
+        # lease expiry per key, on the master's monotonic clock
+        self.expire: Dict[str, float] = {}
         self.cond = threading.Condition()
+
+    def alive(self, key: str) -> bool:
+        exp = self.expire.get(key)
+        return exp is None or time.monotonic() <= exp
 
 
 class _StoreHandler(socketserver.StreamRequestHandler):
@@ -47,10 +59,19 @@ class _StoreHandler(socketserver.StreamRequestHandler):
             with state.cond:
                 if cmd == "set":
                     state.kv[req["key"]] = req["value"]
+                    # ttl (seconds) starts a lease on the master's clock;
+                    # absent or 0 is permanent (etcd put-with-lease role)
+                    ttl = float(req.get("ttl") or 0.0)
+                    if ttl > 0:
+                        state.expire[req["key"]] = time.monotonic() + ttl
+                    else:
+                        state.expire.pop(req["key"], None)
                     state.cond.notify_all()
                     resp = {"ok": True}
                 elif cmd == "get":
-                    resp = {"ok": True, "value": state.kv.get(req["key"])}
+                    k = req["key"]
+                    v = state.kv.get(k) if state.alive(k) else None
+                    resp = {"ok": True, "value": v}
                 elif cmd == "add":
                     cur = int(state.kv.get(req["key"], "0")) + int(req["delta"])
                     state.kv[req["key"]] = str(cur)
@@ -60,7 +81,7 @@ class _StoreHandler(socketserver.StreamRequestHandler):
                     deadline = time.monotonic() + float(req.get("timeout", 300.0))
                     keys = req["keys"]
                     ok = True
-                    while not all(k in state.kv for k in keys):
+                    while not all(k in state.kv and state.alive(k) for k in keys):
                         left = deadline - time.monotonic()
                         if left <= 0 or not state.cond.wait(timeout=min(left, 1.0)):
                             if time.monotonic() >= deadline:
@@ -68,7 +89,13 @@ class _StoreHandler(socketserver.StreamRequestHandler):
                                 break
                     resp = {"ok": ok}
                 elif cmd == "delete":
+                    state.expire.pop(req["key"], None)
                     resp = {"ok": state.kv.pop(req["key"], None) is not None}
+                elif cmd == "list":
+                    pfx = req.get("prefix", "")
+                    resp = {"ok": True,
+                            "items": {k: v for k, v in state.kv.items()
+                                      if k.startswith(pfx) and state.alive(k)}}
                 else:
                     resp = {"ok": False, "error": f"unknown cmd {cmd}"}
             self.wfile.write((json.dumps(resp) + "\n").encode())
@@ -112,8 +139,11 @@ class TCPStore:
             raise PreconditionNotMetError("TCPStore connection closed")
         return json.loads(line)
 
-    def set(self, key: str, value: str) -> None:
-        self._rpc(cmd="set", key=key, value=value)
+    def set(self, key: str, value: str, ttl: float = 0.0) -> None:
+        """``ttl`` > 0 starts a lease: the key expires from ``get``,
+        ``wait`` and ``list`` ``ttl`` seconds after the master receives
+        this set, on the master's monotonic clock."""
+        self._rpc(cmd="set", key=key, value=value, ttl=float(ttl))
 
     def get(self, key: str) -> Optional[str]:
         return self._rpc(cmd="get", key=key)["value"]
@@ -129,6 +159,10 @@ class TCPStore:
 
     def delete(self, key: str) -> bool:
         return self._rpc(cmd="delete", key=key)["ok"]
+
+    def list(self, prefix: str = "") -> Dict[str, str]:
+        """The live keys under ``prefix`` and their values."""
+        return dict(self._rpc(cmd="list", prefix=prefix)["items"])
 
     def barrier(self, name: str, world_size: int,
                 timeout: Optional[float] = None) -> None:

@@ -1,38 +1,57 @@
-"""Elastic membership stores and the TTL'd lease.
+"""Elastic training: membership stores, the TTL'd lease and the manager.
 
-The port's own copy of the store half of
-``paddle_tpu.distributed.elastic``: the key-value stores with per-key TTL
-that membership and the PS high-availability failure detector
-(``ps/ha.py``) heartbeat into, and :class:`Lease`, one TTL'd liveness key
-refreshed from a daemon thread.
+The port's own copy of ``paddle_tpu.distributed.elastic`` (the
+reference's fleet/elastic/manager.py:130): nodes heartbeat into a store
+prefix, a watcher compares the live host set with the announced job size,
+and the launcher (``launch.elastic_launch_local``) HOLDs, RESTARTs or
+COMPLETEs its trainers (:class:`ElasticStatus`), rewriting the endpoint
+list on a scale event. The PS high-availability failure detector
+(``ps/ha.py``) rides the same stores and :class:`Lease`.
 
 - :class:`MemoryStore`: in-process (tests, one-process clusters).
 - :class:`FileStore`: one file per key in a shared directory, TTL by the
   write time (processes on one host or a shared filesystem).
-- :class:`TcpElasticStore` and the ``tcp:`` spec raise
-  :class:`~paddle_tpu_torch.core.enforce.UnavailableError`: they need the
-  ``TCPStore``'s leases (``set(..., ttl=)``) and prefix ``list``, which
-  come with the elastic launcher (ROADMAP Queue A item 8), as do
-  ``ElasticManager`` and ``elastic_launch_local``.
+- :class:`TcpElasticStore`: over the job's ``collective.TCPStore``, whose
+  leases expire on the master's clock (etcd's lease role).
+- :class:`ElasticManager`: the membership and decision loop of one node;
+  the decision is a pure function of (live hosts, announced np, time since
+  the host set last changed), as in the reference.
 """
 
 from __future__ import annotations
 
+import enum
 import json
 import os
 import threading
 import time
 import urllib.parse
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from ..core import sync as _sync
-from ..core.enforce import UnavailableError
 
-__all__ = ["FileStore", "Lease", "MemoryStore", "TcpElasticStore", "store_from_spec"]
+__all__ = ["ElasticManager", "ElasticStatus", "FileStore", "Lease", "MemoryStore",
+           "TcpElasticStore", "desired_np_key", "set_desired_np", "store_from_spec"]
 
-_TCP_MISSING = ("TcpElasticStore needs the TCPStore's leases (set(..., ttl=)) and prefix "
-                "list, which are not ported yet (ROADMAP Queue A item 8, the elastic "
-                "launcher); use MemoryStore or FileStore")
+
+def desired_np_key(job_id: str) -> str:
+    return f"elastic/{job_id}/desired_np"
+
+
+def set_desired_np(store, job_id: str, np_: int) -> None:
+    """Publish a target trainer world size for ``job_id`` (the
+    autoscaler's lever). Every node's :class:`ElasticManager` adopts it on
+    its next watch tick, clamped to its own [min_np, max_np], and the
+    quorum check turns the mismatch into HOLD/RESTART decisions."""
+    store.put(desired_np_key(job_id), json.dumps({"np": int(np_)}))
+
+
+class ElasticStatus(enum.Enum):   # manager.py:53
+    COMPLETED = "completed"
+    ERROR = "error"
+    HOLD = "hold"
+    RESTART = "restart"
+    EXIT = "exit"
 
 
 class MemoryStore:
@@ -107,11 +126,35 @@ class FileStore:
 
 
 class TcpElasticStore:
-    """The elastic store over the cluster's ``TCPStore``: not ported
-    (see the module docstring); constructing one raises."""
+    """The elastic store over the job's :class:`~.collective.TCPStore`:
+    ``put(key, value, ttl)`` is a lease on the master's monotonic clock,
+    so skewed node clocks can neither fake-expire a live member nor keep a
+    dead one alive. One per node over the same (host, port); the launcher
+    or rank 0 passes ``is_master=True``."""
 
-    def __init__(self, *args, **kwargs) -> None:
-        raise UnavailableError(_TCP_MISSING)
+    def __init__(self, tcp_store=None, host: str = "127.0.0.1",
+                 port: int = 0, is_master: bool = False) -> None:
+        if tcp_store is None:
+            from .collective import TCPStore
+
+            tcp_store = TCPStore(host=host, port=port, is_master=is_master)
+        self.store = tcp_store
+        self.host, self.port = self.store.host, self.store.port
+
+    def put(self, key: str, value: str, ttl: float = 0.0) -> None:
+        self.store.set(key, value, ttl=ttl)
+
+    def get(self, key: str) -> Optional[str]:
+        return self.store.get(key)
+
+    def list_prefix(self, prefix: str) -> Dict[str, str]:
+        return self.store.list(prefix)
+
+    def delete(self, key: str) -> None:
+        self.store.delete(key)
+
+    def close(self) -> None:
+        self.store.close()
 
 
 class Lease:
@@ -164,15 +207,139 @@ class Lease:
 
 
 def store_from_spec(spec: str):
-    """An elastic store from a launcher-style spec: ``file:<dir>`` or
-    ``memory:``; ``tcp:<host>:<port>`` raises (see the module
-    docstring)."""
+    """An elastic store from a launcher-style spec: ``file:<dir>``,
+    ``tcp:<host>:<port>`` (a client of a running ``TCPStore`` master) or
+    ``memory:``."""
     kind, _, rest = spec.partition(":")
     if kind == "file":
         return FileStore(rest)
     if kind == "tcp":
-        raise UnavailableError(_TCP_MISSING)
+        host, _, port = rest.rpartition(":")
+        return TcpElasticStore(host=host or "127.0.0.1", port=int(port))
     if kind == "memory":
         return MemoryStore()
     raise ValueError(f"unknown elastic store spec {spec!r} "
                      f"(file:<dir> | tcp:<host>:<port> | memory:)")
+
+
+class ElasticManager:
+    """Membership and decision loop for one node: ``start()`` heartbeats
+    the node's key under ``elastic/<job>/nodes/``; ``watch_once()``
+    returns the :class:`ElasticStatus` the launcher acts on."""
+
+    def __init__(
+        self,
+        store,
+        job_id: str,
+        np: int,                      # announced world size
+        host: str,
+        heartbeat_interval: float = 1.0,
+        heartbeat_ttl: float = 4.0,
+        elastic_timeout: float = 10.0,
+        min_np: Optional[int] = None,
+        max_np: Optional[int] = None,
+    ) -> None:
+        self.store = store
+        self.job_id = job_id
+        self.np = np
+        self.min_np = min_np if min_np is not None else np
+        self.max_np = max_np if max_np is not None else np
+        self.host = host
+        self._hb_int = heartbeat_interval
+        self._hb_ttl = heartbeat_ttl
+        self._timeout = elastic_timeout
+        self._prefix = f"elastic/{job_id}/nodes/"
+        self._stop = _sync.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._last_change = time.monotonic()
+        self._known: List[str] = []
+
+    # -- heartbeat (lease_heartbeat, manager.py:250) -----------------------
+
+    def start(self) -> None:
+        self._beat()
+        self._thread = _sync.Thread(target=self._loop, daemon=True, name="lease-heartbeat")
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=2 * self._hb_int)
+        self.store.delete(self._prefix + self.host)
+
+    def _beat(self) -> None:
+        self.store.put(self._prefix + self.host, json.dumps(
+            {"host": self.host, "t": time.time()}), ttl=self._hb_ttl)
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            self._beat()
+            self._stop.wait(self._hb_int)
+
+    # -- membership --------------------------------------------------------
+
+    def member_key(self, name: str) -> str:
+        """The store key of one member's heartbeat (a supervisor that
+        beats on behalf of its processes writes it)."""
+        return self._prefix + name
+
+    def alive_hosts(self) -> List[str]:
+        return sorted(k[len(self._prefix):]
+                      for k in self.store.list_prefix(self._prefix))
+
+    # -- decision (watch loop, manager.py:439-532) -------------------------
+
+    def desired_np(self) -> Optional[int]:
+        """The published target world size (``set_desired_np``), or
+        None when none was published."""
+        raw = self.store.get(desired_np_key(self.job_id))
+        if raw is None:
+            return None
+        try:
+            return int(json.loads(raw).get("np"))
+        except (ValueError, TypeError):
+            return None
+
+    def adopt_desired_np(self) -> bool:
+        """Clamp the published target into [min_np, max_np] and adopt it
+        as ``self.np``; True when the announced size changed."""
+        want = self.desired_np()
+        if want is None:
+            return False
+        want = max(self.min_np, min(int(want), self.max_np))
+        if want == self.np:
+            return False
+        self.np = want
+        return True
+
+    def watch_once(self) -> ElasticStatus:
+        self.adopt_desired_np()
+        hosts = self.alive_hosts()
+        n = len(hosts)
+        if hosts != self._known:
+            self._known = hosts
+            self._last_change = time.monotonic()
+        if n == self.np:
+            return ElasticStatus.HOLD          # healthy, keep running
+        waited = time.monotonic() - self._last_change
+        if n > self.np:
+            if n <= self.max_np:
+                return ElasticStatus.RESTART   # scale out: adopt the larger world
+            return ElasticStatus.HOLD          # beyond max_np: ignore the extras
+        # n < np: a node died
+        if n < self.min_np:
+            if waited > self._timeout:
+                return ElasticStatus.ERROR     # unrecoverable below min_np
+            return ElasticStatus.HOLD          # grace period: the node may return
+        if waited > self._timeout:
+            return ElasticStatus.RESTART       # fault tolerance: shrink the world
+        return ElasticStatus.HOLD
+
+    def adopt_world(self) -> int:
+        """After RESTART: the new world size, with the live hosts written
+        to ``elastic/<job>/endpoints`` (the endpoint rewrite,
+        manager.py:465)."""
+        hosts = self.alive_hosts()
+        self.np = max(min(len(hosts), self.max_np), self.min_np)
+        self.store.put(f"elastic/{self.job_id}/endpoints", json.dumps(hosts[:self.np]))
+        return self.np

@@ -1,7 +1,6 @@
 """Process launcher: ``python -m paddle_tpu_torch.distributed.launch``.
 
-The port's own copy of ``paddle_tpu.distributed.launch`` without
-``elastic_launch_local`` (ROADMAP Queue A item 8, ``elastic``). The
+The port's own copy of ``paddle_tpu.distributed.launch``. The
 reference's ``python/paddle/distributed/launch`` spawns trainer and
 server subprocesses with role env vars; here, as in its PS test harness
 (test_dist_fleet_base.py:311 _run_cluster), every process runs on this
@@ -18,6 +17,12 @@ named ``127.0.0.1:P+1+i``; each process gets the env the role makers read
 launcher waits for the trainers, then sends SIGTERM to the servers (a
 job's trainer 0 stops them first, after a closing barrier), and returns
 the first non-zero trainer exit code.
+
+:func:`elastic_launch_local` supervises the trainers instead: it
+heartbeats each live (or cleanly finished) rank into an
+:class:`~.elastic.ElasticManager`'s store and, when a rank dies, kills the
+survivors and relaunches the world with ``PADDLE_TRAINERS_NUM`` and the
+endpoint env rewritten to the new size.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import sys
 import time
 from typing import Dict, List, Optional
 
-__all__ = ["JobSpec", "launch_local", "main"]
+__all__ = ["JobSpec", "elastic_launch_local", "launch_local", "main"]
 
 
 class JobSpec:
@@ -74,15 +79,17 @@ def _proc_env(spec: JobSpec, role: str, rank: int) -> Dict[str, str]:
     return env
 
 
-def _spawn(spec: JobSpec, role: str, rank: int) -> subprocess.Popen:
+def _spawn(spec: JobSpec, role: str, rank: int,
+           log_suffix: str = "") -> subprocess.Popen:
     """One trainer/server subprocess with its role env; its output goes to
-    ``<log_dir>/<role>_<rank>.log`` when ``spec.log_dir`` is set."""
+    ``<log_dir>/<role>_<rank><log_suffix>.log`` when ``spec.log_dir`` is
+    set."""
     env = _proc_env(spec, role, rank)
     stdout = None
     if spec.log_dir:
         os.makedirs(spec.log_dir, exist_ok=True)
         stdout = open(os.path.join(
-            spec.log_dir, f"{role.lower()}_{rank}.log"), "w")
+            spec.log_dir, f"{role.lower()}_{rank}{log_suffix}.log"), "w")
     try:
         return subprocess.Popen(
             [sys.executable] + spec.script, env=env,
@@ -124,6 +131,93 @@ def launch_local(spec: JobSpec, timeout: Optional[float] = None) -> int:
         return rc
     finally:
         _terminate(procs + server_procs)
+
+
+def elastic_launch_local(
+    spec: JobSpec,
+    min_np: Optional[int] = None,
+    max_np: Optional[int] = None,
+    heartbeat_interval: float = 0.3,
+    heartbeat_ttl: float = 1.0,
+    elastic_timeout: float = 1.5,
+    max_restarts: int = 3,
+    timeout: Optional[float] = None,
+) -> int:
+    """The elastic controller loop (fleet/elastic/manager.py:439-532 and
+    the launcher's restart path). The supervisor heartbeats each live or
+    cleanly exited rank into a :class:`~.elastic.MemoryStore` and acts on
+    the :class:`~.elastic.ElasticManager`'s decision: HOLD keeps running,
+    RESTART kills the survivors and relaunches every trainer with the
+    world size and endpoint env rewritten to the new membership, ERROR
+    (below ``min_np``) gives up. Trainers are expected to resume from
+    their own checkpoints or done-markers: a restart re-executes them.
+
+    Returns 0 when a generation of trainers all exit cleanly, 1 on ERROR
+    or a spent restart budget, 124 on ``timeout``. Every exit path reaps
+    the current generation and the servers."""
+    from .elastic import ElasticManager, ElasticStatus, MemoryStore
+
+    min_np = min_np if min_np is not None else spec.nproc
+    max_np = max_np if max_np is not None else spec.nproc
+    store = MemoryStore()
+    deadline = time.monotonic() + timeout if timeout else None
+    np_now = spec.nproc
+    restarts = 0
+
+    server_procs: List[subprocess.Popen] = []
+    trainers: List[subprocess.Popen] = []
+
+    try:
+        for r in range(spec.servers):
+            server_procs.append(_spawn(spec, "PSERVER", r))
+
+        while True:
+            gen_spec = JobSpec(spec.script, nproc=np_now, servers=spec.servers,
+                               coordinator_port=spec.coordinator_port,
+                               log_dir=spec.log_dir, env=spec.env)
+            trainers = [_spawn(gen_spec, "TRAINER", r, f".g{restarts}")
+                        for r in range(np_now)]
+            mgr = ElasticManager(store, job_id="launch", np=np_now, host="supervisor",
+                                 heartbeat_interval=heartbeat_interval,
+                                 heartbeat_ttl=heartbeat_ttl,
+                                 elastic_timeout=elastic_timeout,
+                                 min_np=min_np, max_np=max_np)
+            decision = None
+            while True:
+                if deadline and time.monotonic() > deadline:
+                    return 124
+                for r, p in enumerate(trainers):
+                    # a clean exit keeps its membership (that rank's share
+                    # is done, not dead); a crash stops the heartbeat
+                    if p.poll() is None or p.poll() == 0:
+                        store.put(mgr.member_key(f"rank{r}"), "1", ttl=heartbeat_ttl)
+                if all(p.poll() == 0 for p in trainers):
+                    return 0  # the generation completed
+                status = mgr.watch_once()
+                if status is ElasticStatus.RESTART:
+                    # the live or finished ranks, clamped to [min_np, max_np]
+                    decision = max(mgr.adopt_world(), 1)
+                    break
+                if status is ElasticStatus.ERROR:
+                    return 1  # unrecoverable below min_np
+                if (all(p.poll() is not None for p in trainers)
+                        and any(p.poll() != 0 for p in trainers)
+                        and status is ElasticStatus.HOLD):
+                    # the whole generation is gone before the ttl expired:
+                    # skip the grace wait and restart at once
+                    decision = max(min_np, 1)
+                    break
+                time.sleep(heartbeat_interval)
+
+            _terminate(trainers)  # kill the survivors; relaunch the world
+            for r in range(np_now):
+                store.delete(mgr.member_key(f"rank{r}"))
+            restarts += 1
+            if restarts > max_restarts:
+                return 1
+            np_now = decision
+    finally:
+        _terminate(trainers + server_procs)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

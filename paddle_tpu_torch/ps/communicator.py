@@ -83,8 +83,10 @@ class _BaseCommunicator:
         self._queues: Dict[int, queue.Queue] = {}
         self._running = False
         self._thread: Optional[threading.Thread] = None
-        self._drained = threading.Event()
-        self._drained.set()
+        # batches sent and not yet pushed (queued, or taken by the merge
+        # loop and on their way): quiesce() waits for 0
+        self._unpushed = 0
+        self._unpushed_cv = threading.Condition()
         self._error: Optional[BaseException] = None
         self._push_thread_dead = False  # sticky: _error is raised once
         self._pull_pool: Optional[ThreadPoolExecutor] = None
@@ -97,12 +99,20 @@ class _BaseCommunicator:
     # -- train-loop API -----------------------------------------------------
 
     def send_sparse(self, table_id: int, keys: np.ndarray, values: np.ndarray) -> None:
-        self._queue_for(table_id).put(("sparse", keys, values))
-        self._drained.clear()
+        self._enqueue(table_id, ("sparse", keys, values))
 
     def send_dense(self, table_id: int, grad: np.ndarray) -> None:
-        self._queue_for(table_id).put(("dense", None, grad))
-        self._drained.clear()
+        self._enqueue(table_id, ("dense", None, grad))
+
+    def _enqueue(self, table_id: int, item) -> None:
+        with self._unpushed_cv:
+            self._unpushed += 1
+        self._queue_for(table_id).put(item)
+
+    def _landed(self, n: int) -> None:
+        with self._unpushed_cv:
+            self._unpushed -= n
+            self._unpushed_cv.notify_all()
 
     def _submit(self, fn, *args) -> Future:
         with self._pull_mu:
@@ -208,7 +218,7 @@ class _BaseCommunicator:
         err, self._error = self._error, None
         if err is not None:
             raise err
-        if self._push_thread_dead and not self._all_empty():
+        if self._push_thread_dead and self._unpushed > 0:
             raise PreconditionNotMetError(
                 "communicator push thread died earlier; queued gradients remain "
                 "undrained — restart the communicator")
@@ -217,11 +227,8 @@ class _BaseCommunicator:
         """Local traffic barrier: this trainer's queued sends and its
         error-feedback residuals have reached the PS and its pulls are done
         (no other trainer takes part): the checkpoint cut."""
-        while not self._all_empty():
-            if self._push_thread_dead:
-                break
-            time.sleep(0.001)
-        self._drained.wait(timeout=10)
+        with self._unpushed_cv:
+            self._unpushed_cv.wait_for(lambda: self._unpushed == 0 or self._push_thread_dead)
         self._drain_pulls()
         self._drain_residuals()
         self.check_error()
@@ -230,9 +237,6 @@ class _BaseCommunicator:
         """Queued sends on the PS and no pull in flight (the HalfAsync
         join); raises a failure of the push thread."""
         self.quiesce()
-
-    def _all_empty(self) -> bool:
-        return all(q.empty() for q in self._queues.values())
 
     # -- background merge and push ------------------------------------------
 
@@ -243,8 +247,9 @@ class _BaseCommunicator:
                     time.sleep(_IDLE_S)
             except BaseException as e:  # noqa: BLE001 — raised at barrier()/stop()
                 self._error = e
-                self._push_thread_dead = True
-                self._drained.set()  # nothing more will drain
+                with self._unpushed_cv:
+                    self._push_thread_dead = True   # nothing more will drain
+                    self._unpushed_cv.notify_all()
                 return
 
     def _drain_once(self) -> bool:
@@ -267,6 +272,7 @@ class _BaseCommunicator:
                 did_work = True
                 self.merged_batches += len(sparse)
                 self.pushes += 1
+                self._landed(len(sparse))
             if dense:
                 acc = np.sum(dense, axis=0)
                 if self.config.is_sgd_optimizer:
@@ -275,14 +281,12 @@ class _BaseCommunicator:
                 did_work = True
                 self.merged_batches += len(dense)
                 self.pushes += 1
-        if not did_work and self._all_empty():
-            self._drained.set()
+                self._landed(len(dense))
         return did_work
 
     def _drain_all(self) -> None:
         while self._drain_once():
             pass
-        self._drained.set()
 
 
 class AsyncCommunicator(_BaseCommunicator):

@@ -172,3 +172,46 @@ def test_failed_background_push_raises_at_join(join):
             comm.check_error()
     finally:
         c.close()
+
+
+class _SlowPushClient:
+    """A client whose sparse push takes 0.2 s and records what landed."""
+
+    def __init__(self):
+        self.landed = []
+
+    def push_sparse(self, table_id, keys, values):
+        time.sleep(0.2)
+        self.landed.append(len(keys))
+
+
+def test_barrier_waits_for_a_send_queued_while_the_merge_loop_goes_idle():
+    """C7: a send that lands while the merge loop is deciding it has
+    nothing left (its queue check done, its drained flag not yet set) must
+    still hold ``barrier()`` until its push reached the PS. The merge loop
+    is held at that point by wrapping its queue check, where the loop
+    makes one; the barrier must not return before the slow push ends."""
+    client = _SlowPushClient()
+    comm = comm_mod.HalfAsyncCommunicator(client)
+    in_window, sent = threading.Event(), threading.Event()
+    check = getattr(comm, "_all_empty", None)
+    if check is not None:
+        def held_check():
+            empty = check()
+            if (empty and threading.current_thread().name == "communicator-main"
+                    and not in_window.is_set()):
+                in_window.set()
+                sent.wait(5)
+            return empty
+
+        comm._all_empty = held_check
+    comm.start()
+    try:
+        in_window.wait(2)
+        comm.send_sparse(0, np.arange(1, 9, dtype=np.uint64), np.zeros((8, 12), np.float32))
+        sent.set()
+        comm.barrier()
+        assert client.landed == [8], client.landed
+    finally:
+        sent.set()
+        comm.stop()

@@ -27,6 +27,7 @@ rtol 1e-6 / atol 1e-7.
 """
 
 import dataclasses
+import threading
 import time
 
 import numpy as np
@@ -274,6 +275,16 @@ def test_fleet_communicator_modes_land_jax_rows(kw, cls):
                 f.communicator.send_sparse(0, keys, vals)
         for f in (j, t):
             f.barrier_worker()
+        # the port's barrier holds until every push landed (C7); the JAX
+        # package's can return while its merge loop still pushes the last
+        # batch, so wait for its merged-batch counter, which counts a batch
+        # after its push returned
+        merged = j.communicator._c_merged
+        deadline = time.monotonic() + 30
+        while merged.value < 5:
+            assert time.monotonic() < deadline, "the JAX communicator never pushed 5 batches"
+            time.sleep(0.005)
+        assert t.communicator.merged_batches == 5
         keys = np.arange(1, 40, dtype=np.uint64)
         np.testing.assert_array_equal(t.client.pull_sparse(0, keys, create=False),
                                       j.client.pull_sparse(0, keys, create=False))
@@ -299,6 +310,42 @@ def test_fleet_geo_communicator_matches_jax():
         np.testing.assert_array_equal(tk, jk)
         np.testing.assert_array_equal(td, jd)
         np.testing.assert_array_equal(td, 2.0)  # the mean of the two deltas
+    finally:
+        j.stop_worker()
+        t.stop_worker()
+
+
+def test_fleet_geo_barrier_returns_after_deltas():
+    """In geo mode ``fleet.barrier_worker()`` and the communicator's own
+    ``barrier()`` return after ``send_sparse_delta`` (the geo deltas are
+    not queued on the merge loop, so there is nothing to wait for), and
+    ``check_error()`` stays quiet. A hang fails at the join's timeout."""
+    kw = dict(a_sync=True, geo_sgd_mode=True, geo_configs={"geo_step": 3})
+    j, t = _fleets(kw)
+    try:
+        for f in (j, t):
+            f.register_geo_table(1, dim=4)
+            f.init_server()
+            f.init_worker()
+        keys = np.asarray([9, 4], np.uint64)
+        for f in (j, t):
+            f.communicator.send_sparse_delta(1, keys, np.ones((2, 4), np.float32))
+        for f in (j, t):
+            errors = []
+
+            def join(f=f):
+                try:
+                    f.barrier_worker()
+                    f.communicator.barrier()
+                    f.communicator.check_error()
+                except BaseException as e:  # noqa: BLE001 — reported below
+                    errors.append(e)
+
+            th = threading.Thread(target=join, daemon=True)
+            th.start()
+            th.join(timeout=30)
+            assert not th.is_alive(), f"{type(f.communicator).__module__}: geo barrier hung"
+            assert errors == []
     finally:
         j.stop_worker()
         t.stop_worker()
@@ -397,8 +444,6 @@ def test_user_defined_cluster_role_takes_rpc_without_the_env(monkeypatch):
 def test_tcp_store_set_get_add_wait_delete_barrier():
     """The store ``fleet.util`` rides: one master, two clients, exact
     values; a ``wait`` past its timeout raises."""
-    import threading
-
     from paddle_tpu_torch.distributed.collective import TCPStore
 
     master = TCPStore(is_master=True, timeout=5.0)

@@ -49,8 +49,7 @@ from paddle_tpu.ps.ps_trainer import CtrStreamTrainer as JaxTrainer
 from paddle_tpu.ps.sgd_rule import SGDRuleConfig as JaxSGDRuleConfig
 from paddle_tpu.ps.table import TableConfig as JaxTableConfig
 from paddle_tpu_torch.convert import ctr_params_from_jax
-from paddle_tpu_torch.core.enforce import (NotFoundError, PreconditionNotMetError,
-                                           PsTransportError, UnavailableError)
+from paddle_tpu_torch.core.enforce import NotFoundError, PreconditionNotMetError, PsTransportError
 from paddle_tpu_torch.core.flags import get_flags, set_flags
 from paddle_tpu_torch.data.dataset import InMemoryDataset, SlotDesc
 from paddle_tpu_torch.distributed import elastic
@@ -151,11 +150,21 @@ def test_lease_refresh_and_expiry(monkeypatch):
     assert not elastic.Lease.alive(store, "k")
 
 
-def test_tcp_store_is_not_ported():
-    with pytest.raises(UnavailableError, match="item 8"):
-        elastic.TcpElasticStore()
-    with pytest.raises(UnavailableError, match="item 8"):
-        elastic.store_from_spec("tcp:127.0.0.1:1234")
+def test_tcp_elastic_store_and_spec_ride_a_leased_tcp_store():
+    master = elastic.TcpElasticStore(is_master=True)
+    peer = elastic.store_from_spec(f"tcp:127.0.0.1:{master.port}")
+    try:
+        assert isinstance(peer, elastic.TcpElasticStore)
+        peer.put("ha/shard0", "primary", ttl=0.2)
+        peer.put("ha/shard1", "primary")
+        assert elastic.Lease.alive(master, "ha/shard0")
+        assert master.list_prefix("ha/") == {"ha/shard0": "primary", "ha/shard1": "primary"}
+        time.sleep(0.4)   # the lease lapses on the master's clock
+        assert not elastic.Lease.alive(master, "ha/shard0")
+        assert peer.list_prefix("ha/") == {"ha/shard1": "primary"}
+    finally:
+        peer.close()
+        master.close()
     with pytest.raises(ValueError):
         elastic.store_from_spec("etcd:x")
 
