@@ -5657,14 +5657,19 @@ def phase_obs_fleet(dev, card, oracle=None):
 # the items' keys, or the tree's node codes, and the model's weights carried
 # across), for each seed of RS_SEEDS; the card runs of the first seed are the
 # path's run (B1 launches counted there, its first push of each family checked
-# bitwise). Leg B: tools/recsys_replay.py's configuration without the flash
-# crowd, through the port: a 1-shard HACluster over a FileStore with the
-# RS_KEYS keys preloaded, a stream trainer in the background, a parent-side
-# replica and cached lookup on the card, RS_MEMBERS member processes on the
-# card behind a router and a fleet, and a PipelineFrontend whose ranker is leg
-# A's trained GRU4Rec; an open-loop replay (a ramp with a member SIGKILLed
-# mid-way, a tail, a canary/promote/rollback), then the DSSM ranker and a TDM
-# walk on the card against their CPU runs over the parent's lookup.
+# bitwise). Leg B: tools/recsys_replay.py's configuration, through the port:
+# a 1-shard HACluster over a FileStore with the RS_KEYS keys preloaded, a
+# stream trainer in the background, a parent-side replica and cached lookup on
+# the card, RS_MEMBERS member processes on the card behind a router and a
+# fleet, and a PipelineFrontend whose ranker is leg A's trained GRU4Rec; after
+# the warm pass the control plane starts (a MetricRing fed by a Sampler, an
+# SloWatchdog with recsys_rules, an Autoscaler on the fleet's controller); an
+# open-loop replay: a ramp with a member SIGKILLed mid-way (a fleet of one),
+# the flash crowd (RS_SPIKE_X × RS_PEAK_QPS for RS_SPIKE_S, which must fire
+# recsys_e2e_p99 and make the autoscaler grow the fleet), a tail on the grown
+# fleet (the exporter scraped once in it), a canary/promote/rollback; then the
+# DSSM ranker and a TDM walk on the card against their CPU runs over the
+# parent's lookup.
 RS_KEYS, RS_DIM, RS_HIDDEN, RS_OUT = 20_000, 8, 16, 16
 RS_HIST, RS_FANOUT, RS_FAN_WIDTH, RS_TOPK = 6, 2, 8, 8
 RS_RANK_BATCH, RS_DELAY_US, RS_MEMBERS = 32, 4000, 2
@@ -5675,6 +5680,22 @@ RS_USERS, RS_DEADLINE_MS = 1_000_000, 4000.0
 RS_BASE_QPS, RS_PEAK_QPS, RS_RAMP_S, RS_TAIL_S = 15.0, 60.0, 10.0, 6.0
 RS_WARM, RS_CANARY, RS_SCORED = 100, 400, 64
 RS_TRAIN_BATCH, RS_DENSE_LEN = 128, 64
+# the flash crowd (recsys_replay's defaults): RS_SPIKE_X × RS_PEAK_QPS open loop
+# for RS_SPIKE_S against the post-kill fleet, the e2e p99 objective RS_SLO_MS
+# over 6 s / 2 s windows; the grow is awaited up to RS_SCALE_WAIT_S
+RS_SPIKE_S, RS_SPIKE_X, RS_SLO_MS = 6.0, 3.0, 120.0
+RS_SLO_LONG_S, RS_SLO_SHORT_S, RS_SCALE_WAIT_S = 6.0, 2.0, 45.0
+# Where leg B departs from the replay's deployment, each forced by a reading on
+# the H100 (PERF.md §4):
+# - one member's proxy keeps up to RS_PROXY_WORKERS sub-requests in flight (a
+#   socket each), so its frontend can batch them (max_batch 64). At the replay's
+#   4 (spawn_member's default), one member answered 49-169 requests/s of the
+#   crowd, the crowd queued in the proxy and its deadlines ran out there;
+# - the process registry is reset when leg B starts: the script's earlier
+#   phases left their series in it, and sampling them all took 4.95 ms a tick
+#   (569 ms at worst); the replay's process holds only its own;
+# - the ring takes a baseline tick before the sampler starts (below).
+RS_PROXY_WORKERS = 32
 # card vs CPU after RS_STEPS steps, from seeds 0-2 on the H100 (PERF.md §6):
 # losses relative; params and cache columns as a share of each tensor's
 # largest magnitude. GRU4Rec's and DSSM's worst: 2.4e-6 / 3.5e-6 params, 1.3e-6
@@ -5971,7 +5992,8 @@ def rs_replay(pipe, phase, mid_hook=None, answers=None):
 
 
 def rs_arm(pipe, router, phase, **kw):
-    """One arm: the pipeline's counters as deltas, its latency windows reset."""
+    """One arm: the replay's client-side record, the pipeline's counters as
+    deltas, its latency windows reset."""
     keys = ("served", "errors", "early_cuts", "stragglers_abandoned", "stragglers_late",
             "fan_failures", "rank_batches", "coalesced", "rank_deadline_dropped",
             "deadline_misses", "shed")
@@ -5980,7 +6002,10 @@ def rs_arm(pipe, router, phase, **kw):
         r.reset()
     out = rs_replay(pipe, phase, **kw)
     s1 = pipe.stats()
-    out.update({k: int(s1[k] - s0[k]) for k in keys})
+    # "errors" stays the requests that failed at the client (a deadline run
+    # out in the ranking queue among them); the pipeline's own counter of
+    # that name is "pipe_errors"
+    out.update({("pipe_errors" if k == "errors" else k): int(s1[k] - s0[k]) for k in keys})
     out.update(e2e=s1["e2e_ms"], retrieval=s1["stage_retrieval_ms"],
                ranking=s1["stage_ranking_ms"], rps=(out["requests"] - out["errors"])
                / out["wall_s"], hedges=int(router.counters["hedges"] - h0),
@@ -6022,6 +6047,7 @@ def rs_leg_b(dev, card, leg_a):
     import random
     import tempfile
     import threading
+    import urllib.request
 
     from paddle_tpu_torch.convert import ravel_tree
     from paddle_tpu_torch.data.dataset import QueueDataset, SlotDesc
@@ -6032,8 +6058,13 @@ def rs_leg_b(dev, card, leg_a):
     from paddle_tpu_torch.models.dssm import make_dssm_ranker
     from paddle_tpu_torch.models.gru4rec import make_gru4rec_ranker
     from paddle_tpu_torch.models.tdm import ServingBeamSource, beam_search_retrieve
+    from paddle_tpu_torch.obs import registry as obs_registry
+    from paddle_tpu_torch.obs import slo, timeseries
+    from paddle_tpu_torch.obs.exporter import ObsExporter, parse_openmetrics
+    from paddle_tpu_torch.obs.trace import wall_s
     from paddle_tpu_torch.optimizer import Adam
     from paddle_tpu_torch.ps.accessor import AccessorConfig
+    from paddle_tpu_torch.ps.autoscale import AutoscaleConfig, Autoscaler
     from paddle_tpu_torch.ps.communicator import HalfAsyncCommunicator
     from paddle_tpu_torch.ps.ha import HACluster
     from paddle_tpu_torch.ps.hot_tier import HotEmbeddingTier, HotTierConfig
@@ -6046,6 +6077,8 @@ def rs_leg_b(dev, card, leg_a):
                                           ServingRouter, spawn_member)
 
     rec = {}
+    # leg B's series alone in the registry, as in the replay's own process
+    obs_registry.REGISTRY.reset()
     xd, S, D = RS_DIM, 8, 4
     cfg = TableConfig(shard_num=4, accessor_config=AccessorConfig(
         embedx_dim=xd, embedx_threshold=0.0, sgd=SGDRuleConfig(initial_range=0.01)))
@@ -6055,7 +6088,7 @@ def rs_leg_b(dev, card, leg_a):
     os.makedirs(store_dir)
     rng = np.random.default_rng(0)
     cluster = HACluster(num_shards=1, replication=1, store=FileStore(store_dir), sync=False)
-    fleet = router = pipe = rep = comm = None
+    fleet = router = pipe = rep = comm = sampler = scaler = exporter = None
     stop_train, stop_probe = threading.Event(), threading.Event()
     threads = []
     try:
@@ -6115,7 +6148,7 @@ def rs_leg_b(dev, card, leg_a):
                                 shard_num=4, capacity=cap, dense_len=RS_DENSE_LEN,
                                 max_batch=64, max_delay_us=1000, freshness_budget_s=2.0,
                                 default_deadline_ms=RS_DEADLINE_MS, prime_pow2_max=RS_FAN_WIDTH,
-                                hb_ttl=10.0, device=dev.type)
+                                hb_ttl=10.0, proxy_workers=RS_PROXY_WORKERS, device=dev.type)
 
         router = ServingRouter(RouterConfig(block_shift=6, hedge_default_ms=25.0,
                                             hedge_floor_ms=10.0), rng=random.Random(0))
@@ -6129,7 +6162,17 @@ def rs_leg_b(dev, card, leg_a):
         flat_v2 = flat_v1 + np.float32(0.01)
         dg_v1 = crc32c(np.ascontiguousarray(flat_v1).tobytes())
         rollout.register_baseline(flat_v1)
-        fleet.add(RS_MEMBERS)
+
+        def serving(members):
+            """Each member answers one request through its own frontend: the
+            event that proves it serves before traffic relies on it."""
+            for m in members:
+                out = m.frontend.submit(np.arange(RS_FAN_WIDTH, dtype=np.uint64),
+                                        deadline_ms=RS_DEADLINE_MS).result(30.0)
+                assert out.shape == (RS_FAN_WIDTH, 1 + xd), (m.endpoint, out.shape)
+            return wall_s()
+
+        serving(fleet.add(RS_MEMBERS))
         rec["spawn_s"] = time.perf_counter() - t
         pipe = PipelineFrontend(router, TimedLookup(), ranker=ranker, config=PipelineConfig(
             default_deadline_ms=RS_DEADLINE_MS, retrieval_frac=0.5, fanout=RS_FANOUT,
@@ -6219,18 +6262,121 @@ def rs_leg_b(dev, card, leg_a):
         pipe.reset_stats()
         router.latency.reset()
         del rank_ms[:], gather_ms[:]
+        # the control plane starts after the warm pass (its stragglers would sit
+        # in the SLO windows): ring <- sampler -> watchdog -> autoscaler
+        ring = timeseries.MetricRing(8192)
+        # the baseline tick: a ring diffs each tick against the one before, and
+        # its first sight of a series takes the whole count as that tick's
+        # delta, so without a baseline the warm pass's observations would land
+        # in the first tick, inside both windows (they fired the rule before
+        # the kill on the H100). The baseline sits one long window and a second
+        # in the past, outside them
+        ring.append(obs_registry.snapshot(), t=wall_s() - RS_SLO_LONG_S - 1.0)
+        sampler = timeseries.Sampler(period_s=0.25, ring=ring)
+        wd = slo.SloWatchdog(ring, slo.recsys_rules(
+            e2e_p99_s=RS_SLO_MS / 1e3, freshness_training_p95_s=5.0, long_s=RS_SLO_LONG_S,
+            short_s=RS_SLO_SHORT_S))
+        wd.attach(sampler)
+        scaler = Autoscaler(fleet.controller(), watchdog=wd, ring=ring, config=AutoscaleConfig(
+            min_shards=1, max_shards=6, factor=2, up_rules=("recsys_e2e_p99",),
+            cooldown_up_s=30.0, cooldown_down_s=3600.0, clear_hold_s=3600.0), poll_s=0.25)
+        # the autoscaler's thread starts at the flash crowd (below)
+        sampler.start()
         threads = [threading.Thread(target=train_loop, name="rs-trainer"),
                    threading.Thread(target=probe_loop, name="rs-freshness")]
         for th in threads:
             th.start()
         victim = fleet.members()[-1]
+        after_kill = []
+
+        def kill():
+            victim.crash()
+            after_kill.append(fleet.size())
+
         rec["ramp"] = rs_arm(pipe, router, rs_gen_phase(
             RS_RAMP_S, lambda t: RS_BASE_QPS + (RS_PEAK_QPS - RS_BASE_QPS)
-            * float(np.sin(0.5 * np.pi * min(t / RS_RAMP_S, 1.0))), seed=2),
-            mid_hook=victim.crash)
+            * float(np.sin(0.5 * np.pi * min(t / RS_RAMP_S, 1.0))), seed=2), mid_hook=kill)
         rec["killed"] = victim.endpoint
+        rec["size_after_kill"] = after_kill[0]
+
+        def grown():
+            return [e for e in scaler.events if e.get("kind") == "scale"
+                    and e.get("direction") == "up"]
+
+        # the flash crowd. On a slow host the ramp after the kill can breach
+        # the objective by itself (an H100 host read e2e p99 753 ms there):
+        # so the crowd starts once the rule is clear, and the autoscaler's
+        # thread with it, and the grow it makes answers the crowd's alert.
+        # Then the rule over windows that end with the crowd (the long one
+        # as long as the crowd): whether the crowd alone burns the
+        # objective. t1 is taken after the tick that evaluates its last window
+        rule = next(r for r in wd.rules if r.name == "recsys_e2e_p99")
+        rec["ramp_alerts"] = [a for a in wd.alerts() if a["rule"] == rule.name]
+        phase_wait(lambda: rule.name not in wd.active(),
+                   "recsys_e2e_p99 never cleared after the ramp", timeout=30.0)
+        before = {m.endpoint for m in fleet.members()}
+        scaler.start()
+        t0 = wall_s()
+        rec["spike"] = rs_arm(pipe, router, rs_gen_phase(RS_SPIKE_S,
+                                                         lambda t: RS_PEAK_QPS * RS_SPIKE_X,
+                                                         seed=3))
+        sampler.tick()
+        rec["spike"].update(t0=t0, t1=wall_s(), burn=rule.evaluate(ring, wall_s()))
+        # the grow decision may land while the spike still drains: wait for the
+        # journal (a member spawn is a process bring-up), with the replay's back-off
+        deadline, delay = time.perf_counter() + RS_SCALE_WAIT_S, 0.1
+        while not grown() and time.perf_counter() < deadline:
+            time.sleep(delay)
+            delay = min(delay * 1.5, 1.0)
+        new = [m for m in fleet.members() if m.endpoint not in before]
+        rec["alerts"] = wd.alerts()
+        rec["scale_events"] = [dict(e) for e in scaler.events
+                               if e.get("kind", "").startswith("scale")]
+        rec["new_members"] = [m.endpoint for m in new]
+        rec["t_serving"] = serving(new) if new else None
+        rec["size_after_spike"] = fleet.size()
+        # the tail on the grown fleet, the exporter scraped once in its middle
+        exporter = ObsExporter(obs_registry.snapshot, ring=ring, alerts_fn=wd.alerts).start()
+        scrape = {}
+
+        def scrape_once():
+            with urllib.request.urlopen(exporter.url + "/metrics", timeout=10) as resp:
+                scrape["families"] = parse_openmetrics(resp.read().decode())
+            with urllib.request.urlopen(exporter.url + "/alerts.json", timeout=10) as resp:
+                scrape["alerts"] = json.load(resp)["alerts"]
+
+        scraper = threading.Thread(target=scrape_once, name="rs-scrape")
         rec["tail"] = rs_arm(pipe, router, rs_gen_phase(RS_TAIL_S, lambda t: RS_PEAK_QPS,
-                                                       seed=4))
+                                                       seed=4), mid_hook=scraper.start)
+        scraper.join(30)
+        rec["scrape"] = {"families": len(scrape.get("families", {})),
+                         "e2e_series": sum(
+                             1 for _, lbl, _ in scrape.get("families", {}).get(
+                                 "serving_latency_s", {"samples": []})["samples"]
+                             if lbl.get("recorder") == "recsys_e2e"),
+                         "alerts": [a["rule"] for a in scrape.get("alerts", [])]}
+        scaler.stop()
+        sampler.stop()
+        # the control plane's own costs: a sampler tick (snapshot + ring append,
+        # its obs_sample_duration_s gauge), one watchdog evaluation of the three
+        # rules over the ring, one autoscaler decision (in its cooldown: no
+        # actuation), host ms each
+        ticks = [v * 1e3 for _, v in ring.series("obs_sample_duration_s", "value",
+                                                 labels={"sampler": "obs-sampler"})]
+        costs = {"eval": [], "decide": []}
+        for _ in range(20):
+            t0 = time.perf_counter()
+            wd.evaluate(now=wall_s())
+            costs["eval"].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            scaler.step()
+            costs["decide"].append((time.perf_counter() - t0) * 1e3)
+        rec["sampler"] = {"ticks": sampler.ticks, "errors": sampler.errors,
+                          "evaluations": wd.evaluations, "ring": len(ring),
+                          "tick_ms": (float(np.median(ticks)), float(np.max(ticks)))
+                          if ticks else None,
+                          "eval_ms": float(np.median(costs["eval"])),
+                          "decide_ms": float(np.median(costs["decide"]))}
         stop_probe.set()
         stop_train.set()
         for th in threads:
@@ -6246,12 +6392,16 @@ def rs_leg_b(dev, card, leg_a):
         phase_wait(lambda: fleet.counters["crashes_removed"] >= 1,
                    "the crashed member was never removed", timeout=30.0)
         rec["crashes_removed"] = fleet.counters["crashes_removed"]
-        # canary, promote, rollback over the wire (a canary needs a stable member
-        # beside the band: top the fleet back up to two, as the replay does)
-        t = time.perf_counter()
+        # canary, promote, rollback over the wire: a canary needs a stable member
+        # beside the band. The grow left two; only if the flash crowd never grew
+        # the fleet does an operator top it up first, as the replay does
+        rec["topup"] = None
         if fleet.size() < 2:
-            fleet.add(2 - fleet.size())
-        rec["topup_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            log(f"recsys leg B: the flash crowd left {fleet.size()} member(s); topping the "
+                f"fleet up to 2 for the canary")
+            serving(fleet.add(2 - fleet.size()))
+            rec["topup"] = time.perf_counter() - t
         v1 = rollout.current
         v2 = rollout.begin_canary(flat_v2, fraction=0.2)
         c0 = dict(router.stats()["version_counts"])
@@ -6309,6 +6459,9 @@ def rs_leg_b(dev, card, leg_a):
         for th in threads:
             if th.is_alive():
                 th.join(60)
+        for part in (exporter, scaler, sampler):
+            if part is not None:
+                part.stop()
         if pipe is not None:
             pipe.stop()
         if comm is not None:
@@ -6343,8 +6496,9 @@ def phase_recsys(dev, card):
     t = time.perf_counter()
     b = rs_leg_b(dev, card, a)
     leg_b_s = time.perf_counter() - t
-    for name in ("ramp", "tail", "canary"):
-        r = b[name]
+    arms = [("ramp", b["ramp"]), ("spike", b["spike"]), ("tail", b["tail"]),
+            ("canary", b["canary"])]
+    for name, r in arms:
         log(f"recsys leg B, {name}: {r['requests']} requests open-loop, {r['rps']:.1f} "
             f"requests/s, errors {r['errors']} (first {r['first_error']}), e2e p50 "
             f"{r['e2e']['p50_ms']} ms p99 {r['e2e']['p99_ms']} ms, retrieval p50 "
@@ -6354,11 +6508,40 @@ def phase_recsys(dev, card):
             f"abandoned {r['stragglers_abandoned']} late {r['stragglers_late']}, fan failures "
             f"{r['fan_failures']}, hedges {r['hedges']}, reroutes {r['reroutes']}, late "
             f"arrivals {r['late']}, best first {r['best_first']} on {card}")
+    spike = b["spike"]
+    fired = [a for a in b["alerts"] if a["rule"] == "recsys_e2e_p99"]
+    # the alerts that fired in the crowd (the first of them is what the
+    # autoscaler, started with the crowd, answered); from its start to that one
+    crowd = [a for a in fired if spike["t0"] <= a["t"] <= spike["t1"]]
+    ups = [e for e in b["scale_events"] if e["kind"] == "scale" and e["direction"] == "up"]
+    to_alert = crowd[0]["t"] - spike["t0"] if crowd else None
+    # the grow's journal entry is written once fleet.add returned: the member
+    # printed MEMBER_READY (its socket serves) and the router routes to it
+    to_serving = (ups[0]["wall_s"] - crowd[0]["t"]) if crowd and ups else None
+    log(f"recsys leg B, flash crowd: {RS_SPIKE_X:g} x RS_PEAK_QPS = "
+        f"{RS_SPIKE_X * RS_PEAK_QPS:.0f} requests/s offered for {RS_SPIKE_S:g} s "
+        f"({spike['rps']:.1f} served/s), e2e p50 {spike['e2e']['p50_ms']} ms p99 "
+        f"{spike['e2e']['p99_ms']} ms against the {RS_SLO_MS:g} ms objective, errors "
+        f"{spike['errors']} (the pipeline's {spike['pipe_errors']}); recsys_e2e_p99 fired "
+        f"{len(b['ramp_alerts'])} time(s) in the ramp (e2e p99 {b['ramp']['e2e']['p99_ms']} "
+        f"ms) and {len(crowd)} in the crowd, "
+        f"{to_alert if to_alert is None else round(to_alert, 3)} s after its start (windows "
+        f"{crowd[0]['windows'] if crowd else None}); the rule over "
+        f"the crowd's own windows at its end: {spike['burn']}; scale events "
+        f"{[(e['kind'], e['direction'], e['from_shards'], e['to_shards'], e.get('bootstrap_s')) for e in b['scale_events']]}; "
+        f"new member(s) {b['new_members']} routed "
+        f"{to_serving if to_serving is None else round(to_serving, 3)} s after the alert "
+        f"(and answering a request of its own at +"
+        f"{None if not (crowd and b['t_serving']) else round(b['t_serving'] - crowd[0]['t'], 3)}"
+        f" s, after the spike); "
+        f"fleet {RS_MEMBERS} -> {b['size_after_kill']} after the kill -> "
+        f"{b['size_after_spike']} after the spike; top-up {b['topup']}; control plane "
+        f"{b['sampler']}; exporter scrape in the tail: {b['scrape']} on {card}")
     p = b["pipeline"]
     copy = {B: rs_copy_ms(dev, B) for B in (1, RS_RANK_BATCH)}
     log(f"recsys leg B: preload {b['preload_s']:.2f} s, {RS_MEMBERS} member processes up in "
         f"{b['spawn_s']:.2f} s, member {b['killed']} SIGKILLed mid-ramp and removed by the "
-        f"lease watch ({b['crashes_removed']}), top-up {b['topup_s']:.2f} s; freshness under "
+        f"lease watch ({b['crashes_removed']}); freshness under "
         f"training {b['freshness']}; canary split {b['version_counts']}, promoted "
         f"{b['promoted']}, v1 restored on {b['rollback_members']} members {b['rollback_ok']}; "
         f"coalesce factor over the leg {p.get('coalesce_factor')}; {b['scored']} ranking "
@@ -6369,9 +6552,20 @@ def phase_recsys(dev, card):
         f"{b['rank_ms'][0]:.3f}/{b['rank_ms'][1]:.3f} ms; its host<->card copies "
         f"{copy[1]:.4f} ms at 1 request, {copy[RS_RANK_BATCH]:.4f} ms at {RS_RANK_BATCH} "
         f"on {card}")
-    for name in ("ramp", "tail", "canary"):
-        assert b[name]["errors"] == 0, f"phase 20: {name} errors {b[name]}"
-        assert b[name]["best_first"], f"phase 20: {name} answers not best first"
+    for name, r in arms:
+        assert r["errors"] == 0, f"phase 20: {name} errors {r}"
+        assert r["best_first"], f"phase 20: {name} answers not best first"
+    # the alert behind the grow fired in the crowd
+    assert crowd, f"phase 20: recsys_e2e_p99 did not fire in the crowd " \
+        f"({spike['t0']}-{spike['t1']}): {b['alerts']}"
+    assert all(e["wall_s"] >= crowd[0]["t"] for e in ups), (crowd, ups)
+    assert spike["burn"][0], f"phase 20: the flash crowd alone does not burn {spike['burn']}"
+    assert len(ups) == 1, f"phase 20: scale-up events {b['scale_events']}"
+    assert b["size_after_spike"] > b["size_after_kill"], \
+        f"phase 20: fleet {b['size_after_kill']} -> {b['size_after_spike']}"
+    assert b["new_members"] and b["t_serving"] is not None, "phase 20: no grown member served"
+    assert b["scrape"]["families"] > 0 and b["scrape"]["e2e_series"] > 0, b["scrape"]
+    assert "recsys_e2e_p99" in b["scrape"]["alerts"], b["scrape"]
     assert p["coalesced"] > p["rank_batches"], f"phase 20: coalesce factor {p}"
     assert p["stragglers_abandoned"] > 0, f"phase 20: no straggler counted {p}"
     assert b["crashes_removed"] == 1

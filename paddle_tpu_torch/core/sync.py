@@ -12,10 +12,8 @@ A deterministic concurrency explorer installs a scheduler first, and the
 same factories then return *controlled* primitives on which every
 operation is a scheduling point. The contract is construction-time
 binding: install the scheduler BEFORE constructing the objects under
-test (primitives built earlier stay raw and invisible to it). The port
-has no explorer of its own yet (``testing/sched.py``, ROADMAP Queue A);
-the hooks are here so that the modules built on them need no change
-when it comes.
+test (primitives built earlier stay raw and invisible to it). The
+explorer is ``testing/sched.py``.
 
 The optional ``name=`` keyword names a lock for a lock-order checker;
 the production path ignores it.

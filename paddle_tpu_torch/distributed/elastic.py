@@ -83,9 +83,17 @@ class MemoryStore:
             self._d.pop(key, None)
 
 
+#: suffix of a FileStore put's temporary file; ``list_prefix`` skips such
+#: names (no key of the package ends with it)
+_TMP_SUFFIX = ".put-tmp"
+
+
 class FileStore:
     """The same interface over a shared directory: one file per key
-    (percent-encoded name), the TTL counted from the write's wall time."""
+    (percent-encoded name), the TTL counted from the write's wall time. A
+    put writes a temporary file and renames it over the key's, so a reader
+    sees the old value or the new one, never a truncated file (a lease
+    read mid-write would look expired)."""
 
     def __init__(self, root: str) -> None:
         self.root = root
@@ -95,8 +103,11 @@ class FileStore:
         return os.path.join(self.root, urllib.parse.quote(key, safe=""))
 
     def put(self, key: str, value: str, ttl: float = 0.0) -> None:
-        with open(self._path(key), "w") as f:
+        path = self._path(key)
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}{_TMP_SUFFIX}"
+        with open(tmp, "w") as f:
             json.dump({"v": value, "ttl": ttl, "t": time.time()}, f)
+        os.replace(tmp, path)
 
     def get(self, key: str) -> Optional[str]:
         try:
@@ -111,6 +122,8 @@ class FileStore:
     def list_prefix(self, prefix: str) -> Dict[str, str]:
         out = {}
         for name in os.listdir(self.root):
+            if name.endswith(_TMP_SUFFIX):
+                continue
             key = urllib.parse.unquote(name)
             if key.startswith(prefix):
                 v = self.get(key)

@@ -253,6 +253,7 @@ class JobCheckpointManager:
         # not block other savers' id allocation or stop(); _inflight
         # (condition on _mu) is what keeps the put-vs-shutdown-sentinel
         # ordering instead.
+        # LOCK LEAF: _mu _err_mu
         self._mu = _sync.Lock()
         self._inflight = 0                      # accepted, put not landed
         self._quiesced = _sync.Condition(self._mu)

@@ -19,13 +19,10 @@ TRIGGER pays real cost: one atomic directory publish
 
 ``client=`` (an ``RpcPsClient``) adds each reachable shard's server spans
 (``obs.aggregate.fetch_server_obs``, a non-draining peek that does not
-retry: a dead shard, often the reason for the dump, is skipped). The JAX
-recorder's other two outside sources — the metric ring (``ring=``,
-``obs/timeseries.py``) and the SLO watchdog (``watchdog=``,
-``obs/slo.py``) — are not ported (ROADMAP Queue A item 10). Passing one
-raises :class:`UnavailableError`; the bundle then always has empty
-``timeline.json`` records and ``alerts.json`` alerts, in the JAX
-package's schema.
+retry: a dead shard, often the reason for the dump, is skipped);
+``ring=`` (an ``obs.timeseries.MetricRing``) fills ``timeline.json`` and
+``watchdog=`` (an ``obs.slo.SloWatchdog``) ``alerts.json``, each left
+empty without its source.
 
 Trigger sites call the module-level :func:`notify` — one global read,
 a no-op until a recorder is :func:`install`-ed. In the port the wired
@@ -46,7 +43,6 @@ from collections import deque
 from typing import Any, Dict, List, Optional, Set
 
 from ..core import sync as _sync
-from ..core.enforce import UnavailableError
 from . import aggregate as _aggregate
 from . import registry as _registry
 from . import trace as _trace
@@ -59,7 +55,7 @@ BUNDLE_PREFIX = "postmortem_"
 
 #: event kinds that dump a bundle by default; everything else is noted
 #: into the tail only. ``slo_alert`` is note-only by default (a burning
-#: SLO is a condition, not an instant) — the slo_demo/CI gate opts it in.
+#: SLO is a condition, not an instant) — a caller opts it in.
 DEFAULT_DUMP_ON = frozenset({
     "failover_promotion", "breaker_open", "faultpoint",
     "trainer_exception", "serving_exception", "sigterm",
@@ -68,11 +64,11 @@ DEFAULT_DUMP_ON = frozenset({
 
 
 class FlightRecorder:
-    """``out_dir`` is the bundle root (created if missing). ``client``
-    (an ``RpcPsClient``) adds the PS shards' server spans to the trace;
-    ``ring`` and ``watchdog``, the JAX recorder's other outside sources,
-    are not ported, and passing one raises :class:`UnavailableError`
-    (see the module docstring). ``scope`` is a
+    """``out_dir`` is the bundle root (created if missing). ``ring`` is
+    the metric :class:`~.timeseries.MetricRing` to snapshot (usually the
+    job collector's), ``watchdog`` the alert source, ``client`` an
+    ``RpcPsClient`` whose shards add their server spans to the trace. All
+    three are optional: the bundle omits what it cannot reach. ``scope`` is a
     label subset (``{"tenant": name}``, ``ps.tenancy``): alerts whose
     labels lack it are left out of the bundle, and the manifest records
     it. None: a whole-cluster recorder."""
@@ -83,12 +79,8 @@ class FlightRecorder:
                  keep: int = 8, min_interval_s: float = 5.0,
                  tail_events: int = 1024,
                  scope: Optional[Dict[str, str]] = None) -> None:
-        for what, src, module in (("ring", ring, "obs/timeseries.py"),
-                                  ("watchdog", watchdog, "obs/slo.py")):
-            if src is not None:
-                raise UnavailableError(
-                    f"FlightRecorder({what}=...) needs {module}, which is not ported yet "
-                    "(ROADMAP Queue A item 10)")
+        self.ring = ring
+        self.watchdog = watchdog
         self.client = client
         self.out_dir = out_dir
         os.makedirs(out_dir, exist_ok=True)
@@ -226,10 +218,8 @@ class FlightRecorder:
         # (io/job_checkpoint itself imports obs for its metrics)
         from ..io import fs as _fs
 
-        # no watchdog and no metric ring in the port (the constructor
-        # refuses them): the bundle keeps the JAX schema with both empty
-        alerts = self.in_scope([])
-        records: List[Dict[str, Any]] = []
+        alerts = self.in_scope(self.watchdog.alerts() if self.watchdog is not None else [])
+        records = self.ring.records() if self.ring is not None else []
         tmp = os.path.join(self.out_dir, f"{BUNDLE_PREFIX}{bundle_id}.tmp")
         final = os.path.join(self.out_dir, f"{BUNDLE_PREFIX}{bundle_id}")
         if os.path.exists(tmp):

@@ -62,14 +62,16 @@ import contextlib
 import json
 import random
 import struct
-# lock discipline (the JAX module's): every mutex here is a LEAF
+# lock discipline (read by testing.sched.load_lock_order): every mutex
+# here is a LEAF
 # (breaker/router/shipper `_mu`, the coordinator's `_step_mu` and
 # `_susp_mu`), taken for small in-memory state and never across a nested
 # lock or a block. The cluster-wide `control_mu` (RLock) is the control
 # plane's innermost non-leaf lock: reshard cutovers and checkpoint gates
 # serialize under it, always through HACluster.begin_actuation/
-# end_actuation, which pair it with coordinator suspension. Order:
-# control_mu < _mu.
+# end_actuation, which pair it with coordinator suspension.
+# LOCK ORDER: control_mu < _mu
+# LOCK LEAF: _mu _step_mu _susp_mu
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -955,9 +957,13 @@ class FailoverCoordinator:
     """
 
     def __init__(self, store, job_id: str, grace_s: Optional[float] = None,
-                 poll_s: float = 0.05) -> None:
+                 poll_s: float = 0.05,
+                 on_promote: Optional[Callable[[int, str, str], None]] = None) -> None:
         self.store = store
         self.job_id = job_id
+        #: ``on_promote(shard, old_primary, new_primary)`` after each
+        #: promotion (the reconciler chains its observed-state repair here)
+        self.on_promote = on_promote
         self.routing = RoutingTable(store, job_id)
         self.grace_s = (grace_s if grace_s is not None
                         else int(flag("ps_ha_failover_grace_ms")) / 1000.0)
@@ -1044,6 +1050,8 @@ class FailoverCoordinator:
             self._c_promotions.inc()
             _flightrec.notify("failover_promotion", shard=si, old_primary=prim,
                               new_primary=new_prim, epoch=new_epoch)
+            if self.on_promote is not None:
+                self.on_promote(si, prim, new_prim)
         if changed:
             self.routing.publish(epoch, shards)
         return promoted

@@ -139,9 +139,10 @@ class ReshardController:
         self.poll_s = float(poll_s)
         self._clock = clock
         self._sleep = sleep
-        # lock discipline (the JAX module's): `_op_mu` serializes whole
-        # operations; the client's `_conns_mu` and the cluster's
-        # `control_mu` order under it. Order: _op_mu < control_mu.
+        # lock discipline (read by testing.sched.load_lock_order):
+        # `_op_mu` serializes whole operations; the client's `_conns_mu`
+        # and the cluster's `control_mu` order under it.
+        # LOCK ORDER: _op_mu < control_mu
         self._op_mu = _sync.Lock()
         self._ctrl_conns: Dict[str, object] = {}
         #: cutover gate-hold milliseconds, one an operation

@@ -75,11 +75,12 @@ import ctypes
 import json
 import os
 import struct
-# lock discipline (the JAX module's): every client and server mutex is a
-# leaf. `_mu` is the per-connection wire mutex; `_conns_mu` only swaps
+# lock discipline (read by testing.sched.load_lock_order): every client
+# and server mutex is a leaf. `_mu` is the per-connection wire mutex; `_conns_mu` only swaps
 # connections (connects build outside it); `_pool_mu`/`_count_mu`/
 # `_pause_mu` guard scalars; `_ef_mu` guards the error-feedback store
 # (gather, quantize, scatter under it; the network send outside).
+# LOCK LEAF: _mu _pause_mu _conns_mu _pool_mu _count_mu _ef_mu
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor

@@ -24,12 +24,11 @@ control plane over the service's tenancy handlers:
   another tenant's rows are never evicted to make room. Hot-tier slots cap
   per tenant inside ``HotEmbeddingTier`` (``HotTierConfig.tenant_slots``).
 - **Per-tenant control plane**: tenant-labelled gauges of bounded
-  cardinality (at most 256 tenants: the id is one byte) and scoped
-  flight-recorder bundles (:func:`tenant_flight_recorder`).
-
-Not ported: :func:`tenant_slo_rules` raises ``UnavailableError`` until
-``obs/slo.py`` is (ROADMAP Queue A item 10), and with it the per-tenant
-autoscaler lever (``ps/autoscale.py``, the same item).
+  cardinality (at most 256 tenants: the id is one byte), per-tenant SLO
+  rules (:func:`tenant_slo_rules`), scoped flight-recorder bundles
+  (:func:`tenant_flight_recorder`) and a per-tenant autoscaler lever (an
+  ``Autoscaler`` subscribed to one tenant's rules: ``ps.autoscale``'s
+  ``tenant=``).
 """
 
 # lock discipline (the JAX module's): the directory's _mu is a leaf, never
@@ -44,7 +43,7 @@ from typing import Dict, List
 import numpy as np
 
 from ..core import sync as _sync
-from ..core.enforce import UnavailableError, enforce
+from ..core.enforce import enforce
 from ..obs import registry as _obs_registry
 from ..obs.flightrec import FlightRecorder
 from .rpc import RpcPsClient, make_conn
@@ -253,10 +252,30 @@ class TenantDirectory:
 
 def tenant_slo_rules(tenant: str, pull_p99_s: float = 0.05,
                      throttled_per_s: float = 50.0) -> List:
-    """Not ported: the per-tenant SLO rules are ``obs/slo.py`` rules."""
-    raise UnavailableError(
-        f"tenant_slo_rules({tenant!r}) builds obs/slo.py SloRules, which are not ported yet "
-        "(ROADMAP Queue A item 10)")
+    """Per-tenant SLO rules (``obs.slo``), labelled ``{"tenant": name}`` so
+    one tenant's burn can neither fire nor clear a neighbour's rule.
+    Subscribe them to the tenant's ``Autoscaler`` (``config.up_rules`` and
+    ``tenant=``) for the per-tenant scaling lever, and to a scoped flight
+    recorder for tenant-only bundles.
+
+    - ``{tenant}_pull_p99``: threshold on the tenant-labelled pull
+      latency gauge family ``tenant_pull_s``.
+    - ``{tenant}_throttle_rate``: the tenant is shed faster than
+      ``throttled_per_s`` — its own overload (or an under-provisioned
+      budget), surfaced on ITS control plane, not the neighbours'.
+    """
+    from ..obs.slo import SloRule
+
+    return [
+        SloRule(name=f"{tenant}_pull_p99", family="tenant_pull_s",
+                kind="threshold", threshold=pull_p99_s, agg="max",
+                labels={"tenant": tenant},
+                windows=((10.0, 1.0),), min_count=3),
+        SloRule(name=f"{tenant}_throttle_rate", family="tenant_throttled",
+                kind="threshold", threshold=throttled_per_s, agg="rate",
+                field="rate", labels={"tenant": tenant},
+                windows=((10.0, 1.0),), min_count=3),
+    ]
 
 
 def tenant_flight_recorder(out_dir: str, tenant: str, **kw) -> FlightRecorder:

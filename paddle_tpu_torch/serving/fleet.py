@@ -29,17 +29,18 @@ this module runs N of them as ONE load-balanced unit behind a
   catch-up BEFORE the admits, and the feed keeps running after — the
   manifest transfers *residency*, the oplog owns *values*.
 - **elasticity: replica count as an autoscaler's lever.**
-  :meth:`controller` returns a grow/shrink adapter in the shape of the
-  JAX package's ``ps.autoscale.Autoscaler`` lever (the autoscaler itself
-  is not ported: ROADMAP Queue A item 10).
+  :meth:`controller` returns a grow/shrink adapter in the shape of
+  ``ps.autoscale.Autoscaler``'s lever, so the autoscaler grows and
+  shrinks the fleet on its SLO rules.
 """
 
 from __future__ import annotations
 
 import dataclasses
-# lock discipline (the JAX module's): `_mu` guards the member map and the
-# join-order bookkeeping and is a leaf; member construction, warm handoff,
-# router and rollout calls all run outside it
+# lock discipline (read by testing.sched.load_lock_order): `_mu` guards
+# the member map and the join-order bookkeeping and is a leaf; member
+# construction, warm handoff, router and rollout calls all run outside it
+# LOCK LEAF: _mu
 import threading
 import time
 from collections import deque

@@ -35,6 +35,45 @@ def _wait_until(cond, timeout=10.0):
         time.sleep(0.02)
 
 
+def test_file_store_put_is_atomic_for_readers(tmp_path):
+    """A ``FileStore`` put renames a whole file over the key's: a reader
+    racing 2,000 lease renewals never sees the key missing (a truncated
+    file read as an expired lease made a fleet's lease watch drop a live
+    member), the temporary files never show in ``list_prefix``, and the
+    same keys and values read back as the JAX package's ``FileStore``
+    gives for the same puts."""
+    import threading
+
+    from paddle_tpu.distributed.elastic import FileStore as JaxFileStore
+
+    store = FileStore(str(tmp_path / "port"))
+    store.put("ps/j/obs/m0", "lease-0", ttl=60.0)
+    done, misses, seen = threading.Event(), [0], set()
+
+    def reader():
+        while not done.is_set():
+            if store.get("ps/j/obs/m0") is None:
+                misses[0] += 1
+            seen.update(store.list_prefix("ps/j/"))
+
+    th = threading.Thread(target=reader)
+    th.start()
+    try:
+        for i in range(2000):
+            store.put("ps/j/obs/m0", f"lease-{i}", ttl=60.0)
+    finally:
+        done.set()
+        th.join()
+    assert misses[0] == 0 and seen == {"ps/j/obs/m0"}
+    port2, jstore = FileStore(str(tmp_path / "port2")), JaxFileStore(str(tmp_path / "jax"))
+    for s in (port2, jstore):
+        s.put("a/b", "1")
+        s.put("a/c", "2", ttl=60.0)
+        s.delete("a/b")
+    assert port2.list_prefix("a/") == jstore.list_prefix("a/") == {"a/c": "2"}
+    assert os.listdir(tmp_path / "port2") == os.listdir(tmp_path / "jax") == ["a%2Fc"]
+
+
 def test_tcp_store_leases_expire_on_the_master_clock():
     master = TCPStore(is_master=True, timeout=5.0)
     client = TCPStore(port=master.port, timeout=5.0)

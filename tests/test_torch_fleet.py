@@ -254,6 +254,43 @@ def test_fleet_init_and_tables_match_jax():
     assert table.size() == 3
 
 
+def _send_five(fleets, seed=0):
+    """The same five seeded batches, each sent through every fleet's (or
+    communicator's) ``send_sparse`` in turn."""
+    rng = np.random.default_rng(seed)
+    for _ in range(5):
+        keys = rng.integers(1, 40, 16).astype(np.uint64)
+        vals = _push_vals(len(keys))
+        vals[:, 4:] *= rng.normal(size=(len(keys), 8)).astype(np.float32)
+        for f in fleets:
+            (f.communicator if hasattr(f, "communicator") else f).send_sparse(0, keys, vals)
+
+
+def _merge_one_batch_a_push():
+    """Both packages' merge loops take one queued batch a push, so the
+    split of the five batches into pushes is the same on both sides (a
+    merge folds whatever it finds queued, up to the flag, so with the
+    default of 20 the split follows the threads' timing: C8). Restores
+    the flag on exit."""
+    import contextlib
+
+    from paddle_tpu.core import flags as jflags
+    from paddle_tpu_torch.core import flags as tflags
+
+    @contextlib.contextmanager
+    def ctx():
+        was = [m.get_flags(["communicator_max_merge_var_num"]) for m in (jflags, tflags)]
+        for m in (jflags, tflags):
+            m.set_flags({"communicator_max_merge_var_num": 1})
+        try:
+            yield
+        finally:
+            for m, w in zip((jflags, tflags), was):
+                m.set_flags(w)
+
+    return ctx()
+
+
 @pytest.mark.parametrize("kw,cls", [({"a_sync": False}, "SyncCommunicator"),
                                     ({"a_sync": True}, "AsyncCommunicator"),
                                     ({"a_sync": True, "a_sync_configs": {"k_steps": 0}},
@@ -261,36 +298,71 @@ def test_fleet_init_and_tables_match_jax():
 def test_fleet_communicator_modes_land_jax_rows(kw, cls):
     j, t = _fleets(kw)
     _tables(j, t)
-    try:
-        for f in (j, t):
-            f.init_server()
-            f.init_worker()
-        assert type(t.communicator).__name__ == type(j.communicator).__name__ == cls
-        rng = np.random.default_rng(0)
-        for _ in range(5):
-            keys = rng.integers(1, 40, 16).astype(np.uint64)
-            vals = _push_vals(len(keys))
-            vals[:, 4:] *= rng.normal(size=(len(keys), 8)).astype(np.float32)
+    with _merge_one_batch_a_push():
+        try:
             for f in (j, t):
-                f.communicator.send_sparse(0, keys, vals)
-        for f in (j, t):
-            f.barrier_worker()
-        # the port's barrier holds until every push landed (C7); the JAX
-        # package's can return while its merge loop still pushes the last
-        # batch, so wait for its merged-batch counter, which counts a batch
-        # after its push returned
-        merged = j.communicator._c_merged
-        deadline = time.monotonic() + 30
-        while merged.value < 5:
-            assert time.monotonic() < deadline, "the JAX communicator never pushed 5 batches"
-            time.sleep(0.005)
-        assert t.communicator.merged_batches == 5
-        keys = np.arange(1, 40, dtype=np.uint64)
-        np.testing.assert_array_equal(t.client.pull_sparse(0, keys, create=False),
-                                      j.client.pull_sparse(0, keys, create=False))
-    finally:
-        j.stop_worker()
-        t.stop_worker()
+                f.init_server()
+                f.init_worker()
+            assert type(t.communicator).__name__ == type(j.communicator).__name__ == cls
+            _send_five((j, t))
+            for f in (j, t):
+                f.barrier_worker()
+            # the port's barrier holds until every push landed (C7); the JAX
+            # package's can return while its merge loop still pushes the last
+            # batch, so wait for its merged-batch counter, which counts a
+            # batch after its push returned
+            merged = j.communicator._c_merged
+            deadline = time.monotonic() + 30
+            while merged.value < 5:
+                assert time.monotonic() < deadline, "the JAX communicator never pushed 5 batches"
+                time.sleep(0.005)
+            assert t.communicator.merged_batches == 5
+            keys = np.arange(1, 40, dtype=np.uint64)
+            np.testing.assert_array_equal(t.client.pull_sparse(0, keys, create=False),
+                                          j.client.pull_sparse(0, keys, create=False))
+        finally:
+            j.stop_worker()
+            t.stop_worker()
+
+
+def test_fleet_communicator_rows_depend_on_the_merge_split():
+    """What C8 was: the rows after the five batches depend on how a merge
+    loop splits them into pushes. The port fed five single pushes and the
+    JAX package fed one merged push (all five queued before its loop
+    starts) land different rows; the JAX package fed the port's split
+    lands the port's rows bit for bit."""
+    from paddle_tpu.ps import communicator as jcomm
+
+    keys = np.arange(1, 40, dtype=np.uint64)
+    rows = {}
+    for split in ("single", "merged"):
+        j, t = _fleets({"a_sync": True})
+        _tables(j, t)
+        try:
+            j.init_server()
+            t.init_server()
+            if split == "single":
+                with _merge_one_batch_a_push():
+                    t.init_worker()
+                    comm = jcomm.AsyncCommunicator(j.client)
+                comm.start()
+                _send_five((t, comm))
+            else:
+                t.init_worker()
+                comm = jcomm.AsyncCommunicator(j.client)
+                _send_five((comm,))  # queued before start: one merged push
+                comm.start()
+            comm.barrier()
+            t.barrier_worker()
+            comm.stop()
+            rows[split] = (t.client.pull_sparse(0, keys, create=False),
+                           j.client.pull_sparse(0, keys, create=False))
+        finally:
+            t.stop_worker()
+    np.testing.assert_array_equal(rows["single"][0], rows["single"][1])
+    assert not np.array_equal(rows["single"][0], rows["merged"][1]), \
+        "five single pushes and one merged push landed the same rows"
+    assert float(np.abs(rows["single"][0] - rows["merged"][1]).max()) > 1e-6
 
 
 def test_fleet_geo_communicator_matches_jax():

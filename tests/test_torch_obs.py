@@ -14,7 +14,8 @@ points and its auto-checkpoint, on the CPU, against the JAX package.
   the hook surface, a fired faultpoint, a ``CtrStreamTrainer`` exception
   (a bundle with ``batches_done`` in it), SIGTERM in a subprocess; its
   ``client=`` source puts the PS shards' server spans in the bundle's
-  trace, its ``ring=``/``watchdog=`` sources raise ``UnavailableError``.
+  trace; its ``ring=``/``watchdog=`` sources fill ``timeline.json`` and
+  ``alerts.json`` as the JAX recorder's do from the same ring and rules.
 - Faultpoints: the flag's parser and the scheduling (after, every,
   count) against the JAX module's.
 - ``auto_checkpoint``: the JAX tests' counterparts, and a
@@ -38,7 +39,6 @@ from paddle_tpu.io.auto_checkpoint import TrainEpochRange as JaxTrainEpochRange
 from paddle_tpu.obs import registry as jax_registry
 from paddle_tpu.obs import trace as jax_trace
 from paddle_tpu.ps import faultpoints as jax_fp
-from paddle_tpu_torch.core.enforce import UnavailableError
 from paddle_tpu_torch.core.flags import get_flags, set_flags
 from paddle_tpu_torch.data.dataset import InMemoryDataset, SlotDesc
 from paddle_tpu_torch.io.auto_checkpoint import (CheckpointSaver, TrainEpochRange,
@@ -110,6 +110,25 @@ def test_registry_snapshot_equals_jax():
     series = {s["labels"].get("key"): s["value"] for s in got["metrics"]["events"]["series"]}
     assert series == {"hits": 5, "misses": 1}   # the registry stays monotonic
     assert got["metrics"]["noisy"]["dropped_series"] == 3
+
+
+@pytest.mark.parametrize("mod", [registry, jax_registry], ids=["port", "jax"])
+def test_registry_reset_exports_only_later_handles(mod):
+    """After ``reset()`` a handle made before it keeps counting but is not
+    exported; families made after it are, from zero (a bench round that
+    wants its own series alone in the process registry)."""
+    reg = mod.Registry()
+    old = reg.counter("reqs", table="0")
+    old.inc(3)
+    reg.histogram("lat", buckets=(0.1, 1.0)).observe(0.5)
+    reg.reset()
+    old.inc(2)
+    assert old.value == 5 and reg.snapshot()["metrics"] == {}
+    reg.counter("reqs", table="0").inc()
+    reg.gauge("density").set(0.5)
+    got = reg.snapshot()["metrics"]
+    assert set(got) == {"reqs", "density"}
+    assert got["reqs"]["series"] == [{"labels": {"table": "0"}, "value": 1}]
 
 
 @pytest.mark.parametrize("mod_flags", ["port", "jax"])
@@ -237,10 +256,52 @@ def test_trigger_dumps_parseable_atomic_bundle(tmp_path):
     assert ev[0]["kind"] == "transport_error"
 
 
+def _ring_watchdog_bundle(root, source, pkg):
+    """One bundle of ``pkg``'s recorder over a ring of three registry ticks
+    (a counter, a gauge, a histogram whose last two ticks burn) and a
+    watchdog that fired on it; the bundle's timeline and alerts, and the
+    manifest's file list."""
+    import importlib
+
+    reg_mod = importlib.import_module(f"{pkg}.obs.registry")
+    ts = importlib.import_module(f"{pkg}.obs.timeseries")
+    slo = importlib.import_module(f"{pkg}.obs.slo")
+    rec_mod = importlib.import_module(f"{pkg}.obs.flightrec")
+    reg = reg_mod.Registry()
+    c, g = reg.counter("c"), reg.gauge("lag")
+    h = reg.histogram("lat", buckets=(0.1, 1.0))
+    ring = ts.MetricRing()
+    for i, v in enumerate((0.05, 5.0, 5.0)):
+        c.inc(3)
+        g.set(10.0 * i)
+        h.observe(v)
+        ring.append(reg.snapshot(), t=1.0 + i)
+    wd = slo.SloWatchdog(ring, [slo.SloRule("lat_p", "lat", threshold=1.0, budget=0.25,
+                                            windows=((2.5, 1.0),), labels=None)])
+    wd.evaluate(now=3.0)
+    rec = rec_mod.FlightRecorder(os.path.join(root, pkg), min_interval_s=0.0,
+                                 **{source: ring if source == "ring" else wd})
+    path = rec.trigger("unit_test")
+    man = json.load(open(os.path.join(path, "manifest.json")))
+    return {"timeline": json.load(open(os.path.join(path, "timeline.json"))),
+            "alerts": json.load(open(os.path.join(path, "alerts.json"))),
+            "files": man["files"]}
+
+
 @pytest.mark.parametrize("source", ["ring", "watchdog"])
-def test_unported_sources_raise(tmp_path, source):
-    with pytest.raises(UnavailableError, match="ROADMAP"):
-        FlightRecorder(str(tmp_path), **{source: object()})
+def test_ring_and_watchdog_sources_fill_the_bundle(tmp_path, source):
+    """``ring=`` fills ``timeline.json`` with the ring's delta records and
+    ``watchdog=`` ``alerts.json`` with its alert log, equal to the JAX
+    recorder's bundle from the same ticks and rules; the other file stays
+    empty."""
+    got = _ring_watchdog_bundle(str(tmp_path), source, "paddle_tpu_torch")
+    assert got == _ring_watchdog_bundle(str(tmp_path), source, "paddle_tpu")
+    if source == "ring":
+        assert [r["t"] for r in got["timeline"]["records"]] == [1.0, 2.0, 3.0]
+        assert got["alerts"] == {"alerts": []}
+    else:
+        assert got["timeline"] == {"records": []}
+        assert [a["rule"] for a in got["alerts"]["alerts"]] == ["lat_p"]
 
 
 def test_client_source_bundles_server_spans(tmp_path):

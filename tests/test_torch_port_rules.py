@@ -1,8 +1,9 @@
 """Rules of the port that the code itself must keep.
 
 - ``paddle_tpu_torch``, ``chip_smoke.py`` and the probes import neither jax/jaxlib
-  nor anything of ``paddle_tpu`` (checked on the syntax tree, so a lazy
-  import inside a function counts too).
+  nor anything of ``paddle_tpu`` nor the JAX repo's ``tools`` (its lint
+  and explorer-gate scripts: the port keeps its own copies) — checked on
+  the syntax tree, so a lazy import inside a function counts too.
 - Entry points default to CUDA: without a GPU they raise unless the
   caller passes ``device="cpu"`` — nothing carries on silently on the
   CPU.
@@ -23,7 +24,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "ctr_rows_probe.py", ROOT / "flash_bwd_probe.py",
     ROOT / "hot_scatter_probe.py", ROOT / "vision_parity_probe.py"]
-FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu", "tools", "py_locks", "lock_order")
 
 
 def _imported_modules(path):
@@ -381,6 +382,42 @@ def test_dataset_entry_points_without_device_raise_without_gpu():
     finally:
         executor.device_prefetch = saved
     assert seen == [torch.device("cpu")]
+
+
+def test_import_rule_covers_the_control_plane():
+    """The control plane's modules (``obs`` ``timeseries``/``slo``/
+    ``exporter``, ``ps`` ``autoscale``/``spec``/``reconcile``/``simulate``,
+    the explorer in ``testing/``) are in the rule's file list; ``obs``
+    exports JAX's names with the exporter still lazy; no production module
+    imports ``testing/``. None of these modules touches a device, so none
+    takes ``device=``."""
+    import subprocess
+    import sys
+
+    import paddle_tpu.obs as jax_obs
+    import paddle_tpu_torch.obs as obs
+
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("obs/timeseries.py", "obs/slo.py", "obs/exporter.py", "ps/autoscale.py",
+                "ps/spec.py", "ps/reconcile.py", "ps/simulate.py", "testing/__init__.py",
+                "testing/sched.py", "testing/models.py", "testing/run.py"):
+        assert f"paddle_tpu_torch/{mod}" in names, mod
+    assert set(obs.__all__) == set(jax_obs.__all__)
+    for path in PORT_FILES:
+        if "testing" in path.parts:
+            continue
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and node.level > 0:
+                mods = [node.module or ""] + [f"{node.module or ''}.{a.name}" for a in node.names]
+                assert not any(m.strip(".").split(".")[0] == "testing" for m in mods), path
+    probe = ("import sys, paddle_tpu_torch.obs, paddle_tpu_torch.ps.reconcile, "
+             "paddle_tpu_torch.ps.simulate, paddle_tpu_torch.serving; "
+             "print(sorted(m for m in sys.modules if m == 'http.server' "
+             "or m.startswith('paddle_tpu_torch.testing') or m.endswith('obs.exporter')))")
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                         cwd=str(ROOT), check=True)
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 def test_import_rule_covers_tenancy_and_serving():

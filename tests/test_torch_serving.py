@@ -69,7 +69,7 @@ def _pkg(root, tier_kw):
         SGDRuleConfig=m("ps.sgd_rule").SGDRuleConfig, TableConfig=m("ps.table").TableConfig,
         HotEmbeddingTier=m("ps.hot_tier").HotEmbeddingTier,
         HotTierConfig=m("ps.hot_tier").HotTierConfig, comm=m("ps.communicator"),
-        tier_kw=tier_kw)
+        faultpoints=m("ps.faultpoints"), tier_kw=tier_kw)
 
 
 JAX = _pkg("paddle_tpu", {})
@@ -562,7 +562,17 @@ def test_cached_lookup_warm_zero_rpc_and_staleness_bound(monkeypatch):
 # -- serving through a failover --------------------------------------------------------
 
 
-def _failover_scenario(p):
+def _failover_scenario(p, drain_before_kill=True, ship_delay_ms=0):
+    """A primary killed by its third push, a replica serving through the
+    promotion. The shipper forwards the primary's oplog to its backup on a
+    thread of its own, so a push that the primary acknowledged but had not
+    yet shipped when it died is lost with it: the promoted backup's rows,
+    and the digest, depend on how far the shipper had got. The scenario
+    drains replication before the push that the fault kills (which changes
+    no state), so the backup holds every acknowledged push in both
+    packages. ``ship_delay_ms`` slows every ship (the ``repl.ship`` delay
+    fault), to show that dependence with ``drain_before_kill=False``."""
+    faults = p.faultpoints
     with _cluster(p, replication=2) as cluster:
         cli = cluster.client()
         cli.create_sparse_table(0, _cfg(p))
@@ -578,6 +588,8 @@ def _failover_scenario(p):
             epoch0 = rep.status()["epoch"]
             prim = cluster.primary(0)
             prim.server.arm_fault("kill-shard", cmd=p.rpc._PUSH_SPARSE, after=3)
+            if ship_delay_ms:
+                faults.arm_faultpoint("repl.ship", "delay-ms", ms=ship_delay_ms, every=1)
             errors, promoted = [0], []
 
             def reader():
@@ -592,12 +604,15 @@ def _failover_scenario(p):
             th = threading.Thread(target=reader)
             th.start()
             try:
-                for _ in range(6):
+                for i in range(6):
+                    if i == 2 and drain_before_kill:
+                        cluster.drain()
                     cli.push_sparse(0, keys[:64], _push(rng, keys[:64], width))
                 new_prim = cluster.wait_promoted(0, prim.endpoint)
             finally:
                 promoted.append(True)
                 th.join()
+                faults.disarm_faultpoints()
             cli.push_sparse(0, keys, _push(rng, keys, width))
             cluster.drain()
             _wait(lambda: cluster.digests(0, 0).get(new_prim) == serve.digest(0)[0],
@@ -612,6 +627,19 @@ def test_serve_through_failover_reattach_and_converge():
     got = both(_failover_scenario)
     assert got["serve_errors"] == 0 and got["new_primary"]
     assert got["epoch_up"] and got["reattached"]
+
+
+def test_failover_digest_depends_on_the_shipped_prefix():
+    """The port's scenario with every ship slowed by 400 ms: without the
+    drain, the two acknowledged pushes before the killing one die unshipped
+    with the primary and the digest differs from the drained run's (what
+    made the comparison above a race under load); with it, they agree."""
+    slow = _failover_scenario(PORT, drain_before_kill=False, ship_delay_ms=400)
+    drained = _failover_scenario(PORT, ship_delay_ms=400)
+    want = _failover_scenario(PORT)
+    assert slow["serve_errors"] == 0 and slow["new_primary"] and slow["reattached"]
+    assert drained["digest"] == want["digest"]
+    assert slow["digest"] != want["digest"]
 
 
 # -- end to end: a tenant trains beside an abuser, replicas serve it ------------------

@@ -15,9 +15,10 @@ drain rate runs on a clock patched into ``serving.frontend`` (a lookup
 moves it 20 ms); lease expiry is a store delete and ``tick()``, except
 the crash, which waits (bounded) for the dead member's own lease TTL.
 
-Not here (ROADMAP Queue A item 10): the autoscaler driving the fleet (the
-JAX test's ``Autoscaler`` half; the lever it drives, ``FleetController``,
-is tested directly), the SLO rules of the labels test, and the exporter.
+The control plane over the fleet: the ``Autoscaler`` (``ps.autoscale``)
+driving the replica count through ``FleetController`` on an injected
+clock, the fleet SLO rules, and the router process's ``/metrics`` scrape
+through ``obs.exporter``, parsed by the port's parser.
 """
 
 import importlib
@@ -40,7 +41,8 @@ def _pkg(root, tier_kw):
     m = lambda name: importlib.import_module(f"{root}.{name}")
     return types.SimpleNamespace(
         serving=m("serving"), frontend_mod=m("serving.frontend"), ha=m("ps.ha"), rpc=m("ps.rpc"),
-        elastic=m("distributed.elastic"), registry=m("obs.registry"),
+        elastic=m("distributed.elastic"), registry=m("obs.registry"), slo=m("obs.slo"),
+        exporter=m("obs.exporter"), autoscale=m("ps.autoscale"),
         crc32c=m("io.fs").crc32c, enforce=m("core.enforce"),
         AccessorConfig=m("ps.accessor").AccessorConfig,
         SGDRuleConfig=m("ps.sgd_rule").SGDRuleConfig, TableConfig=m("ps.table").TableConfig,
@@ -516,14 +518,63 @@ def _lever(p):
 
 
 def test_fleet_controller_grow_shrink_lever():
-    """The autoscaler's lever (the autoscaler itself is ROADMAP item 10):
-    grow doubles the replica count, shrink drains the newest first, and a
+    """The autoscaler's lever: grow doubles the replica count, shrink drains the newest first, and a
     shrink below ``min_replicas`` is refused."""
     got = both(_lever)
     assert got["joined"] == ["as-m3", "as-m4"] and got["sizes"] == [4, 4]
     assert got["drained"] == {"as-m4": True, "as-m3": True}
     assert got["after"] == ["as-m1", "as-m2"] and got["refused"] == "PreconditionNotMetError"
     assert got["job"] == "as-job/serving"
+
+
+def _autoscaled(p):
+    seq = iter(range(1, 100))
+
+    def factory():
+        name = f"as-m{next(seq)}"
+        sm = _StubMember(p, name)
+        return p.serving.FleetMember(_FakeReplicaHandle(name), sm.lookup, sm.frontend)
+
+    store = p.elastic.MemoryStore()
+    router = _router(p)
+    fleet = p.serving.ServingFleet(store, "as-job", factory, router,
+                                   config=p.serving.FleetConfig(min_replicas=2, max_replicas=8))
+    t = [0.0]
+    scaler = p.autoscale.Autoscaler(fleet.controller(), config=p.autoscale.AutoscaleConfig(
+        min_shards=2, max_shards=8, up_rules=("fleet_serving_p99", "serving_p99"),
+        cooldown_up_s=5.0, cooldown_down_s=10.0, clear_hold_s=4.0), clock=lambda: t[0])
+    alert = lambda rule: types.SimpleNamespace(rule=rule)
+    try:
+        fleet.add(2, warm=False)
+        steps = [scaler.step()]
+        scaler.notify_fire(alert("fleet_serving_p99"))
+        steps.append((scaler.step(), fleet.size()))
+        t[0] = 2.0
+        steps.append(scaler.step())
+        scaler.notify_clear(alert("fleet_serving_p99"))
+        t[0] = 4.0
+        steps.append(scaler.step())
+        t[0] = 20.0
+        steps.append((scaler.step(), fleet.size()))
+        return {"steps": steps, "members": router.endpoints(),
+                # wall-clock fields and the measured bootstrap time dropped
+                "journal": [{k: v for k, v in e.items() if k not in ("t", "wall_s", "bootstrap_s")}
+                            for e in scaler.events],
+                "stored": sorted(store.list_prefix("ps/as-job/serving/scale/"))}
+    finally:
+        fleet.stop()
+        router.stop()
+
+
+def test_autoscaler_drives_replica_count():
+    """The autoscaler's hysteresis with the replica count as its actuator:
+    an up-rule alert doubles the fleet, the cooldown and the quiet-hold
+    hold it, and once both pass it drains back to ``min_replicas``; the
+    journal lands in the serving namespace of the elastic store."""
+    got = both(_autoscaled)
+    assert got["steps"] == [None, ("up", 4), None, None, ("down", 2)]
+    assert [e["kind"] for e in got["journal"]] == ["scale", "scale"]
+    assert got["members"] == ["as-m1", "as-m2"] and got["stored"]
 
 
 # -- the frontend's retry-after from the measured drain rate ---------------------------
@@ -957,7 +1008,48 @@ def _labels(p):
         m.stop()
 
 
+def _fleet_rules(p):
+    rules = {r.name: r for r in p.slo.default_rules()}
+    return {name: (rules[name].family, rules[name].labels, rules[name].kind,
+                   rules[name].threshold, rules[name].windows)
+            for name in ("fleet_serving_p99", "fleet_hedge_rate") if name in rules}
+
+
 def test_per_replica_labels_and_fleet_slo_rules():
-    """The per-replica label half (the SLO rules are ROADMAP item 10): a
-    frontend's latency and admission series carry its replica label."""
+    """A frontend's latency and admission series carry its replica label,
+    and the fleet's SLO rules read the router's end-to-end series and its
+    hedges."""
     assert both(_labels) == {"latency": True, "admission": True}
+    rules = both(_fleet_rules)
+    assert rules["fleet_serving_p99"][1] == {"recorder": "router_request"}
+    assert rules["fleet_hedge_rate"][0] == "serving_hedges"
+
+
+def _router_scrape(p):
+    import urllib.request
+
+    members = [_StubMember(p, f"127.0.0.1:{7000 + i}") for i in range(2)]
+    with _router(p) as r:
+        for mm in members:
+            r.attach(mm)
+        exp = p.exporter.ObsExporter(lambda: p.registry.REGISTRY.snapshot()).start()
+        try:
+            for b in range(32):
+                r.submit(_keys_for_block(b), deadline_ms=5000).result(10)
+            with urllib.request.urlopen(exp.url + "/metrics", timeout=10) as resp:
+                fams = p.exporter.parse_openmetrics(resp.read().decode())
+            lat = [lbl for n, lbl, v in fams["serving_latency_s"]["samples"]
+                   if lbl.get("recorder") == "router_member"]
+            return {"size": "serving_fleet_size" in fams,
+                    "router": "serving_router_events" in fams,
+                    "replicas": {lbl["replica"] for lbl in lat} >= {m.endpoint for m in members}}
+        finally:
+            exp.stop()
+            for mm in members:
+                mm.stop()
+
+
+def test_router_process_metrics_carries_fleet_view():
+    """One scrape of the ROUTER process's exporter shows the fleet: the size
+    gauge, the router's events and per-replica latency series."""
+    assert both(_router_scrape) == {"size": True, "router": True, "replicas": True}

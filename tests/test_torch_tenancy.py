@@ -9,12 +9,11 @@ exactly. Token buckets are sized so that the refill over a test's run time
 is far below one frame's cost (rate 5 units/s against frames of 4 to 257
 units), so which frame sheds does not depend on the clock.
 
-``test_tenant_slo_rules_fire_per_tenant_only`` and
-``test_tenant_autoscaler_lever_is_scoped`` have no counterpart yet: they
-need ``obs/slo.py`` and ``ps/autoscale.py`` (ROADMAP Queue A item 10).
-``test_tenant_slo_rules_wait_for_the_slo_module`` holds the raise that
-stands in for them. The JAX interference e2e's p99 bound is timing-bound
-and left out; its isolation digests are held here.
+The per-tenant control plane: ``tenant_slo_rules`` over each package's
+ring and watchdog (the alerts that fire, and a scoped recorder's bundle
+fed by that watchdog), and a tenant-scoped ``Autoscaler``'s decisions and
+journal. The JAX interference e2e's p99 bound is timing-bound and left
+out; its isolation digests are held here.
 """
 
 import importlib
@@ -29,7 +28,6 @@ import pytest
 from test_torch_jax_native import jax_native  # noqa: F401  (the fixture)
 
 from paddle_tpu.ps import tenancy as jax_tenancy
-from paddle_tpu_torch.core.enforce import UnavailableError
 from paddle_tpu_torch.obs import flightrec
 from paddle_tpu_torch.ps import rpc, tenancy
 
@@ -44,6 +42,8 @@ def _pkg(root, tier_kw):
     enf = m("core.enforce")
     return types.SimpleNamespace(
         rpc=m("ps.rpc"), ha=m("ps.ha"), tenancy=m("ps.tenancy"), registry=m("obs.registry"),
+        timeseries=m("obs.timeseries"), slo=m("obs.slo"), autoscale=m("ps.autoscale"),
+        elastic=m("distributed.elastic"),
         WrongTenant=enf.WrongTenantError, Quota=enf.QuotaExceededError,
         Throttled=enf.ThrottledError, AccessorConfig=m("ps.accessor").AccessorConfig,
         SGDRuleConfig=m("ps.sgd_rule").SGDRuleConfig, TableConfig=m("ps.table").TableConfig,
@@ -478,9 +478,82 @@ def test_hot_tier_tenant_caps_evict_own_rows_only():
 # -- the per-tenant control plane ----------------------------------------------------
 
 
-def test_tenant_slo_rules_wait_for_the_slo_module():
-    with pytest.raises(UnavailableError, match="item 10"):
-        tenancy.tenant_slo_rules("ctr")
+def _tenant_rules(p, root):
+    reg = p.registry.Registry()
+    ring = p.timeseries.MetricRing()
+    g_a = reg.gauge("tenant_pull_s", max_series=8, tenant="ctr")
+    g_b = reg.gauge("tenant_pull_s", max_series=8, tenant="moe")
+    for i in range(4):
+        g_a.set(0.2)  # ctr breaches 50 ms
+        g_b.set(0.001)  # moe is healthy
+        ring.append(reg.snapshot(), t=float(i))
+    rules = p.tenancy.tenant_slo_rules("ctr") + p.tenancy.tenant_slo_rules("moe")
+    wd = p.slo.SloWatchdog(ring, rules)
+    fired = [(a.rule, a.t, a.windows, a.labels) for a in wd.evaluate(now=3.0)]
+    rec = p.tenancy.tenant_flight_recorder(os.path.join(root, "jax" if p is JAX else "port"),
+                                           "ctr", ring=ring, watchdog=wd, min_interval_s=0.0)
+    path = rec.trigger("tenant_slo")
+    man = json.load(open(os.path.join(path, "manifest.json")))
+    return {"rules": [(r.name, r.family, r.kind, r.threshold, r.agg, r.field, r.labels,
+                       r.windows, r.min_count) for r in rules],
+            "fired": fired, "dir": os.path.basename(os.path.dirname(path)),
+            "scope": man["scope"],
+            "alerts": json.load(open(os.path.join(path, "alerts.json")))["alerts"],
+            "timeline": len(json.load(open(os.path.join(path, "timeline.json")))["records"])}
+
+
+def test_tenant_slo_rules_fire_per_tenant_only(tmp_path):
+    got = both(_tenant_rules, str(tmp_path))
+    fired = {f[0] for f in got["fired"]}
+    assert "ctr_pull_p99" in fired and not any(r.startswith("moe_") for r in fired)
+    assert got["dir"] == "tenant_ctr" and got["scope"] == {"tenant": "ctr"}
+    assert got["alerts"], "the scoped bundle dropped the tenant's own alerts"
+    assert all((a.get("labels") or {}).get("tenant") == "ctr" for a in got["alerts"])
+    assert got["timeline"] == 4
+
+
+class _FakeCluster:
+    job_id = "as-test"
+
+    def __init__(self, p):
+        self.n = 2
+        self.store = p.elastic.MemoryStore()
+
+    @property
+    def num_shards(self):
+        return self.n
+
+
+class _FakeController:
+    def __init__(self, p):
+        self.cluster = _FakeCluster(p)
+
+    def grow(self, factor):
+        self.cluster.n *= factor
+        return {"cutover_pause_ms": 1.0, "bootstrap_s": 0.01}
+
+
+def _tenant_lever(p):
+    rules = p.tenancy.tenant_slo_rules("ctr", pull_p99_s=0.05)
+    ctrl = _FakeController(p)
+    a = p.autoscale.Autoscaler(ctrl, config=p.autoscale.AutoscaleConfig(
+        min_shards=2, max_shards=8, cooldown_up_s=5.0, cooldown_down_s=10.0,
+        clear_hold_s=4.0, up_rules=("ctr_pull_p99",)), clock=lambda: 0.0, tenant="ctr")
+    a.notify_fire(types.SimpleNamespace(rule="moe_pull_p99"))  # a neighbour's burn
+    steps = [a.step()]
+    a.notify_fire(types.SimpleNamespace(rule=rules[0].name))
+    steps.append(a.step())
+    return {"steps": steps, "shards": ctrl.cluster.n,
+            "journal": [{k: v for k, v in e.items() if k not in ("t", "wall_s")}
+                        for e in a.events]}
+
+
+def test_tenant_autoscaler_lever_is_scoped():
+    """A per-tenant Autoscaler answers ONE tenant's rules and journals under
+    its tenant tag — the per-tenant scaling lever."""
+    got = both(_tenant_lever)
+    assert got["steps"] == [None, "up"] and got["shards"] == 4
+    assert got["journal"][-1]["tenant"] == "ctr"
 
 
 def _recorder_scenario(p, root):
@@ -496,15 +569,14 @@ def _recorder_scenario(p, root):
 
 def test_tenant_flight_recorder_is_scoped(tmp_path):
     """The scoped recorder's bundle lives in the tenant's own directory and
-    stamps its scope; with no watchdog in either package (the port has
-    none yet) its alert file is empty in both."""
+    stamps its scope; with no watchdog its alert file is empty in both."""
     got = both(_recorder_scenario, str(tmp_path))
     assert got["dir"] == "tenant_ctr" and got["scope"] == {"tenant": "ctr"}
 
 
 def test_scoped_recorder_filters_alerts_by_label(tmp_path):
-    """The scope filter itself, on alerts of three labellings (the port's
-    recorder has no alert source yet, so the filter is called directly)."""
+    """The scope filter itself, on alerts of three labellings, called
+    directly."""
     mixed = [{"rule": "ctr_pull_p99", "labels": {"tenant": "ctr"}},
              {"rule": "moe_pull_p99", "labels": {"tenant": "moe"}},
              {"rule": "global"}]
