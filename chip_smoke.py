@@ -56,8 +56,9 @@ or when any phase fails. Phases:
    through ``serving_pull`` and the flush back to the host table;
 4. hot path at full width: the same DeepFM trained by
    ``CtrStreamTrainer(hot_tier=HotTierConfig(capacity=2^19))`` over a
-   16-shard host table, two epochs of an ``InMemoryDataset`` of 65,536
-   MultiSlot lines (10,000 ids per slot): one ``hot_probe_gather`` and
+   16-shard host table, two epochs of an ``InMemoryDataset`` of 32,768
+   MultiSlot lines (10,000 ids per slot; cut from 65,536 for the script's
+   time limit): one ``hot_probe_gather`` and
    one ``hot_scatter_apply`` launch per step, a warm second epoch with no
    cold fetch and no miss and a lower loss, warm samples/s and the host
    ms per step in ``ensure()`` + ``device_state()`` against the step's
@@ -108,14 +109,23 @@ or when any phase fails. Phases:
 12. Wide&Deep daily at full width (BASELINE.md config 4, as
    ``tools/widedeep_daily.py`` runs it): ``WideDeep`` (8 slots, 4 dense,
    dim 8, DNN 128²) trained by ``CtrPassTrainer`` over a 16-shard
-   ``SsdSparseTable`` holding 2,000,000 cold rows (the tool's 5,000,000 cut
+   ``SsdSparseTable`` holding 1,000,000 cold rows (the tool's 5,000,000 cut
    for the script's time limit), three days of 50,000
    records, batch 512, the next day's pass built in the background; one
    ``ctr_sparse_rows`` launch and one merge a step, the merge (card vs
    CPU) and B1 (against its plain version) bitwise on one real push of
    the path, losses falling, each
    day's final-model AUC against the bar 0.80, base save, shrink and
-   spill (hot + cold = size); then card vs CPU at a small size and a
+   spill (hot + cold = size). Leg B, the cold tier at scale: the table
+   streamed to one raw file (``save_file``), loaded back into a fresh fp32
+   table (digest equal) and into an fp16, block-compressed, admission-gated
+   (threshold 2), background-compacted (64 MB/s budget) table built by
+   ``load_ps_config``; one day of 50,000 records in 2 passes over it, a
+   long tail of new ids offered to admission: one B1 and one merge a step,
+   both bitwise on one real push (``ctr_sparse_rows@ssd_scale``), rejects
+   and admissions counted, index bytes a row ≤ 16, a forced compaction
+   drained with the digest unchanged, the ``ssd_*`` series and the
+   cold-tier SLO rules over them; then card vs CPU at a small size and a
    trainer save/load round trip on the card (a Wide&Deep step's device
    kernels are counted at the end, with the other profiler windows);
 13. the the_one_ps rung (BASELINE.md config 3, as
@@ -132,7 +142,7 @@ or when any phase fails. Phases:
    ids, capacity 224, ``SyncCommunicator``), tier over RPC ≡ RPC-only over
    RPC bitwise on the card, and card vs CPU;
 14. the PaddleRec job (BASELINE.md config 3 as a PaddleRec job runs it):
-   131,072 of phase 4's MultiSlot lines in 8 part files; the job's
+   65,536 of phase 4's MultiSlot lines in 8 part files; the job's
    processes are this script in ``--ps-job CONFIG.json`` mode, started by
    ``distributed.launch.launch_local`` (2 server processes; the role env
    wires them through ``fleet``; the config dict goes through
@@ -146,7 +156,7 @@ or when any phase fails. Phases:
    within 2 % of half, an order-free digest of the files), losses falling,
    no table kernel, the saved rows = the data's distinct keys, also loaded
    into a fresh local ``Fleet``. Leg B, ``sync_mode: gpubox``, 1 trainer:
-   one ``CtrPassTrainer`` pass over ``RemoteSparseTable`` (32 steps, 32
+   one ``CtrPassTrainer`` pass over ``RemoteSparseTable`` (16 steps, 16
    B1 launches, B1 bitwise on its first real push inside the trainer
    process, losses falling, the servers' rows = the data's keys). Leg C:
    ``Trainer.train_from_dataset`` over a ``QueueDataset`` of the files (a
@@ -157,14 +167,14 @@ or when any phase fails. Phases:
    in-process ``NativePsServer``s on 127.0.0.1 (phase 13's 16-shard table,
    ``initial_range=0``), a ``SyncCommunicator`` and
    ``CtrStreamTrainer(hot_tier=HotTierConfig(capacity=2^19))`` at phase
-   4's width on phase 4's data (16 batches of 4096), checkpointing every 4
-   batches through ``JobCheckpointManager`` under
+   4's width on phase 4's data (8 batches of 4096), checkpointing
+   every 2 batches through ``JobCheckpointManager`` under
    ``CheckpointGate(servers=...)``: the oracle (the epoch, into its own
    root); the victim (``ckpt.manifest=kill-job:after=3``: must exit -9 and
    leave ``ckpt_0`` and ``ckpt_1`` published, ``ckpt_2.tmp`` not); one
    byte of ``ckpt_1``'s sparse artifact flipped; the resume (a fresh
-   process: ``load_latest`` falls back to ``ckpt_0``, cursor batch 4, one
-   fallback; the servers' rows and the dense tier restored; the other 12
+   process: ``load_latest`` falls back to ``ckpt_0``, cursor batch 2, one
+   fallback; the servers' rows and the dense tier restored; the other 6
    batches). Checks: one B2 and one B4 a step in every leg, the loss
    falling, and the resumed run's rows pulled for the data's keys, dense
    params, Adam state, per-step losses and table digest bitwise equal to
@@ -172,9 +182,9 @@ or when any phase fails. Phases:
    checkpoint, its bytes, and the resume's ``load_latest``,
    ``restore_sparse`` and ``restore_train_state`` seconds;
 16. the PS loses a primary (PS high availability and the compressed
-   sparse wires): phase 4's width and model on half its data (32,768
-   lines: one cold epoch of 8 batches a run, cut from 16 for the script's
-   time limit) on phase 13's 16-shard table (``initial_range=0``),
+   sparse wires): phase 4's width, model and data (32,768 lines: one
+   cold epoch of 8 batches a run, cut from 16 for the script's time
+   limit) on phase 13's 16-shard table (``initial_range=0``),
    every run on a fresh ``ha.HACluster(num_shards=2, replication=2,
    sync=True)`` of in-process servers. Leg A, the wire ladder: RPC-only
    over a ``HalfAsyncCommunicator`` with push wires fp32, fp16 and int8
@@ -302,7 +312,7 @@ or when any phase fails. Phases:
    other dense optimizers, the vision zoo). Leg A: ``CtrPassTrainer`` with
    ``DCN`` (``Adagrad``) and then ``XDeepFM`` (``Lamb``) at the pass
    path's width (26 slots, 13 dense, dim 8, DNN 400³, a 2^21-row cache,
-   batch 4096), one pass over 32,768 MultiSlot lines each (8 steps):
+   batch 4096), one pass over 16,384 MultiSlot lines each (4 steps):
    losses finite and falling, one B1 and one merge a step, B1 bitwise on
    each family's first push; DeepFM through the same pass for the step
    comparison; then ``save_inference_model(fused=True)`` over the pass's
@@ -1433,7 +1443,9 @@ def profile_window(run, n_steps, out_dir, name):
 
 # -- phase 4: the hot path at full width --------------------------------------
 
-HOT_LINES, HOT_IDS, HOT_EPOCHS = 65_536, 10_000, 2
+# 32,768 lines: 8 batches of 4096 an epoch (cut from 65,536 for the script's
+# time limit; phases 13, 15 and 16-19 read the same data)
+HOT_LINES, HOT_IDS, HOT_EPOCHS = 32_768, 10_000, 2
 
 
 def ctr_lines(rng, n, n_ids, n_slots, n_dense):
@@ -1480,7 +1492,7 @@ def hot_dataset():
 
 def phase_hot_path(dev, card, ds, profile_dir=None, shards=1):
     """DeepFM at the Criteo width trained by ``CtrStreamTrainer`` over the
-    persistent hot tier: two epochs of 16 batches of 4096. ``shards`` > 1
+    persistent hot tier: two epochs of 8 batches of 4096. ``shards`` > 1
     row-shards the tier over a mesh of that many shards on the card (one
     bank per shard; "auto" routing, alltoall from 4 shards): the batch
     splits into ``shards`` slices, each probed by ``hot_probe`` and pushed
@@ -2424,14 +2436,14 @@ def phase_vision_parity(dev):
 
 # tools/widedeep_daily.py's configuration (BASELINE.md config 4): 8 sparse
 # slots, 4 dense, dim 8, DNN 128^2, batch 512, a 2^18-row cache, a 16-shard
-# SSD table, Adam(1e-3); 2,000,000 cold rows loaded 1,000,000 at a time (show
-# 10; the tool's 5,000,000 cut for the script's time limit: the base save and
-# the shrink scan every row), 3 days of 50,000 records with ids from a pool of
-# 20,000, a 500,000-row spill budget.
+# SSD table, Adam(1e-3); 1,000,000 cold rows loaded in one chunk (show 10;
+# the tool's 5,000,000 cut for the script's time limit: the base save, the
+# shrink and leg B's streamed save, loads and digests scan every row), 3 days of
+# 50,000 records with ids from a pool of 20,000, a 500,000-row spill budget.
 WD_SLOTS, WD_DENSE, WD_DIM, WD_HIDDEN = 8, 4, 8, (128, 128)
 WD_BATCH, WD_CAP, WD_SHARDS = 512, 1 << 18, 16
 WD_POP, WD_CHUNK, WD_DAYS, WD_RECORDS, WD_POOL, WD_HOT = \
-    2_000_000, 1_000_000, 3, 50_000, 20_000, 500_000
+    1_000_000, 1_000_000, 3, 50_000, 20_000, 500_000
 WD_AUC_BAR = 0.80   # the JAX package read 0.821, 0.825, 0.839 on the CPU (WIDEDEEP.json)
 # card vs CPU, the small leg: a population of 20,000, 2 days of 2,048
 # records (ids from a pool of 2,000), batch 256, the same weights. cuBLAS
@@ -2443,13 +2455,33 @@ WD_AUC_BAR = 0.80   # the JAX package read 0.821, 0.825, 0.839 on the CPU (WIDED
 # key's row within atol 1e-6 alone (rtol needed: 0; bound rtol 1e-5).
 WD_SMALL = dict(pop=20_000, days=2, records=2_048, pool=2_000, batch=256)
 WD_PARITY = dict(loss_rtol=1e-6, rtol=1e-5, atol=1e-6)
+# Leg B, the cold tier at scale: the SSD tier's scale knobs at
+# tools/ssd_endurance_demo.py's values (fp16 values, block-compressed logs,
+# admission after 2 observations with a 256 KB sketch a shard, the background
+# compactor under a 64 MB/s disk budget), read by load_ps_config, on phase
+# 12's 16 shards and accessor. The main leg's table, after its shrink and
+# spill, streams to one raw file (save_file); that file loads into a fresh
+# fp32 table (digest equal to the source's) and into leg B's table. Then one
+# day of WD_RECORDS records in WD_B_PASSES passes: a slot's id comes from the
+# pool with probability WD_B_POOL_P, else from WD_B_TAIL ids above the
+# population, so most tail ids come once (singletons the sketch turns away)
+# and some in both passes (admitted at the second pass's flush).
+WD_B_KNOBS = {"ssd_value_dtype": "fp16", "ssd_block_compress": True,
+              "ssd_admission_threshold": 2, "ssd_admission_sketch_kb": 256,
+              "ssd_bg_compact": True, "ssd_io_budget_mbps": 64}
+WD_B_PASSES, WD_B_POOL_P, WD_B_TAIL = 2, 0.5, 2_000_000
+WD_B_DRAIN_S = 120     # seconds the forced compaction may take to drain
 
 
-def wd_day_lines(rng, n, pool):
+def wd_day_lines(rng, n, pool, tail=0):
     """``tools/widedeep_daily.py``'s ``_day_lines``: ids drawn from ``pool``
     (repeats), a label from ids divisible by 7, the first dense feature
-    and noise."""
+    and noise. With ``tail``, a slot's id is replaced, with probability
+    1 - WD_B_POOL_P, by one of ``tail`` ids above the population."""
     ids = rng.choice(pool, size=(n, WD_SLOTS))
+    if tail:
+        far = (WD_POP + 1 + rng.integers(0, tail, size=(n, WD_SLOTS))).astype(ids.dtype)
+        ids = np.where(rng.random((n, WD_SLOTS)) < WD_B_POOL_P, ids, far)
     dense = rng.normal(size=(n, WD_DENSE))
     label = ((ids % 7 == 0).sum(axis=1) + dense[:, 0]
              + rng.normal(scale=0.5, size=n) > 1.0).astype(int)
@@ -2460,9 +2492,9 @@ def wd_day_lines(rng, n, pool):
         [id_s, dense_s, lab_s[:, None]], axis=1).tolist()]
 
 
-def wd_days(n_days, records, pool_size):
-    """The days' datasets: seeds 1000 + day for the lines, ``day`` for
-    the shuffle, as the JAX tool makes them."""
+def wd_days(n_days, records, pool_size, tail=0, seed=1000):
+    """The days' datasets: seeds ``seed`` + day for the lines, ``day`` for
+    the shuffle, as the JAX tool makes them (``tail``: ``wd_day_lines``)."""
     from paddle_tpu_torch.data.dataset import InMemoryDataset, SlotDesc
 
     slots = ([SlotDesc(f"s{i}") for i in range(WD_SLOTS)]
@@ -2472,7 +2504,7 @@ def wd_days(n_days, records, pool_size):
     days = []
     for day in range(n_days):
         ds = InMemoryDataset(slots, seed=day)
-        ds.load_from_lines(wd_day_lines(np.random.default_rng(1000 + day), records, pool))
+        ds.load_from_lines(wd_day_lines(np.random.default_rng(seed + day), records, pool, tail))
         ds.local_shuffle()
         days.append(ds)
     return days
@@ -2624,7 +2656,7 @@ def wd_b1_check(push, dim=WD_DIM, what="Wide&Deep push", plain_reps=25):
 
 def phase_widedeep(dev, card):
     """BASELINE.md config 4 as ``tools/widedeep_daily.py`` runs it, through
-    the port: a 2,000,000-row cold population on the SSD tier, three days
+    the port: a 1,000,000-row cold population on the SSD tier, three days
     of pass training (``CtrPassTrainer.train_passes``, the next day's build
     overlapped), each day's final-model AUC, a base save, shrink, spill.
     Checks: losses finite and falling; one B1 launch and one merge a step;
@@ -2709,12 +2741,182 @@ def phase_widedeep(dev, card):
                 f"{st['disk_bytes']} B")
             assert st["hot_rows"] + st["cold_rows"] == table.size(), f"widedeep: tiers {st}"
             assert st["hot_rows"] <= WD_HOT, f"widedeep: spill left {st['hot_rows']} hot rows"
+            cold = wd_cold_tier_leg(dev, card, table, base, save_s)
         finally:
             table.close()
         wd_parity(dev, base)
     finally:
         shutil.rmtree(base, ignore_errors=True)
-    return counts, b1
+    return counts, b1, cold
+
+
+def wd_cold_table(path):
+    """Leg B's table: the scale knobs (``WD_B_KNOBS``) through
+    ``load_ps_config``, phase 12's shards and accessor, storage "ssd" (the
+    pair a server launcher sets)."""
+    import dataclasses
+
+    from paddle_tpu_torch.ps.accessor import AccessorConfig
+    from paddle_tpu_torch.ps.config import load_ps_config
+    from paddle_tpu_torch.ps.table import make_sparse_table
+
+    job = load_ps_config({"hyper_parameters": {"sparse_feature_dim": WD_DIM + 1},
+                          "runner": {"sync_mode": "gpubox", "thread_num": WD_SHARDS},
+                          "table_parameters": {"storage": "ssd", **WD_B_KNOBS}})
+    cfg = dataclasses.replace(job.table, storage="ssd", ssd_path=path,
+                              accessor_config=AccessorConfig(embedx_dim=WD_DIM,
+                                                             embedx_threshold=0.0))
+    for knob, value in WD_B_KNOBS.items():
+        assert getattr(cfg, knob) == value, f"leg B: {knob} read as {getattr(cfg, knob)!r}"
+    return make_sparse_table(cfg)
+
+
+def wd_cold_tier_leg(dev, card, src, base, save_s):
+    """Phase 12 leg B: the main leg's table ``src`` streamed to a raw file
+    and loaded into a fresh fp32 table (digest equal) and into leg B's
+    table; one day through ``CtrPassTrainer`` over leg B's table with a
+    tail of new ids offered to admission. Checks: one B1 launch a step; the
+    merge and B1 bitwise on one real push; rejects > 0 and 0 < admitted <
+    the day's offered new keys, every new key of both passes with a row
+    after the second flush, the table grown by exactly the admitted;
+    0 < index bytes a row <= 16; a forced compaction drains with the digest
+    unchanged and bg_compactions > 0; the probe fills the ssd_* families
+    and the cold-tier rules evaluate over them. Returns the launches and
+    B1's numbers for the kernels line."""
+    from paddle_tpu_torch.obs import registry as obs_registry
+    from paddle_tpu_torch.obs.slo import SloWatchdog, cold_tier_rules
+    from paddle_tpu_torch.obs.timeseries import MetricRing, Sampler
+    from paddle_tpu_torch.ps.ps_trainer import _slot_tagged_keys
+
+    t_leg = time.perf_counter()
+    raw = os.path.join(base, "wd.raw")
+    t0 = time.perf_counter()
+    n_rows = src.save_file(raw, fmt="raw")
+    save_file_s = time.perf_counter() - t0
+    assert n_rows == src.size(), f"leg B: save_file wrote {n_rows} of {src.size()} rows"
+    t0 = time.perf_counter()
+    want = src.digest()
+    digest_s = [time.perf_counter() - t0]
+    fresh, _ = wd_table(os.path.join(base, "fp32"), 0)
+    tb = wd_cold_table(os.path.join(base, "cold"))
+    try:
+        t0 = time.perf_counter()
+        n32 = fresh.load_file(raw, fmt="raw")
+        load32_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = fresh.digest()
+        digest_s.append(time.perf_counter() - t0)
+        fresh.flush()
+        disk32 = fresh.stats()["disk_bytes"]
+        assert n32 == n_rows and got == want, \
+            f"leg B: the fp32 reload holds {n32} rows, digest {got} != {want}"
+        t0 = time.perf_counter()
+        n16 = tb.load_file(raw, fmt="raw")
+        load16_s = time.perf_counter() - t0
+        tb.flush()
+        disk16 = tb.stats()["disk_bytes"]
+        assert n16 == n_rows == tb.size(), f"leg B: loaded {n16} of {n_rows} rows"
+        log(f"widedeep leg B: {n_rows} rows: save_file raw {save_file_s:.2f} s "
+            f"({os.path.getsize(raw)} B; the main leg's snapshot save of mode 2 {save_s:.2f} s), "
+            f"load_file into fp32 {load32_s:.2f} s (disk {disk32} B, digest equal), into fp16 "
+            f"+ block-compressed {load16_s:.2f} s (disk {disk16} B, "
+            f"{disk16 / max(disk32, 1):.3f} of fp32); digests of the source and the fp32 "
+            f"reload {digest_s[0]:.2f} s, {digest_s[1]:.2f} s (host)")
+        t0 = time.perf_counter()
+
+        passes = wd_days(WD_B_PASSES, WD_RECORDS // WD_B_PASSES, WD_POOL, tail=WD_B_TAIL,
+                         seed=2000)
+        tr = wd_trainer(dev, tb, wd_weights())
+        per_pass = [np.unique(np.concatenate([
+            _slot_tagged_keys(b, tr.sparse_slots).reshape(-1)
+            for b in ds.batch_iter(1 << 16, drop_last=False)])) for ds in passes]
+        keys = np.unique(np.concatenate(per_pass))
+        new = keys[~tb.export_full(keys)[1]]  # the day's keys the table lacks
+        offered = len(new)
+        # the new keys of every pass: the second pass's observation admits
+        # each of them, whatever the sketch's salt (it never counts low)
+        every = new[np.all([np.isin(new, k) for k in per_pass], axis=0)]
+        size0, st0 = tb.size(), tb.stats()
+        day_s = time.perf_counter() - t0
+        push, restore = capture_first_push()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            results = tr.train_passes(passes, batch_size=WD_BATCH, drop_last=False)
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = read_launches()
+        steps = sum(int(r["steps"]) for r in results)
+        losses = [r["loss"] for r in results]
+        assert np.isfinite(losses).all(), f"leg B: losses {losses}"
+        assert steps == WD_B_PASSES * -(-(WD_RECORDS // WD_B_PASSES) // WD_BATCH), steps
+        assert counts["ctr_sparse_rows"] == steps == counts["merge_sparse_grads"], \
+            f"leg B: launches {counts} != {steps} steps"
+        wd_merge_check(push)
+        b1 = wd_b1_check(push, what="cold-tier push")
+        del push
+        st = tb.stats()
+        admitted = st["admit_admitted"] - st0["admit_admitted"]
+        rejects = st["admit_rejects"] - st0["admit_rejects"]
+        log(f"widedeep leg B: {len(passes)} passes, {steps} steps in {train_s:.3f} s, losses "
+            f"{losses}, launches {counts}; {len(keys)} keys in the day, {offered} new: "
+            f"admission checks {st['admit_checks'] - st0['admit_checks']}, rejects {rejects}, "
+            f"admitted {admitted} (offered / admitted {offered / max(admitted, 1):.2f}); "
+            f"size {size0} -> {tb.size()}; the day's data and its new keys {day_s:.2f} s (host) "
+            f"on {card}")
+        held = int(tb.export_full(every)[1].sum())
+        log(f"widedeep leg B: {len(every)} new keys in both passes, {held} of them with a row")
+        assert rejects > 0 and 0 < admitted < offered, f"leg B: admission {st}"
+        assert len(every) > 0 and held == len(every), \
+            f"leg B: {held} of the {len(every)} new keys of both passes admitted"
+        assert tb.size() == size0 + admitted, f"leg B: grew {tb.size() - size0}, admitted {admitted}"
+
+        tb.spill(0)  # the day's trained rows back to disk: the old copies become garbage
+        t0 = time.perf_counter()
+        before = tb.digest()
+        digest_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        tb.compact_async()
+        while True:
+            st = tb.stats()
+            if st["bg_backlog"] == 0 and st["bg_compactions"] > 0:
+                break
+            assert time.perf_counter() - t0 < WD_B_DRAIN_S, f"leg B: no drain {st}"
+            time.sleep(0.05)
+        drain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        after = tb.digest()
+        digest_s.append(time.perf_counter() - t0)
+        per_row = st["index_bytes_per_row"]
+        log(f"widedeep leg B: compact_async drained in {drain_s:.2f} s: bg_compactions "
+            f"{st['bg_compactions']}, io_bg_bytes {st['io_bg_bytes']}, io_bg_wait_ms "
+            f"{st['io_bg_wait_ms']}, disk {st['disk_bytes']} B, digest unchanged "
+            f"{after == before} (digests {digest_s[2]:.2f} s, {digest_s[3]:.2f} s); index "
+            f"{per_row:.3f} B a row ({st['cold_rows']} cold rows), sketch {st['sketch_bytes']} B "
+            f"(host)")
+        assert after == before, "leg B: the forced compaction moved the digest"
+        assert 0 < per_row <= 16.0, f"leg B: index bytes a row {per_row}"
+
+        ring, t_obs = MetricRing(), time.time()
+        sampler = Sampler(ring=ring).add_probe(tb.obs_probe)
+        for i in range(4):
+            sampler.tick(t=t_obs + i)
+        dog = SloWatchdog(ring, cold_tier_rules())
+        alerts = dog.evaluate(now=t_obs + 3)
+        fams = obs_registry.REGISTRY.snapshot()["metrics"]
+        missing = [f"ssd_{n}" for n in tb._OBS_COUNTERS + tb._OBS_GAUGES
+                   if f"ssd_{n}" not in fams]
+        assert sampler.errors == 0 and not missing, (sampler.last_error, missing)
+        log(f"widedeep leg B: obs_probe filled {len(tb._OBS_COUNTERS + tb._OBS_GAUGES)} ssd_* "
+            f"families; cold_tier_rules over 4 ticks: alerts {[a.rule for a in alerts]}; leg "
+            f"{time.perf_counter() - t_leg:.1f} s on {card}")
+    finally:
+        fresh.close()
+        tb.close()
+    return {"launches": counts["ctr_sparse_rows"], "b1": b1}
 
 
 def wd_small_run(device, weights, path):
@@ -2829,7 +3031,7 @@ def wd_kernel_counts(dev):
 # HalfAsyncCommunicator (pull-ahead 1) and CtrStreamTrainer, RPC-only and
 # over the hot tier, at the hot path's width and on its data (phase 4): a
 # 16-shard CTR table, DeepFM 26 slots x dim 8, DNN 400^3, batch 4096, two
-# epochs of 16 batches.
+# epochs of 8 batches.
 RPC_SERVERS, RPC_TABLE_SHARDS = 2, 16
 
 
@@ -3154,10 +3356,10 @@ def phase_rpc(dev, card, ds):
 # ``ps/config.py`` turns the job's config dict into the model, optimizer,
 # table and strategy, and the data comes from MultiSlot part files through
 # the native feed. Phase 4's generator and width (26 slots of 10,000 ids,
-# 13 dense, DeepFM dim 8, DNN 400^3, batch 4096); 131,072 lines in 8 files.
-# The async leg trains one epoch (16 steps a trainer): its losses are checked
-# step by step.
-PSJOB_LINES, PSJOB_FILES, PSJOB_SERVERS, PSJOB_EPOCHS = 131_072, 8, 2, 1
+# 13 dense, DeepFM dim 8, DNN 400^3, batch 4096); 65,536 lines in 8 files
+# (cut from 131,072 for the script's time limit). The async leg trains one
+# epoch (8 steps a trainer): its losses are checked step by step.
+PSJOB_LINES, PSJOB_FILES, PSJOB_SERVERS, PSJOB_EPOCHS = 65_536, 8, 2, 1
 PSJOB_BATCH = BATCH
 PSJOB_TIMEOUT = 300          # seconds a leg's processes may take
 PSJOB_BALANCE = 0.02         # a trainer's share after the shuffle: half, within 2 %
@@ -3601,12 +3803,14 @@ def phase_ps_job(dev, card):
 # two in-process NativePsServers on 127.0.0.1 (phase 13's 16-shard table,
 # rows created with initial_range=0), a SyncCommunicator (pull-ahead 0: the
 # bitwise contract), CtrStreamTrainer over HotTierConfig(capacity=2^19) at
-# phase 4's width and data (65,536 lines, 10,000 ids a slot, batch 4096: 16
-# batches), checkpoint_every=4 under CheckpointGate(servers=...). Both the
-# oracle and the resumed run checkpoint at the same batches, so the tier
-# flushes at the same points.
+# phase 4's width and data (32,768 lines, 10,000 ids a slot, batch 4096: 8
+# batches; cut from 16 for the script's time limit),
+# checkpoint_every=2 under CheckpointGate(servers=...): 4 checkpoints an
+# epoch, the victim's third at batch 6, the resume from ckpt_0 at batch 2.
+# Both the oracle and the resumed run checkpoint at the same batches, so
+# the tier flushes at the same points.
 JOBCKPT_LINES, JOBCKPT_IDS, JOBCKPT_BATCH, JOBCKPT_CAP = HOT_LINES, HOT_IDS, BATCH, HOT_CAP
-JOBCKPT_EVERY = 4            # batches between checkpoints
+JOBCKPT_EVERY = 2            # batches between checkpoints
 JOBCKPT_KILL_AT = 3          # the victim dies in its third checkpoint's manifest write
 JOBCKPT_TIMEOUT = 240        # seconds a leg's process may take
 _CKPT_READING, _CKPT_SAVE = "CKPT_JOB_READING ", "CKPT_JOB_SAVE "
@@ -3790,7 +3994,7 @@ def _ckpt_bytes(root):
 def phase_job_checkpoint(dev, card):
     """Phase 15: the oracle, the victim (SIGKILL in its third save), one
     flipped byte in the newest published checkpoint, the resume. Checks the
-    kill, the fallback to ckpt_0 (cursor batch 4), one B2 and one B4 a step
+    kill, the fallback to ckpt_0 (cursor batch 2), one B2 and one B4 a step
     in every leg, the loss falling, and the resumed run's rows, dense
     params, Adam state, losses and table digest bitwise against the
     oracle's."""
@@ -3885,7 +4089,7 @@ def phase_job_checkpoint(dev, card):
         assert np.isfinite(ls).all() and ls[-4:].mean() < ls[:4].mean(), f"losses {ls}"
         sizes = _ckpt_bytes(os.path.join(base, "ckpt_oracle"))
         log(f"job restarts: loss {ls[:4].mean():.6f} (batches 1-4) -> {ls[-4:].mean():.6f} "
-            f"(13-16); checkpoint bytes (id: bytes) {sizes}")
+            f"({len(ls) - 3}-{len(ls)}); checkpoint bytes (id: bytes) {sizes}")
     finally:
         shutil.rmtree(base, ignore_errors=True)
     log(f"job restarts (phase 15): {time.perf_counter() - t_phase:.1f} s")
@@ -3894,7 +4098,7 @@ def phase_job_checkpoint(dev, card):
 # -- phase 16: the PS loses a primary -----------------------------------------------
 
 # PS high availability and the compressed sparse wires at phase 4's width on
-# half its data (DeepFM 26 slots x dim 8, 13 dense, DNN 400^3, batch 4096,
+# its data (DeepFM 26 slots x dim 8, 13 dense, DNN 400^3, batch 4096,
 # 32,768 lines of 10,000 ids a slot: one cold epoch of 8 batches a run; cut
 # from 16 for the script's time limit, phases 17-19 share it) on phase 13's
 # 16-shard table (rows created with initial_range=0), each run on a fresh
@@ -3908,7 +4112,7 @@ def phase_job_checkpoint(dev, card):
 # cluster.checkpoint_gate()). Leg C: leg B's RPC arm against four server
 # processes of this script (--ha-server) over a FileStore, shard 0's primary
 # SIGKILLed after batch 5.
-HA_LINES, HA_IDS, HA_BATCH, HA_CAP = HOT_LINES // 2, HOT_IDS, BATCH, HOT_CAP
+HA_LINES, HA_IDS, HA_BATCH, HA_CAP = HOT_LINES, HOT_IDS, BATCH, HOT_CAP
 HA_SHARDS, HA_REPLICAS = 2, 2
 HA_EVERY = 4             # batches between the tier arm's checkpoints
 HA_KILL_PUSH = 6         # RPC arm: shard 0's primary dies on its 6th push (5 landed)
@@ -5755,18 +5959,25 @@ def rs_model(family, seed):
     return TDM(embedx_dim=RS_DIM, hidden=(64, 32), generator=g)
 
 
-def rs_caches(inp, devs):
+def rs_caches(inp, devs, backend="python", shard_num=4):
     """One host table and one cache per device over it (the rows the pass
     creates are the table's, so both caches start equal), embedx set from the
-    input's numpy draw."""
+    input's numpy draw. Phase 20 runs the Python shards: RS_TOL was read on
+    their rows. The native default engine seeds a new row from ``key ^ (seed
+    + key % shard_num)``, so at seed 0 every aligned block of 4 keys starts
+    from one embed_w (ROADMAP C12), and there card and CPU parted by 2.4e-4
+    of DSSM's params' largest magnitude after RS_STEPS steps on an H100 80GB
+    HBM3 at 700 W (PERF.md §6; ``recsys_parity_probe.py`` reads all three
+    tables)."""
     from paddle_tpu_torch.ps.accessor import AccessorConfig
     from paddle_tpu_torch.ps.embedding_cache import CacheConfig, HbmEmbeddingCache
     from paddle_tpu_torch.ps.sgd_rule import SGDRuleConfig
     from paddle_tpu_torch.ps.table import MemorySparseTable, TableConfig
 
     sgd = SGDRuleConfig(learning_rate=0.05)
-    table = MemorySparseTable(TableConfig(shard_num=4, accessor_config=AccessorConfig(
-        embedx_dim=RS_DIM, embedx_threshold=0.0, sgd=sgd)))
+    table = MemorySparseTable(TableConfig(shard_num=shard_num, backend=backend,
+                                          accessor_config=AccessorConfig(
+                                              embedx_dim=RS_DIM, embedx_threshold=0.0, sgd=sgd)))
     cap = 1 << int(np.ceil(np.log2(len(inp["keys"]) + 1)))
     cfg = CacheConfig(capacity=cap, embedx_dim=RS_DIM, embedx_threshold=0.0, sgd=sgd)
     caches = []
@@ -6844,22 +7055,24 @@ def phase_hybrid(dev, card, serial):
 
 # Leg A: the pass path's Criteo shape (26 slots, 13 dense, dim 8, DNN 400^3,
 # a 2^21-row cache, batch 4096) over ZOO_LINES MultiSlot lines from the hot
-# path's generator (``ctr_lines``, ZOO_IDS ids a slot): one pass, 8 steps, each
-# family with a dense optimizer of this slice. The exports serve batch 1 and
+# path's generator (``ctr_lines``, ZOO_IDS ids a slot): one pass, 4 steps (cut
+# from 8 for the script's time limit), each family with a dense optimizer of
+# this slice. The exports serve batch 1 and
 # 4096 in a child process (``--serve-export DIR``); SERVE_UNSEEN of the keys
 # are outside the pass; SERVE_CALLS calls at 4096 give the p50.
-ZOO_LINES, ZOO_IDS = 32_768, 10_000
+ZOO_LINES, ZOO_IDS = 16_384, 10_000
 CTR_FAMILIES = (("DCN", "Adagrad"), ("XDeepFM", "Lamb"))
 SERVE_UNSEEN, SERVE_CALLS, EXPORT_TOL = 0.05, 50, 1e-6
 _SERVE_RESULT = "SERVE_EXPORT "
 # Leg B: each family at 224x224, 1000 classes, batch ZOO_BATCH, f32, through
-# ``Trainer`` for ZOO_STEPS steps (the first a warm-up), each with its dense
+# ``Trainer`` for ZOO_STEPS steps (the first a warm-up; cut from 3 for the
+# script's time limit), each with its dense
 # optimizer; then card vs CPU at ZOO_SMALL (side, batch) from the same weights:
 # the eval forward within ZOO_FWD_TOL of the CPU output's largest value, and one
 # training step's update within ZOO_UPDATE_TOL (||Δcard − Δcpu|| / ||Δcpu||
 # over all parameters; dropout off on both sides). AlexNet's 6x6 and VGG's 7x7
 # adaptive pools need 224.
-ZOO_BATCH, ZOO_STEPS, ZOO_CLASSES = 32, 3, 1000
+ZOO_BATCH, ZOO_STEPS, ZOO_CLASSES = 32, 2, 1000
 ZOO = (("vgg16", "Momentum"), ("alexnet", "RMSProp"), ("squeezenet1_1", "Adadelta"),
        ("mobilenet_v2", "Adamax"), ("shufflenet_v2_x1_0", "Lars"), ("googlenet", "Momentum"),
        ("densenet121", "RMSProp"))
@@ -8910,6 +9123,7 @@ def main(argv):
               "this script from the root of a checkout", file=sys.stderr)
         return 2
 
+    t_script = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # full-f32 matmuls for parity
     # (cuDNN's TF32 is left as it is: the port's conv2d pins it off itself)
@@ -8922,47 +9136,58 @@ def main(argv):
         f"ctr_sparse_rows {kern_s:.2f} s, hot_kernels {hot_s:.2f} s, flash_attention "
         f"{flash_s:.2f} s (two g++ and three nvcc in parallel)")
 
-    b1, k = phase_kernel(dev)
+    secs = {}
+
+    def timed(name, fn, *args):
+        """Run one phase and keep its seconds (host clock) under ``name``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    b1, k = timed("2", phase_kernel, dev)
     log(f"kernel ctr_sparse_rows adagrad/adagrad n={BATCH * SLOTS}: device {k['ms']} ms "
         f"(the kernel alone {k['kernel_ms']} ms, the rest copies of the rows), "
         f"plain {k['plain_ms']} ms, bound {k['bound_ms']} ms; per call from an idle "
         f"card (host issue included) {k['call_ms']} ms, plain {k['plain_call_ms']} ms "
         f"({k['bound_by']}: {k['bytes']} B, {k['ops']} f32 ops) on {card}")
-    b2, b3 = phase_hot_probe(dev)
-    b4, b4_sort = phase_hot_scatter(dev)
-    pass_counts = phase_main_path(dev, card, profile_dir)
+    b2, b3 = timed("2b probe", phase_hot_probe, dev)
+    b4, b4_sort = timed("2b scatter", phase_hot_scatter, dev)
+    pass_counts = timed("3", phase_main_path, dev, card, profile_dir)
     ds = hot_dataset()
-    hot_counts, _ = phase_hot_path(dev, card, ds, profile_dir)
-    sharded_counts, _ = phase_hot_path(dev, card, ds, profile_dir, shards=SHARDS)
-    phase_parity(dev)
-    phase_hot_parity(dev)
-    phase_sharded_parity(dev)
-    fa = phase_flash_kernels(dev)
-    ernie_counts, ernie_stats = phase_ernie(dev, card, profile_dir)
-    phase_ernie_parity(dev)
-    resnets, resnet_batch = phase_resnet(dev, card)
-    phase_lenet(dev, card)
-    phase_vision_parity(dev)
-    wd_counts, wd_b1 = phase_widedeep(dev, card)
-    rpc_counts, rpc_b2, rpc_b4 = phase_rpc(dev, card, ds)
+    hot_counts, _ = timed("4", phase_hot_path, dev, card, ds, profile_dir)
+    sharded_counts, _ = timed("4 sharded", phase_hot_path, dev, card, ds, profile_dir, SHARDS)
+    timed("5b", phase_parity, dev)
+    timed("5", phase_hot_parity, dev)
+    timed("5c", phase_sharded_parity, dev)
+    fa = timed("6", phase_flash_kernels, dev)
+    ernie_counts, ernie_stats = timed("7", phase_ernie, dev, card, profile_dir)
+    timed("8", phase_ernie_parity, dev)
+    resnets, resnet_batch = timed("9", phase_resnet, dev, card)
+    timed("10", phase_lenet, dev, card)
+    timed("11", phase_vision_parity, dev)
+    wd_counts, wd_b1, wd_cold = timed("12", phase_widedeep, dev, card)
+    rpc_counts, rpc_b2, rpc_b4 = timed("13", phase_rpc, dev, card, ds)
     del ds
-    gpubox = phase_ps_job(dev, card)
-    phase_job_checkpoint(dev, card)
-    ha_counts, ha_b2, ha_b4 = phase_ha(dev, card)
+    gpubox = timed("14", phase_ps_job, dev, card)
+    timed("15", phase_job_checkpoint, dev, card)
+    ha_counts, ha_b2, ha_b4 = timed("16", phase_ha, dev, card)
     keep = {}
-    rs_counts, rs_b2, rs_b4 = phase_reshard(dev, card, keep)
-    tn_counts, tn_b2, tn_b4 = phase_tenancy(dev, card, keep.pop("leg_b_oracle"))
-    phase_obs_fleet(dev, card, keep.pop("leg_a_oracle"))
-    rs_launches, rs_b1 = phase_recsys(dev, card)
-    hyb = phase_hybrid(dev, card, ernie_stats)
-    item5 = phase_item5(dev, card)
-    item9 = phase_item9(dev, card)
-    item8 = phase_item8(dev, card)
-    phase_item8b(dev, card)
-    phase_kernel_counts(dev)
-    wd_kernel_counts(dev)
-    hybrid_step_profile(hyb)
-    phase_resnet_kernel_counts(resnets, resnet_batch, profile_dir)
+    rs_counts, rs_b2, rs_b4 = timed("17", phase_reshard, dev, card, keep)
+    tn_counts, tn_b2, tn_b4 = timed("18", phase_tenancy, dev, card, keep.pop("leg_b_oracle"))
+    timed("19", phase_obs_fleet, dev, card, keep.pop("leg_a_oracle"))
+    rs_launches, rs_b1 = timed("20", phase_recsys, dev, card)
+    hyb = timed("21", phase_hybrid, dev, card, ernie_stats)
+    item5 = timed("22", phase_item5, dev, card)
+    item9 = timed("23", phase_item9, dev, card)
+    item8 = timed("24", phase_item8, dev, card)
+    timed("25", phase_item8b, dev, card)
+    timed("profiles", phase_kernel_counts, dev)
+    timed("profiles wd", wd_kernel_counts, dev)
+    timed("profiles hybrid", hybrid_step_profile, hyb)
+    timed("profiles resnet", phase_resnet_kernel_counts, resnets, resnet_batch, profile_dir)
+    log(f"phase seconds {secs}; the script {time.perf_counter() - t_script:.1f} s (the build "
+        f"included) on {card}")
     del resnets, resnet_batch, hyb["trainer"]
 
     def entry(name, source, replaces, launches, r):
@@ -9065,7 +9290,11 @@ def main(argv):
                 item8["pipeline"]["counts"][f"flash_attention_{name}"],
                 item8["pipeline"]["kernels"][key])
           for name, key, line in (("fwd", "fwd", 127), ("bwd_dq", "dq", 176),
-                                  ("bwd_dkv", "dkv", 221)))]
+                                  ("bwd_dkv", "dkv", 221))),
+        # B1 again as phase 12 leg B's cold-tier day launches it, over the
+        # admission-gated, block-compressed fp16 SSD table: its launches
+        # there, its numbers on that day's first push
+        entry("ctr_sparse_rows@ssd_scale", b1_src, b1_ref, wd_cold["launches"], wd_cold["b1"])]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

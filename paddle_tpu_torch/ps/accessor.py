@@ -29,8 +29,7 @@ __all__ = ["AccessorConfig", "CtrCommonAccessor", "FeatureBlock", "accessor_clas
 @dataclasses.dataclass
 class AccessorConfig:
     """Mirrors CtrAccessorParameter (ps.proto): the coefficients pull and
-    push read, and the lifecycle thresholds of shrink and save. (The SSD
-    tier's admission threshold is not ported: ROADMAP Queue A.)"""
+    push read, and the lifecycle thresholds of admission, shrink and save."""
 
     embedx_dim: int = 8
     nonclk_coeff: float = 0.1
@@ -42,6 +41,10 @@ class AccessorConfig:
     delete_threshold: float = 0.8
     delete_after_unseen_days: float = 30.0
     embedx_threshold: float = 10.0  # create embedx lazily past this score
+    # the SSD tier's row admission: a key earns a durable row only after this
+    # many push observations (0 or 1 admits every key). The accessor-level
+    # default; TableConfig.ssd_admission_threshold wins when set.
+    admission_threshold: int = 0
     embed_sgd_rule: str = "adagrad"
     embedx_sgd_rule: str = "adagrad"
     sgd: SGDRuleConfig = dataclasses.field(default_factory=SGDRuleConfig)

@@ -25,10 +25,10 @@ Mapping notes (documented divergences, not guesses):
 In the port: a path source imports PyYAML at the call (a dict source
 needs no YAML); ``make_model_config`` returns the port's ``CtrConfig``;
 ``make_optimizer`` builds any of the JAX package's dense optimizer
-classes; and the SSD engine's scale knobs that the port's table does not bind
-(``ssd_block_compress``, ``ssd_admission_threshold``,
+classes; and ``table_parameters``' SSD knobs (``ssd_value_dtype``,
+``ssd_block_compress``, ``ssd_admission_threshold``,
 ``ssd_admission_sketch_kb``, ``ssd_bg_compact``, ``ssd_io_budget_mbps``)
-raise when a config sets them off their defaults.
+load into :class:`TableConfig` as the JAX package reads them.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Tuple, Union
 
-from ..core.enforce import InvalidArgumentError, UnavailableError, enforce
+from ..core.enforce import InvalidArgumentError, enforce
 from ..distributed.strategy import DistributedStrategy
 from .accessor import AccessorConfig, CtrCommonAccessor
 from .accessor import accessor_class as _resolve
@@ -45,10 +45,6 @@ from .table import TableConfig
 __all__ = ["PsJobConfig", "load_ps_config"]
 
 _MODES = ("sync", "async", "geo", "heter", "gpubox")
-# SSD engine knobs the port's TableConfig does not carry, with the JAX defaults
-_UNBOUND_SSD_KNOBS = {"ssd_block_compress": False, "ssd_admission_threshold": 0,
-                      "ssd_admission_sketch_kb": 64, "ssd_bg_compact": False,
-                      "ssd_io_budget_mbps": 0.0}
 
 
 @dataclasses.dataclass
@@ -163,19 +159,22 @@ def load_ps_config(source: Union[str, Dict[str, Any]]) -> PsJobConfig:
             f"accessor_class {accessor_name!r} is not a sparse feature "
             f"accessor (use ctr / sparse / ctr_double; comm_merge and "
             f"tensor are communicator/dense-table roles)")
-    for knob, default in _UNBOUND_SSD_KNOBS.items():
-        value = _get(cfg, f"table_parameters.{knob}", default)
-        if type(default)(value) != default:
-            raise UnavailableError(
-                f"table_parameters.{knob}={value!r}: the SSD engine's scale knobs are not "
-                "bound in the port yet (ROADMAP Queue A item 5)")
+    def tp(knob, default):
+        return _get(cfg, f"table_parameters.{knob}", default)
+
     table = TableConfig(
         shard_num=int(_get(cfg, "runner.thread_num", 16)),
         accessor=accessor_name,
         accessor_config=AccessorConfig(embedx_dim=feature_dim - 1),
-        converter=_get(cfg, "table_parameters.converter"),
-        # the storage/ssd_path pair itself is set by the server launcher
-        ssd_value_dtype=str(_get(cfg, "table_parameters.ssd_value_dtype", "fp32")),
+        converter=tp("converter", None),
+        # the SSD tier's knobs (a "memory" table ignores them; the
+        # storage/ssd_path pair itself is set by the server launcher)
+        ssd_value_dtype=str(tp("ssd_value_dtype", "fp32")),
+        ssd_block_compress=bool(tp("ssd_block_compress", False)),
+        ssd_admission_threshold=int(tp("ssd_admission_threshold", 0)),
+        ssd_admission_sketch_kb=int(tp("ssd_admission_sketch_kb", 64)),
+        ssd_bg_compact=bool(tp("ssd_bg_compact", False)),
+        ssd_io_budget_mbps=float(tp("ssd_io_budget_mbps", 0.0)),
     )
 
     return PsJobConfig(

@@ -46,7 +46,7 @@ from ..ops.sparse_optimizer import ctr_sparse_rows_at, fused_row_update
 from .device_hash import DeviceKeyMap
 from .native import FeasignIndex, dedup_u64
 from .sgd_rule import SGDRuleConfig
-from .table import MemorySparseTable
+from .table import MemorySparseTable, SsdSparseTable
 
 __all__ = ["CacheConfig", "HbmEmbeddingCache", "cache_pull", "cache_push",
            "cache_push_dense", "cache_push_sparse", "merge_sparse_grads",
@@ -228,6 +228,9 @@ class HbmEmbeddingCache:
         self._index: Optional[FeasignIndex] = None
         self.state: Optional[Dict[str, torch.Tensor]] = None
         self._pass_keys: Optional[np.ndarray] = None
+        #: the pass keys an admission-gated table served init rows for at
+        #: the build without creating them (None: the table is not gated)
+        self._withheld: Optional[np.ndarray] = None
         self._device_map_enabled = device_map
         #: per-pass on-device key→row map, set by begin_pass when
         #: device_map=True
@@ -274,6 +277,11 @@ class HbmEmbeddingCache:
         xs = acc.embedx_rule.state_dim
         xd = acc.config.embedx_dim
         values, _ = self.table.export_full(uniq, create=True)
+        self._withheld = None
+        if isinstance(self.table, SsdSparseTable) and self.table.admission_threshold:
+            # a gated table reports the keys it has not admitted as found,
+            # with their init rows, and creates nothing: ask which they are
+            self._withheld = ~self.table.export_full(uniq)[1]
         C = cfg.capacity
         host = {
             "show": np.zeros(C, np.float32),
@@ -318,11 +326,17 @@ class HbmEmbeddingCache:
         xs = acc.embedx_rule.state_dim
         xd = acc.config.embedx_dim
         # flush-back runs at a pass boundary with training quiesced; all
-        # pass keys were created in begin_pass, so every row must exist
+        # pass keys were created in begin_pass, so every row must exist,
+        # but for the keys an admission-gated table withheld there
         old, found = self.table.export_full(keys)
-        enforce(bool(found.all()),
-                "end_pass: pass keys missing from host table (table was "
-                "mutated mid-pass)")
+        missing = ~found
+        if missing.any():
+            enforce(self._withheld is not None and bool(self._withheld[missing].all()),
+                    "end_pass: pass keys missing from host table (table was "
+                    "mutated mid-pass)")
+            self._offer_unadmitted(keys[missing], host["show"][rows[missing]],
+                                   host["click"][rows[missing]])
+            keys, rows, old = keys[found], rows[found], old[found]
         new = old.copy()
         # lifecycle stats: features trained in this pass were seen —
         # zero unseen_days and fold the show/click growth into delta_score
@@ -343,9 +357,24 @@ class HbmEmbeddingCache:
         self.table.import_full(keys, new)
         self.discard_pass()
 
+    def _offer_unadmitted(self, keys: np.ndarray, show: np.ndarray, click: np.ndarray) -> None:
+        """The pass's keys that an admission-gated table withheld at the
+        build (``SsdSparseTable`` with ``ssd_admission_threshold`` > 1): the
+        pass is one observation of each, pushed with its show and click and
+        no gradient. A key that reaches the threshold gets its row there:
+        the init row with this pass's counts, not the pass's trained
+        values. One below it only counts. (Port-only: the JAX package's
+        pass cache raises here, since it has no admission on the pass
+        path.)"""
+        push = np.zeros((len(keys), 4 + self.table.accessor.config.embedx_dim), np.float32)
+        push[:, 1] = show
+        push[:, 2] = click
+        self.table.push_sparse(keys, push)
+
     def discard_pass(self) -> None:
         """Drop the working set WITHOUT flushing back (aborted pass)."""
         self._index = None
         self.state = None
         self._pass_keys = None
+        self._withheld = None
         self.device_map = None

@@ -3,24 +3,28 @@
 ``sparse_index.cc`` (the feasign index and the parallel pass dedup),
 ``cuckoo.cc`` (the per-pass device key map build), ``slot_parser.cc``
 (the MultiSlot text parser of the dataset), ``data_feed.cc`` (the
-threaded file reader over that parser, :class:`NativeDataFeed`) and
+threaded file reader over that parser, :class:`NativeDataFeed`),
 ``tensor_channel.cc`` (the heterogeneous pipeline's cross-process frame
-queue, bound by ``parallel.heter_channel``) are the port's own copies
-of the JAX package's sources. They build at first use with
+queue, bound by ``parallel.heter_channel``) and ``sparse_table.cc`` (the
+native RAM table engine's C ABI over ``sparse_table.h``,
+:class:`NativeSparseTableEngine`) are the port's own copies of the JAX
+package's sources. They build at first use with
 ``g++ -O3 -ffp-contract=off -std=c++17 -fPIC -shared`` into the
 gitignored build directory (``ops/_build.py``). There is no Python
 fallback: ``dedup_u64``'s order fixes the cache row ids of a pass, and a
-different dedup would give different rows.
+different dedup would give different rows. The RAM engine is the default
+table (``ps.table.TableConfig.backend="auto"``), so it lives in this
+library, which needs neither zlib nor the PS service's build.
 
 The SSD tier (``ssd_table.cc`` over ``sparse_table.h``, the port's copies
 too) builds the same way into a second library, linked with zlib
 (``-lz``), so the host library's build does not need zlib and a machine
-without it fails only the paths that open an SSD table. The native RAM
-table engine's C ABI (``sparse_table.cc``, :class:`NativeSparseTableEngine`)
-is in that library too: the servers' RAM tables run it. Only what the
-pass trainer's daily loop calls is bound (:class:`SsdTableEngine`); the
-engine's admission sketch, IO budget, background compaction and
-streaming file save/load are not (ROADMAP Queue A).
+without it fails only the paths that open an SSD table or a PS server.
+:class:`SsdTableEngine` binds the whole engine: the pass trainer's daily
+loop (pull, push, spill, shrink, compact, save, digest) and its scale
+surface — block compression (``SST_FLAG_BLOCK_COMPRESS``), the admission
+sketch, the IO budget, the background compactor and ``compact_async``,
+and the streaming ``save_file``/``load_file``.
 
 The PS service (``ps_service.cc`` with ``graph_store.h``, the port's
 copies of the TCP server and client of ``ps.rpc``) calls the SSD
@@ -45,18 +49,18 @@ import numpy as np
 
 from ..ops._build import build_shared_library
 
-__all__ = ["FeasignIndex", "NativeDataFeed", "NativeSparseTableEngine", "SST_STAT_FIELDS",
-           "SlotParser", "SsdTableEngine", "cuckoo_build", "dedup_u64", "load_native",
-           "load_ssd", "table_native_params"]
+__all__ = ["FeasignIndex", "NativeDataFeed", "NativeSparseTableEngine", "SST_BLOCK_HDR_BYTES",
+           "SST_BLOCK_MAGIC", "SST_BLOCK_RECS", "SST_FLAG_BLOCK_COMPRESS", "SST_FLAG_VALUE_F16",
+           "SST_STAT_FIELDS", "SlotParser", "SsdTableEngine", "cuckoo_build", "dedup_u64",
+           "load_native", "load_ssd", "table_native_params"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "csrc")
 _SOURCES = tuple(os.path.join(_CSRC, f)
                  for f in ("sparse_index.cc", "cuckoo.cc", "slot_parser.cc", "data_feed.cc",
-                           "tensor_channel.cc"))
+                           "tensor_channel.cc", "sparse_table.cc", "sparse_table.h"))
 _SSD_SOURCES = tuple(os.path.join(_CSRC, f) for f in ("ssd_table.cc", "ps_service.cc",
-                                                      "sparse_table.cc", "sparse_table.h",
-                                                      "graph_store.h"))
+                                                      "sparse_table.h", "graph_store.h"))
 _LOCK = threading.Lock()
 _SSD_LOCK = threading.Lock()  # its own, so the two builds run side by side
 _LIB: Optional[ctypes.CDLL] = None
@@ -65,9 +69,10 @@ _SSD_LIB: Optional[ctypes.CDLL] = None
 
 def _gxx_command(out: str):
     # -ffp-contract=off mirrors paddle_tpu/csrc/Makefile; no -march=native
-    # so the library runs on whatever host the checkout lands on
+    # so the library runs on whatever host the checkout lands on; the
+    # header joins the build's digest (_SOURCES), not the argv
     return ["g++", "-O3", "-ffp-contract=off", "-std=c++17", "-fPIC",
-            "-shared", "-o", out, *_SOURCES, "-lpthread"]
+            "-shared", "-o", out, *(f for f in _SOURCES if f.endswith(".cc")), "-lpthread"]
 
 
 def _gxx_ssd_command(out: str):
@@ -85,6 +90,7 @@ def load_native() -> ctypes.CDLL:
             lib = ctypes.CDLL(build_shared_library("paddle_tpu_torch_host",
                                                    _SOURCES, _gxx_command))
             _configure(lib)
+            _configure_pst(lib)
             _LIB = lib
         return _LIB
 
@@ -98,7 +104,6 @@ def load_ssd() -> ctypes.CDLL:
             lib = ctypes.CDLL(build_shared_library("paddle_tpu_torch_ssd", _SSD_SOURCES,
                                                    _gxx_ssd_command))
             _configure_sst(lib)
-            _configure_pst(lib)
             _configure_rpc(lib)
             _SSD_LIB = lib
         return _SSD_LIB
@@ -371,14 +376,23 @@ class NativeDataFeed:
 _RULE_IDS = {"naive": 0, "adagrad": 1, "std_adagrad": 2, "adam": 3}
 _ACCESSOR_IDS = {"ctr": 0}
 
-# sst_create2 flag bit 0: value columns stored fp16 on disk
-SST_FLAG_VALUE_F16 = 1
+# sst_create2's flag bits
+SST_FLAG_VALUE_F16 = 1       # value columns stored fp16 on disk
+SST_FLAG_BLOCK_COMPRESS = 2  # log block-compressed (deflate with a shared dictionary)
 
 # sst_stats2's field layout, the csrc SstStatField enum in order
 SST_STAT_FIELDS = ("hot_rows", "cold_rows", "disk_bytes", "index_bytes", "sketch_bytes",
                    "admit_checks", "admit_rejects", "admit_admitted", "bg_compactions",
                    "bg_backlog", "io_serve_bytes", "io_bg_bytes", "io_bg_wait_ms",
                    "open_block_bytes")
+
+# the block-compressed log record format, the csrc constants
+SST_BLOCK_MAGIC = 0x4B4C4253  # 'SBLK' little-endian
+SST_BLOCK_RECS = 128          # records per sealed block
+SST_BLOCK_HDR_BYTES = 16      # u32 magic | u32 comp_len | u32 n_recs | u32 crc
+
+# sst_save_file / sst_load_file's format argument
+_FILE_FORMATS = {"text": 0, "gzip": 1, "raw": 2}
 
 
 def table_native_params(shard_num: int, accessor: str, acc_cfg,
@@ -507,6 +521,24 @@ def _configure_sst(lib: ctypes.CDLL) -> None:
     lib.sst_flush.argtypes = [h]
     lib.sst_digest.restype = ctypes.c_uint64
     lib.sst_digest.argtypes = [h]
+    # the scale surface: admission, IO budget, background compaction,
+    # streaming file save/load
+    lib.sst_admission_config.restype = None
+    lib.sst_admission_config.argtypes = [h, ctypes.c_int32, ctypes.c_int32]
+    lib.sst_io_budget.restype = None
+    lib.sst_io_budget.argtypes = [h, ctypes.c_int64, ctypes.c_int64]
+    lib.sst_bg_start.restype = None
+    lib.sst_bg_start.argtypes = [h, ctypes.c_int32]
+    lib.sst_bg_stop.restype = None
+    lib.sst_bg_stop.argtypes = [h]
+    lib.sst_bg_step.restype = ctypes.c_int32
+    lib.sst_bg_step.argtypes = [h, ctypes.c_int32, ctypes.c_int32]
+    lib.sst_compact_async.restype = None
+    lib.sst_compact_async.argtypes = [h]
+    lib.sst_save_file.restype = ctypes.c_int64
+    lib.sst_save_file.argtypes = [h, ctypes.c_char_p, ctypes.c_int32, ctypes.c_int32]
+    lib.sst_load_file.restype = ctypes.c_int64
+    lib.sst_load_file.argtypes = [h, ctypes.c_char_p, ctypes.c_int32]
 
 
 def _configure_pst(lib: ctypes.CDLL) -> None:
@@ -548,13 +580,13 @@ def _configure_pst(lib: ctypes.CDLL) -> None:
 
 class NativeSparseTableEngine:
     """ctypes handle over the native RAM table engine
-    (``csrc/sparse_table.cc``, built into the PS service's library): the
-    engine the servers' RAM tables run, shard-parallel pull and push with
-    the accessor and SGD rules in C++, so a local table on it updates bit
-    for bit as a server does."""
+    (``csrc/sparse_table.cc``, in the host library): the engine the
+    servers' RAM tables run, shard-parallel pull and push with the
+    accessor and SGD rules in C++, so a local table on it updates bit for
+    bit as a server does."""
 
     def __init__(self, shard_num: int, accessor: str, acc_cfg, seed: int) -> None:
-        self._lib = load_ssd()
+        self._lib = load_native()
         iparams, fparams = table_native_params(shard_num, accessor, acc_cfg, seed)
         self._h = self._lib.pst_create(_i32(iparams), _f32(fparams))
         self._save_lock = threading.Lock()  # a save's begin and fetch must not interleave
@@ -636,15 +668,18 @@ class SsdTableEngine:
     """ctypes handle over the two-tier C++ table (``csrc/ssd_table.cc``):
     a RAM hot tier plus per-shard append-only log files, promote on
     access, explicit spill of the coldest rows, shrink and save over both
-    tiers, crash recovery by log replay. Native only: there is no Python
-    version of the disk tier."""
+    tiers, crash recovery by log replay, and the scale surface: block
+    compression, the admission sketch, the IO budget, the background
+    compactor and the streaming file save/load. Native only: there is no
+    Python version of the disk tier."""
 
     def __init__(self, shard_num: int, accessor: str, acc_cfg, seed: int, path: str,
-                 value_f16: bool = False) -> None:
+                 value_f16: bool = False, block_compress: bool = False) -> None:
         self._lib = load_ssd()
         iparams, fparams = table_native_params(shard_num, accessor, acc_cfg, seed)
-        self._h = self._lib.sst_create2(_i32(iparams), _f32(fparams), str(path).encode(),
-                                        SST_FLAG_VALUE_F16 if value_f16 else 0)
+        flags = ((SST_FLAG_VALUE_F16 if value_f16 else 0)
+                 | (SST_FLAG_BLOCK_COMPRESS if block_compress else 0))
+        self._h = self._lib.sst_create2(_i32(iparams), _f32(fparams), str(path).encode(), flags)
         if not self._h:
             raise OSError(f"ssd table open failed at {path!r}")
         self._save_lock = threading.Lock()
@@ -656,8 +691,10 @@ class SsdTableEngine:
         self.close()
 
     def close(self) -> None:
-        """Flush and release the engine (idempotent)."""
+        """Stop the background compactor, flush and release the engine
+        (idempotent)."""
         if getattr(self, "_h", None):
+            self._lib.sst_bg_stop(self._h)
             self._lib.sst_destroy(self._h)
             self._h = None
 
@@ -728,8 +765,64 @@ class SsdTableEngine:
         return int(self._lib.sst_shrink(self._h))
 
     def compact(self) -> int:
-        """Rewrite the logs to their live records; returns disk bytes after."""
+        """Rewrite the logs to their live records; returns disk bytes
+        after. With the background compactor running, marks every shard
+        forced and blocks until the worker has drained them."""
         return int(self._lib.sst_compact(self._h))
+
+    def admission_config(self, threshold: int, sketch_kb: int = 64) -> None:
+        """A key earns a durable row only after ``threshold`` push
+        observations (0 or 1 admits every key); ``sketch_kb`` sizes the
+        per-shard counting sketch, which the daily shrink halves."""
+        self._lib.sst_admission_config(self._h, int(threshold), int(sketch_kb))
+
+    def io_budget(self, rate_bps: int, cap_bytes: int = 0) -> None:
+        """The token-bucket disk budget that serving IO and the background
+        compactor share (serving never blocks; the compactor waits).
+        ``rate_bps`` 0 removes metering; ``cap_bytes`` 0 picks a burst of
+        max(rate / 4, 4 MiB)."""
+        self._lib.sst_io_budget(self._h, int(rate_bps), int(cap_bytes))
+
+    def bg_start(self, interval_ms: int = 200) -> None:
+        """Start the background compaction thread: it sweeps the
+        compaction policy every ``interval_ms`` and wakes early on a
+        request; every inline compaction becomes a handoff to it."""
+        self._lib.sst_bg_start(self._h, int(interval_ms))
+
+    def bg_stop(self) -> None:
+        """Stop and join the background compactor (idempotent)."""
+        self._lib.sst_bg_stop(self._h)
+
+    def bg_step(self, shard: int, force: bool = False) -> int:
+        """One background-compaction step of ``shard``, inline: 1 when it
+        compacted, 0 when the policy passed, -1 while the thread runs."""
+        return int(self._lib.sst_bg_step(self._h, int(shard), 1 if force else 0))
+
+    def compact_async(self) -> None:
+        """Ask the background compactor for a forced compaction of every
+        shard and return at once (nothing happens while it is stopped)."""
+        self._lib.sst_compact_async(self._h)
+
+    def save_file(self, path: str, mode: int = 0, fmt: str = "gzip") -> int:
+        """Stream the rows that pass the save filter of ``mode`` to one file,
+        with nothing staged in RAM; ``fmt`` is "text" or "gzip" (the
+        accessor's text format) or "raw" (fixed binary). Returns the rows
+        written; raises RuntimeError on an IO error, as the JAX package does."""
+        n = int(self._lib.sst_save_file(self._h, str(path).encode(), int(mode),
+                                        _FILE_FORMATS[fmt]))
+        if n < 0:
+            raise RuntimeError(f"streaming save to {path!r} failed (IO error)")
+        return n
+
+    def load_file(self, path: str, fmt: str = "gzip") -> int:
+        """Stream a :meth:`save_file` file into the disk tier in bounded
+        batches; returns the rows loaded. Raises on a bad header or a
+        short load (the rows before the fault stay loaded)."""
+        n = int(self._lib.sst_load_file(self._h, str(path).encode(), _FILE_FORMATS[fmt]))
+        if n < 0:
+            raise RuntimeError(f"streaming load from {path!r} failed (bad header or short "
+                               f"load: {n})")
+        return n
 
     def flush(self) -> None:
         self._lib.sst_flush(self._h)

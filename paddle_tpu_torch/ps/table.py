@@ -3,21 +3,32 @@
 The port's own copy of ``MemorySparseTable`` and ``SsdSparseTable`` from
 ``paddle_tpu.ps.table``:
 
-- ``MemorySparseTable``, with the Python-shard backend: N local shards, feasign-routed
-  (``shard = key % shard_num``), insert-on-miss pull, push through the
-  CTR accessor, and the full-row export/import the pass cache builds from
-  and flushes back to. Columnar numpy blocks per shard; the key→row map
-  of each shard is the native ``FeasignIndex``.
-- ``NativeMemorySparseTable`` (``TableConfig(backend="native")``), the same
-  table API on the native RAM engine the PS servers run
-  (``ps.native.NativeSparseTableEngine``): row creation and every rule
-  update bit for bit a server's. The measured-placement collective plane
-  (``distributed.placement``) keeps its rows in one. The Python shards
-  draw new rows from a per-shard generator, so with a nonzero
-  ``initial_range`` their rows differ from a server's.
+- ``NativeMemorySparseTable``, the default RAM table
+  (``TableConfig(backend="auto")``, as in the JAX package, or
+  ``"native"``): the table API on the native RAM engine the PS servers
+  run (``ps.native.NativeSparseTableEngine``), with row creation (a
+  per-key init draw) and every rule update bit for bit a server's and the
+  JAX package's default table's. ``MemorySparseTable(config)`` with such a
+  config builds one; ``.backend`` says ``"native"``. Divergence, kept on
+  purpose: where the engine cannot build, the port's ``"auto"`` raises,
+  where the JAX package's falls back to Python shards (the port has no
+  silent fallback).
+- ``MemorySparseTable`` with ``TableConfig(backend="python")``: N local
+  Python shards, feasign-routed (``shard = key % shard_num``),
+  insert-on-miss pull, push through the CTR accessor, and the full-row
+  export/import the pass cache builds from and flushes back to. Columnar
+  numpy blocks per shard; the key→row map of each shard is the native
+  ``FeasignIndex``. New rows draw from a per-shard generator, so with a
+  nonzero ``initial_range`` they differ from the native engine's. The
+  tests pin it where they hold the port against the JAX package's
+  ``backend="python"``.
 - ``SsdSparseTable``, the two-tier table over the native SSD engine
   (``ps.native.SsdTableEngine``): a RAM hot tier plus per-shard disk
-  logs, the same table API, and ``spill``/``compact``/``load_cold``.
+  logs, the same table API, ``spill``/``compact``/``load_cold``, and the
+  scale surface the ``TableConfig.ssd_*`` knobs switch on (block
+  compression, the admission sketch, the IO budget, the background
+  compactor), with ``compact_async``, ``obs_probe`` and the streaming
+  ``save_file``/``load_file``.
 - ``MemoryDenseTable`` (server-side SGD/Adam/sum over a dense block),
   ``MemorySparseGeoTable`` (GEO delta accumulation), ``BarrierTable`` and
   ``GlobalStepTable``: the in-process tables behind ``ps.client``'s
@@ -43,6 +54,7 @@ import functools
 import gzip
 import json
 import os
+import signal
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional, Tuple
@@ -52,6 +64,7 @@ import numpy as np
 from ..core.enforce import InvalidArgumentError, enforce, enforce_eq
 from ..core.profiler import RecordEvent
 from .accessor import AccessorConfig, CtrCommonAccessor, FeatureBlock, accessor_class, make_accessor
+from .faultpoints import faultpoint
 from .native import FeasignIndex, NativeSparseTableEngine, SsdTableEngine
 
 __all__ = ["BarrierTable", "GlobalStepTable", "MemoryDenseTable", "MemorySparseGeoTable",
@@ -60,6 +73,13 @@ __all__ = ["BarrierTable", "GlobalStepTable", "MemoryDenseTable", "MemorySparseG
            "make_sparse_table", "merge_duplicate_keys", "register_converter", "row_digest"]
 
 _SAVE_MODE_ALL = 0
+_RAM_BACKENDS = ("auto", "native", "python")
+
+
+def _hard_kill_process() -> None:
+    """A kill faultpoint's action: die as a preempted host does, with no
+    atexit hooks and no flushes."""
+    os.kill(os.getpid(), signal.SIGKILL)
 
 # -- save/load converters -------------------------------------------------------
 # A converter is (file suffix, open for writing, open for reading) over
@@ -118,9 +138,9 @@ def merge_duplicate_keys(keys: np.ndarray, values: np.ndarray) -> Tuple[np.ndarr
 @dataclasses.dataclass
 class TableConfig:
     """Mirrors TableParameter (ps.proto:121) for the port's tables: the CTR
-    accessor, Python shards in RAM or the two-tier SSD engine, and the
-    value encodings of the RPC wire (``ps.rpc`` checks them when it
-    creates the table; local tables ignore them)."""
+    accessor, the RAM engine or the two-tier SSD engine with its scale
+    knobs, and the value encodings of the RPC wire (``ps.rpc`` checks them
+    when it creates the table; local tables ignore them)."""
 
     #: the table's id on a PS client (``ps.client``, ``ps.rpc``)
     table_id: int = 0
@@ -128,10 +148,11 @@ class TableConfig:
     accessor_config: Optional[AccessorConfig] = None
     seed: int = 0
     accessor: str = "ctr"
-    # a "memory" table's engine: "python" = MemorySparseTable's shards (what
-    # the JAX package's backend="python" computes); "native" =
-    # NativeMemorySparseTable, the PS servers' C++ engine
-    backend: str = "python"
+    # a "memory" table's engine: "auto" (the JAX package's default) and
+    # "native" = NativeMemorySparseTable, the PS servers' C++ engine; both
+    # raise when it cannot build ("auto" does not fall back, unlike JAX's);
+    # "python" = MemorySparseTable's shards (the JAX backend="python")
+    backend: str = "auto"
     # "memory" = MemorySparseTable; "ssd" = SsdSparseTable (needs ssd_path)
     storage: str = "memory"
     ssd_path: Optional[str] = None
@@ -154,6 +175,23 @@ class TableConfig:
     push_wire_block: int = 128
     # int8 only: keep the quantization error client-side and re-inject it
     push_error_feedback: bool = True
+    # the SSD tier's scale knobs (storage="ssd" only, csrc/ssd_table.cc):
+    # block-compress the disk logs (128 records a block, deflate with a
+    # shared dictionary; pairs well with ssd_value_dtype="fp16")
+    ssd_block_compress: bool = False
+    # a key earns a durable row only after this many push observations (a
+    # counting-sketch pre-filter that the shrink decays); 0 or 1 admits
+    # every key (the default: training unchanged)
+    ssd_admission_threshold: int = 0
+    # the admission sketch's size per shard
+    ssd_admission_sketch_kb: int = 64
+    # run compaction on a background thread instead of inline on the push
+    # path (default off: deterministic)
+    ssd_bg_compact: bool = False
+    # the token-bucket disk budget in MB/s that serving IO and the
+    # background compactor share (serving never blocks; the compactor
+    # waits); 0 = unmetered
+    ssd_io_budget_mbps: float = 0.0
 
 
 class _SparseShard:
@@ -310,7 +348,22 @@ _IMPORT_FULL = _scoped("pserver_sparse_import_full")
 
 
 class MemorySparseTable:
-    """Sparse embedding table over N local Python shards."""
+    """Sparse embedding table over N local Python shards
+    (``TableConfig(backend="python")``). With the default backend
+    (``"auto"``) or ``"native"``, constructing this class gives a
+    :class:`NativeMemorySparseTable`, as the JAX package's
+    ``MemorySparseTable`` runs its native engine."""
+
+    def __new__(cls, *args, **kwargs):
+        if cls is MemorySparseTable:
+            config = args[0] if args else kwargs.get("config")
+            backend = (config or TableConfig()).backend
+            enforce(backend in _RAM_BACKENDS,
+                    f"unknown table backend {backend!r}; have {'|'.join(_RAM_BACKENDS)}",
+                    InvalidArgumentError)
+            if backend != "python":
+                cls = NativeMemorySparseTable
+        return super().__new__(cls)
 
     def __init__(self, config: Optional[TableConfig] = None) -> None:
         self.config = config or TableConfig()
@@ -322,6 +375,11 @@ class MemorySparseTable:
     def close(self) -> None:
         """Stop the shard worker threads."""
         self._pool.shutdown(wait=True)
+
+    @property
+    def backend(self) -> str:
+        """The engine that holds the rows: "python", "native" or "ssd"."""
+        return "python"
 
     def _scatter_gather(self, keys: np.ndarray, fn, *per_key_args):
         """Group keys by shard, apply fn per shard, regather results."""
@@ -395,6 +453,18 @@ class MemorySparseTable:
 
     def shard_sizes(self) -> np.ndarray:
         return np.asarray([len(sh.index) for sh in self._shards], np.int64)
+
+    def print_table_stat(self) -> str:
+        """PrintTableStat (table.h:122): the size and shard balance, printed
+        and returned (the JAX package's line)."""
+        sizes = self.shard_sizes()
+        total = int(sizes.sum())
+        imbalance = (float(sizes.max()) / max(sizes.mean(), 1e-9)) if total else 1.0
+        msg = (f"table {self.config.table_id}: {total} features over "
+               f"{self.config.shard_num} shards (backend={self.backend}, "
+               f"max/mean imbalance {imbalance:.2f})")
+        print(msg)
+        return msg
 
     def shrink(self) -> int:
         """The daily shrink (decay, age, delete); returns the rows erased."""
@@ -485,13 +555,13 @@ class MemorySparseTable:
 
 class NativeMemorySparseTable(MemorySparseTable):
     """The RAM table on the native engine the PS servers run
-    (``ps.native.NativeSparseTableEngine``): the same API as
+    (``ps.native.NativeSparseTableEngine``), the default: the same API as
     :class:`MemorySparseTable`, with every row created and updated as a
     server's RAM table does it, so a local copy of a server's rows trains
-    bit for bit as the server would."""
+    bit for bit as the server would. Raises when the engine cannot build."""
 
     def __init__(self, config: Optional[TableConfig] = None) -> None:
-        self.config = config or TableConfig(backend="native")
+        self.config = config or TableConfig()
         self.accessor = make_accessor(self.config.accessor, self.config.accessor_config)
         self._engine = NativeSparseTableEngine(self.config.shard_num, self.config.accessor,
                                                self.accessor.config, self.config.seed)
@@ -499,6 +569,10 @@ class NativeMemorySparseTable(MemorySparseTable):
     def close(self) -> None:
         """Release the engine."""
         self._engine.close()
+
+    @property
+    def backend(self) -> str:
+        return "native"
 
     @_SELECT_ALL
     def pull_sparse(self, keys: np.ndarray, slots: Optional[np.ndarray] = None,
@@ -543,22 +617,46 @@ class SsdSparseTable(MemorySparseTable):
     disk, shrink and save cover both tiers, and reopening a path replays
     its logs. The same table API as :class:`MemorySparseTable`, so the
     pass cache and the trainers work over it unchanged; a load goes to
-    the disk tier."""
+    the disk tier.
+
+    The constructor applies the ``TableConfig.ssd_*`` scale knobs in the
+    JAX package's order: block compression when the engine opens, then
+    admission (``ssd_admission_threshold``, else the accessor's
+    ``admission_threshold``, when above 1), the IO budget, and the
+    background compactor last."""
 
     def __init__(self, path: str, config: Optional[TableConfig] = None) -> None:
         self.config = config or TableConfig()
         self.path = str(path)
         self.accessor = make_accessor(self.config.accessor, self.config.accessor_config)
-        enforce(self.config.ssd_value_dtype in ("fp32", "fp16"),
+        cfg = self.config
+        enforce(cfg.ssd_value_dtype in ("fp32", "fp16"),
                 f"TableConfig.ssd_value_dtype must be 'fp32' or 'fp16', "
-                f"got {self.config.ssd_value_dtype!r}", InvalidArgumentError)
-        self._engine = SsdTableEngine(self.config.shard_num, self.config.accessor,
-                                      self.accessor.config, self.config.seed, self.path,
-                                      value_f16=self.config.ssd_value_dtype == "fp16")
+                f"got {cfg.ssd_value_dtype!r}", InvalidArgumentError)
+        self._engine = SsdTableEngine(cfg.shard_num, cfg.accessor, self.accessor.config,
+                                      cfg.seed, self.path,
+                                      value_f16=cfg.ssd_value_dtype == "fp16",
+                                      block_compress=bool(cfg.ssd_block_compress))
+        admit = cfg.ssd_admission_threshold or self.accessor.config.admission_threshold
+        #: the push observations a key needs for a durable row (0: every key)
+        self.admission_threshold = admit if admit > 1 else 0
+        if self.admission_threshold:
+            self._engine.admission_config(admit, cfg.ssd_admission_sketch_kb)
+        if cfg.ssd_io_budget_mbps > 0:
+            self._engine.io_budget(int(cfg.ssd_io_budget_mbps * 1024 * 1024))
+        if cfg.ssd_bg_compact:
+            self._engine.bg_start()
+        self._obs_handles: Optional[Dict[str, object]] = None
+        self._obs_last: Dict[str, int] = {}
 
     def close(self) -> None:
-        """Flush the logs and release the engine."""
+        """Stop the background compactor, flush the logs and release the
+        engine."""
         self._engine.close()
+
+    @property
+    def backend(self) -> str:
+        return "ssd"
 
     @_SELECT_ALL
     def pull_sparse(self, keys: np.ndarray, slots: Optional[np.ndarray] = None,
@@ -610,8 +708,62 @@ class SsdSparseTable(MemorySparseTable):
         return self._engine.spill(int(hot_budget))
 
     def compact(self) -> int:
-        """Rewrite the logs to their live records; returns disk bytes."""
+        """Rewrite the logs to their live records; returns disk bytes. With
+        the background compactor on, waits until it has drained them."""
         return self._engine.compact()
+
+    def compact_async(self) -> None:
+        """Ask the background compactor for a forced compaction of every
+        shard, without waiting. The ``ssd.compact`` faultpoint's kill
+        action dies here as a preempted host does, with the sweep in
+        flight: recovery replays the durable logs and ignores the orphan
+        ``.compact`` file."""
+        self._engine.compact_async()
+        faultpoint("ssd.compact", kill=_hard_kill_process)
+
+    # the stat vector as obs families: monotonic fields become counters
+    # (the time-series ring stores their rates), levels become gauges
+    _OBS_COUNTERS = ("admit_checks", "admit_rejects", "admit_admitted", "bg_compactions",
+                     "io_serve_bytes", "io_bg_bytes", "io_bg_wait_ms")
+    _OBS_GAUGES = ("hot_rows", "cold_rows", "disk_bytes", "index_bytes", "sketch_bytes",
+                   "bg_backlog", "open_block_bytes", "index_bytes_per_row")
+
+    def obs_probe(self) -> None:
+        """A sampler probe (``obs.timeseries.Sampler.add_probe``): exports
+        the stat vector as ``ssd_<name>`` series labelled
+        ``table=<table_id>`` in ``obs.registry.REGISTRY`` (counters by
+        their deltas since the last probe), the families that
+        ``obs.slo.cold_tier_rules`` watch."""
+        from ..obs import registry as obs_registry
+
+        st = self.stats()
+        if self._obs_handles is None:
+            reg, tid = obs_registry.REGISTRY, str(self.config.table_id)
+            self._obs_handles = {n: reg.counter(f"ssd_{n}", table=tid)
+                                 for n in self._OBS_COUNTERS}
+            self._obs_handles.update({n: reg.gauge(f"ssd_{n}", table=tid)
+                                      for n in self._OBS_GAUGES})
+            self._obs_last = {n: 0 for n in self._OBS_COUNTERS}
+        for n in self._OBS_COUNTERS:
+            delta = int(st[n]) - self._obs_last[n]
+            if delta > 0:
+                self._obs_handles[n].inc(delta)
+                self._obs_last[n] = int(st[n])
+        for n in self._OBS_GAUGES:
+            self._obs_handles[n].set(float(st[n]))
+
+    def save_file(self, path: str, mode: int = _SAVE_MODE_ALL, fmt: str = "gzip") -> int:
+        """Stream the rows of both tiers that pass the save filter of
+        ``mode`` to one file, with nothing staged in RAM: ``fmt`` "text" or
+        "gzip" (the accessor's text format) or "raw" (fixed binary).
+        Either package's file loads into the other's table. Returns the
+        rows written."""
+        return self._engine.save_file(path, mode=mode, fmt=fmt)
+
+    def load_file(self, path: str, fmt: str = "gzip") -> int:
+        """Stream a :meth:`save_file` file into the disk tier; returns the
+        rows loaded."""
+        return self._engine.load_file(path, fmt=fmt)
 
     def stats(self) -> Dict[str, float]:
         """Tier counts and disk use (``ps.native.SST_STAT_FIELDS``) and
@@ -632,14 +784,10 @@ class SsdSparseTable(MemorySparseTable):
 
 def make_sparse_table(config: TableConfig) -> MemorySparseTable:
     """``config.storage`` picks a RAM table ("memory": ``config.backend``
-    picks MemorySparseTable or NativeMemorySparseTable) or SsdSparseTable
-    ("ssd", at ``config.ssd_path``)."""
+    picks NativeMemorySparseTable, the default, or the Python shards'
+    MemorySparseTable) or SsdSparseTable ("ssd", at ``config.ssd_path``)."""
     if config.storage == "memory":
-        enforce(config.backend in ("python", "native"),
-                f"unknown table backend {config.backend!r}; have python|native",
-                InvalidArgumentError)
-        return (NativeMemorySparseTable(config) if config.backend == "native"
-                else MemorySparseTable(config))
+        return MemorySparseTable(config)
     if config.storage == "ssd":
         enforce(config.ssd_path is not None, "TableConfig.storage='ssd' requires ssd_path",
                 InvalidArgumentError)

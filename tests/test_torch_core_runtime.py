@@ -218,7 +218,7 @@ def _dataset(cls, slot, lines):
 
 
 def _port_pass_trainer(lr):
-    table = MemorySparseTable(TableConfig(shard_num=4,
+    table = MemorySparseTable(TableConfig(shard_num=4, backend="python",
                                           accessor_config=AccessorConfig(embedx_dim=4)))
     return CtrPassTrainer(
         tctr.DeepFM(tctr.CtrConfig(S, D, 4, (8,)), generator=torch.Generator().manual_seed(0)),
@@ -392,7 +392,7 @@ def test_scope_counts_match_jax_on_a_pass_and_a_stream():
                             accessor_config=JAccessorConfig(embedx_dim=4))), **NAMES)
     tst = CtrStreamTrainer(
         tctr.DeepFM(tctr.CtrConfig(S, D, 4, (8,))), Adam(1e-2),
-        MemorySparseTable(TableConfig(shard_num=2,
+        MemorySparseTable(TableConfig(shard_num=2, backend="python",
                                       accessor_config=AccessorConfig(embedx_dim=4))),
         device="cpu", **NAMES)
     counts = []

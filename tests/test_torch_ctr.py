@@ -65,7 +65,7 @@ class Pair:
         self.jopt_state = self.jopt.init(self.jparams)
 
         self.ttable = MemorySparseTable(TableConfig(
-            shard_num=2, accessor_config=AccessorConfig(embedx_dim=DIM)))
+            shard_num=2, backend="python", accessor_config=AccessorConfig(embedx_dim=DIM)))
         self.tccfg = tec.CacheConfig(**CACHE_KW)
         self.tcache = tec.HbmEmbeddingCache(self.ttable, self.tccfg, device="cpu",
                                             device_map=True)

@@ -267,7 +267,7 @@ def _trainers(amp, prefetch_depth):
         amp=amp, prefetch_depth=prefetch_depth, **NAMES)
     tr = ttrainer.CtrPassTrainer(
         tctr.XDeepFM(tctr.CtrConfig(S, D, DIM, HIDDEN)), Adam(1e-2),
-        MemorySparseTable(TableConfig(shard_num=2, accessor_config=AccessorConfig(
+        MemorySparseTable(TableConfig(shard_num=2, backend="python", accessor_config=AccessorConfig(
             embedx_dim=DIM, embedx_threshold=0.0))),
         tec.CacheConfig(capacity=1 << 12, embedx_dim=DIM, embedx_threshold=0.0),
         device="cpu", amp=amp, prefetch_depth=prefetch_depth, **NAMES)

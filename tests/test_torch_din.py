@@ -69,7 +69,7 @@ class DinPair:
         self.jcache.begin_pass(self.pool.reshape(-1))
         self.tccfg = tec.CacheConfig(**kw)
         self.tcache = tec.HbmEmbeddingCache(
-            MemorySparseTable(TableConfig(shard_num=2,
+            MemorySparseTable(TableConfig(shard_num=2, backend="python",
                                           accessor_config=AccessorConfig(embedx_dim=DIM))),
             self.tccfg, device="cpu", device_map=True)
         self.tcache.begin_pass(self.pool.reshape(-1))

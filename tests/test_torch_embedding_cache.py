@@ -135,7 +135,7 @@ def test_host_table_push_pull_digest_match_jax(rule):
                   embedx_sgd_rule=rule)
     jt = JaxTable(JaxTableConfig(shard_num=3, backend="python",
                                  accessor_config=JaxAccessorConfig(**common)))
-    tt = MemorySparseTable(TableConfig(shard_num=3,
+    tt = MemorySparseTable(TableConfig(shard_num=3, backend="python",
                                        accessor_config=AccessorConfig(**common)))
     rng = np.random.default_rng(12)
     keys = rng.integers(1, 1 << 40, size=60).astype(np.uint64)
@@ -169,7 +169,7 @@ def test_pass_lifecycle_flushes_rows_like_jax(rule):
         shard_num=4, backend="python",
         accessor_config=JaxAccessorConfig(sgd=JaxSGDRuleConfig(), **common)))
     ttable = MemorySparseTable(TableConfig(
-        shard_num=4, accessor_config=AccessorConfig(sgd=SGDRuleConfig(), **common)))
+        shard_num=4, backend="python", accessor_config=AccessorConfig(sgd=SGDRuleConfig(), **common)))
     kw = dict(capacity=512, embedx_dim=dim, embedx_threshold=1.0,
               embed_rule=rule, embedx_rule=rule)
     jcache = jec.HbmEmbeddingCache(jtable, jec.CacheConfig(**kw))

@@ -109,8 +109,10 @@ def test_strategy_to_dict_matches_jax(kw):
 # -- ps/config.py ---------------------------------------------------------------
 
 _MODES = ("sync", "async", "geo", "heter", "gpubox")
-_TABLE_FIELDS = ("table_id", "shard_num", "accessor", "seed", "storage", "ssd_path",
-                 "converter", "pull_wire_dtype", "push_wire_dtype", "ssd_value_dtype")
+_TABLE_FIELDS = ("table_id", "shard_num", "accessor", "seed", "backend", "storage", "ssd_path",
+                 "converter", "pull_wire_dtype", "push_wire_dtype", "ssd_value_dtype",
+                 "ssd_block_compress", "ssd_admission_threshold", "ssd_admission_sketch_kb",
+                 "ssd_bg_compact", "ssd_io_budget_mbps")
 
 
 def _cfg(mode, **extra_runner):
@@ -130,9 +132,7 @@ def _assert_job_equal(t, j):
     for name in _TABLE_FIELDS:
         assert getattr(t.table, name) == getattr(j.table, name), name
     ta, ja = (dataclasses.asdict(x.table.accessor_config) for x in (t, j))
-    # the SSD admission sketch is not bound in the port (ROADMAP Queue A item 5)
-    assert set(ja) - set(ta) == {"admission_threshold"} and ja["admission_threshold"] == 0
-    assert ta == {k: ja[k] for k in ta}
+    assert ta == ja
     assert t.strategy.to_dict() == j.strategy.to_dict()
     assert dataclasses.asdict(t.make_model_config()) == dataclasses.asdict(j.make_model_config())
     assert type(t.make_optimizer()).__name__ == type(j.make_optimizer()).__name__ == "Adam"
@@ -171,15 +171,19 @@ def test_load_ps_config_null_blocks_and_bad_mode():
 
 @pytest.mark.parametrize("knob,value", [("ssd_block_compress", True),
                                         ("ssd_admission_threshold", 2),
-                                        ("ssd_bg_compact", True)])
+                                        ("ssd_bg_compact", True),
+                                        ("ssd_admission_sketch_kb", 256),
+                                        ("ssd_io_budget_mbps", 64.0)])
 def test_load_ps_config_refuses_an_unbound_ssd_knob(knob, value):
+    """The SSD tier's scale knobs, once refused by the port, now load: each
+    one off its default gives the JAX package's ``TableConfig``, field for
+    field."""
     cfg = _cfg("async")
     cfg["table_parameters"][knob] = value
-    jconfig.load_ps_config(cfg)  # the JAX package carries it
-    with pytest.raises(UnavailableError, match=knob):
-        tconfig.load_ps_config(cfg)
-    with pytest.raises(UnavailableError, match="item 5"):  # where the knobs wait
-        tconfig.load_ps_config(cfg)
+    t, j = tconfig.load_ps_config(cfg), jconfig.load_ps_config(cfg)
+    assert getattr(t.table, knob) == getattr(j.table, knob) == value
+    assert dataclasses.asdict(t.table) == dataclasses.asdict(j.table)
+    _assert_job_equal(t, j)
 
 
 @pytest.mark.parametrize("name,want", [("sgd", "SGD"), ("Momentum", "Momentum"),
@@ -238,7 +242,7 @@ def _fleets(strategy_kw):
 
 def _tables(j, t):
     j.register_sparse_table(0, JaxTableConfig(shard_num=2, backend="python"))
-    table = t.register_sparse_table(0, TableConfig(shard_num=2))
+    table = t.register_sparse_table(0, TableConfig(shard_num=2, backend="python"))
     return table
 
 

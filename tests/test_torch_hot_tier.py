@@ -136,8 +136,8 @@ def _table(initial_range=None):
     with uniform(±initial_range) noise, the device from zeros (the JAX
     package's documented parity precondition)."""
     if initial_range is None:
-        return MemorySparseTable(TableConfig(shard_num=4))
-    return MemorySparseTable(TableConfig(shard_num=4, accessor_config=AccessorConfig(
+        return MemorySparseTable(TableConfig(shard_num=4, backend="python"))
+    return MemorySparseTable(TableConfig(shard_num=4, backend="python", accessor_config=AccessorConfig(
         sgd=SGDRuleConfig(initial_range=initial_range))))
 
 

@@ -396,7 +396,7 @@ def _caches(keys, rng):
         shard_num=2, backend="python", accessor_config=JaxAccessorConfig(**acc))),
         jec.CacheConfig(**ckw), device_map=True)
     tc = tec.HbmEmbeddingCache(MemorySparseTable(TableConfig(
-        shard_num=2, accessor_config=AccessorConfig(**acc))), tec.CacheConfig(**ckw),
+        shard_num=2, backend="python", accessor_config=AccessorConfig(**acc))), tec.CacheConfig(**ckw),
         device=CPU, device_map=True)
     jc.begin_pass(keys)
     tc.begin_pass(keys)

@@ -747,7 +747,7 @@ def test_port_checkpoint_verifies_and_loads_in_jax(tmp_path):
     dense tier) verifies in the JAX package and loads there: keys and
     values bitwise, the JAX digest check of the restore passes, and the
     dense tree is the port trainer's, bitwise, through ``convert``."""
-    table = MemorySparseTable(_cfg())
+    table = MemorySparseTable(_cfg(backend="python"))
     tr = CtrStreamTrainer(DeepFM(CtrConfig(S, D, DIM, (8,)),
                                  generator=torch.Generator().manual_seed(0)),
                           Adam(1e-2), table, embedx_dim=DIM, device="cpu", **_NAMES)
@@ -806,7 +806,7 @@ def test_jax_checkpoint_verifies_and_loads_in_port(tmp_path):
     jk, jv = jtable.snapshot_items(0)
     np.testing.assert_array_equal(r.tables["ctr"][0], jk)
     np.testing.assert_array_equal(r.tables["ctr"][1], jv)
-    fresh = MemorySparseTable(_cfg())
+    fresh = MemorySparseTable(_cfg(backend="python"))
     assert r.restore_sparse("ctr", fresh) == len(jk)   # the port's digest check
     tr = CtrStreamTrainer(DeepFM(CtrConfig(S, D, DIM, (8,))), Adam(1e-2), fresh,
                           embedx_dim=DIM, device="cpu", **_NAMES)
@@ -877,7 +877,8 @@ class _Job:
         self.pkg, self.setting = pkg, setting
         port = pkg == "port"
         rpc_mod = rpc if port else jax_rpc
-        cfg = _cfg(table_id=0) if port else _jax_cfg(table_id=0, backend="python")
+        cfg = (_cfg(table_id=0, backend="python") if port
+               else _jax_cfg(table_id=0, backend="python"))
         hot = None
         if setting.endswith("hot_tier"):
             hot = (HotTierConfig if port else JaxHotTierConfig)(capacity=256)

@@ -383,7 +383,7 @@ def test_placed_table_config_is_the_native_engine():
     initial rows)."""
     with ha.HACluster(num_shards=1, replication=1, sync=True) as c:
         cli = c.client()
-        cli.create_sparse_table(0, TableConfig(table_id=0, shard_num=4))
+        cli.create_sparse_table(0, TableConfig(table_id=0, shard_num=4, backend="python"))
         assert cli.sparse_config(0).backend == "python"
         mgr = PlacementManager(cli, 0, PlacementConfig(auto=False, require_fence=False))
         tr, comm = _stream_trainer(cli, mgr)

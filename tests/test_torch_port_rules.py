@@ -23,7 +23,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "ctr_rows_probe.py", ROOT / "flash_bwd_probe.py",
-    ROOT / "hot_scatter_probe.py", ROOT / "vision_parity_probe.py"]
+    ROOT / "hot_scatter_probe.py", ROOT / "recsys_parity_probe.py", ROOT / "vision_parity_probe.py"]
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu", "tools", "py_locks", "lock_order")
 
 
@@ -584,3 +584,32 @@ def test_chip_smoke_binds_each_top_level_name_once():
             names.update(n.id for t in node.targets for n in ast.walk(t)
                          if isinstance(n, ast.Name))
     assert [n for n, c in names.items() if c > 1] == []
+
+
+def test_auto_table_backend_raises_when_the_engine_cannot_build(monkeypatch):
+    """The default RAM table (``backend="auto"``) runs the native engine
+    and has no fallback: where the host library cannot build, "auto"
+    raises as "native" does, through every entry point a user calls, and
+    never hands back the Python shards (the JAX package's "auto" falls
+    back to them). The failed build is simulated in this process only:
+    the build directory other tests share is not touched."""
+    from paddle_tpu_torch.ops._build import BuildError
+    from paddle_tpu_torch.ps import native
+    from paddle_tpu_torch.ps.client import PsServerHandle
+    from paddle_tpu_torch.ps.table import MemorySparseTable, TableConfig, make_sparse_table
+
+    def no_compiler(name, sources, command):
+        raise BuildError(f"building {name} failed (no compiler)")
+
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "build_shared_library", no_compiler)
+    assert TableConfig().backend == "auto"
+    for cfg in (TableConfig(), TableConfig(backend="native")):
+        with pytest.raises(BuildError, match="paddle_tpu_torch_host"):
+            MemorySparseTable(cfg)
+        with pytest.raises(BuildError, match="paddle_tpu_torch_host"):
+            make_sparse_table(cfg)
+    with pytest.raises(BuildError, match="paddle_tpu_torch_host"):
+        MemorySparseTable()
+    with pytest.raises(BuildError, match="paddle_tpu_torch_host"):
+        PsServerHandle().create_sparse_table(0)

@@ -15,15 +15,16 @@
 - ``CtrPassTrainer`` over ``RemoteSparseTable`` (two port servers) against
   JAX's over its own servers (``tests/test_ps_rpc.py:573``'s harness):
   losses rtol 1e-5, rows rtol 1e-4 / atol 1e-5, the same ``size()``; and
-  against the port's trainer over a local ``MemorySparseTable``: losses,
-  pulled rows and ``size()`` bit-equal (rows created with
-  ``initial_range=0``, so the C++ server and the Python table start from
-  the same rows);
+  against the port's trainer over a local ``MemorySparseTable`` (the
+  native engine, the default): losses, pulled rows and ``size()``
+  bit-equal (rows created with ``initial_range=0``);
 - a tiny ``load_ps_config`` job in ``gpubox`` mode runs one pass in both
   packages (losses rtol 1e-5).
 The card's test of ``Trainer.train_from_dataset`` is in
 ``test_torch_ps_job_cuda.py`` (jax-free, so it runs on the card's machine).
 """
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -180,7 +181,7 @@ def test_trainer_train_from_dataset_passes_drop_last_where_taken(parts):
 def test_stream_trainer_over_a_queue_dataset_matches_jax(parts):
     pt.seed(0)
     jtable = JaxTable(JaxTableConfig(shard_num=2, backend="python"))
-    ttable = MemorySparseTable(TableConfig(shard_num=2))
+    ttable = MemorySparseTable(TableConfig(shard_num=2, backend="python"))
     try:
         j = jtrainer.CtrStreamTrainer(
             jctr.DeepFM(jctr.CtrConfig(num_sparse_slots=S, num_dense=D, embedx_dim=8,
@@ -308,7 +309,7 @@ def test_gpubox_job_from_load_ps_config_runs_one_pass():
     lines = _lines(384, seed=4)
     jtable = JaxTable(JaxTableConfig(shard_num=4, backend="python",
                                      accessor_config=jjob.table.accessor_config))
-    ttable = MemorySparseTable(tjob.table)
+    ttable = MemorySparseTable(dataclasses.replace(tjob.table, backend="python"))
     try:
         pt.seed(0)
         jds_ = jds.InMemoryDataset(_schema(jds), seed=0)

@@ -95,7 +95,7 @@ class Caches:
         self.jtable = JaxTable(JaxTableConfig(shard_num=2, backend="python",
                                               accessor_config=JaxAccessorConfig(sgd=jsgd, **acc)))
         self.ttable = MemorySparseTable(TableConfig(
-            shard_num=2, accessor_config=AccessorConfig(sgd=tsgd, **acc)))
+            shard_num=2, backend="python", accessor_config=AccessorConfig(sgd=tsgd, **acc)))
         self.j = jec.HbmEmbeddingCache(self.jtable, self.jcfg)
         self.t = tec.HbmEmbeddingCache(self.ttable, self.tcfg, device=CPU)
         self.j.begin_pass(keys)

@@ -308,7 +308,7 @@ CACHE_KW = dict(capacity=1 << 12, embedx_dim=DIM, embedx_threshold=0.0)
 def _port_run(routing, params, opt_state, keys_fed, pre_dedup=True):
     pool, (idx, dense, labels) = _pool(), _batches()
     mesh = make_mesh({"ps": SK}, device="cpu")
-    table = MemorySparseTable(TableConfig(shard_num=4,
+    table = MemorySparseTable(TableConfig(shard_num=4, backend="python",
                                           accessor_config=AccessorConfig(embedx_dim=DIM)))
     cfg = tec.CacheConfig(**CACHE_KW)
     cache = tec.HbmEmbeddingCache(table, cfg, device="cpu", device_map=keys_fed, mesh=mesh)
@@ -396,7 +396,7 @@ def test_sharded_cache_lookup_returns_spread_rows():
     the shard blocks, as the JAX package does, and flushes back."""
     pool = _pool()
     mesh = make_mesh({"ps": 4}, device="cpu")
-    table = MemorySparseTable(TableConfig(shard_num=2,
+    table = MemorySparseTable(TableConfig(shard_num=2, backend="python",
                                           accessor_config=AccessorConfig(embedx_dim=DIM)))
     jtable = JaxTable(JaxTableConfig(shard_num=2, backend="python",
                                      accessor_config=JaxAccessorConfig(embedx_dim=DIM)))

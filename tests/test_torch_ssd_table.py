@@ -35,8 +35,8 @@ from paddle_tpu.ps.table import TableConfig as JaxTableConfig
 from paddle_tpu_torch.core.enforce import InvalidArgumentError
 from paddle_tpu_torch.io import checkpoint as tckpt
 from paddle_tpu_torch.ps.accessor import AccessorConfig
-from paddle_tpu_torch.ps.table import (MemorySparseTable, SsdSparseTable, TableConfig,
-                                       make_sparse_table)
+from paddle_tpu_torch.ps.table import (MemorySparseTable, NativeMemorySparseTable,
+                                       SsdSparseTable, TableConfig, make_sparse_table)
 from test_torch_jax_native import jax_native  # noqa: F401  (the fixture)
 
 # the JAX SSD table is native only
@@ -231,7 +231,7 @@ def test_python_shards_shrink_and_save_filter_match_jax(tmp_path):
     shrink and the save modes (each mutating the stats it should), against
     the JAX package's Python backend; files cross-load."""
     acc = dict(embedx_dim=4, embedx_threshold=2.0)
-    t = MemorySparseTable(TableConfig(shard_num=3, accessor_config=AccessorConfig(**acc)))
+    t = MemorySparseTable(TableConfig(shard_num=3, backend="python", accessor_config=AccessorConfig(**acc)))
     j = JaxTable(JaxTableConfig(shard_num=3, backend="python",
                                 accessor_config=JaxAccessorConfig(**acc)))
     try:
@@ -252,7 +252,7 @@ def test_python_shards_shrink_and_save_filter_match_jax(tmp_path):
             assert np.array_equal(tk, jk) and np.array_equal(tv, jv), mode
         assert t.digest() == j.digest()
         assert t.save(str(tmp_path / "t"), mode=0) == j.save(str(tmp_path / "j"), mode=0)
-        t2 = MemorySparseTable(TableConfig(shard_num=2, accessor_config=AccessorConfig(**acc)))
+        t2 = MemorySparseTable(TableConfig(shard_num=2, backend="python", accessor_config=AccessorConfig(**acc)))
         try:
             t2.load(str(tmp_path / "j"))
             j.load(str(tmp_path / "t"))
@@ -264,15 +264,24 @@ def test_python_shards_shrink_and_save_filter_match_jax(tmp_path):
 
 
 def test_make_sparse_table_picks_the_storage(tmp_path):
+    """``storage`` picks the RAM or the SSD table; a RAM table runs the
+    native engine by default (``backend="auto"``, as in the JAX package)
+    and the Python shards on request; an unknown backend raises."""
     acc = AccessorConfig(embedx_dim=4)
     ram = make_sparse_table(TableConfig(shard_num=2, accessor_config=acc))
+    py = make_sparse_table(TableConfig(shard_num=2, accessor_config=acc, backend="python"))
     ssd = make_sparse_table(TableConfig(shard_num=2, accessor_config=acc, storage="ssd",
                                         ssd_path=str(tmp_path / "s")))
     try:
-        assert type(ram) is MemorySparseTable and type(ssd) is SsdSparseTable
+        assert type(ram) is NativeMemorySparseTable and type(ssd) is SsdSparseTable
+        assert type(py) is MemorySparseTable
+        assert (ram.backend, py.backend, ssd.backend) == ("native", "python", "ssd")
     finally:
         ram.close()
+        py.close()
         ssd.close()
+    with pytest.raises(InvalidArgumentError):
+        make_sparse_table(TableConfig(backend="gpu"))
     with pytest.raises(InvalidArgumentError):
         make_sparse_table(TableConfig(storage="ssd"))
     with pytest.raises(InvalidArgumentError):
