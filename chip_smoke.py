@@ -9038,6 +9038,286 @@ def phase_item8b(dev, card):
     return {"plan": a, "fleet": b, "elastic": c}
 
 
+# -- phase 26: dense data parallel and ZeRO (item 7's first half) ---------------------
+
+SPMD_MESH = {"dp": 4}                     # leg A: batch 8 over 4 ranks
+SPMD_ZERO3_MESH = {"sharding": 4}         # stage 3's GSPMD path cuts over "sharding"
+SPMD_RANK = (2, 512, 16, 64)              # a rank's attention: [batch / dp, L, H, D]
+SPMD_WARM, SPMD_STEPS, SPMD_LR = 2, 4, 1e-4
+# every rung's first loss against the stage-0 GSPMD rung's, relative: the same
+# weights and batch, only the per-rank split of the mean (and cuBLAS at M = 1024
+# tokens a rank against 4096) differ
+SPMD_FIRST_LOSS_TOL = 2e-5
+SPMD_SH_MESH = {"dp": 1, "pp": 2, "cp": 1, "mp": 2, "sh": 2}
+SPMD_SH_DP_MESH = {"dp": 2, "pp": 2, "cp": 1, "mp": 2}   # the same batch split, no sh
+SPMD_SMALL_BATCH, SPMD_SMALL_STEPS, SPMD_SH_STEPS, SPMD_SMALL_LR = 8, 3, 3, 0.5
+# leg B, card (the kernels) vs CPU (their plain versions): HYB_TOL's bounds
+SPMD_TOL = {"loss": 1e-4, "update": 5e-2}
+# the sh trainer against the dp=2 trainer on one device: the same ranks' work,
+# the same rank-order sums; relative, losses and each tensor's update by norm
+SPMD_SH_TOL = 1e-5
+
+
+def spmd_rungs():
+    """(name, ZeRO stage, comm config or None for the GSPMD path, mesh)."""
+    return (("stage0 gspmd", 0, None, SPMD_MESH),
+            ("fp32 fused", 0, dict(), SPMD_MESH),
+            ("fp32 unfused", 0, dict(fuse=False), SPMD_MESH),
+            ("bf16 fused", 0, dict(quant="bf16"), SPMD_MESH),
+            ("int8 fused", 0, dict(quant="int8"), SPMD_MESH),
+            ("zero1 fused", 1, dict(), SPMD_MESH),
+            ("zero2 fused", 2, dict(), SPMD_MESH),
+            ("zero3 gspmd", 3, None, SPMD_ZERO3_MESH))
+
+
+def spmd_zero_slices(tr, stage, fused, what):
+    """Each rank's ZeRO slice holds 1/4 of its leaf: a flat shard of the
+    padded leaf (fused stages 1-2), or 1/4 of the rows on the cut dim
+    (GSPMD stage 3: the slots and the params)."""
+    from paddle_tpu_torch.parallel.spmd import RankSlices
+
+    if fused:
+        leaves = list(tr.opt_state["inner"]["m"].values())
+    else:
+        leaves = list(tr.opt_state["m"].values()) + list(tr.state["params"].values())
+    sliced = [x for x in leaves if isinstance(x, RankSlices)]
+    K = 4
+    ok = bool(sliced) and all(
+        len(x.parts) == K and all((p.numel() if x.dim is None else p.shape[x.dim]) * K ==
+                                  (x.full().numel() if x.dim is None else x.full().shape[x.dim])
+                                  for p in x.parts) for x in sliced)
+    log(f"spmd leg A {what}: {len(sliced)} of {len(leaves)} ZeRO leaves held as {K} rank "
+        f"slices, each 1/{K} of its leaf's rows: {ok}")
+    assert ok, f"spmd leg A {what}: a ZeRO slice is not 1/{K} of its leaf"
+
+
+def spmd_leg_a(dev, card):
+    """ERNIE at full width through ``SpmdTrainer`` on 4 logical ranks: the
+    rungs of :func:`spmd_rungs` from one set of weights and one batch, each
+    SPMD_WARM + SPMD_STEPS Adam steps."""
+    from paddle_tpu_torch.core.mesh import make_mesh
+    from paddle_tpu_torch.distributed.comm_fusion import CommFusionConfig
+    from paddle_tpu_torch.models.ernie import Ernie, ErnieConfig
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel.spmd import SpmdTrainer
+
+    cfg = ErnieConfig(**ERNIE_CFG)       # attn_impl "auto": B5-B7 on the card
+    L, K = cfg.num_layers, SPMD_MESH["dp"]
+    t0 = time.perf_counter()
+    model = Ernie(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    ids, labels = hybrid_batch(np.random.default_rng(33), cfg.vocab_size, ERNIE_BATCH,
+                               ERNIE_SEQ, dev)
+    _sync(dev)
+    log(f"spmd leg A: ERNIE {ERNIE_CFG} built on the card in {time.perf_counter() - t0:.2f} s")
+    steps = SPMD_WARM + SPMD_STEPS
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    threaded = {k: 0 for k in names}
+    whole = {k: 0 for k in names}
+    rec, first, kept = {}, {}, {}
+    reset_launches()
+    for name, stage, comm, shape in spmd_rungs():
+        before = read_launches()
+        t_setup = time.perf_counter()
+        tr = SpmdTrainer(model, Adam(SPMD_LR), lm_loss, make_mesh(shape, device=dev),
+                         zero_stage=stage, device=dev,
+                         comm=None if comm is None else CommFusionConfig(**comm))
+        _sync(dev)
+        t_setup = time.perf_counter() - t_setup
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        for i in range(steps):
+            if i == SPMD_WARM:
+                _sync(dev)
+                t0 = time.perf_counter()
+            losses.append(tr.train_step(ids, labels))
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        got = {k: v - before[k] for k, v in read_launches().items() if k in threaded}
+        fused = comm is not None
+        want = steps * L * (K if fused else 1)
+        for k in names:
+            (threaded if fused else whole)[k] += got[k]
+        losses = torch.stack(losses).cpu().numpy()
+        first[name] = float(losses[0])
+        rec[name] = {"ms_per_step": 1e3 * dt / SPMD_STEPS,
+                     "tokens_per_s": ERNIE_BATCH * ERNIE_SEQ * SPMD_STEPS / dt,
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "losses": losses.tolist()}
+        log(f"spmd leg A {name} (stage {stage}, mesh {shape}): losses {losses.tolist()}, "
+            f"{rec[name]['ms_per_step']:.3f} ms/step, {rec[name]['tokens_per_s']:.1f} tokens/s "
+            f"({SPMD_STEPS} timed steps after {SPMD_WARM}; built in {t_setup:.2f} s), peak "
+            f"memory {rec[name]['peak_bytes']} B, flash launches {got} (want {want} each) on "
+            f"{card}")
+        assert np.isfinite(losses).all(), f"spmd leg A {name}: non-finite loss"
+        assert losses[-1] < losses[0], f"spmd leg A {name}: loss did not fall"
+        assert all(got[k] == want for k in names), f"spmd leg A {name}: launches {got}, {want}"
+        if stage:
+            spmd_zero_slices(tr, stage, fused, name)
+        if name in ("fp32 fused", "fp32 unfused"):
+            kept[name] = {k: v.clone() for k, v in tr.full_state()[0]["params"].items()}
+        del tr
+        torch.cuda.empty_cache()
+    rel = {n: abs(v - first["stage0 gspmd"]) / abs(first["stage0 gspmd"])
+           for n, v in first.items()}
+    a, b = kept["fp32 fused"], kept["fp32 unfused"]
+    same = all(bitwise_equal(a[k], b[k]) for k in a)
+    log(f"spmd leg A: first losses relative to stage 0 GSPMD's {rel} (stated bound "
+        f"{SPMD_FIRST_LOSS_TOL}); fused fp32 after {steps} steps bitwise equal to the unfused "
+        f"per-tensor rung: {same}")
+    assert max(rel.values()) <= SPMD_FIRST_LOSS_TOL, f"spmd leg A: first losses {first}"
+    assert same, "spmd leg A: fused fp32 differs from the per-tensor rung"
+    return {"rungs": rec, "first_rel": rel, "counts": threaded, "whole_batch_counts": whole}
+
+
+def spmd_small_weights():
+    from paddle_tpu_torch.models.ernie import Ernie, ErnieConfig
+
+    model = Ernie(ErnieConfig(**HYB_SMALL), generator=torch.Generator().manual_seed(26))
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def spmd_small_run(device, impl, stage, comm, weights, batches):
+    """SPMD_SMALL_STEPS SGD steps of a small ERNIE over SPMD_MESH: (losses,
+    end params on the CPU). SGD, not Adam: an int8 code that rounds the
+    other way on a last-bit gradient difference moves its element by a
+    quantum, which Adam's normalization would blow up to a whole step."""
+    from paddle_tpu_torch.core.mesh import make_mesh
+    from paddle_tpu_torch.distributed.comm_fusion import CommFusionConfig
+    from paddle_tpu_torch.models.ernie import Ernie, ErnieConfig
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.parallel.spmd import SpmdTrainer
+
+    model = Ernie(ErnieConfig(**HYB_SMALL, attn_impl=impl))
+    model.load_state_dict(weights)
+    tr = SpmdTrainer(model, SGD(SPMD_SMALL_LR), lm_loss, make_mesh(SPMD_MESH, device=device),
+                     zero_stage=stage, comm=CommFusionConfig(**comm), device=device)
+    losses = [float(tr.train_step(i.to(device), y.to(device))) for i, y in batches]
+    return np.asarray(losses), {k: v.cpu() for k, v in tr.full_state()[0]["params"].items()}
+
+
+def spmd_update_gap(start, got, want):
+    """The worst tensor's ||Δgot − Δwant|| / ||Δwant|| (the key bias left out:
+    its true gradient is 0, so Adam moves it on rounding noise)."""
+    H, D = HYB_SMALL["num_heads"], HYB_SMALL["hidden_size"] // HYB_SMALL["num_heads"]
+    worst = 0.0
+    for k, s in start.items():
+        dg, dw = got[k] - s, want[k] - s
+        if k.endswith("attn.qkv_b"):
+            dg, dw = (d.reshape(*d.shape[:-1], H, 3, D)[..., [0, 2], :] for d in (dg, dw))
+        if float(dw.norm()) > 0:
+            worst = max(worst, float((dg - dw).norm() / dw.norm()))
+    return worst
+
+
+def spmd_sh_run(device, impl, shape, batches, cfg_kw=HYB_SMALL, opt=None):
+    """The hybrid trainer over ``shape`` (SGD(SPMD_SMALL_LR) unless ``opt``):
+    (losses, start and end params on the CPU, the trainer)."""
+    from paddle_tpu_torch.core.mesh import make_mesh
+    from paddle_tpu_torch.models.ernie import ErnieConfig
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.parallel.hybrid import HybridParallelTrainer, flatten_tree
+
+    tr = HybridParallelTrainer(ErnieConfig(**{**cfg_kw, "attn_impl": impl}),
+                               make_mesh(shape, device=device), opt or SGD(SPMD_SMALL_LR),
+                               num_micro=HYB_MICRO, seed=26, device=device)
+    start = {k: v.cpu().clone() for k, v in flatten_tree(tr.params).items()}
+    losses = [tr.train_step(i.to(device), y.to(device)) for i, y in batches]
+    losses = np.asarray([float(x) for x in losses])
+    return losses, start, {k: v.cpu() for k, v in flatten_tree(tr.params).items()}, tr
+
+
+def spmd_leg_b(dev, card):
+    """Small (HYB_SMALL's widths): fused int8 and fused ZeRO-2 over
+    SPMD_MESH, card vs CPU; the hybrid trainer's sh mesh card vs CPU and
+    against the dp mesh without sh; then SPMD_SH_STEPS steps of the sh mesh
+    at ERNIE's full width."""
+    cpu = torch.device("cpu")
+    weights = spmd_small_weights()
+    rng = np.random.default_rng(61)
+    batches = [hybrid_batch(rng, HYB_SMALL["vocab_size"], SPMD_SMALL_BATCH,
+                            HYB_SMALL["max_seq_len"], "cpu") for _ in range(SPMD_SMALL_STEPS)]
+    start = {k: v.clone() for k, v in weights.items()}
+    worst = {}
+    for what, stage, comm in (("int8 fused", 0, dict(quant="int8")), ("zero2 fused", 2, {})):
+        gl, gp = spmd_small_run(dev, "auto", stage, comm, weights, batches)
+        cl, cp = spmd_small_run(cpu, "flash", stage, comm, weights, batches)
+        loss = float(np.max(np.abs(gl - cl) / np.abs(cl)))
+        upd = spmd_update_gap(start, gp, cp)
+        worst[what] = {"loss": loss, "update": upd}
+        log(f"spmd leg B {what}: card vs CPU losses {gl.tolist()} vs {cl.tolist()} (worst "
+            f"relative {loss}), worst relative update difference {upd} (stated bounds "
+            f"{SPMD_TOL})")
+        assert loss <= SPMD_TOL["loss"] and upd <= SPMD_TOL["update"], \
+            f"spmd leg B {what}: {loss}, {upd}"
+    gl, s0, gp, _ = spmd_sh_run(dev, "auto", SPMD_SH_MESH, batches)
+    cl, c0, cp, _ = spmd_sh_run(cpu, "flash", SPMD_SH_MESH, batches)
+    dl, d0, dp, _ = spmd_sh_run(dev, "auto", SPMD_SH_DP_MESH, batches)
+    assert all(torch.equal(s0[k], c0[k]) and torch.equal(s0[k], d0[k]) for k in s0), \
+        "spmd leg B: the sh runs' weights differ"
+    loss = float(np.max(np.abs(gl - cl) / np.abs(cl)))
+    upd = spmd_update_gap(s0, gp, cp)
+    sh_loss = float(np.max(np.abs(gl - dl) / np.abs(dl)))
+    sh_upd = spmd_update_gap(s0, gp, dp)
+    worst["sh"] = {"loss": loss, "update": upd, "vs_dp_loss": sh_loss, "vs_dp_update": sh_upd}
+    log(f"spmd leg B hybrid {SPMD_SH_MESH}: card vs CPU losses {gl.tolist()} vs {cl.tolist()} "
+        f"(worst relative {loss}), worst relative update difference {upd} (bounds {SPMD_TOL}); "
+        f"against {SPMD_SH_DP_MESH} on the card: losses {dl.tolist()} (worst relative "
+        f"{sh_loss}), updates {sh_upd} (bound {SPMD_SH_TOL})")
+    assert loss <= SPMD_TOL["loss"] and upd <= SPMD_TOL["update"], f"spmd leg B sh: {loss}, {upd}"
+    assert sh_loss <= SPMD_SH_TOL and sh_upd <= SPMD_SH_TOL, \
+        f"spmd leg B sh vs dp: {sh_loss}, {sh_upd}"
+    return worst
+
+
+def spmd_sh_full_width(dev, card):
+    """SPMD_SH_STEPS Adam steps of the hybrid trainer over SPMD_SH_MESH at
+    ERNIE's full width: finite losses, the launch formula, ms a step."""
+    from paddle_tpu_torch.models.ernie import ErnieConfig
+
+    cfg_kw = dict(ERNIE_CFG)
+    batches = [hybrid_batch(np.random.default_rng(62), cfg_kw["vocab_size"], ERNIE_BATCH,
+                            ERNIE_SEQ, dev)] * SPMD_SH_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    before = read_launches()
+    t0 = time.perf_counter()
+    from paddle_tpu_torch.optimizer import Adam
+
+    losses, _, _, tr = spmd_sh_run(dev, cfg_kw.get("attn_impl", "auto"), SPMD_SH_MESH, batches,
+                                   cfg_kw, Adam(SPMD_LR))
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    got = {k: v - before[k] for k, v in read_launches().items() if k.startswith("flash")}
+    want = {k: SPMD_SH_STEPS * n for k, n in
+            hybrid_launches_per_step(ErnieConfig(**cfg_kw), SPMD_SH_MESH, HYB_MICRO).items()}
+    sliced = sum(1 for v in tr.opt_state["m"].values() if type(v).__name__ == "RankSlices")
+    log(f"spmd leg B hybrid {SPMD_SH_MESH} at full width: losses {losses.tolist()}, "
+        f"{SPMD_SH_STEPS} steps in {dt:.2f} s (the trainer's build included; "
+        f"{1e3 * dt / SPMD_SH_STEPS:.1f} ms a step), peak memory "
+        f"{torch.cuda.max_memory_allocated()} B, {sliced} of {len(tr.opt_state['m'])} Adam "
+        f"slots held as sh slices, flash launches {got} (formula {want}) on {card}")
+    assert np.isfinite(losses).all(), "spmd leg B: non-finite loss on the sh mesh"
+    assert got == want, f"spmd leg B sh: launches {got}, formula {want}"
+    assert sliced > 0, "spmd leg B sh: no slot is held as sh slices"
+    return {"losses": losses.tolist(), "s": dt, "launches": got}
+
+
+def phase_spmd(dev, card):
+    """Phase 26: leg A (ERNIE at full width, dense DP and ZeRO over 4
+    logical ranks), leg B (small card-vs-CPU parity of fused int8, ZeRO-2
+    and the hybrid sh axis; the sh mesh at full width)."""
+    t_phase = time.perf_counter()
+    assert PIPE_HOP == SPMD_RANK, "the rank's attention shape is not phase 24's"
+    a = spmd_leg_a(dev, card)
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter()
+    b = spmd_leg_b(dev, card)
+    c = spmd_sh_full_width(dev, card)
+    torch.cuda.empty_cache()
+    log(f"spmd (phase 26): {time.perf_counter() - t_phase:.1f} s (leg A {t_b - t_phase:.1f} s, "
+        f"leg B {time.perf_counter() - t_b:.1f} s) on {card}")
+    return {"leg_a": a, "leg_b": b, "sh_full": c, "counts": a["counts"]}
+
+
 HYB_RANGES = ("hybrid_forward", "hybrid_backward", "hybrid_update")
 # B5-B7's kernels in ops/csrc/flash_attention.cu (tensor-core and f32 forms)
 HYB_FLASH_KERNELS = ("fwd_mma_kernel", "bwd_dq_mma_kernel", "bwd_dkv_mma_kernel",
@@ -9182,6 +9462,7 @@ def main(argv):
     item9 = timed("23", phase_item9, dev, card)
     item8 = timed("24", phase_item8, dev, card)
     timed("25", phase_item8b, dev, card)
+    spmd = timed("26", phase_spmd, dev, card)
     timed("profiles", phase_kernel_counts, dev)
     timed("profiles wd", wd_kernel_counts, dev)
     timed("profiles hybrid", hybrid_step_profile, hyb)
@@ -9289,6 +9570,13 @@ def main(argv):
         *(entry(f"flash_attention_{name}@pipeline", fa_src, f"{fa_ref}:{line}",
                 item8["pipeline"]["counts"][f"flash_attention_{name}"],
                 item8["pipeline"]["kernels"][key])
+          for name, key, line in (("fwd", "fwd", 127), ("bwd_dq", "dq", 176),
+                                  ("bwd_dkv", "dkv", 221))),
+        # B5-B7 again as phase 26's SpmdTrainer launches them on the fused rungs
+        # (a rank's attention [2, 512, 16, 64], the shape phase 24 checks and
+        # times): their launches there, phase 24's numbers at that shape
+        *(entry(f"flash_attention_{name}@spmd", fa_src, f"{fa_ref}:{line}",
+                spmd["counts"][f"flash_attention_{name}"], item8["pipeline"]["kernels"][key])
           for name, key, line in (("fwd", "fwd", 127), ("bwd_dq", "dq", 176),
                                   ("bwd_dkv", "dkv", 221))),
         # B1 again as phase 12 leg B's cold-tier day launches it, over the

@@ -17,6 +17,16 @@ Adam slots carry over name for name with no transpose. Cache and tier
 state keep the JAX layout (see ``ps.embedding_cache``); the static map's
 uint32 hi/lo/seed widen to int64, the dynamic map's stay 32-bit patterns
 in int32 tensors (``ps.device_hash``).
+
+Data-parallel state (``parallel.spmd.SpmdTrainer``) crosses in its
+global layout (:func:`spmd_state_from_jax`, :func:`spmd_opt_state_from_jax`,
+then ``SpmdTrainer.restore``): ZeRO slices joined, per-rank values
+stacked on a leading rank dimension, the flat ZeRO shard slots
+(``DpGradReducer.global_shard_template``) re-laid leaf by leaf, and the
+error-feedback residuals re-packed bucket by bucket when the port's leaf
+shapes differ from JAX's (transposed ``Linear`` weights). The hybrid
+trainer's sh-sliced slots cross whole and are cut by the trainer
+(:func:`hybrid_opt_state_from_jax` with ``trainer=``).
 """
 
 from __future__ import annotations
@@ -35,7 +45,7 @@ __all__ = ["adam_state_from_jax", "cache_state_from_jax", "ctr_params_from_jax",
            "ernie_params_from_jax", "hybrid_opt_state_from_jax", "hybrid_params_from_jax",
            "map_state_from_jax", "opt_state_from_jax",
            "ravel_tree", "recsys_params_from_jax", "recsys_params_to_jax",
-           "vision_params_from_jax"]
+           "spmd_opt_state_from_jax", "spmd_state_from_jax", "vision_params_from_jax"]
 
 Device = Union[str, torch.device]
 
@@ -167,16 +177,20 @@ def hybrid_params_from_jax(trainer_params: Mapping, device: Device = "cpu") -> d
     return conv(trainer_params)
 
 
-def hybrid_opt_state_from_jax(opt_state: Mapping, optimizer, device: Device = "cpu") -> dict:
+def hybrid_opt_state_from_jax(opt_state: Mapping, optimizer, device: Device = "cpu",
+                              trainer=None) -> dict:
     """The JAX hybrid trainer's optimizer state → the port trainer's
     (:func:`opt_state_from_jax`, each slot tree converted by
     :func:`hybrid_params_from_jax` and flattened to the trainer's keys,
-    ``parallel.hybrid.flatten_tree``)."""
+    ``parallel.hybrid.flatten_tree``). The JAX state holds each slot at
+    its global shape whatever its sh sharding; given the port ``trainer``
+    the slots come back cut over its sh as it holds them."""
     from .parallel.hybrid import flatten_tree
 
-    return opt_state_from_jax(
+    out = opt_state_from_jax(
         opt_state, optimizer, device,
         lambda tree, dev: flatten_tree(hybrid_params_from_jax(tree, dev)))
+    return trainer._slice_slots(out) if trainer is not None else out
 
 
 def adam_state_from_jax(opt_state: Mapping, device: Device = "cpu",
@@ -267,3 +281,111 @@ def dynamic_map_state_from_jax(arrays: Mapping, device: Device) -> Dict[str, tor
     return dynamic_map_state_to_device(np.asarray(arrays["hi"]), np.asarray(arrays["lo"]),
                                        np.asarray(arrays["row"]), np.asarray(arrays["seed"]),
                                        torch.device(device))
+
+
+def _np_tree(tree, device: Device):
+    """numpy (or jax) leaves → tensors; NamedTuples and dicts kept."""
+    if isinstance(tree, Mapping):
+        return {str(k): _np_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_np_tree(v, device) for v in tree))
+    if isinstance(tree, (list, tuple)):   # a NamedTuple read back from a file
+        return type(tree)(_np_tree(v, device) for v in tree)
+    return torch.from_numpy(np.array(tree)).to(device)
+
+
+def spmd_state_from_jax(state: Mapping, device: Device = "cpu",
+                        params_from_jax: Callable[..., Dict[str, torch.Tensor]]
+                        = ctr_params_from_jax) -> dict:
+    """The JAX ``SpmdTrainer.state`` (``{"params", "buffers"}``) → the port
+    trainer's whole state: params by ``params_from_jax`` (the CTR/MLP
+    rule by default: 2-D weights transposed; :func:`ernie_params_from_jax`
+    for JAX-layout models), buffers as they are."""
+    return {"params": params_from_jax(dict(state["params"]), device),
+            "buffers": {str(k): torch.from_numpy(np.array(v)).to(device)
+                        for k, v in state.get("buffers", {}).items()}}
+
+
+def spmd_opt_state_from_jax(opt_state: Mapping, trainer, jax_params: Mapping,
+                            params_from_jax: Callable[..., Dict[str, torch.Tensor]]
+                            = ctr_params_from_jax) -> dict:
+    """The JAX ``SpmdTrainer.opt_state`` → the port ``trainer``'s whole
+    optimizer state (``SpmdTrainer.full_state``'s layout, for
+    ``trainer.restore``). ``jax_params`` are the JAX trainer's params (in
+    its tree order: the bucket layout's leaf order and the leaves' JAX
+    shapes), ``params_from_jax`` the rule that carries them (as for
+    :func:`spmd_state_from_jax`). Walks the port trainer's optimizer
+    chain: base optimizers by :func:`opt_state_from_jax`; per-rank state
+    (``local_state_keys``) rank by rank; ZeRO's flat shard slots leaf by
+    leaf (unpadded, carried, re-padded); the int8 error-feedback residuals
+    rank by rank and bucket by bucket (unpacked with JAX's layout,
+    carried, packed with the port's)."""
+    from .distributed.comm_fusion import (_pack_bucket, _unpack_bucket, build_layout,
+                                          dtype_name)
+    from .distributed.meta_optimizers import FusedAllReduceOptimizer, MetaOptimizerBase
+    from .parallel.spmd import full_tree
+
+    device = trainer.device
+    jp = {str(k): np.asarray(v) for k, v in jax_params.items()}
+    port = full_tree(trainer.state)["params"]
+
+    def carry(tree):
+        return params_from_jax({str(k): np.asarray(v) for k, v in tree.items()}, device)
+
+    def flat_carry(tree, K):
+        """JAX flat (K·seg_len,) slots → the port's, leaf by leaf."""
+        out = {}
+        for k, v in carry({n: np.asarray(tree[n])[:jp[n].size].reshape(jp[n].shape)
+                           for n in tree}).items():
+            flat = torch.zeros((np.asarray(tree[k]).shape[0],), dtype=v.dtype, device=device)
+            flat[:v.numel()] = v.reshape(-1)
+            out[k] = flat
+        return out
+
+    def ef_carry(ef, reducer):
+        jmeta = tuple((tuple(a.shape), str(a.dtype)) for a in jp.values())
+        pmeta = tuple((tuple(t.shape), dtype_name(t.dtype)) for t in port.values())
+        K, cfg = reducer.K, reducer.config
+        jl, pl = build_layout(jmeta, K, cfg), build_layout(pmeta, K, cfg)
+        jnames, pnames = list(jp), list(port)
+        rows = {f"b{i}": [] for i, b in enumerate(pl.buckets) if b.quantizable}
+        for r in range(K):
+            leaves = {}
+            for i, b in enumerate(jl.buckets):
+                if f"b{i}" not in ef:
+                    continue
+                buf = torch.from_numpy(np.array(ef[f"b{i}"])[r]).reshape(K, b.seg_total)
+                for s, x in zip(b.slots, _unpack_bucket(buf, b, K)):
+                    leaves[jnames[s.index]] = x.numpy()
+            carried = carry(leaves)
+            cl = [carried[n].detach().cpu() if n in carried else
+                  torch.zeros(port[n].shape, dtype=port[n].dtype) for n in pnames]
+            for i, b in enumerate(pl.buckets):
+                if f"b{i}" in rows:
+                    rows[f"b{i}"].append(_pack_bucket(cl, b, K).reshape(-1))
+        return {k: torch.stack(v).to(device) for k, v in rows.items()}
+
+    def conv(st, opt):
+        if isinstance(opt, FusedAllReduceOptimizer):
+            r = opt.reducer
+            if r.shard and r.K > 1:
+                inner = opt_state_from_jax(st["inner"], opt.inner, device,
+                                           lambda tree, dev: flat_carry(tree, r.K))
+            else:
+                inner = conv(st["inner"], opt.inner)
+            return {"inner": inner, "ef": ef_carry(st["ef"], r) if st["ef"] else {}}
+        if isinstance(opt, MetaOptimizerBase):
+            out = {"inner": conv(st["inner"], opt.inner)}
+            for k, v in st.items():
+                if k == "inner":
+                    continue
+                if k in opt.local_state_keys:
+                    n = len(next(iter(v.values())))
+                    ranks = [carry({m: np.asarray(a)[i] for m, a in v.items()}) for i in range(n)]
+                    out[k] = {m: torch.stack([rk[m] for rk in ranks]) for m in ranks[0]}
+                else:
+                    out[k] = _np_tree(v, device)
+            return out
+        return opt_state_from_jax(st, opt, device, params_from_jax)
+
+    return conv(opt_state, trainer.optimizer)

@@ -634,18 +634,23 @@ def hybrid_trainer_from_plan(cfg, process_mesh: ProcessMesh, optimizer, num_micr
     trainer: ``parallel.hybrid.HybridParallelTrainer`` of ERNIE config
     ``cfg`` over a ``{"dp", "pp", "cp": 1, "mp"}`` mesh of logical ranks on
     ``device`` (None: the card, raising without one). ``sh`` is a ZeRO
-    group width; above 1 it raises ``UnavailableError``: the hybrid
-    trainer's sh axis comes with the mesh over distinct devices (ROADMAP
-    item 7). Returns the trainer (``train_step(ids, labels)``)."""
+    group WIDTH (how many ranks of the plan's dp form the inner sharding
+    group; it must divide dp), not the planner's stage number: above 1
+    the mesh is ``{"dp": dp // sh, "pp", "cp": 1, "mp", "sh": sh}`` and
+    the trainer holds every optimizer slot as per-sh-rank slices (stage
+    1's memory at ``sh=dp``; stages 2-3 run through ``parallel.spmd``).
+    Returns the trainer (``train_step(ids, labels)``)."""
     from ..core.mesh import make_mesh
     from ..parallel.hybrid import HybridParallelTrainer
 
     dims = dict(zip(process_mesh.dim_names, process_mesh.shape))
     dp, mp, pp = (int(dims.get(a, 1)) for a in ("dp", "mp", "pp"))
-    enforce(int(sh) <= 1,
-            f"a ZeRO group of width sh={sh} is not ported: the hybrid trainer's sh axis comes "
-            "with parallel/spmd.py and parallel/sharding.py (ROADMAP item 7)", UnavailableError)
-    mesh = make_mesh({"dp": dp, "pp": pp, "cp": 1, "mp": mp}, device=device)
+    sh = max(int(sh), 1)
+    if sh > 1:
+        enforce(dp % sh == 0, f"sh={sh} must divide dp={dp}", InvalidArgumentError)
+        mesh = make_mesh({"dp": dp // sh, "pp": pp, "cp": 1, "mp": mp, "sh": sh}, device=device)
+    else:
+        mesh = make_mesh({"dp": dp, "pp": pp, "cp": 1, "mp": mp}, device=device)
     return HybridParallelTrainer(cfg, mesh, optimizer, num_micro=num_micro, seed=seed,
                                  device=device)
 
@@ -699,8 +704,7 @@ class Engine:
         self.device = resolve_device(device)
         enforce(sharding_stage in (0, 1),
                 f"Engine executes sharding stage 0 or 1; stage {sharding_stage} (grad/param "
-                "sharding) comes with parallel.spmd / parallel.sharding (ROADMAP item 7)",
-                InvalidArgumentError)
+                "sharding) runs through parallel.spmd / parallel.sharding", InvalidArgumentError)
         self.sharding_stage = int(sharding_stage)
         if plan == "auto":
             enforce(process_mesh is None and not annotations,

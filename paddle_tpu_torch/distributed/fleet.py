@@ -29,9 +29,10 @@ communicator.
   ``PADDLE_UTIL_STORE_PORT``.
 - ``distributed_optimizer`` returns ``meta_optimizers.apply_strategy``'s
   chain for the strategy's dense flags (the optimizer as it is without
-  one), as the JAX package does; a ``reducer`` raises (the fused dp
-  collectives, ROADMAP item 7). ``save_inference_model`` exports through
-  ``io.inference`` (``torch.export``).
+  one), as the JAX package does; given a ``reducer``
+  (``comm_fusion.DpGradReducer``) the chain takes pre-reduction
+  gradients and owns the fused dp collectives. ``save_inference_model``
+  exports through ``io.inference`` (``torch.export``).
 """
 
 from __future__ import annotations
@@ -462,8 +463,12 @@ class Fleet:
         (fleet_base.py:1438): the meta-optimizer chain of the strategy's
         dense flags (``meta_optimizers.apply_strategy``; the optimizer as it
         is without one). Sparse gradients go through the communicator, not
-        the optimizer. ``reducer`` (the pre-reduction contract over fused dp
-        collectives) raises: ``comm_fusion`` is ROADMAP item 7."""
+        the optimizer. ``reducer`` (a ``comm_fusion.DpGradReducer``) builds
+        the chain on the pre-reduction contract: the dense dp gradients are
+        reduced by the chain's own fused, optionally bf16/int8 bucket
+        collectives, inside ``run_ranks``. Trainers that know their mesh
+        build it themselves (``parallel.spmd.SpmdTrainer(..., strategy=,
+        comm=)``); pass one here when wiring a step by hand."""
         self._check_init()
         if strategy is not None:
             self._strategy = strategy

@@ -10,7 +10,7 @@ the collectives come in two forms:
   holds the K ranks' tensors of a one-axis mesh, in rank order, and gets
   the list of what each rank receives. The sharded parameter-server
   paths call these.
-- **the axis form** (:func:`psum`, :func:`pmax`,
+- **the axis form** (:func:`psum`, :func:`psum_scatter`, :func:`pmax`,
   :func:`all_gather`/:func:`all_to_all` given an axis, :func:`ppermute`,
   :func:`shift`, :func:`broadcast`, :func:`reduce`, :func:`split_axis`,
   :func:`barrier`, :func:`axis_index`, :func:`axis_size`): called from
@@ -60,8 +60,8 @@ from ..core.enforce import InvalidArgumentError, PreconditionNotMetError, enforc
 from ..core.mesh import Mesh
 
 __all__ = ["ReduceOp", "all_gather", "all_reduce", "all_to_all", "axis_active", "axis_index",
-           "axis_size", "barrier", "broadcast", "pmax", "ppermute", "psum", "reduce",
-           "reduce_scatter", "run_ranks", "shift", "split_axis"]
+           "axis_size", "barrier", "broadcast", "pmax", "ppermute", "psum", "psum_scatter",
+           "reduce", "reduce_scatter", "run_ranks", "shift", "split_axis"]
 
 AxisName = Union[str, Sequence[str]]
 
@@ -104,16 +104,17 @@ def _tiled_all_gather(xs: Sequence[torch.Tensor], dim: int = 0) -> torch.Tensor:
     return torch.cat(list(xs), dim=dim)
 
 
-def all_gather(x, axis: Optional[str] = None, concat_axis: int = 0):
+def all_gather(x, axis: Optional[AxisName] = None, concat_axis: int = 0):
     """Tiled ``all_gather``. List form (``all_gather(xs)``): every rank
     receives the ranks' tensors concatenated along the leading dimension
     in rank order. Axis form (``all_gather(x, axis, concat_axis)``):
     this rank receives its group's tensors concatenated along
-    ``concat_axis`` in axis order."""
+    ``concat_axis`` in axis order (``axis`` one name or a tuple: the
+    group spans them, in the mesh's order)."""
     if axis is None:
         full = _tiled_all_gather(x)
         return [full] * len(x)
-    return _collective(x, (axis,), lambda xs: [_tiled_all_gather(xs, concat_axis)] * len(xs))
+    return _collective(x, axis, lambda xs: [_tiled_all_gather(xs, concat_axis)] * len(xs))
 
 
 def reduce_scatter(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -135,7 +136,7 @@ def _tiled_all_to_all(xs: Sequence[torch.Tensor], split: int, concat: int) -> Li
     return [torch.cat([tiles[r][s] for r in range(K)], dim=concat) for s in range(K)]
 
 
-def all_to_all(x, axis: Optional[str] = None, split_axis_: int = 0, concat_axis: int = 0):
+def all_to_all(x, axis: Optional[AxisName] = None, split_axis_: int = 0, concat_axis: int = 0):
     """Tiled ``all_to_all``. List form (``all_to_all(xs)``): rank r's
     tensor is cut into K equal tiles along the leading dimension; rank s
     receives tile s of every rank, concatenated in rank order (on a
@@ -145,7 +146,7 @@ def all_to_all(x, axis: Optional[str] = None, split_axis_: int = 0, concat_axis:
     concatenated along ``concat_axis``."""
     if axis is None:
         return _tiled_all_to_all(x, 0, 0)
-    return _collective(x, (axis,), lambda xs: _tiled_all_to_all(xs, split_axis_, concat_axis))
+    return _collective(x, axis, lambda xs: _tiled_all_to_all(xs, split_axis_, concat_axis))
 
 
 # -- the rank context and the rendezvous ------------------------------------------
@@ -369,6 +370,21 @@ def axis_size(axis: str) -> int:
 def psum(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
     """``lax.psum``: the group's rank-order sum, one tensor for all."""
     return _collective(x, axis, lambda xs: [_rank_reduce(xs)] * len(xs))
+
+
+def psum_scatter(x: torch.Tensor, axis: AxisName, dim: int = 0) -> torch.Tensor:
+    """Tiled ``lax.psum_scatter``: the group's rank-order sum, cut into
+    the group's size of equal tiles along ``dim``; the rank at position i
+    of the group receives tile i (a view of the sum, which no other rank
+    receives)."""
+    def fn(xs):
+        K = len(xs)
+        enforce(xs[0].shape[dim] % K == 0,
+                f"psum_scatter: dimension {dim} ({xs[0].shape[dim]}) does not split over {K} "
+                "ranks", InvalidArgumentError)
+        return list(_rank_reduce(xs).chunk(K, dim=dim))
+
+    return _collective(x, axis, fn)
 
 
 def pmax(x: torch.Tensor, axis: AxisName) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""The parallel layouts of the dense-model path: the hybrid trainer over a
-dp×pp×cp×mp mesh of logical ranks, the pipeline trainer (F-then-B, 1F1B
+"""The parallel layouts of the dense-model path: data parallel and ZeRO
+(``spmd.SpmdTrainer``, ``sharding``'s stages), the hybrid trainer over a
+dp×pp×cp×mp(×sh) mesh of logical ranks, the pipeline trainer (F-then-B, 1F1B
 and interleave; ``pipeline_1f1b``), the heterogeneous pipeline
 (``heter_pipeline``, ``heter_channel``), tensor- and
 expert-parallel layers, context-parallel attention and the topology
@@ -13,13 +14,17 @@ from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy, RowParallelL
 from .pipeline import LayerDesc, PipelineLayer, PipelineTrainer, pipeline_spmd_fn
 from .ring_attention import (local_attention, ring_attention, ring_flash_attention,
                              ulysses_attention)
+from .sharding import ShardingStage1, ShardingStage2, ShardingStage3, group_sharded_parallel
+from .spmd import DataParallel, SpmdTrainer, make_sharding_rules, shard_largest_dim
 from .topology import CommunicateTopology, HybridCommunicateGroup
 
-__all__ = ["ColumnParallelLinear", "CommunicateTopology", "ExpertFFN", "HybridCommunicateGroup",
-           "HybridParallelTrainer", "LayerDesc", "MoELayer", "ParallelCrossEntropy",
-           "PipelineLayer", "PipelineTrainer", "RowParallelLinear", "VocabParallelEmbedding",
-           "local_attention", "pipeline_spmd_fn", "ring_attention", "ring_flash_attention",
-           "top1_gate", "top2_gate", "ulysses_attention"]
+__all__ = ["ColumnParallelLinear", "CommunicateTopology", "DataParallel", "ExpertFFN",
+           "HybridCommunicateGroup", "HybridParallelTrainer", "LayerDesc", "MoELayer",
+           "ParallelCrossEntropy", "PipelineLayer", "PipelineTrainer", "RowParallelLinear",
+           "ShardingStage1", "ShardingStage2", "ShardingStage3", "SpmdTrainer",
+           "VocabParallelEmbedding", "group_sharded_parallel", "local_attention",
+           "make_sharding_rules", "pipeline_spmd_fn", "ring_attention", "ring_flash_attention",
+           "shard_largest_dim", "top1_gate", "top2_gate", "ulysses_attention"]
 
 
 def __getattr__(name):

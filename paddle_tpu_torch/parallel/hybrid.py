@@ -1,4 +1,4 @@
-"""Hybrid parallelism: ERNIE over a dp×pp×cp×mp mesh of logical ranks.
+"""Hybrid parallelism: ERNIE over a dp×pp×cp×mp(×sh) mesh of logical ranks.
 
 Port of ``paddle_tpu.parallel.hybrid.HybridParallelTrainer``. The JAX
 trainer runs one ``shard_map``'d, jitted step over a device mesh; here
@@ -10,10 +10,15 @@ axis name.
 Axes: ``dp`` batch; ``pp`` pipeline stages (``parallel.pipeline``);
 ``cp`` sequence shard (the ring over cp in every attention call);
 ``mp`` tensor parallel; ``ep`` rides ``dp`` when the model has experts
-(the MoE all-to-all crosses the data-parallel group). The JAX trainer's
-fifth axis ``sh`` (ZeRO: optimizer state sharded over an inner
-data-parallel group) is not ported: a mesh with ``"sh" > 1`` raises
-(ROADMAP item 7, with ``parallel/spmd.py`` and ``parallel/sharding.py``).
+(the MoE all-to-all crosses the data-parallel group); ``sh``, the
+reference's fourth hybrid axis (the sharding group), is an inner
+data-parallel group: the batch splits over dp×sh, and every optimizer
+slot tensor is held as per-sh-rank slices
+(``parallel.spmd.RankSlices``) on its first dimension that the param's
+layout leaves free and sh divides; params stay global. The update runs
+on the joined slots (what GSPMD's partition of the JAX step computes),
+and checkpoints hold the joined slots, so a snapshot from an sh mesh
+restores onto a mesh without one.
 
 State keeps the JAX trainer's tree and names: ``params = {"stages":
 {"params": {name: [pp, …]}, "buffers": {…}}, "aux": {"embed": {…},
@@ -27,9 +32,9 @@ parameter into its one global gradient. That is what the JAX trainer's
 functional ``optimizer.update`` on the global tensors (keys: the tree
 paths joined by "/", :func:`flatten_tree`).
 
-The loss is the mean token cross entropy over the dp×cp token grid:
-each rank's mean over its shard, divided by dp·cp, psummed over dp and
-cp. Rank 0's loss (every rank holds the same value) is the one the
+The loss is the mean token cross entropy over the dp×sh×cp token grid:
+each rank's mean over its shard, divided by dp·sh·cp, psummed over dp,
+sh and cp. Rank 0's loss (every rank holds the same value) is the one the
 backward starts from.
 
 Dropout draws from a generator a rank, seeded each step from the
@@ -48,7 +53,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..core.enforce import InvalidArgumentError, UnavailableError, enforce
+from ..core.enforce import InvalidArgumentError, enforce
 from ..core.mesh import Mesh
 from ..models.ernie import (_ATTN_IMPLS, ErnieConfig, ErnieEmbedding, ErnieHead, ErnieStage,
                             parallel_cross_entropy, partition_spec)
@@ -58,10 +63,22 @@ from .pipeline import bind as _bind
 from .pipeline import flatten_tree, pipeline_spmd_fn, unflatten_tree
 from .pipeline import module_state as _module_state
 from .pipeline import with_leaves as _with_leaves
+from .spmd import RankSlices, _place_like, full_tree
 
 __all__ = ["HybridParallelTrainer", "flatten_tree", "unflatten_tree"]
 
 Tree = Dict[str, Any]
+
+
+def _insert_sh(spec: Tuple[Optional[str], ...], shape: Tuple[int, ...], sh: int) -> int:
+    """The dimension a slot tensor is cut on over "sh": the first one the
+    param's layout leaves free whose size sh divides (−1: none, the slot
+    stays whole, as the reference leaves the remainder on every rank)."""
+    spec_t = tuple(spec) + (None,) * (len(shape) - len(spec))
+    for i, (ax, d) in enumerate(zip(spec_t, shape)):
+        if ax is None and d and d % sh == 0:
+            return i
+    return -1
 
 
 def _shard(t: torch.Tensor, spec: Tuple[Optional[str], ...], coords: Dict[str, int],
@@ -79,12 +96,13 @@ def _shard(t: torch.Tensor, spec: Tuple[Optional[str], ...], coords: Dict[str, i
 
 
 class HybridParallelTrainer:
-    """dp×pp×cp×mp training of an ERNIE-family model over ``mesh``, a
-    ``core.mesh`` with at least the axes dp, pp, cp and mp (and at most a
-    size-1 ``sh``). ``optimizer`` is one of the port's functional
+    """dp×pp×cp×mp(×sh) training of an ERNIE-family model over ``mesh``, a
+    ``core.mesh`` with at least the axes dp, pp, cp and mp (and optionally
+    sh, the ZeRO group). ``optimizer`` is one of the port's functional
     optimizers; ``train_step(ids, labels)`` takes the global [batch, seq]
     batch (batch a multiple of ``num_micro``·dp, seq of cp) and returns
-    the step's loss. ``device`` (None: the card, raising without one)
+    the step's loss (batch a multiple of ``num_micro``·dp·sh). ``device``
+    (None: the card, raising without one)
     must be the mesh's device."""
 
     def __init__(self, cfg: ErnieConfig, mesh: Mesh, optimizer, num_micro: int = 2,
@@ -94,10 +112,6 @@ class HybridParallelTrainer:
                 f"the mesh lives on {mesh.device}, the trainer on {dev}", InvalidArgumentError)
         for ax in ("dp", "pp", "cp", "mp"):
             enforce(ax in mesh.shape, f"hybrid mesh lacks axis {ax!r}", InvalidArgumentError)
-        enforce(mesh.shape.get("sh", 1) == 1,
-                f"the sharding (ZeRO) axis sh={mesh.shape.get('sh')} is not ported: it comes "
-                "with parallel/spmd.py and parallel/sharding.py (ROADMAP item 7)",
-                UnavailableError)
         enforce(cfg.attn_impl in _ATTN_IMPLS,
                 f"attn_impl must be one of {_ATTN_IMPLS}, got {cfg.attn_impl!r}",
                 InvalidArgumentError)
@@ -109,6 +123,7 @@ class HybridParallelTrainer:
             cfg = dataclasses.replace(cfg, ep_axis="dp")
         self.cfg = cfg
         self.mesh = mesh
+        self.sh = int(mesh.shape.get("sh", 1))
         self.device = dev
         self.num_micro = num_micro
         self.optimizer = optimizer
@@ -123,8 +138,8 @@ class HybridParallelTrainer:
                for name, st in (("embed", _module_state(ErnieEmbedding(cfg, gen))),
                                 ("head", _module_state(ErnieHead(cfg, gen))))}
         self.params: Tree = {"stages": stacked, "aux": aux}
-        self.opt_state = optimizer.init(flatten_tree(self.params))
         self._specs = self._spec_tree()
+        self.opt_state = self._slice_slots(optimizer.init(flatten_tree(self.params)))
 
         # each rank's own modules (their storage on the meta device; a step
         # binds the rank's views into them), so no two threads share one
@@ -149,6 +164,26 @@ class HybridParallelTrainer:
                                          leading_pp=path.startswith("stages/"))
         return specs
 
+    def _slice_slots(self, opt_state: dict) -> dict:
+        """ZeRO over sh: every slot tensor (a dict of the state keyed by the
+        param paths) as per-sh-rank :class:`RankSlices`; the rest whole."""
+        if self.sh <= 1:
+            return opt_state
+        names = set(self._specs)
+
+        def walk(sub):
+            if isinstance(sub, dict):
+                if sub and set(sub) == names:
+                    out = {}
+                    for k, t in sub.items():
+                        d = _insert_sh(self._specs[k], tuple(t.shape), self.sh)
+                        out[k] = RankSlices.cut(t, self.sh, d) if d >= 0 else t
+                    return out
+                return {k: walk(v) for k, v in sub.items()}
+            return sub
+
+        return walk(opt_state)
+
     def _rank_view(self, flat: Dict[str, torch.Tensor], rank: int) -> Tree:
         coords = self.mesh.coords(rank)
         return unflatten_tree({p: _shard(t, self._specs[p], coords, self.mesh.shape)
@@ -159,12 +194,14 @@ class HybridParallelTrainer:
     def _loss_fn(self, flat: Dict[str, torch.Tensor], ids_m: torch.Tensor,
                  labels_m: torch.Tensor, step_seed: Optional[int]):
         cfg, mesh = self.cfg, self.mesh
-        dp, cp = mesh.shape["dp"], mesh.shape["cp"]
+        dp, cp, sh = mesh.shape["dp"], mesh.shape["cp"], self.sh
         M, B, L = ids_m.shape
-        enforce(B % dp == 0 and L % cp == 0,
-                f"micro-batch {B} x seq {L} does not split over dp={dp}, cp={cp}",
+        enforce(B % (dp * sh) == 0 and L % cp == 0,
+                f"micro-batch {B} x seq {L} does not split over dp·sh={dp * sh}, cp={cp}",
                 InvalidArgumentError)
-        Bl, Ll = B // dp, L // cp
+        Bl, Ll = B // (dp * sh), L // cp
+        # the batch splits over dp and, inside it, sh (an inner dp group)
+        loss_axes = ("dp", "sh", "cp") if "sh" in mesh.shape else ("dp", "cp")
 
         def rank_fn(rank: int):
             mods = self._rank_modules[rank]
@@ -187,11 +224,12 @@ class HybridParallelTrainer:
             pipe = pipeline_spmd_fn(stage_apply, mesh.shape["pp"], self.num_micro, "pp",
                                     lambda st, x: mods["embed"](x),
                                     lambda st, y: mods["head"](y))
-            sl = (slice(None), slice(c["dp"] * Bl, (c["dp"] + 1) * Bl),
+            b = c["dp"] * sh + c.get("sh", 0)
+            sl = (slice(None), slice(b * Bl, (b + 1) * Bl),
                   slice(c["cp"] * Ll, (c["cp"] + 1) * Ll))
             logits = pipe(local["stages"], local["aux"], ids_m[sl])
             ce = parallel_cross_entropy(logits, labels_m[sl], cfg.vocab_size, cfg.mp_axis)
-            return coll.psum(ce.mean() / (dp * cp), ("dp", "cp"))
+            return coll.psum(ce.mean() / (dp * sh * cp), loss_axes)
 
         return coll.run_ranks(mesh, rank_fn)[0]
 
@@ -238,7 +276,8 @@ class HybridParallelTrainer:
             if g is not None:
                 grads[k] = g
         with torch.profiler.record_function("hybrid_update"):
-            new_flat, self.opt_state = self.optimizer.update(grads, self.opt_state, flat)
+            new_flat, new_opt = self.optimizer.update(grads, full_tree(self.opt_state), flat)
+            self.opt_state = _place_like(self.opt_state, new_opt)
         self.params = _with_leaves(self.params, new_flat)
         self.global_step += 1
         if self.cfg.num_experts:
@@ -268,30 +307,32 @@ class HybridParallelTrainer:
         """Params, optimizer state, the trainer's generator state and the
         step in the JAX trainer's snapshot schema (params at global
         shapes, so a snapshot restores onto any layout; the optimizer
-        state in the JAX layout ``{"step", "slots": {...}}``). The rng
-        entry is the port's generator state, not a JAX key."""
+        state in the JAX layout ``{"step", "slots": {...}}``, the sh slices
+        joined). The rng entry is the port's generator state, not a JAX
+        key."""
         from ..convert import opt_state_to_jax
         from ..io.checkpoint import save_train_state
 
-        opt = opt_state_to_jax(self.opt_state, self.optimizer, params_to_jax=lambda flat:
-                               unflatten_tree({p: t.detach().cpu().numpy()
-                                               for p, t in flat.items()}))
+        opt = opt_state_to_jax(full_tree(self.opt_state), self.optimizer,
+                               params_to_jax=lambda flat: unflatten_tree(
+                                   {p: t.detach().cpu().numpy() for p, t in flat.items()}))
         save_train_state(path, self.params, opt_state=opt, rng=self._gen.get_state(),
                          step=self.global_step)
 
     def load(self, path: str) -> None:
         """Restore a snapshot written by :meth:`save` into the live trees
-        (by key path, each leaf on this trainer's device); training then
-        continues the same step count and generator stream."""
+        (by key path, each leaf on this trainer's device; the slots cut
+        over this trainer's sh); training then continues the same step
+        count and generator stream."""
         from ..convert import opt_state_from_jax
         from ..io.checkpoint import graft_into, load_train_state
 
         snap = load_train_state(path)
         self.params = graft_into(self.params, snap["state"])
         flat = flatten_tree(self.params)
-        self.opt_state = opt_state_from_jax(
+        self.opt_state = self._slice_slots(opt_state_from_jax(
             snap["opt"], self.optimizer, self.device,
-            params_from_jax=lambda tree, dev: graft_into(flat, flatten_tree(tree)))
+            params_from_jax=lambda tree, dev: graft_into(flat, flatten_tree(tree))))
         if snap["rng"] is not None:
             self._gen.set_state(torch.as_tensor(np.asarray(snap["rng"]), dtype=torch.uint8))
         self.global_step = snap["step"]

@@ -22,7 +22,7 @@ from paddle_tpu import optimizer as jopt
 from paddle_tpu.distributed import auto_parallel as jauto
 from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.convert import ernie_params_from_jax, recsys_params_from_jax
-from paddle_tpu_torch.core.enforce import EnforceNotMet, UnavailableError
+from paddle_tpu_torch.core.enforce import EnforceNotMet, InvalidArgumentError
 from paddle_tpu_torch.distributed import auto_parallel as tauto
 from paddle_tpu_torch.nn import functional as TF
 from test_torch_completion import _canon, build, jax_dm_for_port, port_spec_as_jax
@@ -364,7 +364,9 @@ def test_plan_bridge_first_loss_matches_the_serial_model():
     """An ERNIE whose dims mp cannot shard gets a pp plan (the same from
     both packages); ``hybrid_trainer_from_plan`` runs it over logical
     ranks and its first loss equals the serial model's on the trainer's
-    own weights (rtol 1e-5); training proceeds."""
+    own weights (rtol 1e-5); training proceeds. With ``sh=2`` the bridge
+    builds the sh mesh JAX's builds, and its steps equal the sh-less
+    trainer's."""
     from paddle_tpu_torch.models.ernie import Ernie, ErnieConfig
 
     _, jins, tm, tins, _, kw = _plan_case("ernie_odd_pp")
@@ -389,9 +391,24 @@ def test_plan_bridge_first_loss_matches_the_serial_model():
     np.testing.assert_allclose(first, want, rtol=1e-5)
     losses = [first] + [float(trainer.train_step(ids, labels)) for _ in range(3)]
     assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
-    with pytest.raises(UnavailableError, match="item 7"):
-        tauto.hybrid_trainer_from_plan(ErnieConfig(**ODD_ERNIE), mesh, topt.Adam(3e-3),
-                                       sh=2, device="cpu")
+    # sh: a ZeRO group inside dp (the mesh JAX's bridge builds); the same seed's
+    # steps follow the sh-less trainer's (rtol 1e-5): sh moves no number
+    sh = tauto.hybrid_trainer_from_plan(ErnieConfig(**ODD_ERNIE), mesh, topt.Adam(3e-3),
+                                        num_micro=2, sh=2, device="cpu")
+    from paddle_tpu.models.ernie import ErnieConfig as JErnieConfig
+
+    jsh = jauto.hybrid_trainer_from_plan(JErnieConfig(**ODD_ERNIE), jmesh, jopt.Adam(3e-3),
+                                         num_micro=2, sh=2)
+    assert dict(sh.mesh.shape) == dict(jsh.mesh.shape) == {"dp": 1, "pp": dims["pp"], "cp": 1,
+                                                           "mp": 1, "sh": 2}
+    again = tauto.hybrid_trainer_from_plan(ErnieConfig(**ODD_ERNIE), mesh, topt.Adam(3e-3),
+                                           num_micro=2, device="cpu")
+    np.testing.assert_allclose([float(sh.train_step(ids, labels)) for _ in range(2)],
+                               [float(again.train_step(ids, labels)) for _ in range(2)],
+                               rtol=1e-5)
+    with pytest.raises(InvalidArgumentError, match="must divide dp"):
+        tauto.hybrid_trainer_from_plan(ErnieConfig(**ODD_ERNIE), mesh, topt.Adam(3e-3), sh=3,
+                                       device="cpu")
 
 
 # -- shard_tensor and its kin ---------------------------------------------------------

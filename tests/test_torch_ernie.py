@@ -270,9 +270,12 @@ def test_trainer_under_amp_stays_f32_like_jax():
 def test_out_of_slice_options_raise():
     with pytest.raises(InvalidArgumentError, match="attn_impl"):
         ernie.Ernie(ernie.ErnieConfig(**SMALL, attn_impl="ring"))
-    # MoE blocks and the mesh layouts are ported; the sharding (ZeRO) axis
-    # of the hybrid trainer is the boundary now
-    from paddle_tpu_torch.core.enforce import UnavailableError
+    # MoE blocks, the mesh layouts and the hybrid trainer's sharding (ZeRO)
+    # axis are ported: a MoE ERNIE over dp×pp×mp×sh takes JAX's first two
+    # Adam steps (losses rtol 1e-5, the hybrid tests' bound)
+    from paddle_tpu.core import mesh as jmesh
+    from paddle_tpu.parallel.hybrid import HybridParallelTrainer as JHybrid
+    from paddle_tpu_torch.convert import hybrid_opt_state_from_jax, hybrid_params_from_jax
     from paddle_tpu_torch.core.mesh import make_mesh
     from paddle_tpu_torch.parallel.hybrid import HybridParallelTrainer
 
@@ -280,9 +283,20 @@ def test_out_of_slice_options_raise():
     assert ernie.Ernie(moe).blocks[0].ffn.w_in.shape == (4, SMALL["hidden_size"],
                                                          SMALL["ffn_size"])
     assert ernie.partition_spec("head.w", torch.zeros(2, 3), moe) == (None, "mp")
-    with pytest.raises(UnavailableError, match="item 7"):
-        HybridParallelTrainer(moe, make_mesh({"dp": 1, "pp": 2, "cp": 1, "mp": 2, "sh": 2},
-                                             device="cpu"), Adam(), device="cpu")
+    sh_mesh = {"dp": 1, "pp": 2, "cp": 1, "mp": 2, "sh": 2}
+    pt.seed(0)
+    jtr = JHybrid(jernie.ErnieConfig(**SMALL, num_experts=4),
+                  jmesh.make_mesh(sh_mesh, devices=jax.devices()[:8]), jopt.Adam(1e-3))
+    start, start_opt = jax.device_get(jtr.params), jax.device_get(jtr.opt_state)
+    ids, labels = _batch(np.random.default_rng(9))
+    ids, labels = np.concatenate([ids, ids]), np.concatenate([labels, labels])   # 4 rows
+    want = [float(jtr.train_step(jnp.asarray(ids), jnp.asarray(labels))) for _ in range(2)]
+    opt = Adam(1e-3)
+    tr = HybridParallelTrainer(moe, make_mesh(sh_mesh, device="cpu"), opt, device="cpu")
+    tr.params = hybrid_params_from_jax(start, "cpu")
+    tr.opt_state = hybrid_opt_state_from_jax(start_opt, opt, "cpu", trainer=tr)
+    got = [float(tr.train_step(_t(ids), _t(labels))) for _ in range(2)]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
     model = ernie.Ernie(ernie.ErnieConfig(**SMALL))
     # amp is ported: True/"O1"/"O2" are accepted, an unknown level raises
     with pytest.raises(InvalidArgumentError, match="amp"):

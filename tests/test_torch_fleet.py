@@ -41,7 +41,7 @@ from paddle_tpu.ps import config as jconfig
 from paddle_tpu.ps.table import TableConfig as JaxTableConfig
 from paddle_tpu_torch import distributed as tdist
 from paddle_tpu_torch.core.enforce import (EnforceNotMet, InvalidArgumentError,
-                                           PreconditionNotMetError, UnavailableError)
+                                           PreconditionNotMetError)
 from paddle_tpu_torch.ps import config as tconfig
 from paddle_tpu_torch.ps.table import TableConfig
 
@@ -599,8 +599,19 @@ def test_distributed_optimizer_without_a_flag_returns_the_optimizer(tmp_path):
     opt = Adam(1e-3)
     assert f.distributed_optimizer(opt) is opt
     assert f.distributed_optimizer(opt, tdist.DistributedStrategy(a_sync=True)) is opt
-    with pytest.raises(UnavailableError, match="reducer"):
-        f.distributed_optimizer(opt, reducer=object())
+    # with a reducer and no flag: the fused reduction around the optimizer, as JAX's
+    from paddle_tpu.distributed import comm_fusion as jcf
+    from paddle_tpu.distributed import meta_optimizers as jmo
+    from paddle_tpu.optimizer import Adam as JAdam
+    from paddle_tpu_torch.distributed.comm_fusion import DpGradReducer
+    from paddle_tpu_torch.distributed.meta_optimizers import FusedAllReduceOptimizer
+
+    red = DpGradReducer(("dp",), (2,))
+    fused = f.distributed_optimizer(opt, reducer=red)
+    want = jmo.apply_strategy(JAdam(1e-3), jdist.DistributedStrategy(),
+                              reducer=jcf.DpGradReducer(("dp",), (2,)))
+    assert isinstance(fused, FusedAllReduceOptimizer) and fused.inner is opt
+    assert type(fused).__name__ == type(want).__name__ and red.installed
     # save_inference_model is ported: it exports through io.inference
     w = torch.arange(6, dtype=torch.float32).reshape(3, 2)
     f.save_inference_model(str(tmp_path / "m"), lambda p, x: x @ p["w"], {"w": w},
@@ -615,14 +626,40 @@ DENSE_FLAGS = ["lars", "lamb", "dgc", "amp", "recompute", "gradient_merge", "loc
 
 @pytest.mark.parametrize("flag", DENSE_FLAGS)
 def test_distributed_optimizer_dense_flag_raises(flag):
-    """A dense flag with ``reducer=`` (the fused dp collectives) raises,
-    naming ROADMAP item 7; without one the chain is built (below)."""
+    """A dense flag with ``reducer=`` (a ``DpGradReducer`` over dp=2)
+    builds JAX's pre-reduction chain, class for class, and 3 updates on
+    two ranks with their own gradients follow JAX's rank by rank (rtol
+    1e-6, atol 1e-7; fp16_allreduce's bf16 wire atol 1e-4: where JAX's
+    CPU backend sums the bf16 chunks in f32 a reduced element can land one
+    bf16 ulp away)."""
+    from paddle_tpu import optimizer as jopt
+    from paddle_tpu.distributed import comm_fusion as jcf
+    from paddle_tpu.distributed import meta_optimizers as jmo
+    from paddle_tpu_torch.distributed.comm_fusion import DpGradReducer
     from paddle_tpu_torch.optimizer import Momentum
+    from test_torch_meta_optimizers import run_ranks_both
 
     f = tdist.Fleet().init(tdist.UserDefinedRoleMaker())
-    with pytest.raises(UnavailableError, match="reducer.*item 7"):
-        f.distributed_optimizer(Momentum(0.1), tdist.DistributedStrategy(**{flag: True}),
-                                reducer=object())
+    red = DpGradReducer(("dp",), (2,))
+    to = f.distributed_optimizer(Momentum(0.1), tdist.DistributedStrategy(**{flag: True}),
+                                 reducer=red)
+    jo = jmo.apply_strategy(jopt.Momentum(0.1), jdist.DistributedStrategy(**{flag: True}),
+                            reducer=jcf.DpGradReducer(("dp",), (2,)))
+
+    def chain(o):
+        names = []
+        while o is not None:
+            names.append(type(o).__name__)
+            o = getattr(o, "inner", None)
+        return names
+
+    assert chain(to) == chain(jo) and "FusedAllReduceOptimizer" in chain(to) and red.installed
+    jp, _, tps, _ = run_ranks_both(jo, to)
+    atol = 1e-4 if flag == "fp16_allreduce" else 1e-7
+    for r, tp in enumerate(tps):
+        for k, v in tp.items():
+            np.testing.assert_allclose(v.numpy(), np.asarray(jp[k])[r], rtol=1e-6, atol=atol,
+                                       err_msg=f"{flag}: rank {r} {k}")
 
 
 @pytest.mark.parametrize("flag", DENSE_FLAGS)

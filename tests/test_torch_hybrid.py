@@ -37,7 +37,7 @@ from paddle_tpu.core import mesh as jmesh
 from paddle_tpu.models.ernie import ErnieConfig as JCfg
 from paddle_tpu.parallel.hybrid import HybridParallelTrainer as JTrainer
 from paddle_tpu_torch.convert import hybrid_opt_state_from_jax, hybrid_params_from_jax
-from paddle_tpu_torch.core.enforce import InvalidArgumentError, UnavailableError
+from paddle_tpu_torch.core.enforce import InvalidArgumentError
 from paddle_tpu_torch.core.mesh import make_mesh
 from paddle_tpu_torch.models.ernie import Ernie, ErnieConfig
 from paddle_tpu_torch.optimizer import SGD, Adam
@@ -175,9 +175,12 @@ def test_save_load_resume_follows_the_same_trajectory(adam_run, tmp_path):
 
 def test_out_of_slice_layouts_raise():
     cfg = ErnieConfig(**CFG)
-    with pytest.raises(UnavailableError, match="item 7"):
-        HybridParallelTrainer(cfg, make_mesh({**MESH_A, "sh": 2}, device="cpu"), SGD(0.1),
-                              device="cpu")
+    # the sh axis splits the batch further: a micro-batch of 2 does not
+    # split over dp·sh = 4
+    tr = HybridParallelTrainer(cfg, make_mesh({**MESH_B, "sh": 2}, device="cpu"), SGD(0.1),
+                               device="cpu")
+    with pytest.raises(InvalidArgumentError, match="dp·sh=4"):
+        tr.train_step(*(torch.from_numpy(a) for a in _data(4)))
     with pytest.raises(InvalidArgumentError, match="lacks axis 'cp'"):
         HybridParallelTrainer(cfg, make_mesh({"dp": 2, "pp": 2, "mp": 2}, device="cpu"),
                               SGD(0.1), device="cpu")
@@ -226,3 +229,39 @@ def test_adam_steps_repeat_bitwise_on_the_cpu():
     assert sorted(pa) == sorted(pb)
     for k in pa:
         assert torch.equal(pa[k], pb[k]), k
+
+
+MESH_SH = {"dp": 1, "pp": 2, "cp": 1, "mp": 2, "sh": 2}
+
+
+def test_sh_axis_matches_jax_and_restores_into_dp(tmp_path):
+    """dp×pp×cp×mp×sh: JAX's trainer and the port's from the same weights
+    and Adam state (the JAX slots, global, cut over sh by
+    ``hybrid_opt_state_from_jax(..., trainer=)``), 3 Adam steps: losses
+    rtol 1e-5, parameters as ``_params_close``; every slot tensor with a
+    free dim that sh divides is held as 2 slices of half its size. A
+    snapshot of the sh trainer restores into a dp=2 trainer without sh,
+    which continues as the sh trainer does (losses rtol 1e-5)."""
+    from paddle_tpu_torch.parallel.spmd import RankSlices
+
+    run = _jax_run(CFG, MESH_SH, jopt.Adam(1e-2), 3, 8, seed=2)
+    opt = Adam(1e-2)
+    tr = HybridParallelTrainer(ErnieConfig(**CFG), make_mesh(MESH_SH, device="cpu"), opt,
+                               device="cpu")
+    tr.params = hybrid_params_from_jax(run["start"], "cpu")
+    tr.opt_state = hybrid_opt_state_from_jax(run["start_opt"], opt, "cpu", trainer=tr)
+    sliced = [v for v in tr.opt_state["m"].values() if isinstance(v, RankSlices)]
+    assert len(sliced) > len(tr.opt_state["m"]) // 2
+    assert all(len(v.parts) == 2 and v.parts[0].numel() * 2 == v.full().numel() for v in sliced)
+    ids, labels = torch.from_numpy(run["ids"]), torch.from_numpy(run["labels"])
+    losses = [float(tr.train_step(ids, labels)) for _ in range(3)]
+    np.testing.assert_allclose(losses, run["losses"], rtol=1e-5)
+    _params_close(tr.params, run["end"], steps=3, lr=1e-2)
+    tr.save(str(tmp_path / "snap"))
+    la = [float(tr.train_step(ids, labels)) for _ in range(2)]
+    b = HybridParallelTrainer(ErnieConfig(**CFG), make_mesh(MESH_B, device="cpu"), Adam(1e-2),
+                              seed=7, device="cpu")
+    b.load(str(tmp_path / "snap"))
+    assert b.global_step == 3
+    np.testing.assert_allclose([float(b.train_step(ids, labels)) for _ in range(2)], la,
+                               rtol=1e-5)

@@ -7,7 +7,8 @@ quantile threshold releases the same entries on inputs without ties,
 checked exactly). LocalSGD averages over "dp" with the port's axis
 ``psum`` inside ``run_ranks`` against JAX's ``pmean`` inside
 ``shard_map``. Then the chain order, ``select_runtime`` and the
-``reducer=`` refusal (ROADMAP item 7)."""
+``reducer=`` wrappers (the pre-reduction contract over
+``comm_fusion.DpGradReducer``) rank by rank against JAX's."""
 
 import jax
 import jax.numpy as jnp
@@ -20,7 +21,6 @@ from paddle_tpu.distributed import meta_optimizers as jmo
 from paddle_tpu.distributed.strategy import DistributedStrategy as JStrategy
 from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.convert import opt_state_to_jax
-from paddle_tpu_torch.core.enforce import UnavailableError
 from paddle_tpu_torch.core.mesh import make_mesh
 from paddle_tpu_torch.distributed import DistributedStrategy, apply_strategy
 from paddle_tpu_torch.distributed import meta_optimizers as tmo
@@ -252,11 +252,77 @@ def test_select_runtime_matches_jax():
             jmo.select_runtime(JStrategy(**kw)), kw
 
 
+def run_ranks_both(jo, to, R=2, steps=3, grads=_grads):
+    """``steps`` updates on R dp ranks, each with its own gradients (and,
+    under the pre-reduction contract, its own params and state): JAX's
+    chain inside ``shard_map`` over R CPU devices, the port's inside
+    ``run_ranks`` over R logical ranks. → (JAX params [R, …], JAX state
+    [R, …], the port's per-rank params, the port's per-rank states)."""
+    from jax import shard_map
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    p0 = _params()
+    rank_g = [[grads(i, seed=10 + 7 * r) for i in range(steps)] for r in range(R)]
+    expand = lambda t: jax.tree_util.tree_map(  # noqa: E731
+        lambda x: jnp.asarray(np.broadcast_to(np.asarray(x), (R,) + np.shape(x)).copy()), t)
+    jp = expand({k: jnp.asarray(v) for k, v in p0.items()})
+    js = expand(jo.init({k: jnp.asarray(v) for k, v in p0.items()}))
+
+    def body(p, s, g):
+        sq = lambda t: jax.tree_util.tree_map(lambda x: x[0], t)  # noqa: E731
+        p1, s1 = jo.update(sq(g), sq(s), sq(p))
+        return jax.tree_util.tree_map(lambda x: x[None], (p1, s1))
+
+    fn = jax.jit(shard_map(body, mesh=Mesh(np.array(jax.devices()[:R]), ("dp",)),
+                           in_specs=(P("dp"), P("dp"), P("dp")), out_specs=(P("dp"), P("dp")),
+                           check_vma=False))
+    tmesh = make_mesh({"dp": R}, device="cpu")
+    tps = [{k: torch.from_numpy(v) for k, v in p0.items()} for _ in range(R)]
+    tss = [to.init(tps[0])] * R
+    for i in range(steps):
+        jp, js = fn(jp, js, {k: jnp.stack([jnp.asarray(rank_g[r][i][k]) for r in range(R)])
+                             for k in p0})
+        out = coll.run_ranks(tmesh, lambda r: to.update(
+            {k: torch.from_numpy(v) for k, v in rank_g[r][i].items()}, tss[r], tps[r]))
+        tps, tss = [o[0] for o in out], [o[1] for o in out]
+    return jp, js, tps, tss
+
+
+def assert_ranks_match(jp, js, tps, tss, to):
+    """Every rank's params and state equal JAX's rank within TOL."""
+    for r, (tp, ts) in enumerate(zip(tps, tss)):
+        jpr = {k: np.asarray(v)[r] for k, v in jp.items()}
+        jsr = jax.tree_util.tree_map(lambda x: np.asarray(x)[r], js)
+        assert_match(jpr, jsr, tp, ts, to)
+
+
 @pytest.mark.parametrize("build", [
-    lambda: apply_strategy(topt.SGD(0.1), DistributedStrategy(), reducer=object()),
-    lambda: tmo.AMPOptimizer(topt.SGD(0.1), reducer=object()),
-    lambda: tmo.LocalSGDOptimizer(topt.SGD(0.1), reducer=object()),
-    lambda: tmo.FP16AllReduceOptimizer(topt.SGD(0.1), reducer=object())])
+    lambda m, o, red, S: m.apply_strategy(o.SGD(0.1), S(), reducer=red),
+    lambda m, o, red, S: m.AMPOptimizer(o.SGD(0.1), init_loss_scaling=4.0,
+                                        decr_every_n_nan_or_inf=1, reducer=red),
+    lambda m, o, red, S: m.LocalSGDOptimizer(o.SGD(0.5), k_steps=2, axis=("dp",), reducer=red),
+    lambda m, o, red, S: m.FP16AllReduceOptimizer(o.SGD(0.1), reducer=red)])
 def test_reducer_raises_naming_item_7(build):
-    with pytest.raises(UnavailableError, match="reducer.*item 7"):
-        build()
+    """Each entry that takes ``reducer=`` builds JAX's wrapper around a
+    ``DpGradReducer`` over dp=2 (the fused reduction for the bare chain;
+    AMP's uniform skip flag; LocalSGD's suspended local steps and its
+    average; FP16AllReduce's wire scope), and 3 updates on two ranks with
+    their own gradients follow JAX's rank by rank within TOL. A grad that
+    is not finite on one rank makes both AMP ranks skip."""
+    from paddle_tpu.distributed import comm_fusion as jcf
+    from paddle_tpu_torch.distributed import comm_fusion as tcf
+
+    jo = build(jmo, jopt, jcf.DpGradReducer(("dp",), (2,)), JStrategy)
+    to = build(tmo, topt, tcf.DpGradReducer(("dp",), (2,)), DistributedStrategy)
+    assert type(to).__name__ == type(jo).__name__
+
+    def grads(i, seed=10):
+        g = _grads(i, seed=seed)
+        if isinstance(to, tmo.AMPOptimizer) and i == 1 and seed == 10:
+            g["w"][0, 0] = np.inf            # rank 0 only
+        return g
+
+    jp, js, tps, tss = run_ranks_both(jo, to, grads=grads)
+    assert_ranks_match(jp, js, tps, tss, to)
+    if isinstance(to, tmo.AMPOptimizer):
+        assert [float(ts["scaler"].loss_scale) for ts in tss] == [2.0, 2.0]
