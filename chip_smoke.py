@@ -400,7 +400,28 @@ or when any phase fails. Phases:
    rank 1 crashing once: rc 0, one restart, 4 items done exactly once at
    the rewritten world size, each loss bitwise equal to the same step
    here;
-26. the ``kernels`` JSON line (B1 ten times: ``ctr_sparse_rows`` on the
+27. the mesh over processes (``core.mesh.make_process_mesh`` over
+   ``torch.distributed``; this script's ``--mp-rank`` children started by
+   ``launch_local`` after the kernels are built, rendezvous through a
+   ``file://`` store). Leg C: NCCL at world size 1 in a child of its own,
+   every axis-form mapping equal to its definition, one fused step of a
+   small ERNIE against the GSPMD step; a two-card NCCL run of leg B's fp32
+   rung only where a second card exists (NCCL refuses two ranks of one
+   communicator on one card, so legs A and B run gloo, every CUDA tensor
+   staged through pinned host memory). Leg A over 4 processes, each
+   holding its row block: ``make_sharded_hot_train_step`` from phase 4's
+   sharded tier (16 steps over its 8 batches) and
+   ``make_sharded_ctr_train_step_from_keys`` at the pass path's shape
+   (2^21 rows, 8 steps) against the same steps over the thread mesh here:
+   overflow 0, the first step's rows bitwise, losses and dense params
+   within ``MP_LOSS_TOL``, one B3 + one B4 and one B1 a step a process,
+   each process's first B3/B4/B1 bitwise against the plain versions. Leg
+   B: ERNIE at phase 7's width over 4 processes, fused fp32, int8 with
+   error feedback and ZeRO-2 on the stage-2 path, 2 + 2 Adam steps each,
+   against the thread mesh (first losses within ``MP_LOSS_TOL``, updates
+   within ``HYB_TOL``, 8 launches of B5-B7 a step a process, the stage-2
+   rung's save equal array for array within ``HYB_TOL``);
+28. the ``kernels`` JSON line (B1 ten times: ``ctr_sparse_rows`` on the
    pass path, ``ctr_sparse_rows@widedeep`` on phase 12's,
    ``ctr_sparse_rows@gpubox_rpc`` on phase 14's leg B,
    ``ctr_sparse_rows@recsys`` on phase 20's leg A,
@@ -411,8 +432,9 @@ or when any phase fails. Phases:
    ``...@rpc`` on phase 13's, ``...@ha`` on phase 16's tier arm,
    ``...@reshard`` on phase 17's leg B, ``...@tenancy`` on phase 18's leg
    A; B5–B7 three times: on the ERNIE path, ``...@ring`` on phase 21's leg
-   A and ``...@pipeline`` on phase 24's leg A), then the card line, then
-   the result line.
+   A and ``...@pipeline`` on phase 24's leg A; the ``@mp`` entries of
+   phase 27: B3, B4, B1 and B5-B7 with launches summed over its
+   processes), then the card line, then the result line.
 
 ``--profile DIR`` also runs two more pass-path slabs, two more warm
 batches of each hot path and two more ERNIE steps under torch.profiler (after the
@@ -1497,7 +1519,8 @@ def phase_hot_path(dev, card, ds, profile_dir=None, shards=1):
     bank per shard; "auto" routing, alltoall from 4 shards): the batch
     splits into ``shards`` slices, each probed by ``hot_probe`` and pushed
     by ``hot_scatter_apply`` on its owner's block, so both launch
-    ``shards`` times per step. Returns (launch counts, warm samples/s)."""
+    ``shards`` times per step. Returns (launch counts, warm samples/s, and
+    for ``shards`` > 1 the tier's snapshot phase 27 starts from)."""
     from paddle_tpu_torch.core.mesh import make_mesh
     from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
     from paddle_tpu_torch.optimizer import Adam
@@ -1588,6 +1611,7 @@ def phase_hot_path(dev, card, ds, profile_dir=None, shards=1):
             profile_window(lambda: trainer.train_from_dataset(
                 ds, batch_size=BATCH, start_batch=n_batches - 2), 2, profile_dir,
                 "hot" if shards == 1 else "sharded_hot")
+        snap = mp_hot_snapshot(trainer, ds) if shards > 1 else None
 
         # flush: the touched rows read back changed from the cold table
         # (no eviction happened, so the table holds the at-admit rows)
@@ -1603,7 +1627,7 @@ def phase_hot_path(dev, card, ds, profile_dir=None, shards=1):
             f"flush: {int((~changed).sum())} of {len(sample)} touched rows unchanged"
         log(f"{name} flush: {n_flushed} dirty rows written back; {len(sample)} touched keys "
             f"read back changed (show {before[:, 3].mean():.3f} -> {after[:, 3].mean():.3f})")
-        return counts, float(warm["samples_per_sec"])
+        return counts, float(warm["samples_per_sec"]), snap
     finally:
         table.close()
 
@@ -5869,7 +5893,7 @@ def phase_obs_fleet(dev, card, oracle=None):
 # the warm pass the control plane starts (a MetricRing fed by a Sampler, an
 # SloWatchdog with recsys_rules, an Autoscaler on the fleet's controller); an
 # open-loop replay: a ramp with a member SIGKILLed mid-way (a fleet of one),
-# the flash crowd (RS_SPIKE_X × RS_PEAK_QPS for RS_SPIKE_S, which must fire
+# the flash crowd (RS_SPIKE_XS × RS_PEAK_QPS, RS_SPIKE_S a step, which must fire
 # recsys_e2e_p99 and make the autoscaler grow the fleet), a tail on the grown
 # fleet (the exporter scraped once in it), a canary/promote/rollback; then the
 # DSSM ranker and a TDM walk on the card against their CPU runs over the
@@ -5884,10 +5908,17 @@ RS_USERS, RS_DEADLINE_MS = 1_000_000, 4000.0
 RS_BASE_QPS, RS_PEAK_QPS, RS_RAMP_S, RS_TAIL_S = 15.0, 60.0, 10.0, 6.0
 RS_WARM, RS_CANARY, RS_SCORED = 100, 400, 64
 RS_TRAIN_BATCH, RS_DENSE_LEN = 128, 64
-# the flash crowd (recsys_replay's defaults): RS_SPIKE_X × RS_PEAK_QPS open loop
-# for RS_SPIKE_S against the post-kill fleet, the e2e p99 objective RS_SLO_MS
-# over 6 s / 2 s windows; the grow is awaited up to RS_SCALE_WAIT_S
-RS_SPIKE_S, RS_SPIKE_X, RS_SLO_MS = 6.0, 3.0, 120.0
+# the flash crowd: RS_SPIKE_XS[0] × RS_PEAK_QPS open loop (recsys_replay's
+# default, x3) for RS_SPIKE_S against the post-kill fleet, the e2e p99
+# objective RS_SLO_MS over 6 s / 2 s windows; the grow is awaited up to
+# RS_SCALE_WAIT_S. While the rule has not fired in the crowd, the crowd goes on
+# at the next multiple for up to RS_SPIKE_S more, and a step after the first
+# ends at the alert: H100 hosts served x3 at e2e p99 64-283 ms and one served
+# x6 at 85 ms, so a fixed crowd drove the alert, and the grow, on some hosts
+# only. Each step is at most 1.5x the last one, which stayed under the
+# objective, so its backlog stays far inside the deadline
+RS_SPIKE_S, RS_SLO_MS = 6.0, 120.0
+RS_SPIKE_XS = (3.0, 4.5, 6.0, 9.0, 12.0, 18.0, 24.0)
 RS_SLO_LONG_S, RS_SLO_SHORT_S, RS_SCALE_WAIT_S = 6.0, 2.0, 45.0
 # Where leg B departs from the replay's deployment, each forced by a reading on
 # the H100 (PERF.md §4):
@@ -6149,10 +6180,11 @@ def rs_gen_phase(duration, rate_fn, seed):
     return np.asarray(ts), hist, cand, uv
 
 
-def rs_replay(pipe, phase, mid_hook=None, answers=None):
+def rs_replay(pipe, phase, mid_hook=None, answers=None, stop=None):
     """Open loop: request i is submitted at ts[i] whatever the earlier ones
-    did; 8 threads collect. Returns requests, errors, late arrivals, wall s,
-    and whether every answer was best-first."""
+    did, until `stop()` (if given) is true; 8 threads collect. Returns the
+    requests submitted, errors, late arrivals, wall s, and whether every
+    answer was best-first."""
     import queue
     import threading
 
@@ -6177,9 +6209,12 @@ def rs_replay(pipe, phase, mid_hook=None, answers=None):
     threads = [threading.Thread(target=collect, name=f"rs-collect-{c}") for c in range(8)]
     for th in threads:
         th.start()
-    late, start = 0, time.perf_counter()
+    late, start, sent = 0, time.perf_counter(), 0
     try:
         for i in range(len(ts)):
+            if stop is not None and stop():
+                break
+            sent = i + 1
             target = start + ts[i]
             now = time.perf_counter()
             if target > now:
@@ -6197,7 +6232,7 @@ def rs_replay(pipe, phase, mid_hook=None, answers=None):
             q.put(None)
         for th in threads:
             th.join()
-    return {"requests": len(ts), "errors": len(errors), "late": late,
+    return {"requests": sent, "errors": len(errors), "late": late,
             "wall_s": time.perf_counter() - start, "best_first": order_ok[0],
             "first_error": repr(errors[0]) if errors else None}
 
@@ -6528,11 +6563,20 @@ def rs_leg_b(dev, card, leg_a):
         before = {m.endpoint for m in fleet.members()}
         scaler.start()
         t0 = wall_s()
-        rec["spike"] = rs_arm(pipe, router, rs_gen_phase(RS_SPIKE_S,
-                                                         lambda t: RS_PEAK_QPS * RS_SPIKE_X,
-                                                         seed=3))
-        sampler.tick()
-        rec["spike"].update(t0=t0, t1=wall_s(), burn=rule.evaluate(ring, wall_s()))
+        # the crowd's steps (RS_SPIKE_XS): the next runs only while the rule
+        # has not fired since the crowd began (it was clear at t0), and ends
+        # at the alert; the first runs whole, as the replay's crowd
+        rec["spike_steps"] = []
+        for i, x in enumerate(RS_SPIKE_XS):
+            step = rs_arm(pipe, router, rs_gen_phase(
+                RS_SPIKE_S, lambda t, x=x: RS_PEAK_QPS * x, seed=3 + 100 * i),
+                stop=(lambda: rule.name in wd.active()) if i else None)
+            sampler.tick()
+            step["x"] = x
+            rec["spike_steps"].append(step)
+            if any(a["rule"] == rule.name and a["t"] >= t0 for a in wd.alerts()):
+                break
+        rec["spike"] = dict(step, t0=t0, t1=wall_s(), burn=rule.evaluate(ring, wall_s()))
         # the grow decision may land while the spike still drains: wait for the
         # journal (a member spawn is a process bring-up), with the replay's back-off
         deadline, delay = time.perf_counter() + RS_SCALE_WAIT_S, 0.1
@@ -6707,8 +6751,8 @@ def phase_recsys(dev, card):
     t = time.perf_counter()
     b = rs_leg_b(dev, card, a)
     leg_b_s = time.perf_counter() - t
-    arms = [("ramp", b["ramp"]), ("spike", b["spike"]), ("tail", b["tail"]),
-            ("canary", b["canary"])]
+    arms = [("ramp", b["ramp"]), *((f"spike x{r['x']:g}", r) for r in b["spike_steps"]),
+            ("tail", b["tail"]), ("canary", b["canary"])]
     for name, r in arms:
         log(f"recsys leg B, {name}: {r['requests']} requests open-loop, {r['rps']:.1f} "
             f"requests/s, errors {r['errors']} (first {r['first_error']}), e2e p50 "
@@ -6729,9 +6773,10 @@ def phase_recsys(dev, card):
     # the grow's journal entry is written once fleet.add returned: the member
     # printed MEMBER_READY (its socket serves) and the router routes to it
     to_serving = (ups[0]["wall_s"] - crowd[0]["t"]) if crowd and ups else None
-    log(f"recsys leg B, flash crowd: {RS_SPIKE_X:g} x RS_PEAK_QPS = "
-        f"{RS_SPIKE_X * RS_PEAK_QPS:.0f} requests/s offered for {RS_SPIKE_S:g} s "
-        f"({spike['rps']:.1f} served/s), e2e p50 {spike['e2e']['p50_ms']} ms p99 "
+    steps = " then ".join(f"{r['x']:g}" for r in b["spike_steps"])
+    log(f"recsys leg B, flash crowd: {steps} x RS_PEAK_QPS, "
+        f"{RS_SPIKE_S:g} s a step; its last step {spike['x'] * RS_PEAK_QPS:.0f} requests/s "
+        f"offered ({spike['rps']:.1f} served/s), e2e p50 {spike['e2e']['p50_ms']} ms p99 "
         f"{spike['e2e']['p99_ms']} ms against the {RS_SLO_MS:g} ms objective, errors "
         f"{spike['errors']} (the pipeline's {spike['pipe_errors']}); recsys_e2e_p99 fired "
         f"{len(b['ramp_alerts'])} time(s) in the ramp (e2e p99 {b['ramp']['e2e']['p99_ms']} "
@@ -9195,10 +9240,11 @@ def spmd_small_run(device, impl, stage, comm, weights, batches):
     return np.asarray(losses), {k: v.cpu() for k, v in tr.full_state()[0]["params"].items()}
 
 
-def spmd_update_gap(start, got, want):
+def spmd_update_gap(start, got, want, cfg=HYB_SMALL):
     """The worst tensor's ||Δgot − Δwant|| / ||Δwant|| (the key bias left out:
-    its true gradient is 0, so Adam moves it on rounding noise)."""
-    H, D = HYB_SMALL["num_heads"], HYB_SMALL["hidden_size"] // HYB_SMALL["num_heads"]
+    its true gradient is 0, so Adam moves it on rounding noise); ``cfg``:
+    the ERNIE widths the params have."""
+    H, D = cfg["num_heads"], cfg["hidden_size"] // cfg["num_heads"]
     worst = 0.0
     for k, s in start.items():
         dg, dw = got[k] - s, want[k] - s
@@ -9318,6 +9364,668 @@ def phase_spmd(dev, card):
     return {"leg_a": a, "leg_b": b, "sh_full": c, "counts": a["counts"]}
 
 
+# -- phase 27: the mesh over processes (torch.distributed) --------------------
+
+MP_RANKS = 4                    # processes of legs A and B (one card: gloo, staged)
+MP_TIMEOUT = 420                # seconds a leg's processes may take
+MP_HOT_STEPS, MP_CTR_STEPS = 16, 8
+MP_ERNIE_WARM, MP_ERNIE_STEPS = 2, 2
+# leg B's rungs: (name, ZeRO stage, comm config or None for the stage-2 path, mesh)
+MP_ERNIE_RUNGS = (("fp32 fused", 0, dict(), {"dp": MP_RANKS}),
+                  ("int8 fused", 0, dict(quant="int8"), {"dp": MP_RANKS}),
+                  ("zero2 stage-2 path", 2, None, {"sharding": MP_RANKS}))
+MP_SAVED_RUNG = "zero2 stage-2 path"
+MP_LEG_C_BACKEND = "nccl"       # leg C's: a real NCCL communicator at world size 1
+# process mesh against the thread mesh at K = 4: gloo's ring sums the dense
+# gradients in another order than the rank order, so losses and dense params
+# agree to the last bits only; the sparse rows of the first step are bitwise
+MP_LOSS_TOL = 1e-6
+_MP_RESULT = "MP_RESULT "
+# the sizes a phase 27 child takes from its parent (a caller may shrink them)
+MP_SIZES = ("BATCH", "HOT_CAP", "CAPACITY", "PASS_KEYS", "ERNIE_CFG", "ERNIE_BATCH", "ERNIE_SEQ",
+            "MP_HOT_STEPS", "MP_CTR_STEPS", "MP_ERNIE_WARM", "MP_ERNIE_STEPS")
+
+
+def mp_hot_snapshot(trainer, ds):
+    """Phase 4's sharded tier after its run, on the CPU: the key map, the
+    tier's columns, the dense params and the run's eight batches (keys lo,
+    dense, labels), the state phase 27's hot leg starts from."""
+    from paddle_tpu_torch.ps.ps_trainer import _dense_and_labels, _slot_tagged_keys
+
+    tier, names = trainer.hot_tier, slot_names(SLOTS, DENSE)
+    dm = tier.device_map
+    batches = []
+    for b in ds.batch_iter(BATCH):
+        keys = _slot_tagged_keys(b, names["sparse_slots"])
+        dense, labels = _dense_and_labels(b, names["dense_slots"], names["label_slot"],
+                                          keys.shape[0])
+        lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+        batches.append(tuple(torch.from_numpy(np.ascontiguousarray(a))
+                             for a in (lo, dense, labels)))
+    return {"map": {k: v.cpu().clone() for k, v in dm.device_state().items()},
+            "probe_buckets": dm.probe_buckets, "banks": dm.banks,
+            "tier": {k: v.cpu().clone() for k, v in tier.state.items()},
+            "params": {k: v.cpu().clone() for k, v in trainer.params.items()},
+            "cfg": tier.cache_config, "batches": batches}
+
+
+def mp_hot_step(mesh, snap, dev):
+    """The sharded hot step over ``mesh`` from the snapshot's weights:
+    (step, params, opt state, map state)."""
+    from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.ps.hot_tier import make_sharded_hot_train_step
+
+    model = DeepFM(CtrConfig(SLOTS, DENSE, DIM, (400, 400, 400)),
+                   generator=torch.Generator().manual_seed(0)).to(dev)
+    opt = Adam(learning_rate=1e-3)
+    params = {k: v.to(dev) for k, v in snap["params"].items()}
+    step = make_sharded_hot_train_step(model, opt, snap["cfg"], mesh, np.arange(SLOTS),
+                                       probe_buckets=snap["probe_buckets"], banks=snap["banks"])
+    return step, params, opt.init(params), {k: v.to(dev) for k, v in snap["map"].items()}
+
+
+def mp_ctr_setup(dev):
+    """The pass path's shape for the sharded CTR step from keys: a 2^21-row
+    cache, a replicated map of 2^20 slot-tagged keys (rows spread over the
+    shards), DeepFM at the Criteo width and MP_CTR_STEPS batches of 4096,
+    all from seeds (every process builds the same)."""
+    import dataclasses
+
+    from paddle_tpu_torch.ps.device_hash import DeviceKeyMap, map_state_to_device
+    from paddle_tpu_torch.ps.sharded_cache import shard_spread_rows
+
+    rng = np.random.default_rng(27)
+    per = PASS_KEYS // SLOTS
+    ids = rng.choice(1 << 30, (SLOTS, per), replace=False).astype(np.uint64)
+    keys = ((np.arange(SLOTS, dtype=np.uint64)[:, None] << np.uint64(32)) | ids).reshape(-1)
+    rows = shard_spread_rows(np.arange(len(keys), dtype=np.int64), CAPACITY,
+                             MP_RANKS).astype(np.int32)
+    map_state = map_state_to_device(DeviceKeyMap.build_host(keys, rows), dev)
+    cfg = dataclasses.replace(hot_cfg("adagrad", "adagrad", True), capacity=CAPACITY)
+    cols, _ = rows_inputs(rng, CAPACITY, DIM, "adagrad", "adagrad", dev)
+    state = dict(zip(COLUMNS, cols))
+    for k in ("embed_w", "embedx_w"):   # a trained table's scale, not unit normals
+        state[k].mul_(0.01)
+    batches = []
+    for _ in range(MP_CTR_STEPS):
+        pick = rng.integers(0, per, (BATCH, SLOTS))
+        lo = ids[np.arange(SLOTS)[None, :], pick].astype(np.uint32).view(np.int32)
+        dense = rng.normal(size=(BATCH, DENSE)).astype(np.float32)
+        labels = (rng.random(BATCH) < 0.3).astype(np.int32)
+        batches.append(tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in
+                             (lo, dense, labels)))
+    return map_state, cfg, state, batches
+
+
+def mp_ctr_step(mesh, cfg, dev):
+    from paddle_tpu_torch.models.ctr import CtrConfig, DeepFM
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.ps.sharded_cache import make_sharded_ctr_train_step_from_keys
+
+    model = DeepFM(CtrConfig(SLOTS, DENSE, DIM, (400, 400, 400)),
+                   generator=torch.Generator().manual_seed(1)).to(dev)
+    opt = Adam(learning_rate=1e-3)
+    params = {k: v.detach().clone() for k, v in model.named_parameters()}
+    step = make_sharded_ctr_train_step_from_keys(model, opt, cfg, mesh, np.arange(SLOTS))
+    return step, params, opt.init(params)
+
+
+def mp_run_steps(step, params, opt_state, state, map_state, batches, n, dev, first_path=None):
+    """``n`` steps over ``batches`` (cycled): (losses, params, ms a step after
+    the first, bytes staged a step after the first, overflow). ``first_path``:
+    the state after the first step is saved there (CPU)."""
+    from paddle_tpu_torch.ops import transport
+
+    losses, overflow = [], 0
+    for t in range(n):
+        if t == 1:
+            _sync(dev)
+            staged0, t0 = transport.stage_through_host.bytes, time.perf_counter()
+        lo, dense, labels = (a.to(dev) for a in batches[t % len(batches)])
+        params, opt_state, state, loss, ov = step(params, opt_state, state, map_state, lo,
+                                                  dense, labels)
+        losses.append(float(loss))
+        overflow += int(ov)
+        if t == 0 and first_path is not None:
+            torch.save({k: v.cpu() for k, v in state.items()}, first_path)
+    _sync(dev)
+    dt = (time.perf_counter() - t0) / (n - 1)
+    staged = (transport.stage_through_host.bytes - staged0) / (n - 1)
+    return losses, params, 1e3 * dt, staged, overflow
+
+
+def mp_capture(module, name, capture_state):
+    """Wrap ``module.name`` to keep the first call's inputs (and, for an
+    in-place push, the state before and after it); returns (the dict,
+    restore)."""
+    orig, got = getattr(module, name), {}
+
+    def wrapped(*args, **kw):
+        if "args" not in got:
+            got["args"] = tuple(a.clone() if isinstance(a, torch.Tensor) else
+                                ({k: v.clone() for k, v in a.items()} if isinstance(a, dict)
+                                 else a) for a in args)
+            got["kw"] = dict(kw)
+            out = orig(*args, **kw)
+            if capture_state:
+                got["after"] = {k: v.clone() for k, v in args[0].items()}
+            else:
+                got["out"] = out.clone()
+            return out
+        return orig(*args, **kw)
+
+    setattr(module, name, wrapped)
+    return got, lambda: setattr(module, name, orig)
+
+
+def mp_b3_b4_check(b3, b4, rank, timed):
+    """B3 and B4 on this process's first-step inputs against their plain
+    versions (bitwise; B3's on the card, B4's on the CPU); ``timed`` adds
+    device times beside the plain versions' (on the card) and the bounds."""
+    from paddle_tpu_torch.ops import hot_kernels as hk
+    from paddle_tpu_torch.ps.device_hash import dynamic_map_lookup
+
+    ms, hi, lo = b3["args"][:3]
+    pb, banks = b3["kw"]["probe_buckets"], b3["kw"]["banks"]
+    want3 = dynamic_map_lookup(ms, hi, lo, pb, banks)
+    ok3 = bitwise_equal(b3["out"], want3)
+    state, rows, grads, shows, clicks, cfg = b4["args"]
+    # B4's plain version runs on the CPU copy (on the card its merge would
+    # sum with atomics), as phase 2b holds it
+    pre = {k: v.cpu().clone() for k, v in state.items()}
+    want4 = hk.hot_scatter_apply_plain(pre, rows.cpu(), grads.cpu(), shows.cpu(), clicks.cpu(),
+                                       cfg)
+    ok4 = all(bitwise_equal(b4["after"][k].cpu(), want4[k]) for k in COLUMNS)
+    err4 = max(max_abs(b4["after"][k].cpu(), want4[k]) for k in COLUMNS)
+    out = {"b3_bitwise": ok3, "b4_bitwise": ok4, "b3_max_abs": max_abs(b3["out"], want3),
+           "b4_max_abs": err4, "b3_n": int(hi.numel()), "b4_n": int(rows.numel())}
+    if timed:
+        n3 = int(hi.numel())
+        first = dynamic_map_lookup(ms, hi, lo, 1, banks) >= 0
+        buckets3 = n3 + int((~first).sum())
+        nbytes3 = n3 * 8 + buckets3 * 3 * 32 + n3 * 4
+        k3, _ = time_cuda(lambda: hk.hot_probe(ms, hi, lo, probe_buckets=pb, banks=banks))
+        p3, _ = time_cuda(lambda: dynamic_map_lookup(ms, hi, lo, pb, banks))
+        out["b3"] = {"max_abs_err": out["b3_max_abs"], "ms": k3, "plain_ms": p3,
+                     "bound_ms": nbytes3 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+        C = state["embed_w"].shape[0]
+        r64 = rows.to(torch.int64)
+        u = int(torch.unique(r64[(r64 >= 0) & (r64 < C)]).numel())
+        work = {k: v.clone() for k, v in state.items()}
+        k4, _ = time_cuda(lambda: hk.hot_scatter_apply(work, rows, grads, shows, clicks, cfg))
+        p4, _ = time_cuda(lambda: hk.hot_scatter_apply_plain(work, rows, grads, shows, clicks,
+                                                             cfg))
+        nbytes, nops, bytes_ms, ops_ms = scatter_bound(int(rows.numel()), u, cfg)
+        out["b4"] = {"max_abs_err": err4, "ms": k4, "plain_ms": p4,
+                     "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        log(f"phase 27 rank {rank}: B3 on its first step's {n3} keys: device {k3} ms, plain "
+            f"{p3} ms, bound {out['b3']['bound_ms']} ms; B4 on its owner push (n = "
+            f"{int(rows.numel())}, u = {u}): device {k4} ms, plain {p4} ms, bound "
+            f"{out['b4']['bound_ms']} ms")
+    return out
+
+
+def mp_leg_a_child(conf, rank, world, dev):
+    """Leg A in one process: the sharded hot step (MP_HOT_STEPS) and the
+    sharded CTR step from keys (MP_CTR_STEPS) on this process's row block."""
+    from paddle_tpu_torch.core.mesh import make_process_mesh
+    from paddle_tpu_torch.ops import collectives as coll
+    from paddle_tpu_torch.ops import sparse_optimizer as so
+    from paddle_tpu_torch.ps import hot_tier
+
+    def reading(ms, staged, ov, losses, block):
+        return {"losses": losses, "ms_per_step": ms, "staged_bytes_per_step": staged,
+                "overflow": ov, "launches": read_launches(),
+                "block_rows": int(block["embed_w"].shape[0]),
+                "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+
+    base = conf["base"]
+    mesh = make_process_mesh({"ps": world}, device=dev)
+    res = {"device": str(mesh.device)}
+    snap = torch.load(os.path.join(base, "hot.pt"), weights_only=False)
+    b = HOT_CAP // world
+    block = {k: v[rank * b:(rank + 1) * b].to(dev) for k, v in snap["tier"].items()}
+    del snap["tier"]
+    b3, undo3 = mp_capture(hot_tier, "hot_probe", False)
+    b4, undo4 = mp_capture(hot_tier, "hot_scatter_apply", True)
+    try:
+        step, params, opt_state, map_state = mp_hot_step(mesh, snap, dev)
+    finally:
+        undo3()
+        undo4()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    losses, params, ms, staged, ov = mp_run_steps(
+        step, params, opt_state, block, map_state, snap["batches"], MP_HOT_STEPS, dev,
+        os.path.join(base, f"hot_first_{rank}.pt"))
+    res["hot"] = reading(ms, staged, ov, losses, block)
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in params.items()}, os.path.join(base, "hot_params.pt"))
+    checks = mp_b3_b4_check(b3, b4, rank, False)
+    coll.run_ranks(mesh, lambda r: coll.barrier("ps"))
+    if rank == 0:   # timed with the other processes idle at the barrier
+        checks.update(mp_b3_b4_check(b3, b4, rank, True))
+    coll.run_ranks(mesh, lambda r: coll.barrier("ps"))
+    res["hot"]["checks"] = checks
+    del b3, b4, block, map_state, snap
+    torch.cuda.empty_cache()
+
+    map_state, cfg, state, batches = mp_ctr_setup(dev)
+    b = CAPACITY // world
+    block = {k: v[rank * b:(rank + 1) * b].clone() for k, v in state.items()}
+    del state
+    torch.cuda.empty_cache()
+    step, params, opt_state = mp_ctr_step(mesh, cfg, dev)
+    push, undo = capture_first_push()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    try:
+        losses, params, ms, staged, ov = mp_run_steps(
+            step, params, opt_state, block, map_state, batches, MP_CTR_STEPS, dev,
+            os.path.join(base, f"ctr_first_{rank}.pt"))
+    finally:
+        undo()
+    res["ctr"] = reading(ms, staged, ov, losses, block)
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in params.items()}, os.path.join(base, "ctr_params.pt"))
+    st, (uniq, dsum, csum, g), kw = push["state"], push["args"], push["kw"]
+    got = tuple(c.clone() for c in st)
+    so.ctr_sparse_rows_at(got, uniq, dsum, csum, g, **kw)
+    want = so.ctr_sparse_rows_at_plain(tuple(c.clone() for c in st), uniq, dsum, csum, g, **kw)
+    res["ctr"]["b1_bitwise"] = bitwise_cols(got, want)
+    coll.run_ranks(mesh, lambda r: coll.barrier("ps"))
+    if rank == 0:
+        res["ctr"]["b1"] = wd_b1_check(push, dim=DIM, what="phase 27 owner push (rank 0)")
+    coll.run_ranks(mesh, lambda r: coll.barrier("ps"))
+    return res
+
+
+def mp_ernie_trainer(model, rung, mesh, dev):
+    from paddle_tpu_torch.distributed.comm_fusion import CommFusionConfig
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel.spmd import SpmdTrainer
+
+    _, stage, comm, _ = rung
+    return SpmdTrainer(model, Adam(SPMD_LR), lm_loss, mesh, zero_stage=stage, device=dev,
+                       comm=None if comm is None else CommFusionConfig(**comm))
+
+
+def mp_ernie_model(dev):
+    from paddle_tpu_torch.models.ernie import Ernie, ErnieConfig
+
+    cfg = ErnieConfig(**ERNIE_CFG)
+    model = Ernie(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    batch = hybrid_batch(np.random.default_rng(33), cfg.vocab_size, ERNIE_BATCH, ERNIE_SEQ, dev)
+    return cfg, model, batch
+
+
+def mp_leg_b_child(conf, rank, world, dev):
+    """Leg B in one process: ERNIE at full width, each rung of
+    MP_ERNIE_RUNGS (or ``conf["rungs"]``) for MP_ERNIE_WARM + MP_ERNIE_STEPS
+    Adam steps over the process mesh."""
+    from paddle_tpu_torch.core.mesh import make_process_mesh
+    from paddle_tpu_torch.ops import transport
+
+    base = conf["base"]
+    cfg, model, (ids, labels) = mp_ernie_model(dev)
+    out = {}
+    for rung in MP_ERNIE_RUNGS:
+        name, _, _, shape = rung
+        if name not in conf["rungs"]:
+            continue
+        shape = {a: world for a in shape}
+        tr = mp_ernie_trainer(model, rung, make_process_mesh(shape, device=dev), dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        losses = []
+        for i in range(MP_ERNIE_WARM + MP_ERNIE_STEPS):
+            if i == MP_ERNIE_WARM:
+                _sync(dev)
+                staged0, t0 = transport.stage_through_host.bytes, time.perf_counter()
+            losses.append(float(tr.train_step(ids, labels)))
+        _sync(dev)
+        dt = (time.perf_counter() - t0) / MP_ERNIE_STEPS
+        staged = (transport.stage_through_host.bytes - staged0) / MP_ERNIE_STEPS
+        counts = {k: v for k, v in read_launches().items() if k.startswith("flash")}
+        out[name] = {"losses": losses, "ms_per_step": 1e3 * dt, "staged_bytes_per_step": staged,
+                     "peak_bytes": torch.cuda.max_memory_allocated(dev), "launches": counts}
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in tr.state["params"].items()},
+                       os.path.join(base, f"params_{name.replace(' ', '_')}.pt"))
+        if name == MP_SAVED_RUNG and conf.get("save"):
+            tr.save(os.path.join(base, "process.snap"))
+        del tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def mp_collective_cases(x):
+    """Every axis-form mapping over "dp" (module 3's table) on ``x``."""
+    from paddle_tpu_torch.ops import collectives as coll
+
+    R = coll.ReduceOp
+    return {"psum": lambda: coll.psum(x, "dp"), "pmax": lambda: coll.pmax(x, "dp"),
+            "psum_scatter": lambda: coll.psum_scatter(x, "dp", 1),
+            "all_gather": lambda: coll.all_gather(x, "dp", 1),
+            "all_to_all": lambda: coll.all_to_all(x, "dp", 0, 1),
+            "shift": lambda: coll.shift(x, "dp", 1),
+            "ppermute": lambda: coll.ppermute(x, "dp", [(0, 0)]),
+            "broadcast": lambda: coll.broadcast(x, "dp"),
+            "reduce_sum": lambda: coll.reduce(x, "dp"),
+            "reduce_avg": lambda: coll.reduce(x, "dp", op=R.AVG),
+            "all_reduce_min": lambda: coll.ProcessGroup("dp").all_reduce(x, R.MIN),
+            "all_reduce_prod": lambda: coll.ProcessGroup("dp").all_reduce(x, R.PROD),
+            "barrier": lambda: (coll.barrier("dp"), x)[1]}
+
+
+def mp_leg_c_child(conf, rank, world, dev):
+    """Leg C: NCCL at world size 1, every mapping on a real communicator
+    against its definition (the thread mesh of one rank), then one fused
+    step of a small ERNIE over the process mesh against the GSPMD step of
+    the mesh of one logical rank."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.core.mesh import make_mesh, make_process_mesh
+    from paddle_tpu_torch.distributed.comm_fusion import CommFusionConfig
+    from paddle_tpu_torch.models.ernie import Ernie, ErnieConfig
+    from paddle_tpu_torch.ops import collectives as coll
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.parallel.spmd import SpmdTrainer
+
+    pm = make_process_mesh({"dp": 1}, device=dev)
+    tm = make_mesh({"dp": 1}, device=dev)
+    x = torch.from_numpy(np.random.default_rng(7).normal(size=(8, 12)).astype(np.float32)).to(dev)
+    got = coll.run_ranks(pm, lambda r: {k: f() for k, f in mp_collective_cases(x).items()})[0]
+    want = coll.run_ranks(tm, lambda r: {k: f() for k, f in mp_collective_cases(x).items()})[0]
+    equal = {k: bitwise_equal(got[k], want[k]) for k in got}
+    res = {"backend": dist.get_backend(), "world": dist.get_world_size(), "device": str(pm.device),
+           "mappings_equal": equal}
+    weights = spmd_small_weights()
+    batch = hybrid_batch(np.random.default_rng(61), HYB_SMALL["vocab_size"], SPMD_SMALL_BATCH,
+                         HYB_SMALL["max_seq_len"], dev)
+    out = {}
+    for what, mesh, comm in (("fused over NCCL", pm, CommFusionConfig()), ("gspmd", tm, None)):
+        model = Ernie(ErnieConfig(**HYB_SMALL))
+        model.load_state_dict(weights)
+        tr = SpmdTrainer(model, SGD(SPMD_SMALL_LR), lm_loss, mesh, device=dev, comm=comm)
+        loss = float(tr.train_step(*batch))
+        out[what] = (loss, {k: v.cpu() for k, v in tr.state["params"].items()})
+    (fl, fp), (gl, gp) = out["fused over NCCL"], out["gspmd"]
+    res["fused_loss"], res["gspmd_loss"] = fl, gl
+    res["loss_rel"] = abs(fl - gl) / abs(gl)
+    res["update_gap"] = spmd_update_gap({k: v.cpu() for k, v in weights.items()}, fp, gp)
+    return res
+
+
+def mp_child(config_path):
+    """``--mp-rank CONFIG.json``: one process of phase 27, started by
+    ``launch_local``; joins the job (the config's backend, the store in
+    ``PADDLE_MASTER``), runs its leg and prints one result line."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import collective as C
+
+    with open(config_path) as f:
+        conf = json.load(f)
+    globals().update(conf["sizes"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    env = C.init_parallel_env(os.environ["PADDLE_MASTER"], backend=conf["backend"])
+    rank, world = env.rank, env.world_size
+    dev = torch.device("cpu")
+    if conf["device"] == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    t0 = time.perf_counter()
+    res = {"A": mp_leg_a_child, "B": mp_leg_b_child, "C": mp_leg_c_child}[conf["leg"]](
+        conf, rank, world, dev)
+    res.update(rank=rank, world=world, backend=dist.get_backend(), seconds=time.perf_counter() - t0)
+    dist.destroy_process_group()
+    print(_MP_RESULT + json.dumps(res), flush=True)
+    return 0
+
+
+def mp_launch(base, leg, nproc, backend, dev, **conf):
+    """Run one leg's ``nproc`` processes (``--mp-rank``) through the port's
+    launcher and a ``file://`` store; every process must exit 0 and print
+    its result line. Returns the results by rank and the seconds."""
+    from paddle_tpu_torch.testing.multiprocess import run_job
+
+    work = os.path.join(base, f"leg_{leg}_{backend}_{nproc}")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "conf.json")
+    with open(path, "w") as f:
+        json.dump(dict(conf, leg=leg, backend=backend, base=base, device=dev.type,
+                       sizes={k: globals()[k] for k in MP_SIZES}), f)
+    t0 = time.perf_counter()
+    logs = run_job([PSJOB_SCRIPT, "--mp-rank", path], nproc, work, MP_TIMEOUT)
+    got = []
+    for r, text in enumerate(logs):
+        lines = [l for l in text.splitlines() if l.startswith(_MP_RESULT)]
+        if not lines:
+            raise AssertionError(f"phase 27 leg {leg}: rank {r} printed no result:\n{text[-3000:]}")
+        got.append(json.loads(lines[-1][len(_MP_RESULT):]))
+    return got, time.perf_counter() - t0
+
+
+def mp_rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def mp_params_rel(got, want):
+    """(the worst tensor's ||got − want|| / ||want||, its name)."""
+    return max((float((got[k].double() - want[k].double()).norm() / want[k].double().norm()), k)
+               for k in want if float(want[k].norm()) > 0)
+
+
+def mp_leg_a(dev, card, base, snap):
+    """Leg A: the sharded hot step and the sharded CTR step over MP_RANKS
+    processes (gloo, the card shared) against the same steps over the thread
+    mesh of phase 4 in this process."""
+    from paddle_tpu_torch.core.mesh import make_mesh
+
+    torch.save(snap, os.path.join(base, "hot.pt"))
+    mesh = make_mesh({"ps": MP_RANKS}, device=dev)
+    step, params, opt_state, map_state = mp_hot_step(mesh, snap, dev)
+    tier = {k: v.to(dev) for k, v in snap["tier"].items()}
+    hot = mp_run_steps(step, params, opt_state, tier, map_state, snap["batches"], MP_HOT_STEPS,
+                       dev, os.path.join(base, "hot_first_thread.pt"))
+    del tier, map_state
+    map_state, cfg, state, batches = mp_ctr_setup(dev)
+    step, params, opt_state = mp_ctr_step(mesh, cfg, dev)
+    ctr = mp_run_steps(step, params, opt_state, state, map_state, batches, MP_CTR_STEPS, dev,
+                       os.path.join(base, "ctr_first_thread.pt"))
+    del state, map_state
+    torch.cuda.empty_cache()
+    log(f"phase 27 leg A, thread mesh {{'ps': {MP_RANKS}}}: hot {hot[2]:.3f} ms/step, CTR "
+        f"{ctr[2]:.3f} ms/step on {card}")
+    ranks, secs = mp_launch(base, "A", MP_RANKS, "gloo", dev)
+    out = {"seconds": secs}
+    for name, ref, cap in (("hot", hot, HOT_CAP), ("ctr", ctr, CAPACITY)):
+        want_first = torch.load(os.path.join(base, f"{name}_first_thread.pt"))
+        firsts = [torch.load(os.path.join(base, f"{name}_first_{r}.pt")) for r in range(MP_RANKS)]
+        first_ok = all(bitwise_equal(torch.cat([f[k] for f in firsts]), want_first[k])
+                       for k in want_first)
+        got_params = torch.load(os.path.join(base, f"{name}_params.pt"))
+        prel, pname = mp_params_rel(got_params, {k: v.cpu() for k, v in ref[1].items()})
+        lrel = max(mp_rel(r[name]["losses"], ref[0]) for r in ranks)
+        steps = MP_HOT_STEPS if name == "hot" else MP_CTR_STEPS
+        kern = ("hot_probe", "hot_scatter_apply") if name == "hot" else ("ctr_sparse_rows",)
+        per = {k: [r[name]["launches"][k] for r in ranks] for k in kern}
+        ov = sum(r[name]["overflow"] for r in ranks)
+        blocks = [r[name]["block_rows"] for r in ranks]
+        log(f"phase 27 leg A {name}: {MP_RANKS} processes ({ranks[0]['backend']}, devices "
+            f"{sorted({r['device'] for r in ranks})}), row blocks {blocks} of {cap}; losses "
+            f"{ranks[0][name]['losses']} vs the thread mesh's {ref[0]} (worst relative {lrel}, "
+            f"bound {MP_LOSS_TOL}); dense params worst relative {prel} ({pname}; bound "
+            f"{MP_LOSS_TOL}); "
+            f"first step's rows bitwise {first_ok}; overflow {ov}; launches per process "
+            f"{per} over {steps} steps; ms/step {[round(r[name]['ms_per_step'], 3) for r in ranks]}"
+            f" (thread mesh {ref[2]:.3f}); bytes staged through the host a step "
+            f"{[r[name]['staged_bytes_per_step'] for r in ranks]}; peak memory a process "
+            f"{[r[name]['peak_bytes'] for r in ranks]} B on {card}")
+        assert ov == 0, f"phase 27 leg A {name}: routing overflow {ov}"
+        assert first_ok, f"phase 27 leg A {name}: the first step's rows differ"
+        assert lrel <= MP_LOSS_TOL and prel <= MP_LOSS_TOL, \
+            f"phase 27 leg A {name}: losses {lrel}, params {prel}"
+        assert all(b == cap // MP_RANKS for b in blocks), f"phase 27 leg A {name}: {blocks}"
+        assert all(v == [steps] * MP_RANKS for v in per.values()), \
+            f"phase 27 leg A {name}: launches {per}, want {steps} a process"
+        out[name] = {"launches": {k: sum(v) for k, v in per.items()},
+                     "ms_per_step": [r[name]["ms_per_step"] for r in ranks],
+                     "staged_bytes_per_step": [r[name]["staged_bytes_per_step"] for r in ranks],
+                     "peak_bytes": [r[name]["peak_bytes"] for r in ranks]}
+    checks = [r["hot"]["checks"] for r in ranks]
+    log(f"phase 27 leg A: B3/B4 on each process's first step against their plain versions "
+        f"(B3's on the card, B4's on the CPU): B3 bitwise {[c['b3_bitwise'] for c in checks]} (n "
+        f"{[c['b3_n'] for c in checks]}), B4 bitwise {[c['b4_bitwise'] for c in checks]} (n "
+        f"{[c['b4_n'] for c in checks]}); B1 on each first owner push bitwise "
+        f"{[r['ctr']['b1_bitwise'] for r in ranks]}")
+    assert all(c["b3_bitwise"] and c["b4_bitwise"] for c in checks), "phase 27: B3/B4 differ"
+    assert all(r["ctr"]["b1_bitwise"] for r in ranks), "phase 27: B1 differs"
+    out["b3"], out["b4"], out["b1"] = checks[0]["b3"], checks[0]["b4"], ranks[0]["ctr"]["b1"]
+    return out
+
+
+def mp_leg_b(dev, card, base, nproc=MP_RANKS, backend="gloo"):
+    """Leg B: ERNIE at full width over ``nproc`` processes, the rungs of
+    MP_ERNIE_RUNGS against the same rungs over the thread mesh here."""
+    from paddle_tpu_torch.core.mesh import make_mesh
+    from paddle_tpu_torch.io.checkpoint import load_train_state
+
+    rungs = [r for r in MP_ERNIE_RUNGS if backend == "gloo" or r[0] == "fp32 fused"]
+    cfg, model, (ids, labels) = mp_ernie_model(dev)
+    start = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
+    ref = {}
+    for rung in rungs:
+        name, _, _, shape = rung
+        tr = mp_ernie_trainer(model, rung, make_mesh({a: nproc for a in shape}, device=dev), dev)
+        losses = [float(tr.train_step(ids, labels))
+                  for _ in range(MP_ERNIE_WARM + MP_ERNIE_STEPS)]
+        ref[name] = (losses, {k: v.cpu() for k, v in tr.state["params"].items()})
+        if name == MP_SAVED_RUNG:
+            tr.save(os.path.join(base, "thread.snap"))
+        del tr
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    ranks, secs = mp_launch(base, "B", nproc, backend, dev, rungs=[r[0] for r in rungs],
+                            save=backend == "gloo")
+    out = {"seconds": secs, "counts": {}}
+    want_launches = (MP_ERNIE_WARM + MP_ERNIE_STEPS) * cfg.num_layers
+    for name, _, _, _ in rungs:
+        first = max(abs(r[name]["losses"][0] - ref[name][0][0]) / abs(ref[name][0][0])
+                    for r in ranks)
+        got = torch.load(os.path.join(base, f"params_{name.replace(' ', '_')}.pt"))
+        upd = spmd_update_gap(start, got, ref[name][1], ERNIE_CFG)
+        per = [r[name]["launches"] for r in ranks]
+        log(f"phase 27 leg B {name}: {nproc} processes ({backend}): losses "
+            f"{ranks[0][name]['losses']} vs the thread mesh's {ref[name][0]} (first relative "
+            f"{first}, bound {MP_LOSS_TOL}); worst relative update difference {upd} (bound "
+            f"{HYB_TOL['update']}); ms/step {[round(r[name]['ms_per_step'], 1) for r in ranks]}; "
+            f"bytes staged through the host a step "
+            f"{[r[name]['staged_bytes_per_step'] for r in ranks]}; peak memory a process "
+            f"{[r[name]['peak_bytes'] for r in ranks]} B; flash launches per process {per[0]} "
+            f"(want {want_launches} each) on {card}")
+        assert first <= MP_LOSS_TOL, f"phase 27 leg B {name}: first loss {first}"
+        assert upd <= HYB_TOL["update"], f"phase 27 leg B {name}: update gap {upd}"
+        assert all(v == want_launches for p in per for v in p.values()), \
+            f"phase 27 leg B {name}: launches {per}"
+        for k in per[0]:
+            out["counts"][k] = out["counts"].get(k, 0) + sum(p[k] for p in per)
+        out[name] = {"ms_per_step": [r[name]["ms_per_step"] for r in ranks],
+                     "staged_bytes_per_step": [r[name]["staged_bytes_per_step"] for r in ranks],
+                     "peak_bytes": [r[name]["peak_bytes"] for r in ranks], "update_gap": upd,
+                     "first_rel": first}
+    if backend == "gloo":
+        a = load_train_state(os.path.join(base, "process.snap"))
+        b = load_train_state(os.path.join(base, "thread.snap"))
+        worst, where, n = mp_snap_gap(a, b)
+        log(f"phase 27 leg B: the {MP_SAVED_RUNG} save from the process mesh against the thread "
+            f"mesh's: {n} arrays, worst relative difference {worst} ({where}; bound "
+            f"{HYB_TOL['update']})")
+        assert worst <= HYB_TOL["update"], f"phase 27 leg B: saves differ by {worst}"
+        out["save_gap"] = worst
+    return out
+
+
+def mp_snap_gap(a, b, path=""):
+    """(worst ||a − b|| / ||b|| over the float arrays of two snapshots, its
+    path, the count of arrays); the structures, shapes and the other
+    leaves must be equal. Attention's key bias is left out of
+    ``attn.qkv_b`` arrays (params and Adam slots): its true gradient is 0,
+    so its values are rounding noise (as in ``spmd_update_gap``)."""
+    if isinstance(b, dict):
+        assert sorted(map(str, a)) == sorted(map(str, b)), (path, sorted(a), sorted(b))
+        parts = [mp_snap_gap(a[k], b[k], f"{path}/{k}") for k in b]
+    elif isinstance(b, (list, tuple)):
+        assert len(a) == len(b), path
+        parts = [mp_snap_gap(x, y, f"{path}/{i}") for i, (x, y) in enumerate(zip(a, b))]
+    else:
+        x, y = np.asarray(a), np.asarray(b)
+        assert x.shape == y.shape and x.dtype == y.dtype, (path, x.shape, y.shape)
+        if not np.issubdtype(y.dtype, np.floating) or path.endswith("rng"):
+            assert np.array_equal(x, y), path
+            return 0.0, path, 1
+        if path.endswith("attn.qkv_b"):
+            H = ERNIE_CFG["num_heads"]
+            D = ERNIE_CFG["hidden_size"] // H
+            x, y = (v.reshape(*v.shape[:-1], H, 3, D)[..., [0, 2], :] for v in (x, y))
+        d = float(np.linalg.norm((x - y).astype(np.float64)))
+        n = float(np.linalg.norm(y.astype(np.float64)))
+        return (d / n if n > 0 else d), path, 1
+    worst = max(parts, key=lambda p: p[0]) if parts else (0.0, path, 0)
+    return worst[0], worst[1], sum(p[2] for p in parts)
+
+
+def mp_leg_c(dev, card, base):
+    """Leg C: NCCL at world size 1 in a process of its own; a two-card NCCL
+    run of leg B's fp32 rung where the machine has a second card."""
+    ranks, secs = mp_launch(base, "C", 1, MP_LEG_C_BACKEND, dev)
+    r = ranks[0]
+    log(f"phase 27 leg C: {r['backend']} at world size {r['world']} on {r['device']}: every "
+        f"mapping equals its definition {r['mappings_equal']}; one fused step of a small ERNIE "
+        f"over NCCL against the GSPMD step: losses {r['fused_loss']} vs {r['gspmd_loss']} "
+        f"(relative {r['loss_rel']}, bound {SPMD_TOL['loss']}), worst relative update "
+        f"difference {r['update_gap']} (bound {SPMD_TOL['update']}); {secs:.1f} s")
+    assert r["backend"] == MP_LEG_C_BACKEND and r["world"] == 1, r
+    assert all(r["mappings_equal"].values()), r["mappings_equal"]
+    assert r["loss_rel"] <= SPMD_TOL["loss"] and r["update_gap"] <= SPMD_TOL["update"], r
+    n = torch.cuda.device_count()
+    if n >= 2:
+        two = mp_leg_b(dev, card, os.path.join(base, "two_cards"), nproc=2, backend="nccl")
+        return {"seconds": secs, "two_cards": two}
+    log(f"phase 27 leg C: the two-card NCCL run of leg B did not run: this machine has {n} "
+        f"card (NCCL refuses two ranks of one communicator on one card, so legs A and B share "
+        f"the card over gloo)")
+    return {"seconds": secs, "two_cards": None}
+
+
+def phase_mp(dev, card, hot_snap):
+    """Phase 27: the mesh over processes. Leg C (NCCL at world size 1), leg
+    A (the sharded PS steps over 4 processes, each holding its row block),
+    leg B (ERNIE dense DP and ZeRO-2 over 4 processes), all in processes
+    started by the port's launcher, the kernels built before they start."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="mp_phase_")
+    try:
+        torch.cuda.empty_cache()
+        c = mp_leg_c(dev, card, base)
+        a = mp_leg_a(dev, card, base, hot_snap)
+        torch.cuda.empty_cache()
+        b = mp_leg_b(dev, card, base)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"mesh over processes (phase 27): {time.perf_counter() - t0:.1f} s (leg C "
+        f"{c['seconds']:.1f} s, leg A's processes {a['seconds']:.1f} s, leg B's "
+        f"{b['seconds']:.1f} s) on {card}")
+    return {"a": a, "b": b, "c": c}
+
+
 HYB_RANGES = ("hybrid_forward", "hybrid_backward", "hybrid_update")
 # B5-B7's kernels in ops/csrc/flash_attention.cu (tensor-core and f32 forms)
 HYB_FLASH_KERNELS = ("fwd_mma_kernel", "bwd_dq_mma_kernel", "bwd_dkv_mma_kernel",
@@ -9382,6 +10090,8 @@ def main(argv):
         return fleet_source_child(argv[1])
     if argv[:1] == ["--elastic-trainer"] and len(argv) == 2:
         return elastic_trainer_child(argv[1])
+    if argv[:1] == ["--mp-rank"] and len(argv) == 2:
+        return mp_child(argv[1])
     if argv[:1] == ["--profile"] and len(argv) == 2:
         profile_dir = argv[1]
     elif argv:
@@ -9390,7 +10100,8 @@ def main(argv):
               "JOB SHARD: one server process of phase 16's leg C; --serve-export DIR: phase "
               "22's serving child; --heter-head PORT: phase 24's CPU head; --fleet-source "
               "CONFIG.json: phase 25's source process; --elastic-trainer CONFIG.json: one of "
-              "phase 25's elastic trainers)", file=sys.stderr)
+              "phase 25's elastic trainers; --mp-rank CONFIG.json: one process of phase 27)",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -9435,8 +10146,9 @@ def main(argv):
     b4, b4_sort = timed("2b scatter", phase_hot_scatter, dev)
     pass_counts = timed("3", phase_main_path, dev, card, profile_dir)
     ds = hot_dataset()
-    hot_counts, _ = timed("4", phase_hot_path, dev, card, ds, profile_dir)
-    sharded_counts, _ = timed("4 sharded", phase_hot_path, dev, card, ds, profile_dir, SHARDS)
+    hot_counts, _, _ = timed("4", phase_hot_path, dev, card, ds, profile_dir)
+    sharded_counts, _, hot_snap = timed("4 sharded", phase_hot_path, dev, card, ds, profile_dir,
+                                        SHARDS)
     timed("5b", phase_parity, dev)
     timed("5", phase_hot_parity, dev)
     timed("5c", phase_sharded_parity, dev)
@@ -9463,6 +10175,8 @@ def main(argv):
     item8 = timed("24", phase_item8, dev, card)
     timed("25", phase_item8b, dev, card)
     spmd = timed("26", phase_spmd, dev, card)
+    mp = timed("27", phase_mp, dev, card, hot_snap)
+    del hot_snap
     timed("profiles", phase_kernel_counts, dev)
     timed("profiles wd", wd_kernel_counts, dev)
     timed("profiles hybrid", hybrid_step_profile, hyb)
@@ -9582,7 +10296,24 @@ def main(argv):
         # B1 again as phase 12 leg B's cold-tier day launches it, over the
         # admission-gated, block-compressed fp16 SSD table: its launches
         # there, its numbers on that day's first push
-        entry("ctr_sparse_rows@ssd_scale", b1_src, b1_ref, wd_cold["launches"], wd_cold["b1"])]
+        entry("ctr_sparse_rows@ssd_scale", b1_src, b1_ref, wd_cold["launches"], wd_cold["b1"]),
+        # B3, B4 and B1 again as phase 27's processes launch them, each process
+        # on its own row block: launches summed over the 4 processes, their
+        # numbers on rank 0's first step (B3 on its 26,624 keys, B4 and B1 on
+        # its owner push), measured in that process with the others idle
+        entry("hot_probe@mp", hot_src, "paddle_tpu/ops/hot_kernels.py:212",
+              mp["a"]["hot"]["launches"]["hot_probe"], mp["a"]["b3"]),
+        entry("hot_scatter_apply@mp", hot_src, "paddle_tpu/ops/hot_kernels.py:278",
+              mp["a"]["hot"]["launches"]["hot_scatter_apply"], mp["a"]["b4"]),
+        entry("ctr_sparse_rows@mp", b1_src, b1_ref,
+              mp["a"]["ctr"]["launches"]["ctr_sparse_rows"], mp["a"]["b1"]),
+        # B5-B7 again as phase 27's leg B launches them in its 4 processes (a
+        # rank's attention [2, 512, 16, 64]): launches summed over the
+        # processes; the numbers are phase 24's at that shape, reused
+        *(entry(f"flash_attention_{name}@mp", fa_src, f"{fa_ref}:{line}",
+                mp["b"]["counts"][f"flash_attention_{name}"], item8["pipeline"]["kernels"][key])
+          for name, key, line in (("fwd", "fwd", 127), ("bwd_dq", "dq", 176),
+                                  ("bwd_dkv", "dkv", 221)))]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -31,12 +31,12 @@ trainer's sh-sliced slots cross whole and are cut by the trainer
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Union
+from typing import Callable, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
-from .core.enforce import enforce
+from .core.enforce import InvalidArgumentError, enforce
 from .optimizer import Adam, MasterWeights
 from .ps.device_hash import dynamic_map_state_to_device, map_state_to_device
 
@@ -260,12 +260,22 @@ def opt_state_to_jax(opt_state: Mapping, optimizer,
             "slots": slots(opt_state, optimizer)}
 
 
-def cache_state_from_jax(state: Mapping[str, np.ndarray],
-                         device: Device) -> Dict[str, torch.Tensor]:
+def cache_state_from_jax(state: Mapping[str, np.ndarray], device: Device,
+                         rank: Optional[int] = None, shards: int = 1) -> Dict[str, torch.Tensor]:
     """Cache or hot-tier columns (show, click, embed_w, embed_state,
-    embedx_w, embedx_state, has_embedx) → f32 tensors on ``device``."""
-    return {k: torch.from_numpy(np.array(v, np.float32)).to(device)
-            for k, v in state.items()}
+    embedx_w, embedx_state, has_embedx) → f32 tensors on ``device``.
+    ``rank`` of ``shards``: the row block ``[rank·C/shards, (rank+1)·C/shards)``
+    alone, the state one process of a sharded path's process mesh holds."""
+    if rank is None:
+        return {k: torch.from_numpy(np.array(v, np.float32)).to(device)
+                for k, v in state.items()}
+    C = len(np.asarray(next(iter(state.values()))))
+    enforce(C % shards == 0 and 0 <= rank < shards,
+            f"cache_state_from_jax: {C} rows do not cut into {shards} blocks (rank {rank})",
+            InvalidArgumentError)
+    b = C // shards
+    return {k: torch.from_numpy(np.array(np.asarray(v)[rank * b:(rank + 1) * b],
+                                         np.float32)).to(device) for k, v in state.items()}
 
 
 def map_state_from_jax(state: Mapping, device: Device) -> Dict[str, torch.Tensor]:
@@ -296,11 +306,17 @@ def _np_tree(tree, device: Device):
 
 def spmd_state_from_jax(state: Mapping, device: Device = "cpu",
                         params_from_jax: Callable[..., Dict[str, torch.Tensor]]
-                        = ctr_params_from_jax) -> dict:
+                        = ctr_params_from_jax, rank: Optional[int] = None) -> dict:
     """The JAX ``SpmdTrainer.state`` (``{"params", "buffers"}``) → the port
     trainer's whole state: params by ``params_from_jax`` (the CTR/MLP
     rule by default: 2-D weights transposed; :func:`ernie_params_from_jax`
-    for JAX-layout models), buffers as they are."""
+    for JAX-layout models), buffers as they are.
+
+    ``rank``: the part one process of a process mesh holds, for
+    ``SpmdTrainer.restore(..., local=True)``. The paths that run on a
+    process mesh (fused, stage 2) replicate the params and buffers, so
+    every rank's part is the whole state."""
+    enforce(rank is None or rank >= 0, f"rank must be >= 0, got {rank}", InvalidArgumentError)
     return {"params": params_from_jax(dict(state["params"]), device),
             "buffers": {str(k): torch.from_numpy(np.array(v)).to(device)
                         for k, v in state.get("buffers", {}).items()}}
@@ -308,7 +324,7 @@ def spmd_state_from_jax(state: Mapping, device: Device = "cpu",
 
 def spmd_opt_state_from_jax(opt_state: Mapping, trainer, jax_params: Mapping,
                             params_from_jax: Callable[..., Dict[str, torch.Tensor]]
-                            = ctr_params_from_jax) -> dict:
+                            = ctr_params_from_jax, rank: Optional[int] = None) -> dict:
     """The JAX ``SpmdTrainer.opt_state`` → the port ``trainer``'s whole
     optimizer state (``SpmdTrainer.full_state``'s layout, for
     ``trainer.restore``). ``jax_params`` are the JAX trainer's params (in
@@ -319,11 +335,32 @@ def spmd_opt_state_from_jax(opt_state: Mapping, trainer, jax_params: Mapping,
     (``local_state_keys``) rank by rank; ZeRO's flat shard slots leaf by
     leaf (unpadded, carried, re-padded); the int8 error-feedback residuals
     rank by rank and bucket by bucket (unpacked with JAX's layout,
-    carried, packed with the port's)."""
+    carried, packed with the port's).
+
+    ``rank``: the part the process of that rank holds on the ``trainer``'s
+    process mesh (its own rank): each leaf the trainer holds cut across
+    ranks (a ZeRO slice or flat shard, a per-rank value) comes back as
+    that rank's part alone, the rest whole, for
+    ``SpmdTrainer.restore(..., local=True)``."""
     from .distributed.comm_fusion import (_pack_bucket, _unpack_bucket, build_layout,
                                           dtype_name)
-    from .distributed.meta_optimizers import FusedAllReduceOptimizer, MetaOptimizerBase
-    from .parallel.spmd import full_tree
+    from .distributed.meta_optimizers import (FusedAllReduceOptimizer, MetaOptimizerBase,
+                                              _tmap)
+    from .parallel.spmd import RankSlices, full_tree
+
+    if rank is not None:
+        enforce(trainer.mesh.is_process_mesh and rank == trainer.mesh.process_rank,
+                f"rank={rank}: the part of a process mesh's own rank (the trainer's mesh "
+                f"{dict(trainer.mesh.shape)}, process rank {trainer.mesh.process_rank})",
+                InvalidArgumentError)
+        from .io.checkpoint import graft_into
+
+        # by key path into the live tree (a RankSlices leaf takes the whole
+        # as it comes), then each cut leaf cut as the live one is
+        whole = graft_into(trainer.opt_state, spmd_opt_state_from_jax(
+            opt_state, trainer, jax_params, params_from_jax))
+        return _tmap(lambda live, x: live.recut(x).parts[0] if isinstance(live, RankSlices)
+                     else x, trainer.opt_state, whole)
 
     device = trainer.device
     jp = {str(k): np.asarray(v) for k, v in jax_params.items()}

@@ -18,8 +18,16 @@ Two kinds of callers run per-rank code on it:
   function per rank in lockstep (``ops.collectives.run_ranks``), whose
   collectives name mesh axes as the JAX code does.
 
-A mesh over distinct devices replaces only the collectives (ROADMAP
-item 7).
+A mesh can also be made of PROCESSES (:func:`make_process_mesh`): one
+process a rank over ``torch.distributed``, built after
+``distributed.collective.init_parallel_env``, with the same row-major
+coordinates (rank r is ``torch.distributed`` rank r). Each process holds
+its own rank's state only; ``ops.collectives.run_ranks`` runs this
+process's rank, and the axis-form collectives map onto the mesh's
+process groups (``ops.transport``). Per-rank code does not change. The
+paths that one autograd graph across ranks needs (tensor and pipeline
+parallelism, GSPMD's ZeRO) stay on the mesh of logical ranks until
+differentiable collectives come (ROADMAP item 7b's second half).
 
 The JAX module's helpers come along: :data:`HYBRID_AXES` and
 :func:`make_hybrid_mesh` (the reference's hybrid topology, every axis
@@ -37,15 +45,18 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, Iterator, List, Optional, Tuple, Union
+import itertools
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 
 from .device import resolve_device
-from .enforce import InvalidArgumentError, UnavailableError, enforce
+from .enforce import (InvalidArgumentError, PreconditionNotMetError, UnavailableError,
+                      enforce)
 
 __all__ = ["HYBRID_AXES", "Mesh", "current_mesh", "make_hybrid_mesh", "make_mesh",
-           "mesh_axis_size", "named_sharding", "ps_shard_count", "replicated", "use_mesh"]
+           "make_process_mesh", "mesh_axis_size", "named_sharding", "ps_shard_count",
+           "replicated", "use_mesh"]
 
 #: the hybrid topology's axes in mesh order (innermost last), as the JAX
 #: package names them
@@ -56,11 +67,40 @@ _ACTIVE_MESH: List["Mesh"] = []
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """``shape`` maps each axis name, in order, to its size; every rank
-    lives on ``device``."""
+    """``shape`` maps each axis name, in order, to its size. On a mesh of
+    logical ranks every rank lives on ``device``; on a process mesh
+    (``process_rank`` set, :func:`make_process_mesh`) this process is rank
+    ``process_rank`` and ``device`` is its own."""
 
     shape: Dict[str, int]
     device: torch.device
+    process_rank: Optional[int] = None
+    #: a process mesh's groups: {axes with a size above 1: (process group
+    #: or None for a group of one, the group's ranks in rank order)}
+    groups: Optional[Dict[Tuple[str, ...], Tuple[Any, Tuple[int, ...]]]] = \
+        dataclasses.field(default=None, compare=False, repr=False)
+
+    @property
+    def is_process_mesh(self) -> bool:
+        return self.process_rank is not None
+
+    @property
+    def local_ranks(self) -> Tuple[int, ...]:
+        """The ranks this process runs: all of them on a mesh of logical
+        ranks, its own on a process mesh."""
+        return (self.process_rank,) if self.is_process_mesh else tuple(range(self.size))
+
+    def group(self, axes: Tuple[str, ...]) -> Tuple[Any, Tuple[int, ...]]:
+        """A process mesh's (process group, ranks in rank order) of this
+        process's group over ``axes`` (named in mesh order). Axes of size 1
+        do not change a group; a group of one rank has no process group
+        (None) unless it is the whole world."""
+        enforce(self.is_process_mesh, "group() is a process mesh's", InvalidArgumentError)
+        key = tuple(a for a in self.axis_names if a in axes and self.shape[a] > 1)
+        got = self.groups.get(key)
+        if got is None:
+            return None, (self.process_rank,)
+        return got
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
@@ -113,6 +153,60 @@ def make_mesh(axis_sizes: Dict[str, int],
                 InvalidArgumentError)
         shape[name] = int(k)
     return Mesh(shape, resolve_device(device))
+
+
+def _process_device(device, rank: int) -> torch.device:
+    """A process mesh's device: ``cuda:{rank % device_count}`` for None or
+    an unindexed ``"cuda"`` (raising without a GPU), else ``device``."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+    return dev
+
+
+def make_process_mesh(axis_sizes: Dict[str, int],
+                      device: Optional[Union[str, torch.device]] = None) -> Mesh:
+    """A mesh whose ranks are the processes of the ``torch.distributed``
+    job (``distributed.collective.init_parallel_env`` first): rank r of the
+    row-major coordinates is process r; this process's rank and device
+    (``cuda:{rank % device_count}`` unless ``device="cpu"``) are the
+    mesh's. The product of the axes must equal the world size.
+
+    Every process group a collective can name (each combination of the
+    axes above size 1, each group of it) is made here, in the same order
+    in every process: ``new_group`` is collective over the world, and
+    processes that made groups in different orders would deadlock."""
+    import torch.distributed as dist
+
+    mesh = make_mesh(axis_sizes, device="cpu")
+    enforce(dist.is_available() and dist.is_initialized(),
+            "make_process_mesh: no torch.distributed job; call "
+            "distributed.collective.init_parallel_env() first", PreconditionNotMetError)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    enforce(mesh.size == world,
+            f"make_process_mesh: the axes {dict(mesh.shape)} hold {mesh.size} ranks, the job "
+            f"has {world} processes", InvalidArgumentError)
+    dev = _process_device(device, rank)
+    enforce(dist.get_backend() != "nccl" or dev.type == "cuda",
+            f"make_process_mesh: the job's backend is nccl, which moves CUDA tensors only; "
+            f"the mesh was asked for {dev}", InvalidArgumentError)
+    coords = [mesh.coords(r) for r in range(world)]
+    wide = [a for a in mesh.axis_names if mesh.shape[a] > 1]
+    groups: Dict[Tuple[str, ...], Tuple[Any, Tuple[int, ...]]] = {}
+    for n in range(1, len(wide) + 1):
+        for axes in itertools.combinations(wide, n):
+            if len(axes) == len(wide):
+                continue
+            rest = [a for a in mesh.axis_names if a not in axes]
+            for key in sorted({tuple(c[a] for a in rest) for c in coords}):
+                ranks = tuple(r for r in range(world)
+                              if tuple(coords[r][a] for a in rest) == key)
+                pg = dist.new_group(list(ranks))   # every process, every group
+                if rank in ranks:
+                    groups[axes] = (pg, ranks)
+    # the world: every axis above size 1 (or a world of one rank)
+    groups[tuple(wide)] = (dist.group.WORLD, tuple(range(world)))
+    return Mesh(mesh.shape, dev, rank, groups)
 
 
 def make_hybrid_mesh(dp: int = 1, sharding: int = 1, pp: int = 1, mp: int = 1, cp: int = 1,
@@ -168,10 +262,10 @@ def mesh_axis_size(mesh: Mesh, axis: str) -> int:
 def ps_shard_count(mesh: Mesh, axis: str) -> int:
     """The shard count of a sharded parameter-server path's mesh, which
     has exactly the one axis ``axis``. A mesh of several axes raises:
-    the PS paths over a hybrid mesh come with the multi-device mesh
-    (ROADMAP item 7)."""
+    the PS paths over a hybrid mesh come with ROADMAP item 7b's second
+    half (a process mesh of one axis works)."""
     enforce(len(mesh.shape) == 1,
             f"the sharded parameter-server paths take a mesh of one axis, got "
-            f"{dict(mesh.shape)}; over a mesh of several axes they come with ROADMAP item 7",
+            f"{dict(mesh.shape)}; over a mesh of several axes they come with ROADMAP item 7b",
             UnavailableError)
     return mesh_axis_size(mesh, axis)

@@ -1,7 +1,31 @@
-"""The coordination store of ``paddle.distributed``: ``TCPStore``.
+"""Process-level collective API (``paddle.distributed`` surface).
 
-The port's own copy of the ``TCPStore`` half of
-``paddle_tpu.distributed.collective`` (the reference's
+Port of ``paddle_tpu.distributed.collective`` (the reference's
+python/paddle/distributed/{collective.py, parallel.py}):
+``init_parallel_env`` (parallel.py:91), ``new_group`` (collective.py:314),
+the eager ``all_reduce``/``all_gather``/``broadcast``/``scatter``/
+``alltoall``/``barrier`` (collective.py:580, 798, 893, 266) and the
+``TCPStore`` rendezvous (distributed/store/tcp_store.h:91).
+
+The JAX package's bootstrap rides ``jax.distributed`` and its eager
+collectives ``jax.experimental.multihost_utils``; here the bootstrap is
+``torch.distributed.init_process_group`` and the eager collectives ride
+its default group. They take and return numpy, as the JAX package's do,
+under its participation contract: EVERY process calls each of them, even
+when ``group`` is a subset; ``group`` scopes the result, not who takes
+part (a non-member's ``broadcast`` returns its own ``x``, its ``scatter``
+None, its ``alltoall`` its own list). In-graph collectives over a mesh
+axis are ``ops.collectives`` (on a process mesh:
+``core.mesh.make_process_mesh``).
+
+The backend (:func:`init_parallel_env`) is chosen by one explicit rule:
+``"nccl"`` when CUDA is there and every rank of this host has its own
+card (fewer cards than ranks raises, naming the counts), ``"gloo"`` on
+the CPU or when the caller asks for it. No code switches backend on a
+failure. Several processes sharing one card therefore run gloo, whose
+collectives stage CUDA tensors through the host (``ops.transport``).
+
+``TCPStore`` is the port's own copy of the JAX module's (the reference's
 distributed/store/tcp_store.h:91, MasterDaemon + clients): a pure-Python
 key-value daemon that one process hosts (``is_master``) and every process
 connects to, one JSON line a request. Blocking ``wait`` and atomic
@@ -15,24 +39,27 @@ live keys under a prefix (etcd's get-prefix role):
 ``distributed.elastic.TcpElasticStore`` and the elastic launcher's
 membership ride them. ``get``, ``wait`` and ``list`` do not see an expired
 key.
-
-Not ported here (ROADMAP Queue A item 7): the rest of the module, the
-process groups, ``init_parallel_env``/``ParallelEnv`` and the eager
-tensor collectives.
 """
 
 from __future__ import annotations
 
+import datetime
 import json
+import os
 import socket
 import socketserver
 import threading
 import time
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
-from ..core.enforce import PreconditionNotMetError
+import numpy as np
+import torch
 
-__all__ = ["TCPStore"]
+from ..core.enforce import InvalidArgumentError, PreconditionNotMetError, enforce
+
+__all__ = ["Group", "ParallelEnv", "TCPStore", "all_gather", "all_reduce", "alltoall",
+           "barrier", "broadcast", "get_rank", "get_world_size", "init_parallel_env",
+           "is_initialized", "new_group", "scatter"]
 
 
 class _StoreState:
@@ -183,3 +210,265 @@ class TCPStore:
             if self._server is not None:
                 self._server.shutdown()
                 self._server.server_close()
+
+
+# ---------------------------------------------------------------------------
+# the parallel env (parallel.py:91 init_parallel_env / ParallelEnv)
+# ---------------------------------------------------------------------------
+
+
+class ParallelEnv:
+    """The launcher's env: ``PADDLE_TRAINER_ID`` / ``PADDLE_TRAINERS_NUM`` /
+    ``PADDLE_TRAINER_ENDPOINTS`` (plain ``RANK``/``WORLD_SIZE`` also
+    read), as the JAX package reads them."""
+
+    def __init__(self) -> None:
+        env = os.environ
+        self.rank = int(env.get("PADDLE_TRAINER_ID", env.get("RANK", "0")))
+        self.world_size = int(env.get("PADDLE_TRAINERS_NUM", env.get("WORLD_SIZE", "1")))
+        eps = env.get("PADDLE_TRAINER_ENDPOINTS", "")
+        self.trainer_endpoints: List[str] = eps.split(",") if eps else []
+        self.current_endpoint = env.get(
+            "PADDLE_CURRENT_ENDPOINT",
+            self.trainer_endpoints[self.rank] if self.rank < len(self.trainer_endpoints)
+            else "")
+
+    @property
+    def nranks(self) -> int:  # the reference's name
+        return self.world_size
+
+
+_parallel_state: Dict[str, Any] = {"initialized": False, "env": None}
+
+#: seconds a collective of the job waits for its group before it raises
+PROCESS_GROUP_TIMEOUT = 600.0
+
+
+def choose_backend(backend: Optional[str], world_size: int) -> str:
+    """The backend rule: ``backend`` as asked (``"nccl"`` or ``"gloo"``),
+    else ``"nccl"`` when CUDA is there and ``"gloo"`` when it is not.
+    NCCL needs a card a rank on this host (``LOCAL_WORLD_SIZE``, else the
+    world size: the local launcher runs every rank on one host); fewer
+    cards raise."""
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    enforce(backend in ("nccl", "gloo"),
+            f"backend must be 'nccl' or 'gloo', got {backend!r}", InvalidArgumentError)
+    if backend == "nccl":
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        enforce(cards >= local,
+                f"backend 'nccl' needs a card a rank: {local} ranks on this host, {cards} "
+                f"card(s); NCCL refuses two ranks of one communicator on one card. Pass "
+                f"backend='gloo' to share a card", InvalidArgumentError)
+    return backend
+
+
+def _init_method(address: str) -> str:
+    return address if "://" in address else f"tcp://{address}"
+
+
+def init_parallel_env(coordinator_address: Optional[str] = None,
+                      backend: Optional[str] = None) -> ParallelEnv:
+    """``paddle.distributed.init_parallel_env``: join this process to the
+    job's ``torch.distributed`` process group (rank and world from
+    :class:`ParallelEnv`; rendezvous at ``coordinator_address``, else
+    ``PADDLE_MASTER``, else trainer endpoint 0: ``host:port`` for a TCP
+    store or a ``file://`` / ``tcp://`` URL). The backend follows
+    :func:`choose_backend`. A world of one without an address records the
+    env only, as in the JAX package; with an address it is a job of one
+    (a real communicator). Returns the env; a second call returns the
+    first's."""
+    if _parallel_state["initialized"]:
+        return _parallel_state["env"]
+    env = ParallelEnv()
+    if env.world_size > 1 or coordinator_address is not None:
+        import torch.distributed as dist
+
+        addr = coordinator_address or os.environ.get(
+            "PADDLE_MASTER", env.trainer_endpoints[0] if env.trainer_endpoints else None)
+        enforce(addr is not None,
+                "a multi-process job needs a coordinator address (PADDLE_MASTER or trainer "
+                "endpoint 0)", PreconditionNotMetError)
+        backend = choose_backend(backend, env.world_size)
+        kw = {}
+        if backend == "nccl":
+            kw["device_id"] = torch.device("cuda", env.rank % torch.cuda.device_count())
+            torch.cuda.set_device(kw["device_id"])
+        dist.init_process_group(backend, init_method=_init_method(addr), rank=env.rank,
+                                world_size=env.world_size,
+                                timeout=datetime.timedelta(seconds=PROCESS_GROUP_TIMEOUT), **kw)
+    _parallel_state.update(initialized=True, env=env)
+    return env
+
+
+def is_initialized() -> bool:
+    return bool(_parallel_state["initialized"])
+
+
+def get_rank() -> int:
+    if _parallel_state["env"] is not None:
+        return _parallel_state["env"].rank
+    return ParallelEnv().rank
+
+
+def get_world_size() -> int:
+    if _parallel_state["env"] is not None:
+        return _parallel_state["env"].world_size
+    return ParallelEnv().world_size
+
+
+# ---------------------------------------------------------------------------
+# groups (collective.py:314 new_group) and the eager collectives
+# ---------------------------------------------------------------------------
+
+
+class Group:
+    """A set of ranks (the reference's ``Group`` with its ring id). The
+    eager collectives over it run over every process (see the module's
+    participation contract); in-graph code uses mesh axes instead."""
+
+    _next_id = 0
+
+    def __init__(self, ranks: Sequence[int]) -> None:
+        self.ranks = list(ranks)
+        self.id = Group._next_id
+        Group._next_id += 1
+
+    @property
+    def nranks(self) -> int:
+        return len(self.ranks)
+
+    def get_group_rank(self, rank: int) -> int:
+        return self.ranks.index(rank) if rank in self.ranks else -1
+
+    def __contains__(self, rank: int) -> bool:
+        return rank in self.ranks
+
+
+_default_group: Optional[Group] = None
+
+
+def _get_group(group: Optional[Group]) -> Group:
+    global _default_group
+    if group is not None:
+        return group
+    if _default_group is None:
+        _default_group = Group(list(range(get_world_size())))
+    return _default_group
+
+
+def new_group(ranks: Optional[Sequence[int]] = None) -> Group:
+    return Group(list(ranks) if ranks is not None else list(range(get_world_size())))
+
+
+def _wire(x: np.ndarray) -> torch.Tensor:
+    """``x`` as a tensor the job's backend moves: on this process's card
+    under NCCL, on the CPU under gloo."""
+    import torch.distributed as dist
+
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if dist.get_backend() == "nccl":
+        t = t.to(torch.device("cuda", torch.cuda.current_device()))
+    return t
+
+
+def _multi_process() -> bool:
+    import torch.distributed as dist
+
+    return get_world_size() > 1 and dist.is_available() and dist.is_initialized()
+
+
+def _process_allgather(x: np.ndarray) -> List[np.ndarray]:
+    """Every process's copy of ``x`` (same shape and dtype on all), by
+    global rank."""
+    x = np.asarray(x)
+    if not _multi_process():
+        return [x]
+    import torch.distributed as dist
+
+    t = _wire(x)
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, t)
+    return [p.cpu().numpy() for p in parts]
+
+
+_REDUCERS = {
+    "sum": lambda xs: np.sum(xs, axis=0),
+    "avg": lambda xs: np.mean(xs, axis=0),
+    "max": lambda xs: np.max(xs, axis=0),
+    "min": lambda xs: np.min(xs, axis=0),
+    "prod": lambda xs: np.prod(xs, axis=0),
+}
+
+
+def all_reduce(x, op: str = "sum", group: Optional[Group] = None) -> np.ndarray:
+    """Eager all_reduce (collective.py:580) of the group's members' ``x``
+    by ``op`` (sum, avg, max, min, prod); every process calls."""
+    enforce(op in _REDUCERS, f"unknown reduce op {op}", InvalidArgumentError)
+    g = _get_group(group)
+    parts = _process_allgather(np.asarray(x))
+    parts = [parts[r] for r in g.ranks if r < len(parts)]
+    return _REDUCERS[op](np.stack(parts))
+
+
+def all_gather(x, group: Optional[Group] = None) -> List[np.ndarray]:
+    """The group's members' ``x`` in group order; every process calls."""
+    g = _get_group(group)
+    parts = _process_allgather(np.asarray(x))
+    return [parts[r] for r in g.ranks if r < len(parts)]
+
+
+def broadcast(x, src: int = 0, group: Optional[Group] = None) -> np.ndarray:
+    """Global rank ``src``'s ``x`` for the group's members; a non-member
+    (or a ``src`` outside the group) gets its own ``x``."""
+    g = _get_group(group)
+    parts = _process_allgather(np.asarray(x))
+    return parts[src] if src in g.ranks and src < len(parts) else np.asarray(x)
+
+
+def scatter(tensor_list: Optional[Sequence], src: int = 0,
+            group: Optional[Group] = None) -> Optional[np.ndarray]:
+    """collective.py:893: global rank ``src``'s list, one entry a group
+    member, and each member takes its own; a non-member takes None. Every
+    process passes a list of the same shapes (the non-source values are
+    unread), as in the JAX package."""
+    g = _get_group(group)
+    enforce(tensor_list is not None and len(tensor_list) == g.nranks,
+            "scatter needs one tensor per group rank on every rank (non-src values are "
+            "ignored)", InvalidArgumentError)
+    if get_world_size() == 1:
+        return np.asarray(tensor_list[0])
+    import torch.distributed as dist
+
+    t = _wire(np.stack([np.asarray(v) for v in tensor_list]))
+    if _multi_process():
+        dist.broadcast(t, src=src)
+    rank_in_group = g.get_group_rank(get_rank())
+    if rank_in_group < 0:
+        return None
+    return t.cpu().numpy()[rank_in_group]
+
+
+def alltoall(in_list: Sequence, group: Optional[Group] = None) -> List[np.ndarray]:
+    """Member i's entry j goes to member j, in group order; a non-member
+    keeps its own list. Every process calls with same-shaped lists."""
+    g = _get_group(group)
+    enforce(len(in_list) == g.nranks, "alltoall needs one tensor per rank",
+            InvalidArgumentError)
+    if get_world_size() == 1:
+        return [np.asarray(t) for t in in_list]
+    rank_in_group = g.get_group_rank(get_rank())
+    all_parts = _process_allgather(np.stack([np.asarray(t) for t in in_list]))
+    if rank_in_group < 0:
+        return [np.asarray(t) for t in in_list]
+    return [all_parts[g.ranks[r]][rank_in_group] for r in range(g.nranks)]
+
+
+def barrier(group: Optional[Group] = None) -> None:
+    """collective.py:266: every process waits for all (a no-op in a world
+    of one)."""
+    if _multi_process():
+        import torch.distributed as dist
+
+        dist.barrier()

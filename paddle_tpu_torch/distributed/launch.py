@@ -112,8 +112,19 @@ def _terminate(procs) -> None:
 
 def launch_local(spec: JobSpec, timeout: Optional[float] = None) -> int:
     """Spawn servers then trainers on localhost; wait for trainers, then
-    terminate servers (the PS controller sequence). Returns the first
-    nonzero trainer exit code, else 0."""
+    terminate servers (the PS controller sequence). Returns 0 when every
+    trainer exits cleanly; the first trainer to exit non-zero ends the job
+    at once (the others, which would wait on it in a collective, are
+    terminated) and its code is returned. ``timeout`` raises
+    ``subprocess.TimeoutExpired``; every process is reaped on every exit
+    path.
+
+    ``--servers 0 --nproc_per_node K`` is a collective job of K trainers:
+    each gets the env ``distributed.collective.ParallelEnv`` reads
+    (``PADDLE_TRAINER_ID``, ``PADDLE_TRAINERS_NUM``,
+    ``PADDLE_TRAINER_ENDPOINTS``, whose entry 0 is the default rendezvous
+    of ``init_parallel_env``; ``PADDLE_MASTER`` in ``JobSpec.env`` names
+    another)."""
     procs: List[subprocess.Popen] = []
     server_procs: List[subprocess.Popen] = []
 
@@ -123,12 +134,16 @@ def launch_local(spec: JobSpec, timeout: Optional[float] = None) -> int:
         for r in range(spec.nproc):
             procs.append(_spawn(spec, "TRAINER", r))
         deadline = time.monotonic() + timeout if timeout else None
-        rc = 0
-        for p in procs:
-            left = max(0.1, deadline - time.monotonic()) if deadline else None
-            code = p.wait(timeout=left)
-            rc = rc or code
-        return rc
+        while True:
+            codes = [p.poll() for p in procs]
+            failed = [c for c in codes if c not in (None, 0)]
+            if failed:
+                return failed[0]
+            if all(c == 0 for c in codes):
+                return 0
+            if deadline is not None and time.monotonic() > deadline:
+                raise subprocess.TimeoutExpired(spec.script, timeout)
+            time.sleep(0.05)
     finally:
         _terminate(procs + server_procs)
 

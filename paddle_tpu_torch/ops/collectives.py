@@ -1,51 +1,66 @@
-"""Collectives over the logical ranks of a one-device mesh.
+"""Collectives over the ranks of a mesh: logical ranks of one device, or
+processes.
 
 Port of ``paddle_tpu.ops.collectives``. The JAX functions run inside
 ``shard_map`` on one rank's value and name a mesh axis; XLA performs the
-transfer. Here every rank of a ``core.mesh`` lives on one device, and
-the collectives come in two forms:
+transfer. Here the collectives come in two forms:
 
 - **the list form** (:func:`all_reduce`, :func:`all_gather`,
   :func:`reduce_scatter`, :func:`all_to_all` given a list): the caller
-  holds the K ranks' tensors of a one-axis mesh, in rank order, and gets
-  the list of what each rank receives. The sharded parameter-server
-  paths call these.
+  holds the K ranks' tensors of a one-axis mesh of logical ranks, in rank
+  order, and gets the list of what each rank receives.
 - **the axis form** (:func:`psum`, :func:`psum_scatter`, :func:`pmax`,
   :func:`all_gather`/:func:`all_to_all` given an axis, :func:`ppermute`,
   :func:`shift`, :func:`broadcast`, :func:`reduce`, :func:`split_axis`,
-  :func:`barrier`, :func:`axis_index`, :func:`axis_size`): called from
-  inside per-rank code that
-  :func:`run_ranks` runs, one thread per rank, in lockstep. Each call
-  meets the other ranks of its group (the ranks that differ from it only
-  on the named axes) at a rendezvous; once all have arrived, the group's
-  first rank performs the collective once, on all the group's tensors,
-  and each rank takes its result. The per-rank code keeps the shape of
-  the JAX ``shard_map`` body: ``psum(x, "mp")``, ``shift(k, "cp", 1)``, ``axis_index("cp")``.
+  :func:`barrier`, :func:`axis_index`, :func:`axis_size`, and
+  :class:`ProcessGroup` bound to an axis): called from inside per-rank
+  code that :func:`run_ranks` runs. The per-rank code keeps the shape of
+  the JAX ``shard_map`` body: ``psum(x, "mp")``, ``shift(k, "cp", 1)``,
+  ``axis_index("cp")``.
 
-Gradients: the ranks' forwards build ONE autograd graph in one process,
-and a collective is a few tensor ops on the group's tensors (a sum, a
-slice, a concatenation), so its gradient is the autograd of those ops:
-no collective is written for the backward. The JAX package's
-``psum_replicated`` (a psum with a pinned identity VJP) and
+  On a mesh of logical ranks (``core.mesh.make_mesh``) the ranks run one
+  thread each, in lockstep; each call meets the other ranks of its group
+  (the ranks that differ from it only on the named axes) at a rendezvous,
+  and once all have arrived the group's first rank performs the
+  collective once, on all the group's tensors, and each rank takes its
+  result. On a process mesh (``core.mesh.make_process_mesh``) this
+  process runs its own rank and each call maps onto ``torch.distributed``
+  over the mesh's process group of those axes (``ops.transport``, where
+  the table of the mapping is).
+
+Gradients: on a mesh of logical ranks the ranks' forwards build ONE
+autograd graph in one process, and a collective is a few tensor ops on
+the group's tensors (a sum, a slice, a concatenation), so its gradient is
+the autograd of those ops: no collective is written for the backward. The
+JAX package's ``psum_replicated`` (a psum with a pinned identity VJP) and
 ``spec_reduced_grads`` (the explicit gradient psums of a
 ``check_vma=False`` step) exist to get its transposes of ``psum`` right;
 with one graph the gradient of a sum is already right, and a parameter
 that every rank reads through a view sums its ranks' gradients in the
-one ``.grad``, so neither is ported.
+one ``.grad``, so neither is ported. One autograd graph cannot span
+processes: on a process mesh a collective's result carries no gradient
+back to the other ranks, so only per-rank code that takes
+``autograd.grad`` of its own loss before any collective runs there (the
+sharded PS steps, ``SpmdTrainer``'s fused and stage-2 paths). Tensor and
+pipeline parallelism, the hybrid trainer and GSPMD's ZeRO need
+differentiable collectives over processes (ROADMAP item 7b's second
+half).
 
-Sums run in rank order, starting from the group's first rank, so a
-result is the same from run to run and on every device (see
-:func:`run_ranks` for the backward's order). XLA's
-all-reduce associates its sum in its own order, so a reduced value can
-differ from the JAX package's in the last bits; nothing else here
-rounds. A replicated result (``psum``, ``all_gather``) is ONE tensor
-that every rank receives: read it, do not modify it in place.
+Sums run in rank order, starting from the group's first rank, on a mesh
+of logical ranks, so a result is the same from run to run and on every
+device (see :func:`run_ranks` for the backward's order). XLA's
+all-reduce, gloo's and NCCL's associate the sum in their own order, so a
+reduced value can differ in the last bits at K ≥ 3 (at K = 2 the sum of
+two operands commutes); nothing else here rounds. A replicated result
+(``psum``, ``all_gather``) is ONE tensor that every rank receives: read
+it, do not modify it in place.
 
 A rank that raises aborts the rendezvous: the other ranks' waiting
 collectives raise, and :func:`run_ranks` re-raises the first rank's
 error. A collective that waits longer than the run's timeout, or whose
 group holds a rank that has already returned, raises too, so a failing
-or diverging rank never hangs the others.
+or diverging rank never hangs the others. On a process mesh the process
+group's own timeout holds instead.
 """
 
 from __future__ import annotations
@@ -58,8 +73,9 @@ import torch
 
 from ..core.enforce import InvalidArgumentError, PreconditionNotMetError, enforce
 from ..core.mesh import Mesh
+from . import transport
 
-__all__ = ["ReduceOp", "all_gather", "all_reduce", "all_to_all", "axis_active", "axis_index",
+__all__ = ["ProcessGroup", "ReduceOp", "all_gather", "all_reduce", "all_to_all", "axis_active", "axis_index",
            "axis_size", "barrier", "broadcast", "pmax", "ppermute", "psum", "psum_scatter",
            "reduce", "reduce_scatter", "run_ranks", "shift", "split_axis"]
 
@@ -114,7 +130,8 @@ def all_gather(x, axis: Optional[AxisName] = None, concat_axis: int = 0):
     if axis is None:
         full = _tiled_all_gather(x)
         return [full] * len(x)
-    return _collective(x, axis, lambda xs: [_tiled_all_gather(xs, concat_axis)] * len(xs))
+    return _collective(x, axis, lambda xs: [_tiled_all_gather(xs, concat_axis)] * len(xs),
+                       lambda g: transport.all_gather(g, x, concat_axis))
 
 
 def reduce_scatter(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -146,7 +163,8 @@ def all_to_all(x, axis: Optional[AxisName] = None, split_axis_: int = 0, concat_
     concatenated along ``concat_axis``."""
     if axis is None:
         return _tiled_all_to_all(x, 0, 0)
-    return _collective(x, axis, lambda xs: _tiled_all_to_all(xs, split_axis_, concat_axis))
+    return _collective(x, axis, lambda xs: _tiled_all_to_all(xs, split_axis_, concat_axis),
+                       lambda g: transport.all_to_all(g, x, split_axis_, concat_axis))
 
 
 # -- the rank context and the rendezvous ------------------------------------------
@@ -262,7 +280,7 @@ class _Rendezvous:
 class _RankContext:
     __slots__ = ("mesh", "rank", "coords", "rendezvous")
 
-    def __init__(self, mesh: Mesh, rank: int, rendezvous: _Rendezvous) -> None:
+    def __init__(self, mesh: Mesh, rank: int, rendezvous: Optional[_Rendezvous]) -> None:
         self.mesh = mesh
         self.rank = rank
         self.coords = mesh.coords(rank)
@@ -277,17 +295,37 @@ def _context() -> Optional[_RankContext]:
 
 
 def run_ranks(mesh: Mesh, fn: Callable[[int], Any], timeout: float = DEFAULT_TIMEOUT) -> List[Any]:
-    """``fn(rank)`` for every rank of ``mesh``, in lockstep — one thread
-    a rank (inline for a mesh of one rank), each bound to its rank so the
-    axis-form collectives and :func:`axis_index` answer for it — and the
-    list of their results in rank order. The caller's grad mode carries
-    into the ranks. If a rank raises, the others' collectives abort and
-    the first rank's error is raised here (with its rank in the note).
+    """``fn(rank)`` for every rank of ``mesh`` that this process runs
+    (``mesh.local_ranks``), each bound to its rank so the axis-form
+    collectives and :func:`axis_index` answer for it, and the list of
+    their results in rank order.
+
+    The contract for callers: the result is the LOCAL ranks' results. On
+    a mesh of logical ranks that is every rank's (one thread a rank, in
+    lockstep; inline for a mesh of one rank); on a process mesh it is this
+    process's own rank's alone (inline, one entry). So ``run_ranks(...)[0]``
+    is a value every rank holds alike (a replicated result) on either
+    mesh, and ``zip(mesh.local_ranks, run_ranks(...))`` pairs each result
+    with its rank. The caller's grad mode carries into the ranks. If a
+    rank raises, the others' collectives abort and the first rank's error
+    is raised here (with its rank in the note); on a process mesh the
+    other processes' collectives wait out the process group's timeout.
 
     A run repeats bit for bit: each rank's autograd nodes are recorded
     by its own thread, whose sequence numbers (thread-local in torch)
     order the one backward's gradient sums, and a collective's ops run
     on its group's first rank, not on whichever rank arrived last."""
+    if mesh.is_process_mesh:
+        prev = _context()
+        _LOCAL.ctx = _RankContext(mesh, mesh.process_rank, None)
+        try:
+            return [fn(mesh.process_rank)]
+        except BaseException as e:
+            e.add_note(f"raised in rank {mesh.process_rank} of the process mesh "
+                       f"{dict(mesh.shape)}")
+            raise
+        finally:
+            _LOCAL.ctx = prev
     rv = _Rendezvous(mesh, timeout)
     n = mesh.size
     results: List[Any] = [None] * n
@@ -338,10 +376,15 @@ def _axes(axis: AxisName) -> Tuple[str, ...]:
     return tuple(a for a in ctx.mesh.axis_names if a in names)
 
 
-def _collective(x: Any, axes: AxisName, fn: Callable[[List[Any]], List[Any]]) -> Any:
-    """This rank's result of ``fn`` over its group's values along ``axes``."""
+def _collective(x: Any, axes: AxisName, fn: Callable[[List[Any]], List[Any]],
+                proc: Callable[[Any], Any]) -> Any:
+    """This rank's result over its group along ``axes``: ``fn`` of the
+    group's values on a mesh of logical ranks, ``proc(group)`` (an
+    ``ops.transport`` op on the mesh's process group) on a process mesh."""
     axes = _axes(axes)
     ctx = _context()
+    if ctx.mesh.is_process_mesh:
+        return proc(ctx.mesh.group(axes))
     return ctx.rendezvous.exchange(ctx.rank, axes, x, fn)
 
 
@@ -369,7 +412,15 @@ def axis_size(axis: str) -> int:
 
 def psum(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
     """``lax.psum``: the group's rank-order sum, one tensor for all."""
-    return _collective(x, axis, lambda xs: [_rank_reduce(xs)] * len(xs))
+    return _collective(x, axis, lambda xs: [_rank_reduce(xs)] * len(xs),
+                       lambda g: transport.all_reduce(g, x, ReduceOp.SUM))
+
+
+def _reduce_all(x: torch.Tensor, axis: AxisName, op: str = ReduceOp.SUM) -> torch.Tensor:
+    """The group's reduction by ``op`` (sum, avg, max, min, prod), one
+    tensor for all: the axis form of :func:`all_reduce`."""
+    return _collective(x, axis, lambda xs: [_rank_reduce(xs, op)] * len(xs),
+                       lambda g: transport.all_reduce(g, x, op))
 
 
 def psum_scatter(x: torch.Tensor, axis: AxisName, dim: int = 0) -> torch.Tensor:
@@ -384,26 +435,28 @@ def psum_scatter(x: torch.Tensor, axis: AxisName, dim: int = 0) -> torch.Tensor:
                 "ranks", InvalidArgumentError)
         return list(_rank_reduce(xs).chunk(K, dim=dim))
 
-    return _collective(x, axis, fn)
+    return _collective(x, axis, fn, lambda g: transport.reduce_scatter(g, x, dim))
 
 
 def pmax(x: torch.Tensor, axis: AxisName) -> torch.Tensor:
     """``lax.pmax``: the elementwise maximum over the group."""
-    return _collective(x, axis, lambda xs: [_rank_reduce(xs, ReduceOp.MAX)] * len(xs))
+    return _reduce_all(x, axis, ReduceOp.MAX)
 
 
 def ppermute(x: torch.Tensor, axis: str, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
     """``lax.ppermute``: for each pair (i, j), the rank at coordinate j
     on ``axis`` receives the tensor of the rank at coordinate i; a rank
     that no pair sends to receives zeros. A rank may send None (it has
-    nothing to send, and its receiver reads nothing): None arrives."""
+    nothing to send, and its receiver reads nothing): None arrives. On a
+    process mesh every rank passes a tensor (the receiver's buffer takes
+    its shape)."""
     def fn(xs):
         out, sent = [None] * len(xs), [False] * len(xs)
         for i, j in perm:
             out[j], sent[j] = xs[i], True
         return [o if sent[j] else torch.zeros_like(xs[j]) for j, o in enumerate(out)]
 
-    return _collective(x, axis, fn)
+    return _collective(x, axis, fn, lambda g: transport.ppermute(g, x, perm))
 
 
 def shift(x: torch.Tensor, axis: str, offset: int = 1) -> torch.Tensor:
@@ -417,8 +470,10 @@ def broadcast(x: Optional[torch.Tensor], axis: str, root: int = 0) -> torch.Tens
     """``c_broadcast``: every rank of the group receives the tensor of the
     rank at coordinate ``root`` (the others may pass None). The JAX
     package masks and psums; here the root's tensor is handed over as it
-    is, so nothing is computed for the other ranks' values."""
-    return _collective(x, axis, lambda xs: [xs[root]] * len(xs))
+    is, so nothing is computed for the other ranks' values. On a process
+    mesh every rank passes a tensor of the root's shape."""
+    return _collective(x, axis, lambda xs: [xs[root]] * len(xs),
+                       lambda g: transport.broadcast(g, x, root))
 
 
 def reduce(x: torch.Tensor, axis: str, root: int = 0, op: str = ReduceOp.SUM) -> torch.Tensor:
@@ -430,7 +485,7 @@ def reduce(x: torch.Tensor, axis: str, root: int = 0, op: str = ReduceOp.SUM) ->
         total = _rank_reduce(xs, op)
         return [total if i == root else torch.zeros_like(total) for i in range(len(xs))]
 
-    return _collective(x, axis, fn)
+    return _collective(x, axis, fn, lambda g: transport.reduce(g, x, root, op))
 
 
 def split_axis(x: torch.Tensor, axis: str, dim: int = -1) -> torch.Tensor:
@@ -448,5 +503,45 @@ def split_axis(x: torch.Tensor, axis: str, dim: int = -1) -> torch.Tensor:
 def barrier(axis: AxisName) -> None:
     """Wait until every rank of the group along ``axis`` has arrived. The
     JAX package's is a no-op (any collective of a compiled program is a
-    barrier); here the ranks are threads, and this is a rendezvous."""
-    _collective(None, axis, lambda xs: [None] * len(xs))
+    barrier); here the ranks are threads (a rendezvous) or processes
+    (``torch.distributed.barrier`` on the group)."""
+    _collective(None, axis, lambda xs: [None] * len(xs), transport.barrier)
+
+
+class ProcessGroup:
+    """The eager-API shape of the reference's ProcessGroup
+    (ProcessGroup.h:53) bound to a mesh axis, as in the JAX package: its
+    methods are the axis-form collectives over ``axis``, called from
+    per-rank code under :func:`run_ranks` on either kind of mesh; results
+    are returned (no Task futures)."""
+
+    def __init__(self, axis: str) -> None:
+        self.axis = axis
+
+    def all_reduce(self, x: torch.Tensor, op: str = ReduceOp.SUM) -> torch.Tensor:
+        return _reduce_all(x, self.axis, op)
+
+    def all_gather(self, x: torch.Tensor, concat_axis: int = 0) -> torch.Tensor:
+        return all_gather(x, self.axis, concat_axis)
+
+    def reduce_scatter(self, x: torch.Tensor, scatter_axis: int = 0) -> torch.Tensor:
+        return psum_scatter(x, self.axis, scatter_axis)
+
+    def all_to_all(self, x: torch.Tensor, split_axis_: int = 0,
+                   concat_axis: int = 0) -> torch.Tensor:
+        return all_to_all(x, self.axis, split_axis_, concat_axis)
+
+    def broadcast(self, x: torch.Tensor, root: int = 0) -> torch.Tensor:
+        return broadcast(x, self.axis, root)
+
+    def reduce(self, x: torch.Tensor, root: int = 0, op: str = ReduceOp.SUM) -> torch.Tensor:
+        return reduce(x, self.axis, root, op)
+
+    def rank(self) -> int:
+        return axis_index(self.axis)
+
+    def size(self) -> int:
+        return axis_size(self.axis)
+
+    def barrier(self) -> None:
+        barrier(self.axis)

@@ -29,6 +29,16 @@ paths:
   ``distributed.comm_fusion`` (fp32, bf16 or int8 with error feedback).
   ZeRO 1/2 update flat 1/K shards.
 
+On a process mesh (``core.mesh.make_process_mesh``) the fused and stage-2
+paths run this process's rank (``ops.collectives.run_ranks``; the
+collectives map onto ``torch.distributed``), and a :class:`RankSlices`
+holds this process's part alone (``full()`` gathers it over the group).
+:meth:`SpmdTrainer.save` writes the global layout from rank 0 after the
+gather, as the JAX trainer's multi-host save does; ``load`` gives each
+process its part. The GSPMD path needs one autograd graph over every
+rank, which cannot span processes: it raises there (ROADMAP item 7b's
+second half brings differentiable collectives).
+
 A rank of the threaded paths runs the forward through its own copy of
 the model (``pipeline.meta_clone``) bound to its own leaves
 (``p.detach().requires_grad_()``: no copy), and takes
@@ -60,12 +70,13 @@ from torch import nn
 from torch.func import functional_call
 
 from ..core.device import resolve_device
-from ..core.enforce import InvalidArgumentError, enforce
+from ..core.enforce import InvalidArgumentError, UnavailableError, enforce
 from ..core.mesh import Mesh
 from ..core.profiler import RecordEvent
 from ..distributed.meta_optimizers import _tmap
 from ..nn.layers import Dropout
 from ..ops import collectives as coll
+from ..ops import transport
 from .pipeline import bind, meta_clone
 
 __all__ = ["DataParallel", "RankSlices", "SpmdTrainer", "make_sharding_rules",
@@ -77,32 +88,60 @@ _FLOATS = (torch.float32, torch.bfloat16)
 
 
 class RankSlices:
-    """One tensor held as a part a rank: ``parts[r]`` is rank r's. ``dim``
-    is the dimension the whole tensor is cut along (rank order), or None
-    for a per-rank value (the whole is the parts stacked on a new leading
-    dimension, the JAX trainer's layout for per-rank state)."""
+    """One tensor held as a part a rank, ``n`` parts in all: ``parts[r]``
+    is rank r's. ``dim`` is the dimension the whole tensor is cut along
+    (rank order), or None for a per-rank value (the whole is the parts
+    stacked on a new leading dimension, the JAX trainer's layout for
+    per-rank state). On a process mesh ``parts`` holds this process's part
+    alone, the ``own``-th of the ``n``, and ``group`` (a process mesh's
+    group over the axes the parts are cut over) is where :meth:`full`
+    gathers the others."""
 
-    __slots__ = ("parts", "dim")
+    __slots__ = ("parts", "dim", "n", "own", "group")
 
-    def __init__(self, parts: Sequence[torch.Tensor], dim: Optional[int]) -> None:
+    def __init__(self, parts: Sequence[torch.Tensor], dim: Optional[int], n: Optional[int] = None,
+                 own: Optional[int] = None, group=None) -> None:
         self.parts = list(parts)
         self.dim = dim
+        self.n = len(self.parts) if n is None else n
+        self.own, self.group = own, group
 
     @classmethod
-    def cut(cls, whole: torch.Tensor, n: int, dim: Optional[int]) -> "RankSlices":
+    def cut(cls, whole: torch.Tensor, n: int, dim: Optional[int], own: Optional[int] = None,
+            group=None) -> "RankSlices":
         """``whole`` cut into ``n`` slices along ``dim`` (each its own
         storage); ``dim=None``: ``whole`` is stacked per-rank values
-        ([n, …])."""
+        ([n, …]). ``own``: keep the ``own``-th slice alone (a process's)."""
         parts = whole.unbind(0) if dim is None else whole.chunk(n, dim)
         enforce(len(parts) == n, f"{tuple(whole.shape)} does not cut into {n} ranks on {dim}",
                 InvalidArgumentError)
-        return cls([p.clone() for p in parts], dim)
+        if own is not None:
+            parts = parts[own:own + 1]
+        return cls([p.clone() for p in parts], dim, n, own, group)
+
+    def recut(self, whole: torch.Tensor) -> "RankSlices":
+        """``whole`` cut as this one is."""
+        return RankSlices.cut(whole, self.n, self.dim, self.own, self.group)
+
+    def with_parts(self, parts: Sequence[torch.Tensor]) -> "RankSlices":
+        return RankSlices(parts, self.dim, self.n, self.own, self.group)
+
+    def part(self, r: int) -> torch.Tensor:
+        """Rank r's part (a process's own, whatever r, on a process mesh)."""
+        return self.parts[0] if self.own is not None else self.parts[r]
 
     def full(self) -> torch.Tensor:
+        """The whole tensor; on a process mesh an all-gather over the group
+        (every process of the group calls)."""
+        if self.own is not None:
+            x = self.parts[0]
+            return (transport.all_gather(self.group, x[None], 0) if self.dim is None
+                    else transport.all_gather(self.group, x, self.dim))
         return torch.stack(self.parts) if self.dim is None else torch.cat(self.parts, self.dim)
 
     def __repr__(self) -> str:
-        return f"RankSlices({len(self.parts)} x {tuple(self.parts[0].shape)}, dim={self.dim})"
+        return (f"RankSlices({len(self.parts)} of {self.n} x {tuple(self.parts[0].shape)}, "
+                f"dim={self.dim})")
 
 
 def full_tree(tree: Any) -> Any:
@@ -112,12 +151,43 @@ def full_tree(tree: Any) -> Any:
 
 def _place_like(template: Any, tree: Any) -> Any:
     """``tree``'s whole tensors cut as ``template``'s leaves are."""
-    return _tmap(lambda t, x: RankSlices.cut(x, len(t.parts), t.dim)
-                     if isinstance(t, RankSlices) else x, template, tree)
+    return _tmap(lambda t, x: t.recut(x) if isinstance(t, RankSlices) else x, template, tree)
 
 
 def _rank_view(tree: Any, r: int) -> Any:
-    return _tmap(lambda x: x.parts[r] if isinstance(x, RankSlices) else x, tree)
+    return _tmap(lambda x: x.part(r) if isinstance(x, RankSlices) else x, tree)
+
+
+def _with_parts(template: Any, *trees: Any) -> Any:
+    """The held ranks' new values (one tree a held rank, in rank order) as
+    ``template``'s leaves hold them: RankSlices get the parts, the rest the
+    first tree's value (every rank holds it alike)."""
+    return _tmap(lambda t, *new: t.with_parts(new) if isinstance(t, RankSlices) else new[0],
+                 template, *trees)
+
+
+def _axes_owner(mesh: Mesh, axes: Sequence[str]):
+    """(parts over the group of ``axes``, this process's part or None on a
+    mesh of logical ranks, its group or None)."""
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    if not mesh.is_process_mesh:
+        return n, None, None
+    c = mesh.coords(mesh.process_rank)
+    own = 0
+    for a in axes:
+        own = own * mesh.shape[a] + c[a]
+    return n, own, mesh.group(tuple(axes))
+
+
+def _axes_cut(mesh: Mesh, axes: Sequence[str], whole: torch.Tensor, dim: Optional[int]
+              ) -> RankSlices:
+    """``whole`` as RankSlices over the group of ``axes`` (in mesh order):
+    every part on a mesh of logical ranks; this process's part and its
+    group on a process mesh."""
+    n, own, g = _axes_owner(mesh, axes)
+    return RankSlices.cut(whole, n, dim, own, g)
 
 
 def _choose_shard_dim(shape: Sequence[int], n: int) -> int:
@@ -165,7 +235,7 @@ def _cut_by_layout(x: Any, layout: Layout, mesh: Mesh) -> Any:
     (whole when it names none)."""
     for dim, axis in enumerate(layout):
         if axis is not None:
-            return RankSlices.cut(x, mesh.shape[axis], dim)
+            return _axes_cut(mesh, (axis,), x, dim)
     return x
 
 
@@ -187,6 +257,11 @@ class SpmdTrainer:
     global batch (leading dim divisible by the batch ranks on the threaded
     paths) and returns the mean loss (a 0-dim tensor). ``device`` (None:
     the card, raising without one) must be the mesh's device.
+
+    On a process mesh every process builds the trainer from the same
+    model and seed and passes the same global batch; each runs its own
+    rank. The fused and stage-2 paths run there; the GSPMD path raises
+    ``UnavailableError``.
     """
 
     def __init__(self, model: nn.Module, optimizer, loss_fn: Callable[..., torch.Tensor],
@@ -197,6 +272,8 @@ class SpmdTrainer:
         dev = resolve_device(device)
         enforce(dev.type == mesh.device.type,
                 f"the mesh lives on {mesh.device}, the trainer on {dev}", InvalidArgumentError)
+        if mesh.is_process_mesh:
+            dev = mesh.device
         self.device = dev
         self.model = model.to(dev)
         self.loss_fn = loss_fn
@@ -208,9 +285,11 @@ class SpmdTrainer:
         for m in model.modules():
             if isinstance(m, Dropout):
                 m.generator = self._gen
-        # the batch axes in the mesh's order (the collectives' group order)
-        self._axes = tuple(a for a in mesh.axis_names
-                           if a in batch_axes and mesh.shape[a] > 1)
+        # the batch axes in the mesh's order (the collectives' group order);
+        # a process mesh keeps its axes of size 1 (a world of one runs the
+        # fused path on its communicator too)
+        self._axes = tuple(a for a in mesh.axis_names if a in batch_axes
+                           and (mesh.shape[a] > 1 or mesh.is_process_mesh))
         state = {"params": {k: p.detach() for k, p in self.model.named_parameters()},
                  "buffers": {k: b.detach() for k, b in self.model.named_buffers()}}
 
@@ -218,6 +297,12 @@ class SpmdTrainer:
         if comm_cfg is not None and self._axes and zero_stage <= 2:
             self._init_fused(optimizer, state, comm_cfg, strategy, zero_stage)
             return
+        enforce(not mesh.is_process_mesh or zero_stage == 2,
+                f"SpmdTrainer over a process mesh runs the fused path (comm=, ZeRO stage <= 2, "
+                f"a batch axis above size 1) and the stage-2 path (comm=None, zero_stage=2); "
+                f"the GSPMD path (comm=None, stage {zero_stage}) needs one autograd graph over "
+                f"every rank, which cannot span processes: it comes with ROADMAP item 7b's "
+                f"second half (differentiable collectives)", UnavailableError)
         if strategy is not None:
             from ..distributed.meta_optimizers import apply_strategy
 
@@ -259,11 +344,13 @@ class SpmdTrainer:
 
     def _rank_setup(self, axes: Sequence[str]) -> None:
         """A mesh of ``axes`` alone (ranks on other axes would compute the
-        same) and a model copy a rank."""
-        self._rank_mesh = Mesh({a: self.mesh.shape[a] for a in self.mesh.axis_names
-                                if a in axes}, self.mesh.device)
-        self._rank_models = [meta_clone(self.model) for _ in range(self._rank_mesh.size)]
-        for m in self._rank_models:
+        same; a process mesh is kept whole: each process is its own rank)
+        and a model copy a rank this process runs."""
+        self._rank_mesh = self.mesh if self.mesh.is_process_mesh else \
+            Mesh({a: self.mesh.shape[a] for a in self.mesh.axis_names if a in axes},
+                 self.mesh.device)
+        self._rank_models = {r: meta_clone(self.model) for r in self._rank_mesh.local_ranks}
+        for m in self._rank_models.values():
             m.train()
 
     def _batch_shard(self, xs: Tuple[torch.Tensor, ...], rank: int) -> Tuple[torch.Tensor, ...]:
@@ -309,7 +396,7 @@ class SpmdTrainer:
                 for k, b in bufs.items()}
 
     def _unbind(self) -> None:
-        for mod in self._rank_models:
+        for mod in self._rank_models.values():
             for m in mod.modules():
                 for slot in (m._parameters, m._buffers):
                     for k in slot:
@@ -347,15 +434,16 @@ class SpmdTrainer:
             node = node.inner
         self.optimizer = optimizer
         self.reducer = reducer
-        K = reducer.K
         opt_state = optimizer.init(state["params"])
         tags = optimizer.state_layout(opt_state)
 
         def place(x, tag):
-            if tag == "local":
-                return RankSlices([x.clone() for _ in range(K)], None)
+            if tag == "local":   # the same start on every rank
+                n, own, g = _axes_owner(self.mesh, axes)
+                return RankSlices([x.clone() for _ in range(1 if own is not None else n)],
+                                  None, n, own, g)
             if tag == "shard":
-                return RankSlices.cut(x, K, 0)
+                return _axes_cut(self.mesh, axes, x, 0)
             return x
 
         self.state = state
@@ -379,9 +467,7 @@ class SpmdTrainer:
         res = coll.run_ranks(self._rank_mesh, rank_fn)
         self._unbind()
         self.state = {"params": res[0][0], "buffers": res[0][3]}
-        self.opt_state = _tmap(
-            lambda old, *new: RankSlices(new, old.dim) if isinstance(old, RankSlices)
-            else new[0], self.opt_state, *(r[1] for r in res))
+        self.opt_state = _with_parts(self.opt_state, *(r[1] for r in res))
         return res[0][2]
 
     # -- the stage-2 reduce-scatter path ----------------------------------------------------
@@ -437,13 +523,16 @@ class SpmdTrainer:
 
         res = coll.run_ranks(self._rank_mesh, rank_fn)
         self._unbind()
+        self.state = {"params": res[0][0], "buffers": res[0][3]}
+        if self.mesh.is_process_mesh:   # this process's slice is its own result's
+            self.opt_state = _with_parts(self.opt_state, res[0][1])
+            return res[0][2]
         # rank r's slice j: the first rank at sharding coordinate j holds it
         owner = {}
         for r in range(self._rank_mesh.size):
             owner.setdefault(self._rank_mesh.coords(r).get("sharding", 0), r)
-        self.state = {"params": res[0][0], "buffers": res[0][3]}
         self.opt_state = _tmap(
-            lambda old, *new: RankSlices([new[owner[j]] for j in range(len(old.parts))], old.dim)
+            lambda old, *new: old.with_parts([new[owner[j]] for j in range(old.n)])
             if isinstance(old, RankSlices) else new[0], self.opt_state, *(r[1] for r in res))
         return res[0][2]
 
@@ -486,27 +575,51 @@ class SpmdTrainer:
         per-rank values stacked ``[K, …]``."""
         return full_tree(self.state), full_tree(self.opt_state)
 
-    def restore(self, state: Tree, opt_state: Tree, step: Optional[int] = None) -> None:
+    def restore(self, state: Tree, opt_state: Tree, step: Optional[int] = None,
+                local: bool = False) -> None:
         """Install whole trees (as :meth:`full_state` gives them: from a
         snapshot, or converted from the JAX trainer by ``convert``) into the
-        live ones by key path, cut as the live leaves are."""
+        live ones by key path, cut as the live leaves are (on a process mesh
+        every process calls: the live trees are gathered first). ``local``:
+        the trees hold the parts this process holds (``convert``'s
+        ``rank=`` forms), installed as they are, with no gather."""
         from ..io.checkpoint import graft_into
 
-        cur_state, cur_opt = self.full_state()
-        self.state = _place_like(self.state, graft_into(cur_state, state))
-        self.opt_state = _place_like(self.opt_state, graft_into(cur_opt, opt_state))
+        if local:
+            enforce(self.mesh.is_process_mesh, "restore(local=True) is a process mesh's",
+                    InvalidArgumentError)
+
+            def held(t, x):   # graft_into hands a RankSlices leaf's part back as it came
+                if isinstance(t, RankSlices):
+                    return t.with_parts([torch.as_tensor(np.asarray(x) if not isinstance(
+                        x, torch.Tensor) else x).to(t.parts[0])])
+                return x
+
+            self.state = _tmap(held, self.state, graft_into(self.state, state))
+            self.opt_state = _tmap(held, self.opt_state, graft_into(self.opt_state, opt_state))
+        else:
+            cur_state, cur_opt = self.full_state()
+            self.state = _place_like(self.state, graft_into(cur_state, state))
+            self.opt_state = _place_like(self.opt_state, graft_into(cur_opt, opt_state))
         if step is not None:
             self.global_step = int(step)
 
     def save(self, path: str) -> None:
         """State, optimizer state (:meth:`full_state`'s global layout), the
         trainer's generator state and the step, in the JAX trainer's
-        snapshot schema (the port's own trees)."""
+        snapshot schema (the port's own trees). On a process mesh every
+        process calls: the parts are gathered, rank 0 writes, and all wait
+        until the file is there."""
         from ..io.checkpoint import save_train_state
 
         state, opt = self.full_state()
+        if self.mesh.is_process_mesh and self.mesh.process_rank != 0:
+            coll.run_ranks(self.mesh, lambda r: coll.barrier(self.mesh.axis_names))
+            return
         save_train_state(path, state, opt_state=opt, rng=self._gen.get_state(),
                          step=self.global_step)
+        if self.mesh.is_process_mesh:
+            coll.run_ranks(self.mesh, lambda r: coll.barrier(self.mesh.axis_names))
 
     def load(self, path: str) -> None:
         """Restore a snapshot written by :meth:`save`: the values re-cut by

@@ -2,16 +2,26 @@
 
 Port of ``paddle_tpu.ps.sharded_cache`` (HeterComm's multi-GPU sharded
 KV serving: ``split_input_to_shard``, ``walk_to_dest``, ``pull_sparse``,
-``push_sparse``). The cache or tier state is one set of contiguous
-``[C, ·]`` columns; shard k owns the row block ``[k·C/K, (k+1)·C/K)``
-(``shard_state`` gives the K blocks as views, so owner-side updates land
-in place). The JAX package runs the per-rank body inside ``shard_map``;
-here the ranks of a ``core.mesh`` run in lockstep: per-rank functions
-(which take the rank index and K where the JAX code calls
-``lax.axis_index`` and ``psum(1)``), then a collective over the list of
-per-rank tensors in rank order (``ops.collectives``), and so on. No
-collective sits inside a per-rank function, so a mesh over distinct
-devices replaces only the collectives.
+``push_sparse``). Shard k owns the row block ``[k·C/K, (k+1)·C/K)`` of
+the cache or tier state; rows are GLOBAL ids everywhere, and a row's
+owner is ``row // (C/K)``. The JAX package runs the per-rank body inside
+``shard_map``; here per-rank functions (which take the rank index and K
+where the JAX code calls ``lax.axis_index`` and ``psum(1)``) alternate
+with collectives, and no collective sits inside a per-rank function, so
+the two kinds of mesh differ only in the collectives and in what a
+caller holds:
+
+- on a mesh of logical ranks (``core.mesh.make_mesh``) the caller holds
+  every rank: the state is one set of contiguous ``[C, ·]`` columns
+  (``shard_state`` gives the K blocks as views, so owner-side updates
+  land in place), the functions take lists of the K ranks' tensors in
+  rank order, and the collectives are ``ops.collectives``' list form;
+- on a process mesh (``core.mesh.make_process_mesh``) a process holds
+  its own rank: its state is its ``C/K``-row block alone, the functions
+  take its own tensors (``axis=`` names the mesh axis, under
+  ``ops.collectives.run_ranks``), and the collectives are the axis form
+  over that axis (``torch.distributed``). The key map stays replicated:
+  every process builds the same map from the same keys.
 
 Two routings, as in the JAX package:
 
@@ -71,6 +81,56 @@ __all__ = [
 
 State = Dict[str, torch.Tensor]
 _I64 = torch.int64
+
+
+class _Ranks:
+    """The ranks of a K-shard path that the caller holds (``ranks``, in rank
+    order) and their exchange: the list form over all K on a mesh of
+    logical ranks (``axis`` None), the axis form over ``axis`` for the one
+    rank a process holds. Every method takes and returns one entry per
+    held rank."""
+
+    def __init__(self, K: int, ranks: Sequence[int], axis: Optional[str] = None) -> None:
+        self.K, self.ranks, self.axis = K, list(ranks), axis
+
+    @classmethod
+    def of(cls, n: int, axis: Optional[str]) -> "_Ranks":
+        """All ``n`` ranks (``axis`` None), or this process's rank over ``axis``."""
+        if axis is None:
+            return cls(n, range(n))
+        return cls(collectives.axis_size(axis), [collectives.axis_index(axis)], axis)
+
+    def all_to_all(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        if self.axis is None:
+            return collectives.all_to_all(xs)
+        return [collectives.all_to_all(xs[0], self.axis, 0, 0)]
+
+    def all_gather(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        if self.axis is None:
+            return collectives.all_gather(xs)
+        return [collectives.all_gather(xs[0], self.axis, 0)]
+
+    def reduce_scatter(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        if self.axis is None:
+            return collectives.reduce_scatter(xs)
+        return [collectives.psum_scatter(xs[0], self.axis, 0)]
+
+    def mean(self, xs: List[torch.Tensor]) -> torch.Tensor:
+        """The ranks' mean (the sum divided by K), one tensor."""
+        if self.axis is None:
+            return collectives.all_reduce(xs, collectives.ReduceOp.AVG)[0]
+        return collectives.psum(xs[0], self.axis) / self.K
+
+    def sum(self, xs: List[torch.Tensor]) -> torch.Tensor:
+        if self.axis is None:
+            return collectives.all_reduce(xs)[0]
+        return collectives.psum(xs[0], self.axis)
+
+
+def _held(x, axis: Optional[str]) -> list:
+    """A per-rank argument as the list of held ranks' entries: the list
+    itself, or [x] for a process's own (``axis`` set)."""
+    return list(x) if axis is None else [x]
 
 
 def shard_state(state: State, K: int) -> List[State]:
@@ -207,25 +267,35 @@ def _check_dedup(dedup, pre_dedup: bool) -> None:
             "dedup= requires pre_dedup=True (raw routing ignores it)")
 
 
-def routed_cache_pull(shards: Sequence[State], rows: Sequence[torch.Tensor],
-                      cap_factor: float = 2.0, pre_dedup: bool = True,
-                      dedup: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None
-                      ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+def routed_cache_pull(shards, rows, cap_factor: float = 2.0, pre_dedup: bool = True,
+                      dedup=None, axis: Optional[str] = None):
     """Key-routed pull: each rank's [m] global rows → ([m, 1+dim] values
     per rank, overflow count summed over the ranks). Local dedup, split
     to shard, all_to_all request, owner gathers, all_to_all reply,
     scatter back to batch order. Sentinel rows (no owner) pull zeros.
-    ``dedup``: a precomputed ``routed_dedup`` pair per rank."""
+    ``dedup``: a precomputed ``routed_dedup`` pair per rank.
+
+    Lists of the K ranks' shards, rows and dedup pairs on a mesh of
+    logical ranks; with ``axis`` (a process mesh's rank under
+    ``run_ranks``) this rank's own block, rows and pair, and its own
+    values back."""
     _check_dedup(dedup, pre_dedup)
-    K = len(shards)
+    rk = _Ranks.of(len(shards), axis)
+    outs, ov = _routed_pull(rk, _held(shards, axis), _held(rows, axis), cap_factor,
+                            pre_dedup, None if dedup is None else _held(dedup, axis))
+    return (outs if axis is None else outs[0]), ov
+
+
+def _routed_pull(rk: _Ranks, shards, rows, cap_factor, pre_dedup, dedup):
+    K = rk.K
     shard_rows = shards[0]["embed_w"].shape[0]
-    reqs = [_pull_request(rows[r], K, shard_rows, cap_factor, pre_dedup,
-                          None if dedup is None else dedup[r]) for r in range(K)]
-    served = collectives.all_to_all([q[0] for q in reqs])
-    vals = [_pull_serve(shards[r], served[r], r) for r in range(K)]
-    back = collectives.all_to_all(vals)
-    outs = [_pull_reply(back[r], reqs[r][1], reqs[r][2], rows[r].shape[0]) for r in range(K)]
-    return outs, collectives.all_reduce([q[3] for q in reqs])[0]
+    reqs = [_pull_request(rows[i], K, shard_rows, cap_factor, pre_dedup,
+                          None if dedup is None else dedup[i]) for i in range(len(rk.ranks))]
+    served = rk.all_to_all([q[0] for q in reqs])
+    vals = [_pull_serve(shards[i], served[i], r) for i, r in enumerate(rk.ranks)]
+    back = rk.all_to_all(vals)
+    outs = [_pull_reply(back[i], q[1], q[2], rows[i].shape[0]) for i, q in enumerate(reqs)]
+    return outs, rk.sum([q[3] for q in reqs])
 
 
 def _push_request(rows, grads, shows, clicks, K, shard_rows, cap_factor, pre_dedup, dedup):
@@ -259,59 +329,77 @@ def _owner_push(state: State, rows: torch.Tensor, grads: torch.Tensor, shows: to
                             clicks.contiguous(), cfg)
 
 
-def routed_cache_push(shards: Sequence[State], rows: Sequence[torch.Tensor],
-                      grads: Sequence[torch.Tensor], shows: Sequence[torch.Tensor],
-                      clicks: Sequence[torch.Tensor], cfg: CacheConfig,
-                      cap_factor: float = 2.0, pre_dedup: bool = True,
-                      dedup: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
-                      push_fn: Optional[Callable] = None) -> torch.Tensor:
+def routed_cache_push(shards, rows, grads, shows, clicks, cfg: CacheConfig,
+                      cap_factor: float = 2.0, pre_dedup: bool = True, dedup=None,
+                      push_fn: Optional[Callable] = None,
+                      axis: Optional[str] = None) -> torch.Tensor:
     """Key-routed push: local merge_grad, split to shard, one all_to_all
     pair ships each owner only its rows and payloads, the owner applies
     the batch-scaled push (``push_fn``, default ``cache_push``; the hot
     tier passes ``hot_scatter_apply``) to its shard IN PLACE. Returns the
-    overflow count summed over the ranks."""
+    overflow count summed over the ranks. ``axis``: see
+    :func:`routed_cache_pull`."""
     _check_dedup(dedup, pre_dedup)
-    K = len(shards)
+    rk = _Ranks.of(len(shards), axis)
+    return _routed_push(rk, *(_held(x, axis) for x in (shards, rows, grads, shows, clicks)),
+                        cfg, cap_factor, pre_dedup,
+                        None if dedup is None else _held(dedup, axis), push_fn)
+
+
+def _routed_push(rk: _Ranks, shards, rows, grads, shows, clicks, cfg, cap_factor, pre_dedup,
+                 dedup, push_fn):
+    K = rk.K
     shard_rows = shards[0]["embed_w"].shape[0]
-    reqs = [_push_request(rows[r], grads[r], shows[r], clicks[r], K, shard_rows, cap_factor,
-                          pre_dedup, None if dedup is None else dedup[r]) for r in range(K)]
-    rrow = collectives.all_to_all([q[0] for q in reqs])
-    rpay = collectives.all_to_all([q[1] for q in reqs])
-    for r in range(K):
-        pay = rpay[r].reshape(-1, rpay[r].shape[-1])
-        _owner_push(shards[r], rrow[r].reshape(-1), pay[:, :-2], pay[:, -2], pay[:, -1], r,
+    reqs = [_push_request(rows[i], grads[i], shows[i], clicks[i], K, shard_rows, cap_factor,
+                          pre_dedup, None if dedup is None else dedup[i])
+            for i in range(len(rk.ranks))]
+    rrow = rk.all_to_all([q[0] for q in reqs])
+    rpay = rk.all_to_all([q[1] for q in reqs])
+    for i, r in enumerate(rk.ranks):
+        pay = rpay[i].reshape(-1, rpay[i].shape[-1])
+        _owner_push(shards[i], rrow[i].reshape(-1), pay[:, :-2], pay[:, -2], pay[:, -1], r,
                     cfg, push_fn)
-    return collectives.all_reduce([q[2] for q in reqs])[0]
+    return rk.sum([q[2] for q in reqs])
 
 
-def sharded_cache_pull(shards: Sequence[State], rows: Sequence[torch.Tensor]
-                       ) -> List[torch.Tensor]:
+def sharded_cache_pull(shards, rows, axis: Optional[str] = None):
     """Gathered pull: every shard gathers the values of the whole batch's
     rows it owns (zeros elsewhere), and a reduce-scatter assembles each
-    rank's slice (each row has exactly one owner, so the sum is exact)."""
-    K = len(shards)
+    rank's slice (each row has exactly one owner, so the sum is exact).
+    ``axis``: see :func:`routed_cache_pull`."""
+    rk = _Ranks.of(len(shards), axis)
+    outs = _gathered_pull(rk, _held(shards, axis), _held(rows, axis))
+    return outs if axis is None else outs[0]
+
+
+def _gathered_pull(rk: _Ranks, shards, rows):
     shard_rows = shards[0]["embed_w"].shape[0]
-    rows_all = collectives.all_gather(list(rows))
+    rows_all = rk.all_gather(list(rows))
     vals = []
-    for r in range(K):
-        loc = rows_all[r].to(_I64) - r * shard_rows
+    for i, r in enumerate(rk.ranks):
+        loc = rows_all[i].to(_I64) - r * shard_rows
         own = (loc >= 0) & (loc < shard_rows)
-        v = cache_pull(shards[r], loc.clamp(0, shard_rows - 1))
+        v = cache_pull(shards[i], loc.clamp(0, shard_rows - 1))
         vals.append(torch.where(own[:, None], v, torch.zeros((), dtype=v.dtype,
                                                               device=v.device)))
-    return collectives.reduce_scatter(vals)
+    return rk.reduce_scatter(vals)
 
 
-def sharded_cache_push(shards: Sequence[State], rows: Sequence[torch.Tensor],
-                       grads: Sequence[torch.Tensor], shows: Sequence[torch.Tensor],
-                       clicks: Sequence[torch.Tensor], cfg: CacheConfig,
-                       push_fn: Optional[Callable] = None) -> None:
+def sharded_cache_push(shards, rows, grads, shows, clicks, cfg: CacheConfig,
+                       push_fn: Optional[Callable] = None, axis: Optional[str] = None) -> None:
     """Gathered push: every shard runs the push on the whole gathered
     batch, rows it does not own mapped to the dropped sentinel; in place.
-    ``push_fn``: see :func:`routed_cache_push`."""
-    gathered = [collectives.all_gather(list(x)) for x in (rows, grads, shows, clicks)]
-    for r in range(len(shards)):
-        _owner_push(shards[r], *(g[r] for g in gathered), r, cfg, push_fn)
+    ``push_fn``: see :func:`routed_cache_push`; ``axis``: see
+    :func:`routed_cache_pull`."""
+    rk = _Ranks.of(len(shards), axis)
+    _gathered_push(rk, *(_held(x, axis) for x in (shards, rows, grads, shows, clicks)), cfg,
+                   push_fn)
+
+
+def _gathered_push(rk: _Ranks, shards, rows, grads, shows, clicks, cfg, push_fn):
+    gathered = [rk.all_gather(list(x)) for x in (rows, grads, shows, clicks)]
+    for i, r in enumerate(rk.ranks):
+        _owner_push(shards[i], *(g[i] for g in gathered), r, cfg, push_fn)
 
 
 def shard_spread_rows(rows: np.ndarray, capacity: int, n_shards: int) -> np.ndarray:
@@ -337,14 +425,23 @@ def select_routing(m_local: int, shard_rows: int, K: int, push_mode: str) -> Tup
     "allgather")``. ``m_local`` and ``shard_rows`` are accepted for a
     later recalibration and unused.
 
-    The rule was calibrated on the JAX package's 8-device virtual CPU
-    mesh and has not been measured on the card. The JAX rule's branch for
-    meshes that span processes (dense push routes at every K) never
-    applies here: the port's mesh is one process."""
+    When the job spans processes (``distributed.collective.
+    get_world_size() > 1``) a dense push routes at every K
+    (``("alltoall", "alltoall")``), the JAX rule's branch for meshes that
+    span processes (its cross-process sweep measured the gathered form's
+    whole-batch volume losing once a process boundary is in the path; the
+    sparse push keeps the K ≥ 4 threshold).
+
+    The rule was calibrated on the JAX package's CPU meshes and has not
+    been measured on the card."""
+    from ..distributed.collective import get_world_size
+
     push_mode = resolve_push_mode(push_mode)
     enforce(push_mode in ("dense", "sparse"),
             f"push_mode must be 'dense' or 'sparse', got {push_mode!r}")
     del m_local, shard_rows
+    if get_world_size() > 1 and push_mode == "dense":
+        return "alltoall", "alltoall"
     if K < 4:
         return "allgather", "allgather"
     return "alltoall", "alltoall"
@@ -394,16 +491,17 @@ def _local_grads(model: nn.Module, params, emb: torch.Tensor, dense_x: torch.Ten
     return loss.detach(), dict(zip(leaves, g)), emb_grad
 
 
-def _sharded_step_body(model, optimizer, cache_cfg, K, params, opt_state, shards, flat_rows,
-                       B, S, dense_x, labels, routing="auto", cap_factor=2.0, pre_dedup=True,
-                       push_fn=None):
-    """The sharded CTR step over the ranks: sharded pull, each rank's
-    forward/backward on its slice, dense grads and loss averaged over the
-    ranks (the Reducer role), one dense update (params are replicated),
-    sharded push. ``flat_rows``/``dense_x``/``labels``: per-rank lists;
-    rows are GLOBAL row ids, sentinel rows (≥ the global capacity) pull
-    zeros and drop their pushes. Returns (params, opt_state, loss,
-    overflow); the shards are updated in place."""
+def _sharded_step_body(model, optimizer, cache_cfg, rk: _Ranks, params, opt_state, shards,
+                       flat_rows, B, S, dense_x, labels, routing="auto", cap_factor=2.0,
+                       pre_dedup=True, push_fn=None):
+    """The sharded CTR step over the held ranks ``rk``: sharded pull, each
+    rank's forward/backward on its slice, dense grads and loss averaged
+    over the ranks (the Reducer role), one dense update (params are
+    replicated), sharded push. ``shards``/``flat_rows``/``dense_x``/
+    ``labels``: one entry a held rank; rows are GLOBAL row ids, sentinel
+    rows (≥ the global capacity) pull zeros and drop their pushes. Returns
+    (params, opt_state, loss, overflow); the shards are updated in place."""
+    K, n = rk.K, len(rk.ranks)
     shard_rows = shards[0]["embed_w"].shape[0]
     C_total = shard_rows * K
     pull_r, push_r = _resolve_routing(routing, flat_rows[0].shape[0], shard_rows, K,
@@ -415,28 +513,27 @@ def _sharded_step_body(model, optimizer, cache_cfg, K, params, opt_state, shards
         dedup = [routed_dedup(r, C_total) for r in flat_rows]
     zero = torch.zeros((), dtype=torch.int32, device=flat_rows[0].device)
     if pull_r == "alltoall":
-        emb, ov_pull = routed_cache_pull(shards, flat_rows, cap_factor, pre_dedup, dedup)
+        emb, ov_pull = _routed_pull(rk, shards, flat_rows, cap_factor, pre_dedup, dedup)
     else:
-        emb, ov_pull = sharded_cache_pull(shards, flat_rows), zero
+        emb, ov_pull = _gathered_pull(rk, shards, flat_rows), zero
 
-    local = [_local_grads(model, params, emb[r].reshape(B, S, -1), dense_x[r], labels[r])
-             for r in range(K)]
-    loss = collectives.all_reduce([lo for lo, _, _ in local], collectives.ReduceOp.AVG)[0]
-    grads = {k: collectives.all_reduce([g[k] for _, g, _ in local],
-                                       collectives.ReduceOp.AVG)[0] for k in params}
+    local = [_local_grads(model, params, emb[i].reshape(B, S, -1), dense_x[i], labels[i])
+             for i in range(n)]
+    loss = rk.mean([lo for lo, _, _ in local])
+    grads = {k: rk.mean([g[k] for _, g, _ in local]) for k in params}
     # local mean → global mean: 1/K on the embedding grads (exact for a
     # power-of-two K) so the push matches the unsharded step's
     emb_grads = [(eg / K).reshape(B * S, -1) for _, _, eg in local]
     new_params, new_opt = optimizer.update(grads, opt_state, params)
 
-    shows = [torch.ones(B * S, dtype=torch.float32, device=emb_grads[0].device)] * K
+    shows = [torch.ones(B * S, dtype=torch.float32, device=emb_grads[0].device)] * n
     clicks = [torch.repeat_interleave(lab.to(torch.float32), S) for lab in labels]
     with torch.no_grad():
         if push_r == "alltoall":
-            ov_push = routed_cache_push(shards, flat_rows, emb_grads, shows, clicks,
-                                        cache_cfg, cap_factor, pre_dedup, dedup, push_fn)
+            ov_push = _routed_push(rk, shards, flat_rows, emb_grads, shows, clicks, cache_cfg,
+                                   cap_factor, pre_dedup, dedup, push_fn)
         else:
-            sharded_cache_push(shards, flat_rows, emb_grads, shows, clicks, cache_cfg, push_fn)
+            _gathered_push(rk, shards, flat_rows, emb_grads, shows, clicks, cache_cfg, push_fn)
             ov_push = zero
     return new_params, new_opt, loss, ov_pull + ov_push
 
@@ -444,41 +541,54 @@ def _sharded_step_body(model, optimizer, cache_cfg, K, params, opt_state, shards
 def _make_sharded_step(model: nn.Module, optimizer, cache_cfg: CacheConfig, mesh: Mesh,
                        axis: str, routing, cap_factor: float, pre_dedup: bool,
                        rows_of: Callable, push_fn: Optional[Callable] = None) -> Callable:
-    """The step of the sharded factories: ``rows_of(state, K, *inputs)``
-    gives the K ranks' flat global rows of the batch ``inputs`` (its last
-    entry is [B, S]); the rest is :func:`_sharded_step_body` over
-    ``shard_state``. step(params, opt_state, state, *inputs, dense_x,
-    labels) → (params, opt_state, state, loss, overflow)."""
+    """The step of the sharded factories: ``rows_of(C_total, ranks, K,
+    *inputs)`` gives the held ranks' flat global rows of the batch
+    ``inputs`` (its last entry is [B, S], the GLOBAL batch); the rest is
+    :func:`_sharded_step_body`. step(params, opt_state, state, *inputs,
+    dense_x, labels) → (params, opt_state, state, loss, overflow). On a
+    mesh of logical ranks ``state`` is the whole ``[C, ·]`` state, cut by
+    ``shard_state``; on a process mesh it is this process's ``C/K``-row
+    block, and the step runs its rank under ``run_ranks``."""
     _check_routing_arg(routing)
     K = ps_shard_count(mesh, axis)
+
+    def body(rk, params, opt_state, shards, inputs, dense_x, labels):
+        B, S = inputs[-1].shape
+        C_total = shards[0]["embed_w"].shape[0] * K
+        pick = lambda x: [_split_batch(x, K)[r] for r in rk.ranks]
+        return _sharded_step_body(
+            model, optimizer, cache_cfg, rk, params, opt_state, shards,
+            rows_of(C_total, rk.ranks, K, *inputs), B // K, S, pick(dense_x), pick(labels),
+            routing, cap_factor, pre_dedup, push_fn)
 
     def step(params, opt_state, state, *args):
         *inputs, dense_x, labels = args
         _check_device(inputs[-1], mesh.device, "the batch")
-        B, S = inputs[-1].shape
-        new_p, new_o, loss, ov = _sharded_step_body(
-            model, optimizer, cache_cfg, K, params, opt_state, shard_state(state, K),
-            rows_of(state, K, *inputs), B // K, S, _split_batch(dense_x, K),
-            _split_batch(labels, K), routing, cap_factor, pre_dedup, push_fn)
+        if mesh.is_process_mesh:
+            new_p, new_o, loss, ov = collectives.run_ranks(mesh, lambda r: body(
+                _Ranks(K, [r], axis), params, opt_state, [state], inputs, dense_x, labels))[0]
+        else:
+            new_p, new_o, loss, ov = body(_Ranks(K, range(K)), params, opt_state,
+                                          shard_state(state, K), inputs, dense_x, labels)
         return new_p, new_o, state, loss, ov
 
     return step
 
 
 def _keyed_rows(lookup: Callable, slot_hi: torch.Tensor) -> Callable:
-    """``rows_of`` for the key-fed steps: each rank probes its slice of
+    """``rows_of`` for the key-fed steps: each held rank probes its slice of
     ``keys_lo`` [B, S] (slot-tagged: the hi half is the column's
     ``slot_hi``) with ``lookup(map_state, hi, lo)`` (rows, −1 = missing);
     a missing key becomes the sentinel, the global capacity (no owner)."""
 
-    def rows_of(state, K, map_state, keys_lo):
+    def rows_of(C_total, ranks, K, map_state, keys_lo):
         B, S = keys_lo.shape
-        C_total = state["embed_w"].shape[0]
         hi = slot_hi[None, :].expand(B // K, S).reshape(-1)
+        slices = _split_batch(keys_lo, K)
         rows = []
-        for lo in _split_batch(keys_lo, K):
-            r = lookup(map_state, hi, lo.reshape(-1))
-            rows.append(torch.where(r >= 0, r, C_total))
+        for r in ranks:
+            got = lookup(map_state, hi, slices[r].reshape(-1))
+            rows.append(torch.where(got >= 0, got, C_total))
         return rows
 
     return rows_of
@@ -488,7 +598,9 @@ def make_sharded_ctr_train_step(model: nn.Module, optimizer, cache_cfg: CacheCon
                                 mesh: Mesh, axis: str = "ps", routing="auto",
                                 cap_factor: float = 2.0, pre_dedup: bool = True) -> Callable:
     """The GPUPS step with the batch split over ``axis`` and the cache
-    row-sharded over the same shards (``mesh.device`` holds them all):
+    row-sharded over the same shards (``mesh.device`` holds them all on a
+    mesh of logical ranks; on a process mesh each process passes its own
+    ``C/K``-row block as ``cache_state`` and the global batch):
 
     step(params, opt_state, cache_state, rows [B, S], dense_x, labels)
       → (params, opt_state, cache_state, loss, overflow)
@@ -499,7 +611,8 @@ def make_sharded_ctr_train_step(model: nn.Module, optimizer, cache_cfg: CacheCon
     "auto" (:func:`select_routing`). ``overflow`` is an int32 device
     scalar, 0 unless a routed bucket dropped entries
     (:func:`check_route_overflow`)."""
-    rows_of = lambda state, K, rows: [r.reshape(-1) for r in _split_batch(rows, K)]
+    rows_of = lambda C_total, ranks, K, rows: [_split_batch(rows, K)[r].reshape(-1)
+                                               for r in ranks]
     return _make_sharded_step(model, optimizer, cache_cfg, mesh, axis, routing, cap_factor,
                               pre_dedup, rows_of)
 
